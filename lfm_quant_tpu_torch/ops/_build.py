@@ -1,0 +1,170 @@
+"""Build, load and count the port's CUDA kernels.
+
+``library()`` compiles every ``csrc/*.cu`` source with ``nvcc`` for
+``sm_90a`` at first use (one ``nvcc`` per source, all started together,
+then one link) into a shared library with a plain C interface under
+``build/lfm_quant_tpu_torch/`` in the checkout, and loads it with
+``ctypes``. The library's name carries a hash of the sources and flags,
+so an edited source is never served by a stale build. Nothing here
+includes PyTorch's headers: pointers and the stream cross as ``c_void_p``.
+
+Every kernel wrapper counts its launches in :data:`LAUNCHES`, one per
+launch and nowhere else, so a run can show which kernels its main path
+went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lfm_quant_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Launches per kernel since the last :func:`reset_launch_counts`.
+LAUNCHES: Dict[str, int] = {
+    "rnn_fused_fwd_lstm": 0,
+    "rnn_fused_fwd_gru": 0,
+    "window_gather": 0,
+}
+
+_count_lock = threading.Lock()
+_build_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: Seconds the build took in this process and the compiler's register and
+#: shared-memory report (``-Xptxas -v``); None until ``library()`` built.
+BUILD_INFO: Dict[str, object] = {"seconds": None, "ptxas": None}
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    with _count_lock:
+        return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(cuda_home, "bin", "nvcc") if cuda_home
+                  else None), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the port's "
+        "kernels are built from csrc/ on the machine with the card")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> Path:
+    """Compile and link the library (if this digest is not built yet)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = _digest()
+    so = BUILD_DIR / f"liblfm_kernels-{digest}.so"
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}-{digest}.o"
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, objs, failed = [], [], []
+    for src, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        objs.append(str(BUILD_DIR / f"{src.stem}-{digest}.o"))
+        if p.returncode != 0:
+            failed.append(src.name)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    tmp = so.with_suffix(".so.tmp")
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         *objs, "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, so)
+    (BUILD_DIR / f"ptxas-{digest}.log").write_text(log)
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    BUILD_INFO["ptxas"] = log
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _build_lock:
+        if _lib is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("the port's kernels need a CUDA device")
+            so = _build()
+            lib = ctypes.CDLL(str(so))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.lfm_rnn_fused_fwd.argtypes = [
+                ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                ctypes.c_float, vp]
+            lib.lfm_rnn_fused_fwd.restype = ci
+            lib.lfm_rnn_fused_fwd_smem.argtypes = [ci, ci]
+            lib.lfm_rnn_fused_fwd_smem.restype = ctypes.c_longlong
+            lib.lfm_window_gather.argtypes = [
+                ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+            lib.lfm_window_gather.restype = ci
+            lib.lfm_cuda_error_string.argtypes = [ci]
+            lib.lfm_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.lfm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The C entry points' dtype argument."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream

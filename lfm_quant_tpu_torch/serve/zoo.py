@@ -1,0 +1,163 @@
+"""The model zoo: many (universe, generation) models resident on the card.
+
+Port of ``lfm_quant_tpu/serve/zoo.py``. A :class:`ZooEntry` is one
+servable generation: a :class:`~lfm_quant_tpu_torch.train.loop.Predictor`
+(model, params, device panel) plus its serving pools, built with
+``require_target=False`` so the live months are servable. The JAX
+package compiles one program per request-shape bucket (``ServePrograms``);
+PyTorch runs eagerly, so an entry scores any bucket through the same
+predictor and there is no per-bucket program to cache.
+
+Lifecycle, all under the zoo's lock: the batcher scores through
+:meth:`ModelZoo.lease`, which pins the entry for the dispatch; a publish
+or an LRU eviction unlinks an entry at once (new requests route to the
+new generation or miss) and releases its device memory only when its
+last lease drains.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from lfm_quant_tpu_torch.data.windows import DateBatchSampler
+from lfm_quant_tpu_torch.serve.buckets import width_ladder
+
+
+class ZooEntry:
+    """One servable (universe, generation) model resident on the device."""
+
+    def __init__(self, universe: str, generation: int, predictor):
+        self.universe = universe
+        self.generation = int(generation)
+        self.predictor = predictor
+        self.cfg = predictor.cfg
+        self.panel = predictor.panel
+        d = self.cfg.data
+        # Pools over the whole panel, live months included.
+        self._sampler = DateBatchSampler(
+            self.panel, d.window, min_valid_months=d.min_valid_months,
+            require_target=False)
+        months = self._sampler.months_with_anchors()
+        self._month_index: Dict[int, int] = {
+            int(self.panel.dates[t]): int(t) for t in months}
+        self._pool_sizes = {int(t): self._sampler.cross_section(int(t)).size
+                            for t in months}
+        # Zoo bookkeeping (guarded by the zoo's lock).
+        self.refs = 0
+        self.doomed = False
+
+    def serveable_months(self) -> List[int]:
+        """YYYYMM months with a non-empty scoreable cross-section."""
+        return sorted(self._month_index)
+
+    def serveable_cols(self) -> np.ndarray:
+        """Panel columns of the serveable months (int32, sorted)."""
+        return self._sampler.months_with_anchors()
+
+    def month_col(self, yyyymm: int) -> int:
+        """Panel column of a serveable YYYYMM month (the KeyError names
+        the universe — the error a client sees)."""
+        try:
+            return self._month_index[int(yyyymm)]
+        except KeyError:
+            raise KeyError(
+                f"month {yyyymm} is not serveable for universe "
+                f"{self.universe!r} (no eligible cross-section)") from None
+
+    def pool(self, t: int) -> np.ndarray:
+        return self._sampler.cross_section(t)
+
+    def pool_size(self, t: int) -> int:
+        """Memoized pool size: submit needs only the width bucket."""
+        return self._pool_sizes.get(int(t), 0)
+
+    def widths(self) -> List[int]:
+        """Every cross-section bucket this universe's months occupy."""
+        return width_ladder(self._pool_sizes.values())
+
+    def score(self, firm_idx: np.ndarray, time_idx: np.ndarray,
+              weight: np.ndarray) -> np.ndarray:
+        """Served scores for one padded ``[rows, width]`` bucket (weight-0
+        slots zeroed)."""
+        return self.predictor.score(firm_idx, time_idx, weight)
+
+
+class ModelZoo:
+    """The routing table: universe name → current resident generation."""
+
+    def __init__(self, capacity: int):
+        self.capacity = max(1, int(capacity))
+        self._lock = threading.RLock()
+        self._entries: "OrderedDict[str, ZooEntry]" = OrderedDict()
+
+    def universes(self) -> List[str]:
+        with self._lock:
+            return list(self._entries)
+
+    def current(self, universe: str) -> ZooEntry:
+        with self._lock:
+            entry = self._entries.get(universe)
+            if entry is None:
+                raise KeyError(
+                    f"universe {universe!r} is not registered "
+                    f"(resident: {list(self._entries)})")
+            return entry
+
+    @contextlib.contextmanager
+    def lease(self, universe: str):
+        """Pin the universe's current entry for one dispatch. It stays
+        servable for the whole block even if a publish or an eviction
+        unlinks it meanwhile; release waits for the last lease."""
+        with self._lock:
+            entry = self._entries.get(universe)
+            if entry is None:
+                raise KeyError(f"universe {universe!r} is not registered "
+                               f"(resident: {list(self._entries)})")
+            self._entries.move_to_end(universe)  # LRU recency
+            entry.refs += 1
+        try:
+            yield entry
+        finally:
+            with self._lock:
+                entry.refs -= 1
+                dead = entry.doomed and entry.refs == 0
+            if dead:
+                self._decommission(entry)
+
+    def publish(self, entry: ZooEntry) -> Optional[ZooEntry]:
+        """Atomically make ``entry`` the served generation of its
+        universe; returns the replaced entry (already unlinked). A new
+        universe over capacity evicts the least recently leased one."""
+        evicted: List[ZooEntry] = []
+        with self._lock:
+            old = self._entries.get(entry.universe)
+            if old is not None and old.generation >= entry.generation:
+                raise ValueError(
+                    f"universe {entry.universe!r}: generation "
+                    f"{entry.generation} does not advance the served "
+                    f"generation {old.generation}")
+            self._entries[entry.universe] = entry
+            self._entries.move_to_end(entry.universe)
+            if old is not None:
+                old.doomed = True
+                if old.refs == 0:
+                    evicted.append(old)
+            while len(self._entries) > self.capacity:
+                _, lru = self._entries.popitem(last=False)
+                lru.doomed = True
+                if lru.refs == 0:
+                    evicted.append(lru)
+        for e in evicted:
+            self._decommission(e)
+        return old
+
+    @staticmethod
+    def _decommission(entry: ZooEntry) -> None:
+        """Release a dead entry's device memory: dropping the predictor
+        frees its panel and params once nothing else holds them."""
+        entry.predictor = None
