@@ -9,17 +9,33 @@ imports nothing of JAX. Phases, each fatal on failure:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``lfm_quant_tpu_torch/csrc`` and print the
    build time and the compiler's register report;
-3. hold every kernel against its plain PyTorch version on the card,
-   first at small awkward shapes, then at the shapes the serving path
-   gives it (real index batches of the c2 and c3 panels), and time both
-   with CUDA events (TF32 off);
+3. hold every kernel against its plain PyTorch version on the card (TF32
+   off): first at small awkward shapes (odd batch, T = 1, H not a
+   multiple of 4, an all-invalid row, f32 and bf16) — the forward kernels
+   on their outputs, the backward kernels on every gradient (scaled by
+   its largest magnitude: f32 atol 1e-5, bf16 0.05); then at the shapes
+   the main paths give them — the serving dispatches of the c2 and c3
+   panels, and the c2 train step (B 2048, T 60, H 128) on a real index
+   batch from ``stacked_epoch`` — timing kernel and plain version with
+   CUDA events beside the kernel's bound; and two launches of each
+   backward on the same inputs must give bitwise equal weight gradients;
 4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
    GRU universes at full width (random weights from a seed), warmed up,
    then closed-loop requests from 4 threads; every served score vector is
-   checked against the plain path on the card, and every kernel's launch
-   counter must have moved during the run;
-5. print one ``{"kernels": [...]}`` line;
-6. print the result line ``{"ok": true, "device": {...}}`` last.
+   checked against the plain path on the card, and the serving kernels'
+   launch counters must have moved during the run;
+5. train: ``Trainer.fit`` trains c2 (LSTM, full width and data, bf16)
+   for one epoch on the kernels, then the same steps from the same init
+   and sampler order run through the plain path on the card (plain
+   recurrence differentiated by autograd, plain gather); the per-step
+   losses must agree within atol and rtol 0.05 and be finite, and the
+   training kernels' counters must have moved. A few steps of the
+   hoisted form (``scan_impl="pallas"``) and of the GRU at c2's
+   geometry, fused and hoisted, run the same way. Prints steps/s,
+   firm-months/s, ms per step, the forward, backward and optimizer times
+   of one step and the device time by kernel;
+6. print one ``{"kernels": [...]}`` line;
+7. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -35,9 +51,26 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC_REPO = "lfm_quant_tpu/ops"
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM
+H100_F32_FLOPS = 67e12     # f32 outside the tensor cores, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM
 BF16_TOL = 0.05  # atol and rtol: the JAX package's own bf16 bound
 F32_TOL = 1e-5   # atol: the JAX package's f32 bound for the fused op
+GATES = {"lstm": 4, "gru": 3}
+TRAIN_STEPS_SHORT = 4  # steps of the hoisted and GRU training runs
+
+# name → (source in the port, the TPU kernel it replaces)
+SOURCES = {
+    "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
+    "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
+    "rnn_fused_bwd_lstm": ("csrc/rnn_bwd.cu", "pallas_rnn.py:673"),
+    "rnn_fused_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:739"),
+    "rnn_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:135"),
+    "rnn_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:158"),
+    "rnn_bwd_lstm": ("csrc/rnn_bwd.cu", "pallas_rnn.py:184"),
+    "rnn_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:243"),
+    "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
+}
+SERVE_KERNELS = ("rnn_fused_fwd_lstm", "rnn_fused_fwd_gru", "window_gather")
 
 
 def fail(msg: str) -> None:
@@ -73,6 +106,27 @@ def worst_excess(got, want, atol: float, rtol: float):
     g, w = got.float(), want.float()
     err = (g - w).abs()
     return err.max().item(), (err - (atol + rtol * w.abs())).max().item()
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / max |want|: the JAX tests' gradient rule."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().max() / (w.abs().max() + 1e-9)).item()
+
+
+def grads_close(name: str, got, want, dtype) -> float:
+    """Every gradient of a backward within the scaled tolerance; returns
+    the worst scaled error."""
+    import torch
+
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    worst = 0.0
+    for g, w in zip(got, want):
+        err = scaled_err(g, w)
+        if not (err <= tol) or not torch.isfinite(g).all():
+            fail(f"{name}: scaled error {err} over {tol}")
+        worst = max(worst, err)
+    return worst
 
 
 def serving_batch(entry_pools, cols, width: int, rows: int):
@@ -114,47 +168,99 @@ def gather_bound(fi, ti, window: int, fp: int, n_months: int,
     return (read + out) / H100_BYTES_PER_S * 1e3
 
 
-def rnn_bound(cell: str, B: int, T: int, H: int, itemsize: int):
-    """Least time (ms) for the fused recurrence: 4 * G * H * H operations
-    per row and step (the two products) at the bf16 tensor-core peak,
-    against hin in, h out, the mask and the weights at the memory rate."""
-    G = 4 if cell == "lstm" else 3
-    ops = 4.0 * G * H * H * B * T
-    nbytes = 2 * B * T * H * itemsize + B * T + (2 * H + 1) * G * H * itemsize
-    t_ops = ops / H100_BF16_FLOPS * 1e3
+def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
+              itemsize: int):
+    """Least time (ms) of one recurrence kernel call, and what bounds it:
+    its products' operations at the peak for its operand type against
+    each input read once and each output written once at the memory rate.
+
+    Per row and step, one [H] @ [H, G*H] product is 2 G H^2 operations:
+    the fused forward does 2 (x and h side), the hoisted forward 1, the
+    fused backward 6 (2 recomputed, dh and dhin, dW_x and dW_h) and the
+    hoisted backward 3. Bytes: the fused forms stream hin [B,T,H], the
+    hoisted ones xw [B,T,G*H]; the forwards write h (serving: no c); the
+    backwards read h_all, c_all (LSTM) and dh, write dhin or dxw, and the
+    f32 weight gradients."""
+    G = GATES[cell]
+    GH = G * H
+    products = {"fused_fwd": 2, "fwd": 1, "fused_bwd": 6, "bwd": 3}[kind]
+    ops = products * 2.0 * GH * H * B * T
+    seq = B * T * H * itemsize
+    xw = B * T * GH * itemsize
+    weights = (2 * H + 1) * GH * itemsize
+    if kind == "fused_fwd":
+        nbytes = 2 * seq + B * T + weights
+    elif kind == "fwd":
+        nbytes = xw + seq + B * T + H * GH * itemsize
+    else:
+        states = (3 if cell == "lstm" else 2) * seq
+        if kind == "fused_bwd":
+            nbytes = seq + states + seq + weights + (2 * H + 1) * GH * 4
+        else:
+            nbytes = xw + states + xw + H * GH * (itemsize + 4)
+        nbytes += B * T
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def rnn_inputs(torch, gen, cell, B, T, H, dtype):
+    G = GATES[cell] * H
+    hin = torch.randn(B, T, H, generator=gen).to(dtype).cuda()
+    wx = (0.3 * torch.randn(H, G, generator=gen)).to(dtype).cuda()
+    b = (0.1 * torch.randn(G, generator=gen)).to(dtype).cuda()
+    wh = (0.3 * torch.randn(H, G, generator=gen)).to(dtype).cuda()
+    m = (torch.rand(B, T, generator=gen) < 0.75).cuda()
+    m[0] = False  # an all-invalid row stays at the zero state
+    return hin, wx, b, wh, m
+
+
 def check_small(torch, gen) -> None:
     """Kernels against plain versions at small awkward shapes: odd batch,
-    H not a multiple of 4, all-invalid rows, young and tail anchors, a
-    panel shorter than the window, float32 and bfloat16."""
+    T = 1, H not a multiple of 4, all-invalid rows, young and tail
+    anchors, a panel shorter than the window, float32 and bfloat16."""
     from lfm_quant_tpu_torch.data.windows import gather_windows_packed
+    from lfm_quant_tpu_torch.ops import rnn as R
     from lfm_quant_tpu_torch.ops.gather import gather_windows
-    from lfm_quant_tpu_torch.ops.rnn import (
-        rnn_scan_fused,
-        rnn_scan_fused_reference,
-    )
 
-    for cell, G in (("lstm", 4), ("gru", 3)):
+    for cell in ("lstm", "gru"):
         for dt, atol, rtol in ((torch.float32, F32_TOL, 0.0),
                                (torch.bfloat16, BF16_TOL, BF16_TOL)):
-            for B, T, H in ((13, 7, 12), (37, 5, 16), (3, 9, 8)):
-                hin = torch.randn(B, T, H, generator=gen).to(dt).cuda()
-                wx = (0.3 * torch.randn(H, G * H, generator=gen)).to(dt).cuda()
-                b = (0.1 * torch.randn(G * H, generator=gen)).to(dt).cuda()
-                wh = (0.3 * torch.randn(H, G * H, generator=gen)).to(dt).cuda()
-                m = (torch.rand(B, T, generator=gen) < 0.75).cuda()
-                m[0] = False  # an all-invalid row stays at the zero state
-                out = rnn_scan_fused(cell, hin, wx, b, wh, m)
-                ref = rnn_scan_fused_reference(cell, hin, wx, b, wh, m)
-                torch.cuda.synchronize()
-                err, excess = worst_excess(out, ref, atol, rtol)
-                if excess > 0 or out[0].abs().max().item() != 0:
-                    fail(f"rnn {cell} {dt} {(B, T, H)}: max err {err}")
+            for B, T, H in ((13, 7, 12), (37, 1, 16), (3, 9, 8)):
+                hin, wx, b, wh, m = rnn_inputs(torch, gen, cell, B, T, H, dt)
+                xw = (hin.float() @ wx.float() + b.float()).to(dt)
+                with torch.no_grad():
+                    pairs = (
+                        ("fused fwd", R.rnn_scan_fused(cell, hin, wx, b, wh, m),
+                         R.rnn_scan_fused_reference(cell, hin, wx, b, wh, m)),
+                        ("fwd", R.rnn_scan(cell, xw, wh, m),
+                         R.rnn_scan_reference(cell, xw, wh, m)))
+                for form, out, ref in pairs:
+                    torch.cuda.synchronize()
+                    err, excess = worst_excess(out, ref, atol, rtol)
+                    if excess > 0 or out[0].abs().max().item() != 0:
+                        fail(f"rnn {form} {cell} {dt} {(B, T, H)}: max err "
+                             f"{err}")
+                # The backwards on saved states from the plain forward.
+                dh = torch.randn(B, T, H, generator=gen).to(dt).cuda()
+                h, c = R.rnn_scan_states(
+                    cell, hin.float() @ wx.float() + b.float(), wh, m)
+                h, c = h.to(dt), (None if c is None else c.to(dt))
+                e4 = grads_close(
+                    f"fused bwd {cell} {dt} {(B, T, H)}",
+                    R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh),
+                    R.rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m,
+                                                   h, c, dh), dt)
+                hx, cx = R.rnn_scan_states(cell, xw, wh, m)
+                e2 = grads_close(
+                    f"bwd {cell} {dt} {(B, T, H)}",
+                    R.rnn_scan_bwd(cell, xw, wh, m, hx, cx, dh),
+                    R.rnn_scan_bwd_reference(cell, xw, wh, m, hx, cx, dh),
+                    dt)
                 log(f"small rnn {cell} {str(dt)[6:]} B,T,H={(B, T, H)} "
-                    f"max_abs_err={err:.3g} ok")
+                    f"fwd ok, bwd scaled err fused {e4:.3g} hoisted "
+                    f"{e2:.3g} ok")
     for dt in (torch.float32, torch.bfloat16):
         for N, T, fp, W, D, Bf in ((7, 23, 4, 9, 5, 13), (7, 5, 4, 9, 3, 6),
                                    (11, 64, 6, 60, 4, 33)):
@@ -175,24 +281,116 @@ def check_small(torch, gen) -> None:
                 f"{(N, T, fp, W, D, Bf)} exact ok")
 
 
-def report(kernels: dict, name: str, universe: str, rec: dict) -> None:
+def report(kernels: dict, name: str, where: str, rec: dict) -> None:
     """Keep one kernel measurement and print it as a JSON line."""
     kernels.setdefault(name, []).append(rec)
-    log("kernel " + json.dumps(dict(name=name, universe=universe, **rec)))
+    log("kernel " + json.dumps(dict(name=name, at=where, **rec)))
 
 
-def profile_serving(torch, service, drive_load) -> None:
-    """Where a served request's time goes: device time by kernel name over
-    a closed-loop c2 load under ``torch.profiler``, and the device's busy
-    share of the wall time (summed kernel times over the wall clock).
-    Informational: it runs after the launch counts were read."""
+def check_train_shapes(torch, trainer, kernels, gen) -> None:
+    """Rows 1, 2 and 4 at the c2 train step's shape: the layer-0 input of
+    a real index batch (the first batch of ``stacked_epoch(0)``), LSTM
+    with the model's own weights and GRU with seeded ones, bf16. Each
+    kernel against its plain version, timed beside its bound; each
+    backward twice for bitwise equal weight gradients."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    b = trainer.train_sampler.stacked_epoch(0)
+    fi = torch.from_numpy(b.firm_idx[0]).cuda()
+    ti = torch.from_numpy(b.time_idx[0]).cuda()
+    model = trainer.model
+    cd = model.dtype
+    H = model.hidden
+    with torch.no_grad():
+        x, m = trainer._gather(fi, ti)
+        W = x.shape[-2]
+        B = x.shape[0] * x.shape[1]
+        hin = model.embed(x.reshape(B, W, -1), dtype=cd)
+        mm = m.reshape(B, W)
+    isz = hin.element_size()
+    shape = [B, W, H]
+    for cell in ("lstm", "gru"):
+        G = GATES[cell] * H
+        if cell == "lstm":
+            wx = model.xproj[0].kernel.detach().to(cd)
+            bb = model.xproj[0].bias.detach().to(cd)
+            wh = model.h_proj[0].detach().to(cd)
+        else:
+            sd = H ** -0.5
+            wx = (sd * torch.randn(H, G, generator=gen)).to(cd).cuda()
+            bb = (0.1 * torch.randn(G, generator=gen)).to(cd).cuda()
+            wh = (sd * torch.randn(H, G, generator=gen)).to(cd).cuda()
+        dh = (0.1 * torch.randn(B, W, H, generator=gen)).to(cd).cuda()
+        with torch.no_grad():
+            xw = (hin.float() @ wx.float() + bb.float()).to(cd)
+            # Row 1, the hoisted forward.
+            out = R.rnn_scan(cell, xw, wh, mm)
+            ref = R.rnn_scan_reference(cell, xw, wh, mm)
+            torch.cuda.synchronize()
+            err, excess = worst_excess(out, ref, BF16_TOL, BF16_TOL)
+            if excess > 0 or not torch.isfinite(out).all():
+                fail(f"rnn fwd {cell} at the train shape: max err {err}")
+            bound, by = rnn_bound("fwd", cell, B, W, H, isz)
+            report(kernels, f"rnn_fwd_{cell}", "c2 train step", dict(
+                shape=shape, max_abs_err=err,
+                tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
+                ms=time_ms(lambda: R.rnn_scan(cell, xw, wh, mm)),
+                plain_ms=time_ms(lambda: R.rnn_scan_reference(
+                    cell, xw, wh, mm), reps=3, warmup=1),
+                bound_ms=bound, bound_by=by))
+            del out, ref
+            # Row 4, the fused backward, on the plain forward's states.
+            h, c = R.rnn_scan_states(
+                cell, hin.float() @ wx.float() + bb.float(), wh, mm)
+            h, c = h.to(cd), (None if c is None else c.to(cd))
+            args = (cell, hin, wx, bb, wh, mm, h, c, dh)
+            one = R.rnn_scan_fused_bwd(*args)
+            two = R.rnn_scan_fused_bwd(*args)
+            if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
+                fail(f"rnn fused bwd {cell}: two launches differ")
+            err = grads_close(f"fused bwd {cell} at the train shape", one,
+                              R.rnn_scan_fused_bwd_reference(*args), cd)
+            bound, by = rnn_bound("fused_bwd", cell, B, W, H, isz)
+            report(kernels, f"rnn_fused_bwd_{cell}", "c2 train step", dict(
+                shape=shape, max_abs_err=err, bitwise_repeatable=True,
+                tolerance=f"scaled atol {BF16_TOL}",
+                ms=time_ms(lambda: R.rnn_scan_fused_bwd(*args), reps=5),
+                plain_ms=time_ms(lambda: R.rnn_scan_fused_bwd_reference(
+                    *args), reps=3, warmup=1),
+                bound_ms=bound, bound_by=by))
+            del one, two, h, c
+            # Row 2, the hoisted backward.
+            hx, cx = R.rnn_scan_states(cell, xw, wh, mm)
+            args = (cell, xw, wh, mm, hx, cx, dh)
+            one = R.rnn_scan_bwd(*args)
+            two = R.rnn_scan_bwd(*args)
+            if not torch.equal(one[1], two[1]):
+                fail(f"rnn bwd {cell}: two launches differ")
+            err = grads_close(f"bwd {cell} at the train shape", one,
+                              R.rnn_scan_bwd_reference(*args), cd)
+            bound, by = rnn_bound("bwd", cell, B, W, H, isz)
+            report(kernels, f"rnn_bwd_{cell}", "c2 train step", dict(
+                shape=shape, max_abs_err=err, bitwise_repeatable=True,
+                tolerance=f"scaled atol {BF16_TOL}",
+                ms=time_ms(lambda: R.rnn_scan_bwd(*args), reps=5),
+                plain_ms=time_ms(lambda: R.rnn_scan_bwd_reference(*args),
+                                 reps=3, warmup=1),
+                bound_ms=bound, bound_by=by))
+            del one, two, hx, cx, xw
+    torch.cuda.empty_cache()
+
+
+def profile_device(torch, fn, label: str) -> None:
+    """Device time by kernel name over ``fn`` under ``torch.profiler``,
+    and the device's busy share of the wall time (summed kernel times over
+    the wall clock). Informational: it runs after the launch counts were
+    read."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    drive_load(service, "c2", 8, 4)  # warm the profiler's own path
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        drive_load(service, "c2", 32, 4, seed=1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -206,12 +404,179 @@ def profile_serving(torch, service, drive_load) -> None:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
     busy = sum(by_name.values())
     if not busy:
-        log("profile: no device time in the trace (not measured)")
+        log(f"profile {label}: no device time in the trace (not measured)")
         return
-    log(f"profile c2, 32 requests from 4 threads: wall {wall_ms:.2f} ms, "
-        f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%)")
+    log(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} "
+        f"ms ({100 * busy / wall_ms:.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+
+
+def counted(label: str, must_move, fn):
+    """Run one main path with every launch counter set to 0 just before
+    and read just after; fail if a kernel of the path did not launch."""
+    from lfm_quant_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    counts = _build.launch_counts()
+    log(f"launches during {label}: "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    for k in must_move:
+        if counts[k] == 0:
+            fail(f"kernel {k} was not launched by the {label} path")
+    return out, counts
+
+
+def train_variant(cfg, **model_changes):
+    """``cfg`` with its model config changed (kind, scan_impl)."""
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **model_changes))
+
+
+def plain_variant(cfg):
+    """The plain path of ``cfg``: plain recurrence (autograd) and gather."""
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, gather_impl="xla"),
+        model=dataclasses.replace(cfg.model, scan_impl="xla"))
+
+
+def losses_agree(label: str, got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not (np.isfinite(got).all()
+                                       and np.isfinite(want).all()):
+        fail(f"{label}: losses {got} / {want} not finite of one shape")
+    err = np.abs(got - want)
+    if (err > BF16_TOL + BF16_TOL * np.abs(want)).any():
+        fail(f"{label}: per-step losses differ from the plain path by up "
+             f"to {err.max()}")
+    return float(err.max())
+
+
+def short_run(torch, cfg, splits, n_steps: int):
+    """``n_steps`` train steps of a fresh Trainer on the card from the
+    seeded init and the epoch-0 sampler order → per-step losses."""
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, splits, device="cuda")
+    state = trainer.init_state()
+    b = trainer.train_sampler.stacked_epoch(0)
+    fi, ti, w = trainer._batch(b)
+    losses = []
+    for k in range(n_steps):
+        state, ms = trainer.step(state, fi[k], ti[k], w[k])
+        losses.append(ms["loss"])
+    return [float(v) for v in torch.stack(losses).cpu()]
+
+
+def profile_step(torch, trainer, state, fi, ti, w) -> None:
+    """The forward (gather, model, loss), backward and optimizer times of
+    one train step, with CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    keys = list(state.params)
+    trainer.model.train()
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss = trainer._loss(fi, ti, w)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, [state.params[k] for k in keys])
+    ev[2].record()
+    trainer.opt.step(state.params, dict(zip(keys, grads)), state.opt_state)
+    ev[3].record()
+    ev[3].synchronize()
+    log(f"one c2 step: forward {ev[0].elapsed_time(ev[1]):.3f} ms, "
+        f"backward {ev[1].elapsed_time(ev[2]):.3f} ms, optimizer "
+        f"{ev[2].elapsed_time(ev[3]):.3f} ms")
+
+
+def train_phase(torch, cfg, splits, totals: dict) -> None:
+    """Phase 5: c2 for one epoch on the kernels against the plain path,
+    then the short hoisted and GRU runs."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    cfg = dataclasses.replace(
+        cfg, optim=dataclasses.replace(cfg.optim, epochs=1))
+    trainer = Trainer(cfg, splits, device="cuda")
+    K = trainer._steps_per_epoch
+    t0 = time.perf_counter()
+    summary, counts = counted(
+        "c2 training (fused)", ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm",
+                                "window_gather"), trainer.fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, n in counts.items():
+        totals[k] += n
+    rec = summary["history"][0]
+    log(f"train c2 (kernels): {K} steps + val sweep in {wall:.3f} s; "
+        f"train_loss {rec['train_loss']:.6f} grad_norm "
+        f"{rec['grad_norm']:.6f} val_ic {rec['val_ic']:.6f} val_mse "
+        f"{rec['val_mse']:.6f}; {summary['firm_months_per_sec']:.1f} "
+        f"firm-months/s over the epoch")
+    plain = Trainer(plain_variant(cfg), splits, device="cuda")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    plain_summary = plain.fit()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    if any(_build.launch_counts().values()):
+        fail(f"the plain path launched kernels: {_build.launch_counts()}")
+    err = losses_agree("c2 fused vs plain", summary["step_losses"],
+                       plain_summary["step_losses"])
+    prec = plain_summary["history"][0]
+    log(f"train c2 (plain path on the card): {plain_wall:.3f} s; "
+        f"train_loss {prec['train_loss']:.6f} val_ic {prec['val_ic']:.6f}; "
+        f"per-step losses agree within {err:.4g} (tol {BF16_TOL} + "
+        f"{BF16_TOL}|plain|) over {len(summary['step_losses'])} steps")
+
+    # Steady-state step time, one profiled step and the device's view.
+    state = trainer.state
+    b = trainer.train_sampler.stacked_epoch(1)
+    fi, ti, w = trainer._batch(b)
+    n = min(8, K)
+
+    def steps():
+        s = state
+        for k in range(n):
+            s, _ = trainer.step(s, fi[k], ti[k], w[k])
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    fm = float(b.weight[:n].sum()) * cfg.data.window / n
+    log(f"train c2 steady state: {1e3 * per_step:.3f} ms/step, "
+        f"{1 / per_step:.2f} steps/s, {fm / per_step:.1f} firm-months/s "
+        f"({n} steps, host clock around synchronized work)")
+    profile_step(torch, trainer, state, fi[0], ti[0], w[0])
+    profile_device(torch, steps, f"c2 train, {n} steps")
+    del trainer, plain
+    torch.cuda.empty_cache()
+
+    # The hoisted form and the GRU at c2's geometry: a few steps each.
+    runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
+            ("GRU training (fused)", train_variant(cfg, kind="gru"),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather")),
+            ("GRU training (hoisted)",
+             train_variant(cfg, kind="gru", scan_impl="pallas"),
+             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather")))
+    for label, run_cfg, must in runs:
+        got, counts = counted(label, must, lambda: short_run(
+            torch, run_cfg, splits, TRAIN_STEPS_SHORT))
+        for k, n_launch in counts.items():
+            totals[k] += n_launch
+        want = short_run(torch, plain_variant(run_cfg), splits,
+                         TRAIN_STEPS_SHORT)
+        err = losses_agree(label, got, want)
+        log(f"{label}: {TRAIN_STEPS_SHORT} steps, losses "
+            f"{[round(v, 6) for v in got]} agree with the plain path within "
+            f"{err:.4g}")
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -240,6 +605,7 @@ def main() -> int:
 
     from lfm_quant_tpu_torch.buckets import width_ladder
     from lfm_quant_tpu_torch.config import get_preset
+    from lfm_quant_tpu_torch.data.panel import PanelSplits
     from lfm_quant_tpu_torch.data.windows import (
         DateBatchSampler,
         gather_windows_packed,
@@ -252,7 +618,12 @@ def main() -> int:
     )
     from lfm_quant_tpu_torch.serve import ScoringService
     from lfm_quant_tpu_torch.serve.__main__ import drive_load
-    from lfm_quant_tpu_torch.train.loop import Predictor, resolve_panel
+    from lfm_quant_tpu_torch.train.loop import (
+        Predictor,
+        Trainer,
+        default_split_dates,
+        resolve_panel,
+    )
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -274,10 +645,7 @@ def main() -> int:
         cfg = get_preset(name)
         t0 = time.perf_counter()
         panel = resolve_panel(cfg.data)
-        plain_cfg = dataclasses.replace(
-            cfg, data=dataclasses.replace(cfg.data, gather_impl="xla"),
-            model=dataclasses.replace(cfg.model, scan_impl="xla"))
-        universes[name] = (cfg, panel, Predictor(plain_cfg, panel))
+        universes[name] = (cfg, panel, Predictor(plain_variant(cfg), panel))
         log(f"{name}: panel {panel.features.shape} built in "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -286,8 +654,9 @@ def main() -> int:
     for name, cell in (("c2", "lstm"), ("c3", "gru")):
         cfg, panel, plain = universes[name]
         d = cfg.data
-        sampler = DateBatchSampler(panel, d.window, d.min_valid_months,
-                                   require_target=False)
+        sampler = DateBatchSampler(panel, d.window, 1, 8,
+                                   min_valid_months=d.min_valid_months,
+                                   min_cross_section=1, require_target=False)
         cols = sampler.months_with_anchors()
         width = max(width_ladder(sampler.cross_section(int(t)).size
                                  for t in cols))
@@ -304,15 +673,14 @@ def main() -> int:
             torch.cuda.synchronize()
             if not (torch.equal(x, xr) and torch.equal(m, mr)):
                 fail(f"gather at the {name} dispatch shape differs")
-            g_ms = time_ms(lambda: gather_windows(xm, fi, ti, d.window,
-                                                  fp=fp))
-            g_plain = time_ms(lambda: gather_windows_packed(
-                xm, fi, ti, d.window, fp=fp))
-            g_bound = gather_bound(fi_np, ti_np, d.window, fp,
-                                   panel.n_months, xm.element_size())
-            report(kernels, "window_gather", name, dict(
+            report(kernels, "window_gather", f"{name} serving", dict(
                 shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
-                ms=g_ms, plain_ms=g_plain, bound_ms=g_bound,
+                ms=time_ms(lambda: gather_windows(xm, fi, ti, d.window,
+                                                  fp=fp)),
+                plain_ms=time_ms(lambda: gather_windows_packed(
+                    xm, fi, ti, d.window, fp=fp)),
+                bound_ms=gather_bound(fi_np, ti_np, d.window, fp,
+                                      panel.n_months, xm.element_size()),
                 bound_by="bytes"))
             # The recurrence on the layer-0 input this batch produces.
             model = plain.model
@@ -329,48 +697,28 @@ def main() -> int:
             err, excess = worst_excess(out, ref, BF16_TOL, BF16_TOL)
             if excess > 0 or not torch.isfinite(out).all():
                 fail(f"rnn {cell} at B={B}: max err {err}")
-            r_ms = time_ms(lambda: rnn_scan_fused(cell, hin, wx, b, wh, mm))
-            r_plain = time_ms(lambda: rnn_scan_fused_reference(
-                cell, hin, wx, b, wh, mm), reps=5)
-            r_bound, r_by = rnn_bound(cell, B, d.window, model.hidden,
-                                      hin.element_size())
-            report(kernels, f"rnn_fused_fwd_{cell}", name, dict(
+            r_bound, r_by = rnn_bound("fused_fwd", cell, B, d.window,
+                                      model.hidden, hin.element_size())
+            report(kernels, f"rnn_fused_fwd_{cell}", f"{name} serving", dict(
                 shape=list(hin.shape), max_abs_err=err,
-                tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}", ms=r_ms,
-                plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by))
+                tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
+                ms=time_ms(lambda: rnn_scan_fused(cell, hin, wx, b, wh, mm)),
+                plain_ms=time_ms(lambda: rnn_scan_fused_reference(
+                    cell, hin, wx, b, wh, mm), reps=5),
+                bound_ms=r_bound, bound_by=r_by))
             del x, xr, m, mr, hin, out, ref
         torch.cuda.empty_cache()
 
-    # The c2 dispatch at 8 rows of 4096 (32768 sequences), both cells.
-    cfg, panel, plain = universes["c2"]
-    with torch.inference_mode():
-        B, T, H = 32768, cfg.data.window, 128
-        hin = (0.5 * torch.randn(B, T, H, generator=gen)).to(
-            torch.bfloat16).cuda()
-        mm = (torch.rand(B, T, generator=gen) < 0.9).cuda()
-        for cell, G in (("lstm", 4), ("gru", 3)):
-            sd = H ** -0.5
-            wx = (sd * torch.randn(H, G * H, generator=gen)).to(
-                torch.bfloat16).cuda()
-            wh = (sd * torch.randn(H, G * H, generator=gen)).to(
-                torch.bfloat16).cuda()
-            b = torch.zeros(G * H, dtype=torch.bfloat16, device="cuda")
-            out = rnn_scan_fused(cell, hin, wx, b, wh, mm)
-            ref = rnn_scan_fused_reference(cell, hin, wx, b, wh, mm)
-            torch.cuda.synchronize()
-            err, excess = worst_excess(out, ref, BF16_TOL, BF16_TOL)
-            if excess > 0:
-                fail(f"rnn {cell} at B=32768: max err {err}")
-            r_ms = time_ms(lambda: rnn_scan_fused(cell, hin, wx, b, wh, mm),
-                           reps=5)
-            r_bound, r_by = rnn_bound(cell, B, T, H, 2)
-            log(f"rnn {cell} B,T,H=(32768, {T}, {H}) random inputs "
-                f"max_abs_err={err:.4g}: kernel {r_ms:.3f} ms, bound "
-                f"{r_bound:.4f} ms ({r_by})")
-        del hin, mm, out, ref
-    torch.cuda.empty_cache()
+    # The train step's shapes: a c2 trainer on the card (seeded init).
+    cfg2, panel2, _ = universes["c2"]
+    splits2 = PanelSplits.by_date(
+        panel2, *default_split_dates(panel2, cfg2.data),
+        train_start=cfg2.data.train_start)
+    check_train_shapes(torch, Trainer(cfg2, splits2, device="cuda"),
+                       kernels, gen)
 
     # ---- 4. serve ---------------------------------------------------------
+    totals = dict.fromkeys(_build.LAUNCHES, 0)
     served = {}
     with ScoringService(device="cuda", max_rows=max_rows) as service:
         for name, (cfg, panel, _) in universes.items():
@@ -379,32 +727,35 @@ def main() -> int:
             torch.cuda.synchronize()
             log(f"{name}: registered and warmed in "
                 f"{time.perf_counter() - t0:.1f} s")
-        _build.reset_launch_counts()
-        for name, n_requests in (("c2", 64), ("c3", 32)):
-            service.reset_stats()
-            t0 = time.perf_counter()
-            served[name] = drive_load(service, name, n_requests, 4)
-            wall = time.perf_counter() - t0
-            st = service.stats()
-            log(f"serve {name}: {st['completed']} requests in {wall:.3f} s, "
-                f"{st['req_per_s']:.2f} req/s, p50 {st['p50_ms']:.3f} ms, "
-                f"p99 {st['p99_ms']:.3f} ms, occupancy "
-                f"{st['mean_occupancy']:.3f}, batches {st['batches']}")
-            if st["completed"] != n_requests or st["dispatch_errors"]:
-                fail(f"serve {name}: {st}")
-        launches = _build.launch_counts()
-        profile_serving(torch, service, drive_load)
-    log(f"launches during serving: {launches}")
-    for k, n in launches.items():
-        if n == 0:
-            fail(f"kernel {k} was not launched by the serving path")
+
+        def serve_all():
+            for name, n_requests in (("c2", 48), ("c3", 24)):
+                service.reset_stats()
+                t0 = time.perf_counter()
+                served[name] = drive_load(service, name, n_requests, 4)
+                wall = time.perf_counter() - t0
+                st = service.stats()
+                log(f"serve {name}: {st['completed']} requests in "
+                    f"{wall:.3f} s, {st['req_per_s']:.2f} req/s, p50 "
+                    f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms, "
+                    f"occupancy {st['mean_occupancy']:.3f}, batches "
+                    f"{st['batches']}")
+                if st["completed"] != n_requests or st["dispatch_errors"]:
+                    fail(f"serve {name}: {st}")
+
+        _, counts = counted("serving", SERVE_KERNELS, serve_all)
+        for k, n in counts.items():
+            totals[k] += n
+        profile_device(torch, lambda: drive_load(service, "c2", 32, 4,
+                                                 seed=1),
+                       "c2 serving, 32 requests from 4 threads")
 
     worst = 0.0
     for name, responses in served.items():
         cfg, panel, plain = universes[name]
-        sampler = DateBatchSampler(panel, cfg.data.window,
-                                   cfg.data.min_valid_months,
-                                   require_target=False)
+        sampler = DateBatchSampler(panel, cfg.data.window, 1, 8,
+                                   min_valid_months=cfg.data.min_valid_months,
+                                   min_cross_section=1, require_target=False)
         col = {int(panel.dates[t]): int(t)
                for t in sampler.months_with_anchors()}
         for resp in responses:
@@ -426,25 +777,26 @@ def main() -> int:
     log(f"served scores match the plain path on the card: max abs err "
         f"{worst:.4g} (tol {BF16_TOL} + {BF16_TOL}|plain|) over "
         f"{sum(len(v) for v in served.values())} responses")
+    del universes, served
+    torch.cuda.empty_cache()
 
-    # ---- 5. kernels line ------------------------------------------------
-    sources = {
-        "rnn_fused_fwd_lstm": ("lfm_quant_tpu_torch/csrc/rnn_fused_fwd.cu",
-                               f"{SRC_REPO}/pallas_rnn.py:626"),
-        "rnn_fused_fwd_gru": ("lfm_quant_tpu_torch/csrc/rnn_fused_fwd.cu",
-                              f"{SRC_REPO}/pallas_rnn.py:652"),
-        "window_gather": ("lfm_quant_tpu_torch/csrc/window_gather.cu",
-                          f"{SRC_REPO}/pallas_gather.py:100"),
-    }
+    # ---- 5. train ---------------------------------------------------------
+    train_phase(torch, cfg2, splits2, totals)
+
+    # ---- 6. kernels line ------------------------------------------------
     line = []
-    for k, (src, rep) in sources.items():
-        # The largest dispatch shape the serving path gave the kernel.
+    for k, (src, rep) in SOURCES.items():
+        # The largest shape the main paths gave the kernel.
         meas = max(kernels[k], key=lambda r: int(np.prod(r["shape"])))
-        line.append(dict(name=k, route="cuda", source=src, replaces=rep,
-                         launches=launches[k], library_ms=None, **meas))
+        meas = {f: meas[f] for f in ("shape", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by")}
+        line.append(dict(name=k, route="cuda",
+                         source=f"lfm_quant_tpu_torch/{src}",
+                         replaces=f"{SRC_REPO}/{rep}", launches=totals[k],
+                         library_ms=None, **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 6. result ------------------------------------------------------
+    # ---- 7. result ------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -66,7 +66,9 @@ class DataConfig:
     het_noise: float = 0.0
     sampler_engine: str = "python"
     # Window gather: "auto" and "pallas" pick the hand-written gather
-    # kernel (ops/gather.py) on the card; "xla" the plain gather.
+    # kernel (ops/gather.py) on the card for serving and the train step;
+    # the validation sweep takes it only for "pallas" (as the JAX
+    # trainer); "xla" the plain gather everywhere.
     gather_impl: str = "auto"  # auto | xla | pallas
     derived_features: Tuple[str, ...] = ()
 
@@ -241,10 +243,11 @@ def model_kwargs(cfg: RunConfig) -> Tuple[str, Dict[str, Any]]:
     arguments.
 
     ``scan_impl``: "auto" and "pallas_fused" select the fused recurrence
-    (``ops/rnn.py rnn_scan_fused``: the hand-written kernel for tensors on
-    the card, its plain version for tensors on the CPU); "xla" selects the
-    plain recurrence on any device. "pallas", the recurrence over a
-    hoisted input projection, has no kernel in the port yet.
+    (``ops/rnn.py rnn_scan_fused``: the hand-written kernels for tensors
+    on the card, their plain versions for tensors on the CPU); "pallas"
+    the recurrence over a hoisted input projection (``rnn_scan``, the
+    same split); "xla" the plain recurrence on any device, differentiated
+    by autograd.
     """
     kw = dict(cfg.model.kwargs)
     if compute_dtype(cfg) is not None:
@@ -258,9 +261,7 @@ def model_kwargs(cfg: RunConfig) -> Tuple[str, Dict[str, Any]]:
         elif impl == "xla":
             kw["scan_impl"] = "plain"
         elif impl == "pallas":
-            raise NotImplementedError(
-                "scan_impl='pallas' (the recurrence over a hoisted input "
-                "projection) is not ported yet: ROADMAP.md Queue B row 1")
+            kw["scan_impl"] = "hoisted"
         else:
             raise ValueError(
                 "scan_impl must be auto|xla|pallas|pallas_fused, got "

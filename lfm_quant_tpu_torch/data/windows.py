@@ -1,7 +1,8 @@
-"""Windowing: anchor eligibility, serving pools, the device panel and the
-plain window gather.
+"""Windowing: anchor eligibility, the date-batch sampler, the device panel
+and the plain window gather.
 
-The port of the serving half of ``lfm_quant_tpu/data/windows.py``. The
+The port of ``lfm_quant_tpu/data/windows.py`` (the Python sampler engine,
+the serving pools and the eval sweep; not the geometry buckets). The
 panel lives on the device as one packed tensor ``xm [N, T, F+1]``
 (features with validity appended as the last column) in the compute
 dtype; a batch is an index pair ``firm_idx [D, Bf]`` / ``time_idx [D]``
@@ -20,6 +21,9 @@ import numpy as np
 import torch
 
 from lfm_quant_tpu_torch.data.panel import Panel
+
+#: Full-universe widths from ``2 * FIRM_CHUNK`` up round to this multiple.
+FIRM_CHUNK = 512
 
 
 @dataclasses.dataclass
@@ -59,28 +63,142 @@ def anchor_index(
 
 
 class DateBatchSampler:
-    """Per-month eligible pools over a panel: the part of the JAX
-    package's ``DateBatchSampler`` that serving and the eval sweep read.
-    Training epochs come with the port's training slice."""
+    """Seed-keyed sampler over per-month eligible pools, emitting
+    ``WindowIndex`` batches in the [D, Bf] layout: the JAX package's
+    ``DateBatchSampler`` with its Python engine.
 
-    def __init__(self, panel: Panel, window: int,
+    Every epoch shuffles the eligible training dates and, for each date,
+    samples ``firms_per_date`` eligible firms without replacement; all
+    randomness flows from ``(seed, epoch)`` through the same numpy draws in
+    the same order as the JAX package, so both give the same batches.
+    ``firms_per_date=0`` is full-universe mode: each row carries a date's
+    whole pool, padded to the largest training pool rounded up (to a
+    multiple of ``FIRM_CHUNK`` from ``2 * FIRM_CHUNK`` up, else of 8).
+    ``date_range=(lo, hi)`` bounds the ANCHOR months to panel columns
+    [lo, hi); windows still reach back before ``lo``. Serving and the eval
+    sweep read the pools over every month with an eligible anchor
+    (``months_with_anchors``, ``cross_section``, ``full_cross_sections``).
+
+    ``engine``: "python" or "auto" (which takes the Python engine, as the
+    JAX package does when its native library is not built); "native" is
+    not ported (ROADMAP.md Queue A).
+    """
+
+    def __init__(self, panel: Panel, window: int, dates_per_batch: int,
+                 firms_per_date: int, seed: int = 0,
                  min_valid_months: Optional[int] = None,
-                 require_target: bool = True):
+                 min_cross_section: int = 8,
+                 date_range: Optional[tuple] = None,
+                 engine: str = "python", require_target: bool = True):
         self.window = window
+        self.dates_per_batch = dates_per_batch
+        if firms_per_date < 0:
+            raise ValueError(
+                f"firms_per_date must be >= 0 (0 = full universe), got "
+                f"{firms_per_date}")
+        self.firms_per_date = firms_per_date
+        self.seed = seed
+        if engine == "native":
+            raise NotImplementedError(
+                "sampler_engine='native' (the C++ sampler) is not ported: "
+                "ROADMAP.md Queue A; use 'python' or 'auto'")
+        if engine not in ("python", "auto"):
+            raise ValueError(
+                f"engine must be python|native|auto, got {engine!r}")
+        self.engine = engine
         eligible = anchor_index(panel, window, min_valid_months,
                                 require_target=require_target)
+        # Panel-wide max cross-section, before the date_range bound: the
+        # static eval pad width, the same for every split.
+        self._eval_bf = int(eligible.sum(axis=0).max())
+        if date_range is not None:
+            lo, hi = date_range
+            if not (0 <= lo < hi <= panel.n_months):
+                raise ValueError(
+                    f"date_range {date_range} outside panel months "
+                    f"[0, {panel.n_months})")
+            bounded = np.zeros_like(eligible)
+            bounded[:, lo:hi] = eligible[:, lo:hi]
+            eligible = bounded
         counts = eligible.sum(axis=0)
-        # Panel-wide max cross-section: the static eval pad width.
-        self._eval_bf = int(counts.max())
-        self._all_dates = np.nonzero(counts > 0)[0].astype(np.int32)
-        if self._all_dates.size == 0:
+        self._dates = np.nonzero(counts >= min_cross_section)[0].astype(
+            np.int32)
+        if self._dates.size == 0:
             raise ValueError(
-                "no month has an eligible cross-section; panel too small "
-                f"for window={window}")
+                "no date has an eligible cross-section >= "
+                f"{min_cross_section}; panel too small for window={window}")
+        if self._dates.size < dates_per_batch:
+            raise ValueError(
+                f"dates_per_batch={dates_per_batch} exceeds the "
+                f"{self._dates.size} eligible dates in the panel")
+        # Eval sweeps cover every date with an eligible anchor; the
+        # min_cross_section filter is a training concern only.
+        self._all_dates = np.nonzero(counts > 0)[0].astype(np.int32)
         self._firms_by_date = {
             int(t): np.nonzero(eligible[:, t])[0].astype(np.int32)
             for t in self._all_dates
         }
+        if self.firms_per_date == 0:
+            mx = max(self._firms_by_date[int(t)].size for t in self._dates)
+            mult = FIRM_CHUNK if mx >= 2 * FIRM_CHUNK else 8
+            self.firms_per_date = -(-mx // mult) * mult
+        self._epoch = 0
+
+    @property
+    def n_eligible_dates(self) -> int:
+        return int(self._dates.size)
+
+    def batches_per_epoch(self) -> int:
+        return self._dates.size // self.dates_per_batch
+
+    def epoch(self, epoch: Optional[int] = None) -> Iterator[WindowIndex]:
+        """Iterate one epoch of batches. Deterministic in (seed, epoch)."""
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch, 0xF1B]))
+        order = rng.permutation(self._dates)
+        nb = self.batches_per_epoch()
+        bf = self.firms_per_date
+        D = self.dates_per_batch
+        for b in range(nb):
+            dsel = order[b * D:(b + 1) * D]
+            firm_idx = np.empty((dsel.size, bf), dtype=np.int32)
+            weight = np.ones((dsel.size, bf), dtype=np.float32)
+            for j, t in enumerate(dsel):
+                pool = self._firms_by_date[int(t)]
+                if pool.size >= bf:
+                    firm_idx[j] = rng.choice(pool, size=bf, replace=False)
+                else:
+                    firm_idx[j, :pool.size] = rng.permutation(pool)
+                    firm_idx[j, pool.size:] = pool[
+                        rng.integers(0, pool.size, size=bf - pool.size)]
+                    weight[j, pool.size:] = 0.0
+            yield WindowIndex(firm_idx=firm_idx,
+                              time_idx=dsel.astype(np.int32), weight=weight)
+
+    def stacked_epoch(self, epoch: Optional[int] = None) -> WindowIndex:
+        """One whole epoch as a ``[K, D, Bf]`` index stack."""
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        batches = list(self.epoch(epoch))
+        return WindowIndex(
+            firm_idx=np.stack([b.firm_idx for b in batches]),
+            time_idx=np.stack([b.time_idx for b in batches]),
+            weight=np.stack([b.weight for b in batches]),
+        )
+
+    def stacked_cross_sections(self) -> WindowIndex:
+        """Every eligible cross-section as one ``[M, bf]`` index batch (M
+        months x the panel-wide max pool): the eval sweep's input."""
+        batches = list(self.full_cross_sections())
+        return WindowIndex(
+            firm_idx=np.concatenate([b.firm_idx for b in batches], axis=0),
+            time_idx=np.concatenate([b.time_idx for b in batches], axis=0),
+            weight=np.concatenate([b.weight for b in batches], axis=0),
+        )
 
     def months_with_anchors(self) -> np.ndarray:
         """Month indices (panel columns) with >= 1 eligible anchor (int32,
@@ -128,10 +246,11 @@ def resolve_gather_impl(impl: str) -> str:
 def device_panel(panel: Panel, device: Union[str, torch.device],
                  compute_dtype: Optional[torch.dtype] = None
                  ) -> Dict[str, torch.Tensor]:
-    """Pin the packed panel in device memory: ``{"xm": [N, T, F+1]}``
-    with validity as the last column, in ``compute_dtype`` (bf16 halves
-    the resident bytes and every gather's; the cast rounds to nearest
-    even on the host, as the JAX package's does)."""
+    """Pin the panel in device memory: ``{"xm": [N, T, F+1], "targets":
+    [N, T]}``. ``xm`` packs validity as the last column, in
+    ``compute_dtype`` (bf16 halves the resident bytes and every gather's;
+    the cast rounds to nearest even on the host, as the JAX package's
+    does); the targets stay f32."""
     xm = np.concatenate(
         [panel.features, panel.valid[..., None].astype(panel.features.dtype)],
         axis=-1,
@@ -139,7 +258,8 @@ def device_panel(panel: Panel, device: Union[str, torch.device],
     xm_t = torch.from_numpy(xm)
     if compute_dtype is not None:
         xm_t = xm_t.to(compute_dtype)
-    return {"xm": xm_t.to(device).contiguous()}
+    return {"xm": xm_t.to(device).contiguous(),
+            "targets": torch.from_numpy(panel.targets).to(device)}
 
 
 def gather_windows_packed(xm: torch.Tensor, firm_idx: torch.Tensor,
@@ -168,3 +288,12 @@ def gather_windows_packed(xm: torch.Tensor, firm_idx: torch.Tensor,
     x = torch.where(m[..., None], rows[..., :fp - 1],
                     torch.zeros((), dtype=xm.dtype, device=xm.device))
     return x, m
+
+
+def gather_targets(targets: torch.Tensor, firm_idx: torch.Tensor,
+                   time_idx: torch.Tensor) -> torch.Tensor:
+    """Anchor-month targets for an index batch → ``firm_idx``-shaped."""
+    if time_idx.dim() == firm_idx.dim() - 1:
+        time_idx = time_idx[..., None]
+    t = time_idx.expand_as(firm_idx)
+    return targets[firm_idx.long(), t.long()]

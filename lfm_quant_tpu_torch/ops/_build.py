@@ -34,10 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {
-    "rnn_fused_fwd_lstm": 0,
-    "rnn_fused_fwd_gru": 0,
-    "window_gather": 0,
+    f"rnn_{form}_{cell}": 0
+    for form in ("fused_fwd", "fused_bwd", "fwd", "bwd")
+    for cell in ("lstm", "gru")
 }
+LAUNCHES["window_gather"] = 0
 
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -135,12 +136,23 @@ def library() -> ctypes.CDLL:
             so = _build()
             lib = ctypes.CDLL(str(so))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.lfm_rnn_fused_fwd.argtypes = [
-                ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                ctypes.c_float, vp]
-            lib.lfm_rnn_fused_fwd.restype = ci
-            lib.lfm_rnn_fused_fwd_smem.argtypes = [ci, ci]
-            lib.lfm_rnn_fused_fwd_smem.restype = ctypes.c_longlong
+            cf, cll = ctypes.c_float, ctypes.c_longlong
+            signatures = {
+                "lfm_rnn_fused_fwd": [ci, ci] + [vp] * 7 + [ci] * 3
+                + [cf, vp],
+                "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 3
+                + [cf, vp],
+                "lfm_rnn_fused_bwd": [ci, ci] + [vp] * 14 + [ci, vp]
+                + [ci] * 3 + [cf, vp],
+                "lfm_rnn_scan_bwd": [ci, ci] + [vp] * 11 + [ci, vp]
+                + [ci] * 3 + [cf, vp],
+            }
+            for name, args in signatures.items():
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = ci
+            for name in ("lfm_rnn_fwd_smem", "lfm_rnn_bwd_smem"):
+                getattr(lib, name).argtypes = [ci, ci, ci]
+                getattr(lib, name).restype = cll
             lib.lfm_window_gather.argtypes = [
                 ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
             lib.lfm_window_gather.restype = ci

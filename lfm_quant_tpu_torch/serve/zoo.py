@@ -40,8 +40,8 @@ class ZooEntry:
         d = self.cfg.data
         # Pools over the whole panel, live months included.
         self._sampler = DateBatchSampler(
-            self.panel, d.window, min_valid_months=d.min_valid_months,
-            require_target=False)
+            self.panel, d.window, 1, 8, min_valid_months=d.min_valid_months,
+            min_cross_section=1, require_target=False)
         months = self._sampler.months_with_anchors()
         self._month_index: Dict[int, int] = {
             int(self.panel.dates[t]): int(t) for t in months}

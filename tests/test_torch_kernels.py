@@ -9,7 +9,9 @@ jax, so leave it out there)::
 
 Tests marked ``cuda`` decide in a fixture whether there is a card and
 skip without one. Tolerances: gathers exact; the recurrence f32 atol 1e-5
-(at H <= 16), bf16 atol/rtol 0.05 — the JAX package's own bounds.
+(at H <= 16), bf16 atol/rtol 0.05 — the JAX package's own bounds; the
+backward's gradients scaled by their largest magnitude, f32 atol 1e-5
+(``tests/test_pallas_rnn.py``'s rule) and bf16 atol 0.05.
 """
 
 import numpy as np
@@ -22,8 +24,15 @@ from lfm_quant_tpu_torch.data.windows import gather_windows_packed
 from lfm_quant_tpu_torch.ops import _build
 from lfm_quant_tpu_torch.ops.gather import gather_windows
 from lfm_quant_tpu_torch.ops.rnn import (
+    rnn_scan,
+    rnn_scan_bwd,
+    rnn_scan_bwd_reference,
     rnn_scan_fused,
+    rnn_scan_fused_bwd,
+    rnn_scan_fused_bwd_reference,
     rnn_scan_fused_reference,
+    rnn_scan_reference,
+    rnn_scan_states,
 )
 from lfm_quant_tpu_torch.serve import ScoringService
 
@@ -75,6 +84,20 @@ def test_cpu_tensors_take_the_plain_versions():
     with torch.no_grad():
         assert torch.equal(rnn_scan_fused("gru", hin, wx, b, wh, m),
                            rnn_scan_fused_reference("gru", hin, wx, b, wh, m))
+        xw = hin @ wx + b
+        assert torch.equal(rnn_scan("gru", xw, wh, m),
+                           rnn_scan_reference("gru", xw, wh, m))
+    h = rnn_scan_fused_reference("gru", hin, wx, b, wh, m)
+    dh = torch.ones_like(h)
+    for got, want in zip(
+            rnn_scan_fused_bwd("gru", hin, wx, b, wh, m, h, None, dh),
+            rnn_scan_fused_bwd_reference("gru", hin, wx, b, wh, m, h, None,
+                                         dh)):
+        assert torch.equal(got, want)
+    for got, want in zip(rnn_scan_bwd("gru", xw, wh, m, h, None, dh),
+                         rnn_scan_bwd_reference("gru", xw, wh, m, h, None,
+                                                dh)):
+        assert torch.equal(got, want)
     xm, fi, ti = _gather_inputs(6, 20, 4, 9, 3, 7, 1, torch.float32, "cpu")
     for got, want in zip(gather_windows(xm, fi, ti, 9, fp=4),
                          gather_windows_packed(xm, fi, ti, 9, fp=4)):
@@ -97,6 +120,109 @@ def test_rnn_kernel_matches_plain(cuda, cell, dtype, B, T, H):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dtype])
     assert not got[0].any()
+
+
+def _scaled_close(got, want, dtype):
+    """Gradients held as the JAX tests hold them: scaled by the reference's
+    largest magnitude, atol 1e-5 in f32, 0.05 in bf16."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = float(want.abs().max()) + 1e-9
+    atol = 1e-5 if dtype == torch.float32 else 0.05
+    np.testing.assert_allclose(got.numpy() / scale, want.numpy() / scale,
+                               atol=atol, rtol=0.0)
+
+
+def _bwd_inputs(cell, B, T, H, seed, dtype, device, hoisted):
+    """Saved states from the plain forward and an upstream gradient."""
+    (hin, wx, b, wh), m = _rnn_inputs(cell, B, T, H, seed, dtype, device)
+    rng = np.random.default_rng(seed + 1)
+    dh = torch.from_numpy(rng.standard_normal((B, T, H)).astype(
+        np.float32)).to(dtype).to(device)
+    xw = (hin.float() @ wx.float() + b.float()).to(dtype)
+    h, c = rnn_scan_states(cell, xw if hoisted else hin.float() @ wx.float()
+                        + b.float(), wh, m, 1.0, True)
+    h = h.to(dtype)
+    c = None if c is None else c.to(dtype)
+    return hin, wx, b, wh, m, xw, h, c, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 16), (3, 7, 8)])
+def test_rnn_scan_kernel_matches_plain(cuda, cell, dtype, B, T, H):
+    """The hoisted forward (row 1) against its plain version."""
+    (hin, wx, b, wh), m = _rnn_inputs(cell, B, T, H, B + T, dtype, cuda)
+    xw = (hin.float() @ wx.float() + b.float()).to(dtype)
+    with torch.no_grad():
+        got = rnn_scan(cell, xw, wh, m)
+        want = rnn_scan_reference(cell, xw, wh, m)
+    assert got.dtype == dtype and got.shape == (B, T, H)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 16), (21, 5, 8)])
+def test_rnn_bwd_kernels_match_plain(cuda, cell, dtype, B, T, H):
+    """The fused backward (row 4) and the hoisted backward (row 2) against
+    their plain formulas: B not a multiple of the block's 16 rows, T = 1,
+    H not a multiple of 4, an all-invalid row."""
+    hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, B + H,
+                                                  dtype, cuda, False)
+    got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+    want = rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h, c, dh)
+    assert got[0].dtype == dtype and got[0].shape == hin.shape
+    for g, w in zip(got, want):
+        _scaled_close(g, w, dtype)
+    assert not got[0][0].any()  # an all-invalid row passes no gradient
+    hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, B + H,
+                                                  dtype, cuda, True)
+    got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
+    want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+    assert got[0].dtype == dtype and got[0].shape == xw.shape
+    for g, w in zip(got, want):
+        _scaled_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_bwd_weight_gradients_bitwise_repeatable(cuda, cell):
+    """The weight gradients are reduced in a fixed order (no atomics): two
+    launches on the same inputs agree bit for bit."""
+    hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, 300, 12, 32, 5,
+                                                  torch.bfloat16, cuda,
+                                                  False)
+    one = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+    two = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+    for a, z in zip(one, two):
+        assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hoisted", [False, True])
+def test_autograd_on_card_matches_cpu(cuda, cell, hoisted):
+    """A loss's gradients through the op on the card (kernels) and on the
+    CPU (plain formulas), f32."""
+    (hin, wx, b, wh), m = _rnn_inputs(cell, 19, 6, 8, 3, torch.float32,
+                                      "cpu")
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().clone().to(dev).requires_grad_(True)
+                  for t in (hin, wx, b, wh)]
+        hi, x, bb, w = leaves
+        if hoisted:
+            out = rnn_scan(cell, hi @ x + bb, w, m.to(dev))
+        else:
+            out = rnn_scan_fused(cell, hi, x, bb, w, m.to(dev))
+        (out.float() ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        _scaled_close(g_card, g_cpu, torch.float32)
 
 
 @pytest.mark.cuda
@@ -125,8 +251,9 @@ def test_kernels_count_each_launch(cuda):
         rnn_scan_fused_reference("lstm", hin, wx, b, wh, m)
     gather_windows(*_gather_inputs(5, 12, 4, 6, 2, 3, 0, torch.bfloat16,
                                    cuda), 6)
-    assert _build.launch_counts() == {
-        "rnn_fused_fwd_lstm": 1, "rnn_fused_fwd_gru": 0, "window_gather": 1}
+    want = dict.fromkeys(_build.LAUNCHES, 0)
+    want.update(rnn_fused_fwd_lstm=1, window_gather=1)
+    assert _build.launch_counts() == want
 
 
 @pytest.mark.cuda

@@ -51,7 +51,8 @@ def test_synthetic_panel_byte_equal(kw):
                                                (24, 5)])
 def test_serving_pools_and_months_equal(window, min_valid):
     panel = synthetic_panel(n_firms=40, n_months=130, n_features=4, seed=2)
-    ours = DateBatchSampler(panel, window, min_valid, require_target=False)
+    ours = DateBatchSampler(panel, window, 1, 8, min_valid_months=min_valid,
+                            min_cross_section=1, require_target=False)
     ref = JaxSampler(panel, window, 1, 8, seed=0, min_valid_months=min_valid,
                      min_cross_section=1, require_target=False)
     np.testing.assert_array_equal(ours.months_with_anchors(),

@@ -74,13 +74,20 @@ def test_fused_op_matches_jax(cell, dtype_name, B):
 
 
 def test_fused_op_forward_only():
+    """Under no_grad / inference_mode the op is forward only: it builds no
+    graph and saves no states. With a weight that wants a gradient it
+    goes through the autograd Function, and both give the same h."""
     hin, wx, b, wh, m = _op_inputs("lstm", 3, 4, 8, seed=0)
     t = [torch.from_numpy(a) for a in (hin, wx, b, wh)]
     t[1].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        rnn_scan_fused("lstm", *t, torch.from_numpy(m))
     with torch.no_grad():
-        rnn_scan_fused("lstm", *t, torch.from_numpy(m))
+        plain = rnn_scan_fused("lstm", *t, torch.from_numpy(m))
+    with torch.inference_mode():
+        served = rnn_scan_fused("lstm", *t, torch.from_numpy(m))
+    assert plain.grad_fn is None and not served.requires_grad
+    traced = rnn_scan_fused("lstm", *t, torch.from_numpy(m))
+    assert type(traced.grad_fn).__name__ == "_FusedScanBackward"
+    assert torch.equal(traced.detach(), plain) and torch.equal(plain, served)
 
 
 def test_fused_op_checks_shapes():
@@ -92,23 +99,41 @@ def test_fused_op_checks_shapes():
         rnn_scan_fused("rnn", *t, torch.from_numpy(m))
 
 
+def test_backward_checks_its_states():
+    """The backwards take the saved states of the forward: the LSTM's
+    c_all is required and every state must be [B, T, H]."""
+    from lfm_quant_tpu_torch.ops.rnn import rnn_scan_bwd, rnn_scan_fused_bwd
+
+    hin, wx, b, wh, m = (torch.from_numpy(a) for a in
+                         _op_inputs("lstm", 3, 4, 8, seed=0))
+    h = torch.zeros(3, 4, 8)
+    with pytest.raises(ValueError, match="c_all"):
+        rnn_scan_fused_bwd("lstm", hin, wx, b, wh, m, h, None, h)
+    with pytest.raises(ValueError, match="dh must be"):
+        rnn_scan_bwd("lstm", hin @ wx + b, wh, m, h, h, h[:, :2])
+
+
 def _flax_params(jmodel, x, m, seed=0):
     p = jmodel.init(jax.random.key(seed), jnp.asarray(x), jnp.asarray(m))
     return jax.tree_util.tree_map(np.asarray, p["params"])
 
 
 @pytest.mark.parametrize(
-    "cell,layers,head_hidden,het,dtype_name",
-    [("lstm", 1, (), False, "f32"),
-     ("lstm", 2, (6,), False, "f32"),
-     ("gru", 2, (), True, "f32"),
-     ("gru", 1, (6, 4), False, "f32"),
-     ("lstm", 2, (6,), True, "bf16"),
-     ("gru", 1, (), False, "bf16")])
-def test_model_matches_flax(cell, layers, head_hidden, het, dtype_name):
-    """Converted params reproduce the Flax RNNModel on its fused branch:
-    1 and 2 layers, with and without hidden head layers (tanh-GELU) and a
-    heteroscedastic head."""
+    "cell,layers,head_hidden,het,dtype_name,impl",
+    [("lstm", 1, (), False, "f32", "pallas_fused"),
+     ("lstm", 2, (6,), False, "f32", "pallas_fused"),
+     ("gru", 2, (), True, "f32", "pallas_fused"),
+     ("gru", 1, (6, 4), False, "f32", "pallas_fused"),
+     ("lstm", 2, (6,), True, "bf16", "pallas_fused"),
+     ("gru", 1, (), False, "bf16", "pallas_fused"),
+     ("lstm", 2, (6,), False, "f32", "pallas"),
+     ("gru", 1, (), False, "bf16", "pallas")])
+def test_model_matches_flax(cell, layers, head_hidden, het, dtype_name,
+                            impl):
+    """Converted params reproduce the Flax RNNModel on its fused branch
+    and on its hoisted-projection branch ("pallas", the port's
+    "hoisted"): 1 and 2 layers, with and without hidden head layers
+    (tanh-GELU) and a heteroscedastic head."""
     rng = np.random.default_rng(7)
     B, W, F, H = 9, 7, 3, 8
     x = rng.standard_normal((B, W, F)).astype(np.float32)
@@ -118,12 +143,13 @@ def test_model_matches_flax(cell, layers, head_hidden, het, dtype_name):
     td = torch.bfloat16 if dtype_name == "bf16" else None
     jmodel = jax_build_model(cell, hidden=H, layers=layers,
                              head_hidden=head_hidden, heteroscedastic=het,
-                             dtype=jd, scan_impl="pallas_fused")
+                             dtype=jd, scan_impl=impl)
     params = _flax_params(jmodel, x, m)
     want = jmodel.apply({"params": params}, jnp.asarray(x), jnp.asarray(m))
     tmodel = build_model(cell, n_features=F, hidden=H, layers=layers,
                          head_hidden=head_hidden, heteroscedastic=het,
-                         dtype=td)
+                         dtype=td, scan_impl={"pallas": "hoisted"}.get(
+                             impl, "fused"))
     load_flax_params(tmodel, params)
     with torch.no_grad():
         got = tmodel(torch.from_numpy(x), torch.from_numpy(m))
@@ -189,13 +215,14 @@ def test_model_kwargs_route_scan_impl():
     kind, kw = tconfig.model_kwargs(cfg)
     assert kind == "lstm" and kw["scan_impl"] == "fused"
     assert kw["dtype"] == torch.bfloat16
-    for impl, want in (("pallas_fused", "fused"), ("xla", "plain")):
+    for impl, want in (("pallas_fused", "fused"), ("xla", "plain"),
+                       ("pallas", "hoisted")):
         c = tconfig.RunConfig(model=tconfig.ModelConfig(
             kind="gru", kwargs={"hidden": 8}, scan_impl=impl))
         assert tconfig.model_kwargs(c)[1]["scan_impl"] == want
     c = tconfig.RunConfig(model=tconfig.ModelConfig(
-        kind="lstm", scan_impl="pallas"))
-    with pytest.raises(NotImplementedError, match="Queue B row 1"):
+        kind="lstm", scan_impl="scan"))
+    with pytest.raises(ValueError, match="scan_impl"):
         tconfig.model_kwargs(c)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("transformer", n_features=3)
