@@ -11,14 +11,19 @@ imports nothing of JAX. Phases, each fatal on failure:
    build time and the compiler's register report;
 3. hold every kernel against its plain PyTorch version on the card (TF32
    off): first at small awkward shapes (odd batch, T = 1, H not a
-   multiple of 4, an all-invalid row, f32 and bf16) — the forward kernels
-   on their outputs, the backward kernels on every gradient (scaled by
-   its largest magnitude: f32 atol 1e-5, bf16 0.05); then at the shapes
-   the main paths give them — the serving dispatches of the c2 and c3
-   panels, and the c2 train step (B 2048, T 60, H 128) on a real index
-   batch from ``stacked_epoch`` — timing kernel and plain version with
-   CUDA events beside the kernel's bound; and two launches of each
-   backward on the same inputs must give bitwise equal weight gradients;
+   multiple of 4, an all-invalid row, f32 and bf16; bf16 at H 16 and 64
+   reaches the tensor-core forward, the rest the CUDA-core one, and the
+   launch counters must say so) — the forward kernels on their outputs,
+   the backward kernels on every gradient (scaled by its largest
+   magnitude: f32 atol 1e-5, bf16 0.05); then at the shapes the main
+   paths give them — the serving dispatches of the c2 and c3 panels, and
+   the c2 train step (B 2048, T 60, H 128) on a real index batch from
+   ``stacked_epoch`` — timing kernel and plain version with CUDA events
+   beside the kernel's bound; the fused forward at those shapes both on
+   the tensor cores and on the CUDA cores (its private launcher), on the
+   same inputs, and the tensor-core kernel at 16, 32 and 64 rows per
+   block; and two launches of each backward on the same inputs must give
+   bitwise equal weight gradients;
 4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
    GRU universes at full width (random weights from a seed), warmed up,
    then closed-loop requests from 4 threads; every served score vector is
@@ -30,8 +35,9 @@ imports nothing of JAX. Phases, each fatal on failure:
    recurrence differentiated by autograd, plain gather); the per-step
    losses must agree within atol and rtol 0.05 and be finite, and the
    training kernels' counters must have moved. A few steps of the
-   hoisted form (``scan_impl="pallas"``) and of the GRU at c2's
-   geometry, fused and hoisted, run the same way. Prints steps/s,
+   hoisted form (``scan_impl="pallas"``), of the GRU at c2's geometry,
+   fused and hoisted, and of both cells in float32 (their fused forward
+   on the CUDA cores) run the same way. Prints steps/s,
    firm-months/s, ms per step, the forward, backward and optimizer times
    of one step and the device time by kernel;
 6. print one ``{"kernels": [...]}`` line;
@@ -62,6 +68,10 @@ TRAIN_STEPS_SHORT = 4  # steps of the hoisted and GRU training runs
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
+    "rnn_fused_fwd_mma_lstm": ("csrc/rnn_fused_fwd_mma.cu",
+                               "pallas_rnn.py:626"),
+    "rnn_fused_fwd_mma_gru": ("csrc/rnn_fused_fwd_mma.cu",
+                              "pallas_rnn.py:652"),
     "rnn_fused_bwd_lstm": ("csrc/rnn_bwd.cu", "pallas_rnn.py:673"),
     "rnn_fused_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:739"),
     "rnn_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:135"),
@@ -70,7 +80,8 @@ SOURCES = {
     "rnn_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:243"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
-SERVE_KERNELS = ("rnn_fused_fwd_lstm", "rnn_fused_fwd_gru", "window_gather")
+SERVE_KERNELS = ("rnn_fused_fwd_mma_lstm", "rnn_fused_fwd_mma_gru",
+                 "window_gather")
 
 
 def fail(msg: str) -> None:
@@ -169,7 +180,7 @@ def gather_bound(fi, ti, window: int, fp: int, n_months: int,
 
 
 def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
-              itemsize: int):
+              itemsize: int, save_c: bool = False):
     """Least time (ms) of one recurrence kernel call, and what bounds it:
     its products' operations at the peak for its operand type against
     each input read once and each output written once at the memory rate.
@@ -180,7 +191,8 @@ def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
     hoisted backward 3. Bytes: the fused forms stream hin [B,T,H], the
     hoisted ones xw [B,T,G*H]; the forwards write h (serving: no c); the
     backwards read h_all, c_all (LSTM) and dh, write dhin or dxw, and the
-    f32 weight gradients."""
+    f32 weight gradients. A forward that saves c_all (``save_c``, LSTM)
+    also writes it."""
     G = GATES[cell]
     GH = G * H
     products = {"fused_fwd": 2, "fwd": 1, "fused_bwd": 6, "bwd": 3}[kind]
@@ -188,10 +200,11 @@ def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
     seq = B * T * H * itemsize
     xw = B * T * GH * itemsize
     weights = (2 * H + 1) * GH * itemsize
+    c_all = seq if save_c and cell == "lstm" else 0
     if kind == "fused_fwd":
-        nbytes = 2 * seq + B * T + weights
+        nbytes = 2 * seq + c_all + B * T + weights
     elif kind == "fwd":
-        nbytes = xw + seq + B * T + H * GH * itemsize
+        nbytes = xw + seq + c_all + B * T + H * GH * itemsize
     else:
         states = (3 if cell == "lstm" else 2) * seq
         if kind == "fused_bwd":
@@ -221,18 +234,29 @@ def check_small(torch, gen) -> None:
     T = 1, H not a multiple of 4, all-invalid rows, young and tail
     anchors, a panel shorter than the window, float32 and bfloat16."""
     from lfm_quant_tpu_torch.data.windows import gather_windows_packed
+    from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
     from lfm_quant_tpu_torch.ops.gather import gather_windows
 
     for cell in ("lstm", "gru"):
         for dt, atol, rtol in ((torch.float32, F32_TOL, 0.0),
                                (torch.bfloat16, BF16_TOL, BF16_TOL)):
-            for B, T, H in ((13, 7, 12), (37, 1, 16), (3, 9, 8)):
+            for B, T, H in ((13, 7, 12), (37, 1, 16), (3, 9, 8),
+                            (37, 9, 64), (21, 5, 16)):
                 hin, wx, b, wh, m = rnn_inputs(torch, gen, cell, B, T, H, dt)
                 xw = (hin.float() @ wx.float() + b.float()).to(dt)
+                # bf16 at H 16 and 64 takes the tensor-core forward; f32
+                # and the odd widths keep the CUDA-core one.
+                mma = R._fused_fwd_route(dt, H) == "mma"
+                fwd_kernel = f"rnn_fused_fwd_{'mma_' if mma else ''}{cell}"
+                _build.reset_launch_counts()
                 with torch.no_grad():
+                    fused = R.rnn_scan_fused(cell, hin, wx, b, wh, m)
+                    if _build.launch_counts()[fwd_kernel] != 1:
+                        fail(f"fused fwd {cell} {dt} {(B, T, H)} did not "
+                             f"launch {fwd_kernel}")
                     pairs = (
-                        ("fused fwd", R.rnn_scan_fused(cell, hin, wx, b, wh, m),
+                        ("fused fwd", fused,
                          R.rnn_scan_fused_reference(cell, hin, wx, b, wh, m)),
                         ("fwd", R.rnn_scan(cell, xw, wh, m),
                          R.rnn_scan_reference(cell, xw, wh, m)))
@@ -259,8 +283,8 @@ def check_small(torch, gen) -> None:
                     R.rnn_scan_bwd_reference(cell, xw, wh, m, hx, cx, dh),
                     dt)
                 log(f"small rnn {cell} {str(dt)[6:]} B,T,H={(B, T, H)} "
-                    f"fwd ok, bwd scaled err fused {e4:.3g} hoisted "
-                    f"{e2:.3g} ok")
+                    f"fwd ok ({fwd_kernel}), bwd scaled err fused {e4:.3g} "
+                    f"hoisted {e2:.3g} ok")
     for dt in (torch.float32, torch.bfloat16):
         for N, T, fp, W, D, Bf in ((7, 23, 4, 9, 5, 13), (7, 5, 4, 9, 3, 6),
                                    (11, 64, 6, 60, 4, 33)):
@@ -287,12 +311,68 @@ def report(kernels: dict, name: str, where: str, rec: dict) -> None:
     log("kernel " + json.dumps(dict(name=name, at=where, **rec)))
 
 
+def check_fused_fwd(torch, kernels, where: str, cell: str, hin, wx, b, wh,
+                    mm, save_c: bool) -> None:
+    """Row 3 at a main path's shape: the tensor-core kernel (the route's
+    choice for bf16 at this H) and the CUDA-core kernel (its private
+    launcher) on the same inputs, each against the plain version and
+    timed beside the bound, and the tensor-core kernel at 16, 32 and 64
+    rows per block."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    if R._fused_fwd_route(hin.dtype, H) != "mma":
+        fail(f"rnn fused fwd {cell} at {where}: the route is not mma")
+    want_h, want_c = R.rnn_scan_states(
+        cell, hin.float() @ wx.float() + b.float(), wh, mm, 1.0, save_c)
+    runs = {
+        f"rnn_fused_fwd_mma_{cell}": lambda: R._fused_states(
+            cell, hin, wx, b, wh, mm, 1.0, save_c),
+        f"rnn_fused_fwd_{cell}": lambda: R._launch_fwd(
+            cell, False, hin, wx, b, wh, mm, 1.0, save_c),
+    }
+    bound, by = rnn_bound("fused_fwd", cell, B, T, H, hin.element_size(),
+                          save_c)
+    plain_ms = time_ms(lambda: R.rnn_scan_states(
+        cell, hin.float() @ wx.float() + b.float(), wh, mm, 1.0, save_c),
+        reps=3, warmup=1)
+    ms = {}
+    for name, run in runs.items():
+        h, c = run()
+        torch.cuda.synchronize()
+        err, excess = worst_excess(h, want_h, BF16_TOL, BF16_TOL)
+        if c is not None:
+            c_err, c_excess = worst_excess(c, want_c, BF16_TOL, BF16_TOL)
+            err, excess = max(err, c_err), max(excess, c_excess)
+        if excess > 0 or not torch.isfinite(h).all():
+            fail(f"{name} at {where}: max err {err}")
+        del h, c
+        ms[name] = time_ms(run)
+        rec = dict(shape=[B, T, H], save_c=save_c, max_abs_err=err,
+                   tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
+                   ms=ms[name], plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=by)
+        if "mma" in name:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            rec["rows_per_block"] = R._mma_rows(B, sms)
+            rec["rows_ms"] = {rows: time_ms(lambda: R._launch_fwd_mma(
+                cell, hin, wx, b, wh, mm, 1.0, save_c, rows))
+                for rows in R.MMA_ROWS}
+        report(kernels, name, where, rec)
+    mma, simt = ms[f"rnn_fused_fwd_mma_{cell}"], ms[f"rnn_fused_fwd_{cell}"]
+    log(f"rnn fused fwd {cell} at {where}: tensor cores {mma:.4f} ms, CUDA "
+        f"cores {simt:.4f} ms ({simt / mma:.2f}x), bound {bound:.4f} ms")
+    del want_h, want_c
+    torch.cuda.empty_cache()
+
+
 def check_train_shapes(torch, trainer, kernels, gen) -> None:
-    """Rows 1, 2 and 4 at the c2 train step's shape: the layer-0 input of
-    a real index batch (the first batch of ``stacked_epoch(0)``), LSTM
+    """Rows 1, 2, 3 and 4 at the c2 train step's shape: the layer-0 input
+    of a real index batch (the first batch of ``stacked_epoch(0)``), LSTM
     with the model's own weights and GRU with seeded ones, bf16. Each
-    kernel against its plain version, timed beside its bound; each
-    backward twice for bitwise equal weight gradients."""
+    kernel against its plain version, timed beside its bound (row 3
+    saving c_all, as the training forward does); each backward twice for
+    bitwise equal weight gradients."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     b = trainer.train_sampler.stacked_epoch(0)
@@ -322,6 +402,9 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
             wh = (sd * torch.randn(H, G, generator=gen)).to(cd).cuda()
         dh = (0.1 * torch.randn(B, W, H, generator=gen)).to(cd).cuda()
         with torch.no_grad():
+            # Row 3, the fused forward, saving c_all for the backward.
+            check_fused_fwd(torch, kernels, "c2 train step", cell, hin, wx,
+                            bb, wh, mm, save_c=True)
             xw = (hin.float() @ wx.float() + bb.float()).to(cd)
             # Row 1, the hoisted forward.
             out = R.rnn_scan(cell, xw, wh, mm)
@@ -429,7 +512,7 @@ def counted(label: str, must_move, fn):
 
 
 def train_variant(cfg, **model_changes):
-    """``cfg`` with its model config changed (kind, scan_impl)."""
+    """``cfg`` with its model config changed (kind, scan_impl, bf16)."""
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, **model_changes))
 
@@ -503,8 +586,9 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     K = trainer._steps_per_epoch
     t0 = time.perf_counter()
     summary, counts = counted(
-        "c2 training (fused)", ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm",
-                                "window_gather"), trainer.fit)
+        "c2 training (fused)", ("rnn_fused_fwd_mma_lstm",
+                                "rnn_fused_bwd_lstm", "window_gather"),
+        trainer.fit)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for k, n in counts.items():
@@ -557,10 +641,18 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     del trainer, plain
     torch.cuda.empty_cache()
 
-    # The hoisted form and the GRU at c2's geometry: a few steps each.
+    # The hoisted form, the GRU at c2's geometry, and both cells in
+    # float32 (whose fused forward is the CUDA-core kernel): a few steps
+    # each.
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
              ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
+            ("c2 training (fused, float32)", train_variant(cfg, bf16=False),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather")),
             ("GRU training (fused)", train_variant(cfg, kind="gru"),
+             ("rnn_fused_fwd_mma_gru", "rnn_fused_bwd_gru",
+              "window_gather")),
+            ("GRU training (fused, float32)",
+             train_variant(cfg, kind="gru", bf16=False),
              ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather")),
             ("GRU training (hoisted)",
              train_variant(cfg, kind="gru", scan_impl="pallas"),
@@ -612,10 +704,6 @@ def main() -> int:
     )
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops.gather import gather_windows
-    from lfm_quant_tpu_torch.ops.rnn import (
-        rnn_scan_fused,
-        rnn_scan_fused_reference,
-    )
     from lfm_quant_tpu_torch.serve import ScoringService
     from lfm_quant_tpu_torch.serve.__main__ import drive_load
     from lfm_quant_tpu_torch.train.loop import (
@@ -691,22 +779,9 @@ def main() -> int:
             wx = model.xproj[0].kernel.to(cd)
             b = model.xproj[0].bias.to(cd)
             wh = model.h_proj[0].to(cd)
-            out = rnn_scan_fused(cell, hin, wx, b, wh, mm)
-            ref = rnn_scan_fused_reference(cell, hin, wx, b, wh, mm)
-            torch.cuda.synchronize()
-            err, excess = worst_excess(out, ref, BF16_TOL, BF16_TOL)
-            if excess > 0 or not torch.isfinite(out).all():
-                fail(f"rnn {cell} at B={B}: max err {err}")
-            r_bound, r_by = rnn_bound("fused_fwd", cell, B, d.window,
-                                      model.hidden, hin.element_size())
-            report(kernels, f"rnn_fused_fwd_{cell}", f"{name} serving", dict(
-                shape=list(hin.shape), max_abs_err=err,
-                tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
-                ms=time_ms(lambda: rnn_scan_fused(cell, hin, wx, b, wh, mm)),
-                plain_ms=time_ms(lambda: rnn_scan_fused_reference(
-                    cell, hin, wx, b, wh, mm), reps=5),
-                bound_ms=r_bound, bound_by=r_by))
-            del x, xr, m, mr, hin, out, ref
+            check_fused_fwd(torch, kernels, f"{name} serving", cell, hin, wx,
+                            b, wh, mm, save_c=False)
+            del x, xr, m, mr, hin
         torch.cuda.empty_cache()
 
     # The train step's shapes: a c2 trainer on the card (seeded init).

@@ -38,7 +38,8 @@ LAUNCHES: Dict[str, int] = {
     for form in ("fused_fwd", "fused_bwd", "fwd", "bwd")
     for cell in ("lstm", "gru")
 }
-LAUNCHES["window_gather"] = 0
+LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
+                window_gather=0)
 
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -140,6 +141,8 @@ def library() -> ctypes.CDLL:
             signatures = {
                 "lfm_rnn_fused_fwd": [ci, ci] + [vp] * 7 + [ci] * 3
                 + [cf, vp],
+                "lfm_rnn_fused_fwd_mma": [ci] + [vp] * 7 + [ci] * 4
+                + [cf, vp],
                 "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 3
                 + [cf, vp],
                 "lfm_rnn_fused_bwd": [ci, ci] + [vp] * 14 + [ci, vp]
@@ -150,7 +153,8 @@ def library() -> ctypes.CDLL:
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ci
-            for name in ("lfm_rnn_fwd_smem", "lfm_rnn_bwd_smem"):
+            for name in ("lfm_rnn_fwd_smem", "lfm_rnn_bwd_smem",
+                         "lfm_rnn_fused_fwd_mma_smem"):
                 getattr(lib, name).argtypes = [ci, ci, ci]
                 getattr(lib, name).restype = cll
             lib.lfm_window_gather.argtypes = [

@@ -1,5 +1,11 @@
 """The masked LSTM/GRU recurrence: hand-written CUDA kernels
-(``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_bwd.cu``) and their plain versions.
+(``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
+``csrc/rnn_bwd.cu``) and their plain versions.
+
+The fused forward has two kernels, picked by :func:`_fused_fwd_route`
+from the dtype and H alone: bf16 with 16 <= H <= 128, H % 16 == 0 runs
+on the tensor cores (``rnn_fused_fwd_mma.cu``); float32 and every other
+H on the CUDA cores (``rnn_fused_fwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -24,6 +30,7 @@ launch the kernels or raise.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -357,12 +364,120 @@ def _launch_bwd(cell: str, fused: bool, xin: torch.Tensor, wx, b,
             dw[hg + G:].view(H, G))
 
 
+def _fused_fwd_route(dtype: torch.dtype, H: int) -> str:
+    """Which kernel runs the fused forward on the card: ``"mma"``
+    (``csrc/rnn_fused_fwd_mma.cu``, bf16 tensor cores, W_h resident in
+    shared memory, so 16 <= H <= 128 and H % 16 == 0) or ``"simt"``
+    (``csrc/rnn_fused_fwd.cu``, f32 on the CUDA cores: float32, which
+    must hold the JAX f32 bound, and every other H)."""
+    if dtype == torch.bfloat16 and H % 16 == 0 and 16 <= H <= 128:
+        return "mma"
+    return "simt"
+
+
+#: Hidden units per warp of the tensor-core forward (``kUnits`` in
+#: ``csrc/rnn_fused_fwd_mma.cu``), and the rows per block it is built for.
+MMA_UNITS = 8
+MMA_ROWS = (16, 32, 64)
+
+
+@functools.lru_cache(maxsize=16)
+def _fragment_index(H: int, cols: int, device=None) -> torch.Tensor:
+    """Flat indices into ``w [H, cols]`` (``cols = G * H``) of the mma
+    kernel's packed weight, laid out ``[H/16 k-steps][H/8 warps][G n8
+    tiles][32 lanes][4]``.
+
+    Warp w owns the :data:`MMA_UNITS` hidden units from ``u0 = 8 w`` with
+    all G gates; its tile q covers columns ``q * H + u0 .. + 7``. Lane
+    ``l`` holds the m16n8k16 B fragment ``W[k0 + 2 (l % 4) + {0, 1, 8,
+    9}][col0 + l // 4]`` (PTX ISA, mma m16n8k16 B layout), so its four
+    values of one tile are one 8-byte load and a warp's 32 lanes read 256
+    contiguous bytes."""
+    KT, S, NT = H // 16, H // MMA_UNITS, cols // H
+    kk = torch.arange(KT, device=device).view(KT, 1, 1, 1, 1)
+    s = torch.arange(S, device=device).view(1, S, 1, 1, 1)
+    q = torch.arange(NT, device=device).view(1, 1, NT, 1, 1)
+    lane = torch.arange(32, device=device).view(1, 1, 1, 32, 1)
+    v = torch.arange(4, device=device).view(1, 1, 1, 1, 4)
+    k = kk * 16 + 2 * (lane % 4) + v % 2 + 8 * (v // 2)
+    col = q * H + s * MMA_UNITS + lane // 4
+    return (k * cols + col).reshape(-1)
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """``w [H, G*H]`` → the mma kernel's fragment order (flat, same
+    dtype, a new tensor); see :func:`_fragment_index`."""
+    H, cols = w.shape
+    return w.reshape(-1)[_fragment_index(H, cols, w.device)]
+
+
+def unpack_fragments(packed: torch.Tensor, H: int, cols: int
+                     ) -> torch.Tensor:
+    """Inverse of :func:`pack_fragments` → ``[H, cols]``."""
+    w = torch.empty(H * cols, dtype=packed.dtype, device=packed.device)
+    w[_fragment_index(H, cols, packed.device)] = packed
+    return w.view(H, cols)
+
+
+def _mma_rows(B: int, sms: int) -> int:
+    """Rows per block of the tensor-core forward, from B alone: the most
+    (64, 32, then 16: the fewer W_x reads and barriers per row) that
+    still give at least half the SMs a block. Measured on an H100 with
+    ``chip_smoke.py`` and ``scripts/torch_mma_variants.py`` (PERF.md,
+    port PR 4)."""
+    for rows in (64, 32):
+        if 2 * -(-B // rows) >= sms:
+            return rows
+    return 16
+
+
+def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
+                    b: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
+                    forget_bias: float, save_c: bool,
+                    rows: Optional[int] = None):
+    """One launch of the tensor-core fused forward → ``(h_all, c_all or
+    None)``. ``rows`` (per block, one of :data:`MMA_ROWS`) overrides the
+    choice from B."""
+    B, T = m.shape
+    H = wh.shape[0]
+    dev = hin.device
+    if rows is None:
+        rows = _mma_rows(
+            B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    lib = _build.library()
+    smem = lib.lfm_rnn_fused_fwd_mma_smem(_CELL_CODE[cell], H, rows)
+    if smem < 0:
+        raise ValueError(f"the mma forward does not take H={H} with {rows} "
+                         f"rows per block")
+    _smem_check(smem, dev, H)
+    # Fresh tensors: 16-byte aligned for the kernel's cp.async and stores.
+    wxp = pack_fragments(wx)
+    whp = pack_fragments(wh)
+    if hin.data_ptr() % 16:
+        hin = hin.clone()
+    h = torch.empty((B, T, H), dtype=hin.dtype, device=dev)
+    c = torch.empty_like(h) if save_c and cell == "lstm" else None
+    keep = m.to(torch.uint8).contiguous()
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_fused_fwd_mma(
+            _CELL_CODE[cell], hin.data_ptr(), wxp.data_ptr(), b.data_ptr(),
+            whp.data_ptr(), keep.data_ptr(), h.data_ptr(),
+            None if c is None else c.data_ptr(), B, T, H, rows,
+            float(forget_bias), _build.stream_of(hin))
+    name = f"rnn_fused_fwd_mma_{cell}"
+    _build.check(lib, err, name)
+    _build.count_launch(name)
+    return h, c
+
+
 def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c):
     if hin.device.type == "cpu":
         xw = hin.float() @ wx.float() + b.float()
         h, c = rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
         return h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
     _check_card(hin, wx=wx, b=b, wh=wh, m=m)
+    if _fused_fwd_route(hin.dtype, wh.shape[0]) == "mma":
+        return _launch_fwd_mma(cell, hin, wx, b, wh, m, forget_bias, save_c)
     return _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias, save_c)
 
 

@@ -73,6 +73,27 @@ def test_fused_op_matches_jax(cell, dtype_name, B):
     assert not got[1].any(), "an all-invalid row must stay at the zero state"
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("H", [16, 64])
+def test_fused_op_matches_jax_at_tensor_core_widths(cell, H):
+    """bf16 at the widths that take the tensor-core kernel on the card
+    (``ops/rnn.py _fused_fwd_route``): the plain version those kernels are
+    held to on the card against the Pallas kernel, at the JAX bf16
+    bound."""
+    from lfm_quant_tpu_torch.ops.rnn import _fused_fwd_route
+
+    assert _fused_fwd_route(torch.bfloat16, H) == "mma"
+    hin, wx, b, wh, m = _op_inputs(cell, 7, 5, H, seed=H, invalid_rows=(2,))
+    wx, wh = wx / np.sqrt(H / 8), wh / np.sqrt(H / 8)
+    (jh, jwx, jb, jwh), (th, twx, tb, twh) = _as("bf16", hin, wx, b, wh)
+    want = np.asarray(
+        jax_scan_fused(cell, jh, jwx, jb, jwh, jnp.asarray(m))
+        .astype(jnp.float32))
+    got = rnn_scan_fused(cell, th, twx, tb, twh, torch.from_numpy(m))
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL["bf16"])
+    assert not got[2].any()
+
+
 def test_fused_op_forward_only():
     """Under no_grad / inference_mode the op is forward only: it builds no
     graph and saves no states. With a weight that wants a gradient it
