@@ -12,18 +12,20 @@ imports nothing of JAX. Phases, each fatal on failure:
 3. hold every kernel against its plain PyTorch version on the card (TF32
    off): first at small awkward shapes (odd batch, T = 1, H not a
    multiple of 4, an all-invalid row, f32 and bf16; bf16 at H 16 and 64
-   reaches the tensor-core forward, the rest the CUDA-core one, and the
-   launch counters must say so) — the forward kernels on their outputs,
-   the backward kernels on every gradient (scaled by its largest
-   magnitude: f32 atol 1e-5, bf16 0.05); then at the shapes the main
-   paths give them — the serving dispatches of the c2 and c3 panels, and
-   the c2 train step (B 2048, T 60, H 128) on a real index batch from
-   ``stacked_epoch`` — timing kernel and plain version with CUDA events
-   beside the kernel's bound; the fused forward at those shapes both on
-   the tensor cores and on the CUDA cores (its private launcher), on the
-   same inputs, and the tensor-core kernel at 16, 32 and 64 rows per
-   block; and two launches of each backward on the same inputs must give
-   bitwise equal weight gradients;
+   reaches the tensor-core fused forward and backward, the rest the
+   CUDA-core ones, and the launch counters must say so) — the forward
+   kernels on their outputs, the backward kernels on every gradient
+   (scaled by its largest magnitude: f32 atol 1e-5, bf16 0.05); then at
+   the shapes the main paths give them — the serving dispatches of the c2
+   and c3 panels, and the c2 train step (B 2048, T 60, H 128) on a real
+   index batch from ``stacked_epoch`` — timing kernel and plain version
+   with CUDA events beside the kernel's bound; the fused forward and the
+   fused backward at those shapes both on the tensor cores and on the
+   CUDA cores (their private launchers), on the same inputs, the
+   tensor-core forward at 16, 32 and 64 rows per block, and one
+   ``torch.matmul`` yardstick for the backward's weight-gradient
+   products; and two launches of each backward on the same inputs must
+   give bitwise equal weight gradients;
 4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
    GRU universes at full width (random weights from a seed), warmed up,
    then closed-loop requests from 4 threads; every served score vector is
@@ -37,7 +39,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    training kernels' counters must have moved. A few steps of the
    hoisted form (``scan_impl="pallas"``), of the GRU at c2's geometry,
    fused and hoisted, and of both cells in float32 (their fused forward
-   on the CUDA cores) run the same way. Prints steps/s,
+   and backward on the CUDA cores) run the same way. Prints steps/s,
    firm-months/s, ms per step, the forward, backward and optimizer times
    of one step and the device time by kernel;
 6. print one ``{"kernels": [...]}`` line;
@@ -74,6 +76,10 @@ SOURCES = {
                               "pallas_rnn.py:652"),
     "rnn_fused_bwd_lstm": ("csrc/rnn_bwd.cu", "pallas_rnn.py:673"),
     "rnn_fused_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:739"),
+    "rnn_fused_bwd_mma_lstm": ("csrc/rnn_fused_bwd_mma.cu",
+                               "pallas_rnn.py:673"),
+    "rnn_fused_bwd_mma_gru": ("csrc/rnn_fused_bwd_mma.cu",
+                              "pallas_rnn.py:739"),
     "rnn_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:135"),
     "rnn_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:158"),
     "rnn_bwd_lstm": ("csrc/rnn_bwd.cu", "pallas_rnn.py:184"),
@@ -245,10 +251,11 @@ def check_small(torch, gen) -> None:
                             (37, 9, 64), (21, 5, 16)):
                 hin, wx, b, wh, m = rnn_inputs(torch, gen, cell, B, T, H, dt)
                 xw = (hin.float() @ wx.float() + b.float()).to(dt)
-                # bf16 at H 16 and 64 takes the tensor-core forward; f32
-                # and the odd widths keep the CUDA-core one.
+                # bf16 at H 16 and 64 takes the tensor-core forward and
+                # backward; f32 and the odd widths keep the CUDA-core ones.
                 mma = R._fused_fwd_route(dt, H) == "mma"
                 fwd_kernel = f"rnn_fused_fwd_{'mma_' if mma else ''}{cell}"
+                bwd_kernel = f"rnn_fused_bwd_{'mma_' if mma else ''}{cell}"
                 _build.reset_launch_counts()
                 with torch.no_grad():
                     fused = R.rnn_scan_fused(cell, hin, wx, b, wh, m)
@@ -271,9 +278,13 @@ def check_small(torch, gen) -> None:
                 h, c = R.rnn_scan_states(
                     cell, hin.float() @ wx.float() + b.float(), wh, m)
                 h, c = h.to(dt), (None if c is None else c.to(dt))
+                _build.reset_launch_counts()
+                got = R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+                if _build.launch_counts()[bwd_kernel] != 1:
+                    fail(f"fused bwd {cell} {dt} {(B, T, H)} did not launch "
+                         f"{bwd_kernel}")
                 e4 = grads_close(
-                    f"fused bwd {cell} {dt} {(B, T, H)}",
-                    R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh),
+                    f"fused bwd {cell} {dt} {(B, T, H)}", got,
                     R.rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m,
                                                    h, c, dh), dt)
                 hx, cx = R.rnn_scan_states(cell, xw, wh, m)
@@ -284,7 +295,7 @@ def check_small(torch, gen) -> None:
                     dt)
                 log(f"small rnn {cell} {str(dt)[6:]} B,T,H={(B, T, H)} "
                     f"fwd ok ({fwd_kernel}), bwd scaled err fused {e4:.3g} "
-                    f"hoisted {e2:.3g} ok")
+                    f"({bwd_kernel}) hoisted {e2:.3g} ok")
     for dt in (torch.float32, torch.bfloat16):
         for N, T, fp, W, D, Bf in ((7, 23, 4, 9, 5, 13), (7, 5, 4, 9, 3, 6),
                                    (11, 64, 6, 60, 4, 33)):
@@ -423,25 +434,7 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
                 bound_ms=bound, bound_by=by))
             del out, ref
             # Row 4, the fused backward, on the plain forward's states.
-            h, c = R.rnn_scan_states(
-                cell, hin.float() @ wx.float() + bb.float(), wh, mm)
-            h, c = h.to(cd), (None if c is None else c.to(cd))
-            args = (cell, hin, wx, bb, wh, mm, h, c, dh)
-            one = R.rnn_scan_fused_bwd(*args)
-            two = R.rnn_scan_fused_bwd(*args)
-            if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
-                fail(f"rnn fused bwd {cell}: two launches differ")
-            err = grads_close(f"fused bwd {cell} at the train shape", one,
-                              R.rnn_scan_fused_bwd_reference(*args), cd)
-            bound, by = rnn_bound("fused_bwd", cell, B, W, H, isz)
-            report(kernels, f"rnn_fused_bwd_{cell}", "c2 train step", dict(
-                shape=shape, max_abs_err=err, bitwise_repeatable=True,
-                tolerance=f"scaled atol {BF16_TOL}",
-                ms=time_ms(lambda: R.rnn_scan_fused_bwd(*args), reps=5),
-                plain_ms=time_ms(lambda: R.rnn_scan_fused_bwd_reference(
-                    *args), reps=3, warmup=1),
-                bound_ms=bound, bound_by=by))
-            del one, two, h, c
+            check_fused_bwd(torch, kernels, cell, hin, wx, bb, wh, mm, dh)
             # Row 2, the hoisted backward.
             hx, cx = R.rnn_scan_states(cell, xw, wh, mm)
             args = (cell, xw, wh, mm, hx, cx, dh)
@@ -460,6 +453,67 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
                                  reps=3, warmup=1),
                 bound_ms=bound, bound_by=by))
             del one, two, hx, cx, xw
+    torch.cuda.empty_cache()
+
+
+def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
+                    dh) -> None:
+    """Row 4 at the c2 train step: the tensor-core kernels (the route's
+    choice for bf16 at this H) and the CUDA-core kernels (their private
+    launcher) on the same inputs, each twice for bitwise equal weight
+    gradients, against the plain version and timed beside the bound; and
+    the ``library_ms`` yardstick of the weight-gradient products, two f32
+    ``torch.matmul`` calls (hin^T d_xw + h_{t-1}^T d_hw) that the port
+    never makes."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    if R._fused_bwd_route(hin.dtype, H) != "mma":
+        fail(f"rnn fused bwd {cell} at the train shape: the route is not mma")
+    xw = hin.float() @ wx.float() + b.float()
+    h, c = R.rnn_scan_states(cell, xw, wh, mm)
+    h, c = h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
+    args = (cell, hin, wx, b, wh, mm, h, c, dh)
+    want = R.rnn_scan_fused_bwd_reference(*args)
+    plain_ms = time_ms(lambda: R.rnn_scan_fused_bwd_reference(*args),
+                       reps=3, warmup=1)
+    # The yardstick: f32 products of the operands the kernels reduce.
+    d_xw, d_hw, h_prev = R._scan_bwd_core(cell, xw, wh, mm, h, c, dh, 1.0)
+    a_x = hin.float().reshape(-1, H)
+    a_h = h_prev.reshape(-1, H)
+    d_x = d_xw.reshape(B * T, -1)
+    d_h = d_hw.reshape(B * T, -1)
+    library_ms = time_ms(lambda: (torch.matmul(a_x.T, d_x),
+                                  torch.matmul(a_h.T, d_h)))
+    del xw, d_xw, d_hw, h_prev, a_x, a_h, d_x, d_h
+    bound, by = rnn_bound("fused_bwd", cell, B, T, H, hin.element_size())
+    runs = {
+        f"rnn_fused_bwd_mma_{cell}": lambda: R.rnn_scan_fused_bwd(*args),
+        f"rnn_fused_bwd_{cell}": lambda: R._launch_bwd(
+            cell, True, hin, wx, b, wh, mm, h, c, dh, 1.0),
+    }
+    ms = {}
+    for name, run in runs.items():
+        one = run()
+        two = run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
+            fail(f"{name}: two launches differ")
+        err = grads_close(f"{name} at the train shape", one, want,
+                          hin.dtype)
+        del one, two
+        ms[name] = time_ms(run, reps=5)
+        report(kernels, name, "c2 train step", dict(
+            shape=[B, T, H], max_abs_err=err, bitwise_repeatable=True,
+            tolerance=f"scaled atol {BF16_TOL}", ms=ms[name],
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=library_ms if "mma" in name else None))
+    mma, simt = ms[f"rnn_fused_bwd_mma_{cell}"], ms[f"rnn_fused_bwd_{cell}"]
+    log(f"rnn fused bwd {cell} at the c2 train step: tensor cores "
+        f"{mma:.4f} ms, CUDA cores {simt:.4f} ms ({simt / mma:.2f}x), bound "
+        f"{bound:.4f} ms, weight-gradient matmuls (library) {library_ms:.4f} "
+        f"ms")
+    del want
     torch.cuda.empty_cache()
 
 
@@ -587,7 +641,7 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     t0 = time.perf_counter()
     summary, counts = counted(
         "c2 training (fused)", ("rnn_fused_fwd_mma_lstm",
-                                "rnn_fused_bwd_lstm", "window_gather"),
+                                "rnn_fused_bwd_mma_lstm", "window_gather"),
         trainer.fit)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -642,14 +696,14 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     torch.cuda.empty_cache()
 
     # The hoisted form, the GRU at c2's geometry, and both cells in
-    # float32 (whose fused forward is the CUDA-core kernel): a few steps
-    # each.
+    # float32 (whose fused forward and backward are the CUDA-core
+    # kernels): a few steps each.
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
              ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
             ("c2 training (fused, float32)", train_variant(cfg, bf16=False),
              ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather")),
             ("GRU training (fused)", train_variant(cfg, kind="gru"),
-             ("rnn_fused_fwd_mma_gru", "rnn_fused_bwd_gru",
+             ("rnn_fused_fwd_mma_gru", "rnn_fused_bwd_mma_gru",
               "window_gather")),
             ("GRU training (fused, float32)",
              train_variant(cfg, kind="gru", bf16=False),
@@ -863,12 +917,13 @@ def main() -> int:
     for k, (src, rep) in SOURCES.items():
         # The largest shape the main paths gave the kernel.
         meas = max(kernels[k], key=lambda r: int(np.prod(r["shape"])))
-        meas = {f: meas[f] for f in ("shape", "max_abs_err", "ms",
-                                     "plain_ms", "bound_ms", "bound_by")}
+        meas = {f: meas.get(f) for f in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}
         line.append(dict(name=k, route="cuda",
                          source=f"lfm_quant_tpu_torch/{src}",
                          replaces=f"{SRC_REPO}/{rep}", launches=totals[k],
-                         library_ms=None, **meas))
+                         **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
     # ---- 7. result ------------------------------------------------------

@@ -4,8 +4,9 @@
 ``sm_90a`` at first use (one ``nvcc`` per source, all started together,
 then one link) into a shared library with a plain C interface under
 ``build/lfm_quant_tpu_torch/`` in the checkout, and loads it with
-``ctypes``. The library's name carries a hash of the sources and flags,
-so an edited source is never served by a stale build. Nothing here
+``ctypes``. The library's name carries a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, so an edited source or
+header is never served by a stale build. Nothing here
 includes PyTorch's headers: pointers and the stream cross as ``c_void_p``.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, one per
@@ -39,6 +40,7 @@ LAUNCHES: Dict[str, int] = {
     for cell in ("lstm", "gru")
 }
 LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
+                rnn_fused_bwd_mma_lstm=0, rnn_fused_bwd_mma_gru=0,
                 window_gather=0)
 
 _count_lock = threading.Lock()
@@ -82,7 +84,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -143,6 +145,8 @@ def library() -> ctypes.CDLL:
                 + [cf, vp],
                 "lfm_rnn_fused_fwd_mma": [ci] + [vp] * 7 + [ci] * 4
                 + [cf, vp],
+                "lfm_rnn_fused_bwd_mma": [ci] + [vp] * 13 + [ci, vp]
+                + [ci] * 4 + [cf, vp],
                 "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 3
                 + [cf, vp],
                 "lfm_rnn_fused_bwd": [ci, ci] + [vp] * 14 + [ci, vp]
@@ -154,7 +158,8 @@ def library() -> ctypes.CDLL:
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ci
             for name in ("lfm_rnn_fwd_smem", "lfm_rnn_bwd_smem",
-                         "lfm_rnn_fused_fwd_mma_smem"):
+                         "lfm_rnn_fused_fwd_mma_smem",
+                         "lfm_rnn_fused_bwd_mma_smem"):
                 getattr(lib, name).argtypes = [ci, ci, ci]
                 getattr(lib, name).restype = cll
             lib.lfm_window_gather.argtypes = [

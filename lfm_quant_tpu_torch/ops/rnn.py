@@ -1,11 +1,13 @@
 """The masked LSTM/GRU recurrence: hand-written CUDA kernels
 (``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
-``csrc/rnn_bwd.cu``) and their plain versions.
+``csrc/rnn_bwd.cu``, ``csrc/rnn_fused_bwd_mma.cu``) and their plain
+versions.
 
-The fused forward has two kernels, picked by :func:`_fused_fwd_route`
-from the dtype and H alone: bf16 with 16 <= H <= 128, H % 16 == 0 runs
-on the tensor cores (``rnn_fused_fwd_mma.cu``); float32 and every other
-H on the CUDA cores (``rnn_fused_fwd.cu``).
+The fused forward and the fused backward each have two kernels, picked
+by :func:`_fused_fwd_route` and :func:`_fused_bwd_route` from the dtype
+and H alone: bf16 with 16 <= H <= 128, H % 16 == 0 runs on the tensor
+cores (``rnn_fused_fwd_mma.cu``, ``rnn_fused_bwd_mma.cu``); float32 and
+every other H on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -375,6 +377,15 @@ def _fused_fwd_route(dtype: torch.dtype, H: int) -> str:
     return "simt"
 
 
+def _fused_bwd_route(dtype: torch.dtype, H: int) -> str:
+    """Which kernels run the fused backward on the card: ``"mma"``
+    (``csrc/rnn_fused_bwd_mma.cu``, bf16 tensor cores with W_h resident
+    in shared memory: the widths of :func:`_fused_fwd_route`) or
+    ``"simt"`` (``csrc/rnn_bwd.cu``, f32 on the CUDA cores: float32,
+    which must hold atol 1e-5, and every other H)."""
+    return _fused_fwd_route(dtype, H)
+
+
 #: Hidden units per warp of the tensor-core forward (``kUnits`` in
 #: ``csrc/rnn_fused_fwd_mma.cu``), and the rows per block it is built for.
 MMA_UNITS = 8
@@ -382,7 +393,8 @@ MMA_ROWS = (16, 32, 64)
 
 
 @functools.lru_cache(maxsize=16)
-def _fragment_index(H: int, cols: int, device=None) -> torch.Tensor:
+def _fragment_index(H: int, cols: int, device=None,
+                    transpose: bool = False) -> torch.Tensor:
     """Flat indices into ``w [H, cols]`` (``cols = G * H``) of the mma
     kernel's packed weight, laid out ``[H/16 k-steps][H/8 warps][G n8
     tiles][32 lanes][4]``.
@@ -392,7 +404,21 @@ def _fragment_index(H: int, cols: int, device=None) -> torch.Tensor:
     ``l`` holds the m16n8k16 B fragment ``W[k0 + 2 (l % 4) + {0, 1, 8,
     9}][col0 + l // 4]`` (PTX ISA, mma m16n8k16 B layout), so its four
     values of one tile are one 8-byte load and a warp's 32 lanes read 256
-    contiguous bytes."""
+    contiguous bytes.
+
+    ``transpose``: the packing of ``W^T [cols, H]`` for the backward's
+    ``d_xw @ W_x^T`` (``csrc/rnn_fused_bwd_mma.cu``), laid out ``[cols/16
+    k-steps][H/8 warps][32 lanes][4]``: warp s owns output units ``8 s ..
+    8 s + 7`` and lane l holds ``W^T[k0 + 2 (l % 4) + {0, 1, 8, 9}][8 s +
+    l // 4]``, that is ``w[8 s + l // 4][k0 + ...]``."""
+    if transpose:
+        KB, S = cols // 16, H // MMA_UNITS
+        ks = torch.arange(KB, device=device).view(KB, 1, 1, 1)
+        s = torch.arange(S, device=device).view(1, S, 1, 1)
+        lane = torch.arange(32, device=device).view(1, 1, 32, 1)
+        v = torch.arange(4, device=device).view(1, 1, 1, 4)
+        k = ks * 16 + 2 * (lane % 4) + v % 2 + 8 * (v // 2)
+        return ((s * MMA_UNITS + lane // 4) * cols + k).reshape(-1)
     KT, S, NT = H // 16, H // MMA_UNITS, cols // H
     kk = torch.arange(KT, device=device).view(KT, 1, 1, 1, 1)
     s = torch.arange(S, device=device).view(1, S, 1, 1, 1)
@@ -404,18 +430,20 @@ def _fragment_index(H: int, cols: int, device=None) -> torch.Tensor:
     return (k * cols + col).reshape(-1)
 
 
-def pack_fragments(w: torch.Tensor) -> torch.Tensor:
-    """``w [H, G*H]`` → the mma kernel's fragment order (flat, same
-    dtype, a new tensor); see :func:`_fragment_index`."""
+def pack_fragments(w: torch.Tensor, transpose: bool = False
+                   ) -> torch.Tensor:
+    """``w [H, G*H]`` → the mma kernels' fragment order of ``w`` (or,
+    with ``transpose``, of ``w^T``); flat, same dtype, a new tensor. See
+    :func:`_fragment_index`."""
     H, cols = w.shape
-    return w.reshape(-1)[_fragment_index(H, cols, w.device)]
+    return w.reshape(-1)[_fragment_index(H, cols, w.device, transpose)]
 
 
-def unpack_fragments(packed: torch.Tensor, H: int, cols: int
-                     ) -> torch.Tensor:
+def unpack_fragments(packed: torch.Tensor, H: int, cols: int,
+                     transpose: bool = False) -> torch.Tensor:
     """Inverse of :func:`pack_fragments` → ``[H, cols]``."""
     w = torch.empty(H * cols, dtype=packed.dtype, device=packed.device)
-    w[_fragment_index(H, cols, packed.device)] = packed
+    w[_fragment_index(H, cols, packed.device, transpose)] = packed
     return w.view(H, cols)
 
 
@@ -434,10 +462,11 @@ def _mma_rows(B: int, sms: int) -> int:
 def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                     b: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
                     forget_bias: float, save_c: bool,
-                    rows: Optional[int] = None):
+                    rows: Optional[int] = None, packed=None):
     """One launch of the tensor-core fused forward → ``(h_all, c_all or
     None)``. ``rows`` (per block, one of :data:`MMA_ROWS`) overrides the
-    choice from B."""
+    choice from B; ``packed`` is ``(pack_fragments(wx),
+    pack_fragments(wh))`` when the caller has it."""
     B, T = m.shape
     H = wh.shape[0]
     dev = hin.device
@@ -451,10 +480,8 @@ def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                          f"rows per block")
     _smem_check(smem, dev, H)
     # Fresh tensors: 16-byte aligned for the kernel's cp.async and stores.
-    wxp = pack_fragments(wx)
-    whp = pack_fragments(wh)
-    if hin.data_ptr() % 16:
-        hin = hin.clone()
+    wxp, whp = packed or (pack_fragments(wx), pack_fragments(wh))
+    hin = _aligned16(hin)
     h = torch.empty((B, T, H), dtype=hin.dtype, device=dev)
     c = torch.empty_like(h) if save_c and cell == "lstm" else None
     keep = m.to(torch.uint8).contiguous()
@@ -470,14 +497,80 @@ def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     return h, c
 
 
-def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c):
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it starting on a 16-byte boundary (the mma
+    kernels' cp.async and vector loads)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+#: Rows per block of the tensor-core backward's reverse recurrence that
+#: ``csrc/rnn_fused_bwd_mma.cu`` is built for; the wrapper takes 16 (with
+#: W_h and the split d_gates tiles, 32 rows of the LSTM at H = 128 do not
+#: fit in shared memory).
+MMA_BWD_ROWS = (16, 32)
+
+
+def _launch_bwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
+                    b: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
+                    h_all: torch.Tensor, c_all: Optional[torch.Tensor],
+                    dh: torch.Tensor, forget_bias: float,
+                    wxp: Optional[torch.Tensor] = None, rows: int = 16):
+    """One call of the tensor-core fused backward (three kernel
+    launches, counted once) → ``(dhin, dW_x, db, dW_h)``, the weight
+    gradients in f32. ``wxp`` is ``pack_fragments(wx)`` when the forward
+    already built it; W_h goes in as it is (row-major, copied once into
+    shared memory)."""
+    B, T = m.shape
+    H = wh.shape[0]
+    G = _GATES[cell] * H
+    dev = hin.device
+    f32 = torch.float32
+    lib = _build.library()
+    smem = lib.lfm_rnn_fused_bwd_mma_smem(_CELL_CODE[cell], H, rows)
+    if smem < 0:
+        raise ValueError(f"the mma backward does not take H={H} with {rows} "
+                         f"rows per block")
+    _smem_check(smem, dev, H)
+    if wxp is None:
+        wxp = pack_fragments(wx)
+    wxtp = pack_fragments(wx, transpose=True)
+    hin, wh, h_all, c_all, dh = (None if t is None else _aligned16(t)
+                                 for t in (hin, wh, h_all, c_all, dh))
+    keep = m.to(torch.uint8).contiguous()
+    dgx = torch.empty((B, T, G), dtype=f32, device=dev)
+    dhn = (torch.empty((B, T, H), dtype=f32, device=dev) if cell == "gru"
+           else None)
+    S = _slices(B * T)
+    total = 2 * H * G + G
+    partial = torch.empty((S, total), dtype=f32, device=dev)
+    dw = torch.empty((total,), dtype=f32, device=dev)
+    dx = torch.empty_like(hin)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_fused_bwd_mma(
+            _CELL_CODE[cell], hin.data_ptr(), wxp.data_ptr(),
+            wxtp.data_ptr(), b.data_ptr(), wh.data_ptr(), keep.data_ptr(),
+            h_all.data_ptr(), ptr(c_all), dh.data_ptr(), dx.data_ptr(),
+            dgx.data_ptr(), ptr(dhn), partial.data_ptr(), S, dw.data_ptr(),
+            B, T, H, rows, float(forget_bias), _build.stream_of(hin))
+    name = f"rnn_fused_bwd_mma_{cell}"
+    _build.check(lib, err, name)
+    _build.count_launch(name)
+    hg = H * G
+    return (dx, dw[:hg].view(H, G), dw[hg:hg + G],
+            dw[hg + G:].view(H, G))
+
+
+def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
+                  packed=None):
     if hin.device.type == "cpu":
         xw = hin.float() @ wx.float() + b.float()
         h, c = rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
         return h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
     _check_card(hin, wx=wx, b=b, wh=wh, m=m)
     if _fused_fwd_route(hin.dtype, wh.shape[0]) == "mma":
-        return _launch_fwd_mma(cell, hin, wx, b, wh, m, forget_bias, save_c)
+        return _launch_fwd_mma(cell, hin, wx, b, wh, m, forget_bias, save_c,
+                               packed=packed)
     return _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias, save_c)
 
 
@@ -492,10 +585,12 @@ def _scan_states_any(cell, xw, wh, m, forget_bias, save_c):
 def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                        b: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
                        h_all: torch.Tensor, c_all: Optional[torch.Tensor],
-                       dh: torch.Tensor, forget_bias: float = 1.0):
+                       dh: torch.Tensor, forget_bias: float = 1.0,
+                       wxp: Optional[torch.Tensor] = None):
     """Backward of :func:`rnn_scan_fused` from its saved states →
     ``(dhin in hin.dtype, dW_x, db, dW_h in f32)``. ``dh`` is the upstream
-    gradient of ``h_all``, in ``hin.dtype``."""
+    gradient of ``h_all``, in ``hin.dtype``. ``wxp``: ``pack_fragments
+    (wx)`` when the forward built it (the tensor-core route reuses it)."""
     B, T, H = hin.shape
     _check_shapes(cell, B, T, H, m, wh, wx, b)
     _check_states(cell, B, T, H, h_all, c_all, dh)
@@ -504,6 +599,9 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                                             c_all, dh, forget_bias)
     _check_card(hin, wx=wx, b=b, wh=wh, m=m, h_all=h_all, c_all=c_all,
                 dh=dh)
+    if _fused_bwd_route(hin.dtype, H) == "mma":
+        return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
+                               forget_bias, wxp)
     return _launch_bwd(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
                        forget_bias)
 
@@ -534,8 +632,16 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
 class _FusedScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cell, forget_bias, hin, wx, b, wh, m):
-        h, c = _fused_states(cell, hin, wx, b, wh, m, forget_bias, True)
+        # The tensor-core kernels read W_x in fragment order: packed once
+        # here, for the forward and the backward's recompute.
+        packed = None
+        if hin.device.type == "cuda" and _fused_fwd_route(
+                hin.dtype, wh.shape[0]) == "mma":
+            packed = (pack_fragments(wx), pack_fragments(wh))
+        h, c = _fused_states(cell, hin, wx, b, wh, m, forget_bias, True,
+                             packed)
         ctx.cell, ctx.forget_bias = cell, forget_bias
+        ctx.wxp = None if packed is None else packed[0]
         ctx.save_for_backward(hin, wx, b, wh, m, h, c)
         return h
 
@@ -544,7 +650,7 @@ class _FusedScan(torch.autograd.Function):
         hin, wx, b, wh, m, h, c = ctx.saved_tensors
         dhin, dwx, db, dwh = rnn_scan_fused_bwd(
             ctx.cell, hin, wx, b, wh, m, h, c,
-            dh.to(hin.dtype).contiguous(), ctx.forget_bias)
+            dh.to(hin.dtype).contiguous(), ctx.forget_bias, ctx.wxp)
         # The weight gradients leave in the operands' types (f32 sums).
         return (None, None, dhin, dwx.to(wx.dtype), db.to(b.dtype),
                 dwh.to(wh.dtype), None)

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of the tensor-core fused forward goes, on the card.
+"""Where the time of the tensor-core recurrence kernels goes, on the card.
 
-    python3 scripts/torch_mma_variants.py [--variants a,b] [--out DIR]
+    python3 scripts/torch_mma_variants.py [--kernel fwd|bwd]
+                                          [--variants a,b+c] [--out FILE]
 
-Builds variants of ``lfm_quant_tpu_torch/csrc/rnn_fused_fwd_mma.cu``,
-each made from the committed source by named text substitutions, into
-separate shared libraries (one ``nvcc`` each, all started together), and
-times every variant at the main paths' shapes (c2 serving: LSTM B 16384;
-c3 serving: GRU B 32768; c2 train step: LSTM B 2048 with c_all; T 60, H
-128, bf16, random seeded inputs) and rows per block, with CUDA events.
-Variants that keep the arithmetic are held to the plain version (bf16
-atol/rtol 0.05); the diagnostic ones (``diag_*``) remove a part of the
-work and give wrong numbers on purpose, to show what that part costs.
-Prints one line per measurement and writes them as JSON lines to
-``--out`` (default ``chiprun_out/mma_variants.jsonl``). Needs a CUDA card
-and ``nvcc``; imports nothing of JAX.
+Builds variants of ``lfm_quant_tpu_torch/csrc/rnn_fused_fwd_mma.cu``
+(``--kernel fwd``, the default) or ``rnn_fused_bwd_mma.cu`` (``bwd``),
+each made from the committed source by named text substitutions (``b+c``
+applies both), into separate shared libraries (one ``nvcc`` each, all
+started together), and times every variant with CUDA events at the main
+paths' shapes, T 60, H 128, bf16, random seeded inputs: the forward at
+c2 serving (LSTM B 16384), c3 serving (GRU B 32768) and the c2 train step
+(LSTM B 2048 with c_all); the backward at the c2 train step (LSTM and
+GRU, B 2048), each at the rows per block it is built for where they fit
+in shared memory. Variants that keep the arithmetic are held to the
+plain version (forward: bf16 atol/rtol 0.05; backward: gradients scaled
+by their largest magnitude, atol 0.05); ``alt_*`` variants change the
+numerics and only record their error; ``diag_*`` ones remove a part of
+the work and give wrong numbers on purpose, to show what that part
+costs. Prints one line per measurement and writes them as JSON lines to
+``--out`` (default ``build/mma_variants/fwd.jsonl`` or ``bwd.jsonl``).
+Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(ROOT, "lfm_quant_tpu_torch", "csrc", "rnn_fused_fwd_mma.cu")
+CSRC = os.path.join(ROOT, "lfm_quant_tpu_torch", "csrc")
+SRC = {"fwd": os.path.join(CSRC, "rnn_fused_fwd_mma.cu"),
+       "bwd": os.path.join(CSRC, "rnn_fused_bwd_mma.cu")}
 BUILD = os.path.join(ROOT, "build", "mma_variants")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-I", CSRC]
 
 _FAST_MATH = [
     ("  return __frcp_rn(1.0f + expf(-v));\n}\n",
@@ -41,7 +49,7 @@ _FAST_MATH = [
      "  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v));\n}\n"),
     ("tanhf(", "fast_tanh("),
 ]
-VARIANTS = {
+FWD_VARIANTS = {
     "base": [],
     "fast_math": _FAST_MATH,
     # Diagnostics: W_x's fragments read from the shared W_h instead of L2;
@@ -58,36 +66,64 @@ VARIANTS = {
         ("tanhf(", "ident("),
     ],
 }
-# (where, cell, B, save_c, rows per block)
+_IDENTITY = [
+    ("  return __frcp_rn(1.0f + expf(-v));\n",
+     "  return v;\n}\n\n__device__ __forceinline__ float ident(float v) {\n"
+     "  return v;\n"),
+    ("tanhf(", "ident("),
+]
+BWD_VARIANTS = {
+    "base": [],
+    # d_gates rounded once to bf16 in every product with it (one term).
+    "alt_round_once": [("constexpr int kSplit = 2;",
+                        "constexpr int kSplit = 1;")],
+    # Diagnostics: the reverse recurrence alone (no weight gradients); its
+    # products removed; the transcendentals replaced by the identity.
+    "diag_no_wgrad": [("constexpr bool kWeightGradients = true;",
+                       "constexpr bool kWeightGradients = false;")],
+    "diag_no_products": [("for (int kk = 0; kk < KT; ++kk) {",
+                          "for (int kk = 0; kk < 0; ++kk) {"),
+                         ("for (int ks = 0; ks < KB; ++ks) {",
+                          "for (int ks = 0; ks < 0; ++ks) {")],
+    "diag_no_transcendentals": _IDENTITY,
+}
+VARIANTS = {"fwd": FWD_VARIANTS, "bwd": BWD_VARIANTS}
+# Forward: (where, cell, B, save_c, rows per block)
 SHAPES = (("c2 serving", "lstm", 16384, False, (64, 32)),
           ("c3 serving", "gru", 32768, False, (64, 32)),
           ("c2 8192 rows", "lstm", 8192, False, (64, 32, 16)),
           ("c2 train step", "lstm", 2048, True, (16, 32)))
+# Backward: (where, cell, B, rows per block)
+BWD_SHAPES = (("c2 train step", "lstm", 2048, (16, 32)),
+              ("c2 train step", "gru", 2048, (16, 32)))
 
 
-def variant_source(name: str) -> str:
-    src = open(SRC).read()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: pattern not in the source:\n"
-                             f"{old}")
-        src = src.replace(old, new)
+def variant_source(kernel: str, name: str) -> str:
+    src = open(SRC[kernel]).read()
+    for part in name.split("+"):
+        for old, new in VARIANTS[kernel][part]:
+            if old not in src:
+                raise SystemExit(f"variant {part}: pattern not in the "
+                                 f"source:\n{old}")
+            src = src.replace(old, new)
     return src
 
 
-def build(names):
+def build(kernel: str, names):
     os.makedirs(BUILD, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     procs = {}
     for name in names:
-        cu = os.path.join(BUILD, f"{name}.cu")
+        cu = os.path.join(BUILD, f"{kernel}-{name}.cu")
         with open(cu, "w") as f:
-            f.write(variant_source(name))
+            f.write(variant_source(kernel, name))
         procs[name] = subprocess.Popen(
-            [nvcc, *FLAGS, cu, "-o", os.path.join(BUILD, f"{name}.so")],
+            [nvcc, *FLAGS, cu, "-o",
+             os.path.join(BUILD, f"{kernel}-{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, p in procs.items():
         out, _ = p.communicate()
         if p.returncode != 0:
@@ -95,11 +131,17 @@ def build(names):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[{name}] ptxas: {line.strip()}", flush=True)
-        lib = ctypes.CDLL(os.path.join(BUILD, f"{name}.so"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lfm_rnn_fused_fwd_mma.argtypes = (
-            [ci] + [vp] * 7 + [ci] * 4 + [ctypes.c_float, vp])
-        lib.lfm_rnn_fused_fwd_mma.restype = ci
+        lib = ctypes.CDLL(os.path.join(BUILD, f"{kernel}-{name}.so"))
+        if kernel == "fwd":
+            lib.lfm_rnn_fused_fwd_mma.argtypes = (
+                [ci] + [vp] * 7 + [ci] * 4 + [cf, vp])
+            lib.lfm_rnn_fused_fwd_mma.restype = ci
+        else:
+            lib.lfm_rnn_fused_bwd_mma.argtypes = (
+                [ci] + [vp] * 13 + [ci, vp] + [ci] * 4 + [cf, vp])
+            lib.lfm_rnn_fused_bwd_mma.restype = ci
+            lib.lfm_rnn_fused_bwd_mma_smem.argtypes = [ci, ci, ci]
+            lib.lfm_rnn_fused_bwd_mma_smem.restype = ctypes.c_longlong
         libs[name] = lib
     return libs
 
@@ -120,11 +162,132 @@ def time_ms(torch, fn, reps=10):
     return statistics.median(times)
 
 
+def run_fwd(torch, R, libs, names, card, gen, out) -> None:
+    T, H = 60, 128
+    for where, cell, B, save_c, row_choices in SHAPES:
+        G = (4 if cell == "lstm" else 3) * H
+        hin = torch.randn(B, T, H, generator=gen).bfloat16().cuda()
+        wx = (torch.randn(H, G, generator=gen) / H ** 0.5).bfloat16().cuda()
+        b = (0.1 * torch.randn(G, generator=gen)).bfloat16().cuda()
+        wh = (torch.randn(H, G, generator=gen) / H ** 0.5).bfloat16().cuda()
+        m = (torch.rand(B, T, generator=gen) < 0.8).cuda()
+        keep = m.to(torch.uint8)
+        ref_h, ref_c = R.rnn_scan_states(
+            cell, hin.float() @ wx.float() + b.float(), wh, m, 1.0, save_c)
+        wxp = R.pack_fragments(wx)
+        whp = R.pack_fragments(wh)
+        for rows in row_choices:
+            h = torch.empty((B, T, H), dtype=torch.bfloat16, device="cuda")
+            c = torch.empty_like(h) if save_c else None
+            for name in names:
+                lib = libs[name]
+
+                def run():
+                    err = lib.lfm_rnn_fused_fwd_mma(
+                        0 if cell == "lstm" else 1, hin.data_ptr(),
+                        wxp.data_ptr(), b.data_ptr(), whp.data_ptr(),
+                        keep.data_ptr(), h.data_ptr(),
+                        None if c is None else c.data_ptr(), B, T, H, rows,
+                        1.0, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise SystemExit(f"{name}: CUDA error {err}")
+
+                run()
+                torch.cuda.synchronize()
+                err = (h.float() - ref_h.float()).abs().max().item()
+                if save_c:
+                    err = max(err, (c.float() - ref_c.float()).abs()
+                              .max().item())
+                ok = bool((h.float() - ref_h.float()).abs().le(
+                    0.05 + 0.05 * ref_h.float().abs()).all())
+                if not name.startswith("diag_") and not ok:
+                    raise SystemExit(f"{name} {where} rows {rows}: max err "
+                                     f"{err}")
+                rec = dict(variant=name, at=where, cell=cell, B=B,
+                           rows_per_block=rows, save_c=save_c,
+                           ms=time_ms(torch, run), max_abs_err=err,
+                           card=card)
+                print(json.dumps(rec), flush=True)
+                out.write(json.dumps(rec) + "\n")
+
+
+def run_bwd(torch, R, libs, names, card, gen, out) -> None:
+    T, H = 60, 128
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for where, cell, B, row_choices in BWD_SHAPES:
+        code = 0 if cell == "lstm" else 1
+        G = (4 if cell == "lstm" else 3) * H
+        hin = torch.randn(B, T, H, generator=gen).bfloat16().cuda()
+        wx = (torch.randn(H, G, generator=gen) / H ** 0.5).bfloat16().cuda()
+        b = (0.1 * torch.randn(G, generator=gen)).bfloat16().cuda()
+        wh = (torch.randn(H, G, generator=gen) / H ** 0.5).bfloat16().cuda()
+        m = (torch.rand(B, T, generator=gen) < 0.8).cuda()
+        dh = (0.1 * torch.randn(B, T, H, generator=gen)).bfloat16().cuda()
+        keep = m.to(torch.uint8)
+        h, c = R.rnn_scan_states(cell, hin.float() @ wx.float() + b.float(),
+                                 wh, m)
+        h, c = h.bfloat16(), (None if c is None else c.bfloat16())
+        want = R.rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h, c,
+                                              dh)
+        wxp = R.pack_fragments(wx)
+        wxtp = R.pack_fragments(wx, transpose=True)
+        S = R._slices(B * T)
+        total = 2 * H * G + G
+        dx = torch.empty_like(hin)
+        dgx = torch.empty((B, T, G), dtype=torch.float32, device="cuda")
+        dhn = torch.empty((B, T, H), dtype=torch.float32, device="cuda")
+        partial = torch.empty((S, total), dtype=torch.float32, device="cuda")
+        dw = torch.empty((total,), dtype=torch.float32, device="cuda")
+        for rows in row_choices:
+            for name in names:
+                lib = libs[name]
+                smem = lib.lfm_rnn_fused_bwd_mma_smem(code, H, rows)
+                if smem > limit:
+                    print(f"{name} {cell} rows {rows}: {smem} bytes of shared "
+                          f"memory, over the card's {limit}: not run",
+                          flush=True)
+                    continue
+
+                def run():
+                    err = lib.lfm_rnn_fused_bwd_mma(
+                        code, hin.data_ptr(), wxp.data_ptr(),
+                        wxtp.data_ptr(), b.data_ptr(), wh.data_ptr(),
+                        keep.data_ptr(), h.data_ptr(),
+                        None if c is None else c.data_ptr(), dh.data_ptr(),
+                        dx.data_ptr(), dgx.data_ptr(), dhn.data_ptr(),
+                        partial.data_ptr(), S, dw.data_ptr(), B, T, H, rows,
+                        1.0, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise SystemExit(f"{name}: CUDA error {err}")
+
+                run()
+                torch.cuda.synchronize()
+                hg = H * G
+                got = (dx, dw[:hg].view(H, G), dw[hg:hg + G],
+                       dw[hg + G:].view(H, G))
+                errs = [((g.float() - w.float()).abs().max()
+                         / (w.float().abs().max() + 1e-9)).item()
+                        for g, w in zip(got, want)]
+                enforced = not name.startswith(("diag_", "alt_"))
+                if enforced and not max(errs) <= 0.05:
+                    raise SystemExit(f"{name} {cell} rows {rows}: scaled "
+                                     f"errors {errs}")
+                rec = dict(variant=name, at=where, cell=cell, B=B,
+                           rows_per_block=rows, smem_bytes=smem,
+                           ms=time_ms(torch, run),
+                           scaled_err=dict(zip(("dhin", "dW_x", "db", "dW_h"),
+                                               errs)),
+                           card=card)
+                print(json.dumps(rec), flush=True)
+                out.write(json.dumps(rec) + "\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
-                                                  "mma_variants.jsonl"))
+    ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated; default: every variant")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     import torch
 
@@ -133,65 +296,23 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from lfm_quant_tpu_torch.ops import rnn as R
 
-    names = args.variants.split(",")
+    kernel = args.kernel
+    names = (args.variants or ",".join(VARIANTS[kernel])).split(",")
+    out_path = args.out or os.path.join(BUILD, f"{kernel}.jsonl")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     card = smi.stdout.strip()
     print(card, flush=True)
     t0 = time.perf_counter()
-    libs = build(names)
+    libs = build(kernel, names)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     gen = torch.Generator().manual_seed(0)
-    T, H = 60, 128
-    with open(args.out, "w") as out:
-        for where, cell, B, save_c, row_choices in SHAPES:
-            G = (4 if cell == "lstm" else 3) * H
-            hin = torch.randn(B, T, H, generator=gen).bfloat16().cuda()
-            wx = (torch.randn(H, G, generator=gen) / H ** 0.5).bfloat16().cuda()
-            b = (0.1 * torch.randn(G, generator=gen)).bfloat16().cuda()
-            wh = (torch.randn(H, G, generator=gen) / H ** 0.5).bfloat16().cuda()
-            m = (torch.rand(B, T, generator=gen) < 0.8).cuda()
-            keep = m.to(torch.uint8)
-            ref_h, ref_c = R.rnn_scan_states(
-                cell, hin.float() @ wx.float() + b.float(), wh, m, 1.0, save_c)
-            wxp = R.pack_fragments(wx)
-            whp = R.pack_fragments(wh)
-            for rows in row_choices:
-                h = torch.empty((B, T, H), dtype=torch.bfloat16, device="cuda")
-                c = torch.empty_like(h) if save_c else None
-                for name in names:
-                    lib = libs[name]
-
-                    def run():
-                        err = lib.lfm_rnn_fused_fwd_mma(
-                            0 if cell == "lstm" else 1, hin.data_ptr(),
-                            wxp.data_ptr(), b.data_ptr(), whp.data_ptr(),
-                            keep.data_ptr(), h.data_ptr(),
-                            None if c is None else c.data_ptr(), B, T, H, rows,
-                            1.0, torch.cuda.current_stream().cuda_stream)
-                        if err:
-                            raise SystemExit(f"{name}: CUDA error {err}")
-
-                    run()
-                    torch.cuda.synchronize()
-                    err = (h.float() - ref_h.float()).abs().max().item()
-                    if save_c:
-                        err = max(err, (c.float() - ref_c.float()).abs()
-                                  .max().item())
-                    ok = bool((h.float() - ref_h.float()).abs().le(
-                        0.05 + 0.05 * ref_h.float().abs()).all())
-                    if not name.startswith("diag_") and not ok:
-                        raise SystemExit(f"{name} {where} rows {rows}: max err "
-                                         f"{err}")
-                    rec = dict(variant=name, at=where, cell=cell, B=B,
-                               rows_per_block=rows, save_c=save_c,
-                               ms=time_ms(torch, run), max_abs_err=err,
-                               card=card)
-                    print(json.dumps(rec), flush=True)
-                    out.write(json.dumps(rec) + "\n")
+    with open(out_path, "w") as out:
+        (run_fwd if kernel == "fwd" else run_bwd)(torch, R, libs, names, card,
+                                                  gen, out)
     return 0
 
 

@@ -95,6 +95,29 @@ def test_fused_gradients_match_jax(cell, dtype_name, B, T, H):
         _scaled_close(g, w, dtype_name)
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fused_gradients_at_tensor_core_width_match_jax(cell):
+    """bf16 at H = 16, a width whose backward takes the tensor cores on
+    the card (``ops/rnn.py _fused_bwd_route``): the plain backward those
+    kernels are held to there, through ``_FusedScan`` on the CPU, against
+    jax.grad through the Pallas fused backward, scaled atol 0.05."""
+    from lfm_quant_tpu_torch.ops.rnn import _fused_bwd_route
+
+    assert _fused_bwd_route(torch.bfloat16, 16) == "mma"
+    hin, wx, b, wh, m = _inputs(cell, 9, 5, 16, seed=70)
+    wx, wh = wx / np.sqrt(2.0), wh / np.sqrt(2.0)
+    mt = torch.from_numpy(m)
+    got, _ = _torch_grads(
+        lambda *a: rnn_scan_fused(cell, *a, mt), (hin, wx, b, wh),
+        torch.bfloat16)
+    want = _jax_grads(
+        lambda *a: jax_scan_fused(cell, *a, jnp.asarray(m).astype(a[0].dtype),
+                                  block_b=8),
+        (hin, wx, b, wh), jnp.bfloat16)
+    for g, w in zip(got, want):
+        _scaled_close(g, w, "bf16")
+
+
 @pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("B,T,H", [(9, 5, 8), (21, 5, 8)])
