@@ -20,7 +20,7 @@
 // significant bits of d_gates (relative error near 2^-17 per term) and
 // differ from f32 products by little more than the order of the sums.
 //
-// Route (ops/rnn.py _fused_bwd_route): bfloat16 with H % 16 == 0 and
+// Route (ops/rnn.py _mma_route): bfloat16 with H % 16 == 0 and
 // 16 <= H <= 128. float32 and every other H stay on csrc/rnn_bwd.cu.
 //
 // Bound. At the c2 train step (B = 2048, T = 60, H = 128, LSTM) the
@@ -31,8 +31,8 @@
 //
 // Design:
 //
-// * Kernel 1, the reverse recurrence. One block owns 16 * RT rows for all
-//   T steps and has H / 8 warps; warp w owns all the rows and the 8 hidden
+// * Kernel 1, the reverse recurrence. One block owns 16 rows for all T
+//   steps and has H / 8 warps; warp w owns all the rows and the 8 hidden
 //   units u0 = 8 w .. u0 + 7 with all G gates, as the forward kernel, so
 //   the gate sums, the cell's backward and the dh, dc carries of one
 //   (row, unit) sit in one thread's registers. W_h is resident in shared
@@ -78,12 +78,13 @@ constexpr int kGru = 1;
 constexpr int kUnits = 8;  // hidden units per warp of kernel 1
 // Terms of the split of d_gates in the backward products (hi, lo).
 constexpr int kSplit = 2;
+// Kernel 1: 16-row tiles per block. One: with W_h and the split d_gates
+// tiles, 32 rows of the LSTM at H = 128 do not fit in shared memory.
+constexpr int kRowTiles = 1;
 // Kernel 2: gate columns per block, rows per stage, threads.
 constexpr int kWgCols = 64;
 constexpr int kWgRows = 32;
 constexpr int kWgThreads = 256;
-// Kernel 2 runs after kernel 1 (a diagnostic variant turns it off).
-constexpr bool kWeightGradients = true;
 
 // __frcp_rn is the correctly rounded reciprocal: the same value as
 // 1.0f / x, without the division's slow path.
@@ -107,7 +108,8 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 // Kernel 1's shared memory: W_h [H, G H + 8], the hin and h_{t-1} tiles
 // (two each, [rows, H + 8]) and the kSplit d_gates tiles [rows, 4 H + 8],
 // all bf16, and the bias [G H] f32.
-inline size_t recur_smem_bytes(int G, int H, int rows) {
+inline size_t recur_smem_bytes(int G, int H) {
+  const size_t rows = 16 * kRowTiles;
   return 2 * ((size_t)H * (G * H + 8) + 4 * (size_t)rows * (H + 8) +
               (size_t)kSplit * rows * (4 * H + 8)) +
          4 * (size_t)G * H;
@@ -127,7 +129,7 @@ inline size_t wgrad_smem_bytes(int cell, int H) {
 // [32][4], ops/rnn.py pack_fragments(transpose=True)); b [G H]; wh
 // [H, G H] row-major; m uint8 [B, T]. Out: dhin [B, T, H] bf16; dgx
 // (d_xw) [B, T, G H] f32; dhn (GRU: dn r) [B, T, H] f32.
-template <int CELL, int RT>
+template <int CELL>
 __global__ void __launch_bounds__(128 * 32 / kUnits, 1)
 rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
                          const uint2* __restrict__ wxp,
@@ -142,6 +144,7 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
                          float* __restrict__ dgx, float* __restrict__ dhn,
                          int B, int Tn, int H, float forget_bias) {
   constexpr int G = CELL == kLstm ? 4 : 3;
+  constexpr int RT = kRowTiles;
   constexpr int BB = 16 * RT;  // rows per block
   const int GH = G * H;
   const int KT = H / 16;       // k-steps of the recomputed products
@@ -652,7 +655,7 @@ __global__ void rnn_bwd_mma_slices_kernel(const float* __restrict__ partial,
   out[i] = acc;
 }
 
-template <int CELL, int RT>
+template <int CELL>
 cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
                    const void* b, const void* wh, const void* m,
                    const void* h_all, const void* c_all, const void* dh,
@@ -660,10 +663,10 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
                    void* dw, int B, int Tn, int H, float forget_bias,
                    cudaStream_t stream) {
   constexpr int G = CELL == kLstm ? 4 : 3;
-  constexpr int rows = 16 * RT;
+  constexpr int rows = 16 * kRowTiles;
   const int GH = G * H;
-  const size_t smem1 = recur_smem_bytes(G, H, rows);
-  auto recur = rnn_bwd_mma_recur_kernel<CELL, RT>;
+  const size_t smem1 = recur_smem_bytes(G, H);
+  auto recur = rnn_bwd_mma_recur_kernel<CELL>;
   cudaError_t err = cudaFuncSetAttribute(
       recur, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
@@ -677,7 +680,7 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
       static_cast<__nv_bfloat16*>(dhin), static_cast<float*>(dgx),
       static_cast<float*>(dhn), B, Tn, H, forget_bias);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !kWeightGradients) return err;
+  if (err != cudaSuccess) return err;
 
   const int M = B * Tn;
   const size_t smem2 = wgrad_smem_bytes(CELL, H);
@@ -699,20 +702,16 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
   return cudaGetLastError();
 }
 
-// The shapes the kernels take: 16 <= H <= 128, H % 16 == 0, 16 or 32 rows
-// per block of kernel 1.
-bool supported(int H, int rows) {
-  if (H < 16 || H > 128 || H % 16 != 0) return false;
-  return rows == 16 || rows == 32;
-}
+// The widths the kernels take: 16 <= H <= 128, H % 16 == 0.
+bool supported(int H) { return H >= 16 && H <= 128 && H % 16 == 0; }
 
 }  // namespace
 
 // Shared memory of the larger of the launches (kernel 1's), in bytes; -1
 // for a shape the kernels do not take. cell: 0 = LSTM, 1 = GRU.
-extern "C" long long lfm_rnn_fused_bwd_mma_smem(int cell, int H, int rows) {
-  if (!supported(H, rows)) return -1;
-  const size_t r = recur_smem_bytes(cell == kLstm ? 4 : 3, H, rows);
+extern "C" long long lfm_rnn_fused_bwd_mma_smem(int cell, int H) {
+  if (!supported(H)) return -1;
+  const size_t r = recur_smem_bytes(cell == kLstm ? 4 : 3, H);
   const size_t w = wgrad_smem_bytes(cell, H);
   return (long long)(r > w ? r : w);
 }
@@ -723,8 +722,7 @@ extern "C" long long lfm_rnn_fused_bwd_mma_smem(int cell, int H, int rows) {
 // b [G H], wh [H, G H] bf16; m uint8 [B, T]. Scratch the caller
 // allocates: dgx [B, T, G H] f32, dhn [B, T, H] f32 (GRU), partial
 // [S, 2 H G H + G H] f32. Output dw [2 H G H + G H] f32: dW_x, db, dW_h.
-// rows: rows per block of the reverse recurrence (16 or 32). Returns the
-// first CUDA error of its three launches.
+// Returns the first CUDA error of its three launches.
 extern "C" int lfm_rnn_fused_bwd_mma(int cell, const void* hin,
                                      const void* wxp, const void* wxtp,
                                      const void* b, const void* wh,
@@ -732,19 +730,18 @@ extern "C" int lfm_rnn_fused_bwd_mma(int cell, const void* hin,
                                      const void* c_all, const void* dh,
                                      void* dhin, void* dgx, void* dhn,
                                      void* partial, int S, void* dw, int B,
-                                     int Tn, int H, int rows,
-                                     float forget_bias, void* stream) {
+                                     int Tn, int H, float forget_bias,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Tn <= 0 || S <= 0 || !supported(H, rows))
+  if (B <= 0 || Tn <= 0 || S <= 0 || !supported(H))
     return (int)cudaErrorInvalidValue;
-#define LFM_BWD_MMA(C, RT)                                                  \
-  return (int)launch<C, RT>(hin, wxp, wxtp, b, wh, m, h_all, c_all, dh,     \
-                            dhin, dgx, dhn, partial, S, dw, B, Tn, H,       \
-                            forget_bias, st)
-  if (cell == kLstm && rows == 16) LFM_BWD_MMA(kLstm, 1);
-  if (cell == kLstm && rows == 32) LFM_BWD_MMA(kLstm, 2);
-  if (cell == kGru && rows == 16) LFM_BWD_MMA(kGru, 1);
-  if (cell == kGru && rows == 32) LFM_BWD_MMA(kGru, 2);
-#undef LFM_BWD_MMA
+  if (cell == kLstm)
+    return (int)launch<kLstm>(hin, wxp, wxtp, b, wh, m, h_all, c_all, dh,
+                              dhin, dgx, dhn, partial, S, dw, B, Tn, H,
+                              forget_bias, st);
+  if (cell == kGru)
+    return (int)launch<kGru>(hin, wxp, wxtp, b, wh, m, h_all, c_all, dh,
+                             dhin, dgx, dhn, partial, S, dw, B, Tn, H,
+                             forget_bias, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,7 @@
 // are stored in bf16: the TPU kernels' rounding points. Only the order of
 // the f32 sums differs from csrc/rnn_fused_fwd.cu.
 //
-// Route (ops/rnn.py _fused_fwd_route): bfloat16 with H % 16 == 0 and
+// Route (ops/rnn.py _mma_route): bfloat16 with H % 16 == 0 and
 // 16 <= H <= 128, so that W_h (G * H * H bf16, 128 KB for the LSTM at
 // H = 128) fits in shared memory. float32, any other H and the hoisted
 // form stay on the CUDA-core kernel in csrc/rnn_fused_fwd.cu.

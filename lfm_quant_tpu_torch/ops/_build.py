@@ -146,7 +146,7 @@ def library() -> ctypes.CDLL:
                 "lfm_rnn_fused_fwd_mma": [ci] + [vp] * 7 + [ci] * 4
                 + [cf, vp],
                 "lfm_rnn_fused_bwd_mma": [ci] + [vp] * 13 + [ci, vp]
-                + [ci] * 4 + [cf, vp],
+                + [ci] * 3 + [cf, vp],
                 "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 3
                 + [cf, vp],
                 "lfm_rnn_fused_bwd": [ci, ci] + [vp] * 14 + [ci, vp]
@@ -157,10 +157,11 @@ def library() -> ctypes.CDLL:
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ci
-            for name in ("lfm_rnn_fwd_smem", "lfm_rnn_bwd_smem",
-                         "lfm_rnn_fused_fwd_mma_smem",
-                         "lfm_rnn_fused_bwd_mma_smem"):
-                getattr(lib, name).argtypes = [ci, ci, ci]
+            smem = {"lfm_rnn_fwd_smem": 3, "lfm_rnn_bwd_smem": 3,
+                    "lfm_rnn_fused_fwd_mma_smem": 3,
+                    "lfm_rnn_fused_bwd_mma_smem": 2}
+            for name, n in smem.items():
+                getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll
             lib.lfm_window_gather.argtypes = [
                 ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]

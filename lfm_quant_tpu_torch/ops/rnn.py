@@ -4,10 +4,10 @@
 versions.
 
 The fused forward and the fused backward each have two kernels, picked
-by :func:`_fused_fwd_route` and :func:`_fused_bwd_route` from the dtype
-and H alone: bf16 with 16 <= H <= 128, H % 16 == 0 runs on the tensor
-cores (``rnn_fused_fwd_mma.cu``, ``rnn_fused_bwd_mma.cu``); float32 and
-every other H on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
+by one rule, :func:`_mma_route`, from the dtype and H alone: bf16 with
+16 <= H <= 128, H % 16 == 0 runs on the tensor cores
+(``rnn_fused_fwd_mma.cu``, ``rnn_fused_bwd_mma.cu``); float32 and every
+other H on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -366,24 +366,18 @@ def _launch_bwd(cell: str, fused: bool, xin: torch.Tensor, wx, b,
             dw[hg + G:].view(H, G))
 
 
-def _fused_fwd_route(dtype: torch.dtype, H: int) -> str:
-    """Which kernel runs the fused forward on the card: ``"mma"``
-    (``csrc/rnn_fused_fwd_mma.cu``, bf16 tensor cores, W_h resident in
+def _mma_route(dtype: torch.dtype, H: int) -> str:
+    """Which kernels run the fused forward and the fused backward on the
+    card: ``"mma"`` (``csrc/rnn_fused_fwd_mma.cu`` and
+    ``csrc/rnn_fused_bwd_mma.cu``, bf16 tensor cores, W_h resident in
     shared memory, so 16 <= H <= 128 and H % 16 == 0) or ``"simt"``
-    (``csrc/rnn_fused_fwd.cu``, f32 on the CUDA cores: float32, which
-    must hold the JAX f32 bound, and every other H)."""
+    (``csrc/rnn_fused_fwd.cu`` and ``csrc/rnn_bwd.cu``, f32 on the CUDA
+    cores: float32, which must hold the JAX f32 bound, and every other
+    H). One rule for both directions: the backward reuses the forward's
+    packing of W_x."""
     if dtype == torch.bfloat16 and H % 16 == 0 and 16 <= H <= 128:
         return "mma"
     return "simt"
-
-
-def _fused_bwd_route(dtype: torch.dtype, H: int) -> str:
-    """Which kernels run the fused backward on the card: ``"mma"``
-    (``csrc/rnn_fused_bwd_mma.cu``, bf16 tensor cores with W_h resident
-    in shared memory: the widths of :func:`_fused_fwd_route`) or
-    ``"simt"`` (``csrc/rnn_bwd.cu``, f32 on the CUDA cores: float32,
-    which must hold atol 1e-5, and every other H)."""
-    return _fused_fwd_route(dtype, H)
 
 
 #: Hidden units per warp of the tensor-core forward (``kUnits`` in
@@ -503,18 +497,11 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-#: Rows per block of the tensor-core backward's reverse recurrence that
-#: ``csrc/rnn_fused_bwd_mma.cu`` is built for; the wrapper takes 16 (with
-#: W_h and the split d_gates tiles, 32 rows of the LSTM at H = 128 do not
-#: fit in shared memory).
-MMA_BWD_ROWS = (16, 32)
-
-
 def _launch_bwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                     b: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
                     h_all: torch.Tensor, c_all: Optional[torch.Tensor],
                     dh: torch.Tensor, forget_bias: float,
-                    wxp: Optional[torch.Tensor] = None, rows: int = 16):
+                    wxp: Optional[torch.Tensor] = None):
     """One call of the tensor-core fused backward (three kernel
     launches, counted once) → ``(dhin, dW_x, db, dW_h)``, the weight
     gradients in f32. ``wxp`` is ``pack_fragments(wx)`` when the forward
@@ -526,10 +513,9 @@ def _launch_bwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     dev = hin.device
     f32 = torch.float32
     lib = _build.library()
-    smem = lib.lfm_rnn_fused_bwd_mma_smem(_CELL_CODE[cell], H, rows)
+    smem = lib.lfm_rnn_fused_bwd_mma_smem(_CELL_CODE[cell], H)
     if smem < 0:
-        raise ValueError(f"the mma backward does not take H={H} with {rows} "
-                         f"rows per block")
+        raise ValueError(f"the mma backward does not take H={H}")
     _smem_check(smem, dev, H)
     if wxp is None:
         wxp = pack_fragments(wx)
@@ -552,7 +538,7 @@ def _launch_bwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
             wxtp.data_ptr(), b.data_ptr(), wh.data_ptr(), keep.data_ptr(),
             h_all.data_ptr(), ptr(c_all), dh.data_ptr(), dx.data_ptr(),
             dgx.data_ptr(), ptr(dhn), partial.data_ptr(), S, dw.data_ptr(),
-            B, T, H, rows, float(forget_bias), _build.stream_of(hin))
+            B, T, H, float(forget_bias), _build.stream_of(hin))
     name = f"rnn_fused_bwd_mma_{cell}"
     _build.check(lib, err, name)
     _build.count_launch(name)
@@ -568,7 +554,7 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
         h, c = rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
         return h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
     _check_card(hin, wx=wx, b=b, wh=wh, m=m)
-    if _fused_fwd_route(hin.dtype, wh.shape[0]) == "mma":
+    if _mma_route(hin.dtype, wh.shape[0]) == "mma":
         return _launch_fwd_mma(cell, hin, wx, b, wh, m, forget_bias, save_c,
                                packed=packed)
     return _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias, save_c)
@@ -599,7 +585,7 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                                             c_all, dh, forget_bias)
     _check_card(hin, wx=wx, b=b, wh=wh, m=m, h_all=h_all, c_all=c_all,
                 dh=dh)
-    if _fused_bwd_route(hin.dtype, H) == "mma":
+    if _mma_route(hin.dtype, H) == "mma":
         return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
                                forget_bias, wxp)
     return _launch_bwd(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
@@ -635,7 +621,7 @@ class _FusedScan(torch.autograd.Function):
         # The tensor-core kernels read W_x in fragment order: packed once
         # here, for the forward and the backward's recompute.
         packed = None
-        if hin.device.type == "cuda" and _fused_fwd_route(
+        if hin.device.type == "cuda" and _mma_route(
                 hin.dtype, wh.shape[0]) == "mma":
             packed = (pack_fragments(wx), pack_fragments(wh))
         h, c = _fused_states(cell, hin, wx, b, wh, m, forget_bias, True,

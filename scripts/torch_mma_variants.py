@@ -11,14 +11,15 @@ applies both), into separate shared libraries (one ``nvcc`` each, all
 started together), and times every variant with CUDA events at the main
 paths' shapes, T 60, H 128, bf16, random seeded inputs: the forward at
 c2 serving (LSTM B 16384), c3 serving (GRU B 32768) and the c2 train step
-(LSTM B 2048 with c_all); the backward at the c2 train step (LSTM and
-GRU, B 2048), each at the rows per block it is built for where they fit
-in shared memory. Variants that keep the arithmetic are held to the
+(LSTM B 2048 with c_all), each at the rows per block it is built for; the
+backward at the c2 train step (LSTM and GRU, B 2048), where a variant
+fits in shared memory. Variants that keep the arithmetic are held to the
 plain version (forward: bf16 atol/rtol 0.05; backward: gradients scaled
-by their largest magnitude, atol 0.05); ``alt_*`` variants change the
-numerics and only record their error; ``diag_*`` ones remove a part of
-the work and give wrong numbers on purpose, to show what that part
-costs. Prints one line per measurement and writes them as JSON lines to
+by their largest magnitude, atol 0.05 for the bf16 dhin and 1e-4 for the
+f32 weight gradients, which rounding d_gates once to bf16 fails);
+``alt_*`` variants change the numerics and only record their error;
+``diag_*`` ones remove a part of the work and give wrong numbers on
+purpose, to show what that part costs. Prints one line per measurement and writes them as JSON lines to
 ``--out`` (default ``build/mma_variants/fwd.jsonl`` or ``bwd.jsonl``).
 Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
@@ -77,10 +78,13 @@ BWD_VARIANTS = {
     # d_gates rounded once to bf16 in every product with it (one term).
     "alt_round_once": [("constexpr int kSplit = 2;",
                         "constexpr int kSplit = 1;")],
+    # 32 rows per block of the reverse recurrence instead of 16.
+    "rows_32": [("constexpr int kRowTiles = 1;",
+                 "constexpr int kRowTiles = 2;")],
     # Diagnostics: the reverse recurrence alone (no weight gradients); its
     # products removed; the transcendentals replaced by the identity.
-    "diag_no_wgrad": [("constexpr bool kWeightGradients = true;",
-                       "constexpr bool kWeightGradients = false;")],
+    "diag_no_wgrad": [("\n  const int M = B * Tn;\n",
+                       "\n  return err;\n  const int M = B * Tn;\n")],
     "diag_no_products": [("for (int kk = 0; kk < KT; ++kk) {",
                           "for (int kk = 0; kk < 0; ++kk) {"),
                          ("for (int ks = 0; ks < KB; ++ks) {",
@@ -93,9 +97,11 @@ SHAPES = (("c2 serving", "lstm", 16384, False, (64, 32)),
           ("c3 serving", "gru", 32768, False, (64, 32)),
           ("c2 8192 rows", "lstm", 8192, False, (64, 32, 16)),
           ("c2 train step", "lstm", 2048, True, (16, 32)))
-# Backward: (where, cell, B, rows per block)
-BWD_SHAPES = (("c2 train step", "lstm", 2048, (16, 32)),
-              ("c2 train step", "gru", 2048, (16, 32)))
+# The backward's scaled bound on dW_x, db and dW_h (as chip_smoke.py).
+WGRAD_TOL = 1e-4
+# Backward: (where, cell, B)
+BWD_SHAPES = (("c2 train step", "lstm", 2048),
+              ("c2 train step", "gru", 2048))
 
 
 def variant_source(kernel: str, name: str) -> str:
@@ -138,9 +144,9 @@ def build(kernel: str, names):
             lib.lfm_rnn_fused_fwd_mma.restype = ci
         else:
             lib.lfm_rnn_fused_bwd_mma.argtypes = (
-                [ci] + [vp] * 13 + [ci, vp] + [ci] * 4 + [cf, vp])
+                [ci] + [vp] * 13 + [ci, vp] + [ci] * 3 + [cf, vp])
             lib.lfm_rnn_fused_bwd_mma.restype = ci
-            lib.lfm_rnn_fused_bwd_mma_smem.argtypes = [ci, ci, ci]
+            lib.lfm_rnn_fused_bwd_mma_smem.argtypes = [ci, ci]
             lib.lfm_rnn_fused_bwd_mma_smem.restype = ctypes.c_longlong
         libs[name] = lib
     return libs
@@ -214,7 +220,7 @@ def run_fwd(torch, R, libs, names, card, gen, out) -> None:
 def run_bwd(torch, R, libs, names, card, gen, out) -> None:
     T, H = 60, 128
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    for where, cell, B, row_choices in BWD_SHAPES:
+    for where, cell, B in BWD_SHAPES:
         code = 0 if cell == "lstm" else 1
         G = (4 if cell == "lstm" else 3) * H
         hin = torch.randn(B, T, H, generator=gen).bfloat16().cuda()
@@ -238,48 +244,47 @@ def run_bwd(torch, R, libs, names, card, gen, out) -> None:
         dhn = torch.empty((B, T, H), dtype=torch.float32, device="cuda")
         partial = torch.empty((S, total), dtype=torch.float32, device="cuda")
         dw = torch.empty((total,), dtype=torch.float32, device="cuda")
-        for rows in row_choices:
-            for name in names:
-                lib = libs[name]
-                smem = lib.lfm_rnn_fused_bwd_mma_smem(code, H, rows)
-                if smem > limit:
-                    print(f"{name} {cell} rows {rows}: {smem} bytes of shared "
-                          f"memory, over the card's {limit}: not run",
-                          flush=True)
-                    continue
+        for name in names:
+            lib = libs[name]
+            rows = 32 if "rows_32" in name.split("+") else 16
+            smem = lib.lfm_rnn_fused_bwd_mma_smem(code, H)
+            if smem > limit:
+                print(f"{name} {cell}: {smem} bytes of shared memory, over "
+                      f"the card's {limit}: not run", flush=True)
+                continue
 
-                def run():
-                    err = lib.lfm_rnn_fused_bwd_mma(
-                        code, hin.data_ptr(), wxp.data_ptr(),
-                        wxtp.data_ptr(), b.data_ptr(), wh.data_ptr(),
-                        keep.data_ptr(), h.data_ptr(),
-                        None if c is None else c.data_ptr(), dh.data_ptr(),
-                        dx.data_ptr(), dgx.data_ptr(), dhn.data_ptr(),
-                        partial.data_ptr(), S, dw.data_ptr(), B, T, H, rows,
-                        1.0, torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise SystemExit(f"{name}: CUDA error {err}")
+            def run():
+                err = lib.lfm_rnn_fused_bwd_mma(
+                    code, hin.data_ptr(), wxp.data_ptr(),
+                    wxtp.data_ptr(), b.data_ptr(), wh.data_ptr(),
+                    keep.data_ptr(), h.data_ptr(),
+                    None if c is None else c.data_ptr(), dh.data_ptr(),
+                    dx.data_ptr(), dgx.data_ptr(), dhn.data_ptr(),
+                    partial.data_ptr(), S, dw.data_ptr(), B, T, H, 1.0,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise SystemExit(f"{name}: CUDA error {err}")
 
-                run()
-                torch.cuda.synchronize()
-                hg = H * G
-                got = (dx, dw[:hg].view(H, G), dw[hg:hg + G],
-                       dw[hg + G:].view(H, G))
-                errs = [((g.float() - w.float()).abs().max()
-                         / (w.float().abs().max() + 1e-9)).item()
-                        for g, w in zip(got, want)]
-                enforced = not name.startswith(("diag_", "alt_"))
-                if enforced and not max(errs) <= 0.05:
-                    raise SystemExit(f"{name} {cell} rows {rows}: scaled "
-                                     f"errors {errs}")
-                rec = dict(variant=name, at=where, cell=cell, B=B,
-                           rows_per_block=rows, smem_bytes=smem,
-                           ms=time_ms(torch, run),
-                           scaled_err=dict(zip(("dhin", "dW_x", "db", "dW_h"),
-                                               errs)),
-                           card=card)
-                print(json.dumps(rec), flush=True)
-                out.write(json.dumps(rec) + "\n")
+            run()
+            torch.cuda.synchronize()
+            hg = H * G
+            got = (dx, dw[:hg].view(H, G), dw[hg:hg + G],
+                   dw[hg + G:].view(H, G))
+            errs = [((g.float() - w.float()).abs().max()
+                     / (w.float().abs().max() + 1e-9)).item()
+                    for g, w in zip(got, want)]
+            enforced = not name.startswith(("diag_", "alt_"))
+            if enforced and not (errs[0] <= 0.05
+                                 and max(errs[1:]) <= WGRAD_TOL):
+                raise SystemExit(f"{name} {cell}: scaled errors {errs}")
+            rec = dict(variant=name, at=where, cell=cell, B=B,
+                       rows_per_block=rows, smem_bytes=smem,
+                       ms=time_ms(torch, run),
+                       scaled_err=dict(zip(("dhin", "dW_x", "db", "dW_h"),
+                                           errs)),
+                       card=card)
+            print(json.dumps(rec), flush=True)
+            out.write(json.dumps(rec) + "\n")
 
 
 def main(argv=None) -> int:

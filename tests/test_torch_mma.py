@@ -41,7 +41,7 @@ def cuda():
     (torch.bfloat16, 8, "simt"),
 ])
 def test_route_is_decided_by_dtype_and_width(dtype, H, route):
-    assert R._fused_fwd_route(dtype, H) == route
+    assert R._mma_route(dtype, H) == route
 
 
 @pytest.mark.parametrize("H,gates", [

@@ -13,7 +13,8 @@ in Python, and the ldmatrix addresses of the CUDA source (mirrored here
 as the lane formulas of ``rnn_fused_bwd_mma.cu``) run through a model of
 ``ldmatrix`` and ``ldmatrix.trans``. The kernels themselves are held to
 ``rnn_scan_fused_bwd_reference`` in bf16 with gradients scaled by their
-largest magnitude, atol 0.05 (the JAX package's bf16 bound).
+largest magnitude: dhin at atol 0.05 (the JAX package's bf16 bound), the
+f32 weight gradients at 1e-4, which d_gates rounded once to bf16 fails.
 """
 
 import numpy as np
@@ -46,7 +47,9 @@ def cuda():
     (torch.bfloat16, 8, "simt"),
 ])
 def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
-    assert R._fused_bwd_route(dtype, H) == route
+    """The backward takes the forward's rule: it reuses the forward's
+    packing of W_x."""
+    assert R._mma_route(dtype, H) == route
 
 
 # ---------------------------------------------------------------------------
@@ -317,10 +320,16 @@ def _bwd_inputs(cell, B, T, H, seed, device, dtype=torch.bfloat16):
             None if c is None else c.to(dtype), dh)
 
 
-def _scaled_close(got, want):
+#: Scaled atol of the tensor-core route's f32 weight gradients (dW_x, db,
+#: dW_h). The split of d_gates reads near 4e-6 at the c2 train step;
+#: rounding d_gates once to bf16 reads near 2e-3 and fails it.
+WGRAD_TOL = 1e-4
+
+
+def _scaled_close(got, want, atol=0.05):
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     scale = float(np.abs(want).max()) + 1e-9
-    np.testing.assert_allclose(got / scale, want / scale, atol=0.05, rtol=0)
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol, rtol=0)
 
 
 @pytest.mark.cuda
@@ -329,9 +338,10 @@ def _scaled_close(got, want):
 @pytest.mark.parametrize("H", [16, 64, 128])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_mma_bwd_matches_plain(cuda, cell, H, B, T):
-    """dhin, dW_x, db and dW_h against the plain formulas; B = 37 and
-    2053 leave the last block part-filled; row 0 is all-invalid and
-    passes no gradient to hin."""
+    """dhin (bf16, scaled atol 0.05) and dW_x, db and dW_h (f32, scaled
+    atol :data:`WGRAD_TOL`) against the plain formulas; B = 37 and 2053
+    leave the last block part-filled; row 0 is all-invalid and passes no
+    gradient to hin."""
     args = _bwd_inputs(cell, B, T, H, B * T + H, cuda)
     _build.reset_launch_counts()
     got = R.rnn_scan_fused_bwd(cell, *args)
@@ -340,23 +350,10 @@ def test_mma_bwd_matches_plain(cuda, cell, H, B, T):
     assert counts[f"rnn_fused_bwd_{cell}"] == 0
     want = R.rnn_scan_fused_bwd_reference(cell, *args)
     assert got[0].dtype == torch.bfloat16 and got[0].shape == (B, T, H)
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
         assert torch.isfinite(g).all()
-        _scaled_close(g, w)
+        _scaled_close(g, w, 0.05 if i == 0 else WGRAD_TOL)
     assert not got[0][0].any()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", R.MMA_BWD_ROWS)
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
-def test_mma_bwd_block_sizes_match_plain(cuda, cell, rows):
-    """Both block sizes the source is built for, where they fit."""
-    H = 64
-    args = _bwd_inputs(cell, 300, 7, H, rows, cuda)
-    got = R._launch_bwd_mma(cell, *args, 1.0, None, rows)
-    want = R.rnn_scan_fused_bwd_reference(cell, *args)
-    for g, w in zip(got, want):
-        _scaled_close(g, w)
 
 
 @pytest.mark.cuda

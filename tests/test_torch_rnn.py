@@ -77,12 +77,12 @@ def test_fused_op_matches_jax(cell, dtype_name, B):
 @pytest.mark.parametrize("H", [16, 64])
 def test_fused_op_matches_jax_at_tensor_core_widths(cell, H):
     """bf16 at the widths that take the tensor-core kernel on the card
-    (``ops/rnn.py _fused_fwd_route``): the plain version those kernels are
+    (``ops/rnn.py _mma_route``): the plain version those kernels are
     held to on the card against the Pallas kernel, at the JAX bf16
     bound."""
-    from lfm_quant_tpu_torch.ops.rnn import _fused_fwd_route
+    from lfm_quant_tpu_torch.ops.rnn import _mma_route
 
-    assert _fused_fwd_route(torch.bfloat16, H) == "mma"
+    assert _mma_route(torch.bfloat16, H) == "mma"
     hin, wx, b, wh, m = _op_inputs(cell, 7, 5, H, seed=H, invalid_rows=(2,))
     wx, wh = wx / np.sqrt(H / 8), wh / np.sqrt(H / 8)
     (jh, jwx, jb, jwh), (th, twx, tb, twh) = _as("bf16", hin, wx, b, wh)

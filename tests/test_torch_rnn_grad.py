@@ -98,12 +98,12 @@ def test_fused_gradients_match_jax(cell, dtype_name, B, T, H):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_fused_gradients_at_tensor_core_width_match_jax(cell):
     """bf16 at H = 16, a width whose backward takes the tensor cores on
-    the card (``ops/rnn.py _fused_bwd_route``): the plain backward those
+    the card (``ops/rnn.py _mma_route``): the plain backward those
     kernels are held to there, through ``_FusedScan`` on the CPU, against
     jax.grad through the Pallas fused backward, scaled atol 0.05."""
-    from lfm_quant_tpu_torch.ops.rnn import _fused_bwd_route
+    from lfm_quant_tpu_torch.ops.rnn import _mma_route
 
-    assert _fused_bwd_route(torch.bfloat16, 16) == "mma"
+    assert _mma_route(torch.bfloat16, 16) == "mma"
     hin, wx, b, wh, m = _inputs(cell, 9, 5, 16, seed=70)
     wx, wh = wx / np.sqrt(2.0), wh / np.sqrt(2.0)
     mt = torch.from_numpy(m)
