@@ -32,7 +32,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    then closed-loop requests from 4 threads; every served score vector is
    checked against the plain path on the card, and the serving kernels'
    launch counters must have moved during the run;
-5. train: ``Trainer.fit`` trains c2 (LSTM, full width and data, bf16)
+5. train c2: ``Trainer.fit`` trains c2 (LSTM, full width and data, bf16)
    for one epoch on the kernels, then the same steps from the same init
    and sampler order run through the plain path on the card (plain
    recurrence differentiated by autograd, plain gather); the per-step
@@ -43,8 +43,22 @@ imports nothing of JAX. Phases, each fatal on failure:
    and backward on the CUDA cores) run the same way. Prints steps/s,
    firm-months/s, ms per step, the forward, backward and optimizer times
    of one step and the device time by kernel;
-6. print one ``{"kernels": [...]}`` line;
-7. print the result line ``{"ok": true, "device": {...}}`` last.
+6. the c5 ensemble (64 seeds of the LSTM, hidden 128, bf16, 8000 firms x
+   660 months): at its train step's shape (S 64 x B 2048, T 60, H 128;
+   the layer-0 input of a real stacked batch) the seed-batched fused
+   forward and backward must be bitwise equal to 64 one-seed launches
+   with the same rows per block, an operand of seed extent 1 (m) bitwise
+   equal to its broadcast copy, and both within the plain version's
+   tolerances; the seed-folded gather exact. Then ``EnsembleTrainer``
+   trains c5 for one epoch (52 steps and the validation sweep) on the
+   kernels from a seeded init: its first 3 steps' per-seed losses against
+   the plain path on the card (``seed_block`` 8) within atol 0.05 + rtol
+   0.05; one step moves the gather, tensor-core forward and backward
+   counters by exactly 1 and no CUDA-core counter. Prints ms per step,
+   seed-steps/s, firm-months/s, the epoch's wall time, the device's busy
+   share of profiled steps and the peak memory;
+7. print one ``{"kernels": [...]}`` line;
+8. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -93,6 +107,24 @@ SOURCES = {
 }
 SERVE_KERNELS = ("rnn_fused_fwd_mma_lstm", "rnn_fused_fwd_mma_gru",
                  "window_gather")
+# The seed-batched launches at the c5 train step: line name → (launch
+# counter, source, the TPU kernel it replaces and its seed rule).
+SEED_SOURCES = {
+    "rnn_fused_fwd_mma_lstm_seeds": (
+        "rnn_fused_fwd_mma_lstm", "csrc/rnn_fused_fwd_mma.cu",
+        "pallas_rnn.py:626 (seed grid: _fwd_vmap :919)"),
+    "rnn_fused_bwd_mma_lstm_seeds": (
+        "rnn_fused_bwd_mma_lstm", "csrc/rnn_fused_bwd_mma.cu",
+        "pallas_rnn.py:673 (seed grid: _bwd_vmap :951)"),
+    "window_gather_seeds": (
+        "window_gather", "csrc/window_gather.cu",
+        "pallas_gather.py:100 (seed fold: _call_vmap :169)"),
+}
+C5_PLAIN_STEPS = 3   # c5 steps held against the plain path
+C5_PLAIN_BLOCK = 8   # seed_block of the plain path (its autograd memory)
+CUDA_CORE = ("rnn_fused_fwd_lstm", "rnn_fused_fwd_gru", "rnn_fused_bwd_lstm",
+             "rnn_fused_bwd_gru", "rnn_fwd_lstm", "rnn_fwd_gru",
+             "rnn_bwd_lstm", "rnn_bwd_gru")
 
 
 def fail(msg: str) -> None:
@@ -193,7 +225,7 @@ def gather_bound(fi, ti, window: int, fp: int, n_months: int,
 
 
 def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
-              itemsize: int, save_c: bool = False):
+              itemsize: int, save_c: bool = False, seeds: int = 1):
     """Least time (ms) of one recurrence kernel call, and what bounds it:
     its products' operations at the peak for its operand type against
     each input read once and each output written once at the memory rate.
@@ -205,14 +237,16 @@ def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
     hoisted ones xw [B,T,G*H]; the forwards write h (serving: no c); the
     backwards read h_all, c_all (LSTM) and dh, write dhin or dxw, and the
     f32 weight gradients. A forward that saves c_all (``save_c``, LSTM)
-    also writes it."""
+    also writes it. ``seeds``: a seed-batched call of that many seeds,
+    each of B rows with its own weights."""
     G = GATES[cell]
     GH = G * H
     products = {"fused_fwd": 2, "fwd": 1, "fused_bwd": 6, "bwd": 3}[kind]
+    B *= seeds
     ops = products * 2.0 * GH * H * B * T
     seq = B * T * H * itemsize
     xw = B * T * GH * itemsize
-    weights = (2 * H + 1) * GH * itemsize
+    weights = seeds * (2 * H + 1) * GH * itemsize
     c_all = seq if save_c and cell == "lstm" else 0
     if kind == "fused_fwd":
         nbytes = 2 * seq + c_all + B * T + weights
@@ -221,7 +255,8 @@ def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
     else:
         states = (3 if cell == "lstm" else 2) * seq
         if kind == "fused_bwd":
-            nbytes = seq + states + seq + weights + (2 * H + 1) * GH * 4
+            nbytes = (seq + states + seq + weights
+                      + seeds * (2 * H + 1) * GH * 4)
         else:
             nbytes = xw + states + xw + H * GH * (itemsize + 4)
         nbytes += B * T
@@ -744,6 +779,288 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def check_seed_batched(torch, trainer, kernels) -> None:
+    """The c5 train step's seed-batched launches (S 64 x B 2048, T 60, H
+    128, LSTM, bf16) on the layer-0 input of the first stacked batch of
+    epoch 0 and the model's seeded weights: the gather folded over the
+    seeds, exact; the fused forward and backward each bitwise equal to 64
+    one-seed launches with the same rows per block, m of seed extent 1
+    bitwise equal to its broadcast copy, and each seed within the plain
+    version's tolerance; each timed beside its bound, the 64 one-seed
+    launches and the plain version (one seed at a time); row 4's library
+    yardstick is the per-seed weight-gradient products as one f32
+    ``torch.bmm`` (random operands of the products' shapes)."""
+    from lfm_quant_tpu_torch.data.windows import gather_windows_packed
+    from lfm_quant_tpu_torch.ops import rnn as R
+    from lfm_quant_tpu_torch.ops.gather import gather_windows
+
+    trainer.init_state()  # the seeded init of every member
+    (fi_all, ti_all, _), _ = trainer._build_epoch(0)
+    fi, ti = fi_all[0], ti_all[0]  # [S, D, Bf]
+    S, D, Bf = fi.shape
+    W, fp = trainer.window, trainer.fp
+    xm = trainer.dev["xm"]
+    x, m = gather_windows(xm, fi, ti, W, fp=fp)
+    for s in range(S):
+        xr, mr = gather_windows_packed(xm, fi[s], ti[s], W, fp=fp)
+        if not (torch.equal(x[s], xr) and torch.equal(m[s], mr)):
+            fail(f"seed-folded gather differs at seed {s}")
+    fi_np = fi.reshape(S * D, Bf).cpu().numpy()
+    ti_np = ti.reshape(S * D).cpu().numpy()
+    report(kernels, "window_gather_seeds", "c5 train step", dict(
+        shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
+        ms=time_ms(lambda: gather_windows(xm, fi, ti, W, fp=fp)),
+        plain_ms=time_ms(lambda: gather_windows_packed(
+            xm, fi.reshape(S * D, Bf), ti.reshape(S * D), W, fp=fp)),
+        bound_ms=gather_bound(fi_np, ti_np, W, fp, xm.shape[1],
+                              xm.element_size()),
+        bound_by="bytes", library_ms=None))
+    model = trainer.model
+    cd = model.dtype
+    B = D * Bf
+    with torch.no_grad():
+        hin = model.embed(x.reshape(S, B, W, -1), dtype=cd)
+        mm = m.reshape(S, B, W)
+        wx = model.xproj[0].kernel.detach().to(cd)
+        bb = model.xproj[0].bias.detach().to(cd)
+        wh = model.h_proj[0].detach().to(cd)
+    del x, m
+    H = hin.shape[-1]
+    cell = "lstm"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = R._mma_rows(B, sms, S)
+    args = (cell, hin, wx, bb, wh, mm, 1.0, True)
+
+    # Row 3: one launch for all seeds against 64 one-seed launches.
+    h, c = R._fused_states(*args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for s in range(S):
+        h1, c1 = R._launch_fwd_mma(cell, hin[s], wx[s], bb[s], wh[s], mm[s],
+                                   1.0, True, rows)
+        if not (torch.equal(h[s], h1) and torch.equal(c[s], c1)):
+            fail(f"seed-batched fused fwd differs from the one-seed launch "
+                 f"at seed {s}")
+        want_h, want_c = R.rnn_scan_states(
+            cell, hin[s].float() @ wx[s].float() + bb[s].float(), wh[s],
+            mm[s], 1.0, True)
+        for got, want in ((h1, want_h), (c1, want_c)):
+            err, excess = worst_excess(got, want, BF16_TOL, BF16_TOL)
+            if excess > 0 or not torch.isfinite(got).all():
+                fail(f"seed-batched fused fwd seed {s}: max err {err}")
+            worst = max(worst, err)
+    shared, _ = R._fused_states(cell, hin, wx, bb, wh, mm[:1], 1.0, False)
+    full, _ = R._fused_states(cell, hin, wx, bb, wh,
+                              mm[:1].expand(S, B, W).contiguous(), 1.0,
+                              False)
+    if not torch.equal(shared, full):
+        fail("seed-batched fused fwd: m of seed extent 1 differs from its "
+             "broadcast copy")
+    del shared, full, h1, c1, want_h, want_c
+    bound, by = rnn_bound("fused_fwd", cell, B, W, H, 2, True, seeds=S)
+    ms = time_ms(lambda: R._fused_states(*args), reps=5)
+    singles_ms = time_ms(lambda: [R._launch_fwd_mma(
+        cell, hin[s], wx[s], bb[s], wh[s], mm[s], 1.0, True, rows)
+        for s in range(S)], reps=3, warmup=1)
+    plain_ms = time_ms(lambda: [R.rnn_scan_states(
+        cell, hin[s].float() @ wx[s].float() + bb[s].float(), wh[s], mm[s],
+        1.0, True) for s in range(S)], reps=1, warmup=0)
+    report(kernels, "rnn_fused_fwd_mma_lstm_seeds", "c5 train step", dict(
+        shape=[S, B, W, H], rows_per_block=rows, bitwise_vs_single=True,
+        max_abs_err=worst, tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
+        ms=ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None))
+    log(f"seed-batched fused fwd at the c5 train step: {ms:.3f} ms for 64 "
+        f"seeds in one launch, {singles_ms:.3f} ms in 64 launches, bound "
+        f"{bound:.3f} ms")
+
+    # Row 4 on the forward's states.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dh = (0.1 * torch.randn(S, B, W, H, generator=gen, device="cuda")).to(cd)
+    bargs = (cell, hin, wx, bb, wh, mm, h, c, dh)
+    got = R.rnn_scan_fused_bwd(*bargs)
+    torch.cuda.synchronize()
+    worst = wgrad = 0.0
+    for s in range(S):
+        one = R.rnn_scan_fused_bwd(cell, *(t[s] for t in bargs[1:]))
+        if not all(torch.equal(g[s], o) for g, o in zip(got, one)):
+            fail(f"seed-batched fused bwd differs from the one-seed call at "
+                 f"seed {s}")
+        want = R.rnn_scan_fused_bwd_reference(cell, *(t[s] for t in
+                                                       bargs[1:]))
+        worst = max(worst, grads_close(f"seed-batched fused bwd seed {s}",
+                                       one, want, cd, MMA_WGRAD_TOL))
+        wgrad = max(wgrad, max(scaled_err(g, w)
+                               for g, w in zip(one[1:], want[1:])))
+    del one, want
+    shared = R.rnn_scan_fused_bwd(cell, hin, wx, bb, wh, mm[:1], h, c, dh)
+    full = R.rnn_scan_fused_bwd(cell, hin, wx, bb, wh,
+                                mm[:1].expand(S, B, W).contiguous(), h, c,
+                                dh)
+    if not all(torch.equal(a, z) for a, z in zip(shared, full)):
+        fail("seed-batched fused bwd: m of seed extent 1 differs from its "
+             "broadcast copy")
+    del shared, full, got
+    torch.cuda.empty_cache()
+    bound, by = rnn_bound("fused_bwd", cell, B, W, H, 2, seeds=S)
+    ms = time_ms(lambda: R.rnn_scan_fused_bwd(*bargs), reps=3)
+    singles_ms = time_ms(lambda: [R.rnn_scan_fused_bwd(
+        cell, *(t[s] for t in bargs[1:])) for s in range(S)], reps=1)
+    plain_ms = time_ms(lambda: [R.rnn_scan_fused_bwd_reference(
+        cell, *(t[s] for t in bargs[1:])) for s in range(S)], reps=1,
+        warmup=0)
+    del h, c, dh, bargs
+    torch.cuda.empty_cache()
+    # The yardstick: dW_x and dW_h of every seed in one f32 bmm, [S, 2H,
+    # B T] @ [S, B T, 4H] (the LSTM's d_hw is d_xw).
+    a = torch.randn(S, 2 * H, B * W, generator=gen, device="cuda")
+    d = torch.randn(S, B * W, 4 * H, generator=gen, device="cuda")
+    library_ms = time_ms(lambda: torch.bmm(a, d), reps=5)
+    del a, d
+    torch.cuda.empty_cache()
+    report(kernels, "rnn_fused_bwd_mma_lstm_seeds", "c5 train step", dict(
+        shape=[S, B, W, H], bitwise_vs_single=True, max_abs_err=worst,
+        wgrad_scaled_err=wgrad,
+        tolerance=f"scaled atol {BF16_TOL}, weight gradients "
+                  f"{MMA_WGRAD_TOL}",
+        ms=ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=library_ms))
+    log(f"seed-batched fused bwd at the c5 train step: {ms:.3f} ms for 64 "
+        f"seeds in one call, {singles_ms:.3f} ms in 64 calls, bound "
+        f"{bound:.3f} ms, library bmm {library_ms:.3f} ms")
+    del hin, mm
+    torch.cuda.empty_cache()
+
+
+def ensemble_steps(torch, cfg, splits, n_steps: int):
+    """``n_steps`` c5 steps of a fresh ``EnsembleTrainer`` on the card from
+    the seeded init and the epoch-0 sampler orders → per-step per-seed
+    losses ``[n_steps][S]``."""
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+
+    trainer = EnsembleTrainer(cfg, splits, device="cuda")
+    state = trainer.init_state()
+    (fi, ti, w), _ = trainer._build_epoch(0)
+    losses = []
+    for k in range(n_steps):
+        state, ms = trainer.step(state, fi[k], ti[k], w[k])
+        losses.append(ms["loss"])
+    return torch.stack(losses).cpu().tolist()
+
+
+def c5_phase(torch, cfg, splits, kernels, seed_launches) -> None:
+    """Phase 6: c5, the 64-seed ensemble, for one epoch on the kernels;
+    its epoch's launches go to ``seed_launches``."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+
+    cfg = dataclasses.replace(
+        cfg, optim=dataclasses.replace(cfg.optim, epochs=1))
+    trainer = EnsembleTrainer(cfg, splits, device="cuda")
+    check_seed_batched(torch, trainer, kernels)
+
+    # The first steps against the plain path on the card.
+    got = ensemble_steps(torch, cfg, splits, C5_PLAIN_STEPS)
+    _build.reset_launch_counts()
+    plain_cfg = dataclasses.replace(plain_variant(cfg),
+                                    seed_block=C5_PLAIN_BLOCK)
+    t0 = time.perf_counter()
+    want = ensemble_steps(torch, plain_cfg, splits, C5_PLAIN_STEPS)
+    plain_s = time.perf_counter() - t0
+    if any(_build.launch_counts().values()):
+        fail(f"the plain c5 path launched kernels: {_build.launch_counts()}")
+    err = losses_agree("c5 fused vs plain", got, want)
+    log(f"c5: {C5_PLAIN_STEPS} steps x 64 seeds agree with the plain path "
+        f"(seed_block {C5_PLAIN_BLOCK}, {plain_s:.1f} s) within {err:.4g}; "
+        f"first step's losses {min(got[0]):.5f} .. {max(got[0]):.5f}")
+    torch.cuda.empty_cache()
+
+    # One step: each kernel of the step exactly once, for all 64 seeds.
+    state = trainer.init_state()
+    (fi, ti, w), _ = trainer._build_epoch(1)
+    _build.reset_launch_counts()
+    state, _ = trainer.step(state, fi[0], ti[0], w[0])
+    counts = _build.launch_counts()
+    for k in ("window_gather", "rnn_fused_fwd_mma_lstm",
+              "rnn_fused_bwd_mma_lstm"):
+        if counts[k] != 1:
+            fail(f"one c5 step launched {k} {counts[k]} times, not once")
+    if any(counts[k] for k in CUDA_CORE):
+        fail(f"a c5 step launched a CUDA-core kernel: {counts}")
+    log(f"launches in one c5 step (64 seeds): "
+        f"{ {k: n for k, n in counts.items() if n} }")
+
+    # Steady state: ms per step, memory, the device's view.
+    n = 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        st = state
+        for k in range(1, n + 1):
+            st, _ = trainer.step(st, fi[k], ti[k], w[k])
+
+    steps()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    fm = float(w[1:n + 1].sum()) * cfg.data.window / n
+    S = cfg.n_seeds
+    log(f"train c5 steady state: {1e3 * per_step:.3f} ms/step, "
+        f"{1 / per_step:.3f} steps/s, {S / per_step:.1f} seed-steps/s, "
+        f"{fm / per_step:.1f} firm-months/s ({n} steps of {S} seeds, host "
+        f"clock around synchronized work); peak memory {peak:.2f} GiB")
+    profile_device(torch, steps, f"c5 train, {n} steps of {S} seeds")
+    del state
+    torch.cuda.empty_cache()
+
+    # One epoch with its validation sweep, the main path of the slice.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary, counts = counted(
+        "c5 training", ("window_gather", "rnn_fused_fwd_mma_lstm",
+                        "rnn_fused_bwd_mma_lstm"), trainer.fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    K = trainer._steps_per_epoch
+    if counts["rnn_fused_bwd_mma_lstm"] != K or counts["window_gather"] != K:
+        fail(f"c5 epoch of {K} steps: launches {counts}")
+    if any(counts[k] for k in CUDA_CORE):
+        fail(f"the c5 epoch launched a CUDA-core kernel: {counts}")
+    for k, v in counts.items():
+        seed_launches[k] += v
+    rec = summary["history"][0]
+    if not all(np.isfinite(rec[k]) for k in ("train_loss", "val_ic",
+                                             "val_ic_std")):
+        fail(f"c5 epoch: {rec}")
+    log(f"train c5 (kernels): {K} steps + val sweep in {wall:.3f} s; "
+        f"train_loss {rec['train_loss']:.6f} val_ic {rec['val_ic']:.6f} "
+        f"val_ic_std {rec['val_ic_std']:.6f}; "
+        f"{summary['firm_months_per_sec']:.1f} firm-months/s over the epoch; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # The validation sweep alone, on the best state.
+    vb = trainer.val_sampler.stacked_cross_sections()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate()
+    sweep = time.perf_counter() - t0
+    M, pool = vb.firm_idx.shape
+    C = min(cfg.data.dates_per_batch, M)
+    log(f"c5 validation sweep: {sweep:.3f} s for {M} months x a {pool}-firm "
+        f"pool x {S} seeds ({-(-M // C)} month chunks x "
+        f"{-(-S // trainer._seed_chunk(C * pool))} seed chunks); ic_mean "
+        f"{ev['ic_mean']:.6f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lfm_quant_tpu_torch")):
         fail("lfm_quant_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -931,7 +1248,19 @@ def main() -> int:
     # ---- 5. train ---------------------------------------------------------
     train_phase(torch, cfg2, splits2, totals)
 
-    # ---- 6. kernels line ------------------------------------------------
+    # ---- 6. the c5 ensemble ---------------------------------------------
+    cfg5 = get_preset("c5")
+    t0 = time.perf_counter()
+    panel5 = resolve_panel(cfg5.data)
+    splits5 = PanelSplits.by_date(
+        panel5, *default_split_dates(panel5, cfg5.data),
+        train_start=cfg5.data.train_start)
+    log(f"c5: panel {panel5.features.shape} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    seed_launches = dict.fromkeys(_build.LAUNCHES, 0)
+    c5_phase(torch, cfg5, splits5, kernels, seed_launches)
+
+    # ---- 7. kernels line ------------------------------------------------
     line = []
     for k, (src, rep) in SOURCES.items():
         # The largest shape the main paths gave the kernel.
@@ -943,9 +1272,19 @@ def main() -> int:
                          source=f"lfm_quant_tpu_torch/{src}",
                          replaces=f"{SRC_REPO}/{rep}", launches=totals[k],
                          **meas))
+    # The seed-batched launches: measured at the c5 train step, launches
+    # counted over the c5 epoch.
+    for k, (counter, src, rep) in SEED_SOURCES.items():
+        meas = {f: kernels[k][0].get(f) for f in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        line.append(dict(name=k, route="cuda",
+                         source=f"lfm_quant_tpu_torch/{src}",
+                         replaces=f"{SRC_REPO}/{rep}",
+                         launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 7. result ------------------------------------------------------
+    # ---- 8. result ------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,8 +26,9 @@
 // Bound. At the c2 train step (B = 2048, T = 60, H = 128, LSTM) the
 // function is 6 products of 2 H G H per row and step (two recomputed, dh,
 // dhin, dW_x, dW_h): 9.7e10 operations, 0.098 ms at 989 TFLOP/s, against
-// 0.16 GB of inputs and outputs: bound by operations. The split's second
-// term is this kernel's cost, not the function's work.
+// 0.16 GB of inputs and outputs: bound by operations; 6.3 ms at the c5
+// ensemble's train step (64 seeds of that shape). The split's second term
+// is this kernel's cost, not the function's work.
 //
 // Design:
 //
@@ -62,6 +63,15 @@
 //   the same registers. Each slice writes partial sums; kernel 3 adds the
 //   slices in a fixed order. No atomics: the weight gradients are bitwise
 //   the same from run to run.
+// * Seeds (the JAX kernels' seed grid dimension, pallas_rnn.py _bwd_vmap
+//   :951): the seed is blockIdx.y of kernel 1 and kernel 3 and blockIdx.z
+//   of kernel 2. Each operand has its own seed stride (SeedStrides), 0 for
+//   one shared by every seed; the saved states, dh and every output and
+//   scratch array are per seed, partial [S, slices, total] and dw [S,
+//   total]. The slices are per seed and summed in the same fixed order, so
+//   a seed's gradients are bitwise those of a one-seed launch. Every
+//   per-seed base offset is 64-bit: d_gates over 64 seeds at the c5 train
+//   step is 4.0e9 f32 values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,6 +115,13 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Seed strides of the operands that may be shared, in elements of each (W_x
+// in bf16 elements of its packed forms, both packings alike); 0 for an
+// operand shared by every seed.
+struct SeedStrides {
+  long long hin, wx, b, wh, m;
+};
+
 // Kernel 1's shared memory: W_h [H, G H + 8], the hin and h_{t-1} tiles
 // (two each, [rows, H + 8]) and the kSplit d_gates tiles [rows, 4 H + 8],
 // all bf16, and the bias [G H] f32.
@@ -124,11 +141,11 @@ inline size_t wgrad_smem_bytes(int cell, int H) {
                   (size_t)ND * kSplit * kWgRows * (kWgCols + 8));
 }
 
-// Kernel 1. hin, h_all, c_all (LSTM), dh [B, T, H] bf16; wxp: W_x packed
-// in the forward's fragment order; wxtp: W_x^T packed ([G H / 16][H / 8]
-// [32][4], ops/rnn.py pack_fragments(transpose=True)); b [G H]; wh
-// [H, G H] row-major; m uint8 [B, T]. Out: dhin [B, T, H] bf16; dgx
-// (d_xw) [B, T, G H] f32; dhn (GRU: dn r) [B, T, H] f32.
+// Kernel 1, per seed (blockIdx.y). hin, h_all, c_all (LSTM), dh [B, T, H]
+// bf16; wxp: W_x packed in the forward's fragment order; wxtp: W_x^T packed
+// ([G H / 16][H / 8][32][4], ops/rnn.py pack_fragments(transpose=True)); b
+// [G H]; wh [H, G H] row-major; m uint8 [B, T]. Out: dhin [B, T, H] bf16;
+// dgx (d_xw) [B, T, G H] f32; dhn (GRU: dn r) [B, T, H] f32.
 template <int CELL>
 __global__ void __launch_bounds__(128 * 32 / kUnits, 1)
 rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
@@ -142,7 +159,8 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
                          const __nv_bfloat16* __restrict__ dh,
                          __nv_bfloat16* __restrict__ dhin,
                          float* __restrict__ dgx, float* __restrict__ dhn,
-                         int B, int Tn, int H, float forget_bias) {
+                         int B, int Tn, int H, SeedStrides st,
+                         float forget_bias) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   constexpr int RT = kRowTiles;
   constexpr int BB = 16 * RT;  // rows per block
@@ -161,6 +179,25 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
   __nv_bfloat16* h_s = hin_s + 2 * BB * LD;
   __nv_bfloat16* dg_s = h_s + 2 * BB * LD;
   float* bias_s = reinterpret_cast<float*>(dg_s + kSplit * BB * LG);
+
+  {
+    const size_t seed = blockIdx.y;
+    const size_t seq = (size_t)B * Tn * H;
+    hin += seed * st.hin;
+    wxp = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const __nv_bfloat16*>(wxp) + seed * st.wx);
+    wxtp = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const __nv_bfloat16*>(wxtp) + seed * st.wx);
+    b += seed * st.b;
+    wh += seed * st.wh;
+    m += seed * st.m;
+    h_all += seed * seq;
+    if (c_all != nullptr) c_all += seed * seq;
+    dh += seed * seq;
+    dhin += seed * seq;
+    dgx += seed * seq * G;
+    if (dhn != nullptr) dhn += seed * seq;
+  }
 
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
@@ -443,9 +480,10 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
   }
 }
 
-// Kernel 2: per row slice s, partial[s] = [dW_x [H, G H], db [G H],
-// dW_h [H, G H]] over the rows m_lo .. m_hi - 1 of B * T, for the 64 gate
-// columns j0 .. j0 + 63 of this block. A = hin [M, H] and h_all [M, H]
+// Kernel 2: per seed (blockIdx.z) and row slice s, partial[seed][s] =
+// [dW_x [H, G H], db [G H], dW_h [H, G H]] over the rows m_lo .. m_hi - 1
+// of the seed's B * T, for the 64 gate columns j0 .. j0 + 63 of this
+// block. A = hin [M, H] (seed stride s_hin) and h_all [M, H]
 // (read shifted: row m takes m - 1 within its sequence of Tn rows, zero at
 // the first step); dgx = d_xw [M, G H] f32; dhn (GRU) the n slice of d_hw
 // [M, H] f32 (the LSTM's d_hw is d_xw).
@@ -455,7 +493,8 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
                          const __nv_bfloat16* __restrict__ h_all,
                          const float* __restrict__ dgx,
                          const float* __restrict__ dhn, int M, int Tn, int H,
-                         int rows_per_slice, float* __restrict__ partial) {
+                         int rows_per_slice, long long s_hin,
+                         float* __restrict__ partial) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   constexpr int ND = CELL == kGru ? 2 : 1;  // D tiles: d_xw (, d_hw)
   constexpr int LDD = kWgCols + 8;
@@ -469,6 +508,15 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  {
+    const size_t seed = blockIdx.z;
+    hin += seed * s_hin;
+    h_all += seed * M * (size_t)H;
+    dgx += seed * M * (size_t)GH;
+    if (dhn != nullptr) dhn += seed * M * (size_t)H;
+    partial += (seed * gridDim.y) * (size_t)(2 * H * GH + GH);
+  }
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -644,15 +692,18 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
   }
 }
 
-// Kernel 3: out[i] = sum_{s = 0 .. S-1} partial[s, i], in that order.
+// Kernel 3, per seed (blockIdx.y): out[seed][i] = sum_{s = 0 .. S-1}
+// partial[seed][s][i], in that order.
 __global__ void rnn_bwd_mma_slices_kernel(const float* __restrict__ partial,
                                           int S, int count,
                                           float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
+  const size_t seed = blockIdx.y;
+  partial += seed * S * (size_t)count;
   float acc = 0.0f;
   for (int s = 0; s < S; ++s) acc += partial[(size_t)s * count + i];
-  out[i] = acc;
+  out[seed * count + i] = acc;
 }
 
 template <int CELL>
@@ -660,8 +711,8 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
                    const void* b, const void* wh, const void* m,
                    const void* h_all, const void* c_all, const void* dh,
                    void* dhin, void* dgx, void* dhn, void* partial, int S,
-                   void* dw, int B, int Tn, int H, float forget_bias,
-                   cudaStream_t stream) {
+                   void* dw, int seeds, int B, int Tn, int H, SeedStrides st,
+                   float forget_bias, cudaStream_t stream) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   constexpr int rows = 16 * kRowTiles;
   const int GH = G * H;
@@ -670,7 +721,8 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
   cudaError_t err = cudaFuncSetAttribute(
       recur, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
-  recur<<<(B + rows - 1) / rows, (H / kUnits) * 32, smem1, stream>>>(
+  recur<<<dim3((B + rows - 1) / rows, seeds), (H / kUnits) * 32, smem1,
+          stream>>>(
       static_cast<const __nv_bfloat16*>(hin), static_cast<const uint2*>(wxp),
       static_cast<const uint2*>(wxtp), static_cast<const __nv_bfloat16*>(b),
       static_cast<const __nv_bfloat16*>(wh), static_cast<const uint8_t*>(m),
@@ -678,7 +730,7 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
       static_cast<const __nv_bfloat16*>(c_all),
       static_cast<const __nv_bfloat16*>(dh),
       static_cast<__nv_bfloat16*>(dhin), static_cast<float*>(dgx),
-      static_cast<float*>(dhn), B, Tn, H, forget_bias);
+      static_cast<float*>(dhn), B, Tn, H, st, forget_bias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -688,16 +740,17 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
   err = cudaFuncSetAttribute(
       wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err != cudaSuccess) return err;
-  wgrad<<<dim3((GH + kWgCols - 1) / kWgCols, S), kWgThreads, smem2,
+  wgrad<<<dim3((GH + kWgCols - 1) / kWgCols, S, seeds), kWgThreads, smem2,
           stream>>>(static_cast<const __nv_bfloat16*>(hin),
                     static_cast<const __nv_bfloat16*>(h_all),
                     static_cast<const float*>(dgx),
                     static_cast<const float*>(dhn), M, Tn, H, (M + S - 1) / S,
-                    static_cast<float*>(partial));
+                    st.hin, static_cast<float*>(partial));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total = 2 * H * GH + GH;
-  rnn_bwd_mma_slices_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+  rnn_bwd_mma_slices_kernel<<<dim3((total + 255) / 256, seeds), 256, 0,
+                              stream>>>(
       static_cast<const float*>(partial), S, total, static_cast<float*>(dw));
   return cudaGetLastError();
 }
@@ -716,32 +769,40 @@ extern "C" long long lfm_rnn_fused_bwd_mma_smem(int cell, int H) {
   return (long long)(r > w ? r : w);
 }
 
-// The fused backward in bfloat16 on the tensor cores. hin, h_all, c_all
-// (LSTM; the GRU passes null), dh, dhin [B, T, H] bf16; wxp and wxtp: W_x
-// packed for the forward and W_x^T for dhin (ops/rnn.py pack_fragments);
-// b [G H], wh [H, G H] bf16; m uint8 [B, T]. Scratch the caller
-// allocates: dgx [B, T, G H] f32, dhn [B, T, H] f32 (GRU), partial
-// [S, 2 H G H + G H] f32. Output dw [2 H G H + G H] f32: dW_x, db, dW_h.
-// Returns the first CUDA error of its three launches.
+// The fused backward in bfloat16 on the tensor cores, for `seeds` seeds in
+// one call. Per seed: hin, h_all, c_all (LSTM; the GRU passes null), dh,
+// dhin [B, T, H] bf16; wxp and wxtp: W_x packed for the forward and W_x^T
+// for dhin (ops/rnn.py pack_fragments); b [G H], wh [H, G H] bf16; m uint8
+// [B, T]. s_*: the seed strides of hin, W_x (both packings), b, wh and m
+// in their elements (0: shared by every seed); h_all, c_all, dh and dhin
+// are [seeds, B, T, H]. Scratch the caller allocates: dgx [seeds, B, T,
+// G H] f32, dhn [seeds, B, T, H] f32 (GRU), partial [seeds, S, 2 H G H +
+// G H] f32. Output dw [seeds, 2 H G H + G H] f32: dW_x, db, dW_h. Returns
+// the first CUDA error of its three launches.
 extern "C" int lfm_rnn_fused_bwd_mma(int cell, const void* hin,
                                      const void* wxp, const void* wxtp,
                                      const void* b, const void* wh,
                                      const void* m, const void* h_all,
                                      const void* c_all, const void* dh,
                                      void* dhin, void* dgx, void* dhn,
-                                     void* partial, int S, void* dw, int B,
-                                     int Tn, int H, float forget_bias,
+                                     void* partial, int S, void* dw,
+                                     int seeds, int B, int Tn, int H,
+                                     long long s_hin, long long s_wx,
+                                     long long s_b, long long s_wh,
+                                     long long s_m, float forget_bias,
                                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Tn <= 0 || S <= 0 || !supported(H))
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (seeds <= 0 || seeds > 65535 || B <= 0 || Tn <= 0 || S <= 0 ||
+      S > 65535 || !supported(H))
     return (int)cudaErrorInvalidValue;
+  const SeedStrides st{s_hin, s_wx, s_b, s_wh, s_m};
   if (cell == kLstm)
     return (int)launch<kLstm>(hin, wxp, wxtp, b, wh, m, h_all, c_all, dh,
-                              dhin, dgx, dhn, partial, S, dw, B, Tn, H,
-                              forget_bias, st);
+                              dhin, dgx, dhn, partial, S, dw, seeds, B, Tn, H,
+                              st, forget_bias, cs);
   if (cell == kGru)
     return (int)launch<kGru>(hin, wxp, wxtp, b, wh, m, h_all, c_all, dh,
-                             dhin, dgx, dhn, partial, S, dw, B, Tn, H,
-                             forget_bias, st);
+                             dhin, dgx, dhn, partial, S, dw, seeds, B, Tn, H,
+                             st, forget_bias, cs);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,7 +23,8 @@
 //
 // Bound. At the c2 serving dispatch (B = 16384, T = 60, H = 128, LSTM) the
 // work is 2 * B * T * H * 2 * 4H = 2.58e11 operations against 0.25 GB of
-// hin in and h out: bound by operations, 0.26 ms at 989 TFLOP/s.
+// hin in and h out: bound by operations, 0.26 ms at 989 TFLOP/s. At the
+// c5 ensemble's train step (64 seeds of B = 2048) it is 2.1 ms.
 //
 // Design:
 //
@@ -35,8 +36,16 @@
 //   sums z and r together: four sums, as the LSTM's four gates), the cell
 //   math runs in registers, and there is one barrier per step. UW is 8
 //   (kUnits, so H / 8 warps); the rows per block (16, 32 or 64) are
-//   picked per call from B by ops/rnn.py _mma_rows: 64 for the serving
-//   dispatches, 16 for the c2 train step.
+//   picked per call from the block count S * ceil(B / rows) by ops/rnn.py
+//   _mma_rows: 64 for the serving dispatches and the c5 ensemble step, 16
+//   for the c2 train step.
+// * Seeds (the JAX kernels' seed grid dimension, pallas_rnn.py _fwd_vmap
+//   :919): blockIdx.y is the seed. Each operand has its own seed stride
+//   (SeedStrides), 0 for an operand of seed extent 1, which every seed
+//   reads at seed 0 (JAX's _sidx); the outputs are per seed. A block
+//   loads its own seed's W_h; every per-seed base offset is 64-bit. A
+//   seed's rows take the same path as in a one-seed launch with the same
+//   rows per block, so its outputs are bitwise those of that launch.
 // * A fragments come by ldmatrix from [rows, H + 8] bf16 tiles of hin_t
 //   and of bf16(h_{t-1}) in shared memory (the 16-byte row padding puts
 //   the eight row addresses of each 8 x 8 matrix in distinct banks). Both
@@ -80,13 +89,20 @@ __device__ __forceinline__ float sigmoid(float v) {
 
 // Shared memory: packed W_h [H * G * H] bf16, the hin and h tiles (two
 // each, [rows, H + 8] bf16) and the bias [G * H] f32.
+// Seed strides of the operands, in elements of each (W_x and W_h in bf16
+// elements of their packed form); 0 for an operand shared by every seed.
+struct SeedStrides {
+  long long hin, wx, b, wh, m;
+};
+
 inline size_t smem_bytes(int gates, int H, int rows) {
   return (size_t)H * gates * H * 2 + 4 * (size_t)rows * (H + 8) * 2 +
          (size_t)gates * H * 4;
 }
 
-// hin [B, T, H]; wxp, whp: W_x, W_h packed in fragment order; b [G * H];
-// m uint8 [B, T]; h_out, c_out [B, T, H] (c_out may be null). The block
+// Per seed (blockIdx.y, operands offset by their SeedStrides): hin [B, T,
+// H]; wxp, whp: W_x, W_h packed in fragment order; b [G * H]; m uint8 [B,
+// T]; h_out, c_out [B, T, H] (c_out may be null), stride B T H. The block
 // owns 16 * RT rows; blockDim.x = (H / kUnits) * 32.
 template <int CELL, int RT>
 __global__ void __launch_bounds__(128 * 32 / kUnits, 1)
@@ -97,7 +113,7 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
                    const uint8_t* __restrict__ m,
                    __nv_bfloat16* __restrict__ h_out,
                    __nv_bfloat16* __restrict__ c_out, int B, int Tn, int H,
-                   float forget_bias) {
+                   SeedStrides st, float forget_bias) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   constexpr int BB = 16 * RT;  // rows per block
   constexpr int UW = kUnits;
@@ -115,6 +131,20 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
       reinterpret_cast<__nv_bfloat16*>(smem + (size_t)H * GH * 2);
   __nv_bfloat16* h_s = hin_s + 2 * BB * LD;
   float* bias_s = reinterpret_cast<float*>(h_s + 2 * BB * LD);
+
+  {
+    const size_t seed = blockIdx.y;
+    const size_t seq = (size_t)B * Tn * H;
+    hin += seed * st.hin;
+    wxp = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const __nv_bfloat16*>(wxp) + seed * st.wx);
+    b += seed * st.b;
+    whp = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const __nv_bfloat16*>(whp) + seed * st.wh);
+    m += seed * st.m;
+    h_out += seed * seq;
+    if (c_out != nullptr) c_out += seed * seq;
+  }
 
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
@@ -293,8 +323,8 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
 template <int CELL, int RT>
 cudaError_t launch(const void* hin, const void* wxp, const void* b,
                    const void* whp, const void* m, void* h_out, void* c_out,
-                   int B, int Tn, int H, float forget_bias,
-                   cudaStream_t stream) {
+                   int S, int B, int Tn, int H, SeedStrides st,
+                   float forget_bias, cudaStream_t stream) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   constexpr int rows = 16 * RT;
   const size_t smem = smem_bytes(G, H, rows);
@@ -303,25 +333,28 @@ cudaError_t launch(const void* hin, const void* wxp, const void* b,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (B + rows - 1) / rows;
-  kernel<<<blocks, (H / kUnits) * 32, smem, stream>>>(
+  kernel<<<dim3(blocks, S), (H / kUnits) * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(hin), static_cast<const uint2*>(wxp),
       static_cast<const __nv_bfloat16*>(b), static_cast<const uint2*>(whp),
       static_cast<const uint8_t*>(m), static_cast<__nv_bfloat16*>(h_out),
       CELL == kLstm ? static_cast<__nv_bfloat16*>(c_out) : nullptr, B, Tn, H,
-      forget_bias);
+      st, forget_bias);
   return cudaGetLastError();
 }
 
 template <int CELL>
 cudaError_t launch_rows(int rows, const void* hin, const void* wxp,
                         const void* b, const void* whp, const void* m,
-                        void* h_out, void* c_out, int B, int Tn, int H,
-                        float fb, cudaStream_t s) {
+                        void* h_out, void* c_out, int S, int B, int Tn,
+                        int H, SeedStrides st, float fb, cudaStream_t s) {
   if (rows == 16)
-    return launch<CELL, 1>(hin, wxp, b, whp, m, h_out, c_out, B, Tn, H, fb, s);
+    return launch<CELL, 1>(hin, wxp, b, whp, m, h_out, c_out, S, B, Tn, H,
+                           st, fb, s);
   if (rows == 32)
-    return launch<CELL, 2>(hin, wxp, b, whp, m, h_out, c_out, B, Tn, H, fb, s);
-  return launch<CELL, 4>(hin, wxp, b, whp, m, h_out, c_out, B, Tn, H, fb, s);
+    return launch<CELL, 2>(hin, wxp, b, whp, m, h_out, c_out, S, B, Tn, H,
+                           st, fb, s);
+  return launch<CELL, 4>(hin, wxp, b, whp, m, h_out, c_out, S, B, Tn, H, st,
+                         fb, s);
 }
 
 // The shapes the kernel takes: 16 <= H <= 128, H % 16 == 0, and 16, 32 or
@@ -340,25 +373,31 @@ extern "C" long long lfm_rnn_fused_fwd_mma_smem(int cell, int H, int rows) {
   return (long long)smem_bytes(cell == kLstm ? 4 : 3, H, rows);
 }
 
-// The fused forward in bfloat16 on the tensor cores. hin [B, T, H], b
-// [G * H], h_out and c_out [B, T, H] bf16; wxp and whp are W_x and W_h
-// [H, G * H] permuted into fragment order (ops/rnn.py pack_fragments); m
-// uint8 [B, T]; rows: rows per block (16, 32 or 64); c_out may be null.
-// Returns cudaGetLastError().
+// The fused forward in bfloat16 on the tensor cores, for S seeds in one
+// launch. Per seed: hin [B, T, H], b [G * H], h_out and c_out [B, T, H]
+// bf16; wxp and whp are W_x and W_h [H, G * H] permuted into fragment
+// order (ops/rnn.py pack_fragments); m uint8 [B, T]. s_*: each operand's
+// seed stride in its elements (0: shared by every seed); h_out and c_out
+// are [S, B, T, H]. rows: rows per block (16, 32 or 64); c_out may be
+// null. Returns cudaGetLastError().
 extern "C" int lfm_rnn_fused_fwd_mma(int cell, const void* hin,
                                      const void* wxp, const void* b,
                                      const void* whp, const void* m,
-                                     void* h_out, void* c_out, int B, int Tn,
-                                     int H, int rows, float forget_bias,
+                                     void* h_out, void* c_out, int S, int B,
+                                     int Tn, int H, int rows,
+                                     long long s_hin, long long s_wx,
+                                     long long s_b, long long s_wh,
+                                     long long s_m, float forget_bias,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Tn <= 0 || !supported(H, rows))
+  if (S <= 0 || S > 65535 || B <= 0 || Tn <= 0 || !supported(H, rows))
     return (int)cudaErrorInvalidValue;
+  const SeedStrides st{s_hin, s_wx, s_b, s_wh, s_m};
   if (cell == kLstm)
     return (int)launch_rows<kLstm>(rows, hin, wxp, b, whp, m, h_out, c_out,
-                                   B, Tn, H, forget_bias, s);
+                                   S, B, Tn, H, st, forget_bias, s);
   if (cell == kGru)
     return (int)launch_rows<kGru>(rows, hin, wxp, b, whp, m, h_out, c_out,
-                                  B, Tn, H, forget_bias, s);
+                                  S, B, Tn, H, st, forget_bias, s);
   return (int)cudaErrorInvalidValue;
 }

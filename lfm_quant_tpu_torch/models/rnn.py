@@ -39,6 +39,13 @@ class RNNModel(nn.Module):
     ``forward`` takes ``x [B, W, F]`` and ``m [B, W]`` and returns
     ``[B]`` f32 forecasts, or ``(mean, log_var)`` for a heteroscedastic
     head.
+
+    ``n_seeds=S``: S members stacked on a leading seed axis of every
+    param (the JAX ensemble's ``vmap``, written out). ``forward`` then
+    takes ``x [S, B, W, F]`` (or ``[B, W, F]`` that every seed shares) and
+    ``m [S, B, W]`` or ``[B, W]``, and returns ``[S, B]``; the recurrence
+    runs every seed in one kernel launch. The seed count is read from the
+    params, so a block of seeds' params serves as well.
     """
 
     def __init__(self, n_features: int, cell: str = "lstm",
@@ -47,7 +54,8 @@ class RNNModel(nn.Module):
                  heteroscedastic: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  scan_impl: str = "fused",
-                 factor_rank: Optional[int] = None, n_groups: int = 1):
+                 factor_rank: Optional[int] = None, n_groups: int = 1,
+                 n_seeds: Optional[int] = None):
         super().__init__()
         if cell not in _GATES:
             raise ValueError(f"cell must be one of {sorted(_GATES)}")
@@ -64,16 +72,23 @@ class RNNModel(nn.Module):
         self.dtype = dtype
         self.scan_impl = scan_impl
         gh = _GATES[cell] * hidden
-        self.embed = Dense(n_features, hidden)
-        self.xproj = nn.ModuleList(Dense(hidden, gh) for _ in range(layers))
+        lead = () if n_seeds is None else (n_seeds,)
+        self.embed = Dense(n_features, hidden, n_seeds=n_seeds)
+        self.xproj = nn.ModuleList(Dense(hidden, gh, n_seeds=n_seeds)
+                                   for _ in range(layers))
         self.h_proj = nn.ParameterList(
-            nn.Parameter(torch.zeros(hidden, gh)) for _ in range(layers))
+            nn.Parameter(torch.zeros(*lead, hidden, gh))
+            for _ in range(layers))
         self.head = ForecastHead(hidden, head_hidden,
                                  heteroscedastic=heteroscedastic,
-                                 dtype=dtype)
+                                 dtype=dtype, n_seeds=n_seeds)
 
     def forward(self, x: torch.Tensor, m: torch.Tensor):
         cd = self.dtype or torch.float32
+        if self.embed.kernel.dim() == 3:
+            # Seed-stacked: an input without the seed axis is shared.
+            x = x[None] if x.dim() == 3 else x
+            m = m[None] if m.dim() == 2 else m
         h = self.embed(x.to(cd), dtype=self.dtype)
         scan = (rnn_scan_fused if self.scan_impl == "fused"
                 else rnn_scan_fused_reference)
@@ -87,4 +102,4 @@ class RNNModel(nn.Module):
                      self.xproj[layer].bias.to(cd), wh, m)
         # Masked steps held state, so the last step is the state at the
         # last valid month.
-        return self.head(h[:, -1, :])
+        return self.head(h[..., -1, :])

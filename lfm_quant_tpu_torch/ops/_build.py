@@ -143,10 +143,10 @@ def library() -> ctypes.CDLL:
             signatures = {
                 "lfm_rnn_fused_fwd": [ci, ci] + [vp] * 7 + [ci] * 3
                 + [cf, vp],
-                "lfm_rnn_fused_fwd_mma": [ci] + [vp] * 7 + [ci] * 4
-                + [cf, vp],
+                "lfm_rnn_fused_fwd_mma": [ci] + [vp] * 7 + [ci] * 5
+                + [cll] * 5 + [cf, vp],
                 "lfm_rnn_fused_bwd_mma": [ci] + [vp] * 13 + [ci, vp]
-                + [ci] * 3 + [cf, vp],
+                + [ci] * 4 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 3
                 + [cf, vp],
                 "lfm_rnn_fused_bwd": [ci, ci] + [vp] * 14 + [ci, vp]

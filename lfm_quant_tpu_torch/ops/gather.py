@@ -4,17 +4,32 @@ and its plain version.
 Port of ``lfm_quant_tpu/ops/pallas_gather.py``. Same contract as
 ``data/windows.py gather_windows_packed``, which is the plain version: a
 panel on the CPU goes there; a panel on the card launches the kernel or
-raises.
+raises. Seed-stacked index batches ``[S, D, Bf]`` over the one shared
+panel fold into the date axis of a single call (the JAX ``_call_vmap``,
+``pallas_gather.py:169-187``); a per-seed panel is not taken.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from lfm_quant_tpu_torch.data.windows import gather_windows_packed
 from lfm_quant_tpu_torch.ops import _build
+
+
+def fold_seeds(gather: Callable, xm: torch.Tensor, firm_idx: torch.Tensor,
+               time_idx: torch.Tensor, window: int,
+               fp: Optional[int] = None):
+    """``gather`` (this module's or the plain one) over seed-stacked
+    indices ``firm_idx [S, D, Bf]``, ``time_idx [S, D]``, folded into one
+    call over ``S * D`` date rows → ``(x [S, D, Bf, W, fp-1], m [S, D,
+    Bf, W])``."""
+    S, D, Bf = firm_idx.shape
+    x, m = gather(xm, firm_idx.reshape(S * D, Bf), time_idx.reshape(S * D),
+                  window, fp=fp)
+    return x.view(S, D, *x.shape[1:]), m.view(S, D, *m.shape[1:])
 
 
 def gather_windows(xm: torch.Tensor, firm_idx: torch.Tensor,
@@ -23,7 +38,12 @@ def gather_windows(xm: torch.Tensor, firm_idx: torch.Tensor,
     """``xm [N, T, Fp]`` packed panel, ``firm_idx [D, Bf]`` int32,
     ``time_idx [D]`` int32 → ``(x [D, Bf, W, fp-1] in xm.dtype,
     m [D, Bf, W] bool)``; ``fp`` is the logical packed width (validity at
-    column ``fp - 1``), by default ``Fp``."""
+    column ``fp - 1``), by default ``Fp``. Seed-stacked ``firm_idx [S, D,
+    Bf]`` and ``time_idx [S, D]`` give ``x [S, D, Bf, W, fp-1]`` and ``m
+    [S, D, Bf, W]`` from one launch over ``S * D`` date rows."""
+    if firm_idx.dim() == 3 and time_idx.dim() == 2 \
+            and time_idx.shape == firm_idx.shape[:2]:
+        return fold_seeds(gather_windows, xm, firm_idx, time_idx, window, fp)
     fp = fp or xm.shape[-1]
     if xm.dim() != 3 or firm_idx.dim() != 2 or time_idx.dim() != 1 \
             or time_idx.shape[0] != firm_idx.shape[0]:

@@ -28,6 +28,17 @@ i, f, g, o; GRU z, r, n). An invalid step holds the carried state, so a
 left-padded short history keeps the zero state until its first valid
 month. Tensors on the CPU go to the plain versions; tensors on the card
 launch the kernels or raise.
+
+The seed axis (the seed ensemble; the JAX kernels' ``custom_vmap`` rules,
+``pallas_rnn.py _fwd_vmap`` :919 and ``_bwd_vmap`` :951) is a leading
+dimension written out: ``rnn_scan_fused`` also takes ``hin [S, B, T, H]``,
+``wx``/``wh [S, H, G*H]``, ``b [S, G*H]`` and ``m [S, B, T]``, where any
+operand may have seed extent 1 and is then shared by every seed (JAX's
+``_seed_extent``). The tensor-core kernels run all seeds in one launch,
+each operand at its own seed stride (0 when shared); the CUDA-core
+kernels launch once per seed, as does the hoisted ``rnn_scan``; the plain
+versions run the one-seed plain op per seed. A shared operand's gradient
+is the sum of the seeds' gradients.
 """
 
 from __future__ import annotations
@@ -58,6 +69,34 @@ def _gru_parts(xw: torch.Tensor, hw: torch.Tensor):
     r = torch.sigmoid(xr + hr)
     n = torch.tanh(xn + r * hn)
     return z, r, n, hn
+
+
+def _seed_extent(*tensors) -> int:
+    """Common seed extent of leading axes that are each S or 1 (1: shared
+    by every seed); ``None`` entries are skipped."""
+    S = 1
+    for t in tensors:
+        if t is None or t.shape[0] in (1, S):
+            continue
+        if S != 1:
+            raise ValueError(f"seed extents disagree ({t.shape[0]} vs {S})")
+        S = t.shape[0]
+    return S
+
+
+def _seed(t: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
+    """Seed ``s`` of a seed-stacked operand (seed 0 when it is shared)."""
+    return None if t is None else t[s if t.shape[0] > 1 else 0]
+
+
+def _over_seeds(fn, S: int, *tensors):
+    """``fn`` on each seed's operands, its outputs stacked on a new leading
+    seed axis (an output that is None stays None)."""
+    outs = [fn(*(_seed(t, s) for t in tensors)) for s in range(S)]
+    if not isinstance(outs[0], tuple):
+        return torch.stack(outs)
+    return tuple(None if o[0] is None else torch.stack(o)
+                 for o in zip(*outs))
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +155,12 @@ def rnn_scan_fused_reference(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                              ) -> torch.Tensor:
     """Plain version of :func:`rnn_scan_fused`: the reference recurrence
     fed ``hin @ wx + b`` computed in f32, as the JAX tests hold the fused
-    kernel. Returns ``[B, T, H]`` in ``hin.dtype``."""
+    kernel. Returns ``[B, T, H]`` in ``hin.dtype``; seed-stacked operands
+    give ``[S, B, T, H]``, one seed at a time."""
+    if hin.dim() == 4:
+        return _over_seeds(
+            lambda *a: rnn_scan_fused_reference(cell, *a, forget_bias),
+            _check_stacked(cell, hin, wx, b, wh, m), hin, wx, b, wh, m)
     xw = hin.float() @ wx.float() + b.float()
     return rnn_scan_reference(cell, xw, wh, m, forget_bias).to(hin.dtype)
 
@@ -206,7 +250,13 @@ def rnn_scan_fused_bwd_reference(cell: str, hin: torch.Tensor,
                                  c_all: Optional[torch.Tensor],
                                  dh: torch.Tensor, forget_bias: float = 1.0):
     """Plain version of :func:`rnn_scan_fused_bwd`: ``(dhin in hin.dtype,
-    dW_x, db, dW_h f32)``."""
+    dW_x, db, dW_h f32)``; seed-stacked operands give each per seed, one
+    seed at a time."""
+    if hin.dim() == 4:
+        S = _check_stacked(cell, hin, wx, b, wh, m, h_all, c_all, dh)
+        return _over_seeds(
+            lambda *a: rnn_scan_fused_bwd_reference(cell, *a, forget_bias),
+            S, hin, wx, b, wh, m, h_all, c_all, dh)
     xw = hin.float() @ wx.float() + b.float()
     d_xw, d_hw, h_prev = _scan_bwd_core(cell, xw, wh, m, h_all, c_all, dh,
                                         forget_bias)
@@ -233,6 +283,28 @@ def _check_shapes(cell: str, B: int, T: int, H: int, m: torch.Tensor,
             f"expected wx/wh [{H},{G}], b [{G}], m [{B},{T}]; got "
             f"{None if wx is None else tuple(wx.shape)}/{tuple(wh.shape)}/"
             f"{None if b is None else tuple(b.shape)}/{tuple(m.shape)}")
+
+
+def _check_stacked(cell: str, hin, wx, b, wh, m, h_all=None, c_all=None,
+                   dh=None) -> int:
+    """Shapes of seed-stacked fused operands → the seed extent S: hin [., B,
+    T, H], wx/wh [., H, G*H], b [., G*H], m [., B, T] and the states
+    [., B, T, H], each leading extent S or 1."""
+    if hin.dim() != 4:
+        raise ValueError(f"hin must be [S, B, T, H], got {tuple(hin.shape)}")
+    _, B, T, H = hin.shape
+    if cell not in _GATES:
+        raise ValueError(f"cell must be one of {sorted(_GATES)}")
+    G = _GATES[cell] * H
+    want = {"wx": (wx, (H, G)), "b": (b, (G,)), "wh": (wh, (H, G)),
+            "m": (m, (B, T)), "h_all": (h_all, (B, T, H)),
+            "c_all": (c_all, (B, T, H)), "dh": (dh, (B, T, H))}
+    for name, (t, tail) in want.items():
+        if t is not None and (t.dim() != len(tail) + 1
+                              or tuple(t.shape[1:]) != tail):
+            raise ValueError(f"{name} must be [S, {', '.join(map(str, tail))}]"
+                             f", got {tuple(t.shape)}")
+    return _seed_extent(hin, wx, b, wh, m, h_all, c_all, dh)
 
 
 def _check_states(cell: str, B: int, T: int, H: int, h_all, c_all,
@@ -428,9 +500,13 @@ def pack_fragments(w: torch.Tensor, transpose: bool = False
                    ) -> torch.Tensor:
     """``w [H, G*H]`` → the mma kernels' fragment order of ``w`` (or,
     with ``transpose``, of ``w^T``); flat, same dtype, a new tensor. See
-    :func:`_fragment_index`."""
-    H, cols = w.shape
-    return w.reshape(-1)[_fragment_index(H, cols, w.device, transpose)]
+    :func:`_fragment_index`. A seed-stacked ``w [S, H, G*H]`` is packed
+    per seed → ``[S, H*G*H]``."""
+    H, cols = w.shape[-2:]
+    idx = _fragment_index(H, cols, w.device, transpose)
+    if w.dim() == 3:
+        return w.reshape(w.shape[0], -1)[:, idx]
+    return w.reshape(-1)[idx]
 
 
 def unpack_fragments(packed: torch.Tensor, H: int, cols: int,
@@ -441,16 +517,21 @@ def unpack_fragments(packed: torch.Tensor, H: int, cols: int,
     return w.view(H, cols)
 
 
-def _mma_rows(B: int, sms: int) -> int:
-    """Rows per block of the tensor-core forward, from B alone: the most
-    (64, 32, then 16: the fewer W_x reads and barriers per row) that
-    still give at least half the SMs a block. Measured on an H100 with
-    ``chip_smoke.py`` and ``scripts/torch_mma_variants.py`` (PERF.md,
-    port PR 4)."""
+def _mma_rows(B: int, sms: int, S: int = 1) -> int:
+    """Rows per block of the tensor-core forward, from the block count S *
+    ceil(B / rows) of S seeds: the most (64, 32, then 16: the fewer W_x
+    reads and barriers per row) that still give at least half the SMs a
+    block. Measured on an H100 with ``chip_smoke.py`` and
+    ``scripts/torch_mma_variants.py`` (PERF.md §6)."""
     for rows in (64, 32):
-        if 2 * -(-B // rows) >= sms:
+        if 2 * S * -(-B // rows) >= sms:
             return rows
     return 16
+
+
+def _stride(t: torch.Tensor, S: int) -> int:
+    """A seed-stacked operand's seed stride in elements: 0 when shared."""
+    return t[0].numel() if S > 1 and t.shape[0] > 1 else 0
 
 
 def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
@@ -458,15 +539,23 @@ def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                     forget_bias: float, save_c: bool,
                     rows: Optional[int] = None, packed=None):
     """One launch of the tensor-core fused forward → ``(h_all, c_all or
-    None)``. ``rows`` (per block, one of :data:`MMA_ROWS`) overrides the
-    choice from B; ``packed`` is ``(pack_fragments(wx),
+    None)``. Seed-stacked operands (``hin`` 4-D, see :func:`_check_stacked`)
+    run every seed in the same launch, counted once, → ``[S, B, T, H]``.
+    ``rows`` (per block, one of :data:`MMA_ROWS`) overrides the choice from
+    the block count; ``packed`` is ``(pack_fragments(wx),
     pack_fragments(wh))`` when the caller has it."""
-    B, T = m.shape
-    H = wh.shape[0]
+    stacked = hin.dim() == 4
+    if not stacked:
+        hin, wx, b, wh, m = (t[None] for t in (hin, wx, b, wh, m))
+        if packed is not None:
+            packed = tuple(p[None] for p in packed)
+    S = _seed_extent(hin, wx, b, wh, m)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
     dev = hin.device
     if rows is None:
         rows = _mma_rows(
-            B, torch.cuda.get_device_properties(dev).multi_processor_count)
+            B, torch.cuda.get_device_properties(dev).multi_processor_count, S)
     lib = _build.library()
     smem = lib.lfm_rnn_fused_fwd_mma_smem(_CELL_CODE[cell], H, rows)
     if smem < 0:
@@ -476,18 +565,21 @@ def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     # Fresh tensors: 16-byte aligned for the kernel's cp.async and stores.
     wxp, whp = packed or (pack_fragments(wx), pack_fragments(wh))
     hin = _aligned16(hin)
-    h = torch.empty((B, T, H), dtype=hin.dtype, device=dev)
+    h = torch.empty((S, B, T, H), dtype=hin.dtype, device=dev)
     c = torch.empty_like(h) if save_c and cell == "lstm" else None
     keep = m.to(torch.uint8).contiguous()
     with torch.cuda.device(dev):
         err = lib.lfm_rnn_fused_fwd_mma(
             _CELL_CODE[cell], hin.data_ptr(), wxp.data_ptr(), b.data_ptr(),
             whp.data_ptr(), keep.data_ptr(), h.data_ptr(),
-            None if c is None else c.data_ptr(), B, T, H, rows,
-            float(forget_bias), _build.stream_of(hin))
+            None if c is None else c.data_ptr(), S, B, T, H, rows,
+            _stride(hin, S), _stride(wxp, S), _stride(b, S), _stride(whp, S),
+            _stride(keep, S), float(forget_bias), _build.stream_of(hin))
     name = f"rnn_fused_fwd_mma_{cell}"
     _build.check(lib, err, name)
     _build.count_launch(name)
+    if not stacked:
+        return h[0], (None if c is None else c[0])
     return h, c
 
 
@@ -504,11 +596,21 @@ def _launch_bwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                     wxp: Optional[torch.Tensor] = None):
     """One call of the tensor-core fused backward (three kernel
     launches, counted once) → ``(dhin, dW_x, db, dW_h)``, the weight
-    gradients in f32. ``wxp`` is ``pack_fragments(wx)`` when the forward
-    already built it; W_h goes in as it is (row-major, copied once into
-    shared memory)."""
-    B, T = m.shape
-    H = wh.shape[0]
+    gradients in f32. Seed-stacked operands (``hin`` 4-D) run every seed
+    in the same call, counted once, and give each gradient per seed
+    (``[S, ...]``); the states ``h_all``, ``c_all`` and ``dh`` are per
+    seed. ``wxp`` is ``pack_fragments(wx)`` when the forward already
+    built it; W_h goes in as it is (row-major, copied once into shared
+    memory)."""
+    stacked = hin.dim() == 4
+    if not stacked:
+        hin, wx, b, wh, m, h_all, dh = (
+            t[None] for t in (hin, wx, b, wh, m, h_all, dh))
+        c_all = None if c_all is None else c_all[None]
+        wxp = None if wxp is None else wxp[None]
+    S = _seed_extent(hin, wx, b, wh, m, h_all, c_all, dh)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
     G = _GATES[cell] * H
     dev = hin.device
     f32 = torch.float32
@@ -520,43 +622,60 @@ def _launch_bwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     if wxp is None:
         wxp = pack_fragments(wx)
     wxtp = pack_fragments(wx, transpose=True)
+    # The states are per seed: a shared one is copied out to every seed.
+    h_all, c_all, dh = (
+        None if t is None else t.expand(S, *t.shape[1:]).contiguous()
+        for t in (h_all, c_all, dh))
     hin, wh, h_all, c_all, dh = (None if t is None else _aligned16(t)
                                  for t in (hin, wh, h_all, c_all, dh))
     keep = m.to(torch.uint8).contiguous()
-    dgx = torch.empty((B, T, G), dtype=f32, device=dev)
-    dhn = (torch.empty((B, T, H), dtype=f32, device=dev) if cell == "gru"
-           else None)
-    S = _slices(B * T)
+    dgx = torch.empty((S, B, T, G), dtype=f32, device=dev)
+    dhn = (torch.empty((S, B, T, H), dtype=f32, device=dev)
+           if cell == "gru" else None)
+    slices = _slices(B * T)
     total = 2 * H * G + G
-    partial = torch.empty((S, total), dtype=f32, device=dev)
-    dw = torch.empty((total,), dtype=f32, device=dev)
-    dx = torch.empty_like(hin)
+    partial = torch.empty((S, slices, total), dtype=f32, device=dev)
+    dw = torch.empty((S, total), dtype=f32, device=dev)
+    dx = torch.empty((S, B, T, H), dtype=hin.dtype, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         err = lib.lfm_rnn_fused_bwd_mma(
             _CELL_CODE[cell], hin.data_ptr(), wxp.data_ptr(),
             wxtp.data_ptr(), b.data_ptr(), wh.data_ptr(), keep.data_ptr(),
             h_all.data_ptr(), ptr(c_all), dh.data_ptr(), dx.data_ptr(),
-            dgx.data_ptr(), ptr(dhn), partial.data_ptr(), S, dw.data_ptr(),
-            B, T, H, float(forget_bias), _build.stream_of(hin))
+            dgx.data_ptr(), ptr(dhn), partial.data_ptr(), slices,
+            dw.data_ptr(), S, B, T, H, _stride(hin, S), _stride(wxp, S),
+            _stride(b, S), _stride(wh, S), _stride(keep, S),
+            float(forget_bias), _build.stream_of(hin))
     name = f"rnn_fused_bwd_mma_{cell}"
     _build.check(lib, err, name)
     _build.count_launch(name)
     hg = H * G
-    return (dx, dw[:hg].view(H, G), dw[hg:hg + G],
-            dw[hg + G:].view(H, G))
+    out = (dx, dw[:, :hg].view(S, H, G), dw[:, hg:hg + G],
+           dw[:, hg + G:].view(S, H, G))
+    return out if stacked else tuple(t[0] for t in out)
 
 
 def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
                   packed=None):
+    stacked = hin.dim() == 4
     if hin.device.type == "cpu":
+        if stacked:
+            return _over_seeds(
+                lambda *a: _fused_states(cell, *a, forget_bias, save_c),
+                _seed_extent(hin, wx, b, wh, m), hin, wx, b, wh, m)
         xw = hin.float() @ wx.float() + b.float()
         h, c = rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
         return h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
     _check_card(hin, wx=wx, b=b, wh=wh, m=m)
-    if _mma_route(hin.dtype, wh.shape[0]) == "mma":
+    if _mma_route(hin.dtype, wh.shape[-2]) == "mma":
         return _launch_fwd_mma(cell, hin, wx, b, wh, m, forget_bias, save_c,
                                packed=packed)
+    if stacked:
+        # The CUDA-core kernel has no seed grid: one launch per seed.
+        return _over_seeds(
+            lambda *a: _launch_fwd(cell, False, *a, forget_bias, save_c),
+            _seed_extent(hin, wx, b, wh, m), hin, wx, b, wh, m)
     return _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias, save_c)
 
 
@@ -576,7 +695,24 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     """Backward of :func:`rnn_scan_fused` from its saved states →
     ``(dhin in hin.dtype, dW_x, db, dW_h in f32)``. ``dh`` is the upstream
     gradient of ``h_all``, in ``hin.dtype``. ``wxp``: ``pack_fragments
-    (wx)`` when the forward built it (the tensor-core route reuses it)."""
+    (wx)`` when the forward built it (the tensor-core route reuses it).
+    Seed-stacked operands give every gradient per seed, ``[S, ...]``."""
+    if hin.dim() == 4:
+        S = _check_stacked(cell, hin, wx, b, wh, m, h_all, c_all, dh)
+        if cell == "lstm" and c_all is None:
+            raise ValueError("the LSTM backward needs the saved c_all")
+        if hin.device.type == "cpu":
+            return rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m,
+                                                h_all, c_all, dh, forget_bias)
+        _check_card(hin, wx=wx, b=b, wh=wh, m=m, h_all=h_all, c_all=c_all,
+                    dh=dh)
+        if _mma_route(hin.dtype, hin.shape[-1]) == "mma":
+            return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
+                                   forget_bias, wxp)
+        # The CUDA-core kernels have no seed grid: one call per seed.
+        return _over_seeds(
+            lambda *a: _launch_bwd(cell, True, *a, forget_bias), S,
+            hin, wx, b, wh, m, h_all, c_all, dh)
     B, T, H = hin.shape
     _check_shapes(cell, B, T, H, m, wh, wx, b)
     _check_states(cell, B, T, H, h_all, c_all, dh)
@@ -622,7 +758,7 @@ class _FusedScan(torch.autograd.Function):
         # here, for the forward and the backward's recompute.
         packed = None
         if hin.device.type == "cuda" and _mma_route(
-                hin.dtype, wh.shape[0]) == "mma":
+                hin.dtype, wh.shape[-2]) == "mma":
             packed = (pack_fragments(wx), pack_fragments(wh))
         h, c = _fused_states(cell, hin, wx, b, wh, m, forget_bias, True,
                              packed)
@@ -634,12 +770,17 @@ class _FusedScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         hin, wx, b, wh, m, h, c = ctx.saved_tensors
-        dhin, dwx, db, dwh = rnn_scan_fused_bwd(
+        grads = rnn_scan_fused_bwd(
             ctx.cell, hin, wx, b, wh, m, h, c,
             dh.to(hin.dtype).contiguous(), ctx.forget_bias, ctx.wxp)
-        # The weight gradients leave in the operands' types (f32 sums).
-        return (None, None, dhin, dwx.to(wx.dtype), db.to(b.dtype),
-                dwh.to(wh.dtype), None)
+        # The weight gradients leave in the operands' types (f32 sums); an
+        # operand shared by every seed takes the sum of their gradients.
+        out = []
+        for g, t in zip(grads, (hin, wx, b, wh)):
+            if hin.dim() == 4 and t.shape[0] == 1 and g.shape[0] > 1:
+                g = g.sum(dim=0, keepdim=True)
+            out.append(g.to(t.dtype))
+        return (None, None, *out, None)
 
 
 class _Scan(torch.autograd.Function):
@@ -680,9 +821,22 @@ def rnn_scan_fused(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     Returns ``[B, T, H]`` hidden states in ``hin.dtype``. Tensors on the
     card launch the kernels, which take ``hin``, ``wx``, ``b`` and ``wh``
     contiguous in one dtype (float32 or bfloat16).
+
+    Seed-stacked: ``hin [S, B, T, H]``, ``wx``/``wh [S, H, G*H]``, ``b
+    [S, G*H]``, ``m [S, B, T]``, each of seed extent S or 1 (shared) →
+    ``[S, B, T, H]``, one launch for all seeds on the tensor cores.
     """
+    if hin.dim() == 4:
+        S = _check_stacked(cell, hin, wx, b, wh, m)
+        if _wants_grad(hin, wx, b, wh):
+            return _FusedScan.apply(cell, float(forget_bias), hin, wx, b, wh,
+                                    m)
+        if hin.numel() == 0:
+            return hin.new_empty((S,) + hin.shape[1:])
+        return _fused_states(cell, hin, wx, b, wh, m, forget_bias, False)[0]
     if hin.dim() != 3:
-        raise ValueError(f"hin must be [B, T, H], got {tuple(hin.shape)}")
+        raise ValueError(f"hin must be [B, T, H] or [S, B, T, H], got "
+                         f"{tuple(hin.shape)}")
     B, T, H = hin.shape
     _check_shapes(cell, B, T, H, m, wh, wx, b)
     if _wants_grad(hin, wx, b, wh):
@@ -697,9 +851,15 @@ def rnn_scan(cell: str, xw: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
     """Masked recurrence over a hoisted gate projection ``xw [B, T, G*H]``
     (``x @ W_x + b`` for all gates); differentiable. ``wh [H, G*H]``,
     ``m [B, T]``. Returns ``[B, T, H]`` in ``xw.dtype``; on the card
-    ``xw`` and ``wh`` are contiguous in one dtype."""
+    ``xw`` and ``wh`` are contiguous in one dtype. Seed-stacked ``xw [S,
+    B, T, G*H]``, ``wh [S, H, G*H]``, ``m [S, B, T]`` (each of extent S or
+    1) run one seed at a time: one kernel launch per seed on the card."""
     if cell not in _GATES:
         raise ValueError(f"cell must be one of {sorted(_GATES)}")
+    if xw.dim() == 4 and wh.dim() == 3 and m.dim() == 3:
+        return _over_seeds(
+            lambda *a: rnn_scan(cell, *a, forget_bias),
+            _seed_extent(xw, wh, m), xw, wh, m)
     if xw.dim() != 3 or xw.shape[-1] % _GATES[cell]:
         raise ValueError(
             f"xw must be [B, T, {_GATES[cell]}*H], got {tuple(xw.shape)}")

@@ -1,17 +1,20 @@
-"""Train a preset's model: the port of the single-model path of the JAX
-package's ``train.py``.
+"""Train a preset's model: the port of the JAX package's ``train.py``,
+a single model or the seed ensemble.
 
     python -m lfm_quant_tpu_torch.train --preset c2 [--epochs N] [--out DIR]
     python -m lfm_quant_tpu_torch.train --preset c2 --scale 0.05 --device cpu
+    python -m lfm_quant_tpu_torch.train --preset c5 [--n-seeds S]
 
 config → panel (``synthetic_panel`` from the preset's seed and sizes, or
 a saved panel) → splits → ``Trainer.fit`` with early stopping; writes
 ``metrics.jsonl``, ``ckpt/latest``, ``ckpt/best``, ``config.json`` and
 ``summary.json`` into ``<out>/<name>/seed<seed>`` and prints the summary
-as JSON. Runs on the card; ``--device cpu`` trains through the kernels'
-plain versions. ``--scale`` shrinks the synthetic panel (firms and
-months, never the model's widths). ``--resume`` continues from the run
-directory's latest checkpoint with the same history.
+as JSON. With ``n_seeds > 1`` (c5: 64) the ensemble trains instead
+(``train/ensemble.py``), into ``<out>/<name>/ensemble`` with its
+``ensemble.flag``. Runs on the card; ``--device cpu`` trains through
+the kernels' plain versions. ``--scale`` shrinks the synthetic panel
+(firms and months, never the model's widths). ``--resume`` continues
+from the run directory's latest checkpoint with the same history.
 """
 
 from __future__ import annotations
@@ -41,10 +44,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in the run dir")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--n-seeds", type=int, default=None,
+                    help="override n_seeds (>1 trains the seed ensemble)")
     args = ap.parse_args(argv)
 
     from lfm_quant_tpu_torch.config import RunConfig, get_preset
     from lfm_quant_tpu_torch.device import resolve_device
+    from lfm_quant_tpu_torch.train.ensemble import run_ensemble_experiment
     from lfm_quant_tpu_torch.train.loop import run_experiment
 
     device = resolve_device(args.device)  # no card: raise before any work
@@ -54,10 +60,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         with open(args.config) as fh:
             cfg = RunConfig.from_json(fh.read())
-    if cfg.n_seeds > 1:
-        raise NotImplementedError(
-            f"{cfg.name} trains {cfg.n_seeds} seeds: the seed ensemble is "
-            "not ported yet (ROADMAP.md Queue A)")
+    if args.n_seeds is not None:
+        cfg = dataclasses.replace(cfg, n_seeds=args.n_seeds)
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
     if args.epochs is not None:
@@ -75,8 +79,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             n_months=max(d.window + d.horizon + 96, 120,
                          int(d.n_months * args.scale)),
         ))
-    summary, _, _ = run_experiment(cfg, echo=args.echo, resume=args.resume,
-                                   device=device)
+    run = run_ensemble_experiment if cfg.n_seeds > 1 else run_experiment
+    summary, _, _ = run(cfg, echo=args.echo, resume=args.resume,
+                        device=device)
     print(json.dumps({k: v for k, v in summary.items()
                       if k not in ("history", "step_losses")},
                      indent=2, default=str))

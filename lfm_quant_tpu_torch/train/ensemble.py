@@ -1,0 +1,507 @@
+"""The seed ensemble: the port of ``lfm_quant_tpu/train/ensemble.py``
+(``EnsembleTrainer``) for one device.
+
+``cfg.n_seeds`` independent members of one model train as ONE stacked
+state: every param and both Adam moments carry a leading seed axis
+(``RNNModel(..., n_seeds=S)``), and each step runs all members at once.
+The JAX package writes the seed axis as a ``vmap``; here it is a batch
+dimension written out, so one launch of each kernel (the window gather,
+the fused recurrence forward and its backward) serves every seed of a
+step, and the per-seed products around them are batched matrix
+products.
+
+* Diversity: member s draws its init from its own generator (``cfg.seed
+  + s``) and its data order from its own ``DateBatchSampler`` (``seed =
+  cfg.seed + s``); an epoch is truncated to the shortest member's.
+* The loss is the SUM of the per-seed losses, so each member gets
+  exactly its own gradient; the optimizer clips by each member's own
+  global norm (``AdamW(per_seed=True)``).
+* ``cfg.seed_block`` runs the stack in blocks of that many seeds (the
+  JAX ``scan_in_blocks``): activation memory drops to one block's, the
+  per-seed math is untouched. 0, or a block at or above the seed count,
+  runs all seeds at once; a negative or non-dividing block raises.
+* Early stopping on the ENSEMBLE-MEAN validation IC; members advance in
+  lock-step. One stacked checkpoint (``ckpt/latest``, ``ckpt/best``)
+  through :class:`~lfm_quant_tpu_torch.train.loop.FitHarness`.
+* The validation sweep and :meth:`EnsembleTrainer.predict` run over
+  month chunks (``dates_per_batch``) and, within each, over seed chunks
+  sized so that one chunk's recurrence states stay within
+  :data:`EVAL_STATE_BYTES`.
+
+Out of this slice (ROADMAP.md): the async epoch pipeline, geometry
+buckets, the variance forward, warm-start grafting and the seed/data
+mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch.func import functional_call, vmap
+
+from lfm_quant_tpu_torch.config import RunConfig, compute_dtype, model_kwargs
+from lfm_quant_tpu_torch.data.panel import Panel, PanelSplits
+from lfm_quant_tpu_torch.data.windows import (
+    DateBatchSampler,
+    device_panel,
+    gather_targets,
+    gather_windows_packed,
+    resolve_gather_impl,
+)
+from lfm_quant_tpu_torch.device import resolve_device
+from lfm_quant_tpu_torch.models import build_model
+from lfm_quant_tpu_torch.ops.gather import fold_seeds, gather_windows
+from lfm_quant_tpu_torch.ops.metrics import spearman_ic
+from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
+from lfm_quant_tpu_torch.train.loop import (
+    FitHarness,
+    TrainState,
+    _point_forecast,
+    default_split_dates,
+    make_loss_fn,
+    resolve_panel,
+)
+from lfm_quant_tpu_torch.train.optim import AdamW, AdamWState
+from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
+from lfm_quant_tpu_torch.weights import flax_param_map, load_flax_params
+from lfm_quant_tpu_torch.weights import init_params as seeded_init
+
+#: Budget of one seed chunk of the validation sweep and ``predict``: the
+#: bytes of one recurrence state tensor ``[seeds, rows, W, H]`` in the
+#: compute dtype. At c5 (8 months x a 3325-firm pool, W 60, H 128, bf16)
+#: one seed is 409 MB, so a chunk holds 10 seeds; all 64 would be 26 GB.
+EVAL_STATE_BYTES = 4 << 30
+
+
+class EnsembleTrainer:
+    """Trains ``cfg.n_seeds`` members as one stacked state on one device.
+
+    ``device``: None means ``cuda`` (the kernels); ``"cpu"`` runs every
+    kernel's plain version. ``run_dir`` None trains without checkpoints
+    or a metrics file. After :meth:`fit` (or :func:`load_ensemble`),
+    ``state`` holds the best stacked state."""
+
+    def __init__(self, cfg: RunConfig, splits: PanelSplits,
+                 run_dir: Optional[str] = None, echo: bool = False,
+                 device: Optional[Union[str, torch.device]] = None):
+        if cfg.n_seeds < 2:
+            raise ValueError("EnsembleTrainer needs n_seeds >= 2")
+        if cfg.optim.optimizer != "adamw":
+            raise NotImplementedError(
+                f"optimizer {cfg.optim.optimizer!r} is not ported (lamb: "
+                "ROADMAP.md Queue A); use adamw")
+        S = self.n_seeds = cfg.n_seeds
+        self.seed_block = int(cfg.seed_block or 0)
+        if self.seed_block < 0:
+            raise ValueError(f"seed_block must be >= 0, got {self.seed_block}")
+        # A block at or above the seed count is a no-op, not an error.
+        if 0 < self.seed_block < S and S % self.seed_block:
+            raise ValueError(f"seed_block={self.seed_block} must divide "
+                             f"n_seeds={S}")
+        self.cfg = cfg
+        self.splits = splits
+        self.run_dir = run_dir
+        self.echo = echo
+        self.state: Optional[TrainState] = None
+        self.device = resolve_device(device)
+        panel = splits.panel
+        d = cfg.data
+        self.window = d.window
+        self.fp = panel.n_features + 1  # logical packed width
+        self.gather_impl = resolve_gather_impl(d.gather_impl)
+        # The eval sweep takes the kernel only when asked by name, as the
+        # single-model Trainer's does.
+        self.eval_gather_impl = ("kernel" if d.gather_impl == "pallas"
+                                 else "plain")
+        kind, kwargs = model_kwargs(cfg)
+        self.model = build_model(kind, n_features=panel.n_features,
+                                 n_seeds=S, **kwargs).to(self.device)
+        # Flax path → the module's own name, for functional_call.
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        self._names = {k: names[id(p)]
+                       for k, p in flax_param_map(self.model).items()}
+        self.dev = device_panel(panel, self.device, compute_dtype(cfg))
+        self.samplers = [
+            DateBatchSampler(
+                panel, d.window, d.dates_per_batch, d.firms_per_date,
+                seed=cfg.seed + s, min_valid_months=d.min_valid_months,
+                date_range=splits.train_range, engine=d.sampler_engine)
+            for s in range(S)]
+        self.val_sampler = DateBatchSampler(
+            panel, d.window, 1, d.firms_per_date, seed=cfg.seed,
+            min_valid_months=d.min_valid_months, min_cross_section=1,
+            date_range=splits.val_range)
+        self.loss_fn = make_loss_fn(cfg.optim.loss)
+        self._steps_per_epoch = min(s.batches_per_epoch()
+                                    for s in self.samplers)
+        o = cfg.optim
+        self.opt = AdamW(o.lr, o.weight_decay, o.grad_clip, o.warmup_steps,
+                         self._steps_per_epoch * o.epochs, per_seed=True)
+
+    # ---- state -----------------------------------------------------------
+
+    def _fresh_params(self) -> Dict[str, np.ndarray]:
+        """A seeded stacked init as a Flax tree: member s from
+        ``torch.Generator().manual_seed(cfg.seed + s)``."""
+        kind, kw = model_kwargs(self.cfg)
+        fresh = build_model(kind, n_features=self.splits.panel.n_features,
+                            n_seeds=self.n_seeds, **kw)
+        seeded_init(fresh, [torch.Generator().manual_seed(self.cfg.seed + s)
+                            for s in range(self.n_seeds)])
+        return {k: p.detach().numpy() for k, p in flax_param_map(fresh).items()}
+
+    def init_state(self, params: Optional[Mapping[str, Any]] = None
+                   ) -> TrainState:
+        """Fresh stacked params (the seeded init, or a seed-stacked Flax
+        tree such as the JAX ensemble's), fresh optimizer state, every
+        member at step 0 (``step`` is ``[S]`` int64)."""
+        load_flax_params(self.model, self._fresh_params() if params is None
+                         else params)
+        live = flax_param_map(self.model)
+        return TrainState(live, self.opt.init(
+            {k: p.detach() for k, p in live.items()}),
+            torch.zeros(self.n_seeds, dtype=torch.int64))
+
+    @staticmethod
+    def state_dict(state: TrainState) -> Dict[str, Any]:
+        """A host copy of the stacked state for a checkpoint."""
+        cpu = (lambda t: t.detach().to("cpu", copy=True))
+        o = state.opt_state
+        return {"params": {k: cpu(p) for k, p in state.params.items()},
+                "opt_state": {"count": o.count,
+                              "mu": {k: cpu(v) for k, v in o.mu.items()},
+                              "nu": {k: cpu(v) for k, v in o.nu.items()}},
+                "step": cpu(state.step)}
+
+    def load_state(self, saved: Mapping[str, Any]) -> TrainState:
+        """Copy a checkpointed stacked state into the model and the
+        device."""
+        params = flax_param_map(self.model)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(saved["params"][k])
+        o = saved["opt_state"]
+        to = (lambda d: {k: v.to(self.device) for k, v in d.items()})
+        return TrainState(params, AdamWState(int(o["count"]), to(o["mu"]),
+                                             to(o["nu"])),
+                          saved["step"].clone())
+
+    # ---- the forward -----------------------------------------------------
+
+    def _gather(self, fi: torch.Tensor, ti: torch.Tensor,
+                impl: Optional[str] = None):
+        """Windows of an index batch: ``[M, Bf]`` shared by every seed, or
+        ``[s, D, Bf]`` per seed, whose seeds fold into one call."""
+        gather = (gather_windows if (impl or self.gather_impl) == "kernel"
+                  else gather_windows_packed)
+        if fi.dim() == 3:
+            return fold_seeds(gather, self.dev["xm"], fi, ti, self.window,
+                              self.fp)
+        return gather(self.dev["xm"], fi, ti, self.window, fp=self.fp)
+
+    def _apply(self, params: Mapping[str, torch.Tensor], x: torch.Tensor,
+               m: torch.Tensor):
+        """The stacked model on ``params`` (all seeds or a block):
+        ``x [s, D, Bf, W, F]`` and ``m [s, D, Bf, W]`` (or without the
+        seed axis: shared) → ``[s, D, Bf]`` outputs."""
+        seeded = x.dim() == 5
+        db = x.shape[-4:-2]  # [D, Bf]
+        flat = (x.shape[0], -1) if seeded else (-1,)
+        out = functional_call(
+            self.model, {self._names[k]: p for k, p in params.items()},
+            (x.reshape(flat + x.shape[-2:]), m.reshape(flat + m.shape[-1:])))
+        shape = (next(iter(params.values())).shape[0],) + db
+        if isinstance(out, tuple):
+            return tuple(o.reshape(shape) for o in out)
+        return out.reshape(shape)
+
+    def _seed_losses(self, params: Mapping[str, torch.Tensor],
+                     fi: torch.Tensor, ti: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+        """Per-seed losses ``[s]`` of an ``[s, D, Bf]`` index batch: one
+        gather over all its seeds, the stacked model, and the loss vmapped
+        over the seed axis (each seed's its own loss, as in JAX)."""
+        x, m = self._gather(fi, ti)
+        y = gather_targets(self.dev["targets"], fi, ti)
+        return vmap(self.loss_fn)(self._apply(params, x, m), y, w)
+
+    # ---- the step --------------------------------------------------------
+
+    def step(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
+             w: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One lock-step update of every member on an ``[S, D, Bf]`` index
+        batch on the device. Returns the new state and ``{"loss",
+        "grad_norm"}``, each ``[S]`` on the device (no host sync)."""
+        self.model.train()
+        keys = list(state.params)
+        S = self.n_seeds
+        block = self.seed_block if 0 < self.seed_block < S else S
+        grads = [torch.empty_like(state.params[k]) for k in keys]
+        losses = []
+        for s0 in range(0, S, block):
+            sl = slice(s0, s0 + block)
+            sub = {k: state.params[k][sl].detach().requires_grad_(True)
+                   for k in keys}
+            loss = self._seed_losses(sub, fi[sl], ti[sl], w[sl])
+            for g, gb in zip(grads, torch.autograd.grad(
+                    loss.sum(), [sub[k] for k in keys])):
+                g[sl] = gb
+            losses.append(loss.detach())
+        losses = torch.cat(losses)
+        gnorm = self.opt.step(state.params, dict(zip(keys, grads)),
+                              state.opt_state)
+        return (TrainState(state.params, state.opt_state, state.step + 1),
+                {"loss": losses.detach(), "grad_norm": gnorm})
+
+    # ---- evaluation ------------------------------------------------------
+
+    def _seed_chunk(self, rows: int) -> int:
+        """Seeds per chunk of the sweep: one chunk's ``[seeds, rows, W,
+        H]`` states within :data:`EVAL_STATE_BYTES`."""
+        itemsize = torch.finfo(self.model.dtype or torch.float32).bits // 8
+        per_seed = rows * self.window * self.model.hidden * itemsize
+        return max(1, min(self.n_seeds, EVAL_STATE_BYTES // per_seed))
+
+    def _forward_chunks(self, params: Mapping[str, torch.Tensor],
+                        fi: torch.Tensor, ti: torch.Tensor,
+                        impl: Optional[str] = None
+                        ) -> Iterator[Tuple[slice, slice, Any]]:
+        """The stacked forward over an ``[M, Bf]`` index batch that every
+        seed shares, chunked over months by ``dates_per_batch`` (the last
+        chunk padded by repeating months, as the single-model sweep does)
+        and over seeds by :meth:`_seed_chunk`. The windows are gathered
+        once per month chunk. Yields ``(months of the padded batch, seeds,
+        output [seeds, C, Bf])``."""
+        M = fi.shape[0]
+        C = min(self.cfg.data.dates_per_batch, M)
+        pad = (-M) % C
+        if pad:
+            fi = torch.cat([fi, fi[:pad]], dim=0)
+            ti = torch.cat([ti, ti[:pad]], dim=0)
+        sc = self._seed_chunk(C * fi.shape[1])
+        for k in range(0, fi.shape[0], C):
+            x, m = self._gather(fi[k:k + C], ti[k:k + C], impl)
+            for s0 in range(0, self.n_seeds, sc):
+                seeds = slice(s0, min(s0 + sc, self.n_seeds))
+                sub = {key: p[seeds] for key, p in params.items()}
+                yield slice(k, k + C), seeds, self._apply(sub, x, m)
+
+    @torch.inference_mode()
+    def _eval_ic(self, params: Mapping[str, torch.Tensor], fi: torch.Tensor,
+                 ti: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Per-seed, per-month Spearman IC ``[S, M]`` over a stacked ``[M,
+        bf]`` val batch, on the device (the JAX vmapped ``_forward_impl``)."""
+        self.model.eval()
+        M = fi.shape[0]
+        pad = (-M) % min(self.cfg.data.dates_per_batch, M)
+        fi_p = torch.cat([fi, fi[:pad]]) if pad else fi
+        ti_p = torch.cat([ti, ti[:pad]]) if pad else ti
+        w_p = torch.cat([w, torch.zeros_like(w[:pad])]) if pad else w
+        ic = torch.empty((self.n_seeds, fi_p.shape[0]), dtype=torch.float32,
+                         device=fi.device)
+        for months, seeds, out in self._forward_chunks(
+                params, fi, ti, self.eval_gather_impl):
+            pred = _point_forecast(out)
+            f, t, ww = fi_p[months], ti_p[months], w_p[months]
+            y = gather_targets(self.dev["targets"], f, t)
+            ic[seeds, months] = spearman_ic(pred, y.expand_as(pred),
+                                            ww.expand_as(pred)).float()
+        return ic[:, :M]
+
+    def _batch(self, b):
+        return (torch.as_tensor(b.firm_idx).to(self.device),
+                torch.as_tensor(b.time_idx).to(self.device),
+                torch.as_tensor(b.weight).to(self.device))
+
+    def evaluate(self, params: Optional[Mapping[str, torch.Tensor]] = None
+                 ) -> Dict[str, Any]:
+        """Per-member validation IC (each month's IC weighted by its pool
+        size) and their mean and standard deviation, from ``params``
+        (default the trained state's)."""
+        params = self.state.params if params is None else params
+        b = self.val_sampler.stacked_cross_sections()
+        ics = self._eval_ic(params, *self._batch(b)).cpu().numpy()
+        counts = b.weight.sum(axis=1)
+        per_seed = (ics * counts).sum(axis=1) / counts.sum()
+        return {"ic_per_seed": per_seed, "ic_mean": float(per_seed.mean()),
+                "ic_std": float(per_seed.std())}
+
+    # ---- fit -------------------------------------------------------------
+
+    def _build_epoch(self, epoch: int):
+        """One epoch for all seeds: ``[K, S, D, Bf]`` index stacks on the
+        device (K the shortest member's steps) and its firm-month count."""
+        per_seed = [s.stacked_epoch(epoch) for s in self.samplers]
+        k = min(b.firm_idx.shape[0] for b in per_seed)
+        fi, ti, w = (np.stack([getattr(b, f)[:k] for b in per_seed], axis=1)
+                     for f in ("firm_idx", "time_idx", "weight"))
+        fm = float(w.sum()) * self.window
+        return (tuple(torch.as_tensor(a).to(self.device)
+                      for a in (fi, ti, w)), fm)
+
+    def fit(self, resume: bool = False,
+            init_params: Optional[Mapping[str, Any]] = None
+            ) -> Dict[str, Any]:
+        """Lock-step ensemble training with early stopping on the
+        ensemble-mean validation IC, in the lock-step form of the JAX
+        ``_fit_impl``. ``resume=True`` continues from ``ckpt/latest``;
+        ``init_params`` (a seed-stacked Flax tree) replaces the seeded
+        init, the optimizer starting fresh. Restores the best state at the
+        end. Returns the summary and ``step_losses`` (``[K]`` lists of the
+        per-seed losses, in order)."""
+        cfg = self.cfg
+        if cfg.optim.epochs < 1:
+            raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")
+        state = self.init_state(init_params)
+        harness = FitHarness(self.run_dir, cfg.optim.epochs,
+                             cfg.optim.early_stop_patience,
+                             self._steps_per_epoch)
+        if resume:
+            restored = harness.resume()
+            if restored is not None:
+                state = self.load_state(restored)
+        logger = MetricsLogger(self.run_dir, echo=self.echo)
+        timer = StepTimer(self.device)
+        history, step_losses = [], []
+        vb = self.val_sampler.stacked_cross_sections()
+        counts = vb.weight.sum(axis=1)
+        vargs = self._batch(vb)
+        try:
+            timer.start()
+            epoch = harness.next_epoch()
+            while epoch is not None:
+                (fi, ti, w), fm = self._build_epoch(epoch)
+                losses = []
+                for k in range(fi.shape[0]):
+                    state, ms = self.step(state, fi[k], ti[k], w[k])
+                    losses.append(ms["loss"])
+                ic = self._eval_ic(state.params, *vargs)
+                # One device→host fetch per epoch.
+                loss_h, ic_h = (t.cpu().numpy()
+                                for t in (torch.stack(losses), ic))
+                timer.stop(firm_months=fm)
+                timer.start()
+                per_seed = (ic_h * counts).sum(axis=1) / counts.sum()
+                val_ic = float(per_seed.mean())
+                step = int(state.step[0])
+                rec = logger.log(
+                    step, epoch=epoch, train_loss=float(loss_h.mean()),
+                    val_ic=val_ic, val_ic_std=float(per_seed.std()),
+                    firm_months_per_sec=timer.throughput())
+                history.append(rec)
+                step_losses.extend(v.tolist() for v in loss_h)
+                snap = self.state_dict(state) if self.run_dir else None
+                if harness.end_epoch(epoch, step, snap, val_ic):
+                    break
+                epoch = harness.next_epoch()
+        finally:
+            logger.close()
+        best = harness.finalize()
+        if best is not None:
+            state = self.load_state(best)
+        self.state = state
+        return {
+            "best_val_ic": harness.best_ic,
+            "best_epoch": harness.best_epoch,
+            "epochs_run": harness.last_epoch + 1,
+            "n_seeds": self.n_seeds,
+            "steps": (harness.last_epoch + 1) * harness.steps_per_epoch,
+            "firm_months_per_sec": timer.throughput(),
+            "history": history,
+            "step_losses": step_losses,
+        }
+
+    # ---- inference -------------------------------------------------------
+
+    @torch.inference_mode()
+    def predict(self, split: str = "test") -> Tuple[np.ndarray, np.ndarray]:
+        """Stacked forecasts ``[S, N, T]`` and their shared validity ``[N,
+        T]`` over the split's anchor range, on the host: the max-shape
+        sweep, chunked as the validation sweep is."""
+        d = self.cfg.data
+        panel = self.splits.panel
+        sampler = DateBatchSampler(
+            panel, d.window, 1, d.firms_per_date, seed=0,
+            min_valid_months=d.min_valid_months, min_cross_section=1,
+            date_range=self.splits.range_of(split))
+        out = np.zeros((self.n_seeds, panel.n_firms, panel.n_months),
+                       np.float32)
+        valid = np.zeros((panel.n_firms, panel.n_months), bool)
+        b = sampler.stacked_cross_sections()
+        if b.firm_idx.shape[0] == 0:
+            return out, valid
+        self.model.eval()
+        fi, ti, _ = self._batch(b)
+        M = fi.shape[0]
+        pred = torch.empty((self.n_seeds, M + (-M) % min(d.dates_per_batch, M),
+                            fi.shape[1]), dtype=torch.float32,
+                           device=self.device)
+        for months, seeds, o in self._forward_chunks(self.state.params, fi,
+                                                     ti):
+            pred[seeds, months] = _point_forecast(o).float()
+        pred = pred[:, :M].cpu().numpy()
+        real = b.weight > 0
+        rows = b.firm_idx[real]
+        cols = np.broadcast_to(b.time_idx[:, None], b.firm_idx.shape)[real]
+        out[:, rows, cols] = pred[:, real]
+        valid[rows, cols] = True
+        return out, valid
+
+
+def _splits_of(cfg: RunConfig, panel: Optional[Panel]):
+    d = cfg.data
+    if panel is None:
+        panel = resolve_panel(d)
+    train_end, val_end = default_split_dates(panel, d)
+    return PanelSplits.by_date(panel, train_end, val_end,
+                               train_start=d.train_start)
+
+
+def run_ensemble_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
+                            echo: bool = False, resume: bool = False,
+                            device: Optional[Union[str, torch.device]] = None
+                            ) -> Tuple[Dict[str, Any], EnsembleTrainer,
+                                       PanelSplits]:
+    """Config → panel → splits → ensemble training; writes
+    ``config.json``, ``ensemble.flag`` and ``summary.json`` into
+    ``<out_dir>/<name>/ensemble``. Returns (summary, trainer, splits)."""
+    splits = _splits_of(cfg, panel)
+    run_dir = os.path.join(cfg.out_dir, cfg.name, "ensemble")
+    trainer = EnsembleTrainer(cfg, splits, run_dir=run_dir, echo=echo,
+                              device=device)
+    summary = trainer.fit(resume=resume)
+    summary["run_dir"] = run_dir
+    summary["config"] = dataclasses.asdict(cfg)
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "config.json"), "w") as fh:
+        fh.write(cfg.to_json())
+    # The marker of a stacked-seed checkpoint (the JAX package's
+    # train/forecast.py mark_ensemble_run_dir).
+    with open(os.path.join(run_dir, "ensemble.flag"), "w") as fh:
+        fh.write("stacked-seed-axis checkpoint\n")
+    with open(os.path.join(run_dir, "summary.json"), "w") as fh:
+        json.dump({k: v for k, v in summary.items()
+                   if k not in ("history", "step_losses")}, fh, indent=2,
+                  default=str)
+    return summary, trainer, splits
+
+
+def load_ensemble(run_dir: str, panel: Optional[Panel] = None,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> Tuple[EnsembleTrainer, PanelSplits]:
+    """An :class:`EnsembleTrainer` rebuilt from a run dir, its best stacked
+    checkpoint restored."""
+    with open(os.path.join(run_dir, "config.json")) as fh:
+        cfg = RunConfig.from_json(fh.read())
+    splits = _splits_of(cfg, panel)
+    trainer = EnsembleTrainer(cfg, splits, run_dir=run_dir, device=device)
+    trainer.init_state()
+    restored = CheckpointManager(os.path.join(run_dir, "ckpt",
+                                              "best")).restore()
+    trainer.state = trainer.load_state(restored)
+    return trainer, splits

@@ -15,6 +15,11 @@ before the count moves. All arithmetic is f32, in optax's order.
 
 The state is an explicit structure of tensors (:class:`AdamWState`), so a
 checkpoint carries it.
+
+``per_seed=True`` is the seed ensemble's optimizer, the JAX ``vmap`` of
+the chain over stacked members: the leading axis of every parameter is
+the seed, and the global norm and the clip factor are taken per seed.
+The members step in lock-step, so they share the update count.
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ class AdamW:
     ``warmup = min(warmup_steps, total // 2)``."""
 
     def __init__(self, lr: float, weight_decay: float, grad_clip: float,
-                 warmup_steps: int, total_steps: int):
+                 warmup_steps: int, total_steps: int, per_seed: bool = False):
+        self.per_seed = per_seed
         self.lr = lr
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
@@ -86,20 +92,30 @@ class AdamW:
              grads: Dict[str, torch.Tensor], state: AdamWState
              ) -> torch.Tensor:
         """Update ``params`` and ``state`` in place; return the global
-        gradient norm before clipping (the trainer's logged grad_norm).
-        Every parameter goes through one ``torch._foreach_*`` call per
-        operation; nothing waits for the device."""
+        gradient norm before clipping (the trainer's logged grad_norm;
+        ``[S]``, one per seed, with ``per_seed``). Every parameter goes
+        through one ``torch._foreach_*`` call per operation; nothing waits
+        for the device."""
         keys = list(params)
         ps = [params[k] for k in keys]
         gs = [grads[k].float() for k in keys]
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        if self.per_seed:
+            g_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g, dim=tuple(range(1, g.dim())))
+                 for g in gs]), dim=0)
+        else:
+            g_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(gs)))
         # Clip only when ||g|| >= max (a device-side select): the factor is
         # exactly 1 below the threshold.
         coef = torch.where(g_norm < self.grad_clip, torch.ones_like(g_norm),
                            self.grad_clip / g_norm)
-        gs = torch._foreach_mul(gs, coef)
+        if self.per_seed:
+            gs = [g * coef.view(-1, *(1,) * (g.dim() - 1)) for g in gs]
+        else:
+            gs = torch._foreach_mul(gs, coef)
         torch._foreach_mul_(mu, B1)
         torch._foreach_add_(mu, gs, alpha=1 - B1)
         torch._foreach_mul_(nu, B2)

@@ -10,12 +10,16 @@ from Flax paths to torch parameters:
 * ``{cell}_{n}_xproj/{kernel,bias}`` (JAX ``_DenseParams``)
 * ``{cell}_{n}/h_proj/kernel`` (JAX ``_GateKernel``)
 * ``head/hidden_{i}/{kernel,bias}``, ``head/out/{kernel,bias}``
+
+A seed-stacked model (``RNNModel(..., n_seeds=S)``) takes the tree of the
+JAX ensemble's ``jax.vmap(init)``: the same paths, every leaf with a
+leading seed axis of S.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
@@ -79,13 +83,29 @@ def load_flax_params(model: RNNModel, params: Mapping[str, Any]) -> None:
             p.copy_(torch.tensor(np.asarray(src), dtype=torch.float32))
 
 
-def init_params(model: RNNModel, generator: torch.Generator) -> None:
+def init_params(model: RNNModel,
+                generator: Union[torch.Generator, Sequence[torch.Generator]]
+                ) -> None:
     """Fresh params with Flax ``nn.Dense``'s initialisers: kernels
     ``lecun_normal`` (a normal truncated at two standard deviations,
     scaled to variance 1/fan_in), biases zero. Deterministic in the
-    generator's seed; the numbers differ from ``jax.random``'s."""
+    generator's seed; the numbers differ from ``jax.random``'s.
+
+    A seed-stacked model takes one generator per seed: member s is drawn
+    from ``generator[s]`` alone, exactly as a one-seed model would be, so
+    members differ."""
+    params = flax_param_map(model)
+    if isinstance(generator, torch.Generator):
+        _init_member(params, generator)
+        return
+    for s, gen in enumerate(generator):
+        _init_member({k: p[s] for k, p in params.items()}, gen)
+
+
+def _init_member(params: Mapping[str, torch.Tensor],
+                 generator: torch.Generator) -> None:
     with torch.no_grad():
-        for key, p in flax_param_map(model).items():
+        for key, p in params.items():
             if key.endswith("kernel"):
                 nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)

@@ -130,6 +130,7 @@ def build(kernel: str, names):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    cll = ctypes.c_longlong
     for name, p in procs.items():
         out, _ = p.communicate()
         if p.returncode != 0:
@@ -140,11 +141,12 @@ def build(kernel: str, names):
         lib = ctypes.CDLL(os.path.join(BUILD, f"{kernel}-{name}.so"))
         if kernel == "fwd":
             lib.lfm_rnn_fused_fwd_mma.argtypes = (
-                [ci] + [vp] * 7 + [ci] * 4 + [cf, vp])
+                [ci] + [vp] * 7 + [ci] * 5 + [cll] * 5 + [cf, vp])
             lib.lfm_rnn_fused_fwd_mma.restype = ci
         else:
             lib.lfm_rnn_fused_bwd_mma.argtypes = (
-                [ci] + [vp] * 13 + [ci, vp] + [ci] * 3 + [cf, vp])
+                [ci] + [vp] * 13 + [ci, vp] + [ci] * 4 + [cll] * 5
+                + [cf, vp])
             lib.lfm_rnn_fused_bwd_mma.restype = ci
             lib.lfm_rnn_fused_bwd_mma_smem.argtypes = [ci, ci]
             lib.lfm_rnn_fused_bwd_mma_smem.restype = ctypes.c_longlong
@@ -193,8 +195,9 @@ def run_fwd(torch, R, libs, names, card, gen, out) -> None:
                         0 if cell == "lstm" else 1, hin.data_ptr(),
                         wxp.data_ptr(), b.data_ptr(), whp.data_ptr(),
                         keep.data_ptr(), h.data_ptr(),
-                        None if c is None else c.data_ptr(), B, T, H, rows,
-                        1.0, torch.cuda.current_stream().cuda_stream)
+                        None if c is None else c.data_ptr(), 1, B, T, H,
+                        rows, 0, 0, 0, 0, 0, 1.0,
+                        torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise SystemExit(f"{name}: CUDA error {err}")
 
@@ -260,8 +263,8 @@ def run_bwd(torch, R, libs, names, card, gen, out) -> None:
                     keep.data_ptr(), h.data_ptr(),
                     None if c is None else c.data_ptr(), dh.data_ptr(),
                     dx.data_ptr(), dgx.data_ptr(), dhn.data_ptr(),
-                    partial.data_ptr(), S, dw.data_ptr(), B, T, H, 1.0,
-                    torch.cuda.current_stream().cuda_stream)
+                    partial.data_ptr(), S, dw.data_ptr(), 1, B, T, H, 0, 0,
+                    0, 0, 0, 1.0, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise SystemExit(f"{name}: CUDA error {err}")
 

@@ -7,10 +7,14 @@ as ``tests/test_pallas_gather.py`` runs it) and the port's
 ``ops/gather.py gather_windows`` (its plain version on the CPU). A gather
 only moves values, so every comparison is exact, in f32 and in bf16.
 
+Seed-stacked index batches ``[S, D, Bf]`` fold into one call, as the JAX
+``_call_vmap`` does: held exactly to ``jax.vmap`` of the Pallas gather.
+
 The CUDA kernel itself is held to its plain version on the card in
 ``tests/test_torch_kernels.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,3 +108,22 @@ def test_gather_checks_shapes():
         gather_windows(xm, fi, torch.zeros((3,), dtype=torch.int32), 4)
     with pytest.raises(ValueError, match="fp="):
         gather_windows(xm, fi, torch.zeros((2,), dtype=torch.int32), 4, fp=9)
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_seed_stacked_fold_matches_jax_vmap(dtype_name):
+    """Per-seed index batches [3, D, Bf] over one shared panel against
+    jax.vmap of the Pallas gather (its seed fold), exact."""
+    T, W = 70, 12
+    xm = _panel(T, 3, seed=8)
+    per = [_indices(T, W, seed=20 + s) for s in range(3)]
+    fi = np.stack([p[0] for p in per])
+    ti = np.stack([p[1] for p in per])
+    jxm, txm = _to(dtype_name, xm)
+    x, m = gather_windows(txm, torch.from_numpy(fi), torch.from_numpy(ti),
+                          W, fp=4)
+    assert tuple(x.shape) == (3,) + fi.shape[1:] + (W, 3)
+    xr, mr = jax.vmap(lambda f, t: gather_windows_pallas(jxm, f, t, W, fp=4))(
+        jnp.asarray(fi), jnp.asarray(ti))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(mr))
+    np.testing.assert_array_equal(_np(x), _np(xr))

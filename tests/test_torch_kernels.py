@@ -242,6 +242,61 @@ def test_gather_kernel_matches_plain(cuda, dtype, N, T, fp, W, D, Bf,
 
 
 @pytest.mark.cuda
+def test_seed_stacked_gather_is_one_launch(cuda):
+    """Index batches [S, D, Bf] over the shared panel fold into one launch
+    over S * D date rows (the JAX ``_call_vmap``); each seed's windows are
+    exactly its own one-seed gather's."""
+    S, D, Bf, W = 3, 4, 13, 9
+    xm, _, _ = _gather_inputs(7, 23, 4, W, 1, 1, 5, torch.bfloat16, cuda)
+    rng = np.random.default_rng(6)
+    fi = torch.from_numpy(rng.integers(0, 7, (S, D, Bf)).astype(np.int32))
+    ti = torch.from_numpy(rng.integers(0, 23, (S, D)).astype(np.int32))
+    fi, ti = fi.to(cuda), ti.to(cuda)
+    _build.reset_launch_counts()
+    x, m = gather_windows(xm, fi, ti, W)
+    assert _build.launch_counts()["window_gather"] == 1
+    assert x.shape == (S, D, Bf, W, 3) and m.shape == (S, D, Bf, W)
+    for s in range(S):
+        xr, mr = gather_windows_packed(xm, fi[s], ti[s], W)
+        assert torch.equal(x[s], xr) and torch.equal(m[s], mr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cuda_core_route_launches_once_per_seed(cuda, cell):
+    """float32 (the CUDA-core kernels, no seed grid) with seed-stacked
+    operands: one counted launch per seed, forward and backward, each
+    seed's result that seed's one-seed call's; the hoisted form too."""
+    S, B, T, H = 3, 21, 5, 16
+    per = [_rnn_inputs(cell, B, T, H, s, torch.float32, cuda)
+           for s in range(S)]
+    hin, wx, b, wh = (torch.stack([p[0][i] for p in per]) for i in range(4))
+    m = torch.stack([p[1] for p in per])
+    leaves = [t.clone().requires_grad_(True) for t in (hin, wx, b, wh)]
+    _build.reset_launch_counts()
+    out = rnn_scan_fused(cell, *leaves, m)
+    (out ** 2).sum().backward()
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_{cell}"] == S
+    assert counts[f"rnn_fused_bwd_{cell}"] == S
+    for s in range(S):
+        one = [t[s].clone().requires_grad_(True) for t in (hin, wx, b, wh)]
+        o = rnn_scan_fused(cell, *one, m[s])
+        (o ** 2).sum().backward()
+        assert torch.equal(out[s], o)
+        for g, r in zip(leaves, one):
+            assert torch.equal(g.grad[s], r.grad)
+    xw = hin @ wx[:, None] + b[:, None, None]
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        h = rnn_scan(cell, xw, wh, m)
+    assert _build.launch_counts()[f"rnn_fwd_{cell}"] == S
+    for s in range(S):
+        with torch.no_grad():
+            assert torch.equal(h[s], rnn_scan(cell, xw[s], wh[s], m[s]))
+
+
+@pytest.mark.cuda
 def test_kernels_count_each_launch(cuda):
     _build.reset_launch_counts()
     (hin, wx, b, wh), m = _rnn_inputs("lstm", 4, 3, 8, 0, torch.bfloat16,

@@ -94,6 +94,27 @@ def test_rows_per_block_follow_the_batch(B, sms, rows):
     assert R._mma_rows(B, sms) == rows
 
 
+@pytest.mark.parametrize("B,sms,S,rows", [
+    (2048, 132, 1, 16), (2048, 132, 2, 32), (2048, 132, 3, 64),
+    (2048, 132, 64, 64), (26600, 132, 10, 64), (37, 132, 64, 32),
+])
+def test_rows_per_block_follow_the_seed_count(B, sms, S, rows):
+    """Seed-stacked launches pick rows from the block count of all seeds:
+    the c5 train step (64 seeds of B 2048) takes 64 rows, as a wide serving
+    dispatch does."""
+    assert R._mma_rows(B, sms, S) == rows
+
+
+def test_stacked_packing_is_per_seed():
+    """``[S, H, G*H]`` packs seed by seed, never across the flat S*H*G*H."""
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 32, 128)).astype(np.float32)).to(torch.bfloat16)
+    packed = R.pack_fragments(w)
+    assert packed.shape == (3, 32 * 128)
+    for s in range(3):
+        assert torch.equal(packed[s], R.pack_fragments(w[s]))
+
+
 def _inputs(cell, B, T, H, seed, device):
     rng = np.random.default_rng(seed)
     G = GATES[cell] * H
@@ -167,3 +188,70 @@ def test_float32_and_odd_widths_keep_the_cuda_core_kernel(cuda):
     counts = _build.launch_counts()
     assert counts["rnn_fused_fwd_lstm"] == 2
     assert counts["rnn_fused_fwd_mma_lstm"] == 0
+
+
+def _stacked(cell, S, B, T, H, device):
+    per = [_inputs(cell, B, T, H, 100 + s, device) for s in range(S)]
+    hin, wx, b, wh = (torch.stack([p[0][i] for p in per]) for i in range(4))
+    return hin, wx, b, wh, torch.stack([p[1] for p in per])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_seed_batched_launch_bitwise_equals_single_seed_launches(cuda, cell,
+                                                                 H):
+    """S seeds in one launch (counted once) against S one-seed launches
+    with the same rows per block: h and c bitwise equal; an operand of
+    seed extent 1 (m, then the weights) equals its broadcast copy
+    bitwise; and the stacked result against the plain version."""
+    S, B, T = 3, 300, 7
+    hin, wx, b, wh, m = _stacked(cell, S, B, T, H, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows = R._mma_rows(B, sms, S)
+    _build.reset_launch_counts()
+    h, c = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True)
+    assert _build.launch_counts()[f"rnn_fused_fwd_mma_{cell}"] == 1
+    assert h.shape == (S, B, T, H)
+    for s in range(S):
+        h1, c1 = R._launch_fwd_mma(cell, hin[s], wx[s], b[s], wh[s], m[s],
+                                   1.0, True, rows)
+        assert torch.equal(h[s], h1)
+        if cell == "lstm":
+            assert torch.equal(c[s], c1)
+    want = R.rnn_scan_fused_reference(cell, hin, wx, b, wh, m)
+    np.testing.assert_allclose(h.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=0.05,
+                               rtol=0.05)
+    shared = [(hin, wx, b, wh, m[:1]),
+              (hin, wx[:1], b[:1], wh[:1], m)]
+    for ops in shared:
+        full = [t.expand(S, *t.shape[1:]).contiguous() for t in ops]
+        got, _ = R._fused_states(cell, *ops, 1.0, False)
+        ref, _ = R._fused_states(cell, *full, 1.0, False)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_seed_batched_forward_at_the_c5_train_step(cuda):
+    """The c5 train step's shape (64 seeds of B 2048, T 60, H 128, LSTM):
+    h and c of the first, a middle and the last seed bitwise those of
+    one-seed launches; every per-seed offset past 2^31 elements of c."""
+    S, B, T, H = 64, 2048, 60, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    hin = torch.randn(S, B, T, H, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    wx, wh = ((torch.randn(S, H, 4 * H, generator=gen, device=cuda) /
+               H ** 0.5).to(torch.bfloat16) for _ in range(2))
+    b = (0.1 * torch.randn(S, 4 * H, generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    m = torch.rand(S, B, T, generator=gen, device=cuda) < 0.8
+    h, c = R._fused_states("lstm", hin, wx, b, wh, m, 1.0, True)
+    rows = R._mma_rows(
+        B, torch.cuda.get_device_properties(cuda).multi_processor_count, S)
+    assert rows == 64
+    for s in (0, S // 2, S - 1):
+        h1, c1 = R._launch_fwd_mma("lstm", hin[s], wx[s], b[s], wh[s], m[s],
+                                   1.0, True, rows)
+        assert torch.equal(h[s], h1) and torch.equal(c[s], c1)
+    assert torch.isfinite(h).all()

@@ -401,3 +401,75 @@ def test_float32_and_odd_widths_keep_the_cuda_core_backward(cuda):
     for cell in ("lstm", "gru"):
         assert counts[f"rnn_fused_bwd_{cell}"] == 2
         assert counts[f"rnn_fused_bwd_mma_{cell}"] == 0
+
+
+def _stacked_bwd(cell, S, B, T, H, device):
+    per = [_bwd_inputs(cell, B, T, H, 200 + s, device) for s in range(S)]
+    return [None if per[0][i] is None else torch.stack([p[i] for p in per])
+            for i in range(len(per[0]))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_seed_batched_backward_bitwise_equals_single_seed_launches(cuda,
+                                                                   cell):
+    """S seeds in one call (counted once) against S one-seed calls: dhin,
+    dW_x, db and dW_h bitwise equal, the slices per seed summed in the same
+    order; m of seed extent 1 equals its broadcast copy bitwise; and the
+    stacked gradients against the plain version."""
+    S = 3
+    args = _stacked_bwd(cell, S, 2048 + 5, 9, 128, cuda)
+    _build.reset_launch_counts()
+    got = R.rnn_scan_fused_bwd(cell, *args)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_bwd_mma_{cell}"] == 1
+    assert counts[f"rnn_fused_bwd_{cell}"] == 0
+    assert got[0].shape == args[0].shape and got[1].shape == args[1].shape
+    for s in range(S):
+        one = R.rnn_scan_fused_bwd(cell, *(None if t is None else t[s]
+                                           for t in args))
+        for g, o in zip(got, one):
+            assert torch.equal(g[s], o)
+    want = R.rnn_scan_fused_bwd_reference(cell, *args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for s in range(S):
+            _scaled_close(g[s], w[s], 0.05 if i == 0 else WGRAD_TOL)
+    shared = list(args)
+    shared[4] = args[4][:1]
+    full = list(args)
+    full[4] = args[4][:1].expand(S, *args[4].shape[1:]).contiguous()
+    for g, r in zip(R.rnn_scan_fused_bwd(cell, *shared),
+                    R.rnn_scan_fused_bwd(cell, *full)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_seed_batched_backward_at_the_c5_train_step(cuda):
+    """The c5 train step's shape (64 seeds of B 2048, T 60, H 128, LSTM):
+    d_gates over all seeds is 64 * 2048 * 60 * 512 = 4.0e9 f32 values, past
+    2^31, so the per-seed offsets must be 64-bit. The first, a middle and
+    the last seed bitwise those of one-seed calls."""
+    S, B, T, H = 64, 2048, 60, 128
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def bf(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+
+    hin, h_all, c_all = bf(S, B, T, H), bf(S, B, T, H), bf(S, B, T, H)
+    dh = bf(S, B, T, H, scale=0.1)
+    wx, wh = bf(S, H, 4 * H, scale=H ** -0.5), bf(S, H, 4 * H,
+                                                  scale=H ** -0.5)
+    b = bf(S, 4 * H, scale=0.1)
+    m = torch.rand(S, B, T, generator=gen, device=cuda) < 0.8
+    assert S * B * T * 4 * H > 2 ** 31
+    args = (hin, wx, b, wh, m, h_all, c_all, dh)
+    _build.reset_launch_counts()
+    got = R.rnn_scan_fused_bwd("lstm", *args)
+    assert _build.launch_counts()["rnn_fused_bwd_mma_lstm"] == 1
+    for s in (0, S // 2, S - 1):
+        one = R.rnn_scan_fused_bwd("lstm", *(t[s] for t in args))
+        for g, o in zip(got, one):
+            assert torch.equal(g[s], o)
+    for g in got:
+        assert torch.isfinite(g).all()

@@ -12,6 +12,12 @@ the reference's largest magnitude, f32 atol 1e-5; bf16 atol 0.05.
 
 The plain backward formulas are also held to torch autograd of the plain
 forward (f32), which shares no code with them.
+
+The seed-stacked op (``hin [S, B, T, H]`` with per-seed weights, the seed
+ensemble's form) is held to ``jax.vmap`` of the JAX op, forward and
+``jax.jit(jax.vmap(jax.grad(...)))`` as ``tests/test_pallas_rnn.py`` runs
+it (the Pallas ``custom_vmap`` rules in interpret mode), with ``m``
+per seed and shared by every seed.
 """
 
 import jax
@@ -186,3 +192,73 @@ def test_plain_formulas_match_autograd(cell, fused):
                                      torch.from_numpy(wh), mt, h, c, dh)
     for g, leaf in zip(got, leaves):
         _scaled_close(g.numpy(), leaf.grad.numpy(), "f32")
+
+
+def _stacked_inputs(cell, S, B, T, H, seed):
+    per = [_inputs(cell, B, T, H, seed + s) for s in range(S)]
+    return [np.stack([p[i] for p in per]) for i in range(5)]
+
+
+@pytest.mark.parametrize("shared_m", [False, True])
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_stacked_fused_op_matches_jax_vmap(cell, dtype_name, shared_m):
+    """3 seeds, B 21 over three batch blocks: the forward, and dhin, dW_x,
+    db, dW_h per seed against jax.vmap(jax.grad) through the Pallas fused
+    kernels; ``shared_m`` passes m with seed extent 1 here and unbatched
+    (``in_axes=None``) to jax.vmap. Scaled per seed: f32 atol 1e-5, bf16
+    0.05."""
+    S = 3
+    hin, wx, b, wh, m = _stacked_inputs(cell, S, 21, 5, 8, seed=90)
+    if shared_m:
+        m = m[:1]
+    td = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    jd = jnp.bfloat16 if dtype_name == "bf16" else jnp.float32
+    mt = torch.from_numpy(m)
+    leaves = [torch.from_numpy(a).to(td).requires_grad_(True)
+              for a in (hin, wx, b, wh)]
+    out = rnn_scan_fused(cell, *leaves, mt)
+    (out.float() ** 2).sum().backward()
+    got = [t.grad.float().numpy() for t in leaves]
+    assert out.shape == (S, 21, 5, 8) and out.dtype == td
+
+    def loss(hin, wx, b, wh, m):
+        return (jax_scan_fused(cell, hin, wx, b, wh, m.astype(hin.dtype),
+                               block_b=8).astype(jnp.float32) ** 2).sum()
+
+    ja = [jnp.asarray(a).astype(jd) for a in (hin, wx, b, wh)]
+    jm = jnp.asarray(m[0] if shared_m else m)
+    axes = (0, 0, 0, 0, None if shared_m else 0)
+    want_out = jax.vmap(
+        lambda *a: jax_scan_fused(cell, *a[:4], a[4].astype(a[0].dtype),
+                                  block_b=8), in_axes=axes)(*ja, jm)
+    want = jax.jit(jax.vmap(jax.grad(loss, argnums=(0, 1, 2, 3)),
+                            in_axes=axes))(*ja, jm)
+    np.testing.assert_allclose(
+        out.detach().float().numpy(),
+        np.asarray(want_out.astype(jnp.float32)),
+        atol=ATOL[dtype_name], rtol=0.0 if dtype_name == "f32" else 0.05)
+    for g, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        for s in range(S):
+            _scaled_close(g[s], w[s], dtype_name)
+
+
+def test_stacked_op_shares_an_operand_of_extent_one():
+    """W_x of seed extent 1 is shared: the output equals that of its
+    broadcast copy, and its gradient is the sum of the seeds' gradients."""
+    hin, wx, b, wh, m = _stacked_inputs("lstm", 3, 9, 5, 8, seed=5)
+    mt = torch.from_numpy(m)
+    shared = torch.from_numpy(wx[:1]).requires_grad_(True)
+    full = torch.from_numpy(np.repeat(wx[:1], 3, 0)).requires_grad_(True)
+    rest = [torch.from_numpy(a) for a in (hin, b, wh)]
+    outs = []
+    for w in (shared, full):
+        o = rnn_scan_fused("lstm", rest[0], w, rest[1], rest[2], mt)
+        (o ** 2).sum().backward()
+        outs.append(o.detach())
+    assert torch.equal(outs[0], outs[1])
+    assert shared.grad.shape == (1, 8, 32)
+    np.testing.assert_allclose(shared.grad[0].numpy(),
+                               full.grad.sum(0).numpy(), rtol=1e-6,
+                               atol=1e-6)

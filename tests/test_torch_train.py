@@ -9,7 +9,8 @@
   the per-epoch history within rtol 1e-4 in f32 (0.05 in bf16), the same
   best and early-stop epochs, the final params within atol 1e-4.
 * The CLI on the CPU: a run dir with ``metrics.jsonl``, ``ckpt/best``
-  and ``ckpt/latest``, and ``--resume`` continuing with the same history.
+  and ``ckpt/latest``, and ``--resume`` continuing with the same history,
+  for one model and for the seed ensemble (``--n-seeds``).
 """
 
 import dataclasses
@@ -265,10 +266,64 @@ def test_cli_writes_run_dir_and_resumes(tmp_path, capsys, monkeypatch):
             np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)
 
 
+def test_cli_trains_the_ensemble_and_resumes(tmp_path, capsys,
+                                             monkeypatch):
+    """``--n-seeds 3`` on a c5-derived config (hidden 8, window 12) with
+    ``--device cpu --scale 0.02 --epochs 2``: the ensemble's run dir
+    (``ensemble.flag``, config, summary, the stacked checkpoint lines),
+    and a run that dies after its first epoch, resumed, ends with the
+    history of an unbroken run."""
+    c5 = config.get_preset("c5")
+    cfg = dataclasses.replace(
+        c5, name="tiny_c5",
+        data=dataclasses.replace(c5.data, window=12, firms_per_date=32),
+        model=dataclasses.replace(c5.model, kwargs={"hidden": 8}),
+        optim=dataclasses.replace(c5.optim, warmup_steps=3))
+    path = tmp_path / "tiny_c5.json"
+    path.write_text(cfg.to_json())
+    base = ["--config", str(path), "--device", "cpu", "--scale", "0.02",
+            "--epochs", "2", "--n-seeds", "3"]
+    whole, cut = tmp_path / "whole", tmp_path / "cut"
+    assert train_main(base + ["--out", str(whole)]) == 0
+    end_epoch = FitHarness.end_epoch
+
+    def dies_after_epoch_0(self, epoch, *args):
+        stop = end_epoch(self, epoch, *args)
+        if epoch == 0:
+            raise _Crash
+        return stop
+
+    monkeypatch.setattr(FitHarness, "end_epoch", dies_after_epoch_0)
+    with pytest.raises(_Crash):
+        train_main(base + ["--out", str(cut)])
+    monkeypatch.undo()
+    capsys.readouterr()
+    assert train_main(base + ["--out", str(cut), "--resume"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["n_seeds"] == 3 and summary["epochs_run"] == 2
+    run = cut / "tiny_c5" / "ensemble"
+    for name in ("ensemble.flag", "config.json", "summary.json",
+                 "metrics.jsonl", "fit_progress.json"):
+        assert (run / name).is_file(), name
+    assert len(os.listdir(run / "ckpt" / "latest")) == 2
+
+    def history(d):
+        lines = (d / "tiny_c5" / "ensemble" / "metrics.jsonl").read_text()
+        return [{k: v for k, v in json.loads(x).items()
+                 if k not in ("ts", "firm_months_per_sec")}
+                for x in lines.splitlines()]
+
+    assert [r["epoch"] for r in history(cut)] == [0, 1]
+    for a, b in zip(history(cut), history(whole), strict=True):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)
+
+
 def test_cli_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry point would run on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main(["--preset", "c2"])
-    with pytest.raises(NotImplementedError, match="ensemble"):
-        train_main(["--preset", "c5", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--preset", "c5"])
