@@ -12,21 +12,26 @@ imports nothing of JAX. Phases, each fatal on failure:
 3. hold every kernel against its plain PyTorch version on the card (TF32
    off): first at small awkward shapes (odd batch, T = 1, H not a
    multiple of 4, an all-invalid row, f32 and bf16; bf16 at H 16 and 64
-   reaches the tensor-core fused forward and backward, the rest the
-   CUDA-core ones, and the launch counters must say so) — the forward
-   kernels on their outputs, the backward kernels on every gradient
-   (scaled by its largest magnitude: f32 atol 1e-5, bf16 0.05, the
-   tensor-core backward's f32 weight gradients 1e-4); then at
-   the shapes the main paths give them — the serving dispatches of the c2
-   and c3 panels, and the c2 train step (B 2048, T 60, H 128) on a real
-   index batch from ``stacked_epoch`` — timing kernel and plain version
-   with CUDA events beside the kernel's bound; the fused forward and the
-   fused backward at those shapes both on the tensor cores and on the
-   CUDA cores (their private launchers), on the same inputs, the
-   tensor-core forward at 16, 32 and 64 rows per block, and one
-   ``torch.matmul`` yardstick for the backward's weight-gradient
-   products; and two launches of each backward on the same inputs must
-   give bitwise equal weight gradients;
+   reaches the tensor-core fused forward and both backwards, the rest the
+   CUDA-core ones, and the launch counters must say so; gathers that take
+   the span copies and the narrow stores, and indices outside the panel)
+   — the forward kernels on their outputs, the backward kernels on every
+   gradient (scaled by its largest magnitude: f32 atol 1e-5, bf16 0.05,
+   the tensor-core backwards' f32 weight gradients 1e-4), the gathers
+   bitwise; then at the shapes the main paths give them — the serving
+   dispatches of the c2 and c3 panels, and the c2 train step (B 2048, T
+   60, H 128) on a real index batch from ``stacked_epoch`` — timing
+   each kernel with CUDA events around one call (``ms``, the host's
+   wrapper work included) and by its device time alone (``device_ms``:
+   launches queued behind a device sleep), and its plain version, beside
+   the kernel's bound:
+   in bf16 the tensor-core forward (at 16, 32 and 64 rows per block too),
+   both tensor-core backwards (the hoisted one beside the CUDA-core
+   hoisted kernel on the same inputs, its private launcher), the hoisted
+   CUDA-core forward, each backward's ``torch.matmul`` yardstick for its
+   weight-gradient products; in float32 at the train step the CUDA-core
+   lane (rows 1 to 4); two launches of each backward on the same inputs
+   must give bitwise equal weight gradients;
 4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
    GRU universes at full width (random weights from a seed), warmed up,
    then closed-loop requests from 4 threads; every served score vector is
@@ -38,9 +43,12 @@ imports nothing of JAX. Phases, each fatal on failure:
    recurrence differentiated by autograd, plain gather); the per-step
    losses must agree within atol and rtol 0.05 and be finite, and the
    training kernels' counters must have moved. A few steps of the
-   hoisted form (``scan_impl="pallas"``), of the GRU at c2's geometry,
-   fused and hoisted, and of both cells in float32 (their fused forward
-   and backward on the CUDA cores) run the same way. Prints steps/s,
+   hoisted form (``scan_impl="pallas"``: the CUDA-core forward, the
+   tensor-core hoisted backward), of the GRU at c2's geometry, fused and
+   hoisted, and of both cells and both forms in float32 (the CUDA-core
+   kernels) run the same way; the hoisted bf16 step is also timed with
+   its backward as routed and sent to the CUDA-core kernel, in turns.
+   Prints steps/s,
    firm-months/s, ms per step, the forward, backward and optimizer times
    of one step and the device time by kernel;
 6. the c5 ensemble (64 seeds of the LSTM, hidden 128, bf16, 8000 firms x
@@ -84,8 +92,15 @@ F32_TOL = 1e-5   # atol: the JAX package's f32 bound for the fused op
 MMA_WGRAD_TOL = 1e-4
 GATES = {"lstm": 4, "gru": 3}
 TRAIN_STEPS_SHORT = 4  # steps of the hoisted and GRU training runs
+HOISTED_STEPS = 32     # timed steps of each backward in the hoisted c2 step
+# The device's sleep (clock cycles, about 10 ms) while the host queues the
+# launches that device_ms times.
+SLEEP_CYCLES = 20_000_000
 
-# name → (source in the port, the TPU kernel it replaces)
+# name → (source in the port, the TPU kernel it replaces). The CUDA-core
+# kernels of the fused form and of the hoisted backward run on the main
+# paths in float32 only and are measured in float32 at the c2 train step;
+# the hoisted forward runs in both and is measured in both.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -103,6 +118,8 @@ SOURCES = {
     "rnn_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:158"),
     "rnn_bwd_lstm": ("csrc/rnn_bwd.cu", "pallas_rnn.py:184"),
     "rnn_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:243"),
+    "rnn_bwd_mma_lstm": ("csrc/rnn_fused_bwd_mma.cu", "pallas_rnn.py:184"),
+    "rnn_bwd_mma_gru": ("csrc/rnn_fused_bwd_mma.cu", "pallas_rnn.py:243"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
 SERVE_KERNELS = ("rnn_fused_fwd_mma_lstm", "rnn_fused_fwd_mma_gru",
@@ -155,6 +172,46 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10, launches: int = 10) -> float:
+    """Median device time of one ``fn`` call with the host's time taken
+    out: the device sleeps while the host queues ``launches`` calls, which
+    then run back to back between two CUDA events. Fails if the host had
+    not queued them all before the sleep ended (the device would have
+    waited for it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        slept, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if host_ms >= slept.elapsed_time(start):
+            fail(f"device_ms: queueing {launches} calls took {host_ms:.3f} "
+                 f"ms, longer than the device's sleep "
+                 f"({slept.elapsed_time(start):.3f} ms)")
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = 10, launches: int = 10) -> dict:
+    """A kernel's two times: ``ms``, one call between CUDA events with the
+    host's wrapper work and launch inside them (``time_ms``, the reading
+    the kernels line has always given), and ``device_ms``, the device's
+    time alone (``device_ms``)."""
+    return dict(ms=time_ms(fn, reps=reps),
+                device_ms=device_ms(fn, reps=reps, launches=launches))
+
+
 def worst_excess(got, want, atol: float, rtol: float):
     """(max |got - want|, max of |got - want| - (atol + rtol |want|))."""
     g, w = got.float(), want.float()
@@ -183,6 +240,22 @@ def grads_close(name: str, got, want, dtype, wgrad_tol=None) -> float:
             fail(f"{name}: scaled error {err} over {tol}")
         worst = max(worst, err)
     return worst
+
+
+def widest_dispatch(panel, data, rows: int):
+    """The widest serving dispatch of a panel: ``rows`` months of its widest
+    width bucket, as ``serving_batch`` builds them → ``(firm_idx [rows,
+    width], time_idx [rows])`` int32 numpy."""
+    from lfm_quant_tpu_torch.buckets import width_ladder
+    from lfm_quant_tpu_torch.data.windows import DateBatchSampler
+
+    sampler = DateBatchSampler(panel, data.window, 1, 8,
+                               min_valid_months=data.min_valid_months,
+                               min_cross_section=1, require_target=False)
+    cols = sampler.months_with_anchors()
+    width = max(width_ladder(sampler.cross_section(int(t)).size
+                             for t in cols))
+    return serving_batch(sampler.cross_section, cols, width, rows)
 
 
 def serving_batch(entry_pools, cols, width: int, rows: int):
@@ -294,10 +367,11 @@ def check_small(torch, gen) -> None:
                 hin, wx, b, wh, m = rnn_inputs(torch, gen, cell, B, T, H, dt)
                 xw = (hin.float() @ wx.float() + b.float()).to(dt)
                 # bf16 at H 16 and 64 takes the tensor-core forward and
-                # backward; f32 and the odd widths keep the CUDA-core ones.
+                # backwards; f32 and the odd widths keep the CUDA-core ones.
                 mma = R._mma_route(dt, H) == "mma"
                 fwd_kernel = f"rnn_fused_fwd_{'mma_' if mma else ''}{cell}"
                 bwd_kernel = f"rnn_fused_bwd_{'mma_' if mma else ''}{cell}"
+                hoist_kernel = f"rnn_bwd_{'mma_' if mma else ''}{cell}"
                 _build.reset_launch_counts()
                 with torch.no_grad():
                     fused = R.rnn_scan_fused(cell, hin, wx, b, wh, m)
@@ -331,32 +405,51 @@ def check_small(torch, gen) -> None:
                                                    h, c, dh), dt,
                     MMA_WGRAD_TOL if mma else None)
                 hx, cx = R.rnn_scan_states(cell, xw, wh, m)
+                _build.reset_launch_counts()
+                got = R.rnn_scan_bwd(cell, xw, wh, m, hx, cx, dh)
+                if _build.launch_counts()[hoist_kernel] != 1:
+                    fail(f"hoisted bwd {cell} {dt} {(B, T, H)} did not "
+                         f"launch {hoist_kernel}")
                 e2 = grads_close(
-                    f"bwd {cell} {dt} {(B, T, H)}",
-                    R.rnn_scan_bwd(cell, xw, wh, m, hx, cx, dh),
+                    f"bwd {cell} {dt} {(B, T, H)}", got,
                     R.rnn_scan_bwd_reference(cell, xw, wh, m, hx, cx, dh),
-                    dt)
+                    dt, MMA_WGRAD_TOL if mma else None)
                 log(f"small rnn {cell} {str(dt)[6:]} B,T,H={(B, T, H)} "
                     f"fwd ok ({fwd_kernel}), bwd scaled err fused {e4:.3g} "
-                    f"({bwd_kernel}) hoisted {e2:.3g} ok")
+                    f"({bwd_kernel}) hoisted {e2:.3g} ({hoist_kernel}) ok")
+    # The gathers: span copies (c2's fp 21 and W 60 in both types, fp 6
+    # in f32; lane-padded to Fp 32 in bf16) and narrow stores (F < 8 in
+    # bf16, F = 7, young anchors); the last shape with anchors past the
+    # panel's end and before its start and firm indices outside it
+    # (clamped, as XLA clamps a gather: held to the plain gather of the
+    # clamped indices).
     for dt in (torch.float32, torch.bfloat16):
-        for N, T, fp, W, D, Bf in ((7, 23, 4, 9, 5, 13), (7, 5, 4, 9, 3, 6),
-                                   (11, 64, 6, 60, 4, 33)):
-            xm = torch.randn(N, T, fp, generator=gen)
+        for N, T, fp, W, D, Bf, pad in (
+                (7, 23, 4, 9, 5, 13, 0), (7, 5, 4, 9, 3, 6, 0),
+                (11, 64, 6, 60, 4, 33, 0), (7, 30, 8, 9, 3, 10, 0),
+                (9, 80, 21, 60, 6, 37, 0), (9, 80, 21, 60, 6, 37, 11),
+                (9, 80, 21, 60, 5, 37, -1)):
+            xm = torch.randn(N, T, fp + max(pad, 0), generator=gen)
             xm[..., fp - 1] = (torch.rand(N, T, generator=gen) < 0.8).float()
+            xm[..., fp:] = 0.0
             xm = xm.to(dt).cuda()
             fi = torch.randint(0, N, (D, Bf), generator=gen,
                                dtype=torch.int32).cuda()
             ti = torch.randint(0, T, (D,), generator=gen,
                                dtype=torch.int32).cuda()
             ti[0], ti[-1] = 0, T - 1  # youngest and newest anchors
+            if pad < 0:
+                ti[1:4] = torch.tensor([T + 5, -3, 2 * W], dtype=torch.int32)
+                fi[2, :3] = torch.tensor([-4, N, N + 7], dtype=torch.int32)
             x, m = gather_windows(xm, fi, ti, W, fp=fp)
-            xr, mr = gather_windows_packed(xm, fi, ti, W, fp=fp)
+            xr, mr = gather_windows_packed(xm, fi.clamp(0, N - 1), ti, W,
+                                           fp=fp)
             torch.cuda.synchronize()
-            if not (torch.equal(x, xr) and torch.equal(m, mr)):
-                fail(f"gather {dt} {(N, T, fp, W, D, Bf)} differs")
-            log(f"small gather {str(dt)[6:]} N,T,fp,W,D,Bf="
-                f"{(N, T, fp, W, D, Bf)} exact ok")
+            if not (torch.equal(x.view(torch.uint8), xr.view(torch.uint8))
+                    and torch.equal(m, mr)):
+                fail(f"gather {dt} {(N, T, fp, W, D, Bf, pad)} differs")
+            log(f"small gather {str(dt)[6:]} N,T,fp,W,D,Bf,pad="
+                f"{(N, T, fp, W, D, Bf, pad)} exact ok")
 
 
 def report(kernels: dict, name: str, where: str, rec: dict) -> None:
@@ -367,66 +460,58 @@ def report(kernels: dict, name: str, where: str, rec: dict) -> None:
 
 def check_fused_fwd(torch, kernels, where: str, cell: str, hin, wx, b, wh,
                     mm, save_c: bool) -> None:
-    """Row 3 at a main path's shape: the tensor-core kernel (the route's
-    choice for bf16 at this H) and the CUDA-core kernel (its private
-    launcher) on the same inputs, each against the plain version and
-    timed beside the bound, and the tensor-core kernel at 16, 32 and 64
-    rows per block."""
+    """Row 3 at a main path's shape in bf16: the tensor-core kernel (the
+    route's choice at this H) against the plain version, timed beside the
+    bound, and at 16, 32 and 64 rows per block."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
+    name = f"rnn_fused_fwd_mma_{cell}"
     if R._mma_route(hin.dtype, H) != "mma":
         fail(f"rnn fused fwd {cell} at {where}: the route is not mma")
     want_h, want_c = R.rnn_scan_states(
         cell, hin.float() @ wx.float() + b.float(), wh, mm, 1.0, save_c)
-    runs = {
-        f"rnn_fused_fwd_mma_{cell}": lambda: R._fused_states(
-            cell, hin, wx, b, wh, mm, 1.0, save_c),
-        f"rnn_fused_fwd_{cell}": lambda: R._launch_fwd(
-            cell, False, hin, wx, b, wh, mm, 1.0, save_c),
-    }
+
+    def run():
+        return R._fused_states(cell, hin, wx, b, wh, mm, 1.0, save_c)
+
     bound, by = rnn_bound("fused_fwd", cell, B, T, H, hin.element_size(),
                           save_c)
     plain_ms = time_ms(lambda: R.rnn_scan_states(
         cell, hin.float() @ wx.float() + b.float(), wh, mm, 1.0, save_c),
         reps=3, warmup=1)
-    ms = {}
-    for name, run in runs.items():
-        h, c = run()
-        torch.cuda.synchronize()
-        err, excess = worst_excess(h, want_h, BF16_TOL, BF16_TOL)
-        if c is not None:
-            c_err, c_excess = worst_excess(c, want_c, BF16_TOL, BF16_TOL)
-            err, excess = max(err, c_err), max(excess, c_excess)
-        if excess > 0 or not torch.isfinite(h).all():
-            fail(f"{name} at {where}: max err {err}")
-        del h, c
-        ms[name] = time_ms(run)
-        rec = dict(shape=[B, T, H], save_c=save_c, max_abs_err=err,
-                   tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
-                   ms=ms[name], plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=by)
-        if "mma" in name:
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
-            rec["rows_per_block"] = R._mma_rows(B, sms)
-            rec["rows_ms"] = {rows: time_ms(lambda: R._launch_fwd_mma(
-                cell, hin, wx, b, wh, mm, 1.0, save_c, rows))
-                for rows in R.MMA_ROWS}
-        report(kernels, name, where, rec)
-    mma, simt = ms[f"rnn_fused_fwd_mma_{cell}"], ms[f"rnn_fused_fwd_{cell}"]
-    log(f"rnn fused fwd {cell} at {where}: tensor cores {mma:.4f} ms, CUDA "
-        f"cores {simt:.4f} ms ({simt / mma:.2f}x), bound {bound:.4f} ms")
-    del want_h, want_c
+    h, c = run()
+    torch.cuda.synchronize()
+    err, excess = worst_excess(h, want_h, BF16_TOL, BF16_TOL)
+    if c is not None:
+        c_err, c_excess = worst_excess(c, want_c, BF16_TOL, BF16_TOL)
+        err, excess = max(err, c_err), max(excess, c_excess)
+    if excess > 0 or not torch.isfinite(h).all():
+        fail(f"{name} at {where}: max err {err}")
+    del h, c, want_h, want_c
+    ms = kernel_ms(run)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report(kernels, name, where, dict(
+        shape=[B, T, H], save_c=save_c, max_abs_err=err,
+        tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}", **ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        rows_per_block=R._mma_rows(B, sms),
+        rows_ms={rows: time_ms(lambda: R._launch_fwd_mma(
+            cell, hin, wx, b, wh, mm, 1.0, save_c, rows))
+            for rows in R.MMA_ROWS}))
+    log(f"rnn fused fwd {cell} at {where}: tensor cores {ms['ms']:.4f} ms "
+        f"(device {ms['device_ms']:.4f}), bound {bound:.4f} ms")
     torch.cuda.empty_cache()
 
 
 def check_train_shapes(torch, trainer, kernels, gen) -> None:
     """Rows 1, 2, 3 and 4 at the c2 train step's shape: the layer-0 input
     of a real index batch (the first batch of ``stacked_epoch(0)``), LSTM
-    with the model's own weights and GRU with seeded ones, bf16. Each
-    kernel against its plain version, timed beside its bound (row 3
-    saving c_all, as the training forward does); each backward twice for
-    bitwise equal weight gradients."""
+    with the model's own weights and GRU with seeded ones, in bf16 (the
+    kernels of the route) and in float32 (the CUDA-core lane, on the same
+    inputs). Each kernel against its plain version, timed beside its bound
+    (row 3 saving c_all, as the training forward does); each backward
+    twice for bitwise equal weight gradients."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     b = trainer.train_sampler.stacked_epoch(0)
@@ -471,7 +556,7 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
             report(kernels, f"rnn_fwd_{cell}", "c2 train step", dict(
                 shape=shape, max_abs_err=err,
                 tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
-                ms=time_ms(lambda: R.rnn_scan(cell, xw, wh, mm)),
+                **kernel_ms(lambda: R.rnn_scan(cell, xw, wh, mm)),
                 plain_ms=time_ms(lambda: R.rnn_scan_reference(
                     cell, xw, wh, mm), reps=3, warmup=1),
                 bound_ms=bound, bound_by=by))
@@ -479,37 +564,174 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
             # Row 4, the fused backward, on the plain forward's states.
             check_fused_bwd(torch, kernels, cell, hin, wx, bb, wh, mm, dh)
             # Row 2, the hoisted backward.
-            hx, cx = R.rnn_scan_states(cell, xw, wh, mm)
-            args = (cell, xw, wh, mm, hx, cx, dh)
-            one = R.rnn_scan_bwd(*args)
-            two = R.rnn_scan_bwd(*args)
-            if not torch.equal(one[1], two[1]):
-                fail(f"rnn bwd {cell}: two launches differ")
-            err = grads_close(f"bwd {cell} at the train shape", one,
-                              R.rnn_scan_bwd_reference(*args), cd)
-            bound, by = rnn_bound("bwd", cell, B, W, H, isz)
-            report(kernels, f"rnn_bwd_{cell}", "c2 train step", dict(
-                shape=shape, max_abs_err=err, bitwise_repeatable=True,
-                tolerance=f"scaled atol {BF16_TOL}",
-                ms=time_ms(lambda: R.rnn_scan_bwd(*args), reps=5),
-                plain_ms=time_ms(lambda: R.rnn_scan_bwd_reference(*args),
-                                 reps=3, warmup=1),
-                bound_ms=bound, bound_by=by))
-            del one, two, hx, cx, xw
+            check_hoisted_bwd(torch, kernels, cell, xw, wh, mm, dh)
+            del xw
+            # The CUDA-core lane in float32 on the same inputs.
+            check_f32_lane(torch, kernels, cell, hin, wx, bb, wh, mm, dh)
+    torch.cuda.empty_cache()
+
+
+def check_hoisted_bwd(torch, kernels, cell: str, xw, wh, mm, dh) -> None:
+    """Row 2 at the c2 train step in bf16: the tensor-core hoisted backward
+    (the route's choice at this H), twice for bitwise equal dW_h, against
+    the plain version (dxw at atol and rtol 0.05 and at scaled atol 0.05,
+    dW_h at ``MMA_WGRAD_TOL``) and timed beside its bound, the CUDA-core
+    hoisted kernel (its private
+    launcher) on the same inputs and the ``library_ms`` yardstick, dW_h
+    as one f32 ``torch.matmul`` (h_{t-1}^T d_hw) that the port never
+    makes."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, G = xw.shape
+    H = wh.shape[0]
+    name = f"rnn_bwd_mma_{cell}"
+    if R._mma_route(xw.dtype, H) != "mma":
+        fail(f"rnn bwd {cell} at the train shape: the route is not mma")
+    hx, cx = R.rnn_scan_states(cell, xw, wh, mm)
+    hx, cx = hx.to(xw.dtype), (None if cx is None else cx.to(xw.dtype))
+    args = (cell, xw, wh, mm, hx, cx, dh)
+    want = R.rnn_scan_bwd_reference(*args)
+    plain_ms = time_ms(lambda: R.rnn_scan_bwd_reference(*args), reps=3,
+                       warmup=1)
+    _, d_hw, h_prev = R._scan_bwd_core(cell, xw.float(), wh, mm, hx, cx, dh,
+                                       1.0)
+    a_h, d_h = h_prev.reshape(-1, H), d_hw.reshape(-1, G)
+    library_ms = time_ms(lambda: torch.matmul(a_h.T, d_h))
+    del d_hw, h_prev, a_h, d_h
+    runs = {"mma": lambda: R.rnn_scan_bwd(*args),
+            "cuda_core": lambda: R._launch_bwd(
+                cell, False, xw, None, None, wh, mm, hx, cx, dh, 1.0)}
+    ms, errs = {}, {}
+    for kind, run in runs.items():
+        one = run()
+        two = run()
+        torch.cuda.synchronize()
+        if not torch.equal(one[1], two[1]):
+            fail(f"rnn bwd {cell} ({kind}): two launches differ")
+        errs[kind] = grads_close(
+            f"bwd {cell} ({kind}) at the train shape", one, want, xw.dtype,
+            MMA_WGRAD_TOL if kind == "mma" else None)
+        if kind == "mma":
+            wgrad_err = scaled_err(one[1], want[1])
+            err, excess = worst_excess(one[0], want[0], BF16_TOL, BF16_TOL)
+            if excess > 0:
+                fail(f"rnn bwd {cell} (mma): dxw max err {err}")
+        del one, two
+        ms[kind] = kernel_ms(run, reps=5, launches=4)
+    bound, by = rnn_bound("bwd", cell, B, T, H, xw.element_size())
+    report(kernels, name, "c2 train step", dict(
+        shape=[B, T, H], max_abs_err=errs["mma"], wgrad_scaled_err=wgrad_err,
+        bitwise_repeatable=True,
+        tolerance=f"scaled atol {BF16_TOL}, dW_h {MMA_WGRAD_TOL}",
+        **ms["mma"], cuda_core_ms=ms["cuda_core"]["ms"],
+        cuda_core_device_ms=ms["cuda_core"]["device_ms"],
+        cuda_core_max_abs_err=errs["cuda_core"], plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=library_ms))
+    mma, simt = ms["mma"]["ms"], ms["cuda_core"]["ms"]
+    log(f"rnn bwd {cell} (hoisted) at the c2 train step: tensor cores "
+        f"{mma:.4f} ms, CUDA cores {simt:.4f} ms ({simt / mma:.2f}x), bound "
+        f"{bound:.4f} ms, dW_h matmul (library) {library_ms:.4f} ms")
+    del want, hx, cx
+    torch.cuda.empty_cache()
+
+
+def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm,
+                   dh) -> None:
+    """The CUDA-core kernels in float32 at the c2 train step, where the
+    float32 training runs launch them: rows 3 and 1 (the fused and the
+    hoisted forward, saving c_all as training does), rows 4 and 2 (the
+    fused and the hoisted backward, each twice for bitwise equal weight
+    gradients), each against its plain version at the JAX package's f32
+    bound (atol 1e-5; gradients scaled by their largest magnitude) and
+    timed beside its bound at the f32 peak outside the tensor cores (TF32
+    would not hold 1e-5). The hoisted forward's float32 record goes under
+    ``f32`` in its bf16 record, the others are their kernels' records."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    f32 = torch.float32
+    hin, wx, b, wh, dh = (t.to(f32) for t in (hin, wx, b, wh, dh))
+    B, T, H = hin.shape
+    if R._mma_route(f32, H) != "simt":
+        fail("the float32 lane is not the CUDA-core route")
+    xw = hin @ wx + b
+
+    def fwd_check(name, kind, run, want):
+        out = run()
+        torch.cuda.synchronize()
+        err, excess = 0.0, 0.0
+        for got, ref in zip(out, want):
+            if got is None:
+                continue
+            e, x = worst_excess(got, ref, F32_TOL, 0.0)
+            err, excess = max(err, e), max(excess, x)
+            if not torch.isfinite(got).all():
+                excess = float("inf")
+        if excess > 0:
+            fail(f"{name} (float32) at the train shape: max err {err}")
+        del out
+        bound, by = rnn_bound(kind, cell, B, T, H, 4, save_c=True)
+        return dict(shape=[B, T, H], dtype="float32", save_c=True,
+                    max_abs_err=err, tolerance=f"atol {F32_TOL}",
+                    **kernel_ms(run, reps=5, launches=2), bound_ms=bound,
+                    bound_by=by, library_ms=None)
+
+    with torch.no_grad():
+        want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
+        plain_ms = time_ms(lambda: R.rnn_scan_states(
+            cell, hin @ wx + b, wh, mm, 1.0, True), reps=3, warmup=1)
+        rec = fwd_check(f"rnn_fused_fwd_{cell}", "fused_fwd",
+                        lambda: R._fused_states(cell, hin, wx, b, wh, mm,
+                                                1.0, True), want)
+        report(kernels, f"rnn_fused_fwd_{cell}", "c2 train step",
+               dict(rec, plain_ms=plain_ms))
+        rec = fwd_check(f"rnn_fwd_{cell}", "fwd",
+                        lambda: R._scan_states_any(cell, xw, wh, mm, 1.0,
+                                                   True), want)
+        rec["plain_ms"] = time_ms(lambda: R.rnn_scan_states(
+            cell, xw, wh, mm, 1.0, True), reps=3, warmup=1)
+        kernels[f"rnn_fwd_{cell}"][-1]["f32"] = rec
+        log("kernel " + json.dumps(dict(name=f"rnn_fwd_{cell}",
+                                        at="c2 train step", **rec)))
+        h, c = want
+        del want
+    for kind, name, args, plain in (
+            ("fused_bwd", f"rnn_fused_bwd_{cell}",
+             (cell, hin, wx, b, wh, mm, h, c, dh),
+             R.rnn_scan_fused_bwd_reference),
+            ("bwd", f"rnn_bwd_{cell}", (cell, xw, wh, mm, h, c, dh),
+             R.rnn_scan_bwd_reference)):
+        run = ((lambda a=args: R.rnn_scan_fused_bwd(*a)) if kind ==
+               "fused_bwd" else (lambda a=args: R.rnn_scan_bwd(*a)))
+        want = plain(*args)
+        one = run()
+        two = run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
+            fail(f"{name} (float32): two launches differ")
+        err = grads_close(f"{name} (float32) at the train shape", one, want,
+                          f32)
+        del one, two, want
+        bound, by = rnn_bound(kind, cell, B, T, H, 4)
+        report(kernels, name, "c2 train step", dict(
+            shape=[B, T, H], dtype="float32", max_abs_err=err,
+            bitwise_repeatable=True, tolerance=f"scaled atol {F32_TOL}",
+            **kernel_ms(run, reps=5, launches=2),
+            plain_ms=time_ms(lambda a=args: plain(*a), reps=3, warmup=1),
+            bound_ms=bound, bound_by=by, library_ms=None))
+    del h, c, xw
     torch.cuda.empty_cache()
 
 
 def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
                     dh) -> None:
-    """Row 4 at the c2 train step: the tensor-core kernels (the route's
-    choice for bf16 at this H) and the CUDA-core kernels (their private
-    launcher) on the same inputs, each twice for bitwise equal weight
-    gradients, against the plain version (the tensor cores' weight
-    gradients at ``MMA_WGRAD_TOL``) and timed beside the bound; the
-    ``library_ms`` yardstick of the weight-gradient products, two f32
-    ``torch.matmul`` calls (hin^T d_xw + h_{t-1}^T d_hw) that the port
-    never makes; and the time of the two packings of W_x that the
-    tensor-core wrapper makes when the forward's is not passed in."""
+    """Row 4 at the c2 train step in bf16: the tensor-core kernels (the
+    route's choice at this H), twice for bitwise equal weight gradients,
+    against the plain version (the weight gradients at ``MMA_WGRAD_TOL``)
+    and timed beside the bound; the ``library_ms`` yardstick of the
+    weight-gradient products, two f32 ``torch.matmul`` calls (hin^T d_xw
+    + h_{t-1}^T d_hw) that the port never makes; and the time of the two
+    packings of W_x that the wrapper makes when the forward's is not
+    passed in."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
@@ -532,42 +754,34 @@ def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
                                   torch.matmul(a_h.T, d_h)))
     del xw, d_xw, d_hw, h_prev, a_x, a_h, d_x, d_h
     bound, by = rnn_bound("fused_bwd", cell, B, T, H, hin.element_size())
-    runs = {
-        f"rnn_fused_bwd_mma_{cell}": lambda: R.rnn_scan_fused_bwd(*args),
-        f"rnn_fused_bwd_{cell}": lambda: R._launch_bwd(
-            cell, True, hin, wx, b, wh, mm, h, c, dh, 1.0),
-    }
-    ms = {}
-    for name, run in runs.items():
-        one = run()
-        two = run()
-        torch.cuda.synchronize()
-        if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
-            fail(f"{name}: two launches differ")
-        mma = "mma" in name
-        err = grads_close(f"{name} at the train shape", one, want,
-                          hin.dtype, MMA_WGRAD_TOL if mma else None)
-        wgrad_err = max(scaled_err(g, w) for g, w in zip(one[1:], want[1:]))
-        del one, two
-        ms[name] = time_ms(run, reps=5)
-        rec = dict(
-            shape=[B, T, H], max_abs_err=err, wgrad_scaled_err=wgrad_err,
-            bitwise_repeatable=True,
-            tolerance=f"scaled atol {BF16_TOL}"
-            + (f", weight gradients {MMA_WGRAD_TOL}" if mma else ""),
-            ms=ms[name], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=library_ms if mma else None)
-        if mma:
-            rec["pack_wx_ms"] = time_ms(lambda: R.pack_fragments(wx))
-            rec["pack_wxt_ms"] = time_ms(
-                lambda: R.pack_fragments(wx, transpose=True))
-        report(kernels, name, "c2 train step", rec)
-    mma, simt = ms[f"rnn_fused_bwd_mma_{cell}"], ms[f"rnn_fused_bwd_{cell}"]
+    name = f"rnn_fused_bwd_mma_{cell}"
+
+    def run():
+        return R.rnn_scan_fused_bwd(*args)
+
+    one = run()
+    two = run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
+        fail(f"{name}: two launches differ")
+    err = grads_close(f"{name} at the train shape", one, want, hin.dtype,
+                      MMA_WGRAD_TOL)
+    wgrad_err = max(scaled_err(g, w) for g, w in zip(one[1:], want[1:]))
+    del one, two, want
+    ms = kernel_ms(run, reps=5, launches=4)
+    report(kernels, name, "c2 train step", dict(
+        shape=[B, T, H], max_abs_err=err, wgrad_scaled_err=wgrad_err,
+        bitwise_repeatable=True,
+        tolerance=f"scaled atol {BF16_TOL}, weight gradients "
+                  f"{MMA_WGRAD_TOL}",
+        **ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=library_ms,
+        pack_wx_ms=time_ms(lambda: R.pack_fragments(wx)),
+        pack_wxt_ms=time_ms(lambda: R.pack_fragments(wx, transpose=True))))
     log(f"rnn fused bwd {cell} at the c2 train step: tensor cores "
-        f"{mma:.4f} ms, CUDA cores {simt:.4f} ms ({simt / mma:.2f}x), bound "
+        f"{ms['ms']:.4f} ms (device {ms['device_ms']:.4f}), bound "
         f"{bound:.4f} ms, weight-gradient matmuls (library) {library_ms:.4f} "
         f"ms")
-    del want
     torch.cuda.empty_cache()
 
 
@@ -684,7 +898,8 @@ def profile_step(torch, trainer, state, fi, ti, w) -> None:
 
 def train_phase(torch, cfg, splits, totals: dict) -> None:
     """Phase 5: c2 for one epoch on the kernels against the plain path,
-    then the short hoisted and GRU runs."""
+    then the short hoisted, GRU and float32 runs, and the hoisted step's
+    time by backward; each run's launches are added to ``totals``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.train.loop import Trainer
 
@@ -749,13 +964,16 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     del trainer, plain
     torch.cuda.empty_cache()
 
-    # The hoisted form, the GRU at c2's geometry, and both cells in
-    # float32 (whose fused forward and backward are the CUDA-core
-    # kernels): a few steps each.
+    # The hoisted form (its backward on the tensor cores in bf16), the GRU
+    # at c2's geometry, and both cells and both forms in float32 (the
+    # CUDA-core kernels): a few steps each.
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
+             ("rnn_fwd_lstm", "rnn_bwd_mma_lstm", "window_gather")),
             ("c2 training (fused, float32)", train_variant(cfg, bf16=False),
              ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather")),
+            ("c2 training (hoisted, float32)",
+             train_variant(cfg, scan_impl="pallas", bf16=False),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
             ("GRU training (fused)", train_variant(cfg, kind="gru"),
              ("rnn_fused_fwd_mma_gru", "rnn_fused_bwd_mma_gru",
               "window_gather")),
@@ -764,6 +982,9 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
              ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather")),
             ("GRU training (hoisted)",
              train_variant(cfg, kind="gru", scan_impl="pallas"),
+             ("rnn_fwd_gru", "rnn_bwd_mma_gru", "window_gather")),
+            ("GRU training (hoisted, float32)",
+             train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False),
              ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather")))
     for label, run_cfg, must in runs:
         got, counts = counted(label, must, lambda: short_run(
@@ -777,6 +998,57 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
             f"{[round(v, 6) for v in got]} agree with the plain path within "
             f"{err:.4g}")
         torch.cuda.empty_cache()
+    hoisted_step(torch, runs[0][1], splits)
+
+
+def hoisted_step(torch, cfg, splits) -> None:
+    """The hoisted bf16 c2 step (``scan_impl="pallas"``) in ms per step,
+    with its backward as routed (the tensor-core hoisted mode) and sent to
+    the CUDA-core hoisted kernel (``_launch_bwd``, the route for float32),
+    in turns: ``HOISTED_STEPS`` steps each, twice, host clock around
+    synchronised work. Informational: it runs after the launch counts of
+    the hoisted run were read."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, splits, device="cuda")
+    state = trainer.init_state()
+    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
+    n = min(HOISTED_STEPS, fi.shape[0])
+
+    def cuda_core(cell, xw, wh, m, h_all, c_all, dh, forget_bias):
+        return R._launch_bwd(cell, False, xw, None, None, wh, m, h_all, c_all,
+                             dh, forget_bias)
+
+    def per_step():
+        s = state
+        for k in range(n):  # warm
+            s, _ = trainer.step(s, fi[k], ti[k], w[k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n):
+            s, _ = trainer.step(s, fi[k], ti[k], w[k])
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    routed = R._launch_scan_bwd_mma
+    times = {"tensor_cores": [], "cuda_cores": []}
+    try:
+        for _ in range(2):
+            for mode, launcher in (("tensor_cores", routed),
+                                   ("cuda_cores", cuda_core)):
+                R._launch_scan_bwd_mma = launcher
+                times[mode].append(per_step())
+    finally:
+        R._launch_scan_bwd_mma = routed
+    log("train c2 (hoisted) steady state, ms/step in turns: "
+        + ", ".join(f"backward on the {label} "
+                    f"{[round(t, 3) for t in times[mode]]}"
+                    for mode, label in (("tensor_cores", "tensor cores"),
+                                        ("cuda_cores", "CUDA cores")))
+        + f" ({n} steps each)")
+    del trainer, state
+    torch.cuda.empty_cache()
 
 
 def check_seed_batched(torch, trainer, kernels) -> None:
@@ -809,7 +1081,8 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     ti_np = ti.reshape(S * D).cpu().numpy()
     report(kernels, "window_gather_seeds", "c5 train step", dict(
         shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
-        ms=time_ms(lambda: gather_windows(xm, fi, ti, W, fp=fp)),
+        **kernel_ms(lambda: gather_windows(xm, fi, ti, W, fp=fp),
+                    launches=20),
         plain_ms=time_ms(lambda: gather_windows_packed(
             xm, fi.reshape(S * D, Bf), ti.reshape(S * D), W, fp=fp)),
         bound_ms=gather_bound(fi_np, ti_np, W, fp, xm.shape[1],
@@ -858,7 +1131,7 @@ def check_seed_batched(torch, trainer, kernels) -> None:
              "broadcast copy")
     del shared, full, h1, c1, want_h, want_c
     bound, by = rnn_bound("fused_fwd", cell, B, W, H, 2, True, seeds=S)
-    ms = time_ms(lambda: R._fused_states(*args), reps=5)
+    ms = kernel_ms(lambda: R._fused_states(*args), reps=5, launches=2)
     singles_ms = time_ms(lambda: [R._launch_fwd_mma(
         cell, hin[s], wx[s], bb[s], wh[s], mm[s], 1.0, True, rows)
         for s in range(S)], reps=3, warmup=1)
@@ -868,11 +1141,11 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     report(kernels, "rnn_fused_fwd_mma_lstm_seeds", "c5 train step", dict(
         shape=[S, B, W, H], rows_per_block=rows, bitwise_vs_single=True,
         max_abs_err=worst, tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
-        ms=ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
+        **ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None))
-    log(f"seed-batched fused fwd at the c5 train step: {ms:.3f} ms for 64 "
-        f"seeds in one launch, {singles_ms:.3f} ms in 64 launches, bound "
-        f"{bound:.3f} ms")
+    log(f"seed-batched fused fwd at the c5 train step: {ms['ms']:.3f} ms "
+        f"for 64 seeds in one launch, {singles_ms:.3f} ms in 64 launches, "
+        f"bound {bound:.3f} ms")
 
     # Row 4 on the forward's states.
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -903,7 +1176,7 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     del shared, full, got
     torch.cuda.empty_cache()
     bound, by = rnn_bound("fused_bwd", cell, B, W, H, 2, seeds=S)
-    ms = time_ms(lambda: R.rnn_scan_fused_bwd(*bargs), reps=3)
+    ms = kernel_ms(lambda: R.rnn_scan_fused_bwd(*bargs), reps=3, launches=1)
     singles_ms = time_ms(lambda: [R.rnn_scan_fused_bwd(
         cell, *(t[s] for t in bargs[1:])) for s in range(S)], reps=1)
     plain_ms = time_ms(lambda: [R.rnn_scan_fused_bwd_reference(
@@ -923,10 +1196,10 @@ def check_seed_batched(torch, trainer, kernels) -> None:
         wgrad_scaled_err=wgrad,
         tolerance=f"scaled atol {BF16_TOL}, weight gradients "
                   f"{MMA_WGRAD_TOL}",
-        ms=ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
+        **ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=library_ms))
-    log(f"seed-batched fused bwd at the c5 train step: {ms:.3f} ms for 64 "
-        f"seeds in one call, {singles_ms:.3f} ms in 64 calls, bound "
+    log(f"seed-batched fused bwd at the c5 train step: {ms['ms']:.3f} ms "
+        f"for 64 seeds in one call, {singles_ms:.3f} ms in 64 calls, bound "
         f"{bound:.3f} ms, library bmm {library_ms:.3f} ms")
     del hin, mm
     torch.cuda.empty_cache()
@@ -1085,7 +1358,6 @@ def main() -> int:
 
     import numpy as np
 
-    from lfm_quant_tpu_torch.buckets import width_ladder
     from lfm_quant_tpu_torch.config import get_preset
     from lfm_quant_tpu_torch.data.panel import PanelSplits
     from lfm_quant_tpu_torch.data.windows import (
@@ -1132,14 +1404,7 @@ def main() -> int:
     for name, cell in (("c2", "lstm"), ("c3", "gru")):
         cfg, panel, plain = universes[name]
         d = cfg.data
-        sampler = DateBatchSampler(panel, d.window, 1, 8,
-                                   min_valid_months=d.min_valid_months,
-                                   min_cross_section=1, require_target=False)
-        cols = sampler.months_with_anchors()
-        width = max(width_ladder(sampler.cross_section(int(t)).size
-                                 for t in cols))
-        fi_np, ti_np = serving_batch(sampler.cross_section, cols, width,
-                                     max_rows)
+        fi_np, ti_np = widest_dispatch(panel, d, max_rows)
         xm = plain.dev["xm"]
         fp = panel.n_features + 1
         fi = torch.from_numpy(fi_np).cuda()
@@ -1153,8 +1418,8 @@ def main() -> int:
                 fail(f"gather at the {name} dispatch shape differs")
             report(kernels, "window_gather", f"{name} serving", dict(
                 shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
-                ms=time_ms(lambda: gather_windows(xm, fi, ti, d.window,
-                                                  fp=fp)),
+                **kernel_ms(lambda: gather_windows(xm, fi, ti, d.window,
+                                                   fp=fp), launches=20),
                 plain_ms=time_ms(lambda: gather_windows_packed(
                     xm, fi, ti, d.window, fp=fp)),
                 bound_ms=gather_bound(fi_np, ti_np, d.window, fp,
@@ -1262,22 +1527,24 @@ def main() -> int:
 
     # ---- 7. kernels line ------------------------------------------------
     line = []
+    fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+              "bound_ms", "bound_by", "library_ms")
     for k, (src, rep) in SOURCES.items():
         # The largest shape the main paths gave the kernel.
         meas = max(kernels[k], key=lambda r: int(np.prod(r["shape"])))
-        meas = {f: meas.get(f) for f in ("shape", "max_abs_err", "ms",
-                                         "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")}
+        rec = {f: meas.get(f) for f in fields}
+        if "dtype" in meas:
+            rec["dtype"] = meas["dtype"]
+        if "f32" in meas:
+            rec["f32"] = {f: meas["f32"].get(f) for f in fields}
         line.append(dict(name=k, route="cuda",
                          source=f"lfm_quant_tpu_torch/{src}",
                          replaces=f"{SRC_REPO}/{rep}", launches=totals[k],
-                         **meas))
+                         **rec))
     # The seed-batched launches: measured at the c5 train step, launches
     # counted over the c5 epoch.
     for k, (counter, src, rep) in SEED_SOURCES.items():
-        meas = {f: kernels[k][0].get(f) for f in (
-            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
+        meas = {f: kernels[k][0].get(f) for f in fields}
         line.append(dict(name=k, route="cuda",
                          source=f"lfm_quant_tpu_torch/{src}",
                          replaces=f"{SRC_REPO}/{rep}",

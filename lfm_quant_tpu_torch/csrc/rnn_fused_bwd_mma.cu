@@ -1,9 +1,14 @@
-// Masked LSTM/GRU recurrence, fused backward, in bfloat16 on Hopper's
-// tensor cores (mma.sync m16n8k16, f32 accumulation), for sm_90a.
+// Masked LSTM/GRU recurrence, fused and hoisted backward, in bfloat16 on
+// Hopper's tensor cores (mma.sync m16n8k16, f32 accumulation), for sm_90a.
 //
 // Replaces the Pallas TPU kernels _lstm_fused_bwd_kernel
 // (lfm_quant_tpu/ops/pallas_rnn.py:673) and _gru_fused_bwd_kernel (:739),
-// reached through _fused_bwd_call (:835). It computes what csrc/rnn_bwd.cu
+// reached through _fused_bwd_call (:835), and in its hoisted mode (the
+// template flag HOIST, entry lfm_rnn_scan_bwd_mma) _lstm_bwd_kernel (:184)
+// and _gru_bwd_kernel (:243), reached through _bwd_call (:407). The
+// hoisted function is the fused one without the W_x side: it takes the
+// gates' x side xw = hin @ W_x + b as an input and returns dxw = d_xw and
+// dW_h alone. It computes what csrc/rnn_bwd.cu
 // computes in its fused form (the formulas are written out there): walking
 // t = T-1 .. 0 with f32 carries dh and dc, it recomputes the gates from the
 // saved states, forms d_gates, carries dh <- (1 - keep) dh_t (+ dh_new z
@@ -20,15 +25,18 @@
 // significant bits of d_gates (relative error near 2^-17 per term) and
 // differ from f32 products by little more than the order of the sums.
 //
-// Route (ops/rnn.py _mma_route): bfloat16 with H % 16 == 0 and
-// 16 <= H <= 128. float32 and every other H stay on csrc/rnn_bwd.cu.
+// Route (ops/rnn.py _mma_route), for both forms: bfloat16 with H % 16 == 0
+// and 16 <= H <= 128. float32 and every other H stay on csrc/rnn_bwd.cu.
 //
 // Bound. At the c2 train step (B = 2048, T = 60, H = 128, LSTM) the
 // function is 6 products of 2 H G H per row and step (two recomputed, dh,
 // dhin, dW_x, dW_h): 9.7e10 operations, 0.098 ms at 989 TFLOP/s, against
 // 0.16 GB of inputs and outputs: bound by operations; 6.3 ms at the c5
 // ensemble's train step (64 seeds of that shape). The split's second term
-// is this kernel's cost, not the function's work.
+// is this kernel's cost, not the function's work. The hoisted form does 3
+// of the 6 products (one recomputed, dh, dW_h) and moves xw and dxw [B, T,
+// G H] in place of hin and dhin: 0.103 ms (LSTM) at the c2 train step,
+// bound by bytes.
 //
 // Design:
 //
@@ -51,7 +59,12 @@
 //   slice dn r) for kernel 2, and its hi and lo into [rows, 4 H + 8] bf16
 //   tiles (LSTM: the G H gate columns; GRU: z, r, n of d_xw, then dn r),
 //   which the warps read back as A fragments: the backward products need
-//   all G H columns of a row. Two barriers per step.
+//   all G H columns of a row. Two barriers per step. In the hoisted mode
+//   the gate recompute starts from xw_t, which each thread loads for its
+//   own accumulator positions into registers one step ahead (no hin tiles,
+//   no W_x products, no dhin); the cell writes d_hw in f32 (the GRU's n
+//   slice dn r) for kernel 2 and d_xw (the GRU's n slice dn) to dxw in
+//   bf16 from registers.
 // * Kernel 2, the weight gradients in one pass over d_gates. A block owns
 //   64 gate columns and a slice of rows and computes dW_x, dW_h and db for
 //   them: warps 0-3 dW_x (A = hin), warps 4-7 dW_h (A = h_{t-1}, the saved
@@ -62,7 +75,8 @@
 //   both operands (A^T and D, stored row by row). db is summed in f32 from
 //   the same registers. Each slice writes partial sums; kernel 3 adds the
 //   slices in a fixed order. No atomics: the weight gradients are bitwise
-//   the same from run to run.
+//   the same from run to run. In the hoisted mode the block computes dW_h
+//   alone (A = h_{t-1}, D = d_hw), all 8 warps on it, 16 output rows each.
 // * Seeds (the JAX kernels' seed grid dimension, pallas_rnn.py _bwd_vmap
 //   :951): the seed is blockIdx.y of kernel 1 and kernel 3 and blockIdx.z
 //   of kernel 2. Each operand has its own seed stride (SeedStrides), 0 for
@@ -122,22 +136,25 @@ struct SeedStrides {
   long long hin, wx, b, wh, m;
 };
 
-// Kernel 1's shared memory: W_h [H, G H + 8], the hin and h_{t-1} tiles
-// (two each, [rows, H + 8]) and the kSplit d_gates tiles [rows, 4 H + 8],
-// all bf16, and the bias [G H] f32.
-inline size_t recur_smem_bytes(int G, int H) {
+// Kernel 1's shared memory: W_h [H, G H + 8], the hin (fused mode) and
+// h_{t-1} tiles (two each, [rows, H + 8]) and the kSplit d_gates tiles
+// [rows, 4 H + 8], all bf16, and (fused mode) the bias [G H] f32.
+inline size_t recur_smem_bytes(int G, int H, bool hoist) {
   const size_t rows = 16 * kRowTiles;
-  return 2 * ((size_t)H * (G * H + 8) + 4 * (size_t)rows * (H + 8) +
+  return 2 * ((size_t)H * (G * H + 8) +
+              (hoist ? 2 : 4) * (size_t)rows * (H + 8) +
               (size_t)kSplit * rows * (4 * H + 8)) +
-         4 * (size_t)G * H;
+         (hoist ? 0 : 4 * (size_t)G * H);
 }
 
-// Kernel 2's: two stages of the A tiles [2][kWgRows][HP + 8] and the D
-// tiles [ND][kSplit][kWgRows][kWgCols + 8], bf16 (HP: H rounded up to 32).
-inline size_t wgrad_smem_bytes(int cell, int H) {
+// Kernel 2's: two stages of the A tiles [NA][kWgRows][HP + 8] and the D
+// tiles [ND][kSplit][kWgRows][kWgCols + 8], bf16 (HP: H rounded up to 32;
+// fused mode NA = 2 and, for the GRU, ND = 2; hoisted mode NA = ND = 1).
+inline size_t wgrad_smem_bytes(int cell, int H, bool hoist) {
   const int HP = (H + 31) / 32 * 32;
-  const int ND = cell == kGru ? 2 : 1;
-  return 2 * 2 * ((size_t)2 * kWgRows * (HP + 8) +
+  const int NA = hoist ? 1 : 2;
+  const int ND = cell == kGru && !hoist ? 2 : 1;
+  return 2 * 2 * ((size_t)NA * kWgRows * (HP + 8) +
                   (size_t)ND * kSplit * kWgRows * (kWgCols + 8));
 }
 
@@ -146,7 +163,11 @@ inline size_t wgrad_smem_bytes(int cell, int H) {
 // ([G H / 16][H / 8][32][4], ops/rnn.py pack_fragments(transpose=True)); b
 // [G H]; wh [H, G H] row-major; m uint8 [B, T]. Out: dhin [B, T, H] bf16;
 // dgx (d_xw) [B, T, G H] f32; dhn (GRU: dn r) [B, T, H] f32.
-template <int CELL>
+// HOIST (the hoisted backward): hin is xw [B, T, G H] bf16, the gates' x
+// side with its bias, and wxp, wxtp, b and dhn are unused; out: dhin is dxw
+// [B, T, G H] bf16 (d_xw) and dgx is d_hw [B, T, G H] f32 (the GRU's n
+// slice dn r), the one operand of dW_h.
+template <int CELL, bool HOIST>
 __global__ void __launch_bounds__(128 * 32 / kUnits, 1)
 rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
                          const uint2* __restrict__ wxp,
@@ -175,8 +196,8 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* hin_s = wh_s + (size_t)H * LW;
-  __nv_bfloat16* h_s = hin_s + 2 * BB * LD;
+  __nv_bfloat16* hin_s = wh_s + (size_t)H * LW;  // fused mode only
+  __nv_bfloat16* h_s = HOIST ? hin_s : hin_s + 2 * BB * LD;
   __nv_bfloat16* dg_s = h_s + 2 * BB * LD;
   float* bias_s = reinterpret_cast<float*>(dg_s + kSplit * BB * LG);
 
@@ -194,7 +215,7 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
     h_all += seed * seq;
     if (c_all != nullptr) c_all += seed * seq;
     dh += seed * seq;
-    dhin += seed * seq;
+    dhin += seed * (HOIST ? seq * G : seq);
     dgx += seed * seq * G;
     if (dhn != nullptr) dhn += seed * seq;
   }
@@ -206,7 +227,8 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
   const int r0 = blockIdx.x * BB;
   const int nr = min(BB, B - r0);
 
-  // hin_t and h_{t-1} into tile pair `buf`; rows past B and h_{-1} are 0.
+  // hin_t (fused mode) and h_{t-1} into tile pair `buf`; rows past B and
+  // h_{-1} are 0.
   auto load_tiles = [&](int t, int buf) {
     __nv_bfloat16* xd = hin_s + buf * BB * LD;
     __nv_bfloat16* hd = h_s + buf * BB * LD;
@@ -216,7 +238,9 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
       const bool in = r < nr;
       const bool hv = in && t > 0;
       const size_t row = (size_t)(r0 + r) * Tn + t;
-      cp_async16(xd + r * LD + k, in ? hin + row * H + k : hin, in ? 16 : 0);
+      if (!HOIST)
+        cp_async16(xd + r * LD + k, in ? hin + row * H + k : hin,
+                   in ? 16 : 0);
       cp_async16(hd + r * LD + k, hv ? h_all + (row - 1) * H + k : h_all,
                  hv ? 16 : 0);
     }
@@ -232,7 +256,8 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
   }
   load_tiles(Tn - 1, (Tn - 1) & 1);
   cp_async_commit();
-  for (int i = tid; i < GH; i += nth) bias_s[i] = __bfloat162float(b[i]);
+  if (!HOIST)
+    for (int i = tid; i < GH; i += nth) bias_s[i] = __bfloat162float(b[i]);
 
   const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;  // A, ldmatrix
   const int acol = (lane >> 4) * 8;
@@ -269,6 +294,26 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
         dcc[rt][2 * half + e] = 0.0f;
       }
     }
+
+  // HOIST: the thread's xw pairs (row, gate q, units u, u + 1) of the next
+  // step, loaded a step ahead into registers (rows past B read 0).
+  __nv_bfloat162 xwn[RT][2][G];
+  auto load_xw = [&](int t) {
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rt * 16 + row_l + 8 * half;
+        const size_t row = (size_t)(r0 + r) * Tn + t;
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+          xwn[rt][half][q] =
+              r < nr ? *reinterpret_cast<const __nv_bfloat162*>(
+                           hin + row * GH + q * H + u)
+                     : __floats2bfloat162_rn(0.0f, 0.0f);
+      }
+  };
+  if (HOIST) load_xw(Tn - 1);
 
   for (int t = Tn - 1; t >= 0; --t) {
     const int cur = t & 1;
@@ -307,21 +352,32 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
       }
 
     // The gates, recomputed as the forward kernel does. Slots: the G
-    // x-side gates with the bias; the GRU's slot 3 is the h side of n.
+    // x-side gates with the bias (HOIST: xw_t); the GRU's slot 3 is the h
+    // side of n.
     float acc[RT][4][4];
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[rt][q][i] = q < G ? bias_s[q * H + u + (i & 1)] : 0.0f;
+        for (int i = 0; i < 4; ++i) {
+          if (HOIST) {
+            const float2 v =
+                q < G ? __bfloat1622float2(xwn[rt][i >> 1][q < G ? q : 0])
+                      : make_float2(0.0f, 0.0f);
+            acc[rt][q][i] = (i & 1) ? v.y : v.x;
+          } else {
+            acc[rt][q][i] = q < G ? bias_s[q * H + u + (i & 1)] : 0.0f;
+          }
+        }
+    if (HOIST && t > 0) load_xw(t - 1);
 
     for (int kk = 0; kk < KT; ++kk) {
       uint2 bx[G], bh[G];
+      if (!HOIST)
 #pragma unroll
-      for (int q = 0; q < G; ++q)
-        bx[q] = __ldg(wx_w + (size_t)kk * S * G * 32 + q * 32);
+        for (int q = 0; q < G; ++q)
+          bx[q] = __ldg(wx_w + (size_t)kk * S * G * 32 + q * 32);
       {
         const __nv_bfloat16* p = whf_l + (size_t)kk * 16 * LW;
         uint32_t r[4];
@@ -345,9 +401,11 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
 #pragma unroll
         for (int q = 0; q < G; ++q)
           mma_bf16(acc[rt][CELL == kGru && q == 2 ? 3 : q], a, bh[q]);
-        ldmatrix_x4(a, xt + (rt * 16 + arow) * LD + kk * 16 + acol);
+        if (!HOIST) {
+          ldmatrix_x4(a, xt + (rt * 16 + arow) * LD + kk * 16 + acol);
 #pragma unroll
-        for (int q = 0; q < G; ++q) mma_bf16(acc[rt][q], a, bx[q]);
+          for (int q = 0; q < G; ++q) mma_bf16(acc[rt][q], a, bx[q]);
+        }
       }
     }
 
@@ -399,7 +457,17 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
             dhc[rt][i] = (1.0f - kp) * dh_t + dh_new * z;
           }
         }
-        if (r < nr) {
+        if (r < nr && HOIST) {
+          // d_hw (f32, the GRU's n slice dn r) for dW_h, d_xw (bf16) out.
+#pragma unroll
+          for (int q = 0; q < G; ++q) {
+            const int qh = CELL == kGru && q == 2 ? 3 : q;
+            *reinterpret_cast<float2*>(dgx + row * GH + q * H + u) =
+                make_float2(dg[qh][0], dg[qh][1]);
+            *reinterpret_cast<__nv_bfloat162*>(dhin + row * GH + q * H + u) =
+                __floats2bfloat162_rn(dg[q][0], dg[q][1]);
+          }
+        } else if (r < nr) {
 #pragma unroll
           for (int q = 0; q < G; ++q)
             *reinterpret_cast<float2*>(dgx + row * GH + q * H + u) =
@@ -421,9 +489,9 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
     __syncthreads();  // the d_gates tiles are complete
 
     // The backward products over K = G H: dh += d_hw @ W_h^T (W_h from
-    // shared memory) and dhin = d_xw @ W_x^T (packed, through L2), one
-    // accumulator per split term so that the serial mma chains are half
-    // as long; dh's hi term starts from the carry's elementwise part.
+    // shared memory) and (fused mode) dhin = d_xw @ W_x^T (packed, through
+    // L2), one accumulator per split term so that the serial mma chains are
+    // half as long; dh's hi term starts from the carry's elementwise part.
     float hacc[kSplit][RT][4], xacc[kSplit][RT][4];
 #pragma unroll
     for (int p = 0; p < kSplit; ++p)
@@ -439,7 +507,8 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
       uint32_t r2[2];
       ldmatrix_x2(r2, whb_l + k0);
       const uint2 bhk = make_uint2(r2[0], r2[1]);
-      const uint2 bxk = __ldg(wxt_w + (size_t)ks * S * 32);
+      const uint2 bxk = HOIST ? make_uint2(0u, 0u)
+                              : __ldg(wxt_w + (size_t)ks * S * 32);
       // The GRU's h side reads dn r (tile columns 3H ..) for gate n.
       const bool hsplit = CELL == kGru && k0 >= 2 * H;
 #pragma unroll
@@ -450,7 +519,7 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
               dg_s + p * BB * LG + (rt * 16 + arow) * LG + acol;
           uint32_t a[4];
           ldmatrix_x4(a, ab + k0);
-          mma_bf16(xacc[p][rt], a, bxk);
+          if (!HOIST) mma_bf16(xacc[p][rt], a, bxk);
           if (hsplit) ldmatrix_x4(a, ab + k0 + H);
           mma_bf16(hacc[p][rt], a, bhk);
         }
@@ -471,7 +540,7 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
         const int r = rt * 16 + row_l + 8 * half;
         dhc[rt][2 * half] = hacc[0][rt][2 * half];
         dhc[rt][2 * half + 1] = hacc[0][rt][2 * half + 1];
-        if (r < nr)
+        if (r < nr && !HOIST)
           *reinterpret_cast<__nv_bfloat162*>(
               dhin + ((size_t)(r0 + r) * Tn + t) * H + u) =
               __floats2bfloat162_rn(xacc[0][rt][2 * half],
@@ -486,8 +555,11 @@ rnn_bwd_mma_recur_kernel(const __nv_bfloat16* __restrict__ hin,
 // block. A = hin [M, H] (seed stride s_hin) and h_all [M, H]
 // (read shifted: row m takes m - 1 within its sequence of Tn rows, zero at
 // the first step); dgx = d_xw [M, G H] f32; dhn (GRU) the n slice of d_hw
-// [M, H] f32 (the LSTM's d_hw is d_xw).
-template <int CELL>
+// [M, H] f32 (the LSTM's d_hw is d_xw). Warps 0-3 sum dW_x, warps 4-7
+// dW_h, 32 output rows each.
+// HOIST: partial[seed][s] = dW_h [H, G H] alone, with dgx = d_hw and hin,
+// dhn unused; each of the 8 warps sums 16 output rows of it.
+template <int CELL, bool HOIST>
 __global__ void __launch_bounds__(kWgThreads, 2)
 rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
                          const __nv_bfloat16* __restrict__ h_all,
@@ -496,15 +568,20 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
                          int rows_per_slice, long long s_hin,
                          float* __restrict__ partial) {
   constexpr int G = CELL == kLstm ? 4 : 3;
-  constexpr int ND = CELL == kGru ? 2 : 1;  // D tiles: d_xw (, d_hw)
+  // A tiles: hin and h_{t-1} (HOIST: h_{t-1}); D tiles: d_xw and, for the
+  // GRU, d_hw (HOIST: d_hw).
+  constexpr int NA = HOIST ? 1 : 2;
+  constexpr int ND = CELL == kGru && !HOIST ? 2 : 1;
+  constexpr int MT = HOIST ? 1 : 2;  // 16-row output tiles per warp
   constexpr int LDD = kWgCols + 8;
   constexpr int kLoads = kWgRows * kWgCols / 4 / kWgThreads;  // float4 each
   const int GH = G * H;
   const int HP = (H + 31) / 32 * 32;
   const int LA = HP + 8;
   const int CA = HP / 8;  // 16-byte chunks per A row
-  const int a_elems = 2 * kWgRows * LA;
+  const int a_elems = NA * kWgRows * LA;
   const int stage_elems = a_elems + ND * kSplit * kWgRows * LDD;
+  const size_t total = HOIST ? (size_t)H * GH : (size_t)(2 * H * GH + GH);
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -515,7 +592,7 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
     h_all += seed * M * (size_t)H;
     dgx += seed * M * (size_t)GH;
     if (dhn != nullptr) dhn += seed * M * (size_t)H;
-    partial += (seed * gridDim.y) * (size_t)(2 * H * GH + GH);
+    partial += (seed * gridDim.y) * total;
   }
 
   const int tid = threadIdx.x;
@@ -525,8 +602,9 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
   const int s = blockIdx.y;
   const int m_lo = min(M, s * rows_per_slice);
   const int m_hi = min(M, m_lo + rows_per_slice);
-  const int prod = warp >> 2;       // 0: dW_x (hin, d_xw); 1: dW_h
-  const int ko = (warp & 3) * 32;   // the warp's first output row
+  // 0: dW_x (hin, d_xw); 1: dW_h. The warp's first output row.
+  const int prod = HOIST ? 1 : warp >> 2;
+  const int ko = HOIST ? warp * 16 : (warp & 3) * 32;
   const bool active = ko < H;
 
   // The thread's 4 columns of d_gates and its rows dr, dr + 16 of a stage.
@@ -537,15 +615,15 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
   const bool nside = CELL == kGru && j >= 2 * H;  // d_hw's n slice: dn r
 
   auto load_a = [&](int mb, __nv_bfloat16* dst) {
-    for (int i = tid; i < 2 * kWgRows * CA; i += kWgThreads) {
+    for (int i = tid; i < NA * kWgRows * CA; i += kWgThreads) {
       const int p = i / (kWgRows * CA);
       const int rem = i - p * kWgRows * CA;
       const int mm = rem / CA;
       const int k = (rem - mm * CA) * 8;
       const int mrow = mb + mm;
       bool ok = mrow < m_hi && k < H;
-      const __nv_bfloat16* src = hin;
-      if (p == 0) {
+      const __nv_bfloat16* src = h_all;
+      if (p == 0 && !HOIST) {
         if (ok) src = hin + (size_t)mrow * H + k;
       } else {
         ok = ok && mrow % Tn != 0;
@@ -577,10 +655,12 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
     __nv_bfloat16* dt = stage + a_elems;
 #pragma unroll
     for (int q = 0; q < kLoads; ++q) {
-      dbs[0] += dx[q].x;
-      dbs[1] += dx[q].y;
-      dbs[2] += dx[q].z;
-      dbs[3] += dx[q].w;
+      if (!HOIST) {
+        dbs[0] += dx[q].x;
+        dbs[1] += dx[q].y;
+        dbs[2] += dx[q].z;
+        dbs[3] += dx[q].w;
+      }
       const int off = (dr + 16 * q) * LDD + dc;
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
@@ -604,9 +684,9 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
   const int tb_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int tb_col = (lane >> 4) * 8;
 
-  float acc[2][8][4];
+  float acc[MT][8][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -631,14 +711,14 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
     }
     cp_async_commit();
     if (active) {
-      const __nv_bfloat16* A = cur + prod * kWgRows * LA + ko;
+      const __nv_bfloat16* A = cur + (HOIST ? 0 : prod) * kWgRows * LA + ko;
       const __nv_bfloat16* D =
           cur + a_elems + (ND == 2 ? prod : 0) * kSplit * kWgRows * LDD;
 #pragma unroll
       for (int kk = 0; kk < kWgRows / 16; ++kk) {
-        uint32_t a[2][4];
+        uint32_t a[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
           ldmatrix_x4_trans(a[mt], A + (kk * 16 + ta_row) * LA + mt * 16 +
                                        ta_col);
 #pragma unroll
@@ -650,7 +730,7 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
                                       (kk * 16 + tb_row) * LDD + n2 * 16 +
                                       tb_col);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
               mma_bf16(acc[mt][2 * n2], a[mt], make_uint2(bq[0], bq[1]));
               mma_bf16(acc[mt][2 * n2 + 1], a[mt], make_uint2(bq[2], bq[3]));
             }
@@ -661,11 +741,11 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
   }
 
   const size_t hg = (size_t)H * GH;
-  float* out = partial + (size_t)s * (2 * hg + GH);
+  float* out = partial + (size_t)s * total;
   if (active) {
-    float* o = out + (prod == 0 ? 0 : hg + GH);
+    float* o = out + (prod == 0 || HOIST ? 0 : hg + GH);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -677,6 +757,7 @@ rnn_bwd_mma_wgrad_kernel(const __nv_bfloat16* __restrict__ hin,
                 acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
         }
   }
+  if (HOIST) return;
   // db: the 16 row classes' sums added in a fixed order.
   cp_async_wait_all();
   __syncthreads();
@@ -706,7 +787,9 @@ __global__ void rnn_bwd_mma_slices_kernel(const float* __restrict__ partial,
   out[seed * count + i] = acc;
 }
 
-template <int CELL>
+// HOIST: hin is xw, dhin is dxw, and wxp, wxtp, b, dhn are null (see the
+// kernels).
+template <int CELL, bool HOIST>
 cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
                    const void* b, const void* wh, const void* m,
                    const void* h_all, const void* c_all, const void* dh,
@@ -716,8 +799,8 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
   constexpr int G = CELL == kLstm ? 4 : 3;
   constexpr int rows = 16 * kRowTiles;
   const int GH = G * H;
-  const size_t smem1 = recur_smem_bytes(G, H);
-  auto recur = rnn_bwd_mma_recur_kernel<CELL>;
+  const size_t smem1 = recur_smem_bytes(G, H, HOIST);
+  auto recur = rnn_bwd_mma_recur_kernel<CELL, HOIST>;
   cudaError_t err = cudaFuncSetAttribute(
       recur, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
@@ -735,8 +818,8 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
   if (err != cudaSuccess) return err;
 
   const int M = B * Tn;
-  const size_t smem2 = wgrad_smem_bytes(CELL, H);
-  auto wgrad = rnn_bwd_mma_wgrad_kernel<CELL>;
+  const size_t smem2 = wgrad_smem_bytes(CELL, H, HOIST);
+  auto wgrad = rnn_bwd_mma_wgrad_kernel<CELL, HOIST>;
   err = cudaFuncSetAttribute(
       wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err != cudaSuccess) return err;
@@ -748,7 +831,7 @@ cudaError_t launch(const void* hin, const void* wxp, const void* wxtp,
                     st.hin, static_cast<float*>(partial));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = 2 * H * GH + GH;
+  const int total = HOIST ? H * GH : 2 * H * GH + GH;
   rnn_bwd_mma_slices_kernel<<<dim3((total + 255) / 256, seeds), 256, 0,
                               stream>>>(
       static_cast<const float*>(partial), S, total, static_cast<float*>(dw));
@@ -764,8 +847,16 @@ bool supported(int H) { return H >= 16 && H <= 128 && H % 16 == 0; }
 // for a shape the kernels do not take. cell: 0 = LSTM, 1 = GRU.
 extern "C" long long lfm_rnn_fused_bwd_mma_smem(int cell, int H) {
   if (!supported(H)) return -1;
-  const size_t r = recur_smem_bytes(cell == kLstm ? 4 : 3, H);
-  const size_t w = wgrad_smem_bytes(cell, H);
+  const size_t r = recur_smem_bytes(cell == kLstm ? 4 : 3, H, false);
+  const size_t w = wgrad_smem_bytes(cell, H, false);
+  return (long long)(r > w ? r : w);
+}
+
+// The same for the hoisted backward (lfm_rnn_scan_bwd_mma).
+extern "C" long long lfm_rnn_scan_bwd_mma_smem(int cell, int H) {
+  if (!supported(H)) return -1;
+  const size_t r = recur_smem_bytes(cell == kLstm ? 4 : 3, H, true);
+  const size_t w = wgrad_smem_bytes(cell, H, true);
   return (long long)(r > w ? r : w);
 }
 
@@ -797,12 +888,47 @@ extern "C" int lfm_rnn_fused_bwd_mma(int cell, const void* hin,
     return (int)cudaErrorInvalidValue;
   const SeedStrides st{s_hin, s_wx, s_b, s_wh, s_m};
   if (cell == kLstm)
-    return (int)launch<kLstm>(hin, wxp, wxtp, b, wh, m, h_all, c_all, dh,
-                              dhin, dgx, dhn, partial, S, dw, seeds, B, Tn, H,
-                              st, forget_bias, cs);
+    return (int)launch<kLstm, false>(hin, wxp, wxtp, b, wh, m, h_all, c_all,
+                                     dh, dhin, dgx, dhn, partial, S, dw,
+                                     seeds, B, Tn, H, st, forget_bias, cs);
   if (cell == kGru)
-    return (int)launch<kGru>(hin, wxp, wxtp, b, wh, m, h_all, c_all, dh,
-                             dhin, dgx, dhn, partial, S, dw, seeds, B, Tn, H,
-                             st, forget_bias, cs);
+    return (int)launch<kGru, false>(hin, wxp, wxtp, b, wh, m, h_all, c_all,
+                                    dh, dhin, dgx, dhn, partial, S, dw, seeds,
+                                    B, Tn, H, st, forget_bias, cs);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The hoisted backward (the Pallas _bwd_call, pallas_rnn.py:407) in
+// bfloat16 on the tensor cores: kernel 1 with xw [B, T, G H] in place of
+// hin @ W_x + b and no dhin product, kernel 2 with dW_h alone. Per seed:
+// xw [B, T, G H], h_all, c_all (LSTM; the GRU passes null), dh [B, T, H]
+// bf16; wh [H, G H] bf16; m uint8 [B, T]; s_xw, s_wh, s_m their seed
+// strides in elements (0: shared). Out: dxw [seeds, B, T, G H] bf16 and dw
+// [seeds, H G H] f32 (dW_h). Scratch the caller allocates: dgx [seeds, B,
+// T, G H] f32 (d_hw), partial [seeds, S, H G H] f32. Returns the first
+// CUDA error of its three launches.
+extern "C" int lfm_rnn_scan_bwd_mma(int cell, const void* xw, const void* wh,
+                                    const void* m, const void* h_all,
+                                    const void* c_all, const void* dh,
+                                    void* dxw, void* dgx, void* partial,
+                                    int S, void* dw, int seeds, int B, int Tn,
+                                    int H, long long s_xw, long long s_wh,
+                                    long long s_m, float forget_bias,
+                                    void* stream) {
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (seeds <= 0 || seeds > 65535 || B <= 0 || Tn <= 0 || S <= 0 ||
+      S > 65535 || !supported(H))
+    return (int)cudaErrorInvalidValue;
+  const SeedStrides st{s_xw, 0, 0, s_wh, s_m};
+  if (cell == kLstm)
+    return (int)launch<kLstm, true>(xw, nullptr, nullptr, nullptr, wh, m,
+                                    h_all, c_all, dh, dxw, dgx, nullptr,
+                                    partial, S, dw, seeds, B, Tn, H, st,
+                                    forget_bias, cs);
+  if (cell == kGru)
+    return (int)launch<kGru, true>(xw, nullptr, nullptr, nullptr, wh, m,
+                                   h_all, c_all, dh, dxw, dgx, nullptr,
+                                   partial, S, dw, seeds, B, Tn, H, st,
+                                   forget_bias, cs);
   return (int)cudaErrorInvalidValue;
 }

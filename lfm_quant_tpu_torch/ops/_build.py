@@ -41,7 +41,7 @@ LAUNCHES: Dict[str, int] = {
 }
 LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
                 rnn_fused_bwd_mma_lstm=0, rnn_fused_bwd_mma_gru=0,
-                window_gather=0)
+                rnn_bwd_mma_lstm=0, rnn_bwd_mma_gru=0, window_gather=0)
 
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -147,6 +147,8 @@ def library() -> ctypes.CDLL:
                 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_fused_bwd_mma": [ci] + [vp] * 13 + [ci, vp]
                 + [ci] * 4 + [cll] * 5 + [cf, vp],
+                "lfm_rnn_scan_bwd_mma": [ci] + [vp] * 9 + [ci, vp]
+                + [ci] * 4 + [cll] * 3 + [cf, vp],
                 "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 3
                 + [cf, vp],
                 "lfm_rnn_fused_bwd": [ci, ci] + [vp] * 14 + [ci, vp]
@@ -159,7 +161,8 @@ def library() -> ctypes.CDLL:
                 getattr(lib, name).restype = ci
             smem = {"lfm_rnn_fwd_smem": 3, "lfm_rnn_bwd_smem": 3,
                     "lfm_rnn_fused_fwd_mma_smem": 3,
-                    "lfm_rnn_fused_bwd_mma_smem": 2}
+                    "lfm_rnn_fused_bwd_mma_smem": 2,
+                    "lfm_rnn_scan_bwd_mma_smem": 2}
             for name, n in smem.items():
                 getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll

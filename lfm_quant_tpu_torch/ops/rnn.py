@@ -3,11 +3,12 @@
 ``csrc/rnn_bwd.cu``, ``csrc/rnn_fused_bwd_mma.cu``) and their plain
 versions.
 
-The fused forward and the fused backward each have two kernels, picked
-by one rule, :func:`_mma_route`, from the dtype and H alone: bf16 with
-16 <= H <= 128, H % 16 == 0 runs on the tensor cores
-(``rnn_fused_fwd_mma.cu``, ``rnn_fused_bwd_mma.cu``); float32 and every
-other H on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
+The fused forward and both backwards each have two kernels, picked by one
+rule, :func:`_mma_route`, from the dtype and H alone: bf16 with 16 <= H
+<= 128, H % 16 == 0 runs on the tensor cores (``rnn_fused_fwd_mma.cu``;
+``rnn_fused_bwd_mma.cu``, fused and hoisted modes); float32 and every
+other H on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``). The
+hoisted forward runs on ``rnn_fused_fwd.cu`` at every dtype and H.
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -439,14 +440,14 @@ def _launch_bwd(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 
 def _mma_route(dtype: torch.dtype, H: int) -> str:
-    """Which kernels run the fused forward and the fused backward on the
-    card: ``"mma"`` (``csrc/rnn_fused_fwd_mma.cu`` and
+    """Which kernels run the fused forward and the fused and hoisted
+    backwards on the card: ``"mma"`` (``csrc/rnn_fused_fwd_mma.cu`` and
     ``csrc/rnn_fused_bwd_mma.cu``, bf16 tensor cores, W_h resident in
     shared memory, so 16 <= H <= 128 and H % 16 == 0) or ``"simt"``
     (``csrc/rnn_fused_fwd.cu`` and ``csrc/rnn_bwd.cu``, f32 on the CUDA
     cores: float32, which must hold the JAX f32 bound, and every other
-    H). One rule for both directions: the backward reuses the forward's
-    packing of W_x."""
+    H). One rule for both directions: the fused backward reuses the
+    forward's packing of W_x."""
     if dtype == torch.bfloat16 and H % 16 == 0 and 16 <= H <= 128:
         return "mma"
     return "simt"
@@ -656,6 +657,45 @@ def _launch_bwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     return out if stacked else tuple(t[0] for t in out)
 
 
+def _launch_scan_bwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
+                         m: torch.Tensor, h_all: torch.Tensor,
+                         c_all: Optional[torch.Tensor], dh: torch.Tensor,
+                         forget_bias: float):
+    """One call of the tensor-core hoisted backward (the hoisted mode of
+    ``csrc/rnn_fused_bwd_mma.cu``: three kernel launches, counted once)
+    → ``(dxw in xw.dtype, dW_h f32)``. One seed: ``rnn_scan`` runs
+    seed-stacked operands one seed at a time."""
+    B, T = m.shape
+    H = wh.shape[0]
+    G = _GATES[cell] * H
+    dev = xw.device
+    f32 = torch.float32
+    lib = _build.library()
+    smem = lib.lfm_rnn_scan_bwd_mma_smem(_CELL_CODE[cell], H)
+    if smem < 0:
+        raise ValueError(f"the mma backward does not take H={H}")
+    _smem_check(smem, dev, H)
+    xw, wh, h_all, c_all, dh = (None if t is None else _aligned16(t)
+                                for t in (xw, wh, h_all, c_all, dh))
+    keep = m.to(torch.uint8).contiguous()
+    d_hw = torch.empty((B, T, G), dtype=f32, device=dev)
+    slices = _slices(B * T)
+    partial = torch.empty((slices, H * G), dtype=f32, device=dev)
+    dw = torch.empty((H * G,), dtype=f32, device=dev)
+    dxw = torch.empty_like(xw)
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_scan_bwd_mma(
+            _CELL_CODE[cell], xw.data_ptr(), wh.data_ptr(), keep.data_ptr(),
+            h_all.data_ptr(), None if c_all is None else c_all.data_ptr(),
+            dh.data_ptr(), dxw.data_ptr(), d_hw.data_ptr(),
+            partial.data_ptr(), slices, dw.data_ptr(), 1, B, T, H, 0, 0, 0,
+            float(forget_bias), _build.stream_of(xw))
+    name = f"rnn_bwd_mma_{cell}"
+    _build.check(lib, err, name)
+    _build.count_launch(name)
+    return dxw, dw.view(H, G)
+
+
 def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
                   packed=None):
     stacked = hin.dim() == 4
@@ -733,7 +773,8 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
                  c_all: Optional[torch.Tensor], dh: torch.Tensor,
                  forget_bias: float = 1.0):
     """Backward of :func:`rnn_scan` from its saved states → ``(dxw in
-    xw.dtype, dW_h in f32)``."""
+    xw.dtype, dW_h in f32)``; on the card the kernels of
+    :func:`_mma_route`."""
     B, T, G = xw.shape
     H = G // _GATES.get(cell, 1)
     _check_shapes(cell, B, T, H, m, wh)
@@ -742,6 +783,9 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
         return rnn_scan_bwd_reference(cell, xw, wh, m, h_all, c_all, dh,
                                       forget_bias)
     _check_card(xw, wh=wh, m=m, h_all=h_all, c_all=c_all, dh=dh)
+    if _mma_route(xw.dtype, H) == "mma":
+        return _launch_scan_bwd_mma(cell, xw, wh, m, h_all, c_all, dh,
+                                    forget_bias)
     return _launch_bwd(cell, False, xw, None, None, wh, m, h_all, c_all, dh,
                        forget_bias)
 

@@ -166,11 +166,14 @@ def test_rnn_scan_kernel_matches_plain(cuda, cell, dtype, B, T, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 16), (21, 5, 8)])
+@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 24), (21, 5, 8)])
 def test_rnn_bwd_kernels_match_plain(cuda, cell, dtype, B, T, H):
-    """The fused backward (row 4) and the hoisted backward (row 2) against
-    their plain formulas: B not a multiple of the block's 16 rows, T = 1,
-    H not a multiple of 4, an all-invalid row."""
+    """The CUDA-core fused backward (row 4) and hoisted backward (row 2)
+    against their plain formulas: B not a multiple of the block's 16 rows,
+    T = 1, H not a multiple of 4, an all-invalid row. Every width here is
+    one the tensor cores do not take (``_mma_route``), so bf16 runs the
+    CUDA-core kernels too (``tests/test_torch_mma_bwd.py`` holds the
+    tensor-core ones)."""
     hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, B + H,
                                                   dtype, cuda, False)
     got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
@@ -231,31 +234,59 @@ def test_autograd_on_card_matches_cpu(cuda, cell, hoisted):
     (7, 23, 4, 9, 5, 13, 0),     # young, mid and tail anchors
     (7, 5, 4, 9, 3, 6, 0),       # panel shorter than the window
     (11, 64, 6, 60, 4, 33, 3),   # c2's window, a lane-padded panel
+    (7, 30, 8, 9, 3, 10, 0),     # F = 7: W F itemsize % 16 != 0
+    (9, 80, 21, 60, 6, 37, 0),   # c2's window and width: span copies
+    (9, 80, 21, 60, 6, 37, 11),  # the same, lane-padded to Fp = 32
 ])
 def test_gather_kernel_matches_plain(cuda, dtype, N, T, fp, W, D, Bf,
                                      lane_pad):
+    """Bitwise, at shapes that take the span copies (16-byte stores: c2's
+    width in both types, fp = 6 in f32) and the narrow stores (the rest,
+    and every young anchor); ``tests/test_torch_gather_span.py`` says
+    which."""
     xm, fi, ti = _gather_inputs(N, T, fp, W, D, Bf, N + T, dtype, cuda,
                                 lane_pad)
     x, m = gather_windows(xm, fi, ti, W, fp=fp)
     xr, mr = gather_windows_packed(xm, fi, ti, W, fp=fp)
-    assert torch.equal(x, xr) and torch.equal(m, mr)
+    assert torch.equal(x.view(torch.uint8), xr.view(torch.uint8))
+    assert torch.equal(m, mr)
 
 
 @pytest.mark.cuda
-def test_seed_stacked_gather_is_one_launch(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_kernel_clamps_indices_outside_the_panel(cuda, dtype):
+    """Months past the panel's end clamp to its last month and months
+    before its start are masked, as the plain gather does; firm indices
+    clamp to [0, N - 1] (XLA's gather rule), held against the plain gather
+    of the clamped indices."""
+    N, T, fp, W = 9, 80, 21, 60
+    xm, fi, _ = _gather_inputs(N, T, fp, W, 4, 37, 2, dtype, cuda)
+    ti = torch.tensor([T + 5, T - 1, -3, 70], dtype=torch.int32,
+                      device=cuda)
+    fi[1, :3] = torch.tensor([-4, N, N + 7], dtype=torch.int32, device=cuda)
+    x, m = gather_windows(xm, fi, ti, W, fp=fp)
+    xr, mr = gather_windows_packed(xm, fi.clamp(0, N - 1), ti, W, fp=fp)
+    assert torch.equal(x.view(torch.uint8), xr.view(torch.uint8))
+    assert torch.equal(m, mr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp,W,T", [(4, 9, 23), (21, 60, 80)])
+def test_seed_stacked_gather_is_one_launch(cuda, fp, W, T):
     """Index batches [S, D, Bf] over the shared panel fold into one launch
     over S * D date rows (the JAX ``_call_vmap``); each seed's windows are
-    exactly its own one-seed gather's."""
-    S, D, Bf, W = 3, 4, 13, 9
-    xm, _, _ = _gather_inputs(7, 23, 4, W, 1, 1, 5, torch.bfloat16, cuda)
+    exactly its own one-seed gather's (narrow stores at fp 4, span copies
+    at c2's fp 21 and W 60)."""
+    S, D, Bf = 3, 4, 13
+    xm, _, _ = _gather_inputs(7, T, fp, W, 1, 1, 5, torch.bfloat16, cuda)
     rng = np.random.default_rng(6)
     fi = torch.from_numpy(rng.integers(0, 7, (S, D, Bf)).astype(np.int32))
-    ti = torch.from_numpy(rng.integers(0, 23, (S, D)).astype(np.int32))
+    ti = torch.from_numpy(rng.integers(0, T, (S, D)).astype(np.int32))
     fi, ti = fi.to(cuda), ti.to(cuda)
     _build.reset_launch_counts()
     x, m = gather_windows(xm, fi, ti, W)
     assert _build.launch_counts()["window_gather"] == 1
-    assert x.shape == (S, D, Bf, W, 3) and m.shape == (S, D, Bf, W)
+    assert x.shape == (S, D, Bf, W, fp - 1) and m.shape == (S, D, Bf, W)
     for s in range(S):
         xr, mr = gather_windows_packed(xm, fi[s], ti[s], W)
         assert torch.equal(x[s], xr) and torch.equal(m[s], mr)
@@ -266,7 +297,8 @@ def test_seed_stacked_gather_is_one_launch(cuda):
 def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     """float32 (the CUDA-core kernels, no seed grid) with seed-stacked
     operands: one counted launch per seed, forward and backward, each
-    seed's result that seed's one-seed call's; the hoisted form too."""
+    seed's result that seed's one-seed call's; the hoisted form too,
+    forward and backward."""
     S, B, T, H = 3, 21, 5, 16
     per = [_rnn_inputs(cell, B, T, H, s, torch.float32, cuda)
            for s in range(S)]
@@ -294,6 +326,17 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     for s in range(S):
         with torch.no_grad():
             assert torch.equal(h[s], rnn_scan(cell, xw[s], wh[s], m[s]))
+    leaves = [t.clone().requires_grad_(True) for t in (xw, wh)]
+    _build.reset_launch_counts()
+    (rnn_scan(cell, *leaves, m) ** 2).sum().backward()
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fwd_{cell}"] == S and counts[f"rnn_bwd_{cell}"] == S
+    assert counts[f"rnn_bwd_mma_{cell}"] == 0
+    for s in range(S):
+        one = [t[s].clone().requires_grad_(True) for t in (xw, wh)]
+        (rnn_scan(cell, *one, m[s]) ** 2).sum().backward()
+        for g, r in zip(leaves, one):
+            assert torch.equal(g.grad[s], r.grad)
 
 
 @pytest.mark.cuda

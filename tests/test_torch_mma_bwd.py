@@ -1,6 +1,6 @@
-"""The tensor-core fused backward (``csrc/rnn_fused_bwd_mma.cu``): its
-route, its operand layouts and numerics, and — on the card — the kernels
-against their plain version.
+"""The tensor-core backward (``csrc/rnn_fused_bwd_mma.cu``, fused and
+hoisted modes): its route, its operand layouts and numerics, and — on the
+card — the kernels against their plain versions.
 
 This file imports nothing of JAX (``tests/test_torch_rnn_grad.py`` holds
 the plain version to the Pallas kernels at these widths). On the card::
@@ -13,8 +13,9 @@ in Python, and the ldmatrix addresses of the CUDA source (mirrored here
 as the lane formulas of ``rnn_fused_bwd_mma.cu``) run through a model of
 ``ldmatrix`` and ``ldmatrix.trans``. The kernels themselves are held to
 ``rnn_scan_fused_bwd_reference`` in bf16 with gradients scaled by their
-largest magnitude: dhin at atol 0.05 (the JAX package's bf16 bound), the
-f32 weight gradients at 1e-4, which d_gates rounded once to bf16 fails.
+largest magnitude: dhin (the hoisted mode's dxw) at atol 0.05 (the JAX
+package's bf16 bound), the f32 weight gradients at 1e-4, which d_gates
+rounded once to bf16 fails.
 """
 
 import numpy as np
@@ -50,6 +51,39 @@ def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     """The backward takes the forward's rule: it reuses the forward's
     packing of W_x."""
     assert R._mma_route(dtype, H) == route
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("dtype,H,route", [
+    (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 48, "mma"),
+    (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 136, "simt"),
+    (torch.float32, 128, "simt"),
+    (torch.float32, 16, "simt"),
+])
+def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
+                                                        dtype, H, route):
+    """``rnn_scan_bwd`` on the card picks its kernels by ``_mma_route``
+    alone, before any launch: the hoisted mode of the tensor-core source
+    or the CUDA-core hoisted kernel (shape-only tensors on the meta device
+    stand for the card's; the launchers are recorded, not run)."""
+    calls = []
+    G = GATES[cell] * H
+    monkeypatch.setattr(R, "_check_card", lambda *a, **k: None)
+    monkeypatch.setattr(R, "_launch_scan_bwd_mma",
+                        lambda *a: calls.append("mma"))
+    monkeypatch.setattr(R, "_launch_bwd", lambda c, fused, *a:
+                        calls.append("simt" if not fused else "fused"))
+    B, T = 5, 3
+    xw = torch.empty(B, T, G, dtype=dtype, device="meta")
+    wh = torch.empty(H, G, dtype=dtype, device="meta")
+    m = torch.empty(B, T, dtype=torch.bool, device="meta")
+    h = torch.empty(B, T, H, dtype=dtype, device="meta")
+    c = h if cell == "lstm" else None
+    R.rnn_scan_bwd(cell, xw, wh, m, h, c, h)
+    assert calls == [route]
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +422,79 @@ def test_autograd_reuses_the_forward_packing(cuda):
     (out_ref.float() ** 2).sum().backward()
     for g, r in zip(leaves, ref):
         _scaled_close(g.grad, r.grad)
+
+
+def _hoisted_inputs(cell, B, T, H, seed, device, dtype=torch.bfloat16):
+    """The hoisted backward's operands: xw = hin @ W_x + b in ``dtype``
+    and the saved states of the plain forward over it."""
+    hin, wx, b, wh, m, _, _, dh = _bwd_inputs(cell, B, T, H, seed, device,
+                                              dtype)
+    xw = (hin.float() @ wx.float() + b.float()).to(dtype)
+    h, c = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    return (xw, wh, m, h.to(dtype), None if c is None else c.to(dtype), dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 9])
+@pytest.mark.parametrize("B", [1, 37, 2048 + 5])
+@pytest.mark.parametrize("H", [16, 48, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_mma_hoisted_bwd_matches_plain(cuda, cell, H, B, T):
+    """The hoisted mode (``rnn_scan_bwd`` in bf16): dxw (bf16, scaled atol
+    0.05) and dW_h (f32, scaled atol :data:`WGRAD_TOL`) against the plain
+    formulas; B = 37 and 2053 leave the last block part-filled; row 0 is
+    all-invalid and passes no gradient to xw."""
+    args = _hoisted_inputs(cell, B, T, H, B * T + H + 1, cuda)
+    _build.reset_launch_counts()
+    got = R.rnn_scan_bwd(cell, *args)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_bwd_mma_{cell}"] == 1
+    assert counts[f"rnn_bwd_{cell}"] == 0
+    want = R.rnn_scan_bwd_reference(cell, *args)
+    G = GATES[cell] * H
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (B, T, G)
+    assert got[1].dtype == torch.float32 and got[1].shape == (H, G)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all()
+        _scaled_close(g, w, 0.05 if i == 0 else WGRAD_TOL)
+    assert not got[0][0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_mma_hoisted_bwd_bitwise_repeatable(cuda, cell):
+    """The hoisted mode's dW_h sums its row slices in a fixed order: two
+    launches on the same inputs give the same bits."""
+    args = _hoisted_inputs(cell, 2048 + 5, 9, 128, 4, cuda)
+    one = R.rnn_scan_bwd(cell, *args)
+    two = R.rnn_scan_bwd(cell, *args)
+    for a, z in zip(one, two):
+        assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_hoisted_autograd_routes_by_dtype(cuda, cell):
+    """Through ``rnn_scan``'s autograd Function: bf16 at H = 64 moves the
+    tensor-core counter, float32 the CUDA-core one, and both gradients
+    agree with the plain version's."""
+    for dtype, name in ((torch.bfloat16, f"rnn_bwd_mma_{cell}"),
+                        (torch.float32, f"rnn_bwd_{cell}")):
+        xw, wh, m, _, _, _ = _hoisted_inputs(cell, 37, 6, 64, 12, cuda,
+                                             dtype)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xw, wh)]
+        _build.reset_launch_counts()
+        out = R.rnn_scan(cell, *leaves, m)
+        (out.float() ** 2).sum().backward()
+        counts = _build.launch_counts()
+        assert counts[name] == 1 and counts[f"rnn_fwd_{cell}"] == 1
+        assert sum(counts.values()) == 2
+        ref = [t.detach().clone().float().requires_grad_(True)
+               for t in (xw, wh)]
+        (R.rnn_scan_reference(cell, *ref, m).float() ** 2).sum().backward()
+        atol = 0.05 if dtype == torch.bfloat16 else 1e-5
+        for g, r in zip(leaves, ref):
+            _scaled_close(g.grad, r.grad, atol)
 
 
 @pytest.mark.cuda

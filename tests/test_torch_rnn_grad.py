@@ -147,6 +147,30 @@ def test_hoisted_gradients_match_jax(cell, dtype_name, B, T, H):
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_hoisted_gradients_at_tensor_core_width_match_jax(cell):
+    """bf16 at H = 16, a width whose hoisted backward takes the tensor
+    cores on the card (``ops/rnn.py _mma_route``): the plain backward
+    those kernels are held to there, through ``_Scan`` on the CPU, against
+    jax.grad through the Pallas _bwd_call, scaled atol 0.05."""
+    from lfm_quant_tpu_torch.ops.rnn import _mma_route
+
+    assert _mma_route(torch.bfloat16, 16) == "mma"
+    hin, wx, b, wh, m = _inputs(cell, 9, 5, 16, seed=71)
+    wx, wh = wx / np.sqrt(2.0), wh / np.sqrt(2.0)
+    xw = (hin @ wx + b).astype(np.float32)
+    mt = torch.from_numpy(m)
+    got, out = _torch_grads(lambda x, w: rnn_scan(cell, x, w, mt),
+                            (xw, wh), torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (9, 5, 16)
+    want = _jax_grads(
+        lambda x, w: jax_scan(cell, x, w, jnp.asarray(m).astype(x.dtype),
+                              block_b=8),
+        (xw, wh), jnp.bfloat16)
+    for g, w in zip(got, want):
+        _scaled_close(g, w, "bf16")
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_hoisted_forward_matches_jax(cell):
     """Row 1's forward against the Pallas forward in interpret mode."""
     hin, wx, b, wh, m = _inputs(cell, 13, 6, 8, seed=3)
