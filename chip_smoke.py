@@ -12,8 +12,9 @@ imports nothing of JAX. Phases, each fatal on failure:
 3. hold every kernel against its plain PyTorch version on the card (TF32
    off): first at small awkward shapes (odd batch, T = 1, H not a
    multiple of 4, an all-invalid row, f32 and bf16; bf16 at H 16 and 64
-   reaches the tensor-core fused forward and both backwards, the rest the
-   CUDA-core ones, and the launch counters must say so; gathers that take
+   reaches the tensor-core fused forward and both backwards, f32 there
+   the 3xTF32 backwards, the rest the CUDA-core kernels, and the launch
+   counters must say so; gathers that take
    the span copies and the narrow stores, and indices outside the panel)
    — the forward kernels on their outputs, the backward kernels on every
    gradient (scaled by its largest magnitude: f32 atol 1e-5, bf16 0.05,
@@ -30,8 +31,11 @@ imports nothing of JAX. Phases, each fatal on failure:
    hoisted kernel on the same inputs, its private launcher), the hoisted
    CUDA-core forward, each backward's ``torch.matmul`` yardstick for its
    weight-gradient products; in float32 at the train step the CUDA-core
-   lane (rows 1 to 4); two launches of each backward on the same inputs
-   must give bitwise equal weight gradients;
+   forwards (rows 3 and 1) and the 3xTF32 backwards (rows 4 and 2, beside
+   ``rnn_bwd.cu`` on the same inputs), and ``rnn_bwd.cu`` at hidden 120,
+   each f32 row beside its bound at 3xTF32 and at the CUDA cores' rate
+   and its ``torch.matmul`` yardstick (TF32 off); two launches of each
+   backward on the same inputs must give bitwise equal gradients;
 4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
    GRU universes at full width (random weights from a seed), warmed up,
    then closed-loop requests from 4 threads; every served score vector is
@@ -45,9 +49,12 @@ imports nothing of JAX. Phases, each fatal on failure:
    training kernels' counters must have moved. A few steps of the
    hoisted form (``scan_impl="pallas"``: the CUDA-core forward, the
    tensor-core hoisted backward), of the GRU at c2's geometry, fused and
-   hoisted, and of both cells and both forms in float32 (the CUDA-core
-   kernels) run the same way; the hoisted bf16 step is also timed with
-   its backward as routed and sent to the CUDA-core kernel, in turns.
+   hoisted, of both cells and both forms in float32 (the CUDA-core
+   forwards, the 3xTF32 backwards: no CUDA-core backward may launch), and
+   of the same four at hidden 120 (the CUDA-core backwards) run the same
+   way; the hoisted bf16 step and the fused float32 step are also timed
+   with their backward as routed and sent to the CUDA-core kernel, in
+   turns.
    Prints steps/s,
    firm-months/s, ms per step, the forward, backward and optimizer times
    of one step and the device time by kernel;
@@ -83,6 +90,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC_REPO = "lfm_quant_tpu/ops"
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores, H100 SXM
+# An f32-accurate product on the tensor cores: 3xTF32, three TF32 products
+# (495 TFLOP/s dense, H100 SXM) per f32 product.
+H100_3XTF32_FLOPS = 495e12 / 3
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM
 BF16_TOL = 0.05  # atol and rtol: the JAX package's own bf16 bound
 F32_TOL = 1e-5   # atol: the JAX package's f32 bound for the fused op
@@ -92,15 +102,18 @@ F32_TOL = 1e-5   # atol: the JAX package's f32 bound for the fused op
 MMA_WGRAD_TOL = 1e-4
 GATES = {"lstm": 4, "gru": 3}
 TRAIN_STEPS_SHORT = 4  # steps of the hoisted and GRU training runs
-HOISTED_STEPS = 32     # timed steps of each backward in the hoisted c2 step
+HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
 # The device's sleep (clock cycles, about 10 ms) while the host queues the
 # launches that device_ms times.
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
-# kernels of the fused form and of the hoisted backward run on the main
-# paths in float32 only and are measured in float32 at the c2 train step;
-# the hoisted forward runs in both and is measured in both.
+# kernels of the fused form run on the main paths in float32 only and are
+# measured in float32 at the c2 train step; the CUDA-core backwards
+# (``rnn_bwd.cu``) run there at hidden 120 (H % 16 != 0) and are measured
+# in float32 at B 2048, T 60, H 120; the 3xTF32 backwards (``*_tf32_*``) in
+# float32 at the c2 train step; the hoisted forward runs in both dtypes and
+# is measured in both.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -120,6 +133,10 @@ SOURCES = {
     "rnn_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:243"),
     "rnn_bwd_mma_lstm": ("csrc/rnn_fused_bwd_mma.cu", "pallas_rnn.py:184"),
     "rnn_bwd_mma_gru": ("csrc/rnn_fused_bwd_mma.cu", "pallas_rnn.py:243"),
+    "rnn_fused_bwd_tf32_lstm": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:673"),
+    "rnn_fused_bwd_tf32_gru": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:739"),
+    "rnn_bwd_tf32_lstm": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:184"),
+    "rnn_bwd_tf32_gru": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:243"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
 SERVE_KERNELS = ("rnn_fused_fwd_mma_lstm", "rnn_fused_fwd_mma_gru",
@@ -298,10 +315,14 @@ def gather_bound(fi, ti, window: int, fp: int, n_months: int,
 
 
 def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
-              itemsize: int, save_c: bool = False, seeds: int = 1):
+              itemsize: int, save_c: bool = False, seeds: int = 1,
+              f32_flops: float = H100_3XTF32_FLOPS):
     """Least time (ms) of one recurrence kernel call, and what bounds it:
     its products' operations at the peak for its operand type against
     each input read once and each output written once at the memory rate.
+    An f32 product that must hold f32 accuracy runs at ``f32_flops``: by
+    default 3xTF32 on the tensor cores (495 / 3 TFLOP/s), the least time;
+    ``H100_F32_FLOPS`` gives the CUDA cores' 67 TFLOP/s.
 
     Per row and step, one [H] @ [H, G*H] product is 2 G H^2 operations:
     the fused forward does 2 (x and h side), the hoisted forward 1, the
@@ -333,7 +354,7 @@ def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
         else:
             nbytes = xw + states + xw + H * GH * (itemsize + 4)
         nbytes += B * T
-    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
+    peak = H100_BF16_FLOPS if itemsize == 2 else f32_flops
     t_ops = ops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -367,11 +388,14 @@ def check_small(torch, gen) -> None:
                 hin, wx, b, wh, m = rnn_inputs(torch, gen, cell, B, T, H, dt)
                 xw = (hin.float() @ wx.float() + b.float()).to(dt)
                 # bf16 at H 16 and 64 takes the tensor-core forward and
-                # backwards; f32 and the odd widths keep the CUDA-core ones.
+                # backwards, f32 there the 3xTF32 backwards and the
+                # CUDA-core forward; the odd widths keep the CUDA-core ones.
                 mma = R._mma_route(dt, H) == "mma"
+                tag = {"mma": "mma_", "tf32": "tf32_", "simt": ""}[
+                    R._mma_route(dt, H, "bwd")]
                 fwd_kernel = f"rnn_fused_fwd_{'mma_' if mma else ''}{cell}"
-                bwd_kernel = f"rnn_fused_bwd_{'mma_' if mma else ''}{cell}"
-                hoist_kernel = f"rnn_bwd_{'mma_' if mma else ''}{cell}"
+                bwd_kernel = f"rnn_fused_bwd_{tag}{cell}"
+                hoist_kernel = f"rnn_bwd_{tag}{cell}"
                 _build.reset_launch_counts()
                 with torch.no_grad():
                     fused = R.rnn_scan_fused(cell, hin, wx, b, wh, m)
@@ -567,7 +591,8 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
             check_hoisted_bwd(torch, kernels, cell, xw, wh, mm, dh)
             del xw
             # The CUDA-core lane in float32 on the same inputs.
-            check_f32_lane(torch, kernels, cell, hin, wx, bb, wh, mm, dh)
+            check_f32_lane(torch, kernels, cell, hin, wx, bb, wh, mm, dh,
+                           gen)
     torch.cuda.empty_cache()
 
 
@@ -635,24 +660,37 @@ def check_hoisted_bwd(torch, kernels, cell: str, xw, wh, mm, dh) -> None:
     torch.cuda.empty_cache()
 
 
-def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm,
-                   dh) -> None:
-    """The CUDA-core kernels in float32 at the c2 train step, where the
-    float32 training runs launch them: rows 3 and 1 (the fused and the
-    hoisted forward, saving c_all as training does), rows 4 and 2 (the
-    fused and the hoisted backward, each twice for bitwise equal weight
-    gradients), each against its plain version at the JAX package's f32
-    bound (atol 1e-5; gradients scaled by their largest magnitude) and
-    timed beside its bound at the f32 peak outside the tensor cores (TF32
-    would not hold 1e-5). The hoisted forward's float32 record goes under
-    ``f32`` in its bf16 record, the others are their kernels' records."""
+def f32_bounds(kind: str, cell: str, B: int, T: int, H: int,
+               save_c: bool = False) -> dict:
+    """A float32 row's bound at both f32-accurate rates: ``bound_ms`` and
+    ``bound_by`` at 3xTF32 on the tensor cores (the least time),
+    ``bound_f32_simt_ms`` at 67 TFLOP/s on the CUDA cores."""
+    t, by = rnn_bound(kind, cell, B, T, H, 4, save_c)
+    simt, _ = rnn_bound(kind, cell, B, T, H, 4, save_c,
+                        f32_flops=H100_F32_FLOPS)
+    return dict(bound_ms=t, bound_by=by, bound_f32_simt_ms=simt)
+
+
+def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
+                   gen) -> None:
+    """The float32 lane at the c2 train step, where the float32 training
+    runs launch it: rows 3 and 1 (the CUDA-core fused and hoisted forward,
+    saving c_all as training does) against their plain versions at the
+    JAX package's f32 bound (atol 1e-5), and rows 4 and 2 on the 3xTF32
+    kernels (:func:`f32_bwd_rows`); then ``rnn_bwd.cu``, the float32
+    backward of every other width, at hidden 120 on the same rows (seeded
+    weights). Bounds at both f32 rates. The hoisted forward's float32
+    record goes under ``f32`` in its bf16 record, the others are their
+    kernels' records."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     f32 = torch.float32
     hin, wx, b, wh, dh = (t.to(f32) for t in (hin, wx, b, wh, dh))
     B, T, H = hin.shape
-    if R._mma_route(f32, H) != "simt":
-        fail("the float32 lane is not the CUDA-core route")
+    if R._mma_route(f32, H) != "simt" or R._mma_route(f32, H, "bwd") != \
+            "tf32":
+        fail("the float32 lane is not the CUDA-core forward and the 3xTF32 "
+             "backward")
     xw = hin @ wx + b
 
     def fwd_check(name, kind, run, want):
@@ -669,11 +707,11 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm,
         if excess > 0:
             fail(f"{name} (float32) at the train shape: max err {err}")
         del out
-        bound, by = rnn_bound(kind, cell, B, T, H, 4, save_c=True)
         return dict(shape=[B, T, H], dtype="float32", save_c=True,
                     max_abs_err=err, tolerance=f"atol {F32_TOL}",
-                    **kernel_ms(run, reps=5, launches=2), bound_ms=bound,
-                    bound_by=by, library_ms=None)
+                    **kernel_ms(run, reps=5, launches=2),
+                    **f32_bounds(kind, cell, B, T, H, save_c=True),
+                    library_ms=None)
 
     with torch.no_grad():
         want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
@@ -694,32 +732,104 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm,
                                         at="c2 train step", **rec)))
         h, c = want
         del want
-    for kind, name, args, plain in (
-            ("fused_bwd", f"rnn_fused_bwd_{cell}",
-             (cell, hin, wx, b, wh, mm, h, c, dh),
-             R.rnn_scan_fused_bwd_reference),
-            ("bwd", f"rnn_bwd_{cell}", (cell, xw, wh, mm, h, c, dh),
-             R.rnn_scan_bwd_reference)):
-        run = ((lambda a=args: R.rnn_scan_fused_bwd(*a)) if kind ==
-               "fused_bwd" else (lambda a=args: R.rnn_scan_bwd(*a)))
-        want = plain(*args)
-        one = run()
-        two = run()
-        torch.cuda.synchronize()
-        if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
-            fail(f"{name} (float32): two launches differ")
-        err = grads_close(f"{name} (float32) at the train shape", one, want,
-                          f32)
-        del one, two, want
-        bound, by = rnn_bound(kind, cell, B, T, H, 4)
-        report(kernels, name, "c2 train step", dict(
-            shape=[B, T, H], dtype="float32", max_abs_err=err,
-            bitwise_repeatable=True, tolerance=f"scaled atol {F32_TOL}",
-            **kernel_ms(run, reps=5, launches=2),
-            plain_ms=time_ms(lambda a=args: plain(*a), reps=3, warmup=1),
-            bound_ms=bound, bound_by=by, library_ms=None))
+    f32_bwd_rows(torch, kernels, "c2 train step", cell, hin, wx, b, wh, mm,
+                 h, c, dh, xw)
     del h, c, xw
+    # rnn_bwd.cu at hidden 120: the first 120 units of the same rows.
+    H2 = 120
+    G2 = GATES[cell] * H2
+    sd = H2 ** -0.5
+    wx2, wh2 = ((sd * torch.randn(H2, G2, generator=gen)).cuda()
+                for _ in range(2))
+    b2 = (0.1 * torch.randn(G2, generator=gen)).cuda()
+    hin2 = hin[..., :H2].contiguous()
+    dh2 = dh[..., :H2].contiguous()
+    xw2 = hin2 @ wx2 + b2
+    with torch.no_grad():
+        h2, c2 = R.rnn_scan_states(cell, xw2, wh2, mm, 1.0, True)
+    f32_bwd_rows(torch, kernels, f"B {B}, T {T}, H {H2}", cell, hin2, wx2,
+                 b2, wh2, mm, h2, c2, dh2, xw2)
     torch.cuda.empty_cache()
+
+
+def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
+                 h, c, dh, xw) -> None:
+    """Rows 4 and 2 in float32 through the public backwards, on the route's
+    kernels at this H (``rnn_bwd_tf32.cu`` at 16 <= H <= 128, H % 16 == 0;
+    ``rnn_bwd.cu`` otherwise): each launched once per call (counted), twice
+    for bitwise equal outputs, against its plain version at scaled atol
+    1e-5, timed beside both bounds, the plain version and the ``library_ms``
+    yardstick — the weight-gradient products (and, fused, dhin) as f32
+    ``torch.matmul`` with TF32 off, which the port never makes. On the
+    3xTF32 route ``rnn_bwd.cu`` (its private launcher) is timed on the same
+    inputs."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    route = R._mma_route(torch.float32, H, "bwd")
+    tag = "tf32_" if route == "tf32" else ""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind, fused in (("fused_bwd", True), ("bwd", False)):
+        name = f"rnn_{'fused_' if fused else ''}bwd_{tag}{cell}"
+        if fused:
+            args = (cell, hin, wx, b, wh, mm, h, c, dh)
+            public, plain = R.rnn_scan_fused_bwd, R.rnn_scan_fused_bwd_reference
+            simt_args = args[1:]
+        else:
+            args = (cell, xw, wh, mm, h, c, dh)
+            public, plain = R.rnn_scan_bwd, R.rnn_scan_bwd_reference
+            simt_args = (xw, None, None, wh, mm, h, c, dh)
+        want = plain(*args)
+        _build.reset_launch_counts()
+        one = public(*args)
+        if _build.launch_counts()[name] != 1:
+            fail(f"{name} (float32) at {where}: the route launched "
+                 f"{_build.launch_counts()}")
+        two = public(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            fail(f"{name} (float32): two launches differ")
+        err = grads_close(f"{name} (float32) at {where}", one, want,
+                          torch.float32)
+        wgrad_err = max(scaled_err(g, w) for g, w in zip(one[1:], want[1:]))
+        del one, two, want
+        d_xw, d_hw, h_prev = R._scan_bwd_core(cell, xw, wh, mm, h, c, dh,
+                                              1.0)
+        a_h, d_h = h_prev.reshape(-1, H), d_hw.reshape(B * T, -1)
+        if fused:
+            a_x, d_x = hin.reshape(-1, H), d_xw.reshape(B * T, -1)
+            library_ms = time_ms(lambda: (torch.matmul(a_x.T, d_x),
+                                          torch.matmul(a_h.T, d_h),
+                                          torch.matmul(d_x, wx.T)))
+            del a_x, d_x
+        else:
+            library_ms = time_ms(lambda: torch.matmul(a_h.T, d_h))
+        del d_xw, d_hw, h_prev, a_h, d_h
+
+        def run(a=args, f=public):
+            return f(*a)
+
+        rec = dict(shape=[B, T, H], dtype="float32", max_abs_err=err,
+                   wgrad_scaled_err=wgrad_err, bitwise_repeatable=True,
+                   tolerance=f"scaled atol {F32_TOL}",
+                   **kernel_ms(run, reps=5, launches=2),
+                   plain_ms=time_ms(lambda a=args: plain(*a), reps=3,
+                                    warmup=1),
+                   **f32_bounds(kind, cell, B, T, H), library_ms=library_ms)
+        if route == "tf32":
+            cc = kernel_ms(lambda a=simt_args, f=fused: R._launch_bwd(
+                cell, f, *a, 1.0), reps=5, launches=2)
+            rec.update(cuda_core_ms=cc["ms"],
+                       cuda_core_device_ms=cc["device_ms"])
+        report(kernels, name, where, rec)
+        log(f"{name} (float32) at {where}: {rec['ms']:.4f} ms (device "
+            f"{rec['device_ms']:.4f}), rnn_bwd.cu "
+            f"{rec.get('cuda_core_ms', rec['ms']):.4f}, bound "
+            f"{rec['bound_ms']:.4f} (3xTF32) / "
+            f"{rec['bound_f32_simt_ms']:.4f} (CUDA cores), library "
+            f"{library_ms:.4f} ms")
+        torch.cuda.empty_cache()
 
 
 def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
@@ -817,9 +927,10 @@ def profile_device(torch, fn, label: str) -> None:
         log(f"profile:   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
 
 
-def counted(label: str, must_move, fn):
+def counted(label: str, must_move, fn, must_not=()):
     """Run one main path with every launch counter set to 0 just before
-    and read just after; fail if a kernel of the path did not launch."""
+    and read just after; fail if a kernel of the path did not launch, or
+    if one of ``must_not`` did."""
     from lfm_quant_tpu_torch.ops import _build
 
     _build.reset_launch_counts()
@@ -830,6 +941,9 @@ def counted(label: str, must_move, fn):
     for k in must_move:
         if counts[k] == 0:
             fail(f"kernel {k} was not launched by the {label} path")
+    for k in must_not:
+        if counts[k]:
+            fail(f"kernel {k} was launched by the {label} path")
     return out, counts
 
 
@@ -965,30 +1079,52 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     torch.cuda.empty_cache()
 
     # The hoisted form (its backward on the tensor cores in bf16), the GRU
-    # at c2's geometry, and both cells and both forms in float32 (the
-    # CUDA-core kernels): a few steps each.
+    # at c2's geometry, both cells and both forms in float32 (the
+    # CUDA-core forwards, the 3xTF32 backwards; no CUDA-core backward), and
+    # the same at hidden 120 (the CUDA-core backwards): a few steps each.
+    simt_bwd = ("rnn_fused_bwd_lstm", "rnn_fused_bwd_gru", "rnn_bwd_lstm",
+                "rnn_bwd_gru")
+    h120 = dict(cfg.model.kwargs, hidden=120)
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
-             ("rnn_fwd_lstm", "rnn_bwd_mma_lstm", "window_gather")),
+             ("rnn_fwd_lstm", "rnn_bwd_mma_lstm", "window_gather"), ()),
             ("c2 training (fused, float32)", train_variant(cfg, bf16=False),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather")),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_tf32_lstm",
+              "window_gather"), simt_bwd),
             ("c2 training (hoisted, float32)",
              train_variant(cfg, scan_impl="pallas", bf16=False),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
+             ("rnn_fwd_lstm", "rnn_bwd_tf32_lstm", "window_gather"),
+             simt_bwd),
             ("GRU training (fused)", train_variant(cfg, kind="gru"),
              ("rnn_fused_fwd_mma_gru", "rnn_fused_bwd_mma_gru",
-              "window_gather")),
+              "window_gather"), ()),
             ("GRU training (fused, float32)",
              train_variant(cfg, kind="gru", bf16=False),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather")),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_tf32_gru", "window_gather"),
+             simt_bwd),
             ("GRU training (hoisted)",
              train_variant(cfg, kind="gru", scan_impl="pallas"),
-             ("rnn_fwd_gru", "rnn_bwd_mma_gru", "window_gather")),
+             ("rnn_fwd_gru", "rnn_bwd_mma_gru", "window_gather"), ()),
             ("GRU training (hoisted, float32)",
              train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False),
-             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather")))
-    for label, run_cfg, must in runs:
+             ("rnn_fwd_gru", "rnn_bwd_tf32_gru", "window_gather"), simt_bwd),
+            ("c2 training (fused, float32, hidden 120)",
+             train_variant(cfg, bf16=False, kwargs=h120),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
+             ()),
+            ("c2 training (hoisted, float32, hidden 120)",
+             train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h120),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), ()),
+            ("GRU training (fused, float32, hidden 120)",
+             train_variant(cfg, kind="gru", bf16=False, kwargs=h120),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
+             ()),
+            ("GRU training (hoisted, float32, hidden 120)",
+             train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
+                           kwargs=h120),
+             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather"), ()))
+    for label, run_cfg, must, must_not in runs:
         got, counts = counted(label, must, lambda: short_run(
-            torch, run_cfg, splits, TRAIN_STEPS_SHORT))
+            torch, run_cfg, splits, TRAIN_STEPS_SHORT), must_not)
         for k, n_launch in counts.items():
             totals[k] += n_launch
         want = short_run(torch, plain_variant(run_cfg), splits,
@@ -998,16 +1134,28 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
             f"{[round(v, 6) for v in got]} agree with the plain path within "
             f"{err:.4g}")
         torch.cuda.empty_cache()
-    hoisted_step(torch, runs[0][1], splits)
+
+    # Informational, after the counted runs: each step with its backward as
+    # routed and sent to the CUDA-core kernel, in turns.
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    step_in_turns(torch, runs[0][1], splits, "c2 (hoisted)",
+                  "_launch_scan_bwd_mma", {
+                      "tensor cores": R._launch_scan_bwd_mma,
+                      "CUDA cores": lambda cell, *a: R._launch_bwd(
+                          cell, False, a[0], None, None, *a[1:])})
+    step_in_turns(torch, runs[1][1], splits, "c2 (fused, float32)",
+                  "_launch_bwd_tf32", {"tensor cores (3xTF32)":
+                                       R._launch_bwd_tf32,
+                                       "CUDA cores": R._launch_bwd})
 
 
-def hoisted_step(torch, cfg, splits) -> None:
-    """The hoisted bf16 c2 step (``scan_impl="pallas"``) in ms per step,
-    with its backward as routed (the tensor-core hoisted mode) and sent to
-    the CUDA-core hoisted kernel (``_launch_bwd``, the route for float32),
-    in turns: ``HOISTED_STEPS`` steps each, twice, host clock around
-    synchronised work. Informational: it runs after the launch counts of
-    the hoisted run were read."""
+def step_in_turns(torch, cfg, splits, label: str, attr: str,
+                  modes: dict) -> None:
+    """``cfg``'s train step in ms per step with ``ops.rnn.<attr>`` (the
+    backward's launcher of the route) set to each of ``modes`` in turn:
+    ``HOISTED_STEPS`` steps each, twice, host clock around synchronised
+    work; the launcher restored after."""
     from lfm_quant_tpu_torch.ops import rnn as R
     from lfm_quant_tpu_torch.train.loop import Trainer
 
@@ -1015,10 +1163,6 @@ def hoisted_step(torch, cfg, splits) -> None:
     state = trainer.init_state()
     fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
     n = min(HOISTED_STEPS, fi.shape[0])
-
-    def cuda_core(cell, xw, wh, m, h_all, c_all, dh, forget_bias):
-        return R._launch_bwd(cell, False, xw, None, None, wh, m, h_all, c_all,
-                             dh, forget_bias)
 
     def per_step():
         s = state
@@ -1031,22 +1175,19 @@ def hoisted_step(torch, cfg, splits) -> None:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
 
-    routed = R._launch_scan_bwd_mma
-    times = {"tensor_cores": [], "cuda_cores": []}
+    routed = getattr(R, attr)
+    times = {mode: [] for mode in modes}
     try:
         for _ in range(2):
-            for mode, launcher in (("tensor_cores", routed),
-                                   ("cuda_cores", cuda_core)):
-                R._launch_scan_bwd_mma = launcher
+            for mode, launcher in modes.items():
+                setattr(R, attr, launcher)
                 times[mode].append(per_step())
     finally:
-        R._launch_scan_bwd_mma = routed
-    log("train c2 (hoisted) steady state, ms/step in turns: "
-        + ", ".join(f"backward on the {label} "
+        setattr(R, attr, routed)
+    log(f"train {label} steady state, ms/step in turns: "
+        + ", ".join(f"backward on the {mode} "
                     f"{[round(t, 3) for t in times[mode]]}"
-                    for mode, label in (("tensor_cores", "tensor cores"),
-                                        ("cuda_cores", "CUDA cores")))
-        + f" ({n} steps each)")
+                    for mode in modes) + f" ({n} steps each)")
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -1529,14 +1670,16 @@ def main() -> int:
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
+    f32_fields = fields + ("bound_f32_simt_ms",)
     for k, (src, rep) in SOURCES.items():
         # The largest shape the main paths gave the kernel.
         meas = max(kernels[k], key=lambda r: int(np.prod(r["shape"])))
-        rec = {f: meas.get(f) for f in fields}
-        if "dtype" in meas:
+        f32 = meas.get("dtype") == "float32"
+        rec = {f: meas.get(f) for f in (f32_fields if f32 else fields)}
+        if f32:
             rec["dtype"] = meas["dtype"]
         if "f32" in meas:
-            rec["f32"] = {f: meas["f32"].get(f) for f in fields}
+            rec["f32"] = {f: meas["f32"].get(f) for f in f32_fields}
         line.append(dict(name=k, route="cuda",
                          source=f"lfm_quant_tpu_torch/{src}",
                          replaces=f"{SRC_REPO}/{rep}", launches=totals[k],

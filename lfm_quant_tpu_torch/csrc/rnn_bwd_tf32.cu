@@ -1,0 +1,1056 @@
+// Masked LSTM/GRU recurrence, fused and hoisted backward, in float32 on
+// Hopper's tensor cores: 3xTF32 products (mma.sync m16n8k8 .tf32, f32
+// accumulation) and, at H = 128, W_h split across a 2-CTA cluster.
+//
+// Replaces, in float32 with 16 <= H <= 128 and H % 16 == 0 (ops/rnn.py
+// _mma_route), the Pallas TPU kernels _lstm_fused_bwd_kernel
+// (lfm_quant_tpu/ops/pallas_rnn.py:673) and _gru_fused_bwd_kernel (:739),
+// reached through _fused_bwd_call (:835), and _lstm_bwd_kernel (:184) and
+// _gru_bwd_kernel (:243), reached through _bwd_call (:407). It computes what
+// csrc/rnn_bwd.cu computes in float32 (the formulas are written out there).
+//
+// Numerics. Every product with an f32 operand splits it, x = hi + lo with
+// hi = tf32(x) (10 mantissa bits, rounded to nearest, ties away from zero:
+// the bits of cvt.rna.tf32.f32) and lo = x - hi truncated to TF32, and
+// runs three mma.sync per product, a_lo b_hi and a_hi b_lo before a_hi
+// b_hi into one f32 accumulator; the dropped a_lo b_lo term and the
+// truncation of lo leave a relative error near 2^-21 per product (one TF32
+// term alone keeps about 11 bits: 2^-11). The tensor cores add into
+// their f32 accumulator with truncation, so no accumulator takes more than
+// 64 of k (24 mma.sync) before its sum is added to an f32 register (the
+// recurrence's products: kChainK; the weight gradients and the GEMM: one
+// stage). The cell's arithmetic is f32 with the accurate expf/tanhf and the
+// rounding points of csrc/rnn_bwd.cu.
+//
+// Bound. At the c2 train step (B 2048, T 60, H 128, LSTM, f32) the fused
+// function is 6 products of 2 H G H per row and step: 9.7e10 operations,
+// 1.44 ms at 67 TFLOP/s outside the tensor cores and 0.585 ms at the 3xTF32
+// rate (495 / 3 TFLOP/s), against 0.3 GB of inputs and outputs; the hoisted
+// form does 3 of the 6 (0.72 and 0.29 ms). Bound by operations either way.
+//
+// Design: the fused form is GEMM + the hoisted recurrence + GEMM.
+//
+// * Kernel 0 (fused form), a 3xTF32 GEMM: xw = hin @ W_x + b in f32 into the
+//   d_gates buffer, which kernel 1 then overwrites in place: each thread
+//   reads its xw_t a step ahead and writes d_xw_t at the same addresses.
+// * Kernel 1, the hoisted reverse recurrence. A cluster of C CTAs (C = 2 at
+//   H = 128 in both cells; C = 1 where W_h fits beside the tiles) owns
+//   kRowTiles x 16 rows for all T steps. CTA j owns the hidden units [j H/C,
+//   (j + 1) H/C) with all G gates, and holds their W_h columns once in
+//   shared memory, f32, row-major [H, G H/C + 4] (133 KB for the LSTM at
+//   H = 128): warp w owns 8 of them, so the gate sums, the cell's backward
+//   and the dh, dc carries of a (row, unit) sit in one thread's registers.
+//   Per step: the recompute xw_t + h_{t-1} @ W_h[:, own] (h_{t-1} for all H
+//   units from the saved h_all, double-buffered by cp.async; xw_t loaded
+//   into registers a step ahead); the cell writes d_xw_t (f32; the GRU
+//   also its h-side n slice dn r) to device memory and d_hw into a shared
+//   tile;
+//   the carry's product d_hw @ W_h^T over the CTA's own columns gives a
+//   partial [rows, H]; each CTA stores the peer's units of it into the
+//   peer's shared memory (distributed shared memory, double-buffered, one
+//   cluster barrier per step) and adds what it received, rank 0's partial
+//   first, so the sums are bitwise repeatable. Fragments are read with
+//   32-bit shared loads; the recompute's k order within an 8-step is
+//   permuted (lane c takes k = 2c, 2c + 1: one 64-bit load of h) so that
+//   one padding of W_h (4 floats) serves both products without bank
+//   conflicts.
+// * Kernel 2, the weight gradients: a block owns one product (dW_x = hin^T
+//   d_xw with db = sum d_xw, or dW_h = h_{t-1}^T d_hw), 64 gate columns and
+//   a slice of rows; per-slice partial sums, and kernel 3 adds the slices
+//   in a fixed order. No atomics.
+// * Kernel 4 (fused form), the GEMM of kernel 0: dhin = d_xw @ W_x^T.
+// * Seeds (pallas_rnn.py _bwd_vmap :951): the seed is blockIdx.y of kernels
+//   1 and 3 and blockIdx.z of kernels 0, 2 and 4; each shared operand has
+//   its own seed stride (0: shared), every per-seed offset is 64-bit, and a
+//   seed's outputs are bitwise those of a one-seed launch.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using lfm_mma::cp_async16;
+using lfm_mma::cp_async_commit;
+using lfm_mma::cp_async_wait_all;
+
+constexpr int kLstm = 0;
+constexpr int kGru = 1;
+constexpr int kUnits = 8;     // hidden units per warp of kernel 1
+constexpr int kRowTiles = 2;  // 16-row tiles per CTA of kernel 1
+// k per mma chain before its sum is added to an f32 register (the tensor
+// cores' f32 accumulation truncates, so long chains drift toward zero).
+constexpr int kChainK = 64;
+// Kernel 2: gate columns per block, rows per stage, threads.
+constexpr int kWgCols = 64;
+constexpr int kWgRows = 32;
+constexpr int kWgThreads = 256;
+// The GEMM: output rows and columns per tile, k per stage, shared-memory
+// stages, tiles per block, threads.
+constexpr int kGmRows = 128;
+constexpr int kGmCols = 64;
+constexpr int kGmK = 32;
+constexpr int kGmStages = 3;
+constexpr int kGmTiles = 4;
+constexpr int kGmThreads = 256;
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return __frcp_rn(1.0f + expf(-v));
+}
+
+// v = hi + lo: hi = tf32(v), rounded to nearest with ties away from zero
+// (half a TF32 ulp added to the magnitude's bits, then the low 13 bits
+// cleared: the bits cvt.rna.tf32.f32 gives), and lo = v - hi (exact in f32)
+// truncated to TF32. Integer operations, at the ALUs' full rate: forming
+// both halves by the conversion instruction made the fused LSTM backward
+// 18% slower at the c2 train step (scripts/torch_mma_variants.py --kernel
+// bwd_tf32, variant cvt_rna).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;
+}
+
+// The m16n8k8 A fragment (a0 (g, k0), a1 (g + 8, k0), a2 (g, k1), a3 (g + 8,
+// k1)) and B fragment (b0 (k0, g), b1 (k1, g)), split.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void frag_a(FragA& f, float a0, float a1, float a2,
+                                       float a3) {
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+}
+
+__device__ __forceinline__ void frag_b(FragB& f, float b0, float b1) {
+  split_tf32(b0, f.hi[0], f.lo[0]);
+  split_tf32(b1, f.hi[1], f.lo[1]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: the two small terms, then the large one.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Seed strides in elements of the operands that may be shared (0: shared).
+struct SeedStrides {
+  long long xw, wh, m;
+};
+
+// Kernel 1's shared memory, f32: W_h's own columns [H, G H/C + 4], two
+// h_{t-1} tiles [rows, H + 8], the d_hw tile [rows, G H/C + 4] and (C > 1)
+// two receive buffers [rows, H/C + 8]. ops/rnn.py _tf32_smem mirrors it.
+inline size_t recur_smem_bytes(int G, int H, int C) {
+  const size_t rows = 16 * kRowTiles;
+  const size_t Hc = H / C, GHc = G * Hc;
+  return 4 * ((size_t)H * (GHc + 4) + 2 * rows * (H + 8) + rows * (GHc + 4) +
+              (C > 1 ? 2 * rows * (Hc + 8) : 0));
+}
+
+// Kernel 2's: two stages of the A tile [kWgRows][H + 8] and the D tile
+// [kWgRows][kWgCols + 8], f32.
+inline size_t wgrad_smem_bytes(int H) {
+  return 4 * 2 * ((size_t)kWgRows * (H + 8) + (size_t)kWgRows * (kWgCols + 8));
+}
+
+// The GEMM's: kGmStages stages of A [kGmRows][kGmK + 4] and of B ([kGmK]
+// [kGmCols + 8], or transposed [kGmCols][kGmK + 4]: the larger).
+inline size_t gemm_smem_bytes() {
+  const size_t b = (size_t)kGmK * (kGmCols + 8) > (size_t)kGmCols * (kGmK + 4)
+                       ? (size_t)kGmK * (kGmCols + 8)
+                       : (size_t)kGmCols * (kGmK + 4);
+  return 4 * kGmStages * ((size_t)kGmRows * (kGmK + 4) + b);
+}
+
+// Kernel 1, per seed (blockIdx.y), CTA rank j of a cluster of C along x.
+// xw [B, T, G H] f32, the gates' x side with the bias (fused form: the
+// d_gates buffer itself, overwritten in place); wh [H, G H]; m uint8 [B,
+// T]; h_all, c_all (LSTM), dh [B, T, H] f32. Out: dgx = d_xw [B, T, G H]
+// f32 (the hoisted form's dxw); dhn (GRU) = dn r [B, T, H] f32. xw and dgx
+// may alias: no __restrict__ on them.
+template <int CELL, int C>
+__global__ void __launch_bounds__(C == 1 ? 448 : 256, 1)
+rnn_bwd_tf32_recur_kernel(const float* xw, const float* __restrict__ wh,
+                          const uint8_t* __restrict__ m,
+                          const float* __restrict__ h_all,
+                          const float* __restrict__ c_all,
+                          const float* __restrict__ dh, float* dgx,
+                          float* __restrict__ dhn, int B, int Tn, int H,
+                          SeedStrides st, float forget_bias) {
+  constexpr int G = CELL == kLstm ? 4 : 3;
+  constexpr int RT = kRowTiles;
+  constexpr int BB = 16 * RT;  // rows per CTA
+  const int GH = G * H;
+  const int Hc = H / C;        // units per CTA
+  const int GHc = G * Hc;      // own W_h columns
+  const int LW = GHc + 4;      // W_h row stride
+  const int LD = H + 8;        // h tile row stride
+  const int LG = GHc + 4;      // d_hw tile row stride
+  const int LR = Hc + 8;       // receive buffer row stride
+
+  extern __shared__ __align__(16) float smem[];
+  float* wh_s = smem;
+  float* h_s = wh_s + (size_t)H * LW;
+  float* dg_s = h_s + 2 * BB * LD;
+  float* recv_s = dg_s + BB * LG;  // C > 1
+
+  {
+    const size_t seed = blockIdx.y;
+    const size_t seq = (size_t)B * Tn * H;
+    xw += seed * st.xw;
+    wh += seed * st.wh;
+    m += seed * st.m;
+    h_all += seed * seq;
+    if (c_all != nullptr) c_all += seed * seq;
+    dh += seed * seq;
+    dgx += seed * seq * G;
+    if (dhn != nullptr) dhn += seed * seq;
+  }
+
+  int rank = 0;
+  if constexpr (C > 1) rank = (int)cg::this_cluster().block_rank();
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int r0 = (blockIdx.x / C) * BB;
+  const int nr = min(BB, B - r0);
+  const int ul = warp * kUnits + 2 * c4;  // local unit (+ e)
+  const int u = rank * Hc + ul;           // unit of the states and W_h rows
+
+  // W_h's columns of this CTA's units, every gate: wh_s[k][q Hc + i] =
+  // W_h[k][q H + j Hc + i].
+  {
+    const int CW = Hc / 4;
+    for (int i = tid; i < H * G * CW; i += nth) {
+      const int k = i / (G * CW);
+      const int rem = i - k * G * CW;
+      const int q = rem / CW;
+      const int j = (rem - q * CW) * 4;
+      cp_async16(wh_s + (size_t)k * LW + q * Hc + j,
+                 wh + (size_t)k * GH + q * H + rank * Hc + j, 16);
+    }
+  }
+  // h_{t-1} for every unit into tile `buf`; rows past B and h_{-1} are 0.
+  auto load_h = [&](int t, int buf) {
+    float* hd = h_s + buf * BB * LD;
+    const int CH = H / 4;
+    for (int i = tid; i < BB * CH; i += nth) {
+      const int r = i / CH;
+      const int k = (i - r * CH) * 4;
+      const bool hv = r < nr && t > 0;
+      cp_async16(hd + r * LD + k,
+                 hv ? h_all + ((size_t)(r0 + r) * Tn + t - 1) * H + k : h_all,
+                 hv ? 16 : 0);
+    }
+  };
+  load_h(Tn - 1, (Tn - 1) & 1);
+  cp_async_commit();
+  // Every CTA of the cluster runs before any stores into another's memory.
+  if constexpr (C > 1) cluster_arrive();
+
+  // Carries, [rt][half * 2 + e] as the accumulators: dh, and for the LSTM
+  // dc and c_t (the next step's c_{t-1} is read one step ahead).
+  float dhc[RT][4], dcc[RT][4], ccur[RT][4];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = rt * 16 + g + 8 * half;
+      float2 c = make_float2(0.0f, 0.0f);
+      if (CELL == kLstm && r < nr)
+        c = *reinterpret_cast<const float2*>(
+            c_all + ((size_t)(r0 + r) * Tn + Tn - 1) * H + u);
+      ccur[rt][2 * half] = c.x;
+      ccur[rt][2 * half + 1] = c.y;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dhc[rt][2 * half + e] = 0.0f;
+        dcc[rt][2 * half + e] = 0.0f;
+      }
+    }
+
+  // The thread's xw pairs (row, gate q, units u, u + 1), a step ahead.
+  float2 xwn[RT][2][G];
+  auto load_xw = [&](int t) {
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rt * 16 + g + 8 * half;
+        const size_t row = (size_t)(r0 + r) * Tn + t;
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+          xwn[rt][half][q] =
+              r < nr ? *reinterpret_cast<const float2*>(xw + row * GH +
+                                                        q * H + u)
+                     : make_float2(0.0f, 0.0f);
+      }
+  };
+  load_xw(Tn - 1);
+  if constexpr (C > 1) cluster_wait();
+
+  for (int t = Tn - 1; t >= 0; --t) {
+    const int cur = t & 1;
+    cp_async_wait_all();
+    // h_{t-1} is in place; every warp is done with the other tile.
+    __syncthreads();
+    if (t > 0) load_h(t - 1, cur ^ 1);
+    cp_async_commit();
+    const float* ht = h_s + cur * BB * LD;
+
+    // This step's elementwise inputs, loaded ahead of the products.
+    bool keep[RT][2];
+    float dup[RT][4], cprev[RT][4];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rt * 16 + g + 8 * half;
+        const bool in = r < nr;
+        const size_t row = (size_t)(r0 + r) * Tn + t;
+        keep[rt][half] = in && m[row] != 0;
+        float2 d = make_float2(0.0f, 0.0f), c = make_float2(0.0f, 0.0f);
+        if (in) {
+          d = *reinterpret_cast<const float2*>(dh + row * H + u);
+          if (CELL == kLstm && t > 0)
+            c = *reinterpret_cast<const float2*>(c_all + (row - 1) * H + u);
+        }
+        dup[rt][2 * half] = d.x;
+        dup[rt][2 * half + 1] = d.y;
+        cprev[rt][2 * half] = c.x;
+        cprev[rt][2 * half + 1] = c.y;
+      }
+
+    // The h side of the gates: h_{t-1} @ W_h[:, own], lane c taking k0 + 2c
+    // and k0 + 2c + 1 of each 8-step in both operands.
+    float acc[RT][G][4];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[rt][q][i] = 0.0f;
+    for (int kc = 0; kc < H; kc += kChainK) {
+      float cacc[RT][G][4];
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cacc[rt][q][i] = 0.0f;
+      for (int k0 = kc; k0 < min(H, kc + kChainK); k0 += 8) {
+        FragB bw[G];
+        const float* wp =
+            wh_s + (size_t)(k0 + 2 * c4) * LW + warp * kUnits + g;
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+          frag_b(bw[q], wp[q * Hc], wp[q * Hc + LW]);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          const float* hp = ht + (rt * 16 + g) * LD + k0 + 2 * c4;
+          const float2 x0 = *reinterpret_cast<const float2*>(hp);
+          const float2 x1 = *reinterpret_cast<const float2*>(hp + 8 * LD);
+          FragA a;
+          frag_a(a, x0.x, x1.x, x0.y, x1.y);
+#pragma unroll
+          for (int q = 0; q < G; ++q) mma3(cacc[rt][q], a, bw[q]);
+        }
+      }
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[rt][q][i] += cacc[rt][q][i];
+    }
+
+    // The cell's backward, in registers: d_xw (and the GRU's dn r) to
+    // device memory, d_hw to the shared tile; the carries' elementwise part.
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rt * 16 + g + 8 * half;
+        const size_t row = (size_t)(r0 + r) * Tn + t;
+        const float kp = keep[rt][half] ? 1.0f : 0.0f;
+        float dg[4][2];  // [gate][e]; GRU: 3 = dn r
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * half + e;
+          float xq[G];
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+            xq[q] = e ? xwn[rt][half][q].y : xwn[rt][half][q].x;
+          const float dh_t = dup[rt][i] + dhc[rt][i];
+          const float dh_new = kp * dh_t;
+          if (CELL == kLstm) {
+            const float ig = sigmoid(xq[0] + acc[rt][0][i]);
+            const float fg = sigmoid((xq[1] + acc[rt][1][i]) + forget_bias);
+            const float gg = tanhf(xq[2] + acc[rt][2][i]);
+            const float og = sigmoid(xq[G - 1] + acc[rt][G - 1][i]);
+            const float dc_t = dcc[rt][i];
+            const float dc_new = kp * dc_t;
+            const float tc = tanhf(ccur[rt][i]);
+            const float do_ = dh_new * tc;
+            const float dc_tot = dc_new + dh_new * og * (1.0f - tc * tc);
+            dg[0][e] = (dc_tot * gg) * ig * (1.0f - ig);
+            dg[1][e] = (dc_tot * cprev[rt][i]) * fg * (1.0f - fg);
+            dg[2][e] = (dc_tot * ig) * (1.0f - gg * gg);
+            dg[3][e] = do_ * og * (1.0f - og);
+            dhc[rt][i] = (1.0f - kp) * dh_t;
+            dcc[rt][i] = (1.0f - kp) * dc_t + dc_tot * fg;
+            ccur[rt][i] = cprev[rt][i];
+          } else {
+            const float h_prev = ht[r * LD + u + e];
+            const float z = sigmoid(xq[0] + acc[rt][0][i]);
+            const float rg = sigmoid(xq[1] + acc[rt][1][i]);
+            const float hn = acc[rt][2][i];
+            const float n = tanhf(xq[2] + rg * hn);
+            const float dz = dh_new * (h_prev - n);
+            const float dn_raw = dh_new * (1.0f - z) * (1.0f - n * n);
+            const float dr = dn_raw * hn;
+            dg[0][e] = dz * z * (1.0f - z);
+            dg[1][e] = dr * rg * (1.0f - rg);
+            dg[2][e] = dn_raw;
+            dg[3][e] = dn_raw * rg;
+            dhc[rt][i] = (1.0f - kp) * dh_t + dh_new * z;
+          }
+        }
+        if (r < nr) {
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+            *reinterpret_cast<float2*>(dgx + row * GH + q * H + u) =
+                make_float2(dg[q][0], dg[q][1]);
+          if (CELL == kGru)
+            *reinterpret_cast<float2*>(dhn + row * H + u) =
+                make_float2(dg[3][0], dg[3][1]);
+        }
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          const int qh = CELL == kGru && q == 2 ? 3 : q;
+          *reinterpret_cast<float2*>(dg_s + r * LG + q * Hc + ul) =
+              make_float2(dg[qh][0], dg[qh][1]);
+        }
+      }
+    if (t > 0) load_xw(t - 1);
+    __syncthreads();  // the d_hw tile is complete
+
+    // The carry's product over the CTA's own columns: the partial d_hw @
+    // W_h^T for the units of each CTA rank rr (warp w: units rr Hc + 8 w ..).
+    float pacc[C][RT][4];
+#pragma unroll
+    for (int rr = 0; rr < C; ++rr)
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pacc[rr][rt][i] = 0.0f;
+    for (int jc = 0; jc < GHc; jc += kChainK) {
+      float cacc[C][RT][4];
+#pragma unroll
+      for (int rr = 0; rr < C; ++rr)
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cacc[rr][rt][i] = 0.0f;
+      for (int j0 = jc; j0 < min(GHc, jc + kChainK); j0 += 8) {
+        FragB bw[C];
+#pragma unroll
+        for (int rr = 0; rr < C; ++rr) {
+          const float* p =
+              wh_s + (size_t)(rr * Hc + warp * kUnits + g) * LW + j0 + c4;
+          frag_b(bw[rr], p[0], p[4]);
+        }
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          const float* p = dg_s + (rt * 16 + g) * LG + j0 + c4;
+          FragA a;
+          frag_a(a, p[0], p[8 * LG], p[4], p[8 * LG + 4]);
+#pragma unroll
+          for (int rr = 0; rr < C; ++rr) mma3(cacc[rr][rt], a, bw[rr]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < C; ++rr)
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pacc[rr][rt][i] += cacc[rr][rt][i];
+    }
+
+    if constexpr (C > 1) {
+      // The peer's units to the peer's receive buffer, then one cluster
+      // barrier, then rank 0's partial + rank 1's, in that order.
+      float* mine_buf = recv_s + cur * BB * LR;
+      float* peer_buf = cg::this_cluster().map_shared_rank(mine_buf, rank ^ 1);
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = rt * 16 + g + 8 * half;
+          const int i = 2 * half;
+          *reinterpret_cast<float2*>(peer_buf + r * LR + ul) =
+              rank == 0 ? make_float2(pacc[1][rt][i], pacc[1][rt][i + 1])
+                        : make_float2(pacc[0][rt][i], pacc[0][rt][i + 1]);
+        }
+      cluster_arrive();
+      cluster_wait();
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = rt * 16 + g + 8 * half;
+          const float2 p =
+              *reinterpret_cast<const float2*>(mine_buf + r * LR + ul);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * half + e;
+            const float got = e ? p.y : p.x;
+            const float sum = rank == 0 ? pacc[0][rt][i] + got
+                                        : got + pacc[C - 1][rt][i];
+            dhc[rt][i] = dhc[rt][i] + sum;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dhc[rt][i] = dhc[rt][i] + pacc[0][rt][i];
+    }
+  }
+  // No CTA leaves while a peer could still touch its shared memory.
+  if constexpr (C > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// Kernel 2: per seed (blockIdx.z) and row slice s, partial[seed][s] = [dW_x
+// [H, G H], db [G H], dW_h [H, G H]] (fused) or dW_h alone (hoisted) over
+// the rows m_lo .. m_hi - 1 of the seed's B T. A block computes one product
+// (fused: blockIdx.x % 2 = 0 dW_x and db, 1 dW_h; hoisted: dW_h) for the 64
+// gate columns j0 .. of column block blockIdx.x / 2 (hoisted: blockIdx.x),
+// each of its 8 warps 16 output rows. Its A operand is hin [M, H] (seed
+// stride s_hin) or h_all [M, H] read shifted (row m takes m - 1 within its
+// sequence of Tn rows, zero at the first step); its D operand d_xw = dgx
+// [M, G H] or d_hw (the GRU's n slice from dhn [M, H], dn r; the LSTM's
+// d_hw is d_xw). Per stage of kWgRows rows both arrive by cp.async in f32
+// and are split at fragment load. (Splitting d_gates once into hi and lo
+// planes instead measured slower: its fragments double the shared-memory
+// traffic per mma.)
+template <int CELL, bool FUSED>
+__global__ void __launch_bounds__(kWgThreads, 2)
+rnn_bwd_tf32_wgrad_kernel(const float* __restrict__ hin,
+                          const float* __restrict__ h_all,
+                          const float* __restrict__ dgx,
+                          const float* __restrict__ dhn, int M, int Tn, int H,
+                          int rows_per_slice, long long s_hin,
+                          float* __restrict__ partial) {
+  constexpr int G = CELL == kLstm ? 4 : 3;
+  constexpr int LDD = kWgCols + 8;
+  const int GH = G * H;
+  const int LA = H + 8;
+  const int a_elems = kWgRows * LA;
+  const int stage_elems = a_elems + kWgRows * LDD;
+  const size_t hg = (size_t)H * GH;
+  const size_t total = FUSED ? 2 * hg + GH : hg;
+
+  extern __shared__ __align__(16) float smem[];
+
+  {
+    const size_t seed = blockIdx.z;
+    if (FUSED) hin += seed * s_hin;
+    h_all += seed * M * (size_t)H;
+    dgx += seed * M * (size_t)GH;
+    if (dhn != nullptr) dhn += seed * M * (size_t)H;
+    partial += (seed * gridDim.y) * total;
+  }
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  // 0: dW_x and db (hin, d_xw); 1: dW_h (h_{t-1}, d_hw).
+  const int prod = FUSED ? blockIdx.x & 1 : 1;
+  const int j0 = (FUSED ? blockIdx.x >> 1 : blockIdx.x) * kWgCols;
+  const int s = blockIdx.y;
+  const int m_lo = min(M, s * rows_per_slice);
+  const int m_hi = min(M, m_lo + rows_per_slice);
+  const int ko = warp * 16;  // the warp's first output row
+
+  auto load_stage = [&](int mb, float* dst) {
+    const int CA = H / 4;
+    for (int i = tid; i < kWgRows * CA; i += kWgThreads) {
+      const int mm = i / CA;
+      const int k = (i - mm * CA) * 4;
+      const int mrow = mb + mm;
+      bool ok = mrow < m_hi;
+      const float* src = h_all;
+      if (prod == 0) {
+        if (ok) src = hin + (size_t)mrow * H + k;
+      } else {
+        ok = ok && mrow % Tn != 0;
+        if (ok) src = h_all + (size_t)(mrow - 1) * H + k;
+      }
+      cp_async16(dst + mm * LA + k, src, ok ? 16 : 0);
+    }
+    constexpr int CD = kWgCols / 4;
+    for (int i = tid; i < kWgRows * CD; i += kWgThreads) {
+      const int mm = i / CD;
+      const int jc = (i - mm * CD) * 4;
+      const int j = j0 + jc;
+      const int mrow = mb + mm;
+      const bool ok = mrow < m_hi && j < GH;
+      const bool nside = CELL == kGru && prod == 1 && j >= 2 * H;
+      const float* src =
+          !ok ? dgx
+              : nside ? dhn + (size_t)mrow * H + j - 2 * H
+                      : dgx + (size_t)mrow * GH + j;
+      cp_async16(dst + a_elems + mm * LDD + jc, src, ok ? 16 : 0);
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+  float dbs = 0.0f;  // column tid % 64, rows tid / 64 + 4 i of each stage
+
+  if (m_lo < m_hi) load_stage(m_lo, smem);
+  cp_async_commit();
+  int it = 0;
+  for (int mb = m_lo; mb < m_hi; mb += kWgRows, ++it) {
+    const float* cur = smem + (it & 1) * stage_elems;
+    float* nxt = smem + ((it & 1) ^ 1) * stage_elems;
+    cp_async_wait_all();
+    __syncthreads();  // this stage is in place; the other one is free
+    if (mb + kWgRows < m_hi) load_stage(mb + kWgRows, nxt);
+    cp_async_commit();
+    if (prod == 0)
+      for (int rr = tid / kWgCols; rr < kWgRows; rr += kWgThreads / kWgCols)
+        dbs += cur[a_elems + rr * LDD + tid % kWgCols];
+    if (ko < H) {
+      const float* A = cur + ko + g;
+      const float* D = cur + a_elems + g;
+      // The stage's sums in a fresh accumulator, added to acc in f32 (the
+      // tensor cores' accumulation truncates: chains stay 12 mma long).
+      float sacc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kWgRows; kk += 8) {
+        const float* p = A + (kk + c4) * LA;
+        FragA a;
+        frag_a(a, p[0], p[8], p[4 * LA], p[4 * LA + 8]);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* q = D + (kk + c4) * LDD + nt * 8;
+          FragB b;
+          frag_b(b, q[0], q[4 * LDD]);
+          mma3(sacc[nt], a, b);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] += sacc[nt][i];
+    }
+  }
+
+  float* out = partial + (size_t)s * total;
+  if (ko < H) {
+    float* o = out + (prod == 1 && FUSED ? hg + GH : 0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = ko + g + 8 * half;
+        const int jj = j0 + nt * 8 + 2 * c4;
+        if (jj < GH)
+          *reinterpret_cast<float2*>(o + (size_t)k * GH + jj) =
+              make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      }
+  }
+  if (prod != 0) return;
+  // db: the 4 row classes' sums added in a fixed order.
+  cp_async_wait_all();
+  __syncthreads();
+  smem[tid] = dbs;
+  __syncthreads();
+  if (tid < kWgCols && j0 + tid < GH) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kWgThreads / kWgCols; ++q) sum += smem[q * kWgCols + tid];
+    out[hg + j0 + tid] = sum;
+  }
+}
+
+// Kernel 3, per seed (blockIdx.y): out[seed][i] = sum_{s = 0 .. S-1}
+// partial[seed][s][i], in that order.
+__global__ void rnn_bwd_tf32_slices_kernel(const float* __restrict__ partial,
+                                           int S, int count,
+                                           float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const size_t seed = blockIdx.y;
+  partial += seed * S * (size_t)count;
+  float acc = 0.0f;
+  for (int s = 0; s < S; ++s) acc += partial[(size_t)s * count + i];
+  out[seed * count + i] = acc;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Kernels 0 and 4, per seed (blockIdx.z): C[M, N] = A[M, K] @ B (+ bias[N]),
+// with B = W [K, N] row-major, or (TRANS_B) B = W^T for W [N, K] row-major.
+// Output tiles kGmRows x kGmCols, 8 warps of 32 x 32; a block walks
+// kGmTiles tiles down M (blockIdx.y) for one column tile (blockIdx.x), its
+// (tile, k-stage) sequence streamed through kGmStages shared-memory stages
+// by cp.async (zero-filled past M, N and K), so one tile's loads overlap
+// the previous tile's products and stores. K and N are multiples of 4.
+template <bool TRANS_B>
+__global__ void __launch_bounds__(kGmThreads, 2)
+tf32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                 const float* __restrict__ bias, float* __restrict__ Cout,
+                 int M, int N, int K, long long sA, long long sW,
+                 long long sBias, long long sC) {
+  constexpr int LA = kGmK + 4;
+  constexpr int LB = TRANS_B ? kGmK + 4 : kGmCols + 8;
+  constexpr int A_EL = kGmRows * LA;
+  constexpr int STAGE = A_EL + (TRANS_B ? kGmCols : kGmK) * LB;
+  extern __shared__ __align__(16) float smem[];
+  {
+    const size_t seed = blockIdx.z;
+    A += seed * sA;
+    W += seed * sW;
+    if (bias != nullptr) bias += seed * sBias;
+    Cout += seed * sC;
+  }
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int n0 = blockIdx.x * kGmCols;
+  const int tile0 = blockIdx.y * kGmTiles;
+  const int tiles = min(kGmTiles, (M + kGmRows - 1) / kGmRows - tile0);
+  const int nk = (K + kGmK - 1) / kGmK;
+  const int count = tiles * nk;  // (tile, k-stage) pairs of this block
+  const int wm = (warp & 3) * 32;
+  const int wn = (warp >> 2) * 32;
+
+  auto load_stage = [&](int idx) {
+    float* dst = smem + (idx % kGmStages) * STAGE;
+    const int m0 = (tile0 + idx / nk) * kGmRows;
+    const int k0 = (idx % nk) * kGmK;
+    for (int i = tid; i < kGmRows * (kGmK / 4); i += kGmThreads) {
+      const int r = i / (kGmK / 4);
+      const int kc = (i - r * (kGmK / 4)) * 4;
+      const bool ok = m0 + r < M && k0 + kc < K;
+      cp_async16(dst + r * LA + kc,
+                 ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok ? 16 : 0);
+    }
+    float* bd = dst + A_EL;
+    if (TRANS_B) {
+      for (int i = tid; i < kGmCols * (kGmK / 4); i += kGmThreads) {
+        const int n = i / (kGmK / 4);
+        const int kc = (i - n * (kGmK / 4)) * 4;
+        const bool ok = n0 + n < N && k0 + kc < K;
+        cp_async16(bd + n * LB + kc,
+                   ok ? W + (size_t)(n0 + n) * K + k0 + kc : W, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kGmK * (kGmCols / 4); i += kGmThreads) {
+        const int k = i / (kGmCols / 4);
+        const int nc = (i - k * (kGmCols / 4)) * 4;
+        const bool ok = k0 + k < K && n0 + nc < N;
+        cp_async16(bd + k * LB + nc,
+                   ok ? W + (size_t)(k0 + k) * N + n0 + nc : W, ok ? 16 : 0);
+      }
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < kGmStages - 1; ++i) {
+    if (i < count) load_stage(i);
+    cp_async_commit();
+  }
+  for (int idx = 0; idx < count; ++idx) {
+    cp_async_wait<kGmStages - 2>();
+    // Stage idx is in place; every warp is done with stage idx - 1's slot.
+    __syncthreads();
+    if (idx + kGmStages - 1 < count) load_stage(idx + kGmStages - 1);
+    cp_async_commit();
+    const float* cur = smem + (idx % kGmStages) * STAGE;
+    const float* bs = cur + A_EL;
+    float sacc[2][4][4];  // the stage's sums, added to acc in f32
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sacc[mt][nt][i] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kGmK; kk += 8) {
+      FragA a[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* p = cur + (wm + mt * 16 + g) * LA + kk + c4;
+        frag_a(a[mt], p[0], p[8 * LA], p[4], p[8 * LA + 4]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        FragB b;
+        if (TRANS_B) {
+          const float* p = bs + (wn + nt * 8 + g) * LB + kk + c4;
+          frag_b(b, p[0], p[4]);
+        } else {
+          const float* p = bs + (kk + c4) * LB + wn + nt * 8 + g;
+          frag_b(b, p[0], p[4 * LB]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma3(sacc[mt][nt], a[mt], b);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += sacc[mt][nt][i];
+    if (idx % nk != nk - 1) continue;
+    // The tile's last stage: store it and start the next one from zero.
+    const int m0 = (tile0 + idx / nk) * kGmRows;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + wm + mt * 16 + g + 8 * half;
+          const int col = n0 + wn + nt * 8 + 2 * c4;
+          if (row < M && col < N) {
+            float2 v = make_float2(acc[mt][nt][2 * half],
+                                   acc[mt][nt][2 * half + 1]);
+            if (bias != nullptr) {
+              v.x += bias[col];
+              v.y += bias[col + 1];
+            }
+            *reinterpret_cast<float2*>(Cout + (size_t)row * N + col) = v;
+          }
+          acc[mt][nt][2 * half] = 0.0f;
+          acc[mt][nt][2 * half + 1] = 0.0f;
+        }
+  }
+  cp_async_wait<0>();
+}
+
+template <bool TRANS_B>
+cudaError_t launch_gemm(const float* A, const float* W, const float* bias,
+                        float* Cout, int M, int N, int K, int seeds,
+                        long long sA, long long sW, long long sBias,
+                        long long sC, cudaStream_t stream) {
+  auto kern = tf32_gemm_kernel<TRANS_B>;
+  const size_t smem = gemm_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + kGmRows - 1) / kGmRows;
+  kern<<<dim3((N + kGmCols - 1) / kGmCols, (tiles + kGmTiles - 1) / kGmTiles,
+              seeds),
+         kGmThreads, smem, stream>>>(A, W, bias, Cout, M, N, K, sA, sW, sBias,
+                                     sC);
+  return cudaGetLastError();
+}
+
+// Kernel 1 through cudaLaunchKernelEx with a cluster of C CTAs along x;
+// refused (cudaErrorLaunchOutOfResources) when the card cannot hold one
+// such cluster.
+template <int CELL, int C>
+cudaError_t launch_recur(const float* xw, const float* wh, const uint8_t* m,
+                         const float* h_all, const float* c_all,
+                         const float* dh, float* dgx, float* dhn, int seeds,
+                         int B, int Tn, int H, SeedStrides st,
+                         float forget_bias, cudaStream_t stream) {
+  constexpr int G = CELL == kLstm ? 4 : 3;
+  auto kern = rnn_bwd_tf32_recur_kernel<CELL, C>;
+  const size_t smem = recur_smem_bytes(G, H, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int rows = 16 * kRowTiles;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + rows - 1) / rows), seeds);
+  cfg.blockDim = dim3(H / C * 4);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  if (C > 1) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters == 0) return cudaErrorLaunchOutOfResources;
+  }
+  err = cudaLaunchKernelEx(&cfg, kern, xw, wh, m, h_all, c_all, dh, dgx, dhn,
+                           B, Tn, H, st, forget_bias);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// fused: GEMM (xw into dgx), recurrence, weight gradients, slice sum, GEMM
+// (dhin); hoisted: the middle three, xw the caller's.
+template <int CELL>
+cudaError_t launch(bool fused, const float* xin, const float* wx,
+                   const float* b, const float* wh, const uint8_t* m,
+                   const float* h_all, const float* c_all, const float* dh,
+                   float* dx, float* dgx, float* dhn, float* partial, int S,
+                   float* dw, int seeds, int B, int Tn, int H, int C,
+                   long long s_xin, long long s_wx, long long s_b,
+                   long long s_wh, long long s_m, float forget_bias,
+                   cudaStream_t stream) {
+  constexpr int G = CELL == kLstm ? 4 : 3;
+  const int GH = G * H;
+  const int M = B * Tn;
+  const long long s_gates = (long long)M * GH;
+  cudaError_t err;
+  if (fused) {
+    err = launch_gemm<false>(xin, wx, b, dgx, M, GH, H, seeds, s_xin, s_wx,
+                             s_b, s_gates, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const SeedStrides st{fused ? s_gates : s_xin, s_wh, s_m};
+  const float* xw = fused ? dgx : xin;
+  err = C == 1 ? launch_recur<CELL, 1>(xw, wh, m, h_all, c_all, dh, dgx, dhn,
+                                       seeds, B, Tn, H, st, forget_bias,
+                                       stream)
+               : launch_recur<CELL, 2>(xw, wh, m, h_all, c_all, dh, dgx, dhn,
+                                       seeds, B, Tn, H, st, forget_bias,
+                                       stream);
+  if (err != cudaSuccess) return err;
+
+  const size_t smem2 = wgrad_smem_bytes(H);
+  auto wgrad = fused ? rnn_bwd_tf32_wgrad_kernel<CELL, true>
+                     : rnn_bwd_tf32_wgrad_kernel<CELL, false>;
+  err = cudaFuncSetAttribute(
+      wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+  if (err != cudaSuccess) return err;
+  wgrad<<<dim3((GH + kWgCols - 1) / kWgCols * (fused ? 2 : 1), S, seeds),
+          kWgThreads, smem2,
+          stream>>>(xin, h_all, dgx, dhn, M, Tn, H, (M + S - 1) / S, s_xin,
+                    partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int total = fused ? 2 * H * GH + GH : H * GH;
+  rnn_bwd_tf32_slices_kernel<<<dim3((total + 255) / 256, seeds), 256, 0,
+                               stream>>>(partial, S, total, dw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !fused) return err;
+  return launch_gemm<true>(dgx, wx, nullptr, dx, M, H, GH, seeds, s_gates,
+                           s_wx, 0, (long long)M * H, stream);
+}
+
+// The widths and cluster sizes the kernels take.
+bool supported(int H, int C) {
+  return H >= 16 && H <= 128 && H % 16 == 0 && (C == 1 || C == 2);
+}
+
+}  // namespace
+
+// Shared memory of kernel 1 (the largest of the launches) with a cluster of
+// C CTAs, in bytes; -1 for a shape the kernels do not take. cell: 0 = LSTM,
+// 1 = GRU.
+extern "C" long long lfm_rnn_bwd_tf32_smem(int cell, int H, int C) {
+  if (!supported(H, C) || (cell != kLstm && cell != kGru)) return -1;
+  return (long long)recur_smem_bytes(cell == kLstm ? 4 : 3, H, C);
+}
+
+// The float32 backward on the tensor cores, for `seeds` seeds in one call.
+// fused = 1: xin is hin [B, T, H], and wx [H, G H], b [G H] are used; out
+// dx = dhin [seeds, B, T, H] and dw [seeds, 2 H G H + G H] (dW_x, db,
+// dW_h). fused = 0: xin is xw [B, T, G H] (wx, b, dx unused); out dgx = dxw
+// and dw [seeds, H G H] (dW_h). Per seed: wh [H, G H]; m uint8 [B, T];
+// h_all, c_all (LSTM; the GRU passes null), dh [seeds, B, T, H]. s_*: the
+// seed strides of xin, wx, b, wh and m in their elements (0: shared).
+// Scratch the caller allocates: dgx [seeds, B, T, G H] (the fused form's
+// d_xw), dhn [seeds, B, T, H] (GRU), partial [seeds, S, total]. C: CTAs per
+// cluster (1 or 2). All f32. Returns the first CUDA error of its launches.
+extern "C" int lfm_rnn_bwd_tf32(int cell, int fused, const void* xin,
+                                const void* wx, const void* b, const void* wh,
+                                const void* m, const void* h_all,
+                                const void* c_all, const void* dh, void* dx,
+                                void* dgx, void* dhn, void* partial, int S,
+                                void* dw, int seeds, int B, int Tn, int H,
+                                int C, long long s_xin, long long s_wx,
+                                long long s_b, long long s_wh, long long s_m,
+                                float forget_bias, void* stream) {
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (seeds <= 0 || seeds > 65535 || B <= 0 || Tn <= 0 || S <= 0 ||
+      S > 65535 || !supported(H, C))
+    return (int)cudaErrorInvalidValue;
+#define LFM_TF32(CELLV)                                                     \
+  return (int)launch<CELLV>(                                                \
+      fused != 0, static_cast<const float*>(xin),                           \
+      static_cast<const float*>(wx), static_cast<const float*>(b),          \
+      static_cast<const float*>(wh), static_cast<const uint8_t*>(m),        \
+      static_cast<const float*>(h_all), static_cast<const float*>(c_all),   \
+      static_cast<const float*>(dh), static_cast<float*>(dx),               \
+      static_cast<float*>(dgx), static_cast<float*>(dhn),                   \
+      static_cast<float*>(partial), S, static_cast<float*>(dw), seeds, B,   \
+      Tn, H, C, s_xin, s_wx, s_b, s_wh, s_m, forget_bias, cs)
+  if (cell == kLstm) LFM_TF32(kLstm);
+  if (cell == kGru) LFM_TF32(kGru);
+#undef LFM_TF32
+  return (int)cudaErrorInvalidValue;
+}

@@ -41,7 +41,9 @@ LAUNCHES: Dict[str, int] = {
 }
 LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
                 rnn_fused_bwd_mma_lstm=0, rnn_fused_bwd_mma_gru=0,
-                rnn_bwd_mma_lstm=0, rnn_bwd_mma_gru=0, window_gather=0)
+                rnn_bwd_mma_lstm=0, rnn_bwd_mma_gru=0,
+                rnn_fused_bwd_tf32_lstm=0, rnn_fused_bwd_tf32_gru=0,
+                rnn_bwd_tf32_lstm=0, rnn_bwd_tf32_gru=0, window_gather=0)
 
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -155,6 +157,8 @@ def library() -> ctypes.CDLL:
                 + [ci] * 3 + [cf, vp],
                 "lfm_rnn_scan_bwd": [ci, ci] + [vp] * 11 + [ci, vp]
                 + [ci] * 3 + [cf, vp],
+                "lfm_rnn_bwd_tf32": [ci, ci] + [vp] * 12 + [ci, vp]
+                + [ci] * 5 + [cll] * 5 + [cf, vp],
             }
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
@@ -162,7 +166,8 @@ def library() -> ctypes.CDLL:
             smem = {"lfm_rnn_fwd_smem": 3, "lfm_rnn_bwd_smem": 3,
                     "lfm_rnn_fused_fwd_mma_smem": 3,
                     "lfm_rnn_fused_bwd_mma_smem": 2,
-                    "lfm_rnn_scan_bwd_mma_smem": 2}
+                    "lfm_rnn_scan_bwd_mma_smem": 2,
+                    "lfm_rnn_bwd_tf32_smem": 3}
             for name, n in smem.items():
                 getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll

@@ -1,14 +1,16 @@
 """The masked LSTM/GRU recurrence: hand-written CUDA kernels
 (``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
-``csrc/rnn_bwd.cu``, ``csrc/rnn_fused_bwd_mma.cu``) and their plain
-versions.
+``csrc/rnn_bwd.cu``, ``csrc/rnn_fused_bwd_mma.cu``,
+``csrc/rnn_bwd_tf32.cu``) and their plain versions.
 
-The fused forward and both backwards each have two kernels, picked by one
-rule, :func:`_mma_route`, from the dtype and H alone: bf16 with 16 <= H
-<= 128, H % 16 == 0 runs on the tensor cores (``rnn_fused_fwd_mma.cu``;
-``rnn_fused_bwd_mma.cu``, fused and hoisted modes); float32 and every
-other H on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``). The
-hoisted forward runs on ``rnn_fused_fwd.cu`` at every dtype and H.
+One rule, :func:`_mma_route`, picks the kernels of the fused forward and
+of both backwards from the direction, the dtype and H alone: at 16 <= H <=
+128, H % 16 == 0 bf16 runs on the tensor cores (``rnn_fused_fwd_mma.cu``;
+``rnn_fused_bwd_mma.cu``, fused and hoisted modes) and the float32
+backwards on them in 3xTF32 (``rnn_bwd_tf32.cu``); the float32 forward
+and every other H run on the CUDA cores (``rnn_fused_fwd.cu``,
+``rnn_bwd.cu``). The hoisted forward runs on ``rnn_fused_fwd.cu`` at every
+dtype and H.
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -439,17 +441,40 @@ def _launch_bwd(cell: str, fused: bool, xin: torch.Tensor, wx, b,
             dw[hg + G:].view(H, G))
 
 
-def _mma_route(dtype: torch.dtype, H: int) -> str:
-    """Which kernels run the fused forward and the fused and hoisted
-    backwards on the card: ``"mma"`` (``csrc/rnn_fused_fwd_mma.cu`` and
-    ``csrc/rnn_fused_bwd_mma.cu``, bf16 tensor cores, W_h resident in
-    shared memory, so 16 <= H <= 128 and H % 16 == 0) or ``"simt"``
-    (``csrc/rnn_fused_fwd.cu`` and ``csrc/rnn_bwd.cu``, f32 on the CUDA
-    cores: float32, which must hold the JAX f32 bound, and every other
-    H). One rule for both directions: the fused backward reuses the
+def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
+    """Which kernels run the fused forward (``direction="fwd"``) and the
+    fused and hoisted backwards (``"bwd"``) on the card:
+
+    ========= ======== ========================== =====================
+    direction dtype    H                          kernel (answer)
+    ========= ======== ========================== =====================
+    fwd       bfloat16 16 <= H <= 128, H % 16 = 0 ``rnn_fused_fwd_mma.cu``
+                                                  (``"mma"``)
+    fwd       float32  same                       ``rnn_fused_fwd.cu``
+                                                  (``"simt"``)
+    bwd       bfloat16 same                       ``rnn_fused_bwd_mma.cu``
+                                                  (``"mma"``)
+    bwd       float32  same                       ``rnn_bwd_tf32.cu``
+                                                  (``"tf32"``)
+    fwd, bwd  either   every other H              ``rnn_fused_fwd.cu``,
+                                                  ``rnn_bwd.cu``
+                                                  (``"simt"``)
+    ========= ======== ========================== =====================
+
+    The tensor-core kernels hold W_h in shared memory, hence the widths
+    (the f32 backward split across a cluster of CTAs at H = 128). bf16
+    runs on the bf16 tensor cores; float32 must hold the JAX f32 bound, so
+    its backward splits every f32 operand into two TF32 terms (3xTF32) and
+    its forward stays on the CUDA cores. The fused bf16 backward reuses the
     forward's packing of W_x."""
-    if dtype == torch.bfloat16 and H % 16 == 0 and 16 <= H <= 128:
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction}")
+    if not (H % 16 == 0 and 16 <= H <= 128):
+        return "simt"
+    if dtype == torch.bfloat16:
         return "mma"
+    if dtype == torch.float32 and direction == "bwd":
+        return "tf32"
     return "simt"
 
 
@@ -696,6 +721,110 @@ def _launch_scan_bwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
     return dxw, dw.view(H, G)
 
 
+#: Rows per CTA of the 3xTF32 backward's recurrence (``16 * kRowTiles`` in
+#: ``csrc/rnn_bwd_tf32.cu``) and the cluster sizes it is built for.
+TF32_ROWS = 32
+TF32_CLUSTERS = (1, 2)
+
+
+def _tf32_smem(cell: str, H: int, C: int) -> int:
+    """Shared memory (bytes) of the 3xTF32 backward's recurrence kernel
+    with a cluster of ``C`` CTAs, as ``recur_smem_bytes`` in
+    ``csrc/rnn_bwd_tf32.cu`` computes it: W_h's columns of the CTA's H/C
+    units [H, G H/C + 4], two h_{t-1} tiles [rows, H + 8], the d_hw tile
+    [rows, G H/C + 4] and, in a cluster, two receive buffers [rows, H/C +
+    8], all f32."""
+    Hc = H // C
+    GHc = _GATES[cell] * Hc
+    R = TF32_ROWS
+    floats = (H * (GHc + 4) + 2 * R * (H + 8) + R * (GHc + 4)
+              + (2 * R * (Hc + 8) if C > 1 else 0))
+    return 4 * floats
+
+
+def _tf32_cluster(cell: str, H: int, limit: int) -> int:
+    """CTAs per cluster of the 3xTF32 backward: the fewest (1, then 2)
+    whose share of W_h fits beside the tiles in ``limit`` bytes of shared
+    memory per block; raises where none does."""
+    for C in TF32_CLUSTERS:
+        if _tf32_smem(cell, H, C) <= limit:
+            return C
+    raise ValueError(
+        f"the float32 backward at hidden={H} needs "
+        f"{_tf32_smem(cell, H, TF32_CLUSTERS[-1])} bytes of shared memory "
+        f"per block even split over {TF32_CLUSTERS[-1]} CTAs, more than the "
+        f"card's {limit}")
+
+
+def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
+                     wh: torch.Tensor, m: torch.Tensor, h_all: torch.Tensor,
+                     c_all: Optional[torch.Tensor], dh: torch.Tensor,
+                     forget_bias: float):
+    """One call of the float32 backward on the tensor cores
+    (``csrc/rnn_bwd_tf32.cu``, 3xTF32; fused: five kernel launches,
+    hoisted: three, counted once) → fused: ``(dhin, dW_x, db, dW_h)``;
+    hoisted (``xin`` is xw, ``wx`` and ``b`` None): ``(dxw, dW_h)``; all
+    f32. Seed-stacked operands (``xin`` 4-D, each operand of seed extent S
+    or 1) run every seed in the same call and give each output per seed;
+    the states ``h_all``, ``c_all`` and ``dh`` are per seed. The cluster
+    size comes from :func:`_tf32_cluster`; a cluster the card cannot
+    schedule raises."""
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
+        c_all = None if c_all is None else c_all[None]
+        if fused:
+            wx, b = wx[None], b[None]
+    S = _seed_extent(xin, wx, b, wh, m, h_all, c_all, dh)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    G = _GATES[cell] * H
+    dev = xin.device
+    f32 = torch.float32
+    lib = _build.library()
+    C = _tf32_cluster(cell, H, torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin)
+    smem = lib.lfm_rnn_bwd_tf32_smem(_CELL_CODE[cell], H, C)
+    if smem != _tf32_smem(cell, H, C):
+        raise RuntimeError(f"csrc/rnn_bwd_tf32.cu counts {smem} bytes of "
+                           f"shared memory, ops/rnn.py {_tf32_smem(cell, H, C)}")
+    # The states are per seed: a shared one is copied out to every seed.
+    h_all, c_all, dh = (
+        None if t is None else t.expand(S, *t.shape[1:]).contiguous()
+        for t in (h_all, c_all, dh))
+    xin, wh, h_all, c_all, dh = (None if t is None else _aligned16(t)
+                                 for t in (xin, wh, h_all, c_all, dh))
+    keep = m.to(torch.uint8).contiguous()
+    dgx = torch.empty((S, B, T, G), dtype=f32, device=dev)
+    dhn = (torch.empty((S, B, T, H), dtype=f32, device=dev)
+           if cell == "gru" else None)
+    slices = _slices(B * T)
+    total = 2 * H * G + G if fused else H * G
+    partial = torch.empty((S, slices, total), dtype=f32, device=dev)
+    dw = torch.empty((S, total), dtype=f32, device=dev)
+    dx = torch.empty((S, B, T, H), dtype=f32, device=dev) if fused else None
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_bwd_tf32(
+            _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx), ptr(b),
+            wh.data_ptr(), keep.data_ptr(), h_all.data_ptr(), ptr(c_all),
+            dh.data_ptr(), ptr(dx), dgx.data_ptr(), ptr(dhn),
+            partial.data_ptr(), slices, dw.data_ptr(), S, B, T, H, C,
+            _stride(xin, S), 0 if wx is None else _stride(wx, S),
+            0 if b is None else _stride(b, S), _stride(wh, S),
+            _stride(keep, S), float(forget_bias), _build.stream_of(xin))
+    name = f"rnn_{'fused_' if fused else ''}bwd_tf32_{cell}"
+    _build.check(lib, err, name)
+    _build.count_launch(name)
+    if fused:
+        hg = H * G
+        out = (dx, dw[:, :hg].view(S, H, G), dw[:, hg:hg + G],
+               dw[:, hg + G:].view(S, H, G))
+    else:
+        out = (dgx, dw.view(S, H, G))
+    return out if stacked else tuple(t[0] for t in out)
+
+
 def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
                   packed=None):
     stacked = hin.dim() == 4
@@ -746,9 +875,13 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                                                 h_all, c_all, dh, forget_bias)
         _check_card(hin, wx=wx, b=b, wh=wh, m=m, h_all=h_all, c_all=c_all,
                     dh=dh)
-        if _mma_route(hin.dtype, hin.shape[-1]) == "mma":
+        route = _mma_route(hin.dtype, hin.shape[-1], "bwd")
+        if route == "mma":
             return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
                                    forget_bias, wxp)
+        if route == "tf32":
+            return _launch_bwd_tf32(cell, True, hin, wx, b, wh, m, h_all,
+                                    c_all, dh, forget_bias)
         # The CUDA-core kernels have no seed grid: one call per seed.
         return _over_seeds(
             lambda *a: _launch_bwd(cell, True, *a, forget_bias), S,
@@ -761,11 +894,13 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                                             c_all, dh, forget_bias)
     _check_card(hin, wx=wx, b=b, wh=wh, m=m, h_all=h_all, c_all=c_all,
                 dh=dh)
-    if _mma_route(hin.dtype, H) == "mma":
+    route = _mma_route(hin.dtype, H, "bwd")
+    if route == "mma":
         return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
                                forget_bias, wxp)
-    return _launch_bwd(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
-                       forget_bias)
+    launch = _launch_bwd_tf32 if route == "tf32" else _launch_bwd
+    return launch(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
+                  forget_bias)
 
 
 def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
@@ -783,11 +918,13 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
         return rnn_scan_bwd_reference(cell, xw, wh, m, h_all, c_all, dh,
                                       forget_bias)
     _check_card(xw, wh=wh, m=m, h_all=h_all, c_all=c_all, dh=dh)
-    if _mma_route(xw.dtype, H) == "mma":
+    route = _mma_route(xw.dtype, H, "bwd")
+    if route == "mma":
         return _launch_scan_bwd_mma(cell, xw, wh, m, h_all, c_all, dh,
                                     forget_bias)
-    return _launch_bwd(cell, False, xw, None, None, wh, m, h_all, c_all, dh,
-                       forget_bias)
+    launch = _launch_bwd_tf32 if route == "tf32" else _launch_bwd
+    return launch(cell, False, xw, None, None, wh, m, h_all, c_all, dh,
+                  forget_bias)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the tensor-core recurrence kernels goes, on the card.
 
-    python3 scripts/torch_mma_variants.py [--kernel fwd|bwd]
+    python3 scripts/torch_mma_variants.py [--kernel fwd|bwd|bwd_tf32]
                                           [--variants a,b+c] [--out FILE]
                                           [--parent FILE]
 
 Builds variants of ``lfm_quant_tpu_torch/csrc/rnn_fused_fwd_mma.cu``
-(``--kernel fwd``, the default) or ``rnn_fused_bwd_mma.cu`` (``bwd``),
+(``--kernel fwd``, the default), ``rnn_fused_bwd_mma.cu`` (``bwd``) or
+``rnn_bwd_tf32.cu`` (``bwd_tf32``, the float32 backward in 3xTF32: timed
+fused and hoisted at the c2 train step in float32, held to the plain
+version at scaled atol 1e-5, each at the smallest cluster whose shared
+memory fits),
 each made from the committed source by named text substitutions (``b+c``
 applies both), into separate shared libraries (one ``nvcc`` each, all
 started together), and times every variant with CUDA events at the main
@@ -44,7 +48,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "lfm_quant_tpu_torch", "csrc")
 SRC = {"fwd": os.path.join(CSRC, "rnn_fused_fwd_mma.cu"),
-       "bwd": os.path.join(CSRC, "rnn_fused_bwd_mma.cu")}
+       "bwd": os.path.join(CSRC, "rnn_fused_bwd_mma.cu"),
+       "bwd_tf32": os.path.join(CSRC, "rnn_bwd_tf32.cu")}
 BUILD = os.path.join(ROOT, "build", "mma_variants")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-I", CSRC]
@@ -128,7 +133,44 @@ BWD_VARIANTS["xw_staged"] = [
      "                                  8 * (i >> 1)) * (GH + 8) +\n"
      "                          (q < G ? q : 0) * H + u))"),
 ]
-VARIANTS = {"fwd": FWD_VARIANTS, "bwd": BWD_VARIANTS}
+# The float32 backward: 16 rows per CTA instead of 32 (two waves of 2-CTA
+# clusters at B 2048); the recurrence's mma chains unbroken (all of k in
+# one accumulator: the tensor cores' truncating accumulation); the
+# recurrence alone (no weight gradients or dhin; the fused form keeps its
+# first GEMM); the recurrence's products removed.
+TF32_VARIANTS = {
+    "base": [],
+    "alt_long_chains": [("constexpr int kChainK = 64;",
+                         "constexpr int kChainK = 1 << 20;")],
+    "rows_16": [("constexpr int kRowTiles = 2;",
+                 "constexpr int kRowTiles = 1;")],
+    "diag_recur_only": [("\n  const size_t smem2 = wgrad_smem_bytes(",
+                         "\n  return err;\n  const size_t smem2 = "
+                         "wgrad_smem_bytes(")],
+    "diag_no_products": [("for (int kc = 0; kc < H; kc += kChainK) {",
+                          "for (int kc = 0; kc < 0; kc += kChainK) {"),
+                         ("for (int jc = 0; jc < GHc; jc += kChainK) {",
+                          "for (int jc = 0; jc < 0; jc += kChainK) {")],
+    # The units' exchange without its cluster barrier (the peer's partial
+    # is read unsynchronised: wrong numbers).
+    "diag_no_cluster_barrier": [
+        ("      cluster_arrive();\n      cluster_wait();\n#pragma unroll\n",
+         "      __syncthreads();\n#pragma unroll\n")],
+    "diag_no_transcendentals": _IDENTITY,
+    # The fused form without its last GEMM (dhin).
+    "diag_no_dhin": [("  return launch_gemm<true>(dgx, wx,",
+                      "  return err;\n  return launch_gemm<true>(dgx, wx,")],
+    # Both halves of the split by cvt.rna.tf32.f32 (one conversion
+    # instruction each) instead of integer operations.
+    "cvt_rna": [
+        ("  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;\n"
+         "  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;\n",
+         "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(hi) : \"f\"(v));\n"
+         "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(lo)\n"
+         "      : \"f\"(v - __uint_as_float(hi)));\n")],
+}
+VARIANTS = {"fwd": FWD_VARIANTS, "bwd": BWD_VARIANTS,
+            "bwd_tf32": TF32_VARIANTS}
 # Forward: (where, cell, B, save_c, rows per block)
 SHAPES = (("c2 serving", "lstm", 16384, False, (64, 32)),
           ("c3 serving", "gru", 32768, False, (64, 32)),
@@ -181,7 +223,14 @@ def build(kernel: str, names, parent=None):
             if "registers" in line or "spill" in line:
                 print(f"[{name}] ptxas: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(BUILD, f"{kernel}-{name}.so"))
-        if kernel == "fwd":
+        if kernel == "bwd_tf32":
+            lib.lfm_rnn_bwd_tf32.argtypes = (
+                [ci, ci] + [vp] * 12 + [ci, vp] + [ci] * 5 + [cll] * 5
+                + [cf, vp])
+            lib.lfm_rnn_bwd_tf32.restype = ci
+            lib.lfm_rnn_bwd_tf32_smem.argtypes = [ci, ci, ci]
+            lib.lfm_rnn_bwd_tf32_smem.restype = ctypes.c_longlong
+        elif kernel == "fwd":
             lib.lfm_rnn_fused_fwd_mma.argtypes = (
                 [ci] + [vp] * 7 + [ci] * 5 + [cll] * 5 + [cf, vp])
             lib.lfm_rnn_fused_fwd_mma.restype = ci
@@ -407,9 +456,110 @@ def run_bwd_hoisted(torch, R, libs, names, card, gen, out) -> None:
             out.write(json.dumps(rec) + "\n")
 
 
+def run_bwd_tf32(torch, R, libs, names, card, gen, out) -> None:
+    """The float32 backward (``lfm_rnn_bwd_tf32``), fused and hoisted, LSTM
+    and GRU, at the c2 train step (B 2048, T 60, H 128): every output held
+    to the plain version at scaled atol 1e-5 (``alt_*`` and ``diag_*``
+    variants only record their errors), timed in device time."""
+    T, H, B = 60, 128, 2048
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    f32 = torch.float32
+    for cell in ("lstm", "gru"):
+        code = 0 if cell == "lstm" else 1
+        G = (4 if cell == "lstm" else 3) * H
+        hin = torch.randn(B, T, H, generator=gen).cuda()
+        wx = (torch.randn(H, G, generator=gen) / H ** 0.5).cuda()
+        b = (0.1 * torch.randn(G, generator=gen)).cuda()
+        wh = (torch.randn(H, G, generator=gen) / H ** 0.5).cuda()
+        m = (torch.rand(B, T, generator=gen) < 0.8).cuda()
+        dh = (0.1 * torch.randn(B, T, H, generator=gen)).cuda()
+        keep = m.to(torch.uint8)
+        for fused in (True, False):
+            xw = hin @ wx + b
+            h, c = R.rnn_scan_states(cell, xw, wh, m)
+            if fused:
+                want = R.rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh,
+                                                      m, h, c, dh)
+            else:
+                want = R.rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+            S = R._slices(B * T)
+            total = 2 * H * G + G if fused else H * G
+            dx = torch.empty(B, T, H, dtype=f32, device="cuda")
+            dgx = torch.empty((B, T, G), dtype=f32, device="cuda")
+            dhn = torch.empty((B, T, H), dtype=f32, device="cuda")
+            partial = torch.empty((S, total), dtype=f32, device="cuda")
+            dw = torch.empty((total,), dtype=f32, device="cuda")
+            for name in names:
+                lib = libs[name]
+                fits = [C for C in (1, 2)
+                        if 0 < lib.lfm_rnn_bwd_tf32_smem(code, H, C) <= limit]
+                if not fits:
+                    print(f"{name} {cell}: no cluster size fits", flush=True)
+                    continue
+                C = fits[0]
+
+                def run():
+                    err = lib.lfm_rnn_bwd_tf32(
+                        code, int(fused), (hin if fused else xw).data_ptr(),
+                        wx.data_ptr(), b.data_ptr(), wh.data_ptr(),
+                        keep.data_ptr(), h.data_ptr(),
+                        None if c is None else c.data_ptr(), dh.data_ptr(),
+                        dx.data_ptr(), dgx.data_ptr(), dhn.data_ptr(),
+                        partial.data_ptr(), S, dw.data_ptr(), 1, B, T, H, C,
+                        0, 0, 0, 0, 0, 1.0,
+                        torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise SystemExit(f"{name}: CUDA error {err}")
+
+                run()
+                torch.cuda.synchronize()
+                hg = H * G
+                got = ((dx, dw[:hg].view(H, G), dw[hg:hg + G],
+                        dw[hg + G:].view(H, G)) if fused
+                       else (dgx, dw.view(H, G)))
+                errs = [((g - w.float()).abs().max()
+                         / (w.float().abs().max() + 1e-9)).item()
+                        for g, w in zip(got, want)]
+                if not name.startswith(("diag_", "alt_")) and max(errs) > 1e-5:
+                    raise SystemExit(f"{name} {cell}: scaled errors {errs}")
+                rec = dict(variant=name, at="c2 train step, float32",
+                           form="fused" if fused else "hoisted", cell=cell,
+                           B=B, cluster=C,
+                           smem_bytes=lib.lfm_rnn_bwd_tf32_smem(code, H, C),
+                           ms=device_time_ms(torch, run),
+                           scaled_err=dict(zip(
+                               ("dhin", "dW_x", "db", "dW_h") if fused
+                               else ("dxw", "dW_h"), errs)), card=card)
+                print(json.dumps(rec), flush=True)
+                out.write(json.dumps(rec) + "\n")
+            del want, dgx, dhn, partial, dx, h, c
+            torch.cuda.empty_cache()
+
+
+def device_time_ms(torch, fn, reps=5, launches=4):
+    """Median device time of one call: the device sleeps while the host
+    queues ``launches`` calls, then they run back to back between two CUDA
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd")
+    ap.add_argument("--kernel", choices=("fwd", "bwd", "bwd_tf32"),
+                    default="fwd")
     ap.add_argument("--variants", default=None,
                     help="comma-separated; default: every variant")
     ap.add_argument("--out", default=None)
@@ -441,8 +591,8 @@ def main(argv=None) -> int:
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     gen = torch.Generator().manual_seed(0)
     with open(out_path, "w") as out:
-        (run_fwd if kernel == "fwd" else run_bwd)(torch, R, libs, names, card,
-                                                  gen, out)
+        run = {"fwd": run_fwd, "bwd": run_bwd, "bwd_tf32": run_bwd_tf32}
+        run[kernel](torch, R, libs, names, card, gen, out)
     return 0
 
 

@@ -11,7 +11,9 @@ Tests marked ``cuda`` decide in a fixture whether there is a card and
 skip without one. Tolerances: gathers exact; the recurrence f32 atol 1e-5
 (at H <= 16), bf16 atol/rtol 0.05 — the JAX package's own bounds; the
 backward's gradients scaled by their largest magnitude, f32 atol 1e-5
-(``tests/test_pallas_rnn.py``'s rule) and bf16 atol 0.05.
+(``tests/test_pallas_rnn.py``'s rule; the CUDA-core kernels and, at 16 <=
+H <= 128, H % 16 == 0, the 3xTF32 ``csrc/rnn_bwd_tf32.cu``) and bf16 atol
+0.05.
 """
 
 import numpy as np
@@ -299,7 +301,7 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     operands: one counted launch per seed, forward and backward, each
     seed's result that seed's one-seed call's; the hoisted form too,
     forward and backward."""
-    S, B, T, H = 3, 21, 5, 16
+    S, B, T, H = 3, 21, 5, 24  # a width the 3xTF32 backward does not take
     per = [_rnn_inputs(cell, B, T, H, s, torch.float32, cuda)
            for s in range(S)]
     hin, wx, b, wh = (torch.stack([p[0][i] for p in per]) for i in range(4))
@@ -337,6 +339,110 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
         (rnn_scan(cell, *one, m[s]) ** 2).sum().backward()
         for g, r in zip(leaves, one):
             assert torch.equal(g.grad[s], r.grad)
+
+
+def _tf32_names(cell, hoisted):
+    form = "" if hoisted else "fused_"
+    return f"rnn_{form}bwd_tf32_{cell}", f"rnn_{form}bwd_{cell}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [37, 2048 + 5])
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", [16, 64, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_bwd_matches_plain(cuda, cell, H, hoisted, B):
+    """The float32 backward on the tensor cores (``csrc/rnn_bwd_tf32.cu``,
+    3xTF32; a 2-CTA cluster at H = 128) against its plain formulas at the
+    JAX f32 bound (gradients scaled by their largest magnitude, atol
+    1e-5): fused and hoisted forms, B leaving the last block part-filled,
+    an all-invalid row passing no gradient; two launches bitwise equal."""
+    T = 9
+    hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, B + H,
+                                                  torch.float32, cuda,
+                                                  hoisted)
+    if hoisted:
+        args = (cell, xw, wh, m, h, c, dh)
+        run, plain = rnn_scan_bwd, rnn_scan_bwd_reference
+    else:
+        args = (cell, hin, wx, b, wh, m, h, c, dh)
+        run, plain = rnn_scan_fused_bwd, rnn_scan_fused_bwd_reference
+    tf32, simt = _tf32_names(cell, hoisted)
+    _build.reset_launch_counts()
+    got = run(*args)
+    counts = _build.launch_counts()
+    assert counts[tf32] == 1 and counts[simt] == 0
+    want = plain(*args)
+    assert got[0].dtype == torch.float32
+    assert got[0].shape == (xw if hoisted else hin).shape
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _scaled_close(g, w, torch.float32)
+    assert not got[0][0].any()  # an all-invalid row passes no gradient
+    again = run(*args)
+    for a, z in zip(got, again):
+        assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_bwd_seed_grid_bitwise_equals_single_seed_launches(cuda, cell,
+                                                               H):
+    """S = 3 seeds of the float32 fused backward in one call (counted once)
+    against 3 one-seed calls: every output bitwise equal; m of seed extent
+    1 bitwise equal to its broadcast copy; each seed within the f32 bound
+    of the plain version."""
+    S, B, T = 3, 517, 7
+    per = [_bwd_inputs(cell, B, T, H, 40 + s, torch.float32, cuda, False)
+           for s in range(S)]
+    keep = (0, 1, 2, 3, 4, 6, 7, 8)  # hin, wx, b, wh, m, h, c, dh
+    args = [None if per[0][i] is None else torch.stack([p[i] for p in per])
+            for i in keep]
+    _build.reset_launch_counts()
+    got = rnn_scan_fused_bwd(cell, *args)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_bwd_tf32_{cell}"] == 1
+    assert counts[f"rnn_fused_bwd_{cell}"] == 0
+    for s in range(S):
+        one = rnn_scan_fused_bwd(cell, *(None if t is None else t[s]
+                                         for t in args))
+        want = rnn_scan_fused_bwd_reference(cell, *(None if t is None
+                                                     else t[s] for t in args))
+        for g, o, w in zip(got, one, want):
+            assert torch.equal(g[s], o)
+            _scaled_close(o, w, torch.float32)
+    shared, full = list(args), list(args)
+    shared[4] = args[4][:1]
+    full[4] = args[4][:1].expand(S, B, T).contiguous()
+    for g, r in zip(rnn_scan_fused_bwd(cell, *shared),
+                    rnn_scan_fused_bwd(cell, *full)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
+    """At H = 120 (not a multiple of 16) both backwards stay on
+    ``csrc/rnn_bwd.cu`` in both dtypes, within the JAX bounds."""
+    B, T, H = 37, 5, 120
+    for hoisted in (False, True):
+        hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, 7,
+                                                      dtype, cuda, hoisted)
+        tf32, simt = _tf32_names(cell, hoisted)
+        _build.reset_launch_counts()
+        if hoisted:
+            got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
+            want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+        else:
+            got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+            want = rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h,
+                                                c, dh)
+        counts = _build.launch_counts()
+        assert counts[simt] == 1 and counts[tf32] == 0
+        for g, w in zip(got, want):
+            _scaled_close(g, w, dtype)
 
 
 @pytest.mark.cuda

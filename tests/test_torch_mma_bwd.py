@@ -41,16 +41,17 @@ def cuda():
     (torch.bfloat16, 16, "mma"),
     (torch.bfloat16, 48, "mma"),
     (torch.bfloat16, 128, "mma"),
-    (torch.float32, 128, "simt"),
-    (torch.float32, 16, "simt"),
+    (torch.float32, 128, "tf32"),
+    (torch.float32, 16, "tf32"),
     (torch.bfloat16, 40, "simt"),
     (torch.bfloat16, 144, "simt"),
     (torch.bfloat16, 8, "simt"),
 ])
 def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
-    """The backward takes the forward's rule: it reuses the forward's
-    packing of W_x."""
-    assert R._mma_route(dtype, H) == route
+    """In bf16 the backward takes the forward's rule (it reuses the
+    forward's packing of W_x); in float32 at the same widths it runs on
+    the 3xTF32 kernels (``csrc/rnn_bwd_tf32.cu``)."""
+    assert R._mma_route(dtype, H, "bwd") == route
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -60,20 +61,24 @@ def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     (torch.bfloat16, 128, "mma"),
     (torch.bfloat16, 12, "simt"),
     (torch.bfloat16, 136, "simt"),
-    (torch.float32, 128, "simt"),
-    (torch.float32, 16, "simt"),
+    (torch.float32, 128, "tf32"),
+    (torch.float32, 16, "tf32"),
+    (torch.float32, 120, "simt"),
 ])
 def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
                                                         dtype, H, route):
     """``rnn_scan_bwd`` on the card picks its kernels by ``_mma_route``
-    alone, before any launch: the hoisted mode of the tensor-core source
-    or the CUDA-core hoisted kernel (shape-only tensors on the meta device
-    stand for the card's; the launchers are recorded, not run)."""
+    alone, before any launch: the hoisted mode of the bf16 tensor-core
+    source, the 3xTF32 kernels in float32, or the CUDA-core hoisted kernel
+    (shape-only tensors on the meta device stand for the card's; the
+    launchers are recorded, not run)."""
     calls = []
     G = GATES[cell] * H
     monkeypatch.setattr(R, "_check_card", lambda *a, **k: None)
     monkeypatch.setattr(R, "_launch_scan_bwd_mma",
                         lambda *a: calls.append("mma"))
+    monkeypatch.setattr(R, "_launch_bwd_tf32", lambda c, fused, *a:
+                        calls.append("tf32" if not fused else "fused"))
     monkeypatch.setattr(R, "_launch_bwd", lambda c, fused, *a:
                         calls.append("simt" if not fused else "fused"))
     B, T = 5, 3
@@ -476,10 +481,10 @@ def test_mma_hoisted_bwd_bitwise_repeatable(cuda, cell):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_hoisted_autograd_routes_by_dtype(cuda, cell):
     """Through ``rnn_scan``'s autograd Function: bf16 at H = 64 moves the
-    tensor-core counter, float32 the CUDA-core one, and both gradients
+    bf16 tensor-core counter, float32 the 3xTF32 one, and both gradients
     agree with the plain version's."""
     for dtype, name in ((torch.bfloat16, f"rnn_bwd_mma_{cell}"),
-                        (torch.float32, f"rnn_bwd_{cell}")):
+                        (torch.float32, f"rnn_bwd_tf32_{cell}")):
         xw, wh, m, _, _, _ = _hoisted_inputs(cell, 37, 6, 64, 12, cuda,
                                              dtype)
         leaves = [t.detach().clone().requires_grad_(True) for t in (xw, wh)]
@@ -499,9 +504,12 @@ def test_hoisted_autograd_routes_by_dtype(cuda, cell):
 
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_backward(cuda):
+    """Widths the tensor cores do not take (H % 16 != 0) keep the CUDA-core
+    backward in float32 and in bf16 (float32 at 16 <= H <= 128, H % 16 ==
+    0 takes the 3xTF32 kernels)."""
     _build.reset_launch_counts()
     for cell in ("lstm", "gru"):
-        for dtype, H in ((torch.float32, 64), (torch.bfloat16, 40)):
+        for dtype, H in ((torch.float32, 120), (torch.bfloat16, 40)):
             args = _bwd_inputs(cell, 5, 3, H, H, cuda, dtype)
             R.rnn_scan_fused_bwd(cell, *args)
     counts = _build.launch_counts()

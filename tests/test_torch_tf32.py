@@ -1,0 +1,443 @@
+"""The float32 backward on the tensor cores (``csrc/rnn_bwd_tf32.cu``): its
+route, its numerics and its operand layouts, on the CPU.
+
+This file imports nothing of JAX (``tests/test_torch_rnn_grad.py`` holds
+the plain version to ``jax.grad`` through the Pallas kernels in float32;
+``tests/test_torch_kernels.py`` holds the kernel to the plain version on
+the card at scaled atol 1e-5).
+
+* The route table of ``ops/rnn.py _mma_route`` for both directions.
+* A numpy model of 3xTF32: hi as ``cvt.rna.tf32.f32`` rounds (10
+  mantissa bits, ties away from zero), lo = x - hi truncated to TF32, as
+  the kernels split an operand, and the three products a_lo b_hi + a_hi
+  b_lo + a_hi b_hi accumulated in f32 per 8-step of k, as
+  ``mma.sync.m16n8k8`` does. At c2-like magnitudes it holds the carry's
+  product and the weight gradient to scaled 1e-6 of float64; one TF32 term
+  does not hold 1e-5.
+* A model of the m16n8k8 ``.tf32`` fragments (PTX ISA: a0 (g, c), a1 (g +
+  8, c), a2 (g, c + 4), a3 (g + 8, c + 4); b0 (c, g), b1 (c + 4, g); the
+  accumulator (g, 2c), (g, 2c + 1), (g + 8, ..)) run at the lane addresses
+  of the CUDA source over shared-memory images laid out as the kernels lay
+  them out: the recurrence's two products in each CTA of a 2-CTA cluster
+  and the fixed-order reduce-scatter of the carry's product, the weight
+  gradients' A^T D and the GEMM in both B layouts. Integer-valued
+  operands make every sum exact, so each must equal the plain product;
+  every 32-bit fragment load is free of bank conflicts.
+* The wrapper's cluster size against its shared-memory arithmetic.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lfm_quant_tpu_torch.ops import rnn as R
+
+GATES = {"lstm": 4, "gru": 3}
+SRC = (Path(__file__).resolve().parents[1] / "lfm_quant_tpu_torch" / "csrc"
+       / "rnn_bwd_tf32.cu")
+H100_SMEM = 232_448  # shared memory a block can use on an H100
+
+
+# ---------------------------------------------------------------------------
+# The route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [8, 16, 120, 128, 144])
+def test_route_table(direction, dtype, H):
+    """(direction, dtype, H) → kernel: the tensor-core widths are 16 <= H
+    <= 128 with H % 16 == 0; there bf16 takes the bf16 tensor cores both
+    ways and the float32 backward the 3xTF32 kernels, the float32 forward
+    the CUDA cores; every other width the CUDA cores."""
+    tc = H in (16, 128)
+    if not tc:
+        want = "simt"
+    elif dtype == torch.bfloat16:
+        want = "mma"
+    else:
+        want = "tf32" if direction == "bwd" else "simt"
+    assert R._mma_route(dtype, H, direction) == want
+    if direction == "fwd":
+        assert R._mma_route(dtype, H) == want
+
+
+def test_route_rejects_an_unknown_direction():
+    with pytest.raises(ValueError, match="direction"):
+        R._mma_route(torch.float32, 128, "up")
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32 numerics
+# ---------------------------------------------------------------------------
+
+
+def tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, ties away from
+    zero (half an ulp added to the magnitude, then truncated), in f32."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_truncated(x):
+    """x truncated to 10 mantissa bits (the low 13 bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    """The kernels' split (``split_tf32``): hi = tf32(x), lo = x - hi
+    (exact in f32) truncated to TF32."""
+    hi = tf32(x)
+    return hi, tf32_truncated(np.asarray(x, np.float32) - hi)
+
+
+def mma_f32(a, b, terms=3):
+    """``a @ b`` as the kernels form it: per 8-step of k, the products of
+    the split operands (``terms`` 3: a_lo b_hi, a_hi b_lo, a_hi b_hi in that
+    order; 1: a_hi b_hi alone), each exact in f32 and added into an f32
+    accumulator."""
+    a_hi, a_lo = split(a)
+    b_hi, b_lo = split(b)
+    pairs = ([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if terms == 3
+             else [(a_hi, b_hi)])
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in pairs:
+            part = x[:, k0:k0 + 8].astype(np.float64) @ y[k0:k0 + 8]
+            acc = (acc + part.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def test_tf32_rounding_keeps_ten_bits_and_rounds_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    assert tf32(one + ulp) == one + ulp              # representable
+    assert tf32(one + ulp / 2) == one + ulp          # tie: away from zero
+    assert tf32(-(one + ulp / 2)) == -(one + ulp)
+    assert tf32(one + ulp / 4) == one                # below the tie
+    x = np.random.default_rng(0).standard_normal(10_000).astype(np.float32)
+    hi, lo = split(x)
+    assert (hi.view(np.uint32) & 0x1FFF == 0).all()
+    assert (lo.view(np.uint32) & 0x1FFF == 0).all()
+    rel1 = np.abs(hi.astype(np.float64) - x) / np.abs(x)
+    rel2 = np.abs(hi.astype(np.float64) + lo - x) / np.abs(x)
+    assert rel1.max() <= 2.0 ** -11 and rel2.max() <= 2.0 ** -21
+
+
+def _c2_operands(rng, rows=4096, H=128, G=4):
+    """c2-like magnitudes: h in (-1, 1) (tanh of the cell), W_h ~ N(0,
+    1/H), d_gates small and spread over decades (the upstream gradient
+    times sigmoid and tanh derivatives)."""
+    h = np.tanh(rng.standard_normal((rows, H))).astype(np.float32)
+    w = (rng.standard_normal((H, G * H)) / np.sqrt(H)).astype(np.float32)
+    d = (rng.standard_normal((rows, G * H))
+         * np.exp(rng.uniform(-6, 0, (rows, G * H)))
+         * 1e-2).astype(np.float32)
+    return h, w, d
+
+
+def _scaled(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def sliced_wgrad(h, d, terms=3):
+    """h^T d as kernels 2 and 3 sum it: ``R._slices`` row slices, each
+    accumulated by :func:`mma_f32`, then the slices added in order in
+    f32."""
+    rows = h.shape[0]
+    n = R._slices(rows)
+    per = -(-rows // n)
+    out = np.zeros((h.shape[1], d.shape[1]), np.float32)
+    for s in range(n):
+        part = mma_f32(h[s * per:(s + 1) * per].T.copy(),
+                       d[s * per:(s + 1) * per], terms)
+        out = (out + part).astype(np.float32)
+    return out
+
+
+def test_3xtf32_holds_the_carry_product_and_the_weight_gradient():
+    """d_hw @ W_h^T (K = G H) and h^T d_hw (K = rows, summed in row slices
+    as the kernels sum it) at c2-like magnitudes: 3xTF32 within scaled
+    1e-6 of float64; a dropped term — one TF32 product — over 1e-5, the
+    JAX package's f32 bound."""
+    h, w, d = _c2_operands(np.random.default_rng(1))
+    carry = d[:256].astype(np.float64) @ w.T.astype(np.float64)
+    assert _scaled(mma_f32(d[:256], w.T.copy()), carry) <= 1e-6
+    assert _scaled(mma_f32(d[:256], w.T.copy(), terms=1), carry) > 1e-5
+    wgrad = h.T.astype(np.float64) @ d.astype(np.float64)
+    assert _scaled(sliced_wgrad(h, d), wgrad) <= 1e-6
+    assert _scaled(sliced_wgrad(h, d, terms=1), wgrad) > 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Fragments at the kernels' lane addresses
+# ---------------------------------------------------------------------------
+
+
+def mma_frag(a, b):
+    """One ``mma.m16n8k8`` on per-lane fragments: ``a[lane]`` (a0..a3),
+    ``b[lane]`` (b0, b1) → the per-lane accumulator (d0..d3), in float64."""
+    A = np.zeros((16, 8))
+    Bm = np.zeros((8, 8))
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        A[g, c], A[g + 8, c], A[g, c + 4], A[g + 8, c + 4] = a[lane]
+        Bm[c, g], Bm[c + 4, g] = b[lane]
+    D = A @ Bm
+    return [(D[lane // 4, 2 * (lane % 4)], D[lane // 4, 2 * (lane % 4) + 1],
+             D[lane // 4 + 8, 2 * (lane % 4)],
+             D[lane // 4 + 8, 2 * (lane % 4) + 1]) for lane in range(32)]
+
+
+def conflict_free(addrs):
+    """32-bit loads of one warp: distinct words fall in distinct banks."""
+    words = {a for a in addrs}
+    return len({a % 32 for a in words}) == len(words)
+
+
+def conflict_free_pairs(addrs):
+    """64-bit loads (two words from ``addr``): each half-warp's 32 words
+    fall in distinct banks."""
+    for half in (addrs[:16], addrs[16:]):
+        words = {a + e for a in half for e in (0, 1)}
+        if len({w % 32 for w in words}) != len(words):
+            return False
+    return True
+
+
+def _ints(rng, *shape):
+    return rng.integers(-4, 5, shape).astype(np.float64)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("H,C", [(32, 2), (16, 1), (48, 1)])
+def test_recurrence_products_and_reduce_scatter(cell, H, C):
+    """Kernel 1 at its lane addresses, in each CTA j of a cluster of C: the
+    recompute ``h_{t-1} @ W_h[:, own]`` (lane c taking k0 + 2c, k0 + 2c + 1,
+    h read as float2) and the carry's partial ``d_hw[:, own] @ W_h[:,
+    own]^T`` for every rank's units, then the peer's units stored into the
+    peer's receive buffer and added rank 0 first. Equal to the plain
+    products; conflict-free loads."""
+    G = GATES[cell]
+    rng = np.random.default_rng(H + C + G)
+    BB, RT = 32, 2
+    Hc, GHc = H // C, G * H // C
+    LW, LD, LG, LR = GHc + 4, H + 8, GHc + 4, Hc + 8
+    W = _ints(rng, H, G * H)
+    h = _ints(rng, BB, H)
+    dhw = _ints(rng, BB, G * H)
+    own = [np.concatenate([np.arange(q * H + j * Hc, q * H + (j + 1) * Hc)
+                           for q in range(G)]) for j in range(C)]
+    h_s = np.full(BB * LD, np.nan)
+    for r in range(BB):
+        h_s[r * LD:r * LD + H] = h[r]
+    partials = []  # [j][rr] → [BB, Hc] of rank rr's units
+    for j in range(C):
+        wh_s = np.full(H * LW, np.nan)
+        dg_s = np.full(BB * LG, np.nan)
+        for k in range(H):
+            wh_s[k * LW:k * LW + GHc] = W[k, own[j]]
+        for r in range(BB):
+            dg_s[r * LG:r * LG + GHc] = dhw[r, own[j]]
+        gates = np.zeros((BB, GHc))
+        part = np.zeros((C, BB, Hc))
+        for warp in range(Hc // 8):
+            for rt in range(RT):
+                for q in range(G):
+                    acc = [np.zeros(4) for _ in range(32)]
+                    for k0 in range(0, H, 8):
+                        b = [(wh_s[(k0 + 2 * (l % 4)) * LW + warp * 8
+                                   + l // 4 + q * Hc],
+                              wh_s[(k0 + 2 * (l % 4)) * LW + warp * 8
+                                   + l // 4 + q * Hc + LW]) for l in range(32)]
+                        hp = [(rt * 16 + l // 4) * LD + k0 + 2 * (l % 4)
+                              for l in range(32)]
+                        assert conflict_free_pairs(hp)
+                        assert conflict_free(
+                            [(k0 + 2 * (l % 4)) * LW + warp * 8 + l // 4
+                             + q * Hc for l in range(32)])
+                        a = [(h_s[p], h_s[p + 8 * LD], h_s[p + 1],
+                              h_s[p + 8 * LD + 1]) for p in hp]
+                        for lane, d in enumerate(mma_frag(a, b)):
+                            acc[lane] += d
+                    for lane in range(32):
+                        g, c = lane // 4, lane % 4
+                        for i in range(4):
+                            r = rt * 16 + g + 8 * (i >> 1)
+                            gates[r, q * Hc + warp * 8 + 2 * c + (i & 1)] = \
+                                acc[lane][i]
+                for rr in range(C):
+                    acc = [np.zeros(4) for _ in range(32)]
+                    for j0 in range(0, GHc, 8):
+                        bp = [(rr * Hc + warp * 8 + l // 4) * LW + j0 + l % 4
+                              for l in range(32)]
+                        ap = [(rt * 16 + l // 4) * LG + j0 + l % 4
+                              for l in range(32)]
+                        assert conflict_free(bp) and conflict_free(ap)
+                        b = [(wh_s[p], wh_s[p + 4]) for p in bp]
+                        a = [(dg_s[p], dg_s[p + 8 * LG], dg_s[p + 4],
+                              dg_s[p + 8 * LG + 4]) for p in ap]
+                        for lane, d in enumerate(mma_frag(a, b)):
+                            acc[lane] += d
+                    for lane in range(32):
+                        g, c = lane // 4, lane % 4
+                        for i in range(4):
+                            r = rt * 16 + g + 8 * (i >> 1)
+                            part[rr, r, warp * 8 + 2 * c + (i & 1)] = \
+                                acc[lane][i]
+        np.testing.assert_array_equal(gates, h @ W[:, own[j]])
+        partials.append(part)
+    # The reduce-scatter: CTA j stores its partial of the peer's units into
+    # the peer's receive buffer [BB, Hc + 8] and adds rank 0's first.
+    dh = np.zeros((BB, H))
+    for j in range(C):
+        mine = partials[j][j]
+        if C == 1:
+            dh[:, :Hc] = mine
+            continue
+        peer = j ^ 1
+        recv = np.full(BB * LR, np.nan)
+        for r in range(BB):
+            for u in range(Hc):
+                recv[r * LR + u] = partials[peer][j][r, u]
+        got = np.array([[recv[r * LR + u] for u in range(Hc)]
+                        for r in range(BB)])
+        dh[:, j * Hc:(j + 1) * Hc] = mine + got if j == 0 else got + mine
+    np.testing.assert_array_equal(dh, dhw @ W.T)
+
+
+@pytest.mark.parametrize("H", [16, 48, 128])
+def test_weight_gradient_fragments(H):
+    """Kernel 2: a stage's rows stored as they come (A [32, H + 8], D [32,
+    64 + 8]) give A^T D through the A^T fragment (a0 at A[kk + c][16 w +
+    g]) and the D fragment (b0 at D[kk + c][8 nt + g]); warp w owns output
+    rows 16 w .. 16 w + 15, and warps past H idle."""
+    rng = np.random.default_rng(H)
+    LA, LDD = H + 8, 72
+    A = _ints(rng, 32, H)
+    D = _ints(rng, 32, 64)
+    amem = np.full(32 * LA, np.nan)
+    dmem = np.full(32 * LDD, np.nan)
+    for r in range(32):
+        amem[r * LA:r * LA + H] = A[r]
+        dmem[r * LDD:r * LDD + 64] = D[r]
+    out = np.full((H, 64), np.nan)
+    for warp in range(8):
+        ko = warp * 16
+        if ko >= H:
+            continue
+        for nt in range(8):
+            acc = [np.zeros(4) for _ in range(32)]
+            for kk in range(0, 32, 8):
+                ap = [(kk + l % 4) * LA + ko + l // 4 for l in range(32)]
+                dp = [(kk + l % 4) * LDD + nt * 8 + l // 4 for l in range(32)]
+                assert conflict_free(ap) and conflict_free(dp)
+                a = [(amem[p], amem[p + 8], amem[p + 4 * LA],
+                      amem[p + 4 * LA + 8]) for p in ap]
+                b = [(dmem[p], dmem[p + 4 * LDD]) for p in dp]
+                for lane, d in enumerate(mma_frag(a, b)):
+                    acc[lane] += d
+            for lane in range(32):
+                g, c = lane // 4, lane % 4
+                for i in range(4):
+                    out[ko + g + 8 * (i >> 1), nt * 8 + 2 * c + (i & 1)] = \
+                        acc[lane][i]
+    np.testing.assert_array_equal(out, A.T @ D)
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_gemm_fragments(trans_b):
+    """The GEMM's stage (A [128, 32 + 4]; B [32, 64 + 8] row-major, or
+    transposed [64, 32 + 4]) at its lane addresses gives A @ B, 8 warps of
+    32 x 32: xw = hin @ W_x and dhin = d_xw @ W_x^T."""
+    rng = np.random.default_rng(int(trans_b))
+    LA = 36
+    LB = 36 if trans_b else 72
+    A = _ints(rng, 128, 32)
+    Bm = _ints(rng, 32, 64)
+    amem = np.full(128 * LA, np.nan)
+    for r in range(128):
+        amem[r * LA:r * LA + 32] = A[r]
+    if trans_b:
+        bmem = np.full(64 * LB, np.nan)
+        for n in range(64):
+            bmem[n * LB:n * LB + 32] = Bm[:, n]
+    else:
+        bmem = np.full(32 * LB, np.nan)
+        for k in range(32):
+            bmem[k * LB:k * LB + 64] = Bm[k]
+    out = np.full((128, 64), np.nan)
+    for warp in range(8):
+        wm, wn = (warp & 3) * 32, (warp >> 2) * 32
+        for mt in range(2):
+            for nt in range(4):
+                acc = [np.zeros(4) for _ in range(32)]
+                for kk in range(0, 32, 8):
+                    ap = [(wm + mt * 16 + l // 4) * LA + kk + l % 4
+                          for l in range(32)]
+                    if trans_b:
+                        bp = [(wn + nt * 8 + l // 4) * LB + kk + l % 4
+                              for l in range(32)]
+                        b = [(bmem[p], bmem[p + 4]) for p in bp]
+                    else:
+                        bp = [(kk + l % 4) * LB + wn + nt * 8 + l // 4
+                              for l in range(32)]
+                        b = [(bmem[p], bmem[p + 4 * LB]) for p in bp]
+                    assert conflict_free(ap) and conflict_free(bp)
+                    a = [(amem[p], amem[p + 8 * LA], amem[p + 4],
+                          amem[p + 8 * LA + 4]) for p in ap]
+                    for lane, d in enumerate(mma_frag(a, b)):
+                        acc[lane] += d
+                for lane in range(32):
+                    g, c = lane // 4, lane % 4
+                    for i in range(4):
+                        out[wm + mt * 16 + g + 8 * (i >> 1),
+                            wn + nt * 8 + 2 * c + (i & 1)] = acc[lane][i]
+    np.testing.assert_array_equal(out, A @ Bm)
+
+
+# ---------------------------------------------------------------------------
+# Cluster size and shared memory
+# ---------------------------------------------------------------------------
+
+
+def test_rows_per_cta_match_the_source():
+    m = re.search(r"constexpr int kRowTiles = (\d+);", SRC.read_text())
+    assert m and 16 * int(m.group(1)) == R.TF32_ROWS
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("H", list(range(16, 129, 16)))
+def test_cluster_size_follows_the_shared_memory_arithmetic(cell, H):
+    """The wrapper takes the fewest CTAs per cluster whose W_h share, the
+    two h tiles, the d_hw tile and the receive buffers fit an H100 block:
+    one where all of W_h fits, two at H = 128 in both cells."""
+    G = GATES[cell]
+    rows = R.TF32_ROWS
+
+    def smem(C):
+        Hc = H // C
+        return 4 * (H * (G * Hc + 4) + 2 * rows * (H + 8)
+                    + rows * (G * Hc + 4) + (2 * rows * (Hc + 8) if C > 1
+                                             else 0))
+
+    C = R._tf32_cluster(cell, H, H100_SMEM)
+    assert R._tf32_smem(cell, H, C) == smem(C) <= H100_SMEM
+    assert C == (1 if smem(1) <= H100_SMEM else 2)
+    if H == 128:
+        assert C == 2
+    if H <= 96:
+        assert C == 1
+
+
+def test_cluster_size_at_c2_and_a_short_card():
+    assert R._tf32_smem("lstm", 128, 2) == 219_648
+    assert R._tf32_smem("gru", 128, 2) == 178_688
+    with pytest.raises(ValueError, match="shared memory"):
+        R._tf32_cluster("lstm", 128, 200_000)
