@@ -13,8 +13,8 @@ imports nothing of JAX. Phases, each fatal on failure:
    off): first at small awkward shapes (odd batch, T = 1, H not a
    multiple of 4, an all-invalid row, f32 and bf16; bf16 at H 16 and 64
    reaches the tensor-core fused forward and both backwards, f32 there
-   the 3xTF32 backwards, the rest the CUDA-core kernels, and the launch
-   counters must say so; gathers that take
+   the 3xTF32 forwards and backwards, the rest the CUDA-core kernels, and
+   the launch counters must say so; gathers that take
    the span copies and the narrow stores, and indices outside the panel)
    — the forward kernels on their outputs, the backward kernels on every
    gradient (scaled by its largest magnitude: f32 atol 1e-5, bf16 0.05,
@@ -26,16 +26,20 @@ imports nothing of JAX. Phases, each fatal on failure:
    wrapper work included) and by its device time alone (``device_ms``:
    launches queued behind a device sleep), and its plain version, beside
    the kernel's bound:
-   in bf16 the tensor-core forward (at 16, 32 and 64 rows per block too),
+   in bf16 the tensor-core forward (at 16, 32 and 64 rows per block too,
+   and at the serving dispatches beside one cuDNN ``torch.nn.LSTM`` /
+   ``GRU`` call on the same inputs with every step valid, its yardstick),
    both tensor-core backwards (the hoisted one beside the CUDA-core
    hoisted kernel on the same inputs, its private launcher), the hoisted
    CUDA-core forward, each backward's ``torch.matmul`` yardstick for its
-   weight-gradient products; in float32 at the train step the CUDA-core
-   forwards (rows 3 and 1) and the 3xTF32 backwards (rows 4 and 2, beside
-   ``rnn_bwd.cu`` on the same inputs), and ``rnn_bwd.cu`` at hidden 120,
+   weight-gradient products; in float32 at the train step the 3xTF32
+   forwards (rows 3 and 1, beside ``rnn_fused_fwd.cu`` on the same inputs,
+   in turns; row 3 beside cuDNN in float32) and backwards (rows 4 and 2,
+   beside ``rnn_bwd.cu``), the fused forward's seed grid (S 3, b shared:
+   bitwise equal to one-seed calls), and ``rnn_bwd.cu`` at hidden 120,
    each f32 row beside its bound at 3xTF32 and at the CUDA cores' rate
-   and its ``torch.matmul`` yardstick (TF32 off); two launches of each
-   backward on the same inputs must give bitwise equal gradients;
+   and its library yardstick (TF32 off); two launches of each backward on
+   the same inputs must give bitwise equal gradients;
 4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
    GRU universes at full width (random weights from a seed), warmed up,
    then closed-loop requests from 4 threads; every served score vector is
@@ -49,12 +53,12 @@ imports nothing of JAX. Phases, each fatal on failure:
    training kernels' counters must have moved. A few steps of the
    hoisted form (``scan_impl="pallas"``: the CUDA-core forward, the
    tensor-core hoisted backward), of the GRU at c2's geometry, fused and
-   hoisted, of both cells and both forms in float32 (the CUDA-core
-   forwards, the 3xTF32 backwards: no CUDA-core backward may launch), and
-   of the same four at hidden 120 (the CUDA-core backwards) run the same
-   way; the hoisted bf16 step and the fused float32 step are also timed
-   with their backward as routed and sent to the CUDA-core kernel, in
-   turns.
+   hoisted, of both cells and both forms in float32 (the 3xTF32 forwards
+   and backwards: no CUDA-core kernel may launch), and of the same four
+   at hidden 120 (the CUDA-core forwards and backwards) run the same way;
+   the hoisted bf16 step and the fused float32 step are also timed with
+   their backward as routed and sent to the CUDA-core kernel, and the
+   fused float32 step with its forward so, in turns.
    Prints steps/s,
    firm-months/s, ms per step, the forward, backward and optimizer times
    of one step and the device time by kernel;
@@ -108,15 +112,19 @@ HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
-# kernels of the fused form run on the main paths in float32 only and are
-# measured in float32 at the c2 train step; the CUDA-core backwards
-# (``rnn_bwd.cu``) run there at hidden 120 (H % 16 != 0) and are measured
-# in float32 at B 2048, T 60, H 120; the 3xTF32 backwards (``*_tf32_*``) in
-# float32 at the c2 train step; the hoisted forward runs in both dtypes and
-# is measured in both.
+# kernels run on the main paths in float32 at hidden 120 (H % 16 != 0),
+# and the hoisted forward also in bf16; the fused forward is measured in
+# float32 at the c2 train step (beside the 3xTF32 forward, on the same
+# inputs), the hoisted one there in both dtypes, and the backwards
+# (``rnn_bwd.cu``) in float32 at B 2048, T 60, H 120. The 3xTF32 kernels
+# (``*_tf32_*``) are measured in float32 at the c2 train step.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
+    "rnn_fused_fwd_tf32_lstm": ("csrc/rnn_fwd_tf32.cu", "pallas_rnn.py:626"),
+    "rnn_fused_fwd_tf32_gru": ("csrc/rnn_fwd_tf32.cu", "pallas_rnn.py:652"),
+    "rnn_fwd_tf32_lstm": ("csrc/rnn_fwd_tf32.cu", "pallas_rnn.py:135"),
+    "rnn_fwd_tf32_gru": ("csrc/rnn_fwd_tf32.cu", "pallas_rnn.py:158"),
     "rnn_fused_fwd_mma_lstm": ("csrc/rnn_fused_fwd_mma.cu",
                                "pallas_rnn.py:626"),
     "rnn_fused_fwd_mma_gru": ("csrc/rnn_fused_fwd_mma.cu",
@@ -227,6 +235,21 @@ def kernel_ms(fn, reps: int = 10, launches: int = 10) -> dict:
     time alone (``device_ms``)."""
     return dict(ms=time_ms(fn, reps=reps),
                 device_ms=device_ms(fn, reps=reps, launches=launches))
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host time (ms) of one ``fn`` call started on an idle device:
+    the wrapper's work and the launches' enqueue."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def worst_excess(got, want, atol: float, rtol: float):
@@ -387,25 +410,30 @@ def check_small(torch, gen) -> None:
                             (37, 9, 64), (21, 5, 16)):
                 hin, wx, b, wh, m = rnn_inputs(torch, gen, cell, B, T, H, dt)
                 xw = (hin.float() @ wx.float() + b.float()).to(dt)
-                # bf16 at H 16 and 64 takes the tensor-core forward and
-                # backwards, f32 there the 3xTF32 backwards and the
-                # CUDA-core forward; the odd widths keep the CUDA-core ones.
+                # bf16 at H 16 and 64 takes the tensor-core fused forward
+                # and backwards, f32 there the 3xTF32 forwards and
+                # backwards; the odd widths keep the CUDA-core ones (and
+                # bf16 the CUDA-core hoisted forward).
                 mma = R._mma_route(dt, H) == "mma"
-                tag = {"mma": "mma_", "tf32": "tf32_", "simt": ""}[
-                    R._mma_route(dt, H, "bwd")]
-                fwd_kernel = f"rnn_fused_fwd_{'mma_' if mma else ''}{cell}"
+                tags = {"mma": "mma_", "tf32": "tf32_", "simt": ""}
+                tag = tags[R._mma_route(dt, H, "bwd")]
+                fwd_tag = tags[R._mma_route(dt, H)]
+                fwd_kernel = f"rnn_fused_fwd_{fwd_tag}{cell}"
+                hoist_fwd = f"rnn_fwd_{'' if mma else fwd_tag}{cell}"
                 bwd_kernel = f"rnn_fused_bwd_{tag}{cell}"
                 hoist_kernel = f"rnn_bwd_{tag}{cell}"
                 _build.reset_launch_counts()
                 with torch.no_grad():
                     fused = R.rnn_scan_fused(cell, hin, wx, b, wh, m)
-                    if _build.launch_counts()[fwd_kernel] != 1:
-                        fail(f"fused fwd {cell} {dt} {(B, T, H)} did not "
-                             f"launch {fwd_kernel}")
+                    hoisted = R.rnn_scan(cell, xw, wh, m)
+                    counts = _build.launch_counts()
+                    if counts[fwd_kernel] != 1 or counts[hoist_fwd] != 1:
+                        fail(f"fwd {cell} {dt} {(B, T, H)} did not launch "
+                             f"{fwd_kernel} and {hoist_fwd}: {counts}")
                     pairs = (
                         ("fused fwd", fused,
                          R.rnn_scan_fused_reference(cell, hin, wx, b, wh, m)),
-                        ("fwd", R.rnn_scan(cell, xw, wh, m),
+                        ("fwd", hoisted,
                          R.rnn_scan_reference(cell, xw, wh, m)))
                 for form, out, ref in pairs:
                     torch.cuda.synchronize()
@@ -439,8 +467,9 @@ def check_small(torch, gen) -> None:
                     R.rnn_scan_bwd_reference(cell, xw, wh, m, hx, cx, dh),
                     dt, MMA_WGRAD_TOL if mma else None)
                 log(f"small rnn {cell} {str(dt)[6:]} B,T,H={(B, T, H)} "
-                    f"fwd ok ({fwd_kernel}), bwd scaled err fused {e4:.3g} "
-                    f"({bwd_kernel}) hoisted {e2:.3g} ({hoist_kernel}) ok")
+                    f"fwd ok ({fwd_kernel}, {hoist_fwd}), bwd scaled err "
+                    f"fused {e4:.3g} ({bwd_kernel}) hoisted {e2:.3g} "
+                    f"({hoist_kernel}) ok")
     # The gathers: span copies (c2's fp 21 and W 60 in both types, fp 6
     # in f32; lane-padded to Fp 32 in bf16) and narrow stores (F < 8 in
     # bf16, F = 7, young anchors); the last shape with anchors past the
@@ -482,11 +511,58 @@ def report(kernels: dict, name: str, where: str, rec: dict) -> None:
     log("kernel " + json.dumps(dict(name=name, at=where, **rec)))
 
 
+def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
+                    rtol: float) -> dict:
+    """Row 3's ``library_ms``: one cuDNN call (``torch.nn.LSTM`` or
+    ``torch.nn.GRU``, TF32 off) on the same inputs with every step valid
+    — the same function only when no step is masked. Its weights are the
+    row's: W_x^T and W_h^T with the JAX gate order permuted for the GRU
+    (PyTorch's r, z, n), ``forget_bias`` 1 folded into the f slice of
+    ``b_ih``, ``b_hh`` 0. Held first to the plain version with m all ones
+    at the row's tolerance; timed only if it agrees, else the record says
+    that it differs or that cuDNN refused the dtype. The port never makes
+    this call."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    mod = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
+        H, H, batch_first=True).to(device=hin.device, dtype=hin.dtype)
+    bias = b.float().clone()
+    if cell == "lstm":
+        perm = torch.arange(4 * H, device=hin.device)
+        bias[H:2 * H] += 1.0
+    else:
+        perm = torch.cat([torch.arange(H, 2 * H), torch.arange(H),
+                          torch.arange(2 * H, 3 * H)]).to(hin.device)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(wx.t()[perm])
+        mod.weight_hh_l0.copy_(wh.t()[perm])
+        mod.bias_ih_l0.copy_(bias[perm])
+        mod.bias_hh_l0.zero_()
+        ones = torch.ones(B, T, dtype=torch.bool, device=hin.device)
+        want = R.rnn_scan_fused_reference(cell, hin, wx, b, wh, ones)
+        try:
+            out = mod(hin)[0]
+        except RuntimeError as exc:
+            return dict(library_ms=None, library_note=(
+                f"cuDNN refused {hin.dtype}: {str(exc).splitlines()[0]}"))
+        torch.cuda.synchronize()
+        err, excess = worst_excess(out, want, atol, rtol)
+        del out, want
+        if not excess <= 0:  # NaN differs too
+            return dict(library_ms=None, library_max_abs_err=err,
+                        library_note="cuDNN differs from the plain version")
+        return dict(library_ms=time_ms(lambda: mod(hin)),
+                    library_max_abs_err=err,
+                    library_note="cuDNN, every step valid")
+
+
 def check_fused_fwd(torch, kernels, where: str, cell: str, hin, wx, b, wh,
                     mm, save_c: bool) -> None:
     """Row 3 at a main path's shape in bf16: the tensor-core kernel (the
     route's choice at this H) against the plain version, timed beside the
-    bound, and at 16, 32 and 64 rows per block."""
+    bound, and at 16, 32 and 64 rows per block; at the serving dispatches
+    (no c_all) beside the cuDNN yardstick (:func:`cudnn_yardstick`)."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
@@ -515,10 +591,12 @@ def check_fused_fwd(torch, kernels, where: str, cell: str, hin, wx, b, wh,
     del h, c, want_h, want_c
     ms = kernel_ms(run)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    library = (dict(library_ms=None) if save_c else cudnn_yardstick(
+        torch, cell, hin, wx, b, wh, BF16_TOL, BF16_TOL))
     report(kernels, name, where, dict(
         shape=[B, T, H], save_c=save_c, max_abs_err=err,
         tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}", **ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, **library,
         rows_per_block=R._mma_rows(B, sms),
         rows_ms={rows: time_ms(lambda: R._launch_fwd_mma(
             cell, hin, wx, b, wh, mm, 1.0, save_c, rows))
@@ -674,64 +752,27 @@ def f32_bounds(kind: str, cell: str, B: int, T: int, H: int,
 def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
                    gen) -> None:
     """The float32 lane at the c2 train step, where the float32 training
-    runs launch it: rows 3 and 1 (the CUDA-core fused and hoisted forward,
-    saving c_all as training does) against their plain versions at the
-    JAX package's f32 bound (atol 1e-5), and rows 4 and 2 on the 3xTF32
+    runs launch it: rows 3 and 1 (:func:`f32_fwd_rows`), the fused form's
+    seed grid (:func:`f32_seed_grid`), and rows 4 and 2 on the 3xTF32
     kernels (:func:`f32_bwd_rows`); then ``rnn_bwd.cu``, the float32
     backward of every other width, at hidden 120 on the same rows (seeded
-    weights). Bounds at both f32 rates. The hoisted forward's float32
-    record goes under ``f32`` in its bf16 record, the others are their
-    kernels' records."""
+    weights). Bounds at both f32 rates."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     f32 = torch.float32
     hin, wx, b, wh, dh = (t.to(f32) for t in (hin, wx, b, wh, dh))
     B, T, H = hin.shape
-    if R._mma_route(f32, H) != "simt" or R._mma_route(f32, H, "bwd") != \
+    if R._mma_route(f32, H) != "tf32" or R._mma_route(f32, H, "bwd") != \
             "tf32":
-        fail("the float32 lane is not the CUDA-core forward and the 3xTF32 "
-             "backward")
+        fail("the float32 lane is not the 3xTF32 forward and backward")
     xw = hin @ wx + b
-
-    def fwd_check(name, kind, run, want):
-        out = run()
-        torch.cuda.synchronize()
-        err, excess = 0.0, 0.0
-        for got, ref in zip(out, want):
-            if got is None:
-                continue
-            e, x = worst_excess(got, ref, F32_TOL, 0.0)
-            err, excess = max(err, e), max(excess, x)
-            if not torch.isfinite(got).all():
-                excess = float("inf")
-        if excess > 0:
-            fail(f"{name} (float32) at the train shape: max err {err}")
-        del out
-        return dict(shape=[B, T, H], dtype="float32", save_c=True,
-                    max_abs_err=err, tolerance=f"atol {F32_TOL}",
-                    **kernel_ms(run, reps=5, launches=2),
-                    **f32_bounds(kind, cell, B, T, H, save_c=True),
-                    library_ms=None)
-
     with torch.no_grad():
-        want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
-        plain_ms = time_ms(lambda: R.rnn_scan_states(
-            cell, hin @ wx + b, wh, mm, 1.0, True), reps=3, warmup=1)
-        rec = fwd_check(f"rnn_fused_fwd_{cell}", "fused_fwd",
-                        lambda: R._fused_states(cell, hin, wx, b, wh, mm,
-                                                1.0, True), want)
-        report(kernels, f"rnn_fused_fwd_{cell}", "c2 train step",
-               dict(rec, plain_ms=plain_ms))
-        rec = fwd_check(f"rnn_fwd_{cell}", "fwd",
-                        lambda: R._scan_states_any(cell, xw, wh, mm, 1.0,
-                                                   True), want)
-        rec["plain_ms"] = time_ms(lambda: R.rnn_scan_states(
-            cell, xw, wh, mm, 1.0, True), reps=3, warmup=1)
-        kernels[f"rnn_fwd_{cell}"][-1]["f32"] = rec
-        log("kernel " + json.dumps(dict(name=f"rnn_fwd_{cell}",
-                                        at="c2 train step", **rec)))
-        h, c = want
-        del want
+        f32_fwd_rows(torch, kernels, cell, hin, wx, b, wh, mm, xw)
+        f32_seed_grid(torch, cell, hin, wx, b, wh, mm, gen)
+    if cell == "lstm":
+        f32_stack_memory(torch, hin, wx, b, wh, mm, dh)
+    with torch.no_grad():
+        h, c = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
     f32_bwd_rows(torch, kernels, "c2 train step", cell, hin, wx, b, wh, mm,
                  h, c, dh, xw)
     del h, c, xw
@@ -749,6 +790,197 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
         h2, c2 = R.rnn_scan_states(cell, xw2, wh2, mm, 1.0, True)
     f32_bwd_rows(torch, kernels, f"B {B}, T {T}, H {H2}", cell, hin2, wx2,
                  b2, wh2, mm, h2, c2, dh2, xw2)
+    torch.cuda.empty_cache()
+
+
+def f32_fwd_rows(torch, kernels, cell: str, hin, wx, b, wh, mm, xw) -> None:
+    """Rows 3 and 1 in float32 at the c2 train step, saving c_all as
+    training does: the 3xTF32 forward through the route (counted, nothing
+    else launched) and ``rnn_fused_fwd.cu`` through its private launcher
+    on the same inputs, timed in turns (3xTF32, CUDA cores, CUDA cores,
+    3xTF32: ``ms`` and ``device_ms`` are the first reading, ``turns_ms``
+    all four), beside both bounds, the plain version and, for row 3, the
+    cuDNN yardstick. Both kernels' h_all and c_all within atol 1e-5 of the
+    plain version (the JAX f32 bound on the op's output).
+    ``rnn_fused_fwd.cu``'s record goes under its own name (row 3) or under
+    ``f32`` in its bf16 record (row 1)."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
+    library = cudnn_yardstick(torch, cell, hin, wx, b, wh, F32_TOL, 0.0)
+    for kind, fused in (("fused_fwd", True), ("fwd", False)):
+        form = "fused_" if fused else ""
+        name, simt = f"rnn_{form}fwd_tf32_{cell}", f"rnn_{form}fwd_{cell}"
+        if fused:
+            runs = {"tf32": lambda: R._fused_states(
+                        cell, hin, wx, b, wh, mm, 1.0, True),
+                    "cuda_core": lambda: R._launch_fwd(
+                        cell, False, hin, wx, b, wh, mm, 1.0, True)}
+            plain_ms = time_ms(lambda: R.rnn_scan_states(
+                cell, hin @ wx + b, wh, mm, 1.0, True), reps=3, warmup=1)
+        else:
+            runs = {"tf32": lambda: R._scan_states_any(
+                        cell, xw, wh, mm, 1.0, True),
+                    "cuda_core": lambda: R._launch_fwd(
+                        cell, True, xw, None, None, wh, mm, 1.0, True)}
+            plain_ms = time_ms(lambda: R.rnn_scan_states(
+                cell, xw, wh, mm, 1.0, True), reps=3, warmup=1)
+        errs = {}
+        for mode, run in runs.items():
+            _build.reset_launch_counts()
+            out = run()
+            counts = _build.launch_counts()
+            launched = name if mode == "tf32" else simt
+            if counts[launched] != 1 or sum(counts.values()) != 1:
+                fail(f"{name} ({mode}): launched {counts}")
+            torch.cuda.synchronize()
+            err, excess = {}, 0.0
+            for state, got, ref in zip("hc", out, want):
+                if got is None:  # the GRU has no c_all
+                    continue
+                if not torch.isfinite(got).all():
+                    fail(f"{launched} (float32): {state} not finite")
+                err[state], x = worst_excess(got, ref, F32_TOL, 0.0)
+                excess = max(excess, x)
+            if excess > 0:
+                fail(f"{launched} (float32) at the train shape: max err "
+                     f"{err} (atol {F32_TOL})")
+            errs[mode] = err
+            del out
+        turns = {mode: [] for mode in runs}
+        for mode in ("tf32", "cuda_core", "cuda_core", "tf32"):
+            turns[mode].append(kernel_ms(runs[mode], reps=5, launches=2))
+        bounds = f32_bounds(kind, cell, B, T, H, save_c=True)
+        lib = library if fused else dict(library_ms=None)
+        common = dict(shape=[B, T, H], dtype="float32", save_c=True,
+                      plain_ms=plain_ms, **bounds, **lib)
+        rec = dict(common, tolerance=f"atol {F32_TOL}",
+                   max_abs_err=max(errs["tf32"].values()),
+                   max_abs_err_by_state=errs["tf32"], **turns["tf32"][0],
+                   host_ms=host_ms(runs["tf32"]),
+                   cuda_core_ms=turns["cuda_core"][0]["ms"],
+                   cuda_core_device_ms=turns["cuda_core"][0]["device_ms"],
+                   cuda_core_max_abs_err=max(errs["cuda_core"].values()),
+                   turns_ms={m: [t["ms"] for t in v]
+                             for m, v in turns.items()})
+        report(kernels, name, "c2 train step", rec)
+        simt_rec = dict(common, tolerance=f"atol {F32_TOL}",
+                        max_abs_err=max(errs["cuda_core"].values()),
+                        max_abs_err_by_state=errs["cuda_core"],
+                        **turns["cuda_core"][0],
+                        host_ms=host_ms(runs["cuda_core"]))
+        if fused:
+            report(kernels, simt, "c2 train step", simt_rec)
+        else:
+            kernels[simt][-1]["f32"] = simt_rec
+            log("kernel " + json.dumps(dict(name=simt, at="c2 train step",
+                                            **simt_rec)))
+        log(f"{name} (float32) at the c2 train step: {rec['ms']:.4f} ms "
+            f"(device {rec['device_ms']:.4f}, host {rec['host_ms']:.4f}), "
+            f"rnn_fused_fwd.cu "
+            f"{rec['cuda_core_ms']:.4f} (device "
+            f"{rec['cuda_core_device_ms']:.4f}), in turns {rec['turns_ms']}; "
+            f"bound {rec['bound_ms']:.4f} (3xTF32) / "
+            f"{rec['bound_f32_simt_ms']:.4f} (CUDA cores); library "
+            f"{lib['library_ms']}; errors {errs}")
+    torch.cuda.empty_cache()
+
+
+def f32_seed_grid(torch, cell: str, hin, wx, b, wh, mm, gen) -> None:
+    """The float32 fused forward's seed grid at the c2 train step: S = 3
+    seeds (hin, W_x, W_h and m per seed, b of seed extent 1) in one
+    counted call, bitwise equal to three one-seed calls, each within atol
+    1e-5 of the plain version."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    S = 3
+    hin3 = torch.stack([hin, -hin, 0.5 * hin])
+    wx3, wh3 = (torch.stack([w, 0.9 * w, w + 0.02 * torch.randn(
+        w.shape, generator=gen).cuda()]) for w in (wx, wh))
+    m3 = torch.stack([mm, mm.flip(0), mm.roll(1, dims=1)])
+    b1 = b[None]
+    _build.reset_launch_counts()
+    h, c = R._fused_states(cell, hin3, wx3, b1, wh3, m3, 1.0, True)
+    if _build.launch_counts()[f"rnn_fused_fwd_tf32_{cell}"] != 1:
+        fail(f"the float32 seed grid launched {_build.launch_counts()}")
+    worst = 0.0
+    for s in range(S):
+        h1, c1 = R._fused_states(cell, hin3[s], wx3[s], b, wh3[s], m3[s],
+                                 1.0, True)
+        if not torch.equal(h[s], h1) or (c is not None
+                                         and not torch.equal(c[s], c1)):
+            fail(f"float32 seed grid differs from the one-seed call at "
+                 f"seed {s}")
+        want = R.rnn_scan_states(cell, hin3[s] @ wx3[s] + b, wh3[s], m3[s],
+                                 1.0, False)[0]
+        err, excess = worst_excess(h1, want, F32_TOL, 0.0)
+        if excess > 0:
+            fail(f"float32 seed grid seed {s}: max err {err}")
+        worst = max(worst, err)
+    log(f"rnn_fused_fwd_tf32_{cell} seed grid (S {S}, b shared) at the c2 "
+        f"train step: one launch, bitwise equal to {S} one-seed calls, max "
+        f"err {worst:.3g} (atol {F32_TOL})")
+    del h, c, hin3, wx3, wh3, m3
+    torch.cuda.empty_cache()
+
+
+def f32_stack_memory(torch, hin, wx, b, wh, mm, dh) -> None:
+    """One float32 fused LSTM layer stacked over 64 seeds, c5's ensemble
+    shape in float32 (S 64 x B 2048, T 60, H 128: the c2 step's rows and
+    weights for every seed, m shared): forward and backward through
+    autograd, as training runs them, where the 3xTF32 forward's xw scratch
+    (16 GB) becomes the backward's d_gates buffer, against the forward
+    without a graph and then the backward, which makes its own xw (one
+    more GEMM). Peak device memory of each above the operands', and the
+    gradients of the two within the scaled f32 bound."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    S = 64
+    hin_s, dh_s = (t.expand(S, *t.shape).contiguous() for t in (hin, dh))
+    wx_s, b_s, wh_s = (t.expand(S, *t.shape).contiguous()
+                       for t in (wx, b, wh))
+    m1 = mm[None]
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base, \
+            _build.launch_counts()
+
+    ops = [t.requires_grad_() for t in (hin_s, wx_s, b_s, wh_s)]
+
+    def carried():
+        with torch.enable_grad():
+            h = R.rnn_scan_fused("lstm", *ops, m1)
+            torch.autograd.backward(h, dh_s)
+        return tuple(t.grad for t in ops)
+
+    def apart():
+        with torch.no_grad():
+            h, c = R._fused_states("lstm", *ops, m1, 1.0, True)
+            return R.rnn_scan_fused_bwd("lstm", *ops, m1, h, c, dh_s, 1.0)
+
+    got, peak_carried, counts = peak(carried)
+    if counts["rnn_fused_fwd_tf32_lstm"] != 1 or \
+            counts["rnn_fused_bwd_tf32_lstm"] != 1:
+        fail(f"float32 stack: launched {counts}")
+    want, peak_apart, _ = peak(apart)
+    worst = grads_close("float32 stack, xw carried to the backward", got,
+                        want, torch.float32)
+    log(f"float32 LSTM stack S {S} x B {hin.shape[0]}, T {hin.shape[1]}, "
+        f"H {hin.shape[2]}: peak {peak_carried / 2**30:.3f} GiB with the "
+        f"forward's xw carried to the backward, {peak_apart / 2**30:.3f} "
+        f"GiB with the backward's own xw; gradients agree to scaled "
+        f"{worst:.3g}")
+    del got, want, ops, hin_s, dh_s, wx_s, b_s, wh_s
     torch.cuda.empty_cache()
 
 
@@ -1079,34 +1311,33 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     torch.cuda.empty_cache()
 
     # The hoisted form (its backward on the tensor cores in bf16), the GRU
-    # at c2's geometry, both cells and both forms in float32 (the
-    # CUDA-core forwards, the 3xTF32 backwards; no CUDA-core backward), and
-    # the same at hidden 120 (the CUDA-core backwards): a few steps each.
-    simt_bwd = ("rnn_fused_bwd_lstm", "rnn_fused_bwd_gru", "rnn_bwd_lstm",
-                "rnn_bwd_gru")
+    # at c2's geometry, both cells and both forms in float32 (the 3xTF32
+    # forwards and backwards; no CUDA-core kernel), and the same at hidden
+    # 120 (the CUDA-core forwards and backwards): a few steps each.
     h120 = dict(cfg.model.kwargs, hidden=120)
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
              ("rnn_fwd_lstm", "rnn_bwd_mma_lstm", "window_gather"), ()),
             ("c2 training (fused, float32)", train_variant(cfg, bf16=False),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_tf32_lstm",
-              "window_gather"), simt_bwd),
+             ("rnn_fused_fwd_tf32_lstm", "rnn_fused_bwd_tf32_lstm",
+              "window_gather"), CUDA_CORE),
             ("c2 training (hoisted, float32)",
              train_variant(cfg, scan_impl="pallas", bf16=False),
-             ("rnn_fwd_lstm", "rnn_bwd_tf32_lstm", "window_gather"),
-             simt_bwd),
+             ("rnn_fwd_tf32_lstm", "rnn_bwd_tf32_lstm", "window_gather"),
+             CUDA_CORE),
             ("GRU training (fused)", train_variant(cfg, kind="gru"),
              ("rnn_fused_fwd_mma_gru", "rnn_fused_bwd_mma_gru",
               "window_gather"), ()),
             ("GRU training (fused, float32)",
              train_variant(cfg, kind="gru", bf16=False),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_tf32_gru", "window_gather"),
-             simt_bwd),
+             ("rnn_fused_fwd_tf32_gru", "rnn_fused_bwd_tf32_gru",
+              "window_gather"), CUDA_CORE),
             ("GRU training (hoisted)",
              train_variant(cfg, kind="gru", scan_impl="pallas"),
              ("rnn_fwd_gru", "rnn_bwd_mma_gru", "window_gather"), ()),
             ("GRU training (hoisted, float32)",
              train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False),
-             ("rnn_fwd_gru", "rnn_bwd_tf32_gru", "window_gather"), simt_bwd),
+             ("rnn_fwd_tf32_gru", "rnn_bwd_tf32_gru", "window_gather"),
+             CUDA_CORE),
             ("c2 training (fused, float32, hidden 120)",
              train_variant(cfg, bf16=False, kwargs=h120),
              ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
@@ -1135,8 +1366,9 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
             f"{err:.4g}")
         torch.cuda.empty_cache()
 
-    # Informational, after the counted runs: each step with its backward as
-    # routed and sent to the CUDA-core kernel, in turns.
+    # Informational, after the counted runs: each step with its backward
+    # (and the float32 fused step with its forward) as routed and sent to
+    # the CUDA-core kernel, in turns.
     from lfm_quant_tpu_torch.ops import rnn as R
 
     step_in_turns(torch, runs[0][1], splits, "c2 (hoisted)",
@@ -1147,15 +1379,37 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     step_in_turns(torch, runs[1][1], splits, "c2 (fused, float32)",
                   "_launch_bwd_tf32", {"tensor cores (3xTF32)":
                                        R._launch_bwd_tf32,
-                                       "CUDA cores": R._launch_bwd})
+                                       "CUDA cores": cuda_core_bwd})
+    step_in_turns(torch, runs[1][1], splits, "c2 (fused, float32)",
+                  "_launch_fwd_tf32", {
+                      "tensor cores (3xTF32)": R._launch_fwd_tf32,
+                      "CUDA cores": cuda_core_fwd}, part="forward")
 
 
-def step_in_turns(torch, cfg, splits, label: str, attr: str,
-                  modes: dict) -> None:
+def cuda_core_bwd(*a, xw=None):
+    """``_launch_bwd_tf32``'s stand-in on ``rnn_bwd.cu``, which forms its
+    own xw (the forward's, ``xw``, goes unused)."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    return R._launch_bwd(*a)
+
+
+def cuda_core_fwd(cell, fused, *a, keep_xw=False):
+    """``_launch_fwd_tf32``'s stand-in on ``rnn_fused_fwd.cu``: no xw
+    scratch, so the backward makes its own xw."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    out = R._launch_fwd(cell, not fused, *a)
+    return (*out, None) if keep_xw else out
+
+
+def step_in_turns(torch, cfg, splits, label: str, attr: str, modes: dict,
+                  part: str = "backward") -> None:
     """``cfg``'s train step in ms per step with ``ops.rnn.<attr>`` (the
-    backward's launcher of the route) set to each of ``modes`` in turn:
-    ``HOISTED_STEPS`` steps each, twice, host clock around synchronised
-    work; the launcher restored after."""
+    launcher of the route's ``part``, its backward or forward) set to each
+    of ``modes`` in turn: ``HOISTED_STEPS`` steps each, twice, host clock
+    around synchronised work, and the peak device memory of each turn
+    above what was allocated before it; the launcher restored after."""
     from lfm_quant_tpu_torch.ops import rnn as R
     from lfm_quant_tpu_torch.train.loop import Trainer
 
@@ -1166,6 +1420,9 @@ def step_in_turns(torch, cfg, splits, label: str, attr: str,
 
     def per_step():
         s = state
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         for k in range(n):  # warm
             s, _ = trainer.step(s, fi[k], ti[k], w[k])
         torch.cuda.synchronize()
@@ -1173,21 +1430,27 @@ def step_in_turns(torch, cfg, splits, label: str, attr: str,
         for k in range(n):
             s, _ = trainer.step(s, fi[k], ti[k], w[k])
         torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / n
+        return (1e3 * (time.perf_counter() - t0) / n,
+                torch.cuda.max_memory_allocated() - base)
 
     routed = getattr(R, attr)
     times = {mode: [] for mode in modes}
+    peaks = {mode: [] for mode in modes}
     try:
         for _ in range(2):
             for mode, launcher in modes.items():
                 setattr(R, attr, launcher)
-                times[mode].append(per_step())
+                t, peak = per_step()
+                times[mode].append(t)
+                peaks[mode].append(peak)
     finally:
         setattr(R, attr, routed)
     log(f"train {label} steady state, ms/step in turns: "
-        + ", ".join(f"backward on the {mode} "
+        + ", ".join(f"{part} on the {mode} "
                     f"{[round(t, 3) for t in times[mode]]}"
-                    for mode in modes) + f" ({n} steps each)")
+                    for mode in modes) + f" ({n} steps each); peak MB "
+        + ", ".join(f"{mode} {[round(p / 2**20, 1) for p in peaks[mode]]}"
+                    for mode in modes))
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -1520,9 +1783,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    kernel = ""
     for line in (_build.BUILD_INFO["ptxas"] or "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            log(f"ptxas: {kernel}: {line.strip()}")
 
     # ---- 3. kernels against their plain versions ------------------------
     gen = torch.Generator().manual_seed(0)

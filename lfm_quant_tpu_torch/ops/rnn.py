@@ -1,16 +1,17 @@
 """The masked LSTM/GRU recurrence: hand-written CUDA kernels
 (``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
-``csrc/rnn_bwd.cu``, ``csrc/rnn_fused_bwd_mma.cu``,
-``csrc/rnn_bwd_tf32.cu``) and their plain versions.
+``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_bwd.cu``,
+``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``) and their plain
+versions.
 
-One rule, :func:`_mma_route`, picks the kernels of the fused forward and
-of both backwards from the direction, the dtype and H alone: at 16 <= H <=
-128, H % 16 == 0 bf16 runs on the tensor cores (``rnn_fused_fwd_mma.cu``;
-``rnn_fused_bwd_mma.cu``, fused and hoisted modes) and the float32
-backwards on them in 3xTF32 (``rnn_bwd_tf32.cu``); the float32 forward
-and every other H run on the CUDA cores (``rnn_fused_fwd.cu``,
-``rnn_bwd.cu``). The hoisted forward runs on ``rnn_fused_fwd.cu`` at every
-dtype and H.
+One rule, :func:`_mma_route`, picks the kernels of both forwards and both
+backwards from the direction, the dtype and H alone: at 16 <= H <= 128, H
+% 16 == 0 bf16 runs on the tensor cores (``rnn_fused_fwd_mma.cu``;
+``rnn_fused_bwd_mma.cu``, fused and hoisted modes) and float32 on them in
+3xTF32 (``rnn_fwd_tf32.cu``, whose fused form makes xw on the CUDA
+cores, and ``rnn_bwd_tf32.cu``, fused and hoisted forms); every other H
+runs on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``). The
+hoisted forward in bf16 runs on ``rnn_fused_fwd.cu`` at every H.
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -113,16 +114,19 @@ def rnn_scan_states(cell: str, xw: torch.Tensor, wh: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The masked recurrence with an f32 carry → the states a backward
     needs, ``(h_all, c_all)`` in ``xw.dtype`` (``c_all`` only for the LSTM
-    and when asked): the plain forward of :func:`rnn_scan`."""
+    and when asked): the plain forward of :func:`rnn_scan`. Float64 ``xw``
+    gets a float64 carry: the same formulas in float64, the value that
+    every float32 computation of them approximates."""
     B, T, G = xw.shape
     H = G // _GATES[cell]
-    whf = wh.float()
-    h = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
+    acc = torch.float64 if xw.dtype == torch.float64 else torch.float32
+    whf = wh.to(acc)
+    h = torch.zeros((B, H), dtype=acc, device=xw.device)
     c = torch.zeros_like(h)
-    keep_all = m.to(torch.float32)
+    keep_all = m.to(acc)
     hs, cs = [], []
     for t in range(T):
-        xw_t = xw[:, t].float()
+        xw_t = xw[:, t].to(acc)
         keep = keep_all[:, t, None]
         if cell == "lstm":
             i, f, g, o = _lstm_gates(xw_t + h @ whf, forget_bias)
@@ -442,16 +446,17 @@ def _launch_bwd(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 
 def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
-    """Which kernels run the fused forward (``direction="fwd"``) and the
-    fused and hoisted backwards (``"bwd"``) on the card:
+    """Which kernels run the forwards (``direction="fwd"``) and the
+    backwards (``"bwd"``), fused and hoisted, on the card:
 
     ========= ======== ========================== =====================
     direction dtype    H                          kernel (answer)
     ========= ======== ========================== =====================
     fwd       bfloat16 16 <= H <= 128, H % 16 = 0 ``rnn_fused_fwd_mma.cu``
-                                                  (``"mma"``)
-    fwd       float32  same                       ``rnn_fused_fwd.cu``
-                                                  (``"simt"``)
+                                                  (``"mma"``; the hoisted
+                                                  form ``rnn_fused_fwd.cu``)
+    fwd       float32  same                       ``rnn_fwd_tf32.cu``
+                                                  (``"tf32"``)
     bwd       bfloat16 same                       ``rnn_fused_bwd_mma.cu``
                                                   (``"mma"``)
     bwd       float32  same                       ``rnn_bwd_tf32.cu``
@@ -462,18 +467,20 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     ========= ======== ========================== =====================
 
     The tensor-core kernels hold W_h in shared memory, hence the widths
-    (the f32 backward split across a cluster of CTAs at H = 128). bf16
-    runs on the bf16 tensor cores; float32 must hold the JAX f32 bound, so
-    its backward splits every f32 operand into two TF32 terms (3xTF32) and
-    its forward stays on the CUDA cores. The fused bf16 backward reuses the
-    forward's packing of W_x."""
+    (the f32 kernels split it across a cluster of CTAs: the forward at
+    every width, the backward at H = 128). bf16 runs on the bf16 tensor
+    cores; float32 must hold the JAX f32 bound, so it splits every f32
+    operand of the recurrence into two TF32 terms (3xTF32), and the fused
+    forward forms xw on the CUDA cores (unbiased f32 sums). The fused
+    bf16 backward reuses the forward's packing of W_x, the fused float32
+    backward the forward's xw."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction}")
     if not (H % 16 == 0 and 16 <= H <= 128):
         return "simt"
     if dtype == torch.bfloat16:
         return "mma"
-    if dtype == torch.float32 and direction == "bwd":
+    if dtype == torch.float32:
         return "tf32"
     return "simt"
 
@@ -721,54 +728,136 @@ def _launch_scan_bwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
     return dxw, dw.view(H, G)
 
 
-#: Rows per CTA of the 3xTF32 backward's recurrence (``16 * kRowTiles`` in
-#: ``csrc/rnn_bwd_tf32.cu``) and the cluster sizes it is built for.
+#: Rows per CTA of the 3xTF32 recurrences (``16 * kRowTiles`` in
+#: ``csrc/rnn_bwd_tf32.cu`` and ``csrc/rnn_fwd_tf32.cu``) and the cluster
+#: sizes each direction is built for (the forward's: ``kCluster``).
 TF32_ROWS = 32
-TF32_CLUSTERS = (1, 2)
+TF32_CLUSTERS = {"bwd": (1, 2), "fwd": (2,)}
 
 
-def _tf32_smem(cell: str, H: int, C: int) -> int:
-    """Shared memory (bytes) of the 3xTF32 backward's recurrence kernel
-    with a cluster of ``C`` CTAs, as ``recur_smem_bytes`` in
-    ``csrc/rnn_bwd_tf32.cu`` computes it: W_h's columns of the CTA's H/C
-    units [H, G H/C + 4], two h_{t-1} tiles [rows, H + 8], the d_hw tile
-    [rows, G H/C + 4] and, in a cluster, two receive buffers [rows, H/C +
-    8], all f32."""
+def _tf32_smem(cell: str, H: int, C: int, direction: str = "bwd") -> int:
+    """Shared memory (bytes) of a 3xTF32 recurrence kernel with a cluster
+    of ``C`` CTAs, as ``recur_smem_bytes`` computes it in the source, all
+    f32: W_h's columns of the CTA's H/C units [H, G H/C + 4] and two h
+    tiles [rows, H + 8]; the backward (``csrc/rnn_bwd_tf32.cu``) adds the
+    d_hw tile [rows, G H/C + 4] and, in a cluster, two receive buffers
+    [rows, H/C + 8] (the forward, ``csrc/rnn_fwd_tf32.cu``, all-gathers
+    h_t into the h tiles themselves)."""
     Hc = H // C
     GHc = _GATES[cell] * Hc
     R = TF32_ROWS
-    floats = (H * (GHc + 4) + 2 * R * (H + 8) + R * (GHc + 4)
-              + (2 * R * (Hc + 8) if C > 1 else 0))
+    floats = H * (GHc + 4) + 2 * R * (H + 8)
+    if direction == "bwd":
+        floats += R * (GHc + 4) + (2 * R * (Hc + 8) if C > 1 else 0)
     return 4 * floats
 
 
-def _tf32_cluster(cell: str, H: int, limit: int) -> int:
-    """CTAs per cluster of the 3xTF32 backward: the fewest (1, then 2)
-    whose share of W_h fits beside the tiles in ``limit`` bytes of shared
-    memory per block; raises where none does."""
-    for C in TF32_CLUSTERS:
-        if _tf32_smem(cell, H, C) <= limit:
+def _tf32_cluster(cell: str, H: int, limit: int,
+                  direction: str = "bwd") -> int:
+    """CTAs per cluster of a 3xTF32 recurrence: the fewest of the
+    direction's sizes (the backward 1, then 2; the forward always 2, which
+    beat one CTA by 1.3-1.6x at B 2048 where W_h fits one) whose share of
+    W_h fits beside the tiles in ``limit`` bytes of shared memory per
+    block; raises where none does."""
+    sizes = TF32_CLUSTERS[direction]
+    for C in sizes:
+        if _tf32_smem(cell, H, C, direction) <= limit:
             return C
+    name = "backward" if direction == "bwd" else "forward"
     raise ValueError(
-        f"the float32 backward at hidden={H} needs "
-        f"{_tf32_smem(cell, H, TF32_CLUSTERS[-1])} bytes of shared memory "
-        f"per block even split over {TF32_CLUSTERS[-1]} CTAs, more than the "
-        f"card's {limit}")
+        f"the float32 {name} at hidden={H} needs "
+        f"{_tf32_smem(cell, H, sizes[-1], direction)} bytes of "
+        f"shared memory per block even split over {sizes[-1]} CTAs, "
+        f"more than the card's {limit}")
+
+
+def _keep(m: torch.Tensor) -> torch.Tensor:
+    """The step validity as the kernels read it, uint8 [.., B, T]: a
+    contiguous bool tensor is viewed, not copied."""
+    if m.dtype == torch.bool and m.is_contiguous():
+        return m.view(torch.uint8)
+    return m.to(torch.uint8).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_tf32_check(cell: str, H: int, device: torch.device) -> None:
+    """The forward's 2-CTA cluster fits ``device``
+    (:func:`_tf32_cluster`), and its shared memory agrees with the count
+    of ``csrc/rnn_fwd_tf32.cu``: checked once per (cell, H, device), off
+    the per-call host path."""
+    C = _tf32_cluster(cell, H, torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin, "fwd")
+    smem = _build.library().lfm_rnn_fwd_tf32_smem(_CELL_CODE[cell], H)
+    if smem != _tf32_smem(cell, H, C, "fwd"):
+        raise RuntimeError(
+            f"csrc/rnn_fwd_tf32.cu counts {smem} bytes of shared memory, "
+            f"ops/rnn.py {_tf32_smem(cell, H, C, 'fwd')}")
+
+
+def _launch_fwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
+                     wh: torch.Tensor, m: torch.Tensor, forget_bias: float,
+                     save_c: bool, keep_xw: bool = False):
+    """One call of the float32 forward on the tensor cores
+    (``csrc/rnn_fwd_tf32.cu``, 3xTF32; fused: the xw GEMM and the
+    recurrence, hoisted: the recurrence, counted once) → ``(h_all, c_all
+    or None)``, f32, and fused with ``keep_xw`` also the xw scratch, which
+    the backward takes as its d_gates buffer. Fused, ``xin`` is hin and
+    ``wx``, ``b`` are used; hoisted, ``xin`` is xw (``wx``, ``b`` None).
+    Seed-stacked operands (``xin`` 4-D, each operand of seed extent S or 1)
+    run every seed in the same call → ``[S, B, T, H]``. A cluster the card
+    cannot schedule raises (:func:`_fwd_tf32_check`). The wrapper allocates
+    the outputs and, fused, the xw scratch [S, B, T, G H] f32, and copies
+    no operand that is contiguous and 16-byte aligned."""
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m = xin[None], wh[None], m[None]
+        if fused:
+            wx, b = wx[None], b[None]
+    S = _seed_extent(xin, wx, b, wh, m)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    dev = xin.device
+    lib = _build.library()
+    _fwd_tf32_check(cell, H, dev)
+    xin, wh = _aligned16(xin), _aligned16(wh)
+    if fused:
+        wx, b = _aligned16(wx), _aligned16(b)
+    keep = _keep(m)
+    h = torch.empty((S, B, T, H), dtype=torch.float32, device=dev)
+    c = torch.empty_like(h) if save_c and cell == "lstm" else None
+    xw = (torch.empty((S, B, T, _GATES[cell] * H), dtype=torch.float32,
+                      device=dev) if fused else None)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_fwd_tf32(
+            _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx), ptr(b),
+            wh.data_ptr(), keep.data_ptr(), h.data_ptr(), ptr(c), ptr(xw), S,
+            B, T, H, _stride(xin, S), 0 if wx is None else _stride(wx, S),
+            0 if b is None else _stride(b, S), _stride(wh, S),
+            _stride(keep, S), float(forget_bias), _build.stream_of(xin))
+    name = f"rnn_{'fused_' if fused else ''}fwd_tf32_{cell}"
+    _build.check(lib, err, name)
+    _build.count_launch(name)
+    out = (h, c, xw) if keep_xw else (h, c)
+    return out if stacked else tuple(None if t is None else t[0]
+                                     for t in out)
 
 
 def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                      wh: torch.Tensor, m: torch.Tensor, h_all: torch.Tensor,
                      c_all: Optional[torch.Tensor], dh: torch.Tensor,
-                     forget_bias: float):
+                     forget_bias: float, xw: Optional[torch.Tensor] = None):
     """One call of the float32 backward on the tensor cores
-    (``csrc/rnn_bwd_tf32.cu``, 3xTF32; fused: five kernel launches,
-    hoisted: three, counted once) → fused: ``(dhin, dW_x, db, dW_h)``;
-    hoisted (``xin`` is xw, ``wx`` and ``b`` None): ``(dxw, dW_h)``; all
-    f32. Seed-stacked operands (``xin`` 4-D, each operand of seed extent S
-    or 1) run every seed in the same call and give each output per seed;
-    the states ``h_all``, ``c_all`` and ``dh`` are per seed. The cluster
-    size comes from :func:`_tf32_cluster`; a cluster the card cannot
-    schedule raises."""
+    (``csrc/rnn_bwd_tf32.cu``, 3xTF32; fused: five kernel launches, or four
+    given ``xw``; hoisted: three; counted once) → fused: ``(dhin, dW_x, db,
+    dW_h)``; hoisted (``xin`` is xw, ``wx`` and ``b`` None): ``(dxw,
+    dW_h)``; all f32. Seed-stacked operands (``xin`` 4-D, each operand of
+    seed extent S or 1) run every seed in the same call and give each
+    output per seed; the states ``h_all``, ``c_all`` and ``dh`` are per
+    seed. Fused, ``xw`` is the forward's xw scratch (``[S, B, T, G H]`` or
+    ``[B, T, G H]``): the kernel skips its own xw GEMM and overwrites the
+    scratch with d_xw. The cluster size comes from :func:`_tf32_cluster`;
+    a cluster the card cannot schedule raises."""
     stacked = xin.dim() == 4
     if not stacked:
         xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
@@ -795,7 +884,8 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     xin, wh, h_all, c_all, dh = (None if t is None else _aligned16(t)
                                  for t in (xin, wh, h_all, c_all, dh))
     keep = m.to(torch.uint8).contiguous()
-    dgx = torch.empty((S, B, T, G), dtype=f32, device=dev)
+    dgx = (torch.empty((S, B, T, G), dtype=f32, device=dev) if xw is None
+           else xw.view(S, B, T, G))
     dhn = (torch.empty((S, B, T, H), dtype=f32, device=dev)
            if cell == "gru" else None)
     slices = _slices(B * T)
@@ -806,7 +896,8 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         err = lib.lfm_rnn_bwd_tf32(
-            _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx), ptr(b),
+            _CELL_CODE[cell], 0 if not fused else 1 if xw is None else 2,
+            xin.data_ptr(), ptr(wx), ptr(b),
             wh.data_ptr(), keep.data_ptr(), h_all.data_ptr(), ptr(c_all),
             dh.data_ptr(), ptr(dx), dgx.data_ptr(), ptr(dhn),
             partial.data_ptr(), slices, dw.data_ptr(), S, B, T, H, C,
@@ -826,7 +917,18 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 
 def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
-                  packed=None):
+                  packed=None, keep_xw=False):
+    """The fused forward's states ``(h_all, c_all or None)`` on the route
+    of :func:`_mma_route`; ``keep_xw`` → ``(h_all, c_all, xw)``, xw the
+    3xTF32 route's scratch, which its backward reuses (None elsewhere)."""
+    if keep_xw:
+        if hin.device.type == "cuda" and _mma_route(
+                hin.dtype, wh.shape[-2]) == "tf32":
+            _check_card(hin, wx=wx, b=b, wh=wh, m=m)
+            return _launch_fwd_tf32(cell, True, hin, wx, b, wh, m,
+                                    forget_bias, save_c, keep_xw=True)
+        return (*_fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
+                               packed), None)
     stacked = hin.dim() == 4
     if hin.device.type == "cpu":
         if stacked:
@@ -837,9 +939,13 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
         h, c = rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
         return h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
     _check_card(hin, wx=wx, b=b, wh=wh, m=m)
-    if _mma_route(hin.dtype, wh.shape[-2]) == "mma":
+    route = _mma_route(hin.dtype, wh.shape[-2])
+    if route == "mma":
         return _launch_fwd_mma(cell, hin, wx, b, wh, m, forget_bias, save_c,
                                packed=packed)
+    if route == "tf32":
+        return _launch_fwd_tf32(cell, True, hin, wx, b, wh, m, forget_bias,
+                                save_c)
     if stacked:
         # The CUDA-core kernel has no seed grid: one launch per seed.
         return _over_seeds(
@@ -852,6 +958,10 @@ def _scan_states_any(cell, xw, wh, m, forget_bias, save_c):
     if xw.device.type == "cpu":
         return rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
     _check_card(xw, wh=wh, m=m)
+    # bf16 keeps the CUDA-core hoisted kernel at every H.
+    if _mma_route(xw.dtype, wh.shape[-2]) == "tf32":
+        return _launch_fwd_tf32(cell, False, xw, None, None, wh, m,
+                                forget_bias, save_c)
     return _launch_fwd(cell, True, xw, None, None, wh, m, forget_bias,
                        save_c)
 
@@ -860,11 +970,14 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                        b: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
                        h_all: torch.Tensor, c_all: Optional[torch.Tensor],
                        dh: torch.Tensor, forget_bias: float = 1.0,
-                       wxp: Optional[torch.Tensor] = None):
+                       wxp: Optional[torch.Tensor] = None,
+                       xw: Optional[torch.Tensor] = None):
     """Backward of :func:`rnn_scan_fused` from its saved states →
     ``(dhin in hin.dtype, dW_x, db, dW_h in f32)``. ``dh`` is the upstream
     gradient of ``h_all``, in ``hin.dtype``. ``wxp``: ``pack_fragments
     (wx)`` when the forward built it (the tensor-core route reuses it).
+    ``xw``: the 3xTF32 forward's xw scratch (:func:`_fused_states`), which
+    the 3xTF32 backward takes, and overwrites, in place of its own xw GEMM.
     Seed-stacked operands give every gradient per seed, ``[S, ...]``."""
     if hin.dim() == 4:
         S = _check_stacked(cell, hin, wx, b, wh, m, h_all, c_all, dh)
@@ -881,7 +994,7 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
                                    forget_bias, wxp)
         if route == "tf32":
             return _launch_bwd_tf32(cell, True, hin, wx, b, wh, m, h_all,
-                                    c_all, dh, forget_bias)
+                                    c_all, dh, forget_bias, xw=xw)
         # The CUDA-core kernels have no seed grid: one call per seed.
         return _over_seeds(
             lambda *a: _launch_bwd(cell, True, *a, forget_bias), S,
@@ -898,9 +1011,11 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     if route == "mma":
         return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
                                forget_bias, wxp)
-    launch = _launch_bwd_tf32 if route == "tf32" else _launch_bwd
-    return launch(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
-                  forget_bias)
+    if route == "tf32":
+        return _launch_bwd_tf32(cell, True, hin, wx, b, wh, m, h_all, c_all,
+                                dh, forget_bias, xw=xw)
+    return _launch_bwd(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
+                       forget_bias)
 
 
 def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
@@ -941,8 +1056,10 @@ class _FusedScan(torch.autograd.Function):
         if hin.device.type == "cuda" and _mma_route(
                 hin.dtype, wh.shape[-2]) == "mma":
             packed = (pack_fragments(wx), pack_fragments(wh))
-        h, c = _fused_states(cell, hin, wx, b, wh, m, forget_bias, True,
-                             packed)
+        # The 3xTF32 route's xw scratch becomes the backward's d_gates
+        # buffer (its xw GEMM skipped); a second backward recomputes it.
+        h, c, ctx.xw = _fused_states(cell, hin, wx, b, wh, m, forget_bias,
+                                     True, packed, keep_xw=True)
         ctx.cell, ctx.forget_bias = cell, forget_bias
         ctx.wxp = None if packed is None else packed[0]
         ctx.save_for_backward(hin, wx, b, wh, m, h, c)
@@ -951,9 +1068,10 @@ class _FusedScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         hin, wx, b, wh, m, h, c = ctx.saved_tensors
+        xw, ctx.xw = ctx.xw, None
         grads = rnn_scan_fused_bwd(
             ctx.cell, hin, wx, b, wh, m, h, c,
-            dh.to(hin.dtype).contiguous(), ctx.forget_bias, ctx.wxp)
+            dh.to(hin.dtype).contiguous(), ctx.forget_bias, ctx.wxp, xw)
         # The weight gradients leave in the operands' types (f32 sums); an
         # operand shared by every seed takes the sum of their gradients.
         out = []

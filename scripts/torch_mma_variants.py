@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of the tensor-core recurrence kernels goes, on the card.
 
-    python3 scripts/torch_mma_variants.py [--kernel fwd|bwd|bwd_tf32]
-                                          [--variants a,b+c] [--out FILE]
-                                          [--parent FILE]
+    python3 scripts/torch_mma_variants.py
+        [--kernel fwd|bwd|bwd_tf32|fwd_tf32] [--variants a,b+c]
+        [--out FILE] [--parent FILE]
 
 Builds variants of ``lfm_quant_tpu_torch/csrc/rnn_fused_fwd_mma.cu``
-(``--kernel fwd``, the default), ``rnn_fused_bwd_mma.cu`` (``bwd``) or
+(``--kernel fwd``, the default), ``rnn_fused_bwd_mma.cu`` (``bwd``),
 ``rnn_bwd_tf32.cu`` (``bwd_tf32``, the float32 backward in 3xTF32: timed
 fused and hoisted at the c2 train step in float32, held to the plain
 version at scaled atol 1e-5, each at the smallest cluster whose shared
-memory fits),
+memory fits) or ``rnn_fwd_tf32.cu`` (``fwd_tf32``, the float32 forward in
+3xTF32: fused and hoisted at the c2 train step, saving c_all, held to the
+plain version at atol 1e-5; the hoisted form is the recurrence alone, the
+variant ``diag_gemm_only`` the fused form's GEMM alone; device time; first
+each numerics variant's distance from a float64 evaluation and from the
+plain version, fused and on the plain version's xw),
 each made from the committed source by named text substitutions (``b+c``
 applies both), into separate shared libraries (one ``nvcc`` each, all
 started together), and times every variant with CUDA events at the main
@@ -29,8 +34,11 @@ purpose, to show what that part costs. ``--parent FILE`` (``--kernel
 bwd``) adds the variant ``parent``, built from another version of the
 backward source (for example an earlier commit's, unpacked with ``git
 archive``), and records for every variant of the fused backward whether
-its outputs are bitwise those of ``parent``. Prints one line per measurement and writes them as JSON lines to
-``--out`` (default ``build/mma_variants/fwd.jsonl`` or ``bwd.jsonl``).
+its outputs are bitwise those of ``parent`` (``--kernel bwd_tf32``: the
+same for both forms of the float32 backward). The 3xTF32 sources are built
+with ``csrc/tf32_common.cuh`` written into them, so a variant may change
+the shared code too. Prints one line per measurement and writes them as
+JSON lines to ``--out`` (default ``build/mma_variants/<kernel>.jsonl``).
 Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 
@@ -49,7 +57,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "lfm_quant_tpu_torch", "csrc")
 SRC = {"fwd": os.path.join(CSRC, "rnn_fused_fwd_mma.cu"),
        "bwd": os.path.join(CSRC, "rnn_fused_bwd_mma.cu"),
-       "bwd_tf32": os.path.join(CSRC, "rnn_bwd_tf32.cu")}
+       "bwd_tf32": os.path.join(CSRC, "rnn_bwd_tf32.cu"),
+       "fwd_tf32": os.path.join(CSRC, "rnn_fwd_tf32.cu")}
+TF32_HEADER = os.path.join(CSRC, "tf32_common.cuh")
 BUILD = os.path.join(ROOT, "build", "mma_variants")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-I", CSRC]
@@ -133,6 +143,11 @@ BWD_VARIANTS["xw_staged"] = [
      "                                  8 * (i >> 1)) * (GH + 8) +\n"
      "                          (q < G ? q : 0) * H + u))"),
 ]
+# The identity in the 3xTF32 sources, whose sigmoid lives in the shared
+# header's namespace.
+_IDENTITY_TF32 = _IDENTITY + [("using lfm_tf32::sigmoid;\n",
+                               "using lfm_tf32::sigmoid;\n"
+                               "using lfm_tf32::ident;\n")]
 # The float32 backward: 16 rows per CTA instead of 32 (two waves of 2-CTA
 # clusters at B 2048); the recurrence's mma chains unbroken (all of k in
 # one accumulator: the tensor cores' truncating accumulation); the
@@ -156,7 +171,7 @@ TF32_VARIANTS = {
     "diag_no_cluster_barrier": [
         ("      cluster_arrive();\n      cluster_wait();\n#pragma unroll\n",
          "      __syncthreads();\n#pragma unroll\n")],
-    "diag_no_transcendentals": _IDENTITY,
+    "diag_no_transcendentals": _IDENTITY_TF32,
     # The fused form without its last GEMM (dhin).
     "diag_no_dhin": [("  return launch_gemm<true>(dgx, wx,",
                       "  return err;\n  return launch_gemm<true>(dgx, wx,")],
@@ -164,13 +179,55 @@ TF32_VARIANTS = {
     # instruction each) instead of integer operations.
     "cvt_rna": [
         ("  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;\n"
-         "  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;\n",
+         "  lo = __float_as_uint(v - __uint_as_float(hi));\n"
+         "  lo = (RN_LO ? lo + 0x1000u : lo) & 0xFFFFE000u;\n",
          "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(hi) : \"f\"(v));\n"
          "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(lo)\n"
          "      : \"f\"(v - __uint_as_float(hi)));\n")],
 }
+# The float32 forward: the recurrence's mma chains of 32 of k and of 64 (the
+# backward's); xw_t added first, as the gate sums' start; the fused form's
+# xw by the backward's 3xTF32 GEMM on the tensor cores; lo truncated (as
+# the backward splits) instead of rounded; the fourth product a_lo b_lo
+# (4xTF32); the fused form's GEMM alone; the recurrence's cluster barrier
+# replaced by a block barrier (the peer's h_t is read unsynchronised:
+# wrong numbers, the exchange's wait); its products removed; the
+# transcendentals replaced by the identity; the stores of h_t and c_t to
+# device memory removed.
+FWD_TF32_VARIANTS = {
+    "base": [],
+    "alt_chain32": [("constexpr int kRecurChainK = 8;",
+                     "constexpr int kRecurChainK = 32;")],
+    "alt_chain64": [("constexpr int kRecurChainK = 8;",
+                     "constexpr int kRecurChainK = 64;")],
+    "alt_xw_first": [("constexpr bool kXwLast = true;",
+                      "constexpr bool kXwLast = false;")],
+    "alt_tf32_gemm": [("        launch_sgemm(xin, wx, b,",
+                       "        lfm_tf32::launch_gemm<false>(xin, wx, b,")],
+    "diag_gemm_only": [("  const SeedStrides st{fused ? s_gates : s_xin,",
+                        "  if (fused) return cudaSuccess;\n"
+                        "  const SeedStrides st{fused ? s_gates : s_xin,")],
+    "diag_no_cluster_barrier": [
+        ("    cluster_wait();  // h_{t-1} of every unit",
+         "    // h_{t-1} of every unit"),
+        ("    cluster_arrive();\n", "    __syncthreads();\n"),
+        # One cluster barrier before the exit, so no CTA leaves while its
+        # peer still stores into it.
+        ("  cluster_wait();\n}\n",
+         "  cluster_wait();\n  cluster_arrive();\n  cluster_wait();\n}\n")],
+    "alt_truncated_lo": [("constexpr bool kRoundLo = true;",
+                          "constexpr bool kRoundLo = false;")],
+    "alt_4x": [("  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);\n",
+                "  mma_tf32(d, a.lo, b.lo[0], b.lo[1]);\n"
+                "  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);\n")],
+    "diag_no_products": [("for (int kc = 0; kc < H; kc += kRecurChainK) {",
+                          "for (int kc = 0; kc < 0; kc += kRecurChainK) {")],
+    "diag_no_transcendentals": _IDENTITY_TF32,
+    "diag_no_stores": [("        if (r >= nr) continue;\n",
+                        "        if (r >= 0) continue;\n")],
+}
 VARIANTS = {"fwd": FWD_VARIANTS, "bwd": BWD_VARIANTS,
-            "bwd_tf32": TF32_VARIANTS}
+            "bwd_tf32": TF32_VARIANTS, "fwd_tf32": FWD_TF32_VARIANTS}
 # Forward: (where, cell, B, save_c, rows per block)
 SHAPES = (("c2 serving", "lstm", 16384, False, (64, 32)),
           ("c3 serving", "gru", 32768, False, (64, 32)),
@@ -190,6 +247,10 @@ def variant_source(kernel: str, name: str, parent=None) -> str:
     if name == "parent":
         return open(parent).read()
     src = open(SRC[kernel]).read()
+    include = '#include "tf32_common.cuh"\n'
+    if include in src:
+        header = open(TF32_HEADER).read().replace("#pragma once\n", "")
+        src = src.replace(include, header)
     for part in name.split("+"):
         for old, new in VARIANTS[kernel][part]:
             if old not in src:
@@ -223,7 +284,13 @@ def build(kernel: str, names, parent=None):
             if "registers" in line or "spill" in line:
                 print(f"[{name}] ptxas: {line.strip()}", flush=True)
         lib = ctypes.CDLL(os.path.join(BUILD, f"{kernel}-{name}.so"))
-        if kernel == "bwd_tf32":
+        if kernel == "fwd_tf32":
+            lib.lfm_rnn_fwd_tf32.argtypes = (
+                [ci, ci] + [vp] * 8 + [ci] * 4 + [cll] * 5 + [cf, vp])
+            lib.lfm_rnn_fwd_tf32.restype = ci
+            lib.lfm_rnn_fwd_tf32_smem.argtypes = [ci, ci]
+            lib.lfm_rnn_fwd_tf32_smem.restype = ctypes.c_longlong
+        elif kernel == "bwd_tf32":
             lib.lfm_rnn_bwd_tf32.argtypes = (
                 [ci, ci] + [vp] * 12 + [ci, vp] + [ci] * 5 + [cll] * 5
                 + [cf, vp])
@@ -489,7 +556,8 @@ def run_bwd_tf32(torch, R, libs, names, card, gen, out) -> None:
             dhn = torch.empty((B, T, H), dtype=f32, device="cuda")
             partial = torch.empty((S, total), dtype=f32, device="cuda")
             dw = torch.empty((total,), dtype=f32, device="cuda")
-            for name in names:
+            parent_bits = None
+            for name in (["parent"] if "parent" in libs else []) + names:
                 lib = libs[name]
                 fits = [C for C in (1, 2)
                         if 0 < lib.lfm_rnn_bwd_tf32_smem(code, H, C) <= limit]
@@ -522,6 +590,9 @@ def run_bwd_tf32(torch, R, libs, names, card, gen, out) -> None:
                         for g, w in zip(got, want)]
                 if not name.startswith(("diag_", "alt_")) and max(errs) > 1e-5:
                     raise SystemExit(f"{name} {cell}: scaled errors {errs}")
+                if parent_bits is None and "parent" in libs:
+                    parent_bits = [g.clone() for g in got]
+                    continue  # timed in its turn among the variants
                 rec = dict(variant=name, at="c2 train step, float32",
                            form="fused" if fused else "hoisted", cell=cell,
                            B=B, cluster=C,
@@ -530,9 +601,215 @@ def run_bwd_tf32(torch, R, libs, names, card, gen, out) -> None:
                            scaled_err=dict(zip(
                                ("dhin", "dW_x", "db", "dW_h") if fused
                                else ("dxw", "dW_h"), errs)), card=card)
+                if parent_bits is not None:
+                    rec["bitwise_vs_parent"] = all(
+                        torch.equal(g, p) for g, p in zip(got, parent_bits))
                 print(json.dumps(rec), flush=True)
                 out.write(json.dumps(rec) + "\n")
-            del want, dgx, dhn, partial, dx, h, c
+            del want, dgx, dhn, partial, dx, h, c, parent_bits
+            torch.cuda.empty_cache()
+
+
+def test_inputs(torch, cell):
+    """The inputs of ``tests/test_torch_kernels.py``
+    test_tf32_fwd_matches_plain at H 128, B 2053 (T 9, weights 0.3 N(0, 1),
+    its seed, row 0 all-invalid)."""
+    import numpy as np
+
+    B, T, H = 2053, 9, 128
+    G = (4 if cell == "lstm" else 3) * H
+    rng = np.random.default_rng(B + H)
+    arrays = [rng.standard_normal((B, T, H)),
+              0.3 * rng.standard_normal((H, G)),
+              0.1 * rng.standard_normal((G,)),
+              0.3 * rng.standard_normal((H, G))]
+    hin, wx, b, wh = (torch.from_numpy(a.astype(np.float32)).cuda()
+                      for a in arrays)
+    mk = rng.random((B, T)) < 0.75
+    mk[0] = False
+    return hin, wx, b, wh, torch.from_numpy(mk).cuda()
+
+
+def c2_train_inputs(torch):
+    """The float32 c2 train step as ``chip_smoke.py`` builds it: the
+    layer-0 input of the first batch of ``stacked_epoch(0)`` (B 2048, T
+    60, H 128) and the mask; the LSTM's own seeded weights and, for the
+    GRU, seeded ones of sd H^-1/2 → {cell: (hin, wx, b, wh, m)}."""
+    import dataclasses
+
+    from lfm_quant_tpu_torch.config import get_preset
+    from lfm_quant_tpu_torch.data.panel import PanelSplits
+    from lfm_quant_tpu_torch.train.loop import (
+        Trainer,
+        default_split_dates,
+        resolve_panel,
+    )
+
+    cfg = get_preset("c2")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             bf16=False))
+    panel = resolve_panel(cfg.data)
+    splits = PanelSplits.by_date(panel, *default_split_dates(panel, cfg.data),
+                                 train_start=cfg.data.train_start)
+    trainer = Trainer(cfg, splits, device="cuda")
+    batch = trainer.train_sampler.stacked_epoch(0)
+    model = trainer.model
+    with torch.no_grad():
+        x, m = trainer._gather(torch.from_numpy(batch.firm_idx[0]).cuda(),
+                               torch.from_numpy(batch.time_idx[0]).cuda())
+        W = x.shape[-2]
+        B = x.shape[0] * x.shape[1]
+        hin = model.embed(x.reshape(B, W, -1), dtype=model.dtype)
+        m = m.reshape(B, W)
+        H = model.hidden
+        lstm = (model.xproj[0].kernel.detach().float(),
+                model.xproj[0].bias.detach().float(),
+                model.h_proj[0].detach().float())
+    gen = torch.Generator().manual_seed(1)
+    sd = H ** -0.5
+    gru = ((sd * torch.randn(H, 3 * H, generator=gen)).cuda(),
+           (0.1 * torch.randn(3 * H, generator=gen)).cuda(),
+           (sd * torch.randn(H, 3 * H, generator=gen)).cuda())
+    return {"lstm": (hin, *lstm, m), "gru": (hin, *gru, m)}
+
+
+def fwd_tf32_accuracy(torch, R, libs, names, card, out) -> None:
+    """Each numerics variant's fused forward, its recurrence alone on the
+    plain version's xw (what the GEMM adds is the difference),
+    ``rnn_fused_fwd.cu`` and the plain float32 version against the plain
+    formulas in float64 (``rnn_scan_states`` on float64 operands), on two
+    inputs: the card test's (:func:`test_inputs`) and the float32 c2 train
+    step's (:func:`c2_train_inputs`), both held at atol 1e-5 on h and c:
+    max |x - x64| and max |x - plain| for x = h, c."""
+    c2 = c2_train_inputs(torch)
+    for (where, cell), args in [(("card test", c), test_inputs(torch, c))
+                                for c in ("lstm", "gru")] + [
+            (("c2 train step", c), c2[c]) for c in ("lstm", "gru")]:
+        hin, wx, b, wh, m = args
+        B, T, H = hin.shape
+        code = 0 if cell == "lstm" else 1
+        G = wx.shape[1]
+        xw64 = hin.double() @ wx.double() + b.double()
+        want = R.rnn_scan_states(cell, xw64, wh.double(), m, 1.0, True)
+        xw = hin @ wx + b
+        plain = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+        runs = {"plain float32": lambda: plain,
+                "rnn_fused_fwd.cu": lambda: R._launch_fwd(
+                    cell, False, hin, wx, b, wh, m, 1.0, True)}
+        keep = m.to(torch.uint8)
+        scratch = torch.empty(B, T, G, device="cuda")
+        for name in names:
+            if name.startswith("diag_"):
+                continue
+
+            def run(lib=libs[name], fused=True):
+                h = torch.empty(B, T, H, device="cuda")
+                c = torch.empty_like(h) if cell == "lstm" else None
+                err = lib.lfm_rnn_fwd_tf32(
+                    code, int(fused), (hin if fused else xw).data_ptr(),
+                    wx.data_ptr(), b.data_ptr(), wh.data_ptr(),
+                    keep.data_ptr(), h.data_ptr(),
+                    None if c is None else c.data_ptr(), scratch.data_ptr(),
+                    1, B, T, H, 0, 0, 0, 0, 0, 1.0,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise SystemExit(f"{name}: CUDA error {err}")
+                return h, c
+
+            runs[name] = run
+            runs[f"{name}, on the plain xw"] = (
+                lambda run=run: run(fused=False))
+        for name, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            # The x side: the GEMM's (in the scratch after a fused run) or
+            # the plain version's, against float64 and the plain one; bias
+            # is the mean error toward |xw| (negative: toward zero).
+            x = (xw if name == "plain float32" else scratch
+                 if name in libs else None)
+            xs = None if x is None else dict(
+                vs_float64=(x.double() - xw64).abs().max().item(),
+                vs_plain=(x - xw).abs().max().item(),
+                mean_abs_vs_float64=(x.double() - xw64).abs().mean().item(),
+                bias_vs_float64=((x.double() - xw64)
+                                 * xw64.sign()).mean().item(),
+                max_abs=xw64.abs().max().item())
+            rec = dict(variant=name, at=f"accuracy, float32, {where}",
+                       cell=cell, B=B, T=T, H=H,
+                       vs_float64={k: (g.double() - w).abs().max().item()
+                                   for k, g, w in zip("hc", got, want)
+                                   if g is not None},
+                       vs_plain={k: (g - p).abs().max().item()
+                                 for k, g, p in zip("hc", got, plain)
+                                 if g is not None},
+                       max_abs_c=None if want[1] is None
+                       else want[1].abs().max().item(), xw=xs, card=card)
+            print(json.dumps(rec), flush=True)
+            out.write(json.dumps(rec) + "\n")
+        del want, plain, scratch, xw, xw64
+        torch.cuda.empty_cache()
+
+
+def run_fwd_tf32(torch, R, libs, names, card, gen, out) -> None:
+    """The float32 forward (``lfm_rnn_fwd_tf32``), fused and hoisted (the
+    recurrence alone), LSTM and GRU, at the c2 train step (B 2048, T 60, H
+    128) saving c_all: h and c held to the plain version at atol 1e-5
+    (``alt_*`` and ``diag_*`` variants only record their errors), timed in
+    device time. First :func:`fwd_tf32_accuracy`."""
+    fwd_tf32_accuracy(torch, R, libs, names, card, out)
+    T, B = 60, 2048
+    f32 = torch.float32
+    for cell in ("lstm", "gru"):
+        code = 0 if cell == "lstm" else 1
+        for H in (128,):
+            G = (4 if cell == "lstm" else 3) * H
+            hin = torch.randn(B, T, H, generator=gen).cuda()
+            wx = (torch.randn(H, G, generator=gen) / H ** 0.5).cuda()
+            b = (0.1 * torch.randn(G, generator=gen)).cuda()
+            wh = (torch.randn(H, G, generator=gen) / H ** 0.5).cuda()
+            m = (torch.rand(B, T, generator=gen) < 0.8).cuda()
+            keep = m.to(torch.uint8)
+            xw = hin @ wx + b
+            want = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+            h = torch.empty(B, T, H, dtype=f32, device="cuda")
+            c = torch.empty_like(h) if cell == "lstm" else None
+            scratch = torch.empty(B, T, G, dtype=f32, device="cuda")
+            for fused in (True, False):
+                for name in names:
+                    if name == "diag_gemm_only" and not fused:
+                        continue
+                    lib = libs[name]
+
+                    def run():
+                        err = lib.lfm_rnn_fwd_tf32(
+                            code, int(fused),
+                            (hin if fused else xw).data_ptr(),
+                            wx.data_ptr(), b.data_ptr(), wh.data_ptr(),
+                            keep.data_ptr(), h.data_ptr(),
+                            None if c is None else c.data_ptr(),
+                            scratch.data_ptr(), 1, B, T, H, 0, 0, 0, 0, 0,
+                            1.0, torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise SystemExit(f"{name}: CUDA error {err}")
+
+                    run()
+                    torch.cuda.synchronize()
+                    errs = [(g - w).abs().max().item() for g, w in
+                            zip((h, c), want) if g is not None]
+                    if not name.startswith(("diag_", "alt_")) and \
+                            not max(errs) <= 1e-5:
+                        raise SystemExit(f"{name} {cell} H {H}: max errors "
+                                         f"{errs}")
+                    rec = dict(variant=name, at="c2 train step, float32",
+                               form="fused" if fused else "hoisted",
+                               cell=cell, B=B, H=H,
+                               smem_bytes=lib.lfm_rnn_fwd_tf32_smem(code, H),
+                               ms=device_time_ms(torch, run),
+                               max_abs_err=dict(zip(("h", "c"), errs)),
+                               card=card)
+                    print(json.dumps(rec), flush=True)
+                    out.write(json.dumps(rec) + "\n")
+            del hin, wx, wh, xw, want, h, c, scratch
             torch.cuda.empty_cache()
 
 
@@ -558,14 +835,13 @@ def device_time_ms(torch, fn, reps=5, launches=4):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("fwd", "bwd", "bwd_tf32"),
-                    default="fwd")
+    ap.add_argument("--kernel", choices=tuple(VARIANTS), default="fwd")
     ap.add_argument("--variants", default=None,
                     help="comma-separated; default: every variant")
     ap.add_argument("--out", default=None)
     ap.add_argument("--parent", default=None,
                     help="another version of the backward source (variant "
-                         "'parent', --kernel bwd)")
+                         "'parent', --kernel bwd or bwd_tf32)")
     args = ap.parse_args(argv)
     import torch
 
@@ -576,7 +852,8 @@ def main(argv=None) -> int:
 
     kernel = args.kernel
     names = (args.variants or ",".join(VARIANTS[kernel])).split(",")
-    if args.parent and kernel == "bwd" and "parent" not in names:
+    if args.parent and kernel in ("bwd", "bwd_tf32") and \
+            "parent" not in names:
         names.append("parent")
     out_path = args.out or os.path.join(BUILD, f"{kernel}.jsonl")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -591,7 +868,8 @@ def main(argv=None) -> int:
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     gen = torch.Generator().manual_seed(0)
     with open(out_path, "w") as out:
-        run = {"fwd": run_fwd, "bwd": run_bwd, "bwd_tf32": run_bwd_tf32}
+        run = {"fwd": run_fwd, "bwd": run_bwd, "bwd_tf32": run_bwd_tf32,
+               "fwd_tf32": run_fwd_tf32}
         run[kernel](torch, R, libs, names, card, gen, out)
     return 0
 

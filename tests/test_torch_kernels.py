@@ -9,7 +9,9 @@ jax, so leave it out there)::
 
 Tests marked ``cuda`` decide in a fixture whether there is a card and
 skip without one. Tolerances: gathers exact; the recurrence f32 atol 1e-5
-(at H <= 16), bf16 atol/rtol 0.05 — the JAX package's own bounds; the
+(the CUDA-core kernels and, at 16 <= H <= 128, H % 16 == 0, the 3xTF32
+``csrc/rnn_fwd_tf32.cu``), bf16 atol/rtol 0.05 — the JAX package's own
+bounds; the
 backward's gradients scaled by their largest magnitude, f32 atol 1e-5
 (``tests/test_pallas_rnn.py``'s rule; the CUDA-core kernels and, at 16 <=
 H <= 128, H % 16 == 0, the 3xTF32 ``csrc/rnn_bwd_tf32.cu``) and bf16 atol
@@ -24,6 +26,7 @@ from lfm_quant_tpu_torch.config import get_preset
 from lfm_quant_tpu_torch.data.panel import synthetic_panel
 from lfm_quant_tpu_torch.data.windows import gather_windows_packed
 from lfm_quant_tpu_torch.ops import _build
+from lfm_quant_tpu_torch.ops import rnn as R
 from lfm_quant_tpu_torch.ops.gather import gather_windows
 from lfm_quant_tpu_torch.ops.rnn import (
     rnn_scan,
@@ -418,6 +421,109 @@ def test_tf32_bwd_seed_grid_bitwise_equals_single_seed_launches(cuda, cell,
     for g, r in zip(rnn_scan_fused_bwd(cell, *shared),
                     rnn_scan_fused_bwd(cell, *full)):
         assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [37, 2048 + 5])
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", [16, 64, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_fwd_matches_plain(cuda, cell, H, hoisted, B):
+    """The float32 forward on the tensor cores (``csrc/rnn_fwd_tf32.cu``,
+    3xTF32; a 2-CTA cluster at H = 128) against its plain version at the
+    JAX f32 bound (atol 1e-5), h_all and the LSTM's c_all: fused and
+    hoisted forms, B leaving the last cluster's rows part-filled, an
+    all-invalid row that stays at zero; counted once, no CUDA-core
+    forward."""
+    T = 9
+    (hin, wx, b, wh), m = _rnn_inputs(cell, B, T, H, B + H,
+                                      torch.float32, cuda)
+    xw = hin @ wx + b
+    name = f"rnn_{'' if hoisted else 'fused_'}fwd_tf32_{cell}"
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        if hoisted:
+            h, c = R._scan_states_any(cell, xw, wh, m, 1.0, True)
+        else:
+            h, c = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True)
+    counts = _build.launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1
+    want_h, want_c = rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    assert h.dtype == torch.float32 and h.shape == (B, T, H)
+    pairs = [(h, want_h)] + ([(c, want_c)] if cell == "lstm" else [])
+    for got, want in pairs:
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-5, rtol=0.0)
+        assert not got[0].any()  # an all-invalid row stays at zero
+    assert (c is None) == (cell == "gru")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_fwd_seed_grid_bitwise_equals_single_seed_launches(cuda, cell,
+                                                               H):
+    """S = 3 seeds of the float32 fused forward in one call (counted once)
+    against 3 one-seed calls: h and c bitwise equal; b of seed extent 1
+    bitwise equal to its broadcast copy; each seed within the f32 bound of
+    the plain version."""
+    S, B, T = 3, 517, 7
+    per = [_rnn_inputs(cell, B, T, H, 60 + s, torch.float32, cuda)
+           for s in range(S)]
+    hin, wx, b, wh = (torch.stack([p[0][i] for p in per]) for i in range(4))
+    m = torch.stack([p[1] for p in per])
+    b = b[:1]  # shared by every seed
+    _build.reset_launch_counts()
+    h, c = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_tf32_{cell}"] == 1
+    assert counts[f"rnn_fused_fwd_{cell}"] == 0
+    assert h.shape == (S, B, T, H)
+    for s in range(S):
+        h1, c1 = R._fused_states(cell, hin[s], wx[s], b[0], wh[s], m[s],
+                                 1.0, True)
+        assert torch.equal(h[s], h1)
+        if cell == "lstm":
+            assert torch.equal(c[s], c1)
+        want = rnn_scan_fused_reference(cell, hin[s], wx[s], b[0], wh[s],
+                                        m[s])
+        np.testing.assert_allclose(h1.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-5, rtol=0.0)
+    full, _ = R._fused_states(cell, hin, wx, b.expand(S, -1).contiguous(),
+                              wh, m, 1.0, False)
+    shared, _ = R._fused_states(cell, hin, wx, b, wh, m, 1.0, False)
+    assert torch.equal(shared, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_fused_backward_takes_the_forward_xw(cuda, cell):
+    """Under autograd the float32 fused forward's xw scratch is the
+    backward's d_gates buffer: the gradients (one forward and one backward
+    launch) equal, bitwise, the backward handed the same xw directly, and
+    lie within the scaled f32 bound of the backward that forms its own."""
+    B, T, H = 37, 6, 64
+    (hin, wx, b, wh), m = _rnn_inputs(cell, B, T, H, 71, torch.float32,
+                                      cuda)
+    dh = torch.randn(B, T, H, generator=torch.Generator().manual_seed(72)
+                     ).to(cuda)
+    ops = [t.clone().requires_grad_() for t in (hin, wx, b, wh)]
+    _build.reset_launch_counts()
+    rnn_scan_fused(cell, *ops, m).backward(dh)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_tf32_{cell}"] == 1
+    assert counts[f"rnn_fused_bwd_tf32_{cell}"] == 1
+    got = [t.grad for t in ops]
+    with torch.no_grad():
+        h, c, xw = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True,
+                                   keep_xw=True)
+        same = R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh, 1.0,
+                                    xw=xw)
+        own = R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh, 1.0)
+    for g, s, o in zip(got, same, own):
+        assert torch.equal(g, s)
+        assert (g - o).abs().max() <= 1e-5 * o.abs().max()
 
 
 @pytest.mark.cuda

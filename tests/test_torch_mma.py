@@ -35,7 +35,7 @@ def cuda():
     (torch.bfloat16, 16, "mma"),
     (torch.bfloat16, 64, "mma"),
     (torch.bfloat16, 128, "mma"),
-    (torch.float32, 128, "simt"),
+    (torch.float32, 128, "tf32"),
     (torch.bfloat16, 12, "simt"),
     (torch.bfloat16, 144, "simt"),
     (torch.bfloat16, 8, "simt"),
@@ -179,8 +179,11 @@ def test_every_block_size_matches_plain(cuda, cell, rows):
 
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_kernel(cuda):
+    """Widths the tensor cores do not take keep the CUDA-core forward in
+    both dtypes; float32 at a tensor-core width (H 64) takes the 3xTF32
+    forward instead."""
     _build.reset_launch_counts()
-    for dtype, H in ((torch.float32, 64), (torch.bfloat16, 12)):
+    for dtype, H in ((torch.float32, 60), (torch.bfloat16, 12)):
         (hin, wx, b, wh), m = _inputs("lstm", 5, 3, H, H, cuda)
         with torch.no_grad():
             R.rnn_scan_fused("lstm", *(t.to(dtype) for t in (hin, wx, b, wh)),
@@ -188,6 +191,14 @@ def test_float32_and_odd_widths_keep_the_cuda_core_kernel(cuda):
     counts = _build.launch_counts()
     assert counts["rnn_fused_fwd_lstm"] == 2
     assert counts["rnn_fused_fwd_mma_lstm"] == 0
+    assert counts["rnn_fused_fwd_tf32_lstm"] == 0
+    _build.reset_launch_counts()
+    (hin, wx, b, wh), m = _inputs("lstm", 5, 3, 64, 64, cuda)
+    with torch.no_grad():
+        R.rnn_scan_fused("lstm", *(t.float() for t in (hin, wx, b, wh)), m)
+    counts = _build.launch_counts()
+    assert counts["rnn_fused_fwd_tf32_lstm"] == 1
+    assert counts["rnn_fused_fwd_lstm"] == 0
 
 
 def _stacked(cell, S, B, T, H, device):

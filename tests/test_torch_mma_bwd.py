@@ -481,10 +481,12 @@ def test_mma_hoisted_bwd_bitwise_repeatable(cuda, cell):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_hoisted_autograd_routes_by_dtype(cuda, cell):
     """Through ``rnn_scan``'s autograd Function: bf16 at H = 64 moves the
-    bf16 tensor-core counter, float32 the 3xTF32 one, and both gradients
-    agree with the plain version's."""
-    for dtype, name in ((torch.bfloat16, f"rnn_bwd_mma_{cell}"),
-                        (torch.float32, f"rnn_bwd_tf32_{cell}")):
+    bf16 tensor-core backward's counter (the forward the CUDA-core hoisted
+    kernel's), float32 the 3xTF32 backward's and forward's, and both
+    gradients agree with the plain version's."""
+    for dtype, name, fwd in (
+            (torch.bfloat16, f"rnn_bwd_mma_{cell}", f"rnn_fwd_{cell}"),
+            (torch.float32, f"rnn_bwd_tf32_{cell}", f"rnn_fwd_tf32_{cell}")):
         xw, wh, m, _, _, _ = _hoisted_inputs(cell, 37, 6, 64, 12, cuda,
                                              dtype)
         leaves = [t.detach().clone().requires_grad_(True) for t in (xw, wh)]
@@ -492,7 +494,7 @@ def test_hoisted_autograd_routes_by_dtype(cuda, cell):
         out = R.rnn_scan(cell, *leaves, m)
         (out.float() ** 2).sum().backward()
         counts = _build.launch_counts()
-        assert counts[name] == 1 and counts[f"rnn_fwd_{cell}"] == 1
+        assert counts[name] == 1 and counts[fwd] == 1
         assert sum(counts.values()) == 2
         ref = [t.detach().clone().float().requires_grad_(True)
                for t in (xw, wh)]

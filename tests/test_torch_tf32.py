@@ -1,10 +1,13 @@
-"""The float32 backward on the tensor cores (``csrc/rnn_bwd_tf32.cu``): its
-route, its numerics and its operand layouts, on the CPU.
+"""The float32 recurrence on the tensor cores (``csrc/rnn_bwd_tf32.cu``,
+``csrc/rnn_fwd_tf32.cu`` and their shared ``csrc/tf32_common.cuh``): the
+route, the numerics and the operand layouts, on the CPU.
 
-This file imports nothing of JAX (``tests/test_torch_rnn_grad.py`` holds
-the plain version to ``jax.grad`` through the Pallas kernels in float32;
-``tests/test_torch_kernels.py`` holds the kernel to the plain version on
-the card at scaled atol 1e-5).
+``tests/test_torch_rnn_grad.py`` holds the plain version to ``jax.grad``
+through the Pallas kernels in float32; ``tests/test_torch_kernels.py``
+holds the kernels to the plain version on the card (the forward at atol
+1e-5, the backward at scaled atol 1e-5). Here JAX is used only by the
+seven-step model of the forward, against the Pallas forwards in interpret
+mode.
 
 * The route table of ``ops/rnn.py _mma_route`` for both directions.
 * A numpy model of 3xTF32: hi as ``cvt.rna.tf32.f32`` rounds (10
@@ -23,22 +26,39 @@ the card at scaled atol 1e-5).
   gradients' A^T D and the GEMM in both B layouts. Integer-valued
   operands make every sum exact, so each must equal the plain product;
   every 32-bit fragment load is free of bank conflicts.
-* The wrapper's cluster size against its shared-memory arithmetic.
+* The forward's recurrence at its lane addresses in each CTA of a cluster
+  (the product h_{t-1} @ W_h[:, own] from the h tile of the step's parity,
+  and the all-gather of every rank's h_t into both CTAs' double-buffered
+  tiles), and a numpy model of its arithmetic (3xTF32 GEMM for the fused
+  form's xw, the recurrence's chains of ``kChainK``, the f32 cell) run
+  for seven steps against the JAX ``rnn_scan_fused`` and ``rnn_scan``.
+* The wrappers' cluster sizes against their shared-memory arithmetic and
+  the sources' constants.
 """
 
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from lfm_quant_tpu.ops.pallas_rnn import rnn_scan as jax_scan
+from lfm_quant_tpu.ops.pallas_rnn import rnn_scan_fused as jax_scan_fused
 from lfm_quant_tpu_torch.ops import rnn as R
 
 GATES = {"lstm": 4, "gru": 3}
-SRC = (Path(__file__).resolve().parents[1] / "lfm_quant_tpu_torch" / "csrc"
-       / "rnn_bwd_tf32.cu")
+CSRC = Path(__file__).resolve().parents[1] / "lfm_quant_tpu_torch" / "csrc"
+SRC = CSRC / "rnn_bwd_tf32.cu"
+FWD_SRC = CSRC / "rnn_fwd_tf32.cu"
 H100_SMEM = 232_448  # shared memory a block can use on an H100
+
+
+def source_constant(path, name):
+    m = re.search(rf"constexpr int {name} = (\d+);", path.read_text())
+    assert m, f"{name} not in {path.name}"
+    return int(m.group(1))
 
 
 # ---------------------------------------------------------------------------
@@ -52,15 +72,15 @@ H100_SMEM = 232_448  # shared memory a block can use on an H100
 def test_route_table(direction, dtype, H):
     """(direction, dtype, H) → kernel: the tensor-core widths are 16 <= H
     <= 128 with H % 16 == 0; there bf16 takes the bf16 tensor cores both
-    ways and the float32 backward the 3xTF32 kernels, the float32 forward
-    the CUDA cores; every other width the CUDA cores."""
+    ways and float32 the 3xTF32 kernels both ways; every other width the
+    CUDA cores."""
     tc = H in (16, 128)
     if not tc:
         want = "simt"
     elif dtype == torch.bfloat16:
         want = "mma"
     else:
-        want = "tf32" if direction == "bwd" else "simt"
+        want = "tf32"
     assert R._mma_route(dtype, H, direction) == want
     if direction == "fwd":
         assert R._mma_route(dtype, H) == want
@@ -90,20 +110,22 @@ def tf32_truncated(x):
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def split(x):
+def split(x, round_lo=False):
     """The kernels' split (``split_tf32``): hi = tf32(x), lo = x - hi
-    (exact in f32) truncated to TF32."""
+    (exact in f32) truncated to TF32 (the backward) or rounded as hi is
+    (``round_lo``, the forward)."""
     hi = tf32(x)
-    return hi, tf32_truncated(np.asarray(x, np.float32) - hi)
+    lo = np.asarray(x, np.float32) - hi
+    return hi, (tf32(lo) if round_lo else tf32_truncated(lo))
 
 
-def mma_f32(a, b, terms=3):
+def mma_f32(a, b, terms=3, round_lo=False):
     """``a @ b`` as the kernels form it: per 8-step of k, the products of
     the split operands (``terms`` 3: a_lo b_hi, a_hi b_lo, a_hi b_hi in that
     order; 1: a_hi b_hi alone), each exact in f32 and added into an f32
     accumulator."""
-    a_hi, a_lo = split(a)
-    b_hi, b_lo = split(b)
+    a_hi, a_lo = split(a, round_lo)
+    b_hi, b_lo = split(b, round_lo)
     pairs = ([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if terms == 3
              else [(a_hi, b_hi)])
     acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
@@ -128,6 +150,11 @@ def test_tf32_rounding_keeps_ten_bits_and_rounds_ties_away():
     rel1 = np.abs(hi.astype(np.float64) - x) / np.abs(x)
     rel2 = np.abs(hi.astype(np.float64) + lo - x) / np.abs(x)
     assert rel1.max() <= 2.0 ** -11 and rel2.max() <= 2.0 ** -21
+    # The forward's split rounds lo too.
+    hi_r, lo_r = split(x, round_lo=True)
+    assert np.array_equal(hi_r, hi) and (lo_r != lo).any()
+    rel3 = np.abs(hi_r.astype(np.float64) + lo_r - x) / np.abs(x)
+    assert rel3.max() <= 2.0 ** -22 and rel3.mean() <= rel2.mean()
 
 
 def _c2_operands(rng, rows=4096, H=128, G=4):
@@ -403,13 +430,205 @@ def test_gemm_fragments(trans_b):
 
 
 # ---------------------------------------------------------------------------
+# The forward (csrc/rnn_fwd_tf32.cu)
+# ---------------------------------------------------------------------------
+
+
+def _fwd_products(tile, wh_s, H, C, G, LW, LD):
+    """Kernel 1's product at its lane addresses in one CTA: ``h @ W_h[:,
+    own]`` from the h tile ``tile`` (lane c taking k0 + 2c and k0 + 2c + 1,
+    h read as float2) → the gate sums [32, G H/C], every fragment load
+    checked free of bank conflicts."""
+    Hc = H // C
+    gates = np.zeros((32, G * Hc))
+    for warp in range(Hc // 8):
+        for rt in range(2):
+            for q in range(G):
+                acc = [np.zeros(4) for _ in range(32)]
+                for k0 in range(0, H, 8):
+                    wp = [(k0 + 2 * (l % 4)) * LW + warp * 8 + l // 4
+                          + q * Hc for l in range(32)]
+                    hp = [(rt * 16 + l // 4) * LD + k0 + 2 * (l % 4)
+                          for l in range(32)]
+                    assert conflict_free(wp) and conflict_free_pairs(hp)
+                    b = [(wh_s[p], wh_s[p + LW]) for p in wp]
+                    a = [(tile[p], tile[p + 8 * LD], tile[p + 1],
+                          tile[p + 8 * LD + 1]) for p in hp]
+                    for lane, d in enumerate(mma_frag(a, b)):
+                        acc[lane] += d
+                for lane in range(32):
+                    g, c = lane // 4, lane % 4
+                    for i in range(4):
+                        gates[rt * 16 + g + 8 * (i >> 1),
+                              q * Hc + warp * 8 + 2 * c + (i & 1)] = \
+                            acc[lane][i]
+    return gates
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("H,C", [(32, 2), (16, 2), (48, 2)])
+def test_forward_products_and_all_gather(cell, H, C):
+    """Kernel 1 of the forward at its lane addresses, in each CTA j of its
+    cluster of C = 2 (``kCluster``; at H 16 one warp a CTA), for two
+    steps: the product ``h_{t-1} @ W_h[:, own]`` read from the tile of the
+    step's parity, then the all-gather — each thread
+    stores its float2 of h_t (rows rt 16 + g + 8 half, units j H/C + 8 w +
+    2c) into the peer's tile of the other parity first, then its own. Both
+    CTAs' tiles then hold h_t of every unit, and the next step's product
+    reads it; equal to the plain products; conflict-free loads and
+    stores."""
+    G = GATES[cell]
+    assert C == source_constant(FWD_SRC, "kCluster")
+    rng = np.random.default_rng(10 * H + C + G)
+    BB = 32
+    Hc, GHc = H // C, G * H // C
+    LW, LD = GHc + 4, H + 8
+    W = _ints(rng, H, G * H)
+    h = [_ints(rng, BB, H) for _ in range(2)]  # h_{-1} (given), h_0
+    own = [np.concatenate([np.arange(q * H + j * Hc, q * H + (j + 1) * Hc)
+                           for q in range(G)]) for j in range(C)]
+    wh_s = []
+    for j in range(C):
+        img = np.full(H * LW, np.nan)
+        for k in range(H):
+            img[k * LW:k * LW + GHc] = W[k, own[j]]
+        wh_s.append(img)
+    tiles = [np.full((2, BB * LD), np.nan) for _ in range(C)]
+    for j in range(C):
+        for r in range(BB):
+            tiles[j][0, r * LD:r * LD + H] = h[0][r]
+    for t in range(2):
+        cur = t & 1
+        for j in range(C):
+            got = _fwd_products(tiles[j][cur], wh_s[j], H, C, G, LW, LD)
+            np.testing.assert_array_equal(got, h[t] @ W[:, own[j]])
+        if t == 1:
+            break
+        # The all-gather of h_0 into the tiles of parity cur ^ 1: the
+        # peer's stores first, then each CTA's own.
+        for targets in (lambda j: j ^ 1, lambda j: j):
+            for j in range(C):
+                for warp in range(Hc // 8):
+                    for rt in range(2):
+                        for half in range(2):
+                            addr = [(rt * 16 + l // 4 + 8 * half) * LD
+                                    + j * Hc + warp * 8 + 2 * (l % 4)
+                                    for l in range(32)]
+                            assert conflict_free_pairs(addr)
+                            for l, p in enumerate(addr):
+                                r = rt * 16 + l // 4 + 8 * half
+                                u = j * Hc + warp * 8 + 2 * (l % 4)
+                                tiles[targets(j)][cur ^ 1, p:p + 2] = \
+                                    h[1][r, u:u + 2]
+        for j in range(C):
+            for r in range(BB):
+                np.testing.assert_array_equal(
+                    tiles[j][1, r * LD:r * LD + H], h[1][r])
+
+
+def sigmoid32(v):
+    one = np.float32(1.0)
+    return (one / (one + np.exp(-v))).astype(np.float32)
+
+
+def forward_rounds_lo():
+    m = re.search(r"constexpr bool kRoundLo = (true|false);",
+                  FWD_SRC.read_text())
+    assert m, "kRoundLo not in rnn_fwd_tf32.cu"
+    return m.group(1) == "true"
+
+
+def gemm_model(a, w, b):
+    """Kernel 0, the GEMM ``a @ w + b`` on the CUDA cores: an f32 FMA sum
+    over k in order from zero (each product exact in float64, each sum
+    rounded to f32), then the bias."""
+    assert "fmaf(a[i], w[j], acc[i][j])" in FWD_SRC.read_text()
+    acc = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    for k in range(a.shape[1]):
+        acc = (acc + np.outer(a[:, k].astype(np.float64),
+                              w[k].astype(np.float64))).astype(np.float32)
+    return (acc + b).astype(np.float32)
+
+
+def forward_model(cell, xw, wh, m, forget_bias=1.0):
+    """Kernel 1's arithmetic: h_{t-1} @ W_h summed from zero, each chain of
+    ``kRecurChainK`` of k (3xTF32 from zero, the forward's split) added in
+    f32, then xw_t added (the GRU's candidate x side apart); the cell in
+    f32, each operation rounded; h and c held on a masked step → h_all [B,
+    T, H]."""
+    assert re.search(r"constexpr bool kXwLast = true;", FWD_SRC.read_text())
+    chain = source_constant(FWD_SRC, "kRecurChainK")
+    B, T, _ = xw.shape
+    H = wh.shape[0]
+    fb = np.float32(forget_bias)
+    h = np.zeros((B, H), np.float32)
+    c = np.zeros((B, H), np.float32)
+    hs = []
+    for t in range(T):
+        acc = np.zeros((B, wh.shape[1]), np.float32)
+        for kc in range(0, H, chain):
+            acc = (acc + mma_f32(h[:, kc:kc + chain], wh[kc:kc + chain],
+                                 round_lo=forward_rounds_lo())).astype(
+                np.float32)
+        x = xw[:, t].astype(np.float32)
+        xn = x[:, 2 * H:]
+        if cell == "gru":
+            acc[:, :2 * H] += x[:, :2 * H]
+        else:
+            acc += x
+        keep = m[:, t, None] != 0
+        if cell == "lstm":
+            i, f = sigmoid32(acc[:, :H]), sigmoid32(acc[:, H:2 * H] + fb)
+            g = np.tanh(acc[:, 2 * H:3 * H])
+            o = sigmoid32(acc[:, 3 * H:])
+            c_new = f * c + i * g
+            h_new = o * np.tanh(c_new)
+            c = np.where(keep, c_new, c)
+        else:
+            z, r = sigmoid32(acc[:, :H]), sigmoid32(acc[:, H:2 * H])
+            n = np.tanh(xn + r * acc[:, 2 * H:])
+            h_new = (np.float32(1.0) - z) * n + z * h
+        h = np.where(keep, h_new, h).astype(np.float32)
+        hs.append(h)
+    return np.stack(hs, axis=1)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_forward_model_matches_jax_over_seven_steps(cell, fused):
+    """The forward's arithmetic (the GEMM for the fused form's xw, the
+    recurrence's chains, the f32 cell), at H 80 (chains of k, the last one
+    short), seven steps, an all-invalid row: within the JAX f32 bound
+    (atol 1e-5) of the Pallas forwards in interpret mode."""
+    B, T, H = 9, 7, 80
+    G = GATES[cell] * H
+    rng = np.random.default_rng(7 + int(fused))
+    hin = rng.standard_normal((B, T, H)).astype(np.float32)
+    wx = (0.3 * rng.standard_normal((H, G))).astype(np.float32)
+    b = (0.1 * rng.standard_normal((G,))).astype(np.float32)
+    wh = (0.3 * rng.standard_normal((H, G))).astype(np.float32)
+    m = rng.random((B, T)) < 0.75
+    m[3] = False
+    if fused:
+        xw = gemm_model(hin.reshape(B * T, H), wx, b).reshape(B, T, G)
+        want = jax_scan_fused(cell, *(jnp.asarray(a) for a in (hin, wx, b,
+                                                               wh, m)))
+    else:
+        xw = (hin @ wx + b).astype(np.float32)
+        want = jax_scan(cell, jnp.asarray(xw), jnp.asarray(wh),
+                        jnp.asarray(m))
+    got = forward_model(cell, xw, wh, m)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0.0)
+    assert not got[3].any()
+
+
+# ---------------------------------------------------------------------------
 # Cluster size and shared memory
 # ---------------------------------------------------------------------------
 
 
 def test_rows_per_cta_match_the_source():
-    m = re.search(r"constexpr int kRowTiles = (\d+);", SRC.read_text())
-    assert m and 16 * int(m.group(1)) == R.TF32_ROWS
+    assert 16 * source_constant(SRC, "kRowTiles") == R.TF32_ROWS
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -441,3 +660,54 @@ def test_cluster_size_at_c2_and_a_short_card():
     assert R._tf32_smem("gru", 128, 2) == 178_688
     with pytest.raises(ValueError, match="shared memory"):
         R._tf32_cluster("lstm", 128, 200_000)
+
+
+def test_forward_constants_match_the_sources():
+    """The forward's rows per CTA and units per warp are the backward's
+    (``TF32_ROWS``); its recurrence's chains are no longer than the
+    backward's (64 of k); its GEMM's stage divides every width it takes
+    (H % 16 == 0); both sources take the shared code from the header, the
+    3xTF32 GEMM only the backward."""
+    assert 16 * source_constant(FWD_SRC, "kRowTiles") == R.TF32_ROWS
+    assert source_constant(FWD_SRC, "kUnits") == 8
+    header = CSRC / "tf32_common.cuh"
+    recur = source_constant(FWD_SRC, "kRecurChainK")
+    assert recur % 8 == 0 and recur <= source_constant(header, "kChainK")
+    assert 16 % source_constant(FWD_SRC, "kSgK") == 0
+    for src in (SRC, FWD_SRC):
+        text = src.read_text()
+        assert '#include "tf32_common.cuh"' in text
+        assert "constexpr int kChainK" not in text
+        assert "tf32_gemm_kernel" not in text
+    assert "launch_gemm" in SRC.read_text()
+    assert "launch_gemm" not in FWD_SRC.read_text()
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("H", list(range(16, 129, 16)))
+def test_forward_cluster_size_follows_the_shared_memory_arithmetic(cell, H):
+    """The forward runs a cluster of two CTAs at every width (the source's
+    ``kCluster``), their W_h shares and two h tiles each within an H100
+    block, at most 256 threads (the source's launch bound ``kMaxThreads``),
+    and less shared memory than the backward's at the same cluster
+    size."""
+    G = GATES[cell]
+    rows = R.TF32_ROWS
+
+    def smem(C):
+        return 4 * (H * (G * H // C + 4) + 2 * rows * (H + 8))
+
+    C = R._tf32_cluster(cell, H, H100_SMEM, "fwd")
+    assert C == 2 == source_constant(FWD_SRC, "kCluster")
+    assert R.TF32_CLUSTERS["fwd"] == (C,)
+    assert R._tf32_smem(cell, H, C, "fwd") == smem(C) <= H100_SMEM
+    assert H // C * 4 <= 128 // C * 4 == 256
+    assert R._tf32_smem(cell, H, C, "fwd") < R._tf32_smem(cell, H, C)
+
+
+def test_forward_cluster_size_at_c2_and_a_short_card():
+    assert R._tf32_smem("lstm", 128, 2, "fwd") == 167_936
+    assert R._tf32_smem("gru", 128, 2, "fwd") == 135_168
+    assert R._tf32_smem("gru", 128, 1, "fwd") == 233_472  # just over
+    with pytest.raises(ValueError, match="forward"):
+        R._tf32_cluster("lstm", 128, 150_000, "fwd")
