@@ -11,10 +11,10 @@ imports nothing of JAX. Phases, each fatal on failure:
    build time and the compiler's register report;
 3. hold every kernel against its plain PyTorch version on the card (TF32
    off): first at small awkward shapes (odd batch, T = 1, H not a
-   multiple of 4, an all-invalid row, f32 and bf16; bf16 at H 16 and 64
-   reaches the tensor-core fused forward and both backwards, f32 there
-   the 3xTF32 forwards and backwards, the rest the CUDA-core kernels, and
-   the launch counters must say so; gathers that take
+   multiple of 4, an all-invalid row, f32 and bf16; up to H 128 bf16
+   reaches the tensor-core forwards and backwards, f32 the 3xTF32 ones,
+   H 12 and 8 zero-padded to 16; H 136 the CUDA-core kernels, and the
+   launch counters must say so; gathers that take
    the span copies and the narrow stores, and indices outside the panel)
    — the forward kernels on their outputs, the backward kernels on every
    gradient (scaled by its largest magnitude: f32 atol 1e-5, bf16 0.05,
@@ -29,17 +29,22 @@ imports nothing of JAX. Phases, each fatal on failure:
    in bf16 the tensor-core forward (at 16, 32 and 64 rows per block too,
    and at the serving dispatches beside one cuDNN ``torch.nn.LSTM`` /
    ``GRU`` call on the same inputs with every step valid, its yardstick),
-   both tensor-core backwards (the hoisted one beside the CUDA-core
-   hoisted kernel on the same inputs, its private launcher), the hoisted
-   CUDA-core forward, each backward's ``torch.matmul`` yardstick for its
-   weight-gradient products; in float32 at the train step the 3xTF32
-   forwards (rows 3 and 1, beside ``rnn_fused_fwd.cu`` on the same inputs,
-   in turns; row 3 beside cuDNN in float32) and backwards (rows 4 and 2,
-   beside ``rnn_bwd.cu``), the fused forward's seed grid (S 3, b shared:
-   bitwise equal to one-seed calls), and ``rnn_bwd.cu`` at hidden 120,
-   each f32 row beside its bound at 3xTF32 and at the CUDA cores' rate
-   and its library yardstick (TF32 off); two launches of each backward on
-   the same inputs must give bitwise equal gradients;
+   its hoisted mode (row 1, beside the CUDA-core hoisted kernel on the
+   same inputs in turns, and its seed grid bitwise equal to one-seed
+   launches), both tensor-core backwards (the hoisted one beside the
+   CUDA-core hoisted kernel on the same inputs, its private launcher),
+   each backward's ``torch.matmul`` yardstick for its weight-gradient
+   products; in float32 at the train step the 3xTF32 forwards (rows 3
+   and 1, beside ``rnn_fused_fwd.cu`` on the same inputs, in turns; row 3
+   beside cuDNN in float32) and backwards (rows 4 and 2, beside
+   ``rnn_bwd.cu``), the fused forward's seed grid (S 3, b shared: bitwise
+   equal to one-seed calls); the same four rows at hidden 120 (the
+   3xTF32 kernels zero-padded to 128: the kernel's device time apart from
+   the pads' ``pad_ms``, beside the CUDA-core kernels) and at hidden 160
+   (``rnn_fused_fwd.cu`` and ``rnn_bwd.cu``, the route above 128), each
+   f32 row beside its bound (of the unpadded work) at 3xTF32 and at the
+   CUDA cores' rate and its library yardstick (TF32 off); two launches of
+   each backward on the same inputs must give bitwise equal gradients;
 4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
    GRU universes at full width (random weights from a seed), warmed up,
    then closed-loop requests from 4 threads; every served score vector is
@@ -51,14 +56,17 @@ imports nothing of JAX. Phases, each fatal on failure:
    recurrence differentiated by autograd, plain gather); the per-step
    losses must agree within atol and rtol 0.05 and be finite, and the
    training kernels' counters must have moved. A few steps of the
-   hoisted form (``scan_impl="pallas"``: the CUDA-core forward, the
-   tensor-core hoisted backward), of the GRU at c2's geometry, fused and
-   hoisted, of both cells and both forms in float32 (the 3xTF32 forwards
-   and backwards: no CUDA-core kernel may launch), and of the same four
-   at hidden 120 (the CUDA-core forwards and backwards) run the same way;
-   the hoisted bf16 step and the fused float32 step are also timed with
-   their backward as routed and sent to the CUDA-core kernel, and the
-   fused float32 step with its forward so, in turns.
+   hoisted form (``scan_impl="pallas"``: the tensor-core hoisted forward
+   and backward), of the GRU at c2's geometry, fused and hoisted, of both
+   cells and both forms in float32 (the 3xTF32 forwards and backwards),
+   and of the same four at hidden 120 (the 3xTF32 kernels, zero-padded)
+   run the same way, and no CUDA-core kernel may launch in any; the
+   float32 four at hidden 160 must launch the CUDA-core forwards and
+   backwards. The hoisted bf16 step and the fused float32 step are also
+   timed with their backward as routed and sent to the CUDA-core kernel,
+   the fused float32 step with its forward so, and the fused float32
+   hidden-120 step on its route and with every width sent to the CUDA
+   cores, in turns.
    Prints steps/s,
    firm-months/s, ms per step, the forward, backward and optimizer times
    of one step and the device time by kernel;
@@ -107,17 +115,22 @@ MMA_WGRAD_TOL = 1e-4
 GATES = {"lstm": 4, "gru": 3}
 TRAIN_STEPS_SHORT = 4  # steps of the hoisted and GRU training runs
 HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
+# The widths of the float32 rows beside the c2 step's 128: one off a
+# multiple of 16, which runs zero-padded on the 3xTF32 kernels, and one
+# above 128, the CUDA-core kernels' route (their main-path witness).
+PADDED_HIDDEN = 120
+CUDA_CORE_HIDDEN = 160
 # The device's sleep (clock cycles, about 10 ms) while the host queues the
 # launches that device_ms times.
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
-# kernels run on the main paths in float32 at hidden 120 (H % 16 != 0),
-# and the hoisted forward also in bf16; the fused forward is measured in
-# float32 at the c2 train step (beside the 3xTF32 forward, on the same
-# inputs), the hoisted one there in both dtypes, and the backwards
-# (``rnn_bwd.cu``) in float32 at B 2048, T 60, H 120. The 3xTF32 kernels
-# (``*_tf32_*``) are measured in float32 at the c2 train step.
+# kernels run on the main paths in float32 at hidden 160 (H > 128, where
+# the tensor cores do not reach) and are measured there (B 2048, T 60).
+# The 3xTF32 kernels (``*_tf32_*``) are measured in float32 at the c2
+# train step (the kernels line) and at hidden 120, zero-padded to 128
+# (logged records); the bf16 ones at the c2 train step and the serving
+# dispatches.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -129,6 +142,8 @@ SOURCES = {
                                "pallas_rnn.py:626"),
     "rnn_fused_fwd_mma_gru": ("csrc/rnn_fused_fwd_mma.cu",
                               "pallas_rnn.py:652"),
+    "rnn_fwd_mma_lstm": ("csrc/rnn_fused_fwd_mma.cu", "pallas_rnn.py:135"),
+    "rnn_fwd_mma_gru": ("csrc/rnn_fused_fwd_mma.cu", "pallas_rnn.py:158"),
     "rnn_fused_bwd_lstm": ("csrc/rnn_bwd.cu", "pallas_rnn.py:673"),
     "rnn_fused_bwd_gru": ("csrc/rnn_bwd.cu", "pallas_rnn.py:739"),
     "rnn_fused_bwd_mma_lstm": ("csrc/rnn_fused_bwd_mma.cu",
@@ -396,8 +411,10 @@ def rnn_inputs(torch, gen, cell, B, T, H, dtype):
 
 def check_small(torch, gen) -> None:
     """Kernels against plain versions at small awkward shapes: odd batch,
-    T = 1, H not a multiple of 4, all-invalid rows, young and tail
-    anchors, a panel shorter than the window, float32 and bfloat16."""
+    T = 1, H not a multiple of 4 or 16 (zero-padded onto the tensor
+    cores), H above 128 (the CUDA-core kernels), all-invalid rows, young
+    and tail anchors, a panel shorter than the window, float32 and
+    bfloat16."""
     from lfm_quant_tpu_torch.data.windows import gather_windows_packed
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
@@ -407,19 +424,18 @@ def check_small(torch, gen) -> None:
         for dt, atol, rtol in ((torch.float32, F32_TOL, 0.0),
                                (torch.bfloat16, BF16_TOL, BF16_TOL)):
             for B, T, H in ((13, 7, 12), (37, 1, 16), (3, 9, 8),
-                            (37, 9, 64), (21, 5, 16)):
+                            (37, 9, 64), (21, 5, 16), (7, 5, 136)):
                 hin, wx, b, wh, m = rnn_inputs(torch, gen, cell, B, T, H, dt)
                 xw = (hin.float() @ wx.float() + b.float()).to(dt)
-                # bf16 at H 16 and 64 takes the tensor-core fused forward
-                # and backwards, f32 there the 3xTF32 forwards and
-                # backwards; the odd widths keep the CUDA-core ones (and
-                # bf16 the CUDA-core hoisted forward).
+                # Up to H 128 bf16 takes the tensor-core forwards and
+                # backwards and f32 the 3xTF32 ones (12 and 8 zero-padded
+                # to 16); H 136 keeps the CUDA-core ones.
                 mma = R._mma_route(dt, H) == "mma"
                 tags = {"mma": "mma_", "tf32": "tf32_", "simt": ""}
                 tag = tags[R._mma_route(dt, H, "bwd")]
                 fwd_tag = tags[R._mma_route(dt, H)]
                 fwd_kernel = f"rnn_fused_fwd_{fwd_tag}{cell}"
-                hoist_fwd = f"rnn_fwd_{'' if mma else fwd_tag}{cell}"
+                hoist_fwd = f"rnn_fwd_{fwd_tag}{cell}"
                 bwd_kernel = f"rnn_fused_bwd_{tag}{cell}"
                 hoist_kernel = f"rnn_bwd_{tag}{cell}"
                 _build.reset_launch_counts()
@@ -519,9 +535,9 @@ def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
     row's: W_x^T and W_h^T with the JAX gate order permuted for the GRU
     (PyTorch's r, z, n), ``forget_bias`` 1 folded into the f slice of
     ``b_ih``, ``b_hh`` 0. Held first to the plain version with m all ones
-    at the row's tolerance; timed only if it agrees, else the record says
-    that it differs or that cuDNN refused the dtype. The port never makes
-    this call."""
+    at the row's tolerance, then timed; the record gives its error and
+    says whether it differs (over the row's tolerance) or cuDNN refused
+    the dtype. The port never makes this call."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
@@ -549,12 +565,11 @@ def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
         torch.cuda.synchronize()
         err, excess = worst_excess(out, want, atol, rtol)
         del out, want
-        if not excess <= 0:  # NaN differs too
-            return dict(library_ms=None, library_max_abs_err=err,
-                        library_note="cuDNN differs from the plain version")
+        note = ("cuDNN, every step valid" if excess <= 0 else  # NaN too
+                "cuDNN, every step valid; differs from the plain version "
+                "over the row's tolerance")
         return dict(library_ms=time_ms(lambda: mod(hin)),
-                    library_max_abs_err=err,
-                    library_note="cuDNN, every step valid")
+                    library_max_abs_err=err, library_note=note)
 
 
 def check_fused_fwd(torch, kernels, where: str, cell: str, hin, wx, b, wh,
@@ -628,8 +643,6 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
         B = x.shape[0] * x.shape[1]
         hin = model.embed(x.reshape(B, W, -1), dtype=cd)
         mm = m.reshape(B, W)
-    isz = hin.element_size()
-    shape = [B, W, H]
     for cell in ("lstm", "gru"):
         G = GATES[cell] * H
         if cell == "lstm":
@@ -648,21 +661,7 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
                             bb, wh, mm, save_c=True)
             xw = (hin.float() @ wx.float() + bb.float()).to(cd)
             # Row 1, the hoisted forward.
-            out = R.rnn_scan(cell, xw, wh, mm)
-            ref = R.rnn_scan_reference(cell, xw, wh, mm)
-            torch.cuda.synchronize()
-            err, excess = worst_excess(out, ref, BF16_TOL, BF16_TOL)
-            if excess > 0 or not torch.isfinite(out).all():
-                fail(f"rnn fwd {cell} at the train shape: max err {err}")
-            bound, by = rnn_bound("fwd", cell, B, W, H, isz)
-            report(kernels, f"rnn_fwd_{cell}", "c2 train step", dict(
-                shape=shape, max_abs_err=err,
-                tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
-                **kernel_ms(lambda: R.rnn_scan(cell, xw, wh, mm)),
-                plain_ms=time_ms(lambda: R.rnn_scan_reference(
-                    cell, xw, wh, mm), reps=3, warmup=1),
-                bound_ms=bound, bound_by=by))
-            del out, ref
+            check_hoisted_fwd(torch, kernels, cell, xw, wh, mm)
             # Row 4, the fused backward, on the plain forward's states.
             check_fused_bwd(torch, kernels, cell, hin, wx, bb, wh, mm, dh)
             # Row 2, the hoisted backward.
@@ -671,6 +670,87 @@ def check_train_shapes(torch, trainer, kernels, gen) -> None:
             # The CUDA-core lane in float32 on the same inputs.
             check_f32_lane(torch, kernels, cell, hin, wx, bb, wh, mm, dh,
                            gen)
+    torch.cuda.empty_cache()
+
+
+def check_hoisted_fwd(torch, kernels, cell: str, xw, wh, mm) -> None:
+    """Row 1 at the c2 train step in bf16: the hoisted mode of the
+    tensor-core forward through ``rnn_scan`` (counted, nothing else
+    launched) against the plain version at atol/rtol 0.05, timed in turns
+    with ``rnn_fused_fwd.cu``'s hoisted mode (its private launcher) on the
+    same inputs (tensor cores, CUDA cores, CUDA cores, tensor cores: ``ms``
+    and ``device_ms`` the first reading) beside the bound and the plain
+    version; then its seed grid: S 3 (xw and m per seed, W_h shared) in one
+    counted launch, bitwise equal to three one-seed launches with the same
+    rows per block."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, G = xw.shape
+    H = wh.shape[0]
+    name = f"rnn_fwd_mma_{cell}"
+    if R._mma_route(xw.dtype, H) != "mma":
+        fail(f"rnn fwd {cell} at the train shape: the route is not mma")
+    runs = {"mma": lambda: R.rnn_scan(cell, xw, wh, mm),
+            "cuda_core": lambda: R._launch_fwd(
+                cell, True, xw, None, None, wh, mm, 1.0, False)[0]}
+    ref = R.rnn_scan_reference(cell, xw, wh, mm)
+    errs = {}
+    for kind, run in runs.items():
+        _build.reset_launch_counts()
+        out = run()
+        counts = _build.launch_counts()
+        launched = name if kind == "mma" else f"rnn_fwd_{cell}"
+        if counts[launched] != 1 or sum(counts.values()) != 1:
+            fail(f"rnn fwd {cell} ({kind}) at the train shape: launched "
+                 f"{counts}")
+        torch.cuda.synchronize()
+        err, excess = worst_excess(out, ref, BF16_TOL, BF16_TOL)
+        if excess > 0 or not torch.isfinite(out).all() or \
+                out.shape != ref.shape:
+            fail(f"rnn fwd {cell} ({kind}) at the train shape: max err {err}")
+        errs[kind] = err
+        del out
+    turns = {kind: [] for kind in runs}
+    for kind in ("mma", "cuda_core", "cuda_core", "mma"):
+        turns[kind].append(kernel_ms(runs[kind], reps=5, launches=4))
+    # The seed grid: one launch for three seeds against three launches.
+    S = 3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = R._mma_rows(B, sms, S, hoisted=True)
+    xw3 = torch.stack([xw, -xw, (0.5 * xw.float()).to(xw.dtype)])
+    m3 = torch.stack([mm, mm.flip(0), mm.roll(1, dims=1)])
+    _build.reset_launch_counts()
+    h3, c3 = R._launch_scan_fwd_mma(cell, xw3, wh[None], m3, 1.0, True)
+    if _build.launch_counts()[name] != 1:
+        fail(f"{name} seed grid: launched {_build.launch_counts()}")
+    for s in range(S):
+        h1, c1 = R._launch_scan_fwd_mma(cell, xw3[s], wh, m3[s], 1.0, True,
+                                        rows)
+        if not torch.equal(h3[s], h1) or (c3 is not None
+                                          and not torch.equal(c3[s], c1)):
+            fail(f"{name} seed grid differs from the one-seed launch at "
+                 f"seed {s}")
+    del xw3, m3, h3, c3, h1, c1
+    bound, by = rnn_bound("fwd", cell, B, T, H, xw.element_size())
+    rec = dict(shape=[B, T, H], max_abs_err=errs["mma"],
+               tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
+               **turns["mma"][0], plain_ms=time_ms(
+                   lambda: R.rnn_scan_reference(cell, xw, wh, mm), reps=3,
+                   warmup=1),
+               bound_ms=bound, bound_by=by, library_ms=None,
+               rows_per_block=R._mma_rows(B, sms, hoisted=True),
+               seed_grid_bitwise=True,
+               cuda_core_ms=turns["cuda_core"][0]["ms"],
+               cuda_core_device_ms=turns["cuda_core"][0]["device_ms"],
+               cuda_core_max_abs_err=errs["cuda_core"],
+               turns_ms={k: [t["ms"] for t in v] for k, v in turns.items()})
+    report(kernels, name, "c2 train step", rec)
+    log(f"rnn fwd {cell} (hoisted) at the c2 train step: tensor cores "
+        f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), CUDA cores "
+        f"{rec['cuda_core_ms']:.4f} (device {rec['cuda_core_device_ms']:.4f})"
+        f", in turns {rec['turns_ms']}; bound {bound:.4f} ms; seed grid "
+        f"(S {S}) bitwise")
     torch.cuda.empty_cache()
 
 
@@ -754,9 +834,13 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     """The float32 lane at the c2 train step, where the float32 training
     runs launch it: rows 3 and 1 (:func:`f32_fwd_rows`), the fused form's
     seed grid (:func:`f32_seed_grid`), and rows 4 and 2 on the 3xTF32
-    kernels (:func:`f32_bwd_rows`); then ``rnn_bwd.cu``, the float32
-    backward of every other width, at hidden 120 on the same rows (seeded
-    weights). Bounds at both f32 rates."""
+    kernels (:func:`f32_bwd_rows`); then the same four rows on the same
+    rows of the batch at hidden :data:`PADDED_HIDDEN` (the first 120
+    units: the 3xTF32 kernels zero-padded to 128, timed apart from their
+    pads and beside the CUDA-core kernels on the same inputs) and at
+    :data:`CUDA_CORE_HIDDEN` (``rnn_fused_fwd.cu`` and ``rnn_bwd.cu``, the
+    route above 128), seeded weights. Bounds at both f32 rates, of the
+    unpadded work."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     f32 = torch.float32
@@ -767,7 +851,8 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
         fail("the float32 lane is not the 3xTF32 forward and backward")
     xw = hin @ wx + b
     with torch.no_grad():
-        f32_fwd_rows(torch, kernels, cell, hin, wx, b, wh, mm, xw)
+        f32_fwd_rows(torch, kernels, "c2 train step", cell, hin, wx, b, wh,
+                     mm, xw)
         f32_seed_grid(torch, cell, hin, wx, b, wh, mm, gen)
     if cell == "lstm":
         f32_stack_memory(torch, hin, wx, b, wh, mm, dh)
@@ -776,115 +861,146 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     f32_bwd_rows(torch, kernels, "c2 train step", cell, hin, wx, b, wh, mm,
                  h, c, dh, xw)
     del h, c, xw
-    # rnn_bwd.cu at hidden 120: the first 120 units of the same rows.
-    H2 = 120
-    G2 = GATES[cell] * H2
-    sd = H2 ** -0.5
-    wx2, wh2 = ((sd * torch.randn(H2, G2, generator=gen)).cuda()
-                for _ in range(2))
-    b2 = (0.1 * torch.randn(G2, generator=gen)).cuda()
-    hin2 = hin[..., :H2].contiguous()
-    dh2 = dh[..., :H2].contiguous()
-    xw2 = hin2 @ wx2 + b2
-    with torch.no_grad():
-        h2, c2 = R.rnn_scan_states(cell, xw2, wh2, mm, 1.0, True)
-    f32_bwd_rows(torch, kernels, f"B {B}, T {T}, H {H2}", cell, hin2, wx2,
-                 b2, wh2, mm, h2, c2, dh2, xw2)
+    for H2 in (PADDED_HIDDEN, CUDA_CORE_HIDDEN):
+        G2 = GATES[cell] * H2
+        sd = H2 ** -0.5
+        wx2, wh2 = ((sd * torch.randn(H2, G2, generator=gen)).cuda()
+                    for _ in range(2))
+        b2 = (0.1 * torch.randn(G2, generator=gen)).cuda()
+        if H2 <= H:  # the first H2 units of the same rows
+            hin2 = hin[..., :H2].contiguous()
+            dh2 = dh[..., :H2].contiguous()
+        else:
+            hin2 = torch.randn(B, T, H2, generator=gen).cuda()
+            dh2 = (0.1 * torch.randn(B, T, H2, generator=gen)).cuda()
+        xw2 = hin2 @ wx2 + b2
+        where = f"B {B}, T {T}, H {H2}"
+        with torch.no_grad():
+            f32_fwd_rows(torch, kernels, where, cell, hin2, wx2, b2, wh2, mm,
+                         xw2)
+            h2, c2 = R.rnn_scan_states(cell, xw2, wh2, mm, 1.0, True)
+        f32_bwd_rows(torch, kernels, where, cell, hin2, wx2, b2, wh2, mm, h2,
+                     c2, dh2, xw2)
+        del hin2, dh2, xw2, h2, c2
     torch.cuda.empty_cache()
 
 
-def f32_fwd_rows(torch, kernels, cell: str, hin, wx, b, wh, mm, xw) -> None:
-    """Rows 3 and 1 in float32 at the c2 train step, saving c_all as
-    training does: the 3xTF32 forward through the route (counted, nothing
-    else launched) and ``rnn_fused_fwd.cu`` through its private launcher
-    on the same inputs, timed in turns (3xTF32, CUDA cores, CUDA cores,
-    3xTF32: ``ms`` and ``device_ms`` are the first reading, ``turns_ms``
-    all four), beside both bounds, the plain version and, for row 3, the
-    cuDNN yardstick. Both kernels' h_all and c_all within atol 1e-5 of the
-    plain version (the JAX f32 bound on the op's output).
-    ``rnn_fused_fwd.cu``'s record goes under its own name (row 3) or under
-    ``f32`` in its bf16 record (row 1)."""
+def padded_times(torch, form: str, cell: str, ops, rest, route_call) -> dict:
+    """A padded row's times apart (hidden width off a multiple of 16, the
+    3xTF32 kernels at the padded width): ``device_ms`` the kernel alone on
+    operands padded beforehand, ``pad_ms`` the pads and the slices back
+    alone, ``route_device_ms`` the route's whole call (all device time)."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    H = ops[R._PAD_FORMS[form][0].rindex("w")].shape[-2]
+    launch = R._tensor_core_launcher("tf32", form)
+    padded = R._pad_operands(form, cell, ops)
+    out = launch(cell, *padded, *rest)
+
+    def pads():
+        R._pad_operands(form, cell, ops)
+        R._unpad_outputs(form, cell, H, out)
+
+    return dict(
+        padded_width=R._padded_width(H),
+        device_ms=device_ms(lambda: launch(cell, *padded, *rest), reps=5,
+                            launches=2),
+        pad_ms=device_ms(pads, reps=5, launches=2),
+        route_device_ms=device_ms(route_call, reps=5, launches=2))
+
+
+def f32_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
+                 xw) -> None:
+    """Rows 3 and 1 in float32, saving c_all as training does, through the
+    route at this H (counted, nothing else launched): at H <= 128 the
+    3xTF32 forward, timed in turns with ``rnn_fused_fwd.cu`` (its private
+    launcher) on the same inputs (3xTF32, CUDA cores, CUDA cores, 3xTF32:
+    ``ms`` and ``device_ms`` are the first reading, ``turns_ms`` all four)
+    and, at a padded width, with its pads apart (:func:`padded_times`);
+    above 128 ``rnn_fused_fwd.cu`` itself. Beside both bounds, the plain
+    version and, for row 3, the cuDNN yardstick. h_all and c_all within
+    atol 1e-5 of the plain version (the JAX f32 bound on the op's
+    output)."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
+    route = R._mma_route(torch.float32, H)
+    padded = R._padded_width(H) != H
     want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
     library = cudnn_yardstick(torch, cell, hin, wx, b, wh, F32_TOL, 0.0)
     for kind, fused in (("fused_fwd", True), ("fwd", False)):
         form = "fused_" if fused else ""
-        name, simt = f"rnn_{form}fwd_tf32_{cell}", f"rnn_{form}fwd_{cell}"
+        name = f"rnn_{form}fwd_{'tf32_' if route == 'tf32' else ''}{cell}"
+        ops = (hin, wx, b, wh, mm) if fused else (xw, wh, mm)
         if fused:
-            runs = {"tf32": lambda: R._fused_states(
-                        cell, hin, wx, b, wh, mm, 1.0, True),
-                    "cuda_core": lambda: R._launch_fwd(
-                        cell, False, hin, wx, b, wh, mm, 1.0, True)}
+            runs = {"route": lambda: R._fused_states(
+                cell, hin, wx, b, wh, mm, 1.0, True)}
             plain_ms = time_ms(lambda: R.rnn_scan_states(
                 cell, hin @ wx + b, wh, mm, 1.0, True), reps=3, warmup=1)
         else:
-            runs = {"tf32": lambda: R._scan_states_any(
-                        cell, xw, wh, mm, 1.0, True),
-                    "cuda_core": lambda: R._launch_fwd(
-                        cell, True, xw, None, None, wh, mm, 1.0, True)}
+            runs = {"route": lambda: R._scan_states_any(
+                cell, xw, wh, mm, 1.0, True)}
             plain_ms = time_ms(lambda: R.rnn_scan_states(
                 cell, xw, wh, mm, 1.0, True), reps=3, warmup=1)
+        if route == "tf32":
+            runs["cuda_core"] = (lambda f=fused: R._launch_fwd(
+                cell, not f, ops[0], *((wx, b) if f else (None, None)),
+                wh, mm, 1.0, True))
         errs = {}
         for mode, run in runs.items():
             _build.reset_launch_counts()
             out = run()
             counts = _build.launch_counts()
-            launched = name if mode == "tf32" else simt
+            launched = name if mode == "route" else f"rnn_{form}fwd_{cell}"
             if counts[launched] != 1 or sum(counts.values()) != 1:
-                fail(f"{name} ({mode}): launched {counts}")
+                fail(f"{launched} ({mode}) at {where}: launched {counts}")
             torch.cuda.synchronize()
             err, excess = {}, 0.0
             for state, got, ref in zip("hc", out, want):
                 if got is None:  # the GRU has no c_all
                     continue
-                if not torch.isfinite(got).all():
-                    fail(f"{launched} (float32): {state} not finite")
+                if got.shape != ref.shape or not torch.isfinite(got).all():
+                    fail(f"{launched} (float32) at {where}: {state} not "
+                         f"finite of shape {tuple(ref.shape)}")
                 err[state], x = worst_excess(got, ref, F32_TOL, 0.0)
                 excess = max(excess, x)
             if excess > 0:
-                fail(f"{launched} (float32) at the train shape: max err "
-                     f"{err} (atol {F32_TOL})")
+                fail(f"{launched} (float32) at {where}: max err {err} (atol "
+                     f"{F32_TOL})")
             errs[mode] = err
             del out
         turns = {mode: [] for mode in runs}
-        for mode in ("tf32", "cuda_core", "cuda_core", "tf32"):
+        order = (("route", "cuda_core", "cuda_core", "route")
+                 if "cuda_core" in runs else ("route",))
+        for mode in order:
             turns[mode].append(kernel_ms(runs[mode], reps=5, launches=2))
-        bounds = f32_bounds(kind, cell, B, T, H, save_c=True)
-        lib = library if fused else dict(library_ms=None)
-        common = dict(shape=[B, T, H], dtype="float32", save_c=True,
-                      plain_ms=plain_ms, **bounds, **lib)
-        rec = dict(common, tolerance=f"atol {F32_TOL}",
-                   max_abs_err=max(errs["tf32"].values()),
-                   max_abs_err_by_state=errs["tf32"], **turns["tf32"][0],
-                   host_ms=host_ms(runs["tf32"]),
-                   cuda_core_ms=turns["cuda_core"][0]["ms"],
-                   cuda_core_device_ms=turns["cuda_core"][0]["device_ms"],
-                   cuda_core_max_abs_err=max(errs["cuda_core"].values()),
-                   turns_ms={m: [t["ms"] for t in v]
-                             for m, v in turns.items()})
-        report(kernels, name, "c2 train step", rec)
-        simt_rec = dict(common, tolerance=f"atol {F32_TOL}",
-                        max_abs_err=max(errs["cuda_core"].values()),
-                        max_abs_err_by_state=errs["cuda_core"],
-                        **turns["cuda_core"][0],
-                        host_ms=host_ms(runs["cuda_core"]))
-        if fused:
-            report(kernels, simt, "c2 train step", simt_rec)
-        else:
-            kernels[simt][-1]["f32"] = simt_rec
-            log("kernel " + json.dumps(dict(name=simt, at="c2 train step",
-                                            **simt_rec)))
-        log(f"{name} (float32) at the c2 train step: {rec['ms']:.4f} ms "
-            f"(device {rec['device_ms']:.4f}, host {rec['host_ms']:.4f}), "
-            f"rnn_fused_fwd.cu "
-            f"{rec['cuda_core_ms']:.4f} (device "
-            f"{rec['cuda_core_device_ms']:.4f}), in turns {rec['turns_ms']}; "
-            f"bound {rec['bound_ms']:.4f} (3xTF32) / "
+        rec = dict(shape=[B, T, H], dtype="float32", save_c=True,
+                   plain_ms=plain_ms, **f32_bounds(kind, cell, B, T, H, True),
+                   **(library if fused else dict(library_ms=None)),
+                   tolerance=f"atol {F32_TOL}",
+                   max_abs_err=max(errs["route"].values()),
+                   max_abs_err_by_state=errs["route"], **turns["route"][0],
+                   host_ms=host_ms(runs["route"]))
+        if "cuda_core" in runs:
+            rec.update(cuda_core_ms=turns["cuda_core"][0]["ms"],
+                       cuda_core_device_ms=turns["cuda_core"][0]["device_ms"],
+                       cuda_core_max_abs_err=max(errs["cuda_core"].values()),
+                       turns_ms={m: [t["ms"] for t in v]
+                                 for m, v in turns.items()})
+        if padded:
+            rec.update(padded_times(torch, kind, cell, ops, (1.0, True),
+                                    runs["route"]))
+        report(kernels, name, where, rec)
+        log(f"{name} (float32) at {where}: {rec['ms']:.4f} ms (device "
+            f"{rec['device_ms']:.4f}, host {rec['host_ms']:.4f}"
+            + (f", pads {rec['pad_ms']:.4f}" if padded else "") + ")"
+            + (f", rnn_fused_fwd.cu {rec['cuda_core_ms']:.4f} (device "
+               f"{rec['cuda_core_device_ms']:.4f}), in turns "
+               f"{rec['turns_ms']}" if "cuda_core_ms" in rec else "")
+            + f"; bound {rec['bound_ms']:.4f} (3xTF32) / "
             f"{rec['bound_f32_simt_ms']:.4f} (CUDA cores); library "
-            f"{lib['library_ms']}; errors {errs}")
+            f"{rec['library_ms']}; errors {errs}")
     torch.cuda.empty_cache()
 
 
@@ -987,14 +1103,15 @@ def f32_stack_memory(torch, hin, wx, b, wh, mm, dh) -> None:
 def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                  h, c, dh, xw) -> None:
     """Rows 4 and 2 in float32 through the public backwards, on the route's
-    kernels at this H (``rnn_bwd_tf32.cu`` at 16 <= H <= 128, H % 16 == 0;
-    ``rnn_bwd.cu`` otherwise): each launched once per call (counted), twice
-    for bitwise equal outputs, against its plain version at scaled atol
-    1e-5, timed beside both bounds, the plain version and the ``library_ms``
-    yardstick — the weight-gradient products (and, fused, dhin) as f32
-    ``torch.matmul`` with TF32 off, which the port never makes. On the
-    3xTF32 route ``rnn_bwd.cu`` (its private launcher) is timed on the same
-    inputs."""
+    kernels at this H (``rnn_bwd_tf32.cu`` at H <= 128, zero-padded to the
+    next multiple of 16 where H is off one; ``rnn_bwd.cu`` above): each
+    launched once per call (counted), twice for bitwise equal outputs,
+    against its plain version at scaled atol 1e-5, timed beside both
+    bounds, the plain version and the ``library_ms`` yardstick — the
+    weight-gradient products (and, fused, dhin) as f32 ``torch.matmul``
+    with TF32 off, which the port never makes. On the 3xTF32 route
+    ``rnn_bwd.cu`` (its private launcher) is timed on the same inputs, and
+    a padded row's pads apart from its kernel (:func:`padded_times`)."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -1015,7 +1132,8 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
         want = plain(*args)
         _build.reset_launch_counts()
         one = public(*args)
-        if _build.launch_counts()[name] != 1:
+        counts = _build.launch_counts()
+        if counts[name] != 1 or sum(counts.values()) != 1:
             fail(f"{name} (float32) at {where}: the route launched "
                  f"{_build.launch_counts()}")
         two = public(*args)
@@ -1054,9 +1172,14 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                 cell, f, *a, 1.0), reps=5, launches=2)
             rec.update(cuda_core_ms=cc["ms"],
                        cuda_core_device_ms=cc["device_ms"])
+        if R._padded_width(H) != H:
+            rec.update(padded_times(torch, kind, cell, args[1:], (1.0,),
+                                    run))
         report(kernels, name, where, rec)
         log(f"{name} (float32) at {where}: {rec['ms']:.4f} ms (device "
-            f"{rec['device_ms']:.4f}), rnn_bwd.cu "
+            f"{rec['device_ms']:.4f}"
+            + (f", pads {rec['pad_ms']:.4f}" if "pad_ms" in rec else "")
+            + "), rnn_bwd.cu "
             f"{rec.get('cuda_core_ms', rec['ms']):.4f}, bound "
             f"{rec['bound_ms']:.4f} (3xTF32) / "
             f"{rec['bound_f32_simt_ms']:.4f} (CUDA cores), library "
@@ -1310,13 +1433,17 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     del trainer, plain
     torch.cuda.empty_cache()
 
-    # The hoisted form (its backward on the tensor cores in bf16), the GRU
-    # at c2's geometry, both cells and both forms in float32 (the 3xTF32
-    # forwards and backwards; no CUDA-core kernel), and the same at hidden
-    # 120 (the CUDA-core forwards and backwards): a few steps each.
-    h120 = dict(cfg.model.kwargs, hidden=120)
+    # The hoisted form (forward and backward on the tensor cores in bf16),
+    # the GRU at c2's geometry, both cells and both forms in float32 (the
+    # 3xTF32 forwards and backwards), the same at hidden 120 (the 3xTF32
+    # kernels zero-padded to 128): no CUDA-core kernel in any; and the
+    # float32 four at hidden 160 (the CUDA-core forwards and backwards): a
+    # few steps each.
+    h120 = dict(cfg.model.kwargs, hidden=PADDED_HIDDEN)
+    h160 = dict(cfg.model.kwargs, hidden=CUDA_CORE_HIDDEN)
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
-             ("rnn_fwd_lstm", "rnn_bwd_mma_lstm", "window_gather"), ()),
+             ("rnn_fwd_mma_lstm", "rnn_bwd_mma_lstm", "window_gather"),
+             CUDA_CORE),
             ("c2 training (fused, float32)", train_variant(cfg, bf16=False),
              ("rnn_fused_fwd_tf32_lstm", "rnn_fused_bwd_tf32_lstm",
               "window_gather"), CUDA_CORE),
@@ -1333,25 +1460,43 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
               "window_gather"), CUDA_CORE),
             ("GRU training (hoisted)",
              train_variant(cfg, kind="gru", scan_impl="pallas"),
-             ("rnn_fwd_gru", "rnn_bwd_mma_gru", "window_gather"), ()),
+             ("rnn_fwd_mma_gru", "rnn_bwd_mma_gru", "window_gather"),
+             CUDA_CORE),
             ("GRU training (hoisted, float32)",
              train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False),
              ("rnn_fwd_tf32_gru", "rnn_bwd_tf32_gru", "window_gather"),
              CUDA_CORE),
             ("c2 training (fused, float32, hidden 120)",
              train_variant(cfg, bf16=False, kwargs=h120),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
-             ()),
+             ("rnn_fused_fwd_tf32_lstm", "rnn_fused_bwd_tf32_lstm",
+              "window_gather"), CUDA_CORE),
             ("c2 training (hoisted, float32, hidden 120)",
              train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h120),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), ()),
+             ("rnn_fwd_tf32_lstm", "rnn_bwd_tf32_lstm", "window_gather"),
+             CUDA_CORE),
             ("GRU training (fused, float32, hidden 120)",
              train_variant(cfg, kind="gru", bf16=False, kwargs=h120),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
-             ()),
+             ("rnn_fused_fwd_tf32_gru", "rnn_fused_bwd_tf32_gru",
+              "window_gather"), CUDA_CORE),
             ("GRU training (hoisted, float32, hidden 120)",
              train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
                            kwargs=h120),
+             ("rnn_fwd_tf32_gru", "rnn_bwd_tf32_gru", "window_gather"),
+             CUDA_CORE),
+            ("c2 training (fused, float32, hidden 160)",
+             train_variant(cfg, bf16=False, kwargs=h160),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
+             ()),
+            ("c2 training (hoisted, float32, hidden 160)",
+             train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h160),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), ()),
+            ("GRU training (fused, float32, hidden 160)",
+             train_variant(cfg, kind="gru", bf16=False, kwargs=h160),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
+             ()),
+            ("GRU training (hoisted, float32, hidden 160)",
+             train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
+                           kwargs=h160),
              ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather"), ()))
     for label, run_cfg, must, must_not in runs:
         got, counts = counted(label, must, lambda: short_run(
@@ -1368,7 +1513,9 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
 
     # Informational, after the counted runs: each step with its backward
     # (and the float32 fused step with its forward) as routed and sent to
-    # the CUDA-core kernel, in turns.
+    # the CUDA-core kernel, in turns; the float32 hidden-120 step with its
+    # route (the 3xTF32 kernels, padded) and with every width sent to the
+    # CUDA cores (rnn_fused_fwd.cu and rnn_bwd.cu), in turns.
     from lfm_quant_tpu_torch.ops import rnn as R
 
     step_in_turns(torch, runs[0][1], splits, "c2 (hoisted)",
@@ -1384,6 +1531,11 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
                   "_launch_fwd_tf32", {
                       "tensor cores (3xTF32)": R._launch_fwd_tf32,
                       "CUDA cores": cuda_core_fwd}, part="forward")
+    step_in_turns(torch, runs[7][1], splits,
+                  "c2 (fused, float32, hidden 120)", "_mma_route", {
+                      "tensor cores (3xTF32, padded to 128)": R._mma_route,
+                      "CUDA cores": lambda *a, **k: "simt"},
+                  part="recurrence")
 
 
 def cuda_core_bwd(*a, xw=None):
@@ -1944,8 +2096,6 @@ def main() -> int:
         rec = {f: meas.get(f) for f in (f32_fields if f32 else fields)}
         if f32:
             rec["dtype"] = meas["dtype"]
-        if "f32" in meas:
-            rec["f32"] = {f: meas["f32"].get(f) for f in f32_fields}
         line.append(dict(name=k, route="cuda",
                          source=f"lfm_quant_tpu_torch/{src}",
                          replaces=f"{SRC_REPO}/{rep}", launches=totals[k],

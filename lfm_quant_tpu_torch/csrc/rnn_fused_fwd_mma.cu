@@ -16,10 +16,31 @@
 // are stored in bf16: the TPU kernels' rounding points. Only the order of
 // the f32 sums differs from csrc/rnn_fused_fwd.cu.
 //
-// Route (ops/rnn.py _mma_route): bfloat16 with H % 16 == 0 and
-// 16 <= H <= 128, so that W_h (G * H * H bf16, 128 KB for the LSTM at
-// H = 128) fits in shared memory. float32, any other H and the hoisted
-// form stay on the CUDA-core kernel in csrc/rnn_fused_fwd.cu.
+// Route (ops/rnn.py _mma_route): bfloat16 at every H <= 128, so that W_h
+// (G * H * H bf16, 128 KB for the LSTM at H = 128) fits in shared memory.
+// A width that is not a multiple of 16 comes in zero-padded per gate block
+// to the next one (ops/rnn.py padded_launch; exact, see there). float32
+// runs on csrc/rnn_fwd_tf32.cu, H > 128 on csrc/rnn_fused_fwd.cu.
+//
+// Hoisted mode (template flag HOIST, entry lfm_rnn_scan_fwd_mma): replaces
+// _lstm_fwd_kernel (pallas_rnn.py:135) and _gru_fwd_kernel (:158), reached
+// through _fwd_call (:365). The gate sums start from xw_t [B, T, G H] bf16
+// (read as f32; the bias is in it), so there is no W_x product, no hin
+// tile and no bias; W_h stays in shared memory in fragment order and the
+// rounding points are the fused mode's (h and c carried in f32, bf16(h)
+// the recurrent product's operand; the GRU keeps the x and h sums of n
+// apart). xw_t is the design problem: at 64 rows a double-buffered
+// [rows, G H + 8] bf16 tile is 133 KB, which does not fit beside W_h's
+// 128 KB. Each thread instead loads its own xw_t pairs (row, gate, units
+// u, u + 1: the accumulator's layout) from device memory into registers a
+// step ahead (8 x 4 bytes per 16 rows for the LSTM), as the hoisted
+// backward in csrc/rnn_fused_bwd_mma.cu does, and the mode takes 16 or 32
+// rows per block (ops/rnn.py _mma_rows, hoisted): 64 would hold 32 more
+// registers a thread over the products at 512 threads. Shared memory is
+// W_h and the two h tiles: 139,776 bytes for the LSTM at H = 128 and 16
+// rows (the fused mode's 150,528). Bound at the c2 train step (B 2048,
+// T 60, H 128, LSTM): 1.6e10 operations against 0.16 GB of xw in and h
+// out, bound by bytes, 0.047 ms.
 //
 // Bound. At the c2 serving dispatch (B = 16384, T = 60, H = 128, LSTM) the
 // work is 2 * B * T * H * 2 * 4H = 2.58e11 operations against 0.25 GB of
@@ -87,24 +108,27 @@ __device__ __forceinline__ float sigmoid(float v) {
   return __frcp_rn(1.0f + expf(-v));
 }
 
-// Shared memory: packed W_h [H * G * H] bf16, the hin and h tiles (two
-// each, [rows, H + 8] bf16) and the bias [G * H] f32.
 // Seed strides of the operands, in elements of each (W_x and W_h in bf16
 // elements of their packed form); 0 for an operand shared by every seed.
 struct SeedStrides {
   long long hin, wx, b, wh, m;
 };
 
-inline size_t smem_bytes(int gates, int H, int rows) {
-  return (size_t)H * gates * H * 2 + 4 * (size_t)rows * (H + 8) * 2 +
-         (size_t)gates * H * 4;
+// Shared memory: packed W_h [H * G * H] bf16, the hin and h tiles (two
+// each, [rows, H + 8] bf16) and the bias [G * H] f32; the hoisted mode
+// keeps only W_h and the h tiles.
+inline size_t smem_bytes(int gates, int H, int rows, bool hoist) {
+  return (size_t)H * gates * H * 2 +
+         (hoist ? 2 : 4) * (size_t)rows * (H + 8) * 2 +
+         (hoist ? 0 : (size_t)gates * H * 4);
 }
 
 // Per seed (blockIdx.y, operands offset by their SeedStrides): hin [B, T,
 // H]; wxp, whp: W_x, W_h packed in fragment order; b [G * H]; m uint8 [B,
 // T]; h_out, c_out [B, T, H] (c_out may be null), stride B T H. The block
-// owns 16 * RT rows; blockDim.x = (H / kUnits) * 32.
-template <int CELL, int RT>
+// owns 16 * RT rows; blockDim.x = (H / kUnits) * 32. HOIST: hin is xw [B,
+// T, G * H] (its seed stride st.hin), and wxp and b are unused.
+template <int CELL, int RT, bool HOIST>
 __global__ void __launch_bounds__(128 * 32 / kUnits, 1)
 rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
                    const uint2* __restrict__ wxp,
@@ -129,7 +153,7 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
   uint2* wh_s = reinterpret_cast<uint2*>(smem);
   __nv_bfloat16* hin_s =
       reinterpret_cast<__nv_bfloat16*>(smem + (size_t)H * GH * 2);
-  __nv_bfloat16* h_s = hin_s + 2 * BB * LD;
+  __nv_bfloat16* h_s = HOIST ? hin_s : hin_s + 2 * BB * LD;
   float* bias_s = reinterpret_cast<float*>(h_s + 2 * BB * LD);
 
   {
@@ -180,9 +204,10 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
     for (int i = tid; i < n16; i += nth)
       cp_async16(smem + 16 * (size_t)i, src + 16 * (size_t)i, 16);
   }
-  load_hin(0, 0);
+  if (!HOIST) load_hin(0, 0);
   cp_async_commit();
-  for (int i = tid; i < GH; i += nth) bias_s[i] = __bfloat162float(b[i]);
+  if (!HOIST)
+    for (int i = tid; i < GH; i += nth) bias_s[i] = __bfloat162float(b[i]);
   {
     uint32_t* z = reinterpret_cast<uint32_t*>(h_s);
     for (int i = tid; i < BB * LD; i += nth) z[i] = 0u;  // both h tiles
@@ -193,8 +218,30 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
   const int row_l = lane >> 2;       // + 16 rt + 8 half
   const int unit_l = 2 * (lane & 3);  // + u0 + 8 j + e
   const int u0 = warp * UW;
-  const uint2* wx_w = wxp + (size_t)warp * NT * 32 + lane;
+  const uint2* wx_w = HOIST ? nullptr : wxp + (size_t)warp * NT * 32 + lane;
   const uint2* wh_w = wh_s + warp * NT * 32 + lane;
+
+  // HOIST: the thread's xw_t pairs (row, gate q, units u, u + 1 of tile
+  // j), loaded into registers a step ahead; rows past B read 0.
+  __nv_bfloat162 xwn[RT][2][G][NJ];
+  auto load_xw = [&](int t) {
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rt * 16 + row_l + 8 * half;
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            xwn[rt][half][q][j] =
+                r < nr ? *reinterpret_cast<const __nv_bfloat162*>(
+                             hin + ((size_t)(r0 + r) * Tn + t) * GH + q * H +
+                             u0 + 8 * j + unit_l)
+                       : __floats2bfloat162_rn(0.0f, 0.0f);
+      }
+  };
+  if (HOIST) load_xw(0);
 
   // f32 carry: c for the LSTM, h for the GRU. [rt][j][half * 2 + e]
   float carry[RT][NJ][4];
@@ -209,7 +256,7 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
     const int cur = t & 1;
     cp_async_wait_all();
     __syncthreads();  // hin_t and h_{t-1} are in place; the other buffers free
-    if (t + 1 < Tn) load_hin(t + 1, cur ^ 1);
+    if (!HOIST && t + 1 < Tn) load_hin(t + 1, cur ^ 1);
     cp_async_commit();
     const __nv_bfloat16* xt = hin_s + cur * BB * LD;
     const __nv_bfloat16* ht = h_s + cur * BB * LD;
@@ -224,7 +271,8 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
         keep[rt][half] = r < nr && m[(size_t)(r0 + r) * Tn + t] != 0;
       }
 
-    // Slots: the G x-side gates; the GRU's slot 3 is the h side of n.
+    // Slots: the G x-side gates (from the bias, HOIST: from xw_t); the
+    // GRU's slot 3 is the h side of n.
     float acc[RT][4][NJ][4];
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt)
@@ -233,15 +281,25 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[rt][q][j][i] =
-                q < G ? bias_s[q * H + u0 + 8 * j + unit_l + (i & 1)] : 0.0f;
+          for (int i = 0; i < 4; ++i) {
+            if (HOIST) {
+              const float2 v = __bfloat1622float2(
+                  xwn[rt][i >> 1][q < G ? q : 0][j]);
+              acc[rt][q][j][i] = q < G ? ((i & 1) ? v.y : v.x) : 0.0f;
+            } else {
+              acc[rt][q][j][i] =
+                  q < G ? bias_s[q * H + u0 + 8 * j + unit_l + (i & 1)]
+                        : 0.0f;
+            }
+          }
+    if (HOIST && t + 1 < Tn) load_xw(t + 1);
 
     for (int kk = 0; kk < KT; ++kk) {
       const size_t koff = (size_t)kk * S * NT * 32;
       uint2 bx[NT];
+      if (!HOIST)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) bx[n] = __ldg(wx_w + koff + n * 32);
+        for (int n = 0; n < NT; ++n) bx[n] = __ldg(wx_w + koff + n * 32);
       {
         uint2 bh[NT];
 #pragma unroll
@@ -258,6 +316,7 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
                        bh[q * NJ + j]);
         }
       }
+      if (!HOIST)
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) {
         uint32_t a[4];
@@ -320,15 +379,15 @@ rnn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ hin,
   store_h(Tn - 1, h_s + (Tn & 1) * BB * LD);
 }
 
-template <int CELL, int RT>
+template <int CELL, int RT, bool HOIST>
 cudaError_t launch(const void* hin, const void* wxp, const void* b,
                    const void* whp, const void* m, void* h_out, void* c_out,
                    int S, int B, int Tn, int H, SeedStrides st,
                    float forget_bias, cudaStream_t stream) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   constexpr int rows = 16 * RT;
-  const size_t smem = smem_bytes(G, H, rows);
-  auto kernel = rnn_fwd_mma_kernel<CELL, RT>;
+  const size_t smem = smem_bytes(G, H, rows, HOIST);
+  auto kernel = rnn_fwd_mma_kernel<CELL, RT, HOIST>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -342,26 +401,28 @@ cudaError_t launch(const void* hin, const void* wxp, const void* b,
   return cudaGetLastError();
 }
 
-template <int CELL>
+template <int CELL, bool HOIST>
 cudaError_t launch_rows(int rows, const void* hin, const void* wxp,
                         const void* b, const void* whp, const void* m,
                         void* h_out, void* c_out, int S, int B, int Tn,
                         int H, SeedStrides st, float fb, cudaStream_t s) {
   if (rows == 16)
-    return launch<CELL, 1>(hin, wxp, b, whp, m, h_out, c_out, S, B, Tn, H,
-                           st, fb, s);
+    return launch<CELL, 1, HOIST>(hin, wxp, b, whp, m, h_out, c_out, S, B,
+                                  Tn, H, st, fb, s);
   if (rows == 32)
-    return launch<CELL, 2>(hin, wxp, b, whp, m, h_out, c_out, S, B, Tn, H,
-                           st, fb, s);
-  return launch<CELL, 4>(hin, wxp, b, whp, m, h_out, c_out, S, B, Tn, H, st,
-                         fb, s);
+    return launch<CELL, 2, HOIST>(hin, wxp, b, whp, m, h_out, c_out, S, B,
+                                  Tn, H, st, fb, s);
+  if constexpr (!HOIST)
+    return launch<CELL, 4, HOIST>(hin, wxp, b, whp, m, h_out, c_out, S, B,
+                                  Tn, H, st, fb, s);
+  return cudaErrorInvalidValue;
 }
 
 // The shapes the kernel takes: 16 <= H <= 128, H % 16 == 0, and 16, 32 or
-// 64 rows per block.
-bool supported(int H, int rows) {
+// (the fused mode) 64 rows per block.
+bool supported(int H, int rows, bool hoist) {
   if (H < 16 || H > 128 || H % 16 != 0) return false;
-  return rows == 16 || rows == 32 || rows == 64;
+  return rows == 16 || rows == 32 || (rows == 64 && !hoist);
 }
 
 }  // namespace
@@ -369,8 +430,8 @@ bool supported(int H, int rows) {
 // Shared memory one launch needs, in bytes; -1 for a shape the kernel does
 // not take. cell: 0 = LSTM, 1 = GRU; rows: rows per block.
 extern "C" long long lfm_rnn_fused_fwd_mma_smem(int cell, int H, int rows) {
-  if (!supported(H, rows)) return -1;
-  return (long long)smem_bytes(cell == kLstm ? 4 : 3, H, rows);
+  if (!supported(H, rows, false)) return -1;
+  return (long long)smem_bytes(cell == kLstm ? 4 : 3, H, rows, false);
 }
 
 // The fused forward in bfloat16 on the tensor cores, for S seeds in one
@@ -390,14 +451,52 @@ extern "C" int lfm_rnn_fused_fwd_mma(int cell, const void* hin,
                                      long long s_m, float forget_bias,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S <= 0 || S > 65535 || B <= 0 || Tn <= 0 || !supported(H, rows))
+  if (S <= 0 || S > 65535 || B <= 0 || Tn <= 0 ||
+      !supported(H, rows, false))
     return (int)cudaErrorInvalidValue;
   const SeedStrides st{s_hin, s_wx, s_b, s_wh, s_m};
   if (cell == kLstm)
-    return (int)launch_rows<kLstm>(rows, hin, wxp, b, whp, m, h_out, c_out,
-                                   S, B, Tn, H, st, forget_bias, s);
+    return (int)launch_rows<kLstm, false>(rows, hin, wxp, b, whp, m, h_out,
+                                          c_out, S, B, Tn, H, st,
+                                          forget_bias, s);
   if (cell == kGru)
-    return (int)launch_rows<kGru>(rows, hin, wxp, b, whp, m, h_out, c_out,
-                                  S, B, Tn, H, st, forget_bias, s);
+    return (int)launch_rows<kGru, false>(rows, hin, wxp, b, whp, m, h_out,
+                                         c_out, S, B, Tn, H, st, forget_bias,
+                                         s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of one launch of the hoisted mode, in bytes; -1 for a shape
+// it does not take (rows: 16 or 32).
+extern "C" long long lfm_rnn_scan_fwd_mma_smem(int cell, int H, int rows) {
+  if (!supported(H, rows, true)) return -1;
+  return (long long)smem_bytes(cell == kLstm ? 4 : 3, H, rows, true);
+}
+
+// The hoisted forward in bfloat16 on the tensor cores (the hoisted mode),
+// for S seeds in one launch. Per seed: xw [B, T, G * H] bf16 (the gates' x
+// side with its bias), h_out and c_out [B, T, H] bf16; whp is W_h [H, G *
+// H] in fragment order (ops/rnn.py pack_fragments); m uint8 [B, T]. s_*:
+// each operand's seed stride in its elements (0: shared); h_out and c_out
+// are [S, B, T, H]. rows: rows per block (16 or 32); c_out may be null.
+// Returns cudaGetLastError().
+extern "C" int lfm_rnn_scan_fwd_mma(int cell, const void* xw,
+                                    const void* whp, const void* m,
+                                    void* h_out, void* c_out, int S, int B,
+                                    int Tn, int H, int rows, long long s_xw,
+                                    long long s_wh, long long s_m,
+                                    float forget_bias, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S <= 0 || S > 65535 || B <= 0 || Tn <= 0 || !supported(H, rows, true))
+    return (int)cudaErrorInvalidValue;
+  const SeedStrides st{s_xw, 0, 0, s_wh, s_m};
+  if (cell == kLstm)
+    return (int)launch_rows<kLstm, true>(rows, xw, nullptr, nullptr, whp, m,
+                                         h_out, c_out, S, B, Tn, H, st,
+                                         forget_bias, s);
+  if (cell == kGru)
+    return (int)launch_rows<kGru, true>(rows, xw, nullptr, nullptr, whp, m,
+                                        h_out, c_out, S, B, Tn, H, st,
+                                        forget_bias, s);
   return (int)cudaErrorInvalidValue;
 }

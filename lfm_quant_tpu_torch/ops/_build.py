@@ -40,6 +40,7 @@ LAUNCHES: Dict[str, int] = {
     for cell in ("lstm", "gru")
 }
 LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
+                rnn_fwd_mma_lstm=0, rnn_fwd_mma_gru=0,
                 rnn_fused_bwd_mma_lstm=0, rnn_fused_bwd_mma_gru=0,
                 rnn_bwd_mma_lstm=0, rnn_bwd_mma_gru=0,
                 rnn_fused_bwd_tf32_lstm=0, rnn_fused_bwd_tf32_gru=0,
@@ -149,6 +150,8 @@ def library() -> ctypes.CDLL:
                 + [cf, vp],
                 "lfm_rnn_fused_fwd_mma": [ci] + [vp] * 7 + [ci] * 5
                 + [cll] * 5 + [cf, vp],
+                "lfm_rnn_scan_fwd_mma": [ci] + [vp] * 5 + [ci] * 5
+                + [cll] * 3 + [cf, vp],
                 "lfm_rnn_fused_bwd_mma": [ci] + [vp] * 13 + [ci, vp]
                 + [ci] * 4 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_scan_bwd_mma": [ci] + [vp] * 9 + [ci, vp]
@@ -169,6 +172,7 @@ def library() -> ctypes.CDLL:
                 getattr(lib, name).restype = ci
             smem = {"lfm_rnn_fwd_smem": 3, "lfm_rnn_bwd_smem": 3,
                     "lfm_rnn_fused_fwd_mma_smem": 3,
+                    "lfm_rnn_scan_fwd_mma_smem": 3,
                     "lfm_rnn_fused_bwd_mma_smem": 2,
                     "lfm_rnn_scan_bwd_mma_smem": 2,
                     "lfm_rnn_bwd_tf32_smem": 3, "lfm_rnn_fwd_tf32_smem": 2}

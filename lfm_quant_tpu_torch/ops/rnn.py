@@ -5,13 +5,14 @@
 versions.
 
 One rule, :func:`_mma_route`, picks the kernels of both forwards and both
-backwards from the direction, the dtype and H alone: at 16 <= H <= 128, H
-% 16 == 0 bf16 runs on the tensor cores (``rnn_fused_fwd_mma.cu``;
-``rnn_fused_bwd_mma.cu``, fused and hoisted modes) and float32 on them in
-3xTF32 (``rnn_fwd_tf32.cu``, whose fused form makes xw on the CUDA
-cores, and ``rnn_bwd_tf32.cu``, fused and hoisted forms); every other H
-runs on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``). The
-hoisted forward in bf16 runs on ``rnn_fused_fwd.cu`` at every H.
+backwards from the direction, the dtype and H alone: at every H <= 128
+bf16 runs on the tensor cores (``rnn_fused_fwd_mma.cu``, fused and
+hoisted modes; ``rnn_fused_bwd_mma.cu``, fused and hoisted modes) and
+float32 on them in 3xTF32 (``rnn_fwd_tf32.cu``, whose fused form makes
+xw on the CUDA cores, and ``rnn_bwd_tf32.cu``, fused and hoisted forms);
+a width that is not a multiple of 16 is zero-padded per gate block to
+the next one around the launch (:func:`padded_launch`, exact). H > 128
+runs on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -445,44 +446,152 @@ def _launch_bwd(cell: str, fused: bool, xin: torch.Tensor, wx, b,
             dw[hg + G:].view(H, G))
 
 
+def _padded_width(H: int) -> int:
+    """The width the tensor-core kernels run hidden width ``H`` at: the
+    next multiple of 16 (at least 16)."""
+    return 16 * -(-max(H, 1) // 16)
+
+
 def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     """Which kernels run the forwards (``direction="fwd"``) and the
-    backwards (``"bwd"``), fused and hoisted, on the card:
+    backwards (``"bwd"``), fused and hoisted, on the card, with ``Hp =
+    _padded_width(H)``:
 
-    ========= ======== ========================== =====================
-    direction dtype    H                          kernel (answer)
-    ========= ======== ========================== =====================
-    fwd       bfloat16 16 <= H <= 128, H % 16 = 0 ``rnn_fused_fwd_mma.cu``
-                                                  (``"mma"``; the hoisted
-                                                  form ``rnn_fused_fwd.cu``)
-    fwd       float32  same                       ``rnn_fwd_tf32.cu``
-                                                  (``"tf32"``)
-    bwd       bfloat16 same                       ``rnn_fused_bwd_mma.cu``
-                                                  (``"mma"``)
-    bwd       float32  same                       ``rnn_bwd_tf32.cu``
-                                                  (``"tf32"``)
-    fwd, bwd  either   every other H              ``rnn_fused_fwd.cu``,
-                                                  ``rnn_bwd.cu``
-                                                  (``"simt"``)
-    ========= ======== ========================== =====================
+    ========= ======== =========== ================================
+    direction dtype    H           kernel (answer)
+    ========= ======== =========== ================================
+    fwd       bfloat16 Hp <= 128   ``rnn_fused_fwd_mma.cu``, fused
+                                   and hoisted modes (``"mma"``)
+    fwd       float32  Hp <= 128   ``rnn_fwd_tf32.cu`` (``"tf32"``)
+    bwd       bfloat16 Hp <= 128   ``rnn_fused_bwd_mma.cu`` (``"mma"``)
+    bwd       float32  Hp <= 128   ``rnn_bwd_tf32.cu`` (``"tf32"``)
+    fwd, bwd  either   H > 128     ``rnn_fused_fwd.cu``, ``rnn_bwd.cu``
+                                   (``"simt"``)
+    ========= ======== =========== ================================
 
-    The tensor-core kernels hold W_h in shared memory, hence the widths
-    (the f32 kernels split it across a cluster of CTAs: the forward at
-    every width, the backward at H = 128). bf16 runs on the bf16 tensor
-    cores; float32 must hold the JAX f32 bound, so it splits every f32
-    operand of the recurrence into two TF32 terms (3xTF32), and the fused
-    forward forms xw on the CUDA cores (unbiased f32 sums). The fused
-    bf16 backward reuses the forward's packing of W_x, the fused float32
+    The tensor-core kernels take 16 <= H <= 128, H % 16 == 0 and hold W_h
+    in shared memory, hence the widths (the f32 kernels split it across a
+    cluster of CTAs: the forward at every width, the backward at H =
+    128); any other H <= 128 runs there at Hp, zero-padded per gate block
+    (:func:`padded_launch`, exact). bf16 runs on the bf16 tensor cores;
+    float32 must hold the JAX f32 bound, so it splits every f32 operand
+    of the recurrence into two TF32 terms (3xTF32), and the fused forward
+    forms xw on the CUDA cores (unbiased f32 sums). The fused bf16
+    backward reuses the forward's packing of W_x, the fused float32
     backward the forward's xw."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction}")
-    if not (H % 16 == 0 and 16 <= H <= 128):
+    if _padded_width(H) > 128:
         return "simt"
     if dtype == torch.bfloat16:
         return "mma"
     if dtype == torch.float32:
         return "tf32"
     return "simt"
+
+
+#: The operands and outputs of each form of launch, in order, and how each
+#: pads: "u" a ``[.., H]`` tensor (hin, h_all, c_all, dh, dhin), "g" ``[..,
+#: G H]`` gate columns (b, xw, db, dxw), "w" a weight ``[.., H, G H]``
+#: (W_x, W_h and their gradients), "-" as it is (m; the float32 fused
+#: forward's xw scratch, which its backward takes at the padded width).
+_PAD_FORMS = {
+    "fused_fwd": ("uwgwm", "uu-"),
+    "fwd": ("gwm", "uu"),
+    "fused_bwd": ("uwgwmuuu", "uwgw"),
+    "bwd": ("gwmuuu", "gw"),
+}
+
+
+def _pad_one(t: Optional[torch.Tensor], kind: str, G: int, H: int,
+             Hp: int) -> Optional[torch.Tensor]:
+    """One operand from width H to Hp, zeros in the new places: the last
+    axis (u), each of its G gate blocks (g), or a weight's rows and gate
+    blocks (w). One copy of the values and a fill of the new places only
+    (a pad that fills the whole output first writes it twice)."""
+    if t is None or kind == "-" or kind == "m":
+        return t
+    blocks = 1 if kind == "u" else G
+    src = t.unflatten(-1, (blocks, H))
+    rows = (Hp,) if kind == "w" else ()
+    out = t.new_empty(*src.shape[:-2 - len(rows)], *rows, blocks, Hp)
+    real = out
+    if kind == "w":
+        out[..., H:, :, :].zero_()
+        real = out[..., :H, :, :]
+    real[..., :H].copy_(src)
+    real[..., H:].zero_()
+    return out.flatten(-2)
+
+
+def _unpad_one(t: Optional[torch.Tensor], kind: str, G: int, H: int,
+               Hp: int) -> Optional[torch.Tensor]:
+    """The inverse of :func:`_pad_one`: a new contiguous tensor (the next
+    layer's kernel reads it from a 16-byte boundary)."""
+    if t is None or kind == "-":
+        return t
+    if kind == "w":
+        t = t[..., :H, :]
+    if kind in "gw":
+        return t.unflatten(-1, (G, Hp))[..., :H].flatten(-2).contiguous()
+    return t[..., :H].contiguous()
+
+
+def _pad_operands(form: str, cell: str, ops) -> tuple:
+    """``form``'s operands (:data:`_PAD_FORMS`) zero-padded from their
+    hidden width H to :func:`_padded_width`; as they are when it is H."""
+    kinds = _PAD_FORMS[form][0]
+    H = ops[kinds.rindex("w")].shape[-2]
+    Hp = _padded_width(H)
+    if Hp == H:
+        return tuple(ops)
+    return tuple(_pad_one(t, k, _GATES[cell], H, Hp)
+                 for t, k in zip(ops, kinds))
+
+
+def _unpad_outputs(form: str, cell: str, H: int, out) -> tuple:
+    """``form``'s outputs at the padded width sliced back to width H."""
+    Hp = _padded_width(H)
+    if Hp == H:
+        return tuple(out)
+    return tuple(_unpad_one(t, k, _GATES[cell], H, Hp)
+                 for t, k in zip(out, _PAD_FORMS[form][1]))
+
+
+def padded_launch(launch, form: str):
+    """``launch`` — a kernel's launcher, or a plain version with its
+    signature ``(cell, *operands, *rest, **kw)`` (operands in the order of
+    :data:`_PAD_FORMS` ``[form]``) — run at :func:`_padded_width` of the
+    operands' hidden width H: every operand is zero-padded per gate block
+    to Hp (W_x, W_h ``[.., H, G H]`` → ``[.., Hp, G Hp]``, each gate's H
+    columns first in its Hp; b, xw ``[.., G H]`` → ``[.., G Hp]``; hin,
+    h_all, c_all, dh ``[.., H]`` → ``[.., Hp]``; m as it is; seed-stacked
+    operands alike) and the outputs are sliced back (h_all, c_all, dhin to
+    ``[.., :H]``; dxw, dW_x, db, dW_h per gate block). ``rest`` and ``kw``
+    pass as they are (prepacked weights, the float32 forward's xw scratch
+    and its backward's, which stay at Hp). At H = Hp ``launch`` runs on
+    the operands themselves.
+
+    Why this is exact. A padded unit's gate pre-activations are 0, since
+    its columns of W_x, W_h and b are zero. LSTM: c = f 0 + sigmoid(0)
+    tanh(0) = 0 and h = sigmoid(0) tanh(0) = 0. GRU (reset after the
+    projection, no recurrent bias: :func:`_gru_parts`): n = tanh(0 + r 0)
+    = 0 and h = (1 - z) 0 + z 0 = 0. The padded rows of W_h (and of W_x)
+    meet h = 0 (and hin = 0), so the real units' gates are unchanged. In
+    the backward dh is 0 on the padded units, so their d_gates are 0 and
+    add nothing to the real units' gradients. The padded route computes
+    the same function at the kernel's own bounds; it is not bitwise the
+    unpadded plain version, since the k-chains, the cluster split and the
+    rows per block change with Hp."""
+    n = len(_PAD_FORMS[form][0])
+
+    def run(cell: str, *args, **kw):
+        ops, rest = args[:n], args[n:]
+        H = ops[_PAD_FORMS[form][0].rindex("w")].shape[-2]
+        out = launch(cell, *_pad_operands(form, cell, ops), *rest, **kw)
+        return _unpad_outputs(form, cell, H, out)
+
+    return run
 
 
 #: Hidden units per warp of the tensor-core forward (``kUnits`` in
@@ -529,17 +638,37 @@ def _fragment_index(H: int, cols: int, device=None,
     return (k * cols + col).reshape(-1)
 
 
-def pack_fragments(w: torch.Tensor, transpose: bool = False
-                   ) -> torch.Tensor:
+@functools.lru_cache(maxsize=16)
+def _padded_fragment_index(H: int, G: int, Hp: int, device=None,
+                           transpose: bool = False) -> torch.Tensor:
+    """:func:`_fragment_index` of a weight ``[H, G H]`` zero-padded to
+    ``[Hp, G Hp]`` (:func:`padded_launch`), as flat indices into the
+    unpadded weight with one zero appended: each padded place points at
+    that zero, index ``H G H``."""
+    idx = _fragment_index(Hp, G * Hp, device, transpose)
+    row, col = idx // (G * Hp), idx % (G * Hp)
+    q, u = col // Hp, col % Hp
+    return torch.where((row < H) & (u < H), row * G * H + q * H + u,
+                       H * G * H)
+
+
+def pack_fragments(w: torch.Tensor, transpose: bool = False,
+                   width: Optional[int] = None) -> torch.Tensor:
     """``w [H, G*H]`` → the mma kernels' fragment order of ``w`` (or,
     with ``transpose``, of ``w^T``); flat, same dtype, a new tensor. See
     :func:`_fragment_index`. A seed-stacked ``w [S, H, G*H]`` is packed
-    per seed → ``[S, H*G*H]``."""
+    per seed → ``[S, H*G*H]``. ``width`` Hp > H packs ``w`` zero-padded
+    per gate block to ``[Hp, G Hp]`` (:func:`padded_launch`) in the same
+    gather."""
     H, cols = w.shape[-2:]
-    idx = _fragment_index(H, cols, w.device, transpose)
-    if w.dim() == 3:
-        return w.reshape(w.shape[0], -1)[:, idx]
-    return w.reshape(-1)[idx]
+    flat = w.reshape(*w.shape[:-2], -1)
+    if width is None or width == H:
+        idx = _fragment_index(H, cols, w.device, transpose)
+    else:
+        idx = _padded_fragment_index(H, cols // H, width, w.device,
+                                     transpose)
+        flat = torch.nn.functional.pad(flat, (0, 1))
+    return flat[..., idx]
 
 
 def unpack_fragments(packed: torch.Tensor, H: int, cols: int,
@@ -550,13 +679,14 @@ def unpack_fragments(packed: torch.Tensor, H: int, cols: int,
     return w.view(H, cols)
 
 
-def _mma_rows(B: int, sms: int, S: int = 1) -> int:
+def _mma_rows(B: int, sms: int, S: int = 1, hoisted: bool = False) -> int:
     """Rows per block of the tensor-core forward, from the block count S *
     ceil(B / rows) of S seeds: the most (64, 32, then 16: the fewer W_x
     reads and barriers per row) that still give at least half the SMs a
-    block. Measured on an H100 with ``chip_smoke.py`` and
-    ``scripts/torch_mma_variants.py`` (PERF.md §6)."""
-    for rows in (64, 32):
+    block. The hoisted mode takes at most 32 (its xw_t waits in
+    registers: ``csrc/rnn_fused_fwd_mma.cu``). Measured on an H100 with
+    ``chip_smoke.py`` and ``scripts/torch_mma_variants.py`` (PERF.md §6)."""
+    for rows in ((32,) if hoisted else (64, 32)):
         if 2 * S * -(-B // rows) >= sms:
             return rows
     return 16
@@ -609,6 +739,51 @@ def _launch_fwd_mma(cell: str, hin: torch.Tensor, wx: torch.Tensor,
             _stride(hin, S), _stride(wxp, S), _stride(b, S), _stride(whp, S),
             _stride(keep, S), float(forget_bias), _build.stream_of(hin))
     name = f"rnn_fused_fwd_mma_{cell}"
+    _build.check(lib, err, name)
+    _build.count_launch(name)
+    if not stacked:
+        return h[0], (None if c is None else c[0])
+    return h, c
+
+
+def _launch_scan_fwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
+                         m: torch.Tensor, forget_bias: float, save_c: bool,
+                         rows: Optional[int] = None):
+    """One launch of the tensor-core hoisted forward (the hoisted mode of
+    ``csrc/rnn_fused_fwd_mma.cu``) → ``(h_all, c_all or None)``.
+    Seed-stacked operands (``xw [S, B, T, G H]``, ``wh [S, H, G H]``, ``m
+    [S, B, T]``, each of seed extent S or 1) run every seed in the same
+    launch, counted once, → ``[S, B, T, H]``. ``rows`` (16 or 32)
+    overrides the choice from the block count."""
+    stacked = xw.dim() == 4
+    if not stacked:
+        xw, wh, m = xw[None], wh[None], m[None]
+    S = _seed_extent(xw, wh, m)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    dev = xw.device
+    if rows is None:
+        rows = _mma_rows(
+            B, torch.cuda.get_device_properties(dev).multi_processor_count, S,
+            hoisted=True)
+    lib = _build.library()
+    smem = lib.lfm_rnn_scan_fwd_mma_smem(_CELL_CODE[cell], H, rows)
+    if smem < 0:
+        raise ValueError(f"the mma hoisted forward does not take H={H} with "
+                         f"{rows} rows per block")
+    _smem_check(smem, dev, H)
+    whp = pack_fragments(wh)
+    xw = _aligned16(xw)
+    h = torch.empty((S, B, T, H), dtype=xw.dtype, device=dev)
+    c = torch.empty_like(h) if save_c and cell == "lstm" else None
+    keep = _keep(m)
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_scan_fwd_mma(
+            _CELL_CODE[cell], xw.data_ptr(), whp.data_ptr(), keep.data_ptr(),
+            h.data_ptr(), None if c is None else c.data_ptr(), S, B, T, H,
+            rows, _stride(xw, S), _stride(whp, S), _stride(keep, S),
+            float(forget_bias), _build.stream_of(xw))
+    name = f"rnn_fwd_mma_{cell}"
     _build.check(lib, err, name)
     _build.count_launch(name)
     if not stacked:
@@ -916,52 +1091,70 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     return out if stacked else tuple(t[0] for t in out)
 
 
+def _tensor_core_launcher(route: str, form: str):
+    """The tensor-core launch of ``form`` (:data:`_PAD_FORMS`) on
+    ``route`` ("mma" or "tf32"), taking ``(cell, *operands, *rest, **kw)``
+    at a width the kernels take; :func:`padded_launch` wraps it. Looked up
+    per call, so a launcher swapped on this module is the one run."""
+    if route == "mma":
+        return {"fused_fwd": _launch_fwd_mma, "fwd": _launch_scan_fwd_mma,
+                "fused_bwd": _launch_bwd_mma,
+                "bwd": _launch_scan_bwd_mma}[form]
+    if form in ("fused_fwd", "fused_bwd"):
+        launch = _launch_fwd_tf32 if form == "fused_fwd" else _launch_bwd_tf32
+        return lambda cell, *a, **kw: launch(cell, True, *a, **kw)
+    launch = _launch_fwd_tf32 if form == "fwd" else _launch_bwd_tf32
+    return lambda cell, xw, *a, **kw: launch(cell, False, xw, None, None,
+                                             *a, **kw)
+
+
 def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
                   packed=None, keep_xw=False):
     """The fused forward's states ``(h_all, c_all or None)`` on the route
     of :func:`_mma_route`; ``keep_xw`` → ``(h_all, c_all, xw)``, xw the
-    3xTF32 route's scratch, which its backward reuses (None elsewhere)."""
-    if keep_xw:
-        if hin.device.type == "cuda" and _mma_route(
-                hin.dtype, wh.shape[-2]) == "tf32":
-            _check_card(hin, wx=wx, b=b, wh=wh, m=m)
-            return _launch_fwd_tf32(cell, True, hin, wx, b, wh, m,
-                                    forget_bias, save_c, keep_xw=True)
-        return (*_fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
-                               packed), None)
+    3xTF32 route's scratch at the padded width, which its backward reuses
+    (None elsewhere). ``packed``: W_x and W_h in fragment order at the
+    padded width, for the bf16 tensor cores."""
     stacked = hin.dim() == 4
     if hin.device.type == "cpu":
         if stacked:
-            return _over_seeds(
+            out = _over_seeds(
                 lambda *a: _fused_states(cell, *a, forget_bias, save_c),
                 _seed_extent(hin, wx, b, wh, m), hin, wx, b, wh, m)
-        xw = hin.float() @ wx.float() + b.float()
-        h, c = rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
-        return h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
-    _check_card(hin, wx=wx, b=b, wh=wh, m=m)
-    route = _mma_route(hin.dtype, wh.shape[-2])
-    if route == "mma":
-        return _launch_fwd_mma(cell, hin, wx, b, wh, m, forget_bias, save_c,
-                               packed=packed)
-    if route == "tf32":
-        return _launch_fwd_tf32(cell, True, hin, wx, b, wh, m, forget_bias,
-                                save_c)
-    if stacked:
-        # The CUDA-core kernel has no seed grid: one launch per seed.
-        return _over_seeds(
-            lambda *a: _launch_fwd(cell, False, *a, forget_bias, save_c),
-            _seed_extent(hin, wx, b, wh, m), hin, wx, b, wh, m)
-    return _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias, save_c)
+        else:
+            xw = hin.float() @ wx.float() + b.float()
+            h, c = rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
+            out = h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
+    else:
+        _check_card(hin, wx=wx, b=b, wh=wh, m=m)
+        route = _mma_route(hin.dtype, wh.shape[-2])
+        if route != "simt":
+            kw = (dict(packed=packed) if route == "mma"
+                  else dict(keep_xw=keep_xw))
+            out = padded_launch(_tensor_core_launcher(route, "fused_fwd"),
+                                "fused_fwd")(cell, hin, wx, b, wh, m,
+                                             forget_bias, save_c, **kw)
+            # The 3xTF32 launch hands back its xw scratch itself.
+            return out if route == "tf32" or not keep_xw else (*out, None)
+        if stacked:
+            # The CUDA-core kernel has no seed grid: one launch per seed.
+            out = _over_seeds(
+                lambda *a: _launch_fwd(cell, False, *a, forget_bias, save_c),
+                _seed_extent(hin, wx, b, wh, m), hin, wx, b, wh, m)
+        else:
+            out = _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias,
+                              save_c)
+    return (*out, None) if keep_xw else out
 
 
 def _scan_states_any(cell, xw, wh, m, forget_bias, save_c):
     if xw.device.type == "cpu":
         return rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
     _check_card(xw, wh=wh, m=m)
-    # bf16 keeps the CUDA-core hoisted kernel at every H.
-    if _mma_route(xw.dtype, wh.shape[-2]) == "tf32":
-        return _launch_fwd_tf32(cell, False, xw, None, None, wh, m,
-                                forget_bias, save_c)
+    route = _mma_route(xw.dtype, wh.shape[-2])
+    if route != "simt":
+        return padded_launch(_tensor_core_launcher(route, "fwd"), "fwd")(
+            cell, xw, wh, m, forget_bias, save_c)
     return _launch_fwd(cell, True, xw, None, None, wh, m, forget_bias,
                        save_c)
 
@@ -978,7 +1171,8 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     (wx)`` when the forward built it (the tensor-core route reuses it).
     ``xw``: the 3xTF32 forward's xw scratch (:func:`_fused_states`), which
     the 3xTF32 backward takes, and overwrites, in place of its own xw GEMM.
-    Seed-stacked operands give every gradient per seed, ``[S, ...]``."""
+    Both are at the padded width (:func:`padded_launch`). Seed-stacked
+    operands give every gradient per seed, ``[S, ...]``."""
     if hin.dim() == 4:
         S = _check_stacked(cell, hin, wx, b, wh, m, h_all, c_all, dh)
         if cell == "lstm" and c_all is None:
@@ -989,12 +1183,9 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
         _check_card(hin, wx=wx, b=b, wh=wh, m=m, h_all=h_all, c_all=c_all,
                     dh=dh)
         route = _mma_route(hin.dtype, hin.shape[-1], "bwd")
-        if route == "mma":
-            return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
-                                   forget_bias, wxp)
-        if route == "tf32":
-            return _launch_bwd_tf32(cell, True, hin, wx, b, wh, m, h_all,
-                                    c_all, dh, forget_bias, xw=xw)
+        if route != "simt":
+            return _fused_bwd_on(route, cell, hin, wx, b, wh, m, h_all,
+                                 c_all, dh, forget_bias, wxp, xw)
         # The CUDA-core kernels have no seed grid: one call per seed.
         return _over_seeds(
             lambda *a: _launch_bwd(cell, True, *a, forget_bias), S,
@@ -1008,14 +1199,21 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     _check_card(hin, wx=wx, b=b, wh=wh, m=m, h_all=h_all, c_all=c_all,
                 dh=dh)
     route = _mma_route(hin.dtype, H, "bwd")
-    if route == "mma":
-        return _launch_bwd_mma(cell, hin, wx, b, wh, m, h_all, c_all, dh,
-                               forget_bias, wxp)
-    if route == "tf32":
-        return _launch_bwd_tf32(cell, True, hin, wx, b, wh, m, h_all, c_all,
-                                dh, forget_bias, xw=xw)
+    if route != "simt":
+        return _fused_bwd_on(route, cell, hin, wx, b, wh, m, h_all, c_all,
+                             dh, forget_bias, wxp, xw)
     return _launch_bwd(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
                        forget_bias)
+
+
+def _fused_bwd_on(route, cell, hin, wx, b, wh, m, h_all, c_all, dh,
+                  forget_bias, wxp, xw):
+    """The fused backward on the tensor cores of ``route``, padded to the
+    kernels' width; ``wxp`` (bf16) or ``xw`` (float32) from the forward."""
+    kw = dict(wxp=wxp) if route == "mma" else dict(xw=xw)
+    return padded_launch(_tensor_core_launcher(route, "fused_bwd"),
+                         "fused_bwd")(cell, hin, wx, b, wh, m, h_all, c_all,
+                                      dh, forget_bias, **kw)
 
 
 def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
@@ -1034,12 +1232,11 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
                                       forget_bias)
     _check_card(xw, wh=wh, m=m, h_all=h_all, c_all=c_all, dh=dh)
     route = _mma_route(xw.dtype, H, "bwd")
-    if route == "mma":
-        return _launch_scan_bwd_mma(cell, xw, wh, m, h_all, c_all, dh,
-                                    forget_bias)
-    launch = _launch_bwd_tf32 if route == "tf32" else _launch_bwd
-    return launch(cell, False, xw, None, None, wh, m, h_all, c_all, dh,
-                  forget_bias)
+    if route != "simt":
+        return padded_launch(_tensor_core_launcher(route, "bwd"), "bwd")(
+            cell, xw, wh, m, h_all, c_all, dh, forget_bias)
+    return _launch_bwd(cell, False, xw, None, None, wh, m, h_all, c_all, dh,
+                       forget_bias)
 
 
 # ---------------------------------------------------------------------------
@@ -1051,11 +1248,14 @@ class _FusedScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cell, forget_bias, hin, wx, b, wh, m):
         # The tensor-core kernels read W_x in fragment order: packed once
-        # here, for the forward and the backward's recompute.
+        # here, at the padded width, for the forward and the backward's
+        # recompute.
         packed = None
         if hin.device.type == "cuda" and _mma_route(
                 hin.dtype, wh.shape[-2]) == "mma":
-            packed = (pack_fragments(wx), pack_fragments(wh))
+            Hp = _padded_width(wh.shape[-2])
+            packed = (pack_fragments(wx, width=Hp),
+                      pack_fragments(wh, width=Hp))
         # The 3xTF32 route's xw scratch becomes the backward's d_gates
         # buffer (its xw GEMM skipped); a second backward recomputes it.
         h, c, ctx.xw = _fused_states(cell, hin, wx, b, wh, m, forget_bias,

@@ -35,7 +35,8 @@ bwd``) adds the variant ``parent``, built from another version of the
 backward source (for example an earlier commit's, unpacked with ``git
 archive``), and records for every variant of the fused backward whether
 its outputs are bitwise those of ``parent`` (``--kernel bwd_tf32``: the
-same for both forms of the float32 backward). The 3xTF32 sources are built
+same for both forms of the float32 backward; ``--kernel fwd``: h and c of
+the fused forward at every shape and block size). The 3xTF32 sources are built
 with ``csrc/tf32_common.cuh`` written into them, so a variant may change
 the shared code too. Prints one line per measurement and writes them as
 JSON lines to ``--out`` (default ``build/mma_variants/<kernel>.jsonl``).
@@ -354,7 +355,8 @@ def run_fwd(torch, R, libs, names, card, gen, out) -> None:
         for rows in row_choices:
             h = torch.empty((B, T, H), dtype=torch.bfloat16, device="cuda")
             c = torch.empty_like(h) if save_c else None
-            for name in names:
+            parent_bits = None
+            for name in (["parent"] if "parent" in libs else []) + names:
                 lib = libs[name]
 
                 def run():
@@ -383,6 +385,12 @@ def run_fwd(torch, R, libs, names, card, gen, out) -> None:
                            rows_per_block=rows, save_c=save_c,
                            ms=time_ms(torch, run), max_abs_err=err,
                            card=card)
+                outs = [h] + ([c] if save_c else [])
+                if parent_bits is None and "parent" in libs:
+                    parent_bits = [o.clone() for o in outs]
+                if parent_bits is not None:
+                    rec["bitwise_vs_parent"] = all(
+                        torch.equal(o, p) for o, p in zip(outs, parent_bits))
                 print(json.dumps(rec), flush=True)
                 out.write(json.dumps(rec) + "\n")
 
@@ -840,8 +848,8 @@ def main(argv=None) -> int:
                     help="comma-separated; default: every variant")
     ap.add_argument("--out", default=None)
     ap.add_argument("--parent", default=None,
-                    help="another version of the backward source (variant "
-                         "'parent', --kernel bwd or bwd_tf32)")
+                    help="another version of the source (variant 'parent', "
+                         "--kernel fwd, bwd or bwd_tf32)")
     args = ap.parse_args(argv)
     import torch
 
@@ -852,7 +860,7 @@ def main(argv=None) -> int:
 
     kernel = args.kernel
     names = (args.variants or ",".join(VARIANTS[kernel])).split(",")
-    if args.parent and kernel in ("bwd", "bwd_tf32") and \
+    if args.parent and kernel in ("fwd", "bwd", "bwd_tf32") and \
             "parent" not in names:
         names.append("parent")
     out_path = args.out or os.path.join(BUILD, f"{kernel}.jsonl")

@@ -9,13 +9,14 @@ jax, so leave it out there)::
 
 Tests marked ``cuda`` decide in a fixture whether there is a card and
 skip without one. Tolerances: gathers exact; the recurrence f32 atol 1e-5
-(the CUDA-core kernels and, at 16 <= H <= 128, H % 16 == 0, the 3xTF32
-``csrc/rnn_fwd_tf32.cu``), bf16 atol/rtol 0.05 — the JAX package's own
-bounds; the
-backward's gradients scaled by their largest magnitude, f32 atol 1e-5
-(``tests/test_pallas_rnn.py``'s rule; the CUDA-core kernels and, at 16 <=
-H <= 128, H % 16 == 0, the 3xTF32 ``csrc/rnn_bwd_tf32.cu``) and bf16 atol
-0.05.
+(the 3xTF32 ``csrc/rnn_fwd_tf32.cu`` at H <= 128, a width off a multiple
+of 16 zero-padded to the next, and the CUDA-core kernels above), bf16
+atol/rtol 0.05 — the JAX package's own bounds; the backward's gradients
+scaled by their largest magnitude, f32 atol 1e-5 (``tests/
+test_pallas_rnn.py``'s rule; ``csrc/rnn_bwd_tf32.cu`` at H <= 128, the
+CUDA-core kernels above) and bf16 atol 0.05 (the bf16 tensor-core
+backward's f32 weight gradients 1e-4, as ``tests/test_torch_mma_bwd.py``
+holds them).
 """
 
 import numpy as np
@@ -113,10 +114,12 @@ def test_cpu_tensors_take_the_plain_versions():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 5, 16), (3, 7, 8)])
+@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 5, 16), (3, 7, 8),
+                                   (5, 4, 136)])
 def test_rnn_kernel_matches_plain(cuda, cell, dtype, B, T, H):
     """Odd batch (not a multiple of the block's 16 rows), H not a
-    multiple of 4, an all-invalid row that must stay at zero."""
+    multiple of 4 (padded onto the tensor cores), H 136 (the CUDA-core
+    kernel), an all-invalid row that must stay at zero."""
     (hin, wx, b, wh), m = _rnn_inputs(cell, B, T, H, B + H, dtype, cuda)
     with torch.no_grad():
         got = rnn_scan_fused(cell, hin, wx, b, wh, m)
@@ -154,7 +157,8 @@ def _bwd_inputs(cell, B, T, H, seed, dtype, device, hoisted):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 16), (3, 7, 8)])
+@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 16), (3, 7, 8),
+                                   (5, 4, 136)])
 def test_rnn_scan_kernel_matches_plain(cuda, cell, dtype, B, T, H):
     """The hoisted forward (row 1) against its plain version."""
     (hin, wx, b, wh), m = _rnn_inputs(cell, B, T, H, B + T, dtype, cuda)
@@ -171,14 +175,14 @@ def test_rnn_scan_kernel_matches_plain(cuda, cell, dtype, B, T, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 24), (21, 5, 8)])
+@pytest.mark.parametrize("B,T,H", [(37, 9, 12), (16, 1, 24), (21, 5, 8),
+                                   (7, 3, 136)])
 def test_rnn_bwd_kernels_match_plain(cuda, cell, dtype, B, T, H):
-    """The CUDA-core fused backward (row 4) and hoisted backward (row 2)
-    against their plain formulas: B not a multiple of the block's 16 rows,
-    T = 1, H not a multiple of 4, an all-invalid row. Every width here is
-    one the tensor cores do not take (``_mma_route``), so bf16 runs the
-    CUDA-core kernels too (``tests/test_torch_mma_bwd.py`` holds the
-    tensor-core ones)."""
+    """The fused backward (row 4) and hoisted backward (row 2) against
+    their plain formulas: B not a multiple of the block's 16 rows, T = 1,
+    H not a multiple of 4, an all-invalid row. The widths under 128 run
+    zero-padded on the tensor cores (``_mma_route``); H 136 on the
+    CUDA-core kernels, in both dtypes."""
     hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, B + H,
                                                   dtype, cuda, False)
     got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
@@ -304,7 +308,7 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     operands: one counted launch per seed, forward and backward, each
     seed's result that seed's one-seed call's; the hoisted form too,
     forward and backward."""
-    S, B, T, H = 3, 21, 5, 24  # a width the 3xTF32 backward does not take
+    S, B, T, H = 3, 21, 5, 136  # a width the tensor cores do not take
     per = [_rnn_inputs(cell, B, T, H, s, torch.float32, cuda)
            for s in range(S)]
     hin, wx, b, wh = (torch.stack([p[0][i] for p in per]) for i in range(4))
@@ -530,9 +534,10 @@ def test_tf32_fused_backward_takes_the_forward_xw(cuda, cell):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
-    """At H = 120 (not a multiple of 16) both backwards stay on
-    ``csrc/rnn_bwd.cu`` in both dtypes, within the JAX bounds."""
-    B, T, H = 37, 5, 120
+    """Above 128 (H = 160: hidden 120 now runs zero-padded on the tensor
+    cores) both backwards stay on ``csrc/rnn_bwd.cu`` in both dtypes,
+    within the JAX bounds."""
+    B, T, H = 37, 5, 160
     for hoisted in (False, True):
         hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, 7,
                                                       dtype, cuda, hoisted)
@@ -551,6 +556,102 @@ def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
             _scaled_close(g, w, dtype)
 
 
+def _tensor_core_names(cell, dtype, hoisted):
+    """The counters of the tensor-core forward and backward of a form."""
+    tag = "mma_" if dtype == torch.bfloat16 else "tf32_"
+    form = "" if hoisted else "fused_"
+    return f"rnn_{form}fwd_{tag}{cell}", f"rnn_{form}bwd_{tag}{cell}"
+
+
+CUDA_CORE = [f"rnn_{form}_{cell}" for form in ("fused_fwd", "fwd",
+                                               "fused_bwd", "bwd")
+             for cell in ("lstm", "gru")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("B,T,H", [(37, 7, 40), (2048 + 5, 5, 120)])
+def test_padded_route_matches_plain(cuda, cell, dtype, hoisted, B, T, H):
+    """A width off a multiple of 16 runs zero-padded per gate block on the
+    tensor cores (``ops/rnn.py padded_launch``), forward and backward, and
+    no CUDA-core kernel launches: h_all (and c_all) at the JAX bounds of
+    the unpadded plain version, an all-invalid row exactly zero; every
+    gradient at the scaled bound (the bf16 weight gradients at 1e-4, the
+    tensor-core backward's), each at the real width and contiguous."""
+    fwd, bwd = _tensor_core_names(cell, dtype, hoisted)
+    hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, B + H,
+                                                  dtype, cuda, hoisted)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        if hoisted:
+            got_h, got_c = R._scan_states_any(cell, xw, wh, m, 1.0, True)
+            want_h, want_c = rnn_scan_states(cell, xw, wh, m, 1.0, True)
+        else:
+            got_h, got_c = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True)
+            want_h, want_c = rnn_scan_states(
+                cell, hin.float() @ wx.float() + b.float(), wh, m, 1.0, True)
+    assert (got_c is None) == (cell == "gru")
+    for got, want in ((got_h, want_h), (got_c, want_c)):
+        if got is None:
+            continue
+        assert got.shape == (B, T, H) and got.is_contiguous()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **TOL[dtype])
+        assert not got[0].any()
+    if hoisted:
+        args = (cell, xw, wh, m, h, c, dh)
+        got = rnn_scan_bwd(*args)
+        want = rnn_scan_bwd_reference(*args)
+    else:
+        args = (cell, hin, wx, b, wh, m, h, c, dh)
+        got = rnn_scan_fused_bwd(*args)
+        want = rnn_scan_fused_bwd_reference(*args)
+    counts = _build.launch_counts()
+    assert counts[fwd] == 1 and counts[bwd] == 1
+    assert sum(counts.values()) == 2
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert torch.isfinite(g).all()
+        if i > 0 and dtype == torch.bfloat16:
+            g = g.float().cpu()
+            w = w.float().cpu()
+            scale = float(w.abs().max()) + 1e-9
+            np.testing.assert_allclose(g.numpy() / scale, w.numpy() / scale,
+                                       atol=1e-4, rtol=0.0)
+        else:
+            _scaled_close(g, w, dtype)
+    assert not got[0][0].any()  # an all-invalid row passes no gradient
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_padded_autograd_matches_plain(cuda, cell, dtype):
+    """Through the autograd Function at H 40: the forward's W_x packed at
+    the padded width (bf16) or its xw scratch (float32) goes to the padded
+    backward; one tensor-core launch each way, the gradients against
+    autograd of the plain version on the CPU."""
+    B, T, H = 37, 6, 40
+    (hin, wx, b, wh), m = _rnn_inputs(cell, B, T, H, 81, torch.float32,
+                                      "cpu")
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dtype).to(dev).requires_grad_(True)
+                  for t in (hin, wx, b, wh)]
+        _build.reset_launch_counts()
+        out = rnn_scan_fused(cell, *leaves, m.to(dev))
+        (out.float() ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    fwd, bwd = _tensor_core_names(cell, dtype, False)
+    counts = _build.launch_counts()
+    assert counts[fwd] == 1 and counts[bwd] == 1
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        assert g_card.shape == g_cpu.shape
+        _scaled_close(g_card, g_cpu, dtype)
+
+
 @pytest.mark.cuda
 def test_kernels_count_each_launch(cuda):
     _build.reset_launch_counts()
@@ -562,7 +663,7 @@ def test_kernels_count_each_launch(cuda):
     gather_windows(*_gather_inputs(5, 12, 4, 6, 2, 3, 0, torch.bfloat16,
                                    cuda), 6)
     want = dict.fromkeys(_build.LAUNCHES, 0)
-    want.update(rnn_fused_fwd_lstm=1, window_gather=1)
+    want.update(rnn_fused_fwd_mma_lstm=1, window_gather=1)
     assert _build.launch_counts() == want
 
 

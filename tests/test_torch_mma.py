@@ -1,6 +1,6 @@
-"""The tensor-core fused forward (``csrc/rnn_fused_fwd_mma.cu``): its route,
-its weight packing, and — on the card — the kernel against its plain
-version.
+"""The tensor-core forward (``csrc/rnn_fused_fwd_mma.cu``, fused and hoisted
+modes): its route, its weight packing, and — on the card — the kernel
+against its plain version.
 
 This file imports nothing of JAX. On the card::
 
@@ -36,9 +36,9 @@ def cuda():
     (torch.bfloat16, 64, "mma"),
     (torch.bfloat16, 128, "mma"),
     (torch.float32, 128, "tf32"),
-    (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 12, "mma"),
     (torch.bfloat16, 144, "simt"),
-    (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 8, "mma"),
 ])
 def test_route_is_decided_by_dtype_and_width(dtype, H, route):
     assert R._mma_route(dtype, H) == route
@@ -103,6 +103,33 @@ def test_rows_per_block_follow_the_seed_count(B, sms, S, rows):
     the c5 train step (64 seeds of B 2048) takes 64 rows, as a wide serving
     dispatch does."""
     assert R._mma_rows(B, sms, S) == rows
+
+
+@pytest.mark.parametrize("B,sms,S,rows", [
+    (16384, 132, 1, 32), (4096, 132, 1, 32), (2048, 132, 1, 16),
+    (2048, 132, 3, 32), (37, 132, 1, 16),
+])
+def test_hoisted_rows_per_block_stop_at_32(B, sms, S, rows):
+    """The hoisted mode's xw_t waits in registers: it takes 32 rows per
+    block where the fused mode would take 64, and the c2 train step's 16."""
+    assert R._mma_rows(B, sms, S, hoisted=True) == rows
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("H,gates", [(12, 4), (40, 3), (120, 4), (1, 3)])
+def test_padded_packing_is_the_packing_of_the_padded_weight(H, gates,
+                                                           transpose):
+    """``pack_fragments(w, width=Hp)`` (the pad folded into the gather) is
+    the packing of ``w`` zero-padded per gate block, seed by seed too."""
+    Hp = R._padded_width(H)
+    w = torch.from_numpy(np.random.default_rng(H).standard_normal(
+        (2, H, gates * H)).astype(np.float32)).to(torch.bfloat16)
+    padded = R._pad_one(w, "w", gates, H, Hp)
+    assert padded.shape == (2, Hp, gates * Hp)
+    assert torch.equal(R.pack_fragments(w, transpose, width=Hp),
+                       R.pack_fragments(padded, transpose))
+    assert torch.equal(R.pack_fragments(w[0], transpose, width=Hp),
+                       R.pack_fragments(padded[0], transpose))
 
 
 def test_stacked_packing_is_per_seed():
@@ -179,11 +206,11 @@ def test_every_block_size_matches_plain(cuda, cell, rows):
 
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_kernel(cuda):
-    """Widths the tensor cores do not take keep the CUDA-core forward in
-    both dtypes; float32 at a tensor-core width (H 64) takes the 3xTF32
-    forward instead."""
+    """Widths the tensor cores do not take (H > 128: every narrower one is
+    padded onto them) keep the CUDA-core forward in both dtypes; float32
+    at a tensor-core width (H 64) takes the 3xTF32 forward instead."""
     _build.reset_launch_counts()
-    for dtype, H in ((torch.float32, 60), (torch.bfloat16, 12)):
+    for dtype, H in ((torch.float32, 136), (torch.bfloat16, 144)):
         (hin, wx, b, wh), m = _inputs("lstm", 5, 3, H, H, cuda)
         with torch.no_grad():
             R.rnn_scan_fused("lstm", *(t.to(dtype) for t in (hin, wx, b, wh)),
@@ -266,3 +293,92 @@ def test_seed_batched_forward_at_the_c5_train_step(cuda):
                                    1.0, True, rows)
         assert torch.equal(h[s], h1) and torch.equal(c[s], c1)
     assert torch.isfinite(h).all()
+
+
+def _hoisted(cell, B, T, H, seed, device):
+    (hin, wx, b, wh), m = _inputs(cell, B, T, H, seed, device)
+    xw = (hin.float() @ wx.float() + b.float()).to(torch.bfloat16)
+    return xw, wh, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 9])
+@pytest.mark.parametrize("B", [1, 37, 2048 + 5])
+@pytest.mark.parametrize("H", [16, 64, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_mma_hoisted_fwd_matches_plain(cuda, cell, H, B, T):
+    """The hoisted mode (row 1 in bf16, ``rnn_scan``'s forward): h_all and
+    the LSTM's c_all against the plain version at atol/rtol 0.05, one
+    counted launch and nothing else; B = 37 and 2053 leave the last block
+    part-filled; row 0 is all-invalid and stays exactly 0."""
+    xw, wh, m = _hoisted(cell, B, T, H, B * T + H + 2, cuda)
+    _build.reset_launch_counts()
+    h, c = R._scan_states_any(cell, xw, wh, m, 1.0, True)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fwd_mma_{cell}"] == 1 and sum(counts.values()) == 1
+    want_h, want_c = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    assert h.dtype == torch.bfloat16 and h.shape == (B, T, H)
+    pairs = [(h, want_h)] + ([(c, want_c)] if cell == "lstm" else [])
+    for got, want in pairs:
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=0.05,
+                                   rtol=0.05)
+        assert not got[0].any()
+    assert (c is None) == (cell == "gru")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 32])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_mma_hoisted_fwd_every_block_size(cuda, cell, rows):
+    """Each block size of the hoisted mode on a batch that leaves the last
+    block part-filled; 64 rows are refused, not run."""
+    xw, wh, m = _hoisted(cell, 300, 7, 128, rows, cuda)
+    h, c = R._launch_scan_fwd_mma(cell, xw, wh, m, 1.0, True, rows)
+    want_h, want_c = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    for got, want in ((h, want_h), (c, want_c)):
+        if want is not None:
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       atol=0.05, rtol=0.05)
+    with pytest.raises(ValueError, match="rows per block"):
+        R._launch_scan_fwd_mma(cell, xw, wh, m, 1.0, True, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_mma_hoisted_fwd_seed_grid_bitwise_equals_single_seed_launches(
+        cuda, cell, H):
+    """S = 3 seeds of the hoisted mode in one launch (counted once), W_h
+    shared by every seed: h and c bitwise those of 3 one-seed launches
+    with the same rows per block; m of seed extent 1 bitwise equal to its
+    broadcast copy; each seed within the plain version's bound."""
+    S, B, T = 3, 300, 7
+    per = [_hoisted(cell, B, T, H, 120 + s, cuda) for s in range(S)]
+    xw = torch.stack([p[0] for p in per])
+    wh = per[0][1][None]
+    m = torch.stack([p[2] for p in per])
+    rows = R._mma_rows(
+        B, torch.cuda.get_device_properties(cuda).multi_processor_count, S,
+        hoisted=True)
+    _build.reset_launch_counts()
+    h, c = R._launch_scan_fwd_mma(cell, xw, wh, m, 1.0, True)
+    assert _build.launch_counts()[f"rnn_fwd_mma_{cell}"] == 1
+    assert h.shape == (S, B, T, H)
+    for s in range(S):
+        h1, c1 = R._launch_scan_fwd_mma(cell, xw[s], wh[0], m[s], 1.0, True,
+                                        rows)
+        assert torch.equal(h[s], h1)
+        if cell == "lstm":
+            assert torch.equal(c[s], c1)
+        want = R.rnn_scan_reference(cell, xw[s], wh[0], m[s])
+        np.testing.assert_allclose(h1.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=0.05,
+                                   rtol=0.05)
+    got, _ = R._launch_scan_fwd_mma(cell, xw, wh, m[:1], 1.0, False)
+    ref, _ = R._launch_scan_fwd_mma(cell, xw, wh,
+                                    m[:1].expand(S, B, T).contiguous(), 1.0,
+                                    False)
+    assert torch.equal(got, ref)

@@ -43,14 +43,16 @@ def cuda():
     (torch.bfloat16, 128, "mma"),
     (torch.float32, 128, "tf32"),
     (torch.float32, 16, "tf32"),
-    (torch.bfloat16, 40, "simt"),
+    (torch.bfloat16, 40, "mma"),
     (torch.bfloat16, 144, "simt"),
-    (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 8, "mma"),
 ])
 def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     """In bf16 the backward takes the forward's rule (it reuses the
     forward's packing of W_x); in float32 at the same widths it runs on
-    the 3xTF32 kernels (``csrc/rnn_bwd_tf32.cu``)."""
+    the 3xTF32 kernels (``csrc/rnn_bwd_tf32.cu``); a width off a multiple
+    of 16 (40, 8) is padded to the next, and H > 128 stays on the CUDA
+    cores."""
     assert R._mma_route(dtype, H, "bwd") == route
 
 
@@ -59,11 +61,11 @@ def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     (torch.bfloat16, 16, "mma"),
     (torch.bfloat16, 48, "mma"),
     (torch.bfloat16, 128, "mma"),
-    (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 12, "mma"),
     (torch.bfloat16, 136, "simt"),
     (torch.float32, 128, "tf32"),
     (torch.float32, 16, "tf32"),
-    (torch.float32, 120, "simt"),
+    (torch.float32, 120, "tf32"),
 ])
 def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
                                                         dtype, H, route):
@@ -71,14 +73,17 @@ def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
     alone, before any launch: the hoisted mode of the bf16 tensor-core
     source, the 3xTF32 kernels in float32, or the CUDA-core hoisted kernel
     (shape-only tensors on the meta device stand for the card's; the
-    launchers are recorded, not run)."""
+    launchers are recorded, not run, and the tensor-core ones hand back
+    their padded xw and W_h as dxw and dW_h, which the padding slices
+    back to H)."""
     calls = []
     G = GATES[cell] * H
     monkeypatch.setattr(R, "_check_card", lambda *a, **k: None)
     monkeypatch.setattr(R, "_launch_scan_bwd_mma",
-                        lambda *a: calls.append("mma"))
-    monkeypatch.setattr(R, "_launch_bwd_tf32", lambda c, fused, *a:
-                        calls.append("tf32" if not fused else "fused"))
+                        lambda c, xw, wh, *a: calls.append("mma") or (xw, wh))
+    monkeypatch.setattr(R, "_launch_bwd_tf32", lambda c, fused, xw, wx, b,
+                        wh, *a: calls.append("tf32" if not fused else
+                                             "fused") or (xw, wh))
     monkeypatch.setattr(R, "_launch_bwd", lambda c, fused, *a:
                         calls.append("simt" if not fused else "fused"))
     B, T = 5, 3
@@ -87,8 +92,10 @@ def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
     m = torch.empty(B, T, dtype=torch.bool, device="meta")
     h = torch.empty(B, T, H, dtype=dtype, device="meta")
     c = h if cell == "lstm" else None
-    R.rnn_scan_bwd(cell, xw, wh, m, h, c, h)
+    out = R.rnn_scan_bwd(cell, xw, wh, m, h, c, h)
     assert calls == [route]
+    if route != "simt":
+        assert out[0].shape == xw.shape and out[1].shape == wh.shape
 
 
 # ---------------------------------------------------------------------------
@@ -481,11 +488,11 @@ def test_mma_hoisted_bwd_bitwise_repeatable(cuda, cell):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_hoisted_autograd_routes_by_dtype(cuda, cell):
     """Through ``rnn_scan``'s autograd Function: bf16 at H = 64 moves the
-    bf16 tensor-core backward's counter (the forward the CUDA-core hoisted
-    kernel's), float32 the 3xTF32 backward's and forward's, and both
-    gradients agree with the plain version's."""
+    bf16 tensor-core backward's counter and the hoisted mode of the
+    tensor-core forward's, float32 the 3xTF32 backward's and forward's,
+    and both gradients agree with the plain version's."""
     for dtype, name, fwd in (
-            (torch.bfloat16, f"rnn_bwd_mma_{cell}", f"rnn_fwd_{cell}"),
+            (torch.bfloat16, f"rnn_bwd_mma_{cell}", f"rnn_fwd_mma_{cell}"),
             (torch.float32, f"rnn_bwd_tf32_{cell}", f"rnn_fwd_tf32_{cell}")):
         xw, wh, m, _, _, _ = _hoisted_inputs(cell, 37, 6, 64, 12, cuda,
                                              dtype)
@@ -506,12 +513,12 @@ def test_hoisted_autograd_routes_by_dtype(cuda, cell):
 
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_backward(cuda):
-    """Widths the tensor cores do not take (H % 16 != 0) keep the CUDA-core
-    backward in float32 and in bf16 (float32 at 16 <= H <= 128, H % 16 ==
-    0 takes the 3xTF32 kernels)."""
+    """Widths the tensor cores do not take (H > 128; every narrower one,
+    odd or not, is padded onto them) keep the CUDA-core backward in
+    float32 and in bf16."""
     _build.reset_launch_counts()
     for cell in ("lstm", "gru"):
-        for dtype, H in ((torch.float32, 120), (torch.bfloat16, 40)):
+        for dtype, H in ((torch.float32, 136), (torch.bfloat16, 144)):
             args = _bwd_inputs(cell, 5, 3, H, H, cuda, dtype)
             R.rnn_scan_fused_bwd(cell, *args)
     counts = _build.launch_counts()

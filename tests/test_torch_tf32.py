@@ -70,11 +70,12 @@ def source_constant(path, name):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H", [8, 16, 120, 128, 144])
 def test_route_table(direction, dtype, H):
-    """(direction, dtype, H) → kernel: the tensor-core widths are 16 <= H
-    <= 128 with H % 16 == 0; there bf16 takes the bf16 tensor cores both
-    ways and float32 the 3xTF32 kernels both ways; every other width the
-    CUDA cores."""
-    tc = H in (16, 128)
+    """(direction, dtype, H) → kernel: every H <= 128 runs on the tensor
+    cores (a width off a multiple of 16, 8 and 120 here, zero-padded to
+    the next: ``ops/rnn.py padded_launch``); there bf16 takes the bf16
+    tensor cores both ways and float32 the 3xTF32 kernels both ways; H >
+    128 the CUDA cores."""
+    tc = H <= 128
     if not tc:
         want = "simt"
     elif dtype == torch.bfloat16:
