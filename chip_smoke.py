@@ -84,8 +84,27 @@ imports nothing of JAX. Phases, each fatal on failure:
    counters by exactly 1 and no CUDA-core counter. Prints ms per step,
    seed-steps/s, firm-months/s, the epoch's wall time, the device's busy
    share of profiled steps and the peak memory;
-7. print one ``{"kernels": [...]}`` line;
-8. print the result line ``{"ok": true, "device": {...}}`` last.
+7. the c5 backtest: the ensemble phase 6 trained is written to a run dir
+   and reloaded through ``load_forecaster``; its test-split forecasts (64
+   seeds; one seed-grid launch of the fused forward per month and seed
+   chunk, counted) are held to the plain path on the card (atol 0.05 +
+   rtol 0.05); ``mean``,
+   ``mean_minus_std@0.5`` and ``@2`` are aggregated and backtested in one
+   ``run_scoring_pipeline`` pass on the card, and each report is held to
+   the numpy engine run on the same host-fetched scores at the tolerances
+   of ``tests/test_jax_backtest.py``. Prints the predict time, the
+   scoring time against the numpy engine's, and the peak memory;
+8. the c2 walk-forward: ``run_walkforward`` on c2 at full width, cut to 2
+   folds of 1 epoch (step 12, val 24 months), each fold run and counted
+   on its own (fold 1 resumes from fold 0's snapshot): each fold's steps
+   launch the gather, the fused forward and its backward once per step
+   (the forward also in the validation sweep and the forecast); the
+   stitched validity is exactly the eligible cells of the two windows;
+   the stitched panel is scored on the card (mode ``mean``) and held to
+   the numpy engine. Prints the time of each fold and of the scoring;
+9. print one ``{"kernels": [...]}`` line (launches: phases 4, 5 and 8 for
+   the one-seed rows, 6 and 7 for the seed rows);
+10. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -179,6 +198,17 @@ SEED_SOURCES = {
 }
 C5_PLAIN_STEPS = 3   # c5 steps held against the plain path
 C5_PLAIN_BLOCK = 8   # seed_block of the plain path (its autograd memory)
+GATHER_NO_LIBRARY = (
+    "no single PyTorch call: one advanced index reads the raw rows; the "
+    "window also needs the validity column split off and the masked and "
+    "pre-panel months zero-filled (the plain version's three ops)")
+# Phase 7: the aggregation modes backtested in one pass.
+C5_MODES = ("mean", ("mean_minus_std", 0.5), ("mean_minus_std", 2.0))
+# tests/test_jax_backtest.py's TOL: the device engine against the numpy
+# engine (float32 series; report math shared).
+REPORT_TOL = dict(ret=2e-6, ic=5e-4, profile=2e-6, turn=1e-6)
+# Phase 8: the c2 walk-forward, cut from the preset's 30 epochs.
+WF_FOLDS, WF_STEP, WF_VAL, WF_EPOCHS = 2, 12, 24, 1
 CUDA_CORE = ("rnn_fused_fwd_lstm", "rnn_fused_fwd_gru", "rnn_fused_bwd_lstm",
              "rnn_fused_bwd_gru", "rnn_fwd_lstm", "rnn_fwd_gru",
              "rnn_bwd_lstm", "rnn_bwd_gru")
@@ -537,12 +567,15 @@ def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
     ``b_ih``, ``b_hh`` 0. Held first to the plain version with m all ones
     at the row's tolerance, then timed; the record gives its error and
     says whether it differs (over the row's tolerance) or cuDNN refused
-    the dtype. The port never makes this call."""
+    the dtype. The port never makes this call. Row 1's is the same call
+    on ``xw`` with W_x the identity and b 0 (:func:`hoisted_yardstick`)."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
-    B, T, H = hin.shape
+    B, T, _ = hin.shape
+    H = wh.shape[0]
     mod = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
-        H, H, batch_first=True).to(device=hin.device, dtype=hin.dtype)
+        hin.shape[-1], H, batch_first=True).to(device=hin.device,
+                                                dtype=hin.dtype)
     bias = b.float().clone()
     if cell == "lstm":
         perm = torch.arange(4 * H, device=hin.device)
@@ -570,6 +603,18 @@ def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
                 "over the row's tolerance")
         return dict(library_ms=time_ms(lambda: mod(hin)),
                     library_max_abs_err=err, library_note=note)
+
+
+def hoisted_yardstick(torch, cell: str, xw, wh, atol: float,
+                      rtol: float) -> dict:
+    """Row 1's ``library_ms``: the cuDNN call of :func:`cudnn_yardstick`
+    on the hoisted projection ``xw [B, T, G H]`` with W_x the identity and
+    b 0 — the same recurrence when no step is masked (cuDNN takes no
+    per-step mask), at the cost of one more [G H, G H] product."""
+    G = xw.shape[-1]
+    eye = torch.eye(G, dtype=xw.dtype, device=xw.device)
+    zeros = torch.zeros(G, dtype=xw.dtype, device=xw.device)
+    return cudnn_yardstick(torch, cell, xw, eye, zeros, wh, atol, rtol)
 
 
 def check_fused_fwd(torch, kernels, where: str, cell: str, hin, wx, b, wh,
@@ -738,7 +783,8 @@ def check_hoisted_fwd(torch, kernels, cell: str, xw, wh, mm) -> None:
                **turns["mma"][0], plain_ms=time_ms(
                    lambda: R.rnn_scan_reference(cell, xw, wh, mm), reps=3,
                    warmup=1),
-               bound_ms=bound, bound_by=by, library_ms=None,
+               bound_ms=bound, bound_by=by,
+               **hoisted_yardstick(torch, cell, xw, wh, BF16_TOL, BF16_TOL),
                rows_per_block=R._mma_rows(B, sms, hoisted=True),
                seed_grid_bitwise=True,
                cuda_core_ms=turns["cuda_core"][0]["ms"],
@@ -977,7 +1023,8 @@ def f32_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
             turns[mode].append(kernel_ms(runs[mode], reps=5, launches=2))
         rec = dict(shape=[B, T, H], dtype="float32", save_c=True,
                    plain_ms=plain_ms, **f32_bounds(kind, cell, B, T, H, True),
-                   **(library if fused else dict(library_ms=None)),
+                   **(library if fused else hoisted_yardstick(
+                       torch, cell, xw, wh, F32_TOL, 0.0)),
                    tolerance=f"atol {F32_TOL}",
                    max_abs_err=max(errs["route"].values()),
                    max_abs_err_by_state=errs["route"], **turns["route"][0],
@@ -1643,7 +1690,7 @@ def check_seed_batched(torch, trainer, kernels) -> None:
             xm, fi.reshape(S * D, Bf), ti.reshape(S * D), W, fp=fp)),
         bound_ms=gather_bound(fi_np, ti_np, W, fp, xm.shape[1],
                               xm.element_size()),
-        bound_by="bytes", library_ms=None))
+        bound_by="bytes", library_ms=None, library_note=GATHER_NO_LIBRARY))
     model = trainer.model
     cd = model.dtype
     B = D * Bf
@@ -1698,7 +1745,9 @@ def check_seed_batched(torch, trainer, kernels) -> None:
         shape=[S, B, W, H], rows_per_block=rows, bitwise_vs_single=True,
         max_abs_err=worst, tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
         **ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None))
+        bound_ms=bound, bound_by=by, library_ms=None, library_note=(
+            "no single PyTorch call: torch.nn.LSTM takes one weight set "
+            "per call, so 64 seeds are 64 calls")))
     log(f"seed-batched fused fwd at the c5 train step: {ms['ms']:.3f} ms "
         f"for 64 seeds in one launch, {singles_ms:.3f} ms in 64 launches, "
         f"bound {bound:.3f} ms")
@@ -1777,9 +1826,10 @@ def ensemble_steps(torch, cfg, splits, n_steps: int):
     return torch.stack(losses).cpu().tolist()
 
 
-def c5_phase(torch, cfg, splits, kernels, seed_launches) -> None:
+def c5_phase(torch, cfg, splits, kernels, seed_launches):
     """Phase 6: c5, the 64-seed ensemble, for one epoch on the kernels;
-    its epoch's launches go to ``seed_launches``."""
+    its epoch's launches go to ``seed_launches``. Returns the trained
+    ensemble."""
     import numpy as np
 
     from lfm_quant_tpu_torch.ops import _build
@@ -1886,7 +1936,356 @@ def c5_phase(torch, cfg, splits, kernels, seed_launches) -> None:
         f"{-(-S // trainer._seed_chunk(C * pool))} seed chunks); ic_mean "
         f"{ev['ic_mean']:.6f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return trainer
+
+
+def reports_match(label: str, got, want) -> dict:
+    """The device engine's report against the numpy engine's at
+    ``REPORT_TOL`` (``tests/test_jax_backtest.py assert_reports_match``):
+    months, skipped months and dates exact, the monthly series within
+    their float32 bounds, CAGR rtol 1e-4, Sharpe rtol 1e-3. Returns the
+    largest differences."""
+    import numpy as np
+
+    if (got.n_months, got.n_skipped_months) != (want.n_months,
+                                                 want.n_skipped_months) \
+            or not np.array_equal(got.dates, want.dates):
+        fail(f"{label}: months {got.n_months}/{got.n_skipped_months} "
+             f"against the numpy engine's {want.n_months}/"
+             f"{want.n_skipped_months}, or other dates")
+    errs = {}
+    for field, tol in (("monthly_returns", "ret"), ("monthly_bench", "ret"),
+                       ("monthly_ic", "ic"), ("quantile_profile", "profile"),
+                       ("turnover", "turn"), ("mean_ic", "ic"),
+                       ("mean_ret_ic", "ic")):
+        err = float(np.max(np.abs(np.asarray(getattr(got, field), np.float64)
+                                  - np.asarray(getattr(want, field)))))
+        if not err <= REPORT_TOL[tol]:
+            fail(f"{label}: {field} differs from the numpy engine by {err} "
+                 f"(atol {REPORT_TOL[tol]})")
+        errs[field] = err
+    for field, rtol, atol in (("cagr", 1e-4, 1e-6),
+                              ("sharpe_ann", 1e-3, 1e-4)):
+        a, b = getattr(got, field), getattr(want, field)
+        if not abs(a - b) <= atol + rtol * abs(b):
+            fail(f"{label}: {field} {a} against the numpy engine's {b}")
+        errs[field] = abs(a - b)
+    return errs
+
+
+def c5_backtest_phase(torch, trainer, panel, totals, seed_launches
+                      ) -> None:
+    """Phase 7: the c5 ensemble trained by phase 6, written to a run dir
+    and reloaded through ``load_forecaster``; its test-split forecasts
+    (64 seeds, one seed-grid launch of the fused forward per month and
+    seed chunk) held to the plain path on the card; three aggregation
+    modes backtested in one ``run_scoring_pipeline`` pass and each report
+    held to the numpy engine on the same host-fetched scores. The
+    predict's gathers (one [8, Bf] gather per month chunk, shared by every
+    seed) go to ``totals``, its seed-grid launches to ``seed_launches``."""
+    import tempfile
+
+    import numpy as np
+
+    from lfm_quant_tpu_torch.backtest import engine
+    from lfm_quant_tpu_torch.backtest.torch_engine import (
+        aggregate_scores_device,
+        run_scoring_pipeline,
+    )
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.ensemble import (
+        EnsembleTrainer,
+        write_ensemble_run_dir,
+    )
+    from lfm_quant_tpu_torch.train.forecast import load_forecaster
+    from lfm_quant_tpu_torch.train.loop import predict_batch
+
+    cfg = trainer.cfg
+    S = cfg.n_seeds
+    with tempfile.TemporaryDirectory() as run_dir:
+        write_ensemble_run_dir(run_dir, trainer)
+        t0 = time.perf_counter()
+        model, splits, is_ensemble = load_forecaster(run_dir, panel=panel,
+                                                     device="cuda")
+        load_s = time.perf_counter() - t0
+    if not is_ensemble or not all(
+            torch.equal(p, trainer.state.params[k])
+            for k, p in model.state.params.items()):
+        fail("c5 run dir: load_forecaster did not restore the trained "
+             "ensemble")
     del trainer
+    torch.cuda.empty_cache()
+
+    # The forecast on the kernels, counted.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (stacked, valid), counts = counted(
+        "c5 predict (test split)", ("window_gather",
+                                    "rnn_fused_fwd_mma_lstm"),
+        lambda: model.predict("test"), must_not=CUDA_CORE)
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    predict_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    months = np.nonzero(valid.any(axis=0))[0]
+    pool = int(valid.sum(axis=0).max())
+    M, bf = predict_batch(cfg, splits, "test", None, True).firm_idx.shape
+    C = min(cfg.data.dates_per_batch, M)
+    month_chunks = -(-M // C)
+    chunks = (month_chunks * -(-S // model._seed_chunk(C * bf))
+              * model.model.layers)
+    if counts["rnn_fused_fwd_mma_lstm"] != chunks or \
+            counts["window_gather"] != month_chunks:
+        fail(f"c5 predict: launches {counts} for {month_chunks} month "
+             f"chunks (one gather each) and {chunks} (month, seed, layer) "
+             "chunks of the fused forward")
+    totals["window_gather"] += counts["window_gather"]
+    seed_launches["rnn_fused_fwd_mma_lstm"] += counts[
+        "rnn_fused_fwd_mma_lstm"]
+    if stacked.shape != (S, panel.n_firms, panel.n_months) or \
+            not np.isfinite(stacked).all() or stacked[:, ~valid].any():
+        fail(f"c5 predict: forecasts {stacked.shape}, finite "
+             f"{np.isfinite(stacked).all()}, zero outside the valid cells")
+    log(f"c5 predict (test split, {months.size} months x up to {pool} "
+        f"firms x {S} seeds): {predict_ms:.1f} ms on the kernels, "
+        f"{counts['window_gather']} gathers and "
+        f"{counts['rnn_fused_fwd_mma_lstm']} seed-grid launches of the fused "
+        f"forward; run dir reloaded in {load_s:.2f} s; peak memory "
+        f"{predict_peak:.2f} GiB")
+    # The same predict, timed warm, on the gather kernel and on the plain
+    # gather (the fused forward on both): what the gather kernel saves.
+    warm = {}
+    for impl in ("kernel", "plain", "kernel", "plain"):
+        model.gather_impl = impl
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.predict("test")
+        warm.setdefault(impl, []).append(1e3 * (time.perf_counter() - t0))
+    model.gather_impl = "kernel"
+    log(f"c5 predict warm: {', '.join(f'{x:.1f}' for x in warm['kernel'])}"
+        f" ms on the gather kernel; "
+        f"{', '.join(f'{x:.1f}' for x in warm['plain'])} ms on the plain "
+        "gather (host clock, host copy of the forecasts included)")
+    profile_device(torch, lambda: model.predict("test"),
+                   f"c5 predict, test split, {S} seeds")
+
+    # The plain path on the card, from the same params.
+    plain = EnsembleTrainer(plain_variant(cfg), splits, device="cuda")
+    plain.state = plain.init_state({k: p.detach().cpu().numpy()
+                                    for k, p in model.state.params.items()})
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    want, want_valid = plain.predict("test")
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if any(_build.launch_counts().values()):
+        fail(f"the plain c5 predict launched kernels: "
+             f"{_build.launch_counts()}")
+    del plain
+    torch.cuda.empty_cache()
+    if not np.array_equal(want_valid, valid):
+        fail("c5 predict: the plain path's valid cells differ")
+    err = np.abs(stacked[:, valid] - want[:, valid])
+    if (err > BF16_TOL + BF16_TOL * np.abs(want[:, valid])).any():
+        fail(f"c5 predict: forecasts differ from the plain path by up to "
+             f"{err.max()}")
+    log(f"c5 predict matches the plain path on the card ({int(valid.sum())} "
+        f"cells x {S} seeds): max abs err {err.max():.4g} (tol {BF16_TOL} + "
+        f"{BF16_TOL}|plain|); plain path {plain_ms:.1f} ms")
+    del want, err
+
+    # Three modes backtested in one pass, against the numpy engine.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reports = run_scoring_pipeline(stacked, valid, panel, modes=C5_MODES,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    score_ms = 1e3 * (time.perf_counter() - t0)
+    score_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    scores, svalid, specs = aggregate_scores_device(stacked, valid, C5_MODES,
+                                                    device="cuda")
+    scores = scores.cpu().numpy()
+    t0 = time.perf_counter()
+    refs = [engine.aggregate_ensemble(stacked, valid, m, lam)
+            for m, lam in specs]
+    agg_np_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref_reports = {engine.mode_label(m, lam): engine.run_backtest(
+        scores[g], svalid, panel) for g, (m, lam) in enumerate(specs)}
+    bt_np_ms = 1e3 * (time.perf_counter() - t0)
+    agg_err = max(float(np.abs(scores[g] - r[0]).max())
+                  for g, r in enumerate(refs))
+    if agg_err > 1e-5:
+        fail(f"c5 aggregation differs from the numpy engine by {agg_err}")
+    if list(reports) != list(ref_reports):
+        fail(f"c5 scoring: modes {list(reports)}")
+    for label, rep in reports.items():
+        errs = reports_match(f"c5 {label}", rep, ref_reports[label])
+        log(f"c5 backtest {label}: {rep.summary()}; against the numpy "
+            f"engine: cagr {errs['cagr']:.3g}, sharpe {errs['sharpe_ann']:.3g}"
+            f", monthly returns {errs['monthly_returns']:.3g}, ic "
+            f"{errs['monthly_ic']:.3g}")
+    log(f"c5 scoring ({len(specs)} modes x {panel.n_months} months x "
+        f"{panel.n_firms} firms from [{S}, N, T] forecasts): "
+        f"{score_ms:.1f} ms on the card (aggregate + backtest, host to "
+        f"host; peak {score_peak:.2f} GiB) against the numpy engine's "
+        f"{agg_np_ms:.1f} ms to aggregate + {bt_np_ms:.1f} ms to backtest; "
+        f"aggregation within {agg_err:.3g} of numpy")
+    del model, stacked, scores
+    torch.cuda.empty_cache()
+
+
+def walkforward_phase(torch, cfg, panel, totals) -> None:
+    """Phase 8: ``run_walkforward`` on c2 at full width, two folds in one
+    call, as ``--walk-forward`` runs it: one trainer, built for fold 0 and
+    rebound for fold 1. Counted as one main path, and per fold by wrapping
+    the trainer's ``fit`` and ``predict``: each fold's fit launches the
+    gather and the fused backward once per step (the fused forward also
+    in its validation sweep), its predict the gather once per month chunk
+    and the fused forward once per chunk and layer; the folds' launches
+    add up to the sweep's. The stitched validity is exactly the eligible
+    cells of the two 12-month windows; the stitched panel is scored on the
+    card (``score_stitched``, mode "mean") and held to the numpy engine.
+    The launches go to ``totals``."""
+    import tempfile
+
+    import numpy as np
+
+    from lfm_quant_tpu_torch.backtest import engine
+    from lfm_quant_tpu_torch.backtest.torch_engine import (
+        run_scoring_pipeline,
+    )
+    from lfm_quant_tpu_torch.data.windows import anchor_index
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.loop import Trainer, predict_batch
+    from lfm_quant_tpu_torch.train.walkforward import (
+        run_walkforward,
+        score_stitched,
+        walkforward_folds,
+    )
+
+    preset_epochs = cfg.optim.epochs
+    cfg = dataclasses.replace(
+        cfg, optim=dataclasses.replace(cfg.optim, epochs=WF_EPOCHS))
+    d = cfg.data
+    # The train entry point's default first train_end: 60% into the panel.
+    start = int(panel.dates[int(panel.n_months * 0.6)])
+    folds = walkforward_folds(panel, start, WF_STEP, WF_VAL, WF_FOLDS)
+    log(f"c2 walk-forward: {panel.n_firms} firms x {panel.n_months} months,"
+        f" LSTM hidden {cfg.model.kwargs.get('hidden')}, bf16; cut from the "
+        f"preset: epochs {preset_epochs} -> {WF_EPOCHS}, folds -> "
+        f"{WF_FOLDS} (--wf-folds), step {WF_STEP} months, val {WF_VAL} "
+        f"months, start {start} (the default); folds {folds}")
+
+    # Per-fold launches and times, read around the trainer's own calls.
+    fold_log = []
+
+    def since(before):
+        after = _build.launch_counts()
+        return {k: after[k] - before.get(k, 0) for k in after}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        before, t0 = _build.launch_counts(), time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, since(before), 1e3 * (time.perf_counter() - t0)
+
+    def fit(self, *args, **kwargs):
+        out, counts, ms = timed(lambda: real_fit(self, *args, **kwargs))
+        fold_log.append({"trainer": self, "steps": out["steps"],
+                         "fit": counts, "fit_ms": ms})
+        return out
+
+    def predict(self, *args, **kwargs):
+        out, counts, ms = timed(lambda: real_predict(self, *args, **kwargs))
+        rec = fold_log[-1]
+        rec.update(predict=counts, predict_ms=ms, months=predict_batch(
+            self.cfg, self.splits, "test", kwargs["date_range"],
+            True).firm_idx.shape[0], layers=self.model.layers)
+        return out
+
+    real_fit, real_predict = Trainer.fit, Trainer.predict
+    Trainer.fit, Trainer.predict = fit, predict
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (fc, valid, summary), counts = counted(
+                "c2 walk-forward (2 folds)",
+                ("window_gather", "rnn_fused_fwd_mma_lstm",
+                 "rnn_fused_bwd_mma_lstm"),
+                lambda: run_walkforward(
+                    cfg, panel, start=start, step_months=WF_STEP,
+                    val_months=WF_VAL, n_folds=WF_FOLDS, out_dir=out,
+                    device="cuda"),
+                must_not=CUDA_CORE)
+            sweep_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        Trainer.fit, Trainer.predict = real_fit, real_predict
+    for name, n in counts.items():
+        totals[name] += n
+    if len(fold_log) != WF_FOLDS or len(summary["folds"]) != WF_FOLDS:
+        fail(f"c2 walk-forward: {len(fold_log)} fits, records "
+             f"{summary['folds']}")
+    if any(f["trainer"] is not fold_log[0]["trainer"] for f in fold_log):
+        fail("c2 walk-forward: a fold built a new trainer instead of "
+             "rebinding the sweep's one")
+    sums = {k: sum(f["fit"][k] + f["predict"][k] for f in fold_log)
+            for k in counts}
+    if sums != counts:
+        fail(f"c2 walk-forward: the folds' launches {sums} do not add up "
+             f"to the sweep's {counts}")
+    C = d.dates_per_batch
+    for k, f in enumerate(fold_log):
+        fi, pr = f["fit"], f["predict"]
+        chunks = -(-f["months"] // min(C, f["months"]))
+        if not (fi["window_gather"] == fi["rnn_fused_bwd_mma_lstm"]
+                == f["steps"] > 0) or fi["rnn_fused_fwd_mma_lstm"] <= \
+                f["steps"]:
+            fail(f"c2 walk-forward fold {k} fit: {f['steps']} steps, "
+                 f"launches {fi}")
+        if pr["window_gather"] != chunks or pr["rnn_fused_bwd_mma_lstm"] \
+                or pr["rnn_fused_fwd_mma_lstm"] != chunks * f["layers"]:
+            fail(f"c2 walk-forward fold {k} predict: {chunks} month "
+                 f"chunks, launches {pr}")
+    for k in range(1, WF_FOLDS):
+        if folds[k][2][0] < folds[k - 1][2][1]:
+            fail(f"c2 walk-forward: fold {k}'s window overlaps the last")
+    elig = anchor_index(panel, d.window, d.min_valid_months)
+    want_valid = np.zeros_like(elig)
+    for _, _, (lo, hi) in folds:
+        want_valid[:, lo:hi] = elig[:, lo:hi]
+    if not np.array_equal(valid, want_valid) or \
+            not np.isfinite(fc).all() or fc[~valid].any():
+        fail("c2 walk-forward: the stitched validity is not the eligible "
+             "cells of the fold windows, or the forecasts are not finite "
+             "and zero elsewhere")
+    for k, (f, rec) in enumerate(zip(fold_log, summary["folds"])):
+        log(f"c2 walk-forward fold {k} (train to {rec['train_end']}, val "
+            f"to {rec['val_end']}, forecast months {rec['pred_months']}): "
+            f"fit {f['fit_ms']:.1f} ms ({f['steps']} steps + val sweep), "
+            f"predict {f['predict_ms']:.1f} ms ({rec['n_pred_cells']} "
+            f"cells); best_val_ic {rec['best_val_ic']:.6f}; launches: fit "
+            f"{ {n: c for n, c in f['fit'].items() if c} }, predict "
+            f"{ {n: c for n, c in f['predict'].items() if c} }")
+    log(f"c2 walk-forward sweep ({WF_FOLDS} folds, one trainer rebound "
+        f"per fold, fold run dirs and snapshots written): {sweep_ms:.1f} "
+        "ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    digest = score_stitched(fc, valid, panel, ["mean"], device="cuda")
+    torch.cuda.synchronize()
+    score_ms = 1e3 * (time.perf_counter() - t0)
+    rep = run_scoring_pipeline(fc, valid, panel, device="cuda")["mean"]
+    t0 = time.perf_counter()
+    ref = engine.run_backtest(fc, valid, panel)
+    np_ms = 1e3 * (time.perf_counter() - t0)
+    errs = reports_match("c2 walk-forward, mean", rep, ref)
+    if digest["mean"]["summary"] != rep.summary():
+        fail("c2 walk-forward: score_stitched and the pipeline disagree")
+    log(f"c2 walk-forward scored on the card (mode mean): {score_ms:.1f} ms "
+        f"against the numpy engine's {np_ms:.1f} ms; {rep.summary()}; "
+        f"cagr within {errs['cagr']:.3g} of numpy")
     torch.cuda.empty_cache()
 
 
@@ -1983,7 +2382,8 @@ def main() -> int:
                     xm, fi, ti, d.window, fp=fp)),
                 bound_ms=gather_bound(fi_np, ti_np, d.window, fp,
                                       panel.n_months, xm.element_size()),
-                bound_by="bytes"))
+                bound_by="bytes", library_ms=None,
+                library_note=GATHER_NO_LIBRARY))
             # The recurrence on the layer-0 input this batch produces.
             model = plain.model
             cd = model.dtype or torch.float32
@@ -2082,9 +2482,16 @@ def main() -> int:
     log(f"c5: panel {panel5.features.shape} built in "
         f"{time.perf_counter() - t0:.1f} s")
     seed_launches = dict.fromkeys(_build.LAUNCHES, 0)
-    c5_phase(torch, cfg5, splits5, kernels, seed_launches)
+    trainer5 = c5_phase(torch, cfg5, splits5, kernels, seed_launches)
 
-    # ---- 7. kernels line ------------------------------------------------
+    # ---- 7. c5 backtest ---------------------------------------------------
+    c5_backtest_phase(torch, trainer5, panel5, totals, seed_launches)
+    del trainer5, panel5, splits5
+
+    # ---- 8. c2 walk-forward ---------------------------------------------
+    walkforward_phase(torch, cfg2, panel2, totals)
+
+    # ---- 9. kernels line ------------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -2110,7 +2517,7 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 8. result ------------------------------------------------------
+    # ---- 10. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

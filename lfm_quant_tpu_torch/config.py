@@ -66,8 +66,8 @@ class DataConfig:
     het_noise: float = 0.0
     sampler_engine: str = "python"
     # Window gather: "auto" and "pallas" pick the hand-written gather
-    # kernel (ops/gather.py) on the card for serving and the train step;
-    # the validation sweep takes it only for "pallas" (as the JAX
+    # kernel (ops/gather.py) on the card for serving, the train step and
+    # predict; the validation sweep takes it only for "pallas" (as the JAX
     # trainer); "xla" the plain gather everywhere.
     gather_impl: str = "auto"  # auto | xla | pallas
     derived_features: Tuple[str, ...] = ()

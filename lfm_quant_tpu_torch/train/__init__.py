@@ -1,1 +1,2 @@
-"""Forward paths of the port (training comes with a later slice)."""
+"""Training: the trainer, the seed ensemble, walk-forward retraining and
+the run-dir loaders the scoring entry points use."""

@@ -4,6 +4,8 @@ a single model or the seed ensemble.
     python -m lfm_quant_tpu_torch.train --preset c2 [--epochs N] [--out DIR]
     python -m lfm_quant_tpu_torch.train --preset c2 --scale 0.05 --device cpu
     python -m lfm_quant_tpu_torch.train --preset c5 [--n-seeds S]
+    python -m lfm_quant_tpu_torch.train --preset c2 --walk-forward 12 \
+        --wf-start 199001 [--wf-folds K] [--wf-score mean]
 
 config → panel (``synthetic_panel`` from the preset's seed and sizes, or
 a saved panel) → splits → ``Trainer.fit`` with early stopping; writes
@@ -15,6 +17,14 @@ as JSON. With ``n_seeds > 1`` (c5: 64) the ensemble trains instead
 the kernels' plain versions. ``--scale`` shrinks the synthetic panel
 (firms and months, never the model's widths). ``--resume`` continues
 from the run directory's latest checkpoint with the same history.
+
+``--walk-forward STEP_MONTHS`` retrains every STEP_MONTHS months and
+stitches the strictly out-of-sample forecasts (``train/walkforward.py``)
+into ``<out>/<name>/wf``: ``fold_<k>/`` run dirs, ``walkforward.npz`` for
+``python -m lfm_quant_tpu_torch.backtest --forecast-npz``, and
+``summary.json`` (with ``--wf-score``, the stitched panel's backtest).
+``--wf-foldstack`` and ``--sweep-grid`` are not ported (ROADMAP.md Queue
+A item 5) and raise.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -46,7 +57,67 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--n-seeds", type=int, default=None,
                     help="override n_seeds (>1 trains the seed ensemble)")
+    ap.add_argument("--walk-forward", metavar="STEP_MONTHS", type=int,
+                    default=None,
+                    help="walk-forward mode: retrain every STEP_MONTHS "
+                         "months and stitch the out-of-sample forecasts; "
+                         "writes walkforward.npz for the backtest's "
+                         "--forecast-npz")
+    ap.add_argument("--wf-start", type=int, default=None,
+                    help="first fold's train_end (YYYYMM; default: 60%% "
+                         "through the panel)")
+    ap.add_argument("--wf-val-months", type=int, default=24,
+                    help="validation window per fold (months)")
+    ap.add_argument("--wf-folds", type=int, default=None,
+                    help="cap the number of folds (default: run to the "
+                         "panel's end)")
+    ap.add_argument("--wf-warm-start", action="store_true",
+                    help="initialize each fold's weights from the previous "
+                         "fold's best state (the optimizer restarts)")
+    ap.add_argument("--wf-train-months", type=int, default=None,
+                    help="rolling train window per fold (months; default: "
+                         "expanding window)")
+    ap.add_argument("--wf-foldstack", action="store_true",
+                    help="not ported (ROADMAP.md Queue A item 5)")
+    ap.add_argument("--sweep-grid", metavar="SPEC", default=None,
+                    help="not ported (ROADMAP.md Queue A item 5)")
+    ap.add_argument("--wf-score", metavar="MODES", default=None,
+                    help="grade the stitched out-of-sample panel at the "
+                         "end of the sweep on the device: comma-separated "
+                         "aggregation modes, each optionally MODE@LAMBDA "
+                         "(e.g. 'mean,mean_minus_std@0.5'); reports land "
+                         "in summary.json under 'backtest'")
     args = ap.parse_args(argv)
+    if args.wf_foldstack or args.sweep_grid is not None:
+        raise NotImplementedError(
+            "--wf-foldstack and --sweep-grid (stacked fold and config "
+            "sweeps) are not ported yet (ROADMAP.md Queue A item 5)")
+    if args.walk_forward is None and (
+            args.wf_start is not None or args.wf_folds is not None
+            or args.wf_val_months != 24 or args.wf_warm_start
+            or args.wf_train_months is not None or args.wf_score is not None):
+        ap.error("--wf-start/--wf-val-months/--wf-folds/--wf-warm-start/"
+                 "--wf-train-months/--wf-score need --walk-forward "
+                 "STEP_MONTHS")
+    wf_score_modes = None
+    if args.wf_score:
+        # Validate at parse time, not after hours of fold training.
+        from lfm_quant_tpu_torch.backtest.engine import normalize_modes
+
+        wf_score_modes = []
+        try:
+            for tok in args.wf_score.split(","):
+                mode, _, lam = tok.strip().partition("@")
+                wf_score_modes.append((mode, float(lam)) if lam else mode)
+            normalize_modes(wf_score_modes)
+        except ValueError as e:
+            ap.error(f"--wf-score: {e}")
+        if any(m[0] == "mean_minus_total_std" for m in
+               normalize_modes(wf_score_modes)):
+            raise NotImplementedError(
+                "--wf-score mean_minus_total_std needs the heteroscedastic "
+                "variance forward, which is not ported yet (ROADMAP.md "
+                "Queue A item 4)")
 
     from lfm_quant_tpu_torch.config import RunConfig, get_preset
     from lfm_quant_tpu_torch.device import resolve_device
@@ -69,6 +140,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             cfg, optim=dataclasses.replace(cfg.optim, epochs=args.epochs))
     if args.out is not None:
         cfg = dataclasses.replace(cfg, out_dir=args.out)
+    if wf_score_modes is not None:
+        names = [m[0] if isinstance(m, tuple) else m for m in wf_score_modes]
+        if cfg.n_seeds < 2 and "mean_minus_std" in names:
+            ap.error("--wf-score mean_minus_std needs stacked forecasts "
+                     "(n_seeds > 1); a single-seed sweep stitches one "
+                     "model's panel, whose seed-axis std is identically 0")
     if args.scale is not None:
         d = cfg.data
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
@@ -79,9 +156,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             n_months=max(d.window + d.horizon + 96, 120,
                          int(d.n_months * args.scale)),
         ))
-    run = run_ensemble_experiment if cfg.n_seeds > 1 else run_experiment
-    summary, _, _ = run(cfg, echo=args.echo, resume=args.resume,
-                        device=device)
+    if args.walk_forward is not None:
+        from lfm_quant_tpu_torch.train.loop import resolve_panel
+        from lfm_quant_tpu_torch.train.walkforward import run_walkforward
+
+        panel = resolve_panel(cfg.data)
+        start = args.wf_start or int(panel.dates[int(panel.n_months * 0.6)])
+        wf_dir = os.path.join(cfg.out_dir, cfg.name, "wf")
+        _, _, summary = run_walkforward(
+            cfg, panel, start=start, step_months=args.walk_forward,
+            val_months=args.wf_val_months, n_folds=args.wf_folds,
+            out_dir=wf_dir, echo=args.echo, resume=args.resume,
+            warm_start=args.wf_warm_start,
+            train_months=args.wf_train_months, score_modes=wf_score_modes,
+            device=device)
+        summary["run_dir"] = wf_dir
+    else:
+        run = run_ensemble_experiment if cfg.n_seeds > 1 else run_experiment
+        summary, _, _ = run(cfg, echo=args.echo, resume=args.resume,
+                            device=device)
     print(json.dumps({k: v for k, v in summary.items()
                       if k not in ("history", "step_losses")},
                      indent=2, default=str))

@@ -26,11 +26,14 @@ products.
 * The validation sweep and :meth:`EnsembleTrainer.predict` run over
   month chunks (``dates_per_batch``) and, within each, over seed chunks
   sized so that one chunk's recurrence states stay within
-  :data:`EVAL_STATE_BYTES`.
+  :data:`EVAL_STATE_BYTES`: on the card one seed-grid launch of the fused
+  forward per chunk. ``predict`` takes a split or a month range, live
+  months included, for the backtest, forecast and walk-forward paths;
+  ``fit(init_params=)`` and ``rebind`` give the walk-forward its warm
+  start and its folds.
 
 Out of this slice (ROADMAP.md): the async epoch pipeline, geometry
-buckets, the variance forward, warm-start grafting and the seed/data
-mesh.
+buckets, the variance forward and the seed/data mesh.
 """
 
 from __future__ import annotations
@@ -58,13 +61,19 @@ from lfm_quant_tpu_torch.models import build_model
 from lfm_quant_tpu_torch.ops.gather import fold_seeds, gather_windows
 from lfm_quant_tpu_torch.ops.metrics import spearman_ic
 from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
+from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
 from lfm_quant_tpu_torch.train.loop import (
+    _KEEP,
     FitHarness,
     TrainState,
     _point_forecast,
-    default_split_dates,
+    check_optimizer,
+    check_predict_options,
+    graft_params,
     make_loss_fn,
-    resolve_panel,
+    predict_batch,
+    scatter_forecasts,
+    splits_for,
 )
 from lfm_quant_tpu_torch.train.optim import AdamW, AdamWState
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
@@ -89,12 +98,59 @@ class EnsembleTrainer:
     def __init__(self, cfg: RunConfig, splits: PanelSplits,
                  run_dir: Optional[str] = None, echo: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self._build(cfg, splits.panel)
+        self._bind(cfg, splits, run_dir, echo)
+
+    @staticmethod
+    def _key(cfg: RunConfig):
+        """What the stacked model and the device panel are built from
+        (besides the panel itself)."""
+        return (cfg.model, cfg.n_seeds, compute_dtype(cfg), cfg.data.window,
+                cfg.data.gather_impl)
+
+    def _build(self, cfg: RunConfig, panel: Panel) -> None:
+        """The stacked model and the device-resident panel."""
         if cfg.n_seeds < 2:
             raise ValueError("EnsembleTrainer needs n_seeds >= 2")
-        if cfg.optim.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {cfg.optim.optimizer!r} is not ported (lamb: "
-                "ROADMAP.md Queue A); use adamw")
+        d = cfg.data
+        self.panel = panel
+        self.window = d.window
+        self.fp = panel.n_features + 1  # logical packed width
+        self.gather_impl = resolve_gather_impl(d.gather_impl)
+        kind, kwargs = model_kwargs(cfg)
+        self.model = build_model(kind, n_features=panel.n_features,
+                                 n_seeds=cfg.n_seeds, **kwargs).to(self.device)
+        # Flax path → the module's own name, for functional_call.
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        self._names = {k: names[id(p)]
+                       for k, p in flax_param_map(self.model).items()}
+        self.dev = device_panel(panel, self.device, compute_dtype(cfg))
+
+    def rebind(self, cfg: Optional[RunConfig] = None,
+               splits: Optional[PanelSplits] = None, run_dir: Any = _KEEP,
+               echo: Optional[bool] = None) -> "EnsembleTrainer":
+        """Re-initialize for the next walk-forward fold: new split
+        boundaries, per-seed samplers seeded from the new config, a new
+        run dir, the stacked state dropped. An omitted argument keeps the
+        previous value; ``run_dir=None`` drops the run dir. The stacked
+        model and the device panel are kept while the panel and the
+        model's config are unchanged, else rebuilt. (The JAX trainer's
+        rebind also keeps its compiled programs; the port has no program
+        cache.) Returns self."""
+        cfg = self.cfg if cfg is None else cfg
+        splits = self.splits if splits is None else splits
+        if splits.panel is not self.panel or self._key(cfg) != self._key(
+                self.cfg):
+            self._build(cfg, splits.panel)
+        self._bind(cfg, splits, self.run_dir if run_dir is _KEEP else run_dir,
+                   self.echo if echo is None else echo)
+        return self
+
+    def _bind(self, cfg: RunConfig, splits: PanelSplits,
+              run_dir: Optional[str], echo: bool) -> None:
+        """The fit's splits, per-seed samplers, loss and optimizer."""
+        check_optimizer(cfg)
         S = self.n_seeds = cfg.n_seeds
         self.seed_block = int(cfg.seed_block or 0)
         if self.seed_block < 0:
@@ -108,24 +164,12 @@ class EnsembleTrainer:
         self.run_dir = run_dir
         self.echo = echo
         self.state: Optional[TrainState] = None
-        self.device = resolve_device(device)
         panel = splits.panel
         d = cfg.data
-        self.window = d.window
-        self.fp = panel.n_features + 1  # logical packed width
-        self.gather_impl = resolve_gather_impl(d.gather_impl)
         # The eval sweep takes the kernel only when asked by name, as the
         # single-model Trainer's does.
         self.eval_gather_impl = ("kernel" if d.gather_impl == "pallas"
                                  else "plain")
-        kind, kwargs = model_kwargs(cfg)
-        self.model = build_model(kind, n_features=panel.n_features,
-                                 n_seeds=S, **kwargs).to(self.device)
-        # Flax path → the module's own name, for functional_call.
-        names = {id(p): n for n, p in self.model.named_parameters()}
-        self._names = {k: names[id(p)]
-                       for k, p in flax_param_map(self.model).items()}
-        self.dev = device_panel(panel, self.device, compute_dtype(cfg))
         self.samplers = [
             DateBatchSampler(
                 panel, d.window, d.dates_per_batch, d.firms_per_date,
@@ -350,14 +394,17 @@ class EnsembleTrainer:
         """Lock-step ensemble training with early stopping on the
         ensemble-mean validation IC, in the lock-step form of the JAX
         ``_fit_impl``. ``resume=True`` continues from ``ckpt/latest``;
-        ``init_params`` (a seed-stacked Flax tree) replaces the seeded
-        init, the optimizer starting fresh. Restores the best state at the
-        end. Returns the summary and ``step_losses`` (``[K]`` lists of the
-        per-seed losses, in order)."""
+        ``init_params`` (a seed-stacked Flax tree, or another ensemble's
+        ``state.params``: the walk-forward warm start) replaces the seeded
+        init through ``graft_params``, the optimizer starting fresh.
+        Restores the best state at the end. Returns the summary and
+        ``step_losses`` (``[K]`` lists of the per-seed losses, in
+        order)."""
         cfg = self.cfg
         if cfg.optim.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")
-        state = self.init_state(init_params)
+        state = self.init_state(None if init_params is None else graft_params(
+            flax_param_map(self.model), init_params))
         harness = FitHarness(self.run_dir, cfg.optim.epochs,
                              cfg.optim.early_stop_patience,
                              self._steps_per_epoch)
@@ -419,47 +466,32 @@ class EnsembleTrainer:
     # ---- inference -------------------------------------------------------
 
     @torch.inference_mode()
-    def predict(self, split: str = "test") -> Tuple[np.ndarray, np.ndarray]:
+    def predict(self, split: str = "test",
+                date_range: Optional[Tuple[int, int]] = None,
+                return_variance: bool = False, require_target: bool = True
+                ) -> Tuple[np.ndarray, np.ndarray]:
         """Stacked forecasts ``[S, N, T]`` and their shared validity ``[N,
-        T]`` over the split's anchor range, on the host: the max-shape
-        sweep, chunked as the validation sweep is."""
-        d = self.cfg.data
-        panel = self.splits.panel
-        sampler = DateBatchSampler(
-            panel, d.window, 1, d.firms_per_date, seed=0,
-            min_valid_months=d.min_valid_months, min_cross_section=1,
-            date_range=self.splits.range_of(split))
-        out = np.zeros((self.n_seeds, panel.n_firms, panel.n_months),
-                       np.float32)
-        valid = np.zeros((panel.n_firms, panel.n_months), bool)
-        b = sampler.stacked_cross_sections()
-        if b.firm_idx.shape[0] == 0:
-            return out, valid
+        T]`` over the split's anchor range (or an explicit month-index
+        ``date_range``: a walk-forward fold's window), on the host, for the
+        backtest's ensemble aggregation: the max-shape sweep, chunked as
+        the validation sweep is, on the model's gather (the kernel on the
+        card). ``require_target=False`` includes LIVE
+        anchors (no observable outcome yet: the forecast entry point).
+        ``return_variance`` raises: the heteroscedastic variance forward
+        is not ported (ROADMAP.md Queue A item 4)."""
+        check_predict_options(0, return_variance)
+        b = predict_batch(self.cfg, self.splits, split, date_range,
+                          require_target)
         self.model.eval()
         fi, ti, _ = self._batch(b)
         M = fi.shape[0]
-        pred = torch.empty((self.n_seeds, M + (-M) % min(d.dates_per_batch, M),
-                            fi.shape[1]), dtype=torch.float32,
-                           device=self.device)
-        for months, seeds, o in self._forward_chunks(self.state.params, fi,
-                                                     ti):
+        C = min(self.cfg.data.dates_per_batch, M)
+        pred = torch.empty((self.n_seeds, M + (-M) % C, fi.shape[1]),
+                           dtype=torch.float32, device=self.device)
+        for months, seeds, o in self._forward_chunks(self.state.params,
+                                                     fi, ti):
             pred[seeds, months] = _point_forecast(o).float()
-        pred = pred[:, :M].cpu().numpy()
-        real = b.weight > 0
-        rows = b.firm_idx[real]
-        cols = np.broadcast_to(b.time_idx[:, None], b.firm_idx.shape)[real]
-        out[:, rows, cols] = pred[:, real]
-        valid[rows, cols] = True
-        return out, valid
-
-
-def _splits_of(cfg: RunConfig, panel: Optional[Panel]):
-    d = cfg.data
-    if panel is None:
-        panel = resolve_panel(d)
-    train_end, val_end = default_split_dates(panel, d)
-    return PanelSplits.by_date(panel, train_end, val_end,
-                               train_start=d.train_start)
+        return scatter_forecasts(b, pred[:, :M].cpu().numpy(), self.panel)
 
 
 def run_ensemble_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
@@ -470,25 +502,37 @@ def run_ensemble_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
     """Config → panel → splits → ensemble training; writes
     ``config.json``, ``ensemble.flag`` and ``summary.json`` into
     ``<out_dir>/<name>/ensemble``. Returns (summary, trainer, splits)."""
-    splits = _splits_of(cfg, panel)
+    splits = splits_for(cfg, panel)
     run_dir = os.path.join(cfg.out_dir, cfg.name, "ensemble")
     trainer = EnsembleTrainer(cfg, splits, run_dir=run_dir, echo=echo,
                               device=device)
     summary = trainer.fit(resume=resume)
     summary["run_dir"] = run_dir
     summary["config"] = dataclasses.asdict(cfg)
+    write_ensemble_run_dir(run_dir, trainer, summary)
+    return summary, trainer, splits
+
+
+def write_ensemble_run_dir(run_dir: str, trainer: EnsembleTrainer,
+                           summary: Optional[Mapping[str, Any]] = None
+                           ) -> None:
+    """The run dir that :func:`load_ensemble` and ``load_forecaster`` read:
+    ``config.json``, ``ensemble.flag`` and ``summary.json`` (when given)
+    beside the fit's checkpoints. A trainer fit without this run dir gets
+    its trained state written as ``ckpt/best``."""
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
-    # The marker of a stacked-seed checkpoint (the JAX package's
-    # train/forecast.py mark_ensemble_run_dir).
-    with open(os.path.join(run_dir, "ensemble.flag"), "w") as fh:
-        fh.write("stacked-seed-axis checkpoint\n")
-    with open(os.path.join(run_dir, "summary.json"), "w") as fh:
-        json.dump({k: v for k, v in summary.items()
-                   if k not in ("history", "step_losses")}, fh, indent=2,
-                  default=str)
-    return summary, trainer, splits
+        fh.write(trainer.cfg.to_json())
+    mark_ensemble_run_dir(run_dir, True)
+    if summary is not None:
+        with open(os.path.join(run_dir, "summary.json"), "w") as fh:
+            json.dump({k: v for k, v in summary.items()
+                       if k not in ("history", "step_losses")}, fh, indent=2,
+                      default=str)
+    if trainer.run_dir != run_dir:
+        CheckpointManager(os.path.join(run_dir, "ckpt", "best"),
+                          max_to_keep=1).save(
+            int(trainer.state.step[0]), trainer.state_dict(trainer.state))
 
 
 def load_ensemble(run_dir: str, panel: Optional[Panel] = None,
@@ -498,7 +542,7 @@ def load_ensemble(run_dir: str, panel: Optional[Panel] = None,
     checkpoint restored."""
     with open(os.path.join(run_dir, "config.json")) as fh:
         cfg = RunConfig.from_json(fh.read())
-    splits = _splits_of(cfg, panel)
+    splits = splits_for(cfg, panel)
     trainer = EnsembleTrainer(cfg, splits, run_dir=run_dir, device=device)
     trainer.init_state()
     restored = CheckpointManager(os.path.join(run_dir, "ckpt",

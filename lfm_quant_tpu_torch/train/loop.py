@@ -11,13 +11,16 @@
   ``[D, Bf]`` month layout and applies one optimizer update; each epoch
   ends with a validation sweep (per-month Spearman IC and the MSE), early
   stopping on the IC, and the ``ckpt/latest`` and ``ckpt/best`` lines
-  (:class:`FitHarness`).
+  (:class:`FitHarness`). :meth:`Trainer.predict` forecasts a split (or a
+  month range, live months included) over the whole panel, and
+  :func:`load_trainer` rebuilds a trainer from its run dir for the
+  backtest and forecast entry points.
 
 The loop is lock-step, the JAX package's ``LFM_ASYNC=0`` path: no meshes,
 no geometry buckets, no async prefetch or checkpointing (ROADMAP.md
-Queue A). The gathers resolve as the JAX trainer's do: the train step
-takes ``gather_impl`` (the kernel for "auto" and "pallas"), the
-validation sweep the plain gather unless ``gather_impl="pallas"`` is set
+Queue A). The train step and ``predict`` take ``gather_impl`` (the
+kernel for "auto" and "pallas"); the validation sweep resolves as the JAX
+trainer's does, the plain gather unless ``gather_impl="pallas"`` is set
 explicitly (``loop.py:1045-1047``).
 """
 
@@ -53,15 +56,53 @@ from lfm_quant_tpu_torch.ops.gather import gather_windows
 from lfm_quant_tpu_torch.ops.losses import finalize_loss, make_loss_parts
 from lfm_quant_tpu_torch.ops.metrics import spearman_ic
 from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
+from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
 from lfm_quant_tpu_torch.train.optim import AdamW, AdamWState
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
-from lfm_quant_tpu_torch.weights import flax_param_map, load_flax_params
+from lfm_quant_tpu_torch.weights import (
+    flatten_params,
+    flax_param_map,
+    load_flax_params,
+)
 from lfm_quant_tpu_torch.weights import init_params as seeded_init
+
+#: ``rebind`` sentinel: "keep the previous run_dir" (an explicit None
+#: drops it: a fold that must not checkpoint).
+_KEEP = object()
 
 
 def _point_forecast(out):
     """Point forecast from either head type (mean for heteroscedastic)."""
     return out[0] if isinstance(out, tuple) else out
+
+
+def graft_params(params: Mapping[str, torch.Tensor], init_params
+                 ) -> Dict[str, np.ndarray]:
+    """``init_params`` (a Flax tree, nested or flat, of arrays or tensors
+    on any device) held to a trainer's ``params`` (Flax path → tensor)
+    and copied to the host: the walk-forward warm start's weights. Only
+    the weights carry over; the optimizer restarts from zero moments
+    (``init_state``). A tree of other paths or shapes raises a
+    ``ValueError`` that says so, instead of failing deep in a copy."""
+
+    def host(tree):
+        if isinstance(tree, Mapping):
+            return {k: host(v) for k, v in tree.items()}
+        if torch.is_tensor(tree):
+            return tree.detach().to("cpu", torch.float32).numpy().copy()
+        return np.array(tree, np.float32)
+
+    flat = flatten_params(host(init_params))
+    if "params" in {k.split("/")[0] for k in flat}:
+        flat = {k[len("params/"):]: v for k, v in flat.items()}
+    want = {k: tuple(p.shape) for k, p in params.items()}
+    got = {k: tuple(v.shape) for k, v in flat.items()}
+    if want != got:
+        raise ValueError(
+            "init_params does not match this trainer's parameter tree/"
+            "shapes — warm starts require the same model config across "
+            f"folds (expected {want}, got {got})")
+    return flat
 
 
 def make_loss_fn(name: str) -> Callable:
@@ -122,6 +163,13 @@ class Predictor:
                   else gather_windows_packed)
         return gather(self.dev["xm"], firm_idx, time_idx, self.window,
                       fp=self.fp)
+
+    @staticmethod
+    def _key(cfg: RunConfig):
+        """What the model and the device panel are built from (besides
+        the panel itself)."""
+        return (cfg.model, compute_dtype(cfg), cfg.data.window,
+                cfg.data.gather_impl)
 
     def _apply(self, x: torch.Tensor, m: torch.Tensor):
         """Flatten the [D, Bf] batch dims → one model batch, reapply."""
@@ -335,11 +383,35 @@ class Trainer(Predictor):
     def __init__(self, cfg: RunConfig, splits: PanelSplits,
                  run_dir: Optional[str] = None, echo: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
-        if cfg.optim.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {cfg.optim.optimizer!r} is not ported (lamb: "
-                "ROADMAP.md Queue A); use adamw")
+        check_optimizer(cfg)
         super().__init__(cfg, splits.panel, device=device)
+        self._bind(cfg, splits, run_dir, echo)
+
+    def rebind(self, cfg: Optional[RunConfig] = None,
+               splits: Optional[PanelSplits] = None, run_dir: Any = _KEEP,
+               echo: Optional[bool] = None) -> "Trainer":
+        """Re-initialize for the next walk-forward fold: new split
+        boundaries, samplers seeded from the new config, a new run dir,
+        the state dropped. An omitted argument keeps the previous value;
+        ``run_dir=None`` drops the run dir. The model and the device panel
+        are kept while the panel and the model's config are unchanged,
+        else rebuilt as a fresh construction would. (The JAX trainer's
+        rebind also keeps its compiled programs; the port has no program
+        cache, so there is nothing more to keep.) Returns self."""
+        cfg = self.cfg if cfg is None else cfg
+        splits = self.splits if splits is None else splits
+        check_optimizer(cfg)
+        if splits.panel is not self.panel or self._key(cfg) != self._key(
+                self.cfg):
+            Predictor.__init__(self, cfg, splits.panel, device=self.device)
+        self._bind(cfg, splits, self.run_dir if run_dir is _KEEP else run_dir,
+                   self.echo if echo is None else echo)
+        return self
+
+    def _bind(self, cfg: RunConfig, splits: PanelSplits,
+              run_dir: Optional[str], echo: bool) -> None:
+        """The fit's splits, samplers, loss and optimizer."""
+        self.cfg = cfg
         self.splits = splits
         self.run_dir = run_dir
         self.echo = echo
@@ -471,8 +543,10 @@ class Trainer(Predictor):
             ) -> Dict[str, Any]:
         """Train with early stopping, in the lock-step form of the JAX
         ``_fit_impl``. ``resume=True`` continues from ``ckpt/latest``;
-        ``init_params`` (a Flax tree) replaces the seeded init, the
-        optimizer starting fresh. Restores the best state at the end.
+        ``init_params`` (a Flax tree, or another trainer's
+        ``state.params``: the walk-forward warm start) replaces the seeded
+        init through :func:`graft_params`, the optimizer starting fresh; a
+        crash resume takes precedence. Restores the best state at the end.
 
         Returns the summary (best val IC and epoch, epochs run, steps,
         firm-months per second, the per-epoch ``history``) and
@@ -480,7 +554,8 @@ class Trainer(Predictor):
         cfg = self.cfg
         if cfg.optim.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")
-        state = self.init_state(init_params)
+        state = self.init_state(None if init_params is None else graft_params(
+            flax_param_map(self.model), init_params))
         harness = FitHarness(self.run_dir, cfg.optim.epochs,
                              cfg.optim.early_stop_patience,
                              self._steps_per_epoch)
@@ -543,6 +618,82 @@ class Trainer(Predictor):
             "step_losses": step_losses,
         }
 
+    # ---- inference -------------------------------------------------------
+
+    def predict(self, split: str = "test", mc_samples: int = 0,
+                date_range: Optional[Tuple[int, int]] = None,
+                return_variance: bool = False, require_target: bool = True
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """Forecasts for every eligible anchor of a split's months:
+        ``(forecast [N, T] float32, valid [N, T] bool)`` over the WHOLE
+        panel, valid only inside the range, on the host (the backtest's
+        input). The forward is the trained model's on the device (the
+        gather and the fused recurrence kernels on the card), chunked over
+        months as the validation sweep is.
+
+        ``date_range`` (month indices, end-exclusive) replaces the split's
+        range: the walk-forward predicts each fold's window with it.
+        ``require_target=False`` also forecasts LIVE anchors, whose
+        outcome is not observable yet (the forecast entry point).
+        ``mc_samples > 0`` and ``return_variance`` raise: MC-dropout and
+        the heteroscedastic variance forward are not ported (ROADMAP.md
+        Queue A items 3 and 4)."""
+        check_predict_options(mc_samples, return_variance)
+        b = predict_batch(self.cfg, self.splits, split, date_range,
+                          require_target)
+        self.model.eval()
+        pred = self.predict_scores(b.firm_idx, b.time_idx)
+        return scatter_forecasts(b, pred.float().cpu().numpy(),
+                                 self.panel)
+
+
+def check_optimizer(cfg: RunConfig) -> None:
+    if cfg.optim.optimizer != "adamw":
+        raise NotImplementedError(
+            f"optimizer {cfg.optim.optimizer!r} is not ported (lamb: "
+            "ROADMAP.md Queue A); use adamw")
+
+
+def check_predict_options(mc_samples: int, return_variance: bool) -> None:
+    """The prediction options the port does not have yet."""
+    if mc_samples > 0:
+        raise NotImplementedError(
+            "mc_samples > 0 (MC-dropout sampling) needs the dropout models, "
+            "which are not ported yet (ROADMAP.md Queue A item 3)")
+    if return_variance:
+        raise NotImplementedError(
+            "return_variance needs the heteroscedastic variance forward, "
+            "which is not ported yet (ROADMAP.md Queue A item 4)")
+
+
+def predict_batch(cfg: RunConfig, splits: PanelSplits, split: str,
+                  date_range: Optional[Tuple[int, int]],
+                  require_target: bool) -> WindowIndex:
+    """Every eligible cross-section of ``date_range`` (default the split's
+    range) as one ``[M, bf]`` index batch: the input of ``predict``."""
+    d = cfg.data
+    sampler = DateBatchSampler(
+        splits.panel, d.window, 1, d.firms_per_date, seed=0,
+        min_valid_months=d.min_valid_months, min_cross_section=1,
+        date_range=date_range or splits.range_of(split),
+        require_target=require_target)
+    return sampler.stacked_cross_sections()
+
+
+def scatter_forecasts(b: WindowIndex, pred: np.ndarray, panel: Panel
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """``pred [..., M, bf]`` of the batch ``b`` → ``([..., N, T] forecasts,
+    [N, T] validity)`` over the whole panel (zero and False elsewhere)."""
+    real = b.weight > 0
+    rows = b.firm_idx[real]
+    cols = np.broadcast_to(b.time_idx[:, None], b.firm_idx.shape)[real]
+    out = np.zeros(pred.shape[:-2] + (panel.n_firms, panel.n_months),
+                   np.float32)
+    out[..., rows, cols] = pred[..., real]
+    valid = np.zeros((panel.n_firms, panel.n_months), bool)
+    valid[rows, cols] = True
+    return out, valid
+
 
 def default_split_dates(panel: Panel, d) -> Tuple[int, int]:
     """The default (train_end, val_end): the configured dates when set,
@@ -553,6 +704,18 @@ def default_split_dates(panel: Panel, d) -> Tuple[int, int]:
     return train_end, val_end
 
 
+def splits_for(cfg: RunConfig, panel: Optional[Panel] = None
+               ) -> PanelSplits:
+    """The config's panel (built when not given) split at its default
+    dates."""
+    d = cfg.data
+    if panel is None:
+        panel = resolve_panel(d)
+    train_end, val_end = default_split_dates(panel, d)
+    return PanelSplits.by_date(panel, train_end, val_end,
+                               train_start=d.train_start)
+
+
 def run_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
                    echo: bool = False, resume: bool = False,
                    device: Optional[Union[str, torch.device]] = None
@@ -560,12 +723,7 @@ def run_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
     """Config → panel → splits → train; writes ``config.json`` and
     ``summary.json`` into ``<out_dir>/<name>/seed<seed>``. Returns
     (summary, trainer, splits)."""
-    d = cfg.data
-    if panel is None:
-        panel = resolve_panel(d)
-    train_end, val_end = default_split_dates(panel, d)
-    splits = PanelSplits.by_date(panel, train_end, val_end,
-                                 train_start=d.train_start)
+    splits = splits_for(cfg, panel)
     run_dir = os.path.join(cfg.out_dir, cfg.name, f"seed{cfg.seed}")
     trainer = Trainer(cfg, splits, run_dir=run_dir, echo=echo, device=device)
     summary = trainer.fit(resume=resume)
@@ -574,8 +732,26 @@ def run_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as fh:
         fh.write(cfg.to_json())
+    # Clears a stale marker of a seed ensemble once written here.
+    mark_ensemble_run_dir(run_dir, False)
     with open(os.path.join(run_dir, "summary.json"), "w") as fh:
         json.dump({k: v for k, v in summary.items()
                    if k not in ("history", "step_losses")}, fh, indent=2,
                   default=str)
     return summary, trainer, splits
+
+
+def load_trainer(run_dir: str, panel: Optional[Panel] = None,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> Tuple[Trainer, PanelSplits]:
+    """A :class:`Trainer` rebuilt from a run dir (its ``config.json``, the
+    panel it resolves to unless ``panel`` is given, the default splits),
+    its best checkpoint restored: the backtest and forecast entry points'
+    model."""
+    with open(os.path.join(run_dir, "config.json")) as fh:
+        cfg = RunConfig.from_json(fh.read())
+    splits = splits_for(cfg, panel)
+    trainer = Trainer(cfg, splits, run_dir=run_dir, device=device)
+    best = CheckpointManager(os.path.join(run_dir, "ckpt", "best"))
+    trainer.state = trainer.load_state(best.restore())
+    return trainer, splits
