@@ -102,9 +102,28 @@ imports nothing of JAX. Phases, each fatal on failure:
    stitched validity is exactly the eligible cells of the two windows;
    the stitched panel is scored on the card (mode ``mean``) and held to
    the numpy engine. Prints the time of each fold and of the scoring;
-9. print one ``{"kernels": [...]}`` line (launches: phases 4, 5 and 8 for
-   the one-seed rows, 6 and 7 for the seed rows);
-10. print the result line ``{"ok": true, "device": {...}}`` last.
+9. c3 at full width (the GRU, hidden 128, bf16, 8000 x 480, the full
+   cross-section: Bf the widest train pool rounded up, 8 x Bf windows a
+   step; the rank-IC loss; ``n_data_shards`` 8 resolves to 1 in one
+   process; epochs cut to 1): the gather, row 3 (beside one cuDNN
+   ``nn.GRU`` call) and row 4 held to their plain versions and timed at
+   the c3 step's shapes; the first 3 steps from the seeded init against
+   the plain path on the card (atol 0.05 + rtol 0.05, finite); one step
+   launches the gather, the tensor-core fused forward and its backward
+   exactly once and no CUDA-core kernel; then ms per step, firm-months/s
+   and the peak memory of steady steps, their profile (the rank-IC
+   loss's forward and backward, profiled alone, as a share of the step's
+   device time, beside rows 3 and 4), and one epoch with its validation
+   sweep on the kernels (its wall time and peak memory);
+10. c3 on 2 processes that share the card (gloo, a ``file://``
+   rendezvous in a temporary directory, ``n_data_shards`` 2, the kernels
+   phase 2 built): each rank's first 3 steps' losses and grad norms and
+   its month-sharded validation sweep within the training gate of phase
+   9's one process, each rank's kernels launched, its ms per step; a
+   rank that fails or outlives the limit fails the phase;
+11. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9
+   and 10 for the one-seed rows, 6 and 7 for the seed rows);
+12. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -196,6 +215,12 @@ SEED_SOURCES = {
         "window_gather", "csrc/window_gather.cu",
         "pallas_gather.py:100 (seed fold: _call_vmap :169)"),
 }
+C3_PLAIN_STEPS = 3   # c3 steps held against the plain path and phase 10
+C3_TIMED_STEPS = 4   # c3 steps timed and profiled
+C3_KERNELS = ("window_gather", "rnn_fused_fwd_mma_gru",
+              "rnn_fused_bwd_mma_gru")
+C3_RANKS = 2         # phase 10's processes on the one card
+RANKS_TIMEOUT_S = 600
 C5_PLAIN_STEPS = 3   # c5 steps held against the plain path
 C5_PLAIN_BLOCK = 8   # seed_block of the plain path (its autograd memory)
 GATHER_NO_LIBRARY = (
@@ -437,6 +462,33 @@ def rnn_inputs(torch, gen, cell, B, T, H, dtype):
     m = (torch.rand(B, T, generator=gen) < 0.75).cuda()
     m[0] = False  # an all-invalid row stays at the zero state
     return hin, wx, b, wh, m
+
+
+def check_gather(torch, kernels, where: str, xm, fi_np, ti_np, window: int,
+                 fp: int, n_months: int):
+    """The gather at a main path's index batch ``[D, Bf]``: exact against
+    its plain version, timed beside its bound. Returns its windows."""
+    from lfm_quant_tpu_torch.data.windows import gather_windows_packed
+    from lfm_quant_tpu_torch.ops.gather import gather_windows
+
+    fi = torch.from_numpy(fi_np).cuda()
+    ti = torch.from_numpy(ti_np).cuda()
+    x, m = gather_windows(xm, fi, ti, window, fp=fp)
+    xr, mr = gather_windows_packed(xm, fi, ti, window, fp=fp)
+    torch.cuda.synchronize()
+    if not (torch.equal(x, xr) and torch.equal(m, mr)):
+        fail(f"gather at the {where} shape differs")
+    del xr, mr
+    report(kernels, "window_gather", where, dict(
+        shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
+        **kernel_ms(lambda: gather_windows(xm, fi, ti, window, fp=fp),
+                    launches=20),
+        plain_ms=time_ms(lambda: gather_windows_packed(xm, fi, ti, window,
+                                                       fp=fp)),
+        bound_ms=gather_bound(fi_np, ti_np, window, fp, n_months,
+                              xm.element_size()),
+        bound_by="bytes", library_ms=None, library_note=GATHER_NO_LIBRARY))
+    return x, m
 
 
 def check_small(torch, gen) -> None:
@@ -1235,8 +1287,8 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
 
 
 def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
-                    dh) -> None:
-    """Row 4 at the c2 train step in bf16: the tensor-core kernels (the
+                    dh, where: str = "c2 train step") -> None:
+    """Row 4 at a train step (``where``) in bf16: the tensor-core kernels (the
     route's choice at this H), twice for bitwise equal weight gradients,
     against the plain version (the weight gradients at ``MMA_WGRAD_TOL``)
     and timed beside the bound; the ``library_ms`` yardstick of the
@@ -1248,7 +1300,7 @@ def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
 
     B, T, H = hin.shape
     if R._mma_route(hin.dtype, H) != "mma":
-        fail(f"rnn fused bwd {cell} at the train shape: the route is not mma")
+        fail(f"rnn fused bwd {cell} at the {where}: the route is not mma")
     xw = hin.float() @ wx.float() + b.float()
     h, c = R.rnn_scan_states(cell, xw, wh, mm)
     h, c = h.to(hin.dtype), (None if c is None else c.to(hin.dtype))
@@ -1276,12 +1328,12 @@ def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
     torch.cuda.synchronize()
     if not all(torch.equal(p, q) for p, q in zip(one[1:], two[1:])):
         fail(f"{name}: two launches differ")
-    err = grads_close(f"{name} at the train shape", one, want, hin.dtype,
+    err = grads_close(f"{name} at the {where}", one, want, hin.dtype,
                       MMA_WGRAD_TOL)
     wgrad_err = max(scaled_err(g, w) for g, w in zip(one[1:], want[1:]))
     del one, two, want
     ms = kernel_ms(run, reps=5, launches=4)
-    report(kernels, name, "c2 train step", dict(
+    report(kernels, name, where, dict(
         shape=[B, T, H], max_abs_err=err, wgrad_scaled_err=wgrad_err,
         bitwise_repeatable=True,
         tolerance=f"scaled atol {BF16_TOL}, weight gradients "
@@ -1290,18 +1342,19 @@ def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
         library_ms=library_ms,
         pack_wx_ms=time_ms(lambda: R.pack_fragments(wx)),
         pack_wxt_ms=time_ms(lambda: R.pack_fragments(wx, transpose=True))))
-    log(f"rnn fused bwd {cell} at the c2 train step: tensor cores "
+    log(f"rnn fused bwd {cell} at the {where}: tensor cores "
         f"{ms['ms']:.4f} ms (device {ms['device_ms']:.4f}), bound "
         f"{bound:.4f} ms, weight-gradient matmuls (library) {library_ms:.4f} "
         f"ms")
     torch.cuda.empty_cache()
 
 
-def profile_device(torch, fn, label: str) -> None:
+def profile_device(torch, fn, label: str) -> dict:
     """Device time by kernel name over ``fn`` under ``torch.profiler``,
     and the device's busy share of the wall time (summed kernel times over
-    the wall clock). Informational: it runs after the launch counts were
-    read."""
+    the wall clock); returns the device ms by kernel name (empty when the
+    trace holds no device time). Informational: it runs after the launch
+    counts were read."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1322,11 +1375,12 @@ def profile_device(torch, fn, label: str) -> None:
     busy = sum(by_name.values())
     if not busy:
         log(f"profile {label}: no device time in the trace (not measured)")
-        return
+        return by_name
     log(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} "
         f"ms ({100 * busy / wall_ms:.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    return by_name
 
 
 def counted(label: str, must_move, fn, must_not=()):
@@ -1395,12 +1449,14 @@ def short_run(torch, cfg, splits, n_steps: int):
 def profile_step(torch, trainer, state, fi, ti, w) -> None:
     """The forward (gather, model, loss), backward and optimizer times of
     one train step, with CUDA events."""
+    from lfm_quant_tpu_torch.ops.losses import finalize_loss
+
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     keys = list(state.params)
     trainer.model.train()
     torch.cuda.synchronize()
     ev[0].record()
-    loss = trainer._loss(fi, ti, w)
+    loss = finalize_loss(*trainer._loss_parts(fi, ti, w))
     ev[1].record()
     grads = torch.autograd.grad(loss, [state.params[k] for k in keys])
     ev[2].record()
@@ -2289,6 +2345,316 @@ def walkforward_phase(torch, cfg, panel, totals) -> None:
     torch.cuda.empty_cache()
 
 
+def c3_config(n_data_shards: int = 1):
+    """c3 at full width, cut to one epoch (its 30 epochs are not run)."""
+    from lfm_quant_tpu_torch.config import get_preset
+
+    cfg = get_preset("c3")
+    return dataclasses.replace(
+        cfg, n_data_shards=n_data_shards,
+        optim=dataclasses.replace(cfg.optim, epochs=1))
+
+
+def c3_splits(cfg):
+    from lfm_quant_tpu_torch.data.panel import PanelSplits
+    from lfm_quant_tpu_torch.train.loop import default_split_dates, \
+        resolve_panel
+
+    panel = resolve_panel(cfg.data)
+    return PanelSplits.by_date(panel, *default_split_dates(panel, cfg.data),
+                               train_start=cfg.data.train_start)
+
+
+def c3_steps(torch, trainer, n_steps: int):
+    """``n_steps`` steps of ``trainer`` from the seeded init on epoch 0's
+    batches → (per-step losses, per-step grad norms, the state)."""
+    state = trainer.init_state()
+    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(0))
+    losses, gnorms = [], []
+    for k in range(n_steps):
+        state, ms = trainer.step(state, fi[k], ti[k], w[k])
+        losses.append(ms["loss"])
+        gnorms.append(ms["grad_norm"])
+    return ([float(v) for v in torch.stack(losses).cpu()],
+            [float(v) for v in torch.stack(gnorms).cpu()], state)
+
+
+def check_c3_step_shapes(torch, trainer, kernels, gen) -> None:
+    """The gather, row 3 and row 4 at the c3 train step's shapes (the
+    GRU's own weights, bf16): the first batch of ``stacked_epoch(0)``,
+    ``[8, Bf]`` windows, B = 8 Bf rows. Row 3 beside one cuDNN
+    ``nn.GRU`` call (a GRU saves no c_all: the training forward is the
+    serving one), row 4 beside its weight-gradient products."""
+    b = trainer.train_sampler.stacked_epoch(0)
+    d = trainer.cfg.data
+    model = trainer.model
+    cd = model.dtype
+    with torch.inference_mode():
+        x, m = check_gather(torch, kernels, "c3 train step",
+                            trainer.dev["xm"], b.firm_idx[0], b.time_idx[0],
+                            d.window, trainer.fp, trainer.panel.n_months)
+        B = x.shape[0] * x.shape[1]
+        hin = model.embed(x.reshape(B, d.window, -1), dtype=cd)
+        mm = m.reshape(B, d.window)
+        del x, m
+        wx = model.xproj[0].kernel.detach().to(cd)
+        bb = model.xproj[0].bias.detach().to(cd)
+        wh = model.h_proj[0].detach().to(cd)
+        check_fused_fwd(torch, kernels, "c3 train step", "gru", hin, wx, bb,
+                        wh, mm, save_c=False)
+        dh = (0.1 * torch.randn(tuple(hin.shape), generator=gen)).to(
+            cd).cuda()
+        check_fused_bwd(torch, kernels, "gru", hin, wx, bb, wh, mm, dh,
+                        where="c3 train step")
+        del hin, mm, dh
+    torch.cuda.empty_cache()
+
+
+def c3_phase(torch, kernels, totals: dict, gen) -> dict:
+    """Phase 9: c3 (the rank-IC GRU, full cross-section) for one epoch on
+    the kernels, held to the plain path; its step's time, memory and
+    profile. Returns what phase 10 is held to: the first steps' losses
+    and grad norms and the sweep after them."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.data.windows import gather_targets
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    cfg = c3_config()
+    t0 = time.perf_counter()
+    splits = c3_splits(cfg)
+    trainer = Trainer(cfg, splits, device="cuda")
+    if trainer.mesh.n_data != 1:
+        fail(f"c3 in one process: n_data {trainer.mesh.n_data}, not 1")
+    d = cfg.data
+    Bf = trainer.train_sampler.firms_per_date
+    K = trainer._steps_per_epoch
+    log(f"c3: panel {splits.panel.features.shape} and trainer in "
+        f"{time.perf_counter() - t0:.1f} s; n_data_shards "
+        f"{cfg.n_data_shards} resolves to 1 in one process; resolved Bf "
+        f"{Bf} (firms_per_date 0: the widest pool), {K} steps of "
+        f"{d.dates_per_batch} x {Bf} = {d.dates_per_batch * Bf} windows")
+    check_c3_step_shapes(torch, trainer, kernels, gen)
+
+    # The first steps on the kernels against the plain path on the card.
+    losses, gnorms, state = c3_steps(torch, trainer, C3_PLAIN_STEPS)
+    ev = trainer.evaluate()
+    plain = Trainer(plain_variant(cfg), splits, device="cuda")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    want, want_gn, _ = c3_steps(torch, plain, C3_PLAIN_STEPS)
+    plain_s = time.perf_counter() - t0
+    if any(_build.launch_counts().values()):
+        fail(f"the plain c3 path launched kernels: {_build.launch_counts()}")
+    err = losses_agree("c3 kernels vs plain", losses, want)
+    log(f"c3: {C3_PLAIN_STEPS} steps agree with the plain path ({plain_s:.1f}"
+        f" s) within {err:.4g}: losses {losses} / {want}, grad norms "
+        f"{gnorms} / {want_gn}; sweep after them ic {ev['ic']:.6f} mse "
+        f"{ev['mse']:.6f}")
+    del plain
+    torch.cuda.empty_cache()
+
+    # One step: each kernel of the step exactly once, no CUDA-core one.
+    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
+    _build.reset_launch_counts()
+    state, _ = trainer.step(state, fi[0], ti[0], w[0])
+    counts = _build.launch_counts()
+    for k in C3_KERNELS:
+        if counts[k] != 1:
+            fail(f"one c3 step launched {k} {counts[k]} times, not once")
+    if any(counts[k] for k in CUDA_CORE):
+        fail(f"a c3 step launched a CUDA-core kernel: {counts}")
+    log(f"launches in one c3 step: "
+        f"{ {k: n for k, n in counts.items() if n} }")
+
+    # Steady state: ms per step, memory, the device's view.
+    n = C3_TIMED_STEPS
+
+    def steps():
+        st = state
+        for k in range(1, n + 1):
+            st, _ = trainer.step(st, fi[k], ti[k], w[k])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    fm = float(w[1:n + 1].sum()) * d.window / n
+    log(f"train c3 steady state: {1e3 * per_step:.3f} ms/step, "
+        f"{1 / per_step:.2f} steps/s, {fm / per_step:.1f} firm-months/s "
+        f"({n} steps, host clock around synchronized work); peak memory "
+        f"{peak:.2f} GiB")
+    by_step = profile_device(torch, steps, f"c3 train, {n} steps")
+
+    # The rank-IC loss alone, forward and backward, on a step's outputs.
+    with torch.no_grad():
+        x, m = trainer._gather(fi[1], ti[1])
+        out = trainer._apply(x, m).float()
+        y = gather_targets(trainer.dev["targets"], fi[1], ti[1])
+        del x, m
+    out.requires_grad_(True)
+
+    def loss_once():
+        num, den = trainer.loss_parts(out, y, w[1])
+        (num / den).backward()
+
+    loss_ms = time_ms(loss_once, reps=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss_once()
+    torch.cuda.synchronize()
+    loss_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    by_loss = profile_device(torch, lambda: [loss_once() for _ in range(n)],
+                             f"c3 rank-IC loss forward and backward, {n} "
+                             f"times")
+    step_dev = sum(by_step.values())
+    if step_dev and by_loss:
+        shares = {
+            "rank-IC loss": sum(by_loss.values()),
+            "row 3 (rnn_fwd_mma_kernel)": sum(
+                v for k, v in by_step.items() if "rnn_fwd_mma" in k),
+            "row 4 (rnn_bwd_mma_*)": sum(
+                v for k, v in by_step.items() if "rnn_bwd_mma" in k),
+            "gather": sum(v for k, v in by_step.items()
+                          if "window_gather" in k)}
+        log("c3 step device time " + f"{step_dev / n:.3f} ms: " + ", ".join(
+            f"{k} {v / n:.3f} ms ({100 * v / step_dev:.1f}%)"
+            for k, v in shares.items()))
+    log(f"c3 rank-IC loss alone: {loss_ms:.3f} ms forward and backward "
+        f"(CUDA events), {loss_peak:.2f} GiB above its inputs; pairwise "
+        f"array [{d.dates_per_batch}, {Bf}, {Bf}] f32 = "
+        f"{d.dates_per_batch * Bf * Bf * 4 / 2 ** 20:.0f} MiB")
+    del out, y, state
+    torch.cuda.empty_cache()
+
+    # One epoch with its validation sweep: the main path, counted.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary, counts = counted("c3 training", C3_KERNELS, trainer.fit,
+                              must_not=CUDA_CORE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if counts["rnn_fused_bwd_mma_gru"] != K or counts["window_gather"] != K:
+        fail(f"c3 epoch of {K} steps: launches {counts}")
+    for k, v in counts.items():
+        totals[k] += v
+    rec = summary["history"][0]
+    if not all(np.isfinite(rec[k]) for k in ("train_loss", "grad_norm",
+                                             "val_ic", "val_mse")):
+        fail(f"c3 epoch: {rec}")
+    log(f"train c3 (kernels): {K} steps + val sweep in {wall:.3f} s; "
+        f"train_loss {rec['train_loss']:.6f} grad_norm "
+        f"{rec['grad_norm']:.6f} val_ic {rec['val_ic']:.6f} val_mse "
+        f"{rec['val_mse']:.6f}; {summary['firm_months_per_sec']:.1f} "
+        f"firm-months/s over the epoch; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": gnorms, "eval": ev,
+            "ms_step": 1e3 * per_step}
+
+
+def c3_rank_job(n_steps: int, timed_steps: int) -> dict:
+    """One rank of phase 10, in its own process: c3 at full width,
+    date-sharded over the job's ranks, on card 0 with the kernels phase 2
+    built. Its first steps from the seeded init, the month-sharded sweep
+    after them, their launches, then the time of ``timed_steps`` more."""
+    import torch
+
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.loop import Trainer
+    from lfm_quant_tpu_torch.utils import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    cfg = c3_config(n_data_shards=D.world_size())
+    trainer = Trainer(cfg, c3_splits(cfg), device="cuda:0")
+    _build.reset_launch_counts()
+    losses, gnorms, state = c3_steps(torch, trainer, n_steps)
+    ev = trainer.evaluate()
+    counts = _build.launch_counts()
+    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
+    state, _ = trainer.step(state, fi[0], ti[0], w[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, timed_steps + 1):
+        state, _ = trainer.step(state, fi[k], ti[k], w[k])
+    torch.cuda.synchronize()
+    return {"rank": D.rank(), "n_data": trainer.mesh.n_data,
+            "losses": losses, "grad_norms": gnorms, "eval": ev,
+            "launches": counts, "built_here": _build.BUILD_INFO["seconds"],
+            "ms_step": 1e3 * (time.perf_counter() - t0) / timed_steps,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def two_ranks_phase(torch, one: dict, totals: dict) -> None:
+    """Phase 10: c3 on ``C3_RANKS`` processes that share the one card
+    (gloo: NCCL refuses two ranks on one device), a ``file://``
+    rendezvous in a temporary directory, ``n_data_shards`` = the ranks.
+    Each rank's first steps' losses and grad norms and its month-sharded
+    sweep are held to phase 9's one process within the training gate;
+    each rank's kernels must have launched. A rank that fails or outlives
+    the limit fails the phase: there is no fallback to one process."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from lfm_quant_tpu_torch.parallel.launch import run_ranks
+
+    tmp = tempfile.mkdtemp(prefix="lfm_c3_ranks_")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(C3_RANKS, "chip_smoke:c3_rank_job",
+                          dict(n_steps=C3_PLAIN_STEPS,
+                               timed_steps=C3_TIMED_STEPS),
+                          tmp, RANKS_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 10, {C3_RANKS} ranks on one card: {e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    for got in ranks:
+        r = got["rank"]
+        if got["n_data"] != C3_RANKS:
+            fail(f"rank {r}: n_data {got['n_data']}, not {C3_RANKS}")
+        if got["built_here"] is not None:
+            fail(f"rank {r} rebuilt the kernels ({got['built_here']} s)")
+        for k in C3_KERNELS:
+            if got["launches"][k] < C3_PLAIN_STEPS:
+                fail(f"rank {r}: {k} launched {got['launches'][k]} times "
+                     f"in {C3_PLAIN_STEPS} steps")
+            totals[k] += got["launches"][k]
+        worst = max(worst,
+                    losses_agree(f"rank {r} losses", got["losses"],
+                                 one["losses"]),
+                    losses_agree(f"rank {r} grad norms", got["grad_norms"],
+                                 one["grad_norms"]),
+                    losses_agree(f"rank {r} sweep (ic, mse)",
+                                 [got["eval"]["ic"], got["eval"]["mse"]],
+                                 [one["eval"]["ic"], one["eval"]["mse"]]))
+        if got["eval"]["n_months"] != one["eval"]["n_months"]:
+            fail(f"rank {r}: sweep over {got['eval']['n_months']} months")
+    if not np.array_equal(ranks[0]["losses"], ranks[1]["losses"]):
+        fail(f"the ranks' losses differ: {[g['losses'] for g in ranks]}")
+    log(f"c3 on {C3_RANKS} ranks sharing the card (gloo): job {wall:.1f} s; "
+        f"losses, grad norms and the sweep within {worst:.4g} of one "
+        f"process (tol {BF16_TOL} + {BF16_TOL}|one|); "
+        + "; ".join(f"rank {g['rank']}: {g['ms_step']:.3f} ms/step, peak "
+                    f"{g['peak_gib']:.2f} GiB, launches "
+                    f"{ {k: g['launches'][k] for k in C3_KERNELS} }"
+                    for g in ranks)
+        + f"; one process {one['ms_step']:.3f} ms/step")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lfm_quant_tpu_torch")):
         fail("lfm_quant_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -2315,12 +2681,8 @@ def main() -> int:
 
     from lfm_quant_tpu_torch.config import get_preset
     from lfm_quant_tpu_torch.data.panel import PanelSplits
-    from lfm_quant_tpu_torch.data.windows import (
-        DateBatchSampler,
-        gather_windows_packed,
-    )
+    from lfm_quant_tpu_torch.data.windows import DateBatchSampler
     from lfm_quant_tpu_torch.ops import _build
-    from lfm_quant_tpu_torch.ops.gather import gather_windows
     from lfm_quant_tpu_torch.serve import ScoringService
     from lfm_quant_tpu_torch.serve.__main__ import drive_load
     from lfm_quant_tpu_torch.train.loop import (
@@ -2365,25 +2727,10 @@ def main() -> int:
         fi_np, ti_np = widest_dispatch(panel, d, max_rows)
         xm = plain.dev["xm"]
         fp = panel.n_features + 1
-        fi = torch.from_numpy(fi_np).cuda()
-        ti = torch.from_numpy(ti_np).cuda()
         with torch.inference_mode():
             # Gather at the dispatch shape: exact.
-            x, m = gather_windows(xm, fi, ti, d.window, fp=fp)
-            xr, mr = gather_windows_packed(xm, fi, ti, d.window, fp=fp)
-            torch.cuda.synchronize()
-            if not (torch.equal(x, xr) and torch.equal(m, mr)):
-                fail(f"gather at the {name} dispatch shape differs")
-            report(kernels, "window_gather", f"{name} serving", dict(
-                shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
-                **kernel_ms(lambda: gather_windows(xm, fi, ti, d.window,
-                                                   fp=fp), launches=20),
-                plain_ms=time_ms(lambda: gather_windows_packed(
-                    xm, fi, ti, d.window, fp=fp)),
-                bound_ms=gather_bound(fi_np, ti_np, d.window, fp,
-                                      panel.n_months, xm.element_size()),
-                bound_by="bytes", library_ms=None,
-                library_note=GATHER_NO_LIBRARY))
+            x, m = check_gather(torch, kernels, f"{name} serving", xm, fi_np,
+                                ti_np, d.window, fp, panel.n_months)
             # The recurrence on the layer-0 input this batch produces.
             model = plain.model
             cd = model.dtype or torch.float32
@@ -2395,7 +2742,7 @@ def main() -> int:
             wh = model.h_proj[0].to(cd)
             check_fused_fwd(torch, kernels, f"{name} serving", cell, hin, wx,
                             b, wh, mm, save_c=False)
-            del x, xr, m, mr, hin
+            del x, m, hin
         torch.cuda.empty_cache()
 
     # The train step's shapes: a c2 trainer on the card (seeded init).
@@ -2490,8 +2837,15 @@ def main() -> int:
 
     # ---- 8. c2 walk-forward ---------------------------------------------
     walkforward_phase(torch, cfg2, panel2, totals)
+    del panel2, splits2
 
-    # ---- 9. kernels line ------------------------------------------------
+    # ---- 9. c3 training at full width -----------------------------------
+    one = c3_phase(torch, kernels, totals, gen)
+
+    # ---- 10. two ranks on the one card ----------------------------------
+    two_ranks_phase(torch, one, totals)
+
+    # ---- 11. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -2517,7 +2871,7 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 10. result -----------------------------------------------------
+    # ---- 12. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,6 +18,17 @@ the kernels' plain versions. ``--scale`` shrinks the synthetic panel
 (firms and months, never the model's widths). ``--resume`` continues
 from the run directory's latest checkpoint with the same history.
 
+Data parallelism: one process per card, each started by the launcher,
+
+    torchrun --nproc-per-node N -m lfm_quant_tpu_torch.train --preset c3
+
+or with ``LFM_COORDINATOR``, ``LFM_NUM_PROCESSES`` and ``LFM_PROCESS_ID``
+set per process (``utils/distributed.py``). Each rank takes the card of
+its local rank (NCCL between cards; ``--device cpu`` ranks use gloo) and
+trains its block of each batch's dates; ``n_data_shards`` must resolve
+to the world size, and the seed ensemble takes one process. Rank 0
+writes the run directory and prints the summary.
+
 ``--walk-forward STEP_MONTHS`` retrains every STEP_MONTHS months and
 stitches the strictly out-of-sample forecasts (``train/walkforward.py``)
 into ``<out>/<name>/wf``: ``fold_<k>/`` run dirs, ``walkforward.npz`` for
@@ -89,9 +100,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "in summary.json under 'backtest'")
     args = ap.parse_args(argv)
     if args.wf_foldstack or args.sweep_grid is not None:
-        raise NotImplementedError(
-            "--wf-foldstack and --sweep-grid (stacked fold and config "
-            "sweeps) are not ported yet (ROADMAP.md Queue A item 5)")
+        from lfm_quant_tpu_torch.parallel.mesh import (
+            FOLD_AXIS,
+            STACK_AXIS,
+            axis_not_ported,
+        )
+
+        raise axis_not_ported(
+            FOLD_AXIS if args.wf_foldstack else STACK_AXIS,
+            " (--wf-foldstack and --sweep-grid: stacked fold and config "
+            "sweeps)")
     if args.walk_forward is None and (
             args.wf_start is not None or args.wf_folds is not None
             or args.wf_val_months != 24 or args.wf_warm_start
@@ -119,12 +137,30 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "variance forward, which is not ported yet (ROADMAP.md "
                 "Queue A item 4)")
 
-    from lfm_quant_tpu_torch.config import RunConfig, get_preset
+    import torch
+
     from lfm_quant_tpu_torch.device import resolve_device
-    from lfm_quant_tpu_torch.train.ensemble import run_ensemble_experiment
-    from lfm_quant_tpu_torch.train.loop import run_experiment
+    from lfm_quant_tpu_torch.utils import distributed as dist_utils
 
     device = resolve_device(args.device)  # no card: raise before any work
+    started = dist_utils.maybe_initialize(
+        backend="gloo" if device.type == "cpu" else None)
+    try:
+        if device.type == "cuda" and dist_utils.world_size() > 1:
+            device = torch.device("cuda", dist_utils.local_rank())
+            torch.cuda.set_device(device)
+        return _run(ap, args, device, wf_score_modes)
+    finally:
+        if started:
+            dist_utils.shutdown()
+
+
+def _run(ap, args, device, wf_score_modes) -> int:
+    """Config → run, on this process's device; rank 0 prints."""
+    from lfm_quant_tpu_torch.config import RunConfig, get_preset
+    from lfm_quant_tpu_torch.train.ensemble import run_ensemble_experiment
+    from lfm_quant_tpu_torch.train.loop import run_experiment
+    from lfm_quant_tpu_torch.utils import distributed as dist_utils
 
     if args.preset:
         cfg = get_preset(args.preset)
@@ -175,9 +211,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         run = run_ensemble_experiment if cfg.n_seeds > 1 else run_experiment
         summary, _, _ = run(cfg, echo=args.echo, resume=args.resume,
                             device=device)
-    print(json.dumps({k: v for k, v in summary.items()
-                      if k not in ("history", "step_losses")},
-                     indent=2, default=str))
+    if dist_utils.is_main():
+        print(json.dumps({k: v for k, v in summary.items()
+                          if k not in ("history", "step_losses")},
+                         indent=2, default=str))
     return 0
 
 

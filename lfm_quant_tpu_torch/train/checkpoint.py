@@ -6,7 +6,9 @@ a directory of committed steps, ``<line>/<step>/state.pt`` written with
 into place, so ``latest_step`` only ever sees committed steps. The run
 directory keeps the JAX package's layout: ``ckpt/latest`` keeps 2 steps,
 ``ckpt/best`` keeps 1, beside ``fit_progress.json`` and ``metrics.jsonl``.
-Saves are synchronous: ``wait`` and ``close`` have nothing to flush.
+Saves are synchronous: ``wait`` and ``close`` have nothing to flush. In a
+process group rank 0 alone writes (the state is replicated); every rank
+reads.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Any, List, Optional
 
 import torch
 
+from lfm_quant_tpu_torch.utils.distributed import is_main
+
 
 class CheckpointManager:
     """One checkpoint line: ``save`` / ``latest_step`` / ``restore``,
@@ -25,17 +29,23 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max(1, max_to_keep)
-        os.makedirs(self.directory, exist_ok=True)
+        if is_main():
+            os.makedirs(self.directory, exist_ok=True)
 
     def _steps(self) -> List[int]:
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(n) for n in os.listdir(self.directory)
                       if n.isdigit() and os.path.isfile(
                           os.path.join(self.directory, n, "state.pt")))
 
     def save(self, step: int, state: Any, wait: bool = True) -> None:
         """Commit ``state`` (a dict of tensors, ints and nested dicts) at
-        ``step``, then drop the oldest steps beyond ``max_to_keep``."""
+        ``step``, then drop the oldest steps beyond ``max_to_keep``. A
+        no-op off rank 0."""
         del wait  # saves are synchronous
+        if not is_main():
+            return
         final = os.path.join(self.directory, str(int(step)))
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)

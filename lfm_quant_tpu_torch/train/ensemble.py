@@ -14,8 +14,9 @@ products.
   + s``) and its data order from its own ``DateBatchSampler`` (``seed =
   cfg.seed + s``); an epoch is truncated to the shortest member's.
 * The loss is the SUM of the per-seed losses, so each member gets
-  exactly its own gradient; the optimizer clips by each member's own
-  global norm (``AdamW(per_seed=True)``).
+  exactly its own gradient; the optimizer (AdamW or LAMB) clips by each
+  member's own global norm, and LAMB takes each member's trust ratios
+  (``per_seed=True``).
 * ``cfg.seed_block`` runs the stack in blocks of that many seeds (the
   JAX ``scan_in_blocks``): activation memory drops to one block's, the
   per-seed math is untouched. 0, or a block at or above the seed count,
@@ -33,7 +34,8 @@ products.
   start and its folds.
 
 Out of this slice (ROADMAP.md): the async epoch pipeline, geometry
-buckets, the variance forward and the seed/data mesh.
+buckets, the variance forward and the seed axis across processes (a
+process group of more than one rank raises).
 """
 
 from __future__ import annotations
@@ -67,7 +69,6 @@ from lfm_quant_tpu_torch.train.loop import (
     FitHarness,
     TrainState,
     _point_forecast,
-    check_optimizer,
     check_predict_options,
     graft_params,
     make_loss_fn,
@@ -75,7 +76,8 @@ from lfm_quant_tpu_torch.train.loop import (
     scatter_forecasts,
     splits_for,
 )
-from lfm_quant_tpu_torch.train.optim import AdamW, AdamWState
+from lfm_quant_tpu_torch.parallel.mesh import data_mesh
+from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import flax_param_map, load_flax_params
 from lfm_quant_tpu_torch.weights import init_params as seeded_init
@@ -150,7 +152,8 @@ class EnsembleTrainer:
     def _bind(self, cfg: RunConfig, splits: PanelSplits,
               run_dir: Optional[str], echo: bool) -> None:
         """The fit's splits, per-seed samplers, loss and optimizer."""
-        check_optimizer(cfg)
+        # One process: the seed axis across ranks is not ported (raises).
+        data_mesh(cfg.n_data_shards, n_seeds=cfg.n_seeds)
         S = self.n_seeds = cfg.n_seeds
         self.seed_block = int(cfg.seed_block or 0)
         if self.seed_block < 0:
@@ -183,9 +186,9 @@ class EnsembleTrainer:
         self.loss_fn = make_loss_fn(cfg.optim.loss)
         self._steps_per_epoch = min(s.batches_per_epoch()
                                     for s in self.samplers)
-        o = cfg.optim
-        self.opt = AdamW(o.lr, o.weight_decay, o.grad_clip, o.warmup_steps,
-                         self._steps_per_epoch * o.epochs, per_seed=True)
+        self.opt = make_optimizer(cfg.optim,
+                                  self._steps_per_epoch * cfg.optim.epochs,
+                                  per_seed=True)
 
     # ---- state -----------------------------------------------------------
 

@@ -1,5 +1,6 @@
 """Training loop and scoring forward: the port of
-``lfm_quant_tpu/train/loop.py`` for one model on one device.
+``lfm_quant_tpu/train/loop.py`` for one model, on one device or
+date-sharded over one process per device.
 
 * :class:`Predictor` holds what the forward reads: the model and its
   params, the device-resident packed panel, the window gather and the
@@ -16,12 +17,23 @@
   :func:`load_trainer` rebuilds a trainer from its run dir for the
   backtest and forecast entry points.
 
-The loop is lock-step, the JAX package's ``LFM_ASYNC=0`` path: no meshes,
-no geometry buckets, no async prefetch or checkpointing (ROADMAP.md
-Queue A). The train step and ``predict`` take ``gather_impl`` (the
-kernel for "auto" and "pallas"); the validation sweep resolves as the JAX
-trainer's does, the plain gather unless ``gather_impl="pallas"`` is set
-explicitly (``loop.py:1045-1047``).
+Data parallelism (``parallel/mesh.py``): in a process group the trainer
+binds a data mesh of ``n_data_shards`` (resolved against the world size,
+one rank per shard). Every rank draws the same global batch, takes its
+block of dates, and sums the loss numerator and denominator and then the
+gradients across ranks, so the loss, the gradients and ``grad_norm``
+equal the one-process values (the JAX trainer's sharded gradients are
+``n_data`` times those: ROADMAP.md Queue C). The validation sweep and
+``predict`` give each rank a block of months and gather the results, so
+every rank takes the same early-stop decisions. Rank 0 alone writes the
+run dir, followed by a barrier; every rank reads it on resume.
+
+The loop is lock-step, the JAX package's ``LFM_ASYNC=0`` path: no geometry
+buckets, no async prefetch or checkpointing (ROADMAP.md Queue A). The
+train step and ``predict`` take ``gather_impl`` (the kernel for "auto" and
+"pallas"); the validation sweep resolves as the JAX trainer's does, the
+plain gather unless ``gather_impl="pallas"`` is set explicitly
+(``loop.py:1045-1047``).
 """
 
 from __future__ import annotations
@@ -55,9 +67,20 @@ from lfm_quant_tpu_torch.models import build_model
 from lfm_quant_tpu_torch.ops.gather import gather_windows
 from lfm_quant_tpu_torch.ops.losses import finalize_loss, make_loss_parts
 from lfm_quant_tpu_torch.ops.metrics import spearman_ic
+from lfm_quant_tpu_torch.parallel.mesh import (
+    DataMesh,
+    all_gather_dates,
+    all_reduce_flat,
+    all_reduce_sum,
+    data_mesh,
+    mesh_fingerprint,
+    month_block,
+    shard_dates,
+)
 from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
-from lfm_quant_tpu_torch.train.optim import AdamW, AdamWState
+from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
+from lfm_quant_tpu_torch.utils import distributed as dist_utils
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import (
     flatten_params,
@@ -156,6 +179,9 @@ class Predictor:
             load_flax_params(model, params)
         self.model = model.to(self.device).eval()
         self.dev = device_panel(panel, self.device, compute_dtype(cfg))
+        #: The data mesh the sweeps shard months over (a trainer binds
+        #: its own; serving runs on one device).
+        self.mesh = DataMesh()
 
     def _gather(self, firm_idx: torch.Tensor, time_idx: torch.Tensor,
                 impl: Optional[str] = None):
@@ -197,16 +223,29 @@ class Predictor:
             x, m = self._gather(fi[k:k + C], ti[k:k + C], impl)
             yield slice(k, k + C), self._apply(x, m)
 
+    def _month_rows(self, M: int) -> Tuple[torch.Tensor, int]:
+        """This rank's rows of an ``M``-month sweep (``month_block``), on
+        the device, and how many of them are real months."""
+        rows, n_real = month_block(M, self.cfg.data.dates_per_batch,
+                                   self.mesh)
+        return rows.to(self.device), n_real
+
     @torch.inference_mode()
     def predict_scores(self, firm_idx: np.ndarray, time_idx: np.ndarray
                        ) -> torch.Tensor:
         """Point forecasts ``[M, Bf]`` (f32, on the device) for an
-        ``[M, Bf]`` index batch (the scores-only forward)."""
+        ``[M, Bf]`` index batch (the scores-only forward); under a data
+        mesh each rank forecasts its block of months and every rank
+        returns all of them."""
         fi = torch.as_tensor(np.asarray(firm_idx, np.int32)).to(self.device)
         ti = torch.as_tensor(np.asarray(time_idx, np.int32)).to(self.device)
+        M = fi.shape[0]
+        if self.mesh.n_data > 1:
+            rows, _ = self._month_rows(M)
+            fi, ti = fi[rows], ti[rows]
         preds = [_point_forecast(out)
                  for _, out in self._forward_chunks(fi, ti)]
-        return torch.cat(preds, dim=0)[:fi.shape[0]]
+        return all_gather_dates(torch.cat(preds, dim=0), self.mesh)[:M]
 
     def score(self, firm_idx: np.ndarray, time_idx: np.ndarray,
               weight: np.ndarray) -> np.ndarray:
@@ -240,8 +279,8 @@ def load_progress(run_dir: str) -> Dict[str, Any]:
 
 
 def save_progress(run_dir: Optional[str], **kw) -> None:
-    """Atomic write of the progress sidecar."""
-    if run_dir:
+    """Atomic write of the progress sidecar (by rank 0 alone)."""
+    if run_dir and dist_utils.is_main():
         path = os.path.join(run_dir, "fit_progress.json")
         tmp = path + ".tmp"
         with open(tmp, "w") as fh:
@@ -357,6 +396,8 @@ class FitHarness:
                           best_ic=float(self.best_ic),
                           best_epoch=self.best_epoch,
                           bad_epochs=self.bad_epochs)
+            # Rank 0 wrote both lines; the others may read them next.
+            dist_utils.barrier()
         return self.bad_epochs >= self.patience
 
     def finalize(self) -> Optional[Dict[str, Any]]:
@@ -377,13 +418,13 @@ class Trainer(Predictor):
 
     ``device``: None means ``cuda`` (the kernels); ``"cpu"`` runs every
     kernel's plain version. ``run_dir`` None trains without checkpoints
-    or a metrics file.
+    or a metrics file. In a process group every rank constructs its own
+    trainer on its own device (see the module docstring).
     """
 
     def __init__(self, cfg: RunConfig, splits: PanelSplits,
                  run_dir: Optional[str] = None, echo: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
-        check_optimizer(cfg)
         super().__init__(cfg, splits.panel, device=device)
         self._bind(cfg, splits, run_dir, echo)
 
@@ -400,7 +441,6 @@ class Trainer(Predictor):
         cache, so there is nothing more to keep.) Returns self."""
         cfg = self.cfg if cfg is None else cfg
         splits = self.splits if splits is None else splits
-        check_optimizer(cfg)
         if splits.panel is not self.panel or self._key(cfg) != self._key(
                 self.cfg):
             Predictor.__init__(self, cfg, splits.panel, device=self.device)
@@ -410,13 +450,19 @@ class Trainer(Predictor):
 
     def _bind(self, cfg: RunConfig, splits: PanelSplits,
               run_dir: Optional[str], echo: bool) -> None:
-        """The fit's splits, samplers, loss and optimizer."""
+        """The fit's data mesh, splits, samplers, loss and optimizer."""
+        d = cfg.data
+        self.mesh = data_mesh(cfg.n_data_shards,
+                              n_seq_shards=cfg.n_seq_shards)
+        if d.dates_per_batch % self.mesh.n_data:
+            raise ValueError(
+                f"dates_per_batch={d.dates_per_batch} must be divisible by "
+                f"n_data_shards={self.mesh.n_data}")
         self.cfg = cfg
         self.splits = splits
         self.run_dir = run_dir
         self.echo = echo
         self.state: Optional[TrainState] = None
-        d = cfg.data
         self.train_sampler = DateBatchSampler(
             splits.panel, d.window, d.dates_per_batch, d.firms_per_date,
             seed=cfg.seed, min_valid_months=d.min_valid_months,
@@ -428,11 +474,10 @@ class Trainer(Predictor):
         # The eval sweep takes the kernel only when asked by name.
         self.eval_gather_impl = ("kernel" if d.gather_impl == "pallas"
                                  else "plain")
-        self.loss_fn = make_loss_fn(cfg.optim.loss)
+        self.loss_parts = make_loss_parts(cfg.optim.loss)
         self._steps_per_epoch = self.train_sampler.batches_per_epoch()
-        o = cfg.optim
-        self.opt = AdamW(o.lr, o.weight_decay, o.grad_clip, o.warmup_steps,
-                         self._steps_per_epoch * o.epochs)
+        self.opt = make_optimizer(cfg.optim,
+                                  self._steps_per_epoch * cfg.optim.epochs)
 
     # ---- state -----------------------------------------------------------
 
@@ -476,24 +521,42 @@ class Trainer(Predictor):
 
     # ---- the step --------------------------------------------------------
 
-    def _loss(self, fi: torch.Tensor, ti: torch.Tensor, w: torch.Tensor):
+    def _loss_parts(self, fi: torch.Tensor, ti: torch.Tensor,
+                    w: torch.Tensor):
+        """The loss's ``(num, den)`` on a ``[D, Bf]`` index batch."""
         x, m = self._gather(fi, ti)
         y = gather_targets(self.dev["targets"], fi, ti)
-        return self.loss_fn(self._apply(x, m), y, w)
+        return self.loss_parts(self._apply(x, m), y, w)
+
+    def _grads(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
+               w: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss and its gradients on a global ``[D, Bf]`` index batch:
+        this rank's block of dates, ``num`` and ``den`` summed over the
+        ranks in one collective, the backward of ``num_local / den_global``
+        (``den`` depends on no parameter), the gradients summed over the
+        ranks in one flat buffer. On one process: the plain loss and its
+        gradients."""
+        fi, ti, w = (shard_dates(a, self.mesh) for a in (fi, ti, w))
+        num, den = self._loss_parts(fi, ti, w)
+        num_g, den_g = all_reduce_sum(
+            torch.stack([num.detach(), den.detach()]), self.mesh)
+        keys = list(state.params)
+        grads = torch.autograd.grad(num / torch.clamp(den_g, min=1e-12),
+                                    [state.params[k] for k in keys])
+        grads = all_reduce_flat(grads, self.mesh)
+        return finalize_loss(num_g, den_g), dict(zip(keys, grads))
 
     def step(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
              w: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One train step on a ``[D, Bf]`` index batch on the device:
-        loss, gradients, one optimizer update. Returns the new state and
-        ``{"loss", "grad_norm"}`` as device scalars (no host sync)."""
+        """One train step on a global ``[D, Bf]`` index batch on the
+        device: loss, gradients, one optimizer update. Returns the new
+        state and ``{"loss", "grad_norm"}`` as device scalars (no host
+        sync), equal on every rank."""
         self.model.train()
-        keys = list(state.params)
-        loss = self._loss(fi, ti, w)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in keys])
-        gnorm = self.opt.step(state.params, dict(zip(keys, grads)),
-                              state.opt_state)
+        loss, grads = self._grads(state, fi, ti, w)
+        gnorm = self.opt.step(state.params, grads, state.opt_state)
         return (TrainState(state.params, state.opt_state, state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+                {"loss": loss, "grad_norm": gnorm})
 
     # ---- evaluation ------------------------------------------------------
 
@@ -501,24 +564,30 @@ class Trainer(Predictor):
     def _eval_dispatch(self, fi: torch.Tensor, ti: torch.Tensor,
                        w: torch.Tensor):
         """Per-month Spearman IC ``[M]`` and the MSE over a stacked
-        ``[M, bf]`` batch, on the device (the JAX ``_forward_impl``)."""
+        ``[M, bf]`` batch, on the device (the JAX ``_forward_impl``):
+        months padded with weight-0 repeats into whole chunks and, under a
+        data mesh, one block of them per rank (the JAX ``_forward_eval``);
+        the ICs are gathered and the error and weight sums summed across
+        the ranks."""
         self.model.eval()
         M = fi.shape[0]
-        pad = (-M) % min(self.cfg.data.dates_per_batch, M)
-        fi_p = torch.cat([fi, fi[:pad]]) if pad else fi
-        ti_p = torch.cat([ti, ti[:pad]]) if pad else ti
-        w_p = torch.cat([w, torch.zeros_like(w[:pad])]) if pad else w
+        rows, n_real = self._month_rows(M)
+        fi_p, ti_p, w_p = fi[rows], ti[rows], w[rows]
+        w_p[n_real:] = 0
         ics, ses, wss = [], [], []
-        for rows, out in self._forward_chunks(fi, ti, self.eval_gather_impl):
+        for sl, out in self._forward_chunks(fi_p, ti_p,
+                                            self.eval_gather_impl):
             pred = _point_forecast(out)
-            f, t, ww = fi_p[rows], ti_p[rows], w_p[rows]
+            f, t, ww = fi_p[sl], ti_p[sl], w_p[sl]
             y = gather_targets(self.dev["targets"], f, t)
             ics.append(spearman_ic(pred, y, ww))
             ses.append((ww * (pred.float() - y) ** 2).sum(dim=-1))
             wss.append(ww.sum(dim=-1))
-        ic = torch.cat(ics)[:M]
-        se, ws = torch.cat(ses)[:M], torch.cat(wss)[:M]
-        return ic, se.sum() / torch.clamp(ws.sum(), min=1e-12)
+        ic = all_gather_dates(torch.cat(ics), self.mesh)[:M]
+        se, ws = all_reduce_sum(torch.stack(
+            [torch.cat(ses)[:n_real].sum(), torch.cat(wss)[:n_real].sum()]),
+            self.mesh)
+        return ic, se / torch.clamp(ws, min=1e-12)
 
     def evaluate(self, sampler: Optional[DateBatchSampler] = None
                  ) -> Dict[str, float]:
@@ -598,7 +667,8 @@ class Trainer(Predictor):
                     firm_months_per_sec=timer.throughput())
                 history.append(rec)
                 step_losses.extend(float(v) for v in loss_h)
-                snap = self.state_dict(state) if self.run_dir else None
+                snap = (self.state_dict(state)
+                        if self.run_dir and dist_utils.is_main() else None)
                 if harness.end_epoch(epoch, state.step, snap, val_ic):
                     break
                 epoch = harness.next_epoch()
@@ -645,13 +715,6 @@ class Trainer(Predictor):
         pred = self.predict_scores(b.firm_idx, b.time_idx)
         return scatter_forecasts(b, pred.float().cpu().numpy(),
                                  self.panel)
-
-
-def check_optimizer(cfg: RunConfig) -> None:
-    if cfg.optim.optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer {cfg.optim.optimizer!r} is not ported (lamb: "
-            "ROADMAP.md Queue A); use adamw")
 
 
 def check_predict_options(mc_samples: int, return_variance: bool) -> None:
@@ -721,7 +784,7 @@ def run_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> Tuple[Dict[str, Any], Trainer, PanelSplits]:
     """Config → panel → splits → train; writes ``config.json`` and
-    ``summary.json`` into ``<out_dir>/<name>/seed<seed>``. Returns
+    ``summary.json`` into ``<out_dir>/<name>/seed<seed>`` (rank 0). Returns
     (summary, trainer, splits)."""
     splits = splits_for(cfg, panel)
     run_dir = os.path.join(cfg.out_dir, cfg.name, f"seed{cfg.seed}")
@@ -729,15 +792,18 @@ def run_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
     summary = trainer.fit(resume=resume)
     summary["run_dir"] = run_dir
     summary["config"] = dataclasses.asdict(cfg)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
-    # Clears a stale marker of a seed ensemble once written here.
-    mark_ensemble_run_dir(run_dir, False)
-    with open(os.path.join(run_dir, "summary.json"), "w") as fh:
-        json.dump({k: v for k, v in summary.items()
-                   if k not in ("history", "step_losses")}, fh, indent=2,
-                  default=str)
+    summary["mesh"] = mesh_fingerprint(trainer.mesh)
+    if dist_utils.is_main():
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
+        # Clears a stale marker of a seed ensemble once written here.
+        mark_ensemble_run_dir(run_dir, False)
+        with open(os.path.join(run_dir, "summary.json"), "w") as fh:
+            json.dump({k: v for k, v in summary.items()
+                       if k not in ("history", "step_losses")}, fh,
+                      indent=2, default=str)
+    dist_utils.barrier()
     return summary, trainer, splits
 
 

@@ -1,11 +1,14 @@
-"""The optimizer: an explicit step that mirrors the JAX package's
+"""The optimizers: explicit steps that mirror the JAX package's
 
     optax.chain(clip_by_global_norm(grad_clip),
                 adamw(warmup_cosine_decay_schedule(0, lr, warmup, total,
                                                    end_value=0.1 * lr),
                       weight_decay))
 
-(``lfm_quant_tpu/train/loop.py`` ``TrainerPrograms``). It is not
+and the same chain with ``optax.lamb`` in place of ``adamw``
+(``lfm_quant_tpu/train/loop.py`` ``TrainerPrograms``; ``OptimConfig.
+optimizer`` picks one through :func:`make_optimizer`). :class:`AdamW` is
+not
 ``torch.optim.AdamW`` with ``clip_grad_norm_``, whose numbers differ:
 optax scales by ``max / ||g||`` only when ``||g|| >= max`` (torch divides
 by ``||g|| + 1e-6``), its schedule starts at lr 0 (so the first update is
@@ -13,24 +16,30 @@ zero), the warmup is ``min(warmup_steps, total // 2)``, the decay is
 decoupled and applies to every parameter, and the step size is read
 before the count moves. All arithmetic is f32, in optax's order.
 
-The state is an explicit structure of tensors (:class:`AdamWState`), so a
-checkpoint carries it.
+:class:`Lamb` is optax's ``lamb``: ``scale_by_adam`` (b1 0.9, b2 0.999,
+eps 1e-6, not AdamW's 1e-8; eps_root 0) → ``add_decayed_weights`` →
+``scale_by_trust_ratio`` (each parameter's update scaled by ``||p|| /
+||u||``, 1 where either norm is 0) → the schedule's step size.
+
+The state is an explicit structure of tensors (:class:`AdamWState`, the
+same for both), so a checkpoint carries it.
 
 ``per_seed=True`` is the seed ensemble's optimizer, the JAX ``vmap`` of
 the chain over stacked members: the leading axis of every parameter is
-the seed, and the global norm and the clip factor are taken per seed.
-The members step in lock-step, so they share the update count.
+the seed, and the global norm, the clip factor and LAMB's trust ratios
+are taken per seed. The members step in lock-step, so they share the
+update count.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
-B1, B2, EPS = 0.9, 0.999, 1e-8
+B1, B2 = 0.9, 0.999
 
 
 @dataclass
@@ -68,6 +77,8 @@ class AdamW:
     ``total_steps`` and ``warmup_steps`` fix the schedule as the JAX
     trainer does: ``total = max(1, steps_per_epoch * epochs)``,
     ``warmup = min(warmup_steps, total // 2)``."""
+
+    eps = 1e-8
 
     def __init__(self, lr: float, weight_decay: float, grad_clip: float,
                  warmup_steps: int, total_steps: int, per_seed: bool = False):
@@ -126,11 +137,53 @@ class AdamW:
         bc2 = float(1 - torch.tensor(B2, dtype=f32) ** count_inc)
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, EPS)
+        torch._foreach_add_(den, self.eps)
         u = torch._foreach_div(mu, bc1)
         torch._foreach_div_(u, den)
         torch._foreach_add_(u, ps, alpha=self.weight_decay)
+        u = self._scale(u, ps)
         torch._foreach_mul_(u, -float(self.lr_at(state.count)))
         torch._foreach_add_(ps, u)
         state.count = count_inc
         return g_norm
+
+    def _scale(self, u: List[torch.Tensor], ps: List[torch.Tensor]
+               ) -> List[torch.Tensor]:
+        """The step between the decayed update and the step size: none
+        for AdamW."""
+        return u
+
+
+class Lamb(AdamW):
+    """clip_by_global_norm → lamb(schedule, weight_decay), optax's chain:
+    AdamW's update with eps 1e-6, each parameter's (each seed's, with
+    ``per_seed``) scaled by its trust ratio ``||p|| / ||u||``."""
+
+    eps = 1e-6
+
+    def _scale(self, u, ps):
+        def norms(ts):
+            if self.per_seed:
+                return [torch.linalg.vector_norm(t, dim=tuple(
+                    range(1, t.dim()))).view(-1, *(1,) * (t.dim() - 1))
+                    for t in ts]
+            return torch._foreach_norm(ts)
+
+        out = []
+        for ui, p_norm, u_norm in zip(u, norms(ps), norms(u)):
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            out.append(ui * ratio)
+        return out
+
+
+def make_optimizer(o, total_steps: int, per_seed: bool = False) -> AdamW:
+    """``OptimConfig`` → its optimizer (``optimizer`` "adamw" or
+    "lamb"), the schedule fixed by ``total_steps``."""
+    classes = {"adamw": AdamW, "lamb": Lamb}
+    if o.optimizer not in classes:
+        raise ValueError(
+            f"optimizer must be adamw|lamb, got {o.optimizer!r}")
+    return classes[o.optimizer](o.lr, o.weight_decay, o.grad_clip,
+                                o.warmup_steps, total_steps,
+                                per_seed=per_seed)

@@ -18,6 +18,10 @@ k``, as in the JAX package, and the run directory has its layout:
 ``partial.json`` after every fold, ``walkforward.npz``, ``config.json``
 and ``summary.json`` at the end.
 
+In a process group every rank trains every fold (each fold's steps
+date-sharded, see ``train/loop.py``) and rank 0 alone writes the run
+directory, each write followed by a barrier.
+
 Not ported: the fold-stacked sweep (``foldstack``: ROADMAP.md Queue A
 item 5) and the heteroscedastic variances (the variance forward, Queue A
 item 4). The fold records carry no ``reuse`` key: the port has no
@@ -37,8 +41,10 @@ import numpy as np
 
 from lfm_quant_tpu_torch.config import RunConfig
 from lfm_quant_tpu_torch.data.panel import Panel, PanelSplits
+from lfm_quant_tpu_torch.parallel.mesh import FOLD_AXIS, axis_not_ported
 from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
+from lfm_quant_tpu_torch.utils.distributed import barrier, is_main
 
 
 def month_add(yyyymm: int, months: int) -> int:
@@ -133,15 +139,18 @@ def write_fold_run_dir(fold_cfg: RunConfig, run_dir: str, train_end: int,
     so a reload rebuilds the exact training-time splits, and the ensemble
     marker routes ``load_forecaster`` (and is cleared when a reused dir
     flips trainer kind). Written before the fit, so a crashed fold can
-    still be inspected; the forecast entry point uses the LAST fold."""
-    os.makedirs(run_dir, exist_ok=True)
-    save_cfg = dataclasses.replace(
-        fold_cfg, data=dataclasses.replace(
-            fold_cfg.data, train_end=train_end, val_end=val_end,
-            train_start=train_start))
-    with open(os.path.join(run_dir, "config.json"), "w") as fh:
-        fh.write(save_cfg.to_json())
-    mark_ensemble_run_dir(run_dir, ensemble)
+    still be inspected; the forecast entry point uses the LAST fold.
+    Rank 0 writes; every rank waits for it."""
+    if is_main():
+        os.makedirs(run_dir, exist_ok=True)
+        save_cfg = dataclasses.replace(
+            fold_cfg, data=dataclasses.replace(
+                fold_cfg.data, train_end=train_end, val_end=val_end,
+                train_start=train_start))
+        with open(os.path.join(run_dir, "config.json"), "w") as fh:
+            fh.write(save_cfg.to_json())
+        mark_ensemble_run_dir(run_dir, ensemble)
+    barrier()
 
 
 def _load_fold_best_params(fold_dir: str):
@@ -243,9 +252,8 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
     from lfm_quant_tpu_torch.train.loop import Trainer
 
     if foldstack:
-        raise NotImplementedError(
-            "foldstack (all folds as one stacked program) is not ported "
-            "yet (ROADMAP.md Queue A item 5); run the sequential sweep")
+        raise axis_not_ported(FOLD_AXIS, " (foldstack: all folds as one "
+                              "stacked program; run the sequential sweep)")
     if cfg.is_heteroscedastic:
         raise NotImplementedError(
             "heteroscedastic walk-forwards stitch variances, which need "
@@ -318,10 +326,11 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
             "epochs_run": fit["epochs_run"],
             "warm_started": used_warm,
         })
-        if out_dir:
+        if out_dir and is_main():
             np.savez_compressed(partial_npz, forecast=forecast, valid=valid)
             with open(partial_json, "w") as fh:
                 json.dump(records, fh)
+        barrier()
     summary = {
         "n_folds": len(folds),
         "step_months": step_months,
@@ -335,19 +344,20 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
     }
 
     def save_summary():
-        if out_dir:
+        if out_dir and is_main():
             with open(os.path.join(out_dir, "summary.json"), "w") as fh:
                 json.dump(summary, fh, indent=2)
 
     # The sweep's primary artifacts go to disk BEFORE the grading: a
     # scoring failure must never lose the trained folds' forecasts.
-    if out_dir:
+    if out_dir and is_main():
         os.makedirs(out_dir, exist_ok=True)
         np.savez_compressed(os.path.join(out_dir, "walkforward.npz"),
                             forecast=forecast, valid=valid)
         with open(os.path.join(out_dir, "config.json"), "w") as fh:
             fh.write(cfg.to_json())
         save_summary()
+    barrier()
     if score_modes:
         summary["backtest"] = score_stitched(
             forecast, valid, panel, score_modes, device=device,

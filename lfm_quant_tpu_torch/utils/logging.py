@@ -2,7 +2,8 @@
 
 ``MetricsLogger`` is the port of ``lfm_quant_tpu/utils/logging.py``: an
 append-only ``metrics.jsonl`` stream per run directory, one strict-JSON
-dict per line (non-finite floats written as ``null``). ``StepTimer`` is
+dict per line (non-finite floats written as ``null``), written and echoed
+by rank 0 alone in a process group. ``StepTimer`` is
 the port of ``utils/profiling.py``'s timer in firm-months per second; on
 the card it synchronises the device at both ends of an interval, so a
 time is the device's, not the enqueue's.
@@ -18,6 +19,8 @@ import warnings
 from typing import Any, Dict, Optional, Union
 
 import torch
+
+from lfm_quant_tpu_torch.utils.distributed import is_main
 
 
 def _finite(v: Any) -> Any:
@@ -39,9 +42,9 @@ class MetricsLogger:
     def __init__(self, run_dir: Optional[str],
                  filename: str = "metrics.jsonl", echo: bool = False):
         self.run_dir = run_dir
-        self.echo = echo
+        self.echo = echo and is_main()
         self._fh = None
-        if run_dir is not None:
+        if run_dir is not None and is_main():
             os.makedirs(run_dir, exist_ok=True)
             self._fh = open(os.path.join(run_dir, filename), "a",
                             buffering=1)

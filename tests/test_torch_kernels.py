@@ -730,3 +730,42 @@ def test_launch_counter_is_exact_under_threads():
         sys.setswitchinterval(old)
     assert _build.launch_counts()["window_gather"] == 16 * 2000
     _build.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_two_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device) train 3 date-sharded steps of a bf16 GRU with the rank-IC loss
+    on the kernels: each rank's losses and grad norms within the training
+    gate (atol and rtol 0.05) of one process on the card, and each rank's
+    gather, fused forward and backward launched once per step."""
+    import dataclasses
+    import os
+
+    from lfm_quant_tpu_torch import config
+    from lfm_quant_tpu_torch.parallel.launch import run_ranks
+
+    import torch_ranks
+
+    c3 = config.get_preset("c3")
+    cfg = dataclasses.replace(
+        c3, data=dataclasses.replace(c3.data, n_firms=300, n_months=120),
+        model=dataclasses.replace(c3.model, kwargs={"hidden": 32}),
+        n_data_shards=2)
+    panel = dict(n_firms=300, n_months=120, n_features=20, seed=0)
+    cut = (84, 102)
+    one = torch_ranks.epoch_steps(cfg, panel, cut, None, device="cuda:0",
+                                  n_steps=3)
+    ranks = run_ranks(2, "torch_ranks:epoch_steps",
+                      dict(cfg=cfg, panel_kw=panel, cut=cut, init=None,
+                           device="cuda:0", n_steps=3),
+                      str(tmp_path / "job"), 300,
+                      python_path=[os.path.dirname(__file__)])
+    for got in ranks:
+        assert got["n_data"] == 2
+        for key in ("losses", "grad_norms"):
+            np.testing.assert_allclose(got[key], one[key], atol=0.05,
+                                       rtol=0.05, err_msg=key)
+        for k in ("window_gather", "rnn_fused_fwd_mma_gru",
+                  "rnn_fused_bwd_mma_gru"):
+            assert got["launches"][k] >= 3, (k, got["launches"])

@@ -116,9 +116,12 @@ def test_port_imports_no_jax_ast():
                 if n.split(".")[0] in banned:
                     bad.append(f"{os.path.relpath(path, ROOT)}: {n}")
     assert len(_port_files()) > 20
-    # The seed ensemble's module (and its copied run-dir marker) is scanned.
-    assert os.path.join(ROOT, "lfm_quant_tpu_torch", "train",
-                        "ensemble.py") in _port_files()
+    # The seed ensemble's module (and its copied run-dir marker) and the
+    # data-parallel modules are scanned.
+    for rel in (("train", "ensemble.py"), ("parallel", "mesh.py"),
+                ("parallel", "launch.py"), ("utils", "distributed.py")):
+        assert os.path.join(ROOT, "lfm_quant_tpu_torch", *rel) in \
+            _port_files()
     assert not bad, bad
 
 
@@ -133,7 +136,9 @@ def test_port_runs_without_jax_in_sys_modules():
         "from lfm_quant_tpu_torch.serve.__main__ import main\n"
         "main(['--preset', 'c2', '--n-firms', '16', '--n-months', '80',\n"
         "      '--requests', '4', '--threads', '2', '--device', 'cpu'])\n"
-        "assert 'lfm_quant_tpu_torch.train.ensemble' in sys.modules\n"
+        "for m in ('train.ensemble', 'parallel.mesh', 'parallel.launch',\n"
+        "          'utils.distributed'):\n"
+        "    assert 'lfm_quant_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'lfm_quant_tpu')]\n"
         "assert not bad, bad\n"
