@@ -45,11 +45,12 @@ imports nothing of JAX. Phases, each fatal on failure:
    f32 row beside its bound (of the unpadded work) at 3xTF32 and at the
    CUDA cores' rate and its library yardstick (TF32 off); two launches of
    each backward on the same inputs must give bitwise equal gradients;
-4. serve: a ``ScoringService`` on the card with the c2 LSTM and the c3
-   GRU universes at full width (random weights from a seed), warmed up,
-   then closed-loop requests from 4 threads; every served score vector is
-   checked against the plain path on the card, and the serving kernels'
-   launch counters must have moved during the run;
+4. serve: a ``ScoringService`` on the card with the c2 LSTM, the c3
+   GRU, the c4 transformer and the lru universes at full width (random
+   weights from a seed), warmed up, then closed-loop requests from 4
+   threads; every served score vector is checked against the plain path
+   on the card, and each universe's kernels' launch counters must have
+   moved while it was served;
 5. train c2: ``Trainer.fit`` trains c2 (LSTM, full width and data, bf16)
    for one epoch on the kernels, then the same steps from the same init
    and sampler order run through the plain path on the card (plain
@@ -107,23 +108,47 @@ imports nothing of JAX. Phases, each fatal on failure:
    step; the rank-IC loss; ``n_data_shards`` 8 resolves to 1 in one
    process; epochs cut to 1): the gather, row 3 (beside one cuDNN
    ``nn.GRU`` call) and row 4 held to their plain versions and timed at
-   the c3 step's shapes; the first 3 steps from the seeded init against
-   the plain path on the card (atol 0.05 + rtol 0.05, finite); one step
-   launches the gather, the tensor-core fused forward and its backward
-   exactly once and no CUDA-core kernel; then ms per step, firm-months/s
-   and the peak memory of steady steps, their profile (the rank-IC
+   the c3 step's shapes; the first 3 steps from the seeded init,
+   counted, against the plain path on the card (atol 0.05 + rtol 0.05,
+   finite); one step launches the gather, the tensor-core fused forward
+   and its backward exactly once and nothing else; then ms per step,
+   firm-months/s and the peak memory of steady steps, their profile (by
+   kernel and by op group as in 11), one epoch with its validation sweep
+   on the kernels (its wall time and peak memory), and the rank-IC
    loss's forward and backward, profiled alone, as a share of the step's
-   device time, beside rows 3 and 4), and one epoch with its validation
-   sweep on the kernels (its wall time and peak memory);
+   device time, beside rows 3 and 4;
 10. c3 on 2 processes that share the card (gloo, a ``file://``
    rendezvous in a temporary directory, ``n_data_shards`` 2, the kernels
    phase 2 built): each rank's first 3 steps' losses and grad norms and
    its month-sharded validation sweep within the training gate of phase
    9's one process, each rank's kernels launched, its ms per step; a
    rank that fails or outlives the limit fails the phase;
-11. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9
-   and 10 for the one-seed rows, 6 and 7 for the seed rows);
-12. print the result line ``{"ok": true, "device": {...}}`` last.
+11. c4 at full width (the transformer, dim 64, depth 2, 4 heads, bf16,
+   8000 x 480, 16 x 512 windows a step; ``n_data_shards`` 16 resolves to
+   1; epochs cut to 1): the gather at the step's shape against its plain
+   version; the first 3 steps against the plain path on the card (the
+   plain gather; atol 0.05 + rtol 0.05, finite); one step launching the
+   gather exactly once and nothing else; ms per step, firm-months/s and
+   peak memory of steady steps, the device's busy share and the step's
+   device time by op group (LayerNorm's forward and backward, timed in
+   profiler ranges its modules open; attention's mask/softmax, the GEMMs,
+   GELU, the other reductions, the gather, the optimizer, the rest); one
+   epoch with its sweep, counted;
+12. lru at c2's geometry as c4, then lru64 (64 LRU seeds at c5's
+   geometry, ``seed_block`` 8; its seed-folded gather reported under the
+   seed-fold row's label): 3 steps' per-seed losses against the plain
+   path, the first block equal to an unblocked ensemble of its members,
+   ms per step and peak memory;
+13. c1 (the MLP) as c4; lc (window 240, 8 x 128 windows, ``n_seq_shards``
+   8 resolving to 1) as c4 without the epoch, its attention scores
+   ``[1024, 4, 240, 240]``;
+14. MC-dropout: c4 with dropout 0.1 trains 3 steps twice from the seed
+   (bitwise the same losses), then ``predict(mc_samples=4)`` of its test
+   split: one gather launch per month chunk, samples that differ, a
+   bitwise replay by ``mc_seed``, the plain predict's validity;
+15. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
+   10, 11-14 for the one-seed rows, 6 and 7 for the seed rows);
+16. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -200,8 +225,14 @@ SOURCES = {
     "rnn_bwd_tf32_gru": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:243"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
-SERVE_KERNELS = ("rnn_fused_fwd_mma_lstm", "rnn_fused_fwd_mma_gru",
-                 "window_gather")
+# The served universes: preset → (requests, the kernels its dispatches
+# launch).
+SERVED = {
+    "c2": (48, ("rnn_fused_fwd_mma_lstm", "window_gather")),
+    "c3": (24, ("rnn_fused_fwd_mma_gru", "window_gather")),
+    "c4": (24, ("window_gather",)),
+    "lru": (24, ("window_gather",)),
+}
 # The seed-batched launches at the c5 train step: line name → (launch
 # counter, source, the TPU kernel it replaces and its seed rule).
 SEED_SOURCES = {
@@ -215,8 +246,8 @@ SEED_SOURCES = {
         "window_gather", "csrc/window_gather.cu",
         "pallas_gather.py:100 (seed fold: _call_vmap :169)"),
 }
-C3_PLAIN_STEPS = 3   # c3 steps held against the plain path and phase 10
-C3_TIMED_STEPS = 4   # c3 steps timed and profiled
+PLAIN_STEPS = 3      # steps of each model held against the plain path
+TIMED_STEPS = 4      # steps of each model timed and profiled
 C3_KERNELS = ("window_gather", "rnn_fused_fwd_mma_gru",
               "rnn_fused_bwd_mma_gru")
 C3_RANKS = 2         # phase 10's processes on the one card
@@ -465,9 +496,11 @@ def rnn_inputs(torch, gen, cell, B, T, H, dtype):
 
 
 def check_gather(torch, kernels, where: str, xm, fi_np, ti_np, window: int,
-                 fp: int, n_months: int):
+                 fp: int, n_months: int, row: str = "window_gather"):
     """The gather at a main path's index batch ``[D, Bf]``: exact against
-    its plain version, timed beside its bound. Returns its windows."""
+    its plain version, timed beside its bound, kept under the kernels
+    line's ``row`` (a seed-folded batch under ``window_gather_seeds``).
+    Returns its windows."""
     from lfm_quant_tpu_torch.data.windows import gather_windows_packed
     from lfm_quant_tpu_torch.ops.gather import gather_windows
 
@@ -479,7 +512,7 @@ def check_gather(torch, kernels, where: str, xm, fi_np, ti_np, window: int,
     if not (torch.equal(x, xr) and torch.equal(m, mr)):
         fail(f"gather at the {where} shape differs")
     del xr, mr
-    report(kernels, "window_gather", where, dict(
+    report(kernels, row, where, dict(
         shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
         **kernel_ms(lambda: gather_windows(xm, fi, ti, window, fp=fp),
                     launches=20),
@@ -2365,7 +2398,7 @@ def c3_splits(cfg):
                                train_start=cfg.data.train_start)
 
 
-def c3_steps(torch, trainer, n_steps: int):
+def first_steps(torch, trainer, n_steps: int):
     """``n_steps`` steps of ``trainer`` from the seeded init on epoch 0's
     batches → (per-step losses, per-step grad norms, the state)."""
     state = trainer.init_state()
@@ -2411,86 +2444,24 @@ def check_c3_step_shapes(torch, trainer, kernels, gen) -> None:
 
 
 def c3_phase(torch, kernels, totals: dict, gen) -> dict:
-    """Phase 9: c3 (the rank-IC GRU, full cross-section) for one epoch on
-    the kernels, held to the plain path; its step's time, memory and
-    profile. Returns what phase 10 is held to: the first steps' losses
-    and grad norms and the sweep after them."""
-    import numpy as np
-
+    """Phase 9: c3 (the rank-IC GRU, full cross-section) through
+    :func:`model_phase` on its three kernels (its step's shapes by
+    :func:`check_c3_step_shapes`), then its rank-IC loss alone. Returns
+    what phase 10 is held to: the first steps' losses and grad norms and
+    the sweep after them."""
     from lfm_quant_tpu_torch.data.windows import gather_targets
-    from lfm_quant_tpu_torch.ops import _build
-    from lfm_quant_tpu_torch.train.loop import Trainer
 
     cfg = c3_config()
-    t0 = time.perf_counter()
-    splits = c3_splits(cfg)
-    trainer = Trainer(cfg, splits, device="cuda")
-    if trainer.mesh.n_data != 1:
-        fail(f"c3 in one process: n_data {trainer.mesh.n_data}, not 1")
+    res = model_phase(
+        torch, kernels, totals, cfg, c3_splits(cfg), "c3",
+        expect=C3_KERNELS, once_a_step=("rnn_fused_bwd_mma_gru",
+                                        "window_gather"),
+        shapes=lambda tr: check_c3_step_shapes(torch, tr, kernels, gen),
+        sweep=True)
+    trainer, (fi, ti, w), n = res["trainer"], res["batch"], \
+        res["timed_steps"]
     d = cfg.data
     Bf = trainer.train_sampler.firms_per_date
-    K = trainer._steps_per_epoch
-    log(f"c3: panel {splits.panel.features.shape} and trainer in "
-        f"{time.perf_counter() - t0:.1f} s; n_data_shards "
-        f"{cfg.n_data_shards} resolves to 1 in one process; resolved Bf "
-        f"{Bf} (firms_per_date 0: the widest pool), {K} steps of "
-        f"{d.dates_per_batch} x {Bf} = {d.dates_per_batch * Bf} windows")
-    check_c3_step_shapes(torch, trainer, kernels, gen)
-
-    # The first steps on the kernels against the plain path on the card.
-    losses, gnorms, state = c3_steps(torch, trainer, C3_PLAIN_STEPS)
-    ev = trainer.evaluate()
-    plain = Trainer(plain_variant(cfg), splits, device="cuda")
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    want, want_gn, _ = c3_steps(torch, plain, C3_PLAIN_STEPS)
-    plain_s = time.perf_counter() - t0
-    if any(_build.launch_counts().values()):
-        fail(f"the plain c3 path launched kernels: {_build.launch_counts()}")
-    err = losses_agree("c3 kernels vs plain", losses, want)
-    log(f"c3: {C3_PLAIN_STEPS} steps agree with the plain path ({plain_s:.1f}"
-        f" s) within {err:.4g}: losses {losses} / {want}, grad norms "
-        f"{gnorms} / {want_gn}; sweep after them ic {ev['ic']:.6f} mse "
-        f"{ev['mse']:.6f}")
-    del plain
-    torch.cuda.empty_cache()
-
-    # One step: each kernel of the step exactly once, no CUDA-core one.
-    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
-    _build.reset_launch_counts()
-    state, _ = trainer.step(state, fi[0], ti[0], w[0])
-    counts = _build.launch_counts()
-    for k in C3_KERNELS:
-        if counts[k] != 1:
-            fail(f"one c3 step launched {k} {counts[k]} times, not once")
-    if any(counts[k] for k in CUDA_CORE):
-        fail(f"a c3 step launched a CUDA-core kernel: {counts}")
-    log(f"launches in one c3 step: "
-        f"{ {k: n for k, n in counts.items() if n} }")
-
-    # Steady state: ms per step, memory, the device's view.
-    n = C3_TIMED_STEPS
-
-    def steps():
-        st = state
-        for k in range(1, n + 1):
-            st, _ = trainer.step(st, fi[k], ti[k], w[k])
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    steps()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    t0 = time.perf_counter()
-    steps()
-    torch.cuda.synchronize()
-    per_step = (time.perf_counter() - t0) / n
-    fm = float(w[1:n + 1].sum()) * d.window / n
-    log(f"train c3 steady state: {1e3 * per_step:.3f} ms/step, "
-        f"{1 / per_step:.2f} steps/s, {fm / per_step:.1f} firm-months/s "
-        f"({n} steps, host clock around synchronized work); peak memory "
-        f"{peak:.2f} GiB")
-    by_step = profile_device(torch, steps, f"c3 train, {n} steps")
 
     # The rank-IC loss alone, forward and backward, on a step's outputs.
     with torch.no_grad():
@@ -2513,6 +2484,7 @@ def c3_phase(torch, kernels, totals: dict, gen) -> dict:
     by_loss = profile_device(torch, lambda: [loss_once() for _ in range(n)],
                              f"c3 rank-IC loss forward and backward, {n} "
                              f"times")
+    by_step = res["by_step"]
     step_dev = sum(by_step.values())
     if step_dev and by_loss:
         shares = {
@@ -2530,34 +2502,10 @@ def c3_phase(torch, kernels, totals: dict, gen) -> dict:
         f"(CUDA events), {loss_peak:.2f} GiB above its inputs; pairwise "
         f"array [{d.dates_per_batch}, {Bf}, {Bf}] f32 = "
         f"{d.dates_per_batch * Bf * Bf * 4 / 2 ** 20:.0f} MiB")
-    del out, y, state
+    one = {k: res[k] for k in ("losses", "grad_norms", "eval", "ms_step")}
+    del out, y, trainer, res
     torch.cuda.empty_cache()
-
-    # One epoch with its validation sweep: the main path, counted.
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    summary, counts = counted("c3 training", C3_KERNELS, trainer.fit,
-                              must_not=CUDA_CORE)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if counts["rnn_fused_bwd_mma_gru"] != K or counts["window_gather"] != K:
-        fail(f"c3 epoch of {K} steps: launches {counts}")
-    for k, v in counts.items():
-        totals[k] += v
-    rec = summary["history"][0]
-    if not all(np.isfinite(rec[k]) for k in ("train_loss", "grad_norm",
-                                             "val_ic", "val_mse")):
-        fail(f"c3 epoch: {rec}")
-    log(f"train c3 (kernels): {K} steps + val sweep in {wall:.3f} s; "
-        f"train_loss {rec['train_loss']:.6f} grad_norm "
-        f"{rec['grad_norm']:.6f} val_ic {rec['val_ic']:.6f} val_mse "
-        f"{rec['val_mse']:.6f}; {summary['firm_months_per_sec']:.1f} "
-        f"firm-months/s over the epoch; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    del trainer
-    torch.cuda.empty_cache()
-    return {"losses": losses, "grad_norms": gnorms, "eval": ev,
-            "ms_step": 1e3 * per_step}
+    return one
 
 
 def c3_rank_job(n_steps: int, timed_steps: int) -> dict:
@@ -2577,7 +2525,7 @@ def c3_rank_job(n_steps: int, timed_steps: int) -> dict:
     cfg = c3_config(n_data_shards=D.world_size())
     trainer = Trainer(cfg, c3_splits(cfg), device="cuda:0")
     _build.reset_launch_counts()
-    losses, gnorms, state = c3_steps(torch, trainer, n_steps)
+    losses, gnorms, state = first_steps(torch, trainer, n_steps)
     ev = trainer.evaluate()
     counts = _build.launch_counts()
     fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
@@ -2613,8 +2561,8 @@ def two_ranks_phase(torch, one: dict, totals: dict) -> None:
     t0 = time.perf_counter()
     try:
         ranks = run_ranks(C3_RANKS, "chip_smoke:c3_rank_job",
-                          dict(n_steps=C3_PLAIN_STEPS,
-                               timed_steps=C3_TIMED_STEPS),
+                          dict(n_steps=PLAIN_STEPS,
+                               timed_steps=TIMED_STEPS),
                           tmp, RANKS_TIMEOUT_S)
     except (RuntimeError, TimeoutError) as e:
         fail(f"phase 10, {C3_RANKS} ranks on one card: {e}")
@@ -2629,9 +2577,9 @@ def two_ranks_phase(torch, one: dict, totals: dict) -> None:
         if got["built_here"] is not None:
             fail(f"rank {r} rebuilt the kernels ({got['built_here']} s)")
         for k in C3_KERNELS:
-            if got["launches"][k] < C3_PLAIN_STEPS:
+            if got["launches"][k] < PLAIN_STEPS:
                 fail(f"rank {r}: {k} launched {got['launches'][k]} times "
-                     f"in {C3_PLAIN_STEPS} steps")
+                     f"in {PLAIN_STEPS} steps")
             totals[k] += got["launches"][k]
         worst = max(worst,
                     losses_agree(f"rank {r} losses", got["losses"],
@@ -2653,6 +2601,519 @@ def two_ranks_phase(torch, one: dict, totals: dict) -> None:
                     f"{ {k: g['launches'][k] for k in C3_KERNELS} }"
                     for g in ranks)
         + f"; one process {one['ms_step']:.3f} ms/step")
+
+
+# ---------------------------------------------------------------------------
+# Phases 11-14: the other model families (the MLP, transformer and LRU)
+# ---------------------------------------------------------------------------
+
+LRU64_BLOCK = 8       # lru64's seed_block: one block's activations
+MC_SAMPLES = 4        # phase 14's MC-dropout samples
+MC_DROPOUT = 0.1      # phase 14's c4 variant
+# The profile of a model's step by op group: LayerNorm's forward and
+# backward first (:data:`LN_RANGE`); every other profiled aten op's own
+# device time goes to the first group that names it; the gather is read
+# from its kernel, the optimizer from its own profile.
+LN_GROUP = "LayerNorm (forward and backward)"
+LN_RANGE = "chip_smoke::LayerNorm"
+OP_GROUPS = (
+    ("attention mask/softmax", ("masked_fill", "_softmax", "softmax",
+                                "where")),
+    ("GEMMs", ("mm", "bmm", "addmm", "baddbmm", "addbmm")),
+    ("GELU", ("gelu",)),
+    ("reductions (pooling, loss)", ("mean", "sum")),
+)
+
+
+def panel_of(cfg, cache: dict):
+    """The config's panel, built once per distinct data config."""
+    from lfm_quant_tpu_torch.train.loop import resolve_panel
+
+    d = cfg.data
+    key = (d.n_firms, d.n_months, d.n_features, d.start_yyyymm, d.horizon,
+           d.panel_seed, d.het_noise, d.panel_path)
+    if key not in cache:
+        t0 = time.perf_counter()
+        cache[key] = resolve_panel(d)
+        log(f"{cfg.name}: panel {cache[key].features.shape} built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return cache[key]
+
+
+def splits_of(cfg, cache: dict):
+    from lfm_quant_tpu_torch.data.panel import PanelSplits
+    from lfm_quant_tpu_torch.train.loop import default_split_dates
+
+    panel = panel_of(cfg, cache)
+    return PanelSplits.by_date(panel, *default_split_dates(panel, cfg.data),
+                               train_start=cfg.data.train_start)
+
+
+def one_epoch(cfg, **changes):
+    """``cfg`` cut to one epoch (its preset's 20 or 30 are not run)."""
+    return dataclasses.replace(
+        cfg, optim=dataclasses.replace(cfg.optim, epochs=1), **changes)
+
+
+def not_gather():
+    from lfm_quant_tpu_torch.ops import _build
+
+    return tuple(k for k in _build.LAUNCHES if k != "window_gather")
+
+
+def layernorm_ranges(torch, model) -> list:
+    """Put each LayerNorm module's forward in a profiler range named
+    :data:`LN_RANGE` (a forward pre-hook opens it, a forward hook closes
+    it) → the hooks' handles, to remove."""
+    from lfm_quant_tpu_torch.models.heads import LayerNorm
+
+    def enter(mod, args):
+        mod._chip_smoke_range = torch.profiler.record_function(LN_RANGE)
+        mod._chip_smoke_range.__enter__()
+
+    def leave(mod, args, out):
+        mod._chip_smoke_range.__exit__(None, None, None)
+        del mod._chip_smoke_range
+
+    handles = []
+    for mod in model.modules():
+        if isinstance(mod, LayerNorm):
+            handles += [mod.register_forward_pre_hook(enter),
+                        mod.register_forward_hook(leave)]
+    return handles
+
+
+def layernorm_events(events) -> set:
+    """The ids of a trace's LayerNorm events: the forward's (inside a
+    :data:`LN_RANGE`) and the backward's (the autograd nodes those ops
+    made, matched by sequence number, and what the nodes call)."""
+    def under(e, pred):
+        while e is not None:
+            if pred(e):
+                return True
+            e = e.cpu_parent
+        return False
+
+    fwd = [e for e in events if under(e, lambda a: a.name == LN_RANGE)]
+    seqs = {e.sequence_nr for e in fwd
+            if getattr(e, "sequence_nr", -1) >= 0}
+    bwd = [e for e in events if under(e, lambda a: a.name.startswith(
+        "autograd::engine::evaluate_function") and getattr(
+            a, "sequence_nr", -1) in seqs)]
+    return {id(e) for e in fwd + bwd}
+
+
+def profile_groups(torch, trainer, state, fi, ti, w, n: int,
+                   label: str) -> dict:
+    """Device time of ``n`` train steps by op group (LayerNorm, then
+    :data:`OP_GROUPS`, the gather, the optimizer, the rest), from two
+    ``torch.profiler`` traces: the forward and backward
+    (``Trainer._grads``, LayerNorm's forwards in ranges), then the
+    optimizer updates on the gradients they gave. Informational."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def own_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        return us / 1e3
+
+    def kernel(e):
+        return getattr(e, "device_type", None) == cuda and not (
+            getattr(e, "is_user_annotation", False) or e.name == LN_RANGE)
+
+    def traced(fn):
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return prof.events()
+
+    trainer.model.train()
+    grads = []
+    handles = layernorm_ranges(torch, trainer.model)
+    try:
+        ev = traced(lambda: grads.extend(
+            trainer._grads(state, fi[k], ti[k], w[k])[1] for k in range(n)))
+    finally:
+        for h in handles:
+            h.remove()
+    opt = traced(lambda: [trainer.opt.step(state.params, g, state.opt_state)
+                          for g in grads])
+    total = sum(own_ms(e) for e in ev if kernel(e))
+    opt_ms = sum(own_ms(e) for e in opt if kernel(e))
+    if not total:
+        log(f"profile {label}: no device time in the trace (not measured)")
+        return {}
+    ln = layernorm_events(ev)
+    groups = dict.fromkeys([LN_GROUP] + [g for g, _ in OP_GROUPS], 0.0)
+    for e in ev:
+        if getattr(e, "device_type", None) == cuda or \
+                not e.name.startswith("aten::"):
+            continue
+        if id(e) in ln:
+            groups[LN_GROUP] += own_ms(e)
+            continue
+        op = e.name[len("aten::"):]
+        for g, names in OP_GROUPS:
+            if op.split("_backward")[0].rstrip("_") in names or \
+                    op in names:
+                groups[g] += own_ms(e)
+                break
+    groups["the gather"] = sum(own_ms(e) for e in ev
+                               if kernel(e) and "window_gather" in e.name)
+    groups["other (residuals, casts, layouts, scan, dropout, "
+           "kernels)"] = total - sum(groups.values())
+    groups["optimizer"] = opt_ms
+    step = (total + opt_ms) / n
+    log(f"profile {label}: device time {step:.3f} ms per step: " + ", ".join(
+        f"{g} {v / n:.3f} ms ({100 * v / (step * n):.1f}%)"
+        for g, v in groups.items()))
+    return {g: v / n for g, v in groups.items()}
+
+
+def model_phase(torch, kernels: dict, totals: dict, cfg, splits,
+                label: str, expect=("window_gather",), once_a_step=None,
+                shapes=None, sweep: bool = False, epoch: bool = True
+                ) -> dict:
+    """One model on its kernels at full width: the kernels at the train
+    step's shapes against their plain versions (``shapes(trainer)``;
+    default the gather alone); the first :data:`PLAIN_STEPS` steps from
+    the seeded init, counted, against the plain path on the card (the
+    training gate, finite), then (``sweep``) the validation sweep after
+    them; one step launching each kernel of ``expect`` exactly once and
+    nothing else; ms per step, firm-months/s and peak memory of steady
+    steps, the device's busy share and the step's profile by op group;
+    then (``epoch``) one epoch with its validation sweep, counted, with
+    each kernel of ``once_a_step`` (default ``expect``) launched once a
+    step.
+    Returns the numbers, the trainer, a batch of epoch 1 and the step's
+    device ms by kernel."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    others = tuple(k for k in _build.LAUNCHES if k not in expect)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, splits, device="cuda")
+    if trainer.mesh.n_data != 1:
+        fail(f"{label} in one process: n_data {trainer.mesh.n_data}, not 1")
+    d = cfg.data
+    Bf = trainer.train_sampler.firms_per_date
+    K = trainer._steps_per_epoch
+    log(f"{label}: trainer in {time.perf_counter() - t0:.1f} s; "
+        f"n_data_shards {cfg.n_data_shards}, n_seq_shards "
+        f"{cfg.n_seq_shards} resolve to 1 in one process; {K} steps of "
+        f"{d.dates_per_batch} x {Bf} = {d.dates_per_batch * Bf} windows "
+        f"of {d.window} months (firms_per_date {d.firms_per_date}; 0 is "
+        f"the widest pool)")
+    if shapes is not None:
+        shapes(trainer)
+    else:
+        b = trainer.train_sampler.stacked_epoch(0)
+        with torch.inference_mode():
+            check_gather(torch, kernels, f"{label} train step",
+                         trainer.dev["xm"], b.firm_idx[0], b.time_idx[0],
+                         d.window, trainer.fp, trainer.panel.n_months)
+    torch.cuda.empty_cache()
+
+    # The first steps on the kernels against the plain path on the card,
+    # counted (lc's main path is these steps: it runs no epoch).
+    (losses, gnorms, state), counts = counted(
+        f"{label}'s first {PLAIN_STEPS} steps", expect,
+        lambda: first_steps(torch, trainer, PLAIN_STEPS), must_not=others)
+    for k, v in counts.items():
+        totals[k] += v
+    ev = trainer.evaluate() if sweep else None
+    plain = Trainer(plain_variant(cfg), splits, device="cuda")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    want, want_gn, _ = first_steps(torch, plain, PLAIN_STEPS)
+    plain_s = time.perf_counter() - t0
+    if any(_build.launch_counts().values()):
+        fail(f"the plain {label} path launched kernels: "
+             f"{_build.launch_counts()}")
+    err = losses_agree(f"{label} kernels vs plain", losses, want)
+    log(f"{label}: {PLAIN_STEPS} steps agree with the plain path "
+        f"({plain_s:.1f} s) within {err:.4g}: losses {losses} / {want}, "
+        f"grad norms {gnorms} / {want_gn}" + (
+            f"; sweep after them ic {ev['ic']:.6f} mse {ev['mse']:.6f}"
+            if sweep else ""))
+    del plain
+    torch.cuda.empty_cache()
+
+    # One step: each kernel of the path once, nothing else.
+    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
+    _build.reset_launch_counts()
+    state, _ = trainer.step(state, fi[0], ti[0], w[0])
+    counts = _build.launch_counts()
+    if any(counts[k] != 1 for k in expect) or \
+            sum(counts.values()) != len(expect):
+        fail(f"one {label} step launched {counts}: not {list(expect)} "
+             "once each")
+    log(f"launches in one {label} step: "
+        f"{ {k: n for k, n in counts.items() if n} }")
+
+    # Steady state: ms per step, memory, the device's view.
+    n = min(TIMED_STEPS, K - 1)
+
+    def steps():
+        st = state
+        for k in range(1, n + 1):
+            st, _ = trainer.step(st, fi[k], ti[k], w[k])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    fm = float(w[1:n + 1].sum()) * d.window / n
+    log(f"train {label} steady state: {1e3 * per_step:.3f} ms/step, "
+        f"{1 / per_step:.2f} steps/s, {fm / per_step:.1f} firm-months/s ({n} "
+        f"steps, host clock around synchronized work); peak memory "
+        f"{peak:.2f} GiB")
+    by_step = profile_device(torch, steps, f"{label} train, {n} steps")
+    profile_groups(torch, trainer, state, fi[1:], ti[1:], w[1:], n, label)
+    out = {"trainer": trainer, "losses": losses, "grad_norms": gnorms,
+           "eval": ev, "ms_step": 1e3 * per_step, "peak_gib": peak,
+           "batch": (fi, ti, w), "timed_steps": n, "by_step": by_step}
+    del state
+    torch.cuda.empty_cache()
+    if not epoch:
+        return out
+
+    # One epoch with its validation sweep: the main path, counted.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary, counts = counted(f"{label} training", expect, trainer.fit,
+                              must_not=others)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(counts[k] != K for k in (once_a_step or expect)):
+        fail(f"{label} epoch of {K} steps: launches {counts}")
+    for k, v in counts.items():
+        totals[k] += v
+    rec = summary["history"][0]
+    if not all(np.isfinite(rec[k]) for k in ("train_loss", "grad_norm",
+                                             "val_ic", "val_mse")):
+        fail(f"{label} epoch: {rec}")
+    log(f"train {label} (kernels): {K} steps + val sweep in {wall:.3f} s; "
+        f"train_loss {rec['train_loss']:.6f} grad_norm "
+        f"{rec['grad_norm']:.6f} val_ic {rec['val_ic']:.6f} val_mse "
+        f"{rec['val_mse']:.6f}; {summary['firm_months_per_sec']:.1f} "
+        f"firm-months/s over the epoch; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return out
+
+
+def lru64_phase(torch, kernels: dict, totals: dict, cfg, splits) -> dict:
+    """lru64 (64 LRU seeds at c5's geometry, ``seed_block``
+    :data:`LRU64_BLOCK`): its first steps' per-seed losses against the
+    plain path on the card, the block's seeds equal to an unblocked
+    ensemble of as many seeds (the same members), one step's gather
+    launch, ms per step and the peak memory."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+
+    cfg = one_epoch(cfg, seed_block=LRU64_BLOCK)
+    trainer = EnsembleTrainer(cfg, splits, device="cuda")
+    (fi, ti, w), _ = trainer._build_epoch(0)
+    with torch.inference_mode():
+        check_gather(torch, kernels, "lru64 train step (64 seeds folded)",
+                     trainer.dev["xm"], fi[0].cpu().numpy().reshape(
+                         -1, fi.shape[-1]),
+                     ti[0].cpu().numpy().reshape(-1), cfg.data.window,
+                     trainer.fp, trainer.panel.n_months,
+                     row="window_gather_seeds")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    got = ensemble_steps(torch, cfg, splits, PLAIN_STEPS)
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts["window_gather"] != PLAIN_STEPS * cfg.n_seeds // \
+            LRU64_BLOCK or sum(counts.values()) != counts["window_gather"]:
+        fail(f"lru64's {PLAIN_STEPS} steps launched {counts}: not the "
+             "gather once a block")
+    for k, v in counts.items():
+        totals[k] += v
+    want = ensemble_steps(torch, plain_variant(cfg), splits, PLAIN_STEPS)
+    err = losses_agree("lru64 kernel vs plain", got, want)
+    # The block is a pure re-batching: seeds [0, block) of the blocked run
+    # are the members of an unblocked ensemble of that many seeds.
+    alone = ensemble_steps(torch, dataclasses.replace(
+        cfg, n_seeds=LRU64_BLOCK, seed_block=0), splits, PLAIN_STEPS)
+    import numpy as np
+
+    block = np.asarray(got)[:, :LRU64_BLOCK]
+    diff = np.abs(block - np.asarray(alone))
+    if (diff > 1e-6 * np.abs(block)).any():
+        fail(f"lru64 seed_block {LRU64_BLOCK}: the block's losses differ "
+             f"from the unblocked run's by {diff.max()}")
+    log(f"lru64: {PLAIN_STEPS} steps x 64 seeds (seed_block "
+        f"{LRU64_BLOCK}) agree with the plain path within {err:.4g}; the "
+        f"first block's losses against an unblocked {LRU64_BLOCK}-seed "
+        f"ensemble of the same members: first step bitwise "
+        f"{bool((diff[0] == 0).all())}, max diff {diff.max():.3g} (rtol "
+        f"1e-6); first step's losses {min(got[0]):.5f} .. "
+        f"{max(got[0]):.5f}; peak memory {peak:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    state = trainer.init_state()
+    n = TIMED_STEPS
+
+    def steps():
+        st = state
+        for k in range(1, n + 1):
+            st, _ = trainer.step(st, fi[k], ti[k], w[k])
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n
+    S = cfg.n_seeds
+    fm = float(w[1:n + 1].sum()) * cfg.data.window / n
+    log(f"train lru64 steady state: {1e3 * per_step:.3f} ms/step, "
+        f"{S / per_step:.1f} seed-steps/s, {fm / per_step:.1f} "
+        f"firm-months/s ({n} steps of {S} seeds in blocks of {LRU64_BLOCK}); "
+        f"peak memory {peak:.2f} GiB")
+    profile_device(torch, lambda: steps(), f"lru64 train, {n} steps")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return {"ms_step": 1e3 * per_step, "peak_gib": peak}
+
+
+def lc_scores_shape(torch, trainer) -> list:
+    """The shape of the first block's attention scores on a train batch:
+    its input ``[rows, W, dim]`` through a forward hook."""
+    seen = []
+    attn = trainer.model.blocks[0].attn
+    hook = attn.register_forward_hook(
+        lambda mod, args, out: seen.append(
+            [args[0].shape[0], mod.heads, args[0].shape[-2],
+             args[0].shape[-2]]))
+    try:
+        b = trainer.train_sampler.stacked_epoch(0)
+        fi, ti, _ = trainer._batch(b)
+        with torch.no_grad():
+            trainer._apply(*trainer._gather(fi[0], ti[0]))
+    finally:
+        hook.remove()
+    return seen[0]
+
+
+def mc_dropout_phase(torch, cfg, splits, totals: dict,
+                     no_dropout_losses) -> None:
+    """Phase 14: the c4 variant with dropout trains 3 steps twice from the
+    same seed (bitwise the same losses, which differ from dropout 0's);
+    ``predict(mc_samples=4)`` on its test split: one gather launch per
+    month chunk shared by the samples, samples that differ, a bitwise
+    replay by ``mc_seed``, another seed's other draws, and the plain
+    predict's validity."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    kw = dict(cfg.model.kwargs, dropout=MC_DROPOUT)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             kwargs=kw))
+    trainer = Trainer(cfg, splits, device="cuda")
+    a, _, state = first_steps(torch, trainer, PLAIN_STEPS)
+    b, _, _ = first_steps(torch, Trainer(cfg, splits, device="cuda"),
+                       PLAIN_STEPS)
+    if a != b or not np.isfinite(a).all():
+        fail(f"c4 with dropout: the same seed gave losses {a} and {b}")
+    if a == list(no_dropout_losses):
+        fail("c4 with dropout: the losses equal dropout 0's")
+    log(f"c4 dropout {MC_DROPOUT}: {PLAIN_STEPS} steps replay bitwise "
+        f"from the seed: {a} (dropout 0: {list(no_dropout_losses)})")
+    trainer.state = state
+    t0 = time.perf_counter()
+    (stacked, valid), counts = counted(
+        "c4 MC-dropout predict", ("window_gather",),
+        lambda: trainer.predict("test", mc_samples=MC_SAMPLES, mc_seed=0),
+        must_not=not_gather())
+    mc_s = time.perf_counter() - t0
+    for k, v in counts.items():
+        totals[k] += v
+    from lfm_quant_tpu_torch.train.loop import predict_batch
+
+    M = predict_batch(cfg, splits, "test", None, True).firm_idx.shape[0]
+    chunks = -(-M // min(cfg.data.dates_per_batch, M))
+    if counts["window_gather"] != chunks:
+        fail(f"MC predict: {counts['window_gather']} gather launches for "
+             f"{chunks} month chunks (once per chunk, shared by the "
+             f"{MC_SAMPLES} samples)")
+    again, _ = trainer.predict("test", mc_samples=MC_SAMPLES, mc_seed=0)
+    other, _ = trainer.predict("test", mc_samples=MC_SAMPLES, mc_seed=1)
+    plain, plain_valid = trainer.predict("test")
+    n, t = splits.panel.n_firms, splits.panel.n_months
+    if stacked.shape != (MC_SAMPLES, n, t) or not np.isfinite(stacked).all():
+        fail(f"MC predict: shape {stacked.shape}, finite "
+             f"{np.isfinite(stacked).all()}")
+    if not np.array_equal(stacked, again):
+        fail("MC predict: the same mc_seed did not replay bitwise")
+    if np.array_equal(stacked, other):
+        fail("MC predict: another mc_seed drew the same samples")
+    if not np.array_equal(valid, plain_valid) or not valid.any():
+        fail("MC predict: validity differs from the plain predict's")
+    spread = float(stacked.std(axis=0)[valid].mean())
+    if not spread > 0:
+        fail("MC predict: the samples do not differ")
+    log(f"c4 MC-dropout predict: {MC_SAMPLES} samples of the test split "
+        f"({M} months, {int(valid.sum())} cells) in {mc_s:.3f} s, "
+        f"{chunks} gather launches; mean per-cell sample std {spread:.5f} "
+        f"(forecast std {float(plain[valid].std()):.5f}); replayed "
+        f"bitwise by mc_seed; validity equals the plain predict's")
+
+
+def new_models_phases(torch, kernels: dict, totals: dict, cache: dict):
+    """Phases 11-14: c4, lru and lru64, c1 and lc, MC-dropout."""
+    from lfm_quant_tpu_torch.config import get_preset
+
+    # ---- 11. c4 at full width -------------------------------------------
+    c4 = one_epoch(get_preset("c4"))
+    splits4 = splits_of(c4, cache)
+    res4 = model_phase(torch, kernels, totals, c4, splits4, "c4")
+    del res4["trainer"]
+    torch.cuda.empty_cache()
+
+    # ---- 12. lru (c2 geometry) and lru64 (c5 geometry) -------------------
+    lru = one_epoch(get_preset("lru"))
+    res_lru = model_phase(torch, kernels, totals, lru, splits_of(lru, cache),
+                          "lru")
+    del res_lru["trainer"]
+    torch.cuda.empty_cache()
+    lru64 = get_preset("lru64")
+    lru64_phase(torch, kernels, totals, lru64, splits_of(lru64, cache))
+
+    # ---- 13. c1 (the MLP) and lc (window 240) ------------------------------
+    c1 = one_epoch(get_preset("c1"))
+    model_phase(torch, kernels, totals, c1, splits_of(c1, cache), "c1")
+    lc = one_epoch(get_preset("lc"))
+    res_lc = model_phase(torch, kernels, totals, lc, splits_of(lc, cache),
+                         "lc", epoch=False)
+    shape = lc_scores_shape(torch, res_lc["trainer"])
+    want = [lc.data.dates_per_batch * lc.data.firms_per_date,
+            lc.model.kwargs["heads"], lc.data.window, lc.data.window]
+    if shape != want:
+        fail(f"lc attention scores {shape}, not {want}")
+    log(f"lc: attention scores {shape} per block and step")
+    del res_lc
+    torch.cuda.empty_cache()
+
+    # ---- 14. MC-dropout ---------------------------------------------------
+    mc_dropout_phase(torch, c4, splits4, totals, res4["losses"])
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2711,13 +3172,11 @@ def main() -> int:
     # seeded params and device panel through the plain gather and the
     # plain recurrence (scan_impl / gather_impl "xla").
     universes = {}
-    for name in ("c2", "c3"):
+    panels = {}
+    for name in SERVED:
         cfg = get_preset(name)
-        t0 = time.perf_counter()
-        panel = resolve_panel(cfg.data)
+        panel = panel_of(cfg, panels)
         universes[name] = (cfg, panel, Predictor(plain_variant(cfg), panel))
-        log(f"{name}: panel {panel.features.shape} built in "
-            f"{time.perf_counter() - t0:.1f} s")
 
     max_rows = 8
     kernels = {}
@@ -2764,24 +3223,26 @@ def main() -> int:
             log(f"{name}: registered and warmed in "
                 f"{time.perf_counter() - t0:.1f} s")
 
-        def serve_all():
-            for name, n_requests in (("c2", 48), ("c3", 24)):
-                service.reset_stats()
-                t0 = time.perf_counter()
-                served[name] = drive_load(service, name, n_requests, 4)
-                wall = time.perf_counter() - t0
-                st = service.stats()
-                log(f"serve {name}: {st['completed']} requests in "
-                    f"{wall:.3f} s, {st['req_per_s']:.2f} req/s, p50 "
-                    f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms, "
-                    f"occupancy {st['mean_occupancy']:.3f}, batches "
-                    f"{st['batches']}")
-                if st["completed"] != n_requests or st["dispatch_errors"]:
-                    fail(f"serve {name}: {st}")
+        def serve(name, n_requests):
+            service.reset_stats()
+            t0 = time.perf_counter()
+            served[name] = drive_load(service, name, n_requests, 4)
+            wall = time.perf_counter() - t0
+            st = service.stats()
+            log(f"serve {name}: {st['completed']} requests in "
+                f"{wall:.3f} s, {st['req_per_s']:.2f} req/s, p50 "
+                f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms, "
+                f"occupancy {st['mean_occupancy']:.3f}, batches "
+                f"{st['batches']}")
+            if st["completed"] != n_requests or st["dispatch_errors"]:
+                fail(f"serve {name}: {st}")
 
-        _, counts = counted("serving", SERVE_KERNELS, serve_all)
-        for k, n in counts.items():
-            totals[k] += n
+        # Each universe counted on its own: its kernels must move.
+        for name, (n_requests, must) in SERVED.items():
+            _, counts = counted(f"serving {name}", must,
+                                lambda: serve(name, n_requests))
+            for k, n in counts.items():
+                totals[k] += n
         profile_device(torch, lambda: drive_load(service, "c2", 32, 4,
                                                  seed=1),
                        "c2 serving, 32 requests from 4 threads")
@@ -2821,13 +3282,8 @@ def main() -> int:
 
     # ---- 6. the c5 ensemble ---------------------------------------------
     cfg5 = get_preset("c5")
-    t0 = time.perf_counter()
-    panel5 = resolve_panel(cfg5.data)
-    splits5 = PanelSplits.by_date(
-        panel5, *default_split_dates(panel5, cfg5.data),
-        train_start=cfg5.data.train_start)
-    log(f"c5: panel {panel5.features.shape} built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    splits5 = splits_of(cfg5, panels)
+    panel5 = splits5.panel
     seed_launches = dict.fromkeys(_build.LAUNCHES, 0)
     trainer5 = c5_phase(torch, cfg5, splits5, kernels, seed_launches)
 
@@ -2845,7 +3301,11 @@ def main() -> int:
     # ---- 10. two ranks on the one card ----------------------------------
     two_ranks_phase(torch, one, totals)
 
-    # ---- 11. kernels line -----------------------------------------------
+    # ---- 11-14. the MLP, transformer and LRU ----------------------------
+    new_models_phases(torch, kernels, totals, panels)
+    del panels
+
+    # ---- 15. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -2871,7 +3331,7 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 12. result -----------------------------------------------------
+    # ---- 16. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

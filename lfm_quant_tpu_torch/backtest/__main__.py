@@ -12,9 +12,10 @@ over the seeds → monthly cross-sectional ranks → top-quantile portfolio →
 CAGR/Sharpe/IC report. The forecast, the aggregation and the backtest run
 on the card (``backtest/torch_engine.py``); ``--device cpu`` runs them on
 the CPU. With no card and no ``--device cpu`` it raises before any work.
-MC-dropout samples (``--mc-samples``) and ``--mode mean_minus_total_std``
-need models that are not ported yet (ROADMAP.md Queue A items 3 and 4)
-and raise.
+``--mc-samples K`` scores a single model with dropout by K MC-dropout
+samples, aggregated like an ensemble's seeds (``--mode``); ``--mode
+mean_minus_total_std`` needs the heteroscedastic variance forward, which
+is not ported yet (ROADMAP.md Queue A item 4), and raises.
 """
 
 from __future__ import annotations
@@ -52,8 +53,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "dir or a stitched ensemble")
     ap.add_argument("--risk-lambda", type=float, default=1.0)
     ap.add_argument("--mc-samples", type=int, default=0,
-                    help="MC-dropout samples: not ported (ROADMAP.md "
-                         "Queue A item 3)")
+                    help="MC-dropout samples for a single model with "
+                         "dropout: score K stochastic forward passes "
+                         "aggregated like an ensemble (--mode)")
     ap.add_argument("--json-out", default=None,
                     help="write the full report JSON here")
     ap.add_argument("--yearly", action="store_true",

@@ -240,16 +240,24 @@ def get_preset(name: str) -> RunConfig:
 
 def model_kwargs(cfg: RunConfig) -> Tuple[str, Dict[str, Any]]:
     """Resolve ModelConfig into ``build_model(kind, n_features, **kwargs)``
-    arguments.
+    arguments: the config's model kwargs (``dropout`` among them: the MLP
+    and the transformer take it), the compute dtype, the heteroscedastic
+    head, and ``window`` (the data's lookback, which sizes the MLP's first
+    layer and the transformer's position table).
 
-    ``scan_impl``: "auto" and "pallas_fused" select the fused recurrence
-    (``ops/rnn.py rnn_scan_fused``: the hand-written kernels for tensors
-    on the card, their plain versions for tensors on the CPU); "pallas"
-    the recurrence over a hoisted input projection (``rnn_scan``, the
-    same split); "xla" the plain recurrence on any device, differentiated
-    by autograd.
+    ``scan_impl`` (lstm/gru only): "auto" and "pallas_fused" select the
+    fused recurrence (``ops/rnn.py rnn_scan_fused``: the hand-written
+    kernels for tensors on the card, their plain versions for tensors on
+    the CPU); "pallas" the recurrence over a hoisted input projection
+    (``rnn_scan``, the same split); "xla" the plain recurrence on any
+    device, differentiated by autograd.
+
+    ``n_seq_shards`` builds no other model: in one process it resolves to
+    the one device, as the JAX trainer's does on one device, and a process
+    group with a seq axis raises (``parallel/mesh.py data_mesh``).
     """
     kw = dict(cfg.model.kwargs)
+    kw["window"] = cfg.data.window
     if compute_dtype(cfg) is not None:
         kw["dtype"] = torch.bfloat16
     if cfg.is_heteroscedastic:

@@ -7,6 +7,8 @@
         --mode mean_minus_std --csv live_ranks.csv
     python -m lfm_quant_tpu_torch.forecast --run-dir ... \\
         --from-date 202401 --to-date 202406
+    python -m lfm_quant_tpu_torch.forecast --run-dir <a dropout model> \\
+        --mc-samples 16 --mode mean_minus_std
 
 Trained checkpoint(s) → rankings for months whose realized outcome is NOT
 yet observable: the backtest scores anchors against realized targets, so
@@ -89,6 +91,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "mean_minus_total_std"),
                     help="ensemble aggregation (as in the backtest)")
     ap.add_argument("--risk-lambda", type=float, default=1.0)
+    ap.add_argument("--mc-samples", type=int, default=0,
+                    help="MC-dropout samples (single model with dropout): "
+                         "aggregate K stochastic forward passes with --mode")
     ap.add_argument("--out", help="write forecasts npz here")
     ap.add_argument("--csv", help="write long-format rankings CSV here "
                                   "(firm_id,yyyymm,forecast,rank)")
@@ -100,12 +105,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from lfm_quant_tpu_torch.data.windows import anchor_index
     from lfm_quant_tpu_torch.device import resolve_device
     from lfm_quant_tpu_torch.train.forecast import (
+        is_ensemble_run_dir,
         load_forecaster,
         run_forecast,
     )
 
     device = resolve_device(args.device)  # no card: raise before any work
     run_dir = _last_fold_dir(args.run_dir)
+    if is_ensemble_run_dir(run_dir) and args.mc_samples > 0:
+        # Before load_forecaster restores every seed's checkpoint.
+        ap.error("--mc-samples applies to single-model run dirs only")
     model, splits, is_ensemble = load_forecaster(run_dir, device=device)
     panel = splits.panel
 
@@ -137,7 +146,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     forecast, valid = run_forecast(
         model, is_ensemble, mode=args.mode, risk_lambda=args.risk_lambda,
-        error=ap.error, date_range=(lo, hi), require_target=False)
+        mc_samples=args.mc_samples, error=ap.error, date_range=(lo, hi),
+        require_target=False)
     months = [t for t in range(lo, hi) if valid[:, t].any()]
 
     if args.out:

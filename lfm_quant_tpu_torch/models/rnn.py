@@ -65,7 +65,7 @@ class RNNModel(nn.Module):
         if factor_rank or n_groups > 1:
             raise NotImplementedError(
                 "factor_rank / n_groups (the factorized recurrences) are not "
-                "ported yet: ROADMAP.md Queue A, training-side layers")
+                "ported yet: ROADMAP.md Queue A item 9")
         self.cell = cell
         self.hidden = hidden
         self.layers = layers
@@ -83,7 +83,15 @@ class RNNModel(nn.Module):
                                  heteroscedastic=heteroscedastic,
                                  dtype=dtype, n_seeds=n_seeds)
 
-    def forward(self, x: torch.Tensor, m: torch.Tensor):
+    def row_state_bytes(self, window: int) -> int:
+        """Bytes of one window row's recurrence states in the compute
+        dtype (the sweep's seed chunking)."""
+        return window * self.hidden * (
+            torch.finfo(self.dtype or torch.float32).bits // 8)
+
+    def forward(self, x: torch.Tensor, m: torch.Tensor, rng=None):
+        # ``rng``: the shared model signature; the recurrent models have
+        # no dropout.
         cd = self.dtype or torch.float32
         if self.embed.kernel.dim() == 3:
             # Seed-stacked: an input without the seed axis is shared.

@@ -38,8 +38,8 @@ STACK_AXIS = "stack"
 
 _ROADMAP = {
     SEED_AXIS: "ROADMAP.md Queue A item 8 (the seed axis across ranks)",
-    SEQ_AXIS: "ROADMAP.md Queue A item 3 (the sequence axis comes with the "
-              "transformer and the LRU)",
+    SEQ_AXIS: "ROADMAP.md Queue A item 9 (the sequence axis: ring "
+              "attention and the distributed linear scan over ranks)",
     FOLD_AXIS: "ROADMAP.md Queue A item 5 (fold-stacked walk-forwards)",
     STACK_AXIS: "ROADMAP.md Queue A item 5 (stacked config sweeps)",
 }

@@ -1,6 +1,7 @@
 """Serve a preset's model and drive a closed-loop request load.
 
     python -m lfm_quant_tpu_torch.serve --preset c2 --requests 64 --threads 4
+    python -m lfm_quant_tpu_torch.serve --preset c4   # or lru, c1, ...
 
 builds the preset's universe from ``synthetic_panel`` (its seed and
 sizes), with the port's seeded init or ``--params file.npz`` holding a
@@ -69,7 +70,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--preset", default="c2",
-                    help="model/data preset (lstm or gru presets: c2, c3)")
+                    help="model/data preset, any kind: c1 (MLP), c2, "
+                         "c3 (LSTM, GRU), c4 (transformer), lru, lru64, lc, "
+                         "or a full name")
     ap.add_argument("--requests", type=int, default=64,
                     help="requests to drive in all (default 64)")
     ap.add_argument("--threads", type=int, default=4,

@@ -4,6 +4,7 @@ a single model or the seed ensemble.
     python -m lfm_quant_tpu_torch.train --preset c2 [--epochs N] [--out DIR]
     python -m lfm_quant_tpu_torch.train --preset c2 --scale 0.05 --device cpu
     python -m lfm_quant_tpu_torch.train --preset c5 [--n-seeds S]
+    python -m lfm_quant_tpu_torch.train --preset c4   # or c1, lru, lru64, lc
     python -m lfm_quant_tpu_torch.train --preset c2 --walk-forward 12 \
         --wf-start 199001 [--wf-folds K] [--wf-score mean]
 
@@ -14,7 +15,10 @@ a saved panel) → splits → ``Trainer.fit`` with early stopping; writes
 as JSON. With ``n_seeds > 1`` (c5: 64) the ensemble trains instead
 (``train/ensemble.py``), into ``<out>/<name>/ensemble`` with its
 ``ensemble.flag``. Runs on the card; ``--device cpu`` trains through
-the kernels' plain versions. ``--scale`` shrinks the synthetic panel
+the kernels' plain versions. Every preset runs, each model kind of the
+JAX package (the MLP, LSTM, GRU, transformer and LRU); ``lc``'s
+``n_seq_shards`` resolves to 1 in one process, as the JAX trainer's does
+on one device. ``--scale`` shrinks the synthetic panel
 (firms and months, never the model's widths). ``--resume`` continues
 from the run directory's latest checkpoint with the same history.
 
@@ -53,7 +57,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     g = ap.add_mutually_exclusive_group(required=True)
-    g.add_argument("--preset", help="ladder preset (c2, c3, or a full name)")
+    g.add_argument("--preset", help="ladder preset (c1, c2, c3, c4, c5, "
+                                    "lru, lru64, lc, or a full name)")
     g.add_argument("--config", help="path to a RunConfig JSON file")
     ap.add_argument("--seed", type=int, default=None, help="override seed")
     ap.add_argument("--epochs", type=int, default=None,

@@ -11,8 +11,11 @@ step, and the per-seed products around them are batched matrix
 products.
 
 * Diversity: member s draws its init from its own generator (``cfg.seed
-  + s``) and its data order from its own ``DateBatchSampler`` (``seed =
-  cfg.seed + s``); an epoch is truncated to the shortest member's.
+  + s``), its data order from its own ``DateBatchSampler`` (``seed =
+  cfg.seed + s``) and, for a model with dropout, its masks from its own
+  stream (base seed ``cfg.seed + s``; each step's generator derived from
+  it and the member's step, as the single-model ``Trainer`` derives its
+  one); an epoch is truncated to the shortest member's.
 * The loss is the SUM of the per-seed losses, so each member gets
   exactly its own gradient; the optimizer (AdamW or LAMB) clips by each
   member's own global norm, and LAMB takes each member's trust ratios
@@ -20,7 +23,9 @@ products.
 * ``cfg.seed_block`` runs the stack in blocks of that many seeds (the
   JAX ``scan_in_blocks``): activation memory drops to one block's, the
   per-seed math is untouched. 0, or a block at or above the seed count,
-  runs all seeds at once; a negative or non-dividing block raises.
+  runs all seeds at once; a negative or non-dividing block raises. Each
+  member's dropout masks come from its own generator, so blocking
+  changes no draw either.
 * Early stopping on the ENSEMBLE-MEAN validation IC; members advance in
   lock-step. One stacked checkpoint (``ckpt/latest``, ``ckpt/best``)
   through :class:`~lfm_quant_tpu_torch.train.loop.FitHarness`.
@@ -66,11 +71,15 @@ from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
 from lfm_quant_tpu_torch.train.loop import (
     _KEEP,
+    DROPOUT_STREAM,
     FitHarness,
     TrainState,
     _point_forecast,
     check_predict_options,
+    derive_seed,
+    generator,
     graft_params,
+    has_dropout,
     make_loss_fn,
     predict_batch,
     scatter_forecasts,
@@ -184,6 +193,7 @@ class EnsembleTrainer:
             min_valid_months=d.min_valid_months, min_cross_section=1,
             date_range=splits.val_range)
         self.loss_fn = make_loss_fn(cfg.optim.loss)
+        self._needs_rng = has_dropout(cfg)
         self._steps_per_epoch = min(s.batches_per_epoch()
                                     for s in self.samplers)
         self.opt = make_optimizer(cfg.optim,
@@ -206,13 +216,15 @@ class EnsembleTrainer:
                    ) -> TrainState:
         """Fresh stacked params (the seeded init, or a seed-stacked Flax
         tree such as the JAX ensemble's), fresh optimizer state, every
-        member at step 0 (``step`` is ``[S]`` int64)."""
+        member at step 0 (``step`` is ``[S]`` int64), member s's dropout
+        base seed ``cfg.seed + s`` (``rng``, ``[S]`` int64)."""
         load_flax_params(self.model, self._fresh_params() if params is None
                          else params)
         live = flax_param_map(self.model)
         return TrainState(live, self.opt.init(
             {k: p.detach() for k, p in live.items()}),
-            torch.zeros(self.n_seeds, dtype=torch.int64))
+            torch.zeros(self.n_seeds, dtype=torch.int64),
+            self.cfg.seed + torch.arange(self.n_seeds))
 
     @staticmethod
     def state_dict(state: TrainState) -> Dict[str, Any]:
@@ -223,7 +235,7 @@ class EnsembleTrainer:
                 "opt_state": {"count": o.count,
                               "mu": {k: cpu(v) for k, v in o.mu.items()},
                               "nu": {k: cpu(v) for k, v in o.nu.items()}},
-                "step": cpu(state.step)}
+                "step": cpu(state.step), "rng": cpu(state.rng)}
 
     def load_state(self, saved: Mapping[str, Any]) -> TrainState:
         """Copy a checkpointed stacked state into the model and the
@@ -234,9 +246,12 @@ class EnsembleTrainer:
                 p.copy_(saved["params"][k])
         o = saved["opt_state"]
         to = (lambda d: {k: v.to(self.device) for k, v in d.items()})
+        rng = saved.get("rng")
         return TrainState(params, AdamWState(int(o["count"]), to(o["mu"]),
                                              to(o["nu"])),
-                          saved["step"].clone())
+                          saved["step"].clone(),
+                          self.cfg.seed + torch.arange(self.n_seeds)
+                          if rng is None else rng.clone())
 
     # ---- the forward -----------------------------------------------------
 
@@ -252,16 +267,18 @@ class EnsembleTrainer:
         return gather(self.dev["xm"], fi, ti, self.window, fp=self.fp)
 
     def _apply(self, params: Mapping[str, torch.Tensor], x: torch.Tensor,
-               m: torch.Tensor):
+               m: torch.Tensor, rng=None):
         """The stacked model on ``params`` (all seeds or a block):
         ``x [s, D, Bf, W, F]`` and ``m [s, D, Bf, W]`` (or without the
-        seed axis: shared) → ``[s, D, Bf]`` outputs."""
+        seed axis: shared) → ``[s, D, Bf]`` outputs; ``rng``, one
+        generator per seed of the block, turns dropout on."""
         seeded = x.dim() == 5
         db = x.shape[-4:-2]  # [D, Bf]
         flat = (x.shape[0], -1) if seeded else (-1,)
         out = functional_call(
             self.model, {self._names[k]: p for k, p in params.items()},
-            (x.reshape(flat + x.shape[-2:]), m.reshape(flat + m.shape[-1:])))
+            (x.reshape(flat + x.shape[-2:]), m.reshape(flat + m.shape[-1:])),
+            {"rng": rng})
         shape = (next(iter(params.values())).shape[0],) + db
         if isinstance(out, tuple):
             return tuple(o.reshape(shape) for o in out)
@@ -269,13 +286,24 @@ class EnsembleTrainer:
 
     def _seed_losses(self, params: Mapping[str, torch.Tensor],
                      fi: torch.Tensor, ti: torch.Tensor,
-                     w: torch.Tensor) -> torch.Tensor:
+                     w: torch.Tensor, rng=None) -> torch.Tensor:
         """Per-seed losses ``[s]`` of an ``[s, D, Bf]`` index batch: one
-        gather over all its seeds, the stacked model, and the loss vmapped
-        over the seed axis (each seed's its own loss, as in JAX)."""
+        gather over all its seeds, the stacked model (dropout on under
+        ``rng``, a generator per seed), and the loss vmapped over the seed
+        axis (each seed's its own loss, as in JAX)."""
         x, m = self._gather(fi, ti)
         y = gather_targets(self.dev["targets"], fi, ti)
-        return vmap(self.loss_fn)(self._apply(params, x, m), y, w)
+        return vmap(self.loss_fn)(self._apply(params, x, m, rng), y, w)
+
+    def step_generators(self, state: TrainState, seeds: slice):
+        """The step's dropout generators of a block of members, each
+        derived from the member's base seed and step, or None for a model
+        without dropout."""
+        if not self._needs_rng:
+            return None
+        return [generator(derive_seed(DROPOUT_STREAM, int(state.rng[s]),
+                                      int(state.step[s])), self.device)
+                for s in range(self.n_seeds)[seeds]]
 
     # ---- the step --------------------------------------------------------
 
@@ -294,7 +322,8 @@ class EnsembleTrainer:
             sl = slice(s0, s0 + block)
             sub = {k: state.params[k][sl].detach().requires_grad_(True)
                    for k in keys}
-            loss = self._seed_losses(sub, fi[sl], ti[sl], w[sl])
+            loss = self._seed_losses(sub, fi[sl], ti[sl], w[sl],
+                                     self.step_generators(state, sl))
             for g, gb in zip(grads, torch.autograd.grad(
                     loss.sum(), [sub[k] for k in keys])):
                 g[sl] = gb
@@ -302,16 +331,17 @@ class EnsembleTrainer:
         losses = torch.cat(losses)
         gnorm = self.opt.step(state.params, dict(zip(keys, grads)),
                               state.opt_state)
-        return (TrainState(state.params, state.opt_state, state.step + 1),
+        return (state._replace(step=state.step + 1),
                 {"loss": losses.detach(), "grad_norm": gnorm})
 
     # ---- evaluation ------------------------------------------------------
 
     def _seed_chunk(self, rows: int) -> int:
-        """Seeds per chunk of the sweep: one chunk's ``[seeds, rows, W,
-        H]`` states within :data:`EVAL_STATE_BYTES`."""
-        itemsize = torch.finfo(self.model.dtype or torch.float32).bits // 8
-        per_seed = rows * self.window * self.model.hidden * itemsize
+        """Seeds per chunk of the sweep: one chunk's largest activation
+        (the recurrence states ``[seeds, rows, W, H]``, the LRU's complex
+        state, the attention scores; the model's ``row_state_bytes``)
+        within :data:`EVAL_STATE_BYTES`."""
+        per_seed = rows * self.model.row_state_bytes(self.window)
         return max(1, min(self.n_seeds, EVAL_STATE_BYTES // per_seed))
 
     def _forward_chunks(self, params: Mapping[str, torch.Tensor],
@@ -482,7 +512,7 @@ class EnsembleTrainer:
         anchors (no observable outcome yet: the forecast entry point).
         ``return_variance`` raises: the heteroscedastic variance forward
         is not ported (ROADMAP.md Queue A item 4)."""
-        check_predict_options(0, return_variance)
+        check_predict_options(return_variance)
         b = predict_batch(self.cfg, self.splits, split, date_range,
                           require_target)
         self.model.eval()

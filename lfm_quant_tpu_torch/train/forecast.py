@@ -5,10 +5,11 @@ against realized outcomes) and ``python -m lfm_quant_tpu_torch.forecast``
 (live anchors, ``require_target=False``): one copy of the single-model /
 ensemble branching and its validation rules.
 
-The seed ensemble's aggregation runs on the model's device
-(``backtest/torch_engine.aggregate_scores_device``). MC-dropout sampling
-and the heteroscedastic modes raise: the dropout models and the variance
-forward are not ported (ROADMAP.md Queue A items 3 and 4).
+The aggregation of stacked forecasts (a seed ensemble's, or a dropout
+model's MC-dropout samples) runs on the model's device
+(``backtest/torch_engine.aggregate_scores_device``). The heteroscedastic
+modes raise: the variance forward is not ported (ROADMAP.md Queue A item
+4).
 """
 
 from __future__ import annotations
@@ -83,7 +84,6 @@ def run_forecast(
     from lfm_quant_tpu_torch.backtest.torch_engine import (
         aggregate_scores_device,
     )
-    from lfm_quant_tpu_torch.train.loop import check_predict_options
 
     error = error or _raise_system_exit
     if is_ensemble and mc_samples > 0:
@@ -94,13 +94,15 @@ def run_forecast(
         raise NotImplementedError(
             "--mode mean_minus_total_std needs the heteroscedastic variance "
             "forward, which is not ported yet (ROADMAP.md Queue A item 4)")
-    check_predict_options(mc_samples, False)
-    if not is_ensemble:
+    if not is_ensemble and mc_samples == 0:
         if mode != "mean":
             error(f"--mode {mode} needs stacked forecasts: an ensemble run "
-                  "dir")
+                  "dir or --mc-samples")
         return model.predict(**predict_kw)
-    stacked, valid = model.predict(**predict_kw)
+    if mc_samples > 0:
+        stacked, valid = model.predict(mc_samples=mc_samples, **predict_kw)
+    else:
+        stacked, valid = model.predict(**predict_kw)
     scores, valid, _ = aggregate_scores_device(
         stacked, valid, [mode], risk_lambda, device=model.device)
     return scores[0].cpu().numpy(), valid

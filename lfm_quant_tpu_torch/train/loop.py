@@ -28,6 +28,14 @@ equal the one-process values (the JAX trainer's sharded gradients are
 every rank takes the same early-stop decisions. Rank 0 alone writes the
 run dir, followed by a barrier; every rank reads it on resume.
 
+Dropout (the MLP's and the transformer's ``dropout`` kwarg) is live in
+the train step only. The state carries a constant base seed (``cfg.seed``);
+each step's generator is derived from (base seed, step), and from the
+rank too when the dates are sharded, so a resume from ``ckpt/latest``
+replays the stream. The sweep, ``predict`` and serving run without it;
+``predict(mc_samples=K)`` is MC-dropout sampling, the forward under K
+seeded draws (:meth:`Predictor.mc_scores`).
+
 The loop is lock-step, the JAX package's ``LFM_ASYNC=0`` path: no geometry
 buckets, no async prefetch or checkpointing (ROADMAP.md Queue A). The
 train step and ``predict`` take ``gather_impl`` (the kernel for "auto" and
@@ -92,6 +100,32 @@ from lfm_quant_tpu_torch.weights import init_params as seeded_init
 #: ``rebind`` sentinel: "keep the previous run_dir" (an explicit None
 #: drops it: a fold that must not checkpoint).
 _KEEP = object()
+
+#: Domain tags of the derived generator seeds: a train step's dropout and
+#: an MC-dropout sample never share a stream.
+DROPOUT_STREAM, MC_STREAM = 0x4C464D44, 0x4C464D43
+
+
+def derive_seed(*words: int) -> int:
+    """A 63-bit seed mixed from integers (``numpy.random.SeedSequence``,
+    led by their count: it ignores trailing zeros): (stream tag, base
+    seed, step[, rank]) for a train step's dropout, (tag, mc_seed,
+    sample, chunk) for an MC-dropout sample."""
+    state = np.random.SeedSequence(
+        [len(words)] + [int(w) for w in words]).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
+def generator(seed: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def has_dropout(cfg: RunConfig) -> bool:
+    """Whether the config's model draws dropout masks in training."""
+    return float(cfg.model.kwargs.get("dropout") or 0.0) > 0.0
 
 
 def _point_forecast(out):
@@ -197,22 +231,25 @@ class Predictor:
         return (cfg.model, compute_dtype(cfg), cfg.data.window,
                 cfg.data.gather_impl)
 
-    def _apply(self, x: torch.Tensor, m: torch.Tensor):
-        """Flatten the [D, Bf] batch dims → one model batch, reapply."""
+    def _apply(self, x: torch.Tensor, m: torch.Tensor,
+               rng: Optional[torch.Generator] = None):
+        """Flatten the [D, Bf] batch dims → one model batch, reapply;
+        ``rng`` turns dropout on."""
         lead = x.shape[:-2]
         out = self.model(x.reshape((-1,) + x.shape[-2:]),
-                         m.reshape((-1,) + m.shape[-1:]))
+                         m.reshape((-1,) + m.shape[-1:]), rng=rng)
         if isinstance(out, tuple):
             return tuple(o.reshape(lead) for o in out)
         return out.reshape(lead)
 
-    def _forward_chunks(self, fi: torch.Tensor, ti: torch.Tensor,
-                        impl: Optional[str] = None
-                        ) -> Iterator[Tuple[slice, Any]]:
-        """The forward over an ``[M, Bf]`` index batch on the device,
+    def _chunk_windows(self, fi: torch.Tensor, ti: torch.Tensor,
+                       impl: Optional[str] = None
+                       ) -> Iterator[Tuple[slice, torch.Tensor,
+                                           torch.Tensor]]:
+        """The windows of an ``[M, Bf]`` index batch on the device,
         chunked over months by ``dates_per_batch`` with the last chunk
         padded by repeating months, as the JAX eval forward does. Yields
-        ``(rows of the padded batch, model output)`` per chunk."""
+        ``(rows of the padded batch, x, m)`` per chunk."""
         M = fi.shape[0]
         C = min(self.cfg.data.dates_per_batch, M)
         pad = (-M) % C
@@ -220,8 +257,16 @@ class Predictor:
             fi = torch.cat([fi, fi[:pad]], dim=0)
             ti = torch.cat([ti, ti[:pad]], dim=0)
         for k in range(0, fi.shape[0], C):
-            x, m = self._gather(fi[k:k + C], ti[k:k + C], impl)
-            yield slice(k, k + C), self._apply(x, m)
+            yield (slice(k, k + C),) + self._gather(fi[k:k + C],
+                                                    ti[k:k + C], impl)
+
+    def _forward_chunks(self, fi: torch.Tensor, ti: torch.Tensor,
+                        impl: Optional[str] = None
+                        ) -> Iterator[Tuple[slice, Any]]:
+        """The forward over :meth:`_chunk_windows`: ``(rows of the padded
+        batch, model output)`` per chunk."""
+        for rows, x, m in self._chunk_windows(fi, ti, impl):
+            yield rows, self._apply(x, m)
 
     def _month_rows(self, M: int) -> Tuple[torch.Tensor, int]:
         """This rank's rows of an ``M``-month sweep (``month_block``), on
@@ -247,6 +292,34 @@ class Predictor:
                  for _, out in self._forward_chunks(fi, ti)]
         return all_gather_dates(torch.cat(preds, dim=0), self.mesh)[:M]
 
+    @torch.inference_mode()
+    def mc_scores(self, firm_idx: np.ndarray, time_idx: np.ndarray,
+                  samples: int, seed: int = 0, batched: bool = True
+                  ) -> torch.Tensor:
+        """MC-dropout forecasts ``[K, M, Bf]`` (f32, on the device) for an
+        ``[M, Bf]`` index batch: the forward with dropout live, sample k of
+        month chunk c drawing from the generator of (``seed``, k, c).
+        ``batched`` gathers each chunk once for all K samples; the loop
+        (``batched=False``) runs the whole sweep per sample and draws the
+        same samples. Every rank forecasts every month."""
+        fi = torch.as_tensor(np.asarray(firm_idx, np.int32)).to(self.device)
+        ti = torch.as_tensor(np.asarray(time_idx, np.int32)).to(self.device)
+
+        def sample(k, c, x, m):
+            g = generator(derive_seed(MC_STREAM, seed, k, c), self.device)
+            return _point_forecast(self._apply(x, m, g)).float()
+
+        if batched:
+            per = [[] for _ in range(samples)]
+            for c, (_, x, m) in enumerate(self._chunk_windows(fi, ti)):
+                for k in range(samples):
+                    per[k].append(sample(k, c, x, m))
+        else:
+            per = [[sample(k, c, x, m) for c, (_, x, m) in
+                    enumerate(self._chunk_windows(fi, ti))]
+                   for k in range(samples)]
+        return torch.stack([torch.cat(p) for p in per])[:, :fi.shape[0]]
+
     def score(self, firm_idx: np.ndarray, time_idx: np.ndarray,
               weight: np.ndarray) -> np.ndarray:
         """Served scores: forecasts as f32 with weight-0 slots zeroed
@@ -264,12 +337,15 @@ class Predictor:
 class TrainState(NamedTuple):
     """``params``: the model's parameters by Flax path (live tensors, the
     optimizer updates them in place); ``opt_state``: Adam's moments and
-    count; ``step``: optimizer steps taken. The JAX state's dropout key
-    has no counterpart: the recurrent models have no dropout."""
+    count; ``step``: optimizer steps taken; ``rng``: the dropout base
+    seed, constant through training (the JAX state's raw key): each
+    step's generator is derived from it and the step, so a resume replays
+    the stream. The seed ensemble keeps ``[S]`` of each of the last two."""
 
     params: Dict[str, torch.Tensor]
     opt_state: AdamWState
-    step: int
+    step: Any
+    rng: Any
 
 
 def load_progress(run_dir: str) -> Dict[str, Any]:
@@ -475,6 +551,7 @@ class Trainer(Predictor):
         self.eval_gather_impl = ("kernel" if d.gather_impl == "pallas"
                                  else "plain")
         self.loss_parts = make_loss_parts(cfg.optim.loss)
+        self._needs_rng = has_dropout(cfg)
         self._steps_per_epoch = self.train_sampler.batches_per_epoch()
         self.opt = make_optimizer(cfg.optim,
                                   self._steps_per_epoch * cfg.optim.epochs)
@@ -484,7 +561,8 @@ class Trainer(Predictor):
     def init_state(self, params: Optional[Mapping[str, Any]] = None
                    ) -> TrainState:
         """Fresh params (the seeded init drawn on the CPU, or a Flax
-        tree), fresh optimizer state, step 0."""
+        tree), fresh optimizer state, step 0, the dropout base seed
+        ``cfg.seed``."""
         if params is None:
             kind, kw = model_kwargs(self.cfg)
             fresh = build_model(kind, n_features=self.panel.n_features, **kw)
@@ -494,7 +572,7 @@ class Trainer(Predictor):
         load_flax_params(self.model, params)
         live = flax_param_map(self.model)
         return TrainState(live, self.opt.init(
-            {k: p.detach() for k, p in live.items()}), 0)
+            {k: p.detach() for k, p in live.items()}), 0, self.cfg.seed)
 
     @staticmethod
     def state_dict(state: TrainState) -> Dict[str, Any]:
@@ -505,7 +583,7 @@ class Trainer(Predictor):
                 "opt_state": {"count": o.count,
                               "mu": {k: cpu(v) for k, v in o.mu.items()},
                               "nu": {k: cpu(v) for k, v in o.nu.items()}},
-                "step": state.step}
+                "step": state.step, "rng": state.rng}
 
     def load_state(self, saved: Mapping[str, Any]) -> TrainState:
         """Copy a checkpointed state into the model and the device."""
@@ -517,16 +595,30 @@ class Trainer(Predictor):
         to = (lambda d: {k: v.to(self.device) for k, v in d.items()})
         return TrainState(params, AdamWState(int(o["count"]), to(o["mu"]),
                                              to(o["nu"])),
-                          int(saved["step"]))
+                          int(saved["step"]), int(saved.get("rng",
+                                                            self.cfg.seed)))
 
     # ---- the step --------------------------------------------------------
 
     def _loss_parts(self, fi: torch.Tensor, ti: torch.Tensor,
-                    w: torch.Tensor):
-        """The loss's ``(num, den)`` on a ``[D, Bf]`` index batch."""
+                    w: torch.Tensor, rng: Optional[torch.Generator] = None):
+        """The loss's ``(num, den)`` on a ``[D, Bf]`` index batch
+        (dropout on under ``rng``)."""
         x, m = self._gather(fi, ti)
         y = gather_targets(self.dev["targets"], fi, ti)
-        return self.loss_parts(self._apply(x, m), y, w)
+        return self.loss_parts(self._apply(x, m, rng), y, w)
+
+    def step_generator(self, state: TrainState
+                       ) -> Optional[torch.Generator]:
+        """The step's dropout generator, derived from the state's base
+        seed and step (and this rank's shard when the dates are sharded),
+        or None for a model without dropout."""
+        if not self._needs_rng:
+            return None
+        words = [DROPOUT_STREAM, state.rng, state.step]
+        if self.mesh.n_data > 1:
+            words.append(self.mesh.rank)
+        return generator(derive_seed(*words), self.device)
 
     def _grads(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
                w: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -537,7 +629,7 @@ class Trainer(Predictor):
         ranks in one flat buffer. On one process: the plain loss and its
         gradients."""
         fi, ti, w = (shard_dates(a, self.mesh) for a in (fi, ti, w))
-        num, den = self._loss_parts(fi, ti, w)
+        num, den = self._loss_parts(fi, ti, w, self.step_generator(state))
         num_g, den_g = all_reduce_sum(
             torch.stack([num.detach(), den.detach()]), self.mesh)
         keys = list(state.params)
@@ -555,7 +647,7 @@ class Trainer(Predictor):
         self.model.train()
         loss, grads = self._grads(state, fi, ti, w)
         gnorm = self.opt.step(state.params, grads, state.opt_state)
-        return (TrainState(state.params, state.opt_state, state.step + 1),
+        return (state._replace(step=state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})
 
     # ---- evaluation ------------------------------------------------------
@@ -691,9 +783,10 @@ class Trainer(Predictor):
     # ---- inference -------------------------------------------------------
 
     def predict(self, split: str = "test", mc_samples: int = 0,
+                mc_seed: int = 0,
                 date_range: Optional[Tuple[int, int]] = None,
-                return_variance: bool = False, require_target: bool = True
-                ) -> Tuple[np.ndarray, np.ndarray]:
+                return_variance: bool = False, require_target: bool = True,
+                mc_batched: bool = True) -> Tuple[np.ndarray, np.ndarray]:
         """Forecasts for every eligible anchor of a split's months:
         ``(forecast [N, T] float32, valid [N, T] bool)`` over the WHOLE
         panel, valid only inside the range, on the host (the backtest's
@@ -705,24 +798,35 @@ class Trainer(Predictor):
         range: the walk-forward predicts each fold's window with it.
         ``require_target=False`` also forecasts LIVE anchors, whose
         outcome is not observable yet (the forecast entry point).
-        ``mc_samples > 0`` and ``return_variance`` raise: MC-dropout and
-        the heteroscedastic variance forward are not ported (ROADMAP.md
-        Queue A items 3 and 4)."""
-        check_predict_options(mc_samples, return_variance)
+
+        ``mc_samples=K > 0``: MC-dropout sampling (:meth:`mc_scores`),
+        ``K`` stacked forecasts ``[K, N, T]`` under the seed ``mc_seed``,
+        shaped like ``EnsembleTrainer.predict``'s for the aggregation, and
+        the same validity; a model without dropout raises ``ValueError``
+        (every sample would be the same). ``mc_batched=False`` runs the
+        per-sample loop, which draws the same samples. ``return_variance``
+        raises: the heteroscedastic variance forward is not ported
+        (ROADMAP.md Queue A item 4)."""
+        if mc_samples > 0 and not self._needs_rng:
+            raise ValueError(
+                "mc_samples > 0 needs a model with dropout > 0 "
+                "(ModelConfig.kwargs['dropout']); this run has none, so "
+                "every sample would be identical")
+        check_predict_options(return_variance)
         b = predict_batch(self.cfg, self.splits, split, date_range,
                           require_target)
         self.model.eval()
-        pred = self.predict_scores(b.firm_idx, b.time_idx)
+        if mc_samples > 0:
+            pred = self.mc_scores(b.firm_idx, b.time_idx, mc_samples,
+                                  mc_seed, batched=mc_batched)
+        else:
+            pred = self.predict_scores(b.firm_idx, b.time_idx)
         return scatter_forecasts(b, pred.float().cpu().numpy(),
                                  self.panel)
 
 
-def check_predict_options(mc_samples: int, return_variance: bool) -> None:
-    """The prediction options the port does not have yet."""
-    if mc_samples > 0:
-        raise NotImplementedError(
-            "mc_samples > 0 (MC-dropout sampling) needs the dropout models, "
-            "which are not ported yet (ROADMAP.md Queue A item 3)")
+def check_predict_options(return_variance: bool) -> None:
+    """The prediction option the port does not have yet."""
     if return_variance:
         raise NotImplementedError(
             "return_variance needs the heteroscedastic variance forward, "

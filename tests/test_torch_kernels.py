@@ -769,3 +769,58 @@ def test_two_ranks_share_the_card(cuda, tmp_path):
         for k in ("window_gather", "rnn_fused_fwd_mma_gru",
                   "rnn_fused_bwd_mma_gru"):
             assert got["launches"][k] >= 3, (k, got["launches"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,dropout", [("c1", 0.0), ("c4", 0.0),
+                                            ("c4", 0.1), ("lru", 0.0)])
+def test_new_models_train_on_the_card(cuda, preset, dropout):
+    """The MLP, transformer and LRU (small panel, the preset's widths,
+    depth cut to 1): 3 train steps on the gather kernel against the plain
+    gather on the card from the same seeded init, within the training
+    gate (atol and rtol 0.05), the kernel launched once a step and no
+    recurrence kernel; with dropout, the same seed replays the losses
+    bitwise."""
+    import dataclasses
+
+    from lfm_quant_tpu_torch.data.panel import PanelSplits
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    cfg = get_preset(preset)
+    kw = dict(cfg.model.kwargs)
+    kw.update({"depth": 1} if cfg.model.kind == "transformer"
+              else {"layers": 1} if cfg.model.kind == "lru" else {})
+    if dropout:
+        kw["dropout"] = dropout
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, n_firms=300, n_months=120,
+                                      window=min(cfg.data.window, 24)),
+        model=dataclasses.replace(cfg.model, kwargs=kw))
+    panel = synthetic_panel(n_firms=300, n_months=120,
+                            n_features=cfg.data.n_features, seed=0)
+    splits = PanelSplits.by_date(panel, int(panel.dates[84]),
+                                 int(panel.dates[102]))
+
+    def losses(c):
+        t = Trainer(c, splits, device="cuda")
+        state = t.init_state()
+        fi, ti, w = t._batch(t.train_sampler.stacked_epoch(0))
+        out = []
+        for k in range(3):
+            state, ms = t.step(state, fi[k], ti[k], w[k])
+            out.append(ms["loss"])
+        return [float(v) for v in torch.stack(out).cpu()]
+
+    _build.reset_launch_counts()
+    got = losses(cfg)
+    counts = _build.launch_counts()
+    assert counts["window_gather"] == 3, counts
+    assert sum(counts.values()) == 3, counts
+    _build.reset_launch_counts()
+    want = losses(dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, gather_impl="xla")))
+    assert not any(_build.launch_counts().values())
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
+    if dropout:
+        assert losses(cfg) == got

@@ -116,18 +116,20 @@ def test_port_imports_no_jax_ast():
                 if n.split(".")[0] in banned:
                     bad.append(f"{os.path.relpath(path, ROOT)}: {n}")
     assert len(_port_files()) > 20
-    # The seed ensemble's module (and its copied run-dir marker) and the
-    # data-parallel modules are scanned.
+    # The seed ensemble's module (and its copied run-dir marker), the
+    # data-parallel modules and the MLP, transformer and LRU are scanned.
     for rel in (("train", "ensemble.py"), ("parallel", "mesh.py"),
-                ("parallel", "launch.py"), ("utils", "distributed.py")):
+                ("parallel", "launch.py"), ("utils", "distributed.py"),
+                ("models", "mlp.py"), ("models", "transformer.py"),
+                ("models", "lru.py")):
         assert os.path.join(ROOT, "lfm_quant_tpu_torch", *rel) in \
             _port_files()
     assert not bad, bad
 
 
 def test_port_runs_without_jax_in_sys_modules():
-    """Import the whole package and serve on the CPU in a fresh process:
-    neither jax nor lfm_quant_tpu may be loaded."""
+    """Import the whole package and serve c2 and c4 on the CPU in a fresh
+    process: neither jax nor lfm_quant_tpu may be loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import lfm_quant_tpu_torch as p\n"
@@ -136,8 +138,11 @@ def test_port_runs_without_jax_in_sys_modules():
         "from lfm_quant_tpu_torch.serve.__main__ import main\n"
         "main(['--preset', 'c2', '--n-firms', '16', '--n-months', '80',\n"
         "      '--requests', '4', '--threads', '2', '--device', 'cpu'])\n"
+        "main(['--preset', 'c4', '--n-firms', '16', '--n-months', '80',\n"
+        "      '--requests', '2', '--threads', '1', '--device', 'cpu'])\n"
         "for m in ('train.ensemble', 'parallel.mesh', 'parallel.launch',\n"
-        "          'utils.distributed'):\n"
+        "          'utils.distributed', 'models.mlp', 'models.transformer',\n"
+        "          'models.lru'):\n"
         "    assert 'lfm_quant_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'lfm_quant_tpu')]\n"

@@ -246,7 +246,7 @@ def test_model_kwargs_route_scan_impl():
     with pytest.raises(ValueError, match="scan_impl"):
         tconfig.model_kwargs(c)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("transformer", n_features=3)
+        build_model("transformer", n_features=3, window=4, seq_axis="seq")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RNNModel(3, factor_rank=4)
 
