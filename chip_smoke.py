@@ -146,9 +146,33 @@ imports nothing of JAX. Phases, each fatal on failure:
    (bitwise the same losses), then ``predict(mc_samples=4)`` of its test
    split: one gather launch per month chunk, samples that differ, a
    bitwise replay by ``mc_seed``, the plain predict's validity;
-15. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
-   10, 11-14 for the one-seed rows, 6 and 7 for the seed rows);
-16. print the result line ``{"ok": true, "device": {...}}`` last.
+15. the seq axis: lc (window 240) and then lru (window 60) with
+   ``n_seq_shards`` 2 on 2 processes sharing the card (as phase 10): the
+   gather at each rank's sub-window (120 and 30 months) exact against
+   its plain version; on each rank the ring at lc's step (layer 0's
+   q/k/v blocks, f32 operands) against full attention in f32 (atol and
+   rtol 1e-5), the first 3 steps' losses and grad norms within the
+   training gate of phases 13 and 12's one process, the gather launched
+   once a step and nothing else, ms per step and peak memory; one hop of
+   the ring and its host staging alone timed, and their share of the
+   step;
+16. the seed axis: c5's 64 members on 2 processes sharing the card (32
+   each): the seed-grid rows 3 and 4 and the seed-folded gather at the
+   32-seed block (rank 0's first stacked batch, as phase 6 holds the
+   64-seed one: the first, a middle and the last seed bitwise one-seed
+   launches and within the plain version's tolerance); on each rank its
+   members' first 3 steps' per-seed losses against phase 6's one
+   process, rows 3 and 4 and the gather once a step, the forecasts of 3
+   test months gathered over the seeds against phase 6's, ms per step
+   and peak memory;
+17. the factorized recurrences at c2's geometry (bf16): the LSTM at
+   ``factor_rank`` 32 and the GRU at ``n_groups`` 4 as c4 without the
+   epoch: 3 steps against the plain gather, one step launching the
+   gather once and no recurrence kernel, ms per step and peak memory;
+18. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
+   10, 11-15 and 17 for the one-seed rows, 6, 7 and 16 for the seed
+   rows);
+19. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -250,10 +274,11 @@ PLAIN_STEPS = 3      # steps of each model held against the plain path
 TIMED_STEPS = 4      # steps of each model timed and profiled
 C3_KERNELS = ("window_gather", "rnn_fused_fwd_mma_gru",
               "rnn_fused_bwd_mma_gru")
-C3_RANKS = 2         # phase 10's processes on the one card
+CARD_RANKS = 2       # phases 10, 15 and 16's processes on the one card
 RANKS_TIMEOUT_S = 600
 C5_PLAIN_STEPS = 3   # c5 steps held against the plain path
 C5_PLAIN_BLOCK = 8   # seed_block of the plain path (its autograd memory)
+C5_PREDICT_MONTHS = 3  # test months phase 16's gathered forecasts cover
 GATHER_NO_LIBRARY = (
     "no single PyTorch call: one advanced index reads the raw rows; the "
     "window also needs the validity column split off and the masked and "
@@ -1743,17 +1768,20 @@ def step_in_turns(torch, cfg, splits, label: str, attr: str, modes: dict,
     torch.cuda.empty_cache()
 
 
-def check_seed_batched(torch, trainer, kernels) -> None:
+def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
+                       check=None) -> None:
     """The c5 train step's seed-batched launches (S 64 x B 2048, T 60, H
-    128, LSTM, bf16) on the layer-0 input of the first stacked batch of
-    epoch 0 and the model's seeded weights: the gather folded over the
-    seeds, exact; the fused forward and backward each bitwise equal to 64
-    one-seed launches with the same rows per block, m of seed extent 1
-    bitwise equal to its broadcast copy, and each seed within the plain
-    version's tolerance; each timed beside its bound, the 64 one-seed
-    launches and the plain version (one seed at a time); row 4's library
-    yardstick is the per-seed weight-gradient products as one f32
-    ``torch.bmm`` (random operands of the products' shapes)."""
+    128, LSTM, bf16; ``trainer``'s seeds) on the layer-0 input of the
+    first stacked batch of epoch 0 and the model's seeded weights: the
+    gather folded over the seeds, exact; the fused forward and backward
+    each bitwise equal to one-seed launches with the same rows per block
+    (every seed, or those of ``check``), m of seed extent 1 bitwise equal
+    to its broadcast copy, and each checked seed within the plain
+    version's tolerance; each timed beside its bound, the checked seeds'
+    one-seed launches and the plain version (one seed at a time); row 4's
+    library yardstick is the per-seed weight-gradient products as one f32
+    ``torch.bmm`` (random operands of the products' shapes). Recorded
+    under ``where``."""
     from lfm_quant_tpu_torch.data.windows import gather_windows_packed
     from lfm_quant_tpu_torch.ops import rnn as R
     from lfm_quant_tpu_torch.ops.gather import gather_windows
@@ -1762,6 +1790,7 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     (fi_all, ti_all, _), _ = trainer._build_epoch(0)
     fi, ti = fi_all[0], ti_all[0]  # [S, D, Bf]
     S, D, Bf = fi.shape
+    check = list(range(S) if check is None else check)
     W, fp = trainer.window, trainer.fp
     xm = trainer.dev["xm"]
     x, m = gather_windows(xm, fi, ti, W, fp=fp)
@@ -1771,7 +1800,7 @@ def check_seed_batched(torch, trainer, kernels) -> None:
             fail(f"seed-folded gather differs at seed {s}")
     fi_np = fi.reshape(S * D, Bf).cpu().numpy()
     ti_np = ti.reshape(S * D).cpu().numpy()
-    report(kernels, "window_gather_seeds", "c5 train step", dict(
+    report(kernels, "window_gather_seeds", where, dict(
         shape=list(x.shape), max_abs_err=0.0, tolerance="exact",
         **kernel_ms(lambda: gather_windows(xm, fi, ti, W, fp=fp),
                     launches=20),
@@ -1800,7 +1829,7 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     h, c = R._fused_states(*args)
     torch.cuda.synchronize()
     worst = 0.0
-    for s in range(S):
+    for s in check:
         h1, c1 = R._launch_fwd_mma(cell, hin[s], wx[s], bb[s], wh[s], mm[s],
                                    1.0, True, rows)
         if not (torch.equal(h[s], h1) and torch.equal(c[s], c1)):
@@ -1826,20 +1855,21 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     ms = kernel_ms(lambda: R._fused_states(*args), reps=5, launches=2)
     singles_ms = time_ms(lambda: [R._launch_fwd_mma(
         cell, hin[s], wx[s], bb[s], wh[s], mm[s], 1.0, True, rows)
-        for s in range(S)], reps=3, warmup=1)
+        for s in check], reps=3, warmup=1)
     plain_ms = time_ms(lambda: [R.rnn_scan_states(
         cell, hin[s].float() @ wx[s].float() + bb[s].float(), wh[s], mm[s],
-        1.0, True) for s in range(S)], reps=1, warmup=0)
-    report(kernels, "rnn_fused_fwd_mma_lstm_seeds", "c5 train step", dict(
+        1.0, True) for s in check], reps=1, warmup=0)
+    report(kernels, "rnn_fused_fwd_mma_lstm_seeds", where, dict(
         shape=[S, B, W, H], rows_per_block=rows, bitwise_vs_single=True,
+        seeds_checked=len(check),
         max_abs_err=worst, tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}",
         **ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None, library_note=(
             "no single PyTorch call: torch.nn.LSTM takes one weight set "
             "per call, so 64 seeds are 64 calls")))
-    log(f"seed-batched fused fwd at the c5 train step: {ms['ms']:.3f} ms "
-        f"for 64 seeds in one launch, {singles_ms:.3f} ms in 64 launches, "
-        f"bound {bound:.3f} ms")
+    log(f"seed-batched fused fwd at the {where}: {ms['ms']:.3f} ms for {S} "
+        f"seeds in one launch, {singles_ms:.3f} ms in {len(check)} one-seed "
+        f"launches, bound {bound:.3f} ms")
 
     # Row 4 on the forward's states.
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1848,7 +1878,7 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     got = R.rnn_scan_fused_bwd(*bargs)
     torch.cuda.synchronize()
     worst = wgrad = 0.0
-    for s in range(S):
+    for s in check:
         one = R.rnn_scan_fused_bwd(cell, *(t[s] for t in bargs[1:]))
         if not all(torch.equal(g[s], o) for g, o in zip(got, one)):
             fail(f"seed-batched fused bwd differs from the one-seed call at "
@@ -1872,9 +1902,9 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     bound, by = rnn_bound("fused_bwd", cell, B, W, H, 2, seeds=S)
     ms = kernel_ms(lambda: R.rnn_scan_fused_bwd(*bargs), reps=3, launches=1)
     singles_ms = time_ms(lambda: [R.rnn_scan_fused_bwd(
-        cell, *(t[s] for t in bargs[1:])) for s in range(S)], reps=1)
+        cell, *(t[s] for t in bargs[1:])) for s in check], reps=1)
     plain_ms = time_ms(lambda: [R.rnn_scan_fused_bwd_reference(
-        cell, *(t[s] for t in bargs[1:])) for s in range(S)], reps=1,
+        cell, *(t[s] for t in bargs[1:])) for s in check], reps=1,
         warmup=0)
     del h, c, dh, bargs
     torch.cuda.empty_cache()
@@ -1885,40 +1915,52 @@ def check_seed_batched(torch, trainer, kernels) -> None:
     library_ms = time_ms(lambda: torch.bmm(a, d), reps=5)
     del a, d
     torch.cuda.empty_cache()
-    report(kernels, "rnn_fused_bwd_mma_lstm_seeds", "c5 train step", dict(
+    report(kernels, "rnn_fused_bwd_mma_lstm_seeds", where, dict(
         shape=[S, B, W, H], bitwise_vs_single=True, max_abs_err=worst,
+        seeds_checked=len(check),
         wgrad_scaled_err=wgrad,
         tolerance=f"scaled atol {BF16_TOL}, weight gradients "
                   f"{MMA_WGRAD_TOL}",
         **ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=library_ms))
-    log(f"seed-batched fused bwd at the c5 train step: {ms['ms']:.3f} ms "
-        f"for 64 seeds in one call, {singles_ms:.3f} ms in 64 calls, bound "
-        f"{bound:.3f} ms, library bmm {library_ms:.3f} ms")
+    log(f"seed-batched fused bwd at the {where}: {ms['ms']:.3f} ms for {S} "
+        f"seeds in one call, {singles_ms:.3f} ms in {len(check)} one-seed "
+        f"calls, bound {bound:.3f} ms, library bmm {library_ms:.3f} ms")
     del hin, mm
     torch.cuda.empty_cache()
 
 
-def ensemble_steps(torch, cfg, splits, n_steps: int):
+def ensemble_steps(torch, cfg, splits, n_steps: int, date_range=None,
+                   device: str = "cuda"):
     """``n_steps`` c5 steps of a fresh ``EnsembleTrainer`` on the card from
     the seeded init and the epoch-0 sampler orders → per-step per-seed
-    losses ``[n_steps][S]``."""
+    losses ``[n_steps][S]`` (this rank's members in a seed-sharded
+    group); with ``date_range``, also the forecasts of that month range
+    from the state after them, at the valid cells (``[S, cells]``, every
+    member's), and the validity ``[N, T]``."""
     from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
 
-    trainer = EnsembleTrainer(cfg, splits, device="cuda")
+    trainer = EnsembleTrainer(cfg, splits, device=device)
     state = trainer.init_state()
     (fi, ti, w), _ = trainer._build_epoch(0)
     losses = []
     for k in range(n_steps):
         state, ms = trainer.step(state, fi[k], ti[k], w[k])
         losses.append(ms["loss"])
-    return torch.stack(losses).cpu().tolist()
+    losses = torch.stack(losses).cpu().tolist()
+    if date_range is None:
+        return losses
+    trainer.state = state
+    fc, valid = trainer.predict(date_range=date_range)
+    return losses, (fc[:, valid], valid)
 
 
 def c5_phase(torch, cfg, splits, kernels, seed_launches):
     """Phase 6: c5, the 64-seed ensemble, for one epoch on the kernels;
     its epoch's launches go to ``seed_launches``. Returns the trained
-    ensemble."""
+    ensemble, and what phase 16 is held to: the first steps' per-seed
+    losses and the forecasts of :data:`C5_PREDICT_MONTHS` test months
+    after them."""
     import numpy as np
 
     from lfm_quant_tpu_torch.ops import _build
@@ -1930,7 +1972,11 @@ def c5_phase(torch, cfg, splits, kernels, seed_launches):
     check_seed_batched(torch, trainer, kernels)
 
     # The first steps against the plain path on the card.
-    got = ensemble_steps(torch, cfg, splits, C5_PLAIN_STEPS)
+    lo = splits.range_of("test")[0]
+    span = (lo, lo + C5_PREDICT_MONTHS)
+    got, fc = ensemble_steps(torch, cfg, splits, C5_PLAIN_STEPS,
+                             date_range=span)
+    one = {"losses": got, "predict": fc, "range": span}
     _build.reset_launch_counts()
     plain_cfg = dataclasses.replace(plain_variant(cfg),
                                     seed_block=C5_PLAIN_BLOCK)
@@ -2025,7 +2071,7 @@ def c5_phase(torch, cfg, splits, kernels, seed_launches):
         f"{-(-S // trainer._seed_chunk(C * pool))} seed chunks); ic_mean "
         f"{ev['ic_mean']:.6f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return trainer
+    return trainer, one
 
 
 def reports_match(label: str, got, want) -> dict:
@@ -2543,39 +2589,22 @@ def c3_rank_job(n_steps: int, timed_steps: int) -> dict:
 
 
 def two_ranks_phase(torch, one: dict, totals: dict) -> None:
-    """Phase 10: c3 on ``C3_RANKS`` processes that share the one card
-    (gloo: NCCL refuses two ranks on one device), a ``file://``
-    rendezvous in a temporary directory, ``n_data_shards`` = the ranks.
-    Each rank's first steps' losses and grad norms and its month-sharded
-    sweep are held to phase 9's one process within the training gate;
-    each rank's kernels must have launched. A rank that fails or outlives
-    the limit fails the phase: there is no fallback to one process."""
-    import shutil
-    import tempfile
-
+    """Phase 10: c3 on ``CARD_RANKS`` processes that share the one card
+    (:func:`run_on_ranks`), ``n_data_shards`` = the ranks. Each rank's
+    first steps' losses and grad norms and its month-sharded sweep are
+    held to phase 9's one process within the training gate; each rank's
+    kernels must have launched."""
     import numpy as np
 
-    from lfm_quant_tpu_torch.parallel.launch import run_ranks
-
-    tmp = tempfile.mkdtemp(prefix="lfm_c3_ranks_")
     t0 = time.perf_counter()
-    try:
-        ranks = run_ranks(C3_RANKS, "chip_smoke:c3_rank_job",
-                          dict(n_steps=PLAIN_STEPS,
-                               timed_steps=TIMED_STEPS),
-                          tmp, RANKS_TIMEOUT_S)
-    except (RuntimeError, TimeoutError) as e:
-        fail(f"phase 10, {C3_RANKS} ranks on one card: {e}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = run_on_ranks("phase 10, c3", "chip_smoke:c3_rank_job",
+                         dict(n_steps=PLAIN_STEPS, timed_steps=TIMED_STEPS))
     wall = time.perf_counter() - t0
     worst = 0.0
     for got in ranks:
         r = got["rank"]
-        if got["n_data"] != C3_RANKS:
-            fail(f"rank {r}: n_data {got['n_data']}, not {C3_RANKS}")
-        if got["built_here"] is not None:
-            fail(f"rank {r} rebuilt the kernels ({got['built_here']} s)")
+        if got["n_data"] != CARD_RANKS:
+            fail(f"rank {r}: n_data {got['n_data']}, not {CARD_RANKS}")
         for k in C3_KERNELS:
             if got["launches"][k] < PLAIN_STEPS:
                 fail(f"rank {r}: {k} launched {got['launches'][k]} times "
@@ -2593,7 +2622,7 @@ def two_ranks_phase(torch, one: dict, totals: dict) -> None:
             fail(f"rank {r}: sweep over {got['eval']['n_months']} months")
     if not np.array_equal(ranks[0]["losses"], ranks[1]["losses"]):
         fail(f"the ranks' losses differ: {[g['losses'] for g in ranks]}")
-    log(f"c3 on {C3_RANKS} ranks sharing the card (gloo): job {wall:.1f} s; "
+    log(f"c3 on {CARD_RANKS} ranks sharing the card (gloo): job {wall:.1f} s; "
         f"losses, grad norms and the sweep within {worst:.4g} of one "
         f"process (tol {BF16_TOL} + {BF16_TOL}|one|); "
         + "; ".join(f"rank {g['rank']}: {g['ms_step']:.3f} ms/step, peak "
@@ -3076,8 +3105,11 @@ def mc_dropout_phase(torch, cfg, splits, totals: dict,
         f"bitwise by mc_seed; validity equals the plain predict's")
 
 
-def new_models_phases(torch, kernels: dict, totals: dict, cache: dict):
-    """Phases 11-14: c4, lru and lru64, c1 and lc, MC-dropout."""
+def new_models_phases(torch, kernels: dict, totals: dict, cache: dict
+                      ) -> dict:
+    """Phases 11-14: c4, lru and lru64, c1 and lc, MC-dropout. Returns
+    what phase 15 is held to: lru's and lc's first steps' losses and grad
+    norms, ms per step and peak memory in one process."""
     from lfm_quant_tpu_torch.config import get_preset
 
     # ---- 11. c4 at full width -------------------------------------------
@@ -3091,7 +3123,9 @@ def new_models_phases(torch, kernels: dict, totals: dict, cache: dict):
     lru = one_epoch(get_preset("lru"))
     res_lru = model_phase(torch, kernels, totals, lru, splits_of(lru, cache),
                           "lru")
-    del res_lru["trainer"]
+    keep = ("losses", "grad_norms", "ms_step", "peak_gib")
+    one = {"lru": {k: res_lru[k] for k in keep}}
+    del res_lru
     torch.cuda.empty_cache()
     lru64 = get_preset("lru64")
     lru64_phase(torch, kernels, totals, lru64, splits_of(lru64, cache))
@@ -3108,12 +3142,391 @@ def new_models_phases(torch, kernels: dict, totals: dict, cache: dict):
     if shape != want:
         fail(f"lc attention scores {shape}, not {want}")
     log(f"lc: attention scores {shape} per block and step")
+    one["lc"] = {k: res_lc[k] for k in keep}
     del res_lc
     torch.cuda.empty_cache()
 
     # ---- 14. MC-dropout ---------------------------------------------------
     mc_dropout_phase(torch, c4, splits4, totals, res4["losses"])
     torch.cuda.empty_cache()
+    return one
+
+
+# ---------------------------------------------------------------------------
+# Phases 15-17: the seq and seed axes over ranks, the factorized recurrences
+# ---------------------------------------------------------------------------
+
+RING_TOL = 1e-5      # ring attention against full attention in f32 (atol
+                     # and rtol: tests/test_ring.py's bound)
+# Phase 17: c2's geometry with each factorization.
+FACTORED = (("lstm", {"factor_rank": 32}), ("gru", {"n_groups": 4}))
+
+
+def seq_config(preset: str):
+    """``preset`` cut to one epoch, its window split over
+    :data:`CARD_RANKS` ranks."""
+    from lfm_quant_tpu_torch.config import get_preset
+
+    return one_epoch(get_preset(preset), n_seq_shards=CARD_RANKS)
+
+
+def full_attention(torch, q, k, v, m):
+    """Dense masked attention in f32 (the reference of
+    ``tests/test_ring.py``): rows with no valid key give 0."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+    s = s.masked_fill(~m[:, None, None, :], -1e30)
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+    return torch.where(m.any(dim=-1)[:, None, None, None], o,
+                       torch.zeros_like(o))
+
+
+def ring_check(torch, trainer, fi, ti) -> dict:
+    """On this seq rank, at the lc step's shapes (the first batch, the
+    seeded params): layer 0's q, k and v of the FULL window, full
+    attention over them in f32, and ``ring_attention`` of this rank's
+    blocks (f32 operands: the bf16 values) against its rows; then the
+    ring in bf16 as the step runs it, one hop of its packed K/V and the
+    hop's host staging alone, timed (every rank runs the same calls: the
+    hops pair up)."""
+    from lfm_quant_tpu_torch.parallel import ring
+
+    mesh, model = trainer.mesh, trainer.model
+    cd = model.dtype
+    attn = model.blocks[0].attn
+    with torch.inference_mode():
+        x, m = trainer._gather(fi, ti)
+        W = x.shape[-2]
+        x, m = x.reshape(-1, W, x.shape[-1]), m.reshape(-1, W)
+        z = model.embed(x.to(cd), dtype=cd) + model.pos_emb.to(cd)
+        y = model.blocks[0].ln1(z)
+        q, k, v = (p(y, dtype=cd).transpose(-3, -2)
+                   for p in (attn.query, attn.key, attn.value))
+        del x, z, y
+        want = ring.window_block(full_attention(
+            torch, q.float(), k.float(), v.float(), m), mesh)
+        qb, kb, vb = (ring.window_block(t, mesh) for t in (q, k, v))
+        mb = ring.window_block(m, mesh, axis=-1)
+        got = ring.ring_attention(qb.float(), kb.float(), vb.float(), mb,
+                                  mesh)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        excess = float((err - RING_TOL - RING_TOL * want.abs()).max())
+        out = {"max_abs_err": float(err.max()), "excess": excess,
+               "shape": list(qb.shape)}
+        del got, want, q, k, v
+        torch.cuda.empty_cache()
+        out["ring_ms"] = time_ms(lambda: ring.ring_attention(qb, kb, vb, mb,
+                                                             mesh), reps=5)
+        packed = torch.cat([kb.reshape(-1), vb.reshape(-1),
+                            mb.to(kb.dtype).reshape(-1)])
+        out["hop_bytes"] = packed.numel() * packed.element_size()
+        out["hop_ms"] = time_ms(lambda: ring._shift(packed, mesh, 1), reps=5)
+        out["staging_ms"] = time_ms(
+            lambda: packed.to("cpu").to(packed.device), reps=5)
+    return out
+
+
+def seq_rank_job(preset: str, n_steps: int, timed_steps: int) -> dict:
+    """One rank of phase 15, in its own process: ``preset`` at full width
+    with its window split over the job's ranks, on card 0 with the
+    kernels phase 2 built. The gather at this rank's sub-window, the ring
+    against full attention (lc), the first steps from the seeded init and
+    their launches, then the time of ``timed_steps`` more and the peak
+    memory."""
+    import torch
+
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.loop import Trainer, sub_window
+    from lfm_quant_tpu_torch.utils import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    cfg = seq_config(preset)
+    trainer = Trainer(cfg, splits_of(cfg, {}), device="cuda:0")
+    mesh = trainer.mesh
+    out = {"rank": D.rank(), "n_seq": mesh.n_seq,
+           "built_here": _build.BUILD_INFO["seconds"]}
+    wl, shift = sub_window(cfg.data.window, mesh)
+    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(0))
+    with torch.inference_mode():
+        x, _ = trainer._gather(fi[0], ti[0] - shift, window=wl)
+    out["sub_window"], out["shift"] = list(x.shape), shift
+    del x
+    if cfg.model.kind == "transformer":
+        out["ring"] = ring_check(torch, trainer, fi[0], ti[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out["losses"], out["grad_norms"], state = first_steps(torch, trainer,
+                                                          n_steps)
+    out["launches"] = _build.launch_counts()
+    fi, ti, w = trainer._batch(trainer.train_sampler.stacked_epoch(1))
+    state, _ = trainer.step(state, fi[0], ti[0], w[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, timed_steps + 1):
+        state, _ = trainer.step(state, fi[k], ti[k], w[k])
+    torch.cuda.synchronize()
+    out["ms_step"] = 1e3 * (time.perf_counter() - t0) / timed_steps
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def run_on_ranks(label: str, target: str, payload: dict) -> list:
+    """``target`` on :data:`CARD_RANKS` processes sharing the card (gloo:
+    NCCL refuses two ranks on one device; a ``file://`` rendezvous in a
+    temporary directory), each loading phase 2's build; a rank that
+    fails, outlives the limit or rebuilt the kernels fails the phase:
+    there is no fallback to one process."""
+    import shutil
+    import tempfile
+
+    from lfm_quant_tpu_torch.parallel.launch import run_ranks
+
+    tmp = tempfile.mkdtemp(prefix="lfm_ranks_")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(CARD_RANKS, target, payload, tmp,
+                          RANKS_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"{label}, {CARD_RANKS} ranks on one card: {e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"{label}: {CARD_RANKS} ranks on the card, job "
+        f"{time.perf_counter() - t0:.1f} s")
+    for got in ranks:
+        if got["built_here"] is not None:
+            fail(f"{label} rank {got['rank']} rebuilt the kernels "
+                 f"({got['built_here']} s)")
+    return ranks
+
+
+def seq_ranks_phase(torch, kernels: dict, totals: dict, one: dict,
+                    cache: dict) -> None:
+    """Phase 15: lc (window 240) and lru (window 60) with the window split
+    over :data:`CARD_RANKS` processes sharing the card. The gather at each
+    rank's sub-window against its plain version; on each rank: the ring
+    against full attention in f32 (lc), the first steps' losses and grad
+    norms within the training gate of phases 13 and 12's one process,
+    the gather launched once a step at the sub-window and nothing else,
+    ms per step and peak memory; the hop's and its staging's share."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.parallel.mesh import DataMesh
+    from lfm_quant_tpu_torch.train.loop import Trainer, sub_window
+
+    for preset in ("lc", "lru"):
+        cfg = seq_config(preset)
+        d = cfg.data
+        splits = splits_of(cfg, cache)
+        tr = Trainer(dataclasses.replace(cfg, n_seq_shards=1), splits,
+                     device="cuda")
+        b = tr.train_sampler.stacked_epoch(0)
+        with torch.inference_mode():
+            for r in range(CARD_RANKS):
+                wl, shift = sub_window(d.window, DataMesh(
+                    n_seq=CARD_RANKS, seq_rank=r))
+                check_gather(torch, kernels, f"{preset} seq rank {r} "
+                             f"sub-window", tr.dev["xm"], b.firm_idx[0],
+                             b.time_idx[0] - shift, wl, tr.fp,
+                             tr.panel.n_months)
+        del tr
+        torch.cuda.empty_cache()
+        ranks = run_on_ranks(
+            f"phase 15, {preset}", "chip_smoke:seq_rank_job",
+            dict(preset=preset, n_steps=PLAIN_STEPS,
+                 timed_steps=TIMED_STEPS))
+        ref = one[preset]
+        worst = 0.0
+        for got in ranks:
+            r = got["rank"]
+            wl = d.window // CARD_RANKS
+            if got["n_seq"] != CARD_RANKS or got["sub_window"][-2] != wl:
+                fail(f"{preset} rank {r}: n_seq {got['n_seq']}, sub-window "
+                     f"{got['sub_window']}")
+            counts = got["launches"]
+            if counts["window_gather"] != PLAIN_STEPS or \
+                    sum(counts.values()) != PLAIN_STEPS:
+                fail(f"{preset} rank {r}: {PLAIN_STEPS} steps launched "
+                     f"{counts}, not the gather once a step")
+            totals["window_gather"] += counts["window_gather"]
+            worst = max(worst,
+                        losses_agree(f"{preset} rank {r} losses",
+                                     got["losses"], ref["losses"]),
+                        losses_agree(f"{preset} rank {r} grad norms",
+                                     got["grad_norms"], ref["grad_norms"]))
+            if "ring" in got and got["ring"]["excess"] > 0:
+                fail(f"{preset} rank {r}: ring attention differs from full "
+                     f"attention by {got['ring']['max_abs_err']}")
+        if not np.array_equal(ranks[0]["losses"], ranks[1]["losses"]):
+            fail(f"{preset}: the seq ranks' losses differ: "
+                 f"{[g['losses'] for g in ranks]}")
+        log(f"{preset} on {CARD_RANKS} seq ranks (window {d.window}, "
+            f"{d.window // CARD_RANKS} per rank): losses and grad norms "
+            f"within {worst:.4g} of one process (tol {BF16_TOL} + "
+            f"{BF16_TOL}|one|): " + "; ".join(
+                f"rank {g['rank']}: {g['ms_step']:.3f} ms/step, peak "
+                f"{g['peak_gib']:.2f} GiB, sub-window {g['sub_window']} "
+                f"(shift {g['shift']})" for g in ranks)
+            + f"; one process {ref['ms_step']:.3f} ms/step, peak "
+            f"{ref['peak_gib']:.2f} GiB")
+        for g in ranks:
+            if "ring" not in g:
+                continue
+            rg = g["ring"]
+            depth = cfg.model.kwargs["depth"]
+            # A step's hops: n_seq - 1 per layer forward, as many backward.
+            hops = 2 * depth * (CARD_RANKS - 1)
+            log(f"lc rank {g['rank']} ring: q/k/v blocks {rg['shape']} "
+                f"against full attention in f32, max abs err "
+                f"{rg['max_abs_err']:.3g} (tol {RING_TOL} + {RING_TOL}"
+                f"|full|); ring attention (bf16) {rg['ring_ms']:.3f} ms; one "
+                f"hop of {rg['hop_bytes'] / 2 ** 20:.1f} MiB "
+                f"{rg['hop_ms']:.3f} ms, of which the host staging alone "
+                f"{rg['staging_ms']:.3f} ms; {hops} hops a step = "
+                f"{100 * hops * rg['hop_ms'] / g['ms_step']:.1f}% of the "
+                f"step ({100 * hops * rg['staging_ms'] / g['ms_step']:.1f}% "
+                f"staging)")
+
+
+def c5_rank_job(n_steps: int, timed_steps: int, span) -> dict:
+    """One rank of phase 16, in its own process: c5 at full width with its
+    64 members split over the job's ranks, on card 0 with the kernels
+    phase 2 built. The first steps from the seeded init and their
+    launches, the gathered forecasts of ``span`` after them (at the valid
+    cells) and their launches, then the time of ``timed_steps`` more and
+    the peak memory."""
+    import torch
+
+    from lfm_quant_tpu_torch.config import get_preset
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+    from lfm_quant_tpu_torch.utils import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    cfg = one_epoch(get_preset("c5"))
+    trainer = EnsembleTrainer(cfg, splits_of(cfg, {}), device="cuda:0")
+    out = {"rank": D.rank(), "seeds": list(trainer.seeds),
+           "built_here": _build.BUILD_INFO["seconds"]}
+    state = trainer.init_state()
+    (fi, ti, w), _ = trainer._build_epoch(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses = []
+    for k in range(n_steps):
+        state, ms = trainer.step(state, fi[k], ti[k], w[k])
+        losses.append(ms["loss"])
+    out["losses"] = torch.stack(losses).cpu().tolist()
+    out["launches"] = _build.launch_counts()
+    trainer.state = state
+    _build.reset_launch_counts()
+    fc, valid = trainer.predict(date_range=tuple(span))
+    out["predict"] = (fc[:, valid], valid)
+    out["predict_launches"] = _build.launch_counts()
+    for k in range(n_steps, n_steps + timed_steps + 1):
+        if k == n_steps + 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, _ = trainer.step(state, fi[k], ti[k], w[k])
+    torch.cuda.synchronize()
+    out["ms_step"] = 1e3 * (time.perf_counter() - t0) / timed_steps
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def seed_ranks_phase(torch, kernels: dict, totals: dict, seed_launches: dict,
+                     one: dict, cache: dict) -> None:
+    """Phase 16: c5 with its 64 members split over :data:`CARD_RANKS`
+    processes sharing the card (32 a rank). The seed-grid launches at the
+    32-seed block (the rank's first stacked batch: rows 3 and 4 and the
+    seed-folded gather, against one-seed launches and the plain version);
+    on each rank: its members' first steps' per-seed losses against phase
+    6's one process, rows 3 and 4 and the seed-folded gather launched
+    once a step, the gathered forecasts against the one process, ms per
+    step and peak memory."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.config import get_preset
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+
+    cfg = one_epoch(get_preset("c5"))
+    S = cfg.n_seeds
+    per = S // CARD_RANKS
+    # The 32-seed block alone is rank 0's members: the same seeded init,
+    # the same sampler orders.
+    block = EnsembleTrainer(dataclasses.replace(cfg, n_seeds=per),
+                            splits_of(cfg, cache), device="cuda")
+    check_seed_batched(torch, block, kernels,
+                       where=f"c5 seed block (S {per}, rank 0 of "
+                             f"{CARD_RANKS})", check=(0, per // 2, per - 1))
+    del block
+    torch.cuda.empty_cache()
+    ranks = run_on_ranks("phase 16, c5", "chip_smoke:c5_rank_job",
+                         dict(n_steps=C5_PLAIN_STEPS,
+                              timed_steps=TIMED_STEPS, span=one["range"]))
+    want = np.asarray(one["losses"])
+    fc1, valid1 = one["predict"]
+    worst = 0.0
+    for got in ranks:
+        r = got["rank"]
+        if got["seeds"] != list(range(r * per, (r + 1) * per)):
+            fail(f"c5 rank {r}: members {got['seeds']}")
+        counts = got["launches"]
+        for k in ("window_gather", "rnn_fused_fwd_mma_lstm",
+                  "rnn_fused_bwd_mma_lstm"):
+            if counts[k] != C5_PLAIN_STEPS:
+                fail(f"c5 rank {r}: {k} launched {counts[k]} times in "
+                     f"{C5_PLAIN_STEPS} steps, not once a step")
+        if any(counts[k] for k in CUDA_CORE):
+            fail(f"c5 rank {r} launched a CUDA-core kernel: {counts}")
+        pc = got["predict_launches"]
+        if not (pc["window_gather"] and pc["rnn_fused_fwd_mma_lstm"]):
+            fail(f"c5 rank {r}: predict launched {pc}")
+        for c in (counts, pc):
+            for k, v in c.items():
+                seed_launches[k] += v
+        worst = max(worst, losses_agree(
+            f"c5 rank {r} per-seed losses", got["losses"],
+            want[:, r * per:(r + 1) * per]))
+        fc, valid = got["predict"]
+        if not np.array_equal(valid, valid1) or fc.shape != fc1.shape:
+            fail(f"c5 rank {r}: forecasts of {fc.shape} / validity differ")
+        worst = max(worst, losses_agree(f"c5 rank {r} forecasts", fc, fc1))
+    log(f"c5 on {CARD_RANKS} seed ranks ({per} members each): per-seed "
+        f"losses of {C5_PLAIN_STEPS} steps and the gathered forecasts of "
+        f"{C5_PREDICT_MONTHS} test months ({fc1.shape[1]} cells x {S} "
+        f"seeds) within {worst:.4g} of one process (tol {BF16_TOL} + "
+        f"{BF16_TOL}|one|): " + "; ".join(
+            f"rank {g['rank']}: {g['ms_step']:.3f} ms/step, "
+            f"{per / g['ms_step'] * 1e3:.1f} seed-steps/s, peak "
+            f"{g['peak_gib']:.2f} GiB" for g in ranks))
+
+
+def factored_phase(torch, kernels: dict, totals: dict, cache: dict) -> None:
+    """Phase 17: the factorized recurrences at c2's geometry (bf16): the
+    low-rank LSTM and the grouped GRU of :data:`FACTORED` through
+    :func:`model_phase` without the epoch: the gather at the step's
+    shape, the first steps against the same model on the plain gather,
+    one step launching the gather once and no recurrence kernel (the JAX
+    XLA scan's route: a loop over the window), ms per step and peak
+    memory."""
+    from lfm_quant_tpu_torch.config import get_preset
+
+    c2 = get_preset("c2")
+    for cell, kw in FACTORED:
+        cfg = one_epoch(train_variant(c2, kind=cell, kwargs=dict(
+            c2.model.kwargs, **kw)))
+        label = f"c2 {cell} " + ", ".join(f"{k} {v}" for k, v in kw.items())
+        res = model_phase(torch, kernels, totals, cfg, splits_of(cfg, cache),
+                          label, epoch=False)
+        if res["trainer"].model.scan_impl != "loop":
+            fail(f"{label}: scan_impl {res['trainer'].model.scan_impl}")
+        del res
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3285,7 +3698,7 @@ def main() -> int:
     splits5 = splits_of(cfg5, panels)
     panel5 = splits5.panel
     seed_launches = dict.fromkeys(_build.LAUNCHES, 0)
-    trainer5 = c5_phase(torch, cfg5, splits5, kernels, seed_launches)
+    trainer5, one5 = c5_phase(torch, cfg5, splits5, kernels, seed_launches)
 
     # ---- 7. c5 backtest ---------------------------------------------------
     c5_backtest_phase(torch, trainer5, panel5, totals, seed_launches)
@@ -3302,10 +3715,19 @@ def main() -> int:
     two_ranks_phase(torch, one, totals)
 
     # ---- 11-14. the MLP, transformer and LRU ----------------------------
-    new_models_phases(torch, kernels, totals, panels)
+    one = new_models_phases(torch, kernels, totals, panels)
+
+    # ---- 15. the seq axis: lc and lru on two ranks -----------------------
+    seq_ranks_phase(torch, kernels, totals, one, panels)
+
+    # ---- 16. the seed axis: c5 on two ranks ------------------------------
+    seed_ranks_phase(torch, kernels, totals, seed_launches, one5, panels)
+
+    # ---- 17. the factorized recurrences ----------------------------------
+    factored_phase(torch, kernels, totals, panels)
     del panels
 
-    # ---- 15. kernels line -----------------------------------------------
+    # ---- 18. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -3331,7 +3753,7 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 16. result -----------------------------------------------------
+    # ---- 19. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

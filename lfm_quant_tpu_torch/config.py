@@ -238,7 +238,8 @@ def get_preset(name: str) -> RunConfig:
         ) from None
 
 
-def model_kwargs(cfg: RunConfig) -> Tuple[str, Dict[str, Any]]:
+def model_kwargs(cfg: RunConfig, seq_axis: bool = False
+                 ) -> Tuple[str, Dict[str, Any]]:
     """Resolve ModelConfig into ``build_model(kind, n_features, **kwargs)``
     arguments: the config's model kwargs (``dropout`` among them: the MLP
     and the transformer take it), the compute dtype, the heteroscedastic
@@ -250,11 +251,14 @@ def model_kwargs(cfg: RunConfig) -> Tuple[str, Dict[str, Any]]:
     kernels for tensors on the card, their plain versions for tensors on
     the CPU); "pallas" the recurrence over a hoisted input projection
     (``rnn_scan``, the same split); "xla" the plain recurrence on any
-    device, differentiated by autograd.
+    device, differentiated by autograd. A factorized recurrence
+    (``factor_rank`` / ``n_groups``) runs on the JAX XLA scan only: "auto"
+    and "xla" give it the port's "loop"; a kernel impl forced on one
+    raises in the model.
 
-    ``n_seq_shards`` builds no other model: in one process it resolves to
-    the one device, as the JAX trainer's does on one device, and a process
-    group with a seq axis raises (``parallel/mesh.py data_mesh``).
+    ``seq_axis=True`` builds the window-sharded variant (transformer and
+    lru only), the trainer's train model under a live seq axis (the
+    params equal the plain model's).
     """
     kw = dict(cfg.model.kwargs)
     kw["window"] = cfg.data.window
@@ -263,8 +267,11 @@ def model_kwargs(cfg: RunConfig) -> Tuple[str, Dict[str, Any]]:
     if cfg.is_heteroscedastic:
         kw["heteroscedastic"] = True
     if cfg.model.kind in ("lstm", "gru") and "scan_impl" not in kw:
+        factored = bool(kw.get("factor_rank")) or kw.get("n_groups", 1) > 1
         impl = cfg.model.scan_impl
-        if impl in ("auto", "pallas_fused"):
+        if factored and impl in ("auto", "xla"):
+            kw["scan_impl"] = "loop"
+        elif impl in ("auto", "pallas_fused"):
             kw["scan_impl"] = "fused"
         elif impl == "xla":
             kw["scan_impl"] = "plain"
@@ -274,4 +281,11 @@ def model_kwargs(cfg: RunConfig) -> Tuple[str, Dict[str, Any]]:
             raise ValueError(
                 "scan_impl must be auto|xla|pallas|pallas_fused, got "
                 f"{impl!r}")
+    if seq_axis:
+        if cfg.model.kind not in ("transformer", "lru"):
+            raise ValueError(
+                f"n_seq_shards > 1 needs a window-shardable model "
+                f"(transformer | lru), got {cfg.model.kind!r} — a serial "
+                "recurrence cannot shard its time axis")
+        kw["seq_axis"] = "seq"
     return cfg.model.kind, kw

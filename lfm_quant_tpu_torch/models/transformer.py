@@ -15,8 +15,16 @@ one mask ``[1, 1, Wq, Wk]`` shared over the batch and the heads.
 ``scaled_dot_product_attention`` is not used: its all-masked rows give
 NaN and its rounding points are not Flax's.
 
-The sequence-parallel mode (``seq_axis``: ring attention over ranks) is
-not ported (ROADMAP.md Queue A item 9).
+Long-context mode (``seq_axis="seq"``, the JAX ``RingSelfAttention`` and
+the ``seq_axis`` branches of ``EncoderBlock`` and ``TransformerModel``):
+the model runs on this seq rank's block of the window inside
+``parallel/ring.py bind_seq_axis``. Attention is ``ring_attention`` (K/V
+blocks rotating over the seq group, an online softmax in f32, unlike the
+plain mode's softmax in the compute dtype), the position table stays
+``[window, dim]`` (the params equal the plain model's, so a checkpoint of
+either mode loads into the other) and each rank adds its slice from
+``rank·Wl``, and the pooling sums ``num`` and ``den`` over the group.
+Dropout under a seq axis raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from lfm_quant_tpu_torch.models.heads import (
     masked_mean_pool,
     seed_view,
 )
+from lfm_quant_tpu_torch.parallel import ring
 
 
 class DenseGeneral(nn.Module):
@@ -87,11 +96,18 @@ class SelfAttention(nn.Module):
                                 n_seeds=n_seeds)
 
     def forward(self, y: torch.Tensor, m: torch.Tensor,
-                rng: Rng = None) -> torch.Tensor:
+                rng: Rng = None, mesh=None) -> torch.Tensor:
         """``y [..., W, dim]``, ``m [..., W]`` (True: a valid key) →
-        ``[..., W, dim]``."""
+        ``[..., W, dim]``. ``mesh``: the seq rank's block of the window,
+        attended by ``ring_attention`` over its seq group (JAX
+        ``RingSelfAttention``)."""
         q, k, v = (p(y, dtype=self.dtype)
                    for p in (self.query, self.key, self.value))
+        if mesh is not None:
+            # [..., Wl, H, Dh] → [..., H, Wl, Dh] and back.
+            o = ring.ring_attention(*(t.transpose(-3, -2) for t in (q, k, v)),
+                                    m, mesh)
+            return self.out(o.transpose(-3, -2), dtype=self.dtype)
         dt = q.dtype
         q = q / torch.tensor(math.sqrt(self.head_dim), dtype=dt)
         scores = torch.einsum("...qhd,...khd->...hqk", q, k)
@@ -127,8 +143,8 @@ class EncoderBlock(nn.Module):
         self.mlp_out = Dense(dim * mlp_ratio, dim, n_seeds=n_seeds)
 
     def forward(self, z: torch.Tensor, m: torch.Tensor,
-                rng: Rng = None) -> torch.Tensor:
-        z = z + self.attn(self.ln1(z), m, rng)
+                rng: Rng = None, mesh=None) -> torch.Tensor:
+        z = z + self.attn(self.ln1(z), m, rng, mesh)
         y = gelu(self.mlp_in(self.ln2(z), dtype=self.dtype))
         return z + self.mlp_out(y, dtype=self.dtype)
 
@@ -141,7 +157,10 @@ class TransformerModel(nn.Module):
     attention dropout on. The position table is ``[window, dim]``, so the
     window length is an argument. ``n_seeds=S``: every param
     seed-stacked, the input ``[S, B, W, F]`` (or shared), the output
-    ``[S, B]``."""
+    ``[S, B]``. ``seq_axis``: the long-context mode (see the module
+    docstring): ``x [..., Wl, F]`` is the seq rank's block of a window of
+    ``window = n_seq · Wl`` months, and every rank of the group returns
+    the same forecasts."""
 
     def __init__(self, n_features: int, window: int, dim: int = 64,
                  depth: int = 2, heads: int = 4, mlp_ratio: int = 4,
@@ -151,11 +170,14 @@ class TransformerModel(nn.Module):
                  seq_axis: Optional[str] = None,
                  n_seeds: Optional[int] = None):
         super().__init__()
-        if seq_axis is not None:
-            raise NotImplementedError(
-                "the sequence-parallel encoder (seq_axis: ring attention "
-                "over ranks) is not ported yet: ROADMAP.md Queue A item 9")
+        if seq_axis is not None and dropout > 0.0:
+            raise ValueError(
+                "dropout is not implemented for the sequence-parallel "
+                "encoder (RingSelfAttention) — it would silently train "
+                "differently from the plain mode; set dropout=0.0 with "
+                "seq_axis")
         lead = () if n_seeds is None else (n_seeds,)
+        self.seq_axis = seq_axis
         self.dtype = dtype
         self.heads = heads
         self.dim, self.mlp_ratio = dim, mlp_ratio
@@ -180,8 +202,24 @@ class TransformerModel(nn.Module):
         if self.pos_emb.dim() == 3:
             x = x[None] if x.dim() == 3 else x
             m = m[None] if m.dim() == 2 else m
+        mesh = None if self.seq_axis is None else ring.seq_axis(self.seq_axis)
         z = self.embed(x.to(self.dtype or torch.float32), dtype=self.dtype)
-        z = z + seed_view(self.pos_emb, z.dim(), 2).to(z.dtype)
+        pos = self.pos_emb
+        if mesh is not None:
+            w = x.shape[-2]  # the local window
+            if w * mesh.n_seq != pos.shape[-2]:
+                raise ValueError(
+                    f"{mesh.n_seq} seq ranks of {w} months do not make the "
+                    f"model's window of {pos.shape[-2]}")
+            pos = pos.narrow(-2, mesh.seq_rank * w, w)
+        z = z + seed_view(pos, z.dim(), 2).to(z.dtype)
         for block in self.blocks:
-            z = block(z, m, rng)
-        return self.head(masked_mean_pool(self.ln_f(z), m))
+            z = block(z, m, rng, mesh)
+        z = self.ln_f(z)
+        if mesh is None:
+            return self.head(masked_mean_pool(z, m))
+        mf = m.to(z.dtype)[..., None]
+        num = ring.seq_sum((z * mf).sum(dim=-2), mesh)
+        den = ring.seq_sum(mf.sum(dim=-2), mesh)
+        return ring.replicated(self.head(num / torch.clamp(den, min=1.0)),
+                               mesh)

@@ -1,2 +1,3 @@
-"""Data parallelism over ``torch.distributed``: the date axis
-(``mesh.py``) and a local launcher for N-rank jobs (``launch.py``)."""
+"""Parallelism over ``torch.distributed``: the (seed × data × seq) mesh
+(``mesh.py``), sequence parallelism (``ring.py``) and a local launcher
+for N-rank jobs (``launch.py``)."""

@@ -16,21 +16,28 @@ as JSON. With ``n_seeds > 1`` (c5: 64) the ensemble trains instead
 (``train/ensemble.py``), into ``<out>/<name>/ensemble`` with its
 ``ensemble.flag``. Runs on the card; ``--device cpu`` trains through
 the kernels' plain versions. Every preset runs, each model kind of the
-JAX package (the MLP, LSTM, GRU, transformer and LRU); ``lc``'s
-``n_seq_shards`` resolves to 1 in one process, as the JAX trainer's does
-on one device. ``--scale`` shrinks the synthetic panel
+JAX package (the MLP, LSTM, GRU, transformer and LRU, the factorized
+recurrences among them); ``lc``'s ``n_seq_shards`` resolves to 1 in one
+process (with a warning), as the JAX trainer's does on one device.
+``--scale`` shrinks the synthetic panel
 (firms and months, never the model's widths). ``--resume`` continues
 from the run directory's latest checkpoint with the same history.
 
-Data parallelism: one process per card, each started by the launcher,
+Parallelism: one process per card, each started by the launcher,
 
     torchrun --nproc-per-node N -m lfm_quant_tpu_torch.train --preset c3
+    torchrun --nproc-per-node 2 -m lfm_quant_tpu_torch.train --preset c5
+    torchrun --nproc-per-node 2 -m lfm_quant_tpu_torch.train --preset lc
 
 or with ``LFM_COORDINATOR``, ``LFM_NUM_PROCESSES`` and ``LFM_PROCESS_ID``
 set per process (``utils/distributed.py``). Each rank takes the card of
-its local rank (NCCL between cards; ``--device cpu`` ranks use gloo) and
-trains its block of each batch's dates; ``n_data_shards`` must resolve
-to the world size, and the seed ensemble takes one process. Rank 0
+its local rank (NCCL between cards; ``--device cpu`` ranks use gloo). The
+world is laid out as the JAX mesh (``parallel/mesh.py``): the seed axis
+(the ensemble's members split over the ranks) takes the largest divisor
+of both ``n_seeds`` and the world, the data axis (each batch's dates)
+``n_data_shards`` of what is left, and the seq axis (each window split
+over the ranks: the transformer and the LRU) ``n_seq_shards`` of the
+rest, degrading with a warning; their product must be the world. Rank 0
 writes the run directory and prints the summary.
 
 ``--walk-forward STEP_MONTHS`` retrains every STEP_MONTHS months and

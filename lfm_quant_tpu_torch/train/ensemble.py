@@ -1,5 +1,6 @@
 """The seed ensemble: the port of ``lfm_quant_tpu/train/ensemble.py``
-(``EnsembleTrainer``) for one device.
+(``EnsembleTrainer``), on one device or over a (seed × data × seq) mesh
+of processes.
 
 ``cfg.n_seeds`` independent members of one model train as ONE stacked
 state: every param and both Adam moments carry a leading seed axis
@@ -38,9 +39,22 @@ products.
   ``fit(init_params=)`` and ``rebind`` give the walk-forward its warm
   start and its folds.
 
+* Across processes (``parallel/mesh.py``, the JAX ``train/ensemble.py:
+  295-340`` mesh): the seed axis takes the largest divisor of both the
+  seed count and the world, and rank r trains only its block of members
+  (each keeps its one-process init, sampler seed, dropout stream and
+  optimizer rows), so the steps exchange nothing over it; the data and
+  seq axes compose as in the single-model ``Trainer`` (the members'
+  loss parts summed over the date shards, the gradients over the date and
+  seq shards). ``seed_block`` applies to the rank's own members. The
+  per-seed validation ICs and the epoch's losses are gathered over the
+  seeds, so every rank takes the same early-stop and best-epoch
+  decisions; ``predict`` gathers the ``[S, N, T]`` forecasts; rank 0
+  writes the whole stacked state once, a checkpoint that one process
+  loads (``load_ensemble``) and a seed-sharded run resumes from.
+
 Out of this slice (ROADMAP.md): the async epoch pipeline, geometry
-buckets, the variance forward and the seed axis across processes (a
-process group of more than one rank raises).
+buckets and the variance forward.
 """
 
 from __future__ import annotations
@@ -48,7 +62,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
+from typing import (Any, Dict, Iterator, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -63,12 +78,25 @@ from lfm_quant_tpu_torch.data.windows import (
     gather_windows_packed,
     resolve_gather_impl,
 )
+from lfm_quant_tpu_torch.ops.losses import finalize_loss, make_loss_parts
 from lfm_quant_tpu_torch.device import resolve_device
 from lfm_quant_tpu_torch.models import build_model
 from lfm_quant_tpu_torch.ops.gather import fold_seeds, gather_windows
 from lfm_quant_tpu_torch.ops.metrics import spearman_ic
 from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
+from lfm_quant_tpu_torch.parallel import ring
+from lfm_quant_tpu_torch.parallel.mesh import (
+    BATCH,
+    SEED_AXIS,
+    all_gather_cat,
+    all_reduce_flat,
+    all_reduce_sum,
+    data_mesh,
+    mesh_fingerprint,
+    month_block,
+    shard_dates,
+)
 from lfm_quant_tpu_torch.train.loop import (
     _KEEP,
     DROPOUT_STREAM,
@@ -76,17 +104,19 @@ from lfm_quant_tpu_torch.train.loop import (
     TrainState,
     _point_forecast,
     check_predict_options,
+    check_seq,
     derive_seed,
     generator,
     graft_params,
     has_dropout,
-    make_loss_fn,
     predict_batch,
     scatter_forecasts,
+    seq_model,
     splits_for,
+    sub_window,
 )
-from lfm_quant_tpu_torch.parallel.mesh import data_mesh
 from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
+from lfm_quant_tpu_torch.utils import distributed as dist_utils
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import flax_param_map, load_flax_params
 from lfm_quant_tpu_torch.weights import init_params as seeded_init
@@ -99,7 +129,8 @@ EVAL_STATE_BYTES = 4 << 30
 
 
 class EnsembleTrainer:
-    """Trains ``cfg.n_seeds`` members as one stacked state on one device.
+    """Trains ``cfg.n_seeds`` members as one stacked state on one device
+    (in a process group: this rank's block of them, ``seeds``).
 
     ``device``: None means ``cuda`` (the kernels); ``"cpu"`` runs every
     kernel's plain version. ``run_dir`` None trains without checkpoints
@@ -117,21 +148,31 @@ class EnsembleTrainer:
     def _key(cfg: RunConfig):
         """What the stacked model and the device panel are built from
         (besides the panel itself)."""
-        return (cfg.model, cfg.n_seeds, compute_dtype(cfg), cfg.data.window,
-                cfg.data.gather_impl)
+        return (cfg.model, cfg.n_seeds, cfg.n_data_shards, cfg.n_seq_shards,
+                compute_dtype(cfg), cfg.data.window, cfg.data.gather_impl)
 
     def _build(self, cfg: RunConfig, panel: Panel) -> None:
-        """The stacked model and the device-resident panel."""
+        """The mesh, this rank's members, the stacked model (and, under a
+        live seq axis, its window-sharded twin) and the device-resident
+        panel."""
         if cfg.n_seeds < 2:
             raise ValueError("EnsembleTrainer needs n_seeds >= 2")
         d = cfg.data
+        self.mesh = data_mesh(cfg.n_data_shards, n_seeds=cfg.n_seeds,
+                              n_seq_shards=check_seq(cfg))
+        local = cfg.n_seeds // self.mesh.n_seed
+        #: This rank's members (global seed indices).
+        self.seeds = range(self.mesh.seed_rank * local,
+                           (self.mesh.seed_rank + 1) * local)
         self.panel = panel
         self.window = d.window
         self.fp = panel.n_features + 1  # logical packed width
         self.gather_impl = resolve_gather_impl(d.gather_impl)
         kind, kwargs = model_kwargs(cfg)
         self.model = build_model(kind, n_features=panel.n_features,
-                                 n_seeds=cfg.n_seeds, **kwargs).to(self.device)
+                                 n_seeds=local, **kwargs).to(self.device)
+        self.train_model = seq_model(cfg, self.mesh, panel.n_features,
+                                     self.device, n_seeds=local)
         # Flax path → the module's own name, for functional_call.
         names = {id(p): n for n, p in self.model.named_parameters()}
         self._names = {k: names[id(p)]
@@ -161,16 +202,23 @@ class EnsembleTrainer:
     def _bind(self, cfg: RunConfig, splits: PanelSplits,
               run_dir: Optional[str], echo: bool) -> None:
         """The fit's splits, per-seed samplers, loss and optimizer."""
-        # One process: the seed axis across ranks is not ported (raises).
-        data_mesh(cfg.n_data_shards, n_seeds=cfg.n_seeds)
-        S = self.n_seeds = cfg.n_seeds
+        self.n_seeds = cfg.n_seeds
+        local = len(self.seeds)
         self.seed_block = int(cfg.seed_block or 0)
         if self.seed_block < 0:
             raise ValueError(f"seed_block must be >= 0, got {self.seed_block}")
-        # A block at or above the seed count is a no-op, not an error.
-        if 0 < self.seed_block < S and S % self.seed_block:
-            raise ValueError(f"seed_block={self.seed_block} must divide "
-                             f"n_seeds={S}")
+        # A block at or above the rank's seed count is a no-op, not an
+        # error (a config tuned for one card stays loadable on a wider
+        # seed mesh).
+        if 0 < self.seed_block < local and local % self.seed_block:
+            raise ValueError(
+                f"seed_block={self.seed_block} must divide the per-shard "
+                f"seed count {local} (n_seeds={cfg.n_seeds} over a "
+                f"{self.mesh.n_seed}-wide seed mesh)")
+        if cfg.data.dates_per_batch % self.mesh.n_data:
+            raise ValueError(
+                f"dates_per_batch={cfg.data.dates_per_batch} must be "
+                f"divisible by n_data_shards={self.mesh.n_data}")
         self.cfg = cfg
         self.splits = splits
         self.run_dir = run_dir
@@ -187,12 +235,12 @@ class EnsembleTrainer:
                 panel, d.window, d.dates_per_batch, d.firms_per_date,
                 seed=cfg.seed + s, min_valid_months=d.min_valid_months,
                 date_range=splits.train_range, engine=d.sampler_engine)
-            for s in range(S)]
+            for s in self.seeds]
         self.val_sampler = DateBatchSampler(
             panel, d.window, 1, d.firms_per_date, seed=cfg.seed,
             min_valid_months=d.min_valid_months, min_cross_section=1,
             date_range=splits.val_range)
-        self.loss_fn = make_loss_fn(cfg.optim.loss)
+        self.loss_parts = make_loss_parts(cfg.optim.loss)
         self._needs_rng = has_dropout(cfg)
         self._steps_per_epoch = min(s.batches_per_epoch()
                                     for s in self.samplers)
@@ -202,81 +250,122 @@ class EnsembleTrainer:
 
     # ---- state -----------------------------------------------------------
 
+    @property
+    def n_local(self) -> int:
+        """This rank's member count."""
+        return len(self.seeds)
+
+    def _local(self, t):
+        """This rank's rows of an all-seed stacked leaf (leading axis S);
+        a leaf already at the rank's count passes."""
+        if self.mesh.n_seed == 1 or t.shape[0] != self.n_seeds:
+            return t
+        return t[self.seeds.start:self.seeds.stop]
+
     def _fresh_params(self) -> Dict[str, np.ndarray]:
-        """A seeded stacked init as a Flax tree: member s from
-        ``torch.Generator().manual_seed(cfg.seed + s)``."""
+        """A seeded stacked init of this rank's members as a Flax tree:
+        member s from ``torch.Generator().manual_seed(cfg.seed + s)``."""
         kind, kw = model_kwargs(self.cfg)
         fresh = build_model(kind, n_features=self.splits.panel.n_features,
-                            n_seeds=self.n_seeds, **kw)
+                            n_seeds=self.n_local, **kw)
         seeded_init(fresh, [torch.Generator().manual_seed(self.cfg.seed + s)
-                            for s in range(self.n_seeds)])
+                            for s in self.seeds])
         return {k: p.detach().numpy() for k, p in flax_param_map(fresh).items()}
 
     def init_state(self, params: Optional[Mapping[str, Any]] = None
                    ) -> TrainState:
         """Fresh stacked params (the seeded init, or a seed-stacked Flax
-        tree such as the JAX ensemble's), fresh optimizer state, every
-        member at step 0 (``step`` is ``[S]`` int64), member s's dropout
-        base seed ``cfg.seed + s`` (``rng``, ``[S]`` int64)."""
+        tree of this rank's members, such as the JAX ensemble's; ``fit``
+        takes this rank's block of an all-seed tree), fresh optimizer
+        state, every member at step 0 (``step`` is ``[s]`` int64), member
+        s's dropout base seed ``cfg.seed + s`` (``rng``, ``[s]`` int64)."""
         load_flax_params(self.model, self._fresh_params() if params is None
                          else params)
         live = flax_param_map(self.model)
         return TrainState(live, self.opt.init(
             {k: p.detach() for k, p in live.items()}),
-            torch.zeros(self.n_seeds, dtype=torch.int64),
-            self.cfg.seed + torch.arange(self.n_seeds))
+            torch.zeros(self.n_local, dtype=torch.int64),
+            self.cfg.seed + torch.tensor(list(self.seeds)))
 
-    @staticmethod
-    def state_dict(state: TrainState) -> Dict[str, Any]:
-        """A host copy of the stacked state for a checkpoint."""
+    def _gather_seeds(self, tensors: Sequence[torch.Tensor]
+                      ) -> List[torch.Tensor]:
+        """This rank's ``[s, ...]`` tensors (one dtype) → every member's
+        ``[S, ...]``, through one gather over the seed axis."""
+        if self.mesh.n_seed == 1:
+            return list(tensors)
+        s = self.n_local
+        flat = torch.cat([t.reshape(s, -1) for t in tensors], dim=1)
+        full = all_gather_cat(flat, self.mesh, SEED_AXIS)
+        out = full.split([t[0].numel() for t in tensors], dim=1)
+        return [o.reshape((self.n_seeds,) + t.shape[1:])
+                for o, t in zip(out, tensors)]
+
+    def state_dict(self, state: TrainState) -> Dict[str, Any]:
+        """A host copy of every member's stacked state for a checkpoint:
+        in a seed-sharded group gathered from every rank (all of them call
+        it; rank 0 writes it)."""
         cpu = (lambda t: t.detach().to("cpu", copy=True))
         o = state.opt_state
-        return {"params": {k: cpu(p) for k, p in state.params.items()},
+        keys = list(state.params)
+        f32 = self._gather_seeds(
+            [state.params[k] for k in keys] + [o.mu[k] for k in keys]
+            + [o.nu[k] for k in keys])
+        n = len(keys)
+        step, rng = self._gather_seeds([state.step.to(self.device),
+                                        state.rng.to(self.device)])
+        return {"params": {k: cpu(v) for k, v in zip(keys, f32[:n])},
                 "opt_state": {"count": o.count,
-                              "mu": {k: cpu(v) for k, v in o.mu.items()},
-                              "nu": {k: cpu(v) for k, v in o.nu.items()}},
-                "step": cpu(state.step), "rng": cpu(state.rng)}
+                              "mu": {k: cpu(v) for k, v in
+                                     zip(keys, f32[n:2 * n])},
+                              "nu": {k: cpu(v) for k, v in
+                                     zip(keys, f32[2 * n:])}},
+                "step": cpu(step), "rng": cpu(rng)}
 
     def load_state(self, saved: Mapping[str, Any]) -> TrainState:
-        """Copy a checkpointed stacked state into the model and the
-        device."""
+        """Copy a checkpointed stacked state (every member's; this rank
+        takes its block) into the model and the device."""
         params = flax_param_map(self.model)
         with torch.no_grad():
             for k, p in params.items():
-                p.copy_(saved["params"][k])
+                p.copy_(self._local(saved["params"][k]))
         o = saved["opt_state"]
-        to = (lambda d: {k: v.to(self.device) for k, v in d.items()})
+        to = (lambda d: {k: self._local(v).to(self.device)
+                         for k, v in d.items()})
         rng = saved.get("rng")
         return TrainState(params, AdamWState(int(o["count"]), to(o["mu"]),
                                              to(o["nu"])),
-                          saved["step"].clone(),
-                          self.cfg.seed + torch.arange(self.n_seeds)
-                          if rng is None else rng.clone())
+                          self._local(saved["step"]).clone(),
+                          self.cfg.seed + torch.tensor(list(self.seeds))
+                          if rng is None else self._local(rng).clone())
 
     # ---- the forward -----------------------------------------------------
 
     def _gather(self, fi: torch.Tensor, ti: torch.Tensor,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, window: Optional[int] = None):
         """Windows of an index batch: ``[M, Bf]`` shared by every seed, or
-        ``[s, D, Bf]`` per seed, whose seeds fold into one call."""
+        ``[s, D, Bf]`` per seed, whose seeds fold into one call
+        (``window`` overrides the lookback: a seq rank's sub-window)."""
         gather = (gather_windows if (impl or self.gather_impl) == "kernel"
                   else gather_windows_packed)
+        window = window or self.window
         if fi.dim() == 3:
-            return fold_seeds(gather, self.dev["xm"], fi, ti, self.window,
+            return fold_seeds(gather, self.dev["xm"], fi, ti, window,
                               self.fp)
-        return gather(self.dev["xm"], fi, ti, self.window, fp=self.fp)
+        return gather(self.dev["xm"], fi, ti, window, fp=self.fp)
 
     def _apply(self, params: Mapping[str, torch.Tensor], x: torch.Tensor,
-               m: torch.Tensor, rng=None):
-        """The stacked model on ``params`` (all seeds or a block):
-        ``x [s, D, Bf, W, F]`` and ``m [s, D, Bf, W]`` (or without the
-        seed axis: shared) → ``[s, D, Bf]`` outputs; ``rng``, one
-        generator per seed of the block, turns dropout on."""
+               m: torch.Tensor, rng=None, model=None):
+        """The stacked model (or ``model``, the window-sharded twin) on
+        ``params`` (this rank's seeds or a block): ``x [s, D, Bf, W, F]``
+        and ``m [s, D, Bf, W]`` (or without the seed axis: shared) →
+        ``[s, D, Bf]`` outputs; ``rng``, one generator per seed of the
+        block, turns dropout on."""
         seeded = x.dim() == 5
         db = x.shape[-4:-2]  # [D, Bf]
         flat = (x.shape[0], -1) if seeded else (-1,)
         out = functional_call(
-            self.model, {self._names[k]: p for k, p in params.items()},
+            model or self.model,
+            {self._names[k]: p for k, p in params.items()},
             (x.reshape(flat + x.shape[-2:]), m.reshape(flat + m.shape[-1:])),
             {"rng": rng})
         shape = (next(iter(params.values())).shape[0],) + db
@@ -284,50 +373,69 @@ class EnsembleTrainer:
             return tuple(o.reshape(shape) for o in out)
         return out.reshape(shape)
 
-    def _seed_losses(self, params: Mapping[str, torch.Tensor],
-                     fi: torch.Tensor, ti: torch.Tensor,
-                     w: torch.Tensor, rng=None) -> torch.Tensor:
-        """Per-seed losses ``[s]`` of an ``[s, D, Bf]`` index batch: one
-        gather over all its seeds, the stacked model (dropout on under
-        ``rng``, a generator per seed), and the loss vmapped over the seed
-        axis (each seed's its own loss, as in JAX)."""
-        x, m = self._gather(fi, ti)
+    def _seed_parts(self, params: Mapping[str, torch.Tensor],
+                    fi: torch.Tensor, ti: torch.Tensor,
+                    w: torch.Tensor, rng=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-seed loss parts ``(num [s], den [s])`` of an ``[s, D, Bf]``
+        index batch: one gather over all its seeds (under a seq axis, of
+        this seq rank's sub-window), the stacked model (dropout on under
+        ``rng``, a generator per seed; the window-sharded twin under a seq
+        axis), and the loss parts vmapped over the seed axis (each seed's
+        its own loss, as in JAX)."""
         y = gather_targets(self.dev["targets"], fi, ti)
-        return vmap(self.loss_fn)(self._apply(params, x, m, rng), y, w)
+        if self.train_model is None:
+            x, m = self._gather(fi, ti)
+            out = self._apply(params, x, m, rng)
+        else:
+            wl, shift = sub_window(self.window, self.mesh)
+            x, m = self._gather(fi, ti - shift, window=wl)
+            with ring.bind_seq_axis(self.mesh):
+                out = self._apply(params, x, m, rng, self.train_model)
+        return vmap(self.loss_parts)(out, y, w)
 
     def step_generators(self, state: TrainState, seeds: slice):
-        """The step's dropout generators of a block of members, each
-        derived from the member's base seed and step, or None for a model
-        without dropout."""
+        """The step's dropout generators of a block of this rank's
+        members, each derived from the member's base seed and step (and
+        the date shard under a data axis), or None for a model without
+        dropout."""
         if not self._needs_rng:
             return None
+        shard = [self.mesh.rank] if self.mesh.n_data > 1 else []
         return [generator(derive_seed(DROPOUT_STREAM, int(state.rng[s]),
-                                      int(state.step[s])), self.device)
-                for s in range(self.n_seeds)[seeds]]
+                                      int(state.step[s]), *shard),
+                          self.device)
+                for s in range(self.n_local)[seeds]]
 
     # ---- the step --------------------------------------------------------
 
     def step(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
              w: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One lock-step update of every member on an ``[S, D, Bf]`` index
-        batch on the device. Returns the new state and ``{"loss",
-        "grad_norm"}``, each ``[S]`` on the device (no host sync)."""
+        """One lock-step update of this rank's members on their ``[s, D,
+        Bf]`` index batch (the global dates; this rank takes its block) on
+        the device. Returns the new state and ``{"loss", "grad_norm"}``,
+        each ``[s]`` on the device (no host sync)."""
         self.model.train()
         keys = list(state.params)
-        S = self.n_seeds
+        S = self.n_local
         block = self.seed_block if 0 < self.seed_block < S else S
+        fi, ti, w = (shard_dates(a, self.mesh, axis=1) for a in (fi, ti, w))
         grads = [torch.empty_like(state.params[k]) for k in keys]
         losses = []
         for s0 in range(0, S, block):
             sl = slice(s0, s0 + block)
             sub = {k: state.params[k][sl].detach().requires_grad_(True)
                    for k in keys}
-            loss = self._seed_losses(sub, fi[sl], ti[sl], w[sl],
-                                     self.step_generators(state, sl))
+            num, den = self._seed_parts(sub, fi[sl], ti[sl], w[sl],
+                                        self.step_generators(state, sl))
+            num_g, den_g = all_reduce_sum(
+                torch.stack([num.detach(), den.detach()]), self.mesh)
+            loss = num / torch.clamp(den_g, min=1e-12)
             for g, gb in zip(grads, torch.autograd.grad(
                     loss.sum(), [sub[k] for k in keys])):
                 g[sl] = gb
-            losses.append(loss.detach())
+            losses.append(finalize_loss(num_g, den_g))
+        grads = all_reduce_flat(grads, self.mesh, BATCH)
         losses = torch.cat(losses)
         gnorm = self.opt.step(state.params, dict(zip(keys, grads)),
                               state.opt_state)
@@ -342,7 +450,7 @@ class EnsembleTrainer:
         state, the attention scores; the model's ``row_state_bytes``)
         within :data:`EVAL_STATE_BYTES`."""
         per_seed = rows * self.model.row_state_bytes(self.window)
-        return max(1, min(self.n_seeds, EVAL_STATE_BYTES // per_seed))
+        return max(1, min(self.n_local, EVAL_STATE_BYTES // per_seed))
 
     def _forward_chunks(self, params: Mapping[str, torch.Tensor],
                         fi: torch.Tensor, ti: torch.Tensor,
@@ -363,23 +471,40 @@ class EnsembleTrainer:
         sc = self._seed_chunk(C * fi.shape[1])
         for k in range(0, fi.shape[0], C):
             x, m = self._gather(fi[k:k + C], ti[k:k + C], impl)
-            for s0 in range(0, self.n_seeds, sc):
-                seeds = slice(s0, min(s0 + sc, self.n_seeds))
+            for s0 in range(0, self.n_local, sc):
+                seeds = slice(s0, min(s0 + sc, self.n_local))
                 sub = {key: p[seeds] for key, p in params.items()}
                 yield slice(k, k + C), seeds, self._apply(sub, x, m)
+
+    def _month_rows(self, M: int):
+        """This rank's rows of an ``M``-month sweep (``month_block`` over
+        the date and seq shards of its seed block), on the device."""
+        rows, _ = month_block(M, self.cfg.data.dates_per_batch, self.mesh)
+        return rows.to(self.device)
+
+    def _gather_sweep(self, out: torch.Tensor, M: int) -> torch.Tensor:
+        """This rank's ``[s, Mr, ...]`` sweep rows → every member's ``[S,
+        M, ...]``: gathered over the batch group's months, then the
+        seeds."""
+        out = all_gather_cat(out, self.mesh, BATCH, dim=1)[:, :M]
+        return all_gather_cat(out.contiguous(), self.mesh, SEED_AXIS)
 
     @torch.inference_mode()
     def _eval_ic(self, params: Mapping[str, torch.Tensor], fi: torch.Tensor,
                  ti: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Per-seed, per-month Spearman IC ``[S, M]`` over a stacked ``[M,
-        bf]`` val batch, on the device (the JAX vmapped ``_forward_impl``)."""
+        bf]`` val batch, on the device (the JAX vmapped ``_forward_impl``):
+        this rank's members over its block of months, gathered."""
         self.model.eval()
         M = fi.shape[0]
-        pad = (-M) % min(self.cfg.data.dates_per_batch, M)
+        rows = self._month_rows(M)
+        fi, ti, w = fi[rows], ti[rows], w[rows]
+        Mr = fi.shape[0]
+        pad = (-Mr) % min(self.cfg.data.dates_per_batch, Mr)
         fi_p = torch.cat([fi, fi[:pad]]) if pad else fi
         ti_p = torch.cat([ti, ti[:pad]]) if pad else ti
         w_p = torch.cat([w, torch.zeros_like(w[:pad])]) if pad else w
-        ic = torch.empty((self.n_seeds, fi_p.shape[0]), dtype=torch.float32,
+        ic = torch.empty((self.n_local, fi_p.shape[0]), dtype=torch.float32,
                          device=fi.device)
         for months, seeds, out in self._forward_chunks(
                 params, fi, ti, self.eval_gather_impl):
@@ -388,7 +513,7 @@ class EnsembleTrainer:
             y = gather_targets(self.dev["targets"], f, t)
             ic[seeds, months] = spearman_ic(pred, y.expand_as(pred),
                                             ww.expand_as(pred)).float()
-        return ic[:, :M]
+        return self._gather_sweep(ic[:, :Mr], M)
 
     def _batch(self, b):
         return (torch.as_tensor(b.firm_idx).to(self.device),
@@ -437,7 +562,7 @@ class EnsembleTrainer:
         if cfg.optim.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")
         state = self.init_state(None if init_params is None else graft_params(
-            flax_param_map(self.model), init_params))
+            flax_param_map(self.model), init_params, rows=self._local))
         harness = FitHarness(self.run_dir, cfg.optim.epochs,
                              cfg.optim.early_stop_patience,
                              self._steps_per_epoch)
@@ -461,9 +586,10 @@ class EnsembleTrainer:
                     state, ms = self.step(state, fi[k], ti[k], w[k])
                     losses.append(ms["loss"])
                 ic = self._eval_ic(state.params, *vargs)
+                loss = all_gather_cat(torch.stack(losses), self.mesh,
+                                      SEED_AXIS, dim=1)
                 # One device→host fetch per epoch.
-                loss_h, ic_h = (t.cpu().numpy()
-                                for t in (torch.stack(losses), ic))
+                loss_h, ic_h = (t.cpu().numpy() for t in (loss, ic))
                 timer.stop(firm_months=fm)
                 timer.start()
                 per_seed = (ic_h * counts).sum(axis=1) / counts.sum()
@@ -475,6 +601,7 @@ class EnsembleTrainer:
                     firm_months_per_sec=timer.throughput())
                 history.append(rec)
                 step_losses.extend(v.tolist() for v in loss_h)
+                # Every rank gathers; rank 0 writes.
                 snap = self.state_dict(state) if self.run_dir else None
                 if harness.end_epoch(epoch, step, snap, val_ic):
                     break
@@ -518,13 +645,17 @@ class EnsembleTrainer:
         self.model.eval()
         fi, ti, _ = self._batch(b)
         M = fi.shape[0]
-        C = min(self.cfg.data.dates_per_batch, M)
-        pred = torch.empty((self.n_seeds, M + (-M) % C, fi.shape[1]),
+        rows = self._month_rows(M)
+        fi, ti = fi[rows], ti[rows]
+        Mr = fi.shape[0]
+        C = min(self.cfg.data.dates_per_batch, Mr)
+        pred = torch.empty((self.n_local, Mr + (-Mr) % C, fi.shape[1]),
                            dtype=torch.float32, device=self.device)
         for months, seeds, o in self._forward_chunks(self.state.params,
                                                      fi, ti):
             pred[seeds, months] = _point_forecast(o).float()
-        return scatter_forecasts(b, pred[:, :M].cpu().numpy(), self.panel)
+        pred = self._gather_sweep(pred[:, :Mr], M)
+        return scatter_forecasts(b, pred.cpu().numpy(), self.panel)
 
 
 def run_ensemble_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
@@ -542,6 +673,7 @@ def run_ensemble_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
     summary = trainer.fit(resume=resume)
     summary["run_dir"] = run_dir
     summary["config"] = dataclasses.asdict(cfg)
+    summary["mesh"] = mesh_fingerprint(trainer.mesh)
     write_ensemble_run_dir(run_dir, trainer, summary)
     return summary, trainer, splits
 
@@ -552,20 +684,23 @@ def write_ensemble_run_dir(run_dir: str, trainer: EnsembleTrainer,
     """The run dir that :func:`load_ensemble` and ``load_forecaster`` read:
     ``config.json``, ``ensemble.flag`` and ``summary.json`` (when given)
     beside the fit's checkpoints. A trainer fit without this run dir gets
-    its trained state written as ``ckpt/best``."""
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as fh:
-        fh.write(trainer.cfg.to_json())
-    mark_ensemble_run_dir(run_dir, True)
-    if summary is not None:
-        with open(os.path.join(run_dir, "summary.json"), "w") as fh:
-            json.dump({k: v for k, v in summary.items()
-                       if k not in ("history", "step_losses")}, fh, indent=2,
-                      default=str)
+    its trained state written as ``ckpt/best``. In a process group every
+    rank calls it (the state is gathered) and rank 0 writes."""
+    if dist_utils.is_main():
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as fh:
+            fh.write(trainer.cfg.to_json())
+        mark_ensemble_run_dir(run_dir, True)
+        if summary is not None:
+            with open(os.path.join(run_dir, "summary.json"), "w") as fh:
+                json.dump({k: v for k, v in summary.items()
+                           if k not in ("history", "step_losses")}, fh,
+                          indent=2, default=str)
     if trainer.run_dir != run_dir:
         CheckpointManager(os.path.join(run_dir, "ckpt", "best"),
                           max_to_keep=1).save(
             int(trainer.state.step[0]), trainer.state_dict(trainer.state))
+    dist_utils.barrier()
 
 
 def load_ensemble(run_dir: str, panel: Optional[Panel] = None,

@@ -17,16 +17,23 @@ date-sharded over one process per device.
   :func:`load_trainer` rebuilds a trainer from its run dir for the
   backtest and forecast entry points.
 
-Data parallelism (``parallel/mesh.py``): in a process group the trainer
-binds a data mesh of ``n_data_shards`` (resolved against the world size,
-one rank per shard). Every rank draws the same global batch, takes its
-block of dates, and sums the loss numerator and denominator and then the
-gradients across ranks, so the loss, the gradients and ``grad_norm``
-equal the one-process values (the JAX trainer's sharded gradients are
-``n_data`` times those: ROADMAP.md Queue C). The validation sweep and
-``predict`` give each rank a block of months and gather the results, so
-every rank takes the same early-stop decisions. Rank 0 alone writes the
-run dir, followed by a barrier; every rank reads it on resume.
+Data and sequence parallelism (``parallel/mesh.py``): in a process group
+the trainer binds a mesh of ``n_data_shards`` date shards and
+``n_seq_shards`` window shards (resolved against the world size, seq
+innermost, one rank per shard). Every rank draws the same global batch
+and takes its block of dates; under a seq axis each seq rank gathers only
+its sub-window (``time_idx - (W - (s+1)·Wl)`` at window ``Wl = W /
+n_seq``) and runs the window-sharded train model (``seq_axis``: ring
+attention, the distributed LRU scan) inside ``bind_seq_axis``. The loss
+numerator and denominator are summed over the date shards (every seq rank
+of a date shard holds the same loss), the gradients over the date and
+seq shards together, so the loss, the gradients and ``grad_norm`` equal
+the one-process values (the JAX trainer's sharded gradients are a
+multiple of those: ROADMAP.md Queue C). The validation sweep and
+``predict`` run the full-window model, give each rank (date and seq
+shards alike) a block of months and gather the results, so every rank
+takes the same early-stop decisions. Rank 0 alone writes the run dir,
+followed by a barrier; every rank reads it on resume.
 
 Dropout (the MLP's and the transformer's ``dropout`` kwarg) is live in
 the train step only. The state carries a constant base seed (``cfg.seed``);
@@ -54,6 +61,7 @@ from typing import (Any, Callable, Dict, Iterator, Mapping, NamedTuple,
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from lfm_quant_tpu_torch.config import RunConfig, compute_dtype, model_kwargs
 from lfm_quant_tpu_torch.data.panel import (
@@ -75,7 +83,9 @@ from lfm_quant_tpu_torch.models import build_model
 from lfm_quant_tpu_torch.ops.gather import gather_windows
 from lfm_quant_tpu_torch.ops.losses import finalize_loss, make_loss_parts
 from lfm_quant_tpu_torch.ops.metrics import spearman_ic
+from lfm_quant_tpu_torch.parallel import ring
 from lfm_quant_tpu_torch.parallel.mesh import (
+    BATCH,
     DataMesh,
     all_gather_dates,
     all_reduce_flat,
@@ -133,14 +143,16 @@ def _point_forecast(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-def graft_params(params: Mapping[str, torch.Tensor], init_params
-                 ) -> Dict[str, np.ndarray]:
+def graft_params(params: Mapping[str, torch.Tensor], init_params,
+                 rows: Optional[Callable] = None) -> Dict[str, np.ndarray]:
     """``init_params`` (a Flax tree, nested or flat, of arrays or tensors
     on any device) held to a trainer's ``params`` (Flax path → tensor)
     and copied to the host: the walk-forward warm start's weights. Only
     the weights carry over; the optimizer restarts from zero moments
-    (``init_state``). A tree of other paths or shapes raises a
-    ``ValueError`` that says so, instead of failing deep in a copy."""
+    (``init_state``). ``rows`` maps each leaf first (a seed-sharded
+    ensemble's block of an all-seed tree). A tree of other paths or
+    shapes raises a ``ValueError`` that says so, instead of failing deep
+    in a copy."""
 
     def host(tree):
         if isinstance(tree, Mapping):
@@ -152,6 +164,8 @@ def graft_params(params: Mapping[str, torch.Tensor], init_params
     flat = flatten_params(host(init_params))
     if "params" in {k.split("/")[0] for k in flat}:
         flat = {k[len("params/"):]: v for k, v in flat.items()}
+    if rows is not None:
+        flat = {k: rows(v) for k, v in flat.items()}
     want = {k: tuple(p.shape) for k, p in params.items()}
     got = {k: tuple(v.shape) for k, v in flat.items()}
     if want != got:
@@ -160,13 +174,6 @@ def graft_params(params: Mapping[str, torch.Tensor], init_params
             "shapes — warm starts require the same model config across "
             f"folds (expected {want}, got {got})")
     return flat
-
-
-def make_loss_fn(name: str) -> Callable:
-    """Loss name → fn(outputs, targets, weights) → scalar, derived from
-    ``make_loss_parts`` so the two cannot drift."""
-    parts = make_loss_parts(name)
-    return lambda out, y, w: finalize_loss(*parts(out, y, w))
 
 
 def resolve_panel(d) -> Panel:
@@ -218,11 +225,13 @@ class Predictor:
         self.mesh = DataMesh()
 
     def _gather(self, firm_idx: torch.Tensor, time_idx: torch.Tensor,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, window: Optional[int] = None):
+        """The windows of an index batch (``window`` overrides the
+        lookback: a seq rank's sub-window)."""
         gather = (gather_windows if (impl or self.gather_impl) == "kernel"
                   else gather_windows_packed)
-        return gather(self.dev["xm"], firm_idx, time_idx, self.window,
-                      fp=self.fp)
+        return gather(self.dev["xm"], firm_idx, time_idx,
+                      window or self.window, fp=self.fp)
 
     @staticmethod
     def _key(cfg: RunConfig):
@@ -232,12 +241,19 @@ class Predictor:
                 cfg.data.gather_impl)
 
     def _apply(self, x: torch.Tensor, m: torch.Tensor,
-               rng: Optional[torch.Generator] = None):
+               rng: Optional[torch.Generator] = None,
+               model: Optional[torch.nn.Module] = None):
         """Flatten the [D, Bf] batch dims → one model batch, reapply;
-        ``rng`` turns dropout on."""
+        ``rng`` turns dropout on; ``model`` (the window-sharded train
+        model) runs on this model's params."""
         lead = x.shape[:-2]
-        out = self.model(x.reshape((-1,) + x.shape[-2:]),
-                         m.reshape((-1,) + m.shape[-1:]), rng=rng)
+        args = (x.reshape((-1,) + x.shape[-2:]),
+                m.reshape((-1,) + m.shape[-1:]))
+        if model is None:
+            out = self.model(*args, rng=rng)
+        else:
+            out = functional_call(model, dict(self.model.named_parameters()),
+                                  args, {"rng": rng})
         if isinstance(out, tuple):
             return tuple(o.reshape(lead) for o in out)
         return out.reshape(lead)
@@ -281,11 +297,12 @@ class Predictor:
         """Point forecasts ``[M, Bf]`` (f32, on the device) for an
         ``[M, Bf]`` index batch (the scores-only forward); under a data
         mesh each rank forecasts its block of months and every rank
-        returns all of them."""
+        returns all of them (the months are split over the date and seq
+        shards alike)."""
         fi = torch.as_tensor(np.asarray(firm_idx, np.int32)).to(self.device)
         ti = torch.as_tensor(np.asarray(time_idx, np.int32)).to(self.device)
         M = fi.shape[0]
-        if self.mesh.n_data > 1:
+        if self.mesh.n_batch > 1:
             rows, _ = self._month_rows(M)
             fi, ti = fi[rows], ti[rows]
         preds = [_point_forecast(out)
@@ -526,14 +543,17 @@ class Trainer(Predictor):
 
     def _bind(self, cfg: RunConfig, splits: PanelSplits,
               run_dir: Optional[str], echo: bool) -> None:
-        """The fit's data mesh, splits, samplers, loss and optimizer."""
+        """The fit's mesh, splits, samplers, loss and optimizer; under a
+        live seq axis, the window-sharded train model."""
         d = cfg.data
         self.mesh = data_mesh(cfg.n_data_shards,
-                              n_seq_shards=cfg.n_seq_shards)
+                              n_seq_shards=check_seq(cfg))
         if d.dates_per_batch % self.mesh.n_data:
             raise ValueError(
                 f"dates_per_batch={d.dates_per_batch} must be divisible by "
                 f"n_data_shards={self.mesh.n_data}")
+        self.train_model = seq_model(cfg, self.mesh, self.panel.n_features,
+                                     self.device)
         self.cfg = cfg
         self.splits = splits
         self.run_dir = run_dir
@@ -603,10 +623,17 @@ class Trainer(Predictor):
     def _loss_parts(self, fi: torch.Tensor, ti: torch.Tensor,
                     w: torch.Tensor, rng: Optional[torch.Generator] = None):
         """The loss's ``(num, den)`` on a ``[D, Bf]`` index batch
-        (dropout on under ``rng``)."""
-        x, m = self._gather(fi, ti)
+        (dropout on under ``rng``); under a seq axis on this seq rank's
+        sub-window, through the window-sharded model."""
         y = gather_targets(self.dev["targets"], fi, ti)
-        return self.loss_parts(self._apply(x, m, rng), y, w)
+        if self.train_model is None:
+            x, m = self._gather(fi, ti)
+            return self.loss_parts(self._apply(x, m, rng), y, w)
+        wl, shift = sub_window(self.window, self.mesh)
+        x, m = self._gather(fi, ti - shift, window=wl)
+        with ring.bind_seq_axis(self.mesh):
+            out = self._apply(x, m, rng, model=self.train_model)
+        return self.loss_parts(out, y, w)
 
     def step_generator(self, state: TrainState
                        ) -> Optional[torch.Generator]:
@@ -624,10 +651,10 @@ class Trainer(Predictor):
                w: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss and its gradients on a global ``[D, Bf]`` index batch:
         this rank's block of dates, ``num`` and ``den`` summed over the
-        ranks in one collective, the backward of ``num_local / den_global``
-        (``den`` depends on no parameter), the gradients summed over the
-        ranks in one flat buffer. On one process: the plain loss and its
-        gradients."""
+        date shards in one collective, the backward of ``num_local /
+        den_global`` (``den`` depends on no parameter), the gradients
+        summed over the date and seq shards in one flat buffer. On one
+        process: the plain loss and its gradients."""
         fi, ti, w = (shard_dates(a, self.mesh) for a in (fi, ti, w))
         num, den = self._loss_parts(fi, ti, w, self.step_generator(state))
         num_g, den_g = all_reduce_sum(
@@ -635,7 +662,7 @@ class Trainer(Predictor):
         keys = list(state.params)
         grads = torch.autograd.grad(num / torch.clamp(den_g, min=1e-12),
                                     [state.params[k] for k in keys])
-        grads = all_reduce_flat(grads, self.mesh)
+        grads = all_reduce_flat(grads, self.mesh, BATCH)
         return finalize_loss(num_g, den_g), dict(zip(keys, grads))
 
     def step(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
@@ -678,7 +705,7 @@ class Trainer(Predictor):
         ic = all_gather_dates(torch.cat(ics), self.mesh)[:M]
         se, ws = all_reduce_sum(torch.stack(
             [torch.cat(ses)[:n_real].sum(), torch.cat(wss)[:n_real].sum()]),
-            self.mesh)
+            self.mesh, BATCH)
         return ic, se / torch.clamp(ws, min=1e-12)
 
     def evaluate(self, sampler: Optional[DateBatchSampler] = None
@@ -823,6 +850,42 @@ class Trainer(Predictor):
             pred = self.predict_scores(b.firm_idx, b.time_idx)
         return scatter_forecasts(b, pred.float().cpu().numpy(),
                                  self.panel)
+
+
+def check_seq(cfg: RunConfig) -> int:
+    """``cfg.n_seq_shards``, after the JAX trainer's check
+    (``train/loop.py:962-967``): dropout under a seq axis raises."""
+    if cfg.n_seq_shards > 1 and has_dropout(cfg):
+        raise ValueError(
+            "dropout is unsupported under sequence parallelism (shard-local "
+            "masks would decorrelate; see models/transformer.py)")
+    return cfg.n_seq_shards
+
+
+def seq_model(cfg: RunConfig, mesh: DataMesh, n_features: int,
+              device: torch.device, n_seeds: Optional[int] = None
+              ) -> Optional[torch.nn.Module]:
+    """The window-sharded train model of a live seq axis (None without
+    one): ``model_kwargs(cfg, seq_axis=True)``, which raises for a model
+    that cannot shard its window; the window must divide by the axis.
+    Its own params stay unused: it runs on the eval model's."""
+    if mesh.n_seq == 1:
+        return None
+    if cfg.data.window % mesh.n_seq:
+        raise ValueError(f"window={cfg.data.window} must divide by "
+                         f"n_seq_shards={mesh.n_seq}")
+    kind, kw = model_kwargs(cfg, seq_axis=True)
+    return build_model(kind, n_features=n_features, n_seeds=n_seeds,
+                       **kw).to(device)
+
+
+def sub_window(window: int, mesh: DataMesh) -> Tuple[int, int]:
+    """A seq rank's sub-window ``Wl = W / n_seq`` and the shift of its
+    anchor: absolute window positions ``[s·Wl, (s+1)·Wl)`` end at ``t -
+    (W - (s+1)·Wl)``. Young anchors degrade as in the full gather (months
+    before the panel are masked)."""
+    wl = window // mesh.n_seq
+    return wl, window - (mesh.seq_rank + 1) * wl
 
 
 def check_predict_options(return_variance: bool) -> None:

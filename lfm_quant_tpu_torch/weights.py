@@ -10,7 +10,11 @@ the same map from Flax paths to torch parameters (:func:`flax_param_map`):
 * MLP: ``dense_{i}/{kernel,bias}``
 * LSTM/GRU: ``embed/{kernel,bias}``, ``{cell}_{n}_xproj/{kernel,bias}``
   (JAX ``_DenseParams``), ``{cell}_{n}/h_proj/kernel`` (JAX
-  ``_GateKernel``)
+  ``_GateKernel``); factored (the XLA scan's ``_proj`` trees):
+  ``{cell}_{n}_xproj/u/kernel``, ``.../v/{kernel,bias}`` and
+  ``{cell}_{n}/h_proj/u/kernel``, ``.../v/kernel`` (low-rank), or the
+  grouped ``kernel [g, in/g, out/g]`` and ``bias [g, out/g]`` at the
+  dense paths
 * transformer: ``embed``, ``pos_emb``, ``block_{i}/{ln1,ln2}/{scale,bias}``,
   ``block_{i}/attn/{query,key,value,out}/{kernel,bias}``,
   ``block_{i}/{mlp_in,mlp_out}/{kernel,bias}``, ``ln_f/{scale,bias}``
@@ -19,7 +23,8 @@ the same map from Flax paths to torch parameters (:func:`flax_param_map`):
 
 A seed-stacked model (``n_seeds=S``) takes the tree of the JAX
 ensemble's ``jax.vmap(init)``: the same paths, every leaf with a leading
-seed axis of S.
+seed axis of S. A window-sharded model (``seq_axis``) has the plain
+model's tree.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from lfm_quant_tpu_torch.models import (
     TransformerModel,
 )
 from lfm_quant_tpu_torch.models.lru import LRULayer
+from lfm_quant_tpu_torch.models.rnn import LowRankDense
 
 
 def flatten_params(tree: Mapping[str, Any], prefix: str = ""
@@ -60,6 +66,17 @@ def _dense(out: Dict[str, nn.Parameter], path: str, layer) -> None:
         out[f"{path}/bias"] = layer.bias
 
 
+def _proj(out: Dict[str, nn.Parameter], path: str, layer) -> None:
+    """A recurrence's projection: dense, low-rank or grouped."""
+    if isinstance(layer, LowRankDense):
+        _dense(out, f"{path}/u", layer.u)
+        _dense(out, f"{path}/v", layer.v)
+    elif isinstance(layer, nn.Module):
+        _dense(out, path, layer)
+    else:  # the dense model's recurrent kernel, a bare parameter
+        out[f"{path}/kernel"] = layer
+
+
 def _norm(out: Dict[str, nn.Parameter], path: str, layer) -> None:
     out[f"{path}/scale"] = layer.scale
     out[f"{path}/bias"] = layer.bias
@@ -74,8 +91,8 @@ def flax_param_map(model: nn.Module) -> Dict[str, nn.Parameter]:
     elif isinstance(model, RNNModel):
         _dense(out, "embed", model.embed)
         for n in range(model.layers):
-            _dense(out, f"{model.cell}_{n}_xproj", model.xproj[n])
-            out[f"{model.cell}_{n}/h_proj/kernel"] = model.h_proj[n]
+            _proj(out, f"{model.cell}_{n}_xproj", model.xproj[n])
+            _proj(out, f"{model.cell}_{n}/h_proj", model.h_proj[n])
     elif isinstance(model, TransformerModel):
         _dense(out, "embed", model.embed)
         out["pos_emb"] = model.pos_emb
@@ -162,15 +179,19 @@ def _uniform(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 def _initialise(key: str, p: torch.Tensor,
                 generator: torch.Generator) -> None:
     """One member's param by its Flax path: kernels ``lecun_normal`` with
-    the fan-in over the contracted axes (``attn/out``: heads × head_dim;
-    every other kernel its first axis), ``pos_emb`` ``normal(0.02)``,
+    Flax's fan-in (``attn/out``: heads × head_dim, the contracted axes; a
+    grouped kernel ``[g, in/g, out/g]``: g × in/g, its receptive field
+    times its input axis; every other kernel its first axis), ``pos_emb``
+    ``normal(0.02)``,
     LayerNorm ``scale`` and ``d_skip`` ones, the LRU's ``nu_log`` and
     ``theta_log`` the uniform transforms of ``models/lru.py`` (|λ|² uniform
     in ``[R_MIN², R_MAX²]``, the phase in ``[0, MAX_PHASE)``), every other
     leaf (the biases) zero."""
     leaf = key.rsplit("/", 1)[-1]
     if leaf == "kernel":
-        fan_in = (p.shape[0] * p.shape[1] if key.endswith("attn/out/kernel")
+        grouped = p.dim() == 3 and "attn/" not in key
+        fan_in = (p.shape[0] * p.shape[1]
+                  if grouped or key.endswith("attn/out/kernel")
                   else p.shape[0])
         _lecun_normal(p, fan_in, generator)
     elif leaf == "pos_emb":

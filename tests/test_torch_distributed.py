@@ -151,7 +151,7 @@ def test_mesh_rules():
     with pytest.raises(ValueError, match="divisible"):
         M.shard_dates(t[:6], M.DataMesh(4, 0))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        raise M.axis_not_ported(M.SEQ_AXIS)
+        raise M.axis_not_ported(M.FOLD_AXIS)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4])
@@ -276,8 +276,8 @@ def test_two_ranks_shard_the_sweeps(tmp_path):
             "shards"] and "resolves to 1" in err["shards"]
         assert "ValueError" in err["divisible"] and "divisible" in err[
             "divisible"]
-        assert "NotImplementedError" in err["seeds"] and "ROADMAP.md" in err[
-            "seeds"]
+        assert "ValueError" in err["seeds"] and "2 processes" in err[
+            "seeds"] and "seed 1 x data 1 x seq 1" in err["seeds"]
     assert ranks[0]["short"][1].sum() > 0
     assert np.array_equal(ranks[0]["test"][0], ranks[1]["test"][0])
 

@@ -302,6 +302,72 @@ def test_seed_stacked_gather_is_one_launch(cuda, fp, W, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,n_seq", [(240, 2), (60, 2), (240, 4)])
+def test_gather_at_a_seq_ranks_sub_window(cuda, W, n_seq):
+    """A seq rank's gather (``train/loop.py sub_window``): window ``Wl = W
+    / n_seq`` at the anchor shifted by ``W - (s+1) Wl`` (lc's 240 and
+    lru's 60 over 2 ranks, lc over 4), bitwise its plain version and
+    bitwise block s of the full window's gather, young anchors (shifted
+    below month 0) among them."""
+    from lfm_quant_tpu_torch.parallel.mesh import DataMesh
+    from lfm_quant_tpu_torch.train.loop import sub_window
+
+    xm, fi, ti = _gather_inputs(9, W + 40, 21, W, 6, 37, W, torch.bfloat16,
+                                cuda)
+    ti[1] = 3  # a young anchor: every rank but the last shifts below 0
+    x_full, m_full = gather_windows(xm, fi, ti, W)
+    for s in range(n_seq):
+        wl, shift = sub_window(W, DataMesh(n_seq=n_seq, seq_rank=s))
+        _build.reset_launch_counts()
+        x, m = gather_windows(xm, fi, ti - shift, wl)
+        assert _build.launch_counts()["window_gather"] == 1
+        xr, mr = gather_windows_packed(xm, fi, ti - shift, wl)
+        assert torch.equal(x.view(torch.uint8), xr.view(torch.uint8))
+        assert torch.equal(m, mr)
+        blk = slice(s * wl, (s + 1) * wl)
+        assert torch.equal(x, x_full[:, :, blk]) and torch.equal(
+            m, m_full[:, :, blk])
+
+
+@pytest.mark.cuda
+def test_seed_grid_at_a_32_seed_block(cuda):
+    """A seed rank's block of c5 (32 of its 64 members on 2 ranks: S 32 of
+    B 2048, T 60, H 128, the LSTM in bf16): the fused forward and its
+    backward each one counted launch, the first, a middle and the last
+    seed bitwise those of one-seed calls."""
+    S, B, T, H = 32, 2048, 60, 128
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def bf(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+
+    hin, dh = bf(S, B, T, H), bf(S, B, T, H, scale=0.1)
+    wx, wh = bf(S, H, 4 * H, scale=H ** -0.5), bf(S, H, 4 * H,
+                                                  scale=H ** -0.5)
+    b = bf(S, 4 * H, scale=0.1)
+    m = torch.rand(S, B, T, generator=gen, device=cuda) < 0.8
+    rows = R._mma_rows(
+        B, torch.cuda.get_device_properties(cuda).multi_processor_count, S)
+    _build.reset_launch_counts()
+    h, c = R._fused_states("lstm", hin, wx, b, wh, m, 1.0, True)
+    args = (hin, wx, b, wh, m, h, c, dh)
+    got = R.rnn_scan_fused_bwd("lstm", *args)
+    counts = _build.launch_counts()
+    assert counts["rnn_fused_fwd_mma_lstm"] == 1
+    assert counts["rnn_fused_bwd_mma_lstm"] == 1
+    for s in (0, S // 2, S - 1):
+        h1, c1 = R._launch_fwd_mma("lstm", hin[s], wx[s], b[s], wh[s], m[s],
+                                   1.0, True, rows)
+        assert torch.equal(h[s], h1) and torch.equal(c[s], c1)
+        one = R.rnn_scan_fused_bwd("lstm", *(t[s] for t in args))
+        for g, o in zip(got, one):
+            assert torch.equal(g[s], o)
+    for g in (h, *got):
+        assert torch.isfinite(g).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     """float32 (the CUDA-core kernels, no seed grid) with seed-stacked

@@ -117,11 +117,13 @@ def test_port_imports_no_jax_ast():
                     bad.append(f"{os.path.relpath(path, ROOT)}: {n}")
     assert len(_port_files()) > 20
     # The seed ensemble's module (and its copied run-dir marker), the
-    # data-parallel modules and the MLP, transformer and LRU are scanned.
+    # parallel modules (the mesh, the ring, the launcher) and the MLP,
+    # transformer, LRU and factorized recurrences are scanned.
     for rel in (("train", "ensemble.py"), ("parallel", "mesh.py"),
-                ("parallel", "launch.py"), ("utils", "distributed.py"),
-                ("models", "mlp.py"), ("models", "transformer.py"),
-                ("models", "lru.py")):
+                ("parallel", "ring.py"), ("parallel", "launch.py"),
+                ("utils", "distributed.py"), ("models", "mlp.py"),
+                ("models", "transformer.py"), ("models", "lru.py"),
+                ("models", "rnn.py")):
         assert os.path.join(ROOT, "lfm_quant_tpu_torch", *rel) in \
             _port_files()
     assert not bad, bad
@@ -140,9 +142,9 @@ def test_port_runs_without_jax_in_sys_modules():
         "      '--requests', '4', '--threads', '2', '--device', 'cpu'])\n"
         "main(['--preset', 'c4', '--n-firms', '16', '--n-months', '80',\n"
         "      '--requests', '2', '--threads', '1', '--device', 'cpu'])\n"
-        "for m in ('train.ensemble', 'parallel.mesh', 'parallel.launch',\n"
-        "          'utils.distributed', 'models.mlp', 'models.transformer',\n"
-        "          'models.lru'):\n"
+        "for m in ('train.ensemble', 'parallel.mesh', 'parallel.ring',\n"
+        "          'parallel.launch', 'utils.distributed', 'models.mlp',\n"
+        "          'models.transformer', 'models.lru', 'models.rnn'):\n"
         "    assert 'lfm_quant_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'lfm_quant_tpu')]\n"

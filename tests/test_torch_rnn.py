@@ -245,9 +245,12 @@ def test_model_kwargs_route_scan_impl():
         kind="lstm", scan_impl="scan"))
     with pytest.raises(ValueError, match="scan_impl"):
         tconfig.model_kwargs(c)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("transformer", n_features=3, window=4, seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The window-sharded encoder runs only with its seq axis bound, and a
+    # factorized recurrence only on the loop (the JAX XLA scan).
+    seq = build_model("transformer", n_features=3, window=4, seq_axis="seq")
+    with pytest.raises(NameError, match="unbound axis name"):
+        seq(torch.zeros(2, 4, 3), torch.ones(2, 4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="scan_impl='xla'"):
         RNNModel(3, factor_rank=4)
 
 
