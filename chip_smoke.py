@@ -169,10 +169,25 @@ imports nothing of JAX. Phases, each fatal on failure:
    ``factor_rank`` 32 and the GRU at ``n_groups`` 4 as c4 without the
    epoch: 3 steps against the plain gather, one step launching the
    gather once and no recurrence kernel, ms per step and peak memory;
-18. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
-   10, 11-15 and 17 for the one-seed rows, 6, 7 and 16 for the seed
+18. the serving stack: c2 and c3 at full width on one ``ScoringService``
+   behind the HTTP front door (``serve/http.py make_http_server`` on
+   127.0.0.1, port 0): closed-loop HTTP clients (req/s, the client's and
+   the service's p50/p99, each request phase's mean and p99, every score
+   held to the plain path on the card); the same load with
+   ``LFM_METRICS=0`` and ``LFM_FLIGHT=0`` in turns (the plane's req/s
+   overhead; a one-request-at-a-time pass bitwise equal either way);
+   transient dispatch faults (retried, the pass bitwise equal); permanent
+   faults until the circuit opens (``/healthz`` and ``/score`` 503 with
+   ``Retry-After``, the half-open probe closes it, exactly one incident
+   bundle); a small bounded queue offered twice what it admits (sheds,
+   the admitted p99); an expired deadline (504, no kernel launched); c2
+   refreshed for one epoch under load (no request dropped, each response
+   one generation's and held to its plain path, rows 3 and 4 launched);
+   then one ``{"serving_stack": {...}}`` line;
+19. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
+   10, 11-15, 17 and 18 for the one-seed rows, 6, 7 and 16 for the seed
    rows);
-19. print the result line ``{"ok": true, "device": {...}}`` last.
+20. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -3529,6 +3544,522 @@ def factored_phase(torch, kernels: dict, totals: dict, cache: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---- phase 18: the serving stack ------------------------------------------
+
+STACK_SERVED = {"c2": "rnn_fused_fwd_mma_lstm", "c3": "rnn_fused_fwd_mma_gru"}
+STACK_CLIENTS = 4         # closed-loop HTTP clients
+STACK_REQUESTS = 128      # requests of the step-1 load and each step-2 turn
+STACK_MONTHS = 48         # months per universe the clients draw from
+STACK_SEQ_MONTHS = 12     # months per universe of the bitwise sequential pass
+STACK_FAULT_EVERY = 4     # step 3: every 4th dispatch attempt fails
+STACK_QUEUE_MAX = 4       # step 5: the bounded queue
+STACK_BURSTS = 24         # step 5: bursts of 2 x STACK_QUEUE_MAX submits
+STACK_BREAKER = 3         # step 4: consecutive failures that open it
+
+
+def http_get(port: int, path: str):
+    """One GET on the front door → ``(status, headers, body bytes,
+    client ms)``."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=120) as resp:
+            body = resp.read()
+            return resp.status, dict(resp.headers), body, \
+                (time.perf_counter() - t0) * 1e3
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read(), \
+            (time.perf_counter() - t0) * 1e3
+
+
+def http_load(port: int, months: dict, n_requests: int, seed: int,
+              stop=None) -> list:
+    """Closed loop over HTTP: :data:`STACK_CLIENTS` threads draw (universe,
+    month) from seeded streams and GET ``/score`` until ``n_requests``
+    are spent (or, with ``stop``, until it is set). Returns one record per
+    request: ``(universe, month, status, body dict, client ms)``."""
+    import threading
+
+    import numpy as np
+
+    names = sorted(months)
+    budget = iter(range(n_requests if stop is None else 1 << 30))
+    lock = threading.Lock()
+    out = []
+
+    def client(k: int) -> None:
+        rng = np.random.default_rng([seed, k])
+        while True:
+            with lock:
+                if next(budget, None) is None:
+                    return
+            if stop is not None and stop.is_set():
+                return
+            u = names[int(rng.integers(len(names)))]
+            m = months[u][int(rng.integers(len(months[u])))]
+            status, _, body, ms = http_get(port,
+                                           f"/score?universe={u}&month={m}")
+            rec = (u, m, status, json.loads(body), ms)
+            with lock:
+                out.append(rec)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(STACK_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        fail("phase 18: an HTTP client did not finish")
+    return out
+
+
+def load_summary(recs: list, wall_s: float) -> dict:
+    """req/s over the wall, the client's and the service's p50/p99, and the
+    mean and p99 of each phase of the served requests."""
+    import numpy as np
+
+    ok = [r for r in recs if r[2] == 200]
+    out = {"requests": len(recs), "ok": len(ok),
+           "req_per_s": len(ok) / wall_s if wall_s > 0 else None}
+    if not ok:
+        return out
+    client = np.asarray([r[4] for r in ok])
+    served = np.asarray([r[3]["latency_ms"] for r in ok])
+    out.update(client_p50_ms=float(np.percentile(client, 50)),
+               client_p99_ms=float(np.percentile(client, 99)),
+               p50_ms=float(np.percentile(served, 50)),
+               p99_ms=float(np.percentile(served, 99)))
+    for ph in ("queue_ms", "batch_ms", "retry_ms", "dispatch_ms"):
+        v = np.asarray([r[3]["phases"][ph] for r in ok])
+        out[ph] = {"mean": float(v.mean()),
+                   "p99": float(np.percentile(v, 99))}
+    out["retries"] = int(sum(r[3]["phases"]["retries"] for r in ok))
+    return out
+
+
+def log_load(label: str, s: dict) -> None:
+    phases = ", ".join(
+        f"{ph[:-3]} {s[ph]['mean']:.3f}/{s[ph]['p99']:.3f}"
+        for ph in ("queue_ms", "batch_ms", "retry_ms", "dispatch_ms")
+        if ph in s)
+    log(f"phase 18 {label}: {s['ok']}/{s['requests']} ok, "
+        f"{s['req_per_s']:.2f} req/s, client p50 "
+        f"{s.get('client_p50_ms', 0):.3f} p99 {s.get('client_p99_ms', 0):.3f}"
+        f" ms, served p50 {s.get('p50_ms', 0):.3f} p99 "
+        f"{s.get('p99_ms', 0):.3f} ms; phases mean/p99 ms: {phases}")
+
+
+class PlainRefs:
+    """The plain path's scores on the card per (universe, generation,
+    month), computed once each: the served scores' reference."""
+
+    def __init__(self, universes: dict):
+        self.paths = {(u, 0): p for u, (_, _, p) in universes.items()}
+        self.cache = {}
+
+    def check(self, label: str, u: str, gen: int, month: int,
+              firm_idx, scores) -> float:
+        import numpy as np
+
+        key = (u, gen, month)
+        if key not in self.cache:
+            plain = self.paths[(u, gen)]
+            pool = np.asarray(firm_idx, np.int32)
+            t = int(np.searchsorted(plain.panel.dates, month))
+            if plain.panel.dates[t] != month:
+                fail(f"{label}: month {month} not in the {u} panel")
+            self.cache[key] = (pool, plain.score(
+                pool[None, :], np.asarray([t], np.int32),
+                np.ones((1, pool.size), np.float32))[0])
+        pool, want = self.cache[key]
+        got = np.asarray(scores, np.float32)
+        if not np.array_equal(np.asarray(firm_idx), pool) or \
+                got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"{label}: {u} gen {gen} {month}: served firms/shape "
+                 "differ from the plain path's, or non-finite scores")
+        err = np.abs(got - want)
+        if (err > BF16_TOL + BF16_TOL * np.abs(want)).any():
+            fail(f"{label}: {u} gen {gen} {month}: served scores differ "
+                 f"from the plain path by up to {err.max()}")
+        return float(err.max())
+
+    def check_all(self, label: str, recs: list, gens=None) -> float:
+        worst = 0.0
+        for u, m, status, body, _ in recs:
+            if status != 200:
+                fail(f"{label}: {u}/{m} answered {status}: {body}")
+            gen = body["generation"]
+            if gens is not None and gen not in gens.get(u, (0,)):
+                fail(f"{label}: {u}/{m} from generation {gen}")
+            worst = max(worst, self.check(label, u, gen, m,
+                                          body["firm_idx"], body["scores"]))
+        return worst
+
+
+def sequential_pass(service, months: dict) -> dict:
+    """Score a fixed list of months one request at a time (rows bucket
+    1): the same dispatch geometry in every pass, so passes compare
+    bitwise."""
+    out = {}
+    for u in sorted(months):
+        for m in months[u][::max(1, len(months[u]) // STACK_SEQ_MONTHS)][
+                :STACK_SEQ_MONTHS]:
+            out[(u, m)] = service.score(u, m).scores
+    return out
+
+
+def serving_stack_phase(torch, totals: dict, cache: dict) -> dict:
+    """Phase 18: the serving stack behind the HTTP front door. c2 and c3 at
+    full width (random weights from the presets' seeds) on one
+    ``ScoringService`` behind ``make_http_server`` on 127.0.0.1, port 0:
+
+    1. :data:`STACK_CLIENTS` closed-loop HTTP clients: req/s, the client's
+       and the service's p50/p99, each phase's mean and p99; every served
+       score vector held to the plain path on the card; kernels A and B
+       launched;
+    2. the same load with ``LFM_METRICS=0`` and ``LFM_FLIGHT=0``, in
+       turns with the plane on (on, off, on, off): the plane's req/s
+       overhead; a sequential pass (rows bucket 1) bitwise equal with the
+       plane on and off;
+    3. transient ``serve_dispatch`` faults (every
+       :data:`STACK_FAULT_EVERY`-th attempt, so each retry succeeds):
+       every response held to the plain path, the sequential pass bitwise
+       equal to step 2's, the retry counter moved;
+    4. permanent faults until the circuit opens: ``/healthz`` 503, ``/score``
+       503 with ``Retry-After``, the half-open probe closes it after the
+       cooldown, exactly one incident bundle;
+    5. ``queue_max`` :data:`STACK_QUEUE_MAX`, bursts of twice that: sheds,
+       the admitted requests' p99;
+    6. a request whose deadline has passed: 504 and no kernel launch;
+    7. c2 refreshed for one epoch while the clients keep sending: no
+       request dropped, every response one generation's and held to that
+       generation's plain path, rows 3 and 4 launched, p99 during it.
+
+    Returns the summary the script prints as one JSON line."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from lfm_quant_tpu_torch.config import get_preset
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.serve import ScoringService, incident
+    from lfm_quant_tpu_torch.serve.errors import (DeadlineError, ShedError,
+                                                  http_status)
+    from lfm_quant_tpu_torch.serve.http import make_http_server
+    from lfm_quant_tpu_torch.train.loop import Predictor
+    from lfm_quant_tpu_torch.utils import faults, flight
+
+    universes = {}
+    for name in STACK_SERVED:
+        cfg = get_preset(name)
+        panel = panel_of(cfg, cache)
+        universes[name] = (cfg, panel, Predictor(plain_variant(cfg), panel))
+    refs = PlainRefs(universes)
+    # build_info's backend: "cuda" on the card (a CPU rehearsal reads
+    # "cpu").
+    backend = "cuda" if torch.cuda.is_available() else "cpu"
+    inc_dir = tempfile.mkdtemp(prefix="lfm_incidents_")
+    summary = {}
+    faults.configure("")
+    service = ScoringService(device="cuda", max_rows=8,
+                             breaker_threshold=STACK_BREAKER,
+                             incident_dir=inc_dir)
+    httpd = make_http_server(service, 0)
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        for name, (cfg, panel, _) in universes.items():
+            t0 = time.perf_counter()
+            service.register(name, cfg, panel)
+            torch.cuda.synchronize()
+            log(f"phase 18 {name}: registered, warmed and stamped in "
+                f"{time.perf_counter() - t0:.1f} s")
+        # Requests draw from STACK_MONTHS months per universe spread over
+        # its serveable range (every width bucket it has), so the plain
+        # path's references are computed once per month.
+        months = {}
+        for u in universes:
+            ms = service.serveable_months(u)
+            months[u] = ms[::max(1, len(ms) // STACK_MONTHS)]
+        status, _, body, _ = http_get(port, "/healthz")
+        if status != 200 or not json.loads(body)["ok"]:
+            fail(f"phase 18: /healthz {status} before any load: {body}")
+
+        def timed_load(seed, n=STACK_REQUESTS, stop=None):
+            t0 = time.perf_counter()
+            recs = http_load(port, months, n, seed, stop=stop)
+            return recs, time.perf_counter() - t0
+
+        # ---- 1. the load ------------------------------------------------
+        service.reset_stats()
+        (recs, wall), counts = counted(
+            "phase 18 step 1 (HTTP load)",
+            tuple(STACK_SERVED.values()) + ("window_gather",),
+            lambda: timed_load(1))
+        for k, n in counts.items():
+            totals[k] += n
+        st = service.stats()
+        s1 = load_summary(recs, wall)
+        log_load("step 1 (plane on)", s1)
+        worst = refs.check_all("phase 18 step 1", recs)
+        log(f"phase 18 step 1: served scores within {worst:.4g} of the "
+            f"plain path; service {st['completed']} completed, "
+            f"{st['batches']} batches, occupancy {st['mean_occupancy']}, "
+            f"{st['req_per_s']:.2f} req/s")
+        summary["load"] = s1
+        summary["load"]["mean_occupancy"] = st["mean_occupancy"]
+        code, _, body, _ = http_get(port, "/stats")
+        if code != 200 or json.loads(body)["completed"] != STACK_REQUESTS:
+            fail(f"phase 18 step 1: /stats {code} {body[:200]!r}")
+        code, hdr, body, _ = http_get(port, "/metrics")
+        text = body.decode()
+        if code != 200 or "lfm_serve_latency_ms_count" not in text or \
+                f'backend="{backend}"' not in text:
+            fail(f"phase 18 step 1: /metrics {code} {text[:300]!r}")
+
+        # ---- 2. the plane off, in turns -------------------------------
+        seq_on = sequential_pass(service, months)
+        rps = {"on": [s1["req_per_s"]], "off": []}
+        seq_off = None
+        for turn, plane in enumerate(("off", "on", "off")):
+            if plane == "off":
+                os.environ["LFM_METRICS"] = "0"
+                flight.configure(0)
+            try:
+                (recs, wall), counts = counted(
+                    f"phase 18 step 2 (plane {plane})",
+                    tuple(STACK_SERVED.values()) + ("window_gather",),
+                    lambda: timed_load(1))
+                if plane == "off" and seq_off is None:
+                    seq_off = sequential_pass(service, months)
+            finally:
+                os.environ.pop("LFM_METRICS", None)
+                flight.configure()
+            for k, n in counts.items():
+                totals[k] += n
+            s = load_summary(recs, wall)
+            log_load(f"step 2 turn {turn + 2} (plane {plane})", s)
+            refs.check_all(f"phase 18 step 2 ({plane})", recs)
+            rps[plane].append(s["req_per_s"])
+        for key, want in seq_on.items():
+            if not np.array_equal(seq_off[key], want):
+                fail(f"phase 18 step 2: {key} scores differ bitwise with "
+                     "the metrics plane and the flight recorder off")
+        on, off = float(np.mean(rps["on"])), float(np.mean(rps["off"]))
+        summary["plane"] = {"req_per_s_on": rps["on"],
+                            "req_per_s_off": rps["off"],
+                            "overhead_pct": 100.0 * (off - on) / off}
+        log(f"phase 18 step 2: {len(seq_on)} sequential responses bitwise "
+            f"equal with the plane on and off; req/s on {rps['on']}, off "
+            f"{rps['off']}: metrics_overhead_pct "
+            f"{summary['plane']['overhead_pct']:.2f}")
+
+        # ---- 3. transient faults -----------------------------------------
+        r0 = service.stats()["retries"]
+        faults.configure("serve_dispatch:at=" + "+".join(
+            str(k) for k in range(1, 8192, STACK_FAULT_EVERY)))
+        try:
+            recs, wall = timed_load(3)
+            seq_faulty = sequential_pass(service, months)
+        finally:
+            faults.configure("")
+        s3 = load_summary(recs, wall)
+        log_load("step 3 (transient faults)", s3)
+        worst = refs.check_all("phase 18 step 3", recs)
+        for key, want in seq_on.items():
+            if not np.array_equal(seq_faulty[key], want):
+                fail(f"phase 18 step 3: {key} scores differ bitwise under "
+                     "transient faults")
+        retries = service.stats()["retries"] - r0
+        if retries <= 0:
+            fail("phase 18 step 3: the retry counter did not move")
+        summary["faults"] = {"retries": retries, "req_per_s":
+                             s3["req_per_s"], "p99_ms": s3["p99_ms"],
+                             "retry_ms": s3["retry_ms"]}
+        log(f"phase 18 step 3: {retries} retries, {len(recs)} responses "
+            f"within {worst:.4g} of the plain path, the sequential pass "
+            "bitwise equal")
+
+        # ---- 4. the circuit breaker ---------------------------------------
+        u0, m0 = "c2", months["c2"][-1]
+        faults.configure("serve_dispatch:kind=permanent")
+        try:
+            codes = [http_get(port, f"/score?universe={u0}&month={m0}")[0]
+                     for _ in range(STACK_BREAKER)]
+            service.incidents.wait()
+            hz = http_get(port, "/healthz")
+            sc = http_get(port, f"/score?universe={u0}&month={m0}")
+        finally:
+            faults.configure("")
+        if codes != [500] * STACK_BREAKER:
+            fail(f"phase 18 step 4: failing dispatches answered {codes}")
+        if hz[0] != 503 or json.loads(hz[2]).get("circuit") != "open":
+            fail(f"phase 18 step 4: /healthz {hz[0]} {hz[2]!r}")
+        if sc[0] != 503 or "Retry-After" not in sc[1]:
+            fail(f"phase 18 step 4: /score {sc[0]} {sc[1]}")
+        time.sleep(service.batcher._breaker_cooldown_s + 0.05)
+        probe = http_get(port, f"/score?universe={u0}&month={m0}")
+        hz2 = http_get(port, "/healthz")
+        if probe[0] != 200 or hz2[0] != 200 or \
+                json.loads(hz2[2]).get("circuit") != "closed":
+            fail(f"phase 18 step 4: the half-open probe answered "
+                 f"{probe[0]}, /healthz {hz2[0]} {hz2[2]!r}")
+        refs.check("phase 18 step 4", u0, 0, m0,
+                   json.loads(probe[2])["firm_idx"],
+                   json.loads(probe[2])["scores"])
+        bundles = incident.find_bundles(inc_dir)
+        if len(bundles) != 1:
+            fail(f"phase 18 step 4: {len(bundles)} incident bundles")
+        meta = json.load(open(os.path.join(bundles[0], "incident.json")))
+        if meta["trigger"] != "breaker_open" or \
+                meta["host"].get("backend") != backend:
+            fail(f"phase 18 step 4: bundle {meta['trigger']} "
+                 f"{meta['host']}")
+        summary["breaker"] = {"opens": service.stats()["breaker_opens"],
+                              "retry_after": sc[1]["Retry-After"],
+                              "bundle_files": sorted(meta["files"]),
+                              "device": meta["host"].get("device")}
+        log(f"phase 18 step 4: {STACK_BREAKER} failures opened the circuit "
+            f"(/healthz 503, /score 503 Retry-After {sc[1]['Retry-After']}),"
+            f" the probe closed it; one bundle ({meta['trigger']}, "
+            f"{meta['files']['flight.jsonl']}, host device "
+            f"{meta['host'].get('device')})")
+
+        # ---- 5. shedding ----------------------------------------------------
+        service.reset_stats()
+        service.batcher.queue_max = STACK_QUEUE_MAX
+        admitted, shed = [], 0
+        try:
+            rng = np.random.default_rng(5)
+            for _ in range(STACK_BURSTS):
+                futs = []
+                for _ in range(2 * STACK_QUEUE_MAX):
+                    u = ("c2", "c3")[int(rng.integers(2))]
+                    futs.append(service.submit(
+                        u, months[u][int(rng.integers(len(months[u])))]))
+                for f in futs:
+                    try:
+                        admitted.append(f.result(timeout=120))
+                    except ShedError as e:
+                        if http_status(e) != 429:
+                            fail("phase 18 step 5: shed is not a 429")
+                        shed += 1
+        finally:
+            service.batcher.queue_max = 256
+        st = service.stats()
+        if shed == 0 or st["shed"] != shed:
+            fail(f"phase 18 step 5: {shed} sheds (stats {st['shed']})")
+        if st["queue_peak"] > STACK_QUEUE_MAX:
+            fail(f"phase 18 step 5: queue peak {st['queue_peak']}")
+        for r in admitted:
+            refs.check("phase 18 step 5", r.universe, r.generation,
+                       r.month, r.firm_idx, r.scores)
+        lat = [r.latency_ms for r in admitted]
+        summary["shed"] = {"offered": 2 * STACK_QUEUE_MAX * STACK_BURSTS,
+                           "shed": shed, "admitted": len(admitted),
+                           "p99_ms": float(np.percentile(lat, 99))}
+        log(f"phase 18 step 5: queue_max {STACK_QUEUE_MAX}, "
+            f"{summary['shed']['offered']} offered in bursts of "
+            f"{2 * STACK_QUEUE_MAX}: {shed} shed (429), {len(admitted)} "
+            f"admitted, p99 {summary['shed']['p99_ms']:.3f} ms, queue peak "
+            f"{st['queue_peak']}")
+
+        # ---- 6. an expired deadline -----------------------------------------
+        torch.cuda.synchronize()
+
+        def expired():
+            f = service.submit("c2", months["c2"][0], deadline_ms=1e-3)
+            try:
+                f.result(timeout=60)
+            except DeadlineError as e:
+                return http_status(e)
+            fail("phase 18 step 6: the expired request was served")
+
+        code, _ = counted("phase 18 step 6 (expired deadline)", (),
+                          expired, must_not=tuple(_build.LAUNCHES))
+        if code != 504:
+            fail(f"phase 18 step 6: answered {code}, not 504")
+        log("phase 18 step 6: the expired request failed with 504 and "
+            "launched no kernel")
+
+        # ---- 7. refresh under load ------------------------------------------
+        cfg2, panel2, _ = universes["c2"]
+        splits2 = splits_of(cfg2, cache)
+        stop = threading.Event()
+        service.reset_stats()
+        box = {}
+
+        def load():
+            box["recs"], box["wall"] = timed_load(7, stop=stop)
+
+        def refresh():
+            clients = threading.Thread(target=load)
+            clients.start()
+            try:
+                t0 = time.perf_counter()
+                box["entry"] = service.refresh("c2", splits2, epochs=1)
+                torch.cuda.synchronize()
+                box["refresh_s"] = time.perf_counter() - t0
+            finally:
+                time.sleep(0.5)  # the new generation serves under load
+                stop.set()
+                clients.join(timeout=900)
+
+        _, counts = counted(
+            "phase 18 step 7 (refresh under load)",
+            ("rnn_fused_fwd_mma_lstm", "rnn_fused_bwd_mma_lstm",
+             "rnn_fused_fwd_mma_gru", "window_gather"), refresh)
+        for k, n in counts.items():
+            totals[k] += n
+        entry = box["entry"]
+        if entry.generation != 1:
+            fail(f"phase 18 step 7: refreshed to generation "
+                 f"{entry.generation}")
+        new = {k: v.detach().float().cpu().numpy()
+               for k, v in entry.predictor.state.params.items()}
+        refs.paths[("c2", 1)] = Predictor(plain_variant(cfg2), panel2, new)
+        recs = box["recs"]
+        s7 = load_summary(recs, box["wall"])
+        log_load("step 7 (refresh under load)", s7)
+        worst = refs.check_all("phase 18 step 7", recs,
+                               gens={"c2": (0, 1), "c3": (0,)})
+        gens = sorted({r[3]["generation"] for r in recs if r[0] == "c2"})
+        direct = service.score("c2", months["c2"][-1])
+        if direct.generation != 1:
+            fail("phase 18 step 7: the new generation is not served")
+        refs.check("phase 18 step 7 (new generation)", "c2", 1,
+                   direct.month, direct.firm_idx, direct.scores)
+        summary["refresh"] = {"refresh_s": box["refresh_s"],
+                              "responses": len(recs),
+                              "c2_generations": gens,
+                              "p99_ms": s7["p99_ms"],
+                              "client_p99_ms": s7["client_p99_ms"],
+                              "req_per_s": s7["req_per_s"]}
+        log(f"phase 18 step 7: c2 refreshed for one epoch in "
+            f"{box['refresh_s']:.3f} s under load; {len(recs)} responses, "
+            f"none dropped, c2 generations {gens}, every one within "
+            f"{worst:.4g} of its generation's plain path; p99 during the "
+            f"refresh {s7['p99_ms']:.3f} ms (client {s7['client_p99_ms']:.3f}"
+            " ms)")
+    finally:
+        faults.configure("")
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        service.close()
+        shutil.rmtree(inc_dir, ignore_errors=True)
+    del universes, refs
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lfm_quant_tpu_torch")):
         fail("lfm_quant_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -3725,9 +4256,13 @@ def main() -> int:
 
     # ---- 17. the factorized recurrences ----------------------------------
     factored_phase(torch, kernels, totals, panels)
+
+    # ---- 18. the serving stack behind the HTTP front door -------------
+    stack = serving_stack_phase(torch, totals, panels)
+    print(json.dumps({"serving_stack": stack}), flush=True)
     del panels
 
-    # ---- 18. kernels line -----------------------------------------------
+    # ---- 19. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -3753,7 +4288,7 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 19. result -----------------------------------------------------
+    # ---- 20. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

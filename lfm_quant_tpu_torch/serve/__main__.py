@@ -2,15 +2,23 @@
 
     python -m lfm_quant_tpu_torch.serve --preset c2 --requests 64 --threads 4
     python -m lfm_quant_tpu_torch.serve --preset c4   # or lru, c1, ...
+    python -m lfm_quant_tpu_torch.serve --preset c2 --refresh --run-dir DIR
+    python -m lfm_quant_tpu_torch.serve --preset c2 --http 8080
 
 builds the preset's universe from ``synthetic_panel`` (its seed and
 sizes), with the port's seeded init or ``--params file.npz`` holding a
 converted Flax tree (``/``-joined keys, as ``weights.flatten_params``
 writes them), warms every request-shape bucket, has ``--threads``
 clients send ``--requests`` month queries in all, and prints the
-service's stats as one JSON line. Runs on the card; ``--device cpu``
-serves through the kernels' plain versions. ``--n-firms`` and
-``--n-months`` cut the panel's scale (never the model's widths).
+service's stats as one JSON line. ``--refresh`` refreshes the universe
+once (one epoch from the served params, on the preset's default splits)
+while the clients send; ``--run-dir`` attaches telemetry (spans,
+manifest, trace, the final ``metrics.prom`` scrape, incident bundles:
+``python scripts/trace_report.py DIR`` rolls it up); ``--http PORT``
+then serves the front door (serve/http.py) on 127.0.0.1 until
+interrupted. Runs on the card; ``--device cpu`` serves through the
+kernels' plain versions. ``--n-firms`` and ``--n-months`` cut the
+panel's scale (never the model's widths).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import threading
 import time
 from typing import List, Optional
@@ -85,12 +94,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="cut the panel to this many firms")
     ap.add_argument("--n-months", type=int, default=None,
                     help="cut the panel to this many months")
+    ap.add_argument("--refresh", action="store_true",
+                    help="refresh the universe once (one epoch from the "
+                         "served params) while the clients send")
+    ap.add_argument("--run-dir", default=None,
+                    help="attach telemetry (spans/manifest/trace, the "
+                         "final metrics.prom); roll up with "
+                         "scripts/trace_report.py")
+    ap.add_argument("--http", type=int, default=0, metavar="PORT",
+                    help="after the load, serve the HTTP front door on "
+                         "127.0.0.1:PORT until interrupted")
     args = ap.parse_args(argv)
 
     from lfm_quant_tpu_torch.config import get_preset
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.serve import ScoringService
-    from lfm_quant_tpu_torch.train.loop import resolve_panel
+    from lfm_quant_tpu_torch.serve.http import run_http
+    from lfm_quant_tpu_torch.train.loop import resolve_panel, splits_for
+    from lfm_quant_tpu_torch.utils import telemetry
 
     cfg = get_preset(args.preset)
     data = cfg.data
@@ -105,21 +126,48 @@ def main(argv: Optional[List[str]] = None) -> int:
             params = {k: z[k] for k in z.files}
     panel = resolve_panel(cfg.data)
 
-    with ScoringService(device=args.device) as service:
+    with telemetry.run_scope(args.run_dir, config=cfg,
+                             extra={"entry": "serve"}), \
+            ScoringService(device=args.device) as service:
         t0 = time.perf_counter()
         service.register(cfg.name, cfg, panel, params)
         warm_s = time.perf_counter() - t0
         service.reset_stats()
         _build.reset_launch_counts()
-        drive_load(service, cfg.name, args.requests, args.threads)
-        stats = service.stats()
-    stats.update(preset=cfg.name, warmup_s=warm_s,
-                 kernel_launches=_build.launch_counts())
-    if service.device.type == "cuda":
-        import torch
+        refreshed = None
+        if args.refresh:
+            failed: List[BaseException] = []
 
-        stats["device_name"] = torch.cuda.get_device_name(service.device)
-    print(json.dumps(stats), flush=True)
+            def load() -> None:
+                try:
+                    drive_load(service, cfg.name, args.requests,
+                               args.threads)
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    failed.append(e)
+
+            clients = threading.Thread(target=load)
+            clients.start()
+            refreshed = service.refresh(cfg.name, splits_for(cfg, panel),
+                                        epochs=1).generation
+            clients.join()
+            if failed:
+                raise failed[0]
+        else:
+            drive_load(service, cfg.name, args.requests, args.threads)
+        stats = service.stats()
+        if args.run_dir:
+            with open(os.path.join(args.run_dir, "metrics.prom"), "w") as fh:
+                fh.write(service.metrics_text())
+        stats.update(preset=cfg.name, warmup_s=warm_s,
+                     refreshed_generation=refreshed,
+                     kernel_launches=_build.launch_counts())
+        if service.device.type == "cuda":
+            import torch
+
+            stats["device_name"] = torch.cuda.get_device_name(service.device)
+        print(json.dumps(stats, default=str), flush=True)
+        if args.http:
+            run_http(service, args.http)
     return 0
 
 

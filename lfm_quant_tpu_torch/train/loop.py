@@ -99,6 +99,7 @@ from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
 from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
 from lfm_quant_tpu_torch.utils import distributed as dist_utils
+from lfm_quant_tpu_torch.utils import faults
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import (
     flatten_params,
@@ -219,6 +220,8 @@ class Predictor:
         else:
             load_flax_params(model, params)
         self.model = model.to(self.device).eval()
+        faults.check("panel_h2d", n_firms=panel.n_firms,
+                     n_months=panel.n_months)
         self.dev = device_panel(panel, self.device, compute_dtype(cfg))
         #: The data mesh the sweeps shard months over (a trainer binds
         #: its own; serving runs on one device).
@@ -337,13 +340,19 @@ class Predictor:
                    for k in range(samples)]
         return torch.stack([torch.cat(p) for p in per])[:, :fi.shape[0]]
 
-    def score(self, firm_idx: np.ndarray, time_idx: np.ndarray,
-              weight: np.ndarray) -> np.ndarray:
+    def score_device(self, firm_idx: np.ndarray, time_idx: np.ndarray,
+                     weight: np.ndarray) -> torch.Tensor:
         """Served scores: forecasts as f32 with weight-0 slots zeroed
-        (the JAX package's ``ServePrograms.score``), on the host."""
+        (the JAX package's ``ServePrograms.score``), on the device; the
+        caller takes the one device→host copy."""
         pred = self.predict_scores(firm_idx, time_idx).float()
         w = torch.as_tensor(np.asarray(weight, np.float32)).to(pred.device)
-        return torch.where(w > 0, pred, torch.zeros_like(pred)).cpu().numpy()
+        return torch.where(w > 0, pred, torch.zeros_like(pred))
+
+    def score(self, firm_idx: np.ndarray, time_idx: np.ndarray,
+              weight: np.ndarray) -> np.ndarray:
+        """:meth:`score_device`, on the host."""
+        return self.score_device(firm_idx, time_idx, weight).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

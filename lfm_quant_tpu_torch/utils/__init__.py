@@ -1,1 +1,2 @@
-"""Run-directory utilities: the metrics stream and the step timer."""
+"""Run-directory utilities (the metrics stream, the step timer), run
+telemetry, the metrics plane, the flight recorder and fault injection."""
