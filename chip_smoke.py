@@ -184,10 +184,37 @@ imports nothing of JAX. Phases, each fatal on failure:
    refreshed for one epoch under load (no request dropped, each response
    one generation's and held to its plain path, rows 3 and 4 launched);
    then one ``{"serving_stack": {...}}`` line;
-19. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
-   10, 11-15, 17 and 18 for the one-seed rows, 6, 7 and 16 for the seed
-   rows);
-20. print the result line ``{"ok": true, "device": {...}}`` last.
+19. the heteroscedastic forward: c2 with ``loss="nll"`` for one epoch
+   through ``run_experiment``, ``predict("test", return_variance=True)``
+   held to the plain path on the card (mean and variance at the gate,
+   the variance finite and > 0), timed with and without the variance; the
+   backtest entry's ``--mode mean_minus_total_std`` on its run dir held
+   to the numpy engine (``REPORT_TOL``); c5's 64 seeds the same way
+   (``[64, N, T]`` variances, the report scored on the card); a two-fold
+   heteroscedastic c2 walk-forward whose ``walkforward.npz`` carries the
+   variances;
+20. the async pipeline and preemption: c2 for 3 epochs under the four
+   ``LFM_ASYNC`` x ``LFM_ASYNC_CKPT`` settings (history, best and
+   early-stop epochs and restored params bitwise equal, else within the
+   training gate with the decisions exact and the finding logged; one
+   counted host sync per epoch; each epoch's wall), the device's gaps
+   between epochs with the pipeline off and on (``torch.profiler``), c5
+   for 2 epochs with the pipeline on (epoch 0 against phase 6's), and
+   ``python -m lfm_quant_tpu_torch.train --preset c2 --epochs 3`` as a
+   subprocess SIGTERM'd at its third checkpoint write (exit 75) and
+   resumed (the uninterrupted fit's history and best params);
+21. ``LFM_BUCKETS=1``: c2 and c5 for one epoch on the bucket ladder (the
+   padded-cell counters, the ms per epoch), rows 3 and 4 and the gather
+   at the smallest and the largest bucket (one seed for c2, the seed grid
+   for c5) against their plain versions, the bucketed predict against
+   the max-shape one within the gate;
+22. the native sampler: c5's sampler geometry on the Python and the
+   native engine (one epoch's host ms, the structure checks), then c2
+   for one epoch with ``sampler_engine="native"``;
+23. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
+   10, 11-15, 17-22 for the one-seed rows, 6, 7, 16 and 19-21 for the
+   seed rows);
+24. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -2063,6 +2090,7 @@ def c5_phase(torch, cfg, splits, kernels, seed_launches):
         fail(f"the c5 epoch launched a CUDA-core kernel: {counts}")
     for k, v in counts.items():
         seed_launches[k] += v
+    one["epoch_losses"] = summary["step_losses"]  # phase 20's reference
     rec = summary["history"][0]
     if not all(np.isfinite(rec[k]) for k in ("train_loss", "val_ic",
                                              "val_ic_std")):
@@ -4060,6 +4088,831 @@ def serving_stack_phase(torch, totals: dict, cache: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-22: the training leftovers
+# ---------------------------------------------------------------------------
+
+PIPE_EPOCHS = 3     # phase 20's fits, cut from the preset's 30
+C5_PIPE_EPOCHS = 2  # phase 20's c5 fits: epoch 1 rides the lookahead
+# (LFM_ASYNC, LFM_ASYNC_CKPT): the four settings of phase 20.
+KNOBS = ((0, 0), (0, 1), (1, 0), (1, 1))
+# History fields that must agree across the settings.
+DET_FIELDS = ("epoch", "train_loss", "grad_norm", "val_ic", "val_mse",
+              "val_ic_std")
+# Phase 21: the kernels of the path, held at the bucket shapes.
+TRAIN_KERNELS = ("window_gather", "rnn_fused_fwd_mma_lstm",
+                 "rnn_fused_bwd_mma_lstm")
+
+
+def nll_variant(cfg, **changes):
+    """``cfg`` cut to one epoch with the heteroscedastic head (``loss=
+    "nll"``: the head's second output is log σ²)."""
+    return dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, epochs=1, loss="nll"), **changes)
+
+
+def close_to(label: str, got, want) -> float:
+    """``got`` within atol and rtol :data:`BF16_TOL` of ``want`` and
+    finite; returns the largest difference."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{label}: {got.shape} against {want.shape}, or not finite")
+    err = np.abs(got - want)
+    if (err > BF16_TOL + BF16_TOL * np.abs(want)).any():
+        fail(f"{label}: differs from the plain path by up to {err.max()}")
+    return float(err.max()) if err.size else 0.0
+
+
+def variance_checked(torch, label: str, model, plain, turns: int = 2,
+                     span=None) -> dict:
+    """``predict("test", return_variance=True)`` of ``model`` on the
+    kernels (counted: the gather and the fused forward) against
+    ``plain``'s on the card from the same params (over the month range
+    ``span`` when given: the plain path of 64 seeds is slow): the mean
+    and the aleatoric variance within the gate, the variance finite and
+    > 0 on every valid cell and 0 elsewhere; the test split's predict
+    timed warm with and without the variance (``turns`` times each).
+    Returns the launches, the host arrays and the times."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.ops import _build
+
+    (fc, var, valid), counts = counted(
+        f"{label} predict with variance", ("window_gather",
+                                           "rnn_fused_fwd_mma_lstm"),
+        lambda: model.predict("test", return_variance=True),
+        must_not=CUDA_CORE)
+    if not (np.isfinite(var[..., valid]).all() and
+            (var[..., valid] > 0).all()) or var[..., ~valid].any():
+        fail(f"{label}: variance not finite and > 0 on the valid cells, "
+             "0 elsewhere")
+    kw = {"date_range": span} if span else {"split": "test"}
+    got_fc, got_var, got_valid = ((fc, var, valid) if span is None else
+                                  model.predict(return_variance=True, **kw))
+    _build.reset_launch_counts()
+    want_fc, want_var, want_valid = plain.predict(return_variance=True,
+                                                  **kw)
+    if any(_build.launch_counts().values()):
+        fail(f"the plain {label} predict launched kernels")
+    if not np.array_equal(got_valid, want_valid):
+        fail(f"{label}: the plain path's valid cells differ")
+    v = got_valid
+    err_fc = close_to(f"{label} mean", got_fc[..., v], want_fc[..., v])
+    err_var = close_to(f"{label} variance", got_var[..., v],
+                       want_var[..., v])
+    times = {"variance": [], "point": []}
+    for kind in ("variance", "point") * turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.predict("test", return_variance=kind == "variance")
+        times[kind].append(1e3 * (time.perf_counter() - t0))
+    log(f"{label} predict with variance: {fc.shape}, mean within "
+        f"{err_fc:.4g} and variance within {err_var:.4g} of the plain path "
+        f"({int(v.sum())} cells{f', months {span}' if span else ''}) "
+        f"(tol {BF16_TOL} + {BF16_TOL}|plain|), variance "
+        f"{var[..., valid].min():.4g} .. {var[..., valid].max():.4g}; warm "
+        f"ms with variance {', '.join(f'{t:.1f}' for t in times['variance'])}"
+        f", point {', '.join(f'{t:.1f}' for t in times['point'])} (host "
+        "clock, host copies included)")
+    return {"counts": counts, "fc": fc, "var": var, "valid": valid,
+            "ms": times}
+
+
+def total_std_reports(label: str, fc, var, valid, panel, device_report
+                      ) -> None:
+    """A ``mean_minus_total_std`` report on the card against the numpy
+    engine's on the same forecasts and variances (``REPORT_TOL``)."""
+    from lfm_quant_tpu_torch.backtest import engine
+
+    stacked = fc if fc.ndim == 3 else fc[None]
+    avar = var if var.ndim == 3 else var[None]
+    agg, v = engine.aggregate_ensemble(stacked, valid,
+                                       "mean_minus_total_std", 1.0,
+                                       aleatoric_var=avar)
+    ref = engine.run_backtest(agg, v, panel)
+    errs = reports_match(f"{label} mean_minus_total_std", device_report,
+                         ref)
+    log(f"{label} mean_minus_total_std: CAGR {device_report.cagr:+.4%}, "
+        f"Sharpe {device_report.sharpe_ann:.3f}, {device_report.n_months} "
+        f"months; against the numpy engine: cagr {errs['cagr']:.3g}, "
+        f"monthly returns {errs['monthly_returns']:.3g}, ic "
+        f"{errs['monthly_ic']:.3g}")
+
+
+def variance_phase(torch, cfg2, cfg5, totals: dict, seed_launches: dict,
+                   cache: dict) -> dict:
+    """Phase 19: the heteroscedastic forward. c2 with ``loss="nll"`` for
+    one epoch through ``run_experiment``, its test split predicted with
+    the variance (against the plain path), the backtest entry's
+    ``mean_minus_total_std`` on its run dir (against the numpy engine);
+    c5's 64 seeds the same way (``[64, N, T]`` variances, scored on the
+    card); a two-fold heteroscedastic c2 walk-forward whose
+    ``walkforward.npz`` carries the stitched variances."""
+    import tempfile
+    import types
+
+    import numpy as np
+
+    from lfm_quant_tpu_torch.backtest.__main__ import main as backtest_main
+    from lfm_quant_tpu_torch.backtest.torch_engine import (
+        run_scoring_pipeline,
+    )
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+    from lfm_quant_tpu_torch.train.loop import Trainer, run_experiment
+    from lfm_quant_tpu_torch.train.walkforward import run_walkforward
+
+    out = {}
+    panel2 = panel_of(cfg2, cache)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = nll_variant(cfg2, out_dir=tmp)
+        t0 = time.perf_counter()
+        (summary, trainer, splits), counts = counted(
+            "c2 nll training", TRAIN_KERNELS,
+            lambda: run_experiment(cfg, panel=panel2, device="cuda"),
+            must_not=CUDA_CORE)
+        fit_s = time.perf_counter() - t0
+        for k, n in counts.items():
+            totals[k] += n
+        rec = summary["history"][0]
+        if not all(np.isfinite(rec[k]) for k in ("train_loss", "val_ic")):
+            fail(f"c2 nll epoch: {rec}")
+        log(f"c2 nll: one epoch in {fit_s:.2f} s, train_loss (nll) "
+            f"{rec['train_loss']:.6f} val_ic {rec['val_ic']:.6f}")
+        plain = Trainer(plain_variant(cfg), splits, device="cuda")
+        plain.state = plain.init_state({k: p.detach().cpu().numpy()
+                                        for k, p in trainer.state.params
+                                        .items()})
+        res = variance_checked(torch, "c2 nll", trainer, plain)
+        for k, n in res["counts"].items():
+            totals[k] += n
+        out["c2_predict_ms"] = res["ms"]
+        del plain
+        report_path = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        (_, counts) = counted(
+            "c2 backtest --mode mean_minus_total_std",
+            ("window_gather", "rnn_fused_fwd_mma_lstm"),
+            lambda: backtest_main(["--run-dir", summary["run_dir"],
+                                   "--mode", "mean_minus_total_std",
+                                   "--json-out", report_path]))
+        bt_s = time.perf_counter() - t0
+        for k, n in counts.items():
+            totals[k] += n
+        with open(report_path) as fh:
+            got = types.SimpleNamespace(**json.load(fh))
+        total_std_reports("c2 backtest entry", res["fc"], res["var"],
+                          res["valid"], splits.panel, got)
+        log(f"c2 backtest entry (load, predict with variance, score): "
+            f"{bt_s:.2f} s")
+        del trainer
+
+        # The two-fold heteroscedastic walk-forward.
+        start = int(panel2.dates[int(panel2.n_months * 0.6)])
+        wf_dir = os.path.join(tmp, "wf")
+        (fc, valid, wf), counts = counted(
+            "c2 nll walk-forward (2 folds)", TRAIN_KERNELS,
+            lambda: run_walkforward(cfg, panel2, start=start,
+                                    step_months=WF_STEP, val_months=WF_VAL,
+                                    n_folds=WF_FOLDS, out_dir=wf_dir,
+                                    score_modes=["mean_minus_total_std"],
+                                    device="cuda"),
+            must_not=CUDA_CORE)
+        for k, n in counts.items():
+            totals[k] += n
+        data = np.load(os.path.join(wf_dir, "walkforward.npz"))
+        var = data["variance"] if "variance" in data else None
+        if var is None or var.shape != fc.shape or not (
+                np.isfinite(var[valid]).all() and (var[valid] > 0).all()):
+            fail("c2 nll walk-forward: walkforward.npz carries no finite "
+                 "positive variance of the forecast's shape")
+        log(f"c2 nll walk-forward: {WF_FOLDS} folds, walkforward.npz "
+            f"{sorted(data.files)}, variance {var[valid].min():.4g} .. "
+            f"{var[valid].max():.4g} over {int(valid.sum())} cells; "
+            f"{next(iter(wf['backtest'].values()))['summary']}")
+    torch.cuda.empty_cache()
+
+    # c5: 64 heteroscedastic seeds.
+    splits5 = splits_of(cfg5, cache)
+    cfg = nll_variant(cfg5)
+    trainer = EnsembleTrainer(cfg, splits5, device="cuda")
+    t0 = time.perf_counter()
+    summary, counts = counted("c5 nll training", TRAIN_KERNELS, trainer.fit,
+                              must_not=CUDA_CORE)
+    fit_s = time.perf_counter() - t0
+    for k, n in counts.items():
+        seed_launches[k] += n
+    rec = summary["history"][0]
+    log(f"c5 nll: one epoch of {cfg.n_seeds} seeds in {fit_s:.2f} s, "
+        f"train_loss (nll) {rec['train_loss']:.6f} val_ic "
+        f"{rec['val_ic']:.6f}")
+    plain = EnsembleTrainer(plain_variant(cfg), splits5, device="cuda")
+    plain.state = plain.init_state({k: p.detach().cpu().numpy()
+                                    for k, p in trainer.state.params.items()})
+    lo = splits5.range_of("test")[0]
+    res = variance_checked(torch, "c5 nll", trainer, plain, turns=1,
+                           span=(lo, lo + C5_PREDICT_MONTHS))
+    del plain
+    torch.cuda.empty_cache()
+    if res["var"].shape != (cfg.n_seeds, splits5.panel.n_firms,
+                            splits5.panel.n_months):
+        fail(f"c5 nll variances {res['var'].shape}")
+    totals["window_gather"] += res["counts"]["window_gather"]
+    seed_launches["rnn_fused_fwd_mma_lstm"] += res["counts"][
+        "rnn_fused_fwd_mma_lstm"]
+    out["c5_predict_ms"] = res["ms"]
+    t0 = time.perf_counter()
+    rep, = run_scoring_pipeline(res["fc"], res["valid"], splits5.panel,
+                                modes=["mean_minus_total_std"],
+                                aleatoric_var=res["var"],
+                                device="cuda").values()
+    score_ms = 1e3 * (time.perf_counter() - t0)
+    total_std_reports("c5 on the card", res["fc"], res["var"], res["valid"],
+                      splits5.panel, rep)
+    log(f"c5 mean_minus_total_std scored on the card in {score_ms:.1f} ms")
+    del trainer, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_gaps(torch, fn) -> dict:
+    """``fn`` under ``torch.profiler``: the wall, the device's busy time
+    (the union of its kernels' intervals) and the gaps between them, the
+    three largest first (with lock-step epochs, the epochs' boundaries).
+    Empty when the trace holds no device time (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        and e.time_range.end > e.time_range.start)
+    if not spans:
+        return {"out": out, "wall_ms": wall_ms}
+    busy, gaps = 0.0, []
+    lo, hi = spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            # (the gap, where it starts: ms after the first kernel)
+            gaps.append(((s - hi) / 1e3, (hi - spans[0][0]) / 1e3))
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
+    return {"out": out, "wall_ms": wall_ms, "busy_ms": busy / 1e3,
+            "first_to_last_ms": span_ms,
+            "idle_ms": span_ms - busy / 1e3,
+            "top_gaps_ms": sorted(gaps, reverse=True)[:4]}
+
+
+def run_history(run_dir: str) -> dict:
+    """metrics.jsonl → {epoch: record}, the last line of an epoch winning
+    (a resumed run appends)."""
+    out = {}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            out[int(rec["epoch"])] = {k: rec[k] for k in DET_FIELDS if k in rec}
+    return out
+
+
+def fits_agree(torch, label: str, runs: dict) -> bool:
+    """The fits of ``runs`` (name → (summary, params)) against the first:
+    history, best and early-stop epochs and restored params. Bitwise when
+    they are; else the decisions exact and the step losses within the
+    training gate, and a finding logged. Returns whether bitwise."""
+    import numpy as np
+
+    names = list(runs)
+    ref_s, ref_p = runs[names[0]]
+    bitwise = True
+    for name in names[1:]:
+        s, p = runs[name]
+        for k in ("best_epoch", "epochs_run"):
+            if s[k] != ref_s[k]:
+                fail(f"{label}: {name} {k} {s[k]} against {ref_s[k]}")
+        same = ([{k: r[k] for k in DET_FIELDS if k in r}
+                 for r in s["history"]] ==
+                [{k: r[k] for k in DET_FIELDS if k in r}
+                 for r in ref_s["history"]]
+                and s["step_losses"] == ref_s["step_losses"]
+                and all(torch.equal(p[k], ref_p[k]) for k in p))
+        if not same:
+            bitwise = False
+            losses_agree(f"{label}: {name}",
+                         np.asarray(s["step_losses"]).ravel(),
+                         np.asarray(ref_s["step_losses"]).ravel())
+            err = max(float((p[k].float() - ref_p[k].float()).abs().max())
+                      for k in p)
+            log(f"{label}: {name} NOT bitwise equal to {names[0]} (the "
+                f"decisions are; step losses within the gate; restored "
+                f"params differ by up to {err:.4g})")
+    log(f"{label}: {len(names)} fits {'bitwise equal' if bitwise else 'agree within the gate'}"
+        f" (history, best epoch {ref_s['best_epoch']}, epochs run "
+        f"{ref_s['epochs_run']}, restored best params)")
+    return bitwise
+
+
+def pipeline_phase(torch, cfg2, cfg5, totals: dict, seed_launches: dict,
+                   one5: dict, cache: dict) -> dict:
+    """Phase 20: the pipeline and preemption. c2 for
+    :data:`PIPE_EPOCHS` epochs under the four ``LFM_ASYNC`` ×
+    ``LFM_ASYNC_CKPT`` settings (agreement, one counted host sync per
+    epoch, each epoch's wall), the inter-epoch device gaps with the
+    pipeline off and on (``torch.profiler``), c5 for
+    :data:`C5_PIPE_EPOCHS` epochs with the pipeline on and off (and its
+    first steps against phase 6's), then ``python -m
+    lfm_quant_tpu_torch.train --preset c2`` as a real subprocess
+    SIGTERM'd at its third checkpoint write (exit 75) and resumed (the
+    history and best params of the uninterrupted fit)."""
+    import tempfile
+
+    import numpy as np
+
+    from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+    from lfm_quant_tpu_torch.train.loop import Trainer
+    from lfm_quant_tpu_torch.utils import telemetry
+
+    out = {}
+    splits2 = splits_of(cfg2, cache)
+    cfg = dataclasses.replace(cfg2, optim=dataclasses.replace(
+        cfg2.optim, epochs=PIPE_EPOCHS))
+    saved_env = {k: os.environ.get(k) for k in ("LFM_ASYNC",
+                                                "LFM_ASYNC_CKPT")}
+
+    def knobs(loop, ckpt):
+        os.environ["LFM_ASYNC"], os.environ["LFM_ASYNC_CKPT"] = (
+            str(loop), str(ckpt))
+
+    runs, dirs = {}, {}
+    tmp = tempfile.mkdtemp(prefix="lfm_pipe_")
+    try:
+        for loop, ckpt in KNOBS:
+            knobs(loop, ckpt)
+            name = f"LFM_ASYNC={loop} LFM_ASYNC_CKPT={ckpt}"
+            run_dir = dirs[loop, ckpt] = os.path.join(tmp, f"r{loop}{ckpt}")
+            trainer = Trainer(cfg, splits2, run_dir=run_dir, device="cuda")
+            snap = telemetry.COUNTERS.snapshot()
+            torch.cuda.synchronize()
+            t0, start = time.perf_counter(), time.time()
+            summary, counts = counted(f"c2 x{PIPE_EPOCHS} ({name})",
+                                      TRAIN_KERNELS, trainer.fit,
+                                      must_not=CUDA_CORE)
+            wall = time.perf_counter() - t0
+            syncs = telemetry.COUNTERS.delta(snap).get("host_syncs", 0)
+            if syncs != summary["epochs_run"]:
+                fail(f"c2 ({name}): {syncs} counted host syncs in "
+                     f"{summary['epochs_run']} epochs")
+            for k, n in counts.items():
+                totals[k] += n
+            # Each epoch from the fit's start or the last epoch's record to
+            # its own record (the host's clock when the epoch settled).
+            ts = [start] + [r["ts"] for r in summary["history"]]
+            epoch_s = [b - a for a, b in zip(ts, ts[1:])]
+            out[name] = {"wall_s": wall, "epoch_s": epoch_s}
+            log(f"c2 x{PIPE_EPOCHS} ({name}): {wall:.3f} s, epochs "
+                f"{', '.join(f'{e:.3f}' for e in epoch_s)} s, one counted "
+                f"host sync per epoch, best epoch {summary['best_epoch']}")
+            runs[name] = (summary, {k: p.detach().clone() for k, p in
+                                    trainer.state.params.items()})
+            del trainer
+        out["bitwise"] = fits_agree(torch, "c2 under the four settings",
+                                    runs)
+        del runs
+        torch.cuda.empty_cache()
+
+        # The device's gaps between epochs, the pipeline off and on.
+        for loop in (0, 1):
+            knobs(loop, loop)
+            trainer = Trainer(cfg, splits2, device="cuda")
+            gaps = kernel_gaps(torch, trainer.fit)
+            if "busy_ms" not in gaps:
+                log(f"c2 gaps (LFM_ASYNC={loop}): no device time in the "
+                    "trace (not measured)")
+                continue
+            out[f"gaps_async{loop}"] = {k: v for k, v in gaps.items()
+                                        if k != "out"}
+            log(f"c2 x{PIPE_EPOCHS} under the profiler (LFM_ASYNC={loop}, "
+                f"LFM_ASYNC_CKPT={loop}): wall {gaps['wall_ms']:.1f} ms, "
+                f"device busy {gaps['busy_ms']:.1f} ms, idle "
+                f"{gaps['idle_ms']:.1f} ms between the first and the last "
+                f"kernel, largest gaps (ms, at ms after the first kernel) "
+                f"{', '.join(f'{g:.2f} at {t:.0f}' for g, t in gaps['top_gaps_ms'])}")
+            del trainer
+        torch.cuda.empty_cache()
+
+        # c5 with the pipeline on and off; its first two steps (before the
+        # two-epoch schedule parts from the one-epoch one: the first
+        # update's step size is 0) against phase 6's.
+        splits5 = splits_of(cfg5, cache)
+        c5 = dataclasses.replace(cfg5, optim=dataclasses.replace(
+            cfg5.optim, epochs=C5_PIPE_EPOCHS))
+        c5_runs = {}
+        for loop in (1, 0):
+            knobs(loop, 1)
+            trainer = EnsembleTrainer(c5, splits5, device="cuda")
+            snap = telemetry.COUNTERS.snapshot()
+            t0 = time.perf_counter()
+            summary, counts = counted(
+                f"c5 x{C5_PIPE_EPOCHS} (LFM_ASYNC={loop})", TRAIN_KERNELS,
+                trainer.fit, must_not=CUDA_CORE)
+            wall = time.perf_counter() - t0
+            syncs = telemetry.COUNTERS.delta(snap).get("host_syncs", 0)
+            if syncs != summary["epochs_run"]:
+                fail(f"c5 (LFM_ASYNC={loop}): {syncs} host syncs in "
+                     f"{summary['epochs_run']} epochs")
+            for k, n in counts.items():
+                seed_launches[k] += n
+            out[f"c5_wall_s_async{loop}"] = wall
+            log(f"c5 x{C5_PIPE_EPOCHS} (LFM_ASYNC={loop}): {wall:.2f} s; "
+                f"val_ic {[round(r['val_ic'], 6) for r in summary['history']]}")
+            c5_runs[f"LFM_ASYNC={loop}"] = (summary, {
+                k: p.detach().clone() for k, p in
+                trainer.state.params.items()})
+            del trainer
+            torch.cuda.empty_cache()
+        fits_agree(torch, f"c5 x{C5_PIPE_EPOCHS}, the pipeline on and off",
+                   c5_runs)
+        got = np.asarray(c5_runs["LFM_ASYNC=1"][0]["step_losses"][:2])
+        want = np.asarray(one5["epoch_losses"][:2])
+        err = losses_agree("c5 pipelined, first two steps vs phase 6",
+                           got.ravel(), want.ravel())
+        log(f"c5 pipelined: the first two steps' {got.size} per-seed losses "
+            f"{'bitwise equal to' if np.array_equal(got, want) else f'within {err:.4g} of'}"
+            " phase 6's")
+        del c5_runs
+
+        # A real preemption of the entry point, and its resume. Lock-step
+        # (LFM_ASYNC=0): the signal at the third write (epoch 1's) stops
+        # the run before epoch 2, which the resume trains. (With the
+        # lookahead epoch 2 is already queued, and settles, before the
+        # stop: the in-process and CPU tests cover that order.)
+        env = dict(os.environ, PYTHONPATH=ROOT, LFM_ASYNC="0",
+                   LFM_ASYNC_CKPT="1")
+        env.pop("LFM_FAULTS", None)
+        out_dir = os.path.join(tmp, "cli")
+        cmd = [sys.executable, "-m", "lfm_quant_tpu_torch.train", "--preset",
+               "c2", "--epochs", str(PIPE_EPOCHS), "--out", out_dir]
+        t0 = time.perf_counter()
+        cut = subprocess.run(
+            cmd, env=dict(env, LFM_FAULTS="ckpt_write:at=2,kind=sigterm"),
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        cut_s = time.perf_counter() - t0
+        if cut.returncode != 75:
+            fail(f"preempted c2 run exited {cut.returncode}, not 75: "
+                 f"{cut.stderr[-1500:]}")
+        run_dir = os.path.join(out_dir, cfg.name, "seed0")
+        part = run_history(run_dir)
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd + ["--resume"], env=env,
+                              capture_output=True, text=True, timeout=600,
+                              cwd=ROOT)
+        resume_s = time.perf_counter() - t0
+        if done.returncode != 0:
+            fail(f"resumed c2 run exited {done.returncode}: "
+                 f"{done.stderr[-1500:]}")
+        ref_dir = dirs[0, 1]
+        got_h, want_h = run_history(run_dir), run_history(ref_dir)
+        got_p = CheckpointManager(os.path.join(run_dir, "ckpt",
+                                               "best")).restore()["params"]
+        want_p = CheckpointManager(os.path.join(ref_dir, "ckpt",
+                                                "best")).restore()["params"]
+        if sorted(got_h) != sorted(want_h):
+            fail(f"resumed c2: epochs {sorted(got_h)} against "
+                 f"{sorted(want_h)}")
+        exact = got_h == want_h and all(torch.equal(got_p[k], want_p[k])
+                                        for k in want_p)
+        if not exact:
+            losses_agree("resumed c2 train loss",
+                         [got_h[e]["train_loss"] for e in sorted(got_h)],
+                         [want_h[e]["train_loss"] for e in sorted(want_h)])
+            if out["bitwise"]:
+                fail("resumed c2 differs from the uninterrupted fit though "
+                     "the four settings were bitwise equal")
+        log(f"c2 entry point SIGTERM'd at its third checkpoint write: exit "
+            f"75 after {cut_s:.1f} s with epochs {sorted(part)} recorded; "
+            f"--resume exit 0 in {resume_s:.1f} s; history and best params "
+            f"{'bitwise equal to' if exact else 'within the gate of'} the "
+            f"uninterrupted fit")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def bucket_batches(trainer, parts) -> list:
+    """Every bucket's first index batch, ``(lookback, fi, ti)``: a
+    training bucket's first step (``[D, w]``, or ``[S, D, w]`` for the
+    ensemble) and an eval bucket's first month chunk (``[C, w]``, tiled
+    over the seeds for the ensemble)."""
+    out = [(lb, fi[0], ti[0]) for lb, (fi, ti, _) in parts]
+    ensemble = hasattr(trainer, "n_local")
+    C = trainer.cfg.data.dates_per_batch
+    for (lb, _), b, _ in trainer.val_sampler.bucketed_cross_sections():
+        fi = torch_from(b.firm_idx[:C], trainer.device)
+        ti = torch_from(b.time_idx[:C], trainer.device)
+        if ensemble:
+            # As many seeds as one chunk of the sweep runs at this width.
+            seeds = trainer._seed_chunk(fi.numel())
+            fi = fi.expand(seeds, *fi.shape).contiguous()
+            ti = ti.expand(seeds, *ti.shape).contiguous()
+        out.append((lb, fi, ti))
+    return out
+
+
+def torch_from(a, device):
+    import torch
+
+    return torch.from_numpy(a).to(device)
+
+
+def bucket_kernels(torch, label: str, trainer, batches, where: str) -> None:
+    """Rows 3 and 4 and the gather at a bucket's shape: of ``batches``
+    (:func:`bucket_batches`), the ``where`` ("smallest" or "largest" by
+    lookback × width) one's layer-0 input through the model's own
+    weights, each one counted launch, against the plain versions (the
+    gather exactly, the forward at the gate, the backward's gradients
+    scaled as the kernel checks hold them; three seeds of a seed grid)."""
+    from lfm_quant_tpu_torch.data.windows import gather_windows_packed
+    from lfm_quant_tpu_torch.models.heads import dense_apply
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+    from lfm_quant_tpu_torch.ops.gather import gather_windows
+
+    lb, fi, ti = (min if where == "smallest" else max)(
+        batches, key=lambda p: (p[0] * p[1].shape[-1], p[0]))
+    fi, ti = fi.contiguous(), ti.contiguous()
+    xm, fp = trainer.dev["xm"], trainer.fp
+    _build.reset_launch_counts()
+    x, m = gather_windows(xm, fi, ti, lb, fp=fp)
+    if _build.launch_counts()["window_gather"] != 1:
+        fail(f"{label} {where} bucket: the gather did not launch once")
+    seeded = fi.dim() == 3
+    flat = (fi.reshape(-1, fi.shape[-1]), ti.reshape(-1))
+    xr, mr = gather_windows_packed(xm, *flat, lb, fp=fp)
+    if not (torch.equal(x.reshape(xr.shape), xr)
+            and torch.equal(m.reshape(mr.shape), mr)):
+        fail(f"{label} {where} bucket: the gather differs")
+    model = trainer.model
+    cd = model.dtype
+    lead = (fi.shape[0],) if seeded else ()
+    B = fi.shape[-2] * fi.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(lb)
+    # The first seeds' weights (all of them for a training batch).
+    own = (lambda t: t[:fi.shape[0]].detach()) if seeded else (
+        lambda t: t.detach())
+    with torch.no_grad():
+        hin = dense_apply(x.reshape(*lead, B, lb, -1),
+                          own(model.embed.kernel), own(model.embed.bias), cd)
+        mm = m.reshape(*lead, B, lb)
+        wx = own(model.xproj[0].kernel).to(cd)
+        bb = own(model.xproj[0].bias).to(cd)
+        wh = own(model.h_proj[0]).to(cd)
+        _build.reset_launch_counts()
+        h, c = R._fused_states("lstm", hin, wx, bb, wh, mm, 1.0, True)
+        dh = (0.1 * torch.randn(h.shape, generator=gen,
+                                device="cuda")).to(cd)
+        got = R.rnn_scan_fused_bwd("lstm", hin, wx, bb, wh, mm, h, c, dh)
+        counts = _build.launch_counts()
+    if (counts["rnn_fused_fwd_mma_lstm"], counts["rnn_fused_bwd_mma_lstm"]
+            ) != (1, 1):
+        fail(f"{label} {where} bucket: launches {counts}")
+    worst = grad = 0.0
+    S = fi.shape[0]
+    for s in ((0, S // 2, S - 1) if seeded else (None,)):
+        pick = (lambda t: t[s]) if seeded else (lambda t: t)
+        want_h, want_c = R.rnn_scan_states(
+            "lstm", pick(hin).float() @ pick(wx).float() + pick(bb).float(),
+            pick(wh), pick(mm), 1.0, True)
+        for g, w in ((pick(h), want_h), (pick(c), want_c)):
+            err, excess = worst_excess(g, w, BF16_TOL, BF16_TOL)
+            if excess > 0 or not torch.isfinite(g).all():
+                fail(f"{label} {where} bucket: fused fwd err {err}")
+            worst = max(worst, err)
+        want = R.rnn_scan_fused_bwd_reference(
+            "lstm", *(pick(t) for t in (hin, wx, bb, wh, mm, h, c, dh)))
+        grad = max(grad, grads_close(
+            f"{label} {where} bucket fused bwd", [pick(t) for t in got],
+            want, cd, MMA_WGRAD_TOL))
+    log(f"{label} {where} bucket (lookback {lb}, width {fi.shape[-1]}"
+        f"{f', {fi.shape[0]} seeds' if seeded else ''}): the gather exact, "
+        f"row 3 within {worst:.4g}, row 4 within {grad:.4g} (scaled) of "
+        "the plain versions, one launch each")
+    torch.cuda.empty_cache()
+
+
+def buckets_phase(torch, cfg2, cfg5, totals: dict, seed_launches: dict,
+                  pipe: dict, cache: dict) -> None:
+    """Phase 21: ``LFM_BUCKETS=1``. c2 and c5 for one epoch each on the
+    bucket ladder (c2's epoch and predict timed in turns against the max
+    shape's); rows 3 and 4 and the gather at the smallest and the largest
+    bucket (one seed for c2, the seed grid for c5); the bucketed predict
+    against the max-shape predict within the gate; the padded cells
+    (``bucket_cells_*``)."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+    from lfm_quant_tpu_torch.train.loop import Trainer
+    from lfm_quant_tpu_torch.utils import telemetry
+
+    prev = os.environ.get("LFM_BUCKETS")
+    try:
+        for label, cfg, cls, launches in (
+                ("c2", cfg2, Trainer, totals),
+                ("c5", cfg5, EnsembleTrainer, seed_launches)):
+            splits = splits_of(cfg, cache)
+            # c2 in turns (max shape, bucketed, bucketed, max shape); c5
+            # bucketed once (its max-shape epoch: phases 6 and 20).
+            turns = (0, 1, 1, 0) if label == "c2" else (1,)
+            walls = {0: [], 1: []}
+            for k, on in enumerate(turns):
+                os.environ["LFM_BUCKETS"] = str(on)
+                trainer = cls(one_epoch(cfg), splits, device="cuda")
+                snap = telemetry.COUNTERS.snapshot()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                summary, counts = counted(
+                    f"{label} {'bucketed' if on else 'max-shape'} epoch",
+                    TRAIN_KERNELS, trainer.fit, must_not=CUDA_CORE)
+                walls[on].append(time.perf_counter() - t0)
+                for key, n in counts.items():
+                    launches[key] += n
+                if on and not np.isfinite(summary["history"][0]["val_ic"]):
+                    fail(f"{label} bucketed epoch: {summary['history']}")
+                if on and len(walls[1]) == 1:
+                    d = telemetry.COUNTERS.delta(snap)
+                    geo = (trainer.samplers[0] if label == "c5"
+                           else trainer.train_sampler).bucket_geometry()
+                    summ = geo.summary(cfg.data.dates_per_batch)
+                    bucketed, cells = trainer, (d, summ, summary)
+                else:
+                    del trainer
+            trainer = bucketed
+            d, summ, summary = cells
+            log(f"{label} buckets: train "
+                f"{dict((f'{k[0]}x{k[1]}', int(v.size)) for k, v in geo.train_buckets.items())}"
+                f" dates, eval "
+                f"{dict((f'{k[0]}x{k[1]}', int(v.size)) for k, v in geo.eval_buckets.items())}"
+                f" months; {summary['steps']} steps over "
+                f"{d['bucket_dispatches']} buckets; train cells dispatched / "
+                f"max shape "
+                f"{d['bucket_cells_dispatched'] / d['bucket_cells_max_shape']:.4f}"
+                f", real / dispatched "
+                f"{d['bucket_cells_real'] / d['bucket_cells_dispatched']:.4f};"
+                f" eval cells "
+                f"{summ['eval_cells_bucketed'] / summ['eval_cells_max_shape']:.4f}"
+                f" of the max shape's; one epoch (host clock, the sweep "
+                f"included) bucketed {', '.join(f'{w:.3f}' for w in walls[1])}"
+                f" s, max shape {', '.join(f'{w:.3f}' for w in walls[0]) or 'phases 6 and 20'}"
+                f"{' s' if walls[0] else ''}")
+            parts, _ = (trainer._build_bucketed_epoch(0) if label == "c5"
+                        else trainer._bucketed_build(0))
+            batches = bucket_batches(trainer, parts)
+            for where in ("smallest", "largest"):
+                bucket_kernels(torch, label, trainer, batches, where)
+            del parts, batches
+            # The bucketed predict against the max-shape one, in turns.
+            flag = "_bucketed" if label == "c5" else "_bucketed_eval"
+            ms = {True: [], False: []}
+            for k, on in enumerate((True, False) * (2 if label == "c2"
+                                                    else 1)):
+                setattr(trainer, flag, on)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if k == 0:
+                    (fc, valid), counts = counted(
+                        f"{label} bucketed predict",
+                        ("window_gather", "rnn_fused_fwd_mma_lstm"),
+                        lambda: trainer.predict("test"), must_not=CUDA_CORE)
+                    totals["window_gather"] += counts["window_gather"]
+                    launches["rnn_fused_fwd_mma_lstm"] += counts[
+                        "rnn_fused_fwd_mma_lstm"]
+                elif k == 1:
+                    want, want_valid = trainer.predict("test")
+                else:
+                    trainer.predict("test")
+                ms[on].append(1e3 * (time.perf_counter() - t0))
+            if not np.array_equal(valid, want_valid):
+                fail(f"{label} bucketed predict: valid cells differ")
+            err = close_to(f"{label} bucketed predict", fc[..., valid],
+                           want[..., valid])
+            log(f"{label} bucketed predict: "
+                f"{', '.join(f'{x:.1f}' for x in ms[True])} ms against the "
+                f"max shape's {', '.join(f'{x:.1f}' for x in ms[False])} ms "
+                f"(host clock, the host scatter included), forecasts within "
+                f"{err:.4g}{' (bitwise)' if np.array_equal(fc, want) else ''}")
+            del trainer, bucketed, fc, want
+            torch.cuda.empty_cache()
+    finally:
+        if prev is None:
+            os.environ.pop("LFM_BUCKETS", None)
+        else:
+            os.environ["LFM_BUCKETS"] = prev
+
+
+def native_phase(torch, cfg2, cfg5, totals: dict, cache: dict) -> None:
+    """Phase 22: the native sampler. c5's sampler geometry (64 members'
+    samplers over the 8000 x 660 panel): one epoch's host sampling on the
+    Python and the native engine, and the structure checks of the JAX
+    ``tests/test_native.py:168-200`` on the native epoch; then c2 for one
+    epoch with ``sampler_engine="native"``."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch import native
+    from lfm_quant_tpu_torch.data.windows import DateBatchSampler
+    from lfm_quant_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("the native sampler did not build (g++)")
+    log(f"native sampler built and loaded in {time.perf_counter() - t0:.2f} "
+        f"s ({native.library_path().name})")
+    splits = splits_of(cfg5, cache)
+    d = cfg5.data
+    ms = {}
+    samplers = [DateBatchSampler(
+        splits.panel, d.window, d.dates_per_batch, d.firms_per_date,
+        seed=cfg5.seed + s, min_valid_months=d.min_valid_months,
+        date_range=splits.train_range) for s in range(cfg5.n_seeds)]
+    for engine in ("python", "native", "python", "native"):
+        for s in samplers:  # the members' samplers, one engine or the other
+            s.engine, s._native = engine, None
+        t0 = time.perf_counter()
+        epochs = [s.stacked_epoch(0) for s in samplers]
+        ms.setdefault(engine, []).append(1e3 * (time.perf_counter() - t0))
+    nat = DateBatchSampler(splits.panel, d.window, d.dates_per_batch,
+                           d.firms_per_date, seed=cfg5.seed,
+                           min_valid_months=d.min_valid_months,
+                           date_range=splits.train_range, engine="native")
+    py = DateBatchSampler(splits.panel, d.window, d.dates_per_batch,
+                          d.firms_per_date, seed=cfg5.seed,
+                          min_valid_months=d.min_valid_months,
+                          date_range=splits.train_range, engine="python")
+    b_nat, b_py = nat.stacked_epoch(0), py.stacked_epoch(0)
+    dates = b_nat.time_idx.ravel()
+    if nat.batches_per_epoch() != py.batches_per_epoch() or \
+            b_nat.firm_idx.shape != b_py.firm_idx.shape or \
+            np.unique(dates).size != dates.size or \
+            not np.isin(dates, nat._dates).all():
+        fail("native epoch: other shapes than the Python engine's, or a "
+             "date drawn twice or outside the training dates")
+    K, D, Bf = b_nat.firm_idx.shape
+    for k in range(K):
+        for j in range(D):
+            t = int(b_nat.time_idx[k, j])
+            pool = nat._firms_by_date[t]
+            fi, w = b_nat.firm_idx[k, j], b_nat.weight[k, j]
+            real = fi[w > 0]
+            if not np.isin(fi, pool).all() or \
+                    np.unique(real).size != real.size or \
+                    (w > 0).sum() != min(pool.size, Bf):
+                fail(f"native epoch: batch {k} date {t} breaks the "
+                     "sampler's contract")
+    if not np.array_equal(nat.stacked_epoch(0).firm_idx, b_nat.firm_idx):
+        fail("native epoch: not deterministic")
+    log(f"c5 sampler geometry ({cfg5.n_seeds} members, {K} x [{D}, {Bf}] "
+        f"an epoch): one epoch's host sampling "
+        f"{', '.join(f'{x:.1f}' for x in ms['python'])} ms on the Python "
+        f"engine, {', '.join(f'{x:.1f}' for x in ms['native'])} ms on the "
+        f"native one; the native epoch holds the structure checks")
+    del epochs, samplers
+    splits2 = splits_of(cfg2, cache)
+    cfg = one_epoch(cfg2, data=dataclasses.replace(
+        cfg2.data, sampler_engine="native"))
+    trainer = Trainer(cfg, splits2, device="cuda")
+    if not trainer.train_sampler._use_native():
+        fail("c2 with sampler_engine='native' did not take the native "
+             "sampler")
+    t0 = time.perf_counter()
+    summary, counts = counted("c2 with the native sampler", TRAIN_KERNELS,
+                              trainer.fit, must_not=CUDA_CORE)
+    for k, n in counts.items():
+        totals[k] += n
+    rec = summary["history"][0]
+    if not np.isfinite(rec["val_ic"]):
+        fail(f"c2 native epoch: {rec}")
+    log(f"c2 with the native sampler: one epoch in "
+        f"{time.perf_counter() - t0:.2f} s, train_loss "
+        f"{rec['train_loss']:.6f} val_ic {rec['val_ic']:.6f}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lfm_quant_tpu_torch")):
         fail("lfm_quant_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -4260,9 +5113,22 @@ def main() -> int:
     # ---- 18. the serving stack behind the HTTP front door -------------
     stack = serving_stack_phase(torch, totals, panels)
     print(json.dumps({"serving_stack": stack}), flush=True)
+
+    # ---- 19. the heteroscedastic forward -------------------------------
+    variance_phase(torch, cfg2, cfg5, totals, seed_launches, panels)
+
+    # ---- 20. the async pipeline and preemption -------------------------
+    pipe = pipeline_phase(torch, cfg2, cfg5, totals, seed_launches, one5,
+                          panels)
+
+    # ---- 21. training-side geometry buckets ----------------------------
+    buckets_phase(torch, cfg2, cfg5, totals, seed_launches, pipe, panels)
+
+    # ---- 22. the native sampler ----------------------------------------
+    native_phase(torch, cfg2, cfg5, totals, panels)
     del panels
 
-    # ---- 19. kernels line -----------------------------------------------
+    # ---- 23. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -4288,7 +5154,7 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 20. result -----------------------------------------------------
+    # ---- 24. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

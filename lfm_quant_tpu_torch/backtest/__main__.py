@@ -14,8 +14,10 @@ on the card (``backtest/torch_engine.py``); ``--device cpu`` runs them on
 the CPU. With no card and no ``--device cpu`` it raises before any work.
 ``--mc-samples K`` scores a single model with dropout by K MC-dropout
 samples, aggregated like an ensemble's seeds (``--mode``); ``--mode
-mean_minus_total_std`` needs the heteroscedastic variance forward, which
-is not ported yet (ROADMAP.md Queue A item 4), and raises.
+mean_minus_total_std`` scores a heteroscedastic run (``loss="nll"``) by
+its mean less λ times its total predictive std (the seeds' spread and
+the mean aleatoric variance), from the run dir's ``predict(
+return_variance=True)`` or a stitched file's ``variance``.
 """
 
 from __future__ import annotations
@@ -83,11 +85,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.split is not None:
             ap.error("--split does not apply to --forecast-npz: the "
                      "simulated months are fixed by the stitched file")
-        if args.mode == "mean_minus_total_std":
-            raise NotImplementedError(
-                "--mode mean_minus_total_std needs the heteroscedastic "
-                "variance forward, which is not ported yet (ROADMAP.md "
-                "Queue A item 4)")
         path = args.forecast_npz
         if os.path.isdir(path):
             path = os.path.join(path, "walkforward.npz")
@@ -96,7 +93,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         data = np.load(path)
         forecast, fc_valid = data["forecast"], data["valid"]
         panel = resolve_panel(cfg.data)
-        if forecast.ndim == 3:  # a stitched ensemble
+        if args.mode == "mean_minus_total_std":
+            if "variance" not in data:
+                ap.error("--mode mean_minus_total_std needs stitched "
+                         "aleatoric variances; this file has none (train "
+                         "the walk-forward with a heteroscedastic config — "
+                         "loss='nll')")
+            avar = data["variance"]
+            if forecast.ndim == 2:  # a single heteroscedastic model
+                forecast, avar = forecast[None], avar[None]
+            scores, fc_valid, _ = aggregate_scores_device(
+                forecast, fc_valid, [args.mode], args.risk_lambda,
+                aleatoric_var=avar, device=device)
+            forecast = scores[0]
+        elif forecast.ndim == 3:  # a stitched ensemble
             scores, fc_valid, _ = aggregate_scores_device(
                 forecast, fc_valid, [args.mode], args.risk_lambda,
                 device=device)

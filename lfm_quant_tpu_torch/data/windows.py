@@ -1,9 +1,11 @@
 """Windowing: anchor eligibility, the date-batch sampler, the device panel
 and the plain window gather.
 
-The port of ``lfm_quant_tpu/data/windows.py`` (the Python sampler engine,
-the serving pools and the eval sweep; not the geometry buckets). The
-panel lives on the device as one packed tensor ``xm [N, T, F+1]``
+The port of ``lfm_quant_tpu/data/windows.py``: the sampler with its
+Python and native (C++, ``native/``) engines, the serving pools, the eval
+sweep and the geometry buckets (``LFM_BUCKETS``: ``bucket_geometry``,
+``bucketed_epoch``, ``bucketed_cross_sections``, copied from the JAX
+package). The panel lives on the device as one packed tensor ``xm [N, T, F+1]``
 (features with validity appended as the last column) in the compute
 dtype; a batch is an index pair ``firm_idx [D, Bf]`` / ``time_idx [D]``
 that the window gather turns into ``(x [D, Bf, W, F], m [D, Bf, W])``.
@@ -15,12 +17,17 @@ gather; those are Mosaic constraints and the port stores ``xm`` unpadded.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional, Union
+import logging
+from collections import OrderedDict
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from lfm_quant_tpu_torch.buckets import TrainBucket, capped_width, lookback_rungs
 from lfm_quant_tpu_torch.data.panel import Panel
+
+log = logging.getLogger(__name__)
 
 #: Full-universe widths from ``2 * FIRM_CHUNK`` up round to this multiple.
 FIRM_CHUNK = 512
@@ -62,6 +69,57 @@ def anchor_index(
     return elig if not require_target else elig & panel.target_valid
 
 
+@dataclasses.dataclass
+class BucketGeometry:
+    """A sampler's (lookback-rows × cross-section-width) bucket ladder
+    (``LFM_BUCKETS``): the epoch-invariant assignment of
+    training dates and eval months to shape buckets, so every batch a
+    bucketed epoch can ever emit has a shape from a finite, known
+    ladder — each rung compiles exactly once (the compile-once totality
+    argument, same as the serving ladder's warmup).
+
+    Buckets are keyed ``(lookback_rows, width)``; the cap bucket
+    ``(window, width_cap)`` reproduces the legacy max-shape geometry
+    bit-for-bit. ``train_buckets`` maps bucket → training-date array
+    (small buckets folded into a containing bucket so every bucket
+    fills whole [D]-date batches); ``eval_buckets`` maps bucket →
+    POSITIONS into the stacked eval-month order (what
+    ``stacked_cross_sections`` would emit), so per-month outputs
+    reassemble exactly."""
+
+    window: int
+    width_cap: int        # the static training Bf widths are capped at
+    eval_width_cap: int   # the panel-wide eval pad width (_eval_bf)
+    train_buckets: "OrderedDict[TrainBucket, np.ndarray]"
+    eval_buckets: "OrderedDict[TrainBucket, np.ndarray]"
+
+    def summary(self, dates_per_batch: int) -> Dict[str, object]:
+        """JSON-able geometry digest (telemetry instant / bench row):
+        per-epoch dispatched firm-month cells on the bucket ladder vs
+        the same batches padded to max shape, and the eval-sweep twin.
+        'Cells' are firm-month positions inside a dispatch — the FLOP
+        unit every padding cost here scales with."""
+        tr_disp = tr_max = 0
+        for (lb, w), dates in self.train_buckets.items():
+            nb = dates.size // dates_per_batch
+            tr_disp += nb * dates_per_batch * w * lb
+            tr_max += nb * dates_per_batch * self.width_cap * self.window
+        ev_disp = ev_max = 0
+        for (lb, w), pos in self.eval_buckets.items():
+            ev_disp += pos.size * w * lb
+            ev_max += pos.size * self.eval_width_cap * self.window
+        return {
+            "ladder": sorted([list(k) for k in
+                              set(self.train_buckets) | set(self.eval_buckets)]),
+            "n_train_buckets": len(self.train_buckets),
+            "n_eval_buckets": len(self.eval_buckets),
+            "train_cells_bucketed": int(tr_disp),
+            "train_cells_max_shape": int(tr_max),
+            "eval_cells_bucketed": int(ev_disp),
+            "eval_cells_max_shape": int(ev_max),
+        }
+
+
 class DateBatchSampler:
     """Seed-keyed sampler over per-month eligible pools, emitting
     ``WindowIndex`` batches in the [D, Bf] layout: the JAX package's
@@ -79,9 +137,12 @@ class DateBatchSampler:
     sweep read the pools over every month with an eligible anchor
     (``months_with_anchors``, ``cross_section``, ``full_cross_sections``).
 
-    ``engine``: "python" or "auto" (which takes the Python engine, as the
-    JAX package does when its native library is not built); "native" is
-    not ported (ROADMAP.md Queue A).
+    ``engine``: "python" (numpy draws, the JAX package's byte-equal
+    stream), "native" (the C++ sampler of ``native/panel_native.cpp``:
+    its own deterministic stream keyed by (seed, epoch), the JAX native
+    engine's byte for byte; raises when the library cannot be built) or
+    "auto" (native when ``g++`` builds it, else Python; the choice is
+    logged).
     """
 
     def __init__(self, panel: Panel, window: int, dates_per_batch: int,
@@ -98,14 +159,14 @@ class DateBatchSampler:
                 f"{firms_per_date}")
         self.firms_per_date = firms_per_date
         self.seed = seed
-        if engine == "native":
-            raise NotImplementedError(
-                "sampler_engine='native' (the C++ sampler) is not ported: "
-                "ROADMAP.md Queue A; use 'python' or 'auto'")
-        if engine not in ("python", "auto"):
+        if engine not in ("python", "native", "auto"):
             raise ValueError(
                 f"engine must be python|native|auto, got {engine!r}")
         self.engine = engine
+        # For the lazy geometry-bucket analysis (bucket_geometry): the
+        # lookback-rung test reads validity counts at each rung.
+        self._valid = panel.valid
+        self._bucket_geo: Optional[BucketGeometry] = None
         eligible = anchor_index(panel, window, min_valid_months,
                                 require_target=require_target)
         # Panel-wide max cross-section, before the date_range bound: the
@@ -142,7 +203,63 @@ class DateBatchSampler:
             mx = max(self._firms_by_date[int(t)].size for t in self._dates)
             mult = FIRM_CHUNK if mx >= 2 * FIRM_CHUNK else 8
             self.firms_per_date = -(-mx // mult) * mult
+        # CSR pools over the TRAINING dates, for the native sampler.
+        pools = [self._firms_by_date[int(t)] for t in self._dates]
+        self._pool_offs = np.zeros(len(pools) + 1, np.int64)
+        np.cumsum([p.size for p in pools], out=self._pool_offs[1:])
+        self._pool_flat = (np.concatenate(pools) if pools
+                           else np.zeros(0, np.int32))
+        self._native: Optional[bool] = None
         self._epoch = 0
+
+    def _use_native(self) -> bool:
+        """Whether this sampler draws with the C++ engine: "native"
+        raises when the library does not build, "auto" takes it when it
+        does (resolved once, and logged)."""
+        if self.engine == "python":
+            return False
+        if self._native is None:
+            from lfm_quant_tpu_torch import native
+
+            ok = native.available()
+            if not ok and self.engine == "native":
+                raise RuntimeError(
+                    "engine='native' but the native library is "
+                    "unavailable (g++ could not build "
+                    "lfm_quant_tpu_torch/native/panel_native.cpp)")
+            log.info("DateBatchSampler engine=%r: the %s sampler",
+                     self.engine, "native" if ok else "Python")
+            self._native = ok
+        return self._native
+
+    def _native_epoch(self, epoch: int) -> WindowIndex:
+        """One epoch as stacked ``[K, D, Bf]`` arrays from the C++
+        sampler (``sample_epoch`` in ``native/panel_native.cpp``)."""
+        import ctypes
+
+        from lfm_quant_tpu_torch import native
+
+        lib = native.get_lib()
+        D, bf = self.dates_per_batch, self.firms_per_date
+        K = self.batches_per_epoch()
+        fi = np.empty((K, D, bf), np.int32)
+        ti = np.empty((K, D), np.int32)
+        w = np.empty((K, D, bf), np.float32)
+
+        def p(a, ty):
+            return a.ctypes.data_as(ctypes.POINTER(ty))
+
+        got = lib.sample_epoch(
+            p(self._dates, ctypes.c_int32), self._dates.size,
+            p(self._pool_flat, ctypes.c_int32),
+            p(self._pool_offs, ctypes.c_int64),
+            self.seed, epoch, D, bf,
+            p(fi, ctypes.c_int32), p(ti, ctypes.c_int32),
+            p(w, ctypes.c_float))
+        if got != K:
+            raise RuntimeError(f"native sample_epoch gave {got} batches, "
+                               f"expected {K}")
+        return WindowIndex(firm_idx=fi, time_idx=ti, weight=w)
 
     @property
     def n_eligible_dates(self) -> int:
@@ -156,6 +273,13 @@ class DateBatchSampler:
         if epoch is None:
             epoch = self._epoch
             self._epoch += 1
+        if self._use_native():
+            b = self._native_epoch(epoch)
+            for k in range(b.firm_idx.shape[0]):
+                yield WindowIndex(firm_idx=b.firm_idx[k],
+                                  time_idx=b.time_idx[k],
+                                  weight=b.weight[k])
+            return
         rng = np.random.default_rng(
             np.random.SeedSequence([self.seed, epoch, 0xF1B]))
         order = rng.permutation(self._dates)
@@ -183,6 +307,8 @@ class DateBatchSampler:
         if epoch is None:
             epoch = self._epoch
             self._epoch += 1
+        if self._use_native():
+            return self._native_epoch(epoch)
         batches = list(self.epoch(epoch))
         return WindowIndex(
             firm_idx=np.stack([b.firm_idx for b in batches]),
@@ -229,6 +355,181 @@ class DateBatchSampler:
                 time_idx=np.asarray([t], dtype=np.int32),
                 weight=weight,
             )
+
+
+    # ---- geometry buckets (LFM_BUCKETS) --------------------------------
+
+    def _safe_lookback_rung(self, months: np.ndarray) -> Dict[int, int]:
+        """Per-month smallest SAFE lookback rung: rung r is safe for
+        month t iff NO firm in t's eligible pool has a valid month in
+        the window gap [t-W+1, t-r] — then the r-step gather sees
+        exactly the valid history the full W-step gather sees, and the
+        models hold state through masked steps, so outputs are
+        bit-identical (the parity contract; keying on valid-month COUNT
+        alone would truncate gapped histories and break it)."""
+        rungs = lookback_rungs(self.window)
+        out = {int(t): self.window for t in months}
+        if len(rungs) == 1:
+            return out
+        full = rolling_valid_count(self._valid, self.window)
+        for r in rungs[:-1]:
+            # Valid months in [t-W+1, t-r]: anything the r-rung window
+            # would drop.
+            beyond = full - rolling_valid_count(self._valid, r)
+            for t in months:
+                t = int(t)
+                if out[t] < self.window:
+                    continue  # already found a smaller safe rung
+                pool = self._firms_by_date[t]
+                if pool.size and not beyond[pool, t].any():
+                    out[t] = r
+        return out
+
+    def bucket_geometry(self) -> BucketGeometry:
+        """The sampler's epoch-invariant bucket ladder (memoized).
+
+        Training dates bucket on ``(safe lookback rung, capped_width of
+        the date's pool under the static Bf)``; buckets too thin to
+        fill one [D]-date batch fold into the CHEAPEST containing
+        bucket (>= in both dims, minimal lookback × width cells; the
+        ``(window, Bf)`` cap bucket always contains) — padding up is
+        always legal, so folding never affects correctness, only
+        occupancy. Eval months bucket the
+        same way under the panel-wide ``_eval_bf`` cap, with no folding
+        (each month is one batch row)."""
+        if self._bucket_geo is not None:
+            return self._bucket_geo
+        D = self.dates_per_batch
+        cap = self.firms_per_date
+        months = np.unique(np.concatenate([self._dates, self._all_dates]))
+        rung = self._safe_lookback_rung(months)
+
+        train: Dict[TrainBucket, List[int]] = {}
+        for t in self._dates:
+            t = int(t)
+            key = (rung[t], capped_width(self._firms_by_date[t].size, cap))
+            train.setdefault(key, []).append(t)
+        cap_key = (self.window, cap)
+        while True:
+            small = sorted(k for k, v in train.items() if len(v) < D)
+            if not small:
+                break
+            if small == [cap_key]:
+                if len(train) == 1:
+                    break  # degenerate tiny panel: one thin cap bucket
+                # A thin CAP residue has no container to fold into —
+                # fold another bucket INTO it instead (the cap contains
+                # every bucket), so no date is silently dropped forever.
+                k = min(c for c in train if c != cap_key)
+                train[cap_key].extend(train.pop(k))
+                continue
+            k = next(c for c in small if c != cap_key)
+            cands = [c for c in train
+                     if c != k and c[0] >= k[0] and c[1] >= k[1]]
+            # Cheapest container by per-date cell cost (lookback ×
+            # width), not tuple order — folding is a padding tax and
+            # (16, 8) at 128 cells beats (8, 64) at 512. Lexicographic
+            # tie-break keeps the assignment deterministic.
+            dest = (min(cands, key=lambda c: (c[0] * c[1], c))
+                    if cands else cap_key)
+            train.setdefault(dest, []).extend(train.pop(k))
+
+        evals: Dict[TrainBucket, List[int]] = {}
+        for pos, t in enumerate(self._all_dates):
+            t = int(t)
+            key = (rung[t],
+                   capped_width(self._firms_by_date[t].size, self._eval_bf))
+            evals.setdefault(key, []).append(pos)
+
+        self._bucket_geo = BucketGeometry(
+            window=self.window, width_cap=cap, eval_width_cap=self._eval_bf,
+            train_buckets=OrderedDict(
+                (k, np.asarray(sorted(v), np.int32))
+                for k, v in sorted(train.items())),
+            eval_buckets=OrderedDict(
+                (k, np.asarray(v, np.int64))
+                for k, v in sorted(evals.items())),
+        )
+        return self._bucket_geo
+
+    def bucketed_batches_per_epoch(self) -> int:
+        """Steps per bucketed epoch: Σ over buckets of whole [D]-date
+        batches. May differ from :meth:`batches_per_epoch` (per-bucket
+        flooring drops up to D-1 dates per bucket instead of per
+        epoch) — the trainer threads THIS count into the LR-schedule
+        horizon and the program key, so the schedule always matches the
+        steps actually taken."""
+        geo = self.bucket_geometry()
+        return sum(d.size // self.dates_per_batch
+                   for d in geo.train_buckets.values())
+
+    def bucketed_epoch(self, epoch: Optional[int] = None
+                       ) -> List[Tuple[TrainBucket, WindowIndex]]:
+        """One training epoch on the bucket ladder: per bucket, a
+        stacked ``[K_b, D, width]`` index batch whose dates are the
+        bucket's own (re-shuffled per epoch, deterministic in
+        (seed, epoch, bucket)). Shapes are EPOCH-INVARIANT — bucket
+        membership and K_b never change — so warm epochs re-dispatch
+        the same compiled programs (zero jit traces, the reuse-lane
+        guard). A bucketed epoch is its own deterministic stream, not a
+        regrouping of :meth:`epoch`'s batches: bucketing changes batch
+        COMPOSITION by design (Khomenko-style length grouping); the
+        parity contract is per-batch vs max-shape padding, not
+        per-epoch vs the unbucketed order."""
+        geo = self.bucket_geometry()
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        D = self.dates_per_batch
+        out: List[Tuple[TrainBucket, WindowIndex]] = []
+        for (lb, w), dates in geo.train_buckets.items():
+            nb = dates.size // D
+            if nb == 0:
+                continue  # the cap bucket absorbed a thin residue
+            rng = np.random.default_rng(np.random.SeedSequence(
+                [self.seed, epoch, 0xB5C, lb, w]))
+            order = rng.permutation(dates)
+            fi = np.empty((nb, D, w), np.int32)
+            ti = np.empty((nb, D), np.int32)
+            wt = np.ones((nb, D, w), np.float32)
+            for b in range(nb):
+                dsel = order[b * D:(b + 1) * D]
+                ti[b] = dsel
+                for j, t in enumerate(dsel):
+                    pool = self._firms_by_date[int(t)]
+                    if pool.size >= w:
+                        fi[b, j] = rng.choice(pool, size=w, replace=False)
+                    else:
+                        fi[b, j, :pool.size] = rng.permutation(pool)
+                        fi[b, j, pool.size:] = pool[rng.integers(
+                            0, pool.size, size=w - pool.size)]
+                        wt[b, j, pool.size:] = 0.0
+            out.append(((lb, w), WindowIndex(fi, ti, wt)))
+        return out
+
+    def bucketed_cross_sections(
+            self) -> List[Tuple[TrainBucket, WindowIndex, np.ndarray]]:
+        """The eval sweep on the bucket ladder: per bucket, an
+        ``[M_b, width]`` batch of its months' full cross-sections (same
+        pool layout and pad convention as :meth:`full_cross_sections`,
+        just narrower) plus the months' POSITIONS in the
+        :meth:`stacked_cross_sections` order — callers scatter
+        per-month outputs back through them, so downstream aggregation
+        sees exactly the month order the max-shape sweep produces."""
+        geo = self.bucket_geometry()
+        out: List[Tuple[TrainBucket, WindowIndex, np.ndarray]] = []
+        for (lb, w), pos in geo.eval_buckets.items():
+            months = self._all_dates[pos]
+            fi = np.empty((months.size, w), np.int32)
+            wt = np.zeros((months.size, w), np.float32)
+            for j, t in enumerate(months):
+                pool = self._firms_by_date[int(t)]
+                fi[j, :pool.size] = pool
+                fi[j, pool.size:] = pool[-1] if pool.size else 0
+                wt[j, :pool.size] = 1.0
+            out.append(((lb, w),
+                        WindowIndex(fi, months.astype(np.int32), wt), pos))
+        return out
 
 
 def resolve_gather_impl(impl: str) -> str:

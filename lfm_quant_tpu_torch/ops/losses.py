@@ -116,8 +116,7 @@ def make_loss_parts(name: str):
             pr = soft_rank(out, w, temperature)
             tr = soft_rank(y, w, temperature=1e-3)
             ic = _center_corr(pr, tr, w.to(out.dtype))
-            return (-ic).sum(), torch.tensor(float(ic.numel()),
-                                             dtype=ic.dtype,
-                                             device=ic.device)
+            return (-ic).sum(), torch.full((), float(ic.numel()),
+                                           dtype=ic.dtype, device=ic.device)
         return rank_ic_parts
     raise ValueError(f"unknown loss {name!r}; use mse|huber|rank_ic|nll")

@@ -34,8 +34,8 @@ def hard_ranks(x, w):
     nothing. Ties get distinct ranks in first-index order (a stable
     sort)."""
     x = _acc(x)
-    big = torch.tensor(torch.finfo(x.dtype).max, dtype=x.dtype,
-                       device=x.device)
+    big = torch.full((), torch.finfo(x.dtype).max, dtype=x.dtype,
+                     device=x.device)
     xs = torch.where(w > 0, x, big)
     order = torch.argsort(xs, dim=-1, stable=True)
     arange = torch.arange(x.shape[-1], dtype=x.dtype,

@@ -41,12 +41,20 @@ rest, degrading with a warning; their product must be the world. Rank 0
 writes the run directory and prints the summary.
 
 ``--walk-forward STEP_MONTHS`` retrains every STEP_MONTHS months and
-stitches the strictly out-of-sample forecasts (``train/walkforward.py``)
-into ``<out>/<name>/wf``: ``fold_<k>/`` run dirs, ``walkforward.npz`` for
+stitches the strictly out-of-sample forecasts (``train/walkforward.py``;
+with ``loss="nll"`` their aleatoric variances too) into
+``<out>/<name>/wf``: ``fold_<k>/`` run dirs, ``walkforward.npz`` for
 ``python -m lfm_quant_tpu_torch.backtest --forecast-npz``, and
 ``summary.json`` (with ``--wf-score``, the stitched panel's backtest).
 ``--wf-foldstack`` and ``--sweep-grid`` are not ported (ROADMAP.md Queue
 A item 5) and raise.
+
+The epoch loop is pipelined (``LFM_ASYNC``, ``LFM_ASYNC_CKPT``: both on
+by default; ``train/pipeline.py``); ``LFM_BUCKETS=1`` trains on the
+geometry-bucket ladder. A SIGTERM stops the run at the next epoch
+boundary with its checkpoints durable (the checkpoint waits are bounded
+by ``LFM_CKPT_WAIT_S``) and the process exits 75: re-run it with
+``--resume`` to continue with the same history.
 """
 
 from __future__ import annotations
@@ -142,17 +150,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             normalize_modes(wf_score_modes)
         except ValueError as e:
             ap.error(f"--wf-score: {e}")
-        if any(m[0] == "mean_minus_total_std" for m in
-               normalize_modes(wf_score_modes)):
-            raise NotImplementedError(
-                "--wf-score mean_minus_total_std needs the heteroscedastic "
-                "variance forward, which is not ported yet (ROADMAP.md "
-                "Queue A item 4)")
 
     import torch
 
     from lfm_quant_tpu_torch.device import resolve_device
     from lfm_quant_tpu_torch.utils import distributed as dist_utils
+
+    from lfm_quant_tpu_torch.train.preempt import Preempted, grace_scope
 
     device = resolve_device(args.device)  # no card: raise before any work
     started = dist_utils.maybe_initialize(
@@ -161,7 +165,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         if device.type == "cuda" and dist_utils.world_size() > 1:
             device = torch.device("cuda", dist_utils.local_rank())
             torch.cuda.set_device(device)
-        return _run(ap, args, device, wf_score_modes)
+        # SIGTERM grace (train/preempt.py): a clean stop at the next epoch
+        # boundary with the checkpoint lines flushed, surfaced as exit
+        # code 75 (EX_TEMPFAIL: re-run with --resume).
+        with grace_scope():
+            return _run(ap, args, device, wf_score_modes)
+    except Preempted as e:
+        if dist_utils.is_main():
+            print(json.dumps({"preempted": True, "detail": str(e),
+                              "resume_hint": "re-run with --resume"},
+                             indent=2))
+        return 75
     finally:
         if started:
             dist_utils.shutdown()
@@ -194,6 +208,10 @@ def _run(ap, args, device, wf_score_modes) -> int:
             ap.error("--wf-score mean_minus_std needs stacked forecasts "
                      "(n_seeds > 1); a single-seed sweep stitches one "
                      "model's panel, whose seed-axis std is identically 0")
+        if "mean_minus_total_std" in names and not cfg.is_heteroscedastic:
+            ap.error("--wf-score mean_minus_total_std needs stitched "
+                     "aleatoric variances — train the walk-forward with a "
+                     "heteroscedastic config (loss='nll')")
     if args.scale is not None:
         d = cfg.data
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(

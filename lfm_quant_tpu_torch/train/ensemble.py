@@ -53,8 +53,13 @@ products.
   writes the whole stacked state once, a checkpoint that one process
   loads (``load_ensemble``) and a seed-sharded run resumes from.
 
-Out of this slice (ROADMAP.md): the async epoch pipeline, geometry
-buckets and the variance forward.
+The epoch loop runs through the async pipeline (``train/pipeline.py``;
+``LFM_ASYNC``, ``LFM_ASYNC_CKPT``, SIGTERM preemption) with the JAX
+ensemble's callbacks; ``LFM_BUCKETS=1`` trains on the (lookback × width)
+bucket ladder, every member drawing its own shuffle of the shared,
+seed-invariant geometry (the JAX ``_build_bucketed_epoch``), and sweeps
+and predicts on it; ``predict(return_variance=True)`` gives the
+heteroscedastic members' ``[S, N, T]`` aleatoric variances.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from lfm_quant_tpu_torch.config import RunConfig, compute_dtype, model_kwargs
 from lfm_quant_tpu_torch.data.panel import Panel, PanelSplits
 from lfm_quant_tpu_torch.data.windows import (
     DateBatchSampler,
+    WindowIndex,
     device_panel,
     gather_targets,
     gather_windows_packed,
@@ -103,18 +109,22 @@ from lfm_quant_tpu_torch.train.loop import (
     FitHarness,
     TrainState,
     _point_forecast,
-    check_predict_options,
     check_seq,
+    count_bucket_cells,
     derive_seed,
     generator,
     graft_params,
     has_dropout,
-    predict_batch,
+    predict_sampler,
+    resolve_buckets,
+    scatter_bucketed,
     scatter_forecasts,
     seq_model,
     splits_for,
+    stage,
     sub_window,
 )
+from lfm_quant_tpu_torch.train import pipeline
 from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
 from lfm_quant_tpu_torch.utils import distributed as dist_utils
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
@@ -242,8 +252,17 @@ class EnsembleTrainer:
             date_range=splits.val_range)
         self.loss_parts = make_loss_parts(cfg.optim.loss)
         self._needs_rng = has_dropout(cfg)
-        self._steps_per_epoch = min(s.batches_per_epoch()
-                                    for s in self.samplers)
+        # The geometry is eligibility-derived, so every member's sampler
+        # has the same buckets and bucketed step count: computed once and
+        # shared.
+        self._bucketed = resolve_buckets(self.mesh)
+        if self._bucketed:
+            geo = self.samplers[0].bucket_geometry()
+            for s in self.samplers[1:]:
+                s._bucket_geo = geo
+        self._steps_per_epoch = (
+            self.samplers[0].bucketed_batches_per_epoch() if self._bucketed
+            else min(s.batches_per_epoch() for s in self.samplers))
         self.opt = make_optimizer(cfg.optim,
                                   self._steps_per_epoch * cfg.optim.epochs,
                                   per_seed=True)
@@ -300,26 +319,32 @@ class EnsembleTrainer:
         return [o.reshape((self.n_seeds,) + t.shape[1:])
                 for o, t in zip(out, tensors)]
 
-    def state_dict(self, state: TrainState) -> Dict[str, Any]:
-        """A host copy of every member's stacked state for a checkpoint:
-        in a seed-sharded group gathered from every rank (all of them call
-        it; rank 0 writes it)."""
-        cpu = (lambda t: t.detach().to("cpu", copy=True))
+    def _snapshot(self, state: TrainState) -> Dict[str, Any]:
+        """Every member's stacked state as a tree of tensors (on the
+        device, but ``step`` and ``rng``): in a seed-sharded group
+        gathered from every rank (all of them call it; rank 0 writes
+        it)."""
         o = state.opt_state
         keys = list(state.params)
         f32 = self._gather_seeds(
             [state.params[k] for k in keys] + [o.mu[k] for k in keys]
             + [o.nu[k] for k in keys])
         n = len(keys)
-        step, rng = self._gather_seeds([state.step.to(self.device),
-                                        state.rng.to(self.device)])
-        return {"params": {k: cpu(v) for k, v in zip(keys, f32[:n])},
+        step, rng = state.step, state.rng
+        if self.mesh.n_seed > 1:
+            step, rng = (t.cpu() for t in self._gather_seeds(
+                [step.to(self.device), rng.to(self.device)]))
+        return {"params": dict(zip(keys, f32[:n])),
                 "opt_state": {"count": o.count,
-                              "mu": {k: cpu(v) for k, v in
-                                     zip(keys, f32[n:2 * n])},
-                              "nu": {k: cpu(v) for k, v in
-                                     zip(keys, f32[2 * n:])}},
-                "step": cpu(step), "rng": cpu(rng)}
+                              "mu": dict(zip(keys, f32[n:2 * n])),
+                              "nu": dict(zip(keys, f32[2 * n:]))},
+                "step": step, "rng": rng}
+
+    def state_dict(self, state: TrainState) -> Dict[str, Any]:
+        """A host copy of every member's stacked state for a checkpoint
+        (:meth:`_snapshot` copied to the CPU)."""
+        return pipeline.tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                 self._snapshot(state))
 
     def load_state(self, saved: Mapping[str, Any]) -> TrainState:
         """Copy a checkpointed stacked state (every member's; this rank
@@ -375,17 +400,18 @@ class EnsembleTrainer:
 
     def _seed_parts(self, params: Mapping[str, torch.Tensor],
                     fi: torch.Tensor, ti: torch.Tensor,
-                    w: torch.Tensor, rng=None
+                    w: torch.Tensor, rng=None, window: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-seed loss parts ``(num [s], den [s])`` of an ``[s, D, Bf]``
         index batch: one gather over all its seeds (under a seq axis, of
         this seq rank's sub-window), the stacked model (dropout on under
         ``rng``, a generator per seed; the window-sharded twin under a seq
         axis), and the loss parts vmapped over the seed axis (each seed's
-        its own loss, as in JAX)."""
+        its own loss, as in JAX; ``window``: a geometry bucket's
+        lookback)."""
         y = gather_targets(self.dev["targets"], fi, ti)
         if self.train_model is None:
-            x, m = self._gather(fi, ti)
+            x, m = self._gather(fi, ti, window=window)
             out = self._apply(params, x, m, rng)
         else:
             wl, shift = sub_window(self.window, self.mesh)
@@ -410,11 +436,13 @@ class EnsembleTrainer:
     # ---- the step --------------------------------------------------------
 
     def step(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
-             w: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+             w: torch.Tensor, window: Optional[int] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One lock-step update of this rank's members on their ``[s, D,
         Bf]`` index batch (the global dates; this rank takes its block) on
-        the device. Returns the new state and ``{"loss", "grad_norm"}``,
-        each ``[s]`` on the device (no host sync)."""
+        the device (``window``: a geometry bucket's lookback). Returns the
+        new state and ``{"loss", "grad_norm"}``, each ``[s]`` on the
+        device (no host sync)."""
         self.model.train()
         keys = list(state.params)
         S = self.n_local
@@ -427,7 +455,8 @@ class EnsembleTrainer:
             sub = {k: state.params[k][sl].detach().requires_grad_(True)
                    for k in keys}
             num, den = self._seed_parts(sub, fi[sl], ti[sl], w[sl],
-                                        self.step_generators(state, sl))
+                                        self.step_generators(state, sl),
+                                        window)
             num_g, den_g = all_reduce_sum(
                 torch.stack([num.detach(), den.detach()]), self.mesh)
             loss = num / torch.clamp(den_g, min=1e-12)
@@ -454,14 +483,16 @@ class EnsembleTrainer:
 
     def _forward_chunks(self, params: Mapping[str, torch.Tensor],
                         fi: torch.Tensor, ti: torch.Tensor,
-                        impl: Optional[str] = None
+                        impl: Optional[str] = None,
+                        window: Optional[int] = None
                         ) -> Iterator[Tuple[slice, slice, Any]]:
         """The stacked forward over an ``[M, Bf]`` index batch that every
         seed shares, chunked over months by ``dates_per_batch`` (the last
         chunk padded by repeating months, as the single-model sweep does)
         and over seeds by :meth:`_seed_chunk`. The windows are gathered
-        once per month chunk. Yields ``(months of the padded batch, seeds,
-        output [seeds, C, Bf])``."""
+        once per month chunk (``window``: a geometry bucket's lookback).
+        Yields ``(months of the padded batch, seeds, output [seeds, C,
+        Bf])``."""
         M = fi.shape[0]
         C = min(self.cfg.data.dates_per_batch, M)
         pad = (-M) % C
@@ -470,7 +501,7 @@ class EnsembleTrainer:
             ti = torch.cat([ti, ti[:pad]], dim=0)
         sc = self._seed_chunk(C * fi.shape[1])
         for k in range(0, fi.shape[0], C):
-            x, m = self._gather(fi[k:k + C], ti[k:k + C], impl)
+            x, m = self._gather(fi[k:k + C], ti[k:k + C], impl, window)
             for s0 in range(0, self.n_local, sc):
                 seeds = slice(s0, min(s0 + sc, self.n_local))
                 sub = {key: p[seeds] for key, p in params.items()}
@@ -480,7 +511,7 @@ class EnsembleTrainer:
         """This rank's rows of an ``M``-month sweep (``month_block`` over
         the date and seq shards of its seed block), on the device."""
         rows, _ = month_block(M, self.cfg.data.dates_per_batch, self.mesh)
-        return rows.to(self.device)
+        return rows.to(self.device, non_blocking=True)
 
     def _gather_sweep(self, out: torch.Tensor, M: int) -> torch.Tensor:
         """This rank's ``[s, Mr, ...]`` sweep rows → every member's ``[S,
@@ -491,10 +522,12 @@ class EnsembleTrainer:
 
     @torch.inference_mode()
     def _eval_ic(self, params: Mapping[str, torch.Tensor], fi: torch.Tensor,
-                 ti: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+                 ti: torch.Tensor, w: torch.Tensor,
+                 window: Optional[int] = None) -> torch.Tensor:
         """Per-seed, per-month Spearman IC ``[S, M]`` over a stacked ``[M,
-        bf]`` val batch, on the device (the JAX vmapped ``_forward_impl``):
-        this rank's members over its block of months, gathered."""
+        bf]`` val batch, on the device (the JAX vmapped ``_forward_impl``;
+        ``window``: a geometry bucket's lookback): this rank's members
+        over its block of months, gathered."""
         self.model.eval()
         M = fi.shape[0]
         rows = self._month_rows(M)
@@ -507,7 +540,7 @@ class EnsembleTrainer:
         ic = torch.empty((self.n_local, fi_p.shape[0]), dtype=torch.float32,
                          device=fi.device)
         for months, seeds, out in self._forward_chunks(
-                params, fi, ti, self.eval_gather_impl):
+                params, fi, ti, self.eval_gather_impl, window):
             pred = _point_forecast(out)
             f, t, ww = fi_p[months], ti_p[months], w_p[months]
             y = gather_targets(self.dev["targets"], f, t)
@@ -537,27 +570,92 @@ class EnsembleTrainer:
 
     def _build_epoch(self, epoch: int):
         """One epoch for all seeds: ``[K, S, D, Bf]`` index stacks on the
-        device (K the shortest member's steps) and its firm-month count."""
+        device (K the shortest member's steps) and its firm-month count.
+        Thread-safe for an explicit epoch (the pipeline's prefetch thread
+        builds here)."""
         per_seed = [s.stacked_epoch(epoch) for s in self.samplers]
         k = min(b.firm_idx.shape[0] for b in per_seed)
         fi, ti, w = (np.stack([getattr(b, f)[:k] for b in per_seed], axis=1)
                      for f in ("firm_idx", "time_idx", "weight"))
-        fm = float(w.sum()) * self.window
-        return (tuple(torch.as_tensor(a).to(self.device)
-                      for a in (fi, ti, w)), fm)
+        return stage(self.device, fi, ti, w), float(w.sum()) * self.window
+
+    def _epoch_parts(self, epoch: int):
+        """The pipeline's epoch: ``[(lookback, (fi, ti, w))]``, one part
+        per geometry bucket (the one max-shape part without buckets), and
+        its firm-month count."""
+        if self._bucketed:
+            return self._build_bucketed_epoch(epoch)
+        arrays, fm = self._build_epoch(epoch)
+        return [(self.window, arrays)], fm
+
+    def _build_bucketed_epoch(self, epoch: int):
+        """The bucketed twin of :meth:`_build_epoch` (``LFM_BUCKETS``):
+        per (lookback × width) bucket a ``[K_b, S, D, width]`` stack from
+        the per-seed samplers. The geometry is seed-invariant, so every
+        member has the same buckets; only the shuffles differ."""
+        per_seed = [s.bucketed_epoch(epoch) for s in self.samplers]
+        keys = [k for k, _ in per_seed[0]]
+        if any([k for k, _ in ps] != keys for ps in per_seed):
+            raise RuntimeError("per-seed bucket geometry diverged")
+        parts = [((lb, w), WindowIndex(*(
+            np.stack([getattr(ps[i][1], f) for ps in per_seed], axis=1)
+            for f in ("firm_idx", "time_idx", "weight"))))
+            for i, (lb, w) in enumerate(keys)]
+        fm = count_bucket_cells(parts, self.samplers[0].firms_per_date,
+                                self.window)
+        return [(lb, stage(self.device, b.firm_idx, b.time_idx, b.weight))
+                for (lb, _), b in parts], fm
+
+    def _val_sweep(self):
+        """The epoch's per-seed validation ICs ``[S, M]`` as a callable of
+        the params, its batches hoisted onto the device once, and the
+        months' pool sizes. Under ``LFM_BUCKETS`` one sweep per bucket,
+        the ICs scattered back to the stacked month order."""
+        if not self._bucketed:
+            vb = self.val_sampler.stacked_cross_sections()
+            vargs = self._batch(vb)
+            return (lambda params: self._eval_ic(params, *vargs),
+                    vb.weight.sum(axis=1))
+        parts = self.val_sampler.bucketed_cross_sections()
+        n_val = sum(pos.size for _, _, pos in parts)
+        counts = np.zeros(n_val, np.float32)
+        hoist = []
+        for (lb, _), b, pos in parts:
+            counts[pos] = b.weight.sum(axis=1)
+            hoist.append((lb, self._batch(b),
+                          torch.as_tensor(pos).to(self.device)))
+
+        def sweep(params):
+            ic = torch.zeros((self.n_seeds, n_val), dtype=torch.float32,
+                             device=self.device)
+            for lb, vargs, pos in hoist:
+                ic[:, pos] = self._eval_ic(params, *vargs, window=lb)
+            return ic
+
+        return sweep, counts
+
+    def _adopt(self, state: TrainState) -> TrainState:
+        """A state cloned off the live one (the pipeline's rollback
+        target) copied back into the stacked model's parameters."""
+        live = flax_param_map(self.model)
+        with torch.no_grad():
+            for k, p in live.items():
+                p.copy_(state.params[k])
+        return state._replace(params=live)
 
     def fit(self, resume: bool = False,
             init_params: Optional[Mapping[str, Any]] = None
             ) -> Dict[str, Any]:
-        """Lock-step ensemble training with early stopping on the
-        ensemble-mean validation IC, in the lock-step form of the JAX
-        ``_fit_impl``. ``resume=True`` continues from ``ckpt/latest``;
-        ``init_params`` (a seed-stacked Flax tree, or another ensemble's
-        ``state.params``: the walk-forward warm start) replaces the seeded
-        init through ``graft_params``, the optimizer starting fresh.
-        Restores the best state at the end. Returns the summary and
-        ``step_losses`` (``[K]`` lists of the per-seed losses, in
-        order)."""
+        """Ensemble training with early stopping on the ensemble-mean
+        validation IC, through the epoch pipeline of the JAX
+        ``_fit_impl`` (``train/pipeline.py``). ``resume=True`` continues
+        from ``ckpt/latest``; ``init_params`` (a seed-stacked Flax tree,
+        or another ensemble's ``state.params``: the walk-forward warm
+        start) replaces the seeded init through ``graft_params``, the
+        optimizer starting fresh. Restores the best state at the end; a
+        SIGTERM raises ``Preempted`` with the recorded epochs durable.
+        Returns the summary and ``step_losses`` (``[K]`` lists of the
+        per-seed losses, in order)."""
         cfg = self.cfg
         if cfg.optim.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")
@@ -571,44 +669,47 @@ class EnsembleTrainer:
             if restored is not None:
                 state = self.load_state(restored)
         logger = MetricsLogger(self.run_dir, echo=self.echo)
-        timer = StepTimer(self.device)
+        # Host clock: the epoch's fetch is what waits for the device.
+        timer = StepTimer()
         history, step_losses = [], []
-        vb = self.val_sampler.stacked_cross_sections()
-        counts = vb.weight.sum(axis=1)
-        vargs = self._batch(vb)
-        try:
-            timer.start()
-            epoch = harness.next_epoch()
-            while epoch is not None:
-                (fi, ti, w), fm = self._build_epoch(epoch)
-                losses = []
+        val_sweep, counts = self._val_sweep()
+
+        def dispatch(state, parts):
+            losses = []
+            for lb, (fi, ti, w) in parts:
                 for k in range(fi.shape[0]):
-                    state, ms = self.step(state, fi[k], ti[k], w[k])
+                    state, ms = self.step(state, fi[k], ti[k], w[k], lb)
                     losses.append(ms["loss"])
-                ic = self._eval_ic(state.params, *vargs)
-                loss = all_gather_cat(torch.stack(losses), self.mesh,
-                                      SEED_AXIS, dim=1)
-                # One device→host fetch per epoch.
-                loss_h, ic_h = (t.cpu().numpy() for t in (loss, ic))
-                timer.stop(firm_months=fm)
-                timer.start()
-                per_seed = (ic_h * counts).sum(axis=1) / counts.sum()
-                val_ic = float(per_seed.mean())
-                step = int(state.step[0])
-                rec = logger.log(
-                    step, epoch=epoch, train_loss=float(loss_h.mean()),
-                    val_ic=val_ic, val_ic_std=float(per_seed.std()),
-                    firm_months_per_sec=timer.throughput())
-                history.append(rec)
-                step_losses.extend(v.tolist() for v in loss_h)
-                # Every rank gathers; rank 0 writes.
-                snap = self.state_dict(state) if self.run_dir else None
-                if harness.end_epoch(epoch, step, snap, val_ic):
-                    break
-                epoch = harness.next_epoch()
+            ic = val_sweep(state.params)
+            loss = all_gather_cat(torch.stack(losses), self.mesh,
+                                  SEED_AXIS, dim=1)
+            return state, {"loss": loss, "ic": ic,
+                           "step": int(state.step[0])}
+
+        def finish(epoch, host, fm):
+            loss_h, ic_h = host["loss"].numpy(), host["ic"].numpy()
+            per_seed = (ic_h * counts).sum(axis=1) / counts.sum()
+            val_ic = float(per_seed.mean())
+            rec = logger.log(
+                host["step"], epoch=epoch, train_loss=float(loss_h.mean()),
+                val_ic=val_ic, val_ic_std=float(per_seed.std()),
+                firm_months_per_sec=timer.throughput())
+            history.append(rec)
+            step_losses.extend(v.tolist() for v in loss_h)
+            return host["step"], val_ic
+
+        try:
+            state, overrun = pipeline.run_fit_epochs(
+                harness, state,
+                build=self._epoch_parts,
+                dispatch=dispatch, finish=finish, timer=timer,
+                checkpointing=self.run_dir is not None,
+                snapshot=self._snapshot)
+            if overrun is not None:
+                state = self._adopt(state)
+            best = harness.finalize()
         finally:
             logger.close()
-        best = harness.finalize()
         if best is not None:
             state = self.load_state(best)
         self.state = state
@@ -619,43 +720,76 @@ class EnsembleTrainer:
             "n_seeds": self.n_seeds,
             "steps": (harness.last_epoch + 1) * harness.steps_per_epoch,
             "firm_months_per_sec": timer.throughput(),
+            "lookahead_overrun": overrun is not None,
             "history": history,
             "step_losses": step_losses,
         }
 
     # ---- inference -------------------------------------------------------
 
-    @torch.inference_mode()
-    def predict(self, split: str = "test",
-                date_range: Optional[Tuple[int, int]] = None,
-                return_variance: bool = False, require_target: bool = True
-                ) -> Tuple[np.ndarray, np.ndarray]:
-        """Stacked forecasts ``[S, N, T]`` and their shared validity ``[N,
-        T]`` over the split's anchor range (or an explicit month-index
-        ``date_range``: a walk-forward fold's window), on the host, for the
-        backtest's ensemble aggregation: the max-shape sweep, chunked as
-        the validation sweep is, on the model's gather (the kernel on the
-        card). ``require_target=False`` includes LIVE
-        anchors (no observable outcome yet: the forecast entry point).
-        ``return_variance`` raises: the heteroscedastic variance forward
-        is not ported (ROADMAP.md Queue A item 4)."""
-        check_predict_options(return_variance)
-        b = predict_batch(self.cfg, self.splits, split, date_range,
-                          require_target)
-        self.model.eval()
+    def _stacked_forward(self, b: WindowIndex, variance: bool = False,
+                         window: Optional[int] = None):
+        """Every member's forecasts ``[S, M, bf]`` (f32, on the device)
+        of an ``[M, bf]`` batch (``window``: a geometry bucket's
+        lookback), this rank's members over its block of months,
+        gathered; ``variance``: ``(means, exp(log_var))``, each ``[S, M,
+        bf]``, of heteroscedastic members (a point head raises
+        ``ValueError``)."""
         fi, ti, _ = self._batch(b)
         M = fi.shape[0]
         rows = self._month_rows(M)
         fi, ti = fi[rows], ti[rows]
         Mr = fi.shape[0]
         C = min(self.cfg.data.dates_per_batch, Mr)
-        pred = torch.empty((self.n_local, Mr + (-Mr) % C, fi.shape[1]),
-                           dtype=torch.float32, device=self.device)
-        for months, seeds, o in self._forward_chunks(self.state.params,
-                                                     fi, ti):
+        shape = (self.n_local, Mr + (-Mr) % C, fi.shape[1])
+        pred = torch.empty(shape, dtype=torch.float32, device=self.device)
+        var = torch.empty_like(pred) if variance else None
+        for months, seeds, o in self._forward_chunks(
+                self.state.params, fi, ti, window=window):
+            if variance:
+                if not isinstance(o, tuple):
+                    raise ValueError(
+                        "variance=True needs a heteroscedastic head "
+                        "(ModelConfig.heteroscedastic / loss='nll')")
+                var[seeds, months] = torch.exp(o[1].float())
             pred[seeds, months] = _point_forecast(o).float()
         pred = self._gather_sweep(pred[:, :Mr], M)
-        return scatter_forecasts(b, pred.cpu().numpy(), self.panel)
+        if variance:
+            return pred, self._gather_sweep(var[:, :Mr], M)
+        return pred
+
+    @torch.inference_mode()
+    def predict(self, split: str = "test",
+                date_range: Optional[Tuple[int, int]] = None,
+                return_variance: bool = False, require_target: bool = True
+                ) -> Tuple[np.ndarray, ...]:
+        """Stacked forecasts ``[S, N, T]`` and their shared validity ``[N,
+        T]`` over the split's anchor range (or an explicit month-index
+        ``date_range``: a walk-forward fold's window), on the host, for the
+        backtest's ensemble aggregation: the max-shape sweep (under
+        ``LFM_BUCKETS`` one sweep per bucket, the same forecasts), chunked
+        as the validation sweep is, on the model's gather (the kernel on
+        the card). ``require_target=False`` includes LIVE anchors (no
+        observable outcome yet: the forecast entry point).
+        ``return_variance=True`` (heteroscedastic members) returns
+        ``(forecasts, aleatoric variances [S, N, T], valid)``, the input
+        of ``mean_minus_total_std``, from the max-shape sweep."""
+        sampler = predict_sampler(self.cfg, self.splits, split, date_range,
+                                  require_target)
+        self.model.eval()
+        if self._bucketed and not return_variance:
+            return scatter_bucketed(
+                [(b, self._stacked_forward(b, window=lb).cpu().numpy())
+                 for (lb, _), b, _ in sampler.bucketed_cross_sections()],
+                self.panel)
+        b = sampler.stacked_cross_sections()
+        if return_variance:
+            pred, var = self._stacked_forward(b, variance=True)
+            (fc, avar), valid = scatter_forecasts(
+                b, torch.stack([pred, var]).cpu().numpy(), self.panel)
+            return fc, avar, valid
+        return scatter_forecasts(b, self._stacked_forward(b).cpu().numpy(),
+                                 self.panel)
 
 
 def run_ensemble_experiment(cfg: RunConfig, panel: Optional[Panel] = None,
@@ -699,7 +833,8 @@ def write_ensemble_run_dir(run_dir: str, trainer: EnsembleTrainer,
     if trainer.run_dir != run_dir:
         CheckpointManager(os.path.join(run_dir, "ckpt", "best"),
                           max_to_keep=1).save(
-            int(trainer.state.step[0]), trainer.state_dict(trainer.state))
+            int(trainer.state.step[0]), trainer.state_dict(trainer.state),
+            wait=True)
     dist_utils.barrier()
 
 

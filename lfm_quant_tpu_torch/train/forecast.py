@@ -7,9 +7,10 @@ ensemble branching and its validation rules.
 
 The aggregation of stacked forecasts (a seed ensemble's, or a dropout
 model's MC-dropout samples) runs on the model's device
-(``backtest/torch_engine.aggregate_scores_device``). The heteroscedastic
-modes raise: the variance forward is not ported (ROADMAP.md Queue A item
-4).
+(``backtest/torch_engine.aggregate_scores_device``);
+``mean_minus_total_std`` takes the heteroscedastic members' aleatoric
+variances from ``predict(return_variance=True)`` (a single
+heteroscedastic model's alone, as a one-member stack).
 """
 
 from __future__ import annotations
@@ -90,19 +91,28 @@ def run_forecast(
         error("--mc-samples applies to single-model run dirs only; "
               "this is a seed ensemble — its uncertainty comes from "
               "the seeds (use --mode mean_minus_std directly)")
+    avar = None
     if mode == "mean_minus_total_std":
-        raise NotImplementedError(
-            "--mode mean_minus_total_std needs the heteroscedastic variance "
-            "forward, which is not ported yet (ROADMAP.md Queue A item 4)")
-    if not is_ensemble and mc_samples == 0:
+        if mc_samples > 0:
+            error("--mode mean_minus_total_std is not combinable with "
+                  "--mc-samples (dropout samples carry no aleatoric "
+                  "head variance); use --mode mean_minus_std")
+        # A single heteroscedastic model has no seed axis: the penalty
+        # reduces to its aleatoric head alone.
+        stacked, avar, valid = model.predict(return_variance=True,
+                                             **predict_kw)
+        if not is_ensemble:
+            stacked, avar = stacked[None], avar[None]
+    elif not is_ensemble and mc_samples == 0:
         if mode != "mean":
             error(f"--mode {mode} needs stacked forecasts: an ensemble run "
                   "dir or --mc-samples")
         return model.predict(**predict_kw)
-    if mc_samples > 0:
+    elif mc_samples > 0:
         stacked, valid = model.predict(mc_samples=mc_samples, **predict_kw)
     else:
         stacked, valid = model.predict(**predict_kw)
     scores, valid, _ = aggregate_scores_device(
-        stacked, valid, [mode], risk_lambda, device=model.device)
+        stacked, valid, [mode], risk_lambda, aleatoric_var=avar,
+        device=model.device)
     return scores[0].cpu().numpy(), valid

@@ -43,12 +43,21 @@ replays the stream. The sweep, ``predict`` and serving run without it;
 ``predict(mc_samples=K)`` is MC-dropout sampling, the forward under K
 seeded draws (:meth:`Predictor.mc_scores`).
 
-The loop is lock-step, the JAX package's ``LFM_ASYNC=0`` path: no geometry
-buckets, no async prefetch or checkpointing (ROADMAP.md Queue A). The
-train step and ``predict`` take ``gather_impl`` (the kernel for "auto" and
-"pallas"); the validation sweep resolves as the JAX trainer's does, the
-plain gather unless ``gather_impl="pallas"`` is set explicitly
-(``loop.py:1045-1047``).
+The epoch loop runs through the async pipeline (``train/pipeline.py``,
+``LFM_ASYNC`` and ``LFM_ASYNC_CKPT``, both on by default): an epoch's
+steps and its validation sweep queued on the device, ONE counted fetch of
+its scalars (and of the state, for the checkpoint), the next epoch
+sampled on a thread and queued before that fetch, the checkpoints written
+in the background; a SIGTERM stops the fit at the next epoch boundary
+with both lines durable (``train/preempt.py``). ``LFM_BUCKETS=1`` trains,
+sweeps and predicts on the sampler's (lookback × width) bucket ladder
+(``data/windows.py bucket_geometry``): each bucket a batch shape of its
+own, a bucketed batch's results those of the same batch padded to the
+max shape. ``predict(return_variance=True)`` returns a heteroscedastic
+model's aleatoric variance beside its mean. The train step and
+``predict`` take ``gather_impl`` (the kernel for "auto" and "pallas");
+the validation sweep resolves as the JAX trainer's does, the plain gather
+unless ``gather_impl="pallas"`` is set explicitly (``loop.py:1045-1047``).
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import warnings
 from typing import (Any, Callable, Dict, Iterator, Mapping, NamedTuple,
                     Optional, Tuple, Union)
 
@@ -63,6 +73,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from lfm_quant_tpu_torch.buckets import buckets_enabled
 from lfm_quant_tpu_torch.config import RunConfig, compute_dtype, model_kwargs
 from lfm_quant_tpu_torch.data.panel import (
     Panel,
@@ -95,11 +106,12 @@ from lfm_quant_tpu_torch.parallel.mesh import (
     month_block,
     shard_dates,
 )
+from lfm_quant_tpu_torch.train import pipeline
 from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
 from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
 from lfm_quant_tpu_torch.utils import distributed as dist_utils
-from lfm_quant_tpu_torch.utils import faults
+from lfm_quant_tpu_torch.utils import faults, telemetry
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import (
     flatten_params,
@@ -262,13 +274,15 @@ class Predictor:
         return out.reshape(lead)
 
     def _chunk_windows(self, fi: torch.Tensor, ti: torch.Tensor,
-                       impl: Optional[str] = None
+                       impl: Optional[str] = None,
+                       window: Optional[int] = None
                        ) -> Iterator[Tuple[slice, torch.Tensor,
                                            torch.Tensor]]:
         """The windows of an ``[M, Bf]`` index batch on the device,
         chunked over months by ``dates_per_batch`` with the last chunk
-        padded by repeating months, as the JAX eval forward does. Yields
-        ``(rows of the padded batch, x, m)`` per chunk."""
+        padded by repeating months, as the JAX eval forward does
+        (``window``: a geometry bucket's lookback). Yields ``(rows of the
+        padded batch, x, m)`` per chunk."""
         M = fi.shape[0]
         C = min(self.cfg.data.dates_per_batch, M)
         pad = (-M) % C
@@ -276,41 +290,71 @@ class Predictor:
             fi = torch.cat([fi, fi[:pad]], dim=0)
             ti = torch.cat([ti, ti[:pad]], dim=0)
         for k in range(0, fi.shape[0], C):
-            yield (slice(k, k + C),) + self._gather(fi[k:k + C],
-                                                    ti[k:k + C], impl)
+            yield (slice(k, k + C),) + self._gather(
+                fi[k:k + C], ti[k:k + C], impl, window)
 
     def _forward_chunks(self, fi: torch.Tensor, ti: torch.Tensor,
-                        impl: Optional[str] = None
+                        impl: Optional[str] = None,
+                        window: Optional[int] = None
                         ) -> Iterator[Tuple[slice, Any]]:
         """The forward over :meth:`_chunk_windows`: ``(rows of the padded
         batch, model output)`` per chunk."""
-        for rows, x, m in self._chunk_windows(fi, ti, impl):
+        for rows, x, m in self._chunk_windows(fi, ti, impl, window):
             yield rows, self._apply(x, m)
 
     def _month_rows(self, M: int) -> Tuple[torch.Tensor, int]:
         """This rank's rows of an ``M``-month sweep (``month_block``), on
-        the device, and how many of them are real months."""
+        the device (a copy that does not wait for it), and how many of
+        them are real months."""
         rows, n_real = month_block(M, self.cfg.data.dates_per_batch,
                                    self.mesh)
-        return rows.to(self.device), n_real
+        return rows.to(self.device, non_blocking=True), n_real
 
-    @torch.inference_mode()
-    def predict_scores(self, firm_idx: np.ndarray, time_idx: np.ndarray
-                       ) -> torch.Tensor:
-        """Point forecasts ``[M, Bf]`` (f32, on the device) for an
-        ``[M, Bf]`` index batch (the scores-only forward); under a data
-        mesh each rank forecasts its block of months and every rank
-        returns all of them (the months are split over the date and seq
-        shards alike)."""
+    def _index_batch(self, firm_idx: np.ndarray, time_idx: np.ndarray):
+        """An ``[M, Bf]`` index batch on the device and, under a data
+        mesh, this rank's block of its months."""
         fi = torch.as_tensor(np.asarray(firm_idx, np.int32)).to(self.device)
         ti = torch.as_tensor(np.asarray(time_idx, np.int32)).to(self.device)
-        M = fi.shape[0]
         if self.mesh.n_batch > 1:
-            rows, _ = self._month_rows(M)
+            rows, _ = self._month_rows(fi.shape[0])
             fi, ti = fi[rows], ti[rows]
-        preds = [_point_forecast(out)
-                 for _, out in self._forward_chunks(fi, ti)]
+        return fi, ti
+
+    @torch.inference_mode()
+    def predict_scores(self, firm_idx: np.ndarray, time_idx: np.ndarray,
+                       window: Optional[int] = None) -> torch.Tensor:
+        """Point forecasts ``[M, Bf]`` (f32, on the device) for an
+        ``[M, Bf]`` index batch (the scores-only forward; ``window``: a
+        geometry bucket's lookback); under a data mesh each rank
+        forecasts its block of months and every rank returns all of them
+        (the months are split over the date and seq shards alike)."""
+        M = len(time_idx)
+        fi, ti = self._index_batch(firm_idx, time_idx)
+        preds = [_point_forecast(out) for _, out in
+                 self._forward_chunks(fi, ti, window=window)]
         return all_gather_dates(torch.cat(preds, dim=0), self.mesh)[:M]
+
+    @torch.inference_mode()
+    def predict_variance(self, firm_idx: np.ndarray, time_idx: np.ndarray
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A heteroscedastic model's ``(mean, exp(log_var))``, each ``[M,
+        Bf]`` on the device, for an ``[M, Bf]`` index batch (the JAX
+        ``_forward_impl(variance=True)``): the mean in the compute dtype,
+        the aleatoric variance in f32. A point head raises
+        ``ValueError``."""
+        M = len(time_idx)
+        fi, ti = self._index_batch(firm_idx, time_idx)
+        means, variances = [], []
+        for _, out in self._forward_chunks(fi, ti):
+            if not isinstance(out, tuple):
+                raise ValueError(
+                    "variance=True needs a heteroscedastic head "
+                    "(ModelConfig.heteroscedastic / loss='nll')")
+            mean, log_var = out
+            means.append(mean)
+            variances.append(torch.exp(log_var.float()))
+        return tuple(all_gather_dates(torch.cat(t, dim=0), self.mesh)[:M]
+                     for t in (means, variances))
 
     @torch.inference_mode()
     def mc_scores(self, firm_idx: np.ndarray, time_idx: np.ndarray,
@@ -393,9 +437,10 @@ def save_progress(run_dir: Optional[str], **kw) -> None:
 class FitHarness:
     """Fit scaffolding: the two checkpoint lines (``ckpt/latest`` every
     epoch for resume, ``ckpt/best`` on val-IC improvement for the final
-    model), the progress sidecar, early stopping and resume. Saves are
-    synchronous, so both lines are durable before the sidecar names
-    them."""
+    model), the progress sidecar, early stopping and resume. Both saves
+    start in the background (``LFM_ASYNC_CKPT``, ``train/pipeline.py``);
+    ``resume`` reconciles a sidecar that ran ahead of a save that never
+    committed."""
 
     def __init__(self, run_dir: Optional[str], epochs: int, patience: int,
                  steps_per_epoch: int):
@@ -484,30 +529,69 @@ class FitHarness:
     def end_epoch(self, epoch: int, step: int,
                   state_dict: Optional[Dict[str, Any]],
                   val_ic: float) -> bool:
-        """Record an epoch: update the best, save both lines, then the
-        sidecar. Returns True when early stopping triggers."""
+        """Record an epoch: update the best, start both saves (from the
+        host copy ``state_dict``), then write the sidecar. With
+        ``LFM_ASYNC_CKPT=0`` both lines are durable before the sidecar
+        names them; with it on they drain behind the next epoch, flushed
+        at :meth:`finalize`. Returns True when early stopping triggers."""
+        saved_best = False
         if val_ic > self.best_ic:
             self.best_ic, self.best_epoch, self.bad_epochs = val_ic, epoch, 0
             if self.best_mgr:
-                self.best_mgr.save(step, state_dict)
+                self.best_mgr.save(step, state_dict, wait=False)
+                saved_best = True
         else:
             self.bad_epochs += 1
         if self.latest_mgr:
-            self.latest_mgr.save(step, state_dict)
+            self.latest_mgr.save(step, state_dict, wait=False)
+            if not pipeline.async_ckpt_enabled():
+                # "Durable before proceeding": an unbounded wait.
+                if saved_best:
+                    self.best_mgr.wait(timeout_s=0)
+                self.latest_mgr.wait(timeout_s=0)
             save_progress(self.run_dir, epoch=epoch,
                           best_ic=float(self.best_ic),
                           best_epoch=self.best_epoch,
                           bad_epochs=self.bad_epochs)
-            # Rank 0 wrote both lines; the others may read them next.
             dist_utils.barrier()
         return self.bad_epochs >= self.patience
 
+    def preempt_flush(self) -> None:
+        """SIGTERM grace flush: both lines flushed and closed with BOUNDED
+        waits (``LFM_CKPT_WAIT_S``), so a wedged writer cannot eat the
+        grace window. The sidecar was written by :meth:`end_epoch`; a
+        wait that times out leaves it ahead of its line, which
+        :meth:`resume` reconciles."""
+        if not self.latest_mgr:
+            return
+        self.best_mgr.close()
+        self.latest_mgr.close()
+        dist_utils.barrier()
+
     def finalize(self) -> Optional[Dict[str, Any]]:
-        """The best checkpoint's state, if one was committed."""
+        """Flush the saves in flight (bounded), then the best checkpoint's
+        state, if one was committed. The wait comes first: the best line
+        being read may still be committing."""
+        best_durable = True
+        if self.latest_mgr:
+            best_durable = self.best_mgr.wait()
+            self.latest_mgr.wait()
+            # Rank 0 wrote both lines; the others read them next.
+            dist_utils.barrier()
+        best = None
         if (self.best_mgr and self.best_epoch >= 0
                 and self.best_mgr.latest_step() is not None):
-            return self.best_mgr.restore()
-        return None
+            if not best_durable:
+                warnings.warn(
+                    f"best checkpoint line still uncommitted after the "
+                    f"bounded wait (epoch {self.best_epoch} recorded) — "
+                    "restoring the newest COMMITTED best instead, which "
+                    "may be older", RuntimeWarning, stacklevel=2)
+            best = self.best_mgr.restore()
+        if self.latest_mgr:
+            self.latest_mgr.close()
+            self.best_mgr.close()
+        return best
 
 
 # ---------------------------------------------------------------------------
@@ -581,7 +665,16 @@ class Trainer(Predictor):
                                  else "plain")
         self.loss_parts = make_loss_parts(cfg.optim.loss)
         self._needs_rng = has_dropout(cfg)
-        self._steps_per_epoch = self.train_sampler.batches_per_epoch()
+        self._bucketed = resolve_buckets(self.mesh)
+        # A bucketed sweep under a data mesh would pad each bucket's
+        # months to the batch group again: the sweeps and predict keep the
+        # max shape there while the train batches still bucket.
+        self._bucketed_eval = self._bucketed and self.mesh.n_batch == 1
+        # A bucketed epoch floors leftover dates per bucket: the schedule
+        # takes its step count.
+        self._steps_per_epoch = (
+            self.train_sampler.bucketed_batches_per_epoch() if self._bucketed
+            else self.train_sampler.batches_per_epoch())
         self.opt = make_optimizer(cfg.optim,
                                   self._steps_per_epoch * cfg.optim.epochs)
 
@@ -603,17 +696,6 @@ class Trainer(Predictor):
         return TrainState(live, self.opt.init(
             {k: p.detach() for k, p in live.items()}), 0, self.cfg.seed)
 
-    @staticmethod
-    def state_dict(state: TrainState) -> Dict[str, Any]:
-        """A host copy of the state for a checkpoint."""
-        cpu = (lambda t: t.detach().to("cpu", copy=True))
-        o = state.opt_state
-        return {"params": {k: cpu(p) for k, p in state.params.items()},
-                "opt_state": {"count": o.count,
-                              "mu": {k: cpu(v) for k, v in o.mu.items()},
-                              "nu": {k: cpu(v) for k, v in o.nu.items()}},
-                "step": state.step, "rng": state.rng}
-
     def load_state(self, saved: Mapping[str, Any]) -> TrainState:
         """Copy a checkpointed state into the model and the device."""
         params = flax_param_map(self.model)
@@ -630,13 +712,15 @@ class Trainer(Predictor):
     # ---- the step --------------------------------------------------------
 
     def _loss_parts(self, fi: torch.Tensor, ti: torch.Tensor,
-                    w: torch.Tensor, rng: Optional[torch.Generator] = None):
+                    w: torch.Tensor, rng: Optional[torch.Generator] = None,
+                    window: Optional[int] = None):
         """The loss's ``(num, den)`` on a ``[D, Bf]`` index batch
-        (dropout on under ``rng``); under a seq axis on this seq rank's
-        sub-window, through the window-sharded model."""
+        (dropout on under ``rng``; ``window``: a geometry bucket's
+        lookback); under a seq axis on this seq rank's sub-window, through
+        the window-sharded model."""
         y = gather_targets(self.dev["targets"], fi, ti)
         if self.train_model is None:
-            x, m = self._gather(fi, ti)
+            x, m = self._gather(fi, ti, window=window)
             return self.loss_parts(self._apply(x, m, rng), y, w)
         wl, shift = sub_window(self.window, self.mesh)
         x, m = self._gather(fi, ti - shift, window=wl)
@@ -657,7 +741,8 @@ class Trainer(Predictor):
         return generator(derive_seed(*words), self.device)
 
     def _grads(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
-               w: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               w: torch.Tensor, window: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss and its gradients on a global ``[D, Bf]`` index batch:
         this rank's block of dates, ``num`` and ``den`` summed over the
         date shards in one collective, the backward of ``num_local /
@@ -665,7 +750,8 @@ class Trainer(Predictor):
         summed over the date and seq shards in one flat buffer. On one
         process: the plain loss and its gradients."""
         fi, ti, w = (shard_dates(a, self.mesh) for a in (fi, ti, w))
-        num, den = self._loss_parts(fi, ti, w, self.step_generator(state))
+        num, den = self._loss_parts(fi, ti, w, self.step_generator(state),
+                                    window)
         num_g, den_g = all_reduce_sum(
             torch.stack([num.detach(), den.detach()]), self.mesh)
         keys = list(state.params)
@@ -675,13 +761,15 @@ class Trainer(Predictor):
         return finalize_loss(num_g, den_g), dict(zip(keys, grads))
 
     def step(self, state: TrainState, fi: torch.Tensor, ti: torch.Tensor,
-             w: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+             w: torch.Tensor, window: Optional[int] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One train step on a global ``[D, Bf]`` index batch on the
-        device: loss, gradients, one optimizer update. Returns the new
-        state and ``{"loss", "grad_norm"}`` as device scalars (no host
-        sync), equal on every rank."""
+        device (``window``: a geometry bucket's lookback): loss,
+        gradients, one optimizer update. Returns the new state and
+        ``{"loss", "grad_norm"}`` as device scalars (no host sync), equal
+        on every rank."""
         self.model.train()
-        loss, grads = self._grads(state, fi, ti, w)
+        loss, grads = self._grads(state, fi, ti, w, window)
         gnorm = self.opt.step(state.params, grads, state.opt_state)
         return (state._replace(step=state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})
@@ -690,13 +778,13 @@ class Trainer(Predictor):
 
     @torch.inference_mode()
     def _eval_dispatch(self, fi: torch.Tensor, ti: torch.Tensor,
-                       w: torch.Tensor):
+                       w: torch.Tensor, window: Optional[int] = None):
         """Per-month Spearman IC ``[M]`` and the MSE over a stacked
-        ``[M, bf]`` batch, on the device (the JAX ``_forward_impl``):
-        months padded with weight-0 repeats into whole chunks and, under a
-        data mesh, one block of them per rank (the JAX ``_forward_eval``);
-        the ICs are gathered and the error and weight sums summed across
-        the ranks."""
+        ``[M, bf]`` batch, on the device (the JAX ``_forward_impl``;
+        ``window``: a geometry bucket's lookback): months padded with
+        weight-0 repeats into whole chunks and, under a data mesh, one
+        block of them per rank (the JAX ``_forward_eval``); the ICs are
+        gathered and the error and weight sums summed across the ranks."""
         self.model.eval()
         M = fi.shape[0]
         rows, n_real = self._month_rows(M)
@@ -704,7 +792,7 @@ class Trainer(Predictor):
         w_p[n_real:] = 0
         ics, ses, wss = [], [], []
         for sl, out in self._forward_chunks(fi_p, ti_p,
-                                            self.eval_gather_impl):
+                                            self.eval_gather_impl, window):
             pred = _point_forecast(out)
             f, t, ww = fi_p[sl], ti_p[sl], w_p[sl]
             y = gather_targets(self.dev["targets"], f, t)
@@ -733,21 +821,81 @@ class Trainer(Predictor):
                 torch.as_tensor(b.time_idx).to(self.device),
                 torch.as_tensor(b.weight).to(self.device))
 
+    def _val_sweep(self) -> Tuple[Callable[[], Tuple[torch.Tensor,
+                                                      torch.Tensor]],
+                                  np.ndarray]:
+        """The epoch's validation sweep, its batches hoisted onto the
+        device once, and the months' pool sizes (the IC weights). Under
+        ``LFM_BUCKETS`` one dispatch per (lookback × width) bucket, the
+        per-month ICs scattered back to the stacked month order and the
+        MSE recombined by each bucket's weight share (the JAX
+        ``train/loop.py:1338-1360``)."""
+        if not self._bucketed_eval:
+            vb = self.val_sampler.stacked_cross_sections()
+            vargs = self._batch(vb)
+            return (lambda: self._eval_dispatch(*vargs),
+                    vb.weight.sum(axis=1))
+        parts = self.val_sampler.bucketed_cross_sections()
+        n_val = sum(pos.size for _, _, pos in parts)
+        counts = np.zeros(n_val, np.float32)
+        hoist = []
+        for (lb, _), b, pos in parts:
+            counts[pos] = b.weight.sum(axis=1)
+            hoist.append((lb, self._batch(b),
+                          torch.as_tensor(pos).to(self.device),
+                          float(b.weight.sum())))
+        w_total = max(sum(h[3] for h in hoist), 1e-12)
+
+        def sweep():
+            ic = torch.zeros(n_val, dtype=torch.float32, device=self.device)
+            mse = torch.zeros((), dtype=torch.float32, device=self.device)
+            for lb, vargs, pos, wsum in hoist:
+                ic_b, mse_b = self._eval_dispatch(*vargs, window=lb)
+                ic[pos] = ic_b.float()
+                mse = mse + mse_b.float() * (wsum / w_total)
+            return ic, mse
+
+        return sweep, counts
+
+    def _adopt(self, state: TrainState) -> TrainState:
+        """A state cloned off the live one (the pipeline's rollback
+        target) copied back into the model's parameters."""
+        live = flax_param_map(self.model)
+        with torch.no_grad():
+            for k, p in live.items():
+                p.copy_(state.params[k])
+        return state._replace(params=live)
+
+    def _snapshot(self, state: TrainState) -> Optional[Dict[str, Any]]:
+        """The checkpoint's tree of device tensors (rank 0 writes; None
+        elsewhere)."""
+        if not dist_utils.is_main():
+            return None
+        o = state.opt_state
+        return {"params": dict(state.params),
+                "opt_state": {"count": o.count, "mu": dict(o.mu),
+                              "nu": dict(o.nu)},
+                "step": state.step, "rng": state.rng}
+
     # ---- fit -------------------------------------------------------------
 
     def fit(self, resume: bool = False,
             init_params: Optional[Mapping[str, Any]] = None
             ) -> Dict[str, Any]:
-        """Train with early stopping, in the lock-step form of the JAX
-        ``_fit_impl``. ``resume=True`` continues from ``ckpt/latest``;
-        ``init_params`` (a Flax tree, or another trainer's
-        ``state.params``: the walk-forward warm start) replaces the seeded
-        init through :func:`graft_params`, the optimizer starting fresh; a
-        crash resume takes precedence. Restores the best state at the end.
+        """Train with early stopping, through the epoch pipeline of the
+        JAX ``_fit_impl`` (``train/pipeline.py``). ``resume=True``
+        continues from ``ckpt/latest``; ``init_params`` (a Flax tree, or
+        another trainer's ``state.params``: the walk-forward warm start)
+        replaces the seeded init through :func:`graft_params`, the
+        optimizer starting fresh; a crash resume takes precedence.
+        Restores the best state at the end; a SIGTERM raises
+        :class:`~lfm_quant_tpu_torch.train.preempt.Preempted` after the
+        epoch in flight is recorded and both lines are durable.
 
         Returns the summary (best val IC and epoch, epochs run, steps,
-        firm-months per second, the per-epoch ``history``) and
-        ``step_losses``, every step's loss in order."""
+        firm-months per second, whether the lookahead ran over an early
+        stop, the per-epoch ``history``) and ``step_losses``, every
+        step's loss in order."""
         cfg = self.cfg
         if cfg.optim.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")
@@ -761,48 +909,55 @@ class Trainer(Predictor):
             if restored is not None:
                 state = self.load_state(restored)
         logger = MetricsLogger(self.run_dir, echo=self.echo)
-        timer = StepTimer(self.device)
+        # Host clock: the epoch's fetch is what waits for the device.
+        timer = StepTimer()
         history, step_losses = [], []
-        vb = self.val_sampler.stacked_cross_sections()
-        counts = vb.weight.sum(axis=1)
-        vargs = self._batch(vb)
-        K = self._steps_per_epoch
-        try:
-            timer.start()
-            epoch = harness.next_epoch()
-            while epoch is not None:
+        val_sweep, counts = self._val_sweep()
+
+        if self._bucketed:
+            build = self._bucketed_build
+        else:
+            def build(epoch):
                 b = self.train_sampler.stacked_epoch(epoch)
-                fm = float(b.weight.sum()) * self.window
-                fi, ti, w = self._batch(b)
-                losses, gnorms = [], []
-                for k in range(K):
-                    state, ms = self.step(state, fi[k], ti[k], w[k])
+                return ([(self.window, stage(self.device, b.firm_idx,
+                                             b.time_idx, b.weight))],
+                        float(b.weight.sum()) * self.window)
+
+        def dispatch(state, parts):
+            losses, gnorms = [], []
+            for lb, (fi, ti, w) in parts:
+                for k in range(fi.shape[0]):
+                    state, ms = self.step(state, fi[k], ti[k], w[k], lb)
                     losses.append(ms["loss"])
                     gnorms.append(ms["grad_norm"])
-                ic, mse = self._eval_dispatch(*vargs)
-                # One device→host fetch per epoch.
-                loss_h, gn_h, ic_h, mse_h = (
-                    t.cpu().numpy() for t in (torch.stack(losses),
-                                              torch.stack(gnorms), ic, mse))
-                timer.stop(firm_months=fm)
-                timer.start()
-                val_ic = float(np.average(ic_h, weights=counts))
-                rec = logger.log(
-                    state.step, epoch=epoch,
-                    train_loss=float(loss_h.mean()),
-                    grad_norm=float(gn_h.mean()), val_ic=val_ic,
-                    val_mse=float(mse_h),
-                    firm_months_per_sec=timer.throughput())
-                history.append(rec)
-                step_losses.extend(float(v) for v in loss_h)
-                snap = (self.state_dict(state)
-                        if self.run_dir and dist_utils.is_main() else None)
-                if harness.end_epoch(epoch, state.step, snap, val_ic):
-                    break
-                epoch = harness.next_epoch()
+            ic, mse = val_sweep()
+            return state, {"loss": torch.stack(losses),
+                           "grad_norm": torch.stack(gnorms), "ic": ic,
+                           "mse": mse, "step": state.step}
+
+        def finish(epoch, host, fm):
+            loss_h = host["loss"].numpy()
+            val_ic = float(np.average(host["ic"].numpy(), weights=counts))
+            rec = logger.log(
+                host["step"], epoch=epoch, train_loss=float(loss_h.mean()),
+                grad_norm=float(host["grad_norm"].numpy().mean()),
+                val_ic=val_ic, val_mse=float(host["mse"]),
+                firm_months_per_sec=timer.throughput())
+            history.append(rec)
+            step_losses.extend(float(v) for v in loss_h)
+            return host["step"], val_ic
+
+        try:
+            state, overrun = pipeline.run_fit_epochs(
+                harness, state, build=build, dispatch=dispatch,
+                finish=finish, timer=timer,
+                checkpointing=self.run_dir is not None,
+                snapshot=self._snapshot)
+            if overrun is not None:
+                state = self._adopt(state)
+            best = harness.finalize()
         finally:
             logger.close()
-        best = harness.finalize()
         if best is not None:
             state = self.load_state(best)
         self.state = state
@@ -812,9 +967,21 @@ class Trainer(Predictor):
             "epochs_run": harness.last_epoch + 1,
             "steps": (harness.last_epoch + 1) * harness.steps_per_epoch,
             "firm_months_per_sec": timer.throughput(),
+            "lookahead_overrun": overrun is not None,
             "history": history,
             "step_losses": step_losses,
         }
+
+    def _bucketed_build(self, epoch: int):
+        """A bucketed epoch (``LFM_BUCKETS``): per (lookback × width)
+        bucket a ``[K_b, D, width]`` index stack on the device, and the
+        epoch's firm-month count; counts the padded cells
+        (``bucket_cells_*``) against the max shape's."""
+        parts = self.train_sampler.bucketed_epoch(epoch)
+        return [(lb, stage(self.device, b.firm_idx, b.time_idx, b.weight))
+                for (lb, _), b in parts], \
+            count_bucket_cells(parts, self.train_sampler.firms_per_date,
+                               self.window)
 
     # ---- inference -------------------------------------------------------
 
@@ -822,39 +989,61 @@ class Trainer(Predictor):
                 mc_seed: int = 0,
                 date_range: Optional[Tuple[int, int]] = None,
                 return_variance: bool = False, require_target: bool = True,
-                mc_batched: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+                mc_batched: bool = True) -> Tuple[np.ndarray, ...]:
         """Forecasts for every eligible anchor of a split's months:
         ``(forecast [N, T] float32, valid [N, T] bool)`` over the WHOLE
         panel, valid only inside the range, on the host (the backtest's
         input). The forward is the trained model's on the device (the
         gather and the fused recurrence kernels on the card), chunked over
-        months as the validation sweep is.
+        months as the validation sweep is; under ``LFM_BUCKETS`` one
+        forward per (lookback × width) bucket, each scattered into the
+        panel (the same forecasts as the max-shape sweep).
 
         ``date_range`` (month indices, end-exclusive) replaces the split's
         range: the walk-forward predicts each fold's window with it.
         ``require_target=False`` also forecasts LIVE anchors, whose
         outcome is not observable yet (the forecast entry point).
 
+        ``return_variance=True`` (a heteroscedastic model: ``loss="nll"``
+        or ``ModelConfig.heteroscedastic``; a point head raises
+        ``ValueError``) returns ``(forecast, aleatoric variance [N, T],
+        valid)``, the input of ``mean_minus_total_std``; it takes the
+        max-shape sweep, as the JAX trainer's does.
+
         ``mc_samples=K > 0``: MC-dropout sampling (:meth:`mc_scores`),
         ``K`` stacked forecasts ``[K, N, T]`` under the seed ``mc_seed``,
         shaped like ``EnsembleTrainer.predict``'s for the aggregation, and
         the same validity; a model without dropout raises ``ValueError``
-        (every sample would be the same). ``mc_batched=False`` runs the
-        per-sample loop, which draws the same samples. ``return_variance``
-        raises: the heteroscedastic variance forward is not ported
-        (ROADMAP.md Queue A item 4)."""
+        (every sample would be the same), as does ``return_variance``
+        with it. ``mc_batched=False`` runs the per-sample loop, which
+        draws the same samples."""
         if mc_samples > 0 and not self._needs_rng:
             raise ValueError(
                 "mc_samples > 0 needs a model with dropout > 0 "
                 "(ModelConfig.kwargs['dropout']); this run has none, so "
                 "every sample would be identical")
-        check_predict_options(return_variance)
-        b = predict_batch(self.cfg, self.splits, split, date_range,
-                          require_target)
+        sampler = predict_sampler(self.cfg, self.splits, split, date_range,
+                                  require_target)
         self.model.eval()
+        if self._bucketed_eval and mc_samples == 0 and not return_variance:
+            parts = [(b, self.predict_scores(b.firm_idx, b.time_idx,
+                                             window=lb).cpu().numpy())
+                     for (lb, _), b, _ in sampler.bucketed_cross_sections()]
+            return scatter_bucketed(parts, self.panel)
+        b = sampler.stacked_cross_sections()
         if mc_samples > 0:
+            if return_variance:
+                raise ValueError(
+                    "return_variance is not combinable with mc_samples — "
+                    "MC sampling already carries the uncertainty")
             pred = self.mc_scores(b.firm_idx, b.time_idx, mc_samples,
                                   mc_seed, batched=mc_batched)
+        elif return_variance:
+            mean, var = self.predict_variance(b.firm_idx, b.time_idx)
+            both = torch.stack([mean.float(), var])
+            (fc, avar), valid = scatter_forecasts(b, both.cpu().numpy(),
+                                                  self.panel)
+            return fc, avar, valid
         else:
             pred = self.predict_scores(b.firm_idx, b.time_idx)
         return scatter_forecasts(b, pred.float().cpu().numpy(),
@@ -897,41 +1086,94 @@ def sub_window(window: int, mesh: DataMesh) -> Tuple[int, int]:
     return wl, window - (mesh.seq_rank + 1) * wl
 
 
-def check_predict_options(return_variance: bool) -> None:
-    """The prediction option the port does not have yet."""
-    if return_variance:
-        raise NotImplementedError(
-            "return_variance needs the heteroscedastic variance forward, "
-            "which is not ported yet (ROADMAP.md Queue A item 4)")
+def resolve_buckets(mesh: DataMesh) -> bool:
+    """``LFM_BUCKETS`` for a trainer on ``mesh``: off, with a warning,
+    under a live seq axis (a seq rank's sub-window assumes the full
+    lookback), as the JAX trainer's ``_setup``."""
+    if not buckets_enabled():
+        return False
+    if mesh.n_seq > 1:
+        warnings.warn(
+            "LFM_BUCKETS is unsupported under sequence parallelism "
+            "(per-shard sub-windows assume the full lookback); training "
+            "with max-shape padding", stacklevel=3)
+        return False
+    return True
+
+
+def stage(device: torch.device, *arrays: np.ndarray
+          ) -> Tuple[torch.Tensor, ...]:
+    """Host index arrays on ``device``: on the card through pinned memory,
+    copies that do not wait for the device."""
+    if device.type != "cuda":
+        return tuple(torch.as_tensor(a).to(device) for a in arrays)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                 .to(device, non_blocking=True) for a in arrays)
+
+
+def count_bucket_cells(parts, width_cap: int, window: int) -> float:
+    """A bucketed epoch's padded-cell accounting (``bucket_dispatches``,
+    ``bucket_cells_dispatched`` / ``_real`` / ``_max_shape`` in
+    ``utils/telemetry.py COUNTERS``; a cell is one firm-month position of
+    a dispatch) for ``parts``, ``((lookback, width), WindowIndex)`` pairs
+    whose weights are ``[..., width]``. Returns the epoch's firm-month
+    count."""
+    fm = disp = mx = 0.0
+    for (lb, _), b in parts:
+        w = np.asarray(b.weight)
+        fm += float(w.sum()) * lb
+        disp += w.size * lb
+        mx += w.size // w.shape[-1] * width_cap * window
+    telemetry.COUNTERS.bump("bucket_dispatches", len(parts))
+    telemetry.COUNTERS.bump("bucket_cells_dispatched", int(disp))
+    telemetry.COUNTERS.bump("bucket_cells_real", int(fm))
+    telemetry.COUNTERS.bump("bucket_cells_max_shape", int(mx))
+    return fm
+
+
+def predict_sampler(cfg: RunConfig, splits: PanelSplits, split: str,
+                    date_range: Optional[Tuple[int, int]],
+                    require_target: bool) -> DateBatchSampler:
+    """The sampler of every eligible cross-section of ``date_range``
+    (default the split's range): the input of ``predict``."""
+    d = cfg.data
+    return DateBatchSampler(
+        splits.panel, d.window, 1, d.firms_per_date, seed=0,
+        min_valid_months=d.min_valid_months, min_cross_section=1,
+        date_range=date_range or splits.range_of(split),
+        require_target=require_target)
 
 
 def predict_batch(cfg: RunConfig, splits: PanelSplits, split: str,
                   date_range: Optional[Tuple[int, int]],
                   require_target: bool) -> WindowIndex:
-    """Every eligible cross-section of ``date_range`` (default the split's
-    range) as one ``[M, bf]`` index batch: the input of ``predict``."""
-    d = cfg.data
-    sampler = DateBatchSampler(
-        splits.panel, d.window, 1, d.firms_per_date, seed=0,
-        min_valid_months=d.min_valid_months, min_cross_section=1,
-        date_range=date_range or splits.range_of(split),
-        require_target=require_target)
-    return sampler.stacked_cross_sections()
+    """:func:`predict_sampler`'s cross-sections as one ``[M, bf]`` index
+    batch: the max-shape input of ``predict``."""
+    return predict_sampler(cfg, splits, split, date_range,
+                           require_target).stacked_cross_sections()
+
+
+def scatter_bucketed(parts, panel: Panel) -> Tuple[np.ndarray, np.ndarray]:
+    """``(WindowIndex, pred [..., M_b, w])`` pairs (a bucketed predict's,
+    or the one max-shape batch) → ``([..., N, T] forecasts, [N, T]
+    validity)`` over the whole panel, zero and False elsewhere."""
+    lead = parts[0][1].shape[:-2]
+    out = np.zeros(lead + (panel.n_firms, panel.n_months), np.float32)
+    valid = np.zeros((panel.n_firms, panel.n_months), bool)
+    for b, pred in parts:
+        real = b.weight > 0
+        rows = b.firm_idx[real]
+        cols = np.broadcast_to(b.time_idx[:, None], b.firm_idx.shape)[real]
+        out[..., rows, cols] = pred[..., real]
+        valid[rows, cols] = True
+    return out, valid
 
 
 def scatter_forecasts(b: WindowIndex, pred: np.ndarray, panel: Panel
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """``pred [..., M, bf]`` of the batch ``b`` → ``([..., N, T] forecasts,
     [N, T] validity)`` over the whole panel (zero and False elsewhere)."""
-    real = b.weight > 0
-    rows = b.firm_idx[real]
-    cols = np.broadcast_to(b.time_idx[:, None], b.firm_idx.shape)[real]
-    out = np.zeros(pred.shape[:-2] + (panel.n_firms, panel.n_months),
-                   np.float32)
-    out[..., rows, cols] = pred[..., real]
-    valid = np.zeros((panel.n_firms, panel.n_months), bool)
-    valid[rows, cols] = True
-    return out, valid
+    return scatter_bucketed([(b, pred)], panel)
 
 
 def default_split_dates(panel: Panel, d) -> Tuple[int, int]:

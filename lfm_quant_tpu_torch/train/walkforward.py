@@ -22,9 +22,11 @@ In a process group every rank trains every fold (each fold's steps
 date-sharded, see ``train/loop.py``) and rank 0 alone writes the run
 directory, each write followed by a barrier.
 
-Not ported: the fold-stacked sweep (``foldstack``: ROADMAP.md Queue A
-item 5) and the heteroscedastic variances (the variance forward, Queue A
-item 4). The fold records carry no ``reuse`` key: the port has no
+A heteroscedastic config (``loss="nll"``) also stitches each fold's
+aleatoric variances, key ``variance`` of ``partial.npz`` and
+``walkforward.npz`` (forecast-shaped), for ``mean_minus_total_std``
+downstream. Not ported: the fold-stacked sweep (``foldstack``: ROADMAP.md
+Queue A item 5). The fold records carry no ``reuse`` key: the port has no
 compiled-program cache whose traces it would count.
 """
 
@@ -105,13 +107,14 @@ def _report_scalars(rep) -> Dict[str, Any]:
 
 
 def score_stitched(forecast: np.ndarray, valid: np.ndarray, panel: Panel,
-                   score_modes: Sequence, device=None,
+                   score_modes: Sequence, variance=None, device=None,
                    **backtest_kw) -> Dict[str, Any]:
     """Grade a stitched out-of-sample forecast panel over an aggregation-
     mode grid on ``device`` (None means ``cuda``): every mode aggregated
     from one stacked tensor and backtested in one pass
-    (``backtest/torch_engine.run_scoring_pipeline``). Returns ``{mode
-    label: report digest}``."""
+    (``backtest/torch_engine.run_scoring_pipeline``); ``variance``, the
+    stitched aleatoric variances of a heteroscedastic sweep, feeds
+    ``mean_minus_total_std``. Returns ``{mode label: report digest}``."""
     from lfm_quant_tpu_torch.backtest.engine import normalize_modes
     from lfm_quant_tpu_torch.backtest.torch_engine import (
         run_scoring_pipeline,
@@ -126,8 +129,11 @@ def score_stitched(forecast: np.ndarray, valid: np.ndarray, panel: Panel,
             "mean_minus_std needs stacked forecasts (n_seeds > 1 walk-"
             "forward); this sweep stitched a single model's panel")
     stacked = forecast if forecast.ndim == 3 else forecast[None]
+    avar = None
+    if variance is not None:
+        avar = variance if variance.ndim == 3 else variance[None]
     reports = run_scoring_pipeline(stacked, valid, panel, modes=specs,
-                                   device=device, **kw)
+                                   aleatoric_var=avar, device=device, **kw)
     return {label: _report_scalars(rep) for label, rep in reports.items()}
 
 
@@ -176,13 +182,23 @@ def _load_fold_best_params(fold_dir: str):
     return None
 
 
-def _load_resume(partial_npz: str, partial_json: str, folds, shape):
+def _load_resume(partial_npz: str, partial_json: str, folds, shape,
+                 het: bool):
     """The progress snapshot of an earlier run, held to this schedule:
-    ``(forecast, valid, records)``, or None when there is none."""
+    ``(forecast, valid, records, variance or None)``, or None when there
+    is none. A heteroscedastic sweep needs the snapshot's variances."""
     if not os.path.exists(partial_npz):
         return None
     snap = np.load(partial_npz)
     forecast, valid = snap["forecast"], snap["valid"].astype(bool)
+    variance = None
+    if het:
+        if "variance" not in snap:
+            raise ValueError(
+                "resume snapshot lacks variances but the config is "
+                "heteroscedastic — snapshot from a different model "
+                "config?")
+        variance = snap["variance"]
     with open(partial_json) as fh:
         records = json.load(fh)
     if len(records) > len(folds):
@@ -200,7 +216,7 @@ def _load_resume(partial_npz: str, partial_json: str, folds, shape):
     if forecast.shape != shape:
         raise ValueError(f"resume snapshot shape mismatch {forecast.shape} "
                          "— n_seeds changed?")
-    return forecast, valid, records
+    return forecast, valid, records, variance
 
 
 def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
@@ -243,10 +259,14 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
     the device (``score_stitched``), every listed aggregation mode (names
     or ``(mode, λ)`` pairs) from one stacked tensor; ``summary["backtest"]``
     maps each mode label to its report digest. Single-model sweeps accept
-    only "mean"; ``score_kwargs`` forwards the backtest's knobs.
+    "mean" (and, heteroscedastic, "mean_minus_total_std"); ``score_kwargs``
+    forwards the backtest's knobs.
 
-    ``foldstack=True`` raises (ROADMAP.md Queue A item 5), as do
-    heteroscedastic configs (Queue A item 4)."""
+    A heteroscedastic config (``cfg.is_heteroscedastic``) also stitches
+    each fold's aleatoric variances (``predict(return_variance=True)``)
+    into ``walkforward.npz`` (key ``variance``).
+
+    ``foldstack=True`` raises (ROADMAP.md Queue A item 5)."""
     from lfm_quant_tpu_torch.device import resolve_device
     from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
     from lfm_quant_tpu_torch.train.loop import Trainer
@@ -254,11 +274,6 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
     if foldstack:
         raise axis_not_ported(FOLD_AXIS, " (foldstack: all folds as one "
                               "stacked program; run the sequential sweep)")
-    if cfg.is_heteroscedastic:
-        raise NotImplementedError(
-            "heteroscedastic walk-forwards stitch variances, which need "
-            "the variance forward: not ported yet (ROADMAP.md Queue A "
-            "item 4)")
     if resume and not out_dir:
         raise ValueError("resume=True needs out_dir (the progress snapshot "
                          "lives there)")
@@ -267,15 +282,17 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
     ensemble = cfg.n_seeds > 1
     lead = (cfg.n_seeds,) if ensemble else ()
     shape = lead + (panel.n_firms, panel.n_months)
+    het = cfg.is_heteroscedastic
     forecast = np.zeros(shape, np.float32)
+    variance = np.zeros_like(forecast) if het else None
     valid = np.zeros((panel.n_firms, panel.n_months), bool)
     records: List[Dict[str, Any]] = []
     partial_npz = os.path.join(out_dir, "partial.npz") if out_dir else None
     partial_json = os.path.join(out_dir, "partial.json") if out_dir else None
     if resume:
-        snap = _load_resume(partial_npz, partial_json, folds, shape)
+        snap = _load_resume(partial_npz, partial_json, folds, shape, het)
         if snap is not None:
-            forecast, valid, records = snap
+            forecast, valid, records, variance = snap
 
     prev_params = None
     trainer = None
@@ -309,7 +326,12 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
             # The best state when this fold had a run dir (the fit
             # restored ckpt/best), else the last epoch's.
             prev_params = trainer.state.params
-        fc, v = trainer.predict(date_range=pred_range)
+        if het:
+            fc, avar, v = trainer.predict(date_range=pred_range,
+                                          return_variance=True)
+            variance[..., v] = avar[..., v]
+        else:
+            fc, v = trainer.predict(date_range=pred_range)
         if (valid & v).any():
             raise RuntimeError("fold prediction windows overlap")
         forecast[..., v] = fc[..., v]
@@ -326,8 +348,10 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
             "epochs_run": fit["epochs_run"],
             "warm_started": used_warm,
         })
+        extra = {"variance": variance} if het else {}
         if out_dir and is_main():
-            np.savez_compressed(partial_npz, forecast=forecast, valid=valid)
+            np.savez_compressed(partial_npz, forecast=forecast, valid=valid,
+                                **extra)
             with open(partial_json, "w") as fh:
                 json.dump(records, fh)
         barrier()
@@ -353,14 +377,15 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
     if out_dir and is_main():
         os.makedirs(out_dir, exist_ok=True)
         np.savez_compressed(os.path.join(out_dir, "walkforward.npz"),
-                            forecast=forecast, valid=valid)
+                            forecast=forecast, valid=valid,
+                            **({"variance": variance} if het else {}))
         with open(os.path.join(out_dir, "config.json"), "w") as fh:
             fh.write(cfg.to_json())
         save_summary()
     barrier()
     if score_modes:
         summary["backtest"] = score_stitched(
-            forecast, valid, panel, score_modes, device=device,
-            **(score_kwargs or {}))
+            forecast, valid, panel, score_modes, variance=variance,
+            device=device, **(score_kwargs or {}))
         save_summary()
     return forecast, valid, summary

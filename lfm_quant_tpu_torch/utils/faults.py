@@ -15,13 +15,16 @@ Fault sites wired in the port:
 * ``panel_h2d``      — the device-panel transfer (train/loop.py
   ``Predictor``: the packed panel moved to the device);
 * ``zoo_lease``      — taking a serving lease on a zoo entry
-  (serve/zoo.py ``ModelZoo.lease``).
+  (serve/zoo.py ``ModelZoo.lease``);
+* ``ckpt_write``     — each checkpoint save (train/checkpoint.py
+  ``CheckpointManager.save``), where the preemption tests schedule
+  their ``sigterm``;
+* ``device_get``     — the epoch's one counted device→host fetch
+  (train/pipeline.py ``Fetch.wait``).
 
 Sites the spec accepts, as the JAX package's does, that nothing in the
-port checks yet: ``ckpt_write`` and ``device_get`` (with the ``sigterm``
-and ``sigkill`` kinds: preemption) and ``zoo_persist`` and
-``manifest_write`` (durable serving state). A spec naming them parses
-and never fires.
+port checks yet: ``zoo_persist`` and ``manifest_write`` (durable serving
+state). A spec naming them parses and never fires.
 
 Spec grammar (``LFM_FAULTS``)::
 
@@ -44,7 +47,7 @@ Kinds: ``transient`` raises :class:`TransientFault` (the retry layer's
 ``permanent`` raises :class:`PermanentFault` (fail fast, trip the
 breaker), ``sigterm`` delivers SIGTERM to the current process at the
 site and returns, ``sigkill`` delivers SIGKILL (the process dies at the
-site). The port wires no site that schedules the last two yet.
+site).
 
 Determinism: each site keeps a call counter and (for ``p``) a private
 ``random.Random(seed)``; given the same call order, two runs inject the

@@ -4,9 +4,9 @@
 append-only ``metrics.jsonl`` stream per run directory, one strict-JSON
 dict per line (non-finite floats written as ``null``), written and echoed
 by rank 0 alone in a process group. ``StepTimer`` is
-the port of ``utils/profiling.py``'s timer in firm-months per second; on
-the card it synchronises the device at both ends of an interval, so a
-time is the device's, not the enqueue's.
+the port of ``utils/profiling.py``'s timer in firm-months per second, on
+the host's clock: the epoch pipeline stops it after the epoch's fetch,
+which waited for the device (``train/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -16,9 +16,8 @@ import math
 import os
 import time
 import warnings
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional
 
-import torch
 
 from lfm_quant_tpu_torch.utils.distributed import is_main
 
@@ -71,13 +70,11 @@ class MetricsLogger:
 class StepTimer:
     """Interval timer with firm-month accounting.
 
-    ``start()`` and ``stop(firm_months=n)`` bracket device work; on a CUDA
-    device both synchronise it first, so queued kernels are inside the
-    interval. ``throughput()`` is firm-months per second over the
-    recorded intervals."""
+    ``start()`` and ``stop(firm_months=n)`` bracket work on the host's
+    clock. ``throughput()`` is firm-months per second over the recorded
+    intervals."""
 
-    def __init__(self, device: Union[str, torch.device] = "cpu"):
-        self.device = torch.device(device)
+    def __init__(self):
         self.reset()
 
     def reset(self) -> None:
@@ -86,12 +83,7 @@ class StepTimer:
         self.firm_months = 0.0
         self.steps = 0
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def start(self) -> None:
-        self._sync()
         self._t0 = time.perf_counter()
 
     def stop(self, firm_months: float = 0.0) -> float:
@@ -101,7 +93,6 @@ class StepTimer:
             warnings.warn("StepTimer.stop() called before start(); "
                           "ignoring this stop", RuntimeWarning, stacklevel=2)
             return 0.0
-        self._sync()
         dt = time.perf_counter() - self._t0
         self.seconds += dt
         self.firm_months += firm_months

@@ -337,7 +337,8 @@ def test_predict_matches_jax(cell, n_seeds):
     # Live months: forecast without a target.
     _, live = tt.predict(date_range=(108, 120), require_target=False)
     assert (live & ~panel.target_valid).any()
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    # A point head has no variance (the JAX trainer's ValueError).
+    with pytest.raises(ValueError, match="heteroscedastic"):
         tt.predict(return_variance=True)
     if n_seeds == 1:
         # MC-dropout sampling on a model without dropout: every sample
@@ -436,7 +437,8 @@ def test_backtest_cli_matches_the_numpy_engine(run_dirs, kind, tmp_path,
         with pytest.raises(SystemExit):
             backtest_main(["--run-dir", run_dir, "--device", "cpu",
                            "--mode", "mean_minus_std"])
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    # These runs have point heads: no aleatoric variance to score.
+    with pytest.raises(ValueError, match="heteroscedastic"):
         backtest_main(["--run-dir", run_dir, "--device", "cpu", "--mode",
                        "mean_minus_total_std"])
 

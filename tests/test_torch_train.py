@@ -72,12 +72,16 @@ def test_sampler_epochs_byte_equal(firms_per_date):
 
 
 def test_sampler_engines_and_guards():
+    from lfm_quant_tpu_torch import native
+
     panel = synthetic_panel(n_firms=30, n_months=100, n_features=3, seed=1)
     auto = DateBatchSampler(panel, 12, 2, 8, engine="auto")
-    py = DateBatchSampler(panel, 12, 2, 8, engine="python")
-    _equal(auto.stacked_epoch(3), py.stacked_epoch(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DateBatchSampler(panel, 12, 2, 8, engine="native")
+    # "auto" takes the native engine when it builds, as the JAX package's.
+    other = DateBatchSampler(panel, 12, 2, 8, engine="native"
+                             if native.available() else "python")
+    _equal(auto.stacked_epoch(3), other.stacked_epoch(3))
+    with pytest.raises(ValueError, match="python|native|auto"):
+        DateBatchSampler(panel, 12, 2, 8, engine="cython")
     with pytest.raises(ValueError, match="dates_per_batch"):
         DateBatchSampler(panel, 12, 10_000, 8)
     with pytest.raises(ValueError, match="firms_per_date"):

@@ -284,15 +284,22 @@ def test_ensemble_flag_follows_the_trainer_kind(tmp_path, panel):
     assert not (run_dir / "ensemble.flag").exists()
 
 
-def test_unported_options_raise(panel):
+def test_unported_options_raise(panel, tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
         W.run_walkforward(_port_cfg(), panel, start=_start(panel),
                           foldstack=True, device="cpu", **SWEEP)
+    # A heteroscedastic sweep resumes only from a snapshot that carries
+    # its variances (the JAX package's check).
     het = dataclasses.replace(_port_cfg(), optim=dataclasses.replace(
         _port_cfg().optim, loss="nll"))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    shape = (panel.n_firms, panel.n_months)
+    np.savez_compressed(tmp_path / "partial.npz",
+                        forecast=np.zeros(shape, np.float32),
+                        valid=np.zeros(shape, bool))
+    (tmp_path / "partial.json").write_text("[]")
+    with pytest.raises(ValueError, match="lacks variances"):
         W.run_walkforward(het, panel, start=_start(panel), device="cpu",
-                          **SWEEP)
+                          out_dir=str(tmp_path), resume=True, **SWEEP)
     fc = np.zeros((panel.n_firms, panel.n_months), np.float32)
     with pytest.raises(ValueError, match="stacked forecasts"):
         W.score_stitched(fc, panel.valid, panel, ["mean_minus_std"],
@@ -348,7 +355,8 @@ def test_train_cli_walk_forward(tmp_path, capsys):
                            "mean_minus_std"])
     with pytest.raises(SystemExit):
         train_main(base + ["--walk-forward", "12", "--wf-score", "median"])
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    # Total std needs stitched variances: a point-head config is refused.
+    with pytest.raises(SystemExit):
         train_main(base + ["--walk-forward", "12", "--wf-score",
                            "mean,mean_minus_total_std@1"])
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
