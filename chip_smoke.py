@@ -211,10 +211,32 @@ imports nothing of JAX. Phases, each fatal on failure:
 22. the native sampler: c5's sampler geometry on the Python and the
    native engine (one epoch's host ms, the structure checks), then c2
    for one epoch with ``sampler_engine="native"``;
-23. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
-   10, 11-15, 17-22 for the one-seed rows, 6, 7, 16 and 19-21 for the
+23. durable serving: c2 and c3 published into a store and scored on
+   three months each, the service closed; ``python -m
+   lfm_quant_tpu_torch.serve --persist DIR --restore --http PORT`` in a
+   fresh process (each probe ``bit_equal``, 0 nvcc builds, one panel
+   upload per universe, rows 3 and 5 launched, the same months bitwise
+   over HTTP; its restore wall and first-response latency beside the
+   cold register-and-warmup); a publisher SIGKILLed at
+   ``manifest_write`` (``--refresh``), then a restore here: the old
+   generation, bitwise, the staged one swept;
+24. the fleet: two members (``python -m lfm_quant_tpu_torch.serve.fleet``)
+   start from the store on the card and pass the join gate; four
+   closed-loop HTTP clients through the ``FleetRouter`` over one member,
+   then over both with one SIGKILLed mid-run (0 client errors, every
+   response bitwise the pre-kill scores, failovers counted; req/s,
+   p50/p99 before and after, goodput against one member); a replacement
+   joins, and a second generation of c2 reaches both live members
+   through ``/sync``;
+25. entry telemetry: ``python -m lfm_quant_tpu_torch.train --preset c2
+   --epochs 1`` and ``python -m lfm_quant_tpu_torch.backtest --run-dir``:
+   their traces hold ``fit``, ``eval``, ``sample``, ``h2d``, ``predict``
+   and ``score``, rendered by ``scripts/trace_report.py``; then one
+   ``{"durable": ..., "fleet": ..., "entry_telemetry": ...}`` line;
+26. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
+   10, 11-15, 17-23 for the one-seed rows, 6, 7, 16 and 19-21 for the
    seed rows);
-24. print the result line ``{"ok": true, "device": {...}}`` last.
+27. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -4913,6 +4935,529 @@ def native_phase(torch, cfg2, cfg5, totals: dict, cache: dict) -> None:
     torch.cuda.empty_cache()
 
 
+DURABLE = ("c2", "c3")    # phases 23-24: the universes published
+DURABLE_MONTHS = 3        # months per universe scored before the exit
+DURABLE_REQUESTS = 32     # the restored process's load
+FLEET_MONTHS = 24         # months per universe the fleet's clients draw
+FLEET_REQUESTS = 192      # each fleet load's requests
+FLEET_KILL_AFTER = 64     # responses before the member is SIGKILLed
+MEMBER_READY_S = 400      # a member's start-up limit (restore included)
+ROW3 = ("rnn_fused_fwd_mma_lstm", "rnn_fused_fwd_mma_gru")
+
+
+def free_port() -> int:
+    """A port no one listens on (bound and released: the sealed machine
+    has no one else to take it)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_env(**extra) -> dict:
+    env = dict(os.environ, PYTHONPATH=ROOT, **extra)
+    for k in ("LFM_FAULTS", "LFM_ZOO_PERSIST", "LFM_FLEET"):
+        if k not in extra:
+            env.pop(k, None)
+    return env
+
+
+def wait_json_line(proc, log_path: str, key: str, timeout_s: float) -> dict:
+    """The first JSON line holding ``key`` that a subprocess printed into
+    ``log_path``; fails if it exits first or the time runs out."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        with open(log_path) as fh:
+            for line in fh:
+                if line.startswith("{") and f'"{key}"' in line:
+                    return json.loads(line)
+        if proc.poll() is not None:
+            with open(log_path) as fh:
+                fail(f"subprocess exited {proc.returncode} before its "
+                     f"{key!r} line: {fh.read()[-2000:]}")
+        time.sleep(0.2)
+    proc.kill()
+    fail(f"no {key!r} line within {timeout_s} s")
+
+
+def scores_over_http(port: int, months: dict) -> dict:
+    """One request at a time (rows bucket 1, the probe's geometry):
+    ``{(universe, month): float32 scores}``."""
+    import numpy as np
+
+    out = {}
+    for u in sorted(months):
+        for m in months[u]:
+            status, _, body, _ = http_get(port,
+                                          f"/score?universe={u}&month={m}")
+            if status != 200:
+                fail(f"{u}/{m} answered {status}: {body[:300]}")
+            out[(u, m)] = np.asarray(json.loads(body)["scores"], np.float32)
+    return out
+
+
+def same_bits(label: str, got: dict, want: dict) -> None:
+    import numpy as np
+
+    for key, ref in want.items():
+        if key not in got or not np.array_equal(got[key], ref):
+            fail(f"{label}: {key} scores are not bitwise equal to the "
+                 "scores served before")
+    log(f"{label}: {len(want)} score vectors bitwise equal")
+
+
+def durable_phase(torch, totals: dict, cache: dict, tmp: str) -> dict:
+    """Phase 23: durable serving. c2 and c3 at full width (random weights
+    from the presets' seeds) are registered with a store and published
+    into it (each register timed: the cold register-and-warmup, the
+    commit included), :data:`DURABLE_MONTHS` months of each are scored one
+    at a time, and the service is closed. Then:
+
+    1. ``python -m lfm_quant_tpu_torch.serve --preset c2 --persist DIR
+       --restore --http PORT`` in a fresh process: each universe's probe
+       ``bit_equal``, 0 kernel builds, one panel upload per universe, rows
+       3 and 5 launched by its load, its restore wall and first-response
+       latency; the same months over HTTP bitwise equal to the scores
+       before the exit;
+    2. the same command with ``--refresh`` and ``LFM_FAULTS=
+       manifest_write:at=0,kind=sigkill``: the refresh's publish of
+       generation 1 dies by SIGKILL before the manifest's rename;
+    3. a restore in this process, counted: generation 0 of both, bitwise
+       the scores before the exit, the crashed publish's dir swept.
+
+    Returns the store's path and the reference scores for phase 24."""
+    from lfm_quant_tpu_torch.config import get_preset
+    from lfm_quant_tpu_torch.serve import ScoringService
+
+    store = os.path.join(tmp, "store")
+    names, cold_s, commit_s = {}, {}, {}
+    months, pre = {}, {}
+    with ScoringService(device="cuda", max_rows=8,
+                        persist_dir=store) as svc:
+        record = svc.store.record_publish
+
+        def timed_record(entry, **kw):
+            t0 = time.perf_counter()
+            out = record(entry, **kw)
+            commit_s[entry.universe] = time.perf_counter() - t0
+            return out
+
+        svc.store.record_publish = timed_record
+        for name in DURABLE:
+            cfg = get_preset(name)
+            panel = panel_of(cfg, cache)
+            names[name] = cfg.name
+            t0 = time.perf_counter()
+            svc.register(cfg.name, cfg, panel)
+            torch.cuda.synchronize()
+            cold_s[name] = time.perf_counter() - t0
+            log(f"phase 23: {name} registered, warmed and published in "
+                f"{cold_s[name]:.3f} s (the commit "
+                f"{commit_s[cfg.name]:.3f} s)")
+        for name, u in names.items():
+            ms = svc.serveable_months(u)
+            months[u] = ms[::len(ms) // DURABLE_MONTHS][:DURABLE_MONTHS]
+            for m in months[u]:
+                pre[(u, m)] = svc.score(u, m).scores
+        manifest = json.load(open(os.path.join(store, "manifest.json")))
+    torch.cuda.empty_cache()
+    log(f"phase 23: store committed ({sorted(manifest['universes'])}); "
+        "the publishing service is closed")
+
+    # 1. A fresh process restores and serves.
+    port = free_port()
+    log_path = os.path.join(tmp, "restore.log")
+    cmd = [sys.executable, "-m", "lfm_quant_tpu_torch.serve", "--preset",
+           "c2", "--persist", store, "--restore", "--requests",
+           str(DURABLE_REQUESTS), "--threads", "4", "--http", str(port)]
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(cmd, env=cli_env(), cwd=ROOT, stdout=fh,
+                                stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        stats = wait_json_line(proc, log_path, "restore_s", 600)
+        proc_s = time.perf_counter() - t0
+        got = {(r["universe"], r["generation"], r["probe"])
+               for r in stats["restored"]}
+        want = {(u, 0, "bit_equal") for u in names.values()}
+        if got != want:
+            fail(f"phase 23: restored {got}, want {want}")
+        if stats["restore_compiles"] != 0:
+            fail(f"phase 23: the restore built the kernels "
+                 f"({stats['restore_compiles']} nvcc builds)")
+        if stats["restore_panel_h2d"] != len(names):
+            fail(f"phase 23: {stats['restore_panel_h2d']} panel uploads "
+                 f"for {len(names)} universes")
+        launches = stats["kernel_launches"]
+        for k in ("rnn_fused_fwd_mma_lstm", "window_gather"):
+            if not launches.get(k):
+                fail(f"phase 23: the restored process's load did not "
+                     f"launch {k}")
+        for k, n in launches.items():
+            totals[k] += n
+        time.sleep(0.5)  # the front door binds after the stats line
+        after = scores_over_http(port, months)
+        same_bits("phase 23 restored process", after, pre)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    out = {"cold_register_s": cold_s,
+           "commit_s": {k: commit_s[v] for k, v in names.items()},
+           "restore_s": stats["restore_s"],
+           "first_response_ms": stats["first_response_ms"],
+           "restore_process_to_stats_s": proc_s,
+           "restored_load_req_per_s": stats["req_per_s"],
+           "restored_load_p50_ms": stats["p50_ms"],
+           "restored_load_p99_ms": stats["p99_ms"]}
+    log(f"phase 23: restore {stats['restore_s']:.3f} s for "
+        f"{len(names)} universes (0 builds, {len(names)} panel uploads), "
+        f"first response {stats['first_response_ms']:.3f} ms; cold "
+        "register-and-warmup " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in cold_s.items()))
+
+    # 2. A publisher killed at the commit point.
+    kill_log = os.path.join(tmp, "killed.log")
+    with open(kill_log, "w") as fh:
+        killed = subprocess.run(
+            cmd[:-2] + ["--refresh", "--requests", "16"],
+            env=cli_env(LFM_FAULTS="manifest_write:at=0,kind=sigkill"),
+            cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT, timeout=600)
+    if killed.returncode != -9:
+        fail(f"phase 23: the publisher exited {killed.returncode}, not by "
+             f"SIGKILL: {open(kill_log).read()[-2000:]}")
+    staged = [d for d in os.listdir(os.path.join(store, "universes",
+                                                 names["c2"]))
+              if d.startswith("gen_00001")]
+    log(f"phase 23: publisher SIGKILLed at manifest_write (staged, "
+        f"uncommitted: {staged})")
+
+    # 3. The restore after the crash, in this process, counted.
+    with ScoringService(device="cuda", max_rows=8,
+                        persist_dir=store) as svc:
+        t0 = time.perf_counter()
+        restored, counts = counted(
+            "the restore after the crash",
+            ROW3 + ("window_gather",), svc.restore)
+        wall = time.perf_counter() - t0
+        for k, n in counts.items():
+            totals[k] += n
+        if sorted((r["universe"], r["generation"], r["probe"])
+                  for r in restored) != sorted(want):
+            fail(f"phase 23: after the crash restored {restored}")
+        after = {(u, m): svc.score(u, m).scores for (u, m) in pre}
+        same_bits("phase 23 after the SIGKILL", after, pre)
+        for u in names.values():
+            udir = os.path.join(store, "universes", u)
+            gens = sorted(d for d in os.listdir(udir)
+                          if d.startswith("gen_"))
+            if gens != ["gen_00000"]:
+                fail(f"phase 23: {u} holds {gens} after the sweep")
+        out["restore_after_kill_s"] = wall
+    torch.cuda.empty_cache()
+    log(f"phase 23: the old generation restored in {wall:.3f} s, bitwise; "
+        "the staged generation swept")
+    return {"store": store, "names": names, "months": months, "pre": pre,
+            "summary": out}
+
+
+def fleet_load(port: int, months: dict, n_requests: int, seed: int,
+               kill=None) -> list:
+    """:data:`STACK_CLIENTS` closed-loop clients on ``/score`` until
+    ``n_requests`` answered; ``kill`` (a callable) runs once
+    :data:`FLEET_KILL_AFTER` have. Records ``(universe, month, status,
+    body, client ms, done at)``; the kill's time is the last record's
+    ``done at`` before it, returned as the list's ``kill_at``."""
+    import threading
+
+    import numpy as np
+
+    names = sorted(months)
+    lock = threading.Lock()
+    recs = []
+    state = {"issued": 0, "kill_at": None}
+
+    def client(k: int) -> None:
+        rng = np.random.default_rng([seed, k])
+        while True:
+            with lock:
+                if state["issued"] >= n_requests:
+                    return
+                state["issued"] += 1
+            u = names[int(rng.integers(len(names)))]
+            m = months[u][int(rng.integers(len(months[u])))]
+            status, _, body, ms = http_get(port,
+                                           f"/score?universe={u}&month={m}")
+            fire = False
+            with lock:
+                recs.append((u, m, status, json.loads(body), ms,
+                             time.perf_counter()))
+                if kill is not None and state["kill_at"] is None and \
+                        len(recs) >= FLEET_KILL_AFTER:
+                    state["kill_at"] = time.perf_counter()
+                    fire = True
+            if fire:
+                kill()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(STACK_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        fail("phase 24: a fleet client did not finish")
+    return recs, state["kill_at"]
+
+
+def fleet_summary(recs: list, wall_s: float) -> dict:
+    import numpy as np
+
+    ms = np.asarray([r[4] for r in recs])
+    return {"requests": len(recs),
+            "req_per_s": len(recs) / wall_s,
+            "client_p50_ms": float(np.percentile(ms, 50)),
+            "client_p99_ms": float(np.percentile(ms, 99))}
+
+
+def fleet_phase(torch, totals: dict, durable: dict, tmp: str) -> dict:
+    """Phase 24: the fleet on the one card. Two members (``python -m
+    lfm_quant_tpu_torch.serve.fleet``, each its own CUDA context) start
+    from phase 23's store at once and pass the join gate (restore
+    ``bit_equal``, at the fence, the store's probe scored through each
+    bitwise; 0 kernel builds, one panel upload per universe). Behind
+    ``make_http_server`` on a ``FleetRouter``, :data:`STACK_CLIENTS`
+    closed-loop HTTP clients run :data:`FLEET_REQUESTS` requests over a
+    one-member fleet (the baseline), then over both members, the primary
+    SIGKILLed after :data:`FLEET_KILL_AFTER` responses: no client error,
+    every response bitwise equal to a sequential pass made before the
+    kill (itself bitwise phase 23's scores), ``fleet_failovers`` > 0;
+    req/s and client p50/p99 before and after the kill, goodput against
+    the baseline. A replacement member joins; a second generation of c2
+    published to the store reaches both live members through ``/sync``,
+    bitwise the publisher's scores."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from lfm_quant_tpu_torch.config import get_preset
+    from lfm_quant_tpu_torch.serve import ScoringService, ZooStore, fleet
+    from lfm_quant_tpu_torch.serve.http import make_http_server
+    from lfm_quant_tpu_torch.utils import telemetry
+
+    store, names, pre = durable["store"], durable["names"], durable["pre"]
+    procs, servers = [], []
+    summary = {}
+
+    def serve(front):
+        httpd = make_http_server(front, 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append(httpd)
+        return httpd.server_address[1]
+
+    def spawn(k):
+        rf = os.path.join(tmp, f"ready_m{k}.json")
+        procs.append(fleet.spawn_member(store, ready_file=rf))
+        return procs[-1], rf
+
+    def admit(coord, k, info):
+        for r in info["restore"]:
+            if r["probe"] != "bit_equal":
+                fail(f"phase 24: member m{k} restored {r}")
+        if info["restore_compiles"] != 0 or \
+                info["restore_panel_h2d"] != len(names):
+            fail(f"phase 24: member m{k} paid {info['restore_compiles']} "
+                 f"builds, {info['restore_panel_h2d']} panel uploads")
+        member = fleet.HttpMember(f"m{k}",
+                                  f"http://127.0.0.1:{info['port']}",
+                                  pid=info["pid"])
+        coord.add_member(member)
+        return member
+
+    try:
+        t0 = time.perf_counter()
+        specs = [spawn(k) for k in range(2)]
+        infos = [fleet.wait_member_ready(p, rf, MEMBER_READY_S)
+                 for p, rf in specs]
+        summary["members_ready_s"] = time.perf_counter() - t0
+        gated = ZooStore(store, readonly=True)
+        coord = fleet.FleetCoordinator(store=gated)
+        members = [admit(coord, k, info) for k, info in enumerate(infos)]
+        log(f"phase 24: 2 members ready in {summary['members_ready_s']:.1f}"
+            " s and admitted (bit_equal, at the fence "
+            f"{coord.fence()}, 0 builds)")
+        router = fleet.FleetRouter(coord, breaker=1, cooldown_ms=60_000,
+                                   retries=3)
+        all_months = {}
+        for u in names.values():
+            ms = members[0].serveable_months(u)
+            all_months[u] = ms[::max(1, len(ms) // FLEET_MONTHS)][
+                :FLEET_MONTHS]
+        ref_port = serve(router)
+        ref = scores_over_http(ref_port, all_months)
+        same_bits("phase 24 the phase-23 months through the router",
+                  scores_over_http(ref_port, durable["months"]), pre)
+
+        def check(label, recs):
+            for u, m, status, body, _, _ in recs:
+                if status != 200:
+                    fail(f"{label}: {u}/{m} answered {status}: {body}")
+                got = np.asarray(body["scores"], np.float32)
+                if not np.array_equal(got, ref[(u, m)]):
+                    fail(f"{label}: {u}/{m} is not bitwise the pre-kill "
+                         "scores")
+
+        # The one-member baseline.
+        one = fleet.FleetCoordinator(store=gated)
+        one.add_member(members[0])
+        one_port = serve(fleet.FleetRouter(one, retries=3))
+        t0 = time.perf_counter()
+        recs, _ = fleet_load(one_port, all_months, FLEET_REQUESTS, 0)
+        base = fleet_summary(recs, time.perf_counter() - t0)
+        check("phase 24 one member", recs)
+        summary["one_member"] = base
+
+        # Two members, the primary killed mid-run.
+        victim = coord.route(names["c2"])[0]
+        vproc = procs[int(victim[1:])]
+        snap = telemetry.COUNTERS.snapshot()
+        two_port = serve(router)
+        t0 = time.perf_counter()
+        recs, kill_at = fleet_load(
+            two_port, all_months, FLEET_REQUESTS, 1,
+            kill=lambda: os.kill(vproc.pid, signal.SIGKILL))
+        wall = time.perf_counter() - t0
+        d = telemetry.COUNTERS.delta(snap)
+        check("phase 24 through the kill", recs)
+        before = [r for r in recs if r[5] <= kill_at]
+        after = [r for r in recs if r[5] > kill_at]
+        if not d.get("fleet_failovers"):
+            fail(f"phase 24: no failover counted ({d})")
+        if coord.slot(victim).state != "out" or not router.health()["ok"]:
+            fail(f"phase 24: after the kill {router.health()}")
+        two = fleet_summary(recs, wall)
+        two.update(before=fleet_summary(before, kill_at - t0),
+                   after=fleet_summary(after, t0 + wall - kill_at),
+                   failovers=d.get("fleet_failovers", 0),
+                   reroutes=d.get("fleet_reroutes", 0),
+                   client_errors=sum(r[2] != 200 for r in recs),
+                   goodput_vs_one_member=two["req_per_s"]
+                   / base["req_per_s"])
+        summary["two_members_kill"] = two
+        log(f"phase 24 one member: {base['req_per_s']:.2f} req/s, client "
+            f"p50 {base['client_p50_ms']:.3f} p99 "
+            f"{base['client_p99_ms']:.3f} ms")
+        log(f"phase 24 two members, {victim} SIGKILLed after "
+            f"{len(before)} responses: {two['req_per_s']:.2f} req/s "
+            f"({two['goodput_vs_one_member']:.3f}x the one-member fleet), "
+            f"before p50 {two['before']['client_p50_ms']:.3f} p99 "
+            f"{two['before']['client_p99_ms']:.3f} ms, after p50 "
+            f"{two['after']['client_p50_ms']:.3f} p99 "
+            f"{two['after']['client_p99_ms']:.3f} ms; "
+            f"{two['failovers']} failovers, 0 client errors, every "
+            "response bitwise")
+
+        # A replacement, then a second generation through the fence.
+        p, rf = spawn(2)
+        members.append(admit(coord, 2,
+                             fleet.wait_member_ready(p, rf, MEMBER_READY_S)))
+        cfg = get_preset("c2")
+        with ScoringService(device="cuda", max_rows=8,
+                            persist_dir=store) as svc:
+            svc.restore()
+            svc.register(names["c2"],
+                         dataclasses.replace(cfg, seed=cfg.seed + 1),
+                         svc.zoo.current(names["c2"]).panel)
+            new = {(u, m): svc.score(u, m).scores
+                   for (u, m) in pre if u == names["c2"]}
+        torch.cuda.empty_cache()
+        if coord.fence()[names["c2"]] != 1:
+            fail(f"phase 24: fence {coord.fence()} after the publish")
+        out = coord.sync_members()
+        live = [m for m in members if m.name != victim]
+        for m in live:
+            res = out["members"][m.name]
+            if not res["up_to_date"] or res["synced"] != 1:
+                fail(f"phase 24: {m.name} sync {res}")
+            got = {(u, mo): m.score(u, mo, timeout_s=120).scores
+                   for (u, mo) in new}
+            same_bits(f"phase 24 {m.name} at generation 1", got, new)
+        if any(np.array_equal(new[k], pre[k]) for k in new):
+            fail("phase 24: generation 1 scores equal generation 0's")
+        summary["sync"] = {m.name: out["members"][m.name] for m in live}
+        log(f"phase 24: generation 1 of c2 reached {[m.name for m in live]}"
+            " through /sync, bitwise the publisher's")
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+    return summary
+
+
+def entry_telemetry_phase(tmp: str) -> dict:
+    """Phase 25: telemetry around the entry points. ``python -m
+    lfm_quant_tpu_torch.train --preset c2 --epochs 1`` and ``python -m
+    lfm_quant_tpu_torch.backtest --run-dir`` on its run dir, each in its
+    own process; their ``spans.jsonl`` holds the trainer's ``fit``,
+    ``eval``, ``sample`` and ``h2d`` spans and the backtest's ``predict``
+    and ``score``, and the unchanged ``scripts/trace_report.py`` renders
+    the run (one fit, one epoch, one host sync an epoch)."""
+    out_dir = os.path.join(tmp, "train")
+    t0 = time.perf_counter()
+    train = subprocess.run(
+        [sys.executable, "-m", "lfm_quant_tpu_torch.train", "--preset", "c2",
+         "--epochs", "1", "--out", out_dir], env=cli_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    train_s = time.perf_counter() - t0
+    if train.returncode != 0:
+        fail(f"phase 25: train exited {train.returncode}: "
+             f"{train.stderr[-2000:]}")
+    summary = json.loads(train.stdout[train.stdout.index("{"):])
+    run_dir = summary["run_dir"]
+    t0 = time.perf_counter()
+    bt = subprocess.run(
+        [sys.executable, "-m", "lfm_quant_tpu_torch.backtest", "--run-dir",
+         run_dir], env=cli_env(), cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    backtest_s = time.perf_counter() - t0
+    if bt.returncode != 0:
+        fail(f"phase 25: backtest exited {bt.returncode}: "
+             f"{bt.stderr[-2000:]}")
+    with open(os.path.join(run_dir, "spans.jsonl")) as fh:
+        spans = [json.loads(line) for line in fh if line.strip()]
+    names = {s["name"] for s in spans}
+    need = {"fit", "eval", "sample", "h2d", "predict", "score"}
+    if not need <= names:
+        fail(f"phase 25: spans {sorted(need - names)} missing")
+    script = os.path.join(ROOT, "scripts", "trace_report.py")
+    rep = subprocess.run([sys.executable, script, run_dir, "--json"],
+                         capture_output=True, text=True, timeout=120)
+    text = subprocess.run([sys.executable, script, run_dir],
+                          capture_output=True, text=True, timeout=120)
+    if rep.returncode != 0 or text.returncode != 0:
+        fail(f"phase 25: trace_report failed: {rep.stderr[-1000:]}"
+             f"{text.stderr[-1000:]}")
+    report = json.loads(rep.stdout)
+    if report["n_fits"] != 1 or report["n_epochs"] != 1 or \
+            report["syncs_per_epoch"] != 1.0:
+        fail(f"phase 25: trace_report read {report['n_fits']} fits, "
+             f"{report['n_epochs']} epochs, {report['syncs_per_epoch']} "
+             "host syncs an epoch")
+    for line in text.stdout.splitlines()[:14]:
+        log(f"phase 25 trace_report | {line}")
+    spans_s = {n: sum(s["dur_s"] for s in spans if s["name"] == n)
+               for n in sorted(need)}
+    log(f"phase 25: train {train_s:.1f} s, backtest {backtest_s:.1f} s "
+        "(each process's start included); span totals " + ", ".join(
+            f"{n} {v:.4f} s" for n, v in spans_s.items()))
+    return {"train_s": train_s, "backtest_s": backtest_s,
+            "span_s": spans_s, "epochs_per_hour": report["epochs_per_hour"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lfm_quant_tpu_torch")):
         fail("lfm_quant_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -5126,9 +5671,23 @@ def main() -> int:
 
     # ---- 22. the native sampler ----------------------------------------
     native_phase(torch, cfg2, cfg5, totals, panels)
-    del panels
 
-    # ---- 23. kernels line -----------------------------------------------
+    # ---- 23-25. durable serving, the fleet, entry telemetry -------------
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lfm_durable_")
+    try:
+        durable = durable_phase(torch, totals, panels, tmp)
+        del panels
+        fleet_out = fleet_phase(torch, totals, durable, tmp)
+        entry = entry_telemetry_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"durable": durable["summary"], "fleet": fleet_out,
+                      "entry_telemetry": entry}, default=str), flush=True)
+
+    # ---- 26. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -5154,7 +5713,7 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 24. result -----------------------------------------------------
+    # ---- 27. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -67,87 +67,106 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from lfm_quant_tpu_torch.backtest import resolve_backtest
     from lfm_quant_tpu_torch.device import resolve_device
+    from lfm_quant_tpu_torch.utils import telemetry
 
     device = resolve_device(args.device)  # no card: raise before any work
     run_backtest = resolve_backtest(device)
+    # Telemetry into the run dir being graded (the stitched file's
+    # directory for --forecast-npz), so scripts/trace_report.py covers
+    # the backtest pass too; LFM_TELEMETRY=0 turns it off.
+    tele_dir = args.run_dir
     if args.forecast_npz:
-        import numpy as np
+        tele_dir = (args.forecast_npz if os.path.isdir(args.forecast_npz)
+                    else os.path.dirname(args.forecast_npz) or ".")
+    with telemetry.run_scope(tele_dir, extra={
+            "entry": "backtest",
+            "cli": {"mode": args.mode, "quantile": args.quantile,
+                    "long_short": args.long_short,
+                    "costs_bps": args.costs_bps,
+                    "mc_samples": args.mc_samples}}):
+        if args.forecast_npz:
+            import numpy as np
 
-        from lfm_quant_tpu_torch.backtest.torch_engine import (
-            aggregate_scores_device,
-        )
-        from lfm_quant_tpu_torch.config import RunConfig
-        from lfm_quant_tpu_torch.train.loop import resolve_panel
+            from lfm_quant_tpu_torch.backtest.torch_engine import (
+                aggregate_scores_device,
+            )
+            from lfm_quant_tpu_torch.config import RunConfig
+            from lfm_quant_tpu_torch.train.loop import resolve_panel
 
-        if args.mc_samples > 0:
-            ap.error("--mc-samples needs a live model; a forecast file is "
-                     "already sampled/stitched")
-        if args.split is not None:
-            ap.error("--split does not apply to --forecast-npz: the "
-                     "simulated months are fixed by the stitched file")
-        path = args.forecast_npz
-        if os.path.isdir(path):
-            path = os.path.join(path, "walkforward.npz")
-        with open(os.path.join(os.path.dirname(path), "config.json")) as fh:
-            cfg = RunConfig.from_json(fh.read())
-        data = np.load(path)
-        forecast, fc_valid = data["forecast"], data["valid"]
-        panel = resolve_panel(cfg.data)
-        if args.mode == "mean_minus_total_std":
-            if "variance" not in data:
-                ap.error("--mode mean_minus_total_std needs stitched "
-                         "aleatoric variances; this file has none (train "
-                         "the walk-forward with a heteroscedastic config — "
-                         "loss='nll')")
-            avar = data["variance"]
-            if forecast.ndim == 2:  # a single heteroscedastic model
-                forecast, avar = forecast[None], avar[None]
-            scores, fc_valid, _ = aggregate_scores_device(
-                forecast, fc_valid, [args.mode], args.risk_lambda,
-                aleatoric_var=avar, device=device)
-            forecast = scores[0]
-        elif forecast.ndim == 3:  # a stitched ensemble
-            scores, fc_valid, _ = aggregate_scores_device(
-                forecast, fc_valid, [args.mode], args.risk_lambda,
-                device=device)
-            forecast = scores[0]
-        elif args.mode != "mean":
-            ap.error(f"--mode {args.mode} needs stacked forecasts; this "
-                     "file holds a single model's (already-aggregated) "
-                     "walk-forward forecasts")
-    else:
-        from lfm_quant_tpu_torch.train.forecast import (
-            is_ensemble_run_dir,
-            load_forecaster,
-            run_forecast,
-        )
+            if args.mc_samples > 0:
+                ap.error("--mc-samples needs a live model; a forecast file is "
+                         "already sampled/stitched")
+            if args.split is not None:
+                ap.error("--split does not apply to --forecast-npz: the "
+                         "simulated months are fixed by the stitched file")
+            path = args.forecast_npz
+            if os.path.isdir(path):
+                path = os.path.join(path, "walkforward.npz")
+            with open(os.path.join(os.path.dirname(path),
+                                   "config.json")) as fh:
+                cfg = RunConfig.from_json(fh.read())
+            data = np.load(path)
+            forecast, fc_valid = data["forecast"], data["valid"]
+            panel = resolve_panel(cfg.data)
+            if args.mode == "mean_minus_total_std":
+                if "variance" not in data:
+                    ap.error("--mode mean_minus_total_std needs stitched "
+                             "aleatoric variances; this file has none "
+                             "(train the walk-forward with a "
+                             "heteroscedastic config — loss='nll')")
+                avar = data["variance"]
+                if forecast.ndim == 2:  # a single heteroscedastic model
+                    forecast, avar = forecast[None], avar[None]
+                scores, fc_valid, _ = aggregate_scores_device(
+                    forecast, fc_valid, [args.mode], args.risk_lambda,
+                    aleatoric_var=avar, device=device)
+                forecast = scores[0]
+            elif forecast.ndim == 3:  # a stitched ensemble
+                scores, fc_valid, _ = aggregate_scores_device(
+                    forecast, fc_valid, [args.mode], args.risk_lambda,
+                    device=device)
+                forecast = scores[0]
+            elif args.mode != "mean":
+                ap.error(f"--mode {args.mode} needs stacked forecasts; this "
+                         "file holds a single model's (already-aggregated) "
+                         "walk-forward forecasts")
+        else:
+            from lfm_quant_tpu_torch.train.forecast import (
+                is_ensemble_run_dir,
+                load_forecaster,
+                run_forecast,
+            )
 
-        if is_ensemble_run_dir(args.run_dir) and args.mc_samples > 0:
-            # Before load_forecaster restores every seed's checkpoint.
-            ap.error("--mc-samples applies to single-model run dirs only; "
-                     "this is a seed ensemble — its uncertainty comes from "
-                     "the seeds (use --mode mean_minus_std directly)")
-        model, splits, is_ensemble = load_forecaster(args.run_dir,
-                                                     device=device)
-        forecast, fc_valid = run_forecast(
-            model, is_ensemble, mode=args.mode,
-            risk_lambda=args.risk_lambda, mc_samples=args.mc_samples,
-            error=ap.error, split=args.split or "test")
-        panel = splits.panel
+            if is_ensemble_run_dir(args.run_dir) and args.mc_samples > 0:
+                # Before load_forecaster restores every seed's checkpoint.
+                ap.error("--mc-samples applies to single-model run dirs "
+                         "only; this is a seed ensemble — its uncertainty "
+                         "comes from the seeds (use --mode mean_minus_std "
+                         "directly)")
+            model, splits, is_ensemble = load_forecaster(args.run_dir,
+                                                         device=device)
+            with telemetry.span("predict", cat="predict"):
+                forecast, fc_valid = run_forecast(
+                    model, is_ensemble, mode=args.mode,
+                    risk_lambda=args.risk_lambda,
+                    mc_samples=args.mc_samples, error=ap.error,
+                    split=args.split or "test")
+            panel = splits.panel
 
-    report = run_backtest(forecast, fc_valid, panel,
-                          quantile=args.quantile,
-                          long_short=args.long_short,
-                          costs_bps=args.costs_bps)
-    print(report.summary())
-    if args.yearly:
-        for y, rec in sorted(report.yearly().items()):
-            print(f"  {y}: ret {rec['ret']:+8.2%}  bench "
-                  f"{rec['bench']:+8.2%}  IC {rec['mean_ic']:+.3f}  "
-                  f"({rec['n_months']} mo)")
-    if args.json_out:
-        with open(args.json_out, "w") as fh:
-            fh.write(report.to_json())
+        with telemetry.span("score", cat="score"):
+            report = run_backtest(forecast, fc_valid, panel,
+                                  quantile=args.quantile,
+                                  long_short=args.long_short,
+                                  costs_bps=args.costs_bps)
+        print(report.summary())
+        if args.yearly:
+            for y, rec in sorted(report.yearly().items()):
+                print(f"  {y}: ret {rec['ret']:+8.2%}  bench "
+                      f"{rec['bench']:+8.2%}  IC {rec['mean_ic']:+.3f}  "
+                      f"({rec['n_months']} mo)")
+        if args.json_out:
+            with open(args.json_out, "w") as fh:
+                fh.write(report.to_json())
     return 0
 
 

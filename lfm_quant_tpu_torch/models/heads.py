@@ -38,6 +38,23 @@ class Dense(nn.Module):
         return dense_apply(x, self.kernel, self.bias, dtype)
 
 
+def ordered_dense(x: torch.Tensor, kernel: torch.Tensor,
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x [..., K] @ kernel [K, N] + bias`` in f32, each output summed
+    over K in one fixed order (pairwise halving, then the odd remainder)
+    by elementwise ops, so a row's result is the same bits whatever the
+    other rows of the call: a matrix product's algorithm, and with it its
+    summation order, may change with the row count."""
+    p = x.float()[..., :, None] * kernel.float()  # [..., K, N] products
+    while p.shape[-2] > 1:
+        k = p.shape[-2]
+        h = k // 2
+        s = p[..., :h, :] + p[..., h:2 * h, :]
+        p = torch.cat([s, p[..., 2 * h:, :]], dim=-2) if k % 2 else s
+    y = p[..., 0, :]
+    return y if bias is None else y + bias.float()
+
+
 def dense_apply(x: torch.Tensor, kernel: torch.Tensor,
                 bias: Optional[torch.Tensor],
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -86,7 +103,14 @@ class ForecastHead(nn.Module):
     def forward(self, z: torch.Tensor):
         for layer in self.hidden:
             z = gelu(layer(z, dtype=self.dtype))
-        y = self.out(z, dtype=torch.float32)
+        if torch.is_grad_enabled() or self.out.kernel.dim() == 3:
+            y = self.out(z, dtype=torch.float32)
+        else:
+            # Inference (served scores, their publish-time probe, sweeps,
+            # predicts): each row's output must not depend on how many
+            # rows share the call, and cuBLAS's f32 product picks its
+            # algorithm by the row count (ROADMAP.md Queue C).
+            y = ordered_dense(z, self.out.kernel, self.out.bias)
         if self.heteroscedastic:
             return y[..., 0], 8.0 * torch.tanh(y[..., 1] / 8.0)
         return y[..., 0]

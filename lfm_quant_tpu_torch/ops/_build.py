@@ -103,6 +103,11 @@ def _build() -> Path:
     if so.exists():
         return so
     nvcc = _nvcc()
+    from lfm_quant_tpu_torch.utils import telemetry
+
+    # The builds a run paid (a restore's compile cost: none when this
+    # digest's library is already on disk).
+    telemetry.COUNTERS.bump("kernel_builds")
     t0 = time.perf_counter()
     procs = []
     for src in _sources():

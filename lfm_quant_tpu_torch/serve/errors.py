@@ -115,7 +115,7 @@ class ServiceClosedError(ServeError):
 
 class MemberUnavailableError(ServeError):
     """The fleet router exhausted every candidate member for the
-    universe (the fleet router, a later slice of the port): each replica was out
+    universe (serve/fleet.py ``FleetRouter``): each replica was out
     (dead, open-circuit, unready) or failed its attempt within the
     bounded member-retry budget. The fleet-level twin of
     :class:`CircuitOpenError` — fast-fail with a Retry-After covering
@@ -139,7 +139,7 @@ class MemberUnavailableError(ServeError):
 
 class SnapshotIntegrityError(ServeError):
     """A durable zoo generation failed restore-time verification
-    (the durable store, a later slice of the port): params checksum mismatch,
+    (serve/persist.py ``ZooStore``): params checksum mismatch,
     parity-probe bit-inequality, panel hash mismatch, or an unreadable
     artifact. The restore loop catches it, QUARANTINES the snapshot
     (renamed aside, loud warning) and falls back to the next-older

@@ -12,9 +12,16 @@ lfm_quant_tpu_torch.serve --http PORT``:
     GET /healthz                          → 200 ok | 503 + reason
                                             (+ SLO-burn/drift detail)
     GET /metrics                          → Prometheus text exposition
+    GET /fleet                            → a member's join report, or a
+                                            router's topology and fence
+    GET /sync                             → pull newer generations from
+                                            the durable store (a member)
 
-``/stats`` and ``/healthz`` share one ``service.snapshot()`` call per
-request. Failure semantics (serve/errors.py ``http_status``):
+``service`` is a ``ScoringService`` or a fleet's ``FleetRouter``
+(serve/fleet.py): the router's ``/healthz`` aggregates one health probe
+per member and its ``/metrics`` relabels each member's scrape with
+``member="name"``. ``/stats`` and ``/healthz`` share one
+``service.snapshot()`` call per request. Failure semantics (serve/errors.py ``http_status``):
 
     shed (queue at LFM_SERVE_QUEUE_MAX)     → 429 + Retry-After
     circuit open (consecutive failures)     → 503 + Retry-After
@@ -24,7 +31,6 @@ request. Failure semantics (serve/errors.py ``http_status``):
     /healthz degraded                       → 503 + {"ok": false, reason}
 
 ``LFM_ACCESS_LOG`` (default off) writes one JSON line per request.
-The fleet's ``/fleet`` and ``/sync`` belong to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -190,6 +196,28 @@ def make_http_server(service, port: int):
                     return self._send_text(
                         200, service.metrics_text(),
                         "text/plain; version=0.0.4; charset=utf-8")
+                if url.path == "/fleet":
+                    # A router answers with its registry and fence; a
+                    # member with the join report the coordinator's gate
+                    # verifies.
+                    if hasattr(service, "fleet_info"):
+                        return self._send(200, service.fleet_info())
+                    from lfm_quant_tpu_torch.serve.fleet import join_report
+
+                    return self._send(200, join_report(service))
+                if url.path == "/sync":
+                    # Publish propagation: pull the generations beyond
+                    # the served ones from the durable store, verified
+                    # like a restore.
+                    if getattr(service, "store", None) is None:
+                        return self._send(
+                            404, {"error": "no durable store attached "
+                                           "(LFM_ZOO_PERSIST/--persist)"})
+                    synced = service.sync_from_store()
+                    return self._send(200, {
+                        "synced": synced,
+                        "universes": service.zoo.snapshot()["universes"],
+                    })
                 if url.path == "/score":
                     q = parse_qs(url.query)
                     u, m = q["universe"][0], int(q["month"][0])
@@ -241,7 +269,7 @@ def run_http(service, port: int):
     httpd = make_http_server(service, port)
     print(f"[serve] http on 127.0.0.1:{httpd.server_address[1]} "
           f"(/score?universe=NAME&month=YYYYMM, /stats, /healthz, "
-          f"/metrics)",
+          f"/metrics, /fleet, /sync)",
           flush=True)
     try:
         httpd.serve_forever()

@@ -1,9 +1,8 @@
 """The scoring service: zoo + batcher + refresh, one object.
 
-Port of ``lfm_quant_tpu/serve/service.py`` without the durable store and
-the fleet (``restore``, ``sync_from_store``: ROADMAP.md Queue A).
-``register`` a model per universe, warm every request-shape bucket the
-universe can produce, then ``score`` / ``submit`` serve month queries.
+Port of ``lfm_quant_tpu/serve/service.py``. ``register`` a model per
+universe, warm every request-shape bucket the universe can produce, then
+``score`` / ``submit`` serve month queries.
 The service owns the device: every registered model and its panel live
 there. Around the batcher sit the degradation layer (shedding,
 deadlines, retries, the circuit breaker: serve/batcher.py), the metrics
@@ -19,6 +18,14 @@ dropped or torn. The copy is load-bearing: the optimizer updates params
 in place, so the served generation's tensors must never reach the fit.
 The refresh trains on the same card and stream as the batcher's
 dispatches, so the two serialize on the card while it runs.
+
+Durable state (serve/persist.py): with a store (``persist_dir=`` or
+``LFM_ZOO_PERSIST``) every publish of ``register`` and ``refresh`` is
+committed to it before the in-memory swap; :meth:`ScoringService.restore`
+stands a fresh process back up from it, verified, and
+:meth:`ScoringService.sync_from_store` pulls the generations a fleet's
+writer published since (serve/fleet.py). With no store nothing of this
+runs.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 from lfm_quant_tpu_torch.config import RunConfig
 from lfm_quant_tpu_torch.data.panel import Panel
 from lfm_quant_tpu_torch.device import resolve_device
-from lfm_quant_tpu_torch.serve import buckets
+from lfm_quant_tpu_torch.serve import buckets, persist
 from lfm_quant_tpu_torch.serve.batcher import MicroBatcher, ScoreResponse
 from lfm_quant_tpu_torch.serve.incident import IncidentManager
 from lfm_quant_tpu_torch.serve.monitor import ServiceMonitor, slo_status
@@ -62,7 +69,10 @@ class ScoringService:
                  breaker_threshold: Optional[int] = None,
                  breaker_cooldown_ms: Optional[float] = None,
                  incident_dir: Optional[str] = None,
-                 incident_cooldown_s: Optional[float] = None):
+                 incident_cooldown_s: Optional[float] = None,
+                 persist_dir: Optional[str] = None,
+                 keep_generations: Optional[int] = None,
+                 persist_readonly: bool = False):
         self.device = resolve_device(device)
         self.zoo = ModelZoo(zoo_capacity or buckets.zoo_capacity_default())
         self.max_rows = max_rows or buckets.max_rows_default()
@@ -79,6 +89,23 @@ class ScoringService:
             cooldown_s=incident_cooldown_s)
         self.batcher.incidents = self.incidents
         self._refresh_lock = threading.Lock()
+        # The durable store: the ctor's dir, else LFM_ZOO_PERSIST; unset
+        # means NO store object and every publish path as without it.
+        # persist_readonly: a fleet member attaching the deploy artifact
+        # (no sweep, no journal, no quarantine renames).
+        pd = persist_dir if persist_dir is not None \
+            else persist.persist_dir_default()
+        self.store = (persist.ZooStore(pd, keep=keep_generations,
+                                       readonly=persist_readonly)
+                      if pd else None)
+        if self.store is not None:
+            self.store.incidents = self.incidents
+        # The last restore()/sync_from_store() outcome and what it cost:
+        # the nvcc builds it caused and its panel uploads (the join
+        # report a fleet's gate reads).
+        self.last_restore: Optional[List[Dict[str, Any]]] = None
+        self.last_restore_compiles: Optional[int] = None
+        self.last_restore_panel_h2d: Optional[int] = None
 
     # ---- registration / warmup --------------------------------------
 
@@ -102,6 +129,11 @@ class ScoringService:
         if warm:
             self.warmup_entry(entry)
             self._stamp_reference(entry)
+        # Durable record BEFORE the in-memory swap: a crash after the
+        # manifest commit restores this generation, one before it the
+        # predecessor.
+        if self.store is not None:
+            self.store.record_publish(entry, max_rows=self.max_rows)
         self.zoo.publish(entry)
         return entry
 
@@ -258,8 +290,54 @@ class ScoringService:
                 entry = ZooEntry(universe, cur.generation + 1, trainer)
                 self.warmup_entry(entry)
                 self._stamp_reference(entry)
+                if self.store is not None:
+                    self.store.record_publish(entry,
+                                              max_rows=self.max_rows)
                 self.zoo.publish(entry)
             return entry
+
+    # ---- durable restore / in-process recovery -----------------------
+
+    def _from_store(self, warm: bool, only_newer: bool):
+        """The store's restore into this service, and the nvcc builds
+        and panel uploads it caused."""
+        if self.store is None:
+            raise RuntimeError(
+                "restore() and sync_from_store() need a durable store — "
+                "pass persist_dir= or set LFM_ZOO_PERSIST to the store "
+                "directory")
+        snap = telemetry.COUNTERS.snapshot()
+        out = self.store.restore_into(self, warm=warm,
+                                      only_newer=only_newer)
+        d = telemetry.COUNTERS.delta(snap)
+        return out, int(d.get("kernel_builds", 0)), int(
+            d.get("panel_transfers", 0))
+
+    def restore(self, warm: bool = True) -> List[Dict[str, Any]]:
+        """Stand the service up from the durable store: every committed
+        universe re-registered, verified (panel hash, params checksum,
+        the probe month bitwise equal to the publish-time probe), warmed,
+        its drift reference re-stamped. Returns one info dict per
+        restored universe; a snapshot that fails verification is
+        quarantined and its universe falls back to an older generation
+        or to nothing (a fresh retrain), never to wrong numbers."""
+        out, builds, h2d = self._from_store(warm, only_newer=False)
+        self.last_restore = out
+        self.last_restore_compiles = builds
+        self.last_restore_panel_h2d = h2d
+        return out
+
+    def sync_from_store(self) -> List[Dict[str, Any]]:
+        """A fleet's publish propagation: pull every generation the store
+        committed BEYOND what this service serves (the manifest's
+        generation is the fence), verified like a restore. Universes at
+        the fence are untouched; returns the adopted generations, and
+        folds their cost into the ``last_restore*`` fields."""
+        out, builds, h2d = self._from_store(True, only_newer=True)
+        self.last_restore = (self.last_restore or []) + out
+        self.last_restore_compiles = (self.last_restore_compiles or 0) + builds
+        self.last_restore_panel_h2d = (self.last_restore_panel_h2d or 0) + h2d
+        return out
 
     # ---- in-process recovery -----------------------------------------
 

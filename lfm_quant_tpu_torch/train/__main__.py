@@ -55,6 +55,11 @@ geometry-bucket ladder. A SIGTERM stops the run at the next epoch
 boundary with its checkpoints durable (the checkpoint waits are bounded
 by ``LFM_CKPT_WAIT_S``) and the process exits 75: re-run it with
 ``--resume`` to continue with the same history.
+
+Telemetry: the run dir also gets the run's manifest, ``spans.jsonl``,
+``trace.json`` and run record (``LFM_TELEMETRY=0`` turns them off), with
+the trainers' ``fit``, ``eval``, ``sample`` and ``h2d`` spans; ``python
+scripts/trace_report.py <run dir>`` rolls them up.
 """
 
 from __future__ import annotations
@@ -184,9 +189,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 def _run(ap, args, device, wf_score_modes) -> int:
     """Config → run, on this process's device; rank 0 prints."""
     from lfm_quant_tpu_torch.config import RunConfig, get_preset
-    from lfm_quant_tpu_torch.train.ensemble import run_ensemble_experiment
-    from lfm_quant_tpu_torch.train.loop import run_experiment
     from lfm_quant_tpu_torch.utils import distributed as dist_utils
+    from lfm_quant_tpu_torch.utils import telemetry
 
     if args.preset:
         cfg = get_preset(args.preset)
@@ -222,6 +226,23 @@ def _run(ap, args, device, wf_score_modes) -> int:
             n_months=max(d.window + d.horizon + 96, 120,
                          int(d.n_months * args.scale)),
         ))
+    # The run dir each branch writes, known up front: its telemetry (the
+    # manifest, spans.jsonl, trace.json and the run record; the trainers'
+    # fit/eval/sample/h2d spans) goes beside the checkpoints, rank 0's
+    # alone. LFM_TELEMETRY=0 turns it off.
+    leaf = ("wf" if args.walk_forward is not None
+            else "ensemble" if cfg.n_seeds > 1 else f"seed{cfg.seed}")
+    run_dir = os.path.join(cfg.out_dir, cfg.name, leaf)
+    with telemetry.run_scope(run_dir if dist_utils.is_main() else None,
+                             cfg, extra={"entry": "train"}):
+        return _run_in_scope(args, cfg, device, wf_score_modes)
+
+
+def _run_in_scope(args, cfg, device, wf_score_modes) -> int:
+    from lfm_quant_tpu_torch.train.ensemble import run_ensemble_experiment
+    from lfm_quant_tpu_torch.train.loop import run_experiment
+    from lfm_quant_tpu_torch.utils import distributed as dist_utils
+
     if args.walk_forward is not None:
         from lfm_quant_tpu_torch.train.loop import resolve_panel
         from lfm_quant_tpu_torch.train.walkforward import run_walkforward

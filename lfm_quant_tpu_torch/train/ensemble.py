@@ -127,6 +127,7 @@ from lfm_quant_tpu_torch.train.loop import (
 from lfm_quant_tpu_torch.train import pipeline
 from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
 from lfm_quant_tpu_torch.utils import distributed as dist_utils
+from lfm_quant_tpu_torch.utils import telemetry
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import flax_param_map, load_flax_params
 from lfm_quant_tpu_torch.weights import init_params as seeded_init
@@ -527,7 +528,11 @@ class EnsembleTrainer:
         """Per-seed, per-month Spearman IC ``[S, M]`` over a stacked ``[M,
         bf]`` val batch, on the device (the JAX vmapped ``_forward_impl``;
         ``window``: a geometry bucket's lookback): this rank's members
-        over its block of months, gathered."""
+        over its block of months, gathered. Traced as an ``eval`` span."""
+        with telemetry.span("eval", cat="eval"):
+            return self._eval_ic_sweep(params, fi, ti, w, window)
+
+    def _eval_ic_sweep(self, params, fi, ti, w, window):
         self.model.eval()
         M = fi.shape[0]
         rows = self._month_rows(M)
@@ -573,11 +578,15 @@ class EnsembleTrainer:
         device (K the shortest member's steps) and its firm-month count.
         Thread-safe for an explicit epoch (the pipeline's prefetch thread
         builds here)."""
-        per_seed = [s.stacked_epoch(epoch) for s in self.samplers]
-        k = min(b.firm_idx.shape[0] for b in per_seed)
-        fi, ti, w = (np.stack([getattr(b, f)[:k] for b in per_seed], axis=1)
-                     for f in ("firm_idx", "time_idx", "weight"))
-        return stage(self.device, fi, ti, w), float(w.sum()) * self.window
+        with telemetry.span("sample", epoch=epoch):
+            per_seed = [s.stacked_epoch(epoch) for s in self.samplers]
+            k = min(b.firm_idx.shape[0] for b in per_seed)
+            fi, ti, w = (np.stack([getattr(b, f)[:k] for b in per_seed],
+                                  axis=1)
+                         for f in ("firm_idx", "time_idx", "weight"))
+        with telemetry.span("h2d", epoch=epoch):
+            staged = stage(self.device, fi, ti, w)
+        return staged, float(w.sum()) * self.window
 
     def _epoch_parts(self, epoch: int):
         """The pipeline's epoch: ``[(lookback, (fi, ti, w))]``, one part
@@ -593,18 +602,21 @@ class EnsembleTrainer:
         per (lookback × width) bucket a ``[K_b, S, D, width]`` stack from
         the per-seed samplers. The geometry is seed-invariant, so every
         member has the same buckets; only the shuffles differ."""
-        per_seed = [s.bucketed_epoch(epoch) for s in self.samplers]
-        keys = [k for k, _ in per_seed[0]]
-        if any([k for k, _ in ps] != keys for ps in per_seed):
-            raise RuntimeError("per-seed bucket geometry diverged")
-        parts = [((lb, w), WindowIndex(*(
-            np.stack([getattr(ps[i][1], f) for ps in per_seed], axis=1)
-            for f in ("firm_idx", "time_idx", "weight"))))
-            for i, (lb, w) in enumerate(keys)]
-        fm = count_bucket_cells(parts, self.samplers[0].firms_per_date,
-                                self.window)
-        return [(lb, stage(self.device, b.firm_idx, b.time_idx, b.weight))
-                for (lb, _), b in parts], fm
+        with telemetry.span("sample", epoch=epoch):
+            per_seed = [s.bucketed_epoch(epoch) for s in self.samplers]
+            keys = [k for k, _ in per_seed[0]]
+            if any([k for k, _ in ps] != keys for ps in per_seed):
+                raise RuntimeError("per-seed bucket geometry diverged")
+            parts = [((lb, w), WindowIndex(*(
+                np.stack([getattr(ps[i][1], f) for ps in per_seed], axis=1)
+                for f in ("firm_idx", "time_idx", "weight"))))
+                for i, (lb, w) in enumerate(keys)]
+            fm = count_bucket_cells(parts, self.samplers[0].firms_per_date,
+                                    self.window)
+        with telemetry.span("h2d", epoch=epoch):
+            staged = [(lb, stage(self.device, b.firm_idx, b.time_idx,
+                                 b.weight)) for (lb, _), b in parts]
+        return staged, fm
 
     def _val_sweep(self):
         """The epoch's per-seed validation ICs ``[S, M]`` as a callable of
@@ -655,7 +667,18 @@ class EnsembleTrainer:
         optimizer starting fresh. Restores the best state at the end; a
         SIGTERM raises ``Preempted`` with the recorded epochs durable.
         Returns the summary and ``step_losses`` (``[K]`` lists of the
-        per-seed losses, in order)."""
+        per-seed losses, in order). Traced as the ``fit`` span, with the
+        epochs' ``sample``, ``h2d`` and ``eval`` spans in it."""
+        with telemetry.span("fit", cat="fit", kind="ensemble",
+                            n_seeds=self.n_seeds) as sp:
+            out = self._fit_impl(resume, init_params)
+            sp.set(epochs_run=out["epochs_run"],
+                   best_epoch=out["best_epoch"])
+            return out
+
+    def _fit_impl(self, resume: bool,
+                  init_params: Optional[Mapping[str, Any]]
+                  ) -> Dict[str, Any]:
         cfg = self.cfg
         if cfg.optim.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")

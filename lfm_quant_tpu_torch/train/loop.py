@@ -235,6 +235,7 @@ class Predictor:
         faults.check("panel_h2d", n_firms=panel.n_firms,
                      n_months=panel.n_months)
         self.dev = device_panel(panel, self.device, compute_dtype(cfg))
+        telemetry.COUNTERS.bump("panel_transfers")
         #: The data mesh the sweeps shard months over (a trainer binds
         #: its own; serving runs on one device).
         self.mesh = DataMesh()
@@ -784,7 +785,14 @@ class Trainer(Predictor):
         ``window``: a geometry bucket's lookback): months padded with
         weight-0 repeats into whole chunks and, under a data mesh, one
         block of them per rank (the JAX ``_forward_eval``); the ICs are
-        gathered and the error and weight sums summed across the ranks."""
+        gathered and the error and weight sums summed across the ranks.
+        Traced as an ``eval`` span (the dispatch's host time: the sweep
+        runs on, asynchronously)."""
+        with telemetry.span("eval", cat="eval"):
+            return self._eval_sweep(fi, ti, w, window)
+
+    def _eval_sweep(self, fi: torch.Tensor, ti: torch.Tensor,
+                    w: torch.Tensor, window: Optional[int]):
         self.model.eval()
         M = fi.shape[0]
         rows, n_real = self._month_rows(M)
@@ -895,7 +903,19 @@ class Trainer(Predictor):
         Returns the summary (best val IC and epoch, epochs run, steps,
         firm-months per second, whether the lookahead ran over an early
         stop, the per-epoch ``history``) and ``step_losses``, every
-        step's loss in order."""
+        step's loss in order. Traced as the ``fit`` span; each epoch's
+        ``sample`` (host sampling) and ``h2d`` (its index batch onto the
+        device) spans and the validation sweep's ``eval`` spans nest in
+        it, as in the JAX trainer."""
+        with telemetry.span("fit", cat="fit", kind="trainer") as sp:
+            out = self._fit_impl(resume, init_params)
+            sp.set(epochs_run=out["epochs_run"],
+                   best_epoch=out["best_epoch"])
+            return out
+
+    def _fit_impl(self, resume: bool,
+                  init_params: Optional[Mapping[str, Any]]
+                  ) -> Dict[str, Any]:
         cfg = self.cfg
         if cfg.optim.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.optim.epochs}")
@@ -918,9 +938,12 @@ class Trainer(Predictor):
             build = self._bucketed_build
         else:
             def build(epoch):
-                b = self.train_sampler.stacked_epoch(epoch)
-                return ([(self.window, stage(self.device, b.firm_idx,
-                                             b.time_idx, b.weight))],
+                with telemetry.span("sample", epoch=epoch):
+                    b = self.train_sampler.stacked_epoch(epoch)
+                with telemetry.span("h2d", epoch=epoch):
+                    staged = stage(self.device, b.firm_idx, b.time_idx,
+                                   b.weight)
+                return ([(self.window, staged)],
                         float(b.weight.sum()) * self.window)
 
         def dispatch(state, parts):
@@ -977,11 +1000,15 @@ class Trainer(Predictor):
         bucket a ``[K_b, D, width]`` index stack on the device, and the
         epoch's firm-month count; counts the padded cells
         (``bucket_cells_*``) against the max shape's."""
-        parts = self.train_sampler.bucketed_epoch(epoch)
-        return [(lb, stage(self.device, b.firm_idx, b.time_idx, b.weight))
-                for (lb, _), b in parts], \
-            count_bucket_cells(parts, self.train_sampler.firms_per_date,
-                               self.window)
+        with telemetry.span("sample", epoch=epoch):
+            parts = self.train_sampler.bucketed_epoch(epoch)
+            cells = count_bucket_cells(parts,
+                                       self.train_sampler.firms_per_date,
+                                       self.window)
+        with telemetry.span("h2d", epoch=epoch):
+            staged = [(lb, stage(self.device, b.firm_idx, b.time_idx,
+                                 b.weight)) for (lb, _), b in parts]
+        return staged, cells
 
     # ---- inference -------------------------------------------------------
 

@@ -20,11 +20,14 @@ Fault sites wired in the port:
   ``CheckpointManager.save``), where the preemption tests schedule
   their ``sigterm``;
 * ``device_get``     — the epoch's one counted device→host fetch
-  (train/pipeline.py ``Fetch.wait``).
-
-Sites the spec accepts, as the JAX package's does, that nothing in the
-port checks yet: ``zoo_persist`` and ``manifest_write`` (durable serving
-state). A spec naming them parses and never fires.
+  (train/pipeline.py ``Fetch.wait``);
+* ``zoo_persist``    — a durable publish, after its journal ``begin``
+  and before any artifact is staged (serve/persist.py
+  ``ZooStore.record_publish``);
+* ``manifest_write`` — the publish's commit point, checked just before
+  (even call index) and just after (odd) the manifest's atomic rename
+  (``ZooStore._commit_manifest``), where the crash tests deliver their
+  ``sigkill``.
 
 Spec grammar (``LFM_FAULTS``)::
 

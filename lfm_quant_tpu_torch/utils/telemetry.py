@@ -430,6 +430,8 @@ _KNOB_PROBES = (
     ("precision", "lfm_quant_tpu_torch.config", "resolve_precision"),
     ("metrics", "lfm_quant_tpu_torch.utils.metrics", "enabled"),
     ("flight", "lfm_quant_tpu_torch.utils.flight", "enabled"),
+    ("zoo_persist", "lfm_quant_tpu_torch.serve.persist", "persist_enabled"),
+    ("fleet", "lfm_quant_tpu_torch.serve.fleet", "fleet_enabled"),
 )
 
 
