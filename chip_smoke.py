@@ -88,8 +88,8 @@ imports nothing of JAX. Phases, each fatal on failure:
 7. the c5 backtest: the ensemble phase 6 trained is written to a run dir
    and reloaded through ``load_forecaster``; its test-split forecasts (64
    seeds; one seed-grid launch of the fused forward per month and seed
-   chunk, counted) are held to the plain path on the card (atol 0.05 +
-   rtol 0.05); ``mean``,
+   chunk, counted), those of the split's first 16 months held to the
+   plain path on the card (atol 0.05 + rtol 0.05); ``mean``,
    ``mean_minus_std@0.5`` and ``@2`` are aggregated and backtested in one
    ``run_scoring_pipeline`` pass on the card, and each report is held to
    the numpy engine run on the same host-fetched scores at the tolerances
@@ -198,8 +198,9 @@ imports nothing of JAX. Phases, each fatal on failure:
    early-stop epochs and restored params bitwise equal, else within the
    training gate with the decisions exact and the finding logged; one
    counted host sync per epoch; each epoch's wall), the device's gaps
-   between epochs with the pipeline off and on (``torch.profiler``), c5
-   for 2 epochs with the pipeline on (epoch 0 against phase 6's), and
+   between epochs with the pipeline off and on (``torch.profiler``, 2
+   epochs), c5 for 2 epochs with the pipeline on and off (epoch 0
+   against phase 6's), and
    ``python -m lfm_quant_tpu_torch.train --preset c2 --epochs 3`` as a
    subprocess SIGTERM'd at its third checkpoint write (exit 75) and
    resumed (the uninterrupted fit's history and best params);
@@ -233,10 +234,28 @@ imports nothing of JAX. Phases, each fatal on failure:
    their traces hold ``fit``, ``eval``, ``sample``, ``h2d``, ``predict``
    and ``score``, rendered by ``scripts/trace_report.py``; then one
    ``{"durable": ..., "fleet": ..., "entry_telemetry": ...}`` line;
-26. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
-   10, 11-15, 17-23 for the one-seed rows, 6, 7, 16 and 19-21 for the
-   seed rows);
-27. print the result line ``{"ok": true, "device": {...}}`` last.
+26. stacked runs on c2 at full width: ``run_config_sweep`` (the
+   ``--sweep-grid`` path) of a 4-config LR x weight-decay grid for 2
+   epochs as one stack and one fit after another (each run's per-step
+   losses within the training gate, epochs run, best epoch and ranking
+   equal, its best val IC and best params within ``STACK_IC_LIMIT`` and
+   ``STACK_PARAM_LIMIT`` of its sequential fit's, a planted control --
+   sequential run 0 in place of each run, as a stack that collapsed its
+   members' lr and weight decay would train them -- rejected wherever
+   the lr differs, one seed-grid launch of rows 3-5 a stacked step;
+   configs/hour both ways, ms per stacked step, the busy share over
+   stacked steps,
+   peak memory), ``run_walkforward(foldstack=True)`` over 3 folds of a
+   rolling window against the sequential sweep (the same gates but the
+   params, the stitched forecasts within the gate, folds/hour both
+   ways), and the
+   train entry's ``main`` for one epoch on a CSV panel (1000 x 240, two
+   derived features) parsed natively without pandas; then one
+   ``{"stacked_runs": ...}`` line;
+27. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
+   10, 11-15, 17-23 and 26's sequential fits for the one-seed rows, 6,
+   7, 16, 19-21 and 26's stacks for the seed rows);
+28. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -343,6 +362,7 @@ RANKS_TIMEOUT_S = 600
 C5_PLAIN_STEPS = 3   # c5 steps held against the plain path
 C5_PLAIN_BLOCK = 8   # seed_block of the plain path (its autograd memory)
 C5_PREDICT_MONTHS = 3  # test months phase 16's gathered forecasts cover
+C5_PLAIN_PREDICT_MONTHS = 16  # phase 7's test months held to the plain path
 GATHER_NO_LIBRARY = (
     "no single PyTorch call: one advanced index reads the raw rows; the "
     "window also needs the validity column split off and the masked and "
@@ -1471,12 +1491,12 @@ def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
     torch.cuda.empty_cache()
 
 
-def profile_device(torch, fn, label: str) -> dict:
+def profile_device(torch, fn, label: str, stats: dict = None) -> dict:
     """Device time by kernel name over ``fn`` under ``torch.profiler``,
     and the device's busy share of the wall time (summed kernel times over
     the wall clock); returns the device ms by kernel name (empty when the
-    trace holds no device time). Informational: it runs after the launch
-    counts were read."""
+    trace holds no device time) and puts the wall ms in ``stats``.
+    Informational: it runs after the launch counts were read."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1485,6 +1505,8 @@ def profile_device(torch, fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if stats is not None:
+        stats["wall_ms"] = wall_ms
     by_name = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -2254,7 +2276,7 @@ def c5_backtest_phase(torch, trainer, panel, totals, seed_launches
     # The same predict, timed warm, on the gather kernel and on the plain
     # gather (the fused forward on both): what the gather kernel saves.
     warm = {}
-    for impl in ("kernel", "plain", "kernel", "plain"):
+    for impl in ("kernel", "plain"):
         model.gather_impl = impl
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2268,29 +2290,36 @@ def c5_backtest_phase(torch, trainer, panel, totals, seed_launches
     profile_device(torch, lambda: model.predict("test"),
                    f"c5 predict, test split, {S} seeds")
 
-    # The plain path on the card, from the same params.
+    # The plain path on the card, from the same params, over the test
+    # split's first C5_PLAIN_PREDICT_MONTHS months (the plain path of 64
+    # seeds takes about 0.3 s a month), the kernels' forecast of the same
+    # months beside it.
+    lo = splits.range_of("test")[0]
+    span = (lo, lo + C5_PLAIN_PREDICT_MONTHS)
+    got, got_valid = model.predict(date_range=span)
     plain = EnsembleTrainer(plain_variant(cfg), splits, device="cuda")
     plain.state = plain.init_state({k: p.detach().cpu().numpy()
                                     for k, p in model.state.params.items()})
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    want, want_valid = plain.predict("test")
+    want, want_valid = plain.predict(date_range=span)
     plain_ms = 1e3 * (time.perf_counter() - t0)
     if any(_build.launch_counts().values()):
         fail(f"the plain c5 predict launched kernels: "
              f"{_build.launch_counts()}")
     del plain
     torch.cuda.empty_cache()
-    if not np.array_equal(want_valid, valid):
+    if not np.array_equal(want_valid, got_valid) or not got_valid.any():
         fail("c5 predict: the plain path's valid cells differ")
-    err = np.abs(stacked[:, valid] - want[:, valid])
-    if (err > BF16_TOL + BF16_TOL * np.abs(want[:, valid])).any():
+    err = np.abs(got[:, got_valid] - want[:, got_valid])
+    if (err > BF16_TOL + BF16_TOL * np.abs(want[:, got_valid])).any():
         fail(f"c5 predict: forecasts differ from the plain path by up to "
              f"{err.max()}")
-    log(f"c5 predict matches the plain path on the card ({int(valid.sum())} "
-        f"cells x {S} seeds): max abs err {err.max():.4g} (tol {BF16_TOL} + "
-        f"{BF16_TOL}|plain|); plain path {plain_ms:.1f} ms")
-    del want, err
+    log(f"c5 predict matches the plain path on the card "
+        f"({int(got_valid.sum())} cells x {S} seeds, months {span}): max abs "
+        f"err {err.max():.4g} (tol {BF16_TOL} + {BF16_TOL}|plain|); plain "
+        f"path {plain_ms:.1f} ms")
+    del want, err, got
 
     # Three modes backtested in one pass, against the numpy engine.
     torch.cuda.synchronize()
@@ -4116,6 +4145,8 @@ def serving_stack_phase(torch, totals: dict, cache: dict) -> dict:
 
 PIPE_EPOCHS = 3     # phase 20's fits, cut from the preset's 30
 C5_PIPE_EPOCHS = 2  # phase 20's c5 fits: epoch 1 rides the lookahead
+# Phase 20's profiled c2 fits: one epoch boundary each (cut from 3).
+GAP_EPOCHS = 2
 # (LFM_ASYNC, LFM_ASYNC_CKPT): the four settings of phase 20.
 KNOBS = ((0, 0), (0, 1), (1, 0), (1, 1))
 # History fields that must agree across the settings.
@@ -4449,9 +4480,9 @@ def pipeline_phase(torch, cfg2, cfg5, totals: dict, seed_launches: dict,
     :data:`PIPE_EPOCHS` epochs under the four ``LFM_ASYNC`` ×
     ``LFM_ASYNC_CKPT`` settings (agreement, one counted host sync per
     epoch, each epoch's wall), the inter-epoch device gaps with the
-    pipeline off and on (``torch.profiler``), c5 for
-    :data:`C5_PIPE_EPOCHS` epochs with the pipeline on and off (and its
-    first steps against phase 6's), then ``python -m
+    pipeline off and on (``torch.profiler``, :data:`GAP_EPOCHS` epochs),
+    c5 for :data:`C5_PIPE_EPOCHS` epochs with the pipeline on and off (and
+    its first steps against phase 6's), then ``python -m
     lfm_quant_tpu_torch.train --preset c2`` as a real subprocess
     SIGTERM'd at its third checkpoint write (exit 75) and resumed (the
     history and best params of the uninterrupted fit)."""
@@ -4513,9 +4544,11 @@ def pipeline_phase(torch, cfg2, cfg5, totals: dict, seed_launches: dict,
         torch.cuda.empty_cache()
 
         # The device's gaps between epochs, the pipeline off and on.
+        gap_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+            cfg.optim, epochs=GAP_EPOCHS))
         for loop in (0, 1):
             knobs(loop, loop)
-            trainer = Trainer(cfg, splits2, device="cuda")
+            trainer = Trainer(gap_cfg, splits2, device="cuda")
             gaps = kernel_gaps(torch, trainer.fit)
             if "busy_ms" not in gaps:
                 log(f"c2 gaps (LFM_ASYNC={loop}): no device time in the "
@@ -4523,7 +4556,7 @@ def pipeline_phase(torch, cfg2, cfg5, totals: dict, seed_launches: dict,
                 continue
             out[f"gaps_async{loop}"] = {k: v for k, v in gaps.items()
                                         if k != "out"}
-            log(f"c2 x{PIPE_EPOCHS} under the profiler (LFM_ASYNC={loop}, "
+            log(f"c2 x{GAP_EPOCHS} under the profiler (LFM_ASYNC={loop}, "
                 f"LFM_ASYNC_CKPT={loop}): wall {gaps['wall_ms']:.1f} ms, "
                 f"device busy {gaps['busy_ms']:.1f} ms, idle "
                 f"{gaps['idle_ms']:.1f} ms between the first and the last "
@@ -5458,6 +5491,441 @@ def entry_telemetry_phase(tmp: str) -> dict:
             "span_s": spans_s, "epochs_per_hour": report["epochs_per_hour"]}
 
 
+# ---- phase 26: stacked runs ----------------------------------------------
+
+SWEEP_GRID = "lr=1e-3,3e-4;weight_decay=1e-4,0"  # the sweep's 4 configs
+SWEEP_EPOCHS = 2      # cut from the preset's 30
+FOLDS, FOLD_EPOCHS, FOLD_TRAIN = 3, 1, 120  # rolling 120-month windows
+CSV_FIRMS, CSV_MONTHS = 1000, 240
+CSV_DERIVED = ("mom_12_1", "vol_6")
+STACK_TIMED_STEPS = 8  # stacked steps timed and profiled
+# The final-state gate of a stack against its sequential fits: each run's
+# best val IC and best params, about 10x the largest gaps sound stacks
+# showed on an H100 (best val ICs 9.42e-6 folds, 4.65e-6 sweep; best
+# params 2.11e-3). A stack run with its members' lr collapsed to member
+# 0's came out 0.0196 and 0.0258 away.
+STACK_IC_LIMIT = 1e-4
+STACK_PARAM_LIMIT = 0.02
+# The stacked path's kernels: the gather's seed fold and the seed grids of
+# rows 3 and 4 (c2's members are the runs).
+STACK_KERNELS = ("window_gather", "rnn_fused_fwd_mma_lstm",
+                 "rnn_fused_bwd_mma_lstm")
+
+
+def stacked_losses(torch, capture: list, n_runs: int):
+    """The per-step losses ``[steps, runs]`` a stacked fit's epochs
+    returned (captured around ``StackedRuns.dispatch_epoch``)."""
+    return torch.cat([v.float().cpu() for v in capture]).numpy().reshape(
+        -1, n_runs)
+
+
+def runs_agree(label: str, stacked, sequential, stk_runs, seq_runs
+               ) -> dict:
+    """A stack against its sequential fits: each run's per-step losses
+    within the training gate, its epochs run and best epoch equal;
+    whether the losses came out bitwise."""
+    import numpy as np
+
+    if len(sequential) != stacked.shape[1]:
+        fail(f"{label}: {len(sequential)} sequential fits for "
+             f"{stacked.shape[1]} stacked runs")
+    worst, bitwise = 0.0, True
+    for r, (want, a, b) in enumerate(zip(sequential, stk_runs, seq_runs)):
+        if (a["epochs_run"], a["best_epoch"]) != (b["epochs_run"],
+                                                  b["best_epoch"]):
+            fail(f"{label} run {r}: stacked epochs/best "
+                 f"{a['epochs_run']}/{a['best_epoch']}, sequential "
+                 f"{b['epochs_run']}/{b['best_epoch']}")
+        got = stacked[:len(want), r]
+        worst = max(worst, losses_agree(f"{label} run {r}", got, want))
+        bitwise &= bool(np.array_equal(got, np.asarray(want, np.float32)))
+    return {"max_abs_err": worst, "bitwise": bitwise}
+
+
+def best_params(run_dir: str) -> dict:
+    """A run dir's ``ckpt/best`` params, on the host."""
+    from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
+
+    return CheckpointManager(os.path.join(run_dir, "ckpt",
+                                          "best")).restore()["params"]
+
+
+def params_gap(a: dict, b: dict) -> float:
+    """The largest absolute difference between two param trees."""
+    if set(a) != set(b):
+        fail(f"param trees differ in their leaves: {sorted(set(a) ^ set(b))}")
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def finals_gaps(stk_runs, seq_runs, params: bool) -> dict:
+    """Each run's best val IC (and with ``params`` its best params from
+    its run dir) against its sequential fit's: the largest gaps."""
+    ic = max(abs(a["best_val_ic"] - b["best_val_ic"])
+             for a, b in zip(stk_runs, seq_runs))
+    out = {"best_val_ic_max_err": ic}
+    if params:
+        out["best_params_max_err"] = max(
+            params_gap(best_params(a["run_dir"]), best_params(b["run_dir"]))
+            for a, b in zip(stk_runs, seq_runs))
+    return out
+
+
+def finals_agree(label: str, gaps: dict) -> None:
+    """The final-state gate of a stack against its sequential fits:
+    :data:`STACK_IC_LIMIT` on the best val ICs, :data:`STACK_PARAM_LIMIT`
+    on the best params."""
+    if gaps["best_val_ic_max_err"] > STACK_IC_LIMIT or \
+            gaps.get("best_params_max_err", 0.0) > STACK_PARAM_LIMIT:
+        fail(f"{label}: the best val ICs or params differ from the "
+             f"sequential fits' by {gaps} (limits {STACK_IC_LIMIT}, "
+             f"{STACK_PARAM_LIMIT})")
+
+
+def collapsed_control(grid, seq_losses, seq_runs) -> list:
+    """The planted control: sequential run 0 standing in for every run,
+    as a stack that collapsed its members' lr and weight decay to member
+    0's would train them (one seed, one sampler). For each other run,
+    whether the phase's gates (the per-step losses' training gate, the
+    final-state limits) reject it (``must_reject``: its lr differs from
+    run 0's)."""
+    import numpy as np
+
+    p0 = best_params(seq_runs[0]["run_dir"])
+    out = []
+    for k in range(1, len(grid)):
+        a = np.asarray(seq_losses[0], np.float64)
+        b = np.asarray(seq_losses[k], np.float64)
+        loss_err = float(np.abs(a - b).max())
+        rec = {"config": grid[k], "loss_max_err": loss_err,
+               "losses_rejected": bool((np.abs(a - b) > BF16_TOL + BF16_TOL
+                                        * np.abs(b)).any()),
+               "best_val_ic_err": abs(seq_runs[0]["best_val_ic"]
+                                      - seq_runs[k]["best_val_ic"]),
+               "best_params_err": params_gap(
+                   p0, best_params(seq_runs[k]["run_dir"]))}
+        rec["rejected"] = (rec["losses_rejected"]
+                           or rec["best_val_ic_err"] > STACK_IC_LIMIT
+                           or rec["best_params_err"] > STACK_PARAM_LIMIT)
+        rec["must_reject"] = grid[k].get("lr") != grid[0].get("lr")
+        out.append(rec)
+    return out
+
+
+def stacked_phase(torch, cfg2, panel, totals: dict, seed_launches: dict,
+                  tmp: str) -> dict:
+    """Phase 26: stacked runs on c2 at full width. (a) ``run_config_sweep``
+    over :data:`SWEEP_GRID` (``--sweep-grid``), the 4 configs as one stack
+    and then one fit after another: each run's per-step losses within the
+    training gate, epochs run, best epoch and the ranking equal, its best
+    val IC and best params within the final-state limits, the planted
+    control (:func:`collapsed_control`) rejected where it must be; the
+    stack's launches counted (one seed-grid launch of rows 3-5 a step for
+    all 4 runs), configs/hour both ways, ms per stacked step, the card's
+    busy share over stacked steps, peak memory. (b) ``run_walkforward
+    (foldstack=True)`` (``--wf-foldstack``), 3 folds of a rolling window,
+    against the sequential sweep: the same gates, the stitched forecasts
+    within the gate, folds/hour both ways. (c) ``python -m
+    lfm_quant_tpu_torch.train`` for one epoch on a CSV panel (1000 firms x
+    240 months written by ``write_long_csv``, two derived features),
+    parsed by the native engine without pandas; its ``main`` in this
+    process. (d) the phase's wall.
+    The stacks' launches go to ``seed_launches`` (the seed rows), the
+    sequential fits' to ``totals``."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.data.compustat import (load_compustat_csv,
+                                                    write_long_csv)
+    from lfm_quant_tpu_torch.data.panel import PanelSplits, synthetic_panel
+    from lfm_quant_tpu_torch.train import stacked as ST
+    from lfm_quant_tpu_torch.train.loop import Trainer, default_split_dates
+    from lfm_quant_tpu_torch.train.walkforward import run_walkforward
+
+    t_phase = time.perf_counter()
+    capture, seq_losses = [], []
+    real_dispatch, real_fit = ST.StackedRuns.dispatch_epoch, Trainer.fit
+
+    def dispatch(self, carry, args):
+        carry, vals = real_dispatch(self, carry, args)
+        capture.append(vals["loss"])
+        return carry, vals
+
+    split_s = {"build": 0.0, "fit": 0.0}
+    real_init, real_stack_fit = ST.StackedRuns.__init__, ST.StackedRuns.fit
+
+    def timed_init(self, *a, **k):
+        t0 = time.perf_counter()
+        real_init(self, *a, **k)
+        split_s["build"] += time.perf_counter() - t0
+
+    def timed_fit(self, *a, **k):
+        t0 = time.perf_counter()
+        out = real_stack_fit(self, *a, **k)
+        split_s["fit"] += time.perf_counter() - t0
+        return out
+
+    def fit(self, *a, **k):
+        out = real_fit(self, *a, **k)
+        seq_losses.append(out["step_losses"])
+        return out
+
+    def run(label, fn, stacked: bool):
+        """One main path, counted, on the wall clock, peak memory."""
+        capture.clear()
+        seq_losses.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, counts = counted(label, STACK_KERNELS, fn, must_not=CUDA_CORE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, n in counts.items():
+            (seed_launches if stacked else totals)[k] += n
+        return out, counts, wall, torch.cuda.max_memory_allocated() / 2**30
+
+    out = {}
+    ST.StackedRuns.dispatch_epoch, Trainer.fit = dispatch, fit
+    ST.StackedRuns.__init__, ST.StackedRuns.fit = timed_init, timed_fit
+    try:
+        # (a) the config sweep.
+        cfg = dataclasses.replace(cfg2, optim=dataclasses.replace(
+            cfg2.optim, epochs=SWEEP_EPOCHS))
+        grid = ST.parse_sweep_grid(SWEEP_GRID)
+        R = len(grid)
+        log(f"phase 26 sweep: c2 at full width ({panel.n_firms} firms x "
+            f"{panel.n_months} months, LSTM hidden "
+            f"{cfg.model.kwargs.get('hidden')}, bf16), grid {grid}, epochs "
+            f"cut {cfg2.optim.epochs} -> {SWEEP_EPOCHS}")
+        # ms per stacked step and the card's busy share over them, first:
+        # they also warm the member stack's shapes before the timed sweeps.
+        runs = [dataclasses.replace(cfg, optim=dataclasses.replace(
+            cfg.optim, **g)) for g in grid]
+        splits = PanelSplits.by_date(panel, *default_split_dates(
+            panel, cfg.data))
+        eng = ST.StackedRuns(runs, [splits] * R, panel, device="cuda")
+        state = eng.init_carry().state
+        (fi, ti, w, _), _ = eng.build_epoch(0)
+        box = {"state": state, "k": 0}
+
+        def stacked_step():
+            k = box["k"] % fi.shape[0]
+            box["state"], _ = eng.trainer.step(box["state"], fi[k], ti[k],
+                                               w[k])
+            box["k"] += 1
+
+        step_ms = time_ms(stacked_step, reps=STACK_TIMED_STEPS)
+        one = Trainer(cfg, splits, device="cuda")
+        one_state = one.init_state()
+        b = one.train_sampler.stacked_epoch(0)
+        f1, t1, w1 = one._batch(b)
+        one_box = {"state": one_state}
+
+        def one_step():
+            one_box["state"], _ = one.step(one_box["state"], f1[0], t1[0],
+                                           w1[0])
+
+        one_ms = time_ms(one_step, reps=STACK_TIMED_STEPS)
+        prof = {}
+        by_name = profile_device(
+            torch, lambda: [stacked_step() for _ in range(STACK_TIMED_STEPS)],
+            f"{STACK_TIMED_STEPS} stacked c2 steps ({R} runs)", prof)
+        busy = (sum(by_name.values()) / prof["wall_ms"]) if by_name else None
+        del eng, one, state, one_state, box, one_box
+        torch.cuda.empty_cache()
+        split_s.update(build=0.0, fit=0.0)
+        stk, counts, stk_s, stk_gib = run(
+            "phase 26 stacked c2 sweep", lambda: ST.run_config_sweep(
+                cfg, grid, panel=panel, out_dir=os.path.join(tmp, "stk"),
+                stacked=True, device="cuda"), True)
+        stk_loss = stacked_losses(torch, capture, R)
+        stk_split = dict(split_s)
+        seq, seq_counts, seq_s, seq_gib = run(
+            "phase 26 sequential c2 sweep", lambda: ST.run_config_sweep(
+                cfg, grid, panel=panel, out_dir=os.path.join(tmp, "seq"),
+                stacked=False, device="cuda"), False)
+        if not (stk["stacked"] or {}).get("enabled") or seq["stacked"]:
+            fail(f"phase 26 sweep: stacked {stk['stacked']}, sequential "
+                 f"{seq['stacked']}")
+        if stk["best_index"] != seq["best_index"]:
+            fail(f"phase 26 sweep: best config {stk['best_index']} stacked,"
+                 f" {seq['best_index']} sequential")
+        agree = runs_agree("phase 26 sweep", stk_loss, seq_losses,
+                           stk["runs"], seq["runs"])
+        finals = finals_gaps(stk["runs"], seq["runs"], params=True)
+        control = collapsed_control(grid, seq_losses, seq["runs"])
+        steps = stk_loss.shape[0]
+        if counts["rnn_fused_bwd_mma_lstm"] != steps or \
+                counts["window_gather"] != steps or \
+                seq_counts["rnn_fused_bwd_mma_lstm"] != R * steps:
+            fail(f"phase 26 sweep: {steps} stacked steps of {R} runs "
+                 f"launched {counts}; the sequential fits {seq_counts}")
+        sweep = {
+            "configs": R, "epochs": SWEEP_EPOCHS, "steps": steps,
+            "stacked_s": stk_s, "sequential_s": seq_s,
+            "configs_per_hour_stacked": R * 3600 / stk_s,
+            "configs_per_hour_sequential": R * 3600 / seq_s,
+            "ms_per_stacked_step": step_ms, "ms_per_one_run_step": one_ms,
+            "busy_share": busy, "peak_gib_stacked": stk_gib,
+            "peak_gib_sequential": seq_gib,
+            "stacked_build_s": stk_split["build"],
+            "stacked_fit_s": stk_split["fit"], "launches": {
+                k: n for k, n in counts.items() if n}, **agree, **finals,
+            "control": control}
+        log(f"phase 26 sweep: stacked {stk_s:.2f} s (the stack's build "
+            f"{stk_split['build']:.2f} s, its fit {stk_split['fit']:.2f} s), "
+            f"sequential {seq_s:.2f} s: "
+            f"{sweep['configs_per_hour_stacked']:.1f} "
+            f"against {sweep['configs_per_hour_sequential']:.1f} configs/h;"
+            f" {step_ms:.3f} ms per stacked step ({R} runs; one run "
+            f"{one_ms:.3f}), busy "
+            + (f"{100 * busy:.1f}%" if busy else "not measured")
+            + f", peak {stk_gib:.2f} GiB (sequential {seq_gib:.2f}); "
+            f"per-step losses within {agree['max_abs_err']:.3g} of the "
+            f"sequential fits, bitwise {agree['bitwise']}; best val ICs "
+            f"within {finals['best_val_ic_max_err']:.3g}, best params within "
+            f"{finals['best_params_max_err']:.3g} (limits {STACK_IC_LIMIT}, "
+            f"{STACK_PARAM_LIMIT}); best config {grid[stk['best_index']]}")
+        for rec in control:
+            log(f"phase 26 control, run 0 in place of {rec['config']}: "
+                f"losses within {rec['loss_max_err']:.3g} (training gate "
+                f"{'rejects' if rec['losses_rejected'] else 'passes'}), best "
+                f"val IC {rec['best_val_ic_err']:.3g}, best params "
+                f"{rec['best_params_err']:.3g}: "
+                f"{'rejected' if rec['rejected'] else 'NOT rejected'}")
+        finals_agree("phase 26 sweep", finals)
+        for rec in control:
+            if rec["must_reject"] and not rec["rejected"]:
+                fail(f"phase 26 control: the gates pass run 0 in place of "
+                     f"{rec['config']}: {rec}")
+        out["sweep"] = sweep
+
+        # (b) the fold stack.
+        cfg = dataclasses.replace(cfg2, optim=dataclasses.replace(
+            cfg2.optim, epochs=FOLD_EPOCHS))
+        start = int(panel.dates[int(panel.n_months * 0.6)])
+        wf = dict(start=start, step_months=WF_STEP, val_months=WF_VAL,
+                  n_folds=FOLDS, train_months=FOLD_TRAIN, device="cuda")
+        split_s.update(build=0.0, fit=0.0)
+        (fc_k, v_k, sk), counts, fstk_s, _ = run(
+            "phase 26 fold-stacked c2 walk-forward", lambda: run_walkforward(
+                cfg, panel, out_dir=os.path.join(tmp, "wf_stk"),
+                foldstack=True, **wf), True)
+        fstk_split = dict(split_s)
+        n_folds = len(sk["folds"])
+        fold_loss = stacked_losses(torch, capture, n_folds)
+        (fc_s, v_s, ss), seq_counts, fseq_s, _ = run(
+            "phase 26 sequential c2 walk-forward", lambda: run_walkforward(
+                cfg, panel, out_dir=os.path.join(tmp, "wf_seq"), **wf),
+            False)
+        if not (sk.get("foldstack") or {}).get("enabled"):
+            fail(f"phase 26 fold stack: not stacked ({sk.get('foldstack')})")
+        fagree = runs_agree("phase 26 fold stack", fold_loss, seq_losses,
+                            sk["folds"], ss["folds"])
+        ffinals = finals_gaps(sk["folds"], ss["folds"], params=False)
+        err = np.abs(fc_k - fc_s)
+        if not np.array_equal(v_k, v_s) or not np.isfinite(fc_k).all() or \
+                (err > BF16_TOL + BF16_TOL * np.abs(fc_s)).any():
+            fail(f"phase 26 fold stack: stitched forecasts differ from the "
+                 f"sequential sweep's by up to {err.max()}")
+        fsteps = fold_loss.shape[0]
+        if counts["rnn_fused_bwd_mma_lstm"] != fsteps:
+            fail(f"phase 26 fold stack: {fsteps} stacked steps launched "
+                 f"{counts}")
+        folds = {
+            "folds": n_folds, "epochs": FOLD_EPOCHS,
+            "train_months": FOLD_TRAIN, "steps": fsteps,
+            "stacked_s": fstk_s, "sequential_s": fseq_s,
+            "folds_per_hour_stacked": n_folds * 3600 / fstk_s,
+            "folds_per_hour_sequential": n_folds * 3600 / fseq_s,
+            "forecast_max_abs_err": float(err.max()),
+            "stacked_build_s": fstk_split["build"],
+            "stacked_fit_s": fstk_split["fit"],
+            "launches": {k: n for k, n in counts.items() if n}, **fagree,
+            **ffinals}
+        log(f"phase 26 fold stack: {n_folds} folds (rolling {FOLD_TRAIN} "
+            f"months, epochs cut {cfg2.optim.epochs} -> {FOLD_EPOCHS}) "
+            f"stacked {fstk_s:.2f} s (build {fstk_split['build']:.2f} s, "
+            f"fit and predictions {fstk_split['fit']:.2f} s), sequential "
+            f"{fseq_s:.2f} s: "
+            f"{folds['folds_per_hour_stacked']:.1f} against "
+            f"{folds['folds_per_hour_sequential']:.1f} folds/h; losses "
+            f"within {fagree['max_abs_err']:.3g}, bitwise "
+            f"{fagree['bitwise']}, best val ICs within "
+            f"{ffinals['best_val_ic_max_err']:.3g}; stitched forecasts within "
+            f"{err.max():.3g}")
+        finals_agree("phase 26 fold stack", ffinals)
+        out["foldstack"] = folds
+    finally:
+        ST.StackedRuns.dispatch_epoch, Trainer.fit = real_dispatch, real_fit
+        ST.StackedRuns.__init__, ST.StackedRuns.fit = real_init, real_stack_fit
+    torch.cuda.empty_cache()
+
+    # (c) the train entry on a CSV panel, parsed natively.
+    t0 = time.perf_counter()
+    synth = synthetic_panel(n_firms=CSV_FIRMS, n_months=CSV_MONTHS,
+                            n_features=cfg2.data.n_features,
+                            seed=cfg2.data.panel_seed)
+    csv = os.path.join(tmp, "panel.csv")
+    rows = write_long_csv(synth, csv)
+    write_s = time.perf_counter() - t0
+    had_pandas = "pandas" in sys.modules
+    t0 = time.perf_counter()
+    loaded = load_compustat_csv(csv, engine="native")
+    parse_s = time.perf_counter() - t0
+    if "pandas" in sys.modules and not had_pandas:
+        fail("phase 26 CSV: the native load imported pandas")
+    if loaded.n_features != synth.n_features or not 0 < int(
+            loaded.valid.sum()) <= rows or \
+            not np.isfinite(loaded.features).all():
+        fail(f"phase 26 CSV: parsed {loaded.features.shape} with "
+             f"{int(loaded.valid.sum())} valid cells from {rows} rows")
+    cfg = dataclasses.replace(
+        cfg2, name="c2_csv",
+        data=dataclasses.replace(cfg2.data, panel_path=csv,
+                                 derived_features=CSV_DERIVED),
+        optim=dataclasses.replace(cfg2.optim, epochs=1))
+    path = os.path.join(tmp, "c2_csv.json")
+    with open(path, "w") as fh:
+        fh.write(cfg.to_json())
+    # The entry point's main, in this process (phase 25 runs it as a
+    # process of its own).
+    import contextlib
+    import io
+
+    from lfm_quant_tpu_torch.train.__main__ import main as train_main
+
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = train_main(["--config", path, "--out",
+                         os.path.join(tmp, "csv_run")])
+    train_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 26 CSV: the train entry returned {rc}")
+    text = printed.getvalue()
+    summary = json.loads(text[text.index("{"):])
+    if summary["epochs_run"] != 1 or not np.isfinite(summary["best_val_ic"]):
+        fail(f"phase 26 CSV: {summary}")
+    try:
+        import pandas  # noqa: F401
+
+        have_pandas = True
+    except ImportError:
+        have_pandas = False
+    csv_rec = {"rows": rows, "features": loaded.n_features + len(
+        CSV_DERIVED), "write_s": write_s, "native_parse_s": parse_s,
+        "train_entry_s": train_s, "pandas_installed": have_pandas,
+        "best_val_ic": summary["best_val_ic"]}
+    log(f"phase 26 CSV: {rows} rows written in {write_s:.2f} s, parsed "
+        f"natively in {parse_s:.2f} s (pandas installed: {have_pandas}); "
+        f"the train entry on it ({loaded.n_features} + "
+        f"{len(CSV_DERIVED)} derived features) {train_s:.1f} s, "
+        f"best_val_ic {summary['best_val_ic']:.6f}")
+    out["csv"] = csv_rec
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 26: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lfm_quant_tpu_torch")):
         fail("lfm_quant_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -5468,6 +5936,11 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: the port runs on a card")
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def since(what: str) -> None:
+        log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
+
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. the card ----------------------------------------------------
@@ -5554,6 +6027,7 @@ def main() -> int:
     check_train_shapes(torch, Trainer(cfg2, splits2, device="cuda"),
                        kernels, gen)
 
+    since("phase 3")
     # ---- 4. serve ---------------------------------------------------------
     totals = dict.fromkeys(_build.LAUNCHES, 0)
     served = {}
@@ -5619,9 +6093,11 @@ def main() -> int:
     del universes, served
     torch.cuda.empty_cache()
 
+    since("phase 4")
     # ---- 5. train ---------------------------------------------------------
     train_phase(torch, cfg2, splits2, totals)
 
+    since("phase 5")
     # ---- 6. the c5 ensemble ---------------------------------------------
     cfg5 = get_preset("c5")
     splits5 = splits_of(cfg5, panels)
@@ -5629,49 +6105,63 @@ def main() -> int:
     seed_launches = dict.fromkeys(_build.LAUNCHES, 0)
     trainer5, one5 = c5_phase(torch, cfg5, splits5, kernels, seed_launches)
 
+    since("phase 6")
     # ---- 7. c5 backtest ---------------------------------------------------
     c5_backtest_phase(torch, trainer5, panel5, totals, seed_launches)
     del trainer5, panel5, splits5
 
+    since("phase 7")
     # ---- 8. c2 walk-forward ---------------------------------------------
     walkforward_phase(torch, cfg2, panel2, totals)
     del panel2, splits2
 
+    since("phase 8")
     # ---- 9. c3 training at full width -----------------------------------
     one = c3_phase(torch, kernels, totals, gen)
 
+    since("phase 9")
     # ---- 10. two ranks on the one card ----------------------------------
     two_ranks_phase(torch, one, totals)
 
+    since("phase 10")
     # ---- 11-14. the MLP, transformer and LRU ----------------------------
     one = new_models_phases(torch, kernels, totals, panels)
 
+    since("phase 14")
     # ---- 15. the seq axis: lc and lru on two ranks -----------------------
     seq_ranks_phase(torch, kernels, totals, one, panels)
 
+    since("phase 15")
     # ---- 16. the seed axis: c5 on two ranks ------------------------------
     seed_ranks_phase(torch, kernels, totals, seed_launches, one5, panels)
 
+    since("phase 16")
     # ---- 17. the factorized recurrences ----------------------------------
     factored_phase(torch, kernels, totals, panels)
 
+    since("phase 17")
     # ---- 18. the serving stack behind the HTTP front door -------------
     stack = serving_stack_phase(torch, totals, panels)
     print(json.dumps({"serving_stack": stack}), flush=True)
 
+    since("phase 18")
     # ---- 19. the heteroscedastic forward -------------------------------
     variance_phase(torch, cfg2, cfg5, totals, seed_launches, panels)
 
+    since("phase 19")
     # ---- 20. the async pipeline and preemption -------------------------
     pipe = pipeline_phase(torch, cfg2, cfg5, totals, seed_launches, one5,
                           panels)
 
+    since("phase 20")
     # ---- 21. training-side geometry buckets ----------------------------
     buckets_phase(torch, cfg2, cfg5, totals, seed_launches, pipe, panels)
 
+    since("phase 21")
     # ---- 22. the native sampler ----------------------------------------
     native_phase(torch, cfg2, cfg5, totals, panels)
 
+    since("phase 22")
     # ---- 23-25. durable serving, the fleet, entry telemetry -------------
     import shutil
     import tempfile
@@ -5679,6 +6169,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="lfm_durable_")
     try:
         durable = durable_phase(torch, totals, panels, tmp)
+        panel2 = panel_of(cfg2, panels)
         del panels
         fleet_out = fleet_phase(torch, totals, durable, tmp)
         entry = entry_telemetry_phase(tmp)
@@ -5687,7 +6178,19 @@ def main() -> int:
     print(json.dumps({"durable": durable["summary"], "fleet": fleet_out,
                       "entry_telemetry": entry}, default=str), flush=True)
 
-    # ---- 26. kernels line -----------------------------------------------
+    since("phase 25")
+    # ---- 26. stacked runs: the config sweep, the fold stack, CSV ------
+    tmp = tempfile.mkdtemp(prefix="lfm_stacked_")
+    try:
+        stacked = stacked_phase(torch, cfg2, panel2, totals, seed_launches,
+                                tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del panel2
+    print(json.dumps({"stacked_runs": stacked}, default=str), flush=True)
+
+    since("phase 26")
+    # ---- 27. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -5713,7 +6216,8 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    # ---- 27. result -----------------------------------------------------
+    since("phase 27")
+    # ---- 28. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

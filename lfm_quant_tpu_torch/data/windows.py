@@ -5,7 +5,9 @@ The port of ``lfm_quant_tpu/data/windows.py``: the sampler with its
 Python and native (C++, ``native/``) engines, the serving pools, the eval
 sweep and the geometry buckets (``LFM_BUCKETS``: ``bucket_geometry``,
 ``bucketed_epoch``, ``bucketed_cross_sections``, copied from the JAX
-package). The panel lives on the device as one packed tensor ``xm [N, T, F+1]``
+package; ``stacked_eval_months`` and ``stack_fold_epochs``, the stacked
+runs' shape probe and batch supply). The panel lives on the device as
+one packed tensor ``xm [N, T, F+1]``
 (features with validity appended as the last column) in the compute
 dtype; a batch is an index pair ``firm_idx [D, Bf]`` / ``time_idx [D]``
 that the window gather turns into ``(x [D, Bf, W, F], m [D, Bf, W])``.
@@ -326,6 +328,12 @@ class DateBatchSampler:
             weight=np.concatenate([b.weight for b in batches], axis=0),
         )
 
+    def stacked_eval_months(self) -> int:
+        """The number of months :meth:`stacked_cross_sections` covers: the
+        stacked runs' shape probe (runs must agree on it before their
+        validation sweeps can stack)."""
+        return int(self._all_dates.size)
+
     def months_with_anchors(self) -> np.ndarray:
         """Month indices (panel columns) with >= 1 eligible anchor (int32,
         sorted)."""
@@ -530,6 +538,31 @@ class DateBatchSampler:
             out.append(((lb, w),
                         WindowIndex(fi, months.astype(np.int32), wt), pos))
         return out
+
+
+def stack_fold_epochs(samplers, epoch: int) -> WindowIndex:
+    """One training epoch from EACH run's sampler, stacked on a leading
+    run axis: ``firm_idx [R, K, D, Bf]``, ``time_idx [R, K, D]``,
+    ``weight [R, K, D, Bf]`` (the stacked runs' batch supply,
+    ``train/stacked.py``). Entry r is exactly the index stack run r's
+    sequential fit samples for this epoch: each sampler keeps its own
+    seed and anchor range, and ``stacked_epoch`` with an explicit epoch
+    is a pure read. Raises when the runs disagree on steps per epoch
+    (stacking needs the same-shape schedule that a rolling
+    ``train_months`` window gives; truncating would train some runs on
+    partial epochs)."""
+    per = [s.stacked_epoch(epoch) for s in samplers]
+    ks = {b.firm_idx.shape[0] for b in per}
+    if len(ks) != 1:
+        raise ValueError(
+            f"fold-stacked epoch needs equal steps-per-epoch across "
+            f"folds, got {sorted(ks)} — use a rolling train_months "
+            "window (same-shape folds)")
+    return WindowIndex(
+        firm_idx=np.stack([b.firm_idx for b in per]),
+        time_idx=np.stack([b.time_idx for b in per]),
+        weight=np.stack([b.weight for b in per]),
+    )
 
 
 def resolve_gather_impl(impl: str) -> str:

@@ -1,8 +1,9 @@
-"""The native (C++) sampler, bound with ``ctypes``: the port's loader for
-``panel_native.cpp`` (a copy of the JAX package's source, whose
-``sample_epoch`` draws one epoch of ``[K, D, Bf]`` window-index batches;
-``data/windows.py DateBatchSampler(engine="native")``). The source's CSV
-entry point is not bound: the port has no CSV panel loader yet.
+"""The native (C++) sampler and CSV parser, bound with ``ctypes``: the
+port's loader for ``panel_native.cpp`` (a copy of the JAX package's
+source): ``sample_epoch`` draws one epoch of ``[K, D, Bf]`` window-index
+batches (``data/windows.py DateBatchSampler(engine="native")``),
+``csv_parse_buf`` parses a long-format panel file in memory
+(``data/compustat.py load_compustat_csv(engine="native")``).
 
 Build model: compiled on first use with ``g++ -O3 -shared`` (no
 ``-march=native``: the library may be loaded on another host) into
@@ -65,6 +66,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     f32p = ctypes.POINTER(ctypes.c_float)
+    lib.csv_parse_buf.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, i32p, ctypes.c_int, ctypes.c_longlong,
+        i32p, i32p, f32p, f32p,
+    ]
+    lib.csv_parse_buf.restype = ctypes.c_longlong
     lib.sample_epoch.argtypes = [
         i32p, ctypes.c_longlong, i32p, i64p, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, i32p, i32p, f32p,

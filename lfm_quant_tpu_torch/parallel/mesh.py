@@ -22,9 +22,15 @@ The data and seq shards of one seed block together form its ``batch``
 group: the gradients are summed over it, and the sweeps split their
 months over it (``month_block``, ``all_gather_dates``). Each axis, and the
 batch, gets its own sub-group from ``dist.new_group``; every rank creates
-every group, in one order (``_groups``), or the job would hang. The JAX
-package's fold and stack axes are not ported: a run that would need one
-raises :func:`axis_not_ported`'s error, which names its ROADMAP.md item.
+every group, in one order (``_groups``), or the job would hang.
+
+The JAX package's run axes, ``stack`` (a config sweep's runs) and
+``fold`` (a fold-stacked walk-forward's folds), live in one process
+here: the whole stack trains as members of one stacked tree
+(``train/stacked.py``), which is what JAX's ``auto`` resolves to on one
+card. :func:`resolve_run_shards` reads their knobs; a request for the
+run axis over more than one rank raises :func:`axis_not_ported`'s
+error, which names its ROADMAP.md item.
 
 With the ``gloo`` backend (the CPU, or several ranks sharing one card) a
 collective on a CUDA tensor is staged through a host copy: that is the
@@ -34,6 +40,7 @@ stay on the card.
 
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Sequence, Tuple
@@ -53,8 +60,8 @@ STACK_AXIS = "stack"
 BATCH = "batch"
 
 _ROADMAP = {
-    FOLD_AXIS: "ROADMAP.md Queue A item 5 (fold-stacked walk-forwards)",
-    STACK_AXIS: "ROADMAP.md Queue A item 5 (stacked config sweeps)",
+    FOLD_AXIS: "ROADMAP.md Queue A item 10 (the run axis over ranks)",
+    STACK_AXIS: "ROADMAP.md Queue A item 10 (the run axis over ranks)",
 }
 
 
@@ -62,6 +69,28 @@ def axis_not_ported(axis: str, why: str = "") -> NotImplementedError:
     """The error for a run that would need a mesh axis the port lacks."""
     return NotImplementedError(
         f"the {axis!r} mesh axis is not ported{why}: {_ROADMAP[axis]}")
+
+
+def resolve_run_shards(axis: str) -> int:
+    """The ranks a stacked run's ``axis`` (``stack`` or ``fold``) spreads
+    over: ``LFM_STACK_SHARDS`` / ``LFM_FOLDSTACK_SHARDS`` unset, "auto",
+    0 or 1 all mean 1, the whole stack in this process. More raises
+    :func:`axis_not_ported`: the runs are never split silently."""
+    # Literal reads: scripts/check_knobs.py sees each knob.
+    knob, v = (("LFM_STACK_SHARDS", os.environ.get("LFM_STACK_SHARDS"))
+               if axis == STACK_AXIS else
+               ("LFM_FOLDSTACK_SHARDS",
+                os.environ.get("LFM_FOLDSTACK_SHARDS")))
+    if v in (None, "", "auto"):
+        return 1
+    try:
+        n = int(v)
+    except ValueError:
+        raise ValueError(f"{knob} must be auto or an integer, got {v!r}"
+                         ) from None
+    if n > 1:
+        raise axis_not_ported(axis, f" over {n} ranks ({knob}={v})")
+    return 1
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,10 @@ a single model or the seed ensemble.
     python -m lfm_quant_tpu_torch.train --preset c4   # or c1, lru, lru64, lc
     python -m lfm_quant_tpu_torch.train --preset c2 --walk-forward 12 \
         --wf-start 199001 [--wf-folds K] [--wf-score mean]
+    python -m lfm_quant_tpu_torch.train --preset c2 --walk-forward 12 \
+        --wf-train-months 120 --wf-foldstack
+    python -m lfm_quant_tpu_torch.train --preset c2 \
+        --sweep-grid "lr=1e-3,3e-4;weight_decay=1e-4,0"
 
 config → panel (``synthetic_panel`` from the preset's seed and sizes, or
 a saved panel) → splits → ``Trainer.fit`` with early stopping; writes
@@ -46,8 +50,17 @@ with ``loss="nll"`` their aleatoric variances too) into
 ``<out>/<name>/wf``: ``fold_<k>/`` run dirs, ``walkforward.npz`` for
 ``python -m lfm_quant_tpu_torch.backtest --forecast-npz``, and
 ``summary.json`` (with ``--wf-score``, the stitched panel's backtest).
-``--wf-foldstack`` and ``--sweep-grid`` are not ported (ROADMAP.md Queue
-A item 5) and raise.
+``--wf-foldstack`` (needs ``--wf-train-months``) trains the folds as ONE
+stack (``train/foldstack.py``), the same per-fold results in one fit.
+
+``--sweep-grid "lr=1e-3,3e-4;weight_decay=1e-4,0"`` trains the grid's
+configs as ONE stack (``train/stacked.py``: each config a member of one
+stacked tree, its lr and weight decay per-member operands), into
+``<out>/<name>/sweep``: ``config_<i>/`` run dirs and
+``sweep_summary.json``, which ranks them (``LFM_SWEEP_STACKED=0``: one
+fit after another). With ``--walk-forward`` every (fold, config) pair is
+one run of the stack, into ``<out>/<name>/wf_sweep``; the summary ranks
+the configs by their mean best val IC over the folds.
 
 The epoch loop is pipelined (``LFM_ASYNC``, ``LFM_ASYNC_CKPT``: both on
 by default; ``train/pipeline.py``); ``LFM_BUCKETS=1`` trains on the
@@ -55,6 +68,9 @@ geometry-bucket ladder. A SIGTERM stops the run at the next epoch
 boundary with its checkpoints durable (the checkpoint waits are bounded
 by ``LFM_CKPT_WAIT_S``) and the process exits 75: re-run it with
 ``--resume`` to continue with the same history.
+
+``--debug`` trains under the numerical sanitizer (``utils/debug.py``):
+a NaN or Inf made by a train step raises.
 
 Telemetry: the run dir also gets the run's manifest, ``spans.jsonl``,
 ``trace.json`` and run record (``LFM_TELEMETRY=0`` turns them off), with
@@ -65,6 +81,7 @@ scripts/trace_report.py <run dir>`` rolls them up.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -91,6 +108,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in the run dir")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--debug", action="store_true",
+                    help="sanitizer mode (utils/debug.py): raise on any "
+                         "NaN/Inf a train step makes")
     ap.add_argument("--n-seeds", type=int, default=None,
                     help="override n_seeds (>1 trains the seed ensemble)")
     ap.add_argument("--walk-forward", metavar="STEP_MONTHS", type=int,
@@ -114,9 +134,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="rolling train window per fold (months; default: "
                          "expanding window)")
     ap.add_argument("--wf-foldstack", action="store_true",
-                    help="not ported (ROADMAP.md Queue A item 5)")
+                    help="train all the folds as ONE stack "
+                         "(train/foldstack.py; needs --wf-train-months) "
+                         "instead of one fit after another; the per-fold "
+                         "results of the sequential sweep. LFM_FOLDSTACK=1 "
+                         "is the env equivalent")
     ap.add_argument("--sweep-grid", metavar="SPEC", default=None,
-                    help="not ported (ROADMAP.md Queue A item 5)")
+                    help="hyperparameter config sweep: semicolon-separated "
+                         "axes of comma-separated values (e.g. "
+                         "'lr=1e-3,5e-4;weight_decay=1e-4,0'), "
+                         "cartesian-expanded and trained as ONE stack "
+                         "(train/stacked.py), each config's lr and weight "
+                         "decay per-member operands; LFM_SWEEP_STACKED=0 "
+                         "trains them one after another. Run dirs and "
+                         "sweep_summary.json under <out>/<name>/sweep. "
+                         "With --walk-forward the fold x config product "
+                         "trains as one stack (use --wf-train-months so "
+                         "the folds stay the same shape), ranked by the "
+                         "mean best val IC over the folds, under "
+                         "<out>/<name>/wf_sweep")
     ap.add_argument("--wf-score", metavar="MODES", default=None,
                     help="grade the stitched out-of-sample panel at the "
                          "end of the sweep on the device: comma-separated "
@@ -124,24 +160,42 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "(e.g. 'mean,mean_minus_std@0.5'); reports land "
                          "in summary.json under 'backtest'")
     args = ap.parse_args(argv)
-    if args.wf_foldstack or args.sweep_grid is not None:
-        from lfm_quant_tpu_torch.parallel.mesh import (
-            FOLD_AXIS,
-            STACK_AXIS,
-            axis_not_ported,
-        )
-
-        raise axis_not_ported(
-            FOLD_AXIS if args.wf_foldstack else STACK_AXIS,
-            " (--wf-foldstack and --sweep-grid: stacked fold and config "
-            "sweeps)")
     if args.walk_forward is None and (
             args.wf_start is not None or args.wf_folds is not None
             or args.wf_val_months != 24 or args.wf_warm_start
-            or args.wf_train_months is not None or args.wf_score is not None):
+            or args.wf_train_months is not None or args.wf_score is not None
+            or args.wf_foldstack):
         ap.error("--wf-start/--wf-val-months/--wf-folds/--wf-warm-start/"
-                 "--wf-train-months/--wf-score need --walk-forward "
-                 "STEP_MONTHS")
+                 "--wf-train-months/--wf-score/--wf-foldstack need "
+                 "--walk-forward STEP_MONTHS")
+    if args.wf_foldstack and args.wf_train_months is None:
+        ap.error("--wf-foldstack needs --wf-train-months (fold-stacking "
+                 "requires the rolling-window same-shape schedule)")
+    if args.wf_foldstack and (args.wf_warm_start or args.resume):
+        ap.error("--wf-foldstack is incompatible with --wf-warm-start/"
+                 "--resume (the stacked fit checkpoints folds only at "
+                 "finalize; the warm-start carry is serial)")
+    sweep_grid = None
+    if args.sweep_grid is not None:
+        if args.walk_forward is not None and (
+                args.wf_foldstack or args.wf_warm_start
+                or args.wf_score is not None):
+            ap.error("--sweep-grid × --walk-forward selects configs "
+                     "(no stitching), so --wf-foldstack/--wf-warm-start/"
+                     "--wf-score don't apply — pick the winning config "
+                     "here, then run the plain walk-forward with it")
+        if args.resume:
+            ap.error("--sweep-grid is incompatible with --resume (the "
+                     "stacked sweep writes config checkpoints only at "
+                     "finalize — nothing per-epoch to resume from)")
+        # Validate at parse time, before any panel or device work.
+        from lfm_quant_tpu_torch.train.stacked import parse_sweep_grid
+
+        try:
+            sweep_grid = parse_sweep_grid(args.sweep_grid)
+        except ValueError as e:
+            ap.error(f"--sweep-grid: {e}")
+    args.sweep_grid = sweep_grid
     wf_score_modes = None
     if args.wf_score:
         # Validate at parse time, not after hours of fold training.
@@ -230,20 +284,47 @@ def _run(ap, args, device, wf_score_modes) -> int:
     # manifest, spans.jsonl, trace.json and the run record; the trainers'
     # fit/eval/sample/h2d spans) goes beside the checkpoints, rank 0's
     # alone. LFM_TELEMETRY=0 turns it off.
-    leaf = ("wf" if args.walk_forward is not None
-            else "ensemble" if cfg.n_seeds > 1 else f"seed{cfg.seed}")
+    if args.sweep_grid is not None:
+        leaf = "wf_sweep" if args.walk_forward is not None else "sweep"
+    else:
+        leaf = ("wf" if args.walk_forward is not None
+                else "ensemble" if cfg.n_seeds > 1 else f"seed{cfg.seed}")
     run_dir = os.path.join(cfg.out_dir, cfg.name, leaf)
-    with telemetry.run_scope(run_dir if dist_utils.is_main() else None,
-                             cfg, extra={"entry": "train"}):
-        return _run_in_scope(args, cfg, device, wf_score_modes)
+    with contextlib.ExitStack() as ctx:
+        if args.debug:
+            from lfm_quant_tpu_torch.utils.debug import sanitized
+
+            ctx.enter_context(sanitized())
+        ctx.enter_context(telemetry.run_scope(
+            run_dir if dist_utils.is_main() else None, cfg,
+            extra={"entry": "train"}))
+        return _run_in_scope(args, cfg, device, wf_score_modes, run_dir)
 
 
-def _run_in_scope(args, cfg, device, wf_score_modes) -> int:
+def _run_in_scope(args, cfg, device, wf_score_modes, run_dir) -> int:
     from lfm_quant_tpu_torch.train.ensemble import run_ensemble_experiment
     from lfm_quant_tpu_torch.train.loop import run_experiment
     from lfm_quant_tpu_torch.utils import distributed as dist_utils
 
-    if args.walk_forward is not None:
+    if args.sweep_grid is not None and args.walk_forward is not None:
+        from lfm_quant_tpu_torch.train.loop import resolve_panel
+        from lfm_quant_tpu_torch.train.stacked import run_walkforward_sweep
+
+        panel = resolve_panel(cfg.data)
+        start = args.wf_start or int(panel.dates[int(panel.n_months * 0.6)])
+        summary = run_walkforward_sweep(
+            cfg, args.sweep_grid, panel=panel, start=start,
+            step_months=args.walk_forward, val_months=args.wf_val_months,
+            n_folds=args.wf_folds, train_months=args.wf_train_months,
+            out_dir=run_dir, echo=args.echo, device=device)
+        summary["run_dir"] = run_dir
+    elif args.sweep_grid is not None:
+        from lfm_quant_tpu_torch.train.stacked import run_config_sweep
+
+        summary = run_config_sweep(cfg, args.sweep_grid, out_dir=run_dir,
+                                   echo=args.echo, device=device)
+        summary["run_dir"] = run_dir
+    elif args.walk_forward is not None:
         from lfm_quant_tpu_torch.train.loop import resolve_panel
         from lfm_quant_tpu_torch.train.walkforward import run_walkforward
 
@@ -256,7 +337,7 @@ def _run_in_scope(args, cfg, device, wf_score_modes) -> int:
             out_dir=wf_dir, echo=args.echo, resume=args.resume,
             warm_start=args.wf_warm_start,
             train_months=args.wf_train_months, score_modes=wf_score_modes,
-            device=device)
+            foldstack=True if args.wf_foldstack else None, device=device)
         summary["run_dir"] = wf_dir
     else:
         run = run_ensemble_experiment if cfg.n_seeds > 1 else run_experiment

@@ -127,7 +127,7 @@ from lfm_quant_tpu_torch.train.loop import (
 from lfm_quant_tpu_torch.train import pipeline
 from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
 from lfm_quant_tpu_torch.utils import distributed as dist_utils
-from lfm_quant_tpu_torch.utils import telemetry
+from lfm_quant_tpu_torch.utils import debug, telemetry
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import flax_param_map, load_flax_params
 from lfm_quant_tpu_torch.weights import init_params as seeded_init
@@ -446,13 +446,10 @@ class EnsembleTrainer:
         device (no host sync)."""
         self.model.train()
         keys = list(state.params)
-        S = self.n_local
-        block = self.seed_block if 0 < self.seed_block < S else S
         fi, ti, w = (shard_dates(a, self.mesh, axis=1) for a in (fi, ti, w))
         grads = [torch.empty_like(state.params[k]) for k in keys]
-        losses = []
-        for s0 in range(0, S, block):
-            sl = slice(s0, s0 + block)
+
+        def block(sl):
             sub = {k: state.params[k][sl].detach().requires_grad_(True)
                    for k in keys}
             num, den = self._seed_parts(sub, fi[sl], ti[sl], w[sl],
@@ -464,13 +461,24 @@ class EnsembleTrainer:
             for g, gb in zip(grads, torch.autograd.grad(
                     loss.sum(), [sub[k] for k in keys])):
                 g[sl] = gb
-            losses.append(finalize_loss(num_g, den_g))
+            return finalize_loss(num_g, den_g)
+
+        losses = torch.cat(self._blocks(block))
         grads = all_reduce_flat(grads, self.mesh, BATCH)
-        losses = torch.cat(losses)
-        gnorm = self.opt.step(state.params, dict(zip(keys, grads)),
-                              state.opt_state)
+        grads = dict(zip(keys, grads))
+        gnorm = self.opt.step(state.params, grads, state.opt_state)
+        debug.check_step({"loss": losses, "grads": grads,
+                          "params": state.params})
         return (state._replace(step=state.step + 1),
                 {"loss": losses.detach(), "grad_norm": gnorm})
+
+    def _blocks(self, fn) -> List[Any]:
+        """``fn(members)`` over this rank's members in blocks of
+        ``seed_block`` (all at once for 0 or a block at or above the
+        count), in order."""
+        S = self.n_local
+        block = self.seed_block if 0 < self.seed_block < S else S
+        return [fn(slice(s0, s0 + block)) for s0 in range(0, S, block)]
 
     # ---- evaluation ------------------------------------------------------
 

@@ -111,7 +111,7 @@ from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
 from lfm_quant_tpu_torch.train.optim import AdamWState, make_optimizer
 from lfm_quant_tpu_torch.utils import distributed as dist_utils
-from lfm_quant_tpu_torch.utils import faults, telemetry
+from lfm_quant_tpu_torch.utils import debug, faults, telemetry
 from lfm_quant_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from lfm_quant_tpu_torch.weights import (
     flatten_params,
@@ -190,22 +190,29 @@ def graft_params(params: Mapping[str, torch.Tensor], init_params,
 
 
 def resolve_panel(d) -> Panel:
-    """DataConfig → Panel: a panel saved by ``Panel.save`` or the
-    synthetic generator. CSV panels and derived features come with a
-    later slice (ROADMAP.md Queue A)."""
-    if d.derived_features:
-        raise NotImplementedError(
-            "derived_features are not ported yet (ROADMAP.md Queue A)")
+    """DataConfig → Panel: a panel saved by ``Panel.save``, a
+    Compustat-style CSV or parquet file (``data/compustat.py``; a
+    ``.csv`` through the native parser when it builds), or the synthetic
+    generator; then any configured derived feature columns
+    (``data/features.py``)."""
     if d.panel_path:
         if d.panel_path.endswith((".csv", ".parquet", ".pq")):
-            raise NotImplementedError(
-                "Compustat CSV/parquet panels are not ported yet "
-                "(ROADMAP.md Queue A)")
-        return load_panel(d.panel_path)
-    return synthetic_panel(
-        n_firms=d.n_firms, n_months=d.n_months, n_features=d.n_features,
-        start_yyyymm=d.start_yyyymm, horizon=d.horizon, seed=d.panel_seed,
-        het_noise=d.het_noise)
+            from lfm_quant_tpu_torch.data.compustat import load_compustat_csv
+
+            panel = load_compustat_csv(d.panel_path, horizon=d.horizon,
+                                       target_col=d.target_col)
+        else:
+            panel = load_panel(d.panel_path)
+    else:
+        panel = synthetic_panel(
+            n_firms=d.n_firms, n_months=d.n_months, n_features=d.n_features,
+            start_yyyymm=d.start_yyyymm, horizon=d.horizon,
+            seed=d.panel_seed, het_noise=d.het_noise)
+    if d.derived_features:
+        from lfm_quant_tpu_torch.data.features import add_derived_features
+
+        panel = add_derived_features(panel, d.derived_features)
+    return panel
 
 
 class Predictor:
@@ -772,6 +779,8 @@ class Trainer(Predictor):
         self.model.train()
         loss, grads = self._grads(state, fi, ti, w, window)
         gnorm = self.opt.step(state.params, grads, state.opt_state)
+        debug.check_step({"loss": loss, "grads": grads,
+                          "params": state.params})
         return (state._replace(step=state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})
 

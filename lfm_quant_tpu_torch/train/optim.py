@@ -29,13 +29,22 @@ the chain over stacked members: the leading axis of every parameter is
 the seed, and the global norm, the clip factor and LAMB's trust ratios
 are taken per seed. The members step in lock-step, so they share the
 update count.
+
+Per-member hyperparameters (``per_seed`` with ``lr`` and ``weight_decay``
+given as one value per member): the stacked runs' ``[S]`` operands
+(``train/stacked.py``, the JAX ``stacked.py _hyper_update``), each
+broadcast over its member's leading axis. Member s's step size at count
+c is the value ``lr_at(c)`` of a one-member optimizer with ``lr[s]``
+(a table of those values, made on the host once and kept on the
+parameters' device), and its decay is ``u + wd[s] * p`` rounded as the
+shared value's is, so a member steps as its sequential run would.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -80,23 +89,54 @@ class AdamW:
 
     eps = 1e-8
 
-    def __init__(self, lr: float, weight_decay: float, grad_clip: float,
-                 warmup_steps: int, total_steps: int, per_seed: bool = False):
+    def __init__(self, lr: Union[float, Sequence[float]],
+                 weight_decay: Union[float, Sequence[float]],
+                 grad_clip: float, warmup_steps: int, total_steps: int,
+                 per_seed: bool = False):
         self.per_seed = per_seed
-        self.lr = lr
-        self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.total = max(1, total_steps)
         self.warmup = min(warmup_steps, self.total // 2)
+        self.lr = lr
+        self.weight_decay = weight_decay
+        #: Per-member operands: the step-size table ``[total + 1, S]`` and
+        #: the decays ``[S]``, on the parameters' device after ``init``.
+        self._lr_table: Optional[torch.Tensor] = None
+        self._wd: Optional[torch.Tensor] = None
+        if not isinstance(lr, (int, float)):
+            if not per_seed or isinstance(weight_decay, (int, float)) \
+                    or len(weight_decay) != len(lr):
+                raise ValueError("per-member lr and weight_decay need "
+                                 "per_seed and one value each per member")
+            self.lr = [float(v) for v in lr]
+            self.weight_decay = [float(v) for v in weight_decay]
+            # count >= total reads the last row: the schedule is flat
+            # past its end.
+            rows = {v: torch.stack([self._schedule(c, v)
+                                    for c in range(self.total + 1)])
+                    for v in set(self.lr)}
+            self._lr_table = torch.stack([rows[v] for v in self.lr], dim=1)
+            self._wd = torch.tensor(self.weight_decay, dtype=torch.float32)
+
+    def _schedule(self, count: int, lr: float) -> torch.Tensor:
+        return warmup_cosine_lr(count, lr, self.warmup, self.total,
+                                0.1 * lr)
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
+        if self._lr_table is not None:
+            dev = next(iter(params.values())).device
+            self._lr_table = self._lr_table.to(dev)
+            self._wd = self._wd.to(dev)
         return AdamWState(
             0, {k: torch.zeros_like(p) for k, p in params.items()},
             {k: torch.zeros_like(p) for k, p in params.items()})
 
     def lr_at(self, count: int) -> torch.Tensor:
-        return warmup_cosine_lr(count, self.lr, self.warmup, self.total,
-                                0.1 * self.lr)
+        """The step size at ``count``: an f32 scalar, or with per-member
+        operands the ``[S]`` row of every member's."""
+        if self._lr_table is not None:
+            return self._lr_table[min(count, self.total)]
+        return self._schedule(count, self.lr)
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
@@ -140,9 +180,17 @@ class AdamW:
         torch._foreach_add_(den, self.eps)
         u = torch._foreach_div(mu, bc1)
         torch._foreach_div_(u, den)
-        torch._foreach_add_(u, ps, alpha=self.weight_decay)
+        if self._wd is None:
+            torch._foreach_add_(u, ps, alpha=self.weight_decay)
+        else:
+            for ui, p in zip(u, ps):
+                ui.addcmul_(p, self._wd.view(-1, *(1,) * (p.dim() - 1)))
         u = self._scale(u, ps)
-        torch._foreach_mul_(u, -float(self.lr_at(state.count)))
+        if self._lr_table is None:
+            torch._foreach_mul_(u, -float(self.lr_at(state.count)))
+        else:
+            step = -self.lr_at(state.count)
+            u = [ui * step.view(-1, *(1,) * (ui.dim() - 1)) for ui in u]
         torch._foreach_add_(ps, u)
         state.count = count_inc
         return g_norm
@@ -177,13 +225,18 @@ class Lamb(AdamW):
         return out
 
 
-def make_optimizer(o, total_steps: int, per_seed: bool = False) -> AdamW:
+def make_optimizer(o, total_steps: int, per_seed: bool = False,
+                   lr: Optional[Sequence[float]] = None,
+                   weight_decay: Optional[Sequence[float]] = None) -> AdamW:
     """``OptimConfig`` → its optimizer (``optimizer`` "adamw" or
-    "lamb"), the schedule fixed by ``total_steps``."""
+    "lamb"), the schedule fixed by ``total_steps``; ``lr`` and
+    ``weight_decay`` (one value per member, with ``per_seed``) replace
+    the config's."""
     classes = {"adamw": AdamW, "lamb": Lamb}
     if o.optimizer not in classes:
         raise ValueError(
             f"optimizer must be adamw|lamb, got {o.optimizer!r}")
-    return classes[o.optimizer](o.lr, o.weight_decay, o.grad_clip,
-                                o.warmup_steps, total_steps,
-                                per_seed=per_seed)
+    return classes[o.optimizer](
+        o.lr if lr is None else lr,
+        o.weight_decay if weight_decay is None else weight_decay,
+        o.grad_clip, o.warmup_steps, total_steps, per_seed=per_seed)

@@ -25,9 +25,10 @@ directory, each write followed by a barrier.
 A heteroscedastic config (``loss="nll"``) also stitches each fold's
 aleatoric variances, key ``variance`` of ``partial.npz`` and
 ``walkforward.npz`` (forecast-shaped), for ``mean_minus_total_std``
-downstream. Not ported: the fold-stacked sweep (``foldstack``: ROADMAP.md
-Queue A item 5). The fold records carry no ``reuse`` key: the port has no
-compiled-program cache whose traces it would count.
+downstream. ``foldstack`` (``--wf-foldstack``, ``LFM_FOLDSTACK``) trains
+the rolling window's folds as one stack (``train/foldstack.py``). The
+fold records carry no ``reuse`` key: the port has no compiled-program
+cache whose traces it would count.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ import numpy as np
 
 from lfm_quant_tpu_torch.config import RunConfig
 from lfm_quant_tpu_torch.data.panel import Panel, PanelSplits
-from lfm_quant_tpu_torch.parallel.mesh import FOLD_AXIS, axis_not_ported
 from lfm_quant_tpu_torch.train.checkpoint import CheckpointManager
 from lfm_quant_tpu_torch.train.forecast import mark_ensemble_run_dir
 from lfm_quant_tpu_torch.utils.distributed import barrier, is_main
@@ -266,14 +266,28 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
     each fold's aleatoric variances (``predict(return_variance=True)``)
     into ``walkforward.npz`` (key ``variance``).
 
-    ``foldstack=True`` raises (ROADMAP.md Queue A item 5)."""
+    ``foldstack``: train all folds as ONE stack (``train/foldstack.py``)
+    instead of fold after fold; None defers to ``LFM_FOLDSTACK``. It
+    needs the rolling ``train_months`` window and refuses ``resume`` and
+    ``warm_start`` (the stacked fit writes each fold's ``ckpt/best`` at
+    its end, and the warm start is a serial carry); an unmet
+    precondition degrades loudly to the sequential sweep. Its fold
+    records carry ``"foldstack": True`` and the summary the stack's
+    ``"foldstack"`` record."""
     from lfm_quant_tpu_torch.device import resolve_device
     from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+    from lfm_quant_tpu_torch.train.foldstack import (foldstack_enabled,
+                                                     run_stacked_walkforward)
     from lfm_quant_tpu_torch.train.loop import Trainer
 
-    if foldstack:
-        raise axis_not_ported(FOLD_AXIS, " (foldstack: all folds as one "
-                              "stacked program; run the sequential sweep)")
+    use_stack = foldstack if foldstack is not None else foldstack_enabled()
+    if use_stack and (resume or warm_start):
+        raise ValueError(
+            "foldstack is incompatible with resume/warm_start: the "
+            "stacked fit writes fold checkpoints only at finalize "
+            "(nothing per-epoch to resume from) and the warm-start "
+            "carry is inherently serial — run those protocols with "
+            "the sequential walk-forward")
     if resume and not out_dir:
         raise ValueError("resume=True needs out_dir (the progress snapshot "
                          "lives there)")
@@ -294,9 +308,43 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
         if snap is not None:
             forecast, valid, records, variance = snap
 
+    stacked_info = None
+    if use_stack:
+        stacked = run_stacked_walkforward(
+            cfg, panel, folds, train_months=train_months, out_dir=out_dir,
+            echo=echo, device=device)
+        if stacked is not None:
+            fold_sums, fold_preds, stacked_info = stacked
+            for k, (fold, fs, pred) in enumerate(
+                    zip(folds, fold_sums, fold_preds)):
+                train_end, val_end, pred_range = fold
+                if het:
+                    fc, avar, v = pred
+                    variance[..., v] = avar[..., v]
+                else:
+                    fc, v = pred
+                if (valid & v).any():
+                    raise RuntimeError("fold prediction windows overlap")
+                forecast[..., v] = fc[..., v]
+                valid |= v
+                records.append({
+                    "fold": k,
+                    "train_end": train_end,
+                    "val_end": val_end,
+                    "pred_months": [int(panel.dates[pred_range[0]]),
+                                    int(panel.dates[pred_range[1] - 1])],
+                    "n_pred_cells": int(v.sum()),
+                    "best_val_ic": fs["best_val_ic"],
+                    "best_epoch": fs["best_epoch"],
+                    "epochs_run": fs["epochs_run"],
+                    "warm_started": False,
+                    "foldstack": True,
+                })
+
     prev_params = None
     trainer = None
-    for k, (train_end, val_end, pred_range) in enumerate(folds):
+    for k, (train_end, val_end, pred_range) in enumerate(
+            folds if stacked_info is None else []):
         if k < len(records):
             continue  # fold completed in an earlier run
         train_start = (month_add(train_end, -train_months)
@@ -366,6 +414,8 @@ def run_walkforward(cfg: RunConfig, panel: Panel, *, start: int,
                        int(panel.dates[folds[-1][2][1] - 1])],
         "folds": records,
     }
+    if stacked_info is not None:
+        summary["foldstack"] = stacked_info
 
     def save_summary():
         if out_dir and is_main():

@@ -427,6 +427,8 @@ def instant(name: str, cat: str = "mark", **args) -> None:
 
 #: Resolved-knob probes for the manifest: name → zero-arg callable.
 _KNOB_PROBES = (
+    ("foldstack", "lfm_quant_tpu_torch.train.foldstack",
+     "foldstack_enabled"),
     ("precision", "lfm_quant_tpu_torch.config", "resolve_precision"),
     ("metrics", "lfm_quant_tpu_torch.utils.metrics", "enabled"),
     ("flight", "lfm_quant_tpu_torch.utils.flight", "enabled"),

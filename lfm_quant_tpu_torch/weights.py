@@ -24,7 +24,9 @@ the same map from Flax paths to torch parameters (:func:`flax_param_map`):
 A seed-stacked model (``n_seeds=S``) takes the tree of the JAX
 ensemble's ``jax.vmap(init)``: the same paths, every leaf with a leading
 seed axis of S. A window-sharded model (``seq_axis``) has the plain
-model's tree.
+model's tree. The stacked runs' member tree (``train/stacked.py``: R runs
+of S seeds as R·S members) takes a JAX run-stacked state's params
+through :func:`member_params`.
 """
 
 from __future__ import annotations
@@ -57,6 +59,23 @@ def flatten_params(tree: Mapping[str, Any], prefix: str = ""
             out.update(flatten_params(v, key + "/"))
         else:
             out[key] = np.asarray(v)
+    return out
+
+
+def member_params(tree: Mapping[str, Any], n_runs: int, n_seeds: int = 1
+                  ) -> Dict[str, np.ndarray]:
+    """A run-stacked Flax tree → the stacked runs' member tree: leaves
+    ``[R, ...]`` (the JAX ``Trainer.init_stacked_states``) or ``[R, S,
+    ...]`` (``EnsembleTrainer.init_stacked_states``) become ``[R·S, ...]``,
+    run r's seed s at member ``r·S + s``. A leaf without that lead
+    raises."""
+    out = {}
+    lead = (n_runs,) if n_seeds == 1 else (n_runs, n_seeds)
+    for k, v in flatten_params(tree).items():
+        if tuple(v.shape[:len(lead)]) != lead:
+            raise ValueError(f"{k}: shape {tuple(v.shape)} does not lead "
+                             f"with the runs x seeds {lead}")
+        out[k] = v.reshape((n_runs * n_seeds,) + v.shape[len(lead):])
     return out
 
 

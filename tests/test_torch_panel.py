@@ -90,6 +90,31 @@ def test_bucket_ladders_equal():
         jax_serve_buckets.max_rows_default()
 
 
+@pytest.mark.parametrize("specs", [("mom_12_1", "vol_6"),
+                                   ("rev_1", "chg_ebit_ev_3", "mom_6_0")])
+def test_derived_features_byte_equal(specs):
+    """``data/features.py`` is a copy: below its docstring the JAX
+    module's text, the ``Panel`` import aside, and the panels it derives
+    byte-equal to the original's."""
+    from lfm_quant_tpu.data.features import add_derived_features as jax_add
+    from lfm_quant_tpu_torch.data.features import add_derived_features
+
+    def body(path, pkg):
+        text = open(os.path.join(ROOT, path)).read()
+        return text[text.index("from __future__"):].replace(
+            f"from {pkg}.data.panel import Panel", "from PANEL import Panel")
+
+    assert body("lfm_quant_tpu_torch/data/features.py",
+                "lfm_quant_tpu_torch") == body(
+        "lfm_quant_tpu/data/features.py", "lfm_quant_tpu")
+    kw = dict(n_firms=30, n_months=90, n_features=5, seed=4)
+    a = add_derived_features(synthetic_panel(**kw), specs)
+    b = jax_add(jax_synthetic(**kw), specs)
+    for f in PANEL_FIELDS:
+        assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+    assert list(a.feature_names) == list(b.feature_names)
+
+
 def _port_files():
     pkg = os.path.join(ROOT, "lfm_quant_tpu_torch")
     out = [os.path.join(ROOT, "chip_smoke.py")]
@@ -123,7 +148,9 @@ def test_port_imports_no_jax_ast():
                 ("parallel", "ring.py"), ("parallel", "launch.py"),
                 ("utils", "distributed.py"), ("models", "mlp.py"),
                 ("models", "transformer.py"), ("models", "lru.py"),
-                ("models", "rnn.py")):
+                ("models", "rnn.py"), ("train", "stacked.py"),
+                ("train", "foldstack.py"), ("data", "features.py"),
+                ("data", "compustat.py"), ("utils", "debug.py")):
         assert os.path.join(ROOT, "lfm_quant_tpu_torch", *rel) in \
             _port_files()
     assert not bad, bad
@@ -131,7 +158,8 @@ def test_port_imports_no_jax_ast():
 
 def test_port_runs_without_jax_in_sys_modules():
     """Import the whole package and serve c2 and c4 on the CPU in a fresh
-    process: neither jax nor lfm_quant_tpu may be loaded."""
+    process: neither jax nor lfm_quant_tpu may be loaded, nor pandas (the
+    card's machine has none: only the pandas engine imports it)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import lfm_quant_tpu_torch as p\n"
@@ -144,10 +172,12 @@ def test_port_runs_without_jax_in_sys_modules():
         "      '--requests', '2', '--threads', '1', '--device', 'cpu'])\n"
         "for m in ('train.ensemble', 'parallel.mesh', 'parallel.ring',\n"
         "          'parallel.launch', 'utils.distributed', 'models.mlp',\n"
-        "          'models.transformer', 'models.lru', 'models.rnn'):\n"
+        "          'models.transformer', 'models.lru', 'models.rnn',\n"
+        "          'train.stacked', 'train.foldstack', 'data.features',\n"
+        "          'data.compustat', 'utils.debug'):\n"
         "    assert 'lfm_quant_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'lfm_quant_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'lfm_quant_tpu', 'pandas')]\n"
         "assert not bad, bad\n"
         "print('IMPORT_GUARD_OK')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

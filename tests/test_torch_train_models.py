@@ -25,6 +25,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 from lfm_quant_tpu import config as jax_config
 from lfm_quant_tpu.data.panel import PanelSplits as JaxSplits
@@ -46,6 +47,17 @@ SHAPES = {
     "c4": ("transformer", {"dim": 16, "depth": 2, "heads": 4}),
     "lru": ("lru", {"hidden": 16, "state_dim": 16, "layers": 2}),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its shapes are tiny, and the
+    tier-1 run's workers share the machine's cores (more threads burn
+    about three times the CPU for the same wall)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(cfg_mod, preset, epochs=3, n_seeds=1, **over):

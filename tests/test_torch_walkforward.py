@@ -14,7 +14,8 @@
   across a resume), the ensemble marker follows the trainer kind of a
   reused dir, and ``python -m lfm_quant_tpu_torch.train --walk-forward``
   with ``--device cpu`` end to end, its argument checks, and raising
-  without a card.
+  without a card. The fold-stacked sweep has its own file
+  (``tests/test_torch_foldstack.py``).
 """
 
 import dataclasses
@@ -50,6 +51,17 @@ PANEL = dict(n_firms=40, n_months=120, n_features=4, seed=0, horizon=3)
 # Rolling 36-month train windows, 12-month validation and steps: 3 folds
 # forecasting months 72..107.
 SWEEP = dict(step_months=12, val_months=12, n_folds=3, train_months=36)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its shapes are tiny, and the
+    tier-1 run's workers share the machine's cores (more threads burn
+    about three times the CPU for the same wall)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tiny(cfg_mod, cell="lstm", n_seeds=1, epochs=4, patience=1):
@@ -178,8 +190,8 @@ def test_walkforward_matches_jax(monkeypatch, tmp_path, panel, cell,
 def test_resume_skips_completed_folds(monkeypatch, tmp_path, panel):
     """A sweep cut after 2 of 3 folds and resumed trains only the third
     and stitches what an unbroken sweep stitches; another schedule or
-    seed count is rejected."""
-    cfg = _port_cfg(epochs=2)
+    seed count is rejected (one epoch a fold: the protocol's mechanics)."""
+    cfg = _port_cfg(epochs=1)
     whole = W.run_walkforward(cfg, panel, start=_start(panel),
                               out_dir=str(tmp_path / "whole"),
                               device="cpu", **SWEEP)
@@ -216,8 +228,9 @@ def test_resume_skips_completed_folds(monkeypatch, tmp_path, panel):
 def test_warm_start_carries_params(tmp_path, panel):
     """Fold 1 starts from fold 0's best params: its forecasts differ from
     a cold sweep's while fold 0's are identical; a resume that skipped
-    fold 0 carries the same params from fold 0's ``ckpt/best``."""
-    cfg = _port_cfg(epochs=2)
+    fold 0 carries the same params from fold 0's ``ckpt/best`` (one
+    epoch a fold: the carry's mechanics)."""
+    cfg = _port_cfg(epochs=1)
     sweep = dict(SWEEP, n_folds=2)
     cold = W.run_walkforward(cfg, panel, start=_start(panel),
                              out_dir=str(tmp_path / "cold"), device="cpu",
@@ -285,9 +298,13 @@ def test_ensemble_flag_follows_the_trainer_kind(tmp_path, panel):
 
 
 def test_unported_options_raise(panel, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        W.run_walkforward(_port_cfg(), panel, start=_start(panel),
-                          foldstack=True, device="cpu", **SWEEP)
+    # The fold stack writes no per-epoch lines and the warm start is a
+    # serial carry: both protocols are refused with it (JAX's ValueError).
+    for bad in (dict(resume=True, out_dir=str(tmp_path)),
+                dict(warm_start=True)):
+        with pytest.raises(ValueError, match="incompatible with resume"):
+            W.run_walkforward(_port_cfg(), panel, start=_start(panel),
+                              foldstack=True, device="cpu", **SWEEP, **bad)
     # A heteroscedastic sweep resumes only from a snapshot that carries
     # its variances (the JAX package's check).
     het = dataclasses.replace(_port_cfg(), optim=dataclasses.replace(
@@ -359,10 +376,12 @@ def test_train_cli_walk_forward(tmp_path, capsys):
     with pytest.raises(SystemExit):
         train_main(base + ["--walk-forward", "12", "--wf-score",
                            "mean,mean_minus_total_std@1"])
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    # The fold stack needs the rolling window; a sweep axis must be a
+    # per-run operand.
+    with pytest.raises(SystemExit):
         train_main(base + ["--walk-forward", "12", "--wf-foldstack"])
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        train_main(base + ["--sweep-grid", "lr=1e-3,5e-4"])
+    with pytest.raises(SystemExit):
+        train_main(base + ["--sweep-grid", "momentum=0.9"])
 
 
 def test_train_cli_walk_forward_raises_without_a_card():
