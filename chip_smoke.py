@@ -38,7 +38,9 @@ imports nothing of JAX. Phases, each fatal on failure:
    and 1, beside ``rnn_fused_fwd.cu`` on the same inputs, in turns; row 3
    beside cuDNN in float32) and backwards (rows 4 and 2, beside
    ``rnn_bwd.cu``), the fused forward's seed grid (S 3, b shared: bitwise
-   equal to one-seed calls); the same four rows at hidden 120 (the
+   equal to one-seed calls), the hoisted forms' seed grid (rows 1 and 2,
+   S 3, W_h shared: one launch and one call, bitwise equal to one-seed
+   calls, within atol 1e-5); the same four rows at hidden 120 (the
    3xTF32 kernels zero-padded to 128: the kernel's device time apart from
    the pads' ``pad_ms``, beside the CUDA-core kernels) and at hidden 160
    (``rnn_fused_fwd.cu`` and ``rnn_bwd.cu``, the route above 128), each
@@ -74,12 +76,14 @@ imports nothing of JAX. Phases, each fatal on failure:
 6. the c5 ensemble (64 seeds of the LSTM, hidden 128, bf16, 8000 firms x
    660 months): at its train step's shape (S 64 x B 2048, T 60, H 128;
    the layer-0 input of a real stacked batch) the seed-batched fused
-   forward and backward must be bitwise equal to 64 one-seed launches
-   with the same rows per block, an operand of seed extent 1 (m) bitwise
+   forward and backward must be bitwise equal to one-seed launches with
+   the same rows per block at the first, a middle and the last seed
+   (``C5_CHECK_SEEDS``; the 64 one-seed launches and the plain version
+   over the 64 seeds are timed), an operand of seed extent 1 (m) bitwise
    equal to its broadcast copy, and both within the plain version's
    tolerances; the seed-folded gather exact. Then ``EnsembleTrainer``
    trains c5 for one epoch (52 steps and the validation sweep) on the
-   kernels from a seeded init: its first 3 steps' per-seed losses against
+   kernels from a seeded init: its first 2 steps' per-seed losses against
    the plain path on the card (``seed_block`` 8) within atol 0.05 + rtol
    0.05; one step moves the gather, tensor-core forward and backward
    counters by exactly 1 and no CUDA-core counter. Prints ms per step,
@@ -88,7 +92,7 @@ imports nothing of JAX. Phases, each fatal on failure:
 7. the c5 backtest: the ensemble phase 6 trained is written to a run dir
    and reloaded through ``load_forecaster``; its test-split forecasts (64
    seeds; one seed-grid launch of the fused forward per month and seed
-   chunk, counted), those of the split's first 16 months held to the
+   chunk, counted), those of the split's first 8 months held to the
    plain path on the card (atol 0.05 + rtol 0.05); ``mean``,
    ``mean_minus_std@0.5`` and ``@2`` are aggregated and backtested in one
    ``run_scoring_pipeline`` pass on the card, and each report is held to
@@ -161,7 +165,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    32-seed block (rank 0's first stacked batch, as phase 6 holds the
    64-seed one: the first, a middle and the last seed bitwise one-seed
    launches and within the plain version's tolerance); on each rank its
-   members' first 3 steps' per-seed losses against phase 6's one
+   members' first 2 steps' per-seed losses against phase 6's one
    process, rows 3 and 4 and the gather once a step, the forecasts of 3
    test months gathered over the seeds against phase 6's, ms per step
    and peak memory;
@@ -252,10 +256,33 @@ imports nothing of JAX. Phases, each fatal on failure:
    train entry's ``main`` for one epoch on a CSV panel (1000 x 240, two
    derived features) parsed natively without pandas; then one
    ``{"stacked_runs": ...}`` line;
-27. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
-   10, 11-15, 17-23 and 26's sequential fits for the one-seed rows, 6,
-   7, 16, 19-21 and 26's stacks for the seed rows);
-28. print the result line ``{"ok": true, "device": {...}}`` last.
+27. c5 on the hoisted recurrence (``scan_impl="pallas"``, the JAX
+   package's seed rules ``_make_scan._fwd_vmap`` and ``_bwd_vmap``): rows
+   1 and 2 at the train step (S 64 x B 2048, T 60, H 128), one launch and
+   one call for all seeds, three seeds bitwise equal to one-seed launches
+   and within the plain version's tolerance, m of seed extent 1 bitwise
+   its broadcast copy, timed beside 64 one-seed calls, the bound and the
+   plain version; then ``EnsembleTrainer`` for 2 steps (each one gather,
+   one forward launch and one backward call for the 64 seeds, nothing
+   else) and a predict of 3 test months, counted; the losses against
+   phase 6's plain path, the forecasts against the plain predict from the
+   same params (atol 0.05 + rtol 0.05); ms per step and the step's peak
+   memory beside phase 6's fused step;
+28. every hidden width: c2 at hidden 256 (LSTM and GRU, bf16, on the
+   CUDA-core kernels: rows 1-4 at its train step with the rows per block
+   each launch chose, timed; 3 steps against the plain path, counted; the
+   LSTM served from a ``ScoringService`` universe, every score against
+   the plain path), rows 1-4 at hidden 320 and 512 (B 2048, T 60) against
+   their plain versions (timed at 512), the CUDA-core seed grid at hidden
+   256 (S 3, m shared: every seed bitwise its one-seed call), and two
+   3-seed c2 ensembles with ``scan_impl="pallas"`` (hidden 256 on the CUDA
+   cores, float32 on the 3xTF32 kernels) for 2 steps, one launch of each
+   kernel a step, against the plain path;
+29. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
+   10, 11-15, 17-23, 26's sequential fits and 28's one-seed runs for the
+   one-seed rows, 6, 7, 16, 19-21, 26's stacks, 27 and 28's ensembles for
+   the seed rows);
+30. print the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -352,17 +379,38 @@ SEED_SOURCES = {
     "window_gather_seeds": (
         "window_gather", "csrc/window_gather.cu",
         "pallas_gather.py:100 (seed fold: _call_vmap :169)"),
+    "rnn_fwd_mma_lstm_seeds": (
+        "rnn_fwd_mma_lstm", "csrc/rnn_fused_fwd_mma.cu",
+        "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
+    "rnn_bwd_mma_lstm_seeds": (
+        "rnn_bwd_mma_lstm", "csrc/rnn_fused_bwd_mma.cu",
+        "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
+    "rnn_fwd_tf32_lstm_seeds": (
+        "rnn_fwd_tf32_lstm", "csrc/rnn_fwd_tf32.cu",
+        "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
+    "rnn_bwd_tf32_lstm_seeds": (
+        "rnn_bwd_tf32_lstm", "csrc/rnn_bwd_tf32.cu",
+        "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
+    "rnn_fwd_lstm_seeds": (
+        "rnn_fwd_lstm", "csrc/rnn_fused_fwd.cu",
+        "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
+    "rnn_bwd_lstm_seeds": (
+        "rnn_bwd_lstm", "csrc/rnn_bwd.cu",
+        "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
 }
 PLAIN_STEPS = 3      # steps of each model held against the plain path
-TIMED_STEPS = 4      # steps of each model timed and profiled
+TIMED_STEPS = 4      # steps of each model timed
+PROFILE_STEPS = 1    # steps of each model under the profiler (its events
+#                      of many small kernels cost seconds a step to read)
 C3_KERNELS = ("window_gather", "rnn_fused_fwd_mma_gru",
               "rnn_fused_bwd_mma_gru")
 CARD_RANKS = 2       # phases 10, 15 and 16's processes on the one card
 RANKS_TIMEOUT_S = 600
-C5_PLAIN_STEPS = 3   # c5 steps held against the plain path
+C5_PLAIN_STEPS = 2   # c5 steps held against the plain path
+C5_CHECK_SEEDS = (0, 31, 63)  # c5 seeds held bitwise to one-seed launches
 C5_PLAIN_BLOCK = 8   # seed_block of the plain path (its autograd memory)
 C5_PREDICT_MONTHS = 3  # test months phase 16's gathered forecasts cover
-C5_PLAIN_PREDICT_MONTHS = 16  # phase 7's test months held to the plain path
+C5_PLAIN_PREDICT_MONTHS = 8  # phase 7's test months held to the plain path
 GATHER_NO_LIBRARY = (
     "no single PyTorch call: one advanced index reads the raw rows; the "
     "window also needs the validity column split off and the masked and "
@@ -384,8 +432,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the script's log, stamped with the seconds since it
+    started (where the wall goes)."""
+    print(f"[chip_smoke {time.perf_counter() - T_START:6.1f}] {msg}",
+          flush=True)
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -578,14 +632,14 @@ def rnn_bound(kind: str, cell: str, B: int, T: int, H: int,
     if kind == "fused_fwd":
         nbytes = 2 * seq + c_all + B * T + weights
     elif kind == "fwd":
-        nbytes = xw + seq + c_all + B * T + H * GH * itemsize
+        nbytes = xw + seq + c_all + B * T + seeds * H * GH * itemsize
     else:
         states = (3 if cell == "lstm" else 2) * seq
         if kind == "fused_bwd":
             nbytes = (seq + states + seq + weights
                       + seeds * (2 * H + 1) * GH * 4)
         else:
-            nbytes = xw + states + xw + H * GH * (itemsize + 4)
+            nbytes = xw + states + xw + seeds * H * GH * (itemsize + 4)
         nbytes += B * T
     peak = H100_BF16_FLOPS if itemsize == 2 else f32_flops
     t_ops = ops / peak * 1e3
@@ -1094,6 +1148,7 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
         f32_fwd_rows(torch, kernels, "c2 train step", cell, hin, wx, b, wh,
                      mm, xw)
         f32_seed_grid(torch, cell, hin, wx, b, wh, mm, gen)
+    f32_hoisted_seed_grid(torch, kernels, cell, xw, wh, mm, dh)
     if cell == "lstm":
         f32_stack_memory(torch, hin, wx, b, wh, mm, dh)
     with torch.no_grad():
@@ -1855,7 +1910,7 @@ def step_in_turns(torch, cfg, splits, label: str, attr: str, modes: dict,
 
 
 def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
-                       check=None) -> None:
+                       check=None, timed=None) -> None:
     """The c5 train step's seed-batched launches (S 64 x B 2048, T 60, H
     128, LSTM, bf16; ``trainer``'s seeds) on the layer-0 input of the
     first stacked batch of epoch 0 and the model's seeded weights: the
@@ -1863,8 +1918,9 @@ def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
     each bitwise equal to one-seed launches with the same rows per block
     (every seed, or those of ``check``), m of seed extent 1 bitwise equal
     to its broadcast copy, and each checked seed within the plain
-    version's tolerance; each timed beside its bound, the checked seeds'
-    one-seed launches and the plain version (one seed at a time); row 4's
+    version's tolerance; each timed beside its bound, the one-seed
+    launches and the plain version (one seed at a time) of the seeds of
+    ``timed`` (default: the checked ones); row 4's
     library yardstick is the per-seed weight-gradient products as one f32
     ``torch.bmm`` (random operands of the products' shapes). Recorded
     under ``where``."""
@@ -1877,6 +1933,7 @@ def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
     fi, ti = fi_all[0], ti_all[0]  # [S, D, Bf]
     S, D, Bf = fi.shape
     check = list(range(S) if check is None else check)
+    timed = check if timed is None else list(timed)
     W, fp = trainer.window, trainer.fp
     xm = trainer.dev["xm"]
     x, m = gather_windows(xm, fi, ti, W, fp=fp)
@@ -1941,10 +1998,10 @@ def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
     ms = kernel_ms(lambda: R._fused_states(*args), reps=5, launches=2)
     singles_ms = time_ms(lambda: [R._launch_fwd_mma(
         cell, hin[s], wx[s], bb[s], wh[s], mm[s], 1.0, True, rows)
-        for s in check], reps=3, warmup=1)
+        for s in timed], reps=3, warmup=1)
     plain_ms = time_ms(lambda: [R.rnn_scan_states(
         cell, hin[s].float() @ wx[s].float() + bb[s].float(), wh[s], mm[s],
-        1.0, True) for s in check], reps=1, warmup=0)
+        1.0, True) for s in timed], reps=1, warmup=0)
     report(kernels, "rnn_fused_fwd_mma_lstm_seeds", where, dict(
         shape=[S, B, W, H], rows_per_block=rows, bitwise_vs_single=True,
         seeds_checked=len(check),
@@ -1954,7 +2011,7 @@ def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
             "no single PyTorch call: torch.nn.LSTM takes one weight set "
             "per call, so 64 seeds are 64 calls")))
     log(f"seed-batched fused fwd at the {where}: {ms['ms']:.3f} ms for {S} "
-        f"seeds in one launch, {singles_ms:.3f} ms in {len(check)} one-seed "
+        f"seeds in one launch, {singles_ms:.3f} ms in {len(timed)} one-seed "
         f"launches, bound {bound:.3f} ms")
 
     # Row 4 on the forward's states.
@@ -1988,9 +2045,9 @@ def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
     bound, by = rnn_bound("fused_bwd", cell, B, W, H, 2, seeds=S)
     ms = kernel_ms(lambda: R.rnn_scan_fused_bwd(*bargs), reps=3, launches=1)
     singles_ms = time_ms(lambda: [R.rnn_scan_fused_bwd(
-        cell, *(t[s] for t in bargs[1:])) for s in check], reps=1)
+        cell, *(t[s] for t in bargs[1:])) for s in timed], reps=1)
     plain_ms = time_ms(lambda: [R.rnn_scan_fused_bwd_reference(
-        cell, *(t[s] for t in bargs[1:])) for s in check], reps=1,
+        cell, *(t[s] for t in bargs[1:])) for s in timed], reps=1,
         warmup=0)
     del h, c, dh, bargs
     torch.cuda.empty_cache()
@@ -2010,7 +2067,7 @@ def check_seed_batched(torch, trainer, kernels, where: str = "c5 train step",
         **ms, single_seed_launches_ms=singles_ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=library_ms))
     log(f"seed-batched fused bwd at the {where}: {ms['ms']:.3f} ms for {S} "
-        f"seeds in one call, {singles_ms:.3f} ms in {len(check)} one-seed "
+        f"seeds in one call, {singles_ms:.3f} ms in {len(timed)} one-seed "
         f"calls, bound {bound:.3f} ms, library bmm {library_ms:.3f} ms")
     del hin, mm
     torch.cuda.empty_cache()
@@ -2055,7 +2112,8 @@ def c5_phase(torch, cfg, splits, kernels, seed_launches):
     cfg = dataclasses.replace(
         cfg, optim=dataclasses.replace(cfg.optim, epochs=1))
     trainer = EnsembleTrainer(cfg, splits, device="cuda")
-    check_seed_batched(torch, trainer, kernels)
+    check_seed_batched(torch, trainer, kernels, check=C5_CHECK_SEEDS,
+                       timed=range(cfg.n_seeds))
 
     # The first steps against the plain path on the card.
     lo = splits.range_of("test")[0]
@@ -2072,6 +2130,7 @@ def c5_phase(torch, cfg, splits, kernels, seed_launches):
     if any(_build.launch_counts().values()):
         fail(f"the plain c5 path launched kernels: {_build.launch_counts()}")
     err = losses_agree("c5 fused vs plain", got, want)
+    one["plain_losses"] = want  # phase 27's reference too
     log(f"c5: {C5_PLAIN_STEPS} steps x 64 seeds agree with the plain path "
         f"(seed_block {C5_PLAIN_BLOCK}, {plain_s:.1f} s) within {err:.4g}; "
         f"first step's losses {min(got[0]):.5f} .. {max(got[0]):.5f}")
@@ -2111,6 +2170,7 @@ def c5_phase(torch, cfg, splits, kernels, seed_launches):
     per_step = (time.perf_counter() - t0) / n
     fm = float(w[1:n + 1].sum()) * cfg.data.window / n
     S = cfg.n_seeds
+    one["step_ms"], one["peak_gib"] = 1e3 * per_step, peak
     log(f"train c5 steady state: {1e3 * per_step:.3f} ms/step, "
         f"{1 / per_step:.3f} steps/s, {S / per_step:.1f} seed-steps/s, "
         f"{fm / per_step:.1f} firm-months/s ({n} steps of {S} seeds, host "
@@ -2599,7 +2659,7 @@ def c3_phase(torch, kernels, totals: dict, gen) -> dict:
         shapes=lambda tr: check_c3_step_shapes(torch, tr, kernels, gen),
         sweep=True)
     trainer, (fi, ti, w), n = res["trainer"], res["batch"], \
-        res["timed_steps"]
+        res["profiled_steps"]
     d = cfg.data
     Bf = trainer.train_sampler.firms_per_date
 
@@ -3002,11 +3062,19 @@ def model_phase(torch, kernels: dict, totals: dict, cfg, splits,
         f"{1 / per_step:.2f} steps/s, {fm / per_step:.1f} firm-months/s ({n} "
         f"steps, host clock around synchronized work); peak memory "
         f"{peak:.2f} GiB")
-    by_step = profile_device(torch, steps, f"{label} train, {n} steps")
-    profile_groups(torch, trainer, state, fi[1:], ti[1:], w[1:], n, label)
+    p = min(PROFILE_STEPS, n)
+
+    def profiled():
+        st = state
+        for k in range(1, p + 1):
+            st, _ = trainer.step(st, fi[k], ti[k], w[k])
+
+    by_step = profile_device(torch, profiled, f"{label} train, {p} step(s)")
+    profile_groups(torch, trainer, state, fi[1:], ti[1:], w[1:], p, label)
     out = {"trainer": trainer, "losses": losses, "grad_norms": gnorms,
            "eval": ev, "ms_step": 1e3 * per_step, "peak_gib": peak,
-           "batch": (fi, ti, w), "timed_steps": n, "by_step": by_step}
+           "batch": (fi, ti, w), "timed_steps": n, "profiled_steps": p,
+           "by_step": by_step}
     del state
     torch.cuda.empty_cache()
     if not epoch:
@@ -3109,7 +3177,8 @@ def lru64_phase(torch, kernels: dict, totals: dict, cfg, splits) -> dict:
         f"{S / per_step:.1f} seed-steps/s, {fm / per_step:.1f} "
         f"firm-months/s ({n} steps of {S} seeds in blocks of {LRU64_BLOCK}); "
         f"peak memory {peak:.2f} GiB")
-    profile_device(torch, lambda: steps(), f"lru64 train, {n} steps")
+    profile_device(torch, lambda: trainer.step(state, fi[1], ti[1], w[1]),
+                   "lru64 train, 1 step")
     del state, trainer
     torch.cuda.empty_cache()
     return {"ms_step": 1e3 * per_step, "peak_gib": peak}
@@ -5926,6 +5995,742 @@ def stacked_phase(torch, cfg2, panel, totals: dict, seed_launches: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-28: the hoisted recurrence's seed rules, every hidden width
+# ---------------------------------------------------------------------------
+
+WIDE_HIDDEN = 256         # phase 28's model: c2 at a width past the caps
+WIDE_WIDTHS = (320, 512)  # rows 1-4 held at these widths too
+WIDE_STEPS = 3            # steps of each wide run held to the plain path
+WIDE_REQUESTS = 16        # requests served from the wide universe
+GRID_SEEDS = 3            # the seed grids held at the c2 step and at H 256
+GRID_STEPS = 2            # steps of the 3-seed ensembles on those grids
+NO_SEED_LIBRARY = ("no single PyTorch call: torch.nn.LSTM takes one weight "
+                   "set per call, so S seeds are S calls")
+
+
+def seed_grid_held(torch, label: str, stacked, one_seed, seeds) -> None:
+    """Each seed of a seed-stacked call's outputs bitwise those of its
+    one-seed call (``one_seed(s)``), or fail."""
+    for s in seeds:
+        one = one_seed(s)
+        for got, want in zip(stacked, one):
+            if (got is None) != (want is None) or (
+                    got is not None and not torch.equal(got[s], want)):
+                fail(f"{label}: seed {s} differs from its one-seed call")
+
+
+def check_hoisted_seeds(torch, trainer, kernels,
+                        where: str = "c5 train step") -> None:
+    """Rows 1 and 2 under the seed rules (``_make_scan._fwd_vmap`` :504 and
+    ``_bwd_vmap`` :541) at the c5 train step (S 64 x B 2048, T 60, H 128,
+    LSTM, bf16): the hoisted projection of the layer-0 input of the first
+    stacked batch of epoch 0, with the ensemble's seeded W_x, b and W_h.
+    One counted launch of the tensor-core hoisted forward and one call of
+    its backward for all 64 seeds; the seeds of
+    :data:`C5_CHECK_SEEDS` bitwise equal to one-seed launches with the
+    same rows per block and within the plain version's tolerance; m of
+    seed extent 1 bitwise equal to its broadcast copy; each timed beside
+    its bound, 64 one-seed calls in a loop and the plain version over the
+    64 seeds; row 2's yardstick the per-seed dW_h products as one f32
+    ``torch.bmm``."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+    from lfm_quant_tpu_torch.ops.gather import gather_windows
+
+    trainer.init_state()  # the seeded init of every member
+    (fi_all, ti_all, _), _ = trainer._build_epoch(0)
+    fi, ti = fi_all[0], ti_all[0]
+    S, D, Bf = fi.shape
+    W = trainer.window
+    x, m = gather_windows(trainer.dev["xm"], fi, ti, W, fp=trainer.fp)
+    model = trainer.model
+    cd, H, B = model.dtype, model.hidden, D * Bf
+    cell = "lstm"
+    with torch.no_grad():
+        hin = model.embed(x.reshape(S, B, W, -1), dtype=cd)
+        xw = model.xproj[0](hin, dtype=cd).contiguous()
+        wh = model.h_proj[0].detach().to(cd)
+        mm = m.reshape(S, B, W)
+    del x, m, hin
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = R._mma_rows(B, sms, S, hoisted=True)
+    fwd, bwd = f"rnn_fwd_mma_{cell}", f"rnn_bwd_mma_{cell}"
+
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        h, c = R._scan_states_any(cell, xw, wh, mm, 1.0, True)
+    if _build.launch_counts()[fwd] != 1:
+        fail(f"the 64-seed hoisted forward launched {_build.launch_counts()}")
+    seed_grid_held(torch, f"{fwd} seed grid", (h, c), lambda s:
+                   R._launch_scan_fwd_mma(cell, xw[s], wh[s], mm[s], 1.0,
+                                          True, rows), C5_CHECK_SEEDS)
+    worst = 0.0
+    for s in C5_CHECK_SEEDS:
+        want = R.rnn_scan_states(cell, xw[s], wh[s], mm[s], 1.0, True)
+        for got, ref in zip((h[s], c[s]), want):
+            err, excess = worst_excess(got, ref, BF16_TOL, BF16_TOL)
+            if excess > 0 or not torch.isfinite(got).all():
+                fail(f"{fwd} seed grid seed {s}: max err {err}")
+            worst = max(worst, err)
+    with torch.no_grad():
+        shared = R._scan_states_any(cell, xw, wh, mm[:1], 1.0, False)[0]
+        full = R._scan_states_any(cell, xw, wh, mm[:1].expand(
+            S, B, W).contiguous(), 1.0, False)[0]
+    if not torch.equal(shared, full):
+        fail(f"{fwd} seed grid: m of seed extent 1 differs from its "
+             f"broadcast copy")
+    del shared, full
+    bound, by = rnn_bound("fwd", cell, B, W, H, 2, True, seeds=S)
+    ms = kernel_ms(lambda: R._scan_states_any(cell, xw, wh, mm, 1.0, True),
+                   reps=2, launches=1)
+    loop_ms = time_ms(lambda: [R._launch_scan_fwd_mma(
+        cell, xw[s], wh[s], mm[s], 1.0, True) for s in range(S)], reps=2,
+        warmup=1)
+    plain_ms = time_ms(lambda: [R.rnn_scan_states(
+        cell, xw[s], wh[s], mm[s], 1.0, True) for s in range(S)], reps=1,
+        warmup=0)
+    report(kernels, f"{fwd}_seeds", where, dict(
+        shape=[S, B, W, H], rows_per_block=rows, bitwise_vs_single=True,
+        seeds_checked=len(C5_CHECK_SEEDS), max_abs_err=worst,
+        tolerance=f"atol {BF16_TOL} + rtol {BF16_TOL}", **ms,
+        single_seed_loop_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, library_note=NO_SEED_LIBRARY))
+    log(f"seed-batched hoisted fwd at the {where}: {ms['ms']:.3f} ms for {S} "
+        f"seeds in one launch (device {ms['device_ms']:.3f}), {loop_ms:.3f} "
+        f"ms in {S} one-seed launches, bound {bound:.3f} ms")
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dh = (0.1 * torch.randn(S, B, W, H, generator=gen, device="cuda")).to(cd)
+    args = (cell, xw, wh, mm, h, c, dh)
+    _build.reset_launch_counts()
+    got = R.rnn_scan_bwd(*args)
+    if _build.launch_counts()[bwd] != 1:
+        fail(f"the 64-seed hoisted backward launched "
+             f"{_build.launch_counts()}")
+    seed_grid_held(torch, f"{bwd} seed grid", got, lambda s: R.rnn_scan_bwd(
+        cell, *(t[s] for t in args[1:])), C5_CHECK_SEEDS)
+    worst = wgrad = 0.0
+    for s in C5_CHECK_SEEDS:
+        one = tuple(g[s] for g in got)
+        want = R.rnn_scan_bwd_reference(cell, *(t[s] for t in args[1:]))
+        worst = max(worst, grads_close(f"{bwd} seed grid seed {s}", one,
+                                       want, cd, MMA_WGRAD_TOL))
+        wgrad = max(wgrad, scaled_err(one[1], want[1]))
+    del got, one, want
+    torch.cuda.empty_cache()
+    bound, by = rnn_bound("bwd", cell, B, W, H, 2, seeds=S)
+    ms = kernel_ms(lambda: R.rnn_scan_bwd(*args), reps=2, launches=1)
+    loop_ms = time_ms(lambda: [R.rnn_scan_bwd(
+        cell, *(t[s] for t in args[1:])) for s in range(S)], reps=1)
+    plain_ms = time_ms(lambda: [R.rnn_scan_bwd_reference(
+        cell, *(t[s] for t in args[1:])) for s in range(S)], reps=1,
+        warmup=0)
+    del xw, h, c, dh, args
+    torch.cuda.empty_cache()
+    # The yardstick: dW_h of every seed in one f32 bmm, [S, H, B T] @ [S,
+    # B T, 4H] (the LSTM's d_hw is d_xw).
+    a = torch.randn(S, H, B * W, generator=gen, device="cuda")
+    d = torch.randn(S, B * W, 4 * H, generator=gen, device="cuda")
+    library_ms = time_ms(lambda: torch.bmm(a, d), reps=5)
+    del a, d
+    torch.cuda.empty_cache()
+    report(kernels, f"{bwd}_seeds", where, dict(
+        shape=[S, B, W, H], bitwise_vs_single=True,
+        seeds_checked=len(C5_CHECK_SEEDS), max_abs_err=worst,
+        wgrad_scaled_err=wgrad,
+        tolerance=f"scaled atol {BF16_TOL}, dW_h {MMA_WGRAD_TOL}", **ms,
+        single_seed_loop_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=library_ms))
+    log(f"seed-batched hoisted bwd at the {where}: {ms['ms']:.3f} ms for {S} "
+        f"seeds in one call (device {ms['device_ms']:.3f}), {loop_ms:.3f} ms "
+        f"in {S} one-seed calls, bound {bound:.3f} ms, library bmm "
+        f"{library_ms:.3f} ms")
+
+
+def c5_hoisted_phase(torch, cfg, splits, kernels, seed_launches,
+                     one5: dict) -> None:
+    """Phase 27: c5 with ``scan_impl="pallas"`` (the hoisted recurrence,
+    the JAX package's seed rules): rows 1 and 2 held at the train step
+    (:func:`check_hoisted_seeds`); then the main path, counted: the first
+    :data:`C5_PLAIN_STEPS` steps of an ``EnsembleTrainer`` from the seeded
+    init (each step one gather, one forward launch and one backward call
+    for all 64 seeds, nothing else) and the forecasts of
+    :data:`C5_PREDICT_MONTHS` test months after them; the losses held to
+    phase 6's plain path (the same init and sampler orders), the forecasts
+    to the plain predict from the same params (the trainer's model and
+    gather switched to their plain versions); ms per step and the step's
+    peak memory beside phase 6's fused step. Its launches go to
+    ``seed_launches``."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.train.ensemble import EnsembleTrainer
+
+    cfg = train_variant(cfg, scan_impl="pallas")
+    trainer = EnsembleTrainer(cfg, splits, device="cuda")
+    if trainer.model.scan_impl != "hoisted":
+        fail(f"c5 with scan_impl='pallas' built {trainer.model.scan_impl}")
+    check_hoisted_seeds(torch, trainer, kernels)
+    torch.cuda.empty_cache()
+
+    lo = splits.range_of("test")[0]
+    span = (lo, lo + C5_PREDICT_MONTHS)
+    must = ("window_gather", "rnn_fwd_mma_lstm", "rnn_bwd_mma_lstm")
+    state = trainer.init_state()
+    (fi, ti, w), _ = trainer._build_epoch(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses = []
+    for k in range(C5_PLAIN_STEPS):
+        state, ms = trainer.step(state, fi[k], ti[k], w[k])
+        losses.append(ms["loss"])
+        if k == 0:
+            first = {n: v for n, v in _build.launch_counts().items() if v}
+            if first != dict.fromkeys(must, 1):
+                fail(f"one c5 hoisted step (64 seeds) launched {first}, not "
+                     f"each of {must} once")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer.state = state
+    fc, valid = trainer.predict(date_range=span)
+    counts = _build.launch_counts()
+    log(f"launches during c5 hoisted ({C5_PLAIN_STEPS} steps, predict of "
+        f"months {span}): { {n: v for n, v in counts.items() if v} }")
+    for n in must:
+        if counts[n] == 0:
+            fail(f"kernel {n} was not launched by the c5 hoisted path")
+    if any(v for n, v in counts.items() if n not in must):
+        fail(f"the c5 hoisted path launched another kernel: {counts}")
+    for n, v in counts.items():
+        seed_launches[n] += v
+    got = torch.stack(losses).cpu().tolist()
+    err = losses_agree("c5 hoisted vs plain", got, one5["plain_losses"])
+    log(f"c5 hoisted: {C5_PLAIN_STEPS} steps x 64 seeds agree with phase 6's "
+        f"plain path within {err:.4g}; step peak memory {peak:.2f} GiB")
+
+    # The plain path from the same params: the same trainer with the plain
+    # recurrence and the plain gather (a second ensemble's set-up costs
+    # seconds).
+    trainer.model.scan_impl, trainer.gather_impl = "plain", "plain"
+    _build.reset_launch_counts()
+    want, want_valid = trainer.predict(date_range=span)
+    if any(_build.launch_counts().values()):
+        fail(f"the plain c5 predict launched {_build.launch_counts()}")
+    trainer.model.scan_impl, trainer.gather_impl = "hoisted", "kernel"
+    if not np.array_equal(valid, want_valid) or not valid.any() or \
+            not np.isfinite(fc).all():
+        fail("c5 hoisted predict: validity differs or forecasts not finite")
+    perr = np.abs(fc[:, valid] - want[:, valid])
+    if (perr > BF16_TOL + BF16_TOL * np.abs(want[:, valid])).any():
+        fail(f"c5 hoisted predict: forecasts differ from the plain path by "
+             f"up to {perr.max()}")
+    log(f"c5 hoisted predict of months {span} ({int(valid.sum())} cells x 64 "
+        f"seeds) within {perr.max():.4g} of the plain predict from the same "
+        f"params (tol {BF16_TOL} + {BF16_TOL}|plain|)")
+
+    # Steady steps: ms per step and peak memory beside phase 6's fused.
+    n = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        st = state
+        for k in range(1, n + 1):
+            st, _ = trainer.step(st, fi[k], ti[k], w[k])
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    per_step = 1e3 * (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train c5 hoisted steady state: {per_step:.3f} ms/step ({n} steps "
+        f"of 64 seeds, host clock around synchronized work), peak memory "
+        f"{peak:.2f} GiB; the fused c5 step (phase 6) {one5['step_ms']:.3f} "
+        f"ms/step, peak {one5['peak_gib']:.2f} GiB")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def f32_hoisted_seed_grid(torch, kernels, cell: str, xw, wh, mm, dh,
+                          where: str = "c2 train step") -> None:
+    """Rows 1 and 2 in float32 under the seed rules at the c2 train step:
+    S = 3 (xw, m and dh per seed, W_h of seed extent 1) through the
+    3xTF32 hoisted forms, one counted launch of the forward and one call
+    of the backward, each seed bitwise equal to a one-seed call and within
+    atol 1e-5 (gradients scaled) of the plain version; each timed beside
+    its bound, three one-seed calls and the plain version."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    S = GRID_SEEDS
+    B, T, H = dh.shape
+    xw3 = torch.stack([xw, -xw, 0.5 * xw])
+    m3 = torch.stack([mm, mm.flip(0), mm.roll(1, dims=1)])
+    dh3 = torch.stack([dh, dh.flip(0), -dh])
+    wh1 = wh[None]
+    fwd, bwd = f"rnn_fwd_tf32_{cell}", f"rnn_bwd_tf32_{cell}"
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        h, c = R._scan_states_any(cell, xw3, wh1, m3, 1.0, True)
+    args = (cell, xw3, wh1, m3, h, c, dh3)
+    got = R.rnn_scan_bwd(*args)
+    counts = _build.launch_counts()
+    if counts[fwd] != 1 or counts[bwd] != 1:
+        fail(f"the float32 hoisted seed grid launched {counts}")
+    seed_grid_held(torch, f"{fwd} seed grid", (h, c), lambda s:
+                   R._scan_states_any(cell, xw3[s], wh, m3[s], 1.0, True),
+                   range(S))
+    seed_grid_held(torch, f"{bwd} seed grid", got, lambda s: R.rnn_scan_bwd(
+        cell, xw3[s], wh, m3[s], h[s], None if c is None else c[s],
+        dh3[s]), range(S))
+    err_f = err_b = 0.0
+    for s in range(S):
+        want = R.rnn_scan_states(cell, xw3[s], wh, m3[s], 1.0, True)
+        for g, ref in zip((h[s], None if c is None else c[s]), want):
+            if ref is None:
+                continue
+            e, excess = worst_excess(g, ref, F32_TOL, 0.0)
+            if excess > 0:
+                fail(f"{fwd} seed grid seed {s}: max err {e}")
+            err_f = max(err_f, e)
+        want = R.rnn_scan_bwd_reference(cell, xw3[s], wh, m3[s], h[s],
+                                        None if c is None else c[s], dh3[s])
+        err_b = max(err_b, grads_close(f"{bwd} seed grid seed {s}",
+                                       tuple(g[s] for g in got), want,
+                                       torch.float32))
+    del got
+    one_fwd = (lambda: [R._scan_states_any(cell, xw3[s], wh, m3[s], 1.0, True)
+                        for s in range(S)])
+    one_bwd = (lambda: [R.rnn_scan_bwd(cell, xw3[s], wh, m3[s], h[s],
+                                       None if c is None else c[s], dh3[s])
+                        for s in range(S)])
+    for name, kind, run, singles, plain, err in (
+            (fwd, "fwd", lambda: R._scan_states_any(cell, xw3, wh1, m3, 1.0,
+                                                    True), one_fwd,
+             lambda: [R.rnn_scan_states(cell, xw3[s], wh, m3[s], 1.0, True)
+                      for s in range(S)], err_f),
+            (bwd, "bwd", lambda: R.rnn_scan_bwd(*args), one_bwd,
+             lambda: [R.rnn_scan_bwd_reference(
+                 cell, xw3[s], wh, m3[s], h[s], None if c is None else c[s],
+                 dh3[s]) for s in range(S)], err_b)):
+        bound, by = rnn_bound(kind, cell, B, T, H, 4, kind == "fwd",
+                              seeds=S)
+        rec = dict(shape=[S, B, T, H], dtype="float32", shared="W_h",
+                   bitwise_vs_single=True, seeds_checked=S, max_abs_err=err,
+                   tolerance=f"atol {F32_TOL}" if kind == "fwd" else
+                   f"scaled atol {F32_TOL}", **kernel_ms(run, reps=5,
+                                                         launches=2),
+                   single_seed_loop_ms=time_ms(singles, reps=3),
+                   plain_ms=time_ms(plain, reps=1, warmup=1),
+                   bound_ms=bound, bound_by=by,
+                   bound_f32_simt_ms=rnn_bound(
+                       kind, cell, B, T, H, 4, kind == "fwd", seeds=S,
+                       f32_flops=H100_F32_FLOPS)[0])
+        if kind == "fwd":
+            rec.update(library_ms=None, library_note=NO_SEED_LIBRARY)
+        else:
+            a = torch.randn(S, H, B * T, device="cuda")
+            d = torch.randn(S, B * T, GATES[cell] * H, device="cuda")
+            rec["library_ms"] = time_ms(lambda: torch.bmm(a, d), reps=5)
+            del a, d
+        report(kernels, f"{name}_seeds", where, rec)
+        log(f"{name} seed grid (S {S}, W_h shared) at the {where}: "
+            f"{rec['ms']:.4f} ms in one call against {S} one-seed calls' "
+            f"{rec['single_seed_loop_ms']:.4f}; bitwise each, max err "
+            f"{err:.3g}")
+    del xw3, m3, dh3, h, c, args
+    torch.cuda.empty_cache()
+
+
+def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
+              timed: bool, name_suffix: str = "") -> None:
+    """Rows 1-4 on the CUDA-core kernels (``rnn_fused_fwd.cu``,
+    ``rnn_bwd.cu``) at a hidden width past their former shared-memory caps:
+    each launch counted once with the rows per block :func:`_simt_rows`
+    chose, against its plain version (bf16 atol/rtol 0.05, gradients
+    scaled 0.05); ``timed``: each beside its bound, its plain version and
+    its library yardstick (cuDNN for rows 3 and 1, the weight-gradient
+    products for rows 4 and 2). Recorded under the kernel's counter name
+    plus ``name_suffix``."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    dev = hin.device
+    cd = hin.dtype
+    if R._mma_route(cd, H) != "simt":
+        fail(f"hidden {H} is not on the CUDA-core route")
+    xw32 = hin.float() @ wx.float() + b.float()
+    xw = xw32.to(cd)
+    want_f = R.rnn_scan_states(cell, xw32, wh, mm, 1.0, True)
+    want_x = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
+    sf = tuple(None if t is None else t.to(cd) for t in want_f)
+    sx = tuple(None if t is None else t.to(cd) for t in want_x)
+    rows = {}
+    runs = {
+        "fused_fwd": (lambda: R._fused_states(cell, hin, wx, b, wh, mm, 1.0,
+                                              True),
+                      lambda: R.rnn_scan_states(
+                          cell, hin.float() @ wx.float() + b.float(), wh,
+                          mm, 1.0, True), want_f),
+        "fwd": (lambda: R._scan_states_any(cell, xw, wh, mm, 1.0, True),
+                lambda: R.rnn_scan_states(cell, xw, wh, mm, 1.0, True),
+                want_x),
+        "fused_bwd": (lambda: R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, mm,
+                                                   *sf, dh),
+                      lambda: R.rnn_scan_fused_bwd_reference(
+                          cell, hin, wx, b, wh, mm, *sf, dh), None),
+        "bwd": (lambda: R.rnn_scan_bwd(cell, xw, wh, mm, *sx, dh),
+                lambda: R.rnn_scan_bwd_reference(cell, xw, wh, mm, *sx, dh),
+                None)}
+    for form, (run, plain, want) in runs.items():
+        name = f"rnn_{form}_{cell}"
+        rows[form] = R._simt_rows(cell, form, H, dev)
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            got = run()
+        counts = _build.launch_counts()
+        if counts[name] != 1 or sum(counts.values()) != 1:
+            fail(f"{name} at {where}: launched {counts}")
+        if want is not None:
+            err = 0.0
+            for g, w in zip(got, want):
+                if w is None:
+                    continue
+                e, excess = worst_excess(g, w, BF16_TOL, BF16_TOL)
+                if excess > 0 or not torch.isfinite(g).all():
+                    fail(f"{name} at {where}: max err {e}")
+                err = max(err, e)
+        else:
+            err = grads_close(f"{name} at {where}", got, plain(), cd)
+        del got
+        if not timed:
+            log(f"{name} at {where}: {rows[form]} rows per block, max err "
+                f"{err:.4g}")
+            continue
+        bound, by = rnn_bound(form, cell, B, T, H, hin.element_size(),
+                              form.endswith("fwd"))
+        if form == "fused_fwd":
+            library = cudnn_yardstick(torch, cell, hin, wx, b, wh, BF16_TOL,
+                                      BF16_TOL)
+        elif form == "fwd":
+            library = hoisted_yardstick(torch, cell, xw, wh, BF16_TOL,
+                                        BF16_TOL)
+        else:
+            # The weight-gradient products of the row, in f32.
+            d_xw, d_hw, h_prev = R._scan_bwd_core(
+                cell, xw32, wh, mm, *(sf if form == "fused_bwd" else sx), dh,
+                1.0)
+            a_h, d_h = h_prev.reshape(-1, H), d_hw.reshape(B * T, -1)
+            if form == "fused_bwd":
+                a_x, d_x = hin.float().reshape(-1, H), d_xw.reshape(B * T, -1)
+                lib = (lambda: (torch.matmul(a_x.T, d_x),
+                                torch.matmul(a_h.T, d_h)))
+            else:
+                lib = (lambda: torch.matmul(a_h.T, d_h))
+            library = dict(library_ms=time_ms(lib, reps=3))
+            del d_xw, d_hw, h_prev, a_h, d_h, lib
+        report(kernels, name + name_suffix, where, dict(
+            shape=[B, T, H], dtype=str(cd).replace("torch.", ""),
+            rows_per_block=rows[form], max_abs_err=err,
+            tolerance=(f"atol {BF16_TOL} + rtol {BF16_TOL}"
+                       if form.endswith("fwd") else
+                       f"scaled atol {BF16_TOL}"),
+            **kernel_ms(run, reps=2, launches=1),
+            plain_ms=time_ms(plain, reps=1, warmup=1),
+            bound_ms=bound, bound_by=by, **library))
+        log(f"{name} at {where}: {rows[form]} rows per block, "
+            f"{kernels[name + name_suffix][-1]['ms']:.3f} ms, bound "
+            f"{bound:.4f} ms")
+        torch.cuda.empty_cache()
+    del xw32, xw, want_f, want_x, sf, sx
+    torch.cuda.empty_cache()
+
+
+def simt_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
+                   where: str) -> None:
+    """The CUDA-core kernels' seed grid at hidden 256 in bf16, S = 3 (m of
+    seed extent 1, shared): the fused forward and backward and the hoisted
+    forward and backward each one counted launch (call) for all seeds, each
+    seed bitwise equal to its one-seed call; the hoisted pair timed beside
+    its bound, three one-seed calls and the plain version."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    S = GRID_SEEDS
+    B, T, H = hin.shape
+    stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
+    hin3 = stack(hin, lambda t: -t)
+    wx3, wh3 = (stack(w, lambda t: 0.9 * t) for w in (wx, wh))
+    b3 = stack(b, lambda t: -t)
+    dh3 = stack(dh, lambda t: -t)
+    m1 = mm[None]
+    xw3 = (hin3.float() @ wx3.float()[:, None] + b3.float()[:, None, None]
+           ).to(hin.dtype)
+    one = {}
+    with torch.no_grad():
+        sf = R._fused_states(cell, hin3, wx3, b3, wh3, m1, 1.0, True)
+        sx = R._scan_states_any(cell, xw3, wh3, m1, 1.0, True)
+    calls = {
+        "fused_fwd": (lambda: R._fused_states(cell, hin3, wx3, b3, wh3, m1,
+                                              1.0, True),
+                      lambda s: R._fused_states(cell, hin3[s], wx3[s], b3[s],
+                                                wh3[s], mm, 1.0, True)),
+        "fwd": (lambda: R._scan_states_any(cell, xw3, wh3, m1, 1.0, True),
+                lambda s: R._scan_states_any(cell, xw3[s], wh3[s], mm, 1.0,
+                                             True)),
+        "fused_bwd": (lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3, wh3,
+                                                   m1, *sf, dh3),
+                      lambda s: R.rnn_scan_fused_bwd(
+                          cell, hin3[s], wx3[s], b3[s], wh3[s], mm,
+                          *(None if t is None else t[s] for t in sf),
+                          dh3[s])),
+        "bwd": (lambda: R.rnn_scan_bwd(cell, xw3, wh3, m1, *sx, dh3),
+                lambda s: R.rnn_scan_bwd(
+                    cell, xw3[s], wh3[s], mm,
+                    *(None if t is None else t[s] for t in sx), dh3[s]))}
+    for form, (run, single) in calls.items():
+        name = f"rnn_{form}_{cell}"
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            got = run()
+        if _build.launch_counts()[name] != 1:
+            fail(f"{name} seed grid launched {_build.launch_counts()}")
+        seed_grid_held(torch, f"{name} seed grid", got, single, range(S))
+        one[form] = got
+        del got
+    log(f"CUDA-core seed grid (S {S}, m shared) at {where}: rows 1-4 one "
+        f"launch each, every seed bitwise its one-seed call")
+    for form, kind in (("fwd", "fwd"), ("bwd", "bwd")):
+        name = f"rnn_{form}_{cell}"
+        run, single = calls[form]
+        if form == "fwd":
+            plain = (lambda: [R.rnn_scan_states(cell, xw3[s], wh3[s], mm, 1.0,
+                                                True) for s in range(S)])
+            err = 0.0
+            for s in range(S):
+                want = R.rnn_scan_states(cell, xw3[s], wh3[s], mm, 1.0, True)
+                for g, w in zip((one[form][0][s], one[form][1][s]), want):
+                    e, excess = worst_excess(g, w, BF16_TOL, BF16_TOL)
+                    if excess > 0 or not torch.isfinite(g).all():
+                        fail(f"{name} seed grid seed {s}: max err {e}")
+                    err = max(err, e)
+            library = dict(library_ms=None, library_note=NO_SEED_LIBRARY)
+        else:
+            args = [(cell, xw3[s], wh3[s], mm,
+                     *(None if t is None else t[s] for t in sx), dh3[s])
+                    for s in range(S)]
+            plain = (lambda: [R.rnn_scan_bwd_reference(*a) for a in args])
+            err = max(grads_close(f"{name} seed grid seed {s}",
+                                  tuple(g[s] for g in one[form]),
+                                  R.rnn_scan_bwd_reference(*args[s]),
+                                  hin.dtype) for s in range(S))
+            a = torch.randn(S, H, B * T, device="cuda")
+            d = torch.randn(S, B * T, GATES[cell] * H, device="cuda")
+            library = dict(library_ms=time_ms(lambda: torch.bmm(a, d),
+                                              reps=3))
+            del a, d
+        bound, by = rnn_bound(kind, cell, B, T, H, hin.element_size(),
+                              kind == "fwd", seeds=S)
+        report(kernels, f"{name}_seeds", where, dict(
+            shape=[S, B, T, H], dtype=str(hin.dtype).replace("torch.", ""),
+            shared="m", rows_per_block=R._simt_rows(cell, form, H, hin.device),
+            bitwise_vs_single=True, seeds_checked=S, max_abs_err=err,
+            tolerance=(f"atol {BF16_TOL} + rtol {BF16_TOL}" if kind == "fwd"
+                       else f"scaled atol {BF16_TOL}"),
+            **kernel_ms(run, reps=2, launches=1),
+            single_seed_loop_ms=time_ms(lambda: [single(s) for s in range(S)],
+                                        reps=2, warmup=1),
+            plain_ms=time_ms(plain, reps=1, warmup=1), bound_ms=bound,
+            bound_by=by, **library))
+    del one, sf, sx, hin3, wx3, wh3, b3, dh3, xw3
+    torch.cuda.empty_cache()
+
+
+def served_scores_agree(name: str, cfg, panel, plain, responses) -> float:
+    """Every served score vector of ``responses`` finite, over the month's
+    pool, and within atol 0.05 + rtol 0.05 of the plain path ``plain`` (a
+    ``Predictor`` of the plain variant) → the largest error."""
+    import numpy as np
+
+    from lfm_quant_tpu_torch.data.windows import DateBatchSampler
+
+    sampler = DateBatchSampler(panel, cfg.data.window, 1, 8,
+                               min_valid_months=cfg.data.min_valid_months,
+                               min_cross_section=1, require_target=False)
+    col = {int(panel.dates[t]): int(t)
+           for t in sampler.months_with_anchors()}
+    worst = 0.0
+    for resp in responses:
+        t = col[resp.month]
+        pool = sampler.cross_section(t)
+        if not np.array_equal(resp.firm_idx, pool):
+            fail(f"{name} {resp.month}: served firms differ from the pool")
+        if resp.scores.shape != pool.shape or \
+                not np.isfinite(resp.scores).all():
+            fail(f"{name} {resp.month}: scores not finite of shape "
+                 f"{pool.shape}")
+        want = plain.score(pool[None, :], np.asarray([t], np.int32),
+                           np.ones((1, pool.size), np.float32))[0]
+        err = np.abs(resp.scores - want)
+        if (err > BF16_TOL + BF16_TOL * np.abs(want)).any():
+            fail(f"{name} {resp.month}: served scores differ from the "
+                 f"plain path by up to {err.max()}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
+               gen) -> None:
+    """Phase 28: every hidden width the JAX kernels take, on the CUDA-core
+    kernels, and the seed grids of rows 1 and 2 off the tensor cores.
+
+    (a) c2 at ``{"hidden": 256}`` (:data:`WIDE_HIDDEN`), LSTM and GRU,
+    bf16: rows 1-4 at its train step (the layer-0 input of a real index
+    batch, the model's seeded weights; timed, under the kernels' names),
+    then :data:`WIDE_STEPS` steps from the seeded init on the kernels,
+    counted (the CUDA-core fused forward and backward, no tensor-core
+    kernel), held to the plain path on the card; (b) the LSTM served from
+    one ``ScoringService`` universe (:data:`WIDE_REQUESTS` requests from 4
+    threads, counted, every score held to the plain path); (c) rows 1-4 at
+    :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at H^-1/2) against
+    their plain versions, timed at 512; (d) the CUDA-core seed grid at
+    hidden 256 (:func:`simt_seed_grid`) and, as the main path of the
+    hoisted forms' grids, a 3-seed c2 ensemble with ``scan_impl="pallas"``
+    at hidden 256 (CUDA cores) and one in float32 at hidden 128 (3xTF32)
+    for :data:`GRID_STEPS` steps each, counted into ``seed_launches``, held
+    to the plain path. Single-seed launches go to ``totals``."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+    from lfm_quant_tpu_torch.serve import ScoringService
+    from lfm_quant_tpu_torch.serve.__main__ import drive_load
+    from lfm_quant_tpu_torch.train.loop import Predictor, Trainer
+
+    tensor_cores = tuple(k for k in _build.LAUNCHES
+                         if "_mma_" in k or "_tf32_" in k)
+    gen = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 28)
+    for cell in ("lstm", "gru"):
+        cfg = train_variant(cfg2, kind=cell, kwargs=dict(
+            cfg2.model.kwargs, hidden=WIDE_HIDDEN))
+        trainer = Trainer(cfg, splits2, device="cuda")
+        b = trainer.train_sampler.stacked_epoch(0)
+        fi = torch.from_numpy(b.firm_idx[0]).cuda()
+        ti = torch.from_numpy(b.time_idx[0]).cuda()
+        model = trainer.model
+        cd = model.dtype
+        with torch.no_grad():
+            x, m = trainer._gather(fi, ti)
+            W = x.shape[-2]
+            B = x.shape[0] * x.shape[1]
+            hin = model.embed(x.reshape(B, W, -1), dtype=cd)
+            wx = model.xproj[0].kernel.detach().to(cd)
+            bb = model.xproj[0].bias.detach().to(cd)
+            wh = model.h_proj[0].detach().to(cd)
+        mm = m.reshape(B, W)
+        dh = (0.1 * torch.randn(B, W, WIDE_HIDDEN, generator=gen,
+                                device="cuda")).to(cd)
+        del x, m, trainer
+        where = f"c2 hidden {WIDE_HIDDEN} train step"
+        wide_rows(torch, kernels, where, cell, hin, wx, bb, wh, mm, dh, True)
+        if cell == "lstm":
+            simt_seed_grid(torch, kernels, cell, hin, wx, bb, wh, mm, dh,
+                           f"B {B}, T {W}, H {WIDE_HIDDEN}")
+        del hin, wx, bb, wh, mm, dh
+        torch.cuda.empty_cache()
+        label = f"c2 {cell} hidden {WIDE_HIDDEN} training (fused, bf16)"
+        got, counts = counted(label, (f"rnn_fused_fwd_{cell}",
+                                      f"rnn_fused_bwd_{cell}",
+                                      "window_gather"),
+                              lambda: short_run(torch, cfg, splits2,
+                                                WIDE_STEPS), tensor_cores)
+        for k, n in counts.items():
+            totals[k] += n
+        want = short_run(torch, plain_variant(cfg), splits2, WIDE_STEPS)
+        err = losses_agree(label, got, want)
+        log(f"{label}: {WIDE_STEPS} steps, losses "
+            f"{[round(v, 6) for v in got]} agree with the plain path within "
+            f"{err:.4g}")
+        torch.cuda.empty_cache()
+        if cell != "lstm":
+            continue
+        name = f"c2_h{WIDE_HIDDEN}"
+        panel = splits2.panel
+        with ScoringService(device="cuda", max_rows=8) as service:
+            t0 = time.perf_counter()
+            service.register(name, cfg, panel)
+            torch.cuda.synchronize()
+            reg_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            responses, counts = counted(
+                f"serving {name}", ("rnn_fused_fwd_lstm", "window_gather"),
+                lambda: drive_load(service, name, WIDE_REQUESTS, 4),
+                tensor_cores)
+            wall = time.perf_counter() - t0
+            st = service.stats()
+        if st["completed"] != WIDE_REQUESTS or st["dispatch_errors"]:
+            fail(f"serve {name}: {st}")
+        for k, n in counts.items():
+            totals[k] += n
+        worst = served_scores_agree(name, cfg, panel,
+                                    Predictor(plain_variant(cfg), panel),
+                                    responses)
+        log(f"serve {name}: registered and warmed in {reg_s:.1f} s; "
+            f"{WIDE_REQUESTS} requests in {wall:.3f} s, p50 "
+            f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms; every score "
+            f"within {worst:.4g} of the plain path (tol {BF16_TOL} + "
+            f"{BF16_TOL}|plain|)")
+        torch.cuda.empty_cache()
+
+    # Rows 1-4 at the wider widths, seeded weights.
+    B, T = 2048, 60
+    for H in WIDE_WIDTHS:
+        for cell in ("lstm", "gru"):
+            G = GATES[cell] * H
+            sd = H ** -0.5
+            bf = dict(generator=gen, device="cuda")
+            hin = torch.randn(B, T, H, **bf).to(torch.bfloat16)
+            wx, wh = ((sd * torch.randn(H, G, **bf)).to(torch.bfloat16)
+                      for _ in range(2))
+            bb = (0.1 * torch.randn(G, **bf)).to(torch.bfloat16)
+            mm = torch.rand(B, T, **bf) < 0.75
+            dh = (0.1 * torch.randn(B, T, H, **bf)).to(torch.bfloat16)
+            wide_rows(torch, kernels, f"B {B}, T {T}, H {H}", cell, hin, wx,
+                      bb, wh, mm, dh, timed=H == max(WIDE_WIDTHS),
+                      name_suffix=f"@h{H}")
+            del hin, wx, wh, bb, mm, dh
+            torch.cuda.empty_cache()
+
+    # The hoisted forms' seed grids on a main path: 3-seed ensembles.
+    for label, run_cfg, must in (
+            (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, bf16, hidden "
+             f"{WIDE_HIDDEN})",
+             train_variant(cfg2, scan_impl="pallas", kwargs=dict(
+                 cfg2.model.kwargs, hidden=WIDE_HIDDEN)),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
+            (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, float32)",
+             train_variant(cfg2, scan_impl="pallas", bf16=False),
+             ("rnn_fwd_tf32_lstm", "rnn_bwd_tf32_lstm", "window_gather"))):
+        run_cfg = dataclasses.replace(run_cfg, n_seeds=GRID_SEEDS)
+        got, counts = counted(label, must, lambda: ensemble_steps(
+            torch, run_cfg, splits2, GRID_STEPS))
+        if any(counts[k] != GRID_STEPS for k in must) or any(
+                v for k, v in counts.items() if k not in must):
+            fail(f"{label}: launches {counts}, not each of {must} once a "
+                 f"step")
+        for k, n in counts.items():
+            seed_launches[k] += n
+        want = ensemble_steps(torch, plain_variant(run_cfg), splits2,
+                              GRID_STEPS)
+        err = losses_agree(label, got, want)
+        log(f"{label}: {GRID_STEPS} steps, one launch of each kernel a step "
+            f"for all {GRID_SEEDS} seeds; per-seed losses agree with the "
+            f"plain path within {err:.4g}")
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "lfm_quant_tpu_torch")):
         fail("lfm_quant_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -6066,27 +6871,8 @@ def main() -> int:
     worst = 0.0
     for name, responses in served.items():
         cfg, panel, plain = universes[name]
-        sampler = DateBatchSampler(panel, cfg.data.window, 1, 8,
-                                   min_valid_months=cfg.data.min_valid_months,
-                                   min_cross_section=1, require_target=False)
-        col = {int(panel.dates[t]): int(t)
-               for t in sampler.months_with_anchors()}
-        for resp in responses:
-            t = col[resp.month]
-            pool = sampler.cross_section(t)
-            if not np.array_equal(resp.firm_idx, pool):
-                fail(f"{name} {resp.month}: served firms differ from the pool")
-            if resp.scores.shape != pool.shape or \
-                    not np.isfinite(resp.scores).all():
-                fail(f"{name} {resp.month}: scores not finite of shape "
-                     f"{pool.shape}")
-            want = plain.score(pool[None, :], np.asarray([t], np.int32),
-                               np.ones((1, pool.size), np.float32))[0]
-            err = np.abs(resp.scores - want)
-            if (err > BF16_TOL + BF16_TOL * np.abs(want)).any():
-                fail(f"{name} {resp.month}: served scores differ from the "
-                     f"plain path by up to {err.max()}")
-            worst = max(worst, float(err.max()))
+        worst = max(worst, served_scores_agree(name, cfg, panel, plain,
+                                               responses))
     log(f"served scores match the plain path on the card: max abs err "
         f"{worst:.4g} (tol {BF16_TOL} + {BF16_TOL}|plain|) over "
         f"{sum(len(v) for v in served.values())} responses")
@@ -6108,12 +6894,12 @@ def main() -> int:
     since("phase 6")
     # ---- 7. c5 backtest ---------------------------------------------------
     c5_backtest_phase(torch, trainer5, panel5, totals, seed_launches)
-    del trainer5, panel5, splits5
+    del trainer5, panel5  # splits5 stays for phase 27
 
     since("phase 7")
     # ---- 8. c2 walk-forward ---------------------------------------------
     walkforward_phase(torch, cfg2, panel2, totals)
-    del panel2, splits2
+    del panel2  # splits2 stays for phase 28
 
     since("phase 8")
     # ---- 9. c3 training at full width -----------------------------------
@@ -6190,7 +6976,17 @@ def main() -> int:
     print(json.dumps({"stacked_runs": stacked}, default=str), flush=True)
 
     since("phase 26")
-    # ---- 27. kernels line -----------------------------------------------
+    # ---- 27. c5 on the hoisted recurrence: the seed rules --------------
+    c5_hoisted_phase(torch, cfg5, splits5, kernels, seed_launches, one5)
+    del splits5
+
+    since("phase 27")
+    # ---- 28. every hidden width, the grids off the tensor cores -------
+    wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches, gen)
+    del splits2
+
+    since("phase 28")
+    # ---- 29. kernels line -----------------------------------------------
     line = []
     fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
@@ -6206,8 +7002,9 @@ def main() -> int:
                          source=f"lfm_quant_tpu_torch/{src}",
                          replaces=f"{SRC_REPO}/{rep}", launches=totals[k],
                          **rec))
-    # The seed-batched launches: measured at the c5 train step, launches
-    # counted over the c5 epoch.
+    # The seed-batched launches: measured at the c5 train step (the hoisted
+    # rows' grids off the tensor cores at the c2 step and at hidden 256),
+    # launches counted over the seed-stacked main paths.
     for k, (counter, src, rep) in SEED_SOURCES.items():
         meas = {f: kernels[k][0].get(f) for f in fields}
         line.append(dict(name=k, route="cuda",
@@ -6216,8 +7013,8 @@ def main() -> int:
                          launches=seed_launches[counter], **meas))
     print(json.dumps({"kernels": line}), flush=True)
 
-    since("phase 27")
-    # ---- 28. result -----------------------------------------------------
+    since("phase 29")
+    # ---- 30. result -----------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -34,13 +34,18 @@
 // operations and moves the G-times wider xw and dxw: bound by bytes. This
 // first version runs every product on the CUDA cores in f32. Design:
 //
-// * Kernel 1, the reverse recurrence: one block owns BB rows for all T
-//   steps, the dh/dc carries in shared memory. Per step it recomputes the
-//   gates (threads own gate columns, as the forward kernel), forms d_gates
-//   in shared memory and writes them to device memory in f32 (the weight
-//   gradients need them), then carries dh through d_gates @ W_h^T and, in
-//   the fused form, writes dhin = d_xw @ W_x^T (threads own output
-//   columns; W^T is given transposed in f32 so those reads coalesce).
+// * Kernel 1, the reverse recurrence: one block owns ROWS rows for all T
+//   steps, the dh/dc carries in shared memory. ROWS (16, 8, 4, 2 or 1, a
+//   template parameter) is chosen per launch: the most whose shared
+//   memory fits the card's per-block limit, so every hidden width the TPU
+//   kernels take runs (the fused LSTM at H 256 takes 8, at H 512 4); a
+//   row's sums do not depend on ROWS, so neither do its bits. Per step it
+//   recomputes the gates (threads own gate columns, as the forward
+//   kernel), forms d_gates in shared memory and writes them to device
+//   memory in f32 (the weight gradients need them), then carries dh
+//   through d_gates @ W_h^T and, in the fused form, writes dhin = d_xw @
+//   W_x^T (threads own output columns; W^T is given transposed in f32 so
+//   those reads coalesce).
 // * Kernel 2, the weight gradients: A^T D over all B*T rows, one 128 x 128
 //   output tile per block and a fixed chunk of rows per grid slice,
 //   written as per-slice partial sums. Kernel 3 adds the bias column sums
@@ -48,6 +53,14 @@
 //   the gradients are bitwise the same from run to run. (On the TPU the
 //   batch blocks ran in order and revisited one output block in VMEM; on
 //   the card the blocks run concurrently, hence the partials.)
+// * Seeds (pallas_rnn.py _bwd_vmap :951 and _make_scan._bwd_vmap :541):
+//   the seed is blockIdx.y of kernels 1 and 4 and the high part of the
+//   slice axis of kernels 2 and 3. Each operand has its own seed stride
+//   (SeedStrides, 0 for one shared by every seed; W^T takes W's); the
+//   saved states, dh and every output and scratch array are per seed,
+//   partial [seeds, S, total] and dw [seeds, total]. The slices are per
+//   seed and summed in the same fixed order, so a seed's gradients are
+//   bitwise those of a one-seed launch. Every per-seed offset is 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,7 +68,6 @@
 
 namespace {
 
-constexpr int kRows = 16;        // batch rows per block of kernel 1 (BB)
 constexpr int kMaxThreads = 512;
 constexpr int kLstm = 0;
 constexpr int kGru = 1;
@@ -80,10 +92,10 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// acc[r] += sum_{k < n} S[r * lds + k] * W[k * ldw]  for all kRows rows:
+// acc[r] += sum_{k < n} S[r * lds + k] * W[k * ldw]  for all ROWS rows:
 // S in shared memory (read as broadcasts, four values of k per load when
 // aligned), W in device memory (one value per k, used for every row).
-template <typename TW>
+template <int ROWS, typename TW>
 __device__ __forceinline__ void rows_dot(const float* __restrict__ S, int lds,
                                          int n, const TW* __restrict__ W,
                                          size_t ldw, float* acc) {
@@ -94,7 +106,7 @@ __device__ __forceinline__ void rows_dot(const float* __restrict__ S, int lds,
 #pragma unroll
       for (int q = 0; q < 4; ++q) w[q] = to_f(W[(size_t)(k + q) * ldw]);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < ROWS; ++r) {
         const float4 s = *reinterpret_cast<const float4*>(S + r * lds + k);
         acc[r] = fmaf(s.x, w[0], acc[r]);
         acc[r] = fmaf(s.y, w[1], acc[r]);
@@ -106,25 +118,33 @@ __device__ __forceinline__ void rows_dot(const float* __restrict__ S, int lds,
   for (; k < n; ++k) {
     const float w = to_f(W[(size_t)k * ldw]);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(S[r * lds + k], w, acc[r]);
+    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(S[r * lds + k], w, acc[r]);
   }
 }
 
-// Shared memory of kernel 1 (floats, each [kRows, .]): hp_s, dh_s, dc_s
-// [H]; hs_s, dg_s [G*H]; fused: hin_s [H], xs_s [G*H]; GRU: dhn_s [H].
-inline size_t recur_smem_bytes(int cell, bool fused, int H) {
+// Shared memory of kernel 1 (floats, each [rows, .]): hp_s, dh_s, dc_s
+// [H]; hs_s, dg_s [G*H]; fused: hin_s [H], xs_s [G*H]; GRU: dhn_s [H];
+// then the rows' step validity, one byte each, rounded up to 16 bytes.
+inline size_t recur_smem_bytes(int cell, bool fused, int H, int rows) {
   const int G = cell == kLstm ? 4 : 3;
   size_t per_row = 3 * H + 2 * G * H;
   if (fused) per_row += H + G * H;
   if (cell == kGru) per_row += H;
-  return sizeof(float) * kRows * per_row;
+  return sizeof(float) * rows * per_row + (size_t)((rows + 15) / 16) * 16;
 }
 
-// Kernel 1. xin: hin [B, T, H] (fused) or xw [B, T, G*H]. wxT, whT:
-// [G*H, H] f32. dx_out: dhin [B, T, H] (fused) or dxw [B, T, G*H] (may be
-// null: the caller then reads dgx). dgx: d_xw [B, T, G*H] f32. dhn (GRU):
-// the h side of d_gates' n slice, [B, T, H] f32.
-template <int CELL, bool FUSED, typename T>
+// Seed strides of the operands that may be shared, in elements of each (0:
+// shared by every seed). W_x^T and W_h^T take W_x's and W_h's.
+struct SeedStrides {
+  long long xin, wx, b, wh, m;
+};
+
+// Kernel 1, per seed (blockIdx.y), ROWS batch rows (blockIdx.x). Per seed:
+// xin: hin [B, T, H] (fused) or xw [B, T, G*H]. wxT, whT: [G*H, H] f32.
+// dx_out: dhin [B, T, H] (fused) or dxw [B, T, G*H] (may be null: the
+// caller then reads dgx). dgx: d_xw [B, T, G*H] f32. dhn (GRU): the h side
+// of d_gates' n slice, [B, T, H] f32.
+template <int CELL, bool FUSED, int ROWS, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 rnn_bwd_recur_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
                      const T* __restrict__ b, const T* __restrict__ wh,
@@ -135,35 +155,55 @@ rnn_bwd_recur_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
                      const T* __restrict__ c_all, const T* __restrict__ dh,
                      T* __restrict__ dx_out, float* __restrict__ dgx,
                      float* __restrict__ dhn, int B, int Tn, int H,
-                     float forget_bias) {
+                     SeedStrides st, float forget_bias) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   const int GH = G * H;
+  {
+    const size_t seed = blockIdx.y;
+    const size_t seq = (size_t)B * Tn * H;
+    xin += seed * st.xin;
+    if (FUSED) {
+      wx += seed * st.wx;
+      b += seed * st.b;
+      wxT += seed * st.wx;
+    }
+    wh += seed * st.wh;
+    whT += seed * st.wh;
+    m += seed * st.m;
+    h_all += seed * seq;
+    if (c_all != nullptr) c_all += seed * seq;
+    dh += seed * seq;
+    if (dx_out != nullptr) dx_out += seed * (FUSED ? seq : seq * G);
+    dgx += seed * seq * G;
+    if (dhn != nullptr) dhn += seed * seq;
+  }
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* hp_s = smem;                 // h_{t-1}, in W_h's type
-  float* dh_s = hp_s + kRows * H;     // f32 carry
-  float* dc_s = dh_s + kRows * H;     // f32 carry (LSTM)
-  float* hs_s = dc_s + kRows * H;     // h_{t-1} @ W_h
-  float* dg_s = hs_s + kRows * GH;    // d_xw of this step
-  float* hin_s = dg_s + kRows * GH;   // fused: hin_t
-  float* xs_s = hin_s + (FUSED ? kRows * H : 0);  // fused: hin_t @ W_x + b
-  float* dhn_s = xs_s + (FUSED ? kRows * GH : 0);  // GRU
-  __shared__ uint8_t keep_s[kRows];
+  float* dh_s = hp_s + ROWS * H;      // f32 carry
+  float* dc_s = dh_s + ROWS * H;      // f32 carry (LSTM)
+  float* hs_s = dc_s + ROWS * H;      // h_{t-1} @ W_h
+  float* dg_s = hs_s + ROWS * GH;     // d_xw of this step
+  float* hin_s = dg_s + ROWS * GH;    // fused: hin_t
+  float* xs_s = hin_s + (FUSED ? ROWS * H : 0);  // fused: hin_t @ W_x + b
+  float* dhn_s = xs_s + (FUSED ? ROWS * GH : 0);  // GRU
+  uint8_t* keep_s = reinterpret_cast<uint8_t*>(
+      dhn_s + (CELL == kGru ? ROWS * H : 0));
 
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, B - r0);
+  const int r0 = blockIdx.x * ROWS;
+  const int nr = min(ROWS, B - r0);
 
-  for (int i = tid; i < kRows * H; i += nth) {
+  for (int i = tid; i < ROWS * H; i += nth) {
     dh_s[i] = 0.0f;
     dc_s[i] = 0.0f;
     if (CELL == kGru) dhn_s[i] = 0.0f;
   }
-  for (int i = tid; i < kRows * GH; i += nth) dg_s[i] = 0.0f;
+  for (int i = tid; i < ROWS * GH; i += nth) dg_s[i] = 0.0f;
 
   for (int t = Tn - 1; t >= 0; --t) {
-    for (int i = tid; i < kRows * H; i += nth) {
+    for (int i = tid; i < ROWS * H; i += nth) {
       const int r = i / H;
       const int k = i - r * H;
       const size_t row = (size_t)(r0 + r) * Tn;
@@ -172,27 +212,27 @@ rnn_bwd_recur_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
                                   : 0.0f;
       if (FUSED) hin_s[i] = r < nr ? to_f(xin[(row + t) * H + k]) : 0.0f;
     }
-    if (tid < kRows) {
+    if (tid < ROWS) {
       keep_s[tid] = tid < nr ? m[(size_t)(r0 + tid) * Tn + t] : 0;
     }
     __syncthreads();
 
     // The gates, recomputed: threads own gate columns j.
     for (int j = tid; j < GH; j += nth) {
-      float ah[kRows];
+      float ah[ROWS];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) ah[r] = 0.0f;
-      rows_dot(hp_s, H, H, wh + j, GH, ah);
+      for (int r = 0; r < ROWS; ++r) ah[r] = 0.0f;
+      rows_dot<ROWS>(hp_s, H, H, wh + j, GH, ah);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) hs_s[r * GH + j] = ah[r];
+      for (int r = 0; r < ROWS; ++r) hs_s[r * GH + j] = ah[r];
       if (FUSED) {
-        float ax[kRows];
+        float ax[ROWS];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) ax[r] = 0.0f;
-        rows_dot(hin_s, H, H, wx + j, GH, ax);
+        for (int r = 0; r < ROWS; ++r) ax[r] = 0.0f;
+        rows_dot<ROWS>(hin_s, H, H, wx + j, GH, ax);
         const float bj = to_f(b[j]);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) xs_s[r * GH + j] = ax[r] + bj;
+        for (int r = 0; r < ROWS; ++r) xs_s[r * GH + j] = ax[r] + bj;
       }
     }
     __syncthreads();
@@ -264,19 +304,19 @@ rnn_bwd_recur_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
     for (int c = tid; c < n_out; c += nth) {
       const int p = c / H;
       const int k = c - p * H;
-      float acc[kRows];
+      float acc[ROWS];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+      for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
       if (p == 0) {
         if (CELL == kLstm) {
-          rows_dot(dg_s, GH, GH, whT + k, H, acc);
+          rows_dot<ROWS>(dg_s, GH, GH, whT + k, H, acc);
         } else {  // d_hw: d_xw with the n slice from the h side
-          rows_dot(dg_s, GH, 2 * H, whT + k, H, acc);
-          rows_dot(dhn_s, H, H, whT + (size_t)2 * H * H + k, H, acc);
+          rows_dot<ROWS>(dg_s, GH, 2 * H, whT + k, H, acc);
+          rows_dot<ROWS>(dhn_s, H, H, whT + (size_t)2 * H * H + k, H, acc);
         }
         for (int r = 0; r < nr; ++r) dh_s[r * H + k] += acc[r];
       } else {
-        rows_dot(dg_s, GH, GH, wxT + k, H, acc);
+        rows_dot<ROWS>(dg_s, GH, GH, wxT + k, H, acc);
         for (int r = 0; r < nr; ++r)
           dx_out[((size_t)(r0 + r) * Tn + t) * H + k] = from_f<T>(acc[r]);
       }
@@ -289,16 +329,18 @@ rnn_bwd_recur_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
 // A [M, K] (shift: row m reads m - 1 within its sequence of Tn rows, zero at
 // the sequence's first step — the h_{t-1} of the saved h_t), D [M, N] f32
 // with columns j >= n_split read from Dn [M, K] at j - n_split when Dn is
-// given (the GRU's d_hw). 256 threads, each an 8 x 8 patch of the 128 x 128
-// tile: per stage row a thread loads 8 + 8 operands for 64 FMAs, and the
+// given (the GRU's d_hw). blockIdx.z is seed * slices + s: per seed, A
+// moves by sA elements (0: shared), D, Dn and out by their own sizes. 256
+// threads, each an 8 x 8 patch of the 128 x 128 tile: per stage row a thread loads 8 + 8 operands for 64 FMAs, and the
 // next stage's device-memory loads are in flight during this stage's.
 template <typename TA>
 __global__ void __launch_bounds__(256)
 wgrad_partial_kernel(const TA* __restrict__ A, int shift,
                      const float* __restrict__ D,
                      const float* __restrict__ Dn, int n_split, int M, int K,
-                     int N, int Tn, int rows_per_slice,
-                     float* __restrict__ out, size_t slice_stride) {
+                     int N, int Tn, int rows_per_slice, int slices,
+                     long long sA, float* __restrict__ out,
+                     size_t slice_stride) {
   __shared__ float4 As4[kTileM][kTile / 4];
   __shared__ float4 Ds4[kTileM][kTile / 4];
   float (*As)[kTile] = reinterpret_cast<float (*)[kTile]>(As4);
@@ -308,7 +350,14 @@ wgrad_partial_kernel(const TA* __restrict__ A, int shift,
   const int ty = tid >> 4;
   const int j0 = blockIdx.x * kTile;
   const int k0 = blockIdx.y * kTile;
-  const int s = blockIdx.z;
+  const int s = blockIdx.z % slices;
+  {
+    const size_t seed = blockIdx.z / slices;
+    A += seed * sA;
+    D += seed * (size_t)M * N;
+    if (Dn != nullptr) Dn += seed * (size_t)M * K;
+    out += seed * slices * slice_stride;
+  }
   const int m_lo = s * rows_per_slice;
   const int m_hi = min(M, m_lo + rows_per_slice);
   float acc[8][8];
@@ -392,14 +441,20 @@ wgrad_partial_kernel(const TA* __restrict__ A, int shift,
 
 // Kernel 3: out[s, j] = sum over rows m of slice s of D[m, j]. A block of
 // 32 x 8 threads owns 32 columns: each thread sums every 8th row, then
-// the 8 partial sums are added in a fixed order.
+// the 8 partial sums are added in a fixed order. blockIdx.y is seed *
+// slices + s.
 __global__ void __launch_bounds__(256)
 colsum_partial_kernel(const float* __restrict__ D, int M, int N,
-                      int rows_per_slice, float* __restrict__ out,
+                      int rows_per_slice, int slices, float* __restrict__ out,
                       size_t slice_stride) {
   __shared__ float part[8][32];
   const int j = blockIdx.x * 32 + threadIdx.x;
-  const int s = blockIdx.y;
+  const int s = blockIdx.y % slices;
+  {
+    const size_t seed = blockIdx.y / slices;
+    D += seed * (size_t)M * N;
+    out += seed * slices * slice_stride;
+  }
   const int m_lo = s * rows_per_slice;
   const int m_hi = min(M, m_lo + rows_per_slice);
   float acc = 0.0f;
@@ -417,27 +472,58 @@ colsum_partial_kernel(const float* __restrict__ D, int M, int N,
   }
 }
 
-// Kernel 4: out[i] = sum_{s = 0 .. S-1} partial[s, i], in that order.
+// Kernel 4, per seed (blockIdx.y): out[seed][i] = sum_{s = 0 .. S-1}
+// partial[seed][s][i], in that order.
 __global__ void reduce_slices_kernel(const float* __restrict__ partial,
                                      int S, int count,
                                      float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
+  const size_t seed = blockIdx.y;
+  partial += seed * S * (size_t)count;
+  out += seed * count;
   float acc = 0.0f;
   for (int s = 0; s < S; ++s) acc += partial[(size_t)s * count + i];
   out[i] = acc;
 }
 
 template <typename TA>
-cudaError_t launch_wgrad(const void* A, int shift, const float* D,
-                         const float* Dn, int n_split, int M, int K, int N,
-                         int Tn, int S, float* out, size_t slice_stride,
-                         cudaStream_t stream) {
+cudaError_t launch_wgrad(const void* A, int shift, long long sA,
+                         const float* D, const float* Dn, int n_split, int M,
+                         int K, int N, int Tn, int S, int seeds, float* out,
+                         size_t slice_stride, cudaStream_t stream) {
   const int rows = (M + S - 1) / S;
-  dim3 grid((N + kTile - 1) / kTile, (K + kTile - 1) / kTile, S);
+  dim3 grid((N + kTile - 1) / kTile, (K + kTile - 1) / kTile, S * seeds);
   wgrad_partial_kernel<TA><<<grid, 256, 0, stream>>>(
-      static_cast<const TA*>(A), shift, D, Dn, n_split, M, K, N, Tn, rows,
-      out, slice_stride);
+      static_cast<const TA*>(A), shift, D, Dn, n_split, M, K, N, Tn, rows, S,
+      sA, out, slice_stride);
+  return cudaGetLastError();
+}
+
+template <int CELL, bool FUSED, int ROWS, typename T>
+cudaError_t launch_recur(const void* xin, const void* wx, const void* b,
+                         const void* wh, const void* wxT, const void* whT,
+                         const void* m, const void* h_all, const void* c_all,
+                         const void* dh, void* dx_out, void* dgx, void* dhn,
+                         int seeds, int B, int Tn, int H, SeedStrides st,
+                         float forget_bias, cudaStream_t stream) {
+  constexpr int G = CELL == kLstm ? 4 : 3;
+  const int GH = G * H;
+  const size_t smem = recur_smem_bytes(CELL, FUSED, H, ROWS);
+  auto kernel = rnn_bwd_recur_kernel<CELL, FUSED, ROWS, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int threads = ((GH + 31) / 32) * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  kernel<<<dim3((B + ROWS - 1) / ROWS, seeds), threads, smem, stream>>>(
+      static_cast<const T*>(xin), static_cast<const T*>(wx),
+      static_cast<const T*>(b), static_cast<const T*>(wh),
+      static_cast<const float*>(wxT), static_cast<const float*>(whT),
+      static_cast<const uint8_t*>(m), static_cast<const T*>(h_all),
+      static_cast<const T*>(c_all), static_cast<const T*>(dh),
+      static_cast<T*>(dx_out), static_cast<float*>(dgx),
+      static_cast<float*>(dhn), B, Tn, H, st, forget_bias);
   return cudaGetLastError();
 }
 
@@ -446,30 +532,28 @@ cudaError_t launch_all(const void* xin, const void* wx, const void* b,
                        const void* wh, const void* wxT, const void* whT,
                        const void* m, const void* h_all, const void* c_all,
                        const void* dh, void* dx_out, void* dgx, void* dhn,
-                       void* partial, int S, void* dw, int B, int Tn, int H,
+                       void* partial, int S, void* dw, int seeds, int B,
+                       int Tn, int H, int rows, SeedStrides st,
                        float forget_bias, cudaStream_t stream) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   const int GH = G * H;
-  const size_t smem = recur_smem_bytes(CELL, FUSED, H);
-  auto kernel = rnn_bwd_recur_kernel<CELL, FUSED, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int threads = ((GH + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  kernel<<<(B + kRows - 1) / kRows, threads, smem, stream>>>(
-      static_cast<const T*>(xin), static_cast<const T*>(wx),
-      static_cast<const T*>(b), static_cast<const T*>(wh),
-      static_cast<const float*>(wxT), static_cast<const float*>(whT),
-      static_cast<const uint8_t*>(m), static_cast<const T*>(h_all),
-      static_cast<const T*>(c_all), static_cast<const T*>(dh),
-      static_cast<T*>(dx_out), static_cast<float*>(dgx),
-      static_cast<float*>(dhn), B, Tn, H, forget_bias);
-  err = cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+#define LFM_RECUR(R)                                                        \
+  if (rows == R)                                                            \
+    err = launch_recur<CELL, FUSED, R, T>(xin, wx, b, wh, wxT, whT, m,      \
+                                          h_all, c_all, dh, dx_out, dgx,    \
+                                          dhn, seeds, B, Tn, H, st,         \
+                                          forget_bias, stream)
+  LFM_RECUR(16);
+  LFM_RECUR(8);
+  LFM_RECUR(4);
+  LFM_RECUR(2);
+  LFM_RECUR(1);
+#undef LFM_RECUR
   if (err != cudaSuccess) return err;
 
-  // Partial sums, slice-major: [S, (dW_x [H, GH], db [GH] if fused,)
-  // dW_h [H, GH]].
+  // Partial sums, seed- then slice-major: [seeds, S, (dW_x [H, GH], db
+  // [GH] if fused,) dW_h [H, GH]].
   const int M = B * Tn;
   const size_t hg = (size_t)H * GH;
   const size_t total = FUSED ? 2 * hg + GH : hg;
@@ -477,84 +561,160 @@ cudaError_t launch_all(const void* xin, const void* wx, const void* b,
   const float* d_x = static_cast<const float*>(dgx);
   const float* d_n = CELL == kGru ? static_cast<const float*>(dhn) : nullptr;
   if (FUSED) {
-    err = launch_wgrad<T>(xin, 0, d_x, nullptr, GH, M, H, GH, Tn, S, part,
-                          total, stream);
+    err = launch_wgrad<T>(xin, 0, st.xin, d_x, nullptr, GH, M, H, GH, Tn, S,
+                          seeds, part, total, stream);
     if (err != cudaSuccess) return err;
-    const int rows = (M + S - 1) / S;
-    colsum_partial_kernel<<<dim3((GH + 31) / 32, S), dim3(32, 8), 0,
-                            stream>>>(d_x, M, GH, rows, part + hg, total);
+    const int rows_per = (M + S - 1) / S;
+    colsum_partial_kernel<<<dim3((GH + 31) / 32, S * seeds), dim3(32, 8), 0,
+                            stream>>>(d_x, M, GH, rows_per, S, part + hg,
+                                      total);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  err = launch_wgrad<T>(h_all, 1, d_x, d_n, 2 * H, M, H, GH, Tn, S,
-                        part + (FUSED ? hg + GH : 0), total, stream);
+  err = launch_wgrad<T>(h_all, 1, (long long)M * H, d_x, d_n, 2 * H, M, H,
+                        GH, Tn, S, seeds, part + (FUSED ? hg + GH : 0), total,
+                        stream);
   if (err != cudaSuccess) return err;
-  reduce_slices_kernel<<<(int)((total + 255) / 256), 256, 0, stream>>>(
-      part, S, (int)total, static_cast<float*>(dw));
+  reduce_slices_kernel<<<dim3((int)((total + 255) / 256), seeds), 256, 0,
+                         stream>>>(part, S, (int)total,
+                                   static_cast<float*>(dw));
   return cudaGetLastError();
 }
+
+// This translation unit's element type (see the entry points below).
+#ifdef LFM_RNN_BWD_BF16
+using Elem = __nv_bfloat16;
+constexpr int kDtype = 1;
+#else
+using Elem = float;
+constexpr int kDtype = 0;
+#endif
 
 template <bool FUSED>
 int dispatch(int cell, int dtype, const void* xin, const void* wx,
              const void* b, const void* wh, const void* wxT,
              const void* whT, const void* m, const void* h_all,
              const void* c_all, const void* dh, void* dx_out, void* dgx,
-             void* dhn, void* partial, int S, void* dw, int B, int Tn, int H,
-             float forget_bias, void* stream) {
+             void* dhn, void* partial, int S, void* dw, int seeds, int B,
+             int Tn, int H, int rows, SeedStrides st, float forget_bias,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Tn <= 0 || H <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-#define LFM_BWD(C, TT)                                                      \
-  return (int)launch_all<C, FUSED, TT>(xin, wx, b, wh, wxT, whT, m, h_all,  \
-                                       c_all, dh, dx_out, dgx, dhn,         \
-                                       partial, S, dw, B, Tn, H,            \
-                                       forget_bias, s)
-  if (cell == kLstm && dtype == 0) LFM_BWD(kLstm, float);
-  if (cell == kLstm && dtype == 1) LFM_BWD(kLstm, __nv_bfloat16);
-  if (cell == kGru && dtype == 0) LFM_BWD(kGru, float);
-  if (cell == kGru && dtype == 1) LFM_BWD(kGru, __nv_bfloat16);
+  if (dtype != kDtype || seeds <= 0 || seeds > 65535 || B <= 0 || Tn <= 0 ||
+      H <= 0 || S <= 0 || (long long)S * seeds > 65535)
+    return (int)cudaErrorInvalidValue;
+#define LFM_BWD(C)                                                          \
+  return (int)launch_all<C, FUSED, Elem>(xin, wx, b, wh, wxT, whT, m, h_all, \
+                                         c_all, dh, dx_out, dgx, dhn,       \
+                                         partial, S, dw, seeds, B, Tn, H,   \
+                                         rows, st, forget_bias, s)
+  if (cell == kLstm) LFM_BWD(kLstm);
+  if (cell == kGru) LFM_BWD(kGru);
 #undef LFM_BWD
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Shared memory of the reverse-recurrence kernel, in bytes (the wrapper
-// checks it against the card's limit). fused: 1 = fused, 0 = hoisted.
-extern "C" long long lfm_rnn_bwd_smem(int cell, int fused, int H) {
-  return (long long)recur_smem_bytes(cell, fused != 0, H);
+// The entry points. Each form's kernels build in one translation unit per
+// dtype, so the four compile in parallel: this file the fused form in
+// float32, csrc/rnn_fused_bwd_bf16.cu, rnn_scan_bwd.cu and
+// rnn_scan_bwd_bf16.cu the others (each includes this file with
+// LFM_RNN_BWD_HOISTED and/or LFM_RNN_BWD_BF16 set). The float32 unit of a
+// form holds its public entry point, which hands bfloat16 on to the twin of
+// the same signature (the name with _bf16) in the other unit.
+#ifdef LFM_RNN_BWD_BF16
+#define LFM_FUSED_BWD lfm_rnn_fused_bwd_bf16
+#define LFM_SCAN_BWD lfm_rnn_scan_bwd_bf16
+#else
+#define LFM_FUSED_BWD lfm_rnn_fused_bwd
+#define LFM_SCAN_BWD lfm_rnn_scan_bwd
+#endif
+
+#ifndef LFM_RNN_BWD_HOISTED
+#ifndef LFM_RNN_BWD_BF16
+// Shared memory of the reverse-recurrence kernel with `rows` batch rows
+// per block, in bytes (the wrapper picks the most rows of 16, 8, 4, 2, 1
+// whose count fits the card's limit). fused: 1 = fused, 0 = hoisted.
+extern "C" long long lfm_rnn_bwd_smem(int cell, int fused, int H, int rows) {
+  return (long long)recur_smem_bytes(cell, fused != 0, H, rows);
 }
 
-// The fused backward. cell: 0 = LSTM, 1 = GRU; dtype: 0 = float32,
-// 1 = bfloat16 (hin, wx, b, wh, h_all, c_all, dh and dhin in it); wxT, whT
-// [G*H, H] f32; m uint8 [B, T]; c_all LSTM only. Scratch the caller
-// allocates: dgx [B, T, G*H] f32, dhn [B, T, H] f32 (GRU), partial
-// [S, 2*H*G*H + G*H] f32. Output dw [2*H*G*H + G*H] f32: dW_x, db, dW_h.
-// Returns the first CUDA error of its four launches.
-extern "C" int lfm_rnn_fused_bwd(int cell, int dtype, const void* hin,
-                                 const void* wx, const void* b,
-                                 const void* wh, const void* wxT,
-                                 const void* whT, const void* m,
-                                 const void* h_all, const void* c_all,
-                                 const void* dh, void* dhin, void* dgx,
-                                 void* dhn, void* partial, int S, void* dw,
-                                 int B, int Tn, int H, float forget_bias,
-                                 void* stream) {
+extern "C" int lfm_rnn_fused_bwd_bf16(
+    int cell, int dtype, const void* hin, const void* wx, const void* b,
+    const void* wh, const void* wxT, const void* whT, const void* m,
+    const void* h_all, const void* c_all, const void* dh, void* dhin,
+    void* dgx, void* dhn, void* partial, int S, void* dw, int seeds, int B,
+    int Tn, int H, int rows, long long s_hin, long long s_wx, long long s_b,
+    long long s_wh, long long s_m, float forget_bias, void* stream);
+#endif
+
+// The fused backward, for `seeds` seeds in one call. cell: 0 = LSTM, 1 =
+// GRU; dtype: 0 = float32, 1 = bfloat16 (hin, wx, b, wh, h_all, c_all, dh
+// and dhin in it). Per seed: hin [B, T, H]; wx, wh [H, G*H]; b [G*H];
+// wxT, whT [G*H, H] f32 (at wx's and wh's seed strides); m uint8 [B, T];
+// s_*: the seed strides of hin, wx, b, wh and m in their elements (0:
+// shared). h_all, c_all (LSTM only), dh, dhin: [seeds, B, T, H]. Scratch
+// the caller allocates: dgx [seeds, B, T, G*H] f32, dhn [seeds, B, T, H]
+// f32 (GRU), partial [seeds, S, 2*H*G*H + G*H] f32. Output dw [seeds,
+// 2*H*G*H + G*H] f32: dW_x, db, dW_h. rows: batch rows per block of the
+// recurrence, 16, 8, 4, 2 or 1. Returns the first CUDA error of its four
+// launches.
+extern "C" int LFM_FUSED_BWD(int cell, int dtype, const void* hin,
+                             const void* wx, const void* b, const void* wh,
+                             const void* wxT, const void* whT, const void* m,
+                             const void* h_all, const void* c_all,
+                             const void* dh, void* dhin, void* dgx,
+                             void* dhn, void* partial, int S, void* dw,
+                             int seeds, int B, int Tn, int H, int rows,
+                             long long s_hin, long long s_wx, long long s_b,
+                             long long s_wh, long long s_m, float forget_bias,
+                             void* stream) {
+#ifndef LFM_RNN_BWD_BF16
+  if (dtype == 1)
+    return lfm_rnn_fused_bwd_bf16(cell, dtype, hin, wx, b, wh, wxT, whT, m,
+                                  h_all, c_all, dh, dhin, dgx, dhn, partial,
+                                  S, dw, seeds, B, Tn, H, rows, s_hin, s_wx,
+                                  s_b, s_wh, s_m, forget_bias, stream);
+#endif
+  const SeedStrides st{s_hin, s_wx, s_b, s_wh, s_m};
   return dispatch<true>(cell, dtype, hin, wx, b, wh, wxT, whT, m, h_all,
-                        c_all, dh, dhin, dgx, dhn, partial, S, dw, B, Tn, H,
-                        forget_bias, stream);
+                        c_all, dh, dhin, dgx, dhn, partial, S, dw, seeds, B,
+                        Tn, H, rows, st, forget_bias, stream);
 }
 
-// The hoisted backward: xw [B, T, G*H] in place of hin, W_x and b. dxw
-// [B, T, G*H] in xw's type may be null (float32: dgx is dxw). partial
-// [S, H*G*H]; dw [H*G*H] f32: dW_h.
-extern "C" int lfm_rnn_scan_bwd(int cell, int dtype, const void* xw,
-                                const void* wh, const void* whT,
-                                const void* m, const void* h_all,
-                                const void* c_all, const void* dh, void* dxw,
-                                void* dgx, void* dhn, void* partial, int S,
-                                void* dw, int B, int Tn, int H,
-                                float forget_bias, void* stream) {
+#else
+
+#ifndef LFM_RNN_BWD_BF16
+extern "C" int lfm_rnn_scan_bwd_bf16(
+    int cell, int dtype, const void* xw, const void* wh, const void* whT,
+    const void* m, const void* h_all, const void* c_all, const void* dh,
+    void* dxw, void* dgx, void* dhn, void* partial, int S, void* dw,
+    int seeds, int B, int Tn, int H, int rows, long long s_xw, long long s_wh,
+    long long s_m, float forget_bias, void* stream);
+#endif
+
+// The hoisted backward: xw [B, T, G*H] per seed in place of hin, W_x and b.
+// dxw [seeds, B, T, G*H] in xw's type may be null (float32: dgx is dxw).
+// partial [seeds, S, H*G*H]; dw [seeds, H*G*H] f32: dW_h.
+extern "C" int LFM_SCAN_BWD(int cell, int dtype, const void* xw,
+                            const void* wh, const void* whT, const void* m,
+                            const void* h_all, const void* c_all,
+                            const void* dh, void* dxw, void* dgx, void* dhn,
+                            void* partial, int S, void* dw, int seeds, int B,
+                            int Tn, int H, int rows, long long s_xw,
+                            long long s_wh, long long s_m, float forget_bias,
+                            void* stream) {
+#ifndef LFM_RNN_BWD_BF16
+  if (dtype == 1)
+    return lfm_rnn_scan_bwd_bf16(cell, dtype, xw, wh, whT, m, h_all, c_all,
+                                 dh, dxw, dgx, dhn, partial, S, dw, seeds, B,
+                                 Tn, H, rows, s_xw, s_wh, s_m, forget_bias,
+                                 stream);
+#endif
+  const SeedStrides st{s_xw, 0, 0, s_wh, s_m};
   return dispatch<false>(cell, dtype, xw, nullptr, nullptr, wh, nullptr, whT,
                          m, h_all, c_all, dh, dxw, dgx, dhn, partial, S, dw,
-                         B, Tn, H, forget_bias, stream);
+                         seeds, B, Tn, H, rows, st, forget_bias, stream);
 }
+
+#endif  // LFM_RNN_BWD_HOISTED

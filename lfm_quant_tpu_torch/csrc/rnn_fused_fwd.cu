@@ -28,16 +28,25 @@
 // not reach either bound: it runs the products on the CUDA cores in f32.
 // Its design:
 //
-// * One thread block owns BB batch rows for all T steps; h and c stay in
-//   shared memory between steps and never go back to device memory.
+// * One thread block owns ROWS batch rows for all T steps; h and c stay
+//   in shared memory between steps and never go back to device memory.
+//   ROWS (16, 8, 4, 2 or 1, a template parameter) is chosen per launch:
+//   the most whose shared memory fits the card's per-block limit, so every
+//   hidden width the TPU kernels take runs (at H 512 the fused LSTM takes
+//   8 rows). A row's sums do not depend on ROWS, so neither do its bits.
 // * Each thread owns gate columns j: per step it reads column j of W_x and
 //   W_h once (through L1/L2; W_x and W_h together are 256 KB in bf16, more
 //   than a block's 227 KB of shared memory, so neither is staged) and uses
-//   each weight for all BB rows, so the weights' L2 traffic is divided by
-//   BB. The rows' inputs sit in shared memory and are read as broadcasts,
-//   four values of k per load.
-// * A second phase applies the gate math elementwise over [BB, H]; the
+//   each weight for all ROWS rows, so the weights' L2 traffic is divided
+//   by ROWS. The rows' inputs sit in shared memory and are read as
+//   broadcasts, four values of k per load.
+// * A second phase applies the gate math elementwise over [ROWS, H]; the
 //   hoisted form reads xw_t there, straight from device memory.
+// * Seeds (pallas_rnn.py _fwd_vmap :919 and _make_scan._fwd_vmap :504):
+//   the seed is blockIdx.y; each operand has its own seed stride in its
+//   elements (SeedStrides, 0 for one shared by every seed), h_out and
+//   c_out are per seed, every per-seed offset is 64-bit, and a seed's
+//   outputs are bitwise those of a one-seed launch.
 //
 // Making it fast (wgmma on the tensor cores, W_h resident in shared memory
 // or split across a cluster) is later work; see PERF.md.
@@ -48,7 +57,6 @@
 
 namespace {
 
-constexpr int kRows = 16;        // batch rows per block (BB)
 constexpr int kMaxThreads = 512;
 constexpr int kLstm = 0;
 constexpr int kGru = 1;
@@ -71,41 +79,64 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// Shared memory (floats): hq_s, h_s, c_s [kRows, H] and the h-side gate
-// sums hs_s [kRows, G*H]; the fused form adds hin_s [kRows, H] and the
-// x-side gate sums xs_s [kRows, G*H].
-inline size_t smem_bytes(int gates, int H, bool hoist) {
-  return sizeof(float) * (size_t)kRows * H *
-         (hoist ? 3 + gates : 4 + 2 * gates);
+// Shared memory (floats): hq_s, h_s, c_s [rows, H] and the h-side gate
+// sums hs_s [rows, G*H]; the fused form adds hin_s [rows, H] and the
+// x-side gate sums xs_s [rows, G*H]; then the rows' step validity, one
+// byte each, rounded up to 16 bytes.
+inline size_t smem_bytes(int gates, int H, bool hoist, int rows) {
+  return sizeof(float) * (size_t)rows * H *
+             (hoist ? 3 + gates : 4 + 2 * gates) +
+         (size_t)((rows + 15) / 16) * 16;
 }
 
-// xin: hin [B, T, H] (fused) or xw [B, T, G*H] (hoisted). wx and b are
-// read only by the fused form.
-template <int CELL, bool HOIST, typename T>
+// Seed strides of the operands, in elements of each (0: shared by every
+// seed). wx and b are read only by the fused form.
+struct SeedStrides {
+  long long xin, wx, b, wh, m;
+};
+
+// Per seed (blockIdx.y), ROWS batch rows (blockIdx.x). xin: hin [B, T, H]
+// (fused) or xw [B, T, G*H] (hoisted). wx and b are read only by the
+// fused form. h_out, c_out: [seeds, B, T, H].
+template <int CELL, bool HOIST, int ROWS, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 rnn_fwd_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
                const T* __restrict__ b, const T* __restrict__ wh,
                const uint8_t* __restrict__ m, T* __restrict__ h_out,
-               T* __restrict__ c_out, int B, int Tn, int H,
+               T* __restrict__ c_out, int B, int Tn, int H, SeedStrides st,
                float forget_bias) {
   constexpr int G = CELL == kLstm ? 4 : 3;
   const int GH = G * H;
+  {
+    const size_t seed = blockIdx.y;
+    const size_t seq = (size_t)B * Tn * H;
+    xin += seed * st.xin;
+    if (!HOIST) {
+      wx += seed * st.wx;
+      b += seed * st.b;
+    }
+    wh += seed * st.wh;
+    m += seed * st.m;
+    h_out += seed * seq;
+    if (c_out != nullptr) c_out += seed * seq;
+  }
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* hq_s = smem;              // h rounded to the weights' type
-  float* h_s = hq_s + kRows * H;   // f32 carry
-  float* c_s = h_s + kRows * H;    // f32 carry (LSTM)
-  float* hs_s = c_s + kRows * H;   // h @ W_h
-  float* hin_s = hs_s + kRows * GH;  // fused: this step's inputs
-  float* xs_s = hin_s + kRows * H;   // fused: hin @ W_x + b
-  __shared__ uint8_t keep_s[kRows];
+  float* h_s = hq_s + ROWS * H;    // f32 carry
+  float* c_s = h_s + ROWS * H;     // f32 carry (LSTM)
+  float* hs_s = c_s + ROWS * H;    // h @ W_h
+  float* hin_s = hs_s + ROWS * GH;  // fused: this step's inputs
+  float* xs_s = hin_s + ROWS * H;   // fused: hin @ W_x + b
+  uint8_t* keep_s = reinterpret_cast<uint8_t*>(
+      (HOIST ? hin_s : xs_s + ROWS * GH));
 
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, B - r0);
+  const int r0 = blockIdx.x * ROWS;
+  const int nr = min(ROWS, B - r0);
 
-  for (int i = tid; i < kRows * H; i += nth) {
+  for (int i = tid; i < ROWS * H; i += nth) {
     hq_s[i] = 0.0f;
     h_s[i] = 0.0f;
     c_s[i] = 0.0f;
@@ -113,22 +144,22 @@ rnn_fwd_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
 
   for (int t = 0; t < Tn; ++t) {
     if (!HOIST) {
-      for (int i = tid; i < kRows * H; i += nth) {
+      for (int i = tid; i < ROWS * H; i += nth) {
         const int r = i / H;
         const int k = i - r * H;
         hin_s[i] = r < nr ? to_f(xin[((size_t)(r0 + r) * Tn + t) * H + k])
                           : 0.0f;
       }
     }
-    if (tid < kRows) {
+    if (tid < ROWS) {
       keep_s[tid] = tid < nr ? m[(size_t)(r0 + tid) * Tn + t] : 0;
     }
     __syncthreads();
 
     for (int j = tid; j < GH; j += nth) {
-      float ax[kRows], ah[kRows];
+      float ax[ROWS], ah[ROWS];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < ROWS; ++r) {
         ax[r] = 0.0f;
         ah[r] = 0.0f;
       }
@@ -142,7 +173,7 @@ rnn_fwd_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
             whv[q] = to_f(wh[(size_t)(k + q) * GH + j]);
           }
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
+          for (int r = 0; r < ROWS; ++r) {
             const float4 q = *reinterpret_cast<const float4*>(
                 hq_s + r * H + k);
             ah[r] = fmaf(q.x, whv[0], ah[r]);
@@ -164,14 +195,14 @@ rnn_fwd_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
         const float wxv = HOIST ? 0.0f : to_f(wx[(size_t)k * GH + j]);
         const float whv = to_f(wh[(size_t)k * GH + j]);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
+        for (int r = 0; r < ROWS; ++r) {
           ah[r] = fmaf(hq_s[r * H + k], whv, ah[r]);
           if (!HOIST) ax[r] = fmaf(hin_s[r * H + k], wxv, ax[r]);
         }
       }
       const float bj = HOIST ? 0.0f : to_f(b[j]);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < ROWS; ++r) {
         hs_s[r * GH + j] = ah[r];
         if (!HOIST) xs_s[r * GH + j] = ax[r] + bj;
       }
@@ -216,78 +247,114 @@ rnn_fwd_kernel(const T* __restrict__ xin, const T* __restrict__ wx,
   }
 }
 
-template <int CELL, bool HOIST, typename T>
+template <int CELL, bool HOIST, int ROWS, typename T>
 cudaError_t launch(const void* xin, const void* wx, const void* b,
                    const void* wh, const void* m, void* h_out, void* c_out,
-                   int B, int Tn, int H, float forget_bias,
-                   cudaStream_t stream) {
+                   int seeds, int B, int Tn, int H, SeedStrides st,
+                   float forget_bias, cudaStream_t stream) {
   constexpr int G = CELL == kLstm ? 4 : 3;
-  const size_t smem = smem_bytes(G, H, HOIST);
-  auto kernel = rnn_fwd_kernel<CELL, HOIST, T>;
+  const size_t smem = smem_bytes(G, H, HOIST, ROWS);
+  auto kernel = rnn_fwd_kernel<CELL, HOIST, ROWS, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int threads = ((G * H + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  const int blocks = (B + kRows - 1) / kRows;
+  const dim3 blocks((B + ROWS - 1) / ROWS, seeds);
   kernel<<<blocks, threads, smem, stream>>>(
       static_cast<const T*>(xin), static_cast<const T*>(wx),
       static_cast<const T*>(b), static_cast<const T*>(wh),
       static_cast<const uint8_t*>(m), static_cast<T*>(h_out),
-      CELL == kLstm ? static_cast<T*>(c_out) : nullptr, B, Tn, H,
+      CELL == kLstm ? static_cast<T*>(c_out) : nullptr, B, Tn, H, st,
       forget_bias);
   return cudaGetLastError();
+}
+
+template <int CELL, bool HOIST, typename T>
+cudaError_t launch_rows(int rows, const void* xin, const void* wx,
+                        const void* b, const void* wh, const void* m,
+                        void* h_out, void* c_out, int seeds, int B, int Tn,
+                        int H, SeedStrides st, float forget_bias,
+                        cudaStream_t s) {
+#define LFM_FWD_ROWS(R)                                                     \
+  if (rows == R)                                                            \
+    return launch<CELL, HOIST, R, T>(xin, wx, b, wh, m, h_out, c_out, seeds, \
+                                     B, Tn, H, st, forget_bias, s)
+  LFM_FWD_ROWS(16);
+  LFM_FWD_ROWS(8);
+  LFM_FWD_ROWS(4);
+  LFM_FWD_ROWS(2);
+  LFM_FWD_ROWS(1);
+#undef LFM_FWD_ROWS
+  return cudaErrorInvalidValue;
 }
 
 template <bool HOIST>
 int dispatch(int cell, int dtype, const void* xin, const void* wx,
              const void* b, const void* wh, const void* m, void* h_out,
-             void* c_out, int B, int Tn, int H, float forget_bias,
-             void* stream) {
+             void* c_out, int seeds, int B, int Tn, int H, int rows,
+             SeedStrides st, float forget_bias, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Tn <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (cell == kLstm && dtype == 0)
-    return (int)launch<kLstm, HOIST, float>(xin, wx, b, wh, m, h_out, c_out,
-                                            B, Tn, H, forget_bias, s);
-  if (cell == kLstm && dtype == 1)
-    return (int)launch<kLstm, HOIST, __nv_bfloat16>(
-        xin, wx, b, wh, m, h_out, c_out, B, Tn, H, forget_bias, s);
-  if (cell == kGru && dtype == 0)
-    return (int)launch<kGru, HOIST, float>(xin, wx, b, wh, m, h_out, c_out,
-                                           B, Tn, H, forget_bias, s);
-  if (cell == kGru && dtype == 1)
-    return (int)launch<kGru, HOIST, __nv_bfloat16>(
-        xin, wx, b, wh, m, h_out, c_out, B, Tn, H, forget_bias, s);
+  if (seeds <= 0 || seeds > 65535 || B <= 0 || Tn <= 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
+#define LFM_FWD(C, TT)                                                      \
+  return (int)launch_rows<C, HOIST, TT>(rows, xin, wx, b, wh, m, h_out,     \
+                                        c_out, seeds, B, Tn, H, st,         \
+                                        forget_bias, s)
+  if (cell == kLstm && dtype == 0) LFM_FWD(kLstm, float);
+  if (cell == kLstm && dtype == 1) LFM_FWD(kLstm, __nv_bfloat16);
+  if (cell == kGru && dtype == 0) LFM_FWD(kGru, float);
+  if (cell == kGru && dtype == 1) LFM_FWD(kGru, __nv_bfloat16);
+#undef LFM_FWD
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Shared memory one launch needs, in bytes (the wrapper checks it against
-// the card's limit before launching). hoist: 0 = fused, 1 = hoisted.
-extern "C" long long lfm_rnn_fwd_smem(int cell, int hoist, int H) {
-  return (long long)smem_bytes(cell == kLstm ? 4 : 3, H, hoist != 0);
+// The entry points of one form per translation unit: this file the fused
+// form's, csrc/rnn_scan_fwd.cu (which includes it) the hoisted form's, so
+// the two forms' kernels build in parallel.
+#ifndef LFM_RNN_FWD_HOISTED
+// Shared memory one launch with `rows` batch rows per block needs, in
+// bytes (the wrapper picks the most rows of 16, 8, 4, 2, 1 whose count
+// fits the card's limit). hoist: 0 = fused, 1 = hoisted.
+extern "C" long long lfm_rnn_fwd_smem(int cell, int hoist, int H, int rows) {
+  return (long long)smem_bytes(cell == kLstm ? 4 : 3, H, hoist != 0, rows);
 }
 
-// The fused form. cell: 0 = LSTM, 1 = GRU. dtype: 0 = float32,
-// 1 = bfloat16 (hin, wx, b, wh, h_out and c_out all in it). m is uint8
-// [B, T]. c_out may be null: the cell state is written only when asked
-// (the backward needs it). Returns cudaGetLastError().
+// The fused form, for `seeds` seeds in one launch. cell: 0 = LSTM, 1 =
+// GRU. dtype: 0 = float32, 1 = bfloat16 (hin, wx, b, wh, h_out and c_out
+// all in it). Per seed: hin [B, T, H], wx, wh [H, G*H], b [G*H], m uint8
+// [B, T]; s_*: their seed strides in elements (0: shared by every seed).
+// h_out, c_out: [seeds, B, T, H]; c_out may be null: the cell state is
+// written only when asked (the backward needs it). rows: batch rows per
+// block, 16, 8, 4, 2 or 1. Returns cudaGetLastError().
 extern "C" int lfm_rnn_fused_fwd(int cell, int dtype, const void* hin,
                                  const void* wx, const void* b,
                                  const void* wh, const void* m, void* h_out,
-                                 void* c_out, int B, int Tn, int H,
+                                 void* c_out, int seeds, int B, int Tn, int H,
+                                 int rows, long long s_hin, long long s_wx,
+                                 long long s_b, long long s_wh, long long s_m,
                                  float forget_bias, void* stream) {
-  return dispatch<false>(cell, dtype, hin, wx, b, wh, m, h_out, c_out, B, Tn,
-                         H, forget_bias, stream);
+  const SeedStrides st{s_hin, s_wx, s_b, s_wh, s_m};
+  return dispatch<false>(cell, dtype, hin, wx, b, wh, m, h_out, c_out, seeds,
+                         B, Tn, H, rows, st, forget_bias, stream);
 }
 
-// The hoisted form: xw [B, T, G*H] in place of hin, W_x and b; the rest as
-// lfm_rnn_fused_fwd.
+#else
+
+// The hoisted form: xw [B, T, G*H] per seed in place of hin, W_x and b;
+// the rest as lfm_rnn_fused_fwd.
 extern "C" int lfm_rnn_scan_fwd(int cell, int dtype, const void* xw,
                                 const void* wh, const void* m, void* h_out,
-                                void* c_out, int B, int Tn, int H,
-                                float forget_bias, void* stream) {
+                                void* c_out, int seeds, int B, int Tn, int H,
+                                int rows, long long s_xw, long long s_wh,
+                                long long s_m, float forget_bias,
+                                void* stream) {
+  const SeedStrides st{s_xw, 0, 0, s_wh, s_m};
   return dispatch<true>(cell, dtype, xw, nullptr, nullptr, wh, m, h_out,
-                        c_out, B, Tn, H, forget_bias, stream);
+                        c_out, seeds, B, Tn, H, rows, st, forget_bias,
+                        stream);
 }
+
+#endif  // LFM_RNN_FWD_HOISTED

@@ -18,6 +18,7 @@ gather; those are Mosaic constraints and the port stores ``xm`` unpadded.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 from collections import OrderedDict
@@ -213,6 +214,14 @@ class DateBatchSampler:
                            else np.zeros(0, np.int32))
         self._native: Optional[bool] = None
         self._epoch = 0
+
+    def reseeded(self, seed: int) -> "DateBatchSampler":
+        """This sampler under another seed: the seed is read only when an
+        epoch is drawn, so the eligibility, pools and geometry (read-only
+        arrays) are shared, not recomputed (an ensemble's members)."""
+        out = copy.copy(self)
+        out.seed = seed
+        return out
 
     def _use_native(self) -> bool:
         """Whether this sampler draws with the C++ engine: "native"

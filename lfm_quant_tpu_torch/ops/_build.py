@@ -151,8 +151,8 @@ def library() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             cf, cll = ctypes.c_float, ctypes.c_longlong
             signatures = {
-                "lfm_rnn_fused_fwd": [ci, ci] + [vp] * 7 + [ci] * 3
-                + [cf, vp],
+                "lfm_rnn_fused_fwd": [ci, ci] + [vp] * 7 + [ci] * 5
+                + [cll] * 5 + [cf, vp],
                 "lfm_rnn_fused_fwd_mma": [ci] + [vp] * 7 + [ci] * 5
                 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_scan_fwd_mma": [ci] + [vp] * 5 + [ci] * 5
@@ -161,12 +161,12 @@ def library() -> ctypes.CDLL:
                 + [ci] * 4 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_scan_bwd_mma": [ci] + [vp] * 9 + [ci, vp]
                 + [ci] * 4 + [cll] * 3 + [cf, vp],
-                "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 3
-                + [cf, vp],
+                "lfm_rnn_scan_fwd": [ci, ci] + [vp] * 5 + [ci] * 5
+                + [cll] * 3 + [cf, vp],
                 "lfm_rnn_fused_bwd": [ci, ci] + [vp] * 14 + [ci, vp]
-                + [ci] * 3 + [cf, vp],
+                + [ci] * 5 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_scan_bwd": [ci, ci] + [vp] * 11 + [ci, vp]
-                + [ci] * 3 + [cf, vp],
+                + [ci] * 5 + [cll] * 3 + [cf, vp],
                 "lfm_rnn_bwd_tf32": [ci, ci] + [vp] * 12 + [ci, vp]
                 + [ci] * 5 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_fwd_tf32": [ci, ci] + [vp] * 8 + [ci] * 4
@@ -175,7 +175,7 @@ def library() -> ctypes.CDLL:
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ci
-            smem = {"lfm_rnn_fwd_smem": 3, "lfm_rnn_bwd_smem": 3,
+            smem = {"lfm_rnn_fwd_smem": 4, "lfm_rnn_bwd_smem": 4,
                     "lfm_rnn_fused_fwd_mma_smem": 3,
                     "lfm_rnn_scan_fwd_mma_smem": 3,
                     "lfm_rnn_fused_bwd_mma_smem": 2,

@@ -35,15 +35,21 @@ month. Tensors on the CPU go to the plain versions; tensors on the card
 launch the kernels or raise.
 
 The seed axis (the seed ensemble; the JAX kernels' ``custom_vmap`` rules,
-``pallas_rnn.py _fwd_vmap`` :919 and ``_bwd_vmap`` :951) is a leading
+``pallas_rnn.py _fwd_vmap`` :919 and ``_bwd_vmap`` :951, and the hoisted
+scan's ``_make_scan._fwd_vmap`` :504 and ``_bwd_vmap`` :541) is a leading
 dimension written out: ``rnn_scan_fused`` also takes ``hin [S, B, T, H]``,
-``wx``/``wh [S, H, G*H]``, ``b [S, G*H]`` and ``m [S, B, T]``, where any
-operand may have seed extent 1 and is then shared by every seed (JAX's
-``_seed_extent``). The tensor-core kernels run all seeds in one launch,
-each operand at its own seed stride (0 when shared); the CUDA-core
-kernels launch once per seed, as does the hoisted ``rnn_scan``; the plain
-versions run the one-seed plain op per seed. A shared operand's gradient
-is the sum of the seeds' gradients.
+``wx``/``wh [S, H, G*H]``, ``b [S, G*H]`` and ``m [S, B, T]``, and
+``rnn_scan`` ``xw [S, B, T, G*H]``, ``wh [S, H, G*H]`` and ``m [S, B,
+T]``, where any operand may have seed extent 1 and is then shared by every
+seed (JAX's ``_seed_extent``). Every kernel runs all seeds in one launch
+(one call for a backward), each operand at its own seed stride (0 when
+shared), and a seed's outputs are bitwise those of a one-seed launch; the
+plain versions run the one-seed plain op per seed. A shared operand's
+gradient is the sum of the seeds' gradients.
+
+Every hidden width runs: the CUDA-core kernels take as many batch rows
+per block (16, 8, 4, 2 or 1: :func:`_simt_rows`) as the card's shared
+memory holds, and raise only where one row does not fit.
 """
 
 from __future__ import annotations
@@ -315,6 +321,28 @@ def _check_stacked(cell: str, hin, wx, b, wh, m, h_all=None, c_all=None,
     return _seed_extent(hin, wx, b, wh, m, h_all, c_all, dh)
 
 
+def _check_stacked_scan(cell: str, xw, wh, m, h_all=None, c_all=None,
+                        dh=None) -> int:
+    """Shapes of seed-stacked hoisted operands → the seed extent S: xw [.,
+    B, T, G*H], wh [., H, G*H], m [., B, T] and the states [., B, T, H],
+    each leading extent S or 1."""
+    if cell not in _GATES:
+        raise ValueError(f"cell must be one of {sorted(_GATES)}")
+    if xw.dim() != 4 or xw.shape[-1] % _GATES[cell]:
+        raise ValueError(f"xw must be [S, B, T, {_GATES[cell]}*H], got "
+                         f"{tuple(xw.shape)}")
+    _, B, T, G = xw.shape
+    H = G // _GATES[cell]
+    want = {"wh": (wh, (H, G)), "m": (m, (B, T)), "h_all": (h_all, (B, T, H)),
+            "c_all": (c_all, (B, T, H)), "dh": (dh, (B, T, H))}
+    for name, (t, tail) in want.items():
+        if t is not None and (t.dim() != len(tail) + 1
+                              or tuple(t.shape[1:]) != tail):
+            raise ValueError(f"{name} must be [S, {', '.join(map(str, tail))}]"
+                             f", got {tuple(t.shape)}")
+    return _seed_extent(xw, wh, m, h_all, c_all, dh)
+
+
 def _check_states(cell: str, B: int, T: int, H: int, h_all, c_all,
                   dh) -> None:
     """The saved states and the upstream gradient a backward takes."""
@@ -351,34 +379,79 @@ def _smem_check(smem: int, device: torch.device, H: int) -> None:
             f"more than the card's {limit}")
 
 
+#: Batch rows per block the CUDA-core kernels (``csrc/rnn_fused_fwd.cu``,
+#: ``csrc/rnn_bwd.cu``) are built for, most first.
+SIMT_ROWS = (16, 8, 4, 2, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _simt_rows(cell: str, form: str, H: int, device: torch.device) -> int:
+    """Batch rows per block of a CUDA-core kernel (``form`` one of
+    :data:`_PAD_FORMS`) at hidden width ``H`` on ``device``: the most of
+    :data:`SIMT_ROWS` whose shared memory, as the source counts it, fits
+    the card's per-block limit. A row's sums do not depend on the count,
+    so neither do its bits. Raises only where one row does not fit."""
+    lib = _build.library()
+    smem = (functools.partial(lib.lfm_rnn_fwd_smem, _CELL_CODE[cell],
+                              int(form == "fwd"), H)
+            if form in ("fused_fwd", "fwd") else
+            functools.partial(lib.lfm_rnn_bwd_smem, _CELL_CODE[cell],
+                              int(form == "fused_bwd"), H))
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    for rows in SIMT_ROWS:
+        if smem(rows) <= limit:
+            return rows
+    raise ValueError(
+        f"hidden={H} needs {smem(1)} bytes of shared memory per block for "
+        f"the {cell} {form.replace('_', ' ')} on the CUDA cores even at one "
+        f"batch row per block, more than the card's {limit}")
+
+
 def _launch_fwd(cell: str, hoist: bool, xin: torch.Tensor, wx, b,
                 wh: torch.Tensor, m: torch.Tensor, forget_bias: float,
-                save_c: bool):
-    """One forward launch → ``(h_all, c_all or None)``."""
-    B, T = m.shape
-    H = wh.shape[0]
-    h = torch.empty((B, T, H), dtype=xin.dtype, device=xin.device)
+                save_c: bool, rows: Optional[int] = None):
+    """One launch of the CUDA-core forward → ``(h_all, c_all or None)``.
+    Fused, ``xin`` is hin; hoisted, xw (``wx``, ``b`` None). Seed-stacked
+    operands (``xin`` 4-D, each operand of seed extent S or 1) run every
+    seed in the same launch, counted once, → ``[S, B, T, H]``. ``rows``
+    (per block, one of :data:`SIMT_ROWS`) overrides :func:`_simt_rows`."""
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m = xin[None], wh[None], m[None]
+        if not hoist:
+            wx, b = wx[None], b[None]
+    S = _seed_extent(xin, wx, b, wh, m)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    dev = xin.device
+    if rows is None:
+        rows = _simt_rows(cell, "fwd" if hoist else "fused_fwd", H, dev)
+    h = torch.empty((S, B, T, H), dtype=xin.dtype, device=dev)
     c = torch.empty_like(h) if save_c and cell == "lstm" else None
     lib = _build.library()
-    _smem_check(lib.lfm_rnn_fwd_smem(_CELL_CODE[cell], int(hoist), H),
-                xin.device, H)
-    keep = m.to(torch.uint8).contiguous()
+    keep = _keep(m)
     code = _build.dtype_code(xin.dtype)
     c_ptr = None if c is None else c.data_ptr()
-    with torch.cuda.device(xin.device):
+    with torch.cuda.device(dev):
         if hoist:
             err = lib.lfm_rnn_scan_fwd(
                 _CELL_CODE[cell], code, xin.data_ptr(), wh.data_ptr(),
-                keep.data_ptr(), h.data_ptr(), c_ptr, B, T, H,
+                keep.data_ptr(), h.data_ptr(), c_ptr, S, B, T, H, rows,
+                _stride(xin, S), _stride(wh, S), _stride(keep, S),
                 float(forget_bias), _build.stream_of(xin))
         else:
             err = lib.lfm_rnn_fused_fwd(
                 _CELL_CODE[cell], code, xin.data_ptr(), wx.data_ptr(),
                 b.data_ptr(), wh.data_ptr(), keep.data_ptr(), h.data_ptr(),
-                c_ptr, B, T, H, float(forget_bias), _build.stream_of(xin))
+                c_ptr, S, B, T, H, rows, _stride(xin, S), _stride(wx, S),
+                _stride(b, S), _stride(wh, S), _stride(keep, S),
+                float(forget_bias), _build.stream_of(xin))
     name = f"rnn_{'' if hoist else 'fused_'}fwd_{cell}"
     _build.check(lib, err, name)
     _build.count_launch(name)
+    if not stacked:
+        return h[0], (None if c is None else c[0])
     return h, c
 
 
@@ -392,58 +465,79 @@ def _slices(rows: int) -> int:
 def _launch_bwd(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                 wh: torch.Tensor, m: torch.Tensor, h_all: torch.Tensor,
                 c_all: Optional[torch.Tensor], dh: torch.Tensor,
-                forget_bias: float):
-    """One backward call (four kernel launches, counted once) →
-    fused: ``(dhin, dW_x, db, dW_h)``; hoisted: ``(dxw, dW_h)``; the
-    weight gradients in f32."""
-    B, T = m.shape
-    H = wh.shape[0]
+                forget_bias: float, rows: Optional[int] = None):
+    """One call of the CUDA-core backward (four kernel launches, counted
+    once) → fused: ``(dhin, dW_x, db, dW_h)``; hoisted (``xin`` is xw,
+    ``wx``, ``b`` None): ``(dxw, dW_h)``; the weight gradients in f32.
+    Seed-stacked operands (``xin`` 4-D, each operand of seed extent S or
+    1) run every seed in the same call and give each output per seed; the
+    states ``h_all``, ``c_all`` and ``dh`` are per seed. ``rows`` (per
+    block of the recurrence, one of :data:`SIMT_ROWS`) overrides
+    :func:`_simt_rows`."""
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
+        c_all = None if c_all is None else c_all[None]
+        if fused:
+            wx, b = wx[None], b[None]
+    S = _seed_extent(xin, wx, b, wh, m, h_all, c_all, dh)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
     G = _GATES[cell] * H
     dev = xin.device
     f32 = torch.float32
+    if rows is None:
+        rows = _simt_rows(cell, "fused_bwd" if fused else "bwd", H, dev)
     lib = _build.library()
-    _smem_check(lib.lfm_rnn_bwd_smem(_CELL_CODE[cell], int(fused), H),
-                dev, H)
-    keep = m.to(torch.uint8).contiguous()
-    # W^T in f32 (64K values each): the backward products read it by rows.
-    whT = wh.float().t().contiguous()
-    dgx = torch.empty((B, T, G), dtype=f32, device=dev)
-    dhn = (torch.empty((B, T, H), dtype=f32, device=dev) if cell == "gru"
-           else None)
-    S = _slices(B * T)
+    keep = _keep(m)
+    # W^T in f32, at W's seed stride: the backward products read it by rows.
+    whT = wh.float().transpose(-1, -2).contiguous()
+    # The states are per seed: a shared one is copied out to every seed.
+    h_all, c_all, dh = (
+        None if t is None else t.expand(S, *t.shape[1:]).contiguous()
+        for t in (h_all, c_all, dh))
+    dgx = torch.empty((S, B, T, G), dtype=f32, device=dev)
+    dhn = (torch.empty((S, B, T, H), dtype=f32, device=dev)
+           if cell == "gru" else None)
+    slices = _slices(B * T)
     total = 2 * H * G + G if fused else H * G
-    partial = torch.empty((S, total), dtype=f32, device=dev)
-    dw = torch.empty((total,), dtype=f32, device=dev)
+    partial = torch.empty((S, slices, total), dtype=f32, device=dev)
+    dw = torch.empty((S, total), dtype=f32, device=dev)
     code = _build.dtype_code(xin.dtype)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         if fused:
-            wxT = wx.float().t().contiguous()
-            dx = torch.empty_like(xin)
+            wxT = wx.float().transpose(-1, -2).contiguous()
+            dx = torch.empty((S, B, T, H), dtype=xin.dtype, device=dev)
             err = lib.lfm_rnn_fused_bwd(
                 _CELL_CODE[cell], code, xin.data_ptr(), wx.data_ptr(),
                 b.data_ptr(), wh.data_ptr(), wxT.data_ptr(), whT.data_ptr(),
                 keep.data_ptr(), h_all.data_ptr(), ptr(c_all), dh.data_ptr(),
                 dx.data_ptr(), dgx.data_ptr(), ptr(dhn), partial.data_ptr(),
-                S, dw.data_ptr(), B, T, H, float(forget_bias),
-                _build.stream_of(xin))
+                slices, dw.data_ptr(), S, B, T, H, rows, _stride(xin, S),
+                _stride(wx, S), _stride(b, S), _stride(wh, S),
+                _stride(keep, S), float(forget_bias), _build.stream_of(xin))
         else:
             # In float32 the f32 gate gradients are dxw itself.
-            dx = None if xin.dtype == f32 else torch.empty_like(xin)
+            dx = (None if xin.dtype == f32 else
+                  torch.empty((S, B, T, G), dtype=xin.dtype, device=dev))
             err = lib.lfm_rnn_scan_bwd(
                 _CELL_CODE[cell], code, xin.data_ptr(), wh.data_ptr(),
                 whT.data_ptr(), keep.data_ptr(), h_all.data_ptr(),
                 ptr(c_all), dh.data_ptr(), ptr(dx), dgx.data_ptr(),
-                ptr(dhn), partial.data_ptr(), S, dw.data_ptr(), B, T, H,
+                ptr(dhn), partial.data_ptr(), slices, dw.data_ptr(), S, B, T,
+                H, rows, _stride(xin, S), _stride(wh, S), _stride(keep, S),
                 float(forget_bias), _build.stream_of(xin))
     name = f"rnn_{'fused_' if fused else ''}bwd_{cell}"
     _build.check(lib, err, name)
     _build.count_launch(name)
-    if not fused:
-        return (dgx if dx is None else dx), dw.view(H, G)
-    hg = H * G
-    return (dx, dw[:hg].view(H, G), dw[hg:hg + G],
-            dw[hg + G:].view(H, G))
+    if fused:
+        hg = H * G
+        out = (dx, dw[:, :hg].view(S, H, G), dw[:, hg:hg + G],
+               dw[:, hg + G:].view(S, H, G))
+    else:
+        out = ((dgx if dx is None else dx), dw.view(S, H, G))
+    return out if stacked else tuple(t[0] for t in out)
 
 
 def _padded_width(H: int) -> int:
@@ -870,10 +964,18 @@ def _launch_scan_bwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
                          forget_bias: float):
     """One call of the tensor-core hoisted backward (the hoisted mode of
     ``csrc/rnn_fused_bwd_mma.cu``: three kernel launches, counted once)
-    → ``(dxw in xw.dtype, dW_h f32)``. One seed: ``rnn_scan`` runs
-    seed-stacked operands one seed at a time."""
-    B, T = m.shape
-    H = wh.shape[0]
+    → ``(dxw in xw.dtype, dW_h f32)``. Seed-stacked operands (``xw [S,
+    B, T, G H]``, ``wh [S, H, G H]``, ``m [S, B, T]``, each of seed extent
+    S or 1) run every seed in the same call, counted once, and give each
+    output per seed; the states ``h_all``, ``c_all`` and ``dh`` are per
+    seed."""
+    stacked = xw.dim() == 4
+    if not stacked:
+        xw, wh, m, h_all, dh = (t[None] for t in (xw, wh, m, h_all, dh))
+        c_all = None if c_all is None else c_all[None]
+    S = _seed_extent(xw, wh, m, h_all, c_all, dh)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
     G = _GATES[cell] * H
     dev = xw.device
     f32 = torch.float32
@@ -882,25 +984,31 @@ def _launch_scan_bwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
     if smem < 0:
         raise ValueError(f"the mma backward does not take H={H}")
     _smem_check(smem, dev, H)
+    # The states are per seed: a shared one is copied out to every seed.
+    h_all, c_all, dh = (
+        None if t is None else t.expand(S, *t.shape[1:]).contiguous()
+        for t in (h_all, c_all, dh))
     xw, wh, h_all, c_all, dh = (None if t is None else _aligned16(t)
                                 for t in (xw, wh, h_all, c_all, dh))
-    keep = m.to(torch.uint8).contiguous()
-    d_hw = torch.empty((B, T, G), dtype=f32, device=dev)
+    keep = _keep(m)
+    d_hw = torch.empty((S, B, T, G), dtype=f32, device=dev)
     slices = _slices(B * T)
-    partial = torch.empty((slices, H * G), dtype=f32, device=dev)
-    dw = torch.empty((H * G,), dtype=f32, device=dev)
-    dxw = torch.empty_like(xw)
+    partial = torch.empty((S, slices, H * G), dtype=f32, device=dev)
+    dw = torch.empty((S, H * G), dtype=f32, device=dev)
+    dxw = torch.empty((S, B, T, G), dtype=xw.dtype, device=dev)
     with torch.cuda.device(dev):
         err = lib.lfm_rnn_scan_bwd_mma(
             _CELL_CODE[cell], xw.data_ptr(), wh.data_ptr(), keep.data_ptr(),
             h_all.data_ptr(), None if c_all is None else c_all.data_ptr(),
             dh.data_ptr(), dxw.data_ptr(), d_hw.data_ptr(),
-            partial.data_ptr(), slices, dw.data_ptr(), 1, B, T, H, 0, 0, 0,
+            partial.data_ptr(), slices, dw.data_ptr(), S, B, T, H,
+            _stride(xw, S), _stride(wh, S), _stride(keep, S),
             float(forget_bias), _build.stream_of(xw))
     name = f"rnn_bwd_mma_{cell}"
     _build.check(lib, err, name)
     _build.count_launch(name)
-    return dxw, dw.view(H, G)
+    out = (dxw, dw.view(S, H, G))
+    return out if stacked else tuple(t[0] for t in out)
 
 
 #: Rows per CTA of the 3xTF32 recurrences (``16 * kRowTiles`` in
@@ -1136,19 +1244,20 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
                                              forget_bias, save_c, **kw)
             # The 3xTF32 launch hands back its xw scratch itself.
             return out if route == "tf32" or not keep_xw else (*out, None)
-        if stacked:
-            # The CUDA-core kernel has no seed grid: one launch per seed.
-            out = _over_seeds(
-                lambda *a: _launch_fwd(cell, False, *a, forget_bias, save_c),
-                _seed_extent(hin, wx, b, wh, m), hin, wx, b, wh, m)
-        else:
-            out = _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias,
-                              save_c)
+        out = _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias,
+                          save_c)
     return (*out, None) if keep_xw else out
 
 
 def _scan_states_any(cell, xw, wh, m, forget_bias, save_c):
+    """The hoisted forward's states ``(h_all, c_all or None)`` on the route
+    of :func:`_mma_route`; seed-stacked operands (``xw`` 4-D) in one
+    launch on the card, one seed at a time on the CPU."""
     if xw.device.type == "cpu":
+        if xw.dim() == 4:
+            return _over_seeds(
+                lambda *a: rnn_scan_states(cell, *a, forget_bias, save_c),
+                _seed_extent(xw, wh, m), xw, wh, m)
         return rnn_scan_states(cell, xw, wh, m, forget_bias, save_c)
     _check_card(xw, wh=wh, m=m)
     route = _mma_route(xw.dtype, wh.shape[-2])
@@ -1186,10 +1295,8 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
         if route != "simt":
             return _fused_bwd_on(route, cell, hin, wx, b, wh, m, h_all,
                                  c_all, dh, forget_bias, wxp, xw)
-        # The CUDA-core kernels have no seed grid: one call per seed.
-        return _over_seeds(
-            lambda *a: _launch_bwd(cell, True, *a, forget_bias), S,
-            hin, wx, b, wh, m, h_all, c_all, dh)
+        return _launch_bwd(cell, True, hin, wx, b, wh, m, h_all, c_all, dh,
+                           forget_bias)
     B, T, H = hin.shape
     _check_shapes(cell, B, T, H, m, wh, wx, b)
     _check_states(cell, B, T, H, h_all, c_all, dh)
@@ -1222,14 +1329,26 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
                  forget_bias: float = 1.0):
     """Backward of :func:`rnn_scan` from its saved states → ``(dxw in
     xw.dtype, dW_h in f32)``; on the card the kernels of
-    :func:`_mma_route`."""
-    B, T, G = xw.shape
-    H = G // _GATES.get(cell, 1)
-    _check_shapes(cell, B, T, H, m, wh)
-    _check_states(cell, B, T, H, h_all, c_all, dh)
-    if xw.device.type == "cpu":
-        return rnn_scan_bwd_reference(cell, xw, wh, m, h_all, c_all, dh,
-                                      forget_bias)
+    :func:`_mma_route`. Seed-stacked operands (``xw`` 4-D, see
+    :func:`_check_stacked_scan`) give both per seed, ``[S, ...]``, in one
+    call on the card."""
+    if xw.dim() == 4:
+        S = _check_stacked_scan(cell, xw, wh, m, h_all, c_all, dh)
+        if cell == "lstm" and c_all is None:
+            raise ValueError("the LSTM backward needs the saved c_all")
+        H = wh.shape[-2]
+        if xw.device.type == "cpu":
+            return _over_seeds(
+                lambda *a: rnn_scan_bwd_reference(cell, *a, forget_bias),
+                S, xw, wh, m, h_all, c_all, dh)
+    else:
+        B, T, G = xw.shape
+        H = G // _GATES.get(cell, 1)
+        _check_shapes(cell, B, T, H, m, wh)
+        _check_states(cell, B, T, H, h_all, c_all, dh)
+        if xw.device.type == "cpu":
+            return rnn_scan_bwd_reference(cell, xw, wh, m, h_all, c_all, dh,
+                                          forget_bias)
     _check_card(xw, wh=wh, m=m, h_all=h_all, c_all=c_all, dh=dh)
     route = _mma_route(xw.dtype, H, "bwd")
     if route != "simt":
@@ -1272,17 +1391,27 @@ class _FusedScan(torch.autograd.Function):
         grads = rnn_scan_fused_bwd(
             ctx.cell, hin, wx, b, wh, m, h, c,
             dh.to(hin.dtype).contiguous(), ctx.forget_bias, ctx.wxp, xw)
-        # The weight gradients leave in the operands' types (f32 sums); an
-        # operand shared by every seed takes the sum of their gradients.
-        out = []
-        for g, t in zip(grads, (hin, wx, b, wh)):
-            if hin.dim() == 4 and t.shape[0] == 1 and g.shape[0] > 1:
-                g = g.sum(dim=0, keepdim=True)
-            out.append(g.to(t.dtype))
-        return (None, None, *out, None)
+        # The weight gradients leave in the operands' types (f32 sums).
+        return (None, None,
+                *_seed_summed(grads, (hin, wx, b, wh), hin.dim() == 4), None)
+
+
+def _seed_summed(grads, operands, stacked: bool):
+    """Gradients in their operands' types; under seed stacking an operand
+    of seed extent 1 (shared by every seed) takes the sum of the seeds'
+    gradients."""
+    out = []
+    for g, t in zip(grads, operands):
+        if stacked and t.shape[0] == 1 and g.shape[0] > 1:
+            g = g.sum(dim=0, keepdim=True)
+        out.append(g.to(t.dtype))
+    return out
 
 
 class _Scan(torch.autograd.Function):
+    """The hoisted recurrence, one node for every seed of a seed-stacked
+    call (the JAX ``custom_vjp`` over ``_make_scan``'s seed rules)."""
+
     @staticmethod
     def forward(ctx, cell, forget_bias, xw, wh, m):
         h, c = _scan_states_any(cell, xw, wh, m, forget_bias, True)
@@ -1293,10 +1422,10 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         xw, wh, m, h, c = ctx.saved_tensors
-        dxw, dwh = rnn_scan_bwd(ctx.cell, xw, wh, m, h, c,
-                                dh.to(xw.dtype).contiguous(),
-                                ctx.forget_bias)
-        return None, None, dxw, dwh.to(wh.dtype), None
+        grads = rnn_scan_bwd(ctx.cell, xw, wh, m, h, c,
+                             dh.to(xw.dtype).contiguous(), ctx.forget_bias)
+        return (None, None, *_seed_summed(grads, (xw, wh), xw.dim() == 4),
+                None)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -1323,7 +1452,7 @@ def rnn_scan_fused(cell: str, hin: torch.Tensor, wx: torch.Tensor,
 
     Seed-stacked: ``hin [S, B, T, H]``, ``wx``/``wh [S, H, G*H]``, ``b
     [S, G*H]``, ``m [S, B, T]``, each of seed extent S or 1 (shared) →
-    ``[S, B, T, H]``, one launch for all seeds on the tensor cores.
+    ``[S, B, T, H]``, one launch for all seeds on the card.
     """
     if hin.dim() == 4:
         S = _check_stacked(cell, hin, wx, b, wh, m)
@@ -1350,15 +1479,23 @@ def rnn_scan(cell: str, xw: torch.Tensor, wh: torch.Tensor, m: torch.Tensor,
     """Masked recurrence over a hoisted gate projection ``xw [B, T, G*H]``
     (``x @ W_x + b`` for all gates); differentiable. ``wh [H, G*H]``,
     ``m [B, T]``. Returns ``[B, T, H]`` in ``xw.dtype``; on the card
-    ``xw`` and ``wh`` are contiguous in one dtype. Seed-stacked ``xw [S,
-    B, T, G*H]``, ``wh [S, H, G*H]``, ``m [S, B, T]`` (each of extent S or
-    1) run one seed at a time: one kernel launch per seed on the card."""
+    ``xw`` and ``wh`` are contiguous in one dtype.
+
+    Seed-stacked: ``xw [S, B, T, G*H]``, ``wh [S, H, G*H]``, ``m [S, B,
+    T]``, each of seed extent S or 1 (shared) → ``[S, B, T, H]``: one
+    autograd node, one kernel launch for all seeds forward and one call
+    backward on the card (the JAX seed rules ``_make_scan._fwd_vmap`` and
+    ``_bwd_vmap``); a shared operand's gradient is the seeds' sum.
+    """
     if cell not in _GATES:
         raise ValueError(f"cell must be one of {sorted(_GATES)}")
-    if xw.dim() == 4 and wh.dim() == 3 and m.dim() == 3:
-        return _over_seeds(
-            lambda *a: rnn_scan(cell, *a, forget_bias),
-            _seed_extent(xw, wh, m), xw, wh, m)
+    if xw.dim() == 4:
+        S = _check_stacked_scan(cell, xw, wh, m)
+        if _wants_grad(xw, wh):
+            return _Scan.apply(cell, float(forget_bias), xw, wh, m)
+        if xw.numel() == 0:
+            return xw.new_empty((S, *xw.shape[1:3], wh.shape[-2]))
+        return _scan_states_any(cell, xw, wh, m, forget_bias, False)[0]
     if xw.dim() != 3 or xw.shape[-1] % _GATES[cell]:
         raise ValueError(
             f"xw must be [B, T, {_GATES[cell]}*H], got {tuple(xw.shape)}")

@@ -241,12 +241,13 @@ class EnsembleTrainer:
         # single-model Trainer's does.
         self.eval_gather_impl = ("kernel" if d.gather_impl == "pallas"
                                  else "plain")
-        self.samplers = [
-            DateBatchSampler(
-                panel, d.window, d.dates_per_batch, d.firms_per_date,
-                seed=cfg.seed + s, min_valid_months=d.min_valid_months,
-                date_range=splits.train_range, engine=d.sampler_engine)
-            for s in self.seeds]
+        # The members' samplers differ only in their seed: one is built.
+        base = DateBatchSampler(
+            panel, d.window, d.dates_per_batch, d.firms_per_date,
+            seed=cfg.seed + self.seeds[0],
+            min_valid_months=d.min_valid_months,
+            date_range=splits.train_range, engine=d.sampler_engine)
+        self.samplers = [base.reseeded(cfg.seed + s) for s in self.seeds]
         self.val_sampler = DateBatchSampler(
             panel, d.window, 1, d.firms_per_date, seed=cfg.seed,
             min_valid_months=d.min_valid_months, min_cross_section=1,

@@ -370,10 +370,10 @@ def test_seed_grid_at_a_32_seed_block(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_cuda_core_route_launches_once_per_seed(cuda, cell):
-    """float32 (the CUDA-core kernels, no seed grid) with seed-stacked
-    operands: one counted launch per seed, forward and backward, each
-    seed's result that seed's one-seed call's; the hoisted form too,
-    forward and backward."""
+    """float32 on the CUDA-core kernels (their seed grid) with seed-stacked
+    operands: one counted launch for all seeds, forward and backward, and
+    each seed's result bitwise that seed's one-seed call's; the hoisted
+    form too, forward and backward (one ``_Scan`` node for every seed)."""
     S, B, T, H = 3, 21, 5, 136  # a width the tensor cores do not take
     per = [_rnn_inputs(cell, B, T, H, s, torch.float32, cuda)
            for s in range(S)]
@@ -384,8 +384,8 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     out = rnn_scan_fused(cell, *leaves, m)
     (out ** 2).sum().backward()
     counts = _build.launch_counts()
-    assert counts[f"rnn_fused_fwd_{cell}"] == S
-    assert counts[f"rnn_fused_bwd_{cell}"] == S
+    assert counts[f"rnn_fused_fwd_{cell}"] == 1
+    assert counts[f"rnn_fused_bwd_{cell}"] == 1
     for s in range(S):
         one = [t[s].clone().requires_grad_(True) for t in (hin, wx, b, wh)]
         o = rnn_scan_fused(cell, *one, m[s])
@@ -397,7 +397,7 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     _build.reset_launch_counts()
     with torch.no_grad():
         h = rnn_scan(cell, xw, wh, m)
-    assert _build.launch_counts()[f"rnn_fwd_{cell}"] == S
+    assert _build.launch_counts()[f"rnn_fwd_{cell}"] == 1
     for s in range(S):
         with torch.no_grad():
             assert torch.equal(h[s], rnn_scan(cell, xw[s], wh[s], m[s]))
@@ -405,13 +405,156 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     _build.reset_launch_counts()
     (rnn_scan(cell, *leaves, m) ** 2).sum().backward()
     counts = _build.launch_counts()
-    assert counts[f"rnn_fwd_{cell}"] == S and counts[f"rnn_bwd_{cell}"] == S
+    assert counts[f"rnn_fwd_{cell}"] == 1 and counts[f"rnn_bwd_{cell}"] == 1
     assert counts[f"rnn_bwd_mma_{cell}"] == 0
     for s in range(S):
         one = [t[s].clone().requires_grad_(True) for t in (xw, wh)]
         (rnn_scan(cell, *one, m[s]) ** 2).sum().backward()
         for g, r in zip(leaves, one):
             assert torch.equal(g.grad[s], r.grad)
+
+
+def _wide_inputs(cell, B, T, H, seed, dtype, device, S=None):
+    """Recurrence operands at a wide H, the weights at scale H^-1/2 (gates
+    of order one at any width); ``S``: seed-stacked ``[S, ...]``."""
+    rng = np.random.default_rng(seed)
+    G = GATES[cell] * H
+    lead = () if S is None else (S,)
+    arrays = [rng.standard_normal(lead + (B, T, H)),
+              H ** -0.5 * rng.standard_normal(lead + (H, G)),
+              0.1 * rng.standard_normal(lead + (G,)),
+              H ** -0.5 * rng.standard_normal(lead + (H, G)),
+              0.3 * rng.standard_normal(lead + (B, T, H))]
+    hin, wx, b, wh, dh = (torch.from_numpy(a.astype(np.float32)).to(
+        dtype).to(device) for a in arrays)
+    m = rng.random(lead + (B, T)) < 0.75
+    return hin, wx, b, wh, torch.from_numpy(m).to(device), dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cuda_core_kernels_at_every_width(cuda, cell, dtype, H):
+    """Rows 1-4 on the CUDA-core kernels at hidden widths past the 16-row
+    blocks' shared memory (the fused LSTM backward took at most H 227,
+    the fused forward 302), fused and hoisted, forward and backward,
+    against their plain versions: each launch takes the most rows per
+    block that fit (``_simt_rows``), counted once."""
+    B, T = 37, 5
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, H, dtype, cuda)
+    xw = (hin.float() @ wx.float() + b.float()).to(dtype)
+    forms = {"fused_fwd": f"rnn_fused_fwd_{cell}", "fwd": f"rnn_fwd_{cell}",
+             "fused_bwd": f"rnn_fused_bwd_{cell}", "bwd": f"rnn_bwd_{cell}"}
+    rows = {f: R._simt_rows(cell, f, H, cuda) for f in forms}
+    assert all(r in R.SIMT_ROWS for r in rows.values())
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        h_f, c_f = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True)
+        h_x, c_x = R._scan_states_any(cell, xw, wh, m, 1.0, True)
+    want_f = rnn_scan_states(cell, hin.float() @ wx.float() + b.float(), wh,
+                             m, 1.0, True)
+    want_x = rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    for got, want in ((h_f, want_f[0]), (c_f, want_f[1]), (h_x, want_x[0]),
+                      (c_x, want_x[1])):
+        if want is None:
+            assert got is None
+            continue
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **TOL[dtype])
+    h, c = (t if t is None else t.to(dtype) for t in want_f)
+    got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+    want = rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h, c, dh)
+    for g, w in zip(got, want):
+        _scaled_close(g, w, dtype)
+    h, c = (t if t is None else t.to(dtype) for t in want_x)
+    got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
+    want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+    for g, w in zip(got, want):
+        _scaled_close(g, w, dtype)
+    counts = _build.launch_counts()
+    assert all(counts[k] == 1 for k in forms.values()), (counts, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cuda_core_rows_per_block_do_not_change_bits(cuda, cell):
+    """A row's sums do not depend on the rows per block: the forward and
+    the backward at 16 and at 1 row per block give the same bits; a width
+    that one row cannot hold raises and names the card's limit."""
+    B, T, H = 19, 4, 256
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 3, torch.float32,
+                                         cuda)
+    xw = hin @ wx + b
+    one = R._launch_fwd(cell, True, xw, None, None, wh, m, 1.0, True, 1)
+    many = R._launch_fwd(cell, True, xw, None, None, wh, m, 1.0, True, 16)
+    for a, z in zip(one, many):
+        assert (a is None and z is None) or torch.equal(a, z)
+    h, c = one
+    one = R._launch_bwd(cell, False, xw, None, None, wh, m, h, c, dh, 1.0, 1)
+    many = R._launch_bwd(cell, False, xw, None, None, wh, m, h, c, dh, 1.0,
+                         16)
+    for a, z in zip(one, many):
+        assert torch.equal(a, z)
+    limit = torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    with pytest.raises(ValueError, match=str(limit)):
+        R._simt_rows(cell, "fused_bwd", 8192, cuda)
+
+
+#: A hoisted route, its dtype and a width it serves.
+HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
+                  "simt": (torch.float32, 256), "simt_bf16": (
+                      torch.bfloat16, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", ["none", "m", "wh", "xw"])
+@pytest.mark.parametrize("route", sorted(HOISTED_ROUTES))
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_hoisted_seed_grid_bitwise_equals_single_seed_launches(
+        cuda, cell, route, shared):
+    """Rows 1 and 2 under the seed rules (``_make_scan._fwd_vmap`` and
+    ``_bwd_vmap``): a seed-stacked ``rnn_scan`` is one autograd node, one
+    counted forward launch and one backward call on each route, and each
+    seed's output and gradients are bitwise a one-seed call's; an operand
+    of seed extent 1 is shared, and its gradient is the seeds' sum."""
+    dtype, H = HOISTED_ROUTES[route]
+    S, B, T = 3, 21, 6
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 11, dtype, cuda,
+                                         S=S)
+    xw = (hin.float() @ wx.float()[:, None] + b.float()[:, None, None]).to(
+        dtype)
+    ops = {"xw": xw, "wh": wh, "m": m}
+    if shared != "none":
+        ops[shared] = ops[shared][:1].contiguous()
+    leaves = [ops[k].clone().requires_grad_(True) for k in ("xw", "wh")]
+    tag = {"mma": "mma_", "tf32": "tf32_"}.get(route, "")
+    _build.reset_launch_counts()
+    out = rnn_scan(cell, *leaves, ops["m"])
+    assert out.grad_fn is not None and out.shape == (S, B, T, H)
+    out.float().mul(dh.float()).sum().backward()
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fwd_{tag}{cell}"] == 1, counts
+    assert counts[f"rnn_bwd_{tag}{cell}"] == 1, counts
+    grads = []
+    for s in range(S):
+        one = [(t[s] if t.shape[0] > 1 else t[0]).clone().requires_grad_(True)
+               for t in (ops["xw"], ops["wh"])]
+        o = rnn_scan(cell, *one, ops["m"][s if shared != "m" else 0])
+        o.float().mul(dh[s].float()).sum().backward()
+        assert torch.equal(out[s], o)
+        grads.append([t.grad for t in one])
+    for i, leaf in enumerate(leaves):
+        each = torch.stack([g[i] for g in grads])
+        if leaf.shape[0] > 1:
+            assert torch.equal(leaf.grad, each)
+        elif dtype == torch.float32 or i == 0:
+            assert torch.equal(leaf.grad[0], each.sum(dim=0))
+        else:
+            # bf16 W_h: the f32 sum of the seeds' f32 dW_h, rounded once,
+            # against the sum of the one-seed calls' rounded ones.
+            _scaled_close(leaf.grad[0], each.float().sum(dim=0), dtype)
 
 
 def _tf32_names(cell, hoisted):
