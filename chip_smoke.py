@@ -357,6 +357,12 @@ SOURCES = {
     "rnn_fused_bwd_tf32_gru": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:739"),
     "rnn_bwd_tf32_lstm": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:184"),
     "rnn_bwd_tf32_gru": ("csrc/rnn_bwd_tf32.cu", "pallas_rnn.py:243"),
+    "rnn_fused_fwd_cluster_lstm": ("csrc/rnn_fwd_cluster.cu",
+                                   "pallas_rnn.py:626"),
+    "rnn_fused_fwd_cluster_gru": ("csrc/rnn_fwd_cluster.cu",
+                                  "pallas_rnn.py:652"),
+    "rnn_fwd_cluster_lstm": ("csrc/rnn_fwd_cluster.cu", "pallas_rnn.py:135"),
+    "rnn_fwd_cluster_gru": ("csrc/rnn_fwd_cluster.cu", "pallas_rnn.py:158"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
 # The served universes: preset → (requests, the kernels its dispatches
@@ -397,6 +403,9 @@ SEED_SOURCES = {
     "rnn_bwd_lstm_seeds": (
         "rnn_bwd_lstm", "csrc/rnn_bwd.cu",
         "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
+    "rnn_fwd_cluster_lstm_seeds": (
+        "rnn_fwd_cluster_lstm", "csrc/rnn_fwd_cluster.cu",
+        "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
 }
 PLAIN_STEPS = 3      # steps of each model held against the plain path
 TIMED_STEPS = 4      # steps of each model timed
@@ -707,9 +716,12 @@ def check_small(torch, gen) -> None:
                 xw = (hin.float() @ wx.float() + b.float()).to(dt)
                 # Up to H 128 bf16 takes the tensor-core forwards and
                 # backwards and f32 the 3xTF32 ones (12 and 8 zero-padded
-                # to 16); H 136 keeps the CUDA-core ones.
+                # to 16); at H 136 f32 keeps the CUDA-core ones and bf16
+                # takes the cluster forwards (padded to 144) and the
+                # CUDA-core backwards.
                 mma = R._mma_route(dt, H) == "mma"
-                tags = {"mma": "mma_", "tf32": "tf32_", "simt": ""}
+                tags = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_",
+                        "simt": ""}
                 tag = tags[R._mma_route(dt, H, "bwd")]
                 fwd_tag = tags[R._mma_route(dt, H)]
                 fwd_kernel = f"rnn_fused_fwd_{fwd_tag}{cell}"
@@ -6001,6 +6013,7 @@ def stacked_phase(torch, cfg2, panel, totals: dict, seed_launches: dict,
 
 WIDE_HIDDEN = 256         # phase 28's model: c2 at a width past the caps
 WIDE_WIDTHS = (320, 512)  # rows 1-4 held at these widths too
+GRID_F32_HIDDEN = 160     # the CUDA-core forward's seed grid's main path
 WIDE_STEPS = 3            # steps of each wide run held to the plain path
 WIDE_REQUESTS = 16        # requests served from the wide universe
 GRID_SEEDS = 3            # the seed grids held at the c2 step and at H 256
@@ -6346,70 +6359,108 @@ def f32_hoisted_seed_grid(torch, kernels, cell: str, xw, wh, mm, dh,
 
 
 def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
-              timed: bool, name_suffix: str = "") -> None:
-    """Rows 1-4 on the CUDA-core kernels (``rnn_fused_fwd.cu``,
-    ``rnn_bwd.cu``) at a hidden width past their former shared-memory caps:
-    each launch counted once with the rows per block :func:`_simt_rows`
-    chose, against its plain version (bf16 atol/rtol 0.05, gradients
-    scaled 0.05); ``timed``: each beside its bound, its plain version and
-    its library yardstick (cuDNN for rows 3 and 1, the weight-gradient
-    products for rows 4 and 2). Recorded under the kernel's counter name
-    plus ``name_suffix``."""
+              timed=(), name_suffix: str = "") -> None:
+    """Rows 1-4 at a bf16 hidden width past 128: the forwards on their
+    route, the tensor cores with W_h split across a cluster
+    (``rnn_fwd_cluster.cu``, counted under ``rnn_{form}_cluster_{cell}``),
+    and on the CUDA-core kernel (``rnn_fused_fwd.cu``, launched directly by
+    ``_launch_fwd``: the float32 route, and the bf16 route past 512); the
+    backwards on their route, the CUDA cores (``rnn_bwd.cu``), on the
+    states the plain forward gives. Each launch counted once, against its
+    plain version (bf16 atol/rtol 0.05, gradients scaled 0.05). ``timed``
+    forms go beside their bound, their plain version and their library
+    yardstick (cuDNN for rows 3 and 1, the weight-gradient products for
+    rows 4 and 2); a timed forward is recorded twice, on the cluster
+    (its cluster size, rows per cluster, clusters at once, and the
+    CUDA-core time on the same inputs) and on the CUDA cores (under the
+    CUDA-core name, as before). Records carry ``name_suffix``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
     dev = hin.device
     cd = hin.dtype
-    if R._mma_route(cd, H) != "simt":
-        fail(f"hidden {H} is not on the CUDA-core route")
+    if R._mma_route(cd, H) != "cluster" or R._mma_route(cd, H, "bwd") != \
+            "simt":
+        fail(f"hidden {H} is not on the cluster forward and the CUDA-core "
+             f"backward")
     xw32 = hin.float() @ wx.float() + b.float()
     xw = xw32.to(cd)
     want_f = R.rnn_scan_states(cell, xw32, wh, mm, 1.0, True)
     want_x = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
     sf = tuple(None if t is None else t.to(cd) for t in want_f)
     sx = tuple(None if t is None else t.to(cd) for t in want_x)
-    rows = {}
+    props = torch.cuda.get_device_properties(dev)
     runs = {
         "fused_fwd": (lambda: R._fused_states(cell, hin, wx, b, wh, mm, 1.0,
                                               True),
+                      lambda: R._launch_fwd(cell, False, hin, wx, b, wh, mm,
+                                            1.0, True),
                       lambda: R.rnn_scan_states(
                           cell, hin.float() @ wx.float() + b.float(), wh,
                           mm, 1.0, True), want_f),
         "fwd": (lambda: R._scan_states_any(cell, xw, wh, mm, 1.0, True),
+                lambda: R._launch_fwd(cell, True, xw, None, None, wh, mm,
+                                      1.0, True),
                 lambda: R.rnn_scan_states(cell, xw, wh, mm, 1.0, True),
                 want_x),
         "fused_bwd": (lambda: R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, mm,
-                                                   *sf, dh),
+                                                   *sf, dh), None,
                       lambda: R.rnn_scan_fused_bwd_reference(
                           cell, hin, wx, b, wh, mm, *sf, dh), None),
-        "bwd": (lambda: R.rnn_scan_bwd(cell, xw, wh, mm, *sx, dh),
+        "bwd": (lambda: R.rnn_scan_bwd(cell, xw, wh, mm, *sx, dh), None,
                 lambda: R.rnn_scan_bwd_reference(cell, xw, wh, mm, *sx, dh),
                 None)}
-    for form, (run, plain, want) in runs.items():
-        name = f"rnn_{form}_{cell}"
-        rows[form] = R._simt_rows(cell, form, H, dev)
+
+    def held(label, fn, name, want):
+        """One counted launch of ``fn`` (only ``name``) held to ``want``
+        → the largest error."""
         _build.reset_launch_counts()
         with torch.no_grad():
-            got = run()
+            got = fn()
         counts = _build.launch_counts()
         if counts[name] != 1 or sum(counts.values()) != 1:
-            fail(f"{name} at {where}: launched {counts}")
-        if want is not None:
-            err = 0.0
-            for g, w in zip(got, want):
-                if w is None:
-                    continue
-                e, excess = worst_excess(g, w, BF16_TOL, BF16_TOL)
-                if excess > 0 or not torch.isfinite(g).all():
-                    fail(f"{name} at {where}: max err {e}")
-                err = max(err, e)
+            fail(f"{label}: launched {counts}")
+        err = 0.0
+        for g, w in zip(got, want):
+            if w is None:
+                continue
+            e, excess = worst_excess(g, w, BF16_TOL, BF16_TOL)
+            if excess > 0 or not torch.isfinite(g).all():
+                fail(f"{label}: max err {e}")
+            err = max(err, e)
+        return err
+
+    for form, (run, core, plain, want) in runs.items():
+        fwd = core is not None
+        name = f"rnn_{form}_{'cluster_' if fwd else ''}{cell}"
+        core_name = f"rnn_{form}_{cell}"
+        if fwd:
+            err = held(f"{name} at {where}", run, name, want)
+            core_err = held(f"{core_name} at {where}", core, core_name, want)
+            Hp = R._padded_width(H)
+            limit = props.shared_memory_per_block_optin
+            C = R._cluster_size(cell, Hp, limit)
+            rows = R._cluster_rows(cell, Hp, C, B, 1, limit,
+                                   props.multi_processor_count)
+            at_once = R._cluster_check(cell, form == "fused_fwd", Hp, C, rows,
+                                       dev)
+            shape_of = (f"{C} CTAs x {rows} rows a cluster, {at_once} "
+                        f"clusters at once")
         else:
+            _build.reset_launch_counts()
+            with torch.no_grad():
+                got = run()
+            counts = _build.launch_counts()
+            if counts[name] != 1 or sum(counts.values()) != 1:
+                fail(f"{name} at {where}: launched {counts}")
             err = grads_close(f"{name} at {where}", got, plain(), cd)
-        del got
-        if not timed:
-            log(f"{name} at {where}: {rows[form]} rows per block, max err "
-                f"{err:.4g}")
+            del got
+            shape_of = (f"{R._simt_rows(cell, form, H, dev)} rows per "
+                        f"block")
+        if form not in timed:
+            log(f"{name} at {where}: {shape_of}, max err {err:.4g}" + (
+                f"; {core_name} max err {core_err:.4g}" if fwd else ""))
             continue
         bound, by = rnn_bound(form, cell, B, T, H, hin.element_size(),
                               form.endswith("fwd"))
@@ -6433,30 +6484,46 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
                 lib = (lambda: torch.matmul(a_h.T, d_h))
             library = dict(library_ms=time_ms(lib, reps=3))
             del d_xw, d_hw, h_prev, a_h, d_h, lib
-        report(kernels, name + name_suffix, where, dict(
-            shape=[B, T, H], dtype=str(cd).replace("torch.", ""),
-            rows_per_block=rows[form], max_abs_err=err,
-            tolerance=(f"atol {BF16_TOL} + rtol {BF16_TOL}"
-                       if form.endswith("fwd") else
-                       f"scaled atol {BF16_TOL}"),
-            **kernel_ms(run, reps=2, launches=1),
-            plain_ms=time_ms(plain, reps=1, warmup=1),
-            bound_ms=bound, bound_by=by, **library))
-        log(f"{name} at {where}: {rows[form]} rows per block, "
-            f"{kernels[name + name_suffix][-1]['ms']:.3f} ms, bound "
-            f"{bound:.4f} ms")
+        plain_ms = time_ms(plain, reps=1, warmup=1)
+        common = dict(shape=[B, T, H], dtype=str(cd).replace("torch.", ""),
+                      plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                      **library)
+        tol = (f"atol {BF16_TOL} + rtol {BF16_TOL}" if fwd else
+               f"scaled atol {BF16_TOL}")
+        if fwd:
+            core_t = kernel_ms(core, reps=2, launches=1)
+            report(kernels, core_name + name_suffix, where, dict(
+                rows_per_block=R._simt_rows(cell, form, H, dev),
+                max_abs_err=core_err, tolerance=tol, **core_t, **common))
+            report(kernels, name + name_suffix, where, dict(
+                cluster=C, rows_per_cluster=rows, clusters_at_once=at_once,
+                max_abs_err=err, tolerance=tol,
+                **kernel_ms(run, reps=5, launches=3),
+                cuda_core_ms=core_t["ms"],
+                cuda_core_device_ms=core_t["device_ms"], **common))
+        else:
+            report(kernels, name + name_suffix, where, dict(
+                rows_per_block=R._simt_rows(cell, form, H, dev),
+                max_abs_err=err, tolerance=tol,
+                **kernel_ms(run, reps=2, launches=1), **common))
+        rec = kernels[name + name_suffix][-1]
+        log(f"{name} at {where}: {shape_of}, {rec['ms']:.4f} ms (device "
+            f"{rec['device_ms']:.4f}), bound {bound:.4f} ms, library "
+            f"{rec.get('library_ms')}" + (
+                f", CUDA cores {rec['cuda_core_ms']:.4f}" if fwd else ""))
         torch.cuda.empty_cache()
     del xw32, xw, want_f, want_x, sf, sx
     torch.cuda.empty_cache()
 
 
-def simt_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
+def wide_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
                    where: str) -> None:
-    """The CUDA-core kernels' seed grid at hidden 256 in bf16, S = 3 (m of
-    seed extent 1, shared): the fused forward and backward and the hoisted
-    forward and backward each one counted launch (call) for all seeds, each
-    seed bitwise equal to its one-seed call; the hoisted pair timed beside
-    its bound, three one-seed calls and the plain version."""
+    """The seed grids at hidden 256 in bf16, S = 3 (m of seed extent 1,
+    shared): the forwards on the cluster route and on the CUDA-core kernel
+    (launched directly), the backwards on the CUDA cores, each one counted
+    launch (call) for all seeds and each seed bitwise equal to its one-seed
+    call; the hoisted forwards and backward timed beside their bound,
+    three one-seed calls and the plain version."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -6474,40 +6541,56 @@ def simt_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     with torch.no_grad():
         sf = R._fused_states(cell, hin3, wx3, b3, wh3, m1, 1.0, True)
         sx = R._scan_states_any(cell, xw3, wh3, m1, 1.0, True)
+    core = R._launch_fwd
     calls = {
-        "fused_fwd": (lambda: R._fused_states(cell, hin3, wx3, b3, wh3, m1,
+        "fused_fwd": (f"rnn_fused_fwd_cluster_{cell}",
+                      lambda: R._fused_states(cell, hin3, wx3, b3, wh3, m1,
                                               1.0, True),
                       lambda s: R._fused_states(cell, hin3[s], wx3[s], b3[s],
                                                 wh3[s], mm, 1.0, True)),
-        "fwd": (lambda: R._scan_states_any(cell, xw3, wh3, m1, 1.0, True),
+        "fwd": (f"rnn_fwd_cluster_{cell}",
+                lambda: R._scan_states_any(cell, xw3, wh3, m1, 1.0, True),
                 lambda s: R._scan_states_any(cell, xw3[s], wh3[s], mm, 1.0,
                                              True)),
-        "fused_bwd": (lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3, wh3,
+        "fused_fwd_core": (f"rnn_fused_fwd_{cell}",
+                           lambda: core(cell, False, hin3, wx3, b3, wh3, m1,
+                                        1.0, True),
+                           lambda s: core(cell, False, hin3[s], wx3[s], b3[s],
+                                          wh3[s], mm, 1.0, True)),
+        "fwd_core": (f"rnn_fwd_{cell}",
+                     lambda: core(cell, True, xw3, None, None, wh3, m1, 1.0,
+                                  True),
+                     lambda s: core(cell, True, xw3[s], None, None, wh3[s],
+                                    mm, 1.0, True)),
+        "fused_bwd": (f"rnn_fused_bwd_{cell}",
+                      lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3, wh3,
                                                    m1, *sf, dh3),
                       lambda s: R.rnn_scan_fused_bwd(
                           cell, hin3[s], wx3[s], b3[s], wh3[s], mm,
                           *(None if t is None else t[s] for t in sf),
                           dh3[s])),
-        "bwd": (lambda: R.rnn_scan_bwd(cell, xw3, wh3, m1, *sx, dh3),
+        "bwd": (f"rnn_bwd_{cell}",
+                lambda: R.rnn_scan_bwd(cell, xw3, wh3, m1, *sx, dh3),
                 lambda s: R.rnn_scan_bwd(
                     cell, xw3[s], wh3[s], mm,
                     *(None if t is None else t[s] for t in sx), dh3[s]))}
-    for form, (run, single) in calls.items():
-        name = f"rnn_{form}_{cell}"
+    for form, (name, run, single) in calls.items():
         _build.reset_launch_counts()
         with torch.no_grad():
             got = run()
-        if _build.launch_counts()[name] != 1:
-            fail(f"{name} seed grid launched {_build.launch_counts()}")
+        counts = _build.launch_counts()
+        if counts[name] != 1 or sum(counts.values()) != 1:
+            fail(f"{name} seed grid launched {counts}")
         seed_grid_held(torch, f"{name} seed grid", got, single, range(S))
         one[form] = got
         del got
-    log(f"CUDA-core seed grid (S {S}, m shared) at {where}: rows 1-4 one "
-        f"launch each, every seed bitwise its one-seed call")
-    for form, kind in (("fwd", "fwd"), ("bwd", "bwd")):
-        name = f"rnn_{form}_{cell}"
-        run, single = calls[form]
-        if form == "fwd":
+    log(f"seed grids (S {S}, m shared) at {where}: the cluster and CUDA-core "
+        f"forwards and the CUDA-core backwards one launch each, every seed "
+        f"bitwise its one-seed call")
+    for form in ("fwd", "fwd_core", "bwd"):
+        name, run, single = calls[form]
+        kind = "bwd" if form == "bwd" else "fwd"
+        if kind == "fwd":
             plain = (lambda: [R.rnn_scan_states(cell, xw3[s], wh3[s], mm, 1.0,
                                                 True) for s in range(S)])
             err = 0.0
@@ -6535,10 +6618,13 @@ def simt_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
             del a, d
         bound, by = rnn_bound(kind, cell, B, T, H, hin.element_size(),
                               kind == "fwd", seeds=S)
+        blocks = (dict(rows_per_block=R._simt_rows(cell, kind, H,
+                                                   hin.device))
+                  if form != "fwd" else {})
         report(kernels, f"{name}_seeds", where, dict(
             shape=[S, B, T, H], dtype=str(hin.dtype).replace("torch.", ""),
-            shared="m", rows_per_block=R._simt_rows(cell, form, H, hin.device),
-            bitwise_vs_single=True, seeds_checked=S, max_abs_err=err,
+            shared="m", **blocks, bitwise_vs_single=True,
+            seeds_checked=S, max_abs_err=err,
             tolerance=(f"atol {BF16_TOL} + rtol {BF16_TOL}" if kind == "fwd"
                        else f"scaled atol {BF16_TOL}"),
             **kernel_ms(run, reps=2, launches=1),
@@ -6585,32 +6671,42 @@ def served_scores_agree(name: str, cfg, panel, plain, responses) -> float:
 
 def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                gen) -> None:
-    """Phase 28: every hidden width the JAX kernels take, on the CUDA-core
-    kernels, and the seed grids of rows 1 and 2 off the tensor cores.
+    """Phase 28: every hidden width the JAX kernels take, the bf16
+    forwards above 128 on the tensor cores with W_h split across a cluster
+    (``rnn_fwd_cluster.cu``), the backwards there on the CUDA cores, and
+    the seed grids of rows 1 and 2 off the H <= 128 tensor cores.
 
     (a) c2 at ``{"hidden": 256}`` (:data:`WIDE_HIDDEN`), LSTM and GRU,
     bf16: rows 1-4 at its train step (the layer-0 input of a real index
-    batch, the model's seeded weights; timed, under the kernels' names),
-    then :data:`WIDE_STEPS` steps from the seeded init on the kernels,
-    counted (the CUDA-core fused forward and backward, no tensor-core
-    kernel), held to the plain path on the card; (b) the LSTM served from
-    one ``ScoringService`` universe (:data:`WIDE_REQUESTS` requests from 4
-    threads, counted, every score held to the plain path); (c) rows 1-4 at
+    batch, the model's seeded weights; timed, the forwards on the cluster
+    and on the CUDA cores, under each kernel's name), then
+    :data:`WIDE_STEPS` steps from the seeded init, fused and hoisted,
+    counted (the cluster forward and the CUDA-core backward; no CUDA-core
+    forward, no H <= 128 tensor-core kernel), held to the plain path on
+    the card; (b) the LSTM served from one ``ScoringService`` universe
+    (:data:`WIDE_REQUESTS` requests from 4 threads, counted likewise,
+    every score held to the plain path); (c) rows 1-4 at
     :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at H^-1/2) against
-    their plain versions, timed at 512; (d) the CUDA-core seed grid at
-    hidden 256 (:func:`simt_seed_grid`) and, as the main path of the
-    hoisted forms' grids, a 3-seed c2 ensemble with ``scan_impl="pallas"``
-    at hidden 256 (CUDA cores) and one in float32 at hidden 128 (3xTF32)
-    for :data:`GRID_STEPS` steps each, counted into ``seed_launches``, held
-    to the plain path. Single-seed launches go to ``totals``."""
+    their plain versions, the forwards timed at both, the backwards at
+    512; (d) the seed grids at hidden 256 (:func:`wide_seed_grid`) and, as
+    the main paths of the hoisted forms' grids, 3-seed c2 ensembles with
+    ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward, the
+    CUDA-core backward), float32 at hidden 128 (3xTF32) and at
+    :data:`GRID_F32_HIDDEN` (the CUDA cores), for :data:`GRID_STEPS` steps
+    each, counted into ``seed_launches``, held to the plain path.
+    Single-seed launches go to ``totals``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
     from lfm_quant_tpu_torch.serve import ScoringService
     from lfm_quant_tpu_torch.serve.__main__ import drive_load
     from lfm_quant_tpu_torch.train.loop import Predictor, Trainer
 
-    tensor_cores = tuple(k for k in _build.LAUNCHES
-                         if "_mma_" in k or "_tf32_" in k)
+    # The H <= 128 tensor-core kernels and the CUDA-core forwards: the
+    # hidden-256 runs launch none of them.
+    not_wide = tuple(k for k in _build.LAUNCHES
+                     if "_mma_" in k or "_tf32_" in k) + tuple(
+        f"rnn_{form}_{c}" for form in ("fused_fwd", "fwd")
+        for c in ("lstm", "gru"))
     gen = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 28)
     for cell in ("lstm", "gru"):
         cfg = train_variant(cfg2, kind=cell, kwargs=dict(
@@ -6634,26 +6730,32 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                                 device="cuda")).to(cd)
         del x, m, trainer
         where = f"c2 hidden {WIDE_HIDDEN} train step"
-        wide_rows(torch, kernels, where, cell, hin, wx, bb, wh, mm, dh, True)
+        wide_rows(torch, kernels, where, cell, hin, wx, bb, wh, mm, dh,
+                  timed=("fused_fwd", "fwd", "fused_bwd", "bwd"))
         if cell == "lstm":
-            simt_seed_grid(torch, kernels, cell, hin, wx, bb, wh, mm, dh,
+            wide_seed_grid(torch, kernels, cell, hin, wx, bb, wh, mm, dh,
                            f"B {B}, T {W}, H {WIDE_HIDDEN}")
         del hin, wx, bb, wh, mm, dh
         torch.cuda.empty_cache()
-        label = f"c2 {cell} hidden {WIDE_HIDDEN} training (fused, bf16)"
-        got, counts = counted(label, (f"rnn_fused_fwd_{cell}",
-                                      f"rnn_fused_bwd_{cell}",
-                                      "window_gather"),
-                              lambda: short_run(torch, cfg, splits2,
-                                                WIDE_STEPS), tensor_cores)
-        for k, n in counts.items():
-            totals[k] += n
-        want = short_run(torch, plain_variant(cfg), splits2, WIDE_STEPS)
-        err = losses_agree(label, got, want)
-        log(f"{label}: {WIDE_STEPS} steps, losses "
-            f"{[round(v, 6) for v in got]} agree with the plain path within "
-            f"{err:.4g}")
-        torch.cuda.empty_cache()
+        for form, run_cfg, must in (
+                ("fused", cfg, (f"rnn_fused_fwd_cluster_{cell}",
+                                f"rnn_fused_bwd_{cell}", "window_gather")),
+                ("hoisted", train_variant(cfg, scan_impl="pallas"),
+                 (f"rnn_fwd_cluster_{cell}", f"rnn_bwd_{cell}",
+                  "window_gather"))):
+            label = (f"c2 {cell} hidden {WIDE_HIDDEN} training ({form}, "
+                     f"bf16)")
+            got, counts = counted(label, must, lambda: short_run(
+                torch, run_cfg, splits2, WIDE_STEPS), not_wide)
+            for k, n in counts.items():
+                totals[k] += n
+            want = short_run(torch, plain_variant(run_cfg), splits2,
+                             WIDE_STEPS)
+            err = losses_agree(label, got, want)
+            log(f"{label}: {WIDE_STEPS} steps, losses "
+                f"{[round(v, 6) for v in got]} agree with the plain path "
+                f"within {err:.4g}")
+            torch.cuda.empty_cache()
         if cell != "lstm":
             continue
         name = f"c2_h{WIDE_HIDDEN}"
@@ -6665,9 +6767,10 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
             reg_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             responses, counts = counted(
-                f"serving {name}", ("rnn_fused_fwd_lstm", "window_gather"),
+                f"serving {name}", ("rnn_fused_fwd_cluster_lstm",
+                                    "window_gather"),
                 lambda: drive_load(service, name, WIDE_REQUESTS, 4),
-                tensor_cores)
+                not_wide)
             wall = time.perf_counter() - t0
             st = service.stats()
         if st["completed"] != WIDE_REQUESTS or st["dispatch_errors"]:
@@ -6697,9 +6800,10 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
             bb = (0.1 * torch.randn(G, **bf)).to(torch.bfloat16)
             mm = torch.rand(B, T, **bf) < 0.75
             dh = (0.1 * torch.randn(B, T, H, **bf)).to(torch.bfloat16)
+            timed = ("fused_fwd", "fwd") + (
+                ("fused_bwd", "bwd") if H == max(WIDE_WIDTHS) else ())
             wide_rows(torch, kernels, f"B {B}, T {T}, H {H}", cell, hin, wx,
-                      bb, wh, mm, dh, timed=H == max(WIDE_WIDTHS),
-                      name_suffix=f"@h{H}")
+                      bb, wh, mm, dh, timed=timed, name_suffix=f"@h{H}")
             del hin, wx, wh, bb, mm, dh
             torch.cuda.empty_cache()
 
@@ -6709,10 +6813,16 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
              f"{WIDE_HIDDEN})",
              train_variant(cfg2, scan_impl="pallas", kwargs=dict(
                  cfg2.model.kwargs, hidden=WIDE_HIDDEN)),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather")),
+             ("rnn_fwd_cluster_lstm", "rnn_bwd_lstm", "window_gather")),
             (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, float32)",
              train_variant(cfg2, scan_impl="pallas", bf16=False),
-             ("rnn_fwd_tf32_lstm", "rnn_bwd_tf32_lstm", "window_gather"))):
+             ("rnn_fwd_tf32_lstm", "rnn_bwd_tf32_lstm", "window_gather")),
+            (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, float32, hidden "
+             f"{GRID_F32_HIDDEN})",
+             train_variant(cfg2, scan_impl="pallas", bf16=False,
+                           kwargs=dict(cfg2.model.kwargs,
+                                       hidden=GRID_F32_HIDDEN)),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"))):
         run_cfg = dataclasses.replace(run_cfg, n_seeds=GRID_SEEDS)
         got, counts = counted(label, must, lambda: ensemble_steps(
             torch, run_cfg, splits2, GRID_STEPS))

@@ -1,6 +1,8 @@
 // Masked LSTM/GRU recurrence, forward, for sm_90a: the fused form (the gate
 // input projection computed in the kernel) and the hoisted form (the
-// projection given as an input).
+// projection given as an input). Route (ops/rnn.py _mma_route): float32
+// above H 128 and bfloat16 past 512; the narrower widths run on the tensor
+// cores (rnn_fused_fwd_mma.cu, rnn_fwd_tf32.cu, rnn_fwd_cluster.cu).
 //
 // Replaces the Pallas TPU kernels _lstm_fused_fwd_kernel and
 // _gru_fused_fwd_kernel, reached through _fused_fwd_call, and (hoisted form)

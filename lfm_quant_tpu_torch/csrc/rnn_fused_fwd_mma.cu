@@ -20,7 +20,8 @@
 // (G * H * H bf16, 128 KB for the LSTM at H = 128) fits in shared memory.
 // A width that is not a multiple of 16 comes in zero-padded per gate block
 // to the next one (ops/rnn.py padded_launch; exact, see there). float32
-// runs on csrc/rnn_fwd_tf32.cu, H > 128 on csrc/rnn_fused_fwd.cu.
+// runs on csrc/rnn_fwd_tf32.cu; bfloat16 above 128 on csrc/rnn_fwd_cluster.cu
+// (W_h split across a cluster), past 512 on csrc/rnn_fused_fwd.cu.
 //
 // Hoisted mode (template flag HOIST, entry lfm_rnn_scan_fwd_mma): replaces
 // _lstm_fwd_kernel (pallas_rnn.py:135) and _gru_fwd_kernel (:158), reached

@@ -30,6 +30,8 @@ from torch import nn
 from lfm_quant_tpu_torch.models.heads import Dense, ForecastHead
 from lfm_quant_tpu_torch.ops.rnn import (
     _GATES,
+    _mma_route,
+    _padded_width,
     rnn_scan,
     rnn_scan_fused,
     rnn_scan_fused_reference,
@@ -204,9 +206,16 @@ class RNNModel(nn.Module):
 
     def row_state_bytes(self, window: int) -> int:
         """Bytes of one window row's recurrence states in the compute
-        dtype (the sweep's seed chunking)."""
-        return window * self.hidden * (
-            torch.finfo(self.dtype or torch.float32).bits // 8)
+        dtype (the sweep's seed chunking), and, where the fused forward
+        runs on the bf16 cluster kernels (hidden 129-512), the f32 xw
+        scratch ``[W, G Hp]`` that forward allocates per row."""
+        cd = self.dtype or torch.float32
+        nbytes = window * self.hidden * (torch.finfo(cd).bits // 8)
+        if (self.scan_impl == "fused"
+                and _mma_route(cd, self.hidden) == "cluster"):
+            nbytes += window * _GATES[self.cell] * _padded_width(
+                self.hidden) * 4
+        return nbytes
 
     def forward(self, x: torch.Tensor, m: torch.Tensor, rng=None):
         # ``rng``: the shared model signature; the recurrent models have

@@ -46,7 +46,10 @@ LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
                 rnn_fused_bwd_tf32_lstm=0, rnn_fused_bwd_tf32_gru=0,
                 rnn_bwd_tf32_lstm=0, rnn_bwd_tf32_gru=0,
                 rnn_fused_fwd_tf32_lstm=0, rnn_fused_fwd_tf32_gru=0,
-                rnn_fwd_tf32_lstm=0, rnn_fwd_tf32_gru=0, window_gather=0)
+                rnn_fwd_tf32_lstm=0, rnn_fwd_tf32_gru=0,
+                rnn_fused_fwd_cluster_lstm=0, rnn_fused_fwd_cluster_gru=0,
+                rnn_fwd_cluster_lstm=0, rnn_fwd_cluster_gru=0,
+                window_gather=0)
 
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -171,6 +174,9 @@ def library() -> ctypes.CDLL:
                 + [ci] * 5 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_fwd_tf32": [ci, ci] + [vp] * 8 + [ci] * 4
                 + [cll] * 5 + [cf, vp],
+                "lfm_rnn_fwd_cluster": [ci, ci] + [vp] * 8 + [ci] * 6
+                + [cll] * 5 + [cf, vp],
+                "lfm_rnn_fwd_cluster_clusters": [ci] * 5,
             }
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
@@ -180,7 +186,8 @@ def library() -> ctypes.CDLL:
                     "lfm_rnn_scan_fwd_mma_smem": 3,
                     "lfm_rnn_fused_bwd_mma_smem": 2,
                     "lfm_rnn_scan_bwd_mma_smem": 2,
-                    "lfm_rnn_bwd_tf32_smem": 3, "lfm_rnn_fwd_tf32_smem": 2}
+                    "lfm_rnn_bwd_tf32_smem": 3, "lfm_rnn_fwd_tf32_smem": 2,
+                    "lfm_rnn_fwd_cluster_smem": 4}
             for name, n in smem.items():
                 getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll

@@ -1,6 +1,6 @@
 """The masked LSTM/GRU recurrence: hand-written CUDA kernels
 (``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
-``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_bwd.cu``,
+``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd.cu``,
 ``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``) and their plain
 versions.
 
@@ -11,8 +11,12 @@ hoisted modes; ``rnn_fused_bwd_mma.cu``, fused and hoisted modes) and
 float32 on them in 3xTF32 (``rnn_fwd_tf32.cu``, whose fused form makes
 xw on the CUDA cores, and ``rnn_bwd_tf32.cu``, fused and hoisted forms);
 a width that is not a multiple of 16 is zero-padded per gate block to
-the next one around the launch (:func:`padded_launch`, exact). H > 128
-runs on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
+the next one around the launch (:func:`padded_launch`, exact). Above 128
+the bf16 forwards run on the tensor cores with W_h split across a
+thread-block cluster (``rnn_fwd_cluster.cu``, up to H 512: the fused
+form as a bf16 GEMM into an f32 xw scratch and the cluster recurrence);
+every other width above 128, float32 and every backward there run on
+the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -546,36 +550,53 @@ def _padded_width(H: int) -> int:
     return 16 * -(-max(H, 1) // 16)
 
 
+#: The widest padded width the bfloat16 forward above 128 takes
+#: (``kMaxWidth`` in ``csrc/rnn_fwd_cluster.cu``).
+CLUSTER_MAX_WIDTH = 512
+
+
 def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     """Which kernels run the forwards (``direction="fwd"``) and the
     backwards (``"bwd"``), fused and hoisted, on the card, with ``Hp =
     _padded_width(H)``:
 
-    ========= ======== =========== ================================
-    direction dtype    H           kernel (answer)
-    ========= ======== =========== ================================
-    fwd       bfloat16 Hp <= 128   ``rnn_fused_fwd_mma.cu``, fused
-                                   and hoisted modes (``"mma"``)
-    fwd       float32  Hp <= 128   ``rnn_fwd_tf32.cu`` (``"tf32"``)
-    bwd       bfloat16 Hp <= 128   ``rnn_fused_bwd_mma.cu`` (``"mma"``)
-    bwd       float32  Hp <= 128   ``rnn_bwd_tf32.cu`` (``"tf32"``)
-    fwd, bwd  either   H > 128     ``rnn_fused_fwd.cu``, ``rnn_bwd.cu``
-                                   (``"simt"``)
-    ========= ======== =========== ================================
+    ========= ======== ================ ================================
+    direction dtype    H                kernel (answer)
+    ========= ======== ================ ================================
+    fwd       bfloat16 Hp <= 128        ``rnn_fused_fwd_mma.cu``, fused
+                                        and hoisted modes (``"mma"``)
+    fwd       bfloat16 128 < Hp <= 512  ``rnn_fwd_cluster.cu``, fused and
+                                        hoisted forms (``"cluster"``)
+    fwd       float32  Hp <= 128        ``rnn_fwd_tf32.cu`` (``"tf32"``)
+    bwd       bfloat16 Hp <= 128        ``rnn_fused_bwd_mma.cu`` (``"mma"``)
+    bwd       float32  Hp <= 128        ``rnn_bwd_tf32.cu`` (``"tf32"``)
+    fwd       float32  H > 128          ``rnn_fused_fwd.cu`` (``"simt"``)
+    fwd       bfloat16 Hp > 512         ``rnn_fused_fwd.cu`` (``"simt"``)
+    bwd       either   H > 128          ``rnn_bwd.cu`` (``"simt"``)
+    ========= ======== ================ ================================
 
     The tensor-core kernels take 16 <= H <= 128, H % 16 == 0 and hold W_h
     in shared memory, hence the widths (the f32 kernels split it across a
     cluster of CTAs: the forward at every width, the backward at H =
     128); any other H <= 128 runs there at Hp, zero-padded per gate block
-    (:func:`padded_launch`, exact). bf16 runs on the bf16 tensor cores;
-    float32 must hold the JAX f32 bound, so it splits every f32 operand
-    of the recurrence into two TF32 terms (3xTF32), and the fused forward
-    forms xw on the CUDA cores (unbiased f32 sums). The fused bf16
-    backward reuses the forward's packing of W_x, the fused float32
-    backward the forward's xw."""
+    (:func:`padded_launch`, exact). Above 128 the bf16 forward splits W_h
+    across a cluster of 2-16 CTAs (:func:`_cluster_size`), any H at Hp
+    too; the CUDA-core kernels are the route of every other width above
+    128 and of every backward there, not a fallback: a cluster launch the
+    card refuses raises. bf16 runs on the bf16 tensor cores; float32 must
+    hold the JAX f32 bound, so it splits every f32 operand of the
+    recurrence into two TF32 terms (3xTF32), and the fused forward forms
+    xw on the CUDA cores (unbiased f32 sums). The fused bf16 backward
+    reuses the forward's packing of W_x, the fused float32 backward the
+    forward's xw; the CUDA-core backward takes the cluster forward's
+    states as they are."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction}")
-    if _padded_width(H) > 128:
+    Hp = _padded_width(H)
+    if Hp > 128:
+        if (direction == "fwd" and dtype == torch.bfloat16
+                and Hp <= CLUSTER_MAX_WIDTH):
+            return "cluster"
         return "simt"
     if dtype == torch.bfloat16:
         return "mma"
@@ -1199,11 +1220,246 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     return out if stacked else tuple(t[0] for t in out)
 
 
+# ---------------------------------------------------------------------------
+# The bfloat16 forward above hidden 128 (csrc/rnn_fwd_cluster.cu)
+# ---------------------------------------------------------------------------
+
+#: CTAs per cluster and batch rows per cluster the bfloat16 forward above
+#: 128 is built for, and its threads per CTA at most by rows
+#: (``max_threads`` in ``csrc/rnn_fwd_cluster.cu``: the registers of the
+#: rows' gate sums and xw_t).
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_ROWS = (16, 32)
+CLUSTER_MAX_THREADS = {16: 512, 32: 384}
+
+
+def _cluster_warps(Hp: int, C: int) -> int:
+    """Warps per CTA (:data:`MMA_UNITS` units each) when ``Hp`` units split
+    over ``C`` CTAs: ceil(Hp / 8 / C). The W = Hp / 8 warps of units are
+    dealt out evenly (:func:`_cluster_units`), so a CTA may own one fewer
+    (its last warp idle but for the barriers)."""
+    return -(-(Hp // MMA_UNITS) // C)
+
+
+def _cluster_units(Hp: int, C: int, j: int) -> range:
+    """The hidden units CTA ``j`` of a cluster of ``C`` owns: warps
+    ``[j W / C, (j + 1) W / C)`` (floor) of ``W = Hp / 8``, 8 units each."""
+    W = Hp // MMA_UNITS
+    return range(j * W // C * MMA_UNITS, (j + 1) * W // C * MMA_UNITS)
+
+
+def _cluster_takes(Hp: int, C: int, rows: int) -> bool:
+    """The shapes ``csrc/rnn_fwd_cluster.cu`` takes (its ``supported``):
+    128 < Hp <= :data:`CLUSTER_MAX_WIDTH`, Hp % 16 == 0, C and rows of
+    :data:`CLUSTER_SIZES` and :data:`CLUSTER_ROWS`, the CTA's threads
+    within the rows' limit."""
+    if not (128 < Hp <= CLUSTER_MAX_WIDTH and Hp % 16 == 0):
+        return False
+    if C not in CLUSTER_SIZES or rows not in CLUSTER_ROWS:
+        return False
+    return _cluster_warps(Hp, C) * 32 <= CLUSTER_MAX_THREADS[rows]
+
+
+def _cluster_smem(cell: str, Hp: int, C: int, rows: int) -> int:
+    """Shared memory (bytes) of a CTA of the cluster recurrence, as
+    ``recur_smem_bytes`` counts it in the source: its share of W_h, [Hp,
+    G U] bf16 with U = 8 :func:`_cluster_warps`, and two h tiles [rows, Hp
+    + 8] bf16."""
+    U = MMA_UNITS * _cluster_warps(Hp, C)
+    return Hp * _GATES[cell] * U * 2 + 2 * rows * (Hp + 8) * 2
+
+
+def _cluster_size(cell: str, Hp: int, limit: int) -> int:
+    """CTAs per cluster of the bf16 forward at padded width ``Hp``: the
+    fewest of :data:`CLUSTER_SIZES` whose share of W_h fits beside two
+    16-row h tiles in ``limit`` bytes of shared memory per block. Raises,
+    naming the width, where none does.
+
+    Measured (``scripts/torch_cluster_variants.py``, H100 80GB HBM3,
+    700 W; B 2048, T 60, both forms, both cells, H 256, 320, 512; PERF.md
+    §6): at every width the fewest CTAs that fit were the fastest
+    at their best rows, by 6-137% over the next size (the LSTM at H 256:
+    4 CTAs 1.176 ms for row 1, 8 CTAs 1.247, 16 CTAs 1.661): fewer CTAs
+    all-gather less through distributed shared memory, wait at a smaller
+    barrier, and more clusters fit on the card at once (30 of 4, 7 of
+    16)."""
+    for C in CLUSTER_SIZES:
+        if (_cluster_takes(Hp, C, 16)
+                and _cluster_smem(cell, Hp, C, 16) <= limit):
+            return C
+    raise ValueError(
+        f"the bfloat16 {cell} forward on a cluster does not take hidden="
+        f"{Hp}: no cluster of {CLUSTER_SIZES} CTAs holds its W_h share "
+        f"beside the h tiles within {limit} bytes of shared memory per "
+        f"block, or the width is past {CLUSTER_MAX_WIDTH}")
+
+
+def _cluster_rows(cell: str, Hp: int, C: int, B: int, S: int, limit: int,
+                  sms: int) -> int:
+    """Batch rows per cluster: 32 where its tiles fit beside the W_h share
+    in ``limit`` bytes, the CTA stays within its thread limit, and the
+    launch still gives at least half the ``sms`` SMs a CTA (``2 C S
+    ceil(B / 32) >= sms``, the rule of :func:`_mma_rows`); else 16. 32 rows
+    give each warp two row tiles of independent products; measured (as
+    :func:`_cluster_size`) 32 rows beat 16 wherever they fit (the LSTM at
+    H 256, row 1: 1.176 against 1.280 ms; at H 512 4.220 against 5.338);
+    a 64-row form beat 32 rows nowhere (at H 256 its 32 clusters take two
+    waves of the 30 the card holds) and was taken out."""
+    if (_cluster_takes(Hp, C, 32) and _cluster_smem(cell, Hp, C, 32) <= limit
+            and 2 * C * S * -(-B // 32) >= sms):
+        return 32
+    return 16
+
+
+@functools.lru_cache(maxsize=32)
+def _cluster_fragment_index(H: int, G: int, Hp: int, C: int,
+                            device=None) -> torch.Tensor:
+    """Flat indices into ``w [H, G H]`` with one zero appended (index ``H G
+    H``) of W_h packed for a cluster of ``C`` CTAs at padded width ``Hp``:
+    ``C`` slices, one a CTA, each ``[Hp/16 k-steps][NW warps][G n8
+    tiles][32 lanes][4]`` (``NW`` = :func:`_cluster_warps`). Warp w of CTA
+    j owns the units ``u0 .. u0 + 7`` from ``u0`` = its w-th of
+    :func:`_cluster_units` with all G gates, and lane l holds the m16n8k16
+    B fragment ``W[k0 + 2 (l % 4) + {0, 1, 8, 9}][q Hp + u0 + l // 4]``
+    (the layout of :func:`_fragment_index`). A place past H (the
+    padding's rows and units) or of an idle warp points at the zero."""
+    NW, KT = _cluster_warps(Hp, C), Hp // 16
+
+    def axis(n, d):
+        shape = [1] * 6
+        shape[d] = n
+        return torch.arange(n, device=device).view(shape)
+
+    j, kk, w, q = axis(C, 0), axis(KT, 1), axis(NW, 2), axis(G, 3)
+    lane, v = axis(32, 4), axis(4, 5)
+    W = Hp // MMA_UNITS
+    first, nxt = j * W // C, (j + 1) * W // C  # the CTA's warps
+    k = kk * 16 + 2 * (lane % 4) + v % 2 + 8 * (v // 2)
+    u = (first + w) * MMA_UNITS + lane // 4
+    real = (k < H) & (u < H) & (first + w < nxt)
+    return torch.where(real, k * G * H + q * H + u, H * G * H).reshape(-1)
+
+
+def pack_cluster(w: torch.Tensor, C: int,
+                 width: Optional[int] = None) -> torch.Tensor:
+    """``w [H, G*H]`` → W_h packed for the cluster forward
+    (:func:`_cluster_fragment_index`): ``C`` equal slices, CTA j's holding
+    exactly its units' G gate columns in fragment order; flat, same dtype,
+    a new tensor. A seed-stacked ``w [S, H, G*H]`` is packed per seed →
+    ``[S, n]``. ``width`` Hp > H packs ``w`` zero-padded per gate block
+    (:func:`padded_launch`) in the same gather."""
+    H, cols = w.shape[-2:]
+    flat = torch.nn.functional.pad(w.reshape(*w.shape[:-2], -1), (0, 1))
+    idx = _cluster_fragment_index(H, cols // H, width or H, C, w.device)
+    return flat[..., idx]
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_check(cell: str, fused: bool, Hp: int, C: int, rows: int,
+                   device: torch.device) -> int:
+    """Once per shape and card: the source counts the shared memory
+    :func:`_cluster_smem` counts, it fits the card, and the card holds at
+    least one such cluster (``cudaOccupancyMaxActiveClusters``) → the
+    clusters it holds at once. Raises, naming the width and the cluster
+    size, where not: the launch is refused, and nothing else runs it."""
+    lib = _build.library()
+    smem = lib.lfm_rnn_fwd_cluster_smem(_CELL_CODE[cell], Hp, C, rows)
+    if smem < 0:
+        raise ValueError(f"the bfloat16 forward on a cluster does not take "
+                         f"hidden={Hp} with a cluster of {C} CTAs and {rows} "
+                         f"rows")
+    if smem != _cluster_smem(cell, Hp, C, rows):
+        raise RuntimeError(
+            f"csrc/rnn_fwd_cluster.cu counts {smem} bytes of shared memory, "
+            f"ops/rnn.py {_cluster_smem(cell, Hp, C, rows)}")
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"hidden={Hp} on a cluster of {C} CTAs needs {smem} "
+                         f"bytes of shared memory per CTA, more than the "
+                         f"card's {limit}")
+    with torch.cuda.device(device):
+        n = lib.lfm_rnn_fwd_cluster_clusters(_CELL_CODE[cell], int(fused),
+                                             Hp, C, rows)
+    if n < 1:
+        raise RuntimeError(
+            f"the card holds no cluster of {C} CTAs of the bfloat16 {cell} "
+            f"forward at hidden={Hp} ({rows} rows, {smem} bytes of shared "
+            f"memory a CTA): cudaOccupancyMaxActiveClusters gave {n}")
+    return n
+
+
+def _launch_fwd_cluster(cell: str, fused: bool, xin: torch.Tensor, wx, b,
+                        wh: torch.Tensor, m: torch.Tensor, forget_bias: float,
+                        save_c: bool, packed: Optional[torch.Tensor] = None,
+                        cluster: Optional[int] = None,
+                        rows: Optional[int] = None):
+    """One call of the bfloat16 forward above hidden 128
+    (``csrc/rnn_fwd_cluster.cu``; fused: the xw GEMM and the cluster
+    recurrence, hoisted: the recurrence; counted once) → ``(h_all, c_all
+    or None)``. Fused, ``xin`` is hin and ``wx``, ``b`` are used; hoisted,
+    ``xin`` is xw (``wx``, ``b`` None). Seed-stacked operands (``xin`` 4-D,
+    each operand of seed extent S or 1) run every seed in the same call →
+    ``[S, B, T, H]``. ``packed``: ``pack_cluster(wh, C)`` when the caller
+    has it; ``cluster`` and ``rows`` override :func:`_cluster_size` and
+    :func:`_cluster_rows`. A cluster the card cannot hold raises
+    (:func:`_cluster_check`). The wrapper allocates the outputs and, fused,
+    the xw scratch ``[S, B, T, G H]`` f32 (xw is never rounded to bf16)."""
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m = xin[None], wh[None], m[None]
+        if fused:
+            wx, b = wx[None], b[None]
+        if packed is not None:
+            packed = packed[None]
+    S = _seed_extent(xin, wx, b, wh, m)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    dev = xin.device
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    C = cluster or _cluster_size(cell, H, limit)
+    if rows is None:
+        rows = _cluster_rows(cell, H, C, B, S, limit,
+                             props.multi_processor_count)
+    _cluster_check(cell, fused, H, C, rows, dev)
+    lib = _build.library()
+    whp = pack_cluster(wh, C) if packed is None else packed
+    xin = _aligned16(xin)
+    if fused:
+        wx = _aligned16(wx)
+    keep = _keep(m)
+    h = torch.empty((S, B, T, H), dtype=xin.dtype, device=dev)
+    c = torch.empty_like(h) if save_c and cell == "lstm" else None
+    xw = (torch.empty((S, B, T, _GATES[cell] * H), dtype=torch.float32,
+                      device=dev) if fused else None)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_fwd_cluster(
+            _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx), ptr(b),
+            whp.data_ptr(), keep.data_ptr(), h.data_ptr(), ptr(c), ptr(xw),
+            S, B, T, H, C, rows, _stride(xin, S),
+            0 if wx is None else _stride(wx, S),
+            0 if b is None else _stride(b, S), _stride(whp, S),
+            _stride(keep, S), float(forget_bias), _build.stream_of(xin))
+    name = f"rnn_{'fused_' if fused else ''}fwd_cluster_{cell}"
+    _build.check(lib, err, f"{name} (hidden={H}, cluster of {C}, {rows} rows)")
+    _build.count_launch(name)
+    return (h, c) if stacked else (h[0], None if c is None else c[0])
+
+
 def _tensor_core_launcher(route: str, form: str):
     """The tensor-core launch of ``form`` (:data:`_PAD_FORMS`) on
-    ``route`` ("mma" or "tf32"), taking ``(cell, *operands, *rest, **kw)``
-    at a width the kernels take; :func:`padded_launch` wraps it. Looked up
-    per call, so a launcher swapped on this module is the one run."""
+    ``route`` ("mma", "tf32" or, the forwards, "cluster"), taking
+    ``(cell, *operands, *rest, **kw)`` at a width the kernels take;
+    :func:`padded_launch` wraps it. Looked up per call, so a launcher
+    swapped on this module is the one run."""
+    if route == "cluster":
+        if form == "fused_fwd":
+            return lambda cell, *a, **kw: _launch_fwd_cluster(cell, True, *a,
+                                                              **kw)
+        return lambda cell, xw, *a, **kw: _launch_fwd_cluster(
+            cell, False, xw, None, None, *a, **kw)
     if route == "mma":
         return {"fused_fwd": _launch_fwd_mma, "fwd": _launch_scan_fwd_mma,
                 "fused_bwd": _launch_bwd_mma,
@@ -1221,8 +1477,9 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
     """The fused forward's states ``(h_all, c_all or None)`` on the route
     of :func:`_mma_route`; ``keep_xw`` → ``(h_all, c_all, xw)``, xw the
     3xTF32 route's scratch at the padded width, which its backward reuses
-    (None elsewhere). ``packed``: W_x and W_h in fragment order at the
-    padded width, for the bf16 tensor cores."""
+    (None elsewhere). ``packed``: the bf16 tensor cores' weights at the
+    padded width, W_x and W_h in fragment order (:func:`pack_fragments`)
+    or, above 128, W_h packed per CTA (:func:`pack_cluster`)."""
     stacked = hin.dim() == 4
     if hin.device.type == "cpu":
         if stacked:
@@ -1237,8 +1494,8 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
         _check_card(hin, wx=wx, b=b, wh=wh, m=m)
         route = _mma_route(hin.dtype, wh.shape[-2])
         if route != "simt":
-            kw = (dict(packed=packed) if route == "mma"
-                  else dict(keep_xw=keep_xw))
+            kw = (dict(keep_xw=keep_xw) if route == "tf32"
+                  else dict(packed=packed))
             out = padded_launch(_tensor_core_launcher(route, "fused_fwd"),
                                 "fused_fwd")(cell, hin, wx, b, wh, m,
                                              forget_bias, save_c, **kw)
@@ -1366,21 +1623,27 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
 class _FusedScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cell, forget_bias, hin, wx, b, wh, m):
-        # The tensor-core kernels read W_x in fragment order: packed once
-        # here, at the padded width, for the forward and the backward's
+        # The bf16 tensor-core kernels read W_x and W_h in fragment order
+        # (above 128, W_h packed per CTA of the cluster): packed once here,
+        # at the padded width, for the forward and the backward's
         # recompute.
         packed = None
-        if hin.device.type == "cuda" and _mma_route(
-                hin.dtype, wh.shape[-2]) == "mma":
-            Hp = _padded_width(wh.shape[-2])
+        route = (_mma_route(hin.dtype, wh.shape[-2])
+                 if hin.device.type == "cuda" else None)
+        Hp = _padded_width(wh.shape[-2])
+        if route == "mma":
             packed = (pack_fragments(wx, width=Hp),
                       pack_fragments(wh, width=Hp))
+        elif route == "cluster":
+            C = _cluster_size(cell, Hp, torch.cuda.get_device_properties(
+                hin.device).shared_memory_per_block_optin)
+            packed = pack_cluster(wh, C, width=Hp)
         # The 3xTF32 route's xw scratch becomes the backward's d_gates
         # buffer (its xw GEMM skipped); a second backward recomputes it.
         h, c, ctx.xw = _fused_states(cell, hin, wx, b, wh, m, forget_bias,
                                      True, packed, keep_xw=True)
         ctx.cell, ctx.forget_bias = cell, forget_bias
-        ctx.wxp = None if packed is None else packed[0]
+        ctx.wxp = packed[0] if route == "mma" else None
         ctx.save_for_backward(hin, wx, b, wh, m, h, c)
         return h
 

@@ -440,7 +440,10 @@ def test_cuda_core_kernels_at_every_width(cuda, cell, dtype, H):
     blocks' shared memory (the fused LSTM backward took at most H 227,
     the fused forward 302), fused and hoisted, forward and backward,
     against their plain versions: each launch takes the most rows per
-    block that fit (``_simt_rows``), counted once."""
+    block that fit (``_simt_rows``), counted once. The forwards are
+    launched directly (``_launch_fwd``): they are the float32 route and
+    the bf16 route past the cluster kernel's widths, while the bf16
+    forwards at these widths route to ``rnn_fwd_cluster.cu``."""
     B, T = 37, 5
     hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, H, dtype, cuda)
     xw = (hin.float() @ wx.float() + b.float()).to(dtype)
@@ -450,8 +453,9 @@ def test_cuda_core_kernels_at_every_width(cuda, cell, dtype, H):
     assert all(r in R.SIMT_ROWS for r in rows.values())
     _build.reset_launch_counts()
     with torch.no_grad():
-        h_f, c_f = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True)
-        h_x, c_x = R._scan_states_any(cell, xw, wh, m, 1.0, True)
+        h_f, c_f = R._launch_fwd(cell, False, hin, wx, b, wh, m, 1.0, True)
+        h_x, c_x = R._launch_fwd(cell, True, xw, None, None, wh, m, 1.0,
+                                 True)
     want_f = rnn_scan_states(cell, hin.float() @ wx.float() + b.float(), wh,
                              m, 1.0, True)
     want_x = rnn_scan_states(cell, xw, wh, m, 1.0, True)
@@ -502,10 +506,155 @@ def test_cuda_core_rows_per_block_do_not_change_bits(cuda, cell):
         R._simt_rows(cell, "fused_bwd", 8192, cuda)
 
 
-#: A hoisted route, its dtype and a width it serves.
+#: The bf16 widths above 128 the cluster forward is held at: its cluster
+#: sizes 2, 4, 16 (LSTM) and 2, 4, 8 (GRU), and 200 zero-padded to 208.
+CLUSTER_WIDTHS = (144, 200, 256, 320, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", CLUSTER_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cluster_forwards_match_plain(cuda, cell, H):
+    """Rows 3 and 1 in bf16 above 128 on ``csrc/rnn_fwd_cluster.cu`` (W_h
+    split across a cluster of CTAs; the fused form's xw by the source's
+    GEMM in f32), against their plain versions at the JAX bf16 bound: one
+    counted launch each, and no CUDA-core forward."""
+    B, T = 37, 5
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, B, T, H, H, torch.bfloat16,
+                                        cuda)
+    m[0] = False  # an all-invalid row stays at the zero state
+    xw = (hin.float() @ wx.float() + b.float()).to(torch.bfloat16)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got_f = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True)
+        got_x = R._scan_states_any(cell, xw, wh, m, 1.0, True)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_cluster_{cell}"] == 1, counts
+    assert counts[f"rnn_fwd_cluster_{cell}"] == 1, counts
+    assert sum(counts.values()) == 2, counts
+    want_f = rnn_scan_states(cell, hin.float() @ wx.float() + b.float(), wh,
+                             m, 1.0, True)
+    want_x = rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    for got, want in zip((*got_f, *got_x), (*want_f, *want_x)):
+        if want is None:
+            assert got is None
+            continue
+        assert got.dtype == torch.bfloat16 and got.shape == (B, T, H)
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **TOL[torch.bfloat16])
+        assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cluster_seed_grid_bitwise_equals_single_seed_launches(cuda, cell,
+                                                               hoisted):
+    """The seed rules (``_fwd_vmap`` :920, ``_make_scan._fwd_vmap`` :504)
+    on the cluster forward: S 3 seeds with m shared in one counted launch,
+    each seed's h_all and c_all bitwise its one-seed launch's."""
+    S, B, T, H = 3, 37, 5, 256
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, B, T, H, 21, torch.bfloat16,
+                                        cuda, S=S)
+    m1 = m[:1].contiguous()
+    if hoisted:
+        xin = (hin.float() @ wx.float()[:, None]
+               + b.float()[:, None, None]).to(torch.bfloat16)
+        wx = b = None
+    else:
+        xin = hin
+    _build.reset_launch_counts()
+    got = R._launch_fwd_cluster(cell, not hoisted, xin, wx, b, wh, m1, 1.0,
+                                True)
+    name = f"rnn_{'' if hoisted else 'fused_'}fwd_cluster_{cell}"
+    assert _build.launch_counts()[name] == 1
+    for s in range(S):
+        one = R._launch_fwd_cluster(
+            cell, not hoisted, xin[s], None if wx is None else wx[s],
+            None if b is None else b[s], wh[s], m[0], 1.0, True)
+        for g, o in zip(got, one):
+            assert (g is None and o is None) or torch.equal(g[s], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cluster_rows_and_size_do_not_change_bits(cuda, cell, hoisted):
+    """A row's gate sums do not depend on the rows per cluster or on the
+    cluster size (the same k order from the same start): H 256 at 16 and
+    32 rows on 4 CTAs, and on 8 and 16 CTAs, gives the same bits."""
+    B, T, H = 70, 4, 256
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, B, T, H, 9, torch.bfloat16,
+                                        cuda)
+    if hoisted:
+        hin = (hin.float() @ wx.float() + b.float()).to(torch.bfloat16)
+        wx = b = None
+    runs = [R._launch_fwd_cluster(cell, not hoisted, hin, wx, b, wh, m, 1.0,
+                                  True, cluster=C, rows=rows)
+            for C, rows in ((4, 16), (4, 32), (8, 16), (8, 32), (16, 32))]
+    for run in runs[1:]:
+        for a, z in zip(runs[0], run):
+            assert (a is None and z is None) or torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cluster_autograd_matches_plain(cuda, cell):
+    """Through the autograd Function at H 200 (Hp 208): W_h packed once
+    per call at the padded width for the cluster forward, whose states the
+    CUDA-core backward takes as they are; one launch each way, the output
+    and gradients against autograd of the plain version on the CPU."""
+    B, T, H = 37, 5, 200
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 33, torch.bfloat16,
+                                         "cpu")
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dev).requires_grad_(True)
+                  for t in (hin, wx, b, wh)]
+        _build.reset_launch_counts()
+        out = rnn_scan_fused(cell, *leaves, m.to(dev))
+        out.float().mul(dh.to(dev).float()).sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_cluster_{cell}"] == 1, counts
+    assert counts[f"rnn_fused_bwd_{cell}"] == 1, counts
+    np.testing.assert_allclose(outs[1].float().cpu().numpy(),
+                               outs[0].float().numpy(), **TOL[torch.bfloat16])
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        assert g_card.shape == g_cpu.shape
+        _scaled_close(g_card, g_cpu, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cluster_launch_refused_raises(cuda):
+    """No fallback: a cluster the kernel or the card cannot take raises,
+    naming the width and the cluster size (LSTM H 256 on 2 CTAs: its W_h
+    share is 256 KB; H 512 on 2 CTAs: 32 warps a CTA)."""
+    hin, wx, b, wh, m, _ = _wide_inputs("lstm", 5, 3, 256, 1, torch.bfloat16,
+                                        cuda)
+    with pytest.raises(ValueError, match="hidden=256 on a cluster of 2"):
+        R._launch_fwd_cluster("lstm", True, hin, wx, b, wh, m, 1.0, True,
+                              cluster=2, rows=16)
+    hin, wx, b, wh, m, _ = _wide_inputs("lstm", 5, 3, 512, 1, torch.bfloat16,
+                                        cuda)
+    with pytest.raises(ValueError, match="hidden=512 with a cluster of 2"):
+        R._launch_fwd_cluster("lstm", True, hin, wx, b, wh, m, 1.0, True,
+                              cluster=2, rows=16)
+
+
+#: A hoisted route, its dtype and a width it serves (the CUDA cores take
+#: bf16 only past the cluster kernel's widths).
 HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
                   "simt": (torch.float32, 256), "simt_bf16": (
-                      torch.bfloat16, 256)}
+                      torch.bfloat16, 528),
+                  "cluster": (torch.bfloat16, 256)}
+#: The launch counters' tag of each hoisted route, forward and backward
+#: (the cluster route's backward is the CUDA cores').
+FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_"}
+BWD_TAG = {"mma": "mma_", "tf32": "tf32_"}
 
 
 @pytest.mark.cuda
@@ -529,14 +678,13 @@ def test_hoisted_seed_grid_bitwise_equals_single_seed_launches(
     if shared != "none":
         ops[shared] = ops[shared][:1].contiguous()
     leaves = [ops[k].clone().requires_grad_(True) for k in ("xw", "wh")]
-    tag = {"mma": "mma_", "tf32": "tf32_"}.get(route, "")
     _build.reset_launch_counts()
     out = rnn_scan(cell, *leaves, ops["m"])
     assert out.grad_fn is not None and out.shape == (S, B, T, H)
     out.float().mul(dh.float()).sum().backward()
     counts = _build.launch_counts()
-    assert counts[f"rnn_fwd_{tag}{cell}"] == 1, counts
-    assert counts[f"rnn_bwd_{tag}{cell}"] == 1, counts
+    assert counts[f"rnn_fwd_{FWD_TAG.get(route, '')}{cell}"] == 1, counts
+    assert counts[f"rnn_bwd_{BWD_TAG.get(route, '')}{cell}"] == 1, counts
     grads = []
     for s in range(S):
         one = [(t[s] if t.shape[0] > 1 else t[0]).clone().requires_grad_(True)

@@ -37,7 +37,7 @@ def cuda():
     (torch.bfloat16, 128, "mma"),
     (torch.float32, 128, "tf32"),
     (torch.bfloat16, 12, "mma"),
-    (torch.bfloat16, 144, "simt"),
+    (torch.bfloat16, 144, "cluster"),
     (torch.bfloat16, 8, "mma"),
 ])
 def test_route_is_decided_by_dtype_and_width(dtype, H, route):
@@ -206,11 +206,12 @@ def test_every_block_size_matches_plain(cuda, cell, rows):
 
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_kernel(cuda):
-    """Widths the tensor cores do not take (H > 128: every narrower one is
-    padded onto them) keep the CUDA-core forward in both dtypes; float32
-    at a tensor-core width (H 64) takes the 3xTF32 forward instead."""
+    """Widths the tensor cores do not take (float32 above 128, bf16 past
+    the cluster forward's 512: every narrower one is padded onto them)
+    keep the CUDA-core forward in both dtypes; float32 at a tensor-core
+    width (H 64) takes the 3xTF32 forward instead."""
     _build.reset_launch_counts()
-    for dtype, H in ((torch.float32, 136), (torch.bfloat16, 144)):
+    for dtype, H in ((torch.float32, 136), (torch.bfloat16, 528)):
         (hin, wx, b, wh), m = _inputs("lstm", 5, 3, H, H, cuda)
         with torch.no_grad():
             R.rnn_scan_fused("lstm", *(t.to(dtype) for t in (hin, wx, b, wh)),
