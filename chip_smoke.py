@@ -363,6 +363,12 @@ SOURCES = {
                                   "pallas_rnn.py:652"),
     "rnn_fwd_cluster_lstm": ("csrc/rnn_fwd_cluster.cu", "pallas_rnn.py:135"),
     "rnn_fwd_cluster_gru": ("csrc/rnn_fwd_cluster.cu", "pallas_rnn.py:158"),
+    "rnn_fused_bwd_cluster_lstm": ("csrc/rnn_bwd_cluster.cu",
+                                   "pallas_rnn.py:673"),
+    "rnn_fused_bwd_cluster_gru": ("csrc/rnn_bwd_cluster.cu",
+                                  "pallas_rnn.py:739"),
+    "rnn_bwd_cluster_lstm": ("csrc/rnn_bwd_cluster.cu", "pallas_rnn.py:184"),
+    "rnn_bwd_cluster_gru": ("csrc/rnn_bwd_cluster.cu", "pallas_rnn.py:243"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
 # The served universes: preset → (requests, the kernels its dispatches
@@ -406,6 +412,9 @@ SEED_SOURCES = {
     "rnn_fwd_cluster_lstm_seeds": (
         "rnn_fwd_cluster_lstm", "csrc/rnn_fwd_cluster.cu",
         "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
+    "rnn_bwd_cluster_lstm_seeds": (
+        "rnn_bwd_cluster_lstm", "csrc/rnn_bwd_cluster.cu",
+        "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
 }
 PLAIN_STEPS = 3      # steps of each model held against the plain path
 TIMED_STEPS = 4      # steps of each model timed
@@ -717,8 +726,7 @@ def check_small(torch, gen) -> None:
                 # Up to H 128 bf16 takes the tensor-core forwards and
                 # backwards and f32 the 3xTF32 ones (12 and 8 zero-padded
                 # to 16); at H 136 f32 keeps the CUDA-core ones and bf16
-                # takes the cluster forwards (padded to 144) and the
-                # CUDA-core backwards.
+                # takes the cluster forwards and backwards (padded to 144).
                 mma = R._mma_route(dt, H) == "mma"
                 tags = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_",
                         "simt": ""}
@@ -817,21 +825,12 @@ def report(kernels: dict, name: str, where: str, rec: dict) -> None:
     log("kernel " + json.dumps(dict(name=name, at=where, **rec)))
 
 
-def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
-                    rtol: float) -> dict:
-    """Row 3's ``library_ms``: one cuDNN call (``torch.nn.LSTM`` or
-    ``torch.nn.GRU``, TF32 off) on the same inputs with every step valid
-    — the same function only when no step is masked. Its weights are the
-    row's: W_x^T and W_h^T with the JAX gate order permuted for the GRU
-    (PyTorch's r, z, n), ``forget_bias`` 1 folded into the f slice of
-    ``b_ih``, ``b_hh`` 0. Held first to the plain version with m all ones
-    at the row's tolerance, then timed; the record gives its error and
-    says whether it differs (over the row's tolerance) or cuDNN refused
-    the dtype. The port never makes this call. Row 1's is the same call
-    on ``xw`` with W_x the identity and b 0 (:func:`hoisted_yardstick`)."""
-    from lfm_quant_tpu_torch.ops import rnn as R
-
-    B, T, _ = hin.shape
+def cudnn_module(torch, cell: str, hin, wx, b, wh):
+    """``torch.nn.LSTM`` or ``torch.nn.GRU`` holding the row's weights →
+    ``(module, perm)``: W_x^T and W_h^T with the JAX gate order permuted
+    for the GRU (PyTorch's r, z, n; ``perm`` maps PyTorch's gate rows to
+    the JAX columns), ``forget_bias`` 1 folded into the f slice of
+    ``b_ih``, ``b_hh`` 0."""
     H = wh.shape[0]
     mod = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
         hin.shape[-1], H, batch_first=True).to(device=hin.device,
@@ -848,6 +847,85 @@ def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
         mod.weight_hh_l0.copy_(wh.t()[perm])
         mod.bias_ih_l0.copy_(bias[perm])
         mod.bias_hh_l0.zero_()
+    return mod, perm
+
+
+def cudnn_bwd_yardstick(torch, cell: str, hin, wx, b, wh, dh,
+                        hoisted: bool = False) -> dict:
+    """Rows 4 and 2's ``library_ms``: one ``torch.autograd.grad`` over a
+    saved cuDNN forward (:func:`cudnn_module`, TF32 off, every step valid)
+    with the row's upstream gradient ``dh`` — the same function only when
+    no step is masked. Row 4 (``hin``, ``wx``, ``b``): dhin, dW_x, db and
+    dW_h; row 2 (``hoisted``: ``hin`` is xw, W_x the identity and b 0, as
+    :func:`hoisted_yardstick`): dxw and dW_h, and cuDNN also computes
+    dW_ih, a [G H, G H] product the row does not do. Held first to the
+    plain backward with m all ones at the scaled bf16 bound; the record
+    gives its error and says whether it differs or cuDNN refused. The
+    port never makes this call."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, _ = hin.shape
+    if hoisted:
+        G = hin.shape[-1]
+        wx = torch.eye(G, dtype=hin.dtype, device=hin.device)
+        b = torch.zeros(G, dtype=hin.dtype, device=hin.device)
+    mod, perm = cudnn_module(torch, cell, hin, wx, b, wh)
+    x = hin.detach().clone().requires_grad_(True)
+    params = (mod.weight_ih_l0, mod.bias_ih_l0, mod.weight_hh_l0)
+    ones = torch.ones(B, T, dtype=torch.bool, device=hin.device)
+    xw = hin if hoisted else hin.float() @ wx.float() + b.float()
+    h, c = R.rnn_scan_states(cell, xw, wh, ones, 1.0, True)
+    h, c = h.to(hin.dtype), None if c is None else c.to(hin.dtype)
+    try:
+        out = mod(x)[0]
+    except RuntimeError as exc:
+        return dict(library_ms=None, library_note=(
+            f"cuDNN refused {hin.dtype}: {str(exc).splitlines()[0]}"))
+    inputs = (x, *params)
+
+    def grad():
+        return torch.autograd.grad(out, inputs, dh, retain_graph=True)
+
+    gx, gwi, gbi, gwh = grad()
+    unperm = (lambda g: torch.empty_like(g).index_copy_(0, perm, g))
+    dwx, db, dwh = unperm(gwi).t(), unperm(gbi), unperm(gwh).t()
+    if hoisted:
+        got = (gx, dwh)
+        want = R.rnn_scan_bwd_reference(cell, hin, wh, ones, h, c, dh)
+    else:
+        got = (gx, dwx, db, dwh)
+        want = R.rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, ones,
+                                              h, c, dh)
+    torch.cuda.synchronize()
+    err = max(scaled_err(g, w) for g, w in zip(got, want))
+    del gx, gwi, gbi, gwh, dwx, db, dwh, got, want, h, c
+    note = ("cuDNN backward over a saved forward, every step valid" + (
+        "; it also computes dW_ih, a [G H, G H] product row 2 does not do"
+        if hoisted else "") + (
+        "" if err <= BF16_TOL else  # NaN too
+        "; differs from the plain backward over the scaled tolerance"))
+    rec = dict(library_ms=time_ms(grad, reps=3),
+               library_scaled_err=err, library_note=note)
+    del out, x
+    return rec
+
+
+def cudnn_yardstick(torch, cell: str, hin, wx, b, wh, atol: float,
+                    rtol: float) -> dict:
+    """Row 3's ``library_ms``: one cuDNN call (``torch.nn.LSTM`` or
+    ``torch.nn.GRU``, TF32 off) on the same inputs with every step valid
+    — the same function only when no step is masked. Its weights are the
+    row's (:func:`cudnn_module`). Held first to the plain version with m
+    all ones
+    at the row's tolerance, then timed; the record gives its error and
+    says whether it differs (over the row's tolerance) or cuDNN refused
+    the dtype. The port never makes this call. Row 1's is the same call
+    on ``xw`` with W_x the identity and b 0 (:func:`hoisted_yardstick`)."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, _ = hin.shape
+    mod, _ = cudnn_module(torch, cell, hin, wx, b, wh)
+    with torch.no_grad():
         ones = torch.ones(B, T, dtype=torch.bool, device=hin.device)
         want = R.rnn_scan_fused_reference(cell, hin, wx, b, wh, ones)
         try:
@@ -6360,20 +6438,22 @@ def f32_hoisted_seed_grid(torch, kernels, cell: str, xw, wh, mm, dh,
 
 def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
               timed=(), name_suffix: str = "") -> None:
-    """Rows 1-4 at a bf16 hidden width past 128: the forwards on their
-    route, the tensor cores with W_h split across a cluster
-    (``rnn_fwd_cluster.cu``, counted under ``rnn_{form}_cluster_{cell}``),
-    and on the CUDA-core kernel (``rnn_fused_fwd.cu``, launched directly by
-    ``_launch_fwd``: the float32 route, and the bf16 route past 512); the
-    backwards on their route, the CUDA cores (``rnn_bwd.cu``), on the
-    states the plain forward gives. Each launch counted once, against its
+    """Rows 1-4 at a bf16 hidden width past 128: each on its route, the
+    tensor cores with W_h split across a cluster (``rnn_fwd_cluster.cu``,
+    ``rnn_bwd_cluster.cu``, counted under ``rnn_{form}_cluster_{cell}``;
+    the backwards on the states the plain forward gives), and on the
+    CUDA-core kernel (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``, launched
+    directly by ``_launch_fwd`` and ``_launch_bwd``: the float32 route,
+    and the bf16 route past 512). Each launch counted once, against its
     plain version (bf16 atol/rtol 0.05, gradients scaled 0.05). ``timed``
     forms go beside their bound, their plain version and their library
-    yardstick (cuDNN for rows 3 and 1, the weight-gradient products for
-    rows 4 and 2); a timed forward is recorded twice, on the cluster
-    (its cluster size, rows per cluster, clusters at once, and the
-    CUDA-core time on the same inputs) and on the CUDA cores (under the
-    CUDA-core name, as before). Records carry ``name_suffix``."""
+    yardstick (cuDNN: the forward call for rows 3 and 1, the backward over
+    a saved forward for rows 4 and 2, whose weight-gradient products alone
+    are kept too as ``wgrad_products_ms``); a timed form is recorded
+    twice, on the cluster (its cluster size, rows per cluster, clusters at
+    once, and the CUDA-core time on the same inputs) and on the CUDA cores
+    (under the CUDA-core name, as before: the backwards' "[before]").
+    Records carry ``name_suffix``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -6381,9 +6461,8 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
     dev = hin.device
     cd = hin.dtype
     if R._mma_route(cd, H) != "cluster" or R._mma_route(cd, H, "bwd") != \
-            "simt":
-        fail(f"hidden {H} is not on the cluster forward and the CUDA-core "
-             f"backward")
+            "cluster":
+        fail(f"hidden {H} is not on the cluster forward and backward")
     xw32 = hin.float() @ wx.float() + b.float()
     xw = xw32.to(cd)
     want_f = R.rnn_scan_states(cell, xw32, wh, mm, 1.0, True)
@@ -6391,6 +6470,8 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
     sf = tuple(None if t is None else t.to(cd) for t in want_f)
     sx = tuple(None if t is None else t.to(cd) for t in want_x)
     props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    Hp = R._padded_width(H)
     runs = {
         "fused_fwd": (lambda: R._fused_states(cell, hin, wx, b, wh, mm, 1.0,
                                               True),
@@ -6405,22 +6486,28 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
                 lambda: R.rnn_scan_states(cell, xw, wh, mm, 1.0, True),
                 want_x),
         "fused_bwd": (lambda: R.rnn_scan_fused_bwd(cell, hin, wx, b, wh, mm,
-                                                   *sf, dh), None,
+                                                   *sf, dh),
+                      lambda: R._launch_bwd(cell, True, hin, wx, b, wh, mm,
+                                            *sf, dh, 1.0),
                       lambda: R.rnn_scan_fused_bwd_reference(
                           cell, hin, wx, b, wh, mm, *sf, dh), None),
-        "bwd": (lambda: R.rnn_scan_bwd(cell, xw, wh, mm, *sx, dh), None,
+        "bwd": (lambda: R.rnn_scan_bwd(cell, xw, wh, mm, *sx, dh),
+                lambda: R._launch_bwd(cell, False, xw, None, None, wh, mm,
+                                      *sx, dh, 1.0),
                 lambda: R.rnn_scan_bwd_reference(cell, xw, wh, mm, *sx, dh),
                 None)}
 
-    def held(label, fn, name, want):
+    def held(label, fn, name, want, fwd):
         """One counted launch of ``fn`` (only ``name``) held to ``want``
-        → the largest error."""
+        → the largest error (the backwards' scaled)."""
         _build.reset_launch_counts()
         with torch.no_grad():
             got = fn()
         counts = _build.launch_counts()
         if counts[name] != 1 or sum(counts.values()) != 1:
             fail(f"{label}: launched {counts}")
+        if not fwd:
+            return grads_close(label, got, want, cd)
         err = 0.0
         for g, w in zip(got, want):
             if w is None:
@@ -6432,38 +6519,28 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
         return err
 
     for form, (run, core, plain, want) in runs.items():
-        fwd = core is not None
-        name = f"rnn_{form}_{'cluster_' if fwd else ''}{cell}"
+        fwd = form.endswith("fwd")
+        name = f"rnn_{form}_cluster_{cell}"
         core_name = f"rnn_{form}_{cell}"
-        if fwd:
-            err = held(f"{name} at {where}", run, name, want)
-            core_err = held(f"{core_name} at {where}", core, core_name, want)
-            Hp = R._padded_width(H)
-            limit = props.shared_memory_per_block_optin
-            C = R._cluster_size(cell, Hp, limit)
-            rows = R._cluster_rows(cell, Hp, C, B, 1, limit,
-                                   props.multi_processor_count)
-            at_once = R._cluster_check(cell, form == "fused_fwd", Hp, C, rows,
-                                       dev)
-            shape_of = (f"{C} CTAs x {rows} rows a cluster, {at_once} "
-                        f"clusters at once")
-        else:
-            _build.reset_launch_counts()
-            with torch.no_grad():
-                got = run()
-            counts = _build.launch_counts()
-            if counts[name] != 1 or sum(counts.values()) != 1:
-                fail(f"{name} at {where}: launched {counts}")
-            err = grads_close(f"{name} at {where}", got, plain(), cd)
-            del got
-            shape_of = (f"{R._simt_rows(cell, form, H, dev)} rows per "
-                        f"block")
+        if not fwd:
+            want = plain()
+        err = held(f"{name} at {where}", run, name, want, fwd)
+        core_err = held(f"{core_name} at {where}", core, core_name, want,
+                        fwd)
+        del want
+        size, rows_of, check = (
+            (R._cluster_size, R._cluster_rows, R._cluster_check) if fwd else
+            (R._cluster_bwd_size, R._cluster_bwd_rows, R._cluster_bwd_check))
+        C = size(cell, Hp, limit)
+        rows = rows_of(cell, Hp, C, B, 1, limit, props.multi_processor_count)
+        at_once = check(cell, form.startswith("fused"), Hp, C, rows, dev)
+        shape_of = (f"{C} CTAs x {rows} rows a cluster, {at_once} clusters "
+                    f"at once")
         if form not in timed:
-            log(f"{name} at {where}: {shape_of}, max err {err:.4g}" + (
-                f"; {core_name} max err {core_err:.4g}" if fwd else ""))
+            log(f"{name} at {where}: {shape_of}, max err {err:.4g}; "
+                f"{core_name} max err {core_err:.4g}")
             continue
-        bound, by = rnn_bound(form, cell, B, T, H, hin.element_size(),
-                              form.endswith("fwd"))
+        bound, by = rnn_bound(form, cell, B, T, H, hin.element_size(), fwd)
         if form == "fused_fwd":
             library = cudnn_yardstick(torch, cell, hin, wx, b, wh, BF16_TOL,
                                       BF16_TOL)
@@ -6471,7 +6548,11 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
             library = hoisted_yardstick(torch, cell, xw, wh, BF16_TOL,
                                         BF16_TOL)
         else:
-            # The weight-gradient products of the row, in f32.
+            library = cudnn_bwd_yardstick(
+                torch, cell, hin if form == "fused_bwd" else xw, wx, b, wh,
+                dh, hoisted=form == "bwd")
+            torch.cuda.empty_cache()
+            # The weight-gradient products of the row alone, in f32.
             d_xw, d_hw, h_prev = R._scan_bwd_core(
                 cell, xw32, wh, mm, *(sf if form == "fused_bwd" else sx), dh,
                 1.0)
@@ -6482,7 +6563,7 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
                                 torch.matmul(a_h.T, d_h)))
             else:
                 lib = (lambda: torch.matmul(a_h.T, d_h))
-            library = dict(library_ms=time_ms(lib, reps=3))
+            library["wgrad_products_ms"] = time_ms(lib, reps=3)
             del d_xw, d_hw, h_prev, a_h, d_h, lib
         plain_ms = time_ms(plain, reps=1, warmup=1)
         common = dict(shape=[B, T, H], dtype=str(cd).replace("torch.", ""),
@@ -6490,27 +6571,22 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
                       **library)
         tol = (f"atol {BF16_TOL} + rtol {BF16_TOL}" if fwd else
                f"scaled atol {BF16_TOL}")
-        if fwd:
-            core_t = kernel_ms(core, reps=2, launches=1)
-            report(kernels, core_name + name_suffix, where, dict(
-                rows_per_block=R._simt_rows(cell, form, H, dev),
-                max_abs_err=core_err, tolerance=tol, **core_t, **common))
-            report(kernels, name + name_suffix, where, dict(
-                cluster=C, rows_per_cluster=rows, clusters_at_once=at_once,
-                max_abs_err=err, tolerance=tol,
-                **kernel_ms(run, reps=5, launches=3),
-                cuda_core_ms=core_t["ms"],
-                cuda_core_device_ms=core_t["device_ms"], **common))
-        else:
-            report(kernels, name + name_suffix, where, dict(
-                rows_per_block=R._simt_rows(cell, form, H, dev),
-                max_abs_err=err, tolerance=tol,
-                **kernel_ms(run, reps=2, launches=1), **common))
+        core_t = kernel_ms(core, reps=2, launches=1)
+        report(kernels, core_name + name_suffix, where, dict(
+            rows_per_block=R._simt_rows(cell, form, H, dev),
+            max_abs_err=core_err, tolerance=tol, **core_t, **common))
+        report(kernels, name + name_suffix, where, dict(
+            cluster=C, rows_per_cluster=rows, clusters_at_once=at_once,
+            max_abs_err=err, tolerance=tol,
+            **kernel_ms(run, reps=5, launches=3),
+            cuda_core_ms=core_t["ms"],
+            cuda_core_device_ms=core_t["device_ms"], **common))
         rec = kernels[name + name_suffix][-1]
         log(f"{name} at {where}: {shape_of}, {rec['ms']:.4f} ms (device "
             f"{rec['device_ms']:.4f}), bound {bound:.4f} ms, library "
-            f"{rec.get('library_ms')}" + (
-                f", CUDA cores {rec['cuda_core_ms']:.4f}" if fwd else ""))
+            f"{rec.get('library_ms')}, CUDA cores {rec['cuda_core_ms']:.4f}"
+            + (f", weight-gradient products {rec['wgrad_products_ms']:.4f}"
+               if not fwd else ""))
         torch.cuda.empty_cache()
     del xw32, xw, want_f, want_x, sf, sx
     torch.cuda.empty_cache()
@@ -6519,11 +6595,11 @@ def wide_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm, dh,
 def wide_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
                    where: str) -> None:
     """The seed grids at hidden 256 in bf16, S = 3 (m of seed extent 1,
-    shared): the forwards on the cluster route and on the CUDA-core kernel
-    (launched directly), the backwards on the CUDA cores, each one counted
-    launch (call) for all seeds and each seed bitwise equal to its one-seed
-    call; the hoisted forwards and backward timed beside their bound,
-    three one-seed calls and the plain version."""
+    shared): the forwards and backwards on the cluster route and on the
+    CUDA-core kernels (launched directly), each one counted launch (call)
+    for all seeds and each seed bitwise equal to its one-seed call; the
+    hoisted forwards and backwards timed beside their bound, three
+    one-seed calls and the plain version."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -6562,18 +6638,32 @@ def wide_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
                                   True),
                      lambda s: core(cell, True, xw3[s], None, None, wh3[s],
                                     mm, 1.0, True)),
-        "fused_bwd": (f"rnn_fused_bwd_{cell}",
+        "fused_bwd": (f"rnn_fused_bwd_cluster_{cell}",
                       lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3, wh3,
                                                    m1, *sf, dh3),
                       lambda s: R.rnn_scan_fused_bwd(
                           cell, hin3[s], wx3[s], b3[s], wh3[s], mm,
                           *(None if t is None else t[s] for t in sf),
                           dh3[s])),
-        "bwd": (f"rnn_bwd_{cell}",
+        "bwd": (f"rnn_bwd_cluster_{cell}",
                 lambda: R.rnn_scan_bwd(cell, xw3, wh3, m1, *sx, dh3),
                 lambda s: R.rnn_scan_bwd(
                     cell, xw3[s], wh3[s], mm,
-                    *(None if t is None else t[s] for t in sx), dh3[s]))}
+                    *(None if t is None else t[s] for t in sx), dh3[s])),
+        "fused_bwd_core": (f"rnn_fused_bwd_{cell}",
+                           lambda: R._launch_bwd(cell, True, hin3, wx3, b3,
+                                                 wh3, m1, *sf, dh3, 1.0),
+                           lambda s: R._launch_bwd(
+                               cell, True, hin3[s], wx3[s], b3[s], wh3[s], mm,
+                               *(None if t is None else t[s] for t in sf),
+                               dh3[s], 1.0)),
+        "bwd_core": (f"rnn_bwd_{cell}",
+                     lambda: R._launch_bwd(cell, False, xw3, None, None, wh3,
+                                           m1, *sx, dh3, 1.0),
+                     lambda s: R._launch_bwd(
+                         cell, False, xw3[s], None, None, wh3[s], mm,
+                         *(None if t is None else t[s] for t in sx), dh3[s],
+                         1.0))}
     for form, (name, run, single) in calls.items():
         _build.reset_launch_counts()
         with torch.no_grad():
@@ -6585,11 +6675,11 @@ def wide_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
         one[form] = got
         del got
     log(f"seed grids (S {S}, m shared) at {where}: the cluster and CUDA-core "
-        f"forwards and the CUDA-core backwards one launch each, every seed "
-        f"bitwise its one-seed call")
-    for form in ("fwd", "fwd_core", "bwd"):
+        f"forwards and backwards one launch each, every seed bitwise its "
+        f"one-seed call")
+    for form in ("fwd", "fwd_core", "bwd", "bwd_core"):
         name, run, single = calls[form]
-        kind = "bwd" if form == "bwd" else "fwd"
+        kind = "bwd" if form.startswith("bwd") else "fwd"
         if kind == "fwd":
             plain = (lambda: [R.rnn_scan_states(cell, xw3[s], wh3[s], mm, 1.0,
                                                 True) for s in range(S)])
@@ -6620,7 +6710,7 @@ def wide_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
                               kind == "fwd", seeds=S)
         blocks = (dict(rows_per_block=R._simt_rows(cell, kind, H,
                                                    hin.device))
-                  if form != "fwd" else {})
+                  if form.endswith("_core") else {})
         report(kernels, f"{name}_seeds", where, dict(
             shape=[S, B, T, H], dtype=str(hin.dtype).replace("torch.", ""),
             shared="m", **blocks, bitwise_vs_single=True,
@@ -6671,27 +6761,26 @@ def served_scores_agree(name: str, cfg, panel, plain, responses) -> float:
 
 def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                gen) -> None:
-    """Phase 28: every hidden width the JAX kernels take, the bf16
-    forwards above 128 on the tensor cores with W_h split across a cluster
-    (``rnn_fwd_cluster.cu``), the backwards there on the CUDA cores, and
-    the seed grids of rows 1 and 2 off the H <= 128 tensor cores.
+    """Phase 28: every hidden width the JAX kernels take, bf16 above 128
+    on the tensor cores with W_h split across a cluster both ways
+    (``rnn_fwd_cluster.cu``, ``rnn_bwd_cluster.cu``), and the seed grids
+    of rows 1 and 2 off the H <= 128 tensor cores.
 
     (a) c2 at ``{"hidden": 256}`` (:data:`WIDE_HIDDEN`), LSTM and GRU,
     bf16: rows 1-4 at its train step (the layer-0 input of a real index
-    batch, the model's seeded weights; timed, the forwards on the cluster
-    and on the CUDA cores, under each kernel's name), then
-    :data:`WIDE_STEPS` steps from the seeded init, fused and hoisted,
-    counted (the cluster forward and the CUDA-core backward; no CUDA-core
-    forward, no H <= 128 tensor-core kernel), held to the plain path on
-    the card; (b) the LSTM served from one ``ScoringService`` universe
-    (:data:`WIDE_REQUESTS` requests from 4 threads, counted likewise,
-    every score held to the plain path); (c) rows 1-4 at
-    :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at H^-1/2) against
-    their plain versions, the forwards timed at both, the backwards at
-    512; (d) the seed grids at hidden 256 (:func:`wide_seed_grid`) and, as
-    the main paths of the hoisted forms' grids, 3-seed c2 ensembles with
-    ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward, the
-    CUDA-core backward), float32 at hidden 128 (3xTF32) and at
+    batch, the model's seeded weights; timed on the cluster and on the
+    CUDA cores, under each kernel's name), then :data:`WIDE_STEPS` steps
+    from the seeded init, fused and hoisted, counted (the cluster forward
+    and backward; no CUDA-core kernel, no H <= 128 tensor-core kernel),
+    held to the plain path on the card; (b) the LSTM served from one
+    ``ScoringService`` universe (:data:`WIDE_REQUESTS` requests from 4
+    threads, counted likewise, every score held to the plain path); (c)
+    rows 1-4 at :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at
+    H^-1/2) against their plain versions, each timed; (d) the seed grids
+    at hidden 256 (:func:`wide_seed_grid`) and, as the main paths of the
+    hoisted forms' grids, 3-seed c2 ensembles with
+    ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward and
+    backward), float32 at hidden 128 (3xTF32) and at
     :data:`GRID_F32_HIDDEN` (the CUDA cores), for :data:`GRID_STEPS` steps
     each, counted into ``seed_launches``, held to the plain path.
     Single-seed launches go to ``totals``."""
@@ -6701,12 +6790,10 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     from lfm_quant_tpu_torch.serve.__main__ import drive_load
     from lfm_quant_tpu_torch.train.loop import Predictor, Trainer
 
-    # The H <= 128 tensor-core kernels and the CUDA-core forwards: the
+    # The H <= 128 tensor-core kernels and the CUDA-core kernels: the
     # hidden-256 runs launch none of them.
     not_wide = tuple(k for k in _build.LAUNCHES
-                     if "_mma_" in k or "_tf32_" in k) + tuple(
-        f"rnn_{form}_{c}" for form in ("fused_fwd", "fwd")
-        for c in ("lstm", "gru"))
+                     if "_mma_" in k or "_tf32_" in k) + CUDA_CORE
     gen = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 28)
     for cell in ("lstm", "gru"):
         cfg = train_variant(cfg2, kind=cell, kwargs=dict(
@@ -6739,9 +6826,10 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
         torch.cuda.empty_cache()
         for form, run_cfg, must in (
                 ("fused", cfg, (f"rnn_fused_fwd_cluster_{cell}",
-                                f"rnn_fused_bwd_{cell}", "window_gather")),
+                                f"rnn_fused_bwd_cluster_{cell}",
+                                "window_gather")),
                 ("hoisted", train_variant(cfg, scan_impl="pallas"),
-                 (f"rnn_fwd_cluster_{cell}", f"rnn_bwd_{cell}",
+                 (f"rnn_fwd_cluster_{cell}", f"rnn_bwd_cluster_{cell}",
                   "window_gather"))):
             label = (f"c2 {cell} hidden {WIDE_HIDDEN} training ({form}, "
                      f"bf16)")
@@ -6800,10 +6888,10 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
             bb = (0.1 * torch.randn(G, **bf)).to(torch.bfloat16)
             mm = torch.rand(B, T, **bf) < 0.75
             dh = (0.1 * torch.randn(B, T, H, **bf)).to(torch.bfloat16)
-            timed = ("fused_fwd", "fwd") + (
-                ("fused_bwd", "bwd") if H == max(WIDE_WIDTHS) else ())
             wide_rows(torch, kernels, f"B {B}, T {T}, H {H}", cell, hin, wx,
-                      bb, wh, mm, dh, timed=timed, name_suffix=f"@h{H}")
+                      bb, wh, mm, dh,
+                      timed=("fused_fwd", "fwd", "fused_bwd", "bwd"),
+                      name_suffix=f"@h{H}")
             del hin, wx, wh, bb, mm, dh
             torch.cuda.empty_cache()
 
@@ -6813,7 +6901,8 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
              f"{WIDE_HIDDEN})",
              train_variant(cfg2, scan_impl="pallas", kwargs=dict(
                  cfg2.model.kwargs, hidden=WIDE_HIDDEN)),
-             ("rnn_fwd_cluster_lstm", "rnn_bwd_lstm", "window_gather")),
+             ("rnn_fwd_cluster_lstm", "rnn_bwd_cluster_lstm",
+              "window_gather")),
             (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, float32)",
              train_variant(cfg2, scan_impl="pallas", bf16=False),
              ("rnn_fwd_tf32_lstm", "rnn_bwd_tf32_lstm", "window_gather")),

@@ -49,6 +49,8 @@ LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
                 rnn_fwd_tf32_lstm=0, rnn_fwd_tf32_gru=0,
                 rnn_fused_fwd_cluster_lstm=0, rnn_fused_fwd_cluster_gru=0,
                 rnn_fwd_cluster_lstm=0, rnn_fwd_cluster_gru=0,
+                rnn_fused_bwd_cluster_lstm=0, rnn_fused_bwd_cluster_gru=0,
+                rnn_bwd_cluster_lstm=0, rnn_bwd_cluster_gru=0,
                 window_gather=0)
 
 _count_lock = threading.Lock()
@@ -177,6 +179,9 @@ def library() -> ctypes.CDLL:
                 "lfm_rnn_fwd_cluster": [ci, ci] + [vp] * 8 + [ci] * 6
                 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_fwd_cluster_clusters": [ci] * 5,
+                "lfm_rnn_bwd_cluster": [ci, ci] + [vp] * 12 + [ci, vp]
+                + [ci] * 7 + [cll] * 5 + [cf, vp],
+                "lfm_rnn_bwd_cluster_clusters": [ci] * 5,
             }
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
@@ -187,7 +192,8 @@ def library() -> ctypes.CDLL:
                     "lfm_rnn_fused_bwd_mma_smem": 2,
                     "lfm_rnn_scan_bwd_mma_smem": 2,
                     "lfm_rnn_bwd_tf32_smem": 3, "lfm_rnn_fwd_tf32_smem": 2,
-                    "lfm_rnn_fwd_cluster_smem": 4}
+                    "lfm_rnn_fwd_cluster_smem": 4,
+                    "lfm_rnn_bwd_cluster_smem": 4}
             for name, n in smem.items():
                 getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll

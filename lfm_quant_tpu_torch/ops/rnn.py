@@ -1,8 +1,8 @@
 """The masked LSTM/GRU recurrence: hand-written CUDA kernels
 (``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
 ``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd.cu``,
-``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``) and their plain
-versions.
+``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``,
+``csrc/rnn_bwd_cluster.cu``) and their plain versions.
 
 One rule, :func:`_mma_route`, picks the kernels of both forwards and both
 backwards from the direction, the dtype and H alone: at every H <= 128
@@ -12,11 +12,13 @@ float32 on them in 3xTF32 (``rnn_fwd_tf32.cu``, whose fused form makes
 xw on the CUDA cores, and ``rnn_bwd_tf32.cu``, fused and hoisted forms);
 a width that is not a multiple of 16 is zero-padded per gate block to
 the next one around the launch (:func:`padded_launch`, exact). Above 128
-the bf16 forwards run on the tensor cores with W_h split across a
-thread-block cluster (``rnn_fwd_cluster.cu``, up to H 512: the fused
-form as a bf16 GEMM into an f32 xw scratch and the cluster recurrence);
-every other width above 128, float32 and every backward there run on
-the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
+bf16 runs on the tensor cores with W_h split across a thread-block
+cluster, up to H 512, both ways (``rnn_fwd_cluster.cu``: the fused form
+as a bf16 GEMM into an f32 xw scratch and the cluster recurrence;
+``rnn_bwd_cluster.cu``: the reverse recurrence with a reduce-scatter of
+the carry's product, then the weight-gradient and dhin GEMMs); float32
+and every width past 512 run on the CUDA cores (``rnn_fused_fwd.cu``,
+``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -550,8 +552,9 @@ def _padded_width(H: int) -> int:
     return 16 * -(-max(H, 1) // 16)
 
 
-#: The widest padded width the bfloat16 forward above 128 takes
-#: (``kMaxWidth`` in ``csrc/rnn_fwd_cluster.cu``).
+#: The widest padded width the bfloat16 kernels above 128 take
+#: (``kMaxWidth`` in ``csrc/rnn_fwd_cluster.cu`` and
+#: ``csrc/rnn_bwd_cluster.cu``).
 CLUSTER_MAX_WIDTH = 512
 
 
@@ -569,33 +572,36 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
                                         hoisted forms (``"cluster"``)
     fwd       float32  Hp <= 128        ``rnn_fwd_tf32.cu`` (``"tf32"``)
     bwd       bfloat16 Hp <= 128        ``rnn_fused_bwd_mma.cu`` (``"mma"``)
+    bwd       bfloat16 128 < Hp <= 512  ``rnn_bwd_cluster.cu``, fused and
+                                        hoisted forms (``"cluster"``)
     bwd       float32  Hp <= 128        ``rnn_bwd_tf32.cu`` (``"tf32"``)
     fwd       float32  H > 128          ``rnn_fused_fwd.cu`` (``"simt"``)
     fwd       bfloat16 Hp > 512         ``rnn_fused_fwd.cu`` (``"simt"``)
-    bwd       either   H > 128          ``rnn_bwd.cu`` (``"simt"``)
+    bwd       float32  H > 128          ``rnn_bwd.cu`` (``"simt"``)
+    bwd       bfloat16 Hp > 512         ``rnn_bwd.cu`` (``"simt"``)
     ========= ======== ================ ================================
 
     The tensor-core kernels take 16 <= H <= 128, H % 16 == 0 and hold W_h
     in shared memory, hence the widths (the f32 kernels split it across a
     cluster of CTAs: the forward at every width, the backward at H =
     128); any other H <= 128 runs there at Hp, zero-padded per gate block
-    (:func:`padded_launch`, exact). Above 128 the bf16 forward splits W_h
-    across a cluster of 2-16 CTAs (:func:`_cluster_size`), any H at Hp
-    too; the CUDA-core kernels are the route of every other width above
-    128 and of every backward there, not a fallback: a cluster launch the
-    card refuses raises. bf16 runs on the bf16 tensor cores; float32 must
-    hold the JAX f32 bound, so it splits every f32 operand of the
-    recurrence into two TF32 terms (3xTF32), and the fused forward forms
-    xw on the CUDA cores (unbiased f32 sums). The fused bf16 backward
-    reuses the forward's packing of W_x, the fused float32 backward the
-    forward's xw; the CUDA-core backward takes the cluster forward's
-    states as they are."""
+    (:func:`padded_launch`, exact). Above 128 bf16 splits W_h across a
+    cluster of 2-16 CTAs both ways (the forward's size
+    :func:`_cluster_size`, the backward's :func:`_cluster_bwd_size`), any
+    H at Hp too; the CUDA-core kernels are the route of float32 above 128
+    and of every width past 512, not a fallback: a cluster launch the card
+    refuses raises. bf16 runs on the bf16 tensor cores; float32 must hold
+    the JAX f32 bound, so it splits every f32 operand of the recurrence
+    into two TF32 terms (3xTF32), and the fused forward forms xw on the
+    CUDA cores (unbiased f32 sums). The fused bf16 backward at H <= 128
+    reuses the forward's packing of W_x; the fused float32 backward and
+    the fused bf16 backward above 128 reuse the forward's f32 xw scratch
+    as their d_gates buffer."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction}")
     Hp = _padded_width(H)
     if Hp > 128:
-        if (direction == "fwd" and dtype == torch.bfloat16
-                and Hp <= CLUSTER_MAX_WIDTH):
+        if dtype == torch.bfloat16 and Hp <= CLUSTER_MAX_WIDTH:
             return "cluster"
         return "simt"
     if dtype == torch.bfloat16:
@@ -1393,11 +1399,13 @@ def _launch_fwd_cluster(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                         wh: torch.Tensor, m: torch.Tensor, forget_bias: float,
                         save_c: bool, packed: Optional[torch.Tensor] = None,
                         cluster: Optional[int] = None,
-                        rows: Optional[int] = None):
+                        rows: Optional[int] = None, keep_xw: bool = False):
     """One call of the bfloat16 forward above hidden 128
     (``csrc/rnn_fwd_cluster.cu``; fused: the xw GEMM and the cluster
     recurrence, hoisted: the recurrence; counted once) → ``(h_all, c_all
-    or None)``. Fused, ``xin`` is hin and ``wx``, ``b`` are used; hoisted,
+    or None)``, and fused with ``keep_xw`` also the f32 xw scratch, which
+    the cluster backward takes as its d_gates buffer (None hoisted).
+    Fused, ``xin`` is hin and ``wx``, ``b`` are used; hoisted,
     ``xin`` is xw (``wx``, ``b`` None). Seed-stacked operands (``xin`` 4-D,
     each operand of seed extent S or 1) run every seed in the same call →
     ``[S, B, T, H]``. ``packed``: ``pack_cluster(wh, C)`` when the caller
@@ -1445,21 +1453,262 @@ def _launch_fwd_cluster(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     name = f"rnn_{'fused_' if fused else ''}fwd_cluster_{cell}"
     _build.check(lib, err, f"{name} (hidden={H}, cluster of {C}, {rows} rows)")
     _build.count_launch(name)
-    return (h, c) if stacked else (h[0], None if c is None else c[0])
+    out = (h, c, xw) if keep_xw else (h, c)
+    return out if stacked else tuple(None if t is None else t[0]
+                                     for t in out)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 backward above hidden 128 (csrc/rnn_bwd_cluster.cu)
+# ---------------------------------------------------------------------------
+
+#: Threads per CTA at most of the cluster backward's recurrence, by rows
+#: per cluster (``max_threads`` in ``csrc/rnn_bwd_cluster.cu``: the
+#: registers of the recompute's sums, the carries, xw_t and the carry
+#: product's chunks).
+CLUSTER_BWD_MAX_THREADS = {16: 384, 32: 256}
+
+
+def _cluster_bwd_takes(Hp: int, C: int, rows: int) -> bool:
+    """The shapes ``csrc/rnn_bwd_cluster.cu`` takes (its ``supported``):
+    128 < Hp <= :data:`CLUSTER_MAX_WIDTH`, Hp % 16 == 0, C and rows of
+    :data:`CLUSTER_SIZES` and :data:`CLUSTER_ROWS`, the CTA's threads
+    within the rows' limit (:data:`CLUSTER_BWD_MAX_THREADS`)."""
+    if not (128 < Hp <= CLUSTER_MAX_WIDTH and Hp % 16 == 0):
+        return False
+    if C not in CLUSTER_SIZES or rows not in CLUSTER_ROWS:
+        return False
+    return _cluster_warps(Hp, C) * 32 <= CLUSTER_BWD_MAX_THREADS[rows]
+
+
+def _cluster_share_cols(cell: str, Hp: int, C: int) -> int:
+    """Columns of a CTA's W_h share in the cluster backward: G U (U = 8
+    :func:`_cluster_warps`, gate q's units at columns ``q U ..``) rounded
+    up to a multiple of 16 (the carry's product steps k by 16)."""
+    return 16 * -(-_GATES[cell] * MMA_UNITS * _cluster_warps(Hp, C) // 16)
+
+
+def _cluster_bwd_smem(cell: str, Hp: int, C: int, rows: int) -> int:
+    """Shared memory (bytes) of a CTA of the cluster backward's recurrence,
+    as ``recur_smem_bytes`` counts it in the source: the W_h share [Hp,
+    GUP + 8] bf16 (GUP :func:`_cluster_share_cols`), two h tiles [rows,
+    Hp + 8] bf16, the d_hw hi and lo tiles [rows, GUP + 8] bf16 and the
+    single receive buffer of the reduce-scatter [C][rows][LR] f32, LR = 8
+    NW rounded up to an odd multiple of 8 (NW :func:`_cluster_warps`)."""
+    LW = _cluster_share_cols(cell, Hp, C) + 8
+    LR = MMA_UNITS * (_cluster_warps(Hp, C) | 1)
+    return (Hp * LW * 2 + 2 * rows * (Hp + 8) * 2 + 2 * rows * LW * 2
+            + C * rows * LR * 4)
+
+
+def _cluster_bwd_size(cell: str, Hp: int, limit: int) -> int:
+    """CTAs per cluster of the bf16 backward at padded width ``Hp``: the
+    fewest of :data:`CLUSTER_SIZES` that the kernel takes at 16 rows and
+    whose shared memory (:func:`_cluster_bwd_smem`) fits ``limit`` bytes
+    per block. The backward holds more beside its share than the forward
+    (the d tiles and the receive buffer), so its sizes differ: on an H100
+    the LSTM takes 2 CTAs to Hp 192, 4 to 288, 8 to 384 and 16 above, the
+    GRU 2 to 192, 4 to 320, 8 to 432 and 16 above. Measured
+    (``scripts/torch_cluster_variants.py --direction bwd``, H100 80GB
+    HBM3, 700 W; B 2048, T 60, H 256, 320, 512; PERF.md §6): with
+    :func:`_cluster_bwd_rows` within 1% of the fastest pair at every width
+    but the LSTM at H 256, where 8 CTAs x 16 rows tie or lead by up to 5%.
+    Raises, naming the width, where none fits."""
+    for C in CLUSTER_SIZES:
+        if (_cluster_bwd_takes(Hp, C, 16)
+                and _cluster_bwd_smem(cell, Hp, C, 16) <= limit):
+            return C
+    raise ValueError(
+        f"the bfloat16 {cell} backward on a cluster does not take hidden="
+        f"{Hp}: no cluster of {CLUSTER_SIZES} CTAs holds its W_h share "
+        f"beside the tiles and the receive buffer within {limit} bytes of "
+        f"shared memory per block, or the width is past {CLUSTER_MAX_WIDTH}")
+
+
+def _cluster_bwd_rows(cell: str, Hp: int, C: int, B: int, S: int,
+                      limit: int, sms: int) -> int:
+    """Batch rows per cluster of the backward: 32 where the kernel takes
+    them (the CTA within 256 threads), its shared memory fits ``limit``
+    and the launch still gives at least half the ``sms`` SMs a CTA (``2 C
+    S ceil(B / 32) >= sms``, the forward's rule); else 16."""
+    if (_cluster_bwd_takes(Hp, C, 32)
+            and _cluster_bwd_smem(cell, Hp, C, 32) <= limit
+            and 2 * C * S * -(-B // 32) >= sms):
+        return 32
+    return 16
+
+
+@functools.lru_cache(maxsize=32)
+def _cluster_bwd_index(H: int, G: int, Hp: int, C: int,
+                       device=None) -> torch.Tensor:
+    """Flat indices into ``w [H, G H]`` with one zero appended (index ``H G
+    H``) of W_h packed for the cluster backward at padded width ``Hp``:
+    ``C`` slices ``[Hp][GUP]`` (:func:`_cluster_share_cols`), row-major, one
+    a CTA. Column ``q U + i`` of CTA j's slice is gate q of its i-th unit
+    (:func:`_cluster_units`; ``U`` = 8 :func:`_cluster_warps`), so row k is
+    ``W_h[k, q Hp + u]`` over the CTA's units u. A place past H (the
+    padding's rows and units), of an idle warp's units or past G U points
+    at the zero."""
+    NW = _cluster_warps(Hp, C)
+    U = MMA_UNITS * NW
+    GUP = 16 * -(-G * U // 16)
+    W = Hp // MMA_UNITS
+    j = torch.arange(C, device=device).view(C, 1, 1)
+    k = torch.arange(Hp, device=device).view(1, Hp, 1)
+    col = torch.arange(GUP, device=device).view(1, 1, GUP)
+    q, i = col // U, col % U
+    first, nxt = j * W // C, (j + 1) * W // C  # the CTA's warps
+    u = first * MMA_UNITS + i
+    real = (q < G) & (k < H) & (u < H) & (i < (nxt - first) * MMA_UNITS)
+    return torch.where(real, k * G * H + q * H + u, H * G * H).reshape(-1)
+
+
+def pack_cluster_bwd(w: torch.Tensor, C: int,
+                     width: Optional[int] = None) -> torch.Tensor:
+    """``w [H, G*H]`` → W_h packed for the cluster backward
+    (:func:`_cluster_bwd_index`): ``C`` equal row-major slices, CTA j's
+    holding exactly its units' G gate columns for every row; flat, same
+    dtype, a new tensor. A seed-stacked ``w [S, H, G*H]`` is packed per
+    seed → ``[S, n]``. ``width`` Hp > H packs ``w`` zero-padded per gate
+    block (:func:`padded_launch`) in the same gather."""
+    H, cols = w.shape[-2:]
+    flat = torch.nn.functional.pad(w.reshape(*w.shape[:-2], -1), (0, 1))
+    return flat[..., _cluster_bwd_index(H, cols // H, width or H, C,
+                                        w.device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_bwd_check(cell: str, fused: bool, Hp: int, C: int, rows: int,
+                       device: torch.device) -> int:
+    """Once per shape and card: the source counts the shared memory
+    :func:`_cluster_bwd_smem` counts, it fits the card, and the card holds
+    at least one such cluster (``cudaOccupancyMaxActiveClusters``) → the
+    clusters it holds at once. Raises, naming the width and the cluster
+    size, where not: the launch is refused, and nothing else runs it."""
+    lib = _build.library()
+    smem = lib.lfm_rnn_bwd_cluster_smem(_CELL_CODE[cell], Hp, C, rows)
+    if smem < 0:
+        raise ValueError(f"the bfloat16 backward on a cluster does not take "
+                         f"hidden={Hp} with a cluster of {C} CTAs and {rows} "
+                         f"rows")
+    if smem != _cluster_bwd_smem(cell, Hp, C, rows):
+        raise RuntimeError(
+            f"csrc/rnn_bwd_cluster.cu counts {smem} bytes of shared memory, "
+            f"ops/rnn.py {_cluster_bwd_smem(cell, Hp, C, rows)}")
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"hidden={Hp} on a cluster of {C} CTAs needs {smem} "
+                         f"bytes of shared memory per CTA, more than the "
+                         f"card's {limit}")
+    with torch.cuda.device(device):
+        n = lib.lfm_rnn_bwd_cluster_clusters(_CELL_CODE[cell], int(fused),
+                                             Hp, C, rows)
+    if n < 1:
+        raise RuntimeError(
+            f"the card holds no cluster of {C} CTAs of the bfloat16 {cell} "
+            f"backward at hidden={Hp} ({rows} rows, {smem} bytes of shared "
+            f"memory a CTA): cudaOccupancyMaxActiveClusters gave {n}")
+    return n
+
+
+def _launch_bwd_cluster(cell: str, fused: bool, xin: torch.Tensor, wx, b,
+                        wh: torch.Tensor, m: torch.Tensor, h_all: torch.Tensor,
+                        c_all: Optional[torch.Tensor], dh: torch.Tensor,
+                        forget_bias: float, xw: Optional[torch.Tensor] = None,
+                        cluster: Optional[int] = None,
+                        rows: Optional[int] = None):
+    """One call of the bfloat16 backward above hidden 128
+    (``csrc/rnn_bwd_cluster.cu``; fused: the xw GEMM unless ``xw`` is
+    given, the cluster recurrence, the weight gradients and dhin; hoisted:
+    the recurrence and dW_h; counted once) → fused: ``(dhin, dW_x, db,
+    dW_h)``; hoisted (``xin`` is xw, ``wx`` and ``b`` None): ``(dxw,
+    dW_h)``; dhin and dxw in bf16, the weight gradients in f32.
+    Seed-stacked operands (``xin`` 4-D, each operand of seed extent S or 1)
+    run every seed in the same call and give each output per seed; the
+    states ``h_all``, ``c_all`` and ``dh`` are per seed. Fused, ``xw`` is
+    the cluster forward's f32 xw scratch (``[S, B, T, G H]`` or ``[B, T,
+    G H]``): the call skips its xw GEMM and overwrites the scratch with
+    d_xw. W_h is packed per CTA (:func:`pack_cluster_bwd`) once a call;
+    ``cluster`` and ``rows`` override :func:`_cluster_bwd_size` and
+    :func:`_cluster_bwd_rows`. A cluster the card cannot hold raises
+    (:func:`_cluster_bwd_check`)."""
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
+        c_all = None if c_all is None else c_all[None]
+        if fused:
+            wx, b = wx[None], b[None]
+    S = _seed_extent(xin, wx, b, wh, m, h_all, c_all, dh)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    G = _GATES[cell] * H
+    dev = xin.device
+    f32 = torch.float32
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    C = cluster or _cluster_bwd_size(cell, H, limit)
+    if rows is None:
+        rows = _cluster_bwd_rows(cell, H, C, B, S, limit,
+                                 props.multi_processor_count)
+    _cluster_bwd_check(cell, fused, H, C, rows, dev)
+    lib = _build.library()
+    whp = pack_cluster_bwd(wh, C)
+    # The states are per seed: a shared one is copied out to every seed.
+    h_all, c_all, dh = (
+        None if t is None else t.expand(S, *t.shape[1:]).contiguous()
+        for t in (h_all, c_all, dh))
+    xin, h_all, c_all, dh = (None if t is None else _aligned16(t)
+                             for t in (xin, h_all, c_all, dh))
+    if fused:
+        wx = _aligned16(wx)
+    keep = _keep(m)
+    dgx = (torch.empty((S, B, T, G), dtype=f32, device=dev) if xw is None
+           else xw.view(S, B, T, G))
+    dhn = (torch.empty((S, B, T, H), dtype=f32, device=dev)
+           if fused and cell == "gru" else None)
+    slices = _slices(B * T)
+    total = 2 * H * G + G if fused else H * G
+    partial = torch.empty((S, slices, total), dtype=f32, device=dev)
+    dw = torch.empty((S, total), dtype=f32, device=dev)
+    dx = torch.empty((S, B, T, H if fused else G), dtype=xin.dtype,
+                     device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_bwd_cluster(
+            _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx), ptr(b),
+            whp.data_ptr(), keep.data_ptr(), h_all.data_ptr(), ptr(c_all),
+            dh.data_ptr(), dx.data_ptr(), dgx.data_ptr(), ptr(dhn),
+            partial.data_ptr(), slices, dw.data_ptr(), S, B, T, H, C, rows,
+            int(xw is not None), _stride(xin, S),
+            0 if wx is None else _stride(wx, S),
+            0 if b is None else _stride(b, S), _stride(whp, S),
+            _stride(keep, S), float(forget_bias), _build.stream_of(xin))
+    name = f"rnn_{'fused_' if fused else ''}bwd_cluster_{cell}"
+    _build.check(lib, err, f"{name} (hidden={H}, cluster of {C}, {rows} rows)")
+    _build.count_launch(name)
+    if fused:
+        hg = H * G
+        out = (dx, dw[:, :hg].view(S, H, G), dw[:, hg:hg + G],
+               dw[:, hg + G:].view(S, H, G))
+    else:
+        out = (dx, dw.view(S, H, G))
+    return out if stacked else tuple(t[0] for t in out)
 
 
 def _tensor_core_launcher(route: str, form: str):
     """The tensor-core launch of ``form`` (:data:`_PAD_FORMS`) on
-    ``route`` ("mma", "tf32" or, the forwards, "cluster"), taking
-    ``(cell, *operands, *rest, **kw)`` at a width the kernels take;
-    :func:`padded_launch` wraps it. Looked up per call, so a launcher
-    swapped on this module is the one run."""
+    ``route`` ("mma", "tf32" or "cluster"), taking ``(cell, *operands,
+    *rest, **kw)`` at a width the kernels take; :func:`padded_launch`
+    wraps it. Looked up per call, so a launcher swapped on this module is
+    the one run."""
     if route == "cluster":
-        if form == "fused_fwd":
-            return lambda cell, *a, **kw: _launch_fwd_cluster(cell, True, *a,
-                                                              **kw)
-        return lambda cell, xw, *a, **kw: _launch_fwd_cluster(
-            cell, False, xw, None, None, *a, **kw)
+        launch = (_launch_fwd_cluster if form in ("fused_fwd", "fwd")
+                  else _launch_bwd_cluster)
+        if form.startswith("fused"):
+            return lambda cell, *a, **kw: launch(cell, True, *a, **kw)
+        return lambda cell, xw, *a, **kw: launch(cell, False, xw, None, None,
+                                                 *a, **kw)
     if route == "mma":
         return {"fused_fwd": _launch_fwd_mma, "fwd": _launch_scan_fwd_mma,
                 "fused_bwd": _launch_bwd_mma,
@@ -1476,10 +1725,11 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
                   packed=None, keep_xw=False):
     """The fused forward's states ``(h_all, c_all or None)`` on the route
     of :func:`_mma_route`; ``keep_xw`` → ``(h_all, c_all, xw)``, xw the
-    3xTF32 route's scratch at the padded width, which its backward reuses
-    (None elsewhere). ``packed``: the bf16 tensor cores' weights at the
-    padded width, W_x and W_h in fragment order (:func:`pack_fragments`)
-    or, above 128, W_h packed per CTA (:func:`pack_cluster`)."""
+    3xTF32 or cluster route's f32 scratch at the padded width, which its
+    backward reuses (None elsewhere). ``packed``: the bf16 tensor cores'
+    weights at the padded width, W_x and W_h in fragment order
+    (:func:`pack_fragments`) or, above 128, W_h packed per CTA
+    (:func:`pack_cluster`)."""
     stacked = hin.dim() == 4
     if hin.device.type == "cpu":
         if stacked:
@@ -1496,11 +1746,14 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
         if route != "simt":
             kw = (dict(keep_xw=keep_xw) if route == "tf32"
                   else dict(packed=packed))
+            if route == "cluster":
+                kw.update(keep_xw=keep_xw)
             out = padded_launch(_tensor_core_launcher(route, "fused_fwd"),
                                 "fused_fwd")(cell, hin, wx, b, wh, m,
                                              forget_bias, save_c, **kw)
-            # The 3xTF32 launch hands back its xw scratch itself.
-            return out if route == "tf32" or not keep_xw else (*out, None)
+            # The 3xTF32 and cluster launches hand back their xw scratch.
+            return (out if route in ("tf32", "cluster") or not keep_xw
+                    else (*out, None))
         out = _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias,
                           save_c)
     return (*out, None) if keep_xw else out
@@ -1535,8 +1788,9 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     ``(dhin in hin.dtype, dW_x, db, dW_h in f32)``. ``dh`` is the upstream
     gradient of ``h_all``, in ``hin.dtype``. ``wxp``: ``pack_fragments
     (wx)`` when the forward built it (the tensor-core route reuses it).
-    ``xw``: the 3xTF32 forward's xw scratch (:func:`_fused_states`), which
-    the 3xTF32 backward takes, and overwrites, in place of its own xw GEMM.
+    ``xw``: the 3xTF32 or cluster forward's f32 xw scratch
+    (:func:`_fused_states`), which the backward on the same route takes,
+    and overwrites with d_xw, in place of its own xw GEMM.
     Both are at the padded width (:func:`padded_launch`). Seed-stacked
     operands give every gradient per seed, ``[S, ...]``."""
     if hin.dim() == 4:
@@ -1621,6 +1875,12 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
 
 
 class _FusedScan(torch.autograd.Function):
+    """The fused recurrence, one node for every seed of a seed-stacked
+    call. On the 3xTF32 and cluster routes the forward's f32 xw scratch
+    ``[S, B, T, G Hp]`` stays alive from the forward to the backward,
+    which takes it as its d_gates buffer (``RNNModel.row_state_bytes``
+    counts it); a second backward recomputes it."""
+
     @staticmethod
     def forward(ctx, cell, forget_bias, hin, wx, b, wh, m):
         # The bf16 tensor-core kernels read W_x and W_h in fragment order
@@ -1638,8 +1898,9 @@ class _FusedScan(torch.autograd.Function):
             C = _cluster_size(cell, Hp, torch.cuda.get_device_properties(
                 hin.device).shared_memory_per_block_optin)
             packed = pack_cluster(wh, C, width=Hp)
-        # The 3xTF32 route's xw scratch becomes the backward's d_gates
-        # buffer (its xw GEMM skipped); a second backward recomputes it.
+        # The 3xTF32 and cluster routes' xw scratch becomes the backward's
+        # d_gates buffer (its xw GEMM skipped); a second backward
+        # recomputes it.
         h, c, ctx.xw = _fused_states(cell, hin, wx, b, wh, m, forget_bias,
                                      True, packed, keep_xw=True)
         ctx.cell, ctx.forget_bias = cell, forget_bias

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""The bfloat16 forward above hidden 128 (``csrc/rnn_fwd_cluster.cu``) at
-every cluster size and rows per cluster it takes, on the card.
+"""The bfloat16 forward and backward above hidden 128
+(``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd_cluster.cu``) at every
+cluster size and rows per cluster they take, on the card.
 
     python3 scripts/torch_cluster_variants.py [--widths 256 320 512]
-        [--batch 2048] [--steps 60] [--reps 5] [--out FILE]
+        [--batch 2048] [--steps 60] [--reps 5] [--direction fwd|bwd|both]
+        [--out FILE]
 
 For rows 3 (fused: the bf16 GEMM into the f32 xw scratch, then the
 cluster recurrence) and 1 (hoisted: the recurrence on a bf16 xw), LSTM
@@ -19,6 +21,29 @@ neither. The picked pair is marked. Prints the card's name and power
 limit, then one JSON line per case, also written to ``--out`` (default
 ``build/cluster_variants.jsonl``). Needs a CUDA card and ``nvcc``;
 imports nothing of JAX.
+
+``--direction bwd`` (or ``both``) does the same for rows 4 (fused: the
+xw GEMM, the cluster recurrence, the weight gradients and dhin) and 2
+(hoisted: the recurrence and dW_h) on the states of the plain forward
+and an upstream gradient from the same seed, over the pairs
+``_cluster_bwd_takes`` allows (the picked pair ``_cluster_bwd_size``,
+``_cluster_bwd_rows``). A backward's bits depend on the rows per cluster
+only where the cluster size is the same (its reduce-scatter adds C
+partials), so ``bitwise_as_picked`` is given for the picked size's pairs
+and null for the others. For the picked pair it also profiles two calls
+(``torch.profiler``, CUDA activity) and gives each kernel's device ms a
+call (``kernels_ms``): where a backward's time goes.
+
+``--diag base,diag_no_recompute,..`` (with ``--direction bwd``) also
+builds variants of ``csrc/rnn_bwd_cluster.cu`` made by named text
+substitutions (:data:`BWD_DIAG`; ``a+b`` applies both), each with
+``csrc/window_gather.cu`` (the error strings) into its own library under
+``build/cluster_variants/`` (one ``nvcc`` each, all started together),
+and times each at the picked pair, rows 4 and 2 (the recurrence's device
+ms from the profiler, ``recur_ms``): ``diag_*`` variants remove a part of
+each step's work and give wrong numbers on purpose, to show what that
+part costs. ``file:PATH`` builds another version of the source as it is
+(an earlier commit's, from ``git show``), to time the two in one call.
 """
 
 from __future__ import annotations
@@ -30,7 +55,39 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "lfm_quant_tpu_torch", "csrc")
 GATES = {"lstm": 4, "gru": 3}
+_STORE = ("            *reinterpret_cast<float2*>(dst + r * LR + lu) = "
+          "make_float2(\n"
+          "                pacc[s][rt][2 * half], pacc[s][rt][2 * half + 1]);")
+# The stored values kept alive without the stores (an empty asm that
+# reads them), so the carry's products are not dropped with them.
+_SINK = ("            (void)dst;\n"
+         "            asm volatile(\"\" ::\"f\"(pacc[s][rt][2 * half]),\n"
+         "                         \"f\"(pacc[s][rt][2 * half + 1]));")
+#: Named text substitutions of ``csrc/rnn_bwd_cluster.cu`` (``--diag``):
+#: the recompute's and the carry product's mma; the reduce-scatter's
+#: distributed-shared-memory stores; those stores and the step's two
+#: cluster barriers (the first and last barrier stay: no CTA leaves while
+#: a peer runs); the cell's device-memory outputs.
+BWD_DIAG = {
+    "base": [],
+    "diag_no_recompute": [(
+        "mma_bf16(acc[rt][CELL == kGru && q == 2 ? 3 : q], a, bh[q]);",
+        "(void)bh;")],
+    "diag_no_partial": [("mma_bf16(pacc[s][rt], a[rt][p], bk);",
+                         "(void)bk;")],
+    "diag_no_exchange": [(_STORE, _SINK)],
+    "diag_no_sync": [
+        (_STORE, _SINK),
+        ("      if (pass == 0) cluster_wait();", ""),
+        ("    cluster_arrive();\n    // While the partials",
+         "    // While the partials"),
+        ("    cluster_wait();  // every rank's", "    //"),
+        ("    cluster_arrive();  // this CTA's buffer is read", "")],
+    "diag_no_outputs": [("          if (r < nr) {",
+                         "          if (r < 0) {")],
+}
 
 
 def main() -> int:
@@ -39,6 +96,10 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--direction", choices=("fwd", "bwd", "both"),
+                    default="fwd")
+    ap.add_argument("--diag", default="",
+                    help="variants of the backward source, comma-separated")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "cluster_variants.jsonl"))
     args = ap.parse_args()
@@ -50,6 +111,7 @@ def main() -> int:
         return 1
     from lfm_quant_tpu_torch.ops import rnn as R
 
+    diag = build_diag(args.diag.split(",")) if args.diag else {}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -74,6 +136,18 @@ def main() -> int:
                 b = (0.1 * torch.randn(G, **rnd)).to(bf)
                 m = torch.rand(B, T, **rnd) < 0.75
                 xw = (hin.float() @ wx.float() + b.float()).to(bf)
+                if args.direction != "fwd":
+                    dh = (0.1 * torch.randn(B, T, H, **rnd)).to(bf)
+                    bwd_cases(torch, R, out, card, cell, hin, wx, b, wh, m,
+                              xw, dh, limit, sms, args.reps)
+                    if diag:
+                        diag_cases(torch, R, out, card, diag, cell, hin, wx,
+                                   b, wh, m, xw, dh, limit, sms, args.reps)
+                    del dh
+                if args.direction == "bwd":
+                    del hin, wx, wh, b, m, xw
+                    torch.cuda.empty_cache()
+                    continue
                 pick_c = R._cluster_size(cell, H, limit)
                 pick_rows = R._cluster_rows(cell, H, pick_c, B, 1, limit,
                                             sms)
@@ -124,6 +198,180 @@ def main() -> int:
                 del hin, wx, wh, b, m, xw
                 torch.cuda.empty_cache()
     return 0
+
+
+def build_diag(names) -> dict:
+    """The ``--diag`` variants, each built into a library → {name: CDLL}
+    with the backward's entry points typed."""
+    import ctypes
+
+    out_dir = os.path.join(ROOT, "build", "cluster_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    src = open(os.path.join(CSRC, "rnn_bwd_cluster.cu")).read()
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    procs = {}
+    for name in names:
+        if name.startswith("file:"):
+            # Another version of the source, as it is.
+            text = open(name[5:]).read()
+            name = os.path.basename(name[5:]).replace(".", "_")
+        else:
+            text = src
+            for part in name.split("+"):
+                for old, new in BWD_DIAG[part]:
+                    if text.count(old) != 1:
+                        raise SystemExit(f"{part}: {old!r} is not in the "
+                                         f"source once")
+                    text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC", "-shared", f"-I{CSRC}", cu,
+             os.path.join(CSRC, "window_gather.cu"), "-o",
+             os.path.join(out_dir, f"{name}.so")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    vp, ci, cf, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+        lib.lfm_rnn_bwd_cluster.argtypes = ([ci, ci] + [vp] * 12 + [ci, vp]
+                                            + [ci] * 7 + [cll] * 5 + [cf, vp])
+        lib.lfm_rnn_bwd_cluster.restype = ci
+        lib.lfm_cuda_error_string.argtypes = [ci]
+        lib.lfm_cuda_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def diag_cases(torch, R, out, card, libs, cell, hin, wx, b, wh, m, xw, dh,
+               limit, sms, reps):
+    """Rows 4 and 2 at the picked pair on each ``--diag`` variant's
+    library (the wrapper's own arguments, its library swapped)."""
+    B, T, H = hin.shape
+    bf = torch.bfloat16
+    C = R._cluster_bwd_size(cell, H, limit)
+    rows = R._cluster_bwd_rows(cell, H, C, B, 1, limit, sms)
+    real = R._build.library
+    for fused in (True, False):
+        src = hin.float() @ wx.float() + b.float() if fused else xw
+        h, c = R.rnn_scan_states(cell, src, wh, m, 1.0, True)
+        h, c = h.to(bf), None if c is None else c.to(bf)
+        ops = (hin, wx, b) if fused else (xw, None, None)
+
+        def run():
+            return R._launch_bwd_cluster(cell, fused, *ops, wh, m, h, c, dh,
+                                         1.0, cluster=C, rows=rows)
+
+        R._cluster_bwd_check(cell, fused, H, C, rows, hin.device)
+        for name, lib in libs.items():
+            R._build.library = lambda lib=lib: lib
+            try:
+                ks = kernels_ms(torch, run)
+                rec = dict(
+                    card=card, cell=cell, variant=name,
+                    form="fused_bwd" if fused else "bwd", shape=[B, T, H],
+                    cluster=C, rows=rows, ms=mean_ms(torch, run, reps),
+                    recur_ms=sum(v for k, v in ks.items()
+                                 if "rnn_bwd_cluster_kernel" in k))
+            finally:
+                R._build.library = real
+            print(json.dumps(rec), flush=True)
+            out.write(json.dumps(rec) + "\n")
+        del h, c
+        torch.cuda.empty_cache()
+
+
+def mean_ms(torch, fn, reps: int) -> float:
+    """Mean ms of ``reps`` back-to-back calls between CUDA events, after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def kernels_ms(torch, fn, calls: int = 2) -> dict:
+    """Device ms a call of each CUDA kernel ``fn`` launches, by name, from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us > 0:
+            out[ev.key[:80]] = us / 1e3 / calls
+    return out
+
+
+def bwd_cases(torch, R, out, card, cell, hin, wx, b, wh, m, xw, dh, limit,
+              sms, reps):
+    """Rows 4 and 2 at every (cluster size, rows) pair the backward takes
+    (the module docstring)."""
+    B, T, H = hin.shape
+    dev = hin.device
+    bf = torch.bfloat16
+    pick_c = R._cluster_bwd_size(cell, H, limit)
+    pick_rows = R._cluster_bwd_rows(cell, H, pick_c, B, 1, limit, sms)
+    for fused in (True, False):
+        src = hin.float() @ wx.float() + b.float() if fused else xw
+        h, c = R.rnn_scan_states(cell, src, wh, m, 1.0, True)
+        h, c = h.to(bf), None if c is None else c.to(bf)
+        del src
+        ops = (hin, wx, b) if fused else (xw, None, None)
+
+        def run(C, rows):
+            return R._launch_bwd_cluster(cell, fused, *ops, wh, m, h, c, dh,
+                                         1.0, cluster=C, rows=rows)
+
+        want = run(pick_c, pick_rows)
+        for C in R.CLUSTER_SIZES:
+            for rows in R.CLUSTER_ROWS:
+                if not (R._cluster_bwd_takes(H, C, rows)
+                        and R._cluster_bwd_smem(cell, H, C, rows) <= limit):
+                    continue
+                clusters = R._cluster_bwd_check(cell, fused, H, C, rows,
+                                                dev)
+                got = run(C, rows)
+                same = (all(torch.equal(g, w) for g, w in zip(got, want))
+                        if C == pick_c else None)
+                del got
+                picked = (C, rows) == (pick_c, pick_rows)
+                rec = dict(
+                    card=card, cell=cell,
+                    form="fused_bwd" if fused else "bwd", shape=[B, T, H],
+                    cluster=C, rows=rows, warps=R._cluster_warps(H, C),
+                    smem=R._cluster_bwd_smem(cell, H, C, rows),
+                    clusters_at_once=clusters,
+                    ms=mean_ms(torch, lambda: run(C, rows), reps),
+                    picked=picked, bitwise_as_picked=same)
+                if picked:
+                    rec["kernels_ms"] = kernels_ms(
+                        torch, lambda: run(C, rows))
+                print(json.dumps(rec), flush=True)
+                out.write(json.dumps(rec) + "\n")
+        del want, h, c
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

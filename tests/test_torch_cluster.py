@@ -73,7 +73,7 @@ def test_cluster_size_is_the_fewest_ctas_that_fit(cell, H):
     kernel takes is over the limit."""
     Hp = R._padded_width(H)
     assert R._mma_route(torch.bfloat16, H) == "cluster"
-    assert R._mma_route(torch.bfloat16, H, "bwd") == "simt"
+    assert R._mma_route(torch.bfloat16, H, "bwd") == "cluster"
     assert R._mma_route(torch.float32, H) == "simt"
     C = R._cluster_size(cell, Hp, H100_SMEM)
     assert C == WANT_C[cell, H]

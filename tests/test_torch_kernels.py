@@ -440,10 +440,11 @@ def test_cuda_core_kernels_at_every_width(cuda, cell, dtype, H):
     blocks' shared memory (the fused LSTM backward took at most H 227,
     the fused forward 302), fused and hoisted, forward and backward,
     against their plain versions: each launch takes the most rows per
-    block that fit (``_simt_rows``), counted once. The forwards are
-    launched directly (``_launch_fwd``): they are the float32 route and
-    the bf16 route past the cluster kernel's widths, while the bf16
-    forwards at these widths route to ``rnn_fwd_cluster.cu``."""
+    block that fit (``_simt_rows``), counted once. Every kernel is
+    launched directly (``_launch_fwd``, ``_launch_bwd``): they are the
+    float32 route and the bf16 route past the cluster kernels' widths,
+    while bf16 at these widths routes to ``rnn_fwd_cluster.cu`` and
+    ``rnn_bwd_cluster.cu``."""
     B, T = 37, 5
     hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, H, dtype, cuda)
     xw = (hin.float() @ wx.float() + b.float()).to(dtype)
@@ -467,12 +468,12 @@ def test_cuda_core_kernels_at_every_width(cuda, cell, dtype, H):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), **TOL[dtype])
     h, c = (t if t is None else t.to(dtype) for t in want_f)
-    got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+    got = R._launch_bwd(cell, True, hin, wx, b, wh, m, h, c, dh, 1.0)
     want = rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h, c, dh)
     for g, w in zip(got, want):
         _scaled_close(g, w, dtype)
     h, c = (t if t is None else t.to(dtype) for t in want_x)
-    got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
+    got = R._launch_bwd(cell, False, xw, None, None, wh, m, h, c, dh, 1.0)
     want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
     for g, w in zip(got, want):
         _scaled_close(g, w, dtype)
@@ -603,9 +604,10 @@ def test_cluster_rows_and_size_do_not_change_bits(cuda, cell, hoisted):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_cluster_autograd_matches_plain(cuda, cell):
     """Through the autograd Function at H 200 (Hp 208): W_h packed once
-    per call at the padded width for the cluster forward, whose states the
-    CUDA-core backward takes as they are; one launch each way, the output
-    and gradients against autograd of the plain version on the CPU."""
+    per call at the padded width for the cluster forward, whose states and
+    f32 xw scratch the cluster backward takes; one launch each way, the
+    output and gradients against autograd of the plain version on the
+    CPU."""
     B, T, H = 37, 5, 200
     hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 33, torch.bfloat16,
                                          "cpu")
@@ -620,7 +622,8 @@ def test_cluster_autograd_matches_plain(cuda, cell):
         grads.append([t.grad for t in leaves])
     counts = _build.launch_counts()
     assert counts[f"rnn_fused_fwd_cluster_{cell}"] == 1, counts
-    assert counts[f"rnn_fused_bwd_{cell}"] == 1, counts
+    assert counts[f"rnn_fused_bwd_cluster_{cell}"] == 1, counts
+    assert sum(counts.values()) == 2, counts
     np.testing.assert_allclose(outs[1].float().cpu().numpy(),
                                outs[0].float().numpy(), **TOL[torch.bfloat16])
     for g_card, g_cpu in zip(grads[1], grads[0]):
@@ -645,16 +648,184 @@ def test_cluster_launch_refused_raises(cuda):
                               cluster=2, rows=16)
 
 
+def _cluster_bwd_args(cell, B, T, H, seed, device, hoisted, S=None):
+    """The backward's operands at a cluster width, bf16: the states of the
+    plain forward and an upstream gradient; hoisted, xw in place of hin
+    (``wx``, ``b`` None)."""
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, seed, torch.bfloat16,
+                                         device, S=S)
+    if S is None:
+        m[0] = False  # an all-invalid row
+    mw = m if S is None else m[0]
+    if S is not None:
+        m = m[:1].contiguous()  # m shared by every seed
+    bc = (lambda t: t) if S is None else (lambda t: t[:, None, None])
+    xw32 = hin.float() @ (wx.float() if S is None else wx.float()[:, None])
+    xw32 = xw32 + bc(b.float())
+    states = [rnn_scan_states(cell, xw32[s] if S else xw32, wh[s] if S else
+                              wh, mw, 1.0, True) for s in range(S or 1)]
+    h = torch.stack([st[0] for st in states])
+    c = None if cell == "gru" else torch.stack([st[1] for st in states])
+    if S is None:
+        h, c = h[0], None if c is None else c[0]
+    h, c = h.to(torch.bfloat16), None if c is None else c.to(torch.bfloat16)
+    if hoisted:
+        return (xw32.to(torch.bfloat16), None, None, wh, m, h, c, dh)
+    return (hin, wx, b, wh, m, h, c, dh)
+
+
+def _cluster_bwd(cell, hoisted, args, **kw):
+    return R._launch_bwd_cluster(cell, not hoisted, *args, 1.0, **kw)
+
+
+def _cluster_bwd_plain(cell, hoisted, args):
+    if hoisted:
+        xw, _, _, wh, m, h, c, dh = args
+        return rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+    return rnn_scan_fused_bwd_reference(cell, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", CLUSTER_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cluster_bwd_matches_plain(cuda, cell, H, hoisted):
+    """Rows 4 and 2 in bf16 above 128 on ``csrc/rnn_bwd_cluster.cu`` (W_h
+    split across a cluster, the carry's product reduce-scattered through
+    distributed shared memory), through the public backward, against the
+    plain versions at the scaled bf16 bound: one counted call, no
+    CUDA-core backward, dhin/dxw in bf16 and the weight gradients in f32,
+    an all-invalid row's dhin/dxw exactly zero. The fused form handed the
+    cluster forward's xw scratch gives bitwise the call that recomputes
+    it."""
+    B, T = 37, 5
+    args = _cluster_bwd_args(cell, B, T, H, H + 1, cuda, hoisted)
+    _build.reset_launch_counts()
+    if hoisted:
+        xw, _, _, wh, m, h, c, dh = args
+        got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
+    else:
+        got = rnn_scan_fused_bwd(cell, *args)
+    counts = _build.launch_counts()
+    name = f"rnn_{'' if hoisted else 'fused_'}bwd_cluster_{cell}"
+    assert counts[name] == 1 and sum(counts.values()) == 1, counts
+    want = _cluster_bwd_plain(cell, hoisted, args)
+    assert got[0].dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        _scaled_close(g, w, torch.bfloat16)
+    assert not got[0][0].any()
+    if hoisted:
+        return
+    hin, wx, b, wh, m, _, _, dh = args
+    h, c, xw = R._fused_states(cell, hin, wx, b, wh, m, 1.0, True,
+                               keep_xw=True)
+    assert xw is not None and xw.dtype == torch.float32
+    again = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+    reused = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh, xw=xw)
+    for a, z in zip(again, reused):
+        assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cluster_bwd_seed_grid_bitwise_equals_single_seed_launches(
+        cuda, cell, hoisted):
+    """The seed rules (``_bwd_vmap`` :952, ``_make_scan._bwd_vmap`` :541)
+    on the cluster backward: S 3 seeds with m shared in one counted call,
+    each seed's outputs bitwise its one-seed call's."""
+    S, B, T, H = 3, 37, 5, 256
+    args = _cluster_bwd_args(cell, B, T, H, 23, cuda, hoisted, S=S)
+    _build.reset_launch_counts()
+    got = _cluster_bwd(cell, hoisted, args)
+    name = f"rnn_{'' if hoisted else 'fused_'}bwd_cluster_{cell}"
+    assert _build.launch_counts()[name] == 1
+    for s in range(S):
+        one = _cluster_bwd(cell, hoisted, [
+            None if t is None else t[s if t.shape[0] == S else 0]
+            for t in args])
+        for g, o in zip(got, one):
+            assert torch.equal(g[s], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell,H", [("lstm", 240), ("gru", 256),
+                                    ("gru", 336)])
+def test_cluster_bwd_rows_and_repeats_do_not_change_bits(cuda, cell, H,
+                                                         hoisted):
+    """A row's sums do not depend on the rows per cluster: 16 and 32 rows
+    (both fit at these widths) give the same bits; and a launch repeated
+    gives the same bits (the reduce-scatter adds in rank order, the weight
+    gradients' slices in a fixed order, no atomics)."""
+    B, T = 70, 4
+    args = _cluster_bwd_args(cell, B, T, H, 9, cuda, hoisted)
+    C = R._cluster_bwd_size(cell, H, torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin)
+    assert R._cluster_bwd_takes(H, C, 32)
+    runs = [_cluster_bwd(cell, hoisted, args, cluster=C, rows=rows)
+            for rows in (16, 32, 16)]
+    for run in runs[1:]:
+        for a, z in zip(runs[0], run):
+            assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cluster_bwd_through_autograd(cuda, cell, hoisted):
+    """``_FusedScan`` and ``_Scan`` at H 320: one cluster launch each way
+    (the fused backward on the forward's xw scratch), the output and
+    gradients against autograd of the plain version on the CPU."""
+    B, T, H = 37, 5, 320
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 41, torch.bfloat16,
+                                         "cpu")
+    xw = (hin.float() @ wx.float() + b.float()).to(torch.bfloat16)
+    ops = (xw, wh) if hoisted else (hin, wx, b, wh)
+    fn = rnn_scan if hoisted else rnn_scan_fused
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dev).requires_grad_(True) for t in ops]
+        _build.reset_launch_counts()
+        out = fn(cell, *leaves, m.to(dev))
+        out.float().mul(dh.to(dev).float()).sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    counts = _build.launch_counts()
+    form = "" if hoisted else "fused_"
+    assert counts[f"rnn_{form}fwd_cluster_{cell}"] == 1, counts
+    assert counts[f"rnn_{form}bwd_cluster_{cell}"] == 1, counts
+    assert sum(counts.values()) == 2, counts
+    np.testing.assert_allclose(outs[1].float().cpu().numpy(),
+                               outs[0].float().numpy(), **TOL[torch.bfloat16])
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        assert g_card.shape == g_cpu.shape
+        _scaled_close(g_card, g_cpu, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cluster_bwd_launch_refused_raises(cuda):
+    """No fallback: a cluster the backward or the card cannot take raises,
+    naming the width and the cluster size (LSTM H 512 on 8 CTAs: its share
+    is past the card's shared memory; on 2 CTAs: 32 warps a CTA)."""
+    args = _cluster_bwd_args("lstm", 5, 3, 512, 1, cuda, False)
+    with pytest.raises(ValueError, match="hidden=512 on a cluster of 8"):
+        _cluster_bwd("lstm", False, args, cluster=8, rows=16)
+    with pytest.raises(ValueError, match="hidden=512 with a cluster of 2"):
+        _cluster_bwd("lstm", False, args, cluster=2, rows=16)
+
+
 #: A hoisted route, its dtype and a width it serves (the CUDA cores take
 #: bf16 only past the cluster kernel's widths).
 HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
                   "simt": (torch.float32, 256), "simt_bf16": (
                       torch.bfloat16, 528),
                   "cluster": (torch.bfloat16, 256)}
-#: The launch counters' tag of each hoisted route, forward and backward
-#: (the cluster route's backward is the CUDA cores').
+#: The launch counters' tag of each hoisted route, forward and backward.
 FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_"}
-BWD_TAG = {"mma": "mma_", "tf32": "tf32_"}
+BWD_TAG = FWD_TAG
 
 
 @pytest.mark.cuda
@@ -892,13 +1063,16 @@ def test_tf32_fused_backward_takes_the_forward_xw(cuda, cell):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
     """Above 128 (H = 160: hidden 120 now runs zero-padded on the tensor
-    cores) both backwards stay on ``csrc/rnn_bwd.cu`` in both dtypes,
-    within the JAX bounds."""
+    cores) both backwards stay on ``csrc/rnn_bwd.cu`` in float32, and in
+    bf16 take the cluster backward (``csrc/rnn_bwd_cluster.cu``), within
+    the JAX bounds; neither takes the 3xTF32 kernels."""
     B, T, H = 37, 5, 160
     for hoisted in (False, True):
         hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, 7,
                                                       dtype, cuda, hoisted)
         tf32, simt = _tf32_names(cell, hoisted)
+        if dtype == torch.bfloat16:
+            simt = simt.replace(f"bwd_{cell}", f"bwd_cluster_{cell}")
         _build.reset_launch_counts()
         if hoisted:
             got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
@@ -909,6 +1083,7 @@ def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
                                                 c, dh)
         counts = _build.launch_counts()
         assert counts[simt] == 1 and counts[tf32] == 0
+        assert sum(counts.values()) == 1, counts
         for g, w in zip(got, want):
             _scaled_close(g, w, dtype)
 

@@ -44,15 +44,18 @@ def cuda():
     (torch.float32, 128, "tf32"),
     (torch.float32, 16, "tf32"),
     (torch.bfloat16, 40, "mma"),
-    (torch.bfloat16, 144, "simt"),
+    (torch.bfloat16, 144, "cluster"),
+    (torch.bfloat16, 528, "simt"),
+    (torch.float32, 144, "simt"),
     (torch.bfloat16, 8, "mma"),
 ])
 def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     """In bf16 the backward takes the forward's rule (it reuses the
     forward's packing of W_x); in float32 at the same widths it runs on
     the 3xTF32 kernels (``csrc/rnn_bwd_tf32.cu``); a width off a multiple
-    of 16 (40, 8) is padded to the next, and H > 128 stays on the CUDA
-    cores."""
+    of 16 (40, 8) is padded to the next. Above 128 bf16 runs on the
+    cluster backward (``csrc/rnn_bwd_cluster.cu``) up to 512, and float32
+    and bf16 past 512 stay on the CUDA cores."""
     assert R._mma_route(dtype, H, "bwd") == route
 
 
@@ -62,7 +65,9 @@ def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     (torch.bfloat16, 48, "mma"),
     (torch.bfloat16, 128, "mma"),
     (torch.bfloat16, 12, "mma"),
-    (torch.bfloat16, 136, "simt"),
+    (torch.bfloat16, 136, "cluster"),
+    (torch.bfloat16, 520, "simt"),
+    (torch.float32, 136, "simt"),
     (torch.float32, 128, "tf32"),
     (torch.float32, 16, "tf32"),
     (torch.float32, 120, "tf32"),
@@ -71,7 +76,8 @@ def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
                                                         dtype, H, route):
     """``rnn_scan_bwd`` on the card picks its kernels by ``_mma_route``
     alone, before any launch: the hoisted mode of the bf16 tensor-core
-    source, the 3xTF32 kernels in float32, or the CUDA-core hoisted kernel
+    source, the 3xTF32 kernels in float32, the cluster backward in bf16
+    above 128, or the CUDA-core hoisted kernel
     (shape-only tensors on the meta device stand for the card's; the
     launchers are recorded, not run, and the tensor-core ones hand back
     their padded xw and W_h as dxw and dW_h, which the padding slices
@@ -84,6 +90,9 @@ def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
     monkeypatch.setattr(R, "_launch_bwd_tf32", lambda c, fused, xw, wx, b,
                         wh, *a: calls.append("tf32" if not fused else
                                              "fused") or (xw, wh))
+    monkeypatch.setattr(R, "_launch_bwd_cluster", lambda c, fused, xw, wx,
+                        b, wh, *a: calls.append("cluster" if not fused else
+                                                "fused") or (xw, wh))
     monkeypatch.setattr(R, "_launch_bwd", lambda c, fused, *a:
                         calls.append("simt" if not fused else "fused"))
     B, T = 5, 3
@@ -513,12 +522,12 @@ def test_hoisted_autograd_routes_by_dtype(cuda, cell):
 
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_backward(cuda):
-    """Widths the tensor cores do not take (H > 128; every narrower one,
-    odd or not, is padded onto them) keep the CUDA-core backward in
-    float32 and in bf16."""
+    """Widths the tensor cores do not take keep the CUDA-core backward:
+    float32 above 128 and bf16 past the cluster kernel's 512 (every
+    narrower width, odd or not, is padded onto the tensor cores)."""
     _build.reset_launch_counts()
     for cell in ("lstm", "gru"):
-        for dtype, H in ((torch.float32, 136), (torch.bfloat16, 144)):
+        for dtype, H in ((torch.float32, 136), (torch.bfloat16, 520)):
             args = _bwd_inputs(cell, 5, 3, H, H, cuda, dtype)
             R.rnn_scan_fused_bwd(cell, *args)
     counts = _build.launch_counts()

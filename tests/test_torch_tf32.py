@@ -74,12 +74,11 @@ def test_route_table(direction, dtype, H):
     cores (a width off a multiple of 16, 8 and 120 here, zero-padded to
     the next: ``ops/rnn.py padded_launch``); there bf16 takes the bf16
     tensor cores both ways and float32 the 3xTF32 kernels both ways; H >
-    128 the CUDA cores, but for the bf16 forward, which runs on the
-    tensor cores with W_h split across a cluster."""
+    128 the CUDA cores, but for bf16, which runs on the tensor cores with
+    W_h split across a cluster both ways."""
     tc = H <= 128
     if not tc:
-        want = ("cluster" if direction == "fwd" and dtype == torch.bfloat16
-                else "simt")
+        want = "cluster" if dtype == torch.bfloat16 else "simt"
     elif dtype == torch.bfloat16:
         want = "mma"
     else:
