@@ -314,20 +314,24 @@ TRAIN_STEPS_SHORT = 4  # steps of the hoisted and GRU training runs
 HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
 # The widths of the float32 rows beside the c2 step's 128: one off a
 # multiple of 16, which runs zero-padded on the 3xTF32 kernels, and one
-# above 128, the CUDA-core kernels' route (their main-path witness).
+# above 128, where the forwards run on the CUDA cores and the backwards on
+# the 3xTF32 kernels on a cluster; and one past the 3xTF32 backward's 384,
+# whose training runs are the CUDA-core backward's (rnn_bwd.cu) main path.
 PADDED_HIDDEN = 120
 CUDA_CORE_HIDDEN = 160
+PAST_CAP_HIDDEN = 400
 # The device's sleep (clock cycles, about 10 ms) while the host queues the
 # launches that device_ms times.
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
-# kernels run on the main paths in float32 at hidden 160 (H > 128, where
-# the tensor cores do not reach) and are measured there (B 2048, T 60).
-# The 3xTF32 kernels (``*_tf32_*``) are measured in float32 at the c2
-# train step (the kernels line) and at hidden 120, zero-padded to 128
-# (logged records); the bf16 ones at the c2 train step and the serving
-# dispatches.
+# forwards run on the main paths in float32 at hidden 160 and 400, the
+# CUDA-core backwards at hidden 400 (past the 3xTF32 backward's 384), and
+# are measured there (B 2048, T 60; the kernels line keeps the largest
+# shape). The 3xTF32 kernels (``*_tf32_*``) are measured in float32 at the
+# c2 train step, at hidden 120, zero-padded to 128, and (the backwards, on
+# a cluster) at hidden 160-384 (phase 28); the bf16 ones at the c2 train
+# step and the serving dispatches.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -443,6 +447,10 @@ WF_FOLDS, WF_STEP, WF_VAL, WF_EPOCHS = 2, 12, 24, 1
 CUDA_CORE = ("rnn_fused_fwd_lstm", "rnn_fused_fwd_gru", "rnn_fused_bwd_lstm",
              "rnn_fused_bwd_gru", "rnn_fwd_lstm", "rnn_fwd_gru",
              "rnn_bwd_lstm", "rnn_bwd_gru")
+CUDA_CORE_BWD = tuple(k for k in CUDA_CORE if "_bwd_" in k)
+TF32 = tuple(f"rnn_{form}_tf32_{cell}" for form in ("fused_fwd", "fwd",
+                                                    "fused_bwd", "bwd")
+             for cell in ("lstm", "gru"))
 
 
 def fail(msg: str) -> None:
@@ -851,7 +859,7 @@ def cudnn_module(torch, cell: str, hin, wx, b, wh):
 
 
 def cudnn_bwd_yardstick(torch, cell: str, hin, wx, b, wh, dh,
-                        hoisted: bool = False) -> dict:
+                        hoisted: bool = False, tol: float = BF16_TOL) -> dict:
     """Rows 4 and 2's ``library_ms``: one ``torch.autograd.grad`` over a
     saved cuDNN forward (:func:`cudnn_module`, TF32 off, every step valid)
     with the row's upstream gradient ``dh`` — the same function only when
@@ -859,9 +867,9 @@ def cudnn_bwd_yardstick(torch, cell: str, hin, wx, b, wh, dh,
     dW_h; row 2 (``hoisted``: ``hin`` is xw, W_x the identity and b 0, as
     :func:`hoisted_yardstick`): dxw and dW_h, and cuDNN also computes
     dW_ih, a [G H, G H] product the row does not do. Held first to the
-    plain backward with m all ones at the scaled bf16 bound; the record
-    gives its error and says whether it differs or cuDNN refused. The
-    port never makes this call."""
+    plain backward with m all ones at the row's scaled bound ``tol`` (bf16
+    0.05, float32 1e-5); the record gives its error and says whether it
+    differs or cuDNN refused. The port never makes this call."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, _ = hin.shape
@@ -902,7 +910,7 @@ def cudnn_bwd_yardstick(torch, cell: str, hin, wx, b, wh, dh,
     note = ("cuDNN backward over a saved forward, every step valid" + (
         "; it also computes dW_ih, a [G H, G H] product row 2 does not do"
         if hoisted else "") + (
-        "" if err <= BF16_TOL else  # NaN too
+        "" if err <= tol else  # NaN too
         "; differs from the plain backward over the scaled tolerance"))
     rec = dict(library_ms=time_ms(grad, reps=3),
                library_scaled_err=err, library_note=note)
@@ -1221,10 +1229,10 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     kernels (:func:`f32_bwd_rows`); then the same four rows on the same
     rows of the batch at hidden :data:`PADDED_HIDDEN` (the first 120
     units: the 3xTF32 kernels zero-padded to 128, timed apart from their
-    pads and beside the CUDA-core kernels on the same inputs) and at
-    :data:`CUDA_CORE_HIDDEN` (``rnn_fused_fwd.cu`` and ``rnn_bwd.cu``, the
-    route above 128), seeded weights. Bounds at both f32 rates, of the
-    unpadded work."""
+    pads and beside the CUDA-core kernels on the same inputs), and rows 3
+    and 1 at :data:`CUDA_CORE_HIDDEN` (``rnn_fused_fwd.cu``, the forward's
+    route above 128; the backwards there are phase 28's), seeded weights.
+    Bounds at both f32 rates, of the unpadded work."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     f32 = torch.float32
@@ -1263,10 +1271,13 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
         with torch.no_grad():
             f32_fwd_rows(torch, kernels, where, cell, hin2, wx2, b2, wh2, mm,
                          xw2)
-            h2, c2 = R.rnn_scan_states(cell, xw2, wh2, mm, 1.0, True)
-        f32_bwd_rows(torch, kernels, where, cell, hin2, wx2, b2, wh2, mm, h2,
-                     c2, dh2, xw2)
-        del hin2, dh2, xw2, h2, c2
+        if H2 <= 128:
+            with torch.no_grad():
+                h2, c2 = R.rnn_scan_states(cell, xw2, wh2, mm, 1.0, True)
+            f32_bwd_rows(torch, kernels, where, cell, hin2, wx2, b2, wh2, mm,
+                         h2, c2, dh2, xw2)
+            del h2, c2
+        del hin2, dh2, xw2
     torch.cuda.empty_cache()
 
 
@@ -1487,26 +1498,37 @@ def f32_stack_memory(torch, hin, wx, b, wh, mm, dh) -> None:
 
 
 def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
-                 h, c, dh, xw) -> None:
+                 h, c, dh, xw, name_suffix: str = "",
+                 plain_reps: int = 3) -> None:
     """Rows 4 and 2 in float32 through the public backwards, on the route's
-    kernels at this H (``rnn_bwd_tf32.cu`` at H <= 128, zero-padded to the
-    next multiple of 16 where H is off one; ``rnn_bwd.cu`` above): each
-    launched once per call (counted), twice for bitwise equal outputs,
-    against its plain version at scaled atol 1e-5, timed beside both
-    bounds, the plain version and the ``library_ms`` yardstick — the
-    weight-gradient products (and, fused, dhin) as f32 ``torch.matmul``
-    with TF32 off, which the port never makes. On the 3xTF32 route
-    ``rnn_bwd.cu`` (its private launcher) is timed on the same inputs, and
-    a padded row's pads apart from its kernel (:func:`padded_times`)."""
+    kernels at this H (``rnn_bwd_tf32.cu`` up to Hp 384: at H <= 128 its
+    1- or 2-CTA form, zero-padded to the next multiple of 16 where H is
+    off one, above 128 W_h split over a cluster of 2-16 CTAs;
+    ``rnn_bwd.cu`` past 384): each launched once per call (counted), twice
+    for bitwise equal outputs, against its plain version at scaled atol
+    1e-5, timed beside both bounds, the plain version and the
+    ``library_ms`` yardstick — at H <= 128 the weight-gradient products
+    (and, fused, dhin) as f32 ``torch.matmul`` with TF32 off; above 128
+    cuDNN's f32 backward over a saved forward (every step valid,
+    :func:`cudnn_bwd_yardstick`), the products kept as ``products_ms``.
+    The port makes neither. On the 3xTF32 route ``rnn_bwd.cu`` (its
+    private launcher) is held to the plain version and timed on the same
+    inputs, and above 128 also recorded under its own name (the table's
+    "[before]"); a cluster's size, rows and clusters at once are kept, and
+    a padded row's pads timed apart (:func:`padded_times`). Records carry
+    ``name_suffix``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
+    dev = hin.device
     route = R._mma_route(torch.float32, H, "bwd")
     tag = "tf32_" if route == "tf32" else ""
+    wide = H > 128
     torch.backends.cuda.matmul.allow_tf32 = False
     for kind, fused in (("fused_bwd", True), ("bwd", False)):
         name = f"rnn_{'fused_' if fused else ''}bwd_{tag}{cell}"
+        core_name = f"rnn_{'fused_' if fused else ''}bwd_{cell}"
         if fused:
             args = (cell, hin, wx, b, wh, mm, h, c, dh)
             public, plain = R.rnn_scan_fused_bwd, R.rnn_scan_fused_bwd_reference
@@ -1529,47 +1551,89 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
         err = grads_close(f"{name} (float32) at {where}", one, want,
                           torch.float32)
         wgrad_err = max(scaled_err(g, w) for g, w in zip(one[1:], want[1:]))
-        del one, two, want
+        del one, two
+
+        def core(a=simt_args, f=fused):
+            return R._launch_bwd(cell, f, *a, 1.0)
+
+        core_err = None
+        if route == "tf32":
+            _build.reset_launch_counts()
+            got = core()
+            if _build.launch_counts()[core_name] != 1:
+                fail(f"{core_name} (float32) at {where}: launched "
+                     f"{_build.launch_counts()}")
+            core_err = grads_close(f"{core_name} (float32) at {where}", got,
+                                   want, torch.float32)
+            del got
+        del want
         d_xw, d_hw, h_prev = R._scan_bwd_core(cell, xw, wh, mm, h, c, dh,
                                               1.0)
         a_h, d_h = h_prev.reshape(-1, H), d_hw.reshape(B * T, -1)
         if fused:
             a_x, d_x = hin.reshape(-1, H), d_xw.reshape(B * T, -1)
-            library_ms = time_ms(lambda: (torch.matmul(a_x.T, d_x),
-                                          torch.matmul(a_h.T, d_h),
-                                          torch.matmul(d_x, wx.T)))
+            products_ms = time_ms(lambda: (torch.matmul(a_x.T, d_x),
+                                           torch.matmul(a_h.T, d_h),
+                                           torch.matmul(d_x, wx.T)))
             del a_x, d_x
         else:
-            library_ms = time_ms(lambda: torch.matmul(a_h.T, d_h))
+            products_ms = time_ms(lambda: torch.matmul(a_h.T, d_h))
         del d_xw, d_hw, h_prev, a_h, d_h
+        if wide:
+            library = cudnn_bwd_yardstick(torch, cell, hin if fused else xw,
+                                          wx, b, wh, dh, hoisted=not fused,
+                                          tol=F32_TOL)
+            library["products_ms"] = products_ms
+            torch.cuda.empty_cache()
+        else:
+            library = dict(library_ms=products_ms)
 
         def run(a=args, f=public):
             return f(*a)
 
-        rec = dict(shape=[B, T, H], dtype="float32", max_abs_err=err,
-                   wgrad_scaled_err=wgrad_err, bitwise_repeatable=True,
-                   tolerance=f"scaled atol {F32_TOL}",
-                   **kernel_ms(run, reps=5, launches=2),
-                   plain_ms=time_ms(lambda a=args: plain(*a), reps=3,
-                                    warmup=1),
-                   **f32_bounds(kind, cell, B, T, H), library_ms=library_ms)
+        common = dict(shape=[B, T, H], dtype="float32",
+                      tolerance=f"scaled atol {F32_TOL}",
+                      plain_ms=time_ms(lambda a=args: plain(*a),
+                                       reps=plain_reps, warmup=1),
+                      **f32_bounds(kind, cell, B, T, H), **library)
+        rec = dict(max_abs_err=err, wgrad_scaled_err=wgrad_err,
+                   bitwise_repeatable=True, **kernel_ms(run, reps=5,
+                                                        launches=2),
+                   **common)
         if route == "tf32":
-            cc = kernel_ms(lambda a=simt_args, f=fused: R._launch_bwd(
-                cell, f, *a, 1.0), reps=5, launches=2)
+            cc = kernel_ms(core, reps=2 if wide else 5, launches=2)
             rec.update(cuda_core_ms=cc["ms"],
-                       cuda_core_device_ms=cc["device_ms"])
+                       cuda_core_device_ms=cc["device_ms"],
+                       cuda_core_max_abs_err=core_err)
+            if wide:
+                props = torch.cuda.get_device_properties(dev)
+                limit = props.shared_memory_per_block_optin
+                C = R._tf32_cluster(cell, H, limit)
+                rows = R._tf32_rows(cell, H, C, B, 1, limit,
+                                    props.multi_processor_count)
+                rec.update(cluster=C, rows_per_cluster=rows,
+                           clusters_at_once=R._tf32_bwd_check(cell, H, C,
+                                                              rows, dev))
+                report(kernels, core_name + name_suffix, where, dict(
+                    max_abs_err=core_err,
+                    rows_per_block=R._simt_rows(cell, kind, H, dev), **cc,
+                    **common))
         if R._padded_width(H) != H:
             rec.update(padded_times(torch, kind, cell, args[1:], (1.0,),
                                     run))
-        report(kernels, name, where, rec)
-        log(f"{name} (float32) at {where}: {rec['ms']:.4f} ms (device "
-            f"{rec['device_ms']:.4f}"
+        report(kernels, name + name_suffix, where, rec)
+        log(f"{name} (float32) at {where}: "
+            + (f"{rec['cluster']} CTAs x {rec['rows_per_cluster']} rows a "
+               f"cluster, {rec['clusters_at_once']} at once, "
+               if "cluster" in rec else "")
+            + f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}"
             + (f", pads {rec['pad_ms']:.4f}" if "pad_ms" in rec else "")
             + "), rnn_bwd.cu "
             f"{rec.get('cuda_core_ms', rec['ms']):.4f}, bound "
             f"{rec['bound_ms']:.4f} (3xTF32) / "
-            f"{rec['bound_f32_simt_ms']:.4f} (CUDA cores), library "
-            f"{library_ms:.4f} ms")
+            f"{rec['bound_f32_simt_ms']:.4f} (CUDA cores), plain "
+            f"{rec['plain_ms']:.4f}, library {rec['library_ms']} "
+            f"({rec.get('library_note', 'products')})")
         torch.cuda.empty_cache()
 
 
@@ -1828,11 +1892,13 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     # The hoisted form (forward and backward on the tensor cores in bf16),
     # the GRU at c2's geometry, both cells and both forms in float32 (the
     # 3xTF32 forwards and backwards), the same at hidden 120 (the 3xTF32
-    # kernels zero-padded to 128): no CUDA-core kernel in any; and the
-    # float32 four at hidden 160 (the CUDA-core forwards and backwards): a
-    # few steps each.
+    # kernels zero-padded to 128): no CUDA-core kernel in any; the float32
+    # four at hidden 160 (the CUDA-core forwards, the 3xTF32 backwards on
+    # a cluster: no CUDA-core backward) and at hidden 400 (past the 3xTF32
+    # backward: the CUDA-core forwards and backwards): a few steps each.
     h120 = dict(cfg.model.kwargs, hidden=PADDED_HIDDEN)
     h160 = dict(cfg.model.kwargs, hidden=CUDA_CORE_HIDDEN)
+    h400 = dict(cfg.model.kwargs, hidden=PAST_CAP_HIDDEN)
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
              ("rnn_fwd_mma_lstm", "rnn_bwd_mma_lstm", "window_gather"),
              CUDA_CORE),
@@ -1877,19 +1943,36 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
              CUDA_CORE),
             ("c2 training (fused, float32, hidden 160)",
              train_variant(cfg, bf16=False, kwargs=h160),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
-             ()),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_tf32_lstm",
+              "window_gather"), CUDA_CORE_BWD),
             ("c2 training (hoisted, float32, hidden 160)",
              train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h160),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), ()),
+             ("rnn_fwd_lstm", "rnn_bwd_tf32_lstm", "window_gather"),
+             CUDA_CORE_BWD),
             ("GRU training (fused, float32, hidden 160)",
              train_variant(cfg, kind="gru", bf16=False, kwargs=h160),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
-             ()),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_tf32_gru",
+              "window_gather"), CUDA_CORE_BWD),
             ("GRU training (hoisted, float32, hidden 160)",
              train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
                            kwargs=h160),
-             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather"), ()))
+             ("rnn_fwd_gru", "rnn_bwd_tf32_gru", "window_gather"),
+             CUDA_CORE_BWD),
+            ("c2 training (fused, float32, hidden 400)",
+             train_variant(cfg, bf16=False, kwargs=h400),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
+             TF32),
+            ("c2 training (hoisted, float32, hidden 400)",
+             train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h400),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), TF32),
+            ("GRU training (fused, float32, hidden 400)",
+             train_variant(cfg, kind="gru", bf16=False, kwargs=h400),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
+             TF32),
+            ("GRU training (hoisted, float32, hidden 400)",
+             train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
+                           kwargs=h400),
+             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather"), TF32))
     for label, run_cfg, must, must_not in runs:
         got, counts = counted(label, must, lambda: short_run(
             torch, run_cfg, splits, TRAIN_STEPS_SHORT), must_not)
@@ -6091,7 +6174,13 @@ def stacked_phase(torch, cfg2, panel, totals: dict, seed_launches: dict,
 
 WIDE_HIDDEN = 256         # phase 28's model: c2 at a width past the caps
 WIDE_WIDTHS = (320, 512)  # rows 1-4 held at these widths too
-GRID_F32_HIDDEN = 160     # the CUDA-core forward's seed grid's main path
+# Rows 4 and 2 in float32 above 128: the 3xTF32 cluster's widths (its
+# cluster sizes 4, 8, 16 in the LSTM; 2, 8, 8, 16 in the GRU) and one past
+# its cap (rnn_bwd.cu); 320 and 384 have no main path (suffixed records).
+F32_WIDE_WIDTHS = (160, 256, 320, 384, PAST_CAP_HIDDEN)
+# The float32 hoisted seed grids' main paths: the CUDA-core forward with
+# the 3xTF32 cluster backward, and past the cap both on the CUDA cores.
+GRID_F32_HIDDEN = 160
 WIDE_STEPS = 3            # steps of each wide run held to the plain path
 WIDE_REQUESTS = 16        # requests served from the wide universe
 GRID_SEEDS = 3            # the seed grids held at the c2 step and at H 256
@@ -6726,6 +6815,99 @@ def wide_seed_grid(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     torch.cuda.empty_cache()
 
 
+def f32_wide_rows(torch, kernels, gen) -> None:
+    """Phase 28's float32 rows 4 and 2 above 128 (B 2048, T 60, seeded
+    weights at H^-1/2, both cells) at :data:`F32_WIDE_WIDTHS`, through
+    :func:`f32_bwd_rows`: the 3xTF32 cluster (its size, rows and clusters
+    at once) beside ``rnn_bwd.cu`` on the same inputs (also recorded under
+    its own name), the plain version, both bounds and cuDNN's f32
+    backward; past 384 ``rnn_bwd.cu`` itself. Then, at hidden 256, the
+    3xTF32 cluster's seed grids (S 3, W_h shared; fused and hoisted: one
+    counted call, each seed bitwise its one-seed call) and a cluster the
+    card refuses (the LSTM's 384 on 8 CTAs), which must raise."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T = 2048, 60
+    f32 = dict(generator=gen, device="cuda")
+    for H in F32_WIDE_WIDTHS:
+        for cell in ("lstm", "gru"):
+            G = GATES[cell] * H
+            sd = H ** -0.5
+            hin = torch.randn(B, T, H, **f32)
+            wx, wh = (sd * torch.randn(H, G, **f32) for _ in range(2))
+            bb = 0.1 * torch.randn(G, **f32)
+            mm = torch.rand(B, T, **f32) < 0.75
+            dh = 0.1 * torch.randn(B, T, H, **f32)
+            xw = hin @ wx + bb
+            with torch.no_grad():
+                h, c = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
+            f32_bwd_rows(torch, kernels, f"B {B}, T {T}, H {H}", cell, hin,
+                         wx, bb, wh, mm, h, c, dh, xw, plain_reps=1,
+                         name_suffix=f"@h{H}" if H in (320, 384) else "")
+            if H == WIDE_HIDDEN and cell == "lstm":
+                S = GRID_SEEDS
+                stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
+                xw3, hin3, dh3 = (stack(t, lambda v: -v)
+                                  for t in (xw, hin, dh))
+                wx3, b3 = stack(wx, lambda v: 0.9 * v), stack(bb, lambda v: -v)
+                m3 = stack(mm, lambda v: ~v)
+                with torch.no_grad():
+                    sx = R._scan_states_any(cell, xw3, wh[None], m3, 1.0,
+                                            True)
+                    sf = R._fused_states(cell, hin3, wx3, b3, wh[None], m3,
+                                         1.0, True)
+                for name, run, single in (
+                        (f"rnn_bwd_tf32_{cell}",
+                         lambda: R.rnn_scan_bwd(cell, xw3, wh[None], m3, *sx,
+                                                dh3),
+                         lambda s: R.rnn_scan_bwd(
+                             cell, xw3[s], wh, m3[s],
+                             *(None if t is None else t[s] for t in sx),
+                             dh3[s])),
+                        (f"rnn_fused_bwd_tf32_{cell}",
+                         lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3,
+                                                      wh[None], m3, *sf, dh3),
+                         lambda s: R.rnn_scan_fused_bwd(
+                             cell, hin3[s], wx3[s], b3[s], wh, m3[s],
+                             *(None if t is None else t[s] for t in sf),
+                             dh3[s]))):
+                    _build.reset_launch_counts()
+                    got = run()
+                    counts = _build.launch_counts()
+                    if counts[name] != 1 or sum(counts.values()) != 1:
+                        fail(f"{name} seed grid at H {H}: launched {counts}")
+                    seed_grid_held(torch, f"{name} seed grid (float32, H "
+                                   f"{H}, W_h shared)", got, single,
+                                   range(S))
+                    del got
+                log(f"float32 seed grids at H {H} (S {S}, W_h shared): the "
+                    f"3xTF32 cluster backwards one call each, every seed "
+                    f"bitwise its one-seed call")
+                del xw3, hin3, dh3, wx3, b3, m3, sx, sf
+            del hin, wx, wh, bb, mm, dh, xw, h, c
+            torch.cuda.empty_cache()
+    # No fallback: a cluster the card cannot hold raises.
+    hin = torch.randn(16, 3, 384, **f32)
+    wx, wh = (384 ** -0.5 * torch.randn(384, 1536, **f32) for _ in range(2))
+    bb = torch.zeros(1536, device="cuda")
+    mm = torch.ones(16, 3, dtype=torch.bool, device="cuda")
+    h, c = R.rnn_scan_states("lstm", hin @ wx + bb, wh, mm, 1.0, True)
+    _build.reset_launch_counts()
+    try:
+        R._launch_bwd_tf32("lstm", True, hin, wx, bb, wh, mm, h, c, h, 1.0,
+                           cluster=8, rows=16)
+    except ValueError as exc:
+        log(f"the LSTM at H 384 on 8 CTAs is refused: {exc}")
+    else:
+        fail("the LSTM at H 384 ran on 8 CTAs, past the card's shared "
+             "memory")
+    if any(_build.launch_counts().values()):
+        fail(f"a refused cluster launched {_build.launch_counts()}")
+    del hin, wx, wh, bb, mm, h, c
+    torch.cuda.empty_cache()
+
+
 def served_scores_agree(name: str, cfg, panel, plain, responses) -> float:
     """Every served score vector of ``responses`` finite, over the month's
     pool, and within atol 0.05 + rtol 0.05 of the plain path ``plain`` (a
@@ -6763,8 +6945,10 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                gen) -> None:
     """Phase 28: every hidden width the JAX kernels take, bf16 above 128
     on the tensor cores with W_h split across a cluster both ways
-    (``rnn_fwd_cluster.cu``, ``rnn_bwd_cluster.cu``), and the seed grids
-    of rows 1 and 2 off the H <= 128 tensor cores.
+    (``rnn_fwd_cluster.cu``, ``rnn_bwd_cluster.cu``), the float32
+    backwards above 128 on the 3xTF32 tensor cores on a cluster
+    (``rnn_bwd_tf32.cu``), and the seed grids of rows 1 and 2 off the H <=
+    128 tensor cores.
 
     (a) c2 at ``{"hidden": 256}`` (:data:`WIDE_HIDDEN`), LSTM and GRU,
     bf16: rows 1-4 at its train step (the layer-0 input of a real index
@@ -6772,18 +6956,22 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     CUDA cores, under each kernel's name), then :data:`WIDE_STEPS` steps
     from the seeded init, fused and hoisted, counted (the cluster forward
     and backward; no CUDA-core kernel, no H <= 128 tensor-core kernel),
-    held to the plain path on the card; (b) the LSTM served from one
+    held to the plain path on the card, and the same four in float32
+    (the CUDA-core forwards, the 3xTF32 cluster backwards; no CUDA-core
+    backward); (b) the LSTM served from one
     ``ScoringService`` universe (:data:`WIDE_REQUESTS` requests from 4
     threads, counted likewise, every score held to the plain path); (c)
     rows 1-4 at :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at
-    H^-1/2) against their plain versions, each timed; (d) the seed grids
-    at hidden 256 (:func:`wide_seed_grid`) and, as the main paths of the
-    hoisted forms' grids, 3-seed c2 ensembles with
+    H^-1/2) against their plain versions, each timed, and rows 4 and 2 in
+    float32 at :data:`F32_WIDE_WIDTHS` (:func:`f32_wide_rows`); (d) the
+    seed grids at hidden 256 (:func:`wide_seed_grid`) and, as the main
+    paths of the hoisted forms' grids, 3-seed c2 ensembles with
     ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward and
-    backward), float32 at hidden 128 (3xTF32) and at
-    :data:`GRID_F32_HIDDEN` (the CUDA cores), for :data:`GRID_STEPS` steps
-    each, counted into ``seed_launches``, held to the plain path.
-    Single-seed launches go to ``totals``."""
+    backward), float32 at hidden 128 (3xTF32), at :data:`GRID_F32_HIDDEN`
+    (the CUDA-core forward, the 3xTF32 cluster backward) and at
+    :data:`PAST_CAP_HIDDEN` (the CUDA cores both ways), for
+    :data:`GRID_STEPS` steps each, counted into ``seed_launches``, held to
+    the plain path. Single-seed launches go to ``totals``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
     from lfm_quant_tpu_torch.serve import ScoringService
@@ -6824,17 +7012,27 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                            f"B {B}, T {W}, H {WIDE_HIDDEN}")
         del hin, wx, bb, wh, mm, dh
         torch.cuda.empty_cache()
-        for form, run_cfg, must in (
-                ("fused", cfg, (f"rnn_fused_fwd_cluster_{cell}",
-                                f"rnn_fused_bwd_cluster_{cell}",
-                                "window_gather")),
-                ("hoisted", train_variant(cfg, scan_impl="pallas"),
+        # The float32 runs: the CUDA-core forwards, the 3xTF32 cluster
+        # backwards; no CUDA-core backward, no bf16 or cluster kernel.
+        not_f32 = tuple(k for k in _build.LAUNCHES
+                        if "_mma_" in k or "_cluster_" in k) + CUDA_CORE_BWD
+        for form, run_cfg, must, never in (
+                ("fused, bf16", cfg, (f"rnn_fused_fwd_cluster_{cell}",
+                                      f"rnn_fused_bwd_cluster_{cell}",
+                                      "window_gather"), not_wide),
+                ("hoisted, bf16", train_variant(cfg, scan_impl="pallas"),
                  (f"rnn_fwd_cluster_{cell}", f"rnn_bwd_cluster_{cell}",
-                  "window_gather"))):
-            label = (f"c2 {cell} hidden {WIDE_HIDDEN} training ({form}, "
-                     f"bf16)")
+                  "window_gather"), not_wide),
+                ("fused, float32", train_variant(cfg, bf16=False),
+                 (f"rnn_fused_fwd_{cell}", f"rnn_fused_bwd_tf32_{cell}",
+                  "window_gather"), not_f32),
+                ("hoisted, float32",
+                 train_variant(cfg, scan_impl="pallas", bf16=False),
+                 (f"rnn_fwd_{cell}", f"rnn_bwd_tf32_{cell}",
+                  "window_gather"), not_f32)):
+            label = f"c2 {cell} hidden {WIDE_HIDDEN} training ({form})"
             got, counts = counted(label, must, lambda: short_run(
-                torch, run_cfg, splits2, WIDE_STEPS), not_wide)
+                torch, run_cfg, splits2, WIDE_STEPS), never)
             for k, n in counts.items():
                 totals[k] += n
             want = short_run(torch, plain_variant(run_cfg), splits2,
@@ -6894,6 +7092,7 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                       name_suffix=f"@h{H}")
             del hin, wx, wh, bb, mm, dh
             torch.cuda.empty_cache()
+    f32_wide_rows(torch, kernels, gen)
 
     # The hoisted forms' seed grids on a main path: 3-seed ensembles.
     for label, run_cfg, must in (
@@ -6911,6 +7110,12 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
              train_variant(cfg2, scan_impl="pallas", bf16=False,
                            kwargs=dict(cfg2.model.kwargs,
                                        hidden=GRID_F32_HIDDEN)),
+             ("rnn_fwd_lstm", "rnn_bwd_tf32_lstm", "window_gather")),
+            (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, float32, hidden "
+             f"{PAST_CAP_HIDDEN})",
+             train_variant(cfg2, scan_impl="pallas", bf16=False,
+                           kwargs=dict(cfg2.model.kwargs,
+                                       hidden=PAST_CAP_HIDDEN)),
              ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"))):
         run_cfg = dataclasses.replace(run_cfg, n_seeds=GRID_SEEDS)
         got, counts = counted(label, must, lambda: ensemble_steps(

@@ -173,7 +173,8 @@ def library() -> ctypes.CDLL:
                 "lfm_rnn_scan_bwd": [ci, ci] + [vp] * 11 + [ci, vp]
                 + [ci] * 5 + [cll] * 3 + [cf, vp],
                 "lfm_rnn_bwd_tf32": [ci, ci] + [vp] * 12 + [ci, vp]
-                + [ci] * 5 + [cll] * 5 + [cf, vp],
+                + [ci] * 6 + [cll] * 5 + [cf, vp],
+                "lfm_rnn_bwd_tf32_clusters": [ci] * 4,
                 "lfm_rnn_fwd_tf32": [ci, ci] + [vp] * 8 + [ci] * 4
                 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_fwd_cluster": [ci, ci] + [vp] * 8 + [ci] * 6
@@ -191,7 +192,7 @@ def library() -> ctypes.CDLL:
                     "lfm_rnn_scan_fwd_mma_smem": 3,
                     "lfm_rnn_fused_bwd_mma_smem": 2,
                     "lfm_rnn_scan_bwd_mma_smem": 2,
-                    "lfm_rnn_bwd_tf32_smem": 3, "lfm_rnn_fwd_tf32_smem": 2,
+                    "lfm_rnn_bwd_tf32_smem": 4, "lfm_rnn_fwd_tf32_smem": 2,
                     "lfm_rnn_fwd_cluster_smem": 4,
                     "lfm_rnn_bwd_cluster_smem": 4}
             for name, n in smem.items():

@@ -16,9 +16,12 @@ bf16 runs on the tensor cores with W_h split across a thread-block
 cluster, up to H 512, both ways (``rnn_fwd_cluster.cu``: the fused form
 as a bf16 GEMM into an f32 xw scratch and the cluster recurrence;
 ``rnn_bwd_cluster.cu``: the reverse recurrence with a reduce-scatter of
-the carry's product, then the weight-gradient and dhin GEMMs); float32
-and every width past 512 run on the CUDA cores (``rnn_fused_fwd.cu``,
-``rnn_bwd.cu``).
+the carry's product, then the weight-gradient and dhin GEMMs). The
+float32 backwards above 128 run in 3xTF32 on a cluster of 2-16 CTAs up
+to Hp 384 (``rnn_bwd_tf32.cu``, which reduce-scatters the carry's
+product as the bf16 one does); the float32 forwards above 128, the
+float32 backwards past 384 and every width past 512 run on the CUDA
+cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -556,6 +559,10 @@ def _padded_width(H: int) -> int:
 #: (``kMaxWidth`` in ``csrc/rnn_fwd_cluster.cu`` and
 #: ``csrc/rnn_bwd_cluster.cu``).
 CLUSTER_MAX_WIDTH = 512
+#: The widest padded width the float32 backward on the tensor cores takes
+#: (``kMaxWidth`` in ``csrc/rnn_bwd_tf32.cu``): past it the LSTM's f32 W_h
+#: (16 Hp^2 bytes) does not fit 16 CTAs' shared memory beside the tiles.
+TF32_MAX_WIDTH = 384
 
 
 def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
@@ -575,9 +582,11 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     bwd       bfloat16 128 < Hp <= 512  ``rnn_bwd_cluster.cu``, fused and
                                         hoisted forms (``"cluster"``)
     bwd       float32  Hp <= 128        ``rnn_bwd_tf32.cu`` (``"tf32"``)
+    bwd       float32  128 < Hp <= 384  ``rnn_bwd_tf32.cu`` on a cluster
+                                        of 2-16 CTAs (``"tf32"``)
     fwd       float32  H > 128          ``rnn_fused_fwd.cu`` (``"simt"``)
     fwd       bfloat16 Hp > 512         ``rnn_fused_fwd.cu`` (``"simt"``)
-    bwd       float32  H > 128          ``rnn_bwd.cu`` (``"simt"``)
+    bwd       float32  Hp > 384         ``rnn_bwd.cu`` (``"simt"``)
     bwd       bfloat16 Hp > 512         ``rnn_bwd.cu`` (``"simt"``)
     ========= ======== ================ ================================
 
@@ -587,10 +596,13 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     128); any other H <= 128 runs there at Hp, zero-padded per gate block
     (:func:`padded_launch`, exact). Above 128 bf16 splits W_h across a
     cluster of 2-16 CTAs both ways (the forward's size
-    :func:`_cluster_size`, the backward's :func:`_cluster_bwd_size`), any
-    H at Hp too; the CUDA-core kernels are the route of float32 above 128
-    and of every width past 512, not a fallback: a cluster launch the card
-    refuses raises. bf16 runs on the bf16 tensor cores; float32 must hold
+    :func:`_cluster_size`, the backward's :func:`_cluster_bwd_size`), and
+    so does the float32 backward up to :data:`TF32_MAX_WIDTH`
+    (:func:`_tf32_cluster`), any H at Hp too; the CUDA-core kernels are
+    the route of the float32 forward above 128, the float32 backward past
+    384 (W_h past 16 CTAs' shared memory) and every width past 512, not a
+    fallback: a cluster launch the card refuses raises. bf16 runs on the
+    bf16 tensor cores; float32 must hold
     the JAX f32 bound, so it splits every f32 operand of the recurrence
     into two TF32 terms (3xTF32), and the fused forward forms xw on the
     CUDA cores (unbiased f32 sums). The fused bf16 backward at H <= 128
@@ -603,6 +615,9 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     if Hp > 128:
         if dtype == torch.bfloat16 and Hp <= CLUSTER_MAX_WIDTH:
             return "cluster"
+        if (dtype == torch.float32 and direction == "bwd"
+                and Hp <= TF32_MAX_WIDTH):
+            return "tf32"
         return "simt"
     if dtype == torch.bfloat16:
         return "mma"
@@ -1038,47 +1053,153 @@ def _launch_scan_bwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
     return out if stacked else tuple(t[0] for t in out)
 
 
-#: Rows per CTA of the 3xTF32 recurrences (``16 * kRowTiles`` in
-#: ``csrc/rnn_bwd_tf32.cu`` and ``csrc/rnn_fwd_tf32.cu``) and the cluster
-#: sizes each direction is built for (the forward's: ``kCluster``).
+#: Rows per CTA of the 3xTF32 recurrences at H <= 128 (``16 *
+#: kRowTiles`` in ``csrc/rnn_bwd_tf32.cu`` and ``csrc/rnn_fwd_tf32.cu``)
+#: and the cluster sizes each direction is built for (the forward's:
+#: ``kCluster``; the backward's 1 and 2 at H <= 128, 2-16 above).
 TF32_ROWS = 32
-TF32_CLUSTERS = {"bwd": (1, 2), "fwd": (2,)}
+TF32_CLUSTERS = {"bwd": (1, 2, 4, 8, 16), "fwd": (2,)}
+#: Rows per cluster of the float32 backward above 128, and its threads per
+#: CTA at most by rows (``max_threads`` in ``csrc/rnn_bwd_tf32.cu``: the
+#: registers of the recompute's sums, xw_t, the carries and the carry
+#: product's chunks).
+TF32_CLUSTER_ROWS = (16, 32)
+TF32_MAX_THREADS = {16: 384, 32: 256}
+#: Bytes of the float32 backward's per-slice weight-gradient partial sums
+#: one seed may take (:func:`_tf32_slices`).
+TF32_PARTIAL_BYTES = 1 << 27
 
 
-def _tf32_smem(cell: str, H: int, C: int, direction: str = "bwd") -> int:
+def _tf32_takes(H: int, C: int, rows: int) -> bool:
+    """The shapes the float32 backward (``csrc/rnn_bwd_tf32.cu``, its
+    ``supported``) takes: 16 <= H <= 128 with C 1 or 2 and
+    :data:`TF32_ROWS` rows; 128 < H <= :data:`TF32_MAX_WIDTH` with C of 2,
+    4, 8, 16, rows of :data:`TF32_CLUSTER_ROWS` and the CTA's warps
+    (:func:`_cluster_warps`) within the rows' thread limit; H % 16 == 0."""
+    if not (16 <= H <= TF32_MAX_WIDTH and H % 16 == 0):
+        return False
+    if H <= 128:
+        return C in (1, 2) and rows == TF32_ROWS
+    if C not in TF32_CLUSTERS["bwd"][1:] or rows not in TF32_CLUSTER_ROWS:
+        return False
+    return _cluster_warps(H, C) * 32 <= TF32_MAX_THREADS[rows]
+
+
+def _tf32_smem(cell: str, H: int, C: int, direction: str = "bwd",
+               rows: int = TF32_ROWS) -> int:
     """Shared memory (bytes) of a 3xTF32 recurrence kernel with a cluster
     of ``C`` CTAs, as ``recur_smem_bytes`` computes it in the source, all
-    f32: W_h's columns of the CTA's H/C units [H, G H/C + 4] and two h
-    tiles [rows, H + 8]; the backward (``csrc/rnn_bwd_tf32.cu``) adds the
-    d_hw tile [rows, G H/C + 4] and, in a cluster, two receive buffers
-    [rows, H/C + 8] (the forward, ``csrc/rnn_fwd_tf32.cu``, all-gathers
-    h_t into the h tiles themselves)."""
+    f32. At H <= 128: W_h's columns of the CTA's H/C units [H, G H/C + 4]
+    and two h tiles [rows, H + 8]; the backward (``csrc/rnn_bwd_tf32.cu``)
+    adds the d_hw tile [rows, G H/C + 4] and, in a cluster, two receive
+    buffers [rows, H/C + 8] (the forward, ``csrc/rnn_fwd_tf32.cu``,
+    all-gathers h_t into the h tiles themselves). The backward above 128:
+    the share [H, G U + 4] (U = 8 :func:`_cluster_warps`), one h tile
+    [rows, H + 8], the d_hw tile [rows, G U + 4] and the receive buffer
+    [C][rows][LR], LR = 8 NW rounded up to an odd multiple of 8."""
+    G = _GATES[cell]
+    if direction == "bwd" and H > 128:
+        NW = _cluster_warps(H, C)
+        LW = G * MMA_UNITS * NW + 4
+        LR = MMA_UNITS * (NW | 1)
+        return 4 * (H * LW + rows * (H + 8) + rows * LW + C * rows * LR)
     Hc = H // C
-    GHc = _GATES[cell] * Hc
-    R = TF32_ROWS
-    floats = H * (GHc + 4) + 2 * R * (H + 8)
+    GHc = G * Hc
+    floats = H * (GHc + 4) + 2 * rows * (H + 8)
     if direction == "bwd":
-        floats += R * (GHc + 4) + (2 * R * (Hc + 8) if C > 1 else 0)
+        floats += rows * (GHc + 4) + (2 * rows * (Hc + 8) if C > 1 else 0)
     return 4 * floats
 
 
 def _tf32_cluster(cell: str, H: int, limit: int,
                   direction: str = "bwd") -> int:
     """CTAs per cluster of a 3xTF32 recurrence: the fewest of the
-    direction's sizes (the backward 1, then 2; the forward always 2, which
-    beat one CTA by 1.3-1.6x at B 2048 where W_h fits one) whose share of
-    W_h fits beside the tiles in ``limit`` bytes of shared memory per
-    block; raises where none does."""
-    sizes = TF32_CLUSTERS[direction]
-    for C in sizes:
-        if _tf32_smem(cell, H, C, direction) <= limit:
-            return C
+    direction's sizes the kernel takes at H (the backward 1, then 2 at H
+    <= 128, and 2, 4, 8, 16 above; the forward always 2, which beat one
+    CTA by 1.3-1.6x at B 2048 where W_h fits one) whose share of W_h fits
+    beside the tiles in ``limit`` bytes of shared memory per block (the
+    backward above 128 at 16 rows, its least); raises where none does. On
+    an H100 the backward above 128 takes the LSTM 2 CTAs at Hp 144, 4 to
+    208, 8 to 272 and 16 to 384, the GRU 2 to 176, 4 to 224, 8 to 320 and
+    16 to 384."""
+    rows = 16 if direction == "bwd" and H > 128 else TF32_ROWS
+    sizes = (TF32_CLUSTERS["fwd"] if direction == "fwd" else tuple(
+        C for C in TF32_CLUSTERS["bwd"] if _tf32_takes(H, C, rows)))
     name = "backward" if direction == "bwd" else "forward"
+    if not sizes:
+        raise ValueError(f"the float32 {name} on the tensor cores does not "
+                         f"take hidden={H}")
+    for C in sizes:
+        if _tf32_smem(cell, H, C, direction, rows) <= limit:
+            return C
     raise ValueError(
         f"the float32 {name} at hidden={H} needs "
-        f"{_tf32_smem(cell, H, sizes[-1], direction)} bytes of "
+        f"{_tf32_smem(cell, H, sizes[-1], direction, rows)} bytes of "
         f"shared memory per block even split over {sizes[-1]} CTAs, "
         f"more than the card's {limit}")
+
+
+def _tf32_rows(cell: str, H: int, C: int, B: int, S: int, limit: int,
+               sms: int) -> int:
+    """Batch rows per cluster of the float32 backward: :data:`TF32_ROWS`
+    at H <= 128; above, 32 where the kernel takes them (the CTA within 256
+    threads), they fit ``limit`` and the launch still gives at least half
+    the ``sms`` SMs a CTA (``2 C S ceil(B / 32) >= sms``, the bf16 cluster
+    kernels' rule), else 16. A row's sums do not depend on the count."""
+    if H <= 128:
+        return TF32_ROWS
+    if (_tf32_takes(H, C, 32) and _tf32_smem(cell, H, C, "bwd", 32) <= limit
+            and 2 * C * S * -(-B // 32) >= sms):
+        return 32
+    return 16
+
+
+def _tf32_slices(rows: int, total: int) -> int:
+    """Row slices of the float32 backward's weight-gradient reduction:
+    :func:`_slices`, cut so that one seed's partial sums (``total`` f32 a
+    slice) stay within :data:`TF32_PARTIAL_BYTES` (128 slices of the fused
+    LSTM's at H 384 would be 605 MB). A fixed function of the shape, so
+    the sums' order is too, and the same for every seed count."""
+    return min(_slices(rows), max(1, TF32_PARTIAL_BYTES // (4 * total)))
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_bwd_check(cell: str, H: int, C: int, rows: int,
+                    device: torch.device) -> Optional[int]:
+    """Once per shape and card: ``csrc/rnn_bwd_tf32.cu`` takes it and
+    counts the shared memory :func:`_tf32_smem` counts, it fits the card,
+    and (above 128) the card holds at least one such cluster
+    (``cudaOccupancyMaxActiveClusters``) → the clusters it holds at once
+    (None at H <= 128, where the launch itself checks its 2-CTA cluster).
+    Raises, naming the width and the cluster size, where not: the launch
+    is refused, and nothing else runs it."""
+    lib = _build.library()
+    code = _CELL_CODE[cell]
+    smem = lib.lfm_rnn_bwd_tf32_smem(code, H, C, rows)
+    if smem < 0:
+        raise ValueError(f"the float32 backward on the tensor cores does not "
+                         f"take hidden={H} with a cluster of {C} CTAs and "
+                         f"{rows} rows")
+    if smem != _tf32_smem(cell, H, C, "bwd", rows):
+        raise RuntimeError(
+            f"csrc/rnn_bwd_tf32.cu counts {smem} bytes of shared memory, "
+            f"ops/rnn.py {_tf32_smem(cell, H, C, 'bwd', rows)}")
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"hidden={H} on a cluster of {C} CTAs needs {smem} "
+                         f"bytes of shared memory per CTA, more than the "
+                         f"card's {limit}")
+    if H <= 128:
+        return None
+    with torch.cuda.device(device):
+        n = lib.lfm_rnn_bwd_tf32_clusters(code, H, C, rows)
+    if n < 1:
+        raise RuntimeError(
+            f"the card holds no cluster of {C} CTAs of the float32 {cell} "
+            f"backward at hidden={H} ({rows} rows, {smem} bytes of shared "
+            f"memory a CTA): cudaOccupancyMaxActiveClusters gave {n}")
+    return n
 
 
 def _keep(m: torch.Tensor) -> torch.Tensor:
@@ -1156,7 +1277,9 @@ def _launch_fwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                      wh: torch.Tensor, m: torch.Tensor, h_all: torch.Tensor,
                      c_all: Optional[torch.Tensor], dh: torch.Tensor,
-                     forget_bias: float, xw: Optional[torch.Tensor] = None):
+                     forget_bias: float, xw: Optional[torch.Tensor] = None,
+                     cluster: Optional[int] = None,
+                     rows: Optional[int] = None):
     """One call of the float32 backward on the tensor cores
     (``csrc/rnn_bwd_tf32.cu``, 3xTF32; fused: five kernel launches, or four
     given ``xw``; hoisted: three; counted once) → fused: ``(dhin, dW_x, db,
@@ -1166,8 +1289,10 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     output per seed; the states ``h_all``, ``c_all`` and ``dh`` are per
     seed. Fused, ``xw`` is the forward's xw scratch (``[S, B, T, G H]`` or
     ``[B, T, G H]``): the kernel skips its own xw GEMM and overwrites the
-    scratch with d_xw. The cluster size comes from :func:`_tf32_cluster`;
-    a cluster the card cannot schedule raises."""
+    scratch with d_xw. The cluster size and rows come from
+    :func:`_tf32_cluster` and :func:`_tf32_rows` (``cluster``, ``rows``
+    override them); a cluster the card cannot hold raises
+    (:func:`_tf32_bwd_check`)."""
     stacked = xin.dim() == 4
     if not stacked:
         xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
@@ -1181,12 +1306,12 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     dev = xin.device
     f32 = torch.float32
     lib = _build.library()
-    C = _tf32_cluster(cell, H, torch.cuda.get_device_properties(
-        dev).shared_memory_per_block_optin)
-    smem = lib.lfm_rnn_bwd_tf32_smem(_CELL_CODE[cell], H, C)
-    if smem != _tf32_smem(cell, H, C):
-        raise RuntimeError(f"csrc/rnn_bwd_tf32.cu counts {smem} bytes of "
-                           f"shared memory, ops/rnn.py {_tf32_smem(cell, H, C)}")
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    C = cluster or _tf32_cluster(cell, H, limit)
+    if rows is None:
+        rows = _tf32_rows(cell, H, C, B, S, limit, props.multi_processor_count)
+    _tf32_bwd_check(cell, H, C, rows, dev)
     # The states are per seed: a shared one is copied out to every seed.
     h_all, c_all, dh = (
         None if t is None else t.expand(S, *t.shape[1:]).contiguous()
@@ -1198,8 +1323,8 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
            else xw.view(S, B, T, G))
     dhn = (torch.empty((S, B, T, H), dtype=f32, device=dev)
            if cell == "gru" else None)
-    slices = _slices(B * T)
     total = 2 * H * G + G if fused else H * G
+    slices = _tf32_slices(B * T, total)
     partial = torch.empty((S, slices, total), dtype=f32, device=dev)
     dw = torch.empty((S, total), dtype=f32, device=dev)
     dx = torch.empty((S, B, T, H), dtype=f32, device=dev) if fused else None
@@ -1210,12 +1335,12 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
             xin.data_ptr(), ptr(wx), ptr(b),
             wh.data_ptr(), keep.data_ptr(), h_all.data_ptr(), ptr(c_all),
             dh.data_ptr(), ptr(dx), dgx.data_ptr(), ptr(dhn),
-            partial.data_ptr(), slices, dw.data_ptr(), S, B, T, H, C,
+            partial.data_ptr(), slices, dw.data_ptr(), S, B, T, H, C, rows,
             _stride(xin, S), 0 if wx is None else _stride(wx, S),
             0 if b is None else _stride(b, S), _stride(wh, S),
             _stride(keep, S), float(forget_bias), _build.stream_of(xin))
     name = f"rnn_{'fused_' if fused else ''}bwd_tf32_{cell}"
-    _build.check(lib, err, name)
+    _build.check(lib, err, f"{name} (hidden={H}, cluster of {C}, {rows} rows)")
     _build.count_launch(name)
     if fused:
         hg = H * G

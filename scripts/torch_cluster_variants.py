@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The bfloat16 forward and backward above hidden 128
-(``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd_cluster.cu``) at every
-cluster size and rows per cluster they take, on the card.
+(``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd_cluster.cu``) and the
+float32 backward above 128 (``csrc/rnn_bwd_tf32.cu``) at every cluster
+size and rows per cluster they take, on the card.
 
     python3 scripts/torch_cluster_variants.py [--widths 256 320 512]
-        [--batch 2048] [--steps 60] [--reps 5] [--direction fwd|bwd|both]
-        [--out FILE]
+        [--batch 2048] [--steps 60] [--reps 5]
+        [--direction fwd|bwd|both|bwd_tf32] [--out FILE]
 
 For rows 3 (fused: the bf16 GEMM into the f32 xw scratch, then the
 cluster recurrence) and 1 (hoisted: the recurrence on a bf16 xw), LSTM
@@ -44,6 +45,12 @@ ms from the profiler, ``recur_ms``): ``diag_*`` variants remove a part of
 each step's work and give wrong numbers on purpose, to show what that
 part costs. ``file:PATH`` builds another version of the source as it is
 (an earlier commit's, from ``git show``), to time the two in one call.
+
+``--direction bwd_tf32`` does the backward's cases in float32 on the
+3xTF32 cluster form of ``csrc/rnn_bwd_tf32.cu`` (the pairs
+``_tf32_takes`` allows at C 2-16, the picked pair ``_tf32_cluster``,
+``_tf32_rows``), with ``--diag`` variants of that source
+(:data:`TF32_DIAG`).
 """
 
 from __future__ import annotations
@@ -88,6 +95,96 @@ BWD_DIAG = {
     "diag_no_outputs": [("          if (r < nr) {",
                          "          if (r < 0) {")],
 }
+#: The same diagnostics for the cluster form of ``csrc/rnn_bwd_tf32.cu``
+#: (``--direction bwd_tf32``), its h tile's load, the partials stored into
+#: the CTA's own buffer (``diag_local_store``: what the remote stores
+#: cost), and three candidates: 32-bit ``st.shared::cluster`` stores in
+#: place of generic ones (``st_cluster``), 8 chunks a pass at 16 rows
+#: (``chunk_regs_8``), the small terms of each 3xTF32 product in
+#: accumulators of their own (``split_terms``).
+TF32_DIAG = {
+    "base": [],
+    "diag_no_recompute": [(
+        "          for (int q = 0; q < G; ++q) mma3(cacc[rt][q], a, hb[q]);",
+        "          (void)hb;")],
+    "diag_no_partial": [(
+        "              for (int rt = 0; rt < RT; ++rt) mma3(cacc[s][rt], "
+        "a[rt], b);", "              (void)b;")],
+    "diag_no_exchange": BWD_DIAG["diag_no_exchange"],
+    "diag_no_sync": BWD_DIAG["diag_no_sync"],
+    "diag_no_outputs": BWD_DIAG["diag_no_outputs"],
+    "diag_no_hload": [("    if (t > 0) load_h(t - 1);\n", "")],
+    "diag_local_store": [(
+        "        float* dst = cluster.map_shared_rank(recv_s + (size_t)"
+        "rank * BB * LR,\n                                             p);",
+        "        float* dst = recv_s + (size_t)rank * BB * LR + 0 * p;")],
+    "st_cluster": [
+        ("constexpr int kChunks = 4;\n",
+         "constexpr int kChunks = 4;\n"
+         "__device__ __forceinline__ uint32_t cluster_addr(const float* p,\n"
+         "                                                 int rank) {\n"
+         "  uint32_t r;\n"
+         "  asm volatile(\"mapa.shared::cluster.u32 %0, %1, %2;\\n\"\n"
+         "               : \"=r\"(r)\n"
+         "               : \"r\"((uint32_t)__cvta_generic_to_shared(p)),"
+         " \"r\"(rank));\n"
+         "  return r;\n}\n"
+         "__device__ __forceinline__ void st_cluster(uint32_t a, float x,\n"
+         "                                           float y) {\n"
+         "  asm volatile(\"st.shared::cluster.v2.f32 [%0], {%1, %2};\\n\""
+         " ::\"r\"(a),\n"
+         "               \"f\"(x), \"f\"(y) : \"memory\");\n}\n"),
+        ("        float* dst = cluster.map_shared_rank(recv_s + (size_t)"
+         "rank * BB * LR,\n                                             p);",
+         "        const uint32_t dst = cluster_addr(recv_s + (size_t)rank * BB"
+         " * LR, p);"),
+        (_STORE, "            st_cluster(dst + 4 * (r * LR + lu), "
+         "pacc[s][rt][2 * half],\n"
+         "                       pacc[s][rt][2 * half + 1]);")],
+    "chunk_regs_8": [("  constexpr int NCH = kChunks;  ",
+                      "  constexpr int NCH = 8 / RT;   ")],
+    # Each product's two small terms in an accumulator of their own, so a
+    # chain's dependent mma are one a k-step, not three.
+    "split_terms": [
+        ("// Kernel 1 above 128, per seed",
+         "__device__ __forceinline__ void mma3s(float (&big)[4],\n"
+         "                                      float (&small)[4],\n"
+         "                                      const FragA& a,\n"
+         "                                      const FragB& b) {\n"
+         "  lfm_tf32::mma_tf32(small, a.lo, b.hi[0], b.hi[1]);\n"
+         "  lfm_tf32::mma_tf32(small, a.hi, b.lo[0], b.lo[1]);\n"
+         "  lfm_tf32::mma_tf32(big, a.hi, b.hi[0], b.hi[1]);\n}\n\n"
+         "// Kernel 1 above 128, per seed"),
+        ("          float cacc[NCH][RT][4];\n",
+         "          float cacc[NCH][RT][4], cs[NCH][RT][4] = {};\n"),
+        ("              for (int rt = 0; rt < RT; ++rt) mma3(cacc[s][rt], "
+         "a[rt], b);",
+         "              for (int rt = 0; rt < RT; ++rt)\n"
+         "                mma3s(cacc[s][rt], cs[s][rt], a[rt], b);"),
+        ("              for (int i = 0; i < 4; ++i) pacc[s][rt][i] += "
+         "cacc[s][rt][i];",
+         "              for (int i = 0; i < 4; ++i)\n"
+         "                pacc[s][rt][i] += cacc[s][rt][i] + cs[s][rt][i];"),
+        ("hs[rt][q][i] = 0.0f;\n    for (int kc = 0; kc < H; kc += kChainK) "
+         "{\n      float cacc[RT][G][4];\n",
+         "hs[rt][q][i] = 0.0f;\n    for (int kc = 0; kc < H; kc += kChainK) "
+         "{\n      float cacc[RT][G][4], cs[RT][G][4] = {};\n"),
+        ("          for (int q = 0; q < G; ++q) mma3(cacc[rt][q], a, hb[q]);",
+         "          for (int q = 0; q < G; ++q)\n"
+         "            mma3s(cacc[rt][q], cs[rt][q], a, hb[q]);"),
+        ("          for (int i = 0; i < 4; ++i) hs[rt][q][i] += "
+         "cacc[rt][q][i];",
+         "          for (int i = 0; i < 4; ++i)\n"
+         "            hs[rt][q][i] += cacc[rt][q][i] + cs[rt][q][i];")],
+}
+#: Per direction with variants: the source, its substitutions, the entry
+#: point and its ctypes signature, the recurrence kernel's name.
+SOURCES = {
+    "bwd": ("rnn_bwd_cluster.cu", BWD_DIAG, "lfm_rnn_bwd_cluster", 7,
+            "rnn_bwd_cluster_kernel"),
+    "bwd_tf32": ("rnn_bwd_tf32.cu", TF32_DIAG, "lfm_rnn_bwd_tf32", 6,
+                 "rnn_bwd_tf32_cluster_kernel"),
+}
 
 
 def main() -> int:
@@ -96,10 +193,12 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--direction", choices=("fwd", "bwd", "both"),
-                    default="fwd")
+    ap.add_argument("--direction", choices=("fwd", "bwd", "both",
+                                            "bwd_tf32"), default="fwd")
     ap.add_argument("--diag", default="",
                     help="variants of the backward source, comma-separated")
+    ap.add_argument("--picked-only", action="store_true",
+                    help="bwd_tf32: time the picked pair alone")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "cluster_variants.jsonl"))
     args = ap.parse_args()
@@ -111,7 +210,8 @@ def main() -> int:
         return 1
     from lfm_quant_tpu_torch.ops import rnn as R
 
-    diag = build_diag(args.diag.split(",")) if args.diag else {}
+    kind = "bwd_tf32" if args.direction == "bwd_tf32" else "bwd"
+    diag = build_diag(args.diag.split(","), kind) if args.diag else {}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -130,6 +230,10 @@ def main() -> int:
             for cell in ("lstm", "gru"):
                 G = GATES[cell] * H
                 rnd = dict(generator=gen, device="cuda")
+                if kind == "bwd_tf32":
+                    tf32_cases(torch, R, out, card, diag, cell, B, T, H,
+                               rnd, limit, sms, args.reps, args.picked_only)
+                    continue
                 hin = torch.randn(B, T, H, **rnd).to(bf)
                 wx = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
                 wh = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
@@ -200,14 +304,16 @@ def main() -> int:
     return 0
 
 
-def build_diag(names) -> dict:
-    """The ``--diag`` variants, each built into a library → {name: CDLL}
-    with the backward's entry points typed."""
+def build_diag(names, kind: str = "bwd") -> dict:
+    """The ``--diag`` variants of ``kind``'s source (:data:`SOURCES`),
+    each built into a library → {name: CDLL} with the backward's entry
+    points typed."""
     import ctypes
 
+    source, table, entry, n_ints, _ = SOURCES[kind]
     out_dir = os.path.join(ROOT, "build", "cluster_variants")
     os.makedirs(out_dir, exist_ok=True)
-    src = open(os.path.join(CSRC, "rnn_bwd_cluster.cu")).read()
+    src = open(os.path.join(CSRC, source)).read()
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     procs = {}
@@ -219,7 +325,7 @@ def build_diag(names) -> dict:
         else:
             text = src
             for part in name.split("+"):
-                for old, new in BWD_DIAG[part]:
+                for old, new in table[part]:
                     if text.count(old) != 1:
                         raise SystemExit(f"{part}: {old!r} is not in the "
                                          f"source once")
@@ -241,9 +347,10 @@ def build_diag(names) -> dict:
         if p.returncode != 0:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-        lib.lfm_rnn_bwd_cluster.argtypes = ([ci, ci] + [vp] * 12 + [ci, vp]
-                                            + [ci] * 7 + [cll] * 5 + [cf, vp])
-        lib.lfm_rnn_bwd_cluster.restype = ci
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ci, ci] + [vp] * 12 + [ci, vp] + [ci] * n_ints
+                       + [cll] * 5 + [cf, vp])
+        fn.restype = ci
         lib.lfm_cuda_error_string.argtypes = [ci]
         lib.lfm_cuda_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -279,13 +386,86 @@ def diag_cases(torch, R, out, card, libs, cell, hin, wx, b, wh, m, xw, dh,
                     form="fused_bwd" if fused else "bwd", shape=[B, T, H],
                     cluster=C, rows=rows, ms=mean_ms(torch, run, reps),
                     recur_ms=sum(v for k, v in ks.items()
-                                 if "rnn_bwd_cluster_kernel" in k))
+                                 if SOURCES["bwd"][4] in k))
             finally:
                 R._build.library = real
             print(json.dumps(rec), flush=True)
             out.write(json.dumps(rec) + "\n")
         del h, c
         torch.cuda.empty_cache()
+
+
+def tf32_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
+               reps, picked_only=False):
+    """Rows 4 and 2 in float32 on the 3xTF32 cluster at every (cluster
+    size, rows) pair it takes and the card holds, as :func:`bwd_cases`
+    does for bf16, then each ``--diag`` variant at the picked pair."""
+    G = GATES[cell] * H
+    hin = torch.randn(B, T, H, **rnd)
+    wx = H ** -0.5 * torch.randn(H, G, **rnd)
+    wh = H ** -0.5 * torch.randn(H, G, **rnd)
+    b = 0.1 * torch.randn(G, **rnd)
+    m = torch.rand(B, T, **rnd) < 0.75
+    dh = 0.1 * torch.randn(B, T, H, **rnd)
+    xw = hin @ wx + b
+    dev = hin.device
+    pick_c = R._tf32_cluster(cell, H, limit)
+    pick_rows = R._tf32_rows(cell, H, pick_c, B, 1, limit, sms)
+    h, c = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    for fused in (True, False):
+        ops = (hin, wx, b) if fused else (xw, None, None)
+
+        def run(C, rows):
+            return R._launch_bwd_tf32(cell, fused, *ops, wh, m, h, c, dh,
+                                      1.0, cluster=C, rows=rows)
+
+        want = run(pick_c, pick_rows)
+        for C in R.TF32_CLUSTERS["bwd"][1:]:
+            for rows in R.TF32_CLUSTER_ROWS:
+                if not (R._tf32_takes(H, C, rows)
+                        and R._tf32_smem(cell, H, C, "bwd", rows) <= limit):
+                    continue
+                if picked_only and (C, rows) != (pick_c, pick_rows):
+                    continue
+                clusters = R._tf32_bwd_check(cell, H, C, rows, dev)
+                got = run(C, rows)
+                same = (all(torch.equal(g, w) for g, w in zip(got, want))
+                        if C == pick_c else None)
+                del got
+                picked = (C, rows) == (pick_c, pick_rows)
+                rec = dict(
+                    card=card, cell=cell, dtype="float32",
+                    form="fused_bwd" if fused else "bwd", shape=[B, T, H],
+                    cluster=C, rows=rows, warps=R._cluster_warps(H, C),
+                    smem=R._tf32_smem(cell, H, C, "bwd", rows),
+                    clusters_at_once=clusters,
+                    ms=mean_ms(torch, lambda: run(C, rows), reps),
+                    picked=picked, bitwise_as_picked=same)
+                if picked:
+                    rec["kernels_ms"] = kernels_ms(
+                        torch, lambda: run(C, rows))
+                print(json.dumps(rec), flush=True)
+                out.write(json.dumps(rec) + "\n")
+        del want
+        real = R._build.library
+        for name, lib in libs.items():
+            R._build.library = lambda lib=lib: lib
+            try:
+                ks = kernels_ms(torch, lambda: run(pick_c, pick_rows))
+                rec = dict(
+                    card=card, cell=cell, dtype="float32", variant=name,
+                    form="fused_bwd" if fused else "bwd", shape=[B, T, H],
+                    cluster=pick_c, rows=pick_rows,
+                    ms=mean_ms(torch, lambda: run(pick_c, pick_rows), reps),
+                    recur_ms=sum(v for k, v in ks.items()
+                                 if SOURCES["bwd_tf32"][4] in k))
+            finally:
+                R._build.library = real
+            print(json.dumps(rec), flush=True)
+            out.write(json.dumps(rec) + "\n")
+        torch.cuda.empty_cache()
+    del hin, wx, wh, b, m, dh, xw, h, c
+    torch.cuda.empty_cache()
 
 
 def mean_ms(torch, fn, reps: int) -> float:

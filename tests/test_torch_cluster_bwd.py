@@ -4,8 +4,8 @@ reduce-scatter of the carry's product, on the CPU; and the plain versions
 it is held to on the card against the Pallas backwards at H 320 and 512.
 
 * The route: bf16 backwards at 128 < Hp <= 512 take ``"cluster"``,
-  float32 above 128 and bf16 past 512 the CUDA cores, every H <= 128 as
-  before.
+  bf16 past 512 the CUDA cores, float32 above 128 the 3xTF32 cluster up
+  to Hp 384 and the CUDA cores past it, every H <= 128 as before.
 * The picker (``ops/rnn.py _cluster_bwd_size``, ``_cluster_bwd_rows``)
   and the shared-memory mirror (``_cluster_bwd_smem``) against the
   source's constants and count, with every (cell, Hp) from 144 to 512
@@ -77,15 +77,17 @@ def one_thread():
                                512, 513, 528, 1024])
 def test_backward_route_table(H):
     """bf16 above 128 up to Hp 512 runs the backward on the cluster; bf16
-    past 512 and float32 above 128 on the CUDA cores; H <= 128 as before
-    (bf16 ``"mma"``, float32 ``"tf32"``). The forward's route is the same
-    for bf16 at every width here."""
+    past 512 on the CUDA cores; float32 above 128 on the 3xTF32 kernels on
+    a cluster up to Hp 384 (``"tf32"``) and on the CUDA cores past it; H
+    <= 128 as before (bf16 ``"mma"``, float32 ``"tf32"``). The forward's
+    route is the same for bf16 at every width here."""
     Hp = R._padded_width(H)
     bf, f32 = torch.bfloat16, torch.float32
     if Hp <= 128:
         want_bf, want_f32 = "mma", "tf32"
     elif Hp <= R.CLUSTER_MAX_WIDTH:
-        want_bf, want_f32 = "cluster", "simt"
+        want_bf = "cluster"
+        want_f32 = "tf32" if Hp <= R.TF32_MAX_WIDTH else "simt"
     else:
         want_bf, want_f32 = "simt", "simt"
     assert R._mma_route(bf, H, "bwd") == want_bf

@@ -13,8 +13,8 @@ skip without one. Tolerances: gathers exact; the recurrence f32 atol 1e-5
 of 16 zero-padded to the next, and the CUDA-core kernels above), bf16
 atol/rtol 0.05 — the JAX package's own bounds; the backward's gradients
 scaled by their largest magnitude, f32 atol 1e-5 (``tests/
-test_pallas_rnn.py``'s rule; ``csrc/rnn_bwd_tf32.cu`` at H <= 128, the
-CUDA-core kernels above) and bf16 atol 0.05 (the bf16 tensor-core
+test_pallas_rnn.py``'s rule; ``csrc/rnn_bwd_tf32.cu`` up to Hp 384, the
+CUDA-core kernels past it) and bf16 atol 0.05 (the bf16 tensor-core
 backward's f32 weight gradients 1e-4, as ``tests/test_torch_mma_bwd.py``
 holds them).
 """
@@ -181,8 +181,9 @@ def test_rnn_bwd_kernels_match_plain(cuda, cell, dtype, B, T, H):
     """The fused backward (row 4) and hoisted backward (row 2) against
     their plain formulas: B not a multiple of the block's 16 rows, T = 1,
     H not a multiple of 4, an all-invalid row. The widths under 128 run
-    zero-padded on the tensor cores (``_mma_route``); H 136 on the
-    CUDA-core kernels, in both dtypes."""
+    zero-padded on the tensor cores (``_mma_route``); H 136 zero-padded to
+    144 on the cluster backwards (float32 3xTF32, bf16), in both
+    dtypes."""
     hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, B + H,
                                                   dtype, cuda, False)
     got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
@@ -374,7 +375,7 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     operands: one counted launch for all seeds, forward and backward, and
     each seed's result bitwise that seed's one-seed call's; the hoisted
     form too, forward and backward (one ``_Scan`` node for every seed)."""
-    S, B, T, H = 3, 21, 5, 136  # a width the tensor cores do not take
+    S, B, T, H = 3, 21, 5, 400  # past the 3xTF32 backward's 384 too
     per = [_rnn_inputs(cell, B, T, H, s, torch.float32, cuda)
            for s in range(S)]
     hin, wx, b, wh = (torch.stack([p[0][i] for p in per]) for i in range(4))
@@ -820,12 +821,15 @@ def test_cluster_bwd_launch_refused_raises(cuda):
 #: A hoisted route, its dtype and a width it serves (the CUDA cores take
 #: bf16 only past the cluster kernel's widths).
 HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
-                  "simt": (torch.float32, 256), "simt_bf16": (
+                  "simt": (torch.float32, 400), "simt_bf16": (
                       torch.bfloat16, 528),
-                  "cluster": (torch.bfloat16, 256)}
-#: The launch counters' tag of each hoisted route, forward and backward.
+                  "cluster": (torch.bfloat16, 256),
+                  "tf32_cluster": (torch.float32, 256)}
+#: The launch counters' tag of each hoisted route, forward and backward
+#: (float32 above 128: the CUDA-core forward, the 3xTF32 cluster
+#: backward).
 FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_"}
-BWD_TAG = FWD_TAG
+BWD_TAG = dict(FWD_TAG, tf32_cluster="tf32_")
 
 
 @pytest.mark.cuda
@@ -1058,21 +1062,170 @@ def test_tf32_fused_backward_takes_the_forward_xw(cuda, cell):
         assert (g - o).abs().max() <= 1e-5 * o.abs().max()
 
 
+#: The float32 widths above 128 the 3xTF32 cluster backward is held at:
+#: its cluster sizes 2 (LSTM 144, GRU 144 and 160), 4, 8 and 16, 16 and 32
+#: rows, 200 zero-padded to 208, and the cap, 384.
+TF32_WIDE = (144, 160, 200, 256, 320, 384)
+
+
+def _tf32_wide_args(cell, B, T, H, seed, device, hoisted, S=None):
+    """The float32 backward's operands at a width above 128: the states
+    of the plain forward and an upstream gradient; hoisted, xw in place
+    of hin (``wx``, ``b`` None); seed-stacked with W_h shared (seed
+    extent 1)."""
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, seed, torch.float32,
+                                         device, S=S)
+    if S is None:
+        m[0] = False  # an all-invalid row
+        xw = hin @ wx + b
+        h, c = rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    else:
+        wh = wh[:1].contiguous()
+        xw = hin @ wx[:, None] + b[:, None, None]
+        states = [rnn_scan_states(cell, xw[s], wh[0], m[s], 1.0, True)
+                  for s in range(S)]
+        h = torch.stack([st[0] for st in states])
+        c = None if cell == "gru" else torch.stack([st[1] for st in states])
+    if hoisted:
+        return (xw, None, None, wh, m, h, c, dh)
+    return (hin, wx, b, wh, m, h, c, dh)
+
+
+def _tf32_wide(cell, hoisted, args, **kw):
+    return R._launch_bwd_tf32(cell, not hoisted, *args, 1.0, **kw)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", TF32_WIDE)
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
-    """Above 128 (H = 160: hidden 120 now runs zero-padded on the tensor
-    cores) both backwards stay on ``csrc/rnn_bwd.cu`` in float32, and in
-    bf16 take the cluster backward (``csrc/rnn_bwd_cluster.cu``), within
-    the JAX bounds; neither takes the 3xTF32 kernels."""
-    B, T, H = 37, 5, 160
-    for hoisted in (False, True):
-        hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, 7,
+def test_tf32_cluster_bwd_matches_plain(cuda, cell, H, hoisted):
+    """Rows 4 and 2 in float32 above 128 on ``csrc/rnn_bwd_tf32.cu`` (W_h
+    split across a cluster of 2-16 CTAs, the carry's product
+    reduce-scattered), through the public backward, against the plain
+    versions at the JAX f32 bound (gradients scaled, atol 1e-5): one
+    counted call, no CUDA-core backward, an all-invalid row's dhin/dxw
+    exactly zero, and a second call bitwise equal."""
+    B, T = 37, 5
+    args = _tf32_wide_args(cell, B, T, H, H + 3, cuda, hoisted)
+    if hoisted:
+        xw, _, _, wh, m, h, c, dh = args
+        run = lambda: rnn_scan_bwd(cell, xw, wh, m, h, c, dh)  # noqa: E731
+        want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+    else:
+        run = lambda: rnn_scan_fused_bwd(cell, *args)  # noqa: E731
+        want = rnn_scan_fused_bwd_reference(cell, *args)
+    _build.reset_launch_counts()
+    got = run()
+    counts = _build.launch_counts()
+    tc, core = _tf32_names(cell, hoisted)
+    assert counts[tc] == 1 and sum(counts.values()) == 1, counts
+    assert all(g.dtype == torch.float32 for g in got)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        _scaled_close(g, w, torch.float32)
+    assert not got[0][0].any()
+    for a, z in zip(got, run()):
+        assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_cluster_bwd_seed_grid_bitwise_equals_single_seed_launches(
+        cuda, cell, hoisted):
+    """The seed rules (``_bwd_vmap`` :951, ``_make_scan._bwd_vmap`` :541)
+    on the float32 cluster backward at H 256: S 3 seeds with W_h shared in
+    one counted call, each seed's outputs bitwise its one-seed call's."""
+    S, B, T, H = 3, 37, 5, 256
+    args = _tf32_wide_args(cell, B, T, H, 29, cuda, hoisted, S=S)
+    _build.reset_launch_counts()
+    got = _tf32_wide(cell, hoisted, args)
+    assert _build.launch_counts()[_tf32_names(cell, hoisted)[0]] == 1
+    for s in range(S):
+        one = _tf32_wide(cell, hoisted, [
+            None if t is None else t[s if t.shape[0] == S else 0]
+            for t in args])
+        for g, o in zip(got, one):
+            assert torch.equal(g[s], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell,H", [("lstm", 160), ("gru", 256)])
+def test_tf32_cluster_bwd_rows_do_not_change_bits(cuda, cell, H, hoisted):
+    """A row's sums do not depend on the rows per cluster: 16 and 32 rows
+    (both fit at these widths) give the same bits."""
+    B, T = 70, 4
+    args = _tf32_wide_args(cell, B, T, H, 13, cuda, hoisted)
+    C = R._tf32_cluster(cell, H, torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin)
+    assert R._tf32_takes(H, C, 32)
+    runs = [_tf32_wide(cell, hoisted, args, cluster=C, rows=rows)
+            for rows in (16, 32)]
+    for a, z in zip(*runs):
+        assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_cluster_bwd_through_autograd(cuda, cell, hoisted):
+    """``_FusedScan`` and ``_Scan`` in float32 at H 256: the forward on the
+    CUDA cores (``rnn_fused_fwd.cu``, no xw scratch), the backward on the
+    3xTF32 cluster (the fused form forms its own xw), one launch each; the
+    output and gradients against autograd of the plain version on the
+    CPU."""
+    B, T, H = 37, 5, 256
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 43, torch.float32,
+                                         "cpu")
+    xw = hin @ wx + b
+    ops = (xw, wh) if hoisted else (hin, wx, b, wh)
+    fn = rnn_scan if hoisted else rnn_scan_fused
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dev).requires_grad_(True) for t in ops]
+        _build.reset_launch_counts()
+        out = fn(cell, *leaves, m.to(dev))
+        out.mul(dh.to(dev)).sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    counts = _build.launch_counts()
+    form = "" if hoisted else "fused_"
+    assert counts[f"rnn_{form}fwd_{cell}"] == 1, counts
+    assert counts[f"rnn_{form}bwd_tf32_{cell}"] == 1, counts
+    assert sum(counts.values()) == 2, counts
+    np.testing.assert_allclose(outs[1].cpu().numpy(), outs[0].numpy(),
+                               **TOL[torch.float32])
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        assert g_card.shape == g_cpu.shape
+        _scaled_close(g_card, g_cpu, torch.float32)
+
+
+@pytest.mark.cuda
+def test_tf32_cluster_bwd_launch_refused_raises(cuda):
+    """No fallback: a cluster the float32 backward or the card cannot take
+    raises, naming the width and the cluster size (the LSTM at H 384 on 8
+    CTAs: its share is past the card's shared memory; on 2 CTAs: 24 warps
+    a CTA)."""
+    args = _tf32_wide_args("lstm", 5, 3, 384, 1, cuda, False)
+    with pytest.raises(ValueError, match="hidden=384 on a cluster of 8"):
+        _tf32_wide("lstm", False, args, cluster=8, rows=16)
+    with pytest.raises(ValueError, match="hidden=384 with a cluster of 2"):
+        _tf32_wide("lstm", False, args, cluster=2, rows=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_widths_past_the_caps_keep_rnn_bwd(cuda, cell, hoisted):
+    """float32 past the 3xTF32 backward's 384 (H 400) and bf16 past the
+    cluster backward's 512 (H 520, Hp 528) stay on ``csrc/rnn_bwd.cu``
+    through the public backward, one counted call each, within the JAX
+    bounds of the plain version."""
+    for dtype, H in ((torch.float32, 400), (torch.bfloat16, 520)):
+        hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, 21, 4, H, H,
                                                       dtype, cuda, hoisted)
-        tf32, simt = _tf32_names(cell, hoisted)
-        if dtype == torch.bfloat16:
-            simt = simt.replace(f"bwd_{cell}", f"bwd_cluster_{cell}")
         _build.reset_launch_counts()
         if hoisted:
             got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
@@ -1082,7 +1235,37 @@ def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
             want = rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h,
                                                 c, dh)
         counts = _build.launch_counts()
-        assert counts[simt] == 1 and counts[tf32] == 0
+        core = _tf32_names(cell, hoisted)[1]
+        assert counts[core] == 1 and sum(counts.values()) == 1, counts
+        for g, w in zip(got, want):
+            _scaled_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cuda_core_bwd_still_serves_hidden_120(cuda, cell, dtype):
+    """Above 128 (H = 160: hidden 120 now runs zero-padded on the tensor
+    cores) both backwards run on a cluster: float32 on the 3xTF32 kernels
+    (``csrc/rnn_bwd_tf32.cu``), bf16 on ``csrc/rnn_bwd_cluster.cu``,
+    within the JAX bounds; neither on the CUDA cores (``rnn_bwd.cu``)."""
+    B, T, H = 37, 5, 160
+    for hoisted in (False, True):
+        hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, B, T, H, 7,
+                                                      dtype, cuda, hoisted)
+        tc, core = _tf32_names(cell, hoisted)
+        if dtype == torch.bfloat16:
+            tc = core.replace(f"bwd_{cell}", f"bwd_cluster_{cell}")
+        _build.reset_launch_counts()
+        if hoisted:
+            got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
+            want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+        else:
+            got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
+            want = rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h,
+                                                c, dh)
+        counts = _build.launch_counts()
+        assert counts[tc] == 1 and counts[core] == 0
         assert sum(counts.values()) == 1, counts
         for g, w in zip(got, want):
             _scaled_close(g, w, dtype)

@@ -46,7 +46,9 @@ def cuda():
     (torch.bfloat16, 40, "mma"),
     (torch.bfloat16, 144, "cluster"),
     (torch.bfloat16, 528, "simt"),
-    (torch.float32, 144, "simt"),
+    (torch.float32, 144, "tf32"),
+    (torch.float32, 384, "tf32"),
+    (torch.float32, 400, "simt"),
     (torch.bfloat16, 8, "mma"),
 ])
 def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
@@ -54,8 +56,9 @@ def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     forward's packing of W_x); in float32 at the same widths it runs on
     the 3xTF32 kernels (``csrc/rnn_bwd_tf32.cu``); a width off a multiple
     of 16 (40, 8) is padded to the next. Above 128 bf16 runs on the
-    cluster backward (``csrc/rnn_bwd_cluster.cu``) up to 512, and float32
-    and bf16 past 512 stay on the CUDA cores."""
+    cluster backward (``csrc/rnn_bwd_cluster.cu``) up to 512 and float32
+    on the 3xTF32 one on a cluster up to 384; float32 past 384 and bf16
+    past 512 stay on the CUDA cores."""
     assert R._mma_route(dtype, H, "bwd") == route
 
 
@@ -67,7 +70,8 @@ def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     (torch.bfloat16, 12, "mma"),
     (torch.bfloat16, 136, "cluster"),
     (torch.bfloat16, 520, "simt"),
-    (torch.float32, 136, "simt"),
+    (torch.float32, 136, "tf32"),
+    (torch.float32, 400, "simt"),
     (torch.float32, 128, "tf32"),
     (torch.float32, 16, "tf32"),
     (torch.float32, 120, "tf32"),
@@ -76,8 +80,9 @@ def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
                                                         dtype, H, route):
     """``rnn_scan_bwd`` on the card picks its kernels by ``_mma_route``
     alone, before any launch: the hoisted mode of the bf16 tensor-core
-    source, the 3xTF32 kernels in float32, the cluster backward in bf16
-    above 128, or the CUDA-core hoisted kernel
+    source, the 3xTF32 kernels in float32 (on a cluster above 128, up to
+    384), the cluster backward in bf16 above 128, or the CUDA-core hoisted
+    kernel
     (shape-only tensors on the meta device stand for the card's; the
     launchers are recorded, not run, and the tensor-core ones hand back
     their padded xw and W_h as dxw and dW_h, which the padding slices
@@ -523,11 +528,12 @@ def test_hoisted_autograd_routes_by_dtype(cuda, cell):
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_backward(cuda):
     """Widths the tensor cores do not take keep the CUDA-core backward:
-    float32 above 128 and bf16 past the cluster kernel's 512 (every
-    narrower width, odd or not, is padded onto the tensor cores)."""
+    float32 past the 3xTF32 cluster kernel's 384 and bf16 past the cluster
+    kernel's 512 (every narrower width, odd or not, is padded onto the
+    tensor cores)."""
     _build.reset_launch_counts()
     for cell in ("lstm", "gru"):
-        for dtype, H in ((torch.float32, 136), (torch.bfloat16, 520)):
+        for dtype, H in ((torch.float32, 392), (torch.bfloat16, 520)):
             args = _bwd_inputs(cell, 5, 3, H, H, cuda, dtype)
             R.rnn_scan_fused_bwd(cell, *args)
     counts = _build.launch_counts()

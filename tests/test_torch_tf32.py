@@ -68,17 +68,21 @@ def source_constant(path, name):
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H", [8, 16, 120, 128, 144])
+@pytest.mark.parametrize("H", [8, 16, 120, 128, 144, 384, 400])
 def test_route_table(direction, dtype, H):
     """(direction, dtype, H) → kernel: every H <= 128 runs on the tensor
     cores (a width off a multiple of 16, 8 and 120 here, zero-padded to
     the next: ``ops/rnn.py padded_launch``); there bf16 takes the bf16
     tensor cores both ways and float32 the 3xTF32 kernels both ways; H >
     128 the CUDA cores, but for bf16, which runs on the tensor cores with
-    W_h split across a cluster both ways."""
+    W_h split across a cluster both ways, and the float32 backward, which
+    runs on the 3xTF32 kernels on a cluster up to 384."""
     tc = H <= 128
     if not tc:
         want = "cluster" if dtype == torch.bfloat16 else "simt"
+        if (dtype == torch.float32 and direction == "bwd"
+                and H <= R.TF32_MAX_WIDTH):
+            want = "tf32"
     elif dtype == torch.bfloat16:
         want = "mma"
     else:
