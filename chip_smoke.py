@@ -315,23 +315,28 @@ HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
 # The widths of the float32 rows beside the c2 step's 128: one off a
 # multiple of 16, which runs zero-padded on the 3xTF32 kernels, and one
 # above 128, where the forwards run on the CUDA cores and the backwards on
-# the 3xTF32 kernels on a cluster; and one past the 3xTF32 backward's 384,
-# whose training runs are the CUDA-core backward's (rnn_bwd.cu) main path.
+# the 3xTF32 kernels on a cluster; and one past the 3xTF32 cluster's 384,
+# whose training runs are the grid backward's (rnn_bwd_tf32_grid.cu) main
+# path. A bf16 width past the cluster kernels' 512, whose training runs are
+# the CUDA-core backward's (rnn_bwd.cu) main path.
 PADDED_HIDDEN = 120
 CUDA_CORE_HIDDEN = 160
 PAST_CAP_HIDDEN = 400
+CORE_BF16_HIDDEN = 528
 # The device's sleep (clock cycles, about 10 ms) while the host queues the
 # launches that device_ms times.
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
-# forwards run on the main paths in float32 at hidden 160 and 400, the
-# CUDA-core backwards at hidden 400 (past the 3xTF32 backward's 384), and
-# are measured there (B 2048, T 60; the kernels line keeps the largest
+# forwards run on the main paths in float32 at hidden 160 and 400 and in
+# bf16 at 528, the CUDA-core backwards in bf16 at hidden 528 (past the
+# cluster backward's 512); measured at hidden 400 (forwards, float32) and
+# 528 (backwards, bf16), B 2048, T 60 (the kernels line keeps the largest
 # shape). The 3xTF32 kernels (``*_tf32_*``) are measured in float32 at the
 # c2 train step, at hidden 120, zero-padded to 128, and (the backwards, on
-# a cluster) at hidden 160-384 (phase 28); the bf16 ones at the c2 train
-# step and the serving dispatches.
+# a cluster) at hidden 160-384 (phase 28), the grid backwards
+# (``*_grid_*``) at 400 (and 640, 1024: suffixed records); the bf16 ones at
+# the c2 train step and the serving dispatches.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -373,6 +378,12 @@ SOURCES = {
                                   "pallas_rnn.py:739"),
     "rnn_bwd_cluster_lstm": ("csrc/rnn_bwd_cluster.cu", "pallas_rnn.py:184"),
     "rnn_bwd_cluster_gru": ("csrc/rnn_bwd_cluster.cu", "pallas_rnn.py:243"),
+    "rnn_fused_bwd_grid_lstm": ("csrc/rnn_bwd_tf32_grid.cu",
+                                "pallas_rnn.py:673"),
+    "rnn_fused_bwd_grid_gru": ("csrc/rnn_bwd_tf32_grid.cu",
+                               "pallas_rnn.py:739"),
+    "rnn_bwd_grid_lstm": ("csrc/rnn_bwd_tf32_grid.cu", "pallas_rnn.py:184"),
+    "rnn_bwd_grid_gru": ("csrc/rnn_bwd_tf32_grid.cu", "pallas_rnn.py:243"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
 # The served universes: preset → (requests, the kernels its dispatches
@@ -419,6 +430,9 @@ SEED_SOURCES = {
     "rnn_bwd_cluster_lstm_seeds": (
         "rnn_bwd_cluster_lstm", "csrc/rnn_bwd_cluster.cu",
         "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
+    "rnn_bwd_grid_lstm_seeds": (
+        "rnn_bwd_grid_lstm", "csrc/rnn_bwd_tf32_grid.cu",
+        "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
 }
 PLAIN_STEPS = 3      # steps of each model held against the plain path
 TIMED_STEPS = 4      # steps of each model timed
@@ -450,6 +464,8 @@ CUDA_CORE = ("rnn_fused_fwd_lstm", "rnn_fused_fwd_gru", "rnn_fused_bwd_lstm",
 CUDA_CORE_BWD = tuple(k for k in CUDA_CORE if "_bwd_" in k)
 TF32 = tuple(f"rnn_{form}_tf32_{cell}" for form in ("fused_fwd", "fwd",
                                                     "fused_bwd", "bwd")
+             for cell in ("lstm", "gru"))
+GRID = tuple(f"rnn_{form}_grid_{cell}" for form in ("fused_bwd", "bwd")
              for cell in ("lstm", "gru"))
 
 
@@ -737,7 +753,7 @@ def check_small(torch, gen) -> None:
                 # takes the cluster forwards and backwards (padded to 144).
                 mma = R._mma_route(dt, H) == "mma"
                 tags = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_",
-                        "simt": ""}
+                        "grid": "grid_", "simt": ""}
                 tag = tags[R._mma_route(dt, H, "bwd")]
                 fwd_tag = tags[R._mma_route(dt, H)]
                 fwd_kernel = f"rnn_fused_fwd_{fwd_tag}{cell}"
@@ -1504,18 +1520,21 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     kernels at this H (``rnn_bwd_tf32.cu`` up to Hp 384: at H <= 128 its
     1- or 2-CTA form, zero-padded to the next multiple of 16 where H is
     off one, above 128 W_h split over a cluster of 2-16 CTAs;
-    ``rnn_bwd.cu`` past 384): each launched once per call (counted), twice
-    for bitwise equal outputs, against its plain version at scaled atol
-    1e-5, timed beside both bounds, the plain version and the
-    ``library_ms`` yardstick — at H <= 128 the weight-gradient products
-    (and, fused, dhin) as f32 ``torch.matmul`` with TF32 off; above 128
-    cuDNN's f32 backward over a saved forward (every step valid,
-    :func:`cudnn_bwd_yardstick`), the products kept as ``products_ms``.
-    The port makes neither. On the 3xTF32 route ``rnn_bwd.cu`` (its
-    private launcher) is held to the plain version and timed on the same
-    inputs, and above 128 also recorded under its own name (the table's
-    "[before]"); a cluster's size, rows and clusters at once are kept, and
-    a padded row's pads timed apart (:func:`padded_times`). Records carry
+    ``rnn_bwd_tf32_grid.cu`` past 384, to 1024): each launched once per
+    call (counted), twice for bitwise equal outputs, against its plain
+    version at scaled atol 1e-5, timed beside both bounds, the plain
+    version and the ``library_ms`` yardstick — at H <= 128 the
+    weight-gradient products (and, fused, dhin) as f32 ``torch.matmul``
+    with TF32 off; above 128 cuDNN's f32 backward over a saved forward
+    (every step valid, :func:`cudnn_bwd_yardstick`), the products kept as
+    ``products_ms``. The port makes neither. ``rnn_bwd.cu`` (its private
+    launcher) is held to the plain version and timed on the same inputs,
+    on the grid route in turns with it (grid, CUDA cores, CUDA cores,
+    grid: ``turns_ms``), and above 128 also recorded under its own name
+    (the table's "[before]"); a cluster's size, rows and clusters at once
+    (the grid's group, rows, groups and CTAs at once) are kept, at Hp 384
+    the grid kernel is timed beside the cluster form for the record, and a
+    padded row's pads timed apart (:func:`padded_times`). Records carry
     ``name_suffix``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
@@ -1523,7 +1542,7 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     B, T, H = hin.shape
     dev = hin.device
     route = R._mma_route(torch.float32, H, "bwd")
-    tag = "tf32_" if route == "tf32" else ""
+    tag = {"tf32": "tf32_", "grid": "grid_"}.get(route, "")
     wide = H > 128
     torch.backends.cuda.matmul.allow_tf32 = False
     for kind, fused in (("fused_bwd", True), ("bwd", False)):
@@ -1557,7 +1576,7 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
             return R._launch_bwd(cell, f, *a, 1.0)
 
         core_err = None
-        if route == "tf32":
+        if route in ("tf32", "grid"):
             _build.reset_launch_counts()
             got = core()
             if _build.launch_counts()[core_name] != 1:
@@ -1596,10 +1615,45 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                       plain_ms=time_ms(lambda a=args: plain(*a),
                                        reps=plain_reps, warmup=1),
                       **f32_bounds(kind, cell, B, T, H), **library)
+        # Fewer readings past 400, where a call takes up to 0.2 s.
         rec = dict(max_abs_err=err, wgrad_scaled_err=wgrad_err,
-                   bitwise_repeatable=True, **kernel_ms(run, reps=5,
-                                                        launches=2),
+                   bitwise_repeatable=True,
+                   **kernel_ms(run, reps=5 if H <= 400 else 2,
+                               launches=2 if H <= 400 else 1),
                    **common)
+        if route == "grid":
+            # In turns with rnn_bwd.cu on the same inputs (one reading each
+            # past 400: a CUDA-core call takes up to seconds there).
+            cc = kernel_ms(core, reps=2 if H <= 400 else 1, launches=1)
+            again = time_ms(core, reps=1, warmup=0)
+            rec.update(cuda_core_ms=cc["ms"],
+                       cuda_core_device_ms=cc["device_ms"],
+                       cuda_core_max_abs_err=core_err,
+                       turns_ms=dict(grid=[rec["ms"], time_ms(run, reps=3)],
+                                     cuda_core=[cc["ms"], again]),
+                       **grid_shape(torch, cell, B, H, dev))
+            report(kernels, core_name + name_suffix, where, dict(
+                max_abs_err=core_err,
+                rows_per_block=R._simt_rows(cell, kind, H, dev), **cc,
+                **common))
+        if route == "tf32" and H == 384:
+            # For the record: the grid kernel at the cluster form's cap.
+            def grid(a=args[1:] if fused else (xw, None, None) + args[2:],
+                     f=fused):
+                return R._launch_bwd_grid(cell, f, *a, 1.0)
+            _build.reset_launch_counts()
+            got = grid()
+            if _build.launch_counts()[f"rnn_{'fused_' if fused else ''}"
+                                      f"bwd_grid_{cell}"] != 1:
+                fail(f"the grid backward at H 384: launched "
+                     f"{_build.launch_counts()}")
+            g_err = grads_close(f"the grid {kind} at {where}", got,
+                                plain(*args), torch.float32)
+            del got
+            gt = kernel_ms(grid, reps=3, launches=2)
+            rec.update(grid_ms=gt["ms"], grid_device_ms=gt["device_ms"],
+                       grid_max_abs_err=g_err,
+                       grid_shape=grid_shape(torch, cell, B, H, dev))
         if route == "tf32":
             cc = kernel_ms(core, reps=2 if wide else 5, launches=2)
             rec.update(cuda_core_ms=cc["ms"],
@@ -1626,6 +1680,11 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
             + (f"{rec['cluster']} CTAs x {rec['rows_per_cluster']} rows a "
                f"cluster, {rec['clusters_at_once']} at once, "
                if "cluster" in rec else "")
+            + (f"{rec['groups']} groups of {rec['group']} CTAs x "
+               f"{rec['rows']} rows, {rec['ctas_at_once']} CTAs at once, "
+               f"in turns {rec['turns_ms']}, " if "group" in rec else "")
+            + (f"the grid kernel {rec['grid_ms']:.4f} ms (device "
+               f"{rec['grid_device_ms']:.4f}), " if "grid_ms" in rec else "")
             + f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}"
             + (f", pads {rec['pad_ms']:.4f}" if "pad_ms" in rec else "")
             + "), rnn_bwd.cu "
@@ -1635,6 +1694,21 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
             f"{rec['plain_ms']:.4f}, library {rec['library_ms']} "
             f"({rec.get('library_note', 'products')})")
         torch.cuda.empty_cache()
+
+
+def grid_shape(torch, cell: str, B: int, H: int, dev) -> dict:
+    """The grid backward's launch at this shape (one seed): CTAs a group,
+    rows a work item, groups, CTAs the card holds at once."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    props = torch.cuda.get_device_properties(dev)
+    limit, sms = (props.shared_memory_per_block_optin,
+                  props.multi_processor_count)
+    n = R._grid_size(cell, H, limit, sms)
+    rows = R._grid_rows(cell, H, n, B, 1, limit, sms)
+    ctas = R._grid_check(cell, H, n, rows, dev)
+    return dict(group=n, rows=rows, groups=min(ctas // n, -(-B // rows)),
+                ctas_at_once=ctas)
 
 
 def check_fused_bwd(torch, kernels, cell: str, hin, wx, b, wh, mm,
@@ -1895,10 +1969,16 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     # kernels zero-padded to 128): no CUDA-core kernel in any; the float32
     # four at hidden 160 (the CUDA-core forwards, the 3xTF32 backwards on
     # a cluster: no CUDA-core backward) and at hidden 400 (past the 3xTF32
-    # backward: the CUDA-core forwards and backwards): a few steps each.
+    # cluster: the CUDA-core forwards and the grid backwards, no CUDA-core
+    # backward); the bf16 four at hidden 528 (past the cluster kernels:
+    # the CUDA-core forwards and backwards): a few steps each.
     h120 = dict(cfg.model.kwargs, hidden=PADDED_HIDDEN)
     h160 = dict(cfg.model.kwargs, hidden=CUDA_CORE_HIDDEN)
     h400 = dict(cfg.model.kwargs, hidden=PAST_CAP_HIDDEN)
+    h528 = dict(cfg.model.kwargs, hidden=CORE_BF16_HIDDEN)
+    # Past 512 in bf16 no tensor-core kernel runs.
+    not_core = TF32 + GRID + tuple(k for k in _build.LAUNCHES
+                                   if "_mma_" in k or "_cluster_" in k)
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
              ("rnn_fwd_mma_lstm", "rnn_bwd_mma_lstm", "window_gather"),
              CUDA_CORE),
@@ -1960,19 +2040,34 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
              CUDA_CORE_BWD),
             ("c2 training (fused, float32, hidden 400)",
              train_variant(cfg, bf16=False, kwargs=h400),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
-             TF32),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_grid_lstm",
+              "window_gather"), TF32 + CUDA_CORE_BWD),
             ("c2 training (hoisted, float32, hidden 400)",
              train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h400),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), TF32),
+             ("rnn_fwd_lstm", "rnn_bwd_grid_lstm", "window_gather"),
+             TF32 + CUDA_CORE_BWD),
             ("GRU training (fused, float32, hidden 400)",
              train_variant(cfg, kind="gru", bf16=False, kwargs=h400),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
-             TF32),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_grid_gru",
+              "window_gather"), TF32 + CUDA_CORE_BWD),
             ("GRU training (hoisted, float32, hidden 400)",
              train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
                            kwargs=h400),
-             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather"), TF32))
+             ("rnn_fwd_gru", "rnn_bwd_grid_gru", "window_gather"),
+             TF32 + CUDA_CORE_BWD),
+            ("c2 training (fused, hidden 528)", train_variant(cfg, kwargs=h528),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
+             not_core),
+            ("c2 training (hoisted, hidden 528)",
+             train_variant(cfg, scan_impl="pallas", kwargs=h528),
+             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), not_core),
+            ("GRU training (fused, hidden 528)",
+             train_variant(cfg, kind="gru", kwargs=h528),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
+             not_core),
+            ("GRU training (hoisted, hidden 528)",
+             train_variant(cfg, kind="gru", scan_impl="pallas", kwargs=h528),
+             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather"), not_core))
     for label, run_cfg, must, must_not in runs:
         got, counts = counted(label, must, lambda: short_run(
             torch, run_cfg, splits, TRAIN_STEPS_SHORT), must_not)
@@ -6173,11 +6268,13 @@ def stacked_phase(torch, cfg2, panel, totals: dict, seed_launches: dict,
 # ---------------------------------------------------------------------------
 
 WIDE_HIDDEN = 256         # phase 28's model: c2 at a width past the caps
-WIDE_WIDTHS = (320, 512)  # rows 1-4 held at these widths too
+WIDE_WIDTHS = (512,)      # rows 1-4 held at this width too
 # Rows 4 and 2 in float32 above 128: the 3xTF32 cluster's widths (its
-# cluster sizes 4, 8, 16 in the LSTM; 2, 8, 8, 16 in the GRU) and one past
-# its cap (rnn_bwd.cu); 320 and 384 have no main path (suffixed records).
-F32_WIDE_WIDTHS = (160, 256, 320, 384, PAST_CAP_HIDDEN)
+# cluster sizes 4, 8, 16 in the LSTM; 2, 8, 16 in the GRU) and the grid's
+# past its cap (its groups of 17, 40 and 128 CTAs in the LSTM; 13, 27, 64
+# in the GRU); 384, 640 and 1024 have no main path (suffixed records).
+# (320, held since PR 22, was cut for the time the grid's widths take.)
+F32_WIDE_WIDTHS = (160, 256, 384, PAST_CAP_HIDDEN, 640, 1024)
 # The float32 hoisted seed grids' main paths: the CUDA-core forward with
 # the 3xTF32 cluster backward, and past the cap both on the CUDA cores.
 GRID_F32_HIDDEN = 160
@@ -6819,12 +6916,17 @@ def f32_wide_rows(torch, kernels, gen) -> None:
     """Phase 28's float32 rows 4 and 2 above 128 (B 2048, T 60, seeded
     weights at H^-1/2, both cells) at :data:`F32_WIDE_WIDTHS`, through
     :func:`f32_bwd_rows`: the 3xTF32 cluster (its size, rows and clusters
-    at once) beside ``rnn_bwd.cu`` on the same inputs (also recorded under
-    its own name), the plain version, both bounds and cuDNN's f32
-    backward; past 384 ``rnn_bwd.cu`` itself. Then, at hidden 256, the
-    3xTF32 cluster's seed grids (S 3, W_h shared; fused and hoisted: one
-    counted call, each seed bitwise its one-seed call) and a cluster the
-    card refuses (the LSTM's 384 on 8 CTAs), which must raise."""
+    at once) up to 384 and the grid (its group, rows and groups) past it,
+    beside ``rnn_bwd.cu`` on the same inputs (also recorded under its own
+    name), the plain version, both bounds and cuDNN's f32 backward. At
+    hidden 256 the 3xTF32 cluster's seed grids (S 3, W_h shared; fused and
+    hoisted: one counted call, each seed bitwise its one-seed call); at
+    :data:`PAST_CAP_HIDDEN` rows 3 and 1 on ``rnn_fused_fwd.cu``
+    (:func:`f32_fwd_rows`), row 4's split by kernel and barrier wait
+    (:func:`grid_split`) and the grid's seed grids (:func:`grid_seeds`).
+    Then a cluster the card refuses (the LSTM's 384 on 8 CTAs) and a grid
+    it cannot hold at once (one group more than it takes), which must
+    raise."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -6842,9 +6944,19 @@ def f32_wide_rows(torch, kernels, gen) -> None:
             xw = hin @ wx + bb
             with torch.no_grad():
                 h, c = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
-            f32_bwd_rows(torch, kernels, f"B {B}, T {T}, H {H}", cell, hin,
-                         wx, bb, wh, mm, h, c, dh, xw, plain_reps=1,
-                         name_suffix=f"@h{H}" if H in (320, 384) else "")
+            where = f"B {B}, T {T}, H {H}"
+            f32_bwd_rows(torch, kernels, where, cell, hin, wx, bb, wh, mm, h,
+                         c, dh, xw, plain_reps=1,
+                         name_suffix=f"@h{H}" if H in (384, 640, 1024)
+                         else "")
+            if H == PAST_CAP_HIDDEN:
+                f32_fwd_rows(torch, kernels, where, cell, hin, wx, bb, wh, mm,
+                             xw)
+                grid_split(torch, kernels, where, cell, hin, wx, bb, wh, mm,
+                           h, c, dh)
+                if cell == "lstm":
+                    grid_seeds(torch, kernels, cell, hin, wx, bb, wh, mm, dh,
+                               xw)
             if H == WIDE_HIDDEN and cell == "lstm":
                 S = GRID_SEEDS
                 stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
@@ -6905,6 +7017,274 @@ def f32_wide_rows(torch, kernels, gen) -> None:
     if any(_build.launch_counts().values()):
         fail(f"a refused cluster launched {_build.launch_counts()}")
     del hin, wx, wh, bb, mm, h, c
+    # Nor a grid: one group more than the card holds at once raises.
+    hin = torch.randn(37, 3, 400, **f32)
+    wx, wh = (400 ** -0.5 * torch.randn(400, 1600, **f32) for _ in range(2))
+    bb = torch.zeros(1600, device="cuda")
+    mm = torch.ones(37, 3, dtype=torch.bool, device="cuda")
+    h, c = R.rnn_scan_states("lstm", hin @ wx + bb, wh, mm, 1.0, True)
+    shape = grid_shape(torch, "lstm", 37, 400, hin.device)
+    n, ctas = shape["group"], shape["ctas_at_once"]
+    _build.reset_launch_counts()
+    try:
+        R._launch_bwd_grid("lstm", True, hin, wx, bb, wh, mm, h, c, h, 1.0,
+                           group=n, rows=64, groups=ctas // n + 1)
+    except RuntimeError as exc:
+        log(f"the LSTM at H 400 on {ctas // n + 1} groups of {n} CTAs "
+            f"({ctas} at once) is refused: {exc}")
+    else:
+        fail(f"the LSTM at H 400 ran {ctas // n + 1} groups of {n} CTAs, "
+             f"more than the card's {ctas} at once")
+    if any(_build.launch_counts().values()):
+        fail(f"a refused grid launched {_build.launch_counts()}")
+    del hin, wx, wh, bb, mm, h, c
+    torch.cuda.empty_cache()
+
+
+def core_bf16_rows(torch, kernels, gen) -> None:
+    """Rows 4 and 2 in bf16 at :data:`CORE_BF16_HIDDEN` (B 2048, T 60,
+    seeded weights at H^-1/2, both cells), the CUDA-core backward's
+    (``rnn_bwd.cu``) main path since the float32 rows past 384 moved to
+    the grid: through the public backwards, one counted call each, within
+    the bf16 bound of the plain version (gradients scaled, 0.05), timed
+    beside the bound, the plain version and cuDNN's backward, recorded
+    under the kernel's own name."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = 2048, 60, CORE_BF16_HIDDEN
+    bf = torch.bfloat16
+    rnd = dict(generator=gen, device="cuda")
+    for cell in ("lstm", "gru"):
+        G = GATES[cell] * H
+        hin = torch.randn(B, T, H, **rnd).to(bf)
+        wx, wh = ((H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
+                  for _ in range(2))
+        b = (0.1 * torch.randn(G, **rnd)).to(bf)
+        mm = torch.rand(B, T, **rnd) < 0.75
+        dh = (0.1 * torch.randn(B, T, H, **rnd)).to(bf)
+        xw32 = hin.float() @ wx.float() + b.float()
+        xw = xw32.to(bf)
+        where = f"B {B}, T {T}, H {H}"
+        for kind, fused in (("fused_bwd", True), ("bwd", False)):
+            name = f"rnn_{'fused_' if fused else ''}bwd_{cell}"
+            h, c = R.rnn_scan_states(cell, xw32 if fused else xw, wh, mm,
+                                     1.0, True)
+            h, c = h.to(bf), None if c is None else c.to(bf)
+            if fused:
+                args = (cell, hin, wx, b, wh, mm, h, c, dh)
+                public, plain = (R.rnn_scan_fused_bwd,
+                                 R.rnn_scan_fused_bwd_reference)
+            else:
+                args = (cell, xw, wh, mm, h, c, dh)
+                public, plain = R.rnn_scan_bwd, R.rnn_scan_bwd_reference
+            if R._mma_route(bf, H, "bwd") != "simt":
+                fail(f"bf16 hidden {H} is not on rnn_bwd.cu")
+            _build.reset_launch_counts()
+            got = public(*args)
+            counts = _build.launch_counts()
+            if counts[name] != 1 or sum(counts.values()) != 1:
+                fail(f"{name} (bf16) at {where}: launched {counts}")
+            err = grads_close(f"{name} (bf16) at {where}", got,
+                              plain(*args), bf)
+            del got
+            library = cudnn_bwd_yardstick(torch, cell, hin if fused else xw,
+                                          wx, b, wh, dh, hoisted=not fused)
+            torch.cuda.empty_cache()
+            bound, by = rnn_bound(kind, cell, B, T, H, 2)
+            rec = dict(shape=[B, T, H], dtype="bfloat16", max_abs_err=err,
+                       tolerance=f"scaled atol {BF16_TOL}",
+                       rows_per_block=R._simt_rows(cell, kind, H,
+                                                   hin.device),
+                       **kernel_ms(lambda a=args, f=public: f(*a), reps=2,
+                                   launches=1),
+                       plain_ms=time_ms(lambda a=args, f=plain: f(*a),
+                                        reps=1, warmup=1),
+                       bound_ms=bound, bound_by=by, **library)
+            report(kernels, name, where, rec)
+            log(f"{name} (bf16) at {where}: {rec['ms']:.4f} ms (device "
+                f"{rec['device_ms']:.4f}), bound {bound:.4f}, plain "
+                f"{rec['plain_ms']:.4f}, library {rec['library_ms']}, max "
+                f"err {err:.3g}")
+            del h, c
+            torch.cuda.empty_cache()
+        del hin, wx, wh, b, mm, dh, xw32, xw
+        torch.cuda.empty_cache()
+
+
+#: The grid recurrence's kernels by name (substrings of the profiler's
+#: names) → the part of row 4 each is.
+GRID_PARTS = {"xw GEMM": "tf32_gemm_kernel<false, false>",
+              "gates GEMM": "tf32_gemm_kernel<false, true>",
+              "dhin GEMM": "tf32_gemm_kernel<true, false>",
+              "recurrence": "rnn_bwd_tf32_grid_kernel",
+              "weight gradients": "rnn_bwd_tf32_wgrad_kernel",
+              "slices' sum": "rnn_bwd_tf32_slices_kernel"}
+
+
+def grid_split(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
+               h, c, dh) -> None:
+    """Row 4 on the grid backward split by kernel (:data:`GRID_PARTS`,
+    device ms by ``torch.profiler`` over two calls, halved; where the
+    profiler sees no device time, :func:`grid_split_elsewhere`), the
+    recurrence's barrier waits (each CTA's SM cycles waiting at its
+    group's barriers over its cycles in all, by the kernel's own clock:
+    mean and largest share, and that share of the recurrence's ms), and
+    the all-gather's bytes (every CTA of a group reads the group's whole
+    d_hw row block each step but the last) with their rate over the
+    recurrence's device time. Recorded as ``<row>_split`` (informational:
+    after the counted runs)."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    stats = {}
+
+    def run():
+        return R._launch_bwd_grid(cell, True, hin, wx, b, wh, mm, h, c, dh,
+                                  1.0, stats=stats)
+
+    run()
+    torch.cuda.synchronize()
+    by_name = profile_device(torch, lambda: [run() for _ in range(2)],
+                             f"row 4 on the grid ({cell}, {where})")
+    torch.cuda.synchronize()
+    source = "this process"
+    if by_name:
+        by_name = {k: ms / 2 for k, ms in by_name.items()}
+    else:
+        # Late in the whole script the profiler has seen no device time
+        # here (on the card it did in a process of its own): the same
+        # split from a fresh process, the picked pair's kernels at H 400.
+        by_name = grid_split_elsewhere(cell)
+        source = "scripts/torch_cluster_variants.py --direction bwd_grid"
+    cyc = stats["cycles"].double().cpu()
+    share = cyc[:, 0] / cyc[:, 1]
+    split = {part: sum(ms for name, ms in by_name.items() if key in name)
+             for part, key in GRID_PARTS.items()}
+    split["other"] = sum(by_name.values()) - sum(split.values())
+    n, rows = stats["group"], stats["rows"]
+    gathered = ((T - 1) * -(-B // rows) * n * rows * GATES[cell] * H * 4)
+    rec = dict(shape=[B, T, H], dtype="float32", device_ms_by_part=split,
+               split_measured_in=source, group=n, rows=rows,
+               groups=stats["groups"],
+               barrier_wait_share_mean=float(share.mean()),
+               barrier_wait_share_max=float(share.max()),
+               barrier_wait_ms=float(share.mean()) * split["recurrence"],
+               all_gather_bytes=gathered,
+               all_gather_gb_per_s=(gathered / split["recurrence"] / 1e6
+                                    if split["recurrence"] else None))
+    report(kernels, f"rnn_fused_bwd_grid_{cell}_split", where, rec)
+    log(f"row 4 on the grid ({cell}, {where}): device ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; barrier waits {100 * float(share.mean()):.1f}% of the "
+        f"recurrence's cycles (largest {100 * float(share.max()):.1f}%); "
+        f"all-gather {gathered / 1e9:.2f} GB at "
+        f"{rec['all_gather_gb_per_s']} GB/s")
+    del stats
+    torch.cuda.empty_cache()
+
+
+_SPLIT_ELSEWHERE: dict = {}
+
+
+def grid_split_elsewhere(cell: str) -> dict:
+    """Row 4 on the grid at B 2048, T 60, H :data:`PAST_CAP_HIDDEN` split
+    by kernel in a process of its own (``scripts/torch_cluster_variants.py
+    --direction bwd_grid --picked-only``, both cells in one run, kept for
+    the second): device ms a call by kernel name."""
+    if cell not in _SPLIT_ELSEWHERE:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "split.jsonl")
+            run = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "scripts",
+                                              "torch_cluster_variants.py"),
+                 "--direction", "bwd_grid", "--picked-only", "--reps", "1",
+                 "--widths", str(PAST_CAP_HIDDEN), "--out", out],
+                env=cli_env(), cwd=ROOT, capture_output=True, text=True,
+                timeout=300)
+            if run.returncode != 0:
+                # Informational: the split then reads "not measured".
+                log(f"the grid's split in a fresh process failed (not "
+                    f"measured): {run.stderr[-1000:]}")
+                return {}
+            with open(out) as fh:
+                for line in fh:
+                    rec = json.loads(line)
+                    if rec.get("picked") and rec["form"] == "fused_bwd":
+                        _SPLIT_ELSEWHERE[rec["cell"]] = rec["kernels_ms"]
+    return _SPLIT_ELSEWHERE.get(cell, {})
+
+
+def grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
+               xw) -> None:
+    """The grid backward's seed grids at :data:`PAST_CAP_HIDDEN` (S 3, W_h
+    shared): fused and hoisted, one counted call each, each seed bitwise
+    its one-seed call; the hoisted one held to the plain version per seed
+    (scaled atol 1e-5) and timed beside its bound, three one-seed calls,
+    the plain version and one f32 ``torch.bmm`` of the per-seed dW_h
+    products, as ``rnn_bwd_grid_<cell>_seeds``."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    S = GRID_SEEDS
+    B, T, H = hin.shape
+    stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
+    xw3, hin3, dh3 = (stack(t, lambda v: -v) for t in (xw, hin, dh))
+    wx3, b3 = stack(wx, lambda v: 0.9 * v), stack(b, lambda v: -v)
+    m3 = stack(mm, lambda v: ~v)
+    with torch.no_grad():
+        sx = R._scan_states_any(cell, xw3, wh[None], m3, 1.0, True)
+        sf = R._fused_states(cell, hin3, wx3, b3, wh[None], m3, 1.0, True)
+    pick = (lambda st, s: tuple(None if t is None else t[s] for t in st))
+    hoisted = (lambda: R.rnn_scan_bwd(cell, xw3, wh[None], m3, *sx, dh3))
+    one = (lambda s: R.rnn_scan_bwd(cell, xw3[s], wh, m3[s], *pick(sx, s),
+                                    dh3[s]))
+    for name, run, single in (
+            (f"rnn_bwd_grid_{cell}", hoisted, one),
+            (f"rnn_fused_bwd_grid_{cell}",
+             lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3, wh[None], m3,
+                                          *sf, dh3),
+             lambda s: R.rnn_scan_fused_bwd(cell, hin3[s], wx3[s], b3[s], wh,
+                                            m3[s], *pick(sf, s), dh3[s]))):
+        _build.reset_launch_counts()
+        got = run()
+        counts = _build.launch_counts()
+        if counts[name] != 1 or sum(counts.values()) != 1:
+            fail(f"{name} seed grid at H {H}: launched {counts}")
+        seed_grid_held(torch, f"{name} seed grid (float32, H {H}, W_h "
+                       f"shared)", got, single, range(S))
+        if name.startswith("rnn_bwd_"):
+            err = max(grads_close(
+                f"{name} seed grid seed {s}", tuple(g[s] for g in got),
+                R.rnn_scan_bwd_reference(cell, xw3[s], wh, m3[s],
+                                         *pick(sx, s), dh3[s]),
+                torch.float32) for s in range(S))
+        del got
+    del hin3, wx3, b3, sf
+    bound, by = rnn_bound("bwd", cell, B, T, H, 4, seeds=S)
+    a = torch.randn(S, H, B * T, device="cuda")
+    d = torch.randn(S, B * T, GATES[cell] * H, device="cuda")
+    library = time_ms(lambda: torch.bmm(a, d), reps=3)
+    del a, d
+    rec = dict(shape=[S, B, T, H], dtype="float32", shared="W_h",
+               bitwise_vs_single=True, seeds_checked=S, max_abs_err=err,
+               tolerance=f"scaled atol {F32_TOL}",
+               **kernel_ms(hoisted, reps=3, launches=1),
+               single_seed_loop_ms=time_ms(
+                   lambda: [one(s) for s in range(S)], reps=2, warmup=1),
+               plain_ms=time_ms(lambda: [R.rnn_scan_bwd_reference(
+                   cell, xw3[s], wh, m3[s], *pick(sx, s), dh3[s])
+                   for s in range(S)], reps=1, warmup=1),
+               bound_ms=bound, bound_by=by, library_ms=library)
+    report(kernels, f"rnn_bwd_grid_{cell}_seeds", f"B {B}, T {T}, H {H}",
+           rec)
+    log(f"grid seed grids at H {H} (S {S}, W_h shared): one call each, "
+        f"every seed bitwise its one-seed call; hoisted {rec['ms']:.4f} ms "
+        f"against {S} one-seed calls' {rec['single_seed_loop_ms']:.4f}, "
+        f"max err {err:.3g}")
+    del xw3, dh3, m3, sx
     torch.cuda.empty_cache()
 
 
@@ -6947,8 +7327,9 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     on the tensor cores with W_h split across a cluster both ways
     (``rnn_fwd_cluster.cu``, ``rnn_bwd_cluster.cu``), the float32
     backwards above 128 on the 3xTF32 tensor cores on a cluster
-    (``rnn_bwd_tf32.cu``), and the seed grids of rows 1 and 2 off the H <=
-    128 tensor cores.
+    (``rnn_bwd_tf32.cu``) and past 384 on the grid
+    (``rnn_bwd_tf32_grid.cu``), and the seed grids of rows 1 and 2 off the
+    H <= 128 tensor cores.
 
     (a) c2 at ``{"hidden": 256}`` (:data:`WIDE_HIDDEN`), LSTM and GRU,
     bf16: rows 1-4 at its train step (the layer-0 input of a real index
@@ -6962,14 +7343,16 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     ``ScoringService`` universe (:data:`WIDE_REQUESTS` requests from 4
     threads, counted likewise, every score held to the plain path); (c)
     rows 1-4 at :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at
-    H^-1/2) against their plain versions, each timed, and rows 4 and 2 in
-    float32 at :data:`F32_WIDE_WIDTHS` (:func:`f32_wide_rows`); (d) the
+    H^-1/2) against their plain versions, each timed, rows 4 and 2 in
+    float32 at :data:`F32_WIDE_WIDTHS` (:func:`f32_wide_rows`) and in bf16
+    at :data:`CORE_BF16_HIDDEN` (:func:`core_bf16_rows`); (d) the
     seed grids at hidden 256 (:func:`wide_seed_grid`) and, as the main
     paths of the hoisted forms' grids, 3-seed c2 ensembles with
     ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward and
     backward), float32 at hidden 128 (3xTF32), at :data:`GRID_F32_HIDDEN`
     (the CUDA-core forward, the 3xTF32 cluster backward) and at
-    :data:`PAST_CAP_HIDDEN` (the CUDA cores both ways), for
+    :data:`PAST_CAP_HIDDEN` (the CUDA-core forward, the grid backward),
+    and bf16 at :data:`CORE_BF16_HIDDEN` (the CUDA cores both ways), for
     :data:`GRID_STEPS` steps each, counted into ``seed_launches``, held to
     the plain path. Single-seed launches go to ``totals``."""
     from lfm_quant_tpu_torch.ops import _build
@@ -7093,6 +7476,7 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
             del hin, wx, wh, bb, mm, dh
             torch.cuda.empty_cache()
     f32_wide_rows(torch, kernels, gen)
+    core_bf16_rows(torch, kernels, gen)
 
     # The hoisted forms' seed grids on a main path: 3-seed ensembles.
     for label, run_cfg, must in (
@@ -7116,6 +7500,11 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
              train_variant(cfg2, scan_impl="pallas", bf16=False,
                            kwargs=dict(cfg2.model.kwargs,
                                        hidden=PAST_CAP_HIDDEN)),
+             ("rnn_fwd_lstm", "rnn_bwd_grid_lstm", "window_gather")),
+            (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, hidden "
+             f"{CORE_BF16_HIDDEN})",
+             train_variant(cfg2, scan_impl="pallas", kwargs=dict(
+                 cfg2.model.kwargs, hidden=CORE_BF16_HIDDEN)),
              ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"))):
         run_cfg = dataclasses.replace(run_cfg, n_seeds=GRID_SEEDS)
         got, counts = counted(label, must, lambda: ensemble_steps(

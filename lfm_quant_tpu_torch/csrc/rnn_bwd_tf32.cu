@@ -18,7 +18,8 @@
 // sum is added to an f32 register (the recurrence's products: kChainK; the
 // weight gradients and the GEMM: one stage). The cell's arithmetic is f32
 // with the accurate expf/tanhf and the rounding points of csrc/rnn_bwd.cu
-// (cell_bwd below, shared by both recurrence kernels).
+// (the header's cell_bwd, shared by both recurrence kernels here and by
+// csrc/rnn_bwd_tf32_grid.cu, which also takes kernels 2 and 3 from it).
 //
 // Bound. At the c2 train step (B 2048, T 60, H 128, LSTM, f32) the fused
 // function is 6 products of 2 H G H per row and step: 9.7e10 operations,
@@ -99,6 +100,7 @@ namespace {
 using lfm_mma::cp_async16;
 using lfm_mma::cp_async_commit;
 using lfm_mma::cp_async_wait_all;
+using lfm_tf32::cell_bwd;
 using lfm_tf32::cluster_arrive;
 using lfm_tf32::cluster_wait;
 using lfm_tf32::frag_a;
@@ -106,13 +108,19 @@ using lfm_tf32::frag_b;
 using lfm_tf32::FragA;
 using lfm_tf32::FragB;
 using lfm_tf32::kChainK;
+using lfm_tf32::kGru;
+using lfm_tf32::kLstm;
+using lfm_tf32::kWgCols;
+using lfm_tf32::kWgOut;
+using lfm_tf32::kWgThreads;
 using lfm_tf32::launch_gemm;
 using lfm_tf32::mma3;
+using lfm_tf32::rnn_bwd_tf32_slices_kernel;
+using lfm_tf32::rnn_bwd_tf32_wgrad_kernel;
 using lfm_tf32::SeedStrides;
 using lfm_tf32::sigmoid;
+using lfm_tf32::wgrad_smem_bytes;
 
-constexpr int kLstm = 0;
-constexpr int kGru = 1;
 constexpr int kUnits = 8;     // hidden units per warp of kernel 1
 constexpr int kRowTiles = 2;  // 16-row tiles per CTA of kernel 1 at H <= 128
 // Kernel 1 above 128: the widest Hp, the largest cluster, and the output
@@ -122,12 +130,6 @@ constexpr int kRowTiles = 2;  // 16-row tiles per CTA of kernel 1 at H <= 128
 constexpr int kMaxWidth = 384;
 constexpr int kMaxCluster = 16;
 constexpr int kChunks = 4;
-// Kernel 2: gate columns and output rows per block, rows per stage,
-// threads.
-constexpr int kWgCols = 64;
-constexpr int kWgOut = 128;
-constexpr int kWgRows = 32;
-constexpr int kWgThreads = 256;
 
 // Kernel 1's threads per CTA at most above 128, by 16-row tiles: the
 // registers of the recompute's sums, xw_t, the carries and the carry
@@ -161,59 +163,7 @@ inline size_t recur_smem_bytes(int G, int H, int C, int rows) {
               (size_t)C * rows * recv_ld(H, C));
 }
 
-// Kernel 2's: two stages of the A tile [kWgRows][min(H, 128) + 8] and the
-// D tile [kWgRows][kWgCols + 8], f32.
-inline size_t wgrad_smem_bytes(int H) {
-  const size_t KW = H < kWgOut ? H : kWgOut;
-  return 4 * 2 * ((size_t)kWgRows * (KW + 8) + (size_t)kWgRows * (kWgCols + 8));
-}
 
-// The cell's backward at one (row, unit), in registers, from its gate
-// pre-activations a: LSTM x + h of i, f (without the forget bias), g, o;
-// GRU x + h of z and r, then n's x side and its h side. dup: the upstream
-// dh_t; kp 1 on a valid step, else 0; c_t, c_prev (LSTM) and h_prev (GRU)
-// the saved states. Out: dg the G gate gradients (d_xw; the GRU's dg[3]
-// = dn r, the h side of n's), and the carries dhc (and dcc) updated but
-// for the carry's product. csrc/rnn_bwd.cu's formulas and rounding points.
-template <int CELL>
-__device__ __forceinline__ void cell_bwd(const float (&a)[4], float dup,
-                                         float kp, float c_t, float c_prev,
-                                         float h_prev, float forget_bias,
-                                         float& dhc, float& dcc,
-                                         float (&dg)[4]) {
-  const float dh_t = dup + dhc;
-  const float dh_new = kp * dh_t;
-  if (CELL == kLstm) {
-    const float ig = sigmoid(a[0]);
-    const float fg = sigmoid(a[1] + forget_bias);
-    const float gg = tanhf(a[2]);
-    const float og = sigmoid(a[3]);
-    const float dc_t = dcc;
-    const float dc_new = kp * dc_t;
-    const float tc = tanhf(c_t);
-    const float do_ = dh_new * tc;
-    const float dc_tot = dc_new + dh_new * og * (1.0f - tc * tc);
-    dg[0] = (dc_tot * gg) * ig * (1.0f - ig);
-    dg[1] = (dc_tot * c_prev) * fg * (1.0f - fg);
-    dg[2] = (dc_tot * ig) * (1.0f - gg * gg);
-    dg[3] = do_ * og * (1.0f - og);
-    dhc = (1.0f - kp) * dh_t;
-    dcc = (1.0f - kp) * dc_t + dc_tot * fg;
-  } else {
-    const float z = sigmoid(a[0]);
-    const float rg = sigmoid(a[1]);
-    const float hn = a[3];
-    const float n = tanhf(a[2] + rg * hn);
-    const float dz = dh_new * (h_prev - n);
-    const float dn_raw = dh_new * (1.0f - z) * (1.0f - n * n);
-    const float dr = dn_raw * hn;
-    dg[0] = dz * z * (1.0f - z);
-    dg[1] = dr * rg * (1.0f - rg);
-    dg[2] = dn_raw;
-    dg[3] = dn_raw * rg;
-    dhc = (1.0f - kp) * dh_t + dh_new * z;
-  }
-}
 
 // Kernel 1, per seed (blockIdx.y), CTA rank j of a cluster of C along x.
 // xw [B, T, G H] f32, the gates' x side with the bias (fused form: the
@@ -935,190 +885,6 @@ rnn_bwd_tf32_cluster_kernel(const float* xw, const float* __restrict__ wh,
   cluster_wait();
 }
 
-// Kernel 2: per seed (blockIdx.z) and row slice s, partial[seed][s] = [dW_x
-// [H, G H], db [G H], dW_h [H, G H]] (fused) or dW_h alone (hoisted) over
-// the rows m_lo .. m_hi - 1 of the seed's B T. A block computes one product
-// (fused: blockIdx.x % 2 = 0 dW_x and db, 1 dW_h; hoisted: dW_h) for the 64
-// gate columns of column tile ct and the 128 output rows of row tile ot
-// (blockIdx.x / 2, hoisted blockIdx.x, = ct + ot * column tiles), each of
-// its 8 warps 16 output rows (warps past H idle). Its A operand is hin [M, H] (seed
-// stride s_hin) or h_all [M, H] read shifted (row m takes m - 1 within its
-// sequence of Tn rows, zero at the first step); its D operand d_xw = dgx
-// [M, G H] or d_hw (the GRU's n slice from dhn [M, H], dn r; the LSTM's
-// d_hw is d_xw). Per stage of kWgRows rows both arrive by cp.async in f32
-// and are split at fragment load. (Splitting d_gates once into hi and lo
-// planes instead measured slower: its fragments double the shared-memory
-// traffic per mma.)
-template <int CELL, bool FUSED>
-__global__ void __launch_bounds__(kWgThreads, 2)
-rnn_bwd_tf32_wgrad_kernel(const float* __restrict__ hin,
-                          const float* __restrict__ h_all,
-                          const float* __restrict__ dgx,
-                          const float* __restrict__ dhn, int M, int Tn, int H,
-                          int rows_per_slice, long long s_hin,
-                          float* __restrict__ partial) {
-  constexpr int G = CELL == kLstm ? 4 : 3;
-  constexpr int LDD = kWgCols + 8;
-  const int GH = G * H;
-  const int KW = min(H, kWgOut);  // A columns staged: the block's rows
-  const int LA = KW + 8;
-  const int a_elems = kWgRows * LA;
-  const int stage_elems = a_elems + kWgRows * LDD;
-  const size_t hg = (size_t)H * GH;
-  const size_t total = FUSED ? 2 * hg + GH : hg;
-
-  extern __shared__ __align__(16) float smem[];
-
-  {
-    const size_t seed = blockIdx.z;
-    if (FUSED) hin += seed * s_hin;
-    h_all += seed * M * (size_t)H;
-    dgx += seed * M * (size_t)GH;
-    if (dhn != nullptr) dhn += seed * M * (size_t)H;
-    partial += (seed * gridDim.y) * total;
-  }
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int c4 = lane & 3;
-  // 0: dW_x and db (hin, d_xw); 1: dW_h (h_{t-1}, d_hw).
-  const int prod = FUSED ? blockIdx.x & 1 : 1;
-  const int tile = FUSED ? blockIdx.x >> 1 : blockIdx.x;
-  const int nct = (GH + kWgCols - 1) / kWgCols;
-  const int j0 = (tile % nct) * kWgCols;
-  const int k0 = (tile / nct) * kWgOut;  // the block's first output row
-  const int s = blockIdx.y;
-  const int m_lo = min(M, s * rows_per_slice);
-  const int m_hi = min(M, m_lo + rows_per_slice);
-  const int ko = warp * 16;  // the warp's first output row in the block
-  const bool active = k0 + ko < H;
-  const bool with_db = prod == 0 && k0 == 0;
-
-  auto load_stage = [&](int mb, float* dst) {
-    const int CA = KW / 4;
-    for (int i = tid; i < kWgRows * CA; i += kWgThreads) {
-      const int mm = i / CA;
-      const int k = (i - mm * CA) * 4;
-      const int mrow = mb + mm;
-      bool ok = mrow < m_hi && k0 + k < H;
-      const float* src = h_all;
-      if (prod == 0) {
-        if (ok) src = hin + (size_t)mrow * H + k0 + k;
-      } else {
-        ok = ok && mrow % Tn != 0;
-        if (ok) src = h_all + (size_t)(mrow - 1) * H + k0 + k;
-      }
-      cp_async16(dst + mm * LA + k, src, ok ? 16 : 0);
-    }
-    constexpr int CD = kWgCols / 4;
-    for (int i = tid; i < kWgRows * CD; i += kWgThreads) {
-      const int mm = i / CD;
-      const int jc = (i - mm * CD) * 4;
-      const int j = j0 + jc;
-      const int mrow = mb + mm;
-      const bool ok = mrow < m_hi && j < GH;
-      const bool nside = CELL == kGru && prod == 1 && j >= 2 * H;
-      const float* src =
-          !ok ? dgx
-              : nside ? dhn + (size_t)mrow * H + j - 2 * H
-                      : dgx + (size_t)mrow * GH + j;
-      cp_async16(dst + a_elems + mm * LDD + jc, src, ok ? 16 : 0);
-    }
-  };
-
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
-  float dbs = 0.0f;  // column tid % 64, rows tid / 64 + 4 i of each stage
-
-  if (m_lo < m_hi) load_stage(m_lo, smem);
-  cp_async_commit();
-  int it = 0;
-  for (int mb = m_lo; mb < m_hi; mb += kWgRows, ++it) {
-    const float* cur = smem + (it & 1) * stage_elems;
-    float* nxt = smem + ((it & 1) ^ 1) * stage_elems;
-    cp_async_wait_all();
-    __syncthreads();  // this stage is in place; the other one is free
-    if (mb + kWgRows < m_hi) load_stage(mb + kWgRows, nxt);
-    cp_async_commit();
-    if (with_db)
-      for (int rr = tid / kWgCols; rr < kWgRows; rr += kWgThreads / kWgCols)
-        dbs += cur[a_elems + rr * LDD + tid % kWgCols];
-    if (active) {
-      const float* A = cur + ko + g;
-      const float* D = cur + a_elems + g;
-      // The stage's sums in a fresh accumulator, added to acc in f32 (the
-      // tensor cores' accumulation truncates: chains stay 12 mma long).
-      float sacc[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < kWgRows; kk += 8) {
-        const float* p = A + (kk + c4) * LA;
-        FragA a;
-        frag_a(a, p[0], p[8], p[4 * LA], p[4 * LA + 8]);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const float* q = D + (kk + c4) * LDD + nt * 8;
-          FragB b;
-          frag_b(b, q[0], q[4 * LDD]);
-          mma3(sacc[nt], a, b);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[nt][i] += sacc[nt][i];
-    }
-  }
-
-  float* out = partial + (size_t)s * total;
-  if (active) {
-    float* o = out + (prod == 1 && FUSED ? hg + GH : 0);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int k = k0 + ko + g + 8 * half;
-        const int jj = j0 + nt * 8 + 2 * c4;
-        if (jj < GH)
-          *reinterpret_cast<float2*>(o + (size_t)k * GH + jj) =
-              make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
-      }
-  }
-  if (!with_db) return;
-  // db: the 4 row classes' sums added in a fixed order.
-  cp_async_wait_all();
-  __syncthreads();
-  smem[tid] = dbs;
-  __syncthreads();
-  if (tid < kWgCols && j0 + tid < GH) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kWgThreads / kWgCols; ++q) sum += smem[q * kWgCols + tid];
-    out[hg + j0 + tid] = sum;
-  }
-}
-
-// Kernel 3, per seed (blockIdx.y): out[seed][i] = sum_{s = 0 .. S-1}
-// partial[seed][s][i], in that order.
-__global__ void rnn_bwd_tf32_slices_kernel(const float* __restrict__ partial,
-                                           int S, int count,
-                                           float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const size_t seed = blockIdx.y;
-  partial += seed * S * (size_t)count;
-  float acc = 0.0f;
-  for (int s = 0; s < S; ++s) acc += partial[(size_t)s * count + i];
-  out[seed * count + i] = acc;
-}
 
 // Kernel 1 at H <= 128 through cudaLaunchKernelEx with a cluster of C
 // CTAs along x; refused (cudaErrorLaunchOutOfResources) when the card

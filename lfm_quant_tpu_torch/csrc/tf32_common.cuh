@@ -1,8 +1,11 @@
 // The float32 tensor-core machinery shared by the 3xTF32 recurrence kernels
-// (rnn_bwd_tf32.cu, rnn_fwd_tf32.cu): the split of an f32 operand into two
-// TF32 terms, the m16n8k8 .tf32 fragments and products, the cluster
-// barriers, the per-operand seed strides, and the backward's 3xTF32 GEMM
-// with its launcher (xw = hin @ W_x + b and dhin = d_xw @ W_x^T).
+// (rnn_bwd_tf32.cu, rnn_bwd_tf32_grid.cu, rnn_fwd_tf32.cu): the split of an
+// f32 operand into two TF32 terms, the m16n8k8 .tf32 fragments and
+// products, the cluster barriers, the per-operand seed strides, the
+// backward's 3xTF32 GEMM with its launcher (xw = hin @ W_x + b, dhin = d_xw
+// @ W_x^T and, in its gates mode, every step's gate pre-activations), the
+// cell's backward, and the backwards' weight-gradient kernels with their
+// fixed-order slice sum.
 //
 // Numerics (3xTF32). Every product with an f32 operand splits it, x = hi +
 // lo with hi = tf32(x) (10 mantissa bits, rounded to nearest, ties away
@@ -32,6 +35,7 @@ namespace {
 
 using lfm_mma::cp_async16;
 using lfm_mma::cp_async_commit;
+using lfm_mma::cp_async_wait_all;
 
 // k per mma chain of the backward's recurrence before its sum is added to
 // an f32 register (the tensor cores' f32 accumulation truncates, so long
@@ -118,9 +122,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+constexpr int kLstm = 0;
+constexpr int kGru = 1;
+// The weight-gradient kernel: gate columns and output rows per block, rows
+// per stage, threads.
+constexpr int kWgCols = 64;
+constexpr int kWgOut = 128;
+constexpr int kWgRows = 32;
+constexpr int kWgThreads = 256;
+
 // Seed strides in elements of the operands that may be shared (0: shared).
 struct SeedStrides {
   long long xw, wh, m;
+};
+
+// The GEMM's gates mode (GATES): the rows of A are read one step back
+// within each sequence of Tn rows, zero at a sequence's first step (A =
+// h_all: row m is h_{t-1}), and the product is stored split at column nx:
+// C[:, :nx] = X[:, :nx] + the product (X the x side [M, N], its seed
+// stride sX; null: C itself, in place), hn[:, :N - nx] = the product's
+// other columns (the GRU's h side of n, seed stride sHn) and C[:, nx:] =
+// X[:, nx:].
+struct GatesArgs {
+  const float* x;
+  float* hn;
+  int Tn, nx;
+  long long sX, sHn;
 };
 
 // The GEMM's shared memory: kGmStages stages of A [kGmRows][kGmK + 4] and
@@ -133,18 +160,19 @@ inline size_t gemm_smem_bytes() {
 }
 
 // Per seed (blockIdx.z): C[M, N] = A[M, K] @ B (+ bias[N]), with B = W [K,
-// N] row-major, or (TRANS_B) B = W^T for W [N, K] row-major. Output tiles
+// N] row-major, or (TRANS_B) B = W^T for W [N, K] row-major; GATES as
+// GatesArgs says (no bias). Output tiles
 // kGmRows x kGmCols, 8 warps of 32 x 32; a block walks kGmTiles tiles down
 // M (blockIdx.y) for one column tile (blockIdx.x), its (tile, k-stage)
 // sequence streamed through kGmStages shared-memory stages by cp.async
 // (zero-filled past M, N and K), so one tile's loads overlap the previous
 // tile's products and stores. K and N are multiples of 4.
-template <bool TRANS_B>
+template <bool TRANS_B, bool GATES>
 __global__ void __launch_bounds__(kGmThreads, 2)
 tf32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
                  const float* __restrict__ bias, float* __restrict__ Cout,
                  int M, int N, int K, long long sA, long long sW,
-                 long long sBias, long long sC) {
+                 long long sBias, long long sC, GatesArgs ga) {
   constexpr int LA = kGmK + 4;
   constexpr int LB = TRANS_B ? kGmK + 4 : kGmCols + 8;
   constexpr int A_EL = kGmRows * LA;
@@ -156,6 +184,10 @@ tf32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
     W += seed * sW;
     if (bias != nullptr) bias += seed * sBias;
     Cout += seed * sC;
+    if (GATES) {
+      if (ga.x != nullptr) ga.x += seed * ga.sX;
+      if (ga.hn != nullptr) ga.hn += seed * ga.sHn;
+    }
   }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -177,9 +209,12 @@ tf32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
     for (int i = tid; i < kGmRows * (kGmK / 4); i += kGmThreads) {
       const int r = i / (kGmK / 4);
       const int kc = (i - r * (kGmK / 4)) * 4;
-      const bool ok = m0 + r < M && k0 + kc < K;
+      // GATES: row m reads A's row m - 1, none at a sequence's first step.
+      const bool ok = m0 + r < M && k0 + kc < K &&
+                      (!GATES || (m0 + r) % ga.Tn != 0);
+      const int ar = GATES ? m0 + r - 1 : m0 + r;
       cp_async16(dst + r * LA + kc,
-                 ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok ? 16 : 0);
+                 ok ? A + (size_t)ar * K + k0 + kc : A, ok ? 16 : 0);
     }
     float* bd = dst + A_EL;
     if (TRANS_B) {
@@ -268,7 +303,29 @@ tf32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
         for (int half = 0; half < 2; ++half) {
           const int row = m0 + wm + mt * 16 + g + 8 * half;
           const int col = n0 + wn + nt * 8 + 2 * c4;
-          if (row < M && col < N) {
+          if (GATES && row < M && col < N) {
+            float2 v = make_float2(acc[mt][nt][2 * half],
+                                   acc[mt][nt][2 * half + 1]);
+            if (col < ga.nx) {
+              // The x side plus the h side: xw + hw, the plain order.
+              const size_t at = (size_t)row * N + col;
+              const float2 x =
+                  ga.x != nullptr
+                      ? *reinterpret_cast<const float2*>(ga.x + at)
+                      : *reinterpret_cast<const float2*>(Cout + at);
+              *reinterpret_cast<float2*>(Cout + at) =
+                  make_float2(x.x + v.x, x.y + v.y);
+            } else {
+              *reinterpret_cast<float2*>(
+                  ga.hn + (size_t)row * (N - ga.nx) + col - ga.nx) = v;
+              // The x side of these columns, copied where C is not X.
+              if (ga.x != nullptr) {
+                const size_t at = (size_t)row * N + col;
+                *reinterpret_cast<float2*>(Cout + at) =
+                    *reinterpret_cast<const float2*>(ga.x + at);
+              }
+            }
+          } else if (row < M && col < N) {
             float2 v = make_float2(acc[mt][nt][2 * half],
                                    acc[mt][nt][2 * half + 1]);
             if (bias != nullptr) {
@@ -284,12 +341,13 @@ tf32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
   cp_async_wait<0>();
 }
 
-template <bool TRANS_B>
+template <bool TRANS_B, bool GATES = false>
 cudaError_t launch_gemm(const float* A, const float* W, const float* bias,
                         float* Cout, int M, int N, int K, int seeds,
                         long long sA, long long sW, long long sBias,
-                        long long sC, cudaStream_t stream) {
-  auto kern = tf32_gemm_kernel<TRANS_B>;
+                        long long sC, cudaStream_t stream,
+                        GatesArgs ga = GatesArgs{}) {
+  auto kern = tf32_gemm_kernel<TRANS_B, GATES>;
   const size_t smem = gemm_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -298,8 +356,249 @@ cudaError_t launch_gemm(const float* A, const float* W, const float* bias,
   kern<<<dim3((N + kGmCols - 1) / kGmCols, (tiles + kGmTiles - 1) / kGmTiles,
               seeds),
          kGmThreads, smem, stream>>>(A, W, bias, Cout, M, N, K, sA, sW, sBias,
-                                     sC);
+                                     sC, ga);
   return cudaGetLastError();
+}
+
+// The weight-gradient kernel's shared memory: two stages of the A tile
+// [kWgRows][min(H, 128) + 8] and the D tile [kWgRows][kWgCols + 8], f32.
+inline size_t wgrad_smem_bytes(int H) {
+  const size_t KW = H < kWgOut ? H : kWgOut;
+  return 4 * 2 * ((size_t)kWgRows * (KW + 8) + (size_t)kWgRows * (kWgCols + 8));
+}
+
+// The cell's backward at one (row, unit), in registers, from its gate
+// pre-activations a: LSTM x + h of i, f (without the forget bias), g, o;
+// GRU x + h of z and r, then n's x side and its h side. dup: the upstream
+// dh_t; kp 1 on a valid step, else 0; c_t, c_prev (LSTM) and h_prev (GRU)
+// the saved states. Out: dg the G gate gradients (d_xw; the GRU's dg[3]
+// = dn r, the h side of n's), and the carries dhc (and dcc) updated but
+// for the carry's product. csrc/rnn_bwd.cu's formulas and rounding points
+// (shared by the float32 backwards' recurrences).
+template <int CELL>
+__device__ __forceinline__ void cell_bwd(const float (&a)[4], float dup,
+                                         float kp, float c_t, float c_prev,
+                                         float h_prev, float forget_bias,
+                                         float& dhc, float& dcc,
+                                         float (&dg)[4]) {
+  const float dh_t = dup + dhc;
+  const float dh_new = kp * dh_t;
+  if (CELL == kLstm) {
+    const float ig = sigmoid(a[0]);
+    const float fg = sigmoid(a[1] + forget_bias);
+    const float gg = tanhf(a[2]);
+    const float og = sigmoid(a[3]);
+    const float dc_t = dcc;
+    const float dc_new = kp * dc_t;
+    const float tc = tanhf(c_t);
+    const float do_ = dh_new * tc;
+    const float dc_tot = dc_new + dh_new * og * (1.0f - tc * tc);
+    dg[0] = (dc_tot * gg) * ig * (1.0f - ig);
+    dg[1] = (dc_tot * c_prev) * fg * (1.0f - fg);
+    dg[2] = (dc_tot * ig) * (1.0f - gg * gg);
+    dg[3] = do_ * og * (1.0f - og);
+    dhc = (1.0f - kp) * dh_t;
+    dcc = (1.0f - kp) * dc_t + dc_tot * fg;
+  } else {
+    const float z = sigmoid(a[0]);
+    const float rg = sigmoid(a[1]);
+    const float hn = a[3];
+    const float n = tanhf(a[2] + rg * hn);
+    const float dz = dh_new * (h_prev - n);
+    const float dn_raw = dh_new * (1.0f - z) * (1.0f - n * n);
+    const float dr = dn_raw * hn;
+    dg[0] = dz * z * (1.0f - z);
+    dg[1] = dr * rg * (1.0f - rg);
+    dg[2] = dn_raw;
+    dg[3] = dn_raw * rg;
+    dhc = (1.0f - kp) * dh_t + dh_new * z;
+  }
+}
+
+// The weight gradients (rnn_bwd_tf32.cu's kernel 2): per seed (blockIdx.z)
+// and row slice s, partial[seed][s] = [dW_x [H, G H], db [G H], dW_h [H, G
+// H]] (fused) or dW_h alone (hoisted) over the rows m_lo .. m_hi - 1 of the
+// seed's B T. A block computes one product (fused: blockIdx.x % 2 = 0 dW_x
+// and db, 1 dW_h; hoisted: dW_h) for the 64 gate columns of column tile ct
+// and the 128 output rows of row tile ot (blockIdx.x / 2, hoisted
+// blockIdx.x, = ct + ot * column tiles), each of its 8 warps 16 output rows
+// (warps past H idle). Its A operand is hin [M, H] (seed
+// stride s_hin) or h_all [M, H] read shifted (row m takes m - 1 within its
+// sequence of Tn rows, zero at the first step); its D operand d_xw = dgx
+// [M, G H] or d_hw (the GRU's n slice from dhn [M, H], dn r; the LSTM's
+// d_hw is d_xw). Per stage of kWgRows rows both arrive by cp.async in f32
+// and are split at fragment load. (Splitting d_gates once into hi and lo
+// planes instead measured slower: its fragments double the shared-memory
+// traffic per mma.)
+template <int CELL, bool FUSED>
+__global__ void __launch_bounds__(kWgThreads, 2)
+rnn_bwd_tf32_wgrad_kernel(const float* __restrict__ hin,
+                          const float* __restrict__ h_all,
+                          const float* __restrict__ dgx,
+                          const float* __restrict__ dhn, int M, int Tn, int H,
+                          int rows_per_slice, long long s_hin,
+                          float* __restrict__ partial) {
+  constexpr int G = CELL == kLstm ? 4 : 3;
+  constexpr int LDD = kWgCols + 8;
+  const int GH = G * H;
+  const int KW = min(H, kWgOut);  // A columns staged: the block's rows
+  const int LA = KW + 8;
+  const int a_elems = kWgRows * LA;
+  const int stage_elems = a_elems + kWgRows * LDD;
+  const size_t hg = (size_t)H * GH;
+  const size_t total = FUSED ? 2 * hg + GH : hg;
+
+  extern __shared__ __align__(16) float smem[];
+
+  {
+    const size_t seed = blockIdx.z;
+    if (FUSED) hin += seed * s_hin;
+    h_all += seed * M * (size_t)H;
+    dgx += seed * M * (size_t)GH;
+    if (dhn != nullptr) dhn += seed * M * (size_t)H;
+    partial += (seed * gridDim.y) * total;
+  }
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  // 0: dW_x and db (hin, d_xw); 1: dW_h (h_{t-1}, d_hw).
+  const int prod = FUSED ? blockIdx.x & 1 : 1;
+  const int tile = FUSED ? blockIdx.x >> 1 : blockIdx.x;
+  const int nct = (GH + kWgCols - 1) / kWgCols;
+  const int j0 = (tile % nct) * kWgCols;
+  const int k0 = (tile / nct) * kWgOut;  // the block's first output row
+  const int s = blockIdx.y;
+  const int m_lo = min(M, s * rows_per_slice);
+  const int m_hi = min(M, m_lo + rows_per_slice);
+  const int ko = warp * 16;  // the warp's first output row in the block
+  const bool active = k0 + ko < H;
+  const bool with_db = prod == 0 && k0 == 0;
+
+  auto load_stage = [&](int mb, float* dst) {
+    const int CA = KW / 4;
+    for (int i = tid; i < kWgRows * CA; i += kWgThreads) {
+      const int mm = i / CA;
+      const int k = (i - mm * CA) * 4;
+      const int mrow = mb + mm;
+      bool ok = mrow < m_hi && k0 + k < H;
+      const float* src = h_all;
+      if (prod == 0) {
+        if (ok) src = hin + (size_t)mrow * H + k0 + k;
+      } else {
+        ok = ok && mrow % Tn != 0;
+        if (ok) src = h_all + (size_t)(mrow - 1) * H + k0 + k;
+      }
+      cp_async16(dst + mm * LA + k, src, ok ? 16 : 0);
+    }
+    constexpr int CD = kWgCols / 4;
+    for (int i = tid; i < kWgRows * CD; i += kWgThreads) {
+      const int mm = i / CD;
+      const int jc = (i - mm * CD) * 4;
+      const int j = j0 + jc;
+      const int mrow = mb + mm;
+      const bool ok = mrow < m_hi && j < GH;
+      const bool nside = CELL == kGru && prod == 1 && j >= 2 * H;
+      const float* src =
+          !ok ? dgx
+              : nside ? dhn + (size_t)mrow * H + j - 2 * H
+                      : dgx + (size_t)mrow * GH + j;
+      cp_async16(dst + a_elems + mm * LDD + jc, src, ok ? 16 : 0);
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+  float dbs = 0.0f;  // column tid % 64, rows tid / 64 + 4 i of each stage
+
+  if (m_lo < m_hi) load_stage(m_lo, smem);
+  cp_async_commit();
+  int it = 0;
+  for (int mb = m_lo; mb < m_hi; mb += kWgRows, ++it) {
+    const float* cur = smem + (it & 1) * stage_elems;
+    float* nxt = smem + ((it & 1) ^ 1) * stage_elems;
+    cp_async_wait_all();
+    __syncthreads();  // this stage is in place; the other one is free
+    if (mb + kWgRows < m_hi) load_stage(mb + kWgRows, nxt);
+    cp_async_commit();
+    if (with_db)
+      for (int rr = tid / kWgCols; rr < kWgRows; rr += kWgThreads / kWgCols)
+        dbs += cur[a_elems + rr * LDD + tid % kWgCols];
+    if (active) {
+      const float* A = cur + ko + g;
+      const float* D = cur + a_elems + g;
+      // The stage's sums in a fresh accumulator, added to acc in f32 (the
+      // tensor cores' accumulation truncates: chains stay 12 mma long).
+      float sacc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kWgRows; kk += 8) {
+        const float* p = A + (kk + c4) * LA;
+        FragA a;
+        frag_a(a, p[0], p[8], p[4 * LA], p[4 * LA + 8]);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* q = D + (kk + c4) * LDD + nt * 8;
+          FragB b;
+          frag_b(b, q[0], q[4 * LDD]);
+          mma3(sacc[nt], a, b);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] += sacc[nt][i];
+    }
+  }
+
+  float* out = partial + (size_t)s * total;
+  if (active) {
+    float* o = out + (prod == 1 && FUSED ? hg + GH : 0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = k0 + ko + g + 8 * half;
+        const int jj = j0 + nt * 8 + 2 * c4;
+        if (jj < GH)
+          *reinterpret_cast<float2*>(o + (size_t)k * GH + jj) =
+              make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      }
+  }
+  if (!with_db) return;
+  // db: the 4 row classes' sums added in a fixed order.
+  cp_async_wait_all();
+  __syncthreads();
+  smem[tid] = dbs;
+  __syncthreads();
+  if (tid < kWgCols && j0 + tid < GH) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kWgThreads / kWgCols; ++q) sum += smem[q * kWgCols + tid];
+    out[hg + j0 + tid] = sum;
+  }
+}
+
+// Their slices' sum (rnn_bwd_tf32.cu's kernel 3), per seed (blockIdx.y):
+// out[seed][i] = sum_{s = 0 .. S-1} partial[seed][s][i], in that order.
+__global__ void rnn_bwd_tf32_slices_kernel(const float* __restrict__ partial,
+                                           int S, int count,
+                                           float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const size_t seed = blockIdx.y;
+  partial += seed * S * (size_t)count;
+  float acc = 0.0f;
+  for (int s = 0; s < S; ++s) acc += partial[(size_t)s * count + i];
+  out[seed * count + i] = acc;
 }
 
 }  // namespace

@@ -51,6 +51,8 @@ LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
                 rnn_fwd_cluster_lstm=0, rnn_fwd_cluster_gru=0,
                 rnn_fused_bwd_cluster_lstm=0, rnn_fused_bwd_cluster_gru=0,
                 rnn_bwd_cluster_lstm=0, rnn_bwd_cluster_gru=0,
+                rnn_fused_bwd_grid_lstm=0, rnn_fused_bwd_grid_gru=0,
+                rnn_bwd_grid_lstm=0, rnn_bwd_grid_gru=0,
                 window_gather=0)
 
 _count_lock = threading.Lock()
@@ -183,6 +185,9 @@ def library() -> ctypes.CDLL:
                 "lfm_rnn_bwd_cluster": [ci, ci] + [vp] * 12 + [ci, vp]
                 + [ci] * 7 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_bwd_cluster_clusters": [ci] * 5,
+                "lfm_rnn_bwd_tf32_grid": [ci, ci] + [vp] * 12 + [ci]
+                + [vp] * 3 + [ci] * 7 + [cll] * 5 + [cf, vp],
+                "lfm_rnn_bwd_grid_ctas": [ci] * 4,
             }
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
@@ -194,7 +199,8 @@ def library() -> ctypes.CDLL:
                     "lfm_rnn_scan_bwd_mma_smem": 2,
                     "lfm_rnn_bwd_tf32_smem": 4, "lfm_rnn_fwd_tf32_smem": 2,
                     "lfm_rnn_fwd_cluster_smem": 4,
-                    "lfm_rnn_bwd_cluster_smem": 4}
+                    "lfm_rnn_bwd_cluster_smem": 4,
+                    "lfm_rnn_bwd_grid_smem": 4}
             for name, n in smem.items():
                 getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll

@@ -2,7 +2,8 @@
 (``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
 ``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd.cu``,
 ``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``,
-``csrc/rnn_bwd_cluster.cu``) and their plain versions.
+``csrc/rnn_bwd_tf32_grid.cu``, ``csrc/rnn_bwd_cluster.cu``) and their
+plain versions.
 
 One rule, :func:`_mma_route`, picks the kernels of both forwards and both
 backwards from the direction, the dtype and H alone: at every H <= 128
@@ -19,9 +20,12 @@ as a bf16 GEMM into an f32 xw scratch and the cluster recurrence;
 the carry's product, then the weight-gradient and dhin GEMMs). The
 float32 backwards above 128 run in 3xTF32 on a cluster of 2-16 CTAs up
 to Hp 384 (``rnn_bwd_tf32.cu``, which reduce-scatters the carry's
-product as the bf16 one does); the float32 forwards above 128, the
-float32 backwards past 384 and every width past 512 run on the CUDA
-cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
+product as the bf16 one does) and past it, up to Hp 1024, on the whole
+card (``rnn_bwd_tf32_grid.cu``: the gates recomputed by one GEMM, the
+carry's product over a cooperative grid that holds W_h); the float32
+forwards above 128, the float32 backwards past 1024 and every width past
+512 otherwise run on the CUDA cores (``rnn_fused_fwd.cu``,
+``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -563,6 +567,11 @@ CLUSTER_MAX_WIDTH = 512
 #: (``kMaxWidth`` in ``csrc/rnn_bwd_tf32.cu``): past it the LSTM's f32 W_h
 #: (16 Hp^2 bytes) does not fit 16 CTAs' shared memory beside the tiles.
 TF32_MAX_WIDTH = 384
+#: The widest padded width the float32 backward past it takes, W_h held by
+#: a group of co-resident CTAs across the card (``kMaxWidth`` in
+#: ``csrc/rnn_bwd_tf32_grid.cu``): the LSTM's W_h rows of one 8-unit chunk
+#: take 131 KB at Hp 1024, so a group there is 128 CTAs (of an H100's 132).
+GRID_MAX_WIDTH = 1024
 
 
 def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
@@ -584,9 +593,12 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     bwd       float32  Hp <= 128        ``rnn_bwd_tf32.cu`` (``"tf32"``)
     bwd       float32  128 < Hp <= 384  ``rnn_bwd_tf32.cu`` on a cluster
                                         of 2-16 CTAs (``"tf32"``)
+    bwd       float32  384 < Hp <= 1024 ``rnn_bwd_tf32_grid.cu``, W_h on a
+                                        group of co-resident CTAs
+                                        (``"grid"``)
     fwd       float32  H > 128          ``rnn_fused_fwd.cu`` (``"simt"``)
     fwd       bfloat16 Hp > 512         ``rnn_fused_fwd.cu`` (``"simt"``)
-    bwd       float32  Hp > 384         ``rnn_bwd.cu`` (``"simt"``)
+    bwd       float32  Hp > 1024        ``rnn_bwd.cu`` (``"simt"``)
     bwd       bfloat16 Hp > 512         ``rnn_bwd.cu`` (``"simt"``)
     ========= ======== ================ ================================
 
@@ -598,10 +610,14 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     cluster of 2-16 CTAs both ways (the forward's size
     :func:`_cluster_size`, the backward's :func:`_cluster_bwd_size`), and
     so does the float32 backward up to :data:`TF32_MAX_WIDTH`
-    (:func:`_tf32_cluster`), any H at Hp too; the CUDA-core kernels are
-    the route of the float32 forward above 128, the float32 backward past
-    384 (W_h past 16 CTAs' shared memory) and every width past 512, not a
-    fallback: a cluster launch the card refuses raises. bf16 runs on the
+    (:func:`_tf32_cluster`), any H at Hp too; past it (W_h past 16 CTAs'
+    shared memory) the float32 backward recomputes the gates by one GEMM
+    and spreads the carry's product over a group of up to 132 co-resident
+    CTAs holding W_h (:func:`_grid_size`, :func:`_grid_rows`) up to
+    :data:`GRID_MAX_WIDTH`. The CUDA-core kernels are the route of the
+    float32 forward above 128, the float32 backward past 1024 and every
+    bf16 width past 512, not a fallback: a cluster or grid launch the card
+    refuses raises. bf16 runs on the
     bf16 tensor cores; float32 must hold
     the JAX f32 bound, so it splits every f32 operand of the recurrence
     into two TF32 terms (3xTF32), and the fused forward forms xw on the
@@ -615,9 +631,11 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     if Hp > 128:
         if dtype == torch.bfloat16 and Hp <= CLUSTER_MAX_WIDTH:
             return "cluster"
-        if (dtype == torch.float32 and direction == "bwd"
-                and Hp <= TF32_MAX_WIDTH):
-            return "tf32"
+        if dtype == torch.float32 and direction == "bwd":
+            if Hp <= TF32_MAX_WIDTH:
+                return "tf32"
+            if Hp <= GRID_MAX_WIDTH:
+                return "grid"
         return "simt"
     if dtype == torch.bfloat16:
         return "mma"
@@ -1352,6 +1370,209 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 
 # ---------------------------------------------------------------------------
+# The float32 backward past Hp 384 (csrc/rnn_bwd_tf32_grid.cu)
+# ---------------------------------------------------------------------------
+
+#: Rows per work item, threads per CTA at most, and the d_hw columns per
+#: stage and stages in shared memory of the float32 backward past
+#: :data:`TF32_MAX_WIDTH` (its rows, ``kMaxThreads``, ``kStageK`` and
+#: ``kStages`` in ``csrc/rnn_bwd_tf32_grid.cu``).
+GRID_ROWS = (64, 128)
+GRID_MAX_THREADS = 512
+GRID_STAGE_K = 64
+GRID_STAGES = 2
+
+
+def _grid_chunks(Hp: int, n: int) -> int:
+    """8-unit chunks a CTA of a group of ``n`` owns at most: ceil(W / n) of
+    the W = Hp / 8, dealt out as :func:`_cluster_units` deals warps (CTA j
+    owns ``[j W / n, (j + 1) W / n)``)."""
+    return -(-(Hp // MMA_UNITS) // n)
+
+
+def _grid_takes(Hp: int, n: int, rows: int) -> bool:
+    """The shapes ``csrc/rnn_bwd_tf32_grid.cu`` takes (its ``supported``):
+    128 < Hp <= :data:`GRID_MAX_WIDTH`, Hp % 16 == 0 (the route gives it
+    Hp > :data:`TF32_MAX_WIDTH`; below, it is timed beside the cluster
+    form), rows of :data:`GRID_ROWS`, 1 <= n <= Hp / 8, and a warp per
+    (chunk, 16 rows) within :data:`GRID_MAX_THREADS`."""
+    if not (128 < Hp <= GRID_MAX_WIDTH and Hp % 16 == 0):
+        return False
+    if rows not in GRID_ROWS or not 1 <= n <= Hp // MMA_UNITS:
+        return False
+    return 32 * _grid_chunks(Hp, n) * (rows // 16) <= GRID_MAX_THREADS
+
+
+def _grid_smem(cell: str, Hp: int, n: int, rows: int) -> int:
+    """Shared memory (bytes) of a CTA of the grid recurrence, as
+    ``grid_smem_bytes`` counts it in the source, all f32: the W_h rows of
+    its units across every gate column, [8 NC][G Hp + 4] (NC =
+    :func:`_grid_chunks`), and :data:`GRID_STAGES` stages of d_hw,
+    [rows][kStageK + 4]."""
+    return 4 * (MMA_UNITS * _grid_chunks(Hp, n) * (_GATES[cell] * Hp + 4)
+                + GRID_STAGES * rows * (GRID_STAGE_K + 4))
+
+
+def _grid_size(cell: str, Hp: int, limit: int, sms: int) -> int:
+    """CTAs a group of the float32 backward past 384: the fewest, at most
+    ``sms``, whose share of W_h fits beside the 64-row stages in
+    ``limit`` bytes of shared memory a CTA within the thread limit (fewer
+    CTAs all-gather fewer bytes a step and leave more groups). Raises,
+    naming the width, where none does. On an H100 the LSTM takes 17 at Hp
+    400 (3 chunks a CTA), 40 at 640 and 128 at 1024; the GRU 13, 27 and
+    64."""
+    for n in range(1, min(Hp // MMA_UNITS, sms) + 1):
+        if _grid_takes(Hp, n, 64) and _grid_smem(cell, Hp, n, 64) <= limit:
+            return n
+    raise ValueError(
+        f"the float32 {cell} backward on the grid does not take hidden="
+        f"{Hp}: no group of at most {sms} CTAs holds its W_h within "
+        f"{limit} bytes of shared memory a CTA, or the width is outside "
+        f"128 < Hp <= {GRID_MAX_WIDTH}")
+
+
+def _grid_rows(cell: str, Hp: int, n: int, B: int, S: int, limit: int,
+               sms: int) -> int:
+    """Batch rows per work item of the grid recurrence: 128 where the
+    kernel takes them at this group size, they fit ``limit`` and the S
+    ceil(B / 128) items still occupy every group the card holds (``sms //
+    n``), else 64. More rows halve the steps' barriers and give a CTA of
+    one chunk 8 warps; a row's sums do not depend on the count."""
+    if (_grid_takes(Hp, n, 128) and _grid_smem(cell, Hp, n, 128) <= limit
+            and S * -(-B // 128) >= sms // n):
+        return 128
+    return 64
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_check(cell: str, H: int, n: int, rows: int,
+                device: torch.device) -> int:
+    """Once per shape and card: ``csrc/rnn_bwd_tf32_grid.cu`` takes it and
+    counts the shared memory :func:`_grid_smem` counts, it fits the card,
+    and the card holds a whole group at once → the CTAs it holds at once
+    (one an SM). Raises, naming the width and the group, where not."""
+    lib = _build.library()
+    code = _CELL_CODE[cell]
+    smem = lib.lfm_rnn_bwd_grid_smem(code, H, n, rows)
+    if smem < 0:
+        raise ValueError(f"the float32 backward on the grid does not take "
+                         f"hidden={H} with a group of {n} CTAs and {rows} "
+                         f"rows")
+    if smem != _grid_smem(cell, H, n, rows):
+        raise RuntimeError(
+            f"csrc/rnn_bwd_tf32_grid.cu counts {smem} bytes of shared "
+            f"memory, ops/rnn.py {_grid_smem(cell, H, n, rows)}")
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"hidden={H} on a group of {n} CTAs needs {smem} "
+                         f"bytes of shared memory per CTA, more than the "
+                         f"card's {limit}")
+    with torch.cuda.device(device):
+        ctas = lib.lfm_rnn_bwd_grid_ctas(code, H, n, rows)
+    if ctas < n:
+        raise RuntimeError(
+            f"the card holds {ctas} CTAs of the float32 {cell} backward at "
+            f"hidden={H} ({rows} rows, {smem} bytes of shared memory a CTA) "
+            f"at once, fewer than a group of {n}")
+    return ctas
+
+
+def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
+                     wh: torch.Tensor, m: torch.Tensor, h_all: torch.Tensor,
+                     c_all: Optional[torch.Tensor], dh: torch.Tensor,
+                     forget_bias: float, xw: Optional[torch.Tensor] = None,
+                     group: Optional[int] = None, rows: Optional[int] = None,
+                     groups: Optional[int] = None,
+                     stats: Optional[dict] = None):
+    """One call of the float32 backward past Hp 384
+    (``csrc/rnn_bwd_tf32_grid.cu``, 3xTF32; fused: six kernel launches, or
+    five given ``xw``; hoisted: four; counted once) → fused: ``(dhin, dW_x,
+    db, dW_h)``; hoisted (``xin`` is xw, ``wx`` and ``b`` None): ``(dxw,
+    dW_h)``; all f32. Seed-stacked operands (``xin`` 4-D, each operand of
+    seed extent S or 1) run every seed in the same call and give each
+    output per seed; the states are per seed. Fused, ``xw`` is the
+    forward's xw scratch at this width: the kernel skips its own xw GEMM
+    and overwrites it with d_xw. The group size and rows come from
+    :func:`_grid_size` and :func:`_grid_rows` (``group``, ``rows``
+    override them), the groups from the CTAs the card holds at once
+    (:func:`_grid_check`; ``groups`` overrides it: more than the card
+    holds is refused, never run another way). A ``stats`` dict gets the
+    launch's shape and ``"cycles"``, ``[CTAs, 2]`` int64 on the card: each
+    CTA's SM cycles waiting at the group's barriers and in all (read after
+    a synchronize)."""
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
+        c_all = None if c_all is None else c_all[None]
+        if fused:
+            wx, b = wx[None], b[None]
+    S = _seed_extent(xin, wx, b, wh, m, h_all, c_all, dh)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    G = _GATES[cell] * H
+    dev = xin.device
+    f32 = torch.float32
+    lib = _build.library()
+    props = torch.cuda.get_device_properties(dev)
+    limit, sms = (props.shared_memory_per_block_optin,
+                  props.multi_processor_count)
+    n = group or _grid_size(cell, H, limit, sms)
+    if rows is None:
+        rows = _grid_rows(cell, H, n, B, S, limit, sms)
+    ctas = _grid_check(cell, H, n, rows, dev)
+    if groups is None:
+        groups = min(ctas // n, S * -(-B // rows))
+    # The states are per seed: a shared one is copied out to every seed.
+    h_all, c_all, dh = (
+        None if t is None else t.expand(S, *t.shape[1:]).contiguous()
+        for t in (h_all, c_all, dh))
+    xin, wh, h_all, c_all, dh = (None if t is None else _aligned16(t)
+                                 for t in (xin, wh, h_all, c_all, dh))
+    if fused:
+        wx, b = _aligned16(wx), _aligned16(b)
+    keep = m.to(torch.uint8).contiguous()
+    dgx = (torch.empty((S, B, T, G), dtype=f32, device=dev) if xw is None
+           else xw.view(S, B, T, G))
+    dhn = (torch.empty((S, B, T, H), dtype=f32, device=dev)
+           if cell == "gru" else None)
+    total = 2 * H * G + G if fused else H * G
+    slices = _tf32_slices(B * T, total)
+    partial = torch.empty((S, slices, total), dtype=f32, device=dev)
+    dw = torch.empty((S, total), dtype=f32, device=dev)
+    dx = torch.empty((S, B, T, H), dtype=f32, device=dev) if fused else None
+    sync = torch.zeros(max(groups, 1), dtype=torch.int32, device=dev)
+    cycles = None
+    if stats is not None:
+        cycles = torch.zeros((groups * n, 2), dtype=torch.int64, device=dev)
+        stats.update(group=n, rows=rows, groups=groups, ctas_at_once=ctas,
+                     cycles=cycles)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_bwd_tf32_grid(
+            _CELL_CODE[cell], 0 if not fused else 1 if xw is None else 2,
+            xin.data_ptr(), ptr(wx), ptr(b), wh.data_ptr(), keep.data_ptr(),
+            h_all.data_ptr(), ptr(c_all), dh.data_ptr(), ptr(dx),
+            dgx.data_ptr(), ptr(dhn), partial.data_ptr(), slices,
+            dw.data_ptr(), sync.data_ptr(), ptr(cycles), S, B, T, H, n, rows,
+            groups,
+            _stride(xin, S), 0 if wx is None else _stride(wx, S),
+            0 if b is None else _stride(b, S), _stride(wh, S),
+            _stride(keep, S), float(forget_bias), _build.stream_of(xin))
+    name = f"rnn_{'fused_' if fused else ''}bwd_grid_{cell}"
+    _build.check(lib, err, f"{name} (hidden={H}, {groups} groups of {n} "
+                           f"CTAs, {rows} rows, {ctas} CTAs at once)")
+    _build.count_launch(name)
+    if fused:
+        hg = H * G
+        out = (dx, dw[:, :hg].view(S, H, G), dw[:, hg:hg + G],
+               dw[:, hg + G:].view(S, H, G))
+    else:
+        out = (dgx, dw.view(S, H, G))
+    return out if stacked else tuple(t[0] for t in out)
+
+
+# ---------------------------------------------------------------------------
 # The bfloat16 forward above hidden 128 (csrc/rnn_fwd_cluster.cu)
 # ---------------------------------------------------------------------------
 
@@ -1823,10 +2044,10 @@ def _launch_bwd_cluster(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 def _tensor_core_launcher(route: str, form: str):
     """The tensor-core launch of ``form`` (:data:`_PAD_FORMS`) on
-    ``route`` ("mma", "tf32" or "cluster"), taking ``(cell, *operands,
-    *rest, **kw)`` at a width the kernels take; :func:`padded_launch`
-    wraps it. Looked up per call, so a launcher swapped on this module is
-    the one run."""
+    ``route`` ("mma", "tf32", "cluster" or, for the backwards, "grid"),
+    taking ``(cell, *operands, *rest, **kw)`` at a width the kernels take;
+    :func:`padded_launch` wraps it. Looked up per call, so a launcher
+    swapped on this module is the one run."""
     if route == "cluster":
         launch = (_launch_fwd_cluster if form in ("fused_fwd", "fwd")
                   else _launch_bwd_cluster)
@@ -1838,6 +2059,12 @@ def _tensor_core_launcher(route: str, form: str):
         return {"fused_fwd": _launch_fwd_mma, "fwd": _launch_scan_fwd_mma,
                 "fused_bwd": _launch_bwd_mma,
                 "bwd": _launch_scan_bwd_mma}[form]
+    if route == "grid":
+        if form == "fused_bwd":
+            return lambda cell, *a, **kw: _launch_bwd_grid(cell, True, *a,
+                                                           **kw)
+        return lambda cell, xw, *a, **kw: _launch_bwd_grid(
+            cell, False, xw, None, None, *a, **kw)
     if form in ("fused_fwd", "fused_bwd"):
         launch = _launch_fwd_tf32 if form == "fused_fwd" else _launch_bwd_tf32
         return lambda cell, *a, **kw: launch(cell, True, *a, **kw)

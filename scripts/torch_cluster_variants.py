@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """The bfloat16 forward and backward above hidden 128
 (``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd_cluster.cu``) and the
-float32 backward above 128 (``csrc/rnn_bwd_tf32.cu``) at every cluster
-size and rows per cluster they take, on the card.
+float32 backward above 128 (``csrc/rnn_bwd_tf32.cu``, and past 384
+``csrc/rnn_bwd_tf32_grid.cu``) at every cluster size and rows per cluster
+(group size and rows per work item) they take, on the card.
 
     python3 scripts/torch_cluster_variants.py [--widths 256 320 512]
         [--batch 2048] [--steps 60] [--reps 5]
-        [--direction fwd|bwd|both|bwd_tf32] [--out FILE]
+        [--direction fwd|bwd|both|bwd_tf32|bwd_grid] [--out FILE]
 
 For rows 3 (fused: the bf16 GEMM into the f32 xw scratch, then the
 cluster recurrence) and 1 (hoisted: the recurrence on a bf16 xw), LSTM
@@ -51,6 +52,15 @@ part costs. ``file:PATH`` builds another version of the source as it is
 ``_tf32_takes`` allows at C 2-16, the picked pair ``_tf32_cluster``,
 ``_tf32_rows``), with ``--diag`` variants of that source
 (:data:`TF32_DIAG`).
+
+``--direction bwd_grid`` does them on the grid backward past 384
+(``csrc/rnn_bwd_tf32_grid.cu``): every (CTAs a group, rows a work item)
+pair with a distinct number of chunks a CTA that ``_grid_takes`` allows
+and the card holds (the picked pair ``_grid_size``, ``_grid_rows``),
+``bitwise_as_picked`` for all of them (a (row, unit)'s sums do not depend
+on the pair), the picked pair's kernels by device ms and its barrier
+waits (each CTA's share of its cycles, ``wait_share``), and ``--diag``
+variants of that source (:data:`GRID_DIAG`).
 """
 
 from __future__ import annotations
@@ -177,6 +187,56 @@ TF32_DIAG = {
          "          for (int i = 0; i < 4; ++i)\n"
          "            hs[rt][q][i] += cacc[rt][q][i] + cs[rt][q][i];")],
 }
+#: The grid backward (``--direction bwd_grid``): the carry's products
+#: removed; the all-gather's loads removed (each stage's slot read as it
+#: is); the group's barrier reduced to the CTA's own (no wait for the other
+#: CTAs: wrong numbers, the barrier's cost).
+GRID_DIAG = {
+    "base": [],
+    "diag_no_product": [("          mma3(cacc, a, b);", "          (void)b;")],
+    "diag_no_gather": [("          cp_async16(dst + r * LA + kc, src, ok ? 16 "
+                        ": 0);", "          (void)dst;\n          (void)src;")],
+    "diag_no_barrier": [("        while (load_acquire(ctr) < target)\n",
+                         "        while (load_acquire(ctr) < 0)\n")],
+    # The stages tried before the kept 64 columns in 2: 32 columns in 4
+    # (3 in flight), in 2, and 64 in 3. Two accumulator chains a warp,
+    # alternate k-steps (added at each chain's end).
+    "stage_k32_4": [("constexpr int kStageK = 64;",
+                     "constexpr int kStageK = 32;"),
+                    ("constexpr int kStages = 2;",
+                     "constexpr int kStages = 4;")],
+    "stage_k32_2": [("constexpr int kStageK = 64;",
+                     "constexpr int kStageK = 32;")],
+    "stage_k64_3": [("constexpr int kStages = 2;",
+                     "constexpr int kStages = 3;")],
+    "ilp2": [
+        ("      float cacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n",
+         "      float cacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
+         "      float cacc2[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"),
+        ("        for (int kk = 0; kk < kn; kk += 8) {\n"
+         "          FragA a;\n"
+         "          frag_a(a, ap[kk], ap[8 * LA + kk], ap[kk + 4], "
+         "ap[8 * LA + kk + 4]);\n"
+         "          FragB b;\n"
+         "          frag_b(b, bp[kk], bp[kk + 4]);\n"
+         "          mma3(cacc, a, b);\n"
+         "        }\n",
+         "        for (int kk = 0; kk < kn; kk += 16) {\n"
+         "          FragA a, a2;\n"
+         "          frag_a(a, ap[kk], ap[8 * LA + kk], ap[kk + 4], "
+         "ap[8 * LA + kk + 4]);\n"
+         "          frag_a(a2, ap[kk + 8], ap[8 * LA + kk + 8], ap[kk + 12], "
+         "ap[8 * LA + kk + 12]);\n"
+         "          FragB b, b2;\n"
+         "          frag_b(b, bp[kk], bp[kk + 4]);\n"
+         "          frag_b(b2, bp[kk + 8], bp[kk + 12]);\n"
+         "          mma3(cacc, a, b);\n"
+         "          mma3(cacc2, a2, b2);\n"
+         "        }\n"),
+        ("            acc[i] += cacc[i];\n            cacc[i] = 0.0f;\n",
+         "            acc[i] += cacc[i] + cacc2[i];\n"
+         "            cacc[i] = 0.0f;\n            cacc2[i] = 0.0f;\n")],
+}
 #: Per direction with variants: the source, its substitutions, the entry
 #: point and its ctypes signature, the recurrence kernel's name.
 SOURCES = {
@@ -184,6 +244,8 @@ SOURCES = {
             "rnn_bwd_cluster_kernel"),
     "bwd_tf32": ("rnn_bwd_tf32.cu", TF32_DIAG, "lfm_rnn_bwd_tf32", 6,
                  "rnn_bwd_tf32_cluster_kernel"),
+    "bwd_grid": ("rnn_bwd_tf32_grid.cu", GRID_DIAG, "lfm_rnn_bwd_tf32_grid",
+                 7, "rnn_bwd_tf32_grid_kernel"),
 }
 
 
@@ -194,7 +256,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--direction", choices=("fwd", "bwd", "both",
-                                            "bwd_tf32"), default="fwd")
+                                            "bwd_tf32", "bwd_grid"),
+                    default="fwd")
     ap.add_argument("--diag", default="",
                     help="variants of the backward source, comma-separated")
     ap.add_argument("--picked-only", action="store_true",
@@ -210,7 +273,8 @@ def main() -> int:
         return 1
     from lfm_quant_tpu_torch.ops import rnn as R
 
-    kind = "bwd_tf32" if args.direction == "bwd_tf32" else "bwd"
+    kind = (args.direction if args.direction in ("bwd_tf32", "bwd_grid")
+            else "bwd")
     diag = build_diag(args.diag.split(","), kind) if args.diag else {}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -232,6 +296,10 @@ def main() -> int:
                 rnd = dict(generator=gen, device="cuda")
                 if kind == "bwd_tf32":
                     tf32_cases(torch, R, out, card, diag, cell, B, T, H,
+                               rnd, limit, sms, args.reps, args.picked_only)
+                    continue
+                if kind == "bwd_grid":
+                    grid_cases(torch, R, out, card, diag, cell, B, T, H,
                                rnd, limit, sms, args.reps, args.picked_only)
                     continue
                 hin = torch.randn(B, T, H, **rnd).to(bf)
@@ -350,6 +418,14 @@ def build_diag(names, kind: str = "bwd") -> dict:
         fn = getattr(lib, entry)
         fn.argtypes = ([ci, ci] + [vp] * 12 + [ci, vp] + [ci] * n_ints
                        + [cll] * 5 + [cf, vp])
+        if kind == "bwd_grid":
+            # The scratch pointers sync and stats beside dw.
+            fn.argtypes = ([ci, ci] + [vp] * 12 + [ci] + [vp] * 3
+                           + [ci] * n_ints + [cll] * 5 + [cf, vp])
+            lib.lfm_rnn_bwd_grid_ctas.argtypes = [ci] * 4
+            lib.lfm_rnn_bwd_grid_ctas.restype = ci
+            lib.lfm_rnn_bwd_grid_smem.argtypes = [ci] * 4
+            lib.lfm_rnn_bwd_grid_smem.restype = cll
         fn.restype = ci
         lib.lfm_cuda_error_string.argtypes = [ci]
         lib.lfm_cuda_error_string.restype = ctypes.c_char_p
@@ -459,6 +535,91 @@ def tf32_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
                     ms=mean_ms(torch, lambda: run(pick_c, pick_rows), reps),
                     recur_ms=sum(v for k, v in ks.items()
                                  if SOURCES["bwd_tf32"][4] in k))
+            finally:
+                R._build.library = real
+            print(json.dumps(rec), flush=True)
+            out.write(json.dumps(rec) + "\n")
+        torch.cuda.empty_cache()
+    del hin, wx, wh, b, m, dh, xw, h, c
+    torch.cuda.empty_cache()
+
+
+def grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
+               reps, picked_only=False):
+    """Rows 4 and 2 in float32 on the grid backward at every (group, rows)
+    pair with a distinct chunk count a CTA, as :func:`tf32_cases` does for
+    the cluster form (the module docstring), then each ``--diag`` variant
+    at the picked pair."""
+    G = GATES[cell] * H
+    hin = torch.randn(B, T, H, **rnd)
+    wx = H ** -0.5 * torch.randn(H, G, **rnd)
+    wh = H ** -0.5 * torch.randn(H, G, **rnd)
+    b = 0.1 * torch.randn(G, **rnd)
+    m = torch.rand(B, T, **rnd) < 0.75
+    dh = 0.1 * torch.randn(B, T, H, **rnd)
+    xw = hin @ wx + b
+    dev = hin.device
+    W = H // 8
+    pick_n = R._grid_size(cell, H, limit, sms)
+    pick_rows = R._grid_rows(cell, H, pick_n, B, 1, limit, sms)
+    pairs = [(pick_n, pick_rows)]
+    for nc in range(1, R._grid_chunks(H, 1) + 1):
+        n = -(-W // nc)
+        for rows in R.GRID_ROWS:
+            if (n <= sms and (n, rows) not in pairs
+                    and R._grid_takes(H, n, rows)
+                    and R._grid_smem(cell, H, n, rows) <= limit
+                    and not picked_only):
+                pairs.append((n, rows))
+    h, c = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    for fused in (True, False):
+        ops = (hin, wx, b) if fused else (xw, None, None)
+
+        def run(n, rows, stats=None):
+            return R._launch_bwd_grid(cell, fused, *ops, wh, m, h, c, dh,
+                                      1.0, group=n, rows=rows, stats=stats)
+
+        want = run(pick_n, pick_rows)
+        for n, rows in pairs:
+            ctas = R._grid_check(cell, H, n, rows, dev)
+            got = run(n, rows)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            del got
+            picked = (n, rows) == (pick_n, pick_rows)
+            rec = dict(
+                card=card, cell=cell, dtype="float32",
+                form="fused_bwd" if fused else "bwd", shape=[B, T, H],
+                group=n, rows=rows, chunks=R._grid_chunks(H, n),
+                groups=min(ctas // n, -(-B // rows)),
+                smem=R._grid_smem(cell, H, n, rows), ctas_at_once=ctas,
+                ms=mean_ms(torch, lambda: run(n, rows), reps),
+                picked=picked, bitwise_as_picked=same)
+            if picked:
+                rec["kernels_ms"] = kernels_ms(torch, lambda: run(n, rows))
+                stats = {}
+                run(n, rows, stats)
+                torch.cuda.synchronize()
+                cyc = stats["cycles"].double()
+                rec["wait_share"] = float((cyc[:, 0] / cyc[:, 1]).mean())
+            print(json.dumps(rec), flush=True)
+            out.write(json.dumps(rec) + "\n")
+        del want
+        real = R._build.library
+        for name, lib in libs.items():
+            R._build.library = lambda lib=lib: lib
+            rec = dict(card=card, cell=cell, dtype="float32", variant=name,
+                       form="fused_bwd" if fused else "bwd", shape=[B, T, H],
+                       group=pick_n, rows=pick_rows)
+            try:
+                ks = kernels_ms(torch, lambda: run(pick_n, pick_rows))
+                rec.update(
+                    ms=mean_ms(torch, lambda: run(pick_n, pick_rows), reps),
+                    recur_ms=sum(v for k, v in ks.items()
+                                 if SOURCES["bwd_grid"][4] in k))
+            except RuntimeError as exc:
+                # A variant whose shared memory is past the card's at the
+                # picked group (more or wider stages).
+                rec["refused"] = str(exc)
             finally:
                 R._build.library = real
             print(json.dumps(rec), flush=True)

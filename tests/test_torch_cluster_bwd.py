@@ -78,18 +78,20 @@ def one_thread():
 def test_backward_route_table(H):
     """bf16 above 128 up to Hp 512 runs the backward on the cluster; bf16
     past 512 on the CUDA cores; float32 above 128 on the 3xTF32 kernels on
-    a cluster up to Hp 384 (``"tf32"``) and on the CUDA cores past it; H
-    <= 128 as before (bf16 ``"mma"``, float32 ``"tf32"``). The forward's
-    route is the same for bf16 at every width here."""
+    a cluster up to Hp 384 (``"tf32"``) and on the grid past it, to Hp
+    1024 (``"grid"``); H <= 128 as before (bf16 ``"mma"``, float32
+    ``"tf32"``). The forward's route is the same for bf16 at every width
+    here."""
     Hp = R._padded_width(H)
     bf, f32 = torch.bfloat16, torch.float32
     if Hp <= 128:
         want_bf, want_f32 = "mma", "tf32"
     elif Hp <= R.CLUSTER_MAX_WIDTH:
         want_bf = "cluster"
-        want_f32 = "tf32" if Hp <= R.TF32_MAX_WIDTH else "simt"
+        want_f32 = "tf32" if Hp <= R.TF32_MAX_WIDTH else "grid"
     else:
-        want_bf, want_f32 = "simt", "simt"
+        want_bf = "simt"
+        want_f32 = "grid" if Hp <= R.GRID_MAX_WIDTH else "simt"
     assert R._mma_route(bf, H, "bwd") == want_bf
     assert R._mma_route(bf, H) == want_bf
     assert R._mma_route(f32, H, "bwd") == want_f32

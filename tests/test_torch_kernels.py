@@ -13,8 +13,9 @@ skip without one. Tolerances: gathers exact; the recurrence f32 atol 1e-5
 of 16 zero-padded to the next, and the CUDA-core kernels above), bf16
 atol/rtol 0.05 — the JAX package's own bounds; the backward's gradients
 scaled by their largest magnitude, f32 atol 1e-5 (``tests/
-test_pallas_rnn.py``'s rule; ``csrc/rnn_bwd_tf32.cu`` up to Hp 384, the
-CUDA-core kernels past it) and bf16 atol 0.05 (the bf16 tensor-core
+test_pallas_rnn.py``'s rule; ``csrc/rnn_bwd_tf32.cu`` up to Hp 384,
+``csrc/rnn_bwd_tf32_grid.cu`` to 1024, the CUDA-core kernels past it) and
+bf16 atol 0.05 (the bf16 tensor-core
 backward's f32 weight gradients 1e-4, as ``tests/test_torch_mma_bwd.py``
 holds them).
 """
@@ -375,7 +376,7 @@ def test_cuda_core_route_launches_once_per_seed(cuda, cell):
     operands: one counted launch for all seeds, forward and backward, and
     each seed's result bitwise that seed's one-seed call's; the hoisted
     form too, forward and backward (one ``_Scan`` node for every seed)."""
-    S, B, T, H = 3, 21, 5, 400  # past the 3xTF32 backward's 384 too
+    S, B, T, H = 3, 21, 5, 1040  # past the grid backward's 1024 too
     per = [_rnn_inputs(cell, B, T, H, s, torch.float32, cuda)
            for s in range(S)]
     hin, wx, b, wh = (torch.stack([p[0][i] for p in per]) for i in range(4))
@@ -819,17 +820,19 @@ def test_cluster_bwd_launch_refused_raises(cuda):
 
 
 #: A hoisted route, its dtype and a width it serves (the CUDA cores take
-#: bf16 only past the cluster kernel's widths).
+#: float32 backwards only past the grid kernel's widths, bf16 past the
+#: cluster kernel's).
 HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
-                  "simt": (torch.float32, 400), "simt_bf16": (
+                  "simt": (torch.float32, 1040), "simt_bf16": (
                       torch.bfloat16, 528),
                   "cluster": (torch.bfloat16, 256),
-                  "tf32_cluster": (torch.float32, 256)}
+                  "tf32_cluster": (torch.float32, 256),
+                  "grid": (torch.float32, 400)}
 #: The launch counters' tag of each hoisted route, forward and backward
-#: (float32 above 128: the CUDA-core forward, the 3xTF32 cluster
+#: (float32 above 128: the CUDA-core forward, the 3xTF32 cluster or grid
 #: backward).
 FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_"}
-BWD_TAG = dict(FWD_TAG, tf32_cluster="tf32_")
+BWD_TAG = dict(FWD_TAG, tf32_cluster="tf32_", grid="grid_")
 
 
 @pytest.mark.cuda
@@ -1219,11 +1222,11 @@ def test_tf32_cluster_bwd_launch_refused_raises(cuda):
 @pytest.mark.parametrize("hoisted", [False, True])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_widths_past_the_caps_keep_rnn_bwd(cuda, cell, hoisted):
-    """float32 past the 3xTF32 backward's 384 (H 400) and bf16 past the
+    """float32 past the grid backward's 1024 (H 1040) and bf16 past the
     cluster backward's 512 (H 520, Hp 528) stay on ``csrc/rnn_bwd.cu``
     through the public backward, one counted call each, within the JAX
     bounds of the plain version."""
-    for dtype, H in ((torch.float32, 400), (torch.bfloat16, 520)):
+    for dtype, H in ((torch.float32, 1040), (torch.bfloat16, 520)):
         hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, 21, 4, H, H,
                                                       dtype, cuda, hoisted)
         _build.reset_launch_counts()
@@ -1239,6 +1242,170 @@ def test_widths_past_the_caps_keep_rnn_bwd(cuda, cell, hoisted):
         assert counts[core] == 1 and sum(counts.values()) == 1, counts
         for g, w in zip(got, want):
             _scaled_close(g, w, dtype)
+
+
+#: The float32 widths past 384 the grid backward is held at: its first
+#: (400: the LSTM's 17 CTAs a group of 64 rows), 420 zero-padded to 432,
+#: 640 (the LSTM's 40 CTAs) and its widest, 1024 (the LSTM's 128 CTAs of
+#: 128 rows).
+GRID_WIDTHS = (400, 420, 640, 1024)
+
+
+def _grid_names(cell, hoisted):
+    form = "" if hoisted else "fused_"
+    return f"rnn_{form}bwd_grid_{cell}", f"rnn_{form}bwd_{cell}"
+
+
+def _grid(cell, hoisted, args, **kw):
+    return R._launch_bwd_grid(cell, not hoisted, *args, 1.0, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", GRID_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_grid_bwd_matches_plain(cuda, cell, H, hoisted):
+    """Rows 4 and 2 in float32 past 384 on ``csrc/rnn_bwd_tf32_grid.cu``
+    (the gates by one GEMM, the carry's product over a cooperative grid
+    holding W_h), through the public backward, against the plain versions
+    at the JAX f32 bound (gradients scaled, atol 1e-5): one counted call,
+    no CUDA-core backward, an all-invalid row's dhin/dxw exactly zero, a
+    second call bitwise equal. B 200 is several work items a group."""
+    B, T = 200, 5
+    args = _tf32_wide_args(cell, B, T, H, H + 5, cuda, hoisted)
+    if hoisted:
+        xw, _, _, wh, m, h, c, dh = args
+        run = lambda: rnn_scan_bwd(cell, xw, wh, m, h, c, dh)  # noqa: E731
+        want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+    else:
+        run = lambda: rnn_scan_fused_bwd(cell, *args)  # noqa: E731
+        want = rnn_scan_fused_bwd_reference(cell, *args)
+    _build.reset_launch_counts()
+    got = run()
+    counts = _build.launch_counts()
+    assert counts[_grid_names(cell, hoisted)[0]] == 1, counts
+    assert sum(counts.values()) == 1, counts
+    assert all(g.dtype == torch.float32 for g in got)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        _scaled_close(g, w, torch.float32)
+    assert not got[0][0].any()
+    for a, z in zip(got, run()):
+        assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_grid_bwd_seed_grid_bitwise_equals_single_seed_launches(
+        cuda, cell, hoisted):
+    """The seed rules (``_bwd_vmap`` :952, ``_make_scan._bwd_vmap`` :541)
+    on the grid backward at H 400: S 3 seeds with W_h shared in one
+    counted call, each seed's outputs bitwise its one-seed call's."""
+    S, B, T, H = 3, 150, 5, 400
+    args = _tf32_wide_args(cell, B, T, H, 31, cuda, hoisted, S=S)
+    _build.reset_launch_counts()
+    got = _grid(cell, hoisted, args)
+    assert _build.launch_counts()[_grid_names(cell, hoisted)[0]] == 1
+    for s in range(S):
+        one = _grid(cell, hoisted, [
+            None if t is None else t[s if t.shape[0] == S else 0]
+            for t in args])
+        for g, o in zip(got, one):
+            assert torch.equal(g[s], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell,H", [("lstm", 400), ("gru", 640)])
+def test_grid_bwd_group_and_rows_do_not_change_bits(cuda, cell, H, hoisted):
+    """A (row, unit)'s sums run over every gate column in one k order
+    whatever CTA forms them: the picked group, a larger one (fewer chunks
+    a CTA), 64 and 128 rows a work item, and fewer groups than the card
+    holds all give the same bits."""
+    B, T = 300, 4
+    args = _tf32_wide_args(cell, B, T, H, 17, cuda, hoisted)
+    props = torch.cuda.get_device_properties(cuda)
+    n = R._grid_size(cell, H, props.shared_memory_per_block_optin,
+                     props.multi_processor_count)
+    runs = [_grid(cell, hoisted, args, group=n, rows=64),
+            _grid(cell, hoisted, args, group=n, rows=64, groups=1),
+            _grid(cell, hoisted, args, group=2 * n, rows=128),
+            _grid(cell, hoisted, args, group=H // 8, rows=64)]
+    for other in runs[1:]:
+        for a, z in zip(runs[0], other):
+            assert torch.equal(a, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_grid_fused_backward_takes_the_forward_xw(cuda, cell):
+    """Handed the forward's xw (here ``hin @ W_x + b`` in f32, as a
+    forward's scratch holds it), the fused grid backward skips its own xw
+    GEMM and overwrites the scratch with d_xw: one counted call, within the
+    scaled f32 bound of the plain version and of the call that forms its
+    own xw, the scratch then d_xw within that bound."""
+    B, T, H = 120, 5, 400
+    args = _tf32_wide_args(cell, B, T, H, 37, cuda, False)
+    hin, wx, b, wh, m, h, c, dh = args
+    xw = hin @ wx + b
+    d_xw = R._scan_bwd_core(cell, xw.clone(), wh, m, h, c, dh, 1.0)[0]
+    want = rnn_scan_fused_bwd_reference(cell, *args)
+    own = rnn_scan_fused_bwd(cell, *args)
+    _build.reset_launch_counts()
+    got = rnn_scan_fused_bwd(cell, *args, 1.0, xw=xw)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_bwd_grid_{cell}"] == 1
+    assert sum(counts.values()) == 1, counts
+    for g, w, o in zip(got, want, own):
+        _scaled_close(g, w, torch.float32)
+        _scaled_close(g, o, torch.float32)
+    _scaled_close(xw, d_xw, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_grid_bwd_through_autograd(cuda, cell):
+    """``_FusedScan`` in float32 at H 400: the forward on the CUDA cores
+    (``rnn_fused_fwd.cu``, no xw scratch), the backward on the grid, one
+    launch each; the gradients against autograd of the plain version on
+    the CPU."""
+    B, T, H = 37, 5, 400
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 47, torch.float32,
+                                         "cpu")
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dev).requires_grad_(True)
+                  for t in (hin, wx, b, wh)]
+        _build.reset_launch_counts()
+        out = rnn_scan_fused(cell, *leaves, m.to(dev))
+        out.mul(dh.to(dev)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_{cell}"] == 1, counts
+    assert counts[f"rnn_fused_bwd_grid_{cell}"] == 1, counts
+    assert sum(counts.values()) == 2, counts
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        _scaled_close(g_card, g_cpu, torch.float32)
+
+
+@pytest.mark.cuda
+def test_grid_bwd_launch_refused_raises(cuda):
+    """No fallback: a grid the card cannot hold at once (one group more
+    than its SMs take) is refused by the cooperative launch before any
+    kernel runs, naming the width and the groups; a group the kernel does
+    not take raises, naming the width."""
+    args = _tf32_wide_args("lstm", 37, 3, 400, 1, cuda, False)
+    props = torch.cuda.get_device_properties(cuda)
+    n = R._grid_size("lstm", 400, props.shared_memory_per_block_optin,
+                     props.multi_processor_count)
+    ctas = R._grid_check("lstm", 400, n, 64, cuda)
+    _build.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="hidden=400"):
+        _grid("lstm", False, args, group=n, rows=64, groups=ctas // n + 1)
+    with pytest.raises(ValueError, match="hidden=400 with a group of 2"):
+        _grid("lstm", False, args, group=2, rows=64)
+    assert not any(_build.launch_counts().values())
 
 
 @pytest.mark.cuda

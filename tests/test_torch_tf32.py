@@ -76,13 +76,13 @@ def test_route_table(direction, dtype, H):
     tensor cores both ways and float32 the 3xTF32 kernels both ways; H >
     128 the CUDA cores, but for bf16, which runs on the tensor cores with
     W_h split across a cluster both ways, and the float32 backward, which
-    runs on the 3xTF32 kernels on a cluster up to 384."""
+    runs on the 3xTF32 kernels on a cluster up to 384 and on the grid
+    (``csrc/rnn_bwd_tf32_grid.cu``) past it."""
     tc = H <= 128
     if not tc:
         want = "cluster" if dtype == torch.bfloat16 else "simt"
-        if (dtype == torch.float32 and direction == "bwd"
-                and H <= R.TF32_MAX_WIDTH):
-            want = "tf32"
+        if dtype == torch.float32 and direction == "bwd":
+            want = "tf32" if H <= R.TF32_MAX_WIDTH else "grid"
     elif dtype == torch.bfloat16:
         want = "mma"
     else:

@@ -84,11 +84,12 @@ def one_thread():
                                512, 1024])
 def test_float32_backward_route(H):
     """float32 backwards above 128 run on the 3xTF32 kernels up to Hp 384
-    and on the CUDA cores past it; the float32 forward stays on the CUDA
-    cores and every bf16 route is as before."""
+    and past it on the grid kernel (``csrc/rnn_bwd_tf32_grid.cu``, to Hp
+    1024); the float32 forward stays on the CUDA cores and every bf16
+    route is as before."""
     Hp = R._padded_width(H)
     f32, bf = torch.float32, torch.bfloat16
-    assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 384 else "simt")
+    assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 384 else "grid")
     assert R._mma_route(f32, H) == "simt"
     want_bf = "cluster" if Hp <= R.CLUSTER_MAX_WIDTH else "simt"
     assert R._mma_route(bf, H) == R._mma_route(bf, H, "bwd") == want_bf
@@ -96,8 +97,10 @@ def test_float32_backward_route(H):
 
 def test_source_constants_agree():
     """The wrapper's cap, cluster sizes, rows, thread limits, units, slice
-    tiles and shared-memory count are the source's."""
-    text = SRC.read_text()
+    tiles and shared-memory count are the source's (the weight-gradient
+    kernel's tiles in the header it shares with the grid backward)."""
+    header = SRC.parent / "tf32_common.cuh"
+    text = SRC.read_text() + header.read_text()
     assert f"constexpr int kMaxWidth = {R.TF32_MAX_WIDTH};" in text
     assert f"constexpr int kMaxCluster = {max(R.TF32_CLUSTERS['bwd'])};" \
         in text
@@ -117,7 +120,6 @@ def test_source_constants_agree():
             "(size_t)rows * LW +\n              (size_t)C * rows * "
             "recv_ld(H, C));") in text
     # Chains: the header's kChainK of k at most per accumulator.
-    header = SRC.parent / "tf32_common.cuh"
     assert "constexpr int kChainK = 64;" in header.read_text()
 
 
@@ -146,11 +148,11 @@ def test_every_width_fits_an_h100(cell):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_the_first_width_past_the_cap_is_refused(cell):
     """Hp 400 is past ``kMaxWidth`` (the LSTM's f32 W_h does not fit 16
-    CTAs beside the tiles): the route is the CUDA cores, no shape is
-    taken and the picker raises naming the width; a card whose shared
-    memory holds no cluster's share at 384 raises too."""
-    assert R._mma_route(torch.float32, 400, "bwd") == "simt"
-    assert R._mma_route(torch.float32, 392, "bwd") == "simt"  # Hp 400
+    CTAs beside the tiles): the route is the grid kernel's, no cluster
+    shape is taken and the cluster picker raises naming the width; a card
+    whose shared memory holds no cluster's share at 384 raises too."""
+    assert R._mma_route(torch.float32, 400, "bwd") == "grid"
+    assert R._mma_route(torch.float32, 392, "bwd") == "grid"  # Hp 400
     assert not any(R._tf32_takes(400, C, r) for C in R.TF32_CLUSTERS["bwd"]
                    for r in R.TF32_CLUSTER_ROWS)
     with pytest.raises(ValueError, match="hidden=400"):
