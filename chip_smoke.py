@@ -65,7 +65,10 @@ imports nothing of JAX. Phases, each fatal on failure:
    and of the same four at hidden 120 (the 3xTF32 kernels, zero-padded)
    run the same way, and no CUDA-core kernel may launch in any; the
    float32 four at hidden 160 must launch the CUDA-core forwards and
-   backwards. The hoisted bf16 step and the fused float32 step are also
+   backwards (now the 3xTF32 cluster backwards), the float32
+   four at hidden 400 the grid backwards and the bf16 four at hidden 528
+   the CUDA-core forwards and the bf16 grid backwards (``rnn_bwd_grid.cu``,
+   no CUDA-core backward). The hoisted bf16 step and the fused float32 step are also
    timed with their backward as routed and sent to the CUDA-core kernel,
    the fused float32 step with its forward so, and the fused float32
    hidden-120 step on its route and with every width sent to the CUDA
@@ -277,7 +280,9 @@ imports nothing of JAX. Phases, each fatal on failure:
    256 (S 3, m shared: every seed bitwise its one-seed call), and two
    3-seed c2 ensembles with ``scan_impl="pallas"`` (hidden 256 on the CUDA
    cores, float32 on the 3xTF32 kernels) for 2 steps, one launch of each
-   kernel a step, against the plain path;
+   kernel a step, against the plain path; rows 4 and 2 in
+   bf16 at hidden 528 on the bf16 grid in turns with ``rnn_bwd.cu``,
+   beside cuDNN, its seed grids, and row 4 at the grid's widest, 1520;
 29. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
    10, 11-15, 17-23, 26's sequential fits and 28's one-seed runs for the
    one-seed rows, 6, 7, 16, 19-21, 26's stacks, 27 and 28's ensembles for
@@ -318,25 +323,30 @@ HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
 # the 3xTF32 kernels on a cluster; and one past the 3xTF32 cluster's 384,
 # whose training runs are the grid backward's (rnn_bwd_tf32_grid.cu) main
 # path. A bf16 width past the cluster kernels' 512, whose training runs are
-# the CUDA-core backward's (rnn_bwd.cu) main path.
+# the CUDA-core forward's and the bf16 grid backward's (rnn_bwd_grid.cu)
+# main path, and that grid's widest.
 PADDED_HIDDEN = 120
 CUDA_CORE_HIDDEN = 160
 PAST_CAP_HIDDEN = 400
 CORE_BF16_HIDDEN = 528
+BF16_GRID_WIDEST = 1520
 # The device's sleep (clock cycles, about 10 ms) while the host queues the
 # launches that device_ms times.
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
 # forwards run on the main paths in float32 at hidden 160 and 400 and in
-# bf16 at 528, the CUDA-core backwards in bf16 at hidden 528 (past the
-# cluster backward's 512); measured at hidden 400 (forwards, float32) and
-# 528 (backwards, bf16), B 2048, T 60 (the kernels line keeps the largest
-# shape). The 3xTF32 kernels (``*_tf32_*``) are measured in float32 at the
-# c2 train step, at hidden 120, zero-padded to 128, and (the backwards, on
-# a cluster) at hidden 160-384 (phase 28), the grid backwards
-# (``*_grid_*``) at 400 (and 640, 1024: suffixed records); the bf16 ones at
-# the c2 train step and the serving dispatches.
+# bf16 at 528; the CUDA-core backwards (float32 past 1024, bf16 past 1520)
+# on none since the bf16 grid took 528: they are held and timed at 528 in
+# bf16 (phase 28, the bf16 grid's "[before]"). Measured at hidden 400
+# (forwards, float32) and 528 (backwards, bf16), B 2048, T 60 (the kernels
+# line keeps the largest shape). The 3xTF32 kernels (``*_tf32_*``) are
+# measured in float32 at the c2 train step, at hidden 120, zero-padded to
+# 128, and (the backwards, on a cluster) at hidden 160-384 (phase 28), the
+# float32 grid backwards (``*_grid_*``) at 400 (and 640, 1024: suffixed
+# records), the bf16 grid backwards (``*_grid_bf16_*``) at 528 (and the
+# LSTM's row 4 at 1520: suffixed); the bf16 ones at the c2 train step and
+# the serving dispatches.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -384,6 +394,12 @@ SOURCES = {
                                "pallas_rnn.py:739"),
     "rnn_bwd_grid_lstm": ("csrc/rnn_bwd_tf32_grid.cu", "pallas_rnn.py:184"),
     "rnn_bwd_grid_gru": ("csrc/rnn_bwd_tf32_grid.cu", "pallas_rnn.py:243"),
+    "rnn_fused_bwd_grid_bf16_lstm": ("csrc/rnn_bwd_grid.cu",
+                                     "pallas_rnn.py:673"),
+    "rnn_fused_bwd_grid_bf16_gru": ("csrc/rnn_bwd_grid.cu",
+                                    "pallas_rnn.py:739"),
+    "rnn_bwd_grid_bf16_lstm": ("csrc/rnn_bwd_grid.cu", "pallas_rnn.py:184"),
+    "rnn_bwd_grid_bf16_gru": ("csrc/rnn_bwd_grid.cu", "pallas_rnn.py:243"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
 # The served universes: preset → (requests, the kernels its dispatches
@@ -433,6 +449,9 @@ SEED_SOURCES = {
     "rnn_bwd_grid_lstm_seeds": (
         "rnn_bwd_grid_lstm", "csrc/rnn_bwd_tf32_grid.cu",
         "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
+    "rnn_bwd_grid_bf16_lstm_seeds": (
+        "rnn_bwd_grid_bf16_lstm", "csrc/rnn_bwd_grid.cu",
+        "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
 }
 PLAIN_STEPS = 3      # steps of each model held against the plain path
 TIMED_STEPS = 4      # steps of each model timed
@@ -467,6 +486,8 @@ TF32 = tuple(f"rnn_{form}_tf32_{cell}" for form in ("fused_fwd", "fwd",
              for cell in ("lstm", "gru"))
 GRID = tuple(f"rnn_{form}_grid_{cell}" for form in ("fused_bwd", "bwd")
              for cell in ("lstm", "gru"))
+GRID_BF16 = tuple(f"rnn_{form}_grid_bf16_{cell}"
+                  for form in ("fused_bwd", "bwd") for cell in ("lstm", "gru"))
 
 
 def fail(msg: str) -> None:
@@ -1576,7 +1597,11 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
             return R._launch_bwd(cell, f, *a, 1.0)
 
         core_err = None
-        if route in ("tf32", "grid"):
+        # Past 400 the grid is not timed beside rnn_bwd.cu (a CUDA-core
+        # call takes up to seconds there; cut for the script's time).
+        in_turns = route == "tf32" or (route == "grid"
+                                       and H <= PAST_CAP_HIDDEN)
+        if in_turns:
             _build.reset_launch_counts()
             got = core()
             if _build.launch_counts()[core_name] != 1:
@@ -1622,16 +1647,16 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                                launches=2 if H <= 400 else 1),
                    **common)
         if route == "grid":
-            # In turns with rnn_bwd.cu on the same inputs (one reading each
-            # past 400: a CUDA-core call takes up to seconds there).
-            cc = kernel_ms(core, reps=2 if H <= 400 else 1, launches=1)
+            rec.update(grid_shape(torch, cell, B, H, dev))
+        if route == "grid" and in_turns:
+            # In turns with rnn_bwd.cu on the same inputs.
+            cc = kernel_ms(core, reps=2, launches=1)
             again = time_ms(core, reps=1, warmup=0)
             rec.update(cuda_core_ms=cc["ms"],
                        cuda_core_device_ms=cc["device_ms"],
                        cuda_core_max_abs_err=core_err,
                        turns_ms=dict(grid=[rec["ms"], time_ms(run, reps=3)],
-                                     cuda_core=[cc["ms"], again]),
-                       **grid_shape(torch, cell, B, H, dev))
+                                     cuda_core=[cc["ms"], again]))
             report(kernels, core_name + name_suffix, where, dict(
                 max_abs_err=core_err,
                 rows_per_block=R._simt_rows(cell, kind, H, dev), **cc,
@@ -1682,7 +1707,8 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                if "cluster" in rec else "")
             + (f"{rec['groups']} groups of {rec['group']} CTAs x "
                f"{rec['rows']} rows, {rec['ctas_at_once']} CTAs at once, "
-               f"in turns {rec['turns_ms']}, " if "group" in rec else "")
+               if "group" in rec else "")
+            + (f"in turns {rec['turns_ms']}, " if "turns_ms" in rec else "")
             + (f"the grid kernel {rec['grid_ms']:.4f} ms (device "
                f"{rec['grid_device_ms']:.4f}), " if "grid_ms" in rec else "")
             + f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}"
@@ -1971,14 +1997,15 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     # a cluster: no CUDA-core backward) and at hidden 400 (past the 3xTF32
     # cluster: the CUDA-core forwards and the grid backwards, no CUDA-core
     # backward); the bf16 four at hidden 528 (past the cluster kernels:
-    # the CUDA-core forwards and backwards): a few steps each.
+    # the CUDA-core forwards, the bf16 grid backwards): a few steps each.
     h120 = dict(cfg.model.kwargs, hidden=PADDED_HIDDEN)
     h160 = dict(cfg.model.kwargs, hidden=CUDA_CORE_HIDDEN)
     h400 = dict(cfg.model.kwargs, hidden=PAST_CAP_HIDDEN)
     h528 = dict(cfg.model.kwargs, hidden=CORE_BF16_HIDDEN)
-    # Past 512 in bf16 no tensor-core kernel runs.
-    not_core = TF32 + GRID + tuple(k for k in _build.LAUNCHES
-                                   if "_mma_" in k or "_cluster_" in k)
+    # Past 512 in bf16 no tensor-core kernel runs but the bf16 grid
+    # backward, and no CUDA-core backward.
+    not_core = TF32 + GRID + CUDA_CORE_BWD + tuple(
+        k for k in _build.LAUNCHES if "_mma_" in k or "_cluster_" in k)
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
              ("rnn_fwd_mma_lstm", "rnn_bwd_mma_lstm", "window_gather"),
              CUDA_CORE),
@@ -2056,18 +2083,20 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
              ("rnn_fwd_gru", "rnn_bwd_grid_gru", "window_gather"),
              TF32 + CUDA_CORE_BWD),
             ("c2 training (fused, hidden 528)", train_variant(cfg, kwargs=h528),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_lstm", "window_gather"),
-             not_core),
+             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_grid_bf16_lstm",
+              "window_gather"), not_core),
             ("c2 training (hoisted, hidden 528)",
              train_variant(cfg, scan_impl="pallas", kwargs=h528),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"), not_core),
+             ("rnn_fwd_lstm", "rnn_bwd_grid_bf16_lstm", "window_gather"),
+             not_core),
             ("GRU training (fused, hidden 528)",
              train_variant(cfg, kind="gru", kwargs=h528),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_gru", "window_gather"),
-             not_core),
+             ("rnn_fused_fwd_gru", "rnn_fused_bwd_grid_bf16_gru",
+              "window_gather"), not_core),
             ("GRU training (hoisted, hidden 528)",
              train_variant(cfg, kind="gru", scan_impl="pallas", kwargs=h528),
-             ("rnn_fwd_gru", "rnn_bwd_gru", "window_gather"), not_core))
+             ("rnn_fwd_gru", "rnn_bwd_grid_bf16_gru", "window_gather"),
+             not_core))
     for label, run_cfg, must, must_not in runs:
         got, counts = counted(label, must, lambda: short_run(
             torch, run_cfg, splits, TRAIN_STEPS_SHORT), must_not)
@@ -7043,19 +7072,25 @@ def f32_wide_rows(torch, kernels, gen) -> None:
 
 def core_bf16_rows(torch, kernels, gen) -> None:
     """Rows 4 and 2 in bf16 at :data:`CORE_BF16_HIDDEN` (B 2048, T 60,
-    seeded weights at H^-1/2, both cells), the CUDA-core backward's
-    (``rnn_bwd.cu``) main path since the float32 rows past 384 moved to
-    the grid: through the public backwards, one counted call each, within
-    the bf16 bound of the plain version (gradients scaled, 0.05), timed
-    beside the bound, the plain version and cuDNN's backward, recorded
-    under the kernel's own name."""
+    seeded weights at H^-1/2, both cells) on the bf16 grid backward
+    (``rnn_bwd_grid.cu``, the route past 512): through the public
+    backwards, one counted call each, bitwise repeatable, within the bf16
+    bound of the plain version (gradients scaled, 0.05), timed beside the
+    bound, the plain version and cuDNN's backward and in turns with
+    ``rnn_bwd.cu`` on the same inputs (grid, CUDA cores, CUDA cores, grid;
+    ``rnn_bwd.cu`` held to the plain version too and recorded under its own
+    name: the table's "[before]"); the LSTM's seed grids there
+    (:func:`grid_seeds`); and row 4 of the LSTM at the grid's widest Hp,
+    :data:`BF16_GRID_WIDEST`, against cuDNN (suffixed record)."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
-    B, T, H = 2048, 60, CORE_BF16_HIDDEN
+    B, T = 2048, 60
     bf = torch.bfloat16
     rnd = dict(generator=gen, device="cuda")
-    for cell in ("lstm", "gru"):
+    for cell, H in (("lstm", CORE_BF16_HIDDEN), ("gru", CORE_BF16_HIDDEN),
+                    ("lstm", BF16_GRID_WIDEST)):
+        widest = H == BF16_GRID_WIDEST
         G = GATES[cell] * H
         hin = torch.randn(B, T, H, **rnd).to(bf)
         wx, wh = ((H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
@@ -7066,8 +7101,13 @@ def core_bf16_rows(torch, kernels, gen) -> None:
         xw32 = hin.float() @ wx.float() + b.float()
         xw = xw32.to(bf)
         where = f"B {B}, T {T}, H {H}"
+        dev = hin.device
         for kind, fused in (("fused_bwd", True), ("bwd", False)):
-            name = f"rnn_{'fused_' if fused else ''}bwd_{cell}"
+            if widest and not fused:
+                continue
+            form = "fused_" if fused else ""
+            name = f"rnn_{form}bwd_grid_bf16_{cell}"
+            core_name = f"rnn_{form}bwd_{cell}"
             h, c = R.rnn_scan_states(cell, xw32 if fused else xw, wh, mm,
                                      1.0, True)
             h, c = h.to(bf), None if c is None else c.to(bf)
@@ -7075,41 +7115,154 @@ def core_bf16_rows(torch, kernels, gen) -> None:
                 args = (cell, hin, wx, b, wh, mm, h, c, dh)
                 public, plain = (R.rnn_scan_fused_bwd,
                                  R.rnn_scan_fused_bwd_reference)
+                simt_args = args[1:]
             else:
                 args = (cell, xw, wh, mm, h, c, dh)
                 public, plain = R.rnn_scan_bwd, R.rnn_scan_bwd_reference
-            if R._mma_route(bf, H, "bwd") != "simt":
-                fail(f"bf16 hidden {H} is not on rnn_bwd.cu")
+                simt_args = (xw, None, None) + args[2:]
+            if R._mma_route(bf, H, "bwd") != "grid":
+                fail(f"bf16 hidden {H} is not on the bf16 grid")
+            want = plain(*args)
             _build.reset_launch_counts()
             got = public(*args)
             counts = _build.launch_counts()
             if counts[name] != 1 or sum(counts.values()) != 1:
-                fail(f"{name} (bf16) at {where}: launched {counts}")
-            err = grads_close(f"{name} (bf16) at {where}", got,
-                              plain(*args), bf)
-            del got
+                fail(f"{name} at {where}: launched {counts}")
+            again = public(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                fail(f"{name} at {where}: two calls differ")
+            err = grads_close(f"{name} at {where}", got, want, bf)
+            del got, again
+
+            def run(a=args, f=public):
+                return f(*a)
+
+            def core(a=simt_args, f=fused):
+                return R._launch_bwd(cell, f, *a, 1.0)
+
+            core_rec = {}
+            if not widest:
+                _build.reset_launch_counts()
+                got = core()
+                if _build.launch_counts()[core_name] != 1:
+                    fail(f"{core_name} (bf16) at {where}: launched "
+                         f"{_build.launch_counts()}")
+                core_rec["max_abs_err"] = grads_close(
+                    f"{core_name} (bf16) at {where}", got, want, bf)
+                del got
+            del want
             library = cudnn_bwd_yardstick(torch, cell, hin if fused else xw,
                                           wx, b, wh, dh, hoisted=not fused)
             torch.cuda.empty_cache()
             bound, by = rnn_bound(kind, cell, B, T, H, 2)
-            rec = dict(shape=[B, T, H], dtype="bfloat16", max_abs_err=err,
-                       tolerance=f"scaled atol {BF16_TOL}",
-                       rows_per_block=R._simt_rows(cell, kind, H,
-                                                   hin.device),
-                       **kernel_ms(lambda a=args, f=public: f(*a), reps=2,
-                                   launches=1),
-                       plain_ms=time_ms(lambda a=args, f=plain: f(*a),
-                                        reps=1, warmup=1),
-                       bound_ms=bound, bound_by=by, **library)
-            report(kernels, name, where, rec)
-            log(f"{name} (bf16) at {where}: {rec['ms']:.4f} ms (device "
-                f"{rec['device_ms']:.4f}), bound {bound:.4f}, plain "
-                f"{rec['plain_ms']:.4f}, library {rec['library_ms']}, max "
-                f"err {err:.3g}")
+            common = dict(shape=[B, T, H], dtype="bfloat16",
+                          tolerance=f"scaled atol {BF16_TOL}",
+                          plain_ms=time_ms(lambda a=args, f=plain: f(*a),
+                                           reps=1, warmup=1),
+                          bound_ms=bound, bound_by=by, **library)
+            rec = dict(max_abs_err=err, bitwise_repeatable=True,
+                       **kernel_ms(run, reps=2, launches=1), **common)
+            props = torch.cuda.get_device_properties(dev)
+            limit, sms = (props.shared_memory_per_block_optin,
+                          props.multi_processor_count)
+            n = R._grid_size(cell, H, limit, sms, bf)
+            rows = R._grid_rows(cell, H, n, B, 1, limit, sms, bf)
+            ctas = R._grid_check(cell, H, n, rows, dev, bf)
+            rec.update(group=n, rows=rows, groups=min(ctas // n,
+                                                      -(-B // rows)),
+                       ctas_at_once=ctas)
+            if not widest:
+                # In turns with rnn_bwd.cu on the same inputs.
+                cc = kernel_ms(core, reps=1, launches=1)
+                again = time_ms(core, reps=1, warmup=0)
+                rec.update(cuda_core_ms=cc["ms"],
+                           cuda_core_device_ms=cc["device_ms"],
+                           cuda_core_max_abs_err=core_rec["max_abs_err"],
+                           turns_ms=dict(grid=[rec["ms"],
+                                               time_ms(run, reps=2)],
+                                         cuda_core=[cc["ms"], again]))
+                report(kernels, core_name, where, dict(
+                    core_rec, rows_per_block=R._simt_rows(cell, kind, H,
+                                                          dev), **cc,
+                    **common))
+            report(kernels, name + ("@h%d" % H if widest else ""), where,
+                   rec)
+            log(f"{name} at {where}: {rec['groups']} groups of {n} CTAs x "
+                f"{rows} rows, {rec['ms']:.4f} ms (device "
+                f"{rec['device_ms']:.4f})"
+                + (f", in turns {rec['turns_ms']}, rnn_bwd.cu "
+                   f"{rec['cuda_core_ms']:.4f}" if not widest else "")
+                + f", bound {bound:.4f}, plain {rec['plain_ms']:.4f}, "
+                f"library {rec['library_ms']}, max err {err:.3g}")
             del h, c
             torch.cuda.empty_cache()
+        if not widest:
+            bf16_fwd_rows(torch, kernels, where, cell, hin, wx, b, wh, mm,
+                          xw)
+        if cell == "lstm" and not widest:
+            grid_seeds(torch, kernels, cell, hin, wx, b, wh, mm, dh, xw)
         del hin, wx, wh, b, mm, dh, xw32, xw
         torch.cuda.empty_cache()
+
+
+def bf16_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
+                  xw) -> None:
+    """Rows 3 and 1 in bf16 past 512 on ``rnn_fused_fwd.cu`` (the route:
+    the bf16 forwards above the cluster's 512), saving c_all as training
+    does: counted (nothing else launched), h_all and c_all within atol
+    0.05 + rtol 0.05 of the plain version, timed beside the bound, the
+    plain version and cuDNN's forward (:func:`cudnn_yardstick`,
+    :func:`hoisted_yardstick`); recorded as ``<name>@h<H>``."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    xw32 = hin.float() @ wx.float() + b.float()
+    for kind, fused in (("fused_fwd", True), ("fwd", False)):
+        name = f"rnn_{'fused_' if fused else ''}fwd_{cell}"
+        if fused:
+            run = (lambda: R._fused_states(cell, hin, wx, b, wh, mm, 1.0,
+                                           True))
+            want = R.rnn_scan_states(cell, xw32, wh, mm, 1.0, True)
+            plain_ms = time_ms(lambda: R.rnn_scan_fused_reference(
+                cell, hin, wx, b, wh, mm), reps=1, warmup=1)
+            library = cudnn_yardstick(torch, cell, hin, wx, b, wh, BF16_TOL,
+                                      BF16_TOL)
+        else:
+            run = (lambda: R._scan_states_any(cell, xw, wh, mm, 1.0, True))
+            want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
+            plain_ms = time_ms(lambda: R.rnn_scan_reference(
+                cell, xw, wh, mm), reps=1, warmup=1)
+            library = hoisted_yardstick(torch, cell, xw, wh, BF16_TOL,
+                                        BF16_TOL)
+        _build.reset_launch_counts()
+        out = run()
+        counts = _build.launch_counts()
+        if counts[name] != 1 or sum(counts.values()) != 1:
+            fail(f"{name} (bf16) at {where}: launched {counts}")
+        err = 0.0
+        for got, ref in zip(out, want):
+            if got is None:  # the GRU has no c_all
+                continue
+            e, excess = worst_excess(got, ref, BF16_TOL, BF16_TOL)
+            if excess > 0 or not torch.isfinite(got.float()).all():
+                fail(f"{name} (bf16) at {where}: max err {e}")
+            err = max(err, e)
+        del out, want
+        bound, by = rnn_bound(kind, cell, B, T, H, 2, save_c=True)
+        rec = dict(shape=[B, T, H], dtype="bfloat16", save_c=True,
+                   max_abs_err=err, tolerance=f"atol {BF16_TOL} + rtol "
+                   f"{BF16_TOL}", rows_per_block=R._simt_rows(
+                       cell, kind, H, hin.device),
+                   **kernel_ms(run, reps=3, launches=2), plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, **library)
+        report(kernels, f"{name}@h{H}", where, rec)
+        log(f"{name} (bf16) at {where}: {rec['ms']:.4f} ms (device "
+            f"{rec['device_ms']:.4f}), bound {bound:.4f}, plain "
+            f"{plain_ms:.4f}, library {rec['library_ms']}, max err "
+            f"{err:.3g}")
+    torch.cuda.empty_cache()
 
 
 #: The grid recurrence's kernels by name (substrings of the profiler's
@@ -7125,8 +7278,10 @@ GRID_PARTS = {"xw GEMM": "tf32_gemm_kernel<false, false>",
 def grid_split(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                h, c, dh) -> None:
     """Row 4 on the grid backward split by kernel (:data:`GRID_PARTS`,
-    device ms by ``torch.profiler`` over two calls, halved; where the
-    profiler sees no device time, :func:`grid_split_elsewhere`), the
+    device ms by ``torch.profiler`` over two calls, halved; "not measured"
+    where the profiler sees no device time, as late in the whole script it
+    has: ``scripts/torch_cluster_variants.py --direction bwd_grid`` gives
+    the split in a process of its own), the
     recurrence's barrier waits (each CTA's SM cycles waiting at its
     group's barriers over its cycles in all, by the kernel's own clock:
     mean and largest share, and that share of the recurrence's ms), and
@@ -7148,34 +7303,29 @@ def grid_split(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     by_name = profile_device(torch, lambda: [run() for _ in range(2)],
                              f"row 4 on the grid ({cell}, {where})")
     torch.cuda.synchronize()
-    source = "this process"
-    if by_name:
-        by_name = {k: ms / 2 for k, ms in by_name.items()}
-    else:
-        # Late in the whole script the profiler has seen no device time
-        # here (on the card it did in a process of its own): the same
-        # split from a fresh process, the picked pair's kernels at H 400.
-        by_name = grid_split_elsewhere(cell)
-        source = "scripts/torch_cluster_variants.py --direction bwd_grid"
     cyc = stats["cycles"].double().cpu()
     share = cyc[:, 0] / cyc[:, 1]
-    split = {part: sum(ms for name, ms in by_name.items() if key in name)
-             for part, key in GRID_PARTS.items()}
-    split["other"] = sum(by_name.values()) - sum(split.values())
     n, rows = stats["group"], stats["rows"]
     gathered = ((T - 1) * -(-B // rows) * n * rows * GATES[cell] * H * 4)
-    rec = dict(shape=[B, T, H], dtype="float32", device_ms_by_part=split,
-               split_measured_in=source, group=n, rows=rows,
-               groups=stats["groups"],
+    split, recur = None, None
+    if by_name:
+        split = {part: sum(ms / 2 for name, ms in by_name.items()
+                           if key in name)
+                 for part, key in GRID_PARTS.items()}
+        split["other"] = sum(by_name.values()) / 2 - sum(split.values())
+        recur = split["recurrence"]
+    rec = dict(shape=[B, T, H], dtype="float32",
+               device_ms_by_part=split or "not measured", group=n,
+               rows=rows, groups=stats["groups"],
                barrier_wait_share_mean=float(share.mean()),
                barrier_wait_share_max=float(share.max()),
-               barrier_wait_ms=float(share.mean()) * split["recurrence"],
+               barrier_wait_ms=float(share.mean()) * recur if recur else None,
                all_gather_bytes=gathered,
-               all_gather_gb_per_s=(gathered / split["recurrence"] / 1e6
-                                    if split["recurrence"] else None))
+               all_gather_gb_per_s=gathered / recur / 1e6 if recur else None)
     report(kernels, f"rnn_fused_bwd_grid_{cell}_split", where, rec)
     log(f"row 4 on the grid ({cell}, {where}): device ms "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + (", ".join(f"{k} {v:.3f}" for k, v in split.items()) if split
+           else "not measured")
         + f"; barrier waits {100 * float(share.mean()):.1f}% of the "
         f"recurrence's cycles (largest {100 * float(share.max()):.1f}%); "
         f"all-gather {gathered / 1e9:.2f} GB at "
@@ -7184,52 +7334,22 @@ def grid_split(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     torch.cuda.empty_cache()
 
 
-_SPLIT_ELSEWHERE: dict = {}
-
-
-def grid_split_elsewhere(cell: str) -> dict:
-    """Row 4 on the grid at B 2048, T 60, H :data:`PAST_CAP_HIDDEN` split
-    by kernel in a process of its own (``scripts/torch_cluster_variants.py
-    --direction bwd_grid --picked-only``, both cells in one run, kept for
-    the second): device ms a call by kernel name."""
-    if cell not in _SPLIT_ELSEWHERE:
-        import tempfile
-
-        with tempfile.TemporaryDirectory() as tmp:
-            out = os.path.join(tmp, "split.jsonl")
-            run = subprocess.run(
-                [sys.executable, os.path.join(ROOT, "scripts",
-                                              "torch_cluster_variants.py"),
-                 "--direction", "bwd_grid", "--picked-only", "--reps", "1",
-                 "--widths", str(PAST_CAP_HIDDEN), "--out", out],
-                env=cli_env(), cwd=ROOT, capture_output=True, text=True,
-                timeout=300)
-            if run.returncode != 0:
-                # Informational: the split then reads "not measured".
-                log(f"the grid's split in a fresh process failed (not "
-                    f"measured): {run.stderr[-1000:]}")
-                return {}
-            with open(out) as fh:
-                for line in fh:
-                    rec = json.loads(line)
-                    if rec.get("picked") and rec["form"] == "fused_bwd":
-                        _SPLIT_ELSEWHERE[rec["cell"]] = rec["kernels_ms"]
-    return _SPLIT_ELSEWHERE.get(cell, {})
-
-
 def grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
                xw) -> None:
-    """The grid backward's seed grids at :data:`PAST_CAP_HIDDEN` (S 3, W_h
-    shared): fused and hoisted, one counted call each, each seed bitwise
-    its one-seed call; the hoisted one held to the plain version per seed
-    (scaled atol 1e-5) and timed beside its bound, three one-seed calls,
-    the plain version and one f32 ``torch.bmm`` of the per-seed dW_h
-    products, as ``rnn_bwd_grid_<cell>_seeds``."""
+    """A grid backward's seed grids (S 3, W_h shared), in ``hin``'s dtype:
+    float32 at :data:`PAST_CAP_HIDDEN`, bf16 at :data:`CORE_BF16_HIDDEN`.
+    Fused and hoisted, one counted call each, each seed bitwise its
+    one-seed call; the hoisted one held to the plain version per seed
+    (scaled atol 1e-5; bf16 0.05) and timed beside its bound, three
+    one-seed calls, the plain version and one f32 ``torch.bmm`` of the
+    per-seed dW_h products, as ``rnn_bwd_grid_[bf16_]<cell>_seeds``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
     S = GRID_SEEDS
     B, T, H = hin.shape
+    dtype = hin.dtype
+    tag = "bf16_" if dtype == torch.bfloat16 else ""
     stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
     xw3, hin3, dh3 = (stack(t, lambda v: -v) for t in (xw, hin, dh))
     wx3, b3 = stack(wx, lambda v: 0.9 * v), stack(b, lambda v: -v)
@@ -7242,8 +7362,8 @@ def grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     one = (lambda s: R.rnn_scan_bwd(cell, xw3[s], wh, m3[s], *pick(sx, s),
                                     dh3[s]))
     for name, run, single in (
-            (f"rnn_bwd_grid_{cell}", hoisted, one),
-            (f"rnn_fused_bwd_grid_{cell}",
+            (f"rnn_bwd_grid_{tag}{cell}", hoisted, one),
+            (f"rnn_fused_bwd_grid_{tag}{cell}",
              lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3, wh[None], m3,
                                           *sf, dh3),
              lambda s: R.rnn_scan_fused_bwd(cell, hin3[s], wx3[s], b3[s], wh,
@@ -7253,24 +7373,26 @@ def grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
         counts = _build.launch_counts()
         if counts[name] != 1 or sum(counts.values()) != 1:
             fail(f"{name} seed grid at H {H}: launched {counts}")
-        seed_grid_held(torch, f"{name} seed grid (float32, H {H}, W_h "
+        seed_grid_held(torch, f"{name} seed grid ({dtype}, H {H}, W_h "
                        f"shared)", got, single, range(S))
         if name.startswith("rnn_bwd_"):
             err = max(grads_close(
                 f"{name} seed grid seed {s}", tuple(g[s] for g in got),
                 R.rnn_scan_bwd_reference(cell, xw3[s], wh, m3[s],
                                          *pick(sx, s), dh3[s]),
-                torch.float32) for s in range(S))
+                dtype) for s in range(S))
         del got
     del hin3, wx3, b3, sf
-    bound, by = rnn_bound("bwd", cell, B, T, H, 4, seeds=S)
+    bound, by = rnn_bound("bwd", cell, B, T, H, hin.element_size(),
+                          seeds=S)
     a = torch.randn(S, H, B * T, device="cuda")
     d = torch.randn(S, B * T, GATES[cell] * H, device="cuda")
     library = time_ms(lambda: torch.bmm(a, d), reps=3)
     del a, d
-    rec = dict(shape=[S, B, T, H], dtype="float32", shared="W_h",
-               bitwise_vs_single=True, seeds_checked=S, max_abs_err=err,
-               tolerance=f"scaled atol {F32_TOL}",
+    rec = dict(shape=[S, B, T, H], dtype=str(dtype).replace("torch.", ""),
+               shared="W_h", bitwise_vs_single=True, seeds_checked=S,
+               max_abs_err=err, tolerance="scaled atol " + str(
+                   BF16_TOL if tag else F32_TOL),
                **kernel_ms(hoisted, reps=3, launches=1),
                single_seed_loop_ms=time_ms(
                    lambda: [one(s) for s in range(S)], reps=2, warmup=1),
@@ -7278,8 +7400,8 @@ def grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
                    cell, xw3[s], wh, m3[s], *pick(sx, s), dh3[s])
                    for s in range(S)], reps=1, warmup=1),
                bound_ms=bound, bound_by=by, library_ms=library)
-    report(kernels, f"rnn_bwd_grid_{cell}_seeds", f"B {B}, T {T}, H {H}",
-           rec)
+    report(kernels, f"rnn_bwd_grid_{tag}{cell}_seeds",
+           f"B {B}, T {T}, H {H}", rec)
     log(f"grid seed grids at H {H} (S {S}, W_h shared): one call each, "
         f"every seed bitwise its one-seed call; hoisted {rec['ms']:.4f} ms "
         f"against {S} one-seed calls' {rec['single_seed_loop_ms']:.4f}, "
@@ -7345,14 +7467,16 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     rows 1-4 at :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at
     H^-1/2) against their plain versions, each timed, rows 4 and 2 in
     float32 at :data:`F32_WIDE_WIDTHS` (:func:`f32_wide_rows`) and in bf16
-    at :data:`CORE_BF16_HIDDEN` (:func:`core_bf16_rows`); (d) the
+    at :data:`CORE_BF16_HIDDEN` and :data:`BF16_GRID_WIDEST` on the bf16
+    grid (:func:`core_bf16_rows`); (d) the
     seed grids at hidden 256 (:func:`wide_seed_grid`) and, as the main
     paths of the hoisted forms' grids, 3-seed c2 ensembles with
     ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward and
     backward), float32 at hidden 128 (3xTF32), at :data:`GRID_F32_HIDDEN`
     (the CUDA-core forward, the 3xTF32 cluster backward) and at
     :data:`PAST_CAP_HIDDEN` (the CUDA-core forward, the grid backward),
-    and bf16 at :data:`CORE_BF16_HIDDEN` (the CUDA cores both ways), for
+    and bf16 at :data:`CORE_BF16_HIDDEN` (the CUDA-core forward, the bf16
+    grid backward), for
     :data:`GRID_STEPS` steps each, counted into ``seed_launches``, held to
     the plain path. Single-seed launches go to ``totals``."""
     from lfm_quant_tpu_torch.ops import _build
@@ -7505,7 +7629,7 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
              f"{CORE_BF16_HIDDEN})",
              train_variant(cfg2, scan_impl="pallas", kwargs=dict(
                  cfg2.model.kwargs, hidden=CORE_BF16_HIDDEN)),
-             ("rnn_fwd_lstm", "rnn_bwd_lstm", "window_gather"))):
+             ("rnn_fwd_lstm", "rnn_bwd_grid_bf16_lstm", "window_gather"))):
         run_cfg = dataclasses.replace(run_cfg, n_seeds=GRID_SEEDS)
         got, counts = counted(label, must, lambda: ensemble_steps(
             torch, run_cfg, splits2, GRID_STEPS))

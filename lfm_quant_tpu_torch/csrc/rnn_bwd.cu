@@ -92,33 +92,51 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
+// k per FMA chain of rows_dot before its sum is added to the total: one
+// chain over the 3 H terms of the GRU's carry at H 1040 took its float32
+// weight gradients 1.2e-5 (scaled) from the plain version's;
+// scripts/rnn_bwd_sum_order.py models both orders against float64.
+constexpr int kDotChain = 64;
+
 // acc[r] += sum_{k < n} S[r * lds + k] * W[k * ldw]  for all ROWS rows:
 // S in shared memory (read as broadcasts, four values of k per load when
-// aligned), W in device memory (one value per k, used for every row).
+// aligned), W in device memory (one value per k, used for every row). The
+// sum runs in chains of kDotChain of k, each an FMA chain from zero whose
+// sum is then added to acc[r], in k order: the order depends on n alone.
 template <int ROWS, typename TW>
 __device__ __forceinline__ void rows_dot(const float* __restrict__ S, int lds,
                                          int n, const TW* __restrict__ W,
                                          size_t ldw, float* acc) {
-  int k = 0;
-  if (((lds | n) & 3) == 0) {
-    for (; k < n; k += 4) {
-      float w[4];
+  const bool wide = ((lds | n) & 3) == 0;
+  for (int k0 = 0; k0 < n; k0 += kDotChain) {
+    const int k1 = min(n, k0 + kDotChain);
+    float part[ROWS];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = to_f(W[(size_t)(k + q) * ldw]);
+    for (int r = 0; r < ROWS; ++r) part[r] = 0.0f;
+    int k = k0;
+    if (wide) {
+      for (; k < k1; k += 4) {
+        float w[4];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 s = *reinterpret_cast<const float4*>(S + r * lds + k);
-        acc[r] = fmaf(s.x, w[0], acc[r]);
-        acc[r] = fmaf(s.y, w[1], acc[r]);
-        acc[r] = fmaf(s.z, w[2], acc[r]);
-        acc[r] = fmaf(s.w, w[3], acc[r]);
+        for (int q = 0; q < 4; ++q) w[q] = to_f(W[(size_t)(k + q) * ldw]);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float4 s = *reinterpret_cast<const float4*>(S + r * lds + k);
+          part[r] = fmaf(s.x, w[0], part[r]);
+          part[r] = fmaf(s.y, w[1], part[r]);
+          part[r] = fmaf(s.z, w[2], part[r]);
+          part[r] = fmaf(s.w, w[3], part[r]);
+        }
       }
     }
-  }
-  for (; k < n; ++k) {
-    const float w = to_f(W[(size_t)k * ldw]);
+    for (; k < k1; ++k) {
+      const float w = to_f(W[(size_t)k * ldw]);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(S[r * lds + k], w, acc[r]);
+      for (int r = 0; r < ROWS; ++r)
+        part[r] = fmaf(S[r * lds + k], w, part[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) acc[r] += part[r];
   }
 }
 

@@ -64,16 +64,24 @@
 // * The grid is launched with cudaLaunchCooperativeKernel, so every CTA of
 //   a group is resident while the others wait for it; a grid the card
 //   cannot hold is refused (cudaErrorCooperativeLaunchTooLarge), never run
-//   another way.
+//   another way. The dealing of chunks, the barrier, the capacity and the
+//   launch are csrc/grid_common.cuh's, shared with csrc/rnn_bwd_grid.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_common.cuh"
 #include "mma_common.cuh"
 #include "tf32_common.cuh"
 
 namespace {
 
+using lfm_grid::chunks_per_cta;
+using lfm_grid::group_barrier;
+using lfm_grid::group_pos;
+using lfm_grid::GroupPos;
+using lfm_grid::kUnits;
+using lfm_grid::threads_of;
 using lfm_mma::cp_async16;
 using lfm_mma::cp_async_commit;
 using lfm_mma::cp_async_wait_all;
@@ -96,7 +104,6 @@ using lfm_tf32::rnn_bwd_tf32_slices_kernel;
 using lfm_tf32::rnn_bwd_tf32_wgrad_kernel;
 using lfm_tf32::wgrad_smem_bytes;
 
-constexpr int kUnits = 8;       // hidden units per chunk (one n8 tile)
 constexpr int kMaxWidth = 1024; // the widest Hp
 // d_hw columns per stage of the carry, and stages in shared memory (one
 // in flight while the other is multiplied): 64 columns in 2 stages beat 32
@@ -106,17 +113,6 @@ constexpr int kMaxWidth = 1024; // the widest Hp
 constexpr int kStageK = 64;
 constexpr int kStages = 2;
 constexpr int kMaxThreads = 512;
-// A barrier's wait, in SM clock cycles, past which the CTA traps.
-constexpr long long kSpinLimit = 1ll << 32;
-
-// Chunks per CTA at most with n CTAs a group (ceil(W / n)), and the CTA's
-// threads: one warp per (chunk, 16 rows).
-inline int chunks_per_cta(int H, int n) {
-  return (H / kUnits + n - 1) / n;
-}
-inline int threads_of(int H, int n, int rows) {
-  return 32 * chunks_per_cta(H, n) * (rows / 16);
-}
 
 // Kernel 2's shared memory, f32: the W_h rows [8 NC][G H + 4] and
 // kStages stages of d_hw [rows][kStageK + 4]. ops/rnn.py _grid_smem
@@ -135,20 +131,6 @@ bool supported(int H, int n, int rows) {
   if (rows != 64 && rows != 128) return false;
   if (n < 1 || n > H / kUnits) return false;
   return threads_of(H, n, rows) <= kMaxThreads;
-}
-
-__device__ __forceinline__ void arrive_release(unsigned* ctr) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(ctr)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* ctr) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(ctr)
-               : "memory");
-  return v;
 }
 
 // Kernel 2. grid = groups * n CTAs of threads_of(H, n, rows) threads.
@@ -174,11 +156,10 @@ rnn_bwd_tf32_grid_kernel(const float* __restrict__ wh,
   const int LW = GH + 4;           // W_h row stride
   const int W = H / kUnits;
   const int NC = blockDim.x / (32 * (rows / 16));
-  const int group = blockIdx.x / n;
-  const int rank = blockIdx.x - group * n;
-  const int groups = gridDim.x / n;
-  const int w0 = rank * W / n;                 // first own chunk
-  const int own = (rank + 1) * W / n - w0;     // own chunks
+  const GroupPos gp = group_pos(n, W);
+  const int groups = gp.groups;
+  const int w0 = gp.w0;    // first own chunk
+  const int own = gp.own;  // own chunks
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
   const int lane = tid & 31;
@@ -198,13 +179,13 @@ rnn_bwd_tf32_grid_kernel(const float* __restrict__ wh,
   const size_t M = (size_t)B * Tn;
   const int nblk = (B + rows - 1) / rows;
   const int items = seeds * nblk;
-  unsigned* ctr = sync + group;
+  unsigned* ctr = sync + gp.group;
   unsigned target = 0;
   int loaded = -1;
   const long long started = clock64();
   long long waited = 0;  // thread 0's
 
-  for (int item = group; item < items; item += groups) {
+  for (int item = gp.group; item < items; item += groups) {
     const int seed = item / nblk;
     const int r0 = (item - seed * nblk) * rows;
     const int nr = min(rows, B - r0);
@@ -327,17 +308,7 @@ rnn_bwd_tf32_grid_kernel(const float* __restrict__ wh,
 
       // The group's barrier: this CTA's d_hw_t is written; wait for the
       // other CTAs' (the counter counts every CTA's arrivals).
-      target += n;
-      __syncthreads();
-      if (tid == 0) {
-        __threadfence();
-        arrive_release(ctr);
-        const long long t0 = clock64();
-        while (load_acquire(ctr) < target)
-          if (clock64() - t0 > kSpinLimit) __trap();
-        waited += clock64() - t0;
-      }
-      __syncthreads();
+      group_barrier(ctr, target, n, waited);
 
       // The carry's product: the group's d_hw_t [rows, G H] read back from
       // L2 in stages of kStageK columns (the all-gather), kStages - 1 of
@@ -412,21 +383,9 @@ rnn_bwd_tf32_grid_kernel(const float* __restrict__ wh,
 // the shared memory it needs set on the kernel.
 template <int CELL>
 cudaError_t grid_capacity(int* ctas, int H, int n, int rows) {
-  const int threads = threads_of(H, n, rows);
-  const size_t smem = grid_smem_bytes(CELL == kLstm ? 4 : 3, H, n, rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      rnn_bwd_tf32_grid_kernel<CELL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, rnn_bwd_tf32_grid_kernel<CELL>, threads, smem);
-  *ctas = per_sm * sms;
-  return err;
+  return lfm_grid::capacity(rnn_bwd_tf32_grid_kernel<CELL>, ctas,
+                            threads_of(H, n, rows),
+                            grid_smem_bytes(CELL == kLstm ? 4 : 3, H, n, rows));
 }
 
 // fused: kernel 0 (skipped when xw_ready, dgx holding xw already), the
@@ -448,11 +407,12 @@ cudaError_t launch(bool fused, bool xw_ready, const float* xin, const float* wx,
   const int M = B * Tn;
   const long long s_gates = (long long)M * GH;
   const long long s_seq = (long long)M * H;
+  const int threads = threads_of(H, n, rows);
+  const size_t smem = grid_smem_bytes(G, H, n, rows);
   // A grid the card cannot hold at once is refused before any launch.
-  int ctas = 0;
-  cudaError_t err = grid_capacity<CELL>(&ctas, H, n, rows);
+  cudaError_t err = lfm_grid::check_fits(rnn_bwd_tf32_grid_kernel<CELL>,
+                                         groups, n, threads, smem);
   if (err != cudaSuccess) return err;
-  if ((long long)groups * n > ctas) return cudaErrorCooperativeLaunchTooLarge;
   if (fused && !xw_ready) {
     err = launch_gemm<false>(xin, wx, b, dgx, M, GH, H, seeds, s_xin, s_wx,
                              s_b, s_gates, stream);
@@ -464,19 +424,14 @@ cudaError_t launch(bool fused, bool xw_ready, const float* xin, const float* wx,
                                  s_seq, s_wh, 0, s_gates, stream, ga);
   if (err != cudaSuccess) return err;
 
-  const int threads = threads_of(H, n, rows);
-  const size_t smem = grid_smem_bytes(G, H, n, rows);
   float fb = forget_bias;
   void* args[] = {(void*)&wh,    (void*)&m,    (void*)&h_all, (void*)&c_all,
                   (void*)&dh,    (void*)&dgx,  (void*)&dhn,   (void*)&sync,
                   (void*)&stats, (void*)&seeds, (void*)&B,    (void*)&Tn,
                   (void*)&H,     (void*)&n,    (void*)&rows,  (void*)&s_wh,
                   (void*)&s_m,   (void*)&fb};
-  err = cudaLaunchCooperativeKernel((void*)rnn_bwd_tf32_grid_kernel<CELL>,
-                                    dim3(groups * n), dim3(threads), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return err;
-  err = cudaGetLastError();
+  err = lfm_grid::launch(rnn_bwd_tf32_grid_kernel<CELL>, groups, n, threads,
+                         smem, args, stream);
   if (err != cudaSuccess) return err;
 
   const size_t smem2 = wgrad_smem_bytes(H);

@@ -53,6 +53,8 @@ LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
                 rnn_bwd_cluster_lstm=0, rnn_bwd_cluster_gru=0,
                 rnn_fused_bwd_grid_lstm=0, rnn_fused_bwd_grid_gru=0,
                 rnn_bwd_grid_lstm=0, rnn_bwd_grid_gru=0,
+                rnn_fused_bwd_grid_bf16_lstm=0, rnn_fused_bwd_grid_bf16_gru=0,
+                rnn_bwd_grid_bf16_lstm=0, rnn_bwd_grid_bf16_gru=0,
                 window_gather=0)
 
 _count_lock = threading.Lock()
@@ -188,6 +190,9 @@ def library() -> ctypes.CDLL:
                 "lfm_rnn_bwd_tf32_grid": [ci, ci] + [vp] * 12 + [ci]
                 + [vp] * 3 + [ci] * 7 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_bwd_grid_ctas": [ci] * 4,
+                "lfm_rnn_bwd_grid_bf16": [ci, ci] + [vp] * 13 + [ci]
+                + [vp] * 3 + [ci] * 7 + [cll] * 5 + [cf, vp],
+                "lfm_rnn_bwd_grid_bf16_ctas": [ci] * 4,
             }
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
@@ -200,7 +205,8 @@ def library() -> ctypes.CDLL:
                     "lfm_rnn_bwd_tf32_smem": 4, "lfm_rnn_fwd_tf32_smem": 2,
                     "lfm_rnn_fwd_cluster_smem": 4,
                     "lfm_rnn_bwd_cluster_smem": 4,
-                    "lfm_rnn_bwd_grid_smem": 4}
+                    "lfm_rnn_bwd_grid_smem": 4,
+                    "lfm_rnn_bwd_grid_bf16_smem": 4}
             for name, n in smem.items():
                 getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll

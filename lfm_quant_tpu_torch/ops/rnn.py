@@ -2,8 +2,8 @@
 (``csrc/rnn_fused_fwd.cu``, ``csrc/rnn_fused_fwd_mma.cu``,
 ``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd.cu``,
 ``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``,
-``csrc/rnn_bwd_tf32_grid.cu``, ``csrc/rnn_bwd_cluster.cu``) and their
-plain versions.
+``csrc/rnn_bwd_tf32_grid.cu``, ``csrc/rnn_bwd_cluster.cu``,
+``csrc/rnn_bwd_grid.cu``) and their plain versions.
 
 One rule, :func:`_mma_route`, picks the kernels of both forwards and both
 backwards from the direction, the dtype and H alone: at every H <= 128
@@ -22,10 +22,11 @@ float32 backwards above 128 run in 3xTF32 on a cluster of 2-16 CTAs up
 to Hp 384 (``rnn_bwd_tf32.cu``, which reduce-scatters the carry's
 product as the bf16 one does) and past it, up to Hp 1024, on the whole
 card (``rnn_bwd_tf32_grid.cu``: the gates recomputed by one GEMM, the
-carry's product over a cooperative grid that holds W_h); the float32
-forwards above 128, the float32 backwards past 1024 and every width past
-512 otherwise run on the CUDA cores (``rnn_fused_fwd.cu``,
-``rnn_bwd.cu``).
+carry's product over a cooperative grid that holds W_h), and so do the
+bf16 backwards past 512, up to Hp 1520, with W_h held in bf16
+(``rnn_bwd_grid.cu``); the float32 forwards above 128, the bf16 forwards
+past 512, the float32 backwards past 1024 and the bf16 backwards past
+1520 run on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -572,6 +573,13 @@ TF32_MAX_WIDTH = 384
 #: ``csrc/rnn_bwd_tf32_grid.cu``): the LSTM's W_h rows of one 8-unit chunk
 #: take 131 KB at Hp 1024, so a group there is 128 CTAs (of an H100's 132).
 GRID_MAX_WIDTH = 1024
+#: The widest padded width the bfloat16 backward past the cluster's takes,
+#: W_h held in bf16 by a group of co-resident CTAs (``kMaxWidth`` in
+#: ``csrc/rnn_bwd_grid.cu``): the LSTM's W_h rows of two 8-unit chunks
+#: beside the two 64-row stages fill an H100's 232,448 bytes at Hp 1520 (a
+#: group of 95 CTAs); past it a CTA would hold three chunks, and W = Hp / 8
+#: exceeds two chunks on each of 132 CTAs.
+BF16_GRID_MAX_WIDTH = 1520
 
 
 def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
@@ -596,10 +604,13 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     bwd       float32  384 < Hp <= 1024 ``rnn_bwd_tf32_grid.cu``, W_h on a
                                         group of co-resident CTAs
                                         (``"grid"``)
+    bwd       bfloat16 512 < Hp <= 1520 ``rnn_bwd_grid.cu``, W_h in bf16 on
+                                        a group of co-resident CTAs
+                                        (``"grid"``)
     fwd       float32  H > 128          ``rnn_fused_fwd.cu`` (``"simt"``)
     fwd       bfloat16 Hp > 512         ``rnn_fused_fwd.cu`` (``"simt"``)
     bwd       float32  Hp > 1024        ``rnn_bwd.cu`` (``"simt"``)
-    bwd       bfloat16 Hp > 512         ``rnn_bwd.cu`` (``"simt"``)
+    bwd       bfloat16 Hp > 1520        ``rnn_bwd.cu`` (``"simt"``)
     ========= ======== ================ ================================
 
     The tensor-core kernels take 16 <= H <= 128, H % 16 == 0 and hold W_h
@@ -614,10 +625,12 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     shared memory) the float32 backward recomputes the gates by one GEMM
     and spreads the carry's product over a group of up to 132 co-resident
     CTAs holding W_h (:func:`_grid_size`, :func:`_grid_rows`) up to
-    :data:`GRID_MAX_WIDTH`. The CUDA-core kernels are the route of the
-    float32 forward above 128, the float32 backward past 1024 and every
-    bf16 width past 512, not a fallback: a cluster or grid launch the card
-    refuses raises. bf16 runs on the
+    :data:`GRID_MAX_WIDTH`, and the bf16 backward past 512 does the same
+    with W_h in bf16 up to :data:`BF16_GRID_MAX_WIDTH`. The CUDA-core
+    kernels are the route of the float32 forward above 128, the bf16
+    forward past 512, the float32 backward past 1024 and the bf16 backward
+    past 1520, not a fallback: a cluster or grid launch the card refuses
+    raises. bf16 runs on the
     bf16 tensor cores; float32 must hold
     the JAX f32 bound, so it splits every f32 operand of the recurrence
     into two TF32 terms (3xTF32), and the fused forward forms xw on the
@@ -636,6 +649,9 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
                 return "tf32"
             if Hp <= GRID_MAX_WIDTH:
                 return "grid"
+        if (dtype == torch.bfloat16 and direction == "bwd"
+                and Hp <= BF16_GRID_MAX_WIDTH):
+            return "grid"
         return "simt"
     if dtype == torch.bfloat16:
         return "mma"
@@ -1370,17 +1386,29 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 
 # ---------------------------------------------------------------------------
-# The float32 backward past Hp 384 (csrc/rnn_bwd_tf32_grid.cu)
+# The backwards on the grid: float32 past Hp 384
+# (csrc/rnn_bwd_tf32_grid.cu) and bfloat16 past Hp 512 (csrc/rnn_bwd_grid.cu)
 # ---------------------------------------------------------------------------
 
 #: Rows per work item, threads per CTA at most, and the d_hw columns per
-#: stage and stages in shared memory of the float32 backward past
-#: :data:`TF32_MAX_WIDTH` (its rows, ``kMaxThreads``, ``kStageK`` and
-#: ``kStages`` in ``csrc/rnn_bwd_tf32_grid.cu``).
+#: stage and stages in shared memory of the grid backwards (their rows,
+#: ``kMaxThreads``, ``kStageK`` and ``kStages`` in
+#: ``csrc/rnn_bwd_tf32_grid.cu`` and ``csrc/rnn_bwd_grid.cu``, the same in
+#: both).
 GRID_ROWS = (64, 128)
 GRID_MAX_THREADS = 512
 GRID_STAGE_K = 64
 GRID_STAGES = 2
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _grid_max_width(dtype: torch.dtype) -> int:
+    """The widest padded width the grid backward of ``dtype`` takes."""
+    return (BF16_GRID_MAX_WIDTH if dtype == torch.bfloat16
+            else GRID_MAX_WIDTH)
 
 
 def _grid_chunks(Hp: int, n: int) -> int:
@@ -1390,78 +1418,96 @@ def _grid_chunks(Hp: int, n: int) -> int:
     return -(-(Hp // MMA_UNITS) // n)
 
 
-def _grid_takes(Hp: int, n: int, rows: int) -> bool:
-    """The shapes ``csrc/rnn_bwd_tf32_grid.cu`` takes (its ``supported``):
-    128 < Hp <= :data:`GRID_MAX_WIDTH`, Hp % 16 == 0 (the route gives it
-    Hp > :data:`TF32_MAX_WIDTH`; below, it is timed beside the cluster
-    form), rows of :data:`GRID_ROWS`, 1 <= n <= Hp / 8, and a warp per
+def _grid_takes(Hp: int, n: int, rows: int,
+                dtype: torch.dtype = torch.float32) -> bool:
+    """The shapes the grid backward of ``dtype`` takes (its source's
+    ``supported``): 128 < Hp <= :func:`_grid_max_width`, Hp % 16 == 0 (the
+    route gives float32 Hp > :data:`TF32_MAX_WIDTH` and bf16 Hp >
+    :data:`CLUSTER_MAX_WIDTH`; below, it is timed beside the cluster
+    forms), rows of :data:`GRID_ROWS`, 1 <= n <= Hp / 8, and a warp per
     (chunk, 16 rows) within :data:`GRID_MAX_THREADS`."""
-    if not (128 < Hp <= GRID_MAX_WIDTH and Hp % 16 == 0):
+    if not (128 < Hp <= _grid_max_width(dtype) and Hp % 16 == 0):
         return False
     if rows not in GRID_ROWS or not 1 <= n <= Hp // MMA_UNITS:
         return False
     return 32 * _grid_chunks(Hp, n) * (rows // 16) <= GRID_MAX_THREADS
 
 
-def _grid_smem(cell: str, Hp: int, n: int, rows: int) -> int:
+def _grid_smem(cell: str, Hp: int, n: int, rows: int,
+               dtype: torch.dtype = torch.float32) -> int:
     """Shared memory (bytes) of a CTA of the grid recurrence, as
-    ``grid_smem_bytes`` counts it in the source, all f32: the W_h rows of
-    its units across every gate column, [8 NC][G Hp + 4] (NC =
-    :func:`_grid_chunks`), and :data:`GRID_STAGES` stages of d_hw,
-    [rows][kStageK + 4]."""
-    return 4 * (MMA_UNITS * _grid_chunks(Hp, n) * (_GATES[cell] * Hp + 4)
+    ``grid_smem_bytes`` counts it in the source of ``dtype``: the W_h rows
+    of its units across every gate column and :data:`GRID_STAGES` stages
+    of d_hw. float32: [8 NC][G Hp + 4] and [rows][kStageK + 4], f32 (NC =
+    :func:`_grid_chunks`); bf16: [8 NC][G Hp + 8] and the hi and lo tiles
+    [2][rows][kStageK + 8], bf16."""
+    G = _GATES[cell]
+    NC = _grid_chunks(Hp, n)
+    if dtype == torch.bfloat16:
+        return 2 * (MMA_UNITS * NC * (G * Hp + 8)
+                    + GRID_STAGES * 2 * rows * (GRID_STAGE_K + 8))
+    return 4 * (MMA_UNITS * NC * (G * Hp + 4)
                 + GRID_STAGES * rows * (GRID_STAGE_K + 4))
 
 
-def _grid_size(cell: str, Hp: int, limit: int, sms: int) -> int:
-    """CTAs a group of the float32 backward past 384: the fewest, at most
+def _grid_size(cell: str, Hp: int, limit: int, sms: int,
+               dtype: torch.dtype = torch.float32) -> int:
+    """CTAs a group of the grid backward of ``dtype``: the fewest, at most
     ``sms``, whose share of W_h fits beside the 64-row stages in
     ``limit`` bytes of shared memory a CTA within the thread limit (fewer
     CTAs all-gather fewer bytes a step and leave more groups). Raises,
-    naming the width, where none does. On an H100 the LSTM takes 17 at Hp
-    400 (3 chunks a CTA), 40 at 640 and 128 at 1024; the GRU 13, 27 and
-    64."""
+    naming the width, where none does. On an H100, float32: the LSTM takes
+    17 at Hp 400 (3 chunks a CTA), 40 at 640 and 128 at 1024, the GRU 13,
+    27 and 64; bf16: the LSTM 17 at 528 (4 chunks, the thread limit), 20
+    at 640, 64 at 1024 and 95 at 1520, the GRU 17, 20, 43 and 95."""
     for n in range(1, min(Hp // MMA_UNITS, sms) + 1):
-        if _grid_takes(Hp, n, 64) and _grid_smem(cell, Hp, n, 64) <= limit:
+        if (_grid_takes(Hp, n, 64, dtype)
+                and _grid_smem(cell, Hp, n, 64, dtype) <= limit):
             return n
     raise ValueError(
-        f"the float32 {cell} backward on the grid does not take hidden="
-        f"{Hp}: no group of at most {sms} CTAs holds its W_h within "
+        f"the {_dtype_name(dtype)} {cell} backward on the grid does not take "
+        f"hidden={Hp}: no group of at most {sms} CTAs holds its W_h within "
         f"{limit} bytes of shared memory a CTA, or the width is outside "
-        f"128 < Hp <= {GRID_MAX_WIDTH}")
+        f"128 < Hp <= {_grid_max_width(dtype)}")
 
 
 def _grid_rows(cell: str, Hp: int, n: int, B: int, S: int, limit: int,
-               sms: int) -> int:
+               sms: int, dtype: torch.dtype = torch.float32) -> int:
     """Batch rows per work item of the grid recurrence: 128 where the
     kernel takes them at this group size, they fit ``limit`` and the S
     ceil(B / 128) items still occupy every group the card holds (``sms //
     n``), else 64. More rows halve the steps' barriers and give a CTA of
     one chunk 8 warps; a row's sums do not depend on the count."""
-    if (_grid_takes(Hp, n, 128) and _grid_smem(cell, Hp, n, 128) <= limit
+    if (_grid_takes(Hp, n, 128, dtype)
+            and _grid_smem(cell, Hp, n, 128, dtype) <= limit
             and S * -(-B // 128) >= sms // n):
         return 128
     return 64
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_check(cell: str, H: int, n: int, rows: int,
-                device: torch.device) -> int:
-    """Once per shape and card: ``csrc/rnn_bwd_tf32_grid.cu`` takes it and
-    counts the shared memory :func:`_grid_smem` counts, it fits the card,
-    and the card holds a whole group at once → the CTAs it holds at once
-    (one an SM). Raises, naming the width and the group, where not."""
+def _grid_check(cell: str, H: int, n: int, rows: int, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> int:
+    """Once per shape, dtype and card: the grid backward's source
+    (``csrc/rnn_bwd_tf32_grid.cu``, bf16 ``csrc/rnn_bwd_grid.cu``) takes it
+    and counts the shared memory :func:`_grid_smem` counts, it fits the
+    card, and the card holds a whole group at once → the CTAs it holds at
+    once (one an SM). Raises, naming the width and the group, where not."""
     lib = _build.library()
     code = _CELL_CODE[cell]
-    smem = lib.lfm_rnn_bwd_grid_smem(code, H, n, rows)
+    bf = dtype == torch.bfloat16
+    src = "rnn_bwd_grid.cu" if bf else "rnn_bwd_tf32_grid.cu"
+    name = _dtype_name(dtype)
+    smem = (lib.lfm_rnn_bwd_grid_bf16_smem if bf
+            else lib.lfm_rnn_bwd_grid_smem)(code, H, n, rows)
     if smem < 0:
-        raise ValueError(f"the float32 backward on the grid does not take "
+        raise ValueError(f"the {name} backward on the grid does not take "
                          f"hidden={H} with a group of {n} CTAs and {rows} "
                          f"rows")
-    if smem != _grid_smem(cell, H, n, rows):
+    if smem != _grid_smem(cell, H, n, rows, dtype):
         raise RuntimeError(
-            f"csrc/rnn_bwd_tf32_grid.cu counts {smem} bytes of shared "
-            f"memory, ops/rnn.py {_grid_smem(cell, H, n, rows)}")
+            f"csrc/{src} counts {smem} bytes of shared memory, ops/rnn.py "
+            f"{_grid_smem(cell, H, n, rows, dtype)}")
     limit = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
     if smem > limit:
@@ -1469,10 +1515,11 @@ def _grid_check(cell: str, H: int, n: int, rows: int,
                          f"bytes of shared memory per CTA, more than the "
                          f"card's {limit}")
     with torch.cuda.device(device):
-        ctas = lib.lfm_rnn_bwd_grid_ctas(code, H, n, rows)
+        ctas = (lib.lfm_rnn_bwd_grid_bf16_ctas if bf
+                else lib.lfm_rnn_bwd_grid_ctas)(code, H, n, rows)
     if ctas < n:
         raise RuntimeError(
-            f"the card holds {ctas} CTAs of the float32 {cell} backward at "
+            f"the card holds {ctas} CTAs of the {name} {cell} backward at "
             f"hidden={H} ({rows} rows, {smem} bytes of shared memory a CTA) "
             f"at once, fewer than a group of {n}")
     return ctas
@@ -1485,17 +1532,20 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                      group: Optional[int] = None, rows: Optional[int] = None,
                      groups: Optional[int] = None,
                      stats: Optional[dict] = None):
-    """One call of the float32 backward past Hp 384
-    (``csrc/rnn_bwd_tf32_grid.cu``, 3xTF32; fused: six kernel launches, or
-    five given ``xw``; hoisted: four; counted once) → fused: ``(dhin, dW_x,
-    db, dW_h)``; hoisted (``xin`` is xw, ``wx`` and ``b`` None): ``(dxw,
-    dW_h)``; all f32. Seed-stacked operands (``xin`` 4-D, each operand of
-    seed extent S or 1) run every seed in the same call and give each
-    output per seed; the states are per seed. Fused, ``xw`` is the
+    """One call of the backward on the grid, in ``xin``'s dtype: float32
+    past Hp 384 (``csrc/rnn_bwd_tf32_grid.cu``, 3xTF32; fused: six kernel
+    launches, or five given ``xw``; hoisted: four), bfloat16 past Hp 512
+    (``csrc/rnn_bwd_grid.cu``; fused: six, hoisted: four); counted once →
+    fused: ``(dhin, dW_x, db, dW_h)``; hoisted (``xin`` is xw, ``wx`` and
+    ``b`` None): ``(dxw, dW_h)``; the weight gradients in f32, dhin and dxw
+    in the dtype. Seed-stacked operands (``xin`` 4-D, each operand of seed
+    extent S or 1) run every seed in the same call and give each output
+    per seed; the states are per seed. Fused float32, ``xw`` is the
     forward's xw scratch at this width: the kernel skips its own xw GEMM
-    and overwrites it with d_xw. The group size and rows come from
-    :func:`_grid_size` and :func:`_grid_rows` (``group``, ``rows``
-    override them), the groups from the CTAs the card holds at once
+    and overwrites it with d_xw (bf16 past 512 has no such scratch: its
+    forward keeps none). The group size and rows come from
+    :func:`_grid_size` and :func:`_grid_rows` (``group``, ``rows`` override
+    them), the groups from the CTAs the card holds at once
     (:func:`_grid_check`; ``groups`` overrides it: more than the card
     holds is refused, never run another way). A ``stats`` dict gets the
     launch's shape and ``"cycles"``, ``[CTAs, 2]`` int64 on the card: each
@@ -1512,15 +1562,20 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     H = wh.shape[-2]
     G = _GATES[cell] * H
     dev = xin.device
+    dtype = xin.dtype
+    bf = dtype == torch.bfloat16
+    if bf and xw is not None:
+        raise ValueError("the bfloat16 backward on the grid takes no xw "
+                         "scratch: its forward keeps none")
     f32 = torch.float32
     lib = _build.library()
     props = torch.cuda.get_device_properties(dev)
     limit, sms = (props.shared_memory_per_block_optin,
                   props.multi_processor_count)
-    n = group or _grid_size(cell, H, limit, sms)
+    n = group or _grid_size(cell, H, limit, sms, dtype)
     if rows is None:
-        rows = _grid_rows(cell, H, n, B, S, limit, sms)
-    ctas = _grid_check(cell, H, n, rows, dev)
+        rows = _grid_rows(cell, H, n, B, S, limit, sms, dtype)
+    ctas = _grid_check(cell, H, n, rows, dev, dtype)
     if groups is None:
         groups = min(ctas // n, S * -(-B // rows))
     # The states are per seed: a shared one is copied out to every seed.
@@ -1540,7 +1595,11 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     slices = _tf32_slices(B * T, total)
     partial = torch.empty((S, slices, total), dtype=f32, device=dev)
     dw = torch.empty((S, total), dtype=f32, device=dev)
-    dx = torch.empty((S, B, T, H), dtype=f32, device=dev) if fused else None
+    if bf:
+        dx = torch.empty((S, B, T, H if fused else G), dtype=dtype,
+                         device=dev)
+    else:
+        dx = torch.empty((S, B, T, H), dtype=f32, device=dev) if fused else None
     sync = torch.zeros(max(groups, 1), dtype=torch.int32, device=dev)
     cycles = None
     if stats is not None:
@@ -1548,18 +1607,33 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
         stats.update(group=n, rows=rows, groups=groups, ctas_at_once=ctas,
                      cycles=cycles)
     ptr = (lambda t: None if t is None else t.data_ptr())
+    strides = (_stride(xin, S), 0 if wx is None else _stride(wx, S),
+               0 if b is None else _stride(b, S), _stride(wh, S),
+               _stride(keep, S))
     with torch.cuda.device(dev):
-        err = lib.lfm_rnn_bwd_tf32_grid(
-            _CELL_CODE[cell], 0 if not fused else 1 if xw is None else 2,
-            xin.data_ptr(), ptr(wx), ptr(b), wh.data_ptr(), keep.data_ptr(),
-            h_all.data_ptr(), ptr(c_all), dh.data_ptr(), ptr(dx),
-            dgx.data_ptr(), ptr(dhn), partial.data_ptr(), slices,
-            dw.data_ptr(), sync.data_ptr(), ptr(cycles), S, B, T, H, n, rows,
-            groups,
-            _stride(xin, S), 0 if wx is None else _stride(wx, S),
-            0 if b is None else _stride(b, S), _stride(wh, S),
-            _stride(keep, S), float(forget_bias), _build.stream_of(xin))
-    name = f"rnn_{'fused_' if fused else ''}bwd_grid_{cell}"
+        if bf:
+            # The exchange: per group, two buffers of d_hw's hi and lo.
+            xch = torch.empty((max(groups, 1), 2, 2, rows, G), dtype=dtype,
+                              device=dev)
+            err = lib.lfm_rnn_bwd_grid_bf16(
+                _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx),
+                ptr(b), wh.data_ptr(), keep.data_ptr(), h_all.data_ptr(),
+                ptr(c_all), dh.data_ptr(), dx.data_ptr(), dgx.data_ptr(),
+                ptr(dhn), xch.data_ptr(), partial.data_ptr(), slices,
+                dw.data_ptr(), sync.data_ptr(), ptr(cycles), S, B, T, H, n,
+                rows, groups, *strides, float(forget_bias),
+                _build.stream_of(xin))
+        else:
+            err = lib.lfm_rnn_bwd_tf32_grid(
+                _CELL_CODE[cell], 0 if not fused else 1 if xw is None else 2,
+                xin.data_ptr(), ptr(wx), ptr(b), wh.data_ptr(),
+                keep.data_ptr(), h_all.data_ptr(), ptr(c_all),
+                dh.data_ptr(), ptr(dx), dgx.data_ptr(), ptr(dhn),
+                partial.data_ptr(), slices, dw.data_ptr(), sync.data_ptr(),
+                ptr(cycles), S, B, T, H, n, rows, groups, *strides,
+                float(forget_bias), _build.stream_of(xin))
+    name = (f"rnn_{'fused_' if fused else ''}bwd_grid_"
+            f"{'bf16_' if bf else ''}{cell}")
     _build.check(lib, err, f"{name} (hidden={H}, {groups} groups of {n} "
                            f"CTAs, {rows} rows, {ctas} CTAs at once)")
     _build.count_launch(name)
@@ -1568,7 +1642,7 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
         out = (dx, dw[:, :hg].view(S, H, G), dw[:, hg:hg + G],
                dw[:, hg + G:].view(S, H, G))
     else:
-        out = (dgx, dw.view(S, H, G))
+        out = (dx if bf else dgx, dw.view(S, H, G))
     return out if stacked else tuple(t[0] for t in out)
 
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """The bfloat16 forward and backward above hidden 128
-(``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd_cluster.cu``) and the
-float32 backward above 128 (``csrc/rnn_bwd_tf32.cu``, and past 384
-``csrc/rnn_bwd_tf32_grid.cu``) at every cluster size and rows per cluster
-(group size and rows per work item) they take, on the card.
+(``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd_cluster.cu``, and past 512
+``csrc/rnn_bwd_grid.cu``) and the float32 backward above 128
+(``csrc/rnn_bwd_tf32.cu``, and past 384 ``csrc/rnn_bwd_tf32_grid.cu``) at
+every cluster size and rows per cluster (group size and rows per work
+item) they take, on the card.
 
     python3 scripts/torch_cluster_variants.py [--widths 256 320 512]
         [--batch 2048] [--steps 60] [--reps 5]
-        [--direction fwd|bwd|both|bwd_tf32|bwd_grid] [--out FILE]
+        [--direction fwd|bwd|both|bwd_tf32|bwd_grid|bwd_grid_bf16]
+        [--out FILE]
 
 For rows 3 (fused: the bf16 GEMM into the f32 xw scratch, then the
 cluster recurrence) and 1 (hoisted: the recurrence on a bf16 xw), LSTM
@@ -61,6 +63,13 @@ and the card holds (the picked pair ``_grid_size``, ``_grid_rows``),
 on the pair), the picked pair's kernels by device ms and its barrier
 waits (each CTA's share of its cycles, ``wait_share``), and ``--diag``
 variants of that source (:data:`GRID_DIAG`).
+
+``--direction bwd_grid_bf16`` does the same in bfloat16 on the grid
+backward past 512 (``csrc/rnn_bwd_grid.cu``, :data:`BF16_GRID_DIAG`),
+and for the picked pair also gives the all-gather's L2 reads: the bytes a
+call (``gather_bytes``: every CTA of a group reads each valid row's d_hw
+hi and lo, G H bf16 each, at every step but the first) and their rate
+over the recurrence kernel's device time (``gather_gb_per_s``).
 """
 
 from __future__ import annotations
@@ -196,8 +205,8 @@ GRID_DIAG = {
     "diag_no_product": [("          mma3(cacc, a, b);", "          (void)b;")],
     "diag_no_gather": [("          cp_async16(dst + r * LA + kc, src, ok ? 16 "
                         ": 0);", "          (void)dst;\n          (void)src;")],
-    "diag_no_barrier": [("        while (load_acquire(ctr) < target)\n",
-                         "        while (load_acquire(ctr) < 0)\n")],
+    "diag_no_barrier": [("      group_barrier(ctr, target, n, waited);",
+                         "      __syncthreads();")],
     # The stages tried before the kept 64 columns in 2: 32 columns in 4
     # (3 in flight), in 2, and 64 in 3. Two accumulator chains a warp,
     # alternate k-steps (added at each chain's end).
@@ -237,6 +246,30 @@ GRID_DIAG = {
          "            acc[i] += cacc[i] + cacc2[i];\n"
          "            cacc[i] = 0.0f;\n            cacc2[i] = 0.0f;\n")],
 }
+#: The bf16 grid backward (``--direction bwd_grid_bf16``): the carry's two
+#: mma a k-step removed; the all-gather's loads removed; the group's
+#: barrier reduced to the CTA's own; candidates: 3 or 4 stages of 64
+#: columns, 4 of 32, 2 of 128.
+BF16_GRID_DIAG = {
+    "base": [],
+    "diag_no_product": [("          mma_bf16(cacc, ahi, b);\n"
+                         "          mma_bf16(cacc, alo, b);",
+                         "          (void)b;")],
+    "diag_no_gather": [("          cp_async16(dst + pr * LA + kc, ok ? src : "
+                        "xb, ok ? 16 : 0);",
+                        "          (void)dst;\n          (void)src;")],
+    "diag_no_barrier": GRID_DIAG["diag_no_barrier"],
+    "stage_k64_3": [("constexpr int kStages = 2;",
+                     "constexpr int kStages = 3;")],
+    "stage_k64_4": [("constexpr int kStages = 2;",
+                     "constexpr int kStages = 4;")],
+    "stage_k32_4": [("constexpr int kStageK = 64;",
+                     "constexpr int kStageK = 32;"),
+                    ("constexpr int kStages = 2;",
+                     "constexpr int kStages = 4;")],
+    "stage_k128_2": [("constexpr int kStageK = 64;",
+                      "constexpr int kStageK = 128;")],
+}
 #: Per direction with variants: the source, its substitutions, the entry
 #: point and its ctypes signature, the recurrence kernel's name.
 SOURCES = {
@@ -246,6 +279,8 @@ SOURCES = {
                  "rnn_bwd_tf32_cluster_kernel"),
     "bwd_grid": ("rnn_bwd_tf32_grid.cu", GRID_DIAG, "lfm_rnn_bwd_tf32_grid",
                  7, "rnn_bwd_tf32_grid_kernel"),
+    "bwd_grid_bf16": ("rnn_bwd_grid.cu", BF16_GRID_DIAG,
+                      "lfm_rnn_bwd_grid_bf16", 7, "rnn_bwd_grid_kernel"),
 }
 
 
@@ -256,7 +291,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--direction", choices=("fwd", "bwd", "both",
-                                            "bwd_tf32", "bwd_grid"),
+                                            "bwd_tf32", "bwd_grid",
+                                            "bwd_grid_bf16"),
                     default="fwd")
     ap.add_argument("--diag", default="",
                     help="variants of the backward source, comma-separated")
@@ -273,7 +309,8 @@ def main() -> int:
         return 1
     from lfm_quant_tpu_torch.ops import rnn as R
 
-    kind = (args.direction if args.direction in ("bwd_tf32", "bwd_grid")
+    kind = (args.direction
+            if args.direction in ("bwd_tf32", "bwd_grid", "bwd_grid_bf16")
             else "bwd")
     diag = build_diag(args.diag.split(","), kind) if args.diag else {}
     card = subprocess.run(
@@ -298,9 +335,11 @@ def main() -> int:
                     tf32_cases(torch, R, out, card, diag, cell, B, T, H,
                                rnd, limit, sms, args.reps, args.picked_only)
                     continue
-                if kind == "bwd_grid":
+                if kind in ("bwd_grid", "bwd_grid_bf16"):
                     grid_cases(torch, R, out, card, diag, cell, B, T, H,
-                               rnd, limit, sms, args.reps, args.picked_only)
+                               rnd, limit, sms, args.reps, args.picked_only,
+                               bf if kind == "bwd_grid_bf16"
+                               else torch.float32)
                     continue
                 hin = torch.randn(B, T, H, **rnd).to(bf)
                 wx = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
@@ -418,14 +457,17 @@ def build_diag(names, kind: str = "bwd") -> dict:
         fn = getattr(lib, entry)
         fn.argtypes = ([ci, ci] + [vp] * 12 + [ci, vp] + [ci] * n_ints
                        + [cll] * 5 + [cf, vp])
-        if kind == "bwd_grid":
-            # The scratch pointers sync and stats beside dw.
-            fn.argtypes = ([ci, ci] + [vp] * 12 + [ci] + [vp] * 3
-                           + [ci] * n_ints + [cll] * 5 + [cf, vp])
-            lib.lfm_rnn_bwd_grid_ctas.argtypes = [ci] * 4
-            lib.lfm_rnn_bwd_grid_ctas.restype = ci
-            lib.lfm_rnn_bwd_grid_smem.argtypes = [ci] * 4
-            lib.lfm_rnn_bwd_grid_smem.restype = cll
+        if kind in ("bwd_grid", "bwd_grid_bf16"):
+            # The scratch pointers sync and stats beside dw (bf16: and the
+            # exchange beside dhn).
+            bf = kind == "bwd_grid_bf16"
+            fn.argtypes = ([ci, ci] + [vp] * (13 if bf else 12) + [ci]
+                           + [vp] * 3 + [ci] * n_ints + [cll] * 5 + [cf, vp])
+            tag = "grid_bf16" if bf else "grid"
+            getattr(lib, f"lfm_rnn_bwd_{tag}_ctas").argtypes = [ci] * 4
+            getattr(lib, f"lfm_rnn_bwd_{tag}_ctas").restype = ci
+            getattr(lib, f"lfm_rnn_bwd_{tag}_smem").argtypes = [ci] * 4
+            getattr(lib, f"lfm_rnn_bwd_{tag}_smem").restype = cll
         fn.restype = ci
         lib.lfm_cuda_error_string.argtypes = [ci]
         lib.lfm_cuda_error_string.restype = ctypes.c_char_p
@@ -545,12 +587,14 @@ def tf32_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
 
 
 def grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
-               reps, picked_only=False):
-    """Rows 4 and 2 in float32 on the grid backward at every (group, rows)
-    pair with a distinct chunk count a CTA, as :func:`tf32_cases` does for
-    the cluster form (the module docstring), then each ``--diag`` variant
-    at the picked pair."""
+               reps, picked_only=False, dtype=None):
+    """Rows 4 and 2 on the grid backward of ``dtype`` (float32 or bf16) at
+    every (group, rows) pair with a distinct chunk count a CTA, as
+    :func:`tf32_cases` does for the cluster form (the module docstring),
+    then each ``--diag`` variant at the picked pair."""
     G = GATES[cell] * H
+    dtype = dtype or torch.float32
+    dname = str(dtype).replace("torch.", "")
     hin = torch.randn(B, T, H, **rnd)
     wx = H ** -0.5 * torch.randn(H, G, **rnd)
     wh = H ** -0.5 * torch.randn(H, G, **rnd)
@@ -558,22 +602,28 @@ def grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
     m = torch.rand(B, T, **rnd) < 0.75
     dh = 0.1 * torch.randn(B, T, H, **rnd)
     xw = hin @ wx + b
+    hin, wx, wh, b, dh = (t.to(dtype) for t in (hin, wx, wh, b, dh))
+    xw_in = xw.to(dtype)
     dev = hin.device
     W = H // 8
-    pick_n = R._grid_size(cell, H, limit, sms)
-    pick_rows = R._grid_rows(cell, H, pick_n, B, 1, limit, sms)
+    pick_n = R._grid_size(cell, H, limit, sms, dtype)
+    pick_rows = R._grid_rows(cell, H, pick_n, B, 1, limit, sms, dtype)
     pairs = [(pick_n, pick_rows)]
     for nc in range(1, R._grid_chunks(H, 1) + 1):
         n = -(-W // nc)
         for rows in R.GRID_ROWS:
             if (n <= sms and (n, rows) not in pairs
-                    and R._grid_takes(H, n, rows)
-                    and R._grid_smem(cell, H, n, rows) <= limit
+                    and R._grid_takes(H, n, rows, dtype)
+                    and R._grid_smem(cell, H, n, rows, dtype) <= limit
                     and not picked_only):
                 pairs.append((n, rows))
-    h, c = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    kernel = SOURCES["bwd_grid_bf16" if dtype == torch.bfloat16
+                     else "bwd_grid"][4]
     for fused in (True, False):
-        ops = (hin, wx, b) if fused else (xw, None, None)
+        h, c = R.rnn_scan_states(cell, xw if fused else xw_in, wh, m, 1.0,
+                                 True)
+        h, c = h.to(dtype), None if c is None else c.to(dtype)
+        ops = (hin, wx, b) if fused else (xw_in, None, None)
 
         def run(n, rows, stats=None):
             return R._launch_bwd_grid(cell, fused, *ops, wh, m, h, c, dh,
@@ -581,41 +631,47 @@ def grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
 
         want = run(pick_n, pick_rows)
         for n, rows in pairs:
-            ctas = R._grid_check(cell, H, n, rows, dev)
+            ctas = R._grid_check(cell, H, n, rows, dev, dtype)
             got = run(n, rows)
             same = all(torch.equal(g, w) for g, w in zip(got, want))
             del got
             picked = (n, rows) == (pick_n, pick_rows)
             rec = dict(
-                card=card, cell=cell, dtype="float32",
+                card=card, cell=cell, dtype=dname,
                 form="fused_bwd" if fused else "bwd", shape=[B, T, H],
                 group=n, rows=rows, chunks=R._grid_chunks(H, n),
                 groups=min(ctas // n, -(-B // rows)),
-                smem=R._grid_smem(cell, H, n, rows), ctas_at_once=ctas,
+                smem=R._grid_smem(cell, H, n, rows, dtype),
+                ctas_at_once=ctas,
                 ms=mean_ms(torch, lambda: run(n, rows), reps),
                 picked=picked, bitwise_as_picked=same)
             if picked:
-                rec["kernels_ms"] = kernels_ms(torch, lambda: run(n, rows))
+                ks = kernels_ms(torch, lambda: run(n, rows))
+                rec["kernels_ms"] = ks
                 stats = {}
                 run(n, rows, stats)
                 torch.cuda.synchronize()
                 cyc = stats["cycles"].double()
                 rec["wait_share"] = float((cyc[:, 0] / cyc[:, 1]).mean())
+                if dtype == torch.bfloat16:
+                    recur = sum(v for k, v in ks.items() if kernel in k)
+                    rec["gather_bytes"] = (T - 1) * n * B * G * 4
+                    rec["gather_gb_per_s"] = (
+                        rec["gather_bytes"] / recur / 1e6 if recur else None)
             print(json.dumps(rec), flush=True)
             out.write(json.dumps(rec) + "\n")
         del want
         real = R._build.library
         for name, lib in libs.items():
             R._build.library = lambda lib=lib: lib
-            rec = dict(card=card, cell=cell, dtype="float32", variant=name,
+            rec = dict(card=card, cell=cell, dtype=dname, variant=name,
                        form="fused_bwd" if fused else "bwd", shape=[B, T, H],
                        group=pick_n, rows=pick_rows)
             try:
                 ks = kernels_ms(torch, lambda: run(pick_n, pick_rows))
                 rec.update(
                     ms=mean_ms(torch, lambda: run(pick_n, pick_rows), reps),
-                    recur_ms=sum(v for k, v in ks.items()
-                                 if SOURCES["bwd_grid"][4] in k))
+                    recur_ms=sum(v for k, v in ks.items() if kernel in k))
             except RuntimeError as exc:
                 # A variant whose shared memory is past the card's at the
                 # picked group (more or wider stages).
@@ -625,7 +681,7 @@ def grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
             print(json.dumps(rec), flush=True)
             out.write(json.dumps(rec) + "\n")
         torch.cuda.empty_cache()
-    del hin, wx, wh, b, m, dh, xw, h, c
+    del hin, wx, wh, b, m, dh, xw, xw_in, h, c
     torch.cuda.empty_cache()
 
 

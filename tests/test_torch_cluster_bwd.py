@@ -4,8 +4,8 @@ reduce-scatter of the carry's product, on the CPU; and the plain versions
 it is held to on the card against the Pallas backwards at H 320 and 512.
 
 * The route: bf16 backwards at 128 < Hp <= 512 take ``"cluster"``,
-  bf16 past 512 the CUDA cores, float32 above 128 the 3xTF32 cluster up
-  to Hp 384 and the CUDA cores past it, every H <= 128 as before.
+  bf16 past 512 the bf16 grid, float32 above 128 the 3xTF32 cluster up
+  to Hp 384 and the grid past it, every H <= 128 as before.
 * The picker (``ops/rnn.py _cluster_bwd_size``, ``_cluster_bwd_rows``)
   and the shared-memory mirror (``_cluster_bwd_smem``) against the
   source's constants and count, with every (cell, Hp) from 144 to 512
@@ -22,9 +22,10 @@ it is held to on the card against the Pallas backwards at H 320 and 512.
 * Rows 4 and 2's plain versions (``rnn_scan_fused_bwd_reference``,
   ``rnn_scan_bwd_reference``) in bf16 against ``jax.vjp`` of
   ``lfm_quant_tpu.ops.pallas_rnn rnn_scan_fused`` and ``rnn_scan``
-  (Pallas, interpret mode) at H 320 and 512, B 4, T 3, an all-invalid
-  row included; gradients scaled by the reference's largest magnitude,
-  atol 0.05 (the bf16 bound of ``tests/test_torch_rnn_grad.py``).
+  (Pallas, interpret mode, jitted: the same values as eager, in a third
+  of the time) at H 320 and 512, B 4, T 3, an all-invalid row included;
+  gradients scaled by the reference's largest magnitude, atol 0.05 (the
+  bf16 bound of ``tests/test_torch_rnn_grad.py``).
 
 The kernels themselves are held to the plain versions on the card in
 ``tests/test_torch_kernels.py`` (``test_cluster_bwd_*``).
@@ -77,11 +78,11 @@ def one_thread():
                                512, 513, 528, 1024])
 def test_backward_route_table(H):
     """bf16 above 128 up to Hp 512 runs the backward on the cluster; bf16
-    past 512 on the CUDA cores; float32 above 128 on the 3xTF32 kernels on
-    a cluster up to Hp 384 (``"tf32"``) and on the grid past it, to Hp
-    1024 (``"grid"``); H <= 128 as before (bf16 ``"mma"``, float32
-    ``"tf32"``). The forward's route is the same for bf16 at every width
-    here."""
+    past 512 on the bf16 grid (``"grid"``, to Hp 1520); float32 above 128
+    on the 3xTF32 kernels on a cluster up to Hp 384 (``"tf32"``) and on the
+    grid past it, to Hp 1024 (``"grid"``); H <= 128 as before (bf16
+    ``"mma"``, float32 ``"tf32"``). The bf16 forward's route is the
+    backward's up to 512 and the CUDA cores past it."""
     Hp = R._padded_width(H)
     bf, f32 = torch.bfloat16, torch.float32
     if Hp <= 128:
@@ -90,10 +91,10 @@ def test_backward_route_table(H):
         want_bf = "cluster"
         want_f32 = "tf32" if Hp <= R.TF32_MAX_WIDTH else "grid"
     else:
-        want_bf = "simt"
+        want_bf = "grid"
         want_f32 = "grid" if Hp <= R.GRID_MAX_WIDTH else "simt"
     assert R._mma_route(bf, H, "bwd") == want_bf
-    assert R._mma_route(bf, H) == want_bf
+    assert R._mma_route(bf, H) == ("simt" if want_bf == "grid" else want_bf)
     assert R._mma_route(f32, H, "bwd") == want_f32
 
 
@@ -119,10 +120,10 @@ def test_every_width_fits_an_h100(cell):
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_a_width_past_the_kernel_is_refused(cell):
-    """Hp 528 is past ``kMaxWidth``: the bf16 backward's route is the CUDA
-    cores, no shape is taken, and the picker raises naming the width; a
-    card whose shared memory holds no cluster's share raises too."""
-    assert R._mma_route(torch.bfloat16, 520, "bwd") == "simt"  # Hp 528
+    """Hp 528 is past ``kMaxWidth``: the bf16 backward's route is the bf16
+    grid, no shape is taken here, and the picker raises naming the width;
+    a card whose shared memory holds no cluster's share raises too."""
+    assert R._mma_route(torch.bfloat16, 520, "bwd") == "grid"  # Hp 528
     assert not any(R._cluster_bwd_takes(528, C, r) for C in R.CLUSTER_SIZES
                    for r in R.CLUSTER_ROWS)
     with pytest.raises(ValueError, match="hidden=528"):
@@ -149,8 +150,10 @@ def test_rows_follow_the_fit_and_the_block_count(cell, Hp, B, S, rows):
 
 def test_source_constants_agree():
     """The wrapper's widths, units, sizes, thread limits and shared-memory
-    count are the source's."""
-    text = SRC.read_text()
+    count are the source's (its weight-gradient and dhin kernels, with the
+    split's term count, in ``bf16_wgrad.cuh``, shared with the grid
+    backward past 512)."""
+    text = SRC.read_text() + (SRC.parent / "bf16_wgrad.cuh").read_text()
     assert f"constexpr int kMaxWidth = {R.CLUSTER_MAX_WIDTH};" in text
     assert f"constexpr int kUnits = {R.MMA_UNITS};" in text
     assert f"constexpr int kMaxCluster = {max(R.CLUSTER_SIZES)};" in text
@@ -324,6 +327,21 @@ def _scaled_close(got, want, atol=0.05):
     np.testing.assert_allclose(got / scale, want / scale, atol=atol, rtol=0)
 
 
+def _pallas_vjps(cell, hin, wx, b, wh, xw, m, ct):
+    """``jax.vjp`` of the Pallas ``rnn_scan_fused`` (row 4) and ``rnn_scan``
+    (row 2, on ``xw``) with the cotangent ``ct``, in one jitted call."""
+
+    @jax.jit
+    def both(hin, wx, b, wh, xw, m, ct):
+        row4 = jax.vjp(lambda *a: jax_scan_fused(cell, *a, m),
+                       hin, wx, b, wh)[1](ct)
+        row2 = jax.vjp(lambda x, w: jax_scan(cell, x, w, m), xw, wh)[1](ct)
+        return row4, row2
+
+    return ([np.asarray(g.astype(jnp.float32)) for g in r]
+            for r in both(hin, wx, b, wh, xw, m, ct))
+
+
 @pytest.mark.parametrize("cell,H", [("lstm", 320), ("gru", 320),
                                     ("lstm", 512), ("gru", 512)])
 def test_plain_rows_match_the_pallas_backwards_at_cluster_widths(cell, H):
@@ -348,28 +366,26 @@ def test_plain_rows_match_the_pallas_backwards_at_cluster_widths(cell, H):
     t = [torch.from_numpy(a).to(torch.bfloat16) for a in (hin, wx, b, wh)]
     tm, tdh = torch.from_numpy(m), torch.from_numpy(dh).to(torch.bfloat16)
 
-    # Row 4.
-    _, vjp = jax.vjp(lambda *a: jax_scan_fused(cell, *a, jm), *j)
-    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdh)]
     xw32 = t[0].float() @ t[1].float() + t[2].float()
+    xw = xw32.to(torch.bfloat16)
+    jxw = jnp.asarray(xw.float().numpy()).astype(bf)
+    want4, want2 = _pallas_vjps(cell, *j, jxw, jm, jdh)
+
+    # Row 4.
     hs, cs = R.rnn_scan_states(cell, xw32, t[3], tm, 1.0, True)
     hs = hs.to(torch.bfloat16)
     cs = None if cs is None else cs.to(torch.bfloat16)
     got = R.rnn_scan_fused_bwd_reference(cell, *t, tm, hs, cs, tdh)
     assert got[0].dtype == torch.bfloat16
-    for g, w in zip(got, want):
+    for g, w in zip(got, want4):
         assert torch.isfinite(g.float()).all()
         _scaled_close(g.float().numpy(), w)
 
     # Row 2, on the bf16 xw.
-    xw = xw32.to(torch.bfloat16)
-    jxw = jnp.asarray(xw.float().numpy()).astype(bf)
-    _, vjp = jax.vjp(lambda x, w: jax_scan(cell, x, w, jm), jxw, j[3])
-    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdh)]
     hs, cs = R.rnn_scan_states(cell, xw, t[3], tm, 1.0, True)
     got = R.rnn_scan_bwd_reference(cell, xw, t[3], tm, hs, cs, tdh)
     assert got[0].dtype == torch.bfloat16
-    for g, w in zip(got, want):
+    for g, w in zip(got, want2):
         assert torch.isfinite(g.float()).all()
         _scaled_close(g.float().numpy(), w)
     assert not got[0][1].float().any()  # the all-invalid row

@@ -821,18 +821,20 @@ def test_cluster_bwd_launch_refused_raises(cuda):
 
 #: A hoisted route, its dtype and a width it serves (the CUDA cores take
 #: float32 backwards only past the grid kernel's widths, bf16 past the
-#: cluster kernel's).
+#: bf16 grid kernel's).
 HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
                   "simt": (torch.float32, 1040), "simt_bf16": (
-                      torch.bfloat16, 528),
+                      torch.bfloat16, 1536),
                   "cluster": (torch.bfloat16, 256),
                   "tf32_cluster": (torch.float32, 256),
-                  "grid": (torch.float32, 400)}
+                  "grid": (torch.float32, 400),
+                  "grid_bf16": (torch.bfloat16, 528)}
 #: The launch counters' tag of each hoisted route, forward and backward
-#: (float32 above 128: the CUDA-core forward, the 3xTF32 cluster or grid
-#: backward).
+#: (float32 above 128 and bf16 past 512: the CUDA-core forward, the 3xTF32
+#: cluster or a grid backward).
 FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_"}
-BWD_TAG = dict(FWD_TAG, tf32_cluster="tf32_", grid="grid_")
+BWD_TAG = dict(FWD_TAG, tf32_cluster="tf32_", grid="grid_",
+               grid_bf16="grid_bf16_")
 
 
 @pytest.mark.cuda
@@ -1223,10 +1225,10 @@ def test_tf32_cluster_bwd_launch_refused_raises(cuda):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_widths_past_the_caps_keep_rnn_bwd(cuda, cell, hoisted):
     """float32 past the grid backward's 1024 (H 1040) and bf16 past the
-    cluster backward's 512 (H 520, Hp 528) stay on ``csrc/rnn_bwd.cu``
+    bf16 grid backward's 1520 (H 1530, Hp 1536) stay on ``csrc/rnn_bwd.cu``
     through the public backward, one counted call each, within the JAX
     bounds of the plain version."""
-    for dtype, H in ((torch.float32, 1040), (torch.bfloat16, 520)):
+    for dtype, H in ((torch.float32, 1040), (torch.bfloat16, 1530)):
         hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, 21, 4, H, H,
                                                       dtype, cuda, hoisted)
         _build.reset_launch_counts()
@@ -1406,6 +1408,148 @@ def test_grid_bwd_launch_refused_raises(cuda):
     with pytest.raises(ValueError, match="hidden=400 with a group of 2"):
         _grid("lstm", False, args, group=2, rows=64)
     assert not any(_build.launch_counts().values())
+
+
+#: The bf16 widths past 512 the bf16 grid backward is held at: H 520
+#: zero-padded to 528, 528 (17 CTAs a group), 640, 1024 and its widest,
+#: 1520 (the LSTM's one group of 95 CTAs).
+BF16_GRID_WIDTHS = (520, 528, 640, 1024, 1520)
+
+
+def _bf16_grid(cell, hoisted, args, **kw):
+    """The bf16 grid backward on ``args`` at any H, zero-padded to Hp as
+    the public backward pads it (``padded_launch``)."""
+    form = "bwd" if hoisted else "fused_bwd"
+    ops = [a for i, a in enumerate(args) if not (hoisted and i in (1, 2))]
+    return R.padded_launch(R._tensor_core_launcher("grid", form), form)(
+        cell, *ops, 1.0, **kw)
+
+
+def _bf16_grid_name(cell, hoisted):
+    return f"rnn_{'' if hoisted else 'fused_'}bwd_grid_bf16_{cell}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", BF16_GRID_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_grid_bwd_matches_plain(cuda, cell, H, hoisted):
+    """Rows 4 and 2 in bf16 past 512 on ``csrc/rnn_bwd_grid.cu`` (the gates
+    by one bf16 GEMM, the carry's product over a cooperative grid holding
+    W_h in bf16), through the public backward, against the plain versions
+    at the JAX bf16 bound (gradients scaled, atol 0.05): one counted call,
+    no other backward, dhin/dxw in bf16 and the weight gradients in f32,
+    an all-invalid row's dhin/dxw exactly zero, a second call bitwise
+    equal; and the same bits from a larger group, 128 rows a work item
+    where the kernel takes them, and one group. B 150 is several work
+    items a group."""
+    B, T = 150, 4
+    args = _cluster_bwd_args(cell, B, T, H, H + 3, cuda, hoisted)
+    if hoisted:
+        xw, _, _, wh, m, h, c, dh = args
+        run = lambda: rnn_scan_bwd(cell, xw, wh, m, h, c, dh)  # noqa: E731
+        want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+    else:
+        run = lambda: rnn_scan_fused_bwd(cell, *args)  # noqa: E731
+        want = rnn_scan_fused_bwd_reference(cell, *args)
+    _build.reset_launch_counts()
+    got = run()
+    counts = _build.launch_counts()
+    assert counts[_bf16_grid_name(cell, hoisted)] == 1, counts
+    assert sum(counts.values()) == 1, counts
+    assert got[0].dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        _scaled_close(g, w, torch.bfloat16)
+    assert not got[0][0].float().any()
+    for a, z in zip(got, run()):
+        assert torch.equal(a, z)
+    Hp = R._padded_width(H)
+    props = torch.cuda.get_device_properties(cuda)
+    limit = props.shared_memory_per_block_optin
+    n = R._grid_size(cell, Hp, limit, props.multi_processor_count,
+                     torch.bfloat16)
+    pairs = [dict(group=n, rows=64, groups=1)]
+    for more, rows in ((n + 3, 64), (n, 128), (Hp // 8, 64)):
+        if (more <= props.multi_processor_count
+                and R._grid_takes(Hp, more, rows, torch.bfloat16)
+                and R._grid_smem(cell, Hp, more, rows,
+                                 torch.bfloat16) <= limit):
+            pairs.append(dict(group=more, rows=rows))
+    for kw in pairs:
+        for a, z in zip(got, _bf16_grid(cell, hoisted, args, **kw)):
+            assert torch.equal(a, z), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", BF16_GRID_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_grid_bwd_seed_grid_bitwise_equals_single_seed_launches(
+        cuda, cell, H, hoisted):
+    """The seed rules (``_bwd_vmap`` :952, ``_make_scan._bwd_vmap`` :541)
+    on the bf16 grid backward: S 3 seeds (W_h per seed, m shared) in one
+    counted call, each seed's outputs bitwise its one-seed call's."""
+    S, B, T = 3, 70, 3
+    args = _cluster_bwd_args(cell, B, T, H, 41, cuda, hoisted, S=S)
+    _build.reset_launch_counts()
+    got = _bf16_grid(cell, hoisted, args)
+    assert _build.launch_counts()[_bf16_grid_name(cell, hoisted)] == 1
+    for s in range(S):
+        one = _bf16_grid(cell, hoisted, [
+            None if t is None else t[s if t.shape[0] == S else 0]
+            for t in args])
+        for g, o in zip(got, one):
+            assert torch.equal(g[s], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", BF16_GRID_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_grid_bwd_launch_refused_raises(cuda, cell, H, hoisted):
+    """No fallback: a grid of one group more than the card holds at once is
+    refused by the cooperative launch before any kernel runs, naming the
+    width and the groups."""
+    args = _cluster_bwd_args(cell, 37, 3, H, 5, cuda, hoisted)
+    Hp = R._padded_width(H)
+    props = torch.cuda.get_device_properties(cuda)
+    n = R._grid_size(cell, Hp, props.shared_memory_per_block_optin,
+                     props.multi_processor_count, torch.bfloat16)
+    ctas = R._grid_check(cell, Hp, n, 64, cuda, torch.bfloat16)
+    _build.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=f"hidden={Hp}, {ctas // n + 1} "
+                                           f"groups of {n} CTAs"):
+        _bf16_grid(cell, hoisted, args, group=n, rows=64,
+                   groups=ctas // n + 1)
+    assert not any(_build.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_grid_bwd_through_autograd(cuda, cell):
+    """``_FusedScan`` in bf16 at H 528: the forward on the CUDA cores
+    (``rnn_fused_fwd.cu``), the backward on the bf16 grid, one launch each;
+    the gradients against autograd of the plain version on the CPU at the
+    bf16 bound."""
+    B, T, H = 37, 5, 528
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 53, torch.bfloat16,
+                                         "cpu")
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dev).requires_grad_(True)
+                  for t in (hin, wx, b, wh)]
+        _build.reset_launch_counts()
+        out = rnn_scan_fused(cell, *leaves, m.to(dev))
+        out.float().mul(dh.float().to(dev)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_{cell}"] == 1, counts
+    assert counts[f"rnn_fused_bwd_grid_bf16_{cell}"] == 1, counts
+    assert sum(counts.values()) == 2, counts
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        _scaled_close(g_card, g_cpu, torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -85,14 +85,16 @@ def one_thread():
 def test_float32_backward_route(H):
     """float32 backwards above 128 run on the 3xTF32 kernels up to Hp 384
     and past it on the grid kernel (``csrc/rnn_bwd_tf32_grid.cu``, to Hp
-    1024); the float32 forward stays on the CUDA cores and every bf16
-    route is as before."""
+    1024); the float32 forward stays on the CUDA cores and bf16 as its
+    route table says (the cluster to 512, the bf16 grid backward past
+    it)."""
     Hp = R._padded_width(H)
     f32, bf = torch.float32, torch.bfloat16
     assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 384 else "grid")
     assert R._mma_route(f32, H) == "simt"
-    want_bf = "cluster" if Hp <= R.CLUSTER_MAX_WIDTH else "simt"
-    assert R._mma_route(bf, H) == R._mma_route(bf, H, "bwd") == want_bf
+    small = Hp <= R.CLUSTER_MAX_WIDTH
+    assert R._mma_route(bf, H) == ("cluster" if small else "simt")
+    assert R._mma_route(bf, H, "bwd") == ("cluster" if small else "grid")
 
 
 def test_source_constants_agree():
@@ -423,13 +425,29 @@ def _scaled_close(got, want, atol=1e-5):
     np.testing.assert_allclose(got / scale, want / scale, atol=atol, rtol=0)
 
 
+def _pallas_vjps(cell, hin, wx, b, wh, xw, m, ct):
+    """``jax.vjp`` of the Pallas ``rnn_scan_fused`` (row 4) and ``rnn_scan``
+    (row 2, on ``xw``) with the cotangent ``ct``, in one jitted call (the
+    eager values, in a third of the time)."""
+
+    @jax.jit
+    def both(hin, wx, b, wh, xw, m, ct):
+        row4 = jax.vjp(lambda *a: jax_scan_fused(cell, *a, m),
+                       hin, wx, b, wh)[1](ct)
+        row2 = jax.vjp(lambda x, w: jax_scan(cell, x, w, m), xw, wh)[1](ct)
+        return row4, row2
+
+    return ([np.asarray(g) for g in r]
+            for r in both(hin, wx, b, wh, xw, m, ct))
+
+
 @pytest.mark.parametrize("cell,H", [("lstm", 256), ("gru", 256),
                                     ("lstm", 384), ("gru", 384)])
 def test_plain_rows_match_the_pallas_backwards_in_float32(cell, H):
     """Rows 4 and 2's plain versions in float32, on the states of the
-    plain forwards, against ``jax.vjp`` of the Pallas ops (interpret mode)
-    with the same cotangent, at B 4, T 3, an all-invalid row included:
-    dhin, dW_x, db, dW_h and dxw, dW_h, scaled atol 1e-5."""
+    plain forwards, against ``jax.vjp`` of the Pallas ops (interpret mode,
+    jitted) with the same cotangent, at B 4, T 3, an all-invalid row
+    included: dhin, dW_x, db, dW_h and dxw, dW_h, scaled atol 1e-5."""
     B, T = 4, 3
     G = GATES[cell] * H
     rng = np.random.default_rng(H + 11 * len(cell))
@@ -446,24 +464,21 @@ def test_plain_rows_match_the_pallas_backwards_in_float32(cell, H):
     t = [torch.from_numpy(a) for a in (hin, wx, b, wh)]
     tm, tdh = torch.from_numpy(m), torch.from_numpy(dh)
 
-    # Row 4.
-    _, vjp = jax.vjp(lambda *a: jax_scan_fused(cell, *a, jm), *j)
-    want = [np.asarray(g) for g in vjp(jdh)]
     xw = t[0] @ t[1] + t[2]
+    want4, want2 = _pallas_vjps(cell, *j, jnp.asarray(xw.numpy()), jm, jdh)
+
+    # Row 4.
     hs, cs = R.rnn_scan_states(cell, xw, t[3], tm, 1.0, True)
     got = R.rnn_scan_fused_bwd_reference(cell, *t, tm, hs, cs, tdh)
     assert all(g.dtype == torch.float32 for g in got)
-    for g, w in zip(got, want):
+    for g, w in zip(got, want4):
         assert torch.isfinite(g).all()
         _scaled_close(g.numpy(), w)
     assert not got[0][1].any()  # the all-invalid row
 
     # Row 2, on the same xw.
-    _, vjp = jax.vjp(lambda x, w: jax_scan(cell, x, w, jm),
-                     jnp.asarray(xw.numpy()), j[3])
-    want = [np.asarray(g) for g in vjp(jdh)]
     got = R.rnn_scan_bwd_reference(cell, xw, t[3], tm, hs, cs, tdh)
-    for g, w in zip(got, want):
+    for g, w in zip(got, want2):
         assert torch.isfinite(g).all()
         _scaled_close(g.numpy(), w)
     assert not got[0][1].any()

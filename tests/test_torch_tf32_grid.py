@@ -74,22 +74,24 @@ def one_thread():
 def test_float32_backward_route_past_384(H, want):
     """float32 backwards at 384 < Hp <= 1024 run on the grid kernel (H 420
     at Hp 432, zero-padded), the 3xTF32 cluster up to 384, the CUDA cores
-    past 1024; the float32 forwards stay on the CUDA cores and every bf16
-    route is as before (the cluster to 512)."""
+    past 1024; the float32 forwards stay on the CUDA cores; bf16 runs on
+    the cluster to 512 both ways and past it the forward on the CUDA
+    cores, the backward on the bf16 grid."""
     f32, bf = torch.float32, torch.bfloat16
     assert R._mma_route(f32, H, "bwd") == want
     assert R._mma_route(f32, H) == "simt"
-    want_bf = ("cluster" if R._padded_width(H) <= R.CLUSTER_MAX_WIDTH
-               else "simt")
-    assert R._mma_route(bf, H) == R._mma_route(bf, H, "bwd") == want_bf
+    small = R._padded_width(H) <= R.CLUSTER_MAX_WIDTH
+    assert R._mma_route(bf, H) == ("cluster" if small else "simt")
+    assert R._mma_route(bf, H, "bwd") == ("cluster" if small else "grid")
 
 
 def test_source_constants_agree():
     """The wrapper's widths, rows, thread limit, stages and units are the
-    source's, its shared-memory count is the source's formula, and the
-    source takes the gates GEMM, the cell and the weight gradients from
-    the shared header."""
-    text = SRC.read_text()
+    source's (the units and threads a CTA in ``grid_common.cuh``, shared
+    with the bf16 grid backward), its shared-memory count is the source's
+    formula, and the source takes the gates GEMM, the cell and the weight
+    gradients from the shared header."""
+    text = SRC.read_text() + (SRC.parent / "grid_common.cuh").read_text()
     assert f"constexpr int kMaxWidth = {R.GRID_MAX_WIDTH};" in text
     assert f"constexpr int kStageK = {R.GRID_STAGE_K};" in text
     assert f"constexpr int kStages = {R.GRID_STAGES};" in text
@@ -311,7 +313,8 @@ def _scaled_close(got, want, atol=1e-5):
 def _pallas(cell, H=400):
     """Seeded operands at B 4, T 3 (row 1 all invalid), the plain forward's
     states, and ``jax.vjp`` of the Pallas ``rnn_scan_fused`` (row 4) and
-    ``rnn_scan`` (row 2, on the same xw) in interpret mode."""
+    ``rnn_scan`` (row 2, on the same xw) in interpret mode, both in one
+    jitted call (the eager values, in a third of the time)."""
     B, T = 4, 3
     G = GATES[cell] * H
     rng = np.random.default_rng(H + 17 * len(cell))
@@ -328,11 +331,16 @@ def _pallas(cell, H=400):
     hs, cs = R.rnn_scan_states(cell, xw, t[3], torch.from_numpy(m), 1.0, True)
     j = [jnp.asarray(a) for a in (hin, wx, b, wh)]
     jm, jdh = jnp.asarray(m), jnp.asarray(dh)
-    _, vjp = jax.vjp(lambda *a: jax_scan_fused(cell, *a, jm), *j)
-    row4 = [np.asarray(g) for g in vjp(jdh)]
-    _, vjp = jax.vjp(lambda x, w: jax_scan(cell, x, w, jm),
-                     jnp.asarray(xw.numpy()), j[3])
-    row2 = [np.asarray(g) for g in vjp(jdh)]
+
+    @jax.jit
+    def both(hin, wx, b, wh, xw, m, ct):
+        row4 = jax.vjp(lambda *a: jax_scan_fused(cell, *a, m),
+                       hin, wx, b, wh)[1](ct)
+        row2 = jax.vjp(lambda x, w: jax_scan(cell, x, w, m), xw, wh)[1](ct)
+        return row4, row2
+
+    row4, row2 = both(*j, jnp.asarray(xw.numpy()), jm, jdh)
+    row4, row2 = ([np.asarray(g) for g in r] for r in (row4, row2))
     return (dict(hin=hin, wx=wx, b=b, wh=wh, m=m, dh=dh, xw=xw.numpy(),
                  h=hs.numpy(), c=None if cs is None else cs.numpy()),
             row4, row2)
