@@ -67,8 +67,10 @@ imports nothing of JAX. Phases, each fatal on failure:
    float32 four at hidden 160 must launch the CUDA-core forwards and
    backwards (now the 3xTF32 cluster backwards), the float32
    four at hidden 400 the grid backwards and the bf16 four at hidden 528
-   the CUDA-core forwards and the bf16 grid backwards (``rnn_bwd_grid.cu``,
-   no CUDA-core backward). The hoisted bf16 step and the fused float32 step are also
+   the bf16 grid forwards and backwards (``rnn_fwd_grid.cu``,
+   ``rnn_bwd_grid.cu``: one of each a step, the fused backward on the
+   forward's xw in five kernels, no CUDA-core kernel). The hoisted bf16
+   step and the fused float32 step are also
    timed with their backward as routed and sent to the CUDA-core kernel,
    the fused float32 step with its forward so, and the fused float32
    hidden-120 step on its route and with every width sent to the CUDA
@@ -283,6 +285,14 @@ imports nothing of JAX. Phases, each fatal on failure:
    kernel a step, against the plain path; rows 4 and 2 in
    bf16 at hidden 528 on the bf16 grid in turns with ``rnn_bwd.cu``,
    beside cuDNN, its seed grids, and row 4 at the grid's widest, 1520;
+   rows 3 and 1 there on the bf16 grid forward in turns with
+   ``rnn_fused_fwd.cu``, beside cuDNN (bitwise repeatable and the same at
+   two group sizes and at 64 and 128 rows, a 3-seed grid bitwise its
+   one-seed calls, a grid past the card refused, the barrier waits, the
+   recurrence's share, the all-gather's rate), the fused row 4 handed the
+   forward's xw (five kernels, bitwise the row 4 that forms its own), rows
+   3 and 1 at H 530 (Hp 544), 1024 and (row 3) 1520, and the c2 LSTM at
+   hidden 528 served, every score against the plain path;
 29. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
    10, 11-15, 17-23, 26's sequential fits and 28's one-seed runs for the
    one-seed rows, 6, 7, 16, 19-21, 26's stacks, 27 and 28's ensembles for
@@ -323,8 +333,8 @@ HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
 # the 3xTF32 kernels on a cluster; and one past the 3xTF32 cluster's 384,
 # whose training runs are the grid backward's (rnn_bwd_tf32_grid.cu) main
 # path. A bf16 width past the cluster kernels' 512, whose training runs are
-# the CUDA-core forward's and the bf16 grid backward's (rnn_bwd_grid.cu)
-# main path, and that grid's widest.
+# the bf16 grids' main path (rnn_fwd_grid.cu, rnn_bwd_grid.cu), and those
+# grids' widest.
 PADDED_HIDDEN = 120
 CUDA_CORE_HIDDEN = 160
 PAST_CAP_HIDDEN = 400
@@ -335,18 +345,18 @@ BF16_GRID_WIDEST = 1520
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
-# forwards run on the main paths in float32 at hidden 160 and 400 and in
-# bf16 at 528; the CUDA-core backwards (float32 past 1024, bf16 past 1520)
-# on none since the bf16 grid took 528: they are held and timed at 528 in
-# bf16 (phase 28, the bf16 grid's "[before]"). Measured at hidden 400
-# (forwards, float32) and 528 (backwards, bf16), B 2048, T 60 (the kernels
-# line keeps the largest shape). The 3xTF32 kernels (``*_tf32_*``) are
-# measured in float32 at the c2 train step, at hidden 120, zero-padded to
-# 128, and (the backwards, on a cluster) at hidden 160-384 (phase 28), the
-# float32 grid backwards (``*_grid_*``) at 400 (and 640, 1024: suffixed
-# records), the bf16 grid backwards (``*_grid_bf16_*``) at 528 (and the
-# LSTM's row 4 at 1520: suffixed); the bf16 ones at the c2 train step and
-# the serving dispatches.
+# forwards run on the main paths in float32 at hidden 160 and 400; the
+# CUDA-core backwards (float32 past 1024, bf16 past 1520) on none since
+# the bf16 grid took 528: both are held and timed at 528 in bf16 (phase
+# 28, the bf16 grids' "[before]", suffixed records). Measured at hidden
+# 400 (forwards, float32) and 528 (backwards, bf16), B 2048, T 60 (the
+# kernels line keeps the largest shape). The 3xTF32 kernels
+# (``*_tf32_*``) are measured in float32 at the c2 train step, at hidden
+# 120, zero-padded to 128, and (the backwards, on a cluster) at hidden
+# 160-384 (phase 28), the float32 grid backwards (``*_grid_*``) at 400
+# (and 640: suffixed records), the bf16 grids (``*_grid_bf16_*``) at 528
+# (and rows 3 and 4 at 1520: suffixed); the bf16 ones at the c2 train step
+# and the serving dispatches.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -400,6 +410,12 @@ SOURCES = {
                                     "pallas_rnn.py:739"),
     "rnn_bwd_grid_bf16_lstm": ("csrc/rnn_bwd_grid.cu", "pallas_rnn.py:184"),
     "rnn_bwd_grid_bf16_gru": ("csrc/rnn_bwd_grid.cu", "pallas_rnn.py:243"),
+    "rnn_fused_fwd_grid_bf16_lstm": ("csrc/rnn_fwd_grid.cu",
+                                     "pallas_rnn.py:626"),
+    "rnn_fused_fwd_grid_bf16_gru": ("csrc/rnn_fwd_grid.cu",
+                                    "pallas_rnn.py:652"),
+    "rnn_fwd_grid_bf16_lstm": ("csrc/rnn_fwd_grid.cu", "pallas_rnn.py:135"),
+    "rnn_fwd_grid_bf16_gru": ("csrc/rnn_fwd_grid.cu", "pallas_rnn.py:158"),
     "window_gather": ("csrc/window_gather.cu", "pallas_gather.py:100"),
 }
 # The served universes: preset → (requests, the kernels its dispatches
@@ -452,6 +468,9 @@ SEED_SOURCES = {
     "rnn_bwd_grid_bf16_lstm_seeds": (
         "rnn_bwd_grid_bf16_lstm", "csrc/rnn_bwd_grid.cu",
         "pallas_rnn.py:184 (seed grid: _make_scan._bwd_vmap :541)"),
+    "rnn_fwd_grid_bf16_lstm_seeds": (
+        "rnn_fwd_grid_bf16_lstm", "csrc/rnn_fwd_grid.cu",
+        "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
 }
 PLAIN_STEPS = 3      # steps of each model held against the plain path
 TIMED_STEPS = 4      # steps of each model timed
@@ -486,8 +505,6 @@ TF32 = tuple(f"rnn_{form}_tf32_{cell}" for form in ("fused_fwd", "fwd",
              for cell in ("lstm", "gru"))
 GRID = tuple(f"rnn_{form}_grid_{cell}" for form in ("fused_bwd", "bwd")
              for cell in ("lstm", "gru"))
-GRID_BF16 = tuple(f"rnn_{form}_grid_bf16_{cell}"
-                  for form in ("fused_bwd", "bwd") for cell in ("lstm", "gru"))
 
 
 def fail(msg: str) -> None:
@@ -1997,14 +2014,14 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     # a cluster: no CUDA-core backward) and at hidden 400 (past the 3xTF32
     # cluster: the CUDA-core forwards and the grid backwards, no CUDA-core
     # backward); the bf16 four at hidden 528 (past the cluster kernels:
-    # the CUDA-core forwards, the bf16 grid backwards): a few steps each.
+    # the bf16 grid forwards and backwards, the fused backward on the
+    # forward's xw, five kernels; no CUDA-core kernel): a few steps each.
     h120 = dict(cfg.model.kwargs, hidden=PADDED_HIDDEN)
     h160 = dict(cfg.model.kwargs, hidden=CUDA_CORE_HIDDEN)
     h400 = dict(cfg.model.kwargs, hidden=PAST_CAP_HIDDEN)
     h528 = dict(cfg.model.kwargs, hidden=CORE_BF16_HIDDEN)
-    # Past 512 in bf16 no tensor-core kernel runs but the bf16 grid
-    # backward, and no CUDA-core backward.
-    not_core = TF32 + GRID + CUDA_CORE_BWD + tuple(
+    # Past 512 in bf16 no kernel runs but the bf16 grids.
+    not_core = TF32 + GRID + CUDA_CORE + tuple(
         k for k in _build.LAUNCHES if "_mma_" in k or "_cluster_" in k)
     runs = (("c2 training (hoisted)", train_variant(cfg, scan_impl="pallas"),
              ("rnn_fwd_mma_lstm", "rnn_bwd_mma_lstm", "window_gather"),
@@ -2083,25 +2100,38 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
              ("rnn_fwd_gru", "rnn_bwd_grid_gru", "window_gather"),
              TF32 + CUDA_CORE_BWD),
             ("c2 training (fused, hidden 528)", train_variant(cfg, kwargs=h528),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_grid_bf16_lstm",
+             ("rnn_fused_fwd_grid_bf16_lstm", "rnn_fused_bwd_grid_bf16_lstm",
               "window_gather"), not_core),
             ("c2 training (hoisted, hidden 528)",
              train_variant(cfg, scan_impl="pallas", kwargs=h528),
-             ("rnn_fwd_lstm", "rnn_bwd_grid_bf16_lstm", "window_gather"),
-             not_core),
+             ("rnn_fwd_grid_bf16_lstm", "rnn_bwd_grid_bf16_lstm",
+              "window_gather"), not_core),
             ("GRU training (fused, hidden 528)",
              train_variant(cfg, kind="gru", kwargs=h528),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_grid_bf16_gru",
+             ("rnn_fused_fwd_grid_bf16_gru", "rnn_fused_bwd_grid_bf16_gru",
               "window_gather"), not_core),
             ("GRU training (hoisted, hidden 528)",
              train_variant(cfg, kind="gru", scan_impl="pallas", kwargs=h528),
-             ("rnn_fwd_gru", "rnn_bwd_grid_bf16_gru", "window_gather"),
-             not_core))
+             ("rnn_fwd_grid_bf16_gru", "rnn_bwd_grid_bf16_gru",
+              "window_gather"), not_core))
     for label, run_cfg, must, must_not in runs:
-        got, counts = counted(label, must, lambda: short_run(
-            torch, run_cfg, splits, TRAIN_STEPS_SHORT), must_not)
+        grid = "hidden 528" in label
+        got, counts = counted(label, must, lambda: grid_kernels_seen(
+            short_run, torch, run_cfg, splits, TRAIN_STEPS_SHORT), must_not)
+        got, seen = got
         for k, n_launch in counts.items():
             totals[k] += n_launch
+        if grid:
+            # One grid forward and one grid backward a step; the fused
+            # backward takes the forward's xw (five kernels, not six).
+            want_k = 5 if "fused" in label else 4
+            if (any(counts[k] != TRAIN_STEPS_SHORT for k in must)
+                    or seen != [want_k] * TRAIN_STEPS_SHORT):
+                fail(f"{label}: launches {counts}, the grid backward's "
+                     f"kernels a call {seen}, not one of each a step and "
+                     f"{want_k} kernels")
+            log(f"{label}: one grid forward and one {want_k}-kernel grid "
+                f"backward a step ({seen})")
         want = short_run(torch, plain_variant(run_cfg), splits,
                          TRAIN_STEPS_SHORT)
         err = losses_agree(label, got, want)
@@ -2135,6 +2165,29 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
                       "tensor cores (3xTF32, padded to 128)": R._mma_route,
                       "CUDA cores": lambda *a, **k: "simt"},
                   part="recurrence")
+
+
+def grid_kernels_seen(fn, *args):
+    """``fn(*args)`` with every bf16 grid backward's kernel count recorded
+    (``ops.rnn._launch_bwd_grid``'s ``stats``) → (its result, the counts,
+    one a call); the launcher restored after."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    real = R._launch_bwd_grid
+    seen = []
+
+    def launch(*a, stats=None, **kw):
+        st = {} if stats is None else stats
+        out = real(*a, stats=st, **kw)
+        if "kernels" in st:
+            seen.append(st["kernels"])
+        return out
+
+    R._launch_bwd_grid = launch
+    try:
+        return fn(*args), seen
+    finally:
+        R._launch_bwd_grid = real
 
 
 def cuda_core_bwd(*a, xw=None):
@@ -6300,10 +6353,13 @@ WIDE_HIDDEN = 256         # phase 28's model: c2 at a width past the caps
 WIDE_WIDTHS = (512,)      # rows 1-4 held at this width too
 # Rows 4 and 2 in float32 above 128: the 3xTF32 cluster's widths (its
 # cluster sizes 4, 8, 16 in the LSTM; 2, 8, 16 in the GRU) and the grid's
-# past its cap (its groups of 17, 40 and 128 CTAs in the LSTM; 13, 27, 64
-# in the GRU); 384, 640 and 1024 have no main path (suffixed records).
-# (320, held since PR 22, was cut for the time the grid's widths take.)
-F32_WIDE_WIDTHS = (160, 256, 384, PAST_CAP_HIDDEN, 640, 1024)
+# past its cap (its groups of 17 and 40 CTAs in the LSTM; 13 and 27 in the
+# GRU); 384 and 640 have no main path (suffixed records). 320 and 1024
+# were cut for the time the grids' readings take.
+F32_WIDE_WIDTHS = (160, 256, 384, PAST_CAP_HIDDEN, 640)
+# The bf16 grid forward's widths past 528 held to the plain version: H 530
+# (zero-padded to 544), 1024 and the widest, 1520 (row 3 alone).
+FWD_GRID_WIDTHS = (530, 1024, 1520)
 # The float32 hoisted seed grids' main paths: the CUDA-core forward with
 # the 3xTF32 cluster backward, and past the cap both on the CUDA cores.
 GRID_F32_HIDDEN = 160
@@ -7079,9 +7135,11 @@ def core_bf16_rows(torch, kernels, gen) -> None:
     bound, the plain version and cuDNN's backward and in turns with
     ``rnn_bwd.cu`` on the same inputs (grid, CUDA cores, CUDA cores, grid;
     ``rnn_bwd.cu`` held to the plain version too and recorded under its own
-    name: the table's "[before]"); the LSTM's seed grids there
-    (:func:`grid_seeds`); and row 4 of the LSTM at the grid's widest Hp,
-    :data:`BF16_GRID_WIDEST`, against cuDNN (suffixed record)."""
+    name: the table's "[before]"); rows 3 and 1 there on the bf16 grid
+    forward (:func:`fwd_grid_rows`, with the fused row 4 handed its xw);
+    the LSTM's seed grids there (:func:`grid_seeds`); and rows 4 and 3 of
+    the LSTM at the grids' widest Hp, :data:`BF16_GRID_WIDEST`, against
+    cuDNN (suffixed records)."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -7197,72 +7255,396 @@ def core_bf16_rows(torch, kernels, gen) -> None:
                 f"library {rec['library_ms']}, max err {err:.3g}")
             del h, c
             torch.cuda.empty_cache()
-        if not widest:
-            bf16_fwd_rows(torch, kernels, where, cell, hin, wx, b, wh, mm,
-                          xw)
+        fwd_grid_rows(torch, kernels, where, cell, hin, wx, b, wh, mm, xw,
+                      dh, widest)
         if cell == "lstm" and not widest:
             grid_seeds(torch, kernels, cell, hin, wx, b, wh, mm, dh, xw)
         del hin, wx, wh, b, mm, dh, xw32, xw
         torch.cuda.empty_cache()
 
 
-def bf16_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
-                  xw) -> None:
-    """Rows 3 and 1 in bf16 past 512 on ``rnn_fused_fwd.cu`` (the route:
-    the bf16 forwards above the cluster's 512), saving c_all as training
-    does: counted (nothing else launched), h_all and c_all within atol
-    0.05 + rtol 0.05 of the plain version, timed beside the bound, the
-    plain version and cuDNN's forward (:func:`cudnn_yardstick`,
-    :func:`hoisted_yardstick`); recorded as ``<name>@h<H>``."""
+def fwd_grid_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
+                  xw, dh, widest: bool = False) -> None:
+    """Rows 3 and 1 in bf16 past 512 on the bf16 grid forward
+    (``rnn_fwd_grid.cu``, the route to Hp 1520), saving c_all as training
+    does: through the public forwards (``_fused_states``,
+    ``_scan_states_any``), one counted launch each and nothing else, h_all
+    and c_all within atol 0.05 + rtol 0.05 of the plain version, bitwise
+    repeatable and the same bits from a larger group, from 128 rows a work
+    item and from one group; timed beside the bound, the plain version,
+    cuDNN's forward and ``rnn_fused_fwd.cu`` on the same inputs in turns
+    (grid, CUDA cores, CUDA cores, grid; ``rnn_fused_fwd.cu`` held to the
+    plain version too and recorded as ``<name>@h<H>``: the table's
+    "[before]"), with the group, rows and groups chosen, the barrier waits
+    (the kernel's own clock), the recurrence's device time and share of
+    row 3 (``torch.profiler``; "not measured" where it sees no device time)
+    and the all-gather's bytes and rate. Then the fused row 4 handed the
+    forward's xw (:func:`xw_handover`), the LSTM's seed grids
+    (:func:`fwd_grid_seeds`) and a grid past the card, refused before any
+    launch. ``widest``: row 3 alone, timed beside the bound, the plain
+    version and cuDNN (``<name>@h<H>``)."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
+    bf = torch.bfloat16
+    dev = hin.device
+    if R._mma_route(bf, H) != "grid":
+        fail(f"the bf16 forward at hidden {H} is not on the grid")
+    props = torch.cuda.get_device_properties(dev)
+    limit, sms = (props.shared_memory_per_block_optin,
+                  props.multi_processor_count)
     xw32 = hin.float() @ wx.float() + b.float()
     for kind, fused in (("fused_fwd", True), ("fwd", False)):
-        name = f"rnn_{'fused_' if fused else ''}fwd_{cell}"
+        if widest and not fused:
+            continue
+        form = "fused_" if fused else ""
+        name = f"rnn_{form}fwd_grid_bf16_{cell}"
+        core_name = f"rnn_{form}fwd_{cell}"
+        xin, xwx, xb = (hin, wx, b) if fused else (xw, None, None)
         if fused:
             run = (lambda: R._fused_states(cell, hin, wx, b, wh, mm, 1.0,
                                            True))
             want = R.rnn_scan_states(cell, xw32, wh, mm, 1.0, True)
-            plain_ms = time_ms(lambda: R.rnn_scan_fused_reference(
-                cell, hin, wx, b, wh, mm), reps=1, warmup=1)
+            plain = (lambda: R.rnn_scan_fused_reference(cell, hin, wx, b, wh,
+                                                        mm))
             library = cudnn_yardstick(torch, cell, hin, wx, b, wh, BF16_TOL,
                                       BF16_TOL)
         else:
             run = (lambda: R._scan_states_any(cell, xw, wh, mm, 1.0, True))
             want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
-            plain_ms = time_ms(lambda: R.rnn_scan_reference(
-                cell, xw, wh, mm), reps=1, warmup=1)
+            plain = (lambda: R.rnn_scan_reference(cell, xw, wh, mm))
             library = hoisted_yardstick(torch, cell, xw, wh, BF16_TOL,
                                         BF16_TOL)
+
+        def held(label, out):
+            err = 0.0
+            for got, ref in zip(out, want):
+                if got is None:  # the GRU has no c_all
+                    continue
+                e, excess = worst_excess(got, ref, BF16_TOL, BF16_TOL)
+                if excess > 0 or not torch.isfinite(got.float()).all():
+                    fail(f"{label} (bf16) at {where}: max err {e}")
+                err = max(err, e)
+            return err
+
         _build.reset_launch_counts()
         out = run()
         counts = _build.launch_counts()
         if counts[name] != 1 or sum(counts.values()) != 1:
-            fail(f"{name} (bf16) at {where}: launched {counts}")
-        err = 0.0
-        for got, ref in zip(out, want):
-            if got is None:  # the GRU has no c_all
-                continue
-            e, excess = worst_excess(got, ref, BF16_TOL, BF16_TOL)
-            if excess > 0 or not torch.isfinite(got.float()).all():
-                fail(f"{name} (bf16) at {where}: max err {e}")
-            err = max(err, e)
-        del out, want
+            fail(f"{name} at {where}: launched {counts}")
+        err = held(name, out)
+        again = run()
+        if not all(torch.equal(p, q) for p, q in zip(out, again)
+                   if p is not None):
+            fail(f"{name} at {where}: two calls differ")
+        del again
+        n = R._fwd_grid_size(cell, H, limit, sms)
+        rows = R._fwd_grid_rows(cell, H, n, B, 1, limit, sms)
+        pairs = [] if widest else [dict(group=n, rows=64, groups=1)]
+        for more in ((n + 3, 2 * n - 1) if not widest else ()):
+            for r in R.GRID_ROWS:
+                if (more <= sms and R._grid_takes(H, more, r, bf)
+                        and R._fwd_grid_smem(cell, H, more, r) <= limit):
+                    pairs.append(dict(group=more, rows=r))
+        for kw in pairs:
+            other = R._launch_fwd_grid(cell, fused, xin, xwx, xb, wh, mm,
+                                       1.0, True, **kw)
+            if not all(torch.equal(p, q) for p, q in zip(out, other)
+                       if p is not None):
+                fail(f"{name} at {where}: {kw} changes the bits")
+            del other
+        del out
+        stats = {}
+        R._launch_fwd_grid(cell, fused, xin, xwx, xb, wh, mm, 1.0, True,
+                           stats=stats)
+        torch.cuda.synchronize()
+        cyc = stats["cycles"].double().cpu()
+        share = cyc[:, 0] / cyc[:, 1]
         bound, by = rnn_bound(kind, cell, B, T, H, 2, save_c=True)
         rec = dict(shape=[B, T, H], dtype="bfloat16", save_c=True,
                    max_abs_err=err, tolerance=f"atol {BF16_TOL} + rtol "
-                   f"{BF16_TOL}", rows_per_block=R._simt_rows(
-                       cell, kind, H, hin.device),
-                   **kernel_ms(run, reps=3, launches=2), plain_ms=plain_ms,
+                   f"{BF16_TOL}", bitwise_repeatable=True,
+                   bitwise_at=[dict(group=n, rows=rows)] + pairs,
+                   group=n, rows=rows, groups=stats["groups"],
+                   ctas_at_once=stats["ctas_at_once"],
+                   kernels_a_call=stats["kernels"],
+                   barrier_wait_share_mean=float(share.mean()),
+                   barrier_wait_share_max=float(share.max()),
+                   **kernel_ms(run, reps=3, launches=2),
+                   plain_ms=time_ms(plain, reps=1, warmup=1),
                    bound_ms=bound, bound_by=by, **library)
-        report(kernels, f"{name}@h{H}", where, rec)
-        log(f"{name} (bf16) at {where}: {rec['ms']:.4f} ms (device "
-            f"{rec['device_ms']:.4f}), bound {bound:.4f}, plain "
-            f"{plain_ms:.4f}, library {rec['library_ms']}, max err "
-            f"{err:.3g}")
+        if not widest:
+            # In turns with rnn_fused_fwd.cu on the same inputs.
+            def core(a=(xin, xwx, xb), f=fused):
+                return R._launch_fwd(cell, not f, *a, wh, mm, 1.0, True)
+
+            core_err = held(core_name, core())
+            cc = kernel_ms(core, reps=1, launches=1)
+            rec.update(cuda_core_ms=cc["ms"],
+                       cuda_core_device_ms=cc["device_ms"],
+                       cuda_core_max_abs_err=core_err,
+                       turns_ms=dict(grid=[rec["ms"],
+                                           time_ms(run, reps=2)],
+                                     cuda_core=[cc["ms"], time_ms(
+                                         core, reps=1, warmup=0)]))
+            report(kernels, f"{core_name}@h{H}", where, dict(
+                shape=[B, T, H], dtype="bfloat16", save_c=True,
+                max_abs_err=core_err, rows_per_block=R._simt_rows(
+                    cell, kind, H, dev), **cc, plain_ms=rec["plain_ms"],
+                bound_ms=bound, bound_by=by, **library))
+            # The recurrence's device time, and the all-gather: every CTA
+            # of a group reads the group's whole h_{t-1} row block each
+            # step but the first.
+            by_name = profile_device(
+                torch, lambda: [R._launch_fwd_grid(
+                    cell, fused, xin, xwx, xb, wh, mm, 1.0, True)
+                    for _ in range(2)], f"{name} ({where})")
+            recur = sum(ms for k, ms in by_name.items()
+                        if "rnn_fwd_grid_kernel" in k) / 2
+            gathered = (T - 1) * -(-B // rows) * n * rows * H * 2
+            rec.update(
+                recurrence_device_ms=recur or "not measured",
+                recurrence_share=(recur / (sum(by_name.values()) / 2)
+                                  if recur else "not measured"),
+                barrier_wait_ms=(float(share.mean()) * recur if recur
+                                 else "not measured"),
+                all_gather_bytes=gathered,
+                all_gather_gb_per_s=(gathered / recur / 1e6 if recur
+                                     else "not measured"))
+        report(kernels, name + ("@h%d" % H if widest else ""), where, rec)
+        log(f"{name} at {where}: {rec['groups']} groups of {n} CTAs x "
+            f"{rows} rows ({stats['kernels']} kernels), {rec['ms']:.4f} ms "
+            f"(device {rec['device_ms']:.4f})"
+            + (f", in turns {rec['turns_ms']}, rnn_fused_fwd.cu "
+               f"{rec['cuda_core_ms']:.4f}; recurrence "
+               f"{rec['recurrence_device_ms']} ms device" if not widest
+               else "")
+            + f"; barrier waits {100 * float(share.mean()):.1f}% of the "
+            f"recurrence's cycles; bound {bound:.4f}, plain "
+            f"{rec['plain_ms']:.4f}, library {rec['library_ms']}, max err "
+            f"{err:.3g}; bitwise at {rec['bitwise_at']}")
+        torch.cuda.empty_cache()
+    if widest:
+        return
+    xw_handover(torch, kernels, where, cell, hin, wx, b, wh, mm, dh)
+    if cell == "lstm":
+        fwd_grid_seeds(torch, kernels, cell, hin, wx, b, wh, mm, xw)
+    # A grid of one group more than the card holds: refused before any
+    # launch, the xw GEMM included.
+    n = R._fwd_grid_size(cell, H, limit, sms)
+    ctas = R._fwd_grid_check(cell, True, H, n, 64, dev)
+    _build.reset_launch_counts()
+    try:
+        R._launch_fwd_grid(cell, True, hin, wx, b, wh, mm, 1.0, True,
+                           group=n, rows=64, groups=ctas // n + 1)
+    except RuntimeError as exc:
+        if any(_build.launch_counts().values()):
+            fail(f"a refused grid forward counted a launch: {exc}")
+        log(f"the {cell} forward at H {H} on {ctas // n + 1} groups of {n} "
+            f"CTAs ({ctas} at once) is refused: {exc}")
+    else:
+        fail(f"the {cell} forward at H {H} on {ctas // n + 1} groups of {n} "
+             f"CTAs ran: the card holds {ctas} at once")
+
+
+def xw_handover(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
+                dh) -> None:
+    """The fused row 4 on the bf16 grid handed the grid forward's f32 xw
+    scratch (as ``_FusedScan`` hands it over): five kernels, where the
+    row 4 that forms its own xw launches six, and every gradient bitwise
+    that row 4's (both xw GEMMs are one call of the same GEMM); both timed
+    in turns, each given a fresh copy of the scratch outside the timed
+    window, as ``rnn_fused_bwd_grid_bf16_<cell>_xw``."""
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T, H = hin.shape
+    with torch.no_grad():
+        h, c, xw = R._launch_fwd_grid(cell, True, hin, wx, b, wh, mm, 1.0,
+                                      True, keep_xw=True)
+    saved = xw.clone()
+    own, given = {}, {}
+    want = R._launch_bwd_grid(cell, True, hin, wx, b, wh, mm, h, c, dh, 1.0,
+                              stats=own)
+    got = R._launch_bwd_grid(cell, True, hin, wx, b, wh, mm, h, c, dh, 1.0,
+                             xw=xw, stats=given)
+    if (own["kernels"], given["kernels"]) != (6, 5):
+        fail(f"the fused bf16 grid backward at {where} launched "
+             f"{own['kernels']} kernels on its own xw, {given['kernels']} "
+             f"on the forward's, not 6 and 5")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"the fused bf16 grid backward at {where}: the forward's xw "
+             f"changes the bits")
+    del got, want
+
+    def timed(fn, setup, reps=3):
+        times = []
+        for _ in range(reps):
+            setup()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    refill = (lambda: xw.copy_(saved))
+    mine = (lambda: R._launch_bwd_grid(cell, True, hin, wx, b, wh, mm, h, c,
+                                       dh, 1.0))
+    handed = (lambda: R._launch_bwd_grid(cell, True, hin, wx, b, wh, mm, h,
+                                         c, dh, 1.0, xw=xw))
+    turns = dict(own=[timed(mine, refill)], given=[timed(handed, refill)])
+    turns["given"].append(timed(handed, refill))
+    turns["own"].append(timed(mine, refill))
+    rec = dict(shape=[B, T, H], dtype="bfloat16", bitwise_vs_own_xw=True,
+               kernels_given_xw=given["kernels"],
+               kernels_own_xw=own["kernels"], turns_ms=turns,
+               ms=statistics.median(turns["given"]),
+               own_xw_ms=statistics.median(turns["own"]))
+    report(kernels, f"rnn_fused_bwd_grid_bf16_{cell}_xw", where, rec)
+    log(f"row 4 on the bf16 grid at {where} handed the forward's xw: "
+        f"{given['kernels']} kernels (own xw: {own['kernels']}), bitwise "
+        f"the same; in turns {turns} ms")
+    del h, c, xw, saved
     torch.cuda.empty_cache()
+
+
+def fwd_grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm,
+                   xw) -> None:
+    """The grid forward's seed grids (``_fwd_vmap`` :920,
+    ``_make_scan._fwd_vmap`` :504; S 3, W_h shared): rows 3 and 1 one
+    counted launch each, each seed bitwise its one-seed call; row 1 held
+    to the plain version per seed and timed beside its bound, three
+    one-seed calls and the plain version, as
+    ``rnn_fwd_grid_bf16_<cell>_seeds``."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    S = GRID_SEEDS
+    B, T, H = hin.shape
+    stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
+    xw3, hin3 = (stack(t, lambda v: -v) for t in (xw, hin))
+    wx3, b3 = stack(wx, lambda v: 0.9 * v), stack(b, lambda v: -v)
+    m3 = stack(mm, lambda v: ~v)
+    err = 0.0
+    with torch.no_grad():
+        for name, run, single in (
+                (f"rnn_fwd_grid_bf16_{cell}",
+                 lambda: R._scan_states_any(cell, xw3, wh[None], m3, 1.0,
+                                            True),
+                 lambda s: R._scan_states_any(cell, xw3[s], wh, m3[s], 1.0,
+                                              True)),
+                (f"rnn_fused_fwd_grid_bf16_{cell}",
+                 lambda: R._fused_states(cell, hin3, wx3, b3, wh[None], m3,
+                                         1.0, True),
+                 lambda s: R._fused_states(cell, hin3[s], wx3[s], b3[s], wh,
+                                           m3[s], 1.0, True))):
+            _build.reset_launch_counts()
+            got = run()
+            counts = _build.launch_counts()
+            if counts[name] != 1 or sum(counts.values()) != 1:
+                fail(f"{name} seed grid at H {H}: launched {counts}")
+            seed_grid_held(torch, f"{name} seed grid (bf16, H {H}, W_h "
+                           f"shared)", got, single, range(S))
+            if name.startswith("rnn_fwd_"):
+                for s in range(S):
+                    want = R.rnn_scan_states(cell, xw3[s], wh, m3[s], 1.0,
+                                             True)
+                    for g, w in zip(got, want):
+                        if w is None:
+                            continue
+                        e, excess = worst_excess(g[s], w, BF16_TOL, BF16_TOL)
+                        if excess > 0:
+                            fail(f"{name} seed grid seed {s}: max err {e}")
+                        err = max(err, e)
+            del got
+        bound, by = rnn_bound("fwd", cell, B, T, H, 2, save_c=True,
+                              seeds=S)
+        hoisted = (lambda: R._scan_states_any(cell, xw3, wh[None], m3, 1.0,
+                                              True))
+        rec = dict(shape=[S, B, T, H], dtype="bfloat16", shared="W_h",
+                   bitwise_vs_single=True, seeds_checked=S,
+                   max_abs_err=err, tolerance=f"atol {BF16_TOL} + rtol "
+                   f"{BF16_TOL}", **kernel_ms(hoisted, reps=3, launches=1),
+                   single_seed_loop_ms=time_ms(lambda: [
+                       R._scan_states_any(cell, xw3[s], wh, m3[s], 1.0, True)
+                       for s in range(S)], reps=2, warmup=1),
+                   plain_ms=time_ms(lambda: [R.rnn_scan_reference(
+                       cell, xw3[s], wh, m3[s]) for s in range(S)], reps=1,
+                       warmup=1),
+                   bound_ms=bound, bound_by=by, library_ms=None,
+                   library_note=NO_SEED_LIBRARY)
+    report(kernels, f"rnn_fwd_grid_bf16_{cell}_seeds", f"B {B}, T {T}, H {H}",
+           rec)
+    log(f"grid forward seed grids at H {H} (S {S}, W_h shared): one launch "
+        f"each, every seed bitwise its one-seed call; hoisted "
+        f"{rec['ms']:.4f} ms against {S} one-seed calls' "
+        f"{rec['single_seed_loop_ms']:.4f}, max err {err:.3g}")
+    del xw3, hin3, wx3, b3, m3
+    torch.cuda.empty_cache()
+
+
+def fwd_grid_widths(torch, gen) -> None:
+    """Rows 3 and 1 in bf16 on the grid forward past 528 (B 256, T 12,
+    seeded weights at H^-1/2, both cells; an all-invalid row): at
+    :data:`FWD_GRID_WIDTHS` (H 530 zero-padded to 544 through the public
+    forwards' ``padded_launch``; the widest, 1520, row 3 alone) within
+    atol 0.05 + rtol 0.05 of the plain version, one counted launch, the
+    all-invalid row exactly zero, bitwise repeatable."""
+    from lfm_quant_tpu_torch.ops import _build
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    B, T = 256, 12
+    rnd = dict(generator=gen, device="cuda")
+    for H in FWD_GRID_WIDTHS:
+        for cell in ("lstm", "gru"):
+            G = GATES[cell] * H
+            hin = torch.randn(B, T, H, **rnd).to(torch.bfloat16)
+            wx, wh = ((H ** -0.5 * torch.randn(H, G, **rnd)).to(
+                torch.bfloat16) for _ in range(2))
+            b = (0.1 * torch.randn(G, **rnd)).to(torch.bfloat16)
+            mm = torch.rand(B, T, **rnd) < 0.75
+            mm[0] = False
+            xw32 = hin.float() @ wx.float() + b.float()
+            xw = xw32.to(torch.bfloat16)
+            for fused in ((True,) if H == BF16_GRID_WIDEST
+                          else (True, False)):
+                name = f"rnn_{'fused_' if fused else ''}fwd_grid_bf16_{cell}"
+                run = ((lambda: R._fused_states(cell, hin, wx, b, wh, mm, 1.0,
+                                                True)) if fused else
+                       (lambda: R._scan_states_any(cell, xw, wh, mm, 1.0,
+                                                   True)))
+                with torch.no_grad():
+                    _build.reset_launch_counts()
+                    out = run()
+                    counts = _build.launch_counts()
+                    if counts[name] != 1 or sum(counts.values()) != 1:
+                        fail(f"{name} at H {H}: launched {counts}")
+                    want = R.rnn_scan_states(cell, xw32 if fused else xw,
+                                             wh, mm, 1.0, True)
+                    err = 0.0
+                    for got, ref in zip(out, want):
+                        if ref is None:
+                            continue
+                        e, excess = worst_excess(got, ref, BF16_TOL,
+                                                 BF16_TOL)
+                        if (excess > 0 or got[0].float().any()
+                                or not torch.isfinite(got.float()).all()):
+                            fail(f"{name} at B {B}, T {T}, H {H}: max err "
+                                 f"{e}, all-invalid row zero: "
+                                 f"{not got[0].float().any()}")
+                        err = max(err, e)
+                    if not all(torch.equal(p, q) for p, q in zip(out, run())
+                               if p is not None):
+                        fail(f"{name} at H {H}: two calls differ")
+                log(f"{name} at B {B}, T {T}, H {H} (Hp "
+                    f"{R._padded_width(H)}): within {err:.3g} of the plain "
+                    f"version, bitwise repeatable")
+            del hin, wx, wh, b, mm, xw32, xw
+            torch.cuda.empty_cache()
 
 
 #: The grid recurrence's kernels by name (substrings of the profiler's
@@ -7443,6 +7825,48 @@ def served_scores_agree(name: str, cfg, panel, plain, responses) -> float:
     return worst
 
 
+def serve_wide(torch, name: str, cfg, panel, must, never,
+               totals: dict) -> None:
+    """``cfg`` served from one ``ScoringService`` universe:
+    :data:`WIDE_REQUESTS` requests from 4 threads, counted (``must``
+    launched, none of ``never``), every score held to the plain path on
+    the card; logs the dispatches' peak device memory above what was
+    allocated before the load."""
+    from lfm_quant_tpu_torch.serve import ScoringService
+    from lfm_quant_tpu_torch.serve.__main__ import drive_load
+    from lfm_quant_tpu_torch.train.loop import Predictor
+
+    with ScoringService(device="cuda", max_rows=8) as service:
+        t0 = time.perf_counter()
+        service.register(name, cfg, panel)
+        torch.cuda.synchronize()
+        reg_s = time.perf_counter() - t0
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        responses, counts = counted(
+            f"serving {name}", must,
+            lambda: drive_load(service, name, WIDE_REQUESTS, 4), never)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        st = service.stats()
+    if st["completed"] != WIDE_REQUESTS or st["dispatch_errors"]:
+        fail(f"serve {name}: {st}")
+    for k, n in counts.items():
+        totals[k] += n
+    worst = served_scores_agree(name, cfg, panel,
+                                Predictor(plain_variant(cfg), panel),
+                                responses)
+    log(f"serve {name}: registered and warmed in {reg_s:.1f} s; "
+        f"{WIDE_REQUESTS} requests in {wall:.3f} s, p50 "
+        f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms; dispatch peak "
+        f"{peak / 2**20:.1f} MB above the registered universe; every score "
+        f"within {worst:.4g} of the plain path (tol {BF16_TOL} + "
+        f"{BF16_TOL}|plain|)")
+    torch.cuda.empty_cache()
+
+
 def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                gen) -> None:
     """Phase 28: every hidden width the JAX kernels take, bf16 above 128
@@ -7462,28 +7886,28 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     held to the plain path on the card, and the same four in float32
     (the CUDA-core forwards, the 3xTF32 cluster backwards; no CUDA-core
     backward); (b) the LSTM served from one
-    ``ScoringService`` universe (:data:`WIDE_REQUESTS` requests from 4
-    threads, counted likewise, every score held to the plain path); (c)
+    ``ScoringService`` universe (:func:`serve_wide`; counted likewise,
+    every score held to the plain path), and at :data:`CORE_BF16_HIDDEN`
+    (the bf16 grid forward); (c)
     rows 1-4 at :data:`WIDE_WIDTHS` (B 2048, T 60, seeded weights at
     H^-1/2) against their plain versions, each timed, rows 4 and 2 in
-    float32 at :data:`F32_WIDE_WIDTHS` (:func:`f32_wide_rows`) and in bf16
-    at :data:`CORE_BF16_HIDDEN` and :data:`BF16_GRID_WIDEST` on the bf16
-    grid (:func:`core_bf16_rows`); (d) the
+    float32 at :data:`F32_WIDE_WIDTHS` (:func:`f32_wide_rows`), rows 1-4
+    in bf16 at :data:`CORE_BF16_HIDDEN` and rows 3 and 4 at
+    :data:`BF16_GRID_WIDEST` on the bf16 grids (:func:`core_bf16_rows`),
+    rows 3 and 1 at :data:`FWD_GRID_WIDTHS` (:func:`fwd_grid_widths`); (d)
+    the
     seed grids at hidden 256 (:func:`wide_seed_grid`) and, as the main
     paths of the hoisted forms' grids, 3-seed c2 ensembles with
     ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward and
     backward), float32 at hidden 128 (3xTF32), at :data:`GRID_F32_HIDDEN`
     (the CUDA-core forward, the 3xTF32 cluster backward) and at
     :data:`PAST_CAP_HIDDEN` (the CUDA-core forward, the grid backward),
-    and bf16 at :data:`CORE_BF16_HIDDEN` (the CUDA-core forward, the bf16
-    grid backward), for
+    and bf16 at :data:`CORE_BF16_HIDDEN` (the bf16 grid forward and
+    backward), for
     :data:`GRID_STEPS` steps each, counted into ``seed_launches``, held to
     the plain path. Single-seed launches go to ``totals``."""
     from lfm_quant_tpu_torch.ops import _build
-    from lfm_quant_tpu_torch.ops import rnn as R
-    from lfm_quant_tpu_torch.serve import ScoringService
-    from lfm_quant_tpu_torch.serve.__main__ import drive_load
-    from lfm_quant_tpu_torch.train.loop import Predictor, Trainer
+    from lfm_quant_tpu_torch.train.loop import Trainer
 
     # The H <= 128 tensor-core kernels and the CUDA-core kernels: the
     # hidden-256 runs launch none of them.
@@ -7549,36 +7973,17 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                 f"{[round(v, 6) for v in got]} agree with the plain path "
                 f"within {err:.4g}")
             torch.cuda.empty_cache()
-        if cell != "lstm":
-            continue
-        name = f"c2_h{WIDE_HIDDEN}"
-        panel = splits2.panel
-        with ScoringService(device="cuda", max_rows=8) as service:
-            t0 = time.perf_counter()
-            service.register(name, cfg, panel)
-            torch.cuda.synchronize()
-            reg_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            responses, counts = counted(
-                f"serving {name}", ("rnn_fused_fwd_cluster_lstm",
-                                    "window_gather"),
-                lambda: drive_load(service, name, WIDE_REQUESTS, 4),
-                not_wide)
-            wall = time.perf_counter() - t0
-            st = service.stats()
-        if st["completed"] != WIDE_REQUESTS or st["dispatch_errors"]:
-            fail(f"serve {name}: {st}")
-        for k, n in counts.items():
-            totals[k] += n
-        worst = served_scores_agree(name, cfg, panel,
-                                    Predictor(plain_variant(cfg), panel),
-                                    responses)
-        log(f"serve {name}: registered and warmed in {reg_s:.1f} s; "
-            f"{WIDE_REQUESTS} requests in {wall:.3f} s, p50 "
-            f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms; every score "
-            f"within {worst:.4g} of the plain path (tol {BF16_TOL} + "
-            f"{BF16_TOL}|plain|)")
-        torch.cuda.empty_cache()
+        if cell == "lstm":
+            serve_wide(torch, f"c2_h{WIDE_HIDDEN}", cfg, splits2.panel,
+                       ("rnn_fused_fwd_cluster_lstm", "window_gather"),
+                       not_wide, totals)
+    # The LSTM at hidden 528 served: the bf16 grid forward and its xw
+    # scratch in every dispatch; no other recurrence kernel.
+    serve_wide(torch, f"c2_h{CORE_BF16_HIDDEN}", train_variant(
+        cfg2, kwargs=dict(cfg2.model.kwargs, hidden=CORE_BF16_HIDDEN)),
+        splits2.panel, ("rnn_fused_fwd_grid_bf16_lstm", "window_gather"),
+        not_wide + tuple(k for k in _build.LAUNCHES if "_cluster_" in k
+                         or "_bwd" in k), totals)
 
     # Rows 1-4 at the wider widths, seeded weights.
     B, T = 2048, 60
@@ -7601,6 +8006,7 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
             torch.cuda.empty_cache()
     f32_wide_rows(torch, kernels, gen)
     core_bf16_rows(torch, kernels, gen)
+    fwd_grid_widths(torch, gen)
 
     # The hoisted forms' seed grids on a main path: 3-seed ensembles.
     for label, run_cfg, must in (
@@ -7629,7 +8035,8 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
              f"{CORE_BF16_HIDDEN})",
              train_variant(cfg2, scan_impl="pallas", kwargs=dict(
                  cfg2.model.kwargs, hidden=CORE_BF16_HIDDEN)),
-             ("rnn_fwd_lstm", "rnn_bwd_grid_bf16_lstm", "window_gather"))):
+             ("rnn_fwd_grid_bf16_lstm", "rnn_bwd_grid_bf16_lstm",
+              "window_gather"))):
         run_cfg = dataclasses.replace(run_cfg, n_seeds=GRID_SEEDS)
         got, counts = counted(label, must, lambda: ensemble_steps(
             torch, run_cfg, splits2, GRID_STEPS))

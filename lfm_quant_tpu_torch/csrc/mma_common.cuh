@@ -1,7 +1,8 @@
 // PTX helpers shared by the tensor-core recurrence kernels
-// (rnn_fused_fwd_mma.cu, rnn_fused_bwd_mma.cu): cp.async copies into
-// shared memory, ldmatrix fragment loads and the bf16 mma.sync m16n8k16
-// product with f32 accumulation (PTX ISA, warp-level matrix instructions).
+// (rnn_fused_fwd_mma.cu, rnn_fused_bwd_mma.cu and the cluster and grid
+// sources): cp.async copies into shared memory, ldmatrix fragment loads,
+// the bf16 mma.sync m16n8k16 product with f32 accumulation (PTX ISA,
+// warp-level matrix instructions), and the bf16 recurrences' x-side pairs.
 
 #pragma once
 
@@ -69,6 +70,37 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
       : "=r"(r[0]), "=r"(r[1])
       : "r"(a)
       : "memory");
+}
+
+// A pair of xw values of a thread's (row, gate, unit pair), as the bf16
+// recurrences read their x side: f32 from a fused form's scratch, bf16 from
+// a hoisted form's xw; and as two floats.
+template <typename XW>
+struct XwPair;
+template <>
+struct XwPair<float> {
+  using type = float2;
+  static __device__ __forceinline__ float2 zero() {
+    return make_float2(0.0f, 0.0f);
+  }
+};
+template <>
+struct XwPair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ __nv_bfloat162 zero() {
+    return __floats2bfloat162_rn(0.0f, 0.0f);
+  }
+};
+
+__device__ __forceinline__ float2 as_float2(float2 v) { return v; }
+__device__ __forceinline__ float2 as_float2(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+
+// Two floats rounded to nearest bf16, as the pair's bits.
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // d += a b: a the 16 x 16 A fragment (row), b the 16 x 8 B fragment (col).

@@ -148,30 +148,6 @@ inline size_t recur_smem_bytes(int G, int H, int C, int rows) {
          (size_t)kSplit * rows * LW * 2 + (size_t)C * rows * recv_ld(H, C) * 4;
 }
 
-__device__ __forceinline__ float2 as_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 as_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
-
-// A pair of xw values of the thread's (row, gate, unit pair): f32 for the
-// fused form's buffer, bf16 for the hoisted form's xw.
-template <typename XW>
-struct XwPair;
-template <>
-struct XwPair<float> {
-  using type = float2;
-  static __device__ __forceinline__ float2 zero() {
-    return make_float2(0.0f, 0.0f);
-  }
-};
-template <>
-struct XwPair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ __nv_bfloat162 zero() {
-    return __floats2bfloat162_rn(0.0f, 0.0f);
-  }
-};
-
 // Kernel 1, per seed (blockIdx.y), CTA rank j of a cluster of C along x,
 // blockDim.x = 32 NW. xw [B, T, G H]: the gates' x side with the bias
 // (fused: the f32 d_gates buffer itself, overwritten in place with d_xw;

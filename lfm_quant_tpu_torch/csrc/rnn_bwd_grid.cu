@@ -29,8 +29,10 @@
 // spread over every SM.
 //
 // * Kernel 0 (fused form): xw = hin @ W_x + b into the f32 d_gates buffer
-//   dgx [S, B, T, G Hp], the bf16 GEMM of csrc/cluster_gemm.cuh (past 512
-//   the forward, csrc/rnn_fused_fwd.cu, keeps no scratch to hand over).
+//   dgx [S, B, T, G Hp], the bf16 GEMM of csrc/cluster_gemm.cuh; skipped
+//   (fused = 2) where the caller hands over the grid forward's xw scratch
+//   (csrc/rnn_fwd_grid.cu's kernel 0 is the same call, so the bits are
+//   the same), which then is dgx.
 // * Kernel 1, the gates: the same GEMM in its gates mode, h_all read one
 //   step back (zero at t = 0) times W_h, f32 accumulation, added to the x
 //   side (xw + hw, the plain order) into dgx; the GRU's h side of n goes
@@ -411,11 +413,13 @@ cudaError_t grid_capacity(int* ctas, int H, int n, int rows) {
                             grid_smem_bytes(CELL == kLstm ? 4 : 3, H, n, rows));
 }
 
-// fused: the xw GEMM, the gates, the recurrence, the weight gradients,
-// their slices' sum, dhin; hoisted: the gates (x side from the bf16 xw),
-// the recurrence, the weight gradients and their sum.
+// fused: the xw GEMM (not where xw_given: dgx holds xw), the gates, the
+// recurrence, the weight gradients, their slices' sum, dhin; hoisted: the
+// gates (x side from the bf16 xw), the recurrence, the weight gradients
+// and their sum. *kernels (null: not counted) adds one a kernel launched.
 template <int CELL, bool HOIST>
-cudaError_t launch(const __nv_bfloat16* xin, const void* wx, const void* b,
+cudaError_t launch(bool xw_given, int* kernels,
+                   const __nv_bfloat16* xin, const void* wx, const void* b,
                    const __nv_bfloat16* wh, const uint8_t* m,
                    const __nv_bfloat16* h_all, const __nv_bfloat16* c_all,
                    const __nv_bfloat16* dh, void* dx, float* dgx, float* dhn,
@@ -435,17 +439,26 @@ cudaError_t launch(const __nv_bfloat16* xin, const void* wx, const void* b,
   // A grid the card cannot hold at once is refused before any launch.
   cudaError_t err = lfm_grid::check_fits(kern, groups, n, threads, smem);
   if (err != cudaSuccess) return err;
-  if (!HOIST) {
-    err = lfm_cluster::launch_gemm(xin, wx, b, dgx, M, GH, H, seeds, s_xin,
-                                   s_wx, s_b, s_gates, stream);
+  int launched = 0;
+  auto counted = [&](cudaError_t e, int n_kernels) {
+    if (e == cudaSuccess) launched += n_kernels;
+    if (kernels != nullptr) *kernels = launched;
+    return e;
+  };
+  if (!HOIST && !xw_given) {
+    err = counted(lfm_cluster::launch_gemm(xin, wx, b, dgx, M, GH, H, seeds,
+                                           s_xin, s_wx, s_b, s_gates,
+                                           stream),
+                  1);
     if (err != cudaSuccess) return err;
   }
   const lfm_cluster::GatesArgs ga{HOIST ? xin : nullptr, dhn, Tn,
                                   CELL == kLstm ? GH : 2 * H,
                                   HOIST ? s_xin : 0, s_seq};
-  err = lfm_cluster::launch_gemm<true>(h_all, wh, nullptr, dgx, M, GH, H,
-                                       seeds, s_seq, s_wh, 0, s_gates, stream,
-                                       ga);
+  err = counted(lfm_cluster::launch_gemm<true>(h_all, wh, nullptr, dgx, M,
+                                               GH, H, seeds, s_seq, s_wh, 0,
+                                               s_gates, stream, ga),
+                1);
   if (err != cudaSuccess) return err;
 
   __nv_bfloat16* dxw = HOIST ? static_cast<__nv_bfloat16*>(dx) : nullptr;
@@ -455,15 +468,19 @@ cudaError_t launch(const __nv_bfloat16* xin, const void* wx, const void* b,
                   (void*)&xch,   (void*)&sync, (void*)&stats, (void*)&seeds,
                   (void*)&B,     (void*)&Tn,   (void*)&H,     (void*)&n,
                   (void*)&rows,  (void*)&s_wh, (void*)&s_m,   (void*)&fb};
-  err = lfm_grid::launch(kern, groups, n, threads, smem, args, stream);
+  err = counted(lfm_grid::launch(kern, groups, n, threads, smem, args,
+                                 stream),
+                1);
   if (err != cudaSuccess) return err;
 
-  err = lfm_bf16::launch_wgrad<CELL, HOIST>(HOIST ? nullptr : xin, h_all,
-                                            dgx, HOIST ? nullptr : dhn,
-                                            partial, S, dw, seeds, B, Tn, H,
-                                            s_xin, stream);
+  // The weight gradients and their slices' sum.
+  err = counted(lfm_bf16::launch_wgrad<CELL, HOIST>(
+                    HOIST ? nullptr : xin, h_all, dgx, HOIST ? nullptr : dhn,
+                    partial, S, dw, seeds, B, Tn, H, s_xin, stream),
+                2);
   if (err != cudaSuccess || HOIST) return err;
-  return lfm_bf16::launch_dhin(dgx, wx, dx, seeds, M, H, GH, s_wx, stream);
+  return counted(
+      lfm_bf16::launch_dhin(dgx, wx, dx, seeds, M, H, GH, s_wx, stream), 1);
 }
 
 }  // namespace
@@ -491,18 +508,20 @@ extern "C" int lfm_rnn_bwd_grid_bf16_ctas(int cell, int H, int n, int rows) {
 // The bfloat16 backward past a cluster's widths, for `seeds` seeds in one
 // call. fused = 1: xin is hin [B, T, H], and wx [H, G H], b [G H] are used;
 // out dx = dhin [seeds, B, T, H] bf16 and dw [seeds, 2 H G H + G H] f32
-// (dW_x, db, dW_h). fused = 0: xin is xw [B, T, G H] (wx, b unused); out
-// dx = dxw [seeds, B, T, G H] bf16 and dw [seeds, H G H] f32 (dW_h). Per
-// seed: wh [H, G H]; m uint8 [B, T]; h_all, c_all (LSTM; the GRU passes
-// null), dh [seeds, B, T, H]; all bf16 but m. s_*: the seed strides of
-// xin, wx, b, wh and m in their elements (0: shared). Scratch the caller
-// allocates: dgx [seeds, B, T, G H] f32, dhn [seeds, B, T, H] f32 (GRU),
-// xch [groups, 2, 2, rows, G H] bf16, partial [seeds, S, total] f32, sync
-// [groups] uint32 zeroed; stats (null, or [groups n][2] int64: each CTA's
-// cycles at the barriers and in all). n: CTAs a group, rows: batch rows a
-// work item, groups: the groups launched (at most what the card holds:
-// lfm_rnn_bwd_grid_bf16_ctas / n). Returns the first CUDA error of its
-// launches.
+// (dW_x, db, dW_h). fused = 2: the same, with dgx holding xw = hin @ W_x +
+// b on entry (the grid forward's scratch; the xw GEMM is skipped). fused =
+// 0: xin is xw [B, T, G H] (wx, b unused); out dx = dxw [seeds, B, T, G H]
+// bf16 and dw [seeds, H G H] f32 (dW_h). Per seed: wh [H, G H]; m uint8
+// [B, T]; h_all, c_all (LSTM; the GRU passes null), dh [seeds, B, T, H];
+// all bf16 but m. s_*: the seed strides of xin, wx, b, wh and m in their
+// elements (0: shared). Scratch the caller allocates: dgx [seeds, B, T, G
+// H] f32, dhn [seeds, B, T, H] f32 (GRU), xch [groups, 2, 2, rows, G H]
+// bf16, partial [seeds, S, total] f32, sync [groups] uint32 zeroed; stats
+// (null, or [groups n][2] int64: each CTA's cycles at the barriers and in
+// all). n: CTAs a group, rows: batch rows a work item, groups: the groups
+// launched (at most what the card holds: lfm_rnn_bwd_grid_bf16_ctas / n).
+// kernels (null, or one host int): the kernels launched. Returns the first
+// CUDA error of its launches.
 extern "C" int lfm_rnn_bwd_grid_bf16(
     int cell, int fused, const void* xin, const void* wx, const void* b,
     const void* wh, const void* m, const void* h_all, const void* c_all,
@@ -510,14 +529,17 @@ extern "C" int lfm_rnn_bwd_grid_bf16(
     int S, void* dw, void* sync, void* stats, int seeds, int B, int Tn, int H,
     int n, int rows, int groups, long long s_xin, long long s_wx,
     long long s_b, long long s_wh, long long s_m, float forget_bias,
-    void* stream) {
+    void* kernels, void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (seeds <= 0 || seeds > 65535 || B <= 0 || Tn <= 0 || S <= 0 ||
-      S > 65535 || groups <= 0 || !supported(H, n, rows))
+      S > 65535 || groups <= 0 || fused < 0 || fused > 2 ||
+      !supported(H, n, rows))
     return (int)cudaErrorInvalidValue;
+  int* nk = static_cast<int*>(kernels);
+  if (nk != nullptr) *nk = 0;
 #define LFM_GRID(CELLV, HOISTV)                                             \
   return (int)launch<CELLV, HOISTV>(                                        \
-      static_cast<const __nv_bfloat16*>(xin), wx, b,                        \
+      fused == 2, nk, static_cast<const __nv_bfloat16*>(xin), wx, b,        \
       static_cast<const __nv_bfloat16*>(wh), static_cast<const uint8_t*>(m), \
       static_cast<const __nv_bfloat16*>(h_all),                             \
       static_cast<const __nv_bfloat16*>(c_all),                             \

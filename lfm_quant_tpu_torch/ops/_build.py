@@ -55,6 +55,8 @@ LAUNCHES.update(rnn_fused_fwd_mma_lstm=0, rnn_fused_fwd_mma_gru=0,
                 rnn_bwd_grid_lstm=0, rnn_bwd_grid_gru=0,
                 rnn_fused_bwd_grid_bf16_lstm=0, rnn_fused_bwd_grid_bf16_gru=0,
                 rnn_bwd_grid_bf16_lstm=0, rnn_bwd_grid_bf16_gru=0,
+                rnn_fused_fwd_grid_bf16_lstm=0, rnn_fused_fwd_grid_bf16_gru=0,
+                rnn_fwd_grid_bf16_lstm=0, rnn_fwd_grid_bf16_gru=0,
                 window_gather=0)
 
 _count_lock = threading.Lock()
@@ -191,8 +193,11 @@ def library() -> ctypes.CDLL:
                 + [vp] * 3 + [ci] * 7 + [cll] * 5 + [cf, vp],
                 "lfm_rnn_bwd_grid_ctas": [ci] * 4,
                 "lfm_rnn_bwd_grid_bf16": [ci, ci] + [vp] * 13 + [ci]
-                + [vp] * 3 + [ci] * 7 + [cll] * 5 + [cf, vp],
+                + [vp] * 3 + [ci] * 7 + [cll] * 5 + [cf, vp, vp],
                 "lfm_rnn_bwd_grid_bf16_ctas": [ci] * 4,
+                "lfm_rnn_fwd_grid": [ci, ci] + [vp] * 10 + [ci] * 7
+                + [cll] * 5 + [cf, vp, vp],
+                "lfm_rnn_fwd_grid_ctas": [ci] * 5,
             }
             for name, args in signatures.items():
                 getattr(lib, name).argtypes = args
@@ -206,7 +211,8 @@ def library() -> ctypes.CDLL:
                     "lfm_rnn_fwd_cluster_smem": 4,
                     "lfm_rnn_bwd_cluster_smem": 4,
                     "lfm_rnn_bwd_grid_smem": 4,
-                    "lfm_rnn_bwd_grid_bf16_smem": 4}
+                    "lfm_rnn_bwd_grid_bf16_smem": 4,
+                    "lfm_rnn_fwd_grid_smem": 4}
             for name, n in smem.items():
                 getattr(lib, name).argtypes = [ci] * n
                 getattr(lib, name).restype = cll

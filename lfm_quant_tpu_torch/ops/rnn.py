@@ -3,7 +3,8 @@
 ``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd.cu``,
 ``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``,
 ``csrc/rnn_bwd_tf32_grid.cu``, ``csrc/rnn_bwd_cluster.cu``,
-``csrc/rnn_bwd_grid.cu``) and their plain versions.
+``csrc/rnn_bwd_grid.cu``, ``csrc/rnn_fwd_grid.cu``) and their plain
+versions.
 
 One rule, :func:`_mma_route`, picks the kernels of both forwards and both
 backwards from the direction, the dtype and H alone: at every H <= 128
@@ -24,9 +25,12 @@ product as the bf16 one does) and past it, up to Hp 1024, on the whole
 card (``rnn_bwd_tf32_grid.cu``: the gates recomputed by one GEMM, the
 carry's product over a cooperative grid that holds W_h), and so do the
 bf16 backwards past 512, up to Hp 1520, with W_h held in bf16
-(``rnn_bwd_grid.cu``); the float32 forwards above 128, the bf16 forwards
-past 512, the float32 backwards past 1024 and the bf16 backwards past
-1520 run on the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
+(``rnn_bwd_grid.cu``), and the bf16 forwards there (``rnn_fwd_grid.cu``:
+the fused form's xw by the same GEMM into an f32 scratch that the grid
+backward takes, the recurrence on a cooperative grid holding W_h's
+columns); the float32 forwards above 128, the bf16 forwards past 1520,
+the float32 backwards past 1024 and the bf16 backwards past 1520 run on
+the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -68,6 +72,7 @@ memory holds, and raise only where one row does not fit.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -199,34 +204,38 @@ def _scan_bwd_core(cell: str, xw: torch.Tensor, wh: torch.Tensor,
                    forget_bias: float):
     """The TPU backward kernels' reverse-time formulas in plain torch.
 
-    ``xw [B, T, G*H]`` f32 x-side gate inputs; ``h_all``/``c_all`` the
-    saved states. Returns ``(d_xw, d_hw, h_prev)``: the gate gradients of
-    the x side and the h side ``[B, T, G*H]`` f32 (equal for the LSTM; the
-    GRU's n slices differ) and ``h_prev [B, T, H]`` f32 (zero at t = 0).
+    ``xw [B, T, G*H]`` f32 x-side gate inputs (float64: every sum and
+    product in float64, :func:`rnn_scan_states`' rule; see
+    :func:`_bwd_acc`); ``h_all``/``c_all`` the saved states. Returns
+    ``(d_xw, d_hw, h_prev)``: the gate gradients of the x side and the h
+    side ``[B, T, G*H]`` f32, float64 for float64 ``xw`` (equal for the
+    LSTM; the GRU's n slices differ) and ``h_prev [B, T, H]`` alike (zero
+    at t = 0).
     """
     B, T, G = xw.shape
     H = G // _GATES[cell]
-    whf = wh.float()
-    keep_all = m.to(torch.float32)
-    zero = torch.zeros((B, 1, H), dtype=torch.float32, device=xw.device)
-    h_prev = torch.cat([zero, h_all[:, :-1].float()], dim=1)
+    acc = _bwd_acc(xw)
+    whf = wh.to(acc)
+    keep_all = m.to(acc)
+    zero = torch.zeros((B, 1, H), dtype=acc, device=xw.device)
+    h_prev = torch.cat([zero, h_all[:, :-1].to(acc)], dim=1)
     # The recomputed h-side products; h_{t-1} rounded to W_h's type first.
-    hw_all = h_prev.to(wh.dtype).float() @ whf
-    d_xw = torch.empty((B, T, G), dtype=torch.float32, device=xw.device)
+    hw_all = h_prev.to(wh.dtype).to(acc) @ whf
+    d_xw = torch.empty((B, T, G), dtype=acc, device=xw.device)
     d_hw = d_xw if cell == "lstm" else torch.empty_like(d_xw)
-    dh_c = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
+    dh_c = torch.zeros((B, H), dtype=acc, device=xw.device)
     dc_c = torch.zeros_like(dh_c)
     for t in reversed(range(T)):
         keep = keep_all[:, t, None]
-        dh_t = dh[:, t].float() + dh_c
+        dh_t = dh[:, t].to(acc) + dh_c
         dh_new = keep * dh_t
         if cell == "lstm":
             i, f, g, o = _lstm_gates(xw[:, t] + hw_all[:, t], forget_bias)
-            c_prev = (c_all[:, t - 1].float() if t > 0
+            c_prev = (c_all[:, t - 1].to(acc) if t > 0
                       else torch.zeros_like(dh_c))
             # The masked c_t stands in for c_new: every term that uses it
             # carries the mask.
-            tc = torch.tanh(c_all[:, t].float())
+            tc = torch.tanh(c_all[:, t].to(acc))
             dc_t = dc_c
             dc_new = keep * dc_t
             do = dh_new * tc
@@ -255,6 +264,15 @@ def _scan_bwd_core(cell: str, xw: torch.Tensor, wh: torch.Tensor,
     return d_xw, d_hw, h_prev
 
 
+def _bwd_acc(*operands) -> torch.dtype:
+    """The plain backwards' working type: float64 where the operands are
+    float64 (every sum and product in float64, the value every float32
+    computation of the formulas approximates, as :func:`rnn_scan_states`
+    gives the forward), else float32 (bf16 and float32 operands)."""
+    return (torch.float64 if any(t.dtype == torch.float64 for t in operands)
+            else torch.float32)
+
+
 def _contract(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """``sum_{b,t} a[b,t]^T d[b,t]`` → ``[a.shape[-1], d.shape[-1]]``."""
     return a.reshape(-1, a.shape[-1]).T @ d.reshape(-1, d.shape[-1])
@@ -265,9 +283,9 @@ def rnn_scan_bwd_reference(cell: str, xw: torch.Tensor, wh: torch.Tensor,
                            c_all: Optional[torch.Tensor], dh: torch.Tensor,
                            forget_bias: float = 1.0):
     """Plain version of :func:`rnn_scan_bwd`: ``(dxw in xw.dtype,
-    dW_h f32)``."""
-    d_xw, d_hw, h_prev = _scan_bwd_core(cell, xw.float(), wh, m, h_all,
-                                        c_all, dh, forget_bias)
+    dW_h f32)``; float64 operands give float64 sums and outputs."""
+    d_xw, d_hw, h_prev = _scan_bwd_core(cell, xw.to(_bwd_acc(xw, wh)), wh,
+                                        m, h_all, c_all, dh, forget_bias)
     return d_xw.to(xw.dtype), _contract(h_prev, d_hw)
 
 
@@ -278,18 +296,19 @@ def rnn_scan_fused_bwd_reference(cell: str, hin: torch.Tensor,
                                  c_all: Optional[torch.Tensor],
                                  dh: torch.Tensor, forget_bias: float = 1.0):
     """Plain version of :func:`rnn_scan_fused_bwd`: ``(dhin in hin.dtype,
-    dW_x, db, dW_h f32)``; seed-stacked operands give each per seed, one
-    seed at a time."""
+    dW_x, db, dW_h f32)``; float64 operands give float64 sums and outputs;
+    seed-stacked operands give each per seed, one seed at a time."""
     if hin.dim() == 4:
         S = _check_stacked(cell, hin, wx, b, wh, m, h_all, c_all, dh)
         return _over_seeds(
             lambda *a: rnn_scan_fused_bwd_reference(cell, *a, forget_bias),
             S, hin, wx, b, wh, m, h_all, c_all, dh)
-    xw = hin.float() @ wx.float() + b.float()
+    acc = _bwd_acc(hin, wx, b, wh)
+    xw = hin.to(acc) @ wx.to(acc) + b.to(acc)
     d_xw, d_hw, h_prev = _scan_bwd_core(cell, xw, wh, m, h_all, c_all, dh,
                                         forget_bias)
-    dhin = (d_xw @ wx.float().T).to(hin.dtype)
-    return (dhin, _contract(hin.float(), d_xw), d_xw.sum(dim=(0, 1)),
+    dhin = (d_xw @ wx.to(acc).T).to(hin.dtype)
+    return (dhin, _contract(hin.to(acc), d_xw), d_xw.sum(dim=(0, 1)),
             _contract(h_prev, d_hw))
 
 
@@ -573,12 +592,13 @@ TF32_MAX_WIDTH = 384
 #: ``csrc/rnn_bwd_tf32_grid.cu``): the LSTM's W_h rows of one 8-unit chunk
 #: take 131 KB at Hp 1024, so a group there is 128 CTAs (of an H100's 132).
 GRID_MAX_WIDTH = 1024
-#: The widest padded width the bfloat16 backward past the cluster's takes,
-#: W_h held in bf16 by a group of co-resident CTAs (``kMaxWidth`` in
-#: ``csrc/rnn_bwd_grid.cu``): the LSTM's W_h rows of two 8-unit chunks
-#: beside the two 64-row stages fill an H100's 232,448 bytes at Hp 1520 (a
-#: group of 95 CTAs); past it a CTA would hold three chunks, and W = Hp / 8
-#: exceeds two chunks on each of 132 CTAs.
+#: The widest padded width the bfloat16 backward and forward past the
+#: cluster's take, W_h held in bf16 by a group of co-resident CTAs
+#: (``kMaxWidth`` in ``csrc/rnn_bwd_grid.cu`` and ``csrc/rnn_fwd_grid.cu``):
+#: the LSTM's W_h rows (columns) of two 8-unit chunks beside the stages fill
+#: an H100's 232,448 bytes at Hp 1520 (a group of 95 CTAs); past it a CTA
+#: would hold three chunks, and W = Hp / 8 exceeds two chunks on each of
+#: 132 CTAs.
 BF16_GRID_MAX_WIDTH = 1520
 
 
@@ -607,8 +627,12 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     bwd       bfloat16 512 < Hp <= 1520 ``rnn_bwd_grid.cu``, W_h in bf16 on
                                         a group of co-resident CTAs
                                         (``"grid"``)
+    fwd       bfloat16 512 < Hp <= 1520 ``rnn_fwd_grid.cu``, fused and
+                                        hoisted forms, W_h's columns in
+                                        bf16 on a group of co-resident
+                                        CTAs (``"grid"``)
     fwd       float32  H > 128          ``rnn_fused_fwd.cu`` (``"simt"``)
-    fwd       bfloat16 Hp > 512         ``rnn_fused_fwd.cu`` (``"simt"``)
+    fwd       bfloat16 Hp > 1520        ``rnn_fused_fwd.cu`` (``"simt"``)
     bwd       float32  Hp > 1024        ``rnn_bwd.cu`` (``"simt"``)
     bwd       bfloat16 Hp > 1520        ``rnn_bwd.cu`` (``"simt"``)
     ========= ======== ================ ================================
@@ -626,18 +650,20 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     and spreads the carry's product over a group of up to 132 co-resident
     CTAs holding W_h (:func:`_grid_size`, :func:`_grid_rows`) up to
     :data:`GRID_MAX_WIDTH`, and the bf16 backward past 512 does the same
-    with W_h in bf16 up to :data:`BF16_GRID_MAX_WIDTH`. The CUDA-core
-    kernels are the route of the float32 forward above 128, the bf16
-    forward past 512, the float32 backward past 1024 and the bf16 backward
-    past 1520, not a fallback: a cluster or grid launch the card refuses
-    raises. bf16 runs on the
+    with W_h in bf16 up to :data:`BF16_GRID_MAX_WIDTH`, as does the bf16
+    forward there (each CTA of a group holding its units' columns of W_h:
+    :func:`_fwd_grid_size`, :func:`_fwd_grid_rows`), so a width has one
+    route both ways. The CUDA-core kernels are the route of the float32
+    forward above 128, the bf16 forward past 1520, the float32 backward
+    past 1024 and the bf16 backward past 1520, not a fallback: a cluster or
+    grid launch the card refuses raises. bf16 runs on the
     bf16 tensor cores; float32 must hold
     the JAX f32 bound, so it splits every f32 operand of the recurrence
     into two TF32 terms (3xTF32), and the fused forward forms xw on the
     CUDA cores (unbiased f32 sums). The fused bf16 backward at H <= 128
     reuses the forward's packing of W_x; the fused float32 backward and
-    the fused bf16 backward above 128 reuse the forward's f32 xw scratch
-    as their d_gates buffer."""
+    the fused bf16 backward above 128 (cluster and grid) reuse the
+    forward's f32 xw scratch as their d_gates buffer."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction}")
     Hp = _padded_width(H)
@@ -649,8 +675,7 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
                 return "tf32"
             if Hp <= GRID_MAX_WIDTH:
                 return "grid"
-        if (dtype == torch.bfloat16 and direction == "bwd"
-                and Hp <= BF16_GRID_MAX_WIDTH):
+        if dtype == torch.bfloat16 and Hp <= BF16_GRID_MAX_WIDTH:
             return "grid"
         return "simt"
     if dtype == torch.bfloat16:
@@ -1535,22 +1560,23 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     """One call of the backward on the grid, in ``xin``'s dtype: float32
     past Hp 384 (``csrc/rnn_bwd_tf32_grid.cu``, 3xTF32; fused: six kernel
     launches, or five given ``xw``; hoisted: four), bfloat16 past Hp 512
-    (``csrc/rnn_bwd_grid.cu``; fused: six, hoisted: four); counted once →
+    (``csrc/rnn_bwd_grid.cu``; the same counts); counted once →
     fused: ``(dhin, dW_x, db, dW_h)``; hoisted (``xin`` is xw, ``wx`` and
     ``b`` None): ``(dxw, dW_h)``; the weight gradients in f32, dhin and dxw
     in the dtype. Seed-stacked operands (``xin`` 4-D, each operand of seed
     extent S or 1) run every seed in the same call and give each output
-    per seed; the states are per seed. Fused float32, ``xw`` is the
-    forward's xw scratch at this width: the kernel skips its own xw GEMM
-    and overwrites it with d_xw (bf16 past 512 has no such scratch: its
-    forward keeps none). The group size and rows come from
+    per seed; the states are per seed. Fused, ``xw`` is the forward's f32
+    xw scratch at this width (the 3xTF32 forward's in float32, the grid
+    forward's in bf16): the kernels skip their own xw GEMM and overwrite it
+    with d_xw. The group size and rows come from
     :func:`_grid_size` and :func:`_grid_rows` (``group``, ``rows`` override
     them), the groups from the CTAs the card holds at once
     (:func:`_grid_check`; ``groups`` overrides it: more than the card
     holds is refused, never run another way). A ``stats`` dict gets the
     launch's shape and ``"cycles"``, ``[CTAs, 2]`` int64 on the card: each
     CTA's SM cycles waiting at the group's barriers and in all (read after
-    a synchronize)."""
+    a synchronize); in bf16 also ``"kernels"``, the kernels the call
+    launched, as the source counts them."""
     stacked = xin.dim() == 4
     if not stacked:
         xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
@@ -1564,9 +1590,6 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     dev = xin.device
     dtype = xin.dtype
     bf = dtype == torch.bfloat16
-    if bf and xw is not None:
-        raise ValueError("the bfloat16 backward on the grid takes no xw "
-                         "scratch: its forward keeps none")
     f32 = torch.float32
     lib = _build.library()
     props = torch.cuda.get_device_properties(dev)
@@ -1610,22 +1633,27 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     strides = (_stride(xin, S), 0 if wx is None else _stride(wx, S),
                0 if b is None else _stride(b, S), _stride(wh, S),
                _stride(keep, S))
+    # 0 hoisted, 1 fused, 2 fused on the forward's xw (its GEMM skipped).
+    mode = 0 if not fused else 1 if xw is None else 2
     with torch.cuda.device(dev):
         if bf:
             # The exchange: per group, two buffers of d_hw's hi and lo.
             xch = torch.empty((max(groups, 1), 2, 2, rows, G), dtype=dtype,
                               device=dev)
+            kernels = ctypes.c_int(0)
             err = lib.lfm_rnn_bwd_grid_bf16(
-                _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx),
+                _CELL_CODE[cell], mode, xin.data_ptr(), ptr(wx),
                 ptr(b), wh.data_ptr(), keep.data_ptr(), h_all.data_ptr(),
                 ptr(c_all), dh.data_ptr(), dx.data_ptr(), dgx.data_ptr(),
                 ptr(dhn), xch.data_ptr(), partial.data_ptr(), slices,
                 dw.data_ptr(), sync.data_ptr(), ptr(cycles), S, B, T, H, n,
                 rows, groups, *strides, float(forget_bias),
-                _build.stream_of(xin))
+                ctypes.byref(kernels), _build.stream_of(xin))
+            if stats is not None:
+                stats["kernels"] = kernels.value
         else:
             err = lib.lfm_rnn_bwd_tf32_grid(
-                _CELL_CODE[cell], 0 if not fused else 1 if xw is None else 2,
+                _CELL_CODE[cell], mode,
                 xin.data_ptr(), ptr(wx), ptr(b), wh.data_ptr(),
                 keep.data_ptr(), h_all.data_ptr(), ptr(c_all),
                 dh.data_ptr(), ptr(dx), dgx.data_ptr(), ptr(dhn),
@@ -1644,6 +1672,171 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     else:
         out = (dx if bf else dgx, dw.view(S, H, G))
     return out if stacked else tuple(t[0] for t in out)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 forward past hidden 512 (csrc/rnn_fwd_grid.cu)
+# ---------------------------------------------------------------------------
+
+
+def _fwd_grid_smem(cell: str, Hp: int, n: int, rows: int) -> int:
+    """Shared memory (bytes) of a CTA of the grid forward's recurrence, as
+    ``fwd_grid_smem_bytes`` counts it in ``csrc/rnn_fwd_grid.cu``: the W_h
+    columns of its units across the G gates, one row of Hp k-values each
+    ([G 8 NC][Hp + 8], NC = :func:`_grid_chunks`), and
+    :data:`GRID_STAGES` stages of the h tile [rows][:data:`GRID_STAGE_K` +
+    8], bf16."""
+    NC = _grid_chunks(Hp, n)
+    return 2 * (_GATES[cell] * MMA_UNITS * NC * (Hp + 8)
+                + GRID_STAGES * rows * (GRID_STAGE_K + 8))
+
+
+def _fwd_grid_size(cell: str, Hp: int, limit: int, sms: int) -> int:
+    """CTAs a group of the grid forward: the fewest, at most ``sms``, whose
+    columns of W_h fit beside the 64-row stages in ``limit`` bytes of
+    shared memory a CTA within the thread limit (the backward's rule,
+    :func:`_grid_size`, on the forward's count). Raises, naming the width,
+    where none does. On an H100: the LSTM and the GRU 17 at 528 and 544 (4
+    chunks, the thread limit), 20 at 640, the LSTM 43 at 1024 (3 chunks)
+    and the GRU 32, both 95 at 1520 (2 chunks)."""
+    for n in range(1, min(Hp // MMA_UNITS, sms) + 1):
+        if (_grid_takes(Hp, n, 64, torch.bfloat16)
+                and _fwd_grid_smem(cell, Hp, n, 64) <= limit):
+            return n
+    raise ValueError(
+        f"the bfloat16 {cell} forward on the grid does not take "
+        f"hidden={Hp}: no group of at most {sms} CTAs holds its W_h within "
+        f"{limit} bytes of shared memory a CTA, or the width is outside "
+        f"128 < Hp <= {BF16_GRID_MAX_WIDTH}")
+
+
+def _fwd_grid_rows(cell: str, Hp: int, n: int, B: int, S: int, limit: int,
+                   sms: int) -> int:
+    """Batch rows per work item of the grid forward: 128 where the kernel
+    takes them at this group size, they fit ``limit`` and the S ceil(B /
+    128) items still occupy every group the card holds, else 64 (the
+    backward's rule, :func:`_grid_rows`); a row's sums do not depend on
+    the count."""
+    if (_grid_takes(Hp, n, 128, torch.bfloat16)
+            and _fwd_grid_smem(cell, Hp, n, 128) <= limit
+            and S * -(-B // 128) >= sms // n):
+        return 128
+    return 64
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_grid_check(cell: str, fused: bool, H: int, n: int, rows: int,
+                    device: torch.device) -> int:
+    """Once per shape, form and card: ``csrc/rnn_fwd_grid.cu`` takes it and
+    counts the shared memory :func:`_fwd_grid_smem` counts, it fits the
+    card, and the card holds a whole group at once → the CTAs it holds at
+    once. Raises, naming the width and the group, where not."""
+    lib = _build.library()
+    code = _CELL_CODE[cell]
+    smem = lib.lfm_rnn_fwd_grid_smem(code, H, n, rows)
+    if smem < 0:
+        raise ValueError(f"the bfloat16 forward on the grid does not take "
+                         f"hidden={H} with a group of {n} CTAs and {rows} "
+                         f"rows")
+    if smem != _fwd_grid_smem(cell, H, n, rows):
+        raise RuntimeError(
+            f"csrc/rnn_fwd_grid.cu counts {smem} bytes of shared memory, "
+            f"ops/rnn.py {_fwd_grid_smem(cell, H, n, rows)}")
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"hidden={H} on a group of {n} CTAs needs {smem} "
+                         f"bytes of shared memory per CTA, more than the "
+                         f"card's {limit}")
+    with torch.cuda.device(device):
+        ctas = lib.lfm_rnn_fwd_grid_ctas(code, int(fused), H, n, rows)
+    if ctas < n:
+        raise RuntimeError(
+            f"the card holds {ctas} CTAs of the bfloat16 {cell} forward at "
+            f"hidden={H} ({rows} rows, {smem} bytes of shared memory a CTA) "
+            f"at once, fewer than a group of {n}")
+    return ctas
+
+
+def _launch_fwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
+                     wh: torch.Tensor, m: torch.Tensor, forget_bias: float,
+                     save_c: bool, keep_xw: bool = False,
+                     group: Optional[int] = None, rows: Optional[int] = None,
+                     groups: Optional[int] = None,
+                     stats: Optional[dict] = None):
+    """One call of the bfloat16 forward past hidden 512
+    (``csrc/rnn_fwd_grid.cu``; fused: the xw GEMM and the grid recurrence,
+    hoisted: the recurrence; counted once) → ``(h_all, c_all or None)``,
+    and fused with ``keep_xw`` also the f32 xw scratch ``[S, B, T, G H]``,
+    which the grid backward takes as its d_gates buffer (None hoisted).
+    Fused, ``xin`` is hin and ``wx``, ``b`` are used; hoisted, ``xin`` is
+    xw (``wx``, ``b`` None). Seed-stacked operands (``xin`` 4-D, each of
+    seed extent S or 1) run every seed in the same call → ``[S, B, T,
+    H]``. The group size and rows come from :func:`_fwd_grid_size` and
+    :func:`_fwd_grid_rows` (``group``, ``rows`` override them), the groups
+    from the CTAs the card holds at once (:func:`_fwd_grid_check`;
+    ``groups`` overrides it: more than the card holds is refused before
+    any launch, never run another way). A ``stats`` dict gets the launch's
+    shape, ``"kernels"`` (the kernels the call launched, as the source
+    counts them) and ``"cycles"``, ``[CTAs, 2]`` int64 on the card: each
+    CTA's SM cycles waiting at the group's barriers and in all (read after
+    a synchronize)."""
+    if xin.dtype != torch.bfloat16:
+        raise ValueError(f"the forward on the grid takes bfloat16, got "
+                         f"{xin.dtype}")
+    stacked = xin.dim() == 4
+    if not stacked:
+        xin, wh, m = xin[None], wh[None], m[None]
+        if fused:
+            wx, b = wx[None], b[None]
+    S = _seed_extent(xin, wx, b, wh, m)
+    B, T = m.shape[-2:]
+    H = wh.shape[-2]
+    dev = xin.device
+    props = torch.cuda.get_device_properties(dev)
+    limit, sms = (props.shared_memory_per_block_optin,
+                  props.multi_processor_count)
+    n = group or _fwd_grid_size(cell, H, limit, sms)
+    if rows is None:
+        rows = _fwd_grid_rows(cell, H, n, B, S, limit, sms)
+    ctas = _fwd_grid_check(cell, fused, H, n, rows, dev)
+    if groups is None:
+        groups = min(ctas // n, S * -(-B // rows))
+    lib = _build.library()
+    xin, wh = _aligned16(xin), _aligned16(wh)
+    if fused:
+        wx, b = _aligned16(wx), _aligned16(b)
+    keep = _keep(m)
+    h = torch.empty((S, B, T, H), dtype=xin.dtype, device=dev)
+    c = torch.empty_like(h) if save_c and cell == "lstm" else None
+    xw = (torch.empty((S, B, T, _GATES[cell] * H), dtype=torch.float32,
+                      device=dev) if fused else None)
+    sync = torch.zeros(max(groups, 1), dtype=torch.int32, device=dev)
+    cycles = None
+    if stats is not None:
+        cycles = torch.zeros((groups * n, 2), dtype=torch.int64, device=dev)
+        stats.update(group=n, rows=rows, groups=groups, ctas_at_once=ctas,
+                     cycles=cycles)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    kernels = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.lfm_rnn_fwd_grid(
+            _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx), ptr(b),
+            wh.data_ptr(), keep.data_ptr(), h.data_ptr(), ptr(c), ptr(xw),
+            sync.data_ptr(), ptr(cycles), S, B, T, H, n, rows, groups,
+            _stride(xin, S), 0 if wx is None else _stride(wx, S),
+            0 if b is None else _stride(b, S), _stride(wh, S),
+            _stride(keep, S), float(forget_bias), ctypes.byref(kernels),
+            _build.stream_of(xin))
+    if stats is not None:
+        stats["kernels"] = kernels.value
+    name = f"rnn_{'fused_' if fused else ''}fwd_grid_bf16_{cell}"
+    _build.check(lib, err, f"{name} (hidden={H}, {groups} groups of {n} "
+                           f"CTAs, {rows} rows, {ctas} CTAs at once)")
+    _build.count_launch(name)
+    out = (h, c, xw) if keep_xw else (h, c)
+    return out if stacked else tuple(None if t is None else t[0]
+                                     for t in out)
 
 
 # ---------------------------------------------------------------------------
@@ -2118,13 +2311,15 @@ def _launch_bwd_cluster(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 def _tensor_core_launcher(route: str, form: str):
     """The tensor-core launch of ``form`` (:data:`_PAD_FORMS`) on
-    ``route`` ("mma", "tf32", "cluster" or, for the backwards, "grid"),
-    taking ``(cell, *operands, *rest, **kw)`` at a width the kernels take;
+    ``route`` ("mma", "tf32", "cluster" or "grid"), taking ``(cell,
+    *operands, *rest, **kw)`` at a width the kernels take;
     :func:`padded_launch` wraps it. Looked up per call, so a launcher
     swapped on this module is the one run."""
-    if route == "cluster":
-        launch = (_launch_fwd_cluster if form in ("fused_fwd", "fwd")
-                  else _launch_bwd_cluster)
+    if route in ("cluster", "grid"):
+        fwd = form in ("fused_fwd", "fwd")
+        launch = ({"cluster": _launch_fwd_cluster, "grid": _launch_fwd_grid}
+                  if fwd else {"cluster": _launch_bwd_cluster,
+                               "grid": _launch_bwd_grid})[route]
         if form.startswith("fused"):
             return lambda cell, *a, **kw: launch(cell, True, *a, **kw)
         return lambda cell, xw, *a, **kw: launch(cell, False, xw, None, None,
@@ -2133,12 +2328,6 @@ def _tensor_core_launcher(route: str, form: str):
         return {"fused_fwd": _launch_fwd_mma, "fwd": _launch_scan_fwd_mma,
                 "fused_bwd": _launch_bwd_mma,
                 "bwd": _launch_scan_bwd_mma}[form]
-    if route == "grid":
-        if form == "fused_bwd":
-            return lambda cell, *a, **kw: _launch_bwd_grid(cell, True, *a,
-                                                           **kw)
-        return lambda cell, xw, *a, **kw: _launch_bwd_grid(
-            cell, False, xw, None, None, *a, **kw)
     if form in ("fused_fwd", "fused_bwd"):
         launch = _launch_fwd_tf32 if form == "fused_fwd" else _launch_bwd_tf32
         return lambda cell, *a, **kw: launch(cell, True, *a, **kw)
@@ -2151,10 +2340,10 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
                   packed=None, keep_xw=False):
     """The fused forward's states ``(h_all, c_all or None)`` on the route
     of :func:`_mma_route`; ``keep_xw`` → ``(h_all, c_all, xw)``, xw the
-    3xTF32 or cluster route's f32 scratch at the padded width, which its
-    backward reuses (None elsewhere). ``packed``: the bf16 tensor cores'
-    weights at the padded width, W_x and W_h in fragment order
-    (:func:`pack_fragments`) or, above 128, W_h packed per CTA
+    3xTF32, cluster or grid route's f32 scratch at the padded width, which
+    its backward reuses (None elsewhere). ``packed``: the bf16 tensor
+    cores' weights at the padded width, W_x and W_h in fragment order
+    (:func:`pack_fragments`) or, from 128 to 512, W_h packed per CTA
     (:func:`pack_cluster`)."""
     stacked = hin.dim() == 4
     if hin.device.type == "cpu":
@@ -2170,16 +2359,16 @@ def _fused_states(cell, hin, wx, b, wh, m, forget_bias, save_c,
         _check_card(hin, wx=wx, b=b, wh=wh, m=m)
         route = _mma_route(hin.dtype, wh.shape[-2])
         if route != "simt":
-            kw = (dict(keep_xw=keep_xw) if route == "tf32"
-                  else dict(packed=packed))
-            if route == "cluster":
-                kw.update(keep_xw=keep_xw)
+            # The 3xTF32, cluster and grid launches hand back their xw
+            # scratch; the bf16 ones below 512 read prepacked weights.
+            kw = {"tf32": dict(keep_xw=keep_xw),
+                  "cluster": dict(packed=packed, keep_xw=keep_xw),
+                  "grid": dict(keep_xw=keep_xw),
+                  "mma": dict(packed=packed)}[route]
             out = padded_launch(_tensor_core_launcher(route, "fused_fwd"),
                                 "fused_fwd")(cell, hin, wx, b, wh, m,
                                              forget_bias, save_c, **kw)
-            # The 3xTF32 and cluster launches hand back their xw scratch.
-            return (out if route in ("tf32", "cluster") or not keep_xw
-                    else (*out, None))
+            return out if route != "mma" or not keep_xw else (*out, None)
         out = _launch_fwd(cell, False, hin, wx, b, wh, m, forget_bias,
                           save_c)
     return (*out, None) if keep_xw else out
@@ -2214,7 +2403,7 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
     ``(dhin in hin.dtype, dW_x, db, dW_h in f32)``. ``dh`` is the upstream
     gradient of ``h_all``, in ``hin.dtype``. ``wxp``: ``pack_fragments
     (wx)`` when the forward built it (the tensor-core route reuses it).
-    ``xw``: the 3xTF32 or cluster forward's f32 xw scratch
+    ``xw``: the 3xTF32, cluster or grid forward's f32 xw scratch
     (:func:`_fused_states`), which the backward on the same route takes,
     and overwrites with d_xw, in place of its own xw GEMM.
     Both are at the padded width (:func:`padded_launch`). Seed-stacked
@@ -2253,7 +2442,8 @@ def rnn_scan_fused_bwd(cell: str, hin: torch.Tensor, wx: torch.Tensor,
 def _fused_bwd_on(route, cell, hin, wx, b, wh, m, h_all, c_all, dh,
                   forget_bias, wxp, xw):
     """The fused backward on the tensor cores of ``route``, padded to the
-    kernels' width; ``wxp`` (bf16) or ``xw`` (float32) from the forward."""
+    kernels' width; ``wxp`` (bf16 up to 128) or ``xw`` (the f32 scratch of
+    the 3xTF32, cluster or grid forward) from the forward."""
     kw = dict(wxp=wxp) if route == "mma" else dict(xw=xw)
     return padded_launch(_tensor_core_launcher(route, "fused_bwd"),
                          "fused_bwd")(cell, hin, wx, b, wh, m, h_all, c_all,
@@ -2302,10 +2492,12 @@ def rnn_scan_bwd(cell: str, xw: torch.Tensor, wh: torch.Tensor,
 
 class _FusedScan(torch.autograd.Function):
     """The fused recurrence, one node for every seed of a seed-stacked
-    call. On the 3xTF32 and cluster routes the forward's f32 xw scratch
-    ``[S, B, T, G Hp]`` stays alive from the forward to the backward,
-    which takes it as its d_gates buffer (``RNNModel.row_state_bytes``
-    counts it); a second backward recomputes it."""
+    call. On the 3xTF32, cluster and grid routes the forward's f32 xw
+    scratch ``[S, B, T, G Hp]`` stays alive from the forward to the
+    backward, which takes it as its d_gates buffer and skips its own xw
+    GEMM (the bf16 grid backward's fused form: five kernels, not six;
+    ``RNNModel.row_state_bytes`` counts the scratch); a second backward
+    recomputes it."""
 
     @staticmethod
     def forward(ctx, cell, forget_bias, hin, wx, b, wh, m):
@@ -2324,9 +2516,9 @@ class _FusedScan(torch.autograd.Function):
             C = _cluster_size(cell, Hp, torch.cuda.get_device_properties(
                 hin.device).shared_memory_per_block_optin)
             packed = pack_cluster(wh, C, width=Hp)
-        # The 3xTF32 and cluster routes' xw scratch becomes the backward's
-        # d_gates buffer (its xw GEMM skipped); a second backward
-        # recomputes it.
+        # The 3xTF32, cluster and grid routes' xw scratch becomes the
+        # backward's d_gates buffer (its xw GEMM skipped); a second
+        # backward recomputes it.
         h, c, ctx.xw = _fused_states(cell, hin, wx, b, wh, m, forget_bias,
                                      True, packed, keep_xw=True)
         ctx.cell, ctx.forget_bias = cell, forget_bias

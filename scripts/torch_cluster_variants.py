@@ -8,7 +8,8 @@ item) they take, on the card.
 
     python3 scripts/torch_cluster_variants.py [--widths 256 320 512]
         [--batch 2048] [--steps 60] [--reps 5]
-        [--direction fwd|bwd|both|bwd_tf32|bwd_grid|bwd_grid_bf16]
+        [--direction fwd|bwd|both|bwd_tf32|bwd_grid|bwd_grid_bf16|
+                     fwd_grid_bf16]
         [--out FILE]
 
 For rows 3 (fused: the bf16 GEMM into the f32 xw scratch, then the
@@ -70,6 +71,16 @@ and for the picked pair also gives the all-gather's L2 reads: the bytes a
 call (``gather_bytes``: every CTA of a group reads each valid row's d_hw
 hi and lo, G H bf16 each, at every step but the first) and their rate
 over the recurrence kernel's device time (``gather_gb_per_s``).
+
+``--direction fwd_grid_bf16`` does rows 3 (fused: the xw GEMM, then the
+grid recurrence) and 1 (hoisted) on the bf16 grid forward past 512
+(``csrc/rnn_fwd_grid.cu``): every (group, rows) pair with a distinct
+number of chunks a CTA (the picked pair ``_fwd_grid_size``,
+``_fwd_grid_rows``), ``bitwise_as_picked`` for all, the picked pair's
+kernels by device ms, its barrier waits, the all-gather's bytes (every
+CTA of a group reads each valid row's h_{t-1}, H bf16, at every step but
+the first) and rate, and ``--diag`` variants of that source
+(:data:`FWD_GRID_DIAG`).
 """
 
 from __future__ import annotations
@@ -270,6 +281,25 @@ BF16_GRID_DIAG = {
     "stage_k128_2": [("constexpr int kStageK = 64;",
                       "constexpr int kStageK = 128;")],
 }
+#: The bf16 grid forward (``--direction fwd_grid_bf16``): the product's
+#: mma removed; the all-gather's loads removed (each stage's slot read as
+#: it is); the group's barrier reduced to the CTA's own; candidates: 3 or
+#: 4 stages of 64 columns, 2 or 3 of 128.
+FWD_GRID_DIAG = {
+    "base": [],
+    "diag_no_product": [("              mma_bf16(acc[q], a, make_uint2(b2[0], "
+                         "b2[1]));", "              (void)b2;")],
+    "diag_no_gather": [("        cp_async16(dst + r * LA + kc, ok ? src : "
+                        "hs, ok ? 16 : 0);",
+                        "        (void)dst;\n        (void)src;")],
+    "diag_no_barrier": [("      if (t + 1 < Tn) group_barrier(ctr, target, "
+                         "n, waited);", "      __syncthreads();")],
+    "stage_k64_3": BF16_GRID_DIAG["stage_k64_3"],
+    "stage_k64_4": BF16_GRID_DIAG["stage_k64_4"],
+    "stage_k128_2": BF16_GRID_DIAG["stage_k128_2"],
+    "stage_k128_3": BF16_GRID_DIAG["stage_k128_2"] + [
+        ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+}
 #: Per direction with variants: the source, its substitutions, the entry
 #: point and its ctypes signature, the recurrence kernel's name.
 SOURCES = {
@@ -281,6 +311,8 @@ SOURCES = {
                  7, "rnn_bwd_tf32_grid_kernel"),
     "bwd_grid_bf16": ("rnn_bwd_grid.cu", BF16_GRID_DIAG,
                       "lfm_rnn_bwd_grid_bf16", 7, "rnn_bwd_grid_kernel"),
+    "fwd_grid_bf16": ("rnn_fwd_grid.cu", FWD_GRID_DIAG, "lfm_rnn_fwd_grid",
+                      7, "rnn_fwd_grid_kernel"),
 }
 
 
@@ -292,7 +324,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--direction", choices=("fwd", "bwd", "both",
                                             "bwd_tf32", "bwd_grid",
-                                            "bwd_grid_bf16"),
+                                            "bwd_grid_bf16", "fwd_grid_bf16"),
                     default="fwd")
     ap.add_argument("--diag", default="",
                     help="variants of the backward source, comma-separated")
@@ -310,7 +342,8 @@ def main() -> int:
     from lfm_quant_tpu_torch.ops import rnn as R
 
     kind = (args.direction
-            if args.direction in ("bwd_tf32", "bwd_grid", "bwd_grid_bf16")
+            if args.direction in ("bwd_tf32", "bwd_grid", "bwd_grid_bf16",
+                                  "fwd_grid_bf16")
             else "bwd")
     diag = build_diag(args.diag.split(","), kind) if args.diag else {}
     card = subprocess.run(
@@ -340,6 +373,11 @@ def main() -> int:
                                rnd, limit, sms, args.reps, args.picked_only,
                                bf if kind == "bwd_grid_bf16"
                                else torch.float32)
+                    continue
+                if kind == "fwd_grid_bf16":
+                    fwd_grid_cases(torch, R, out, card, diag, cell, B, T, H,
+                                   rnd, limit, sms, args.reps,
+                                   args.picked_only)
                     continue
                 hin = torch.randn(B, T, H, **rnd).to(bf)
                 wx = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
@@ -457,12 +495,21 @@ def build_diag(names, kind: str = "bwd") -> dict:
         fn = getattr(lib, entry)
         fn.argtypes = ([ci, ci] + [vp] * 12 + [ci, vp] + [ci] * n_ints
                        + [cll] * 5 + [cf, vp])
+        if kind == "fwd_grid_bf16":
+            fn.argtypes = ([ci, ci] + [vp] * 10 + [ci] * n_ints + [cll] * 5
+                           + [cf, vp, vp])
+            lib.lfm_rnn_fwd_grid_ctas.argtypes = [ci] * 5
+            lib.lfm_rnn_fwd_grid_ctas.restype = ci
+            lib.lfm_rnn_fwd_grid_smem.argtypes = [ci] * 4
+            lib.lfm_rnn_fwd_grid_smem.restype = cll
         if kind in ("bwd_grid", "bwd_grid_bf16"):
             # The scratch pointers sync and stats beside dw (bf16: and the
-            # exchange beside dhn).
+            # exchange beside dhn, and the kernels' count beside the
+            # stream).
             bf = kind == "bwd_grid_bf16"
             fn.argtypes = ([ci, ci] + [vp] * (13 if bf else 12) + [ci]
-                           + [vp] * 3 + [ci] * n_ints + [cll] * 5 + [cf, vp])
+                           + [vp] * 3 + [ci] * n_ints + [cll] * 5
+                           + ([cf, vp, vp] if bf else [cf, vp]))
             tag = "grid_bf16" if bf else "grid"
             getattr(lib, f"lfm_rnn_bwd_{tag}_ctas").argtypes = [ci] * 4
             getattr(lib, f"lfm_rnn_bwd_{tag}_ctas").restype = ci
@@ -682,6 +729,102 @@ def grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
             out.write(json.dumps(rec) + "\n")
         torch.cuda.empty_cache()
     del hin, wx, wh, b, m, dh, xw, xw_in, h, c
+    torch.cuda.empty_cache()
+
+
+def fwd_grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit,
+                   sms, reps, picked_only=False):
+    """Rows 3 and 1 on the bf16 grid forward at every (group, rows) pair
+    with a distinct chunk count a CTA, then each ``--diag`` variant at the
+    picked pair (the module docstring)."""
+    G = GATES[cell] * H
+    bf = torch.bfloat16
+    hin = torch.randn(B, T, H, **rnd).to(bf)
+    wx = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
+    wh = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
+    b = (0.1 * torch.randn(G, **rnd)).to(bf)
+    m = torch.rand(B, T, **rnd) < 0.75
+    xw = (hin.float() @ wx.float() + b.float()).to(bf)
+    dev = hin.device
+    W = H // 8
+    pick_n = R._fwd_grid_size(cell, H, limit, sms)
+    pick_rows = R._fwd_grid_rows(cell, H, pick_n, B, 1, limit, sms)
+    pairs = [(pick_n, pick_rows)]
+    for nc in range(1, R._grid_chunks(H, 1) + 1):
+        n = -(-W // nc)
+        for rows in R.GRID_ROWS:
+            if (n <= sms and (n, rows) not in pairs and not picked_only
+                    and R._grid_takes(H, n, rows, bf)
+                    and R._fwd_grid_smem(cell, H, n, rows) <= limit):
+                pairs.append((n, rows))
+    kernel = SOURCES["fwd_grid_bf16"][4]
+    with torch.no_grad():
+        for fused in (True, False):
+            ops = (hin, wx, b) if fused else (xw, None, None)
+
+            def run(n, rows, stats=None):
+                return R._launch_fwd_grid(cell, fused, *ops, wh, m, 1.0,
+                                          True, group=n, rows=rows,
+                                          stats=stats)
+
+            want = run(pick_n, pick_rows)
+            for n, rows in pairs:
+                ctas = R._fwd_grid_check(cell, fused, H, n, rows, dev)
+                got = run(n, rows)
+                same = all((g is None and w is None) or torch.equal(g, w)
+                           for g, w in zip(got, want))
+                del got
+                picked = (n, rows) == (pick_n, pick_rows)
+                rec = dict(
+                    card=card, cell=cell, dtype="bfloat16",
+                    form="fused_fwd" if fused else "fwd", shape=[B, T, H],
+                    group=n, rows=rows, chunks=R._grid_chunks(H, n),
+                    groups=min(ctas // n, -(-B // rows)),
+                    smem=R._fwd_grid_smem(cell, H, n, rows),
+                    ctas_at_once=ctas,
+                    ms=mean_ms(torch, lambda: run(n, rows), reps),
+                    picked=picked, bitwise_as_picked=same)
+                if picked:
+                    ks = kernels_ms(torch, lambda: run(n, rows))
+                    rec["kernels_ms"] = ks
+                    stats = {}
+                    run(n, rows, stats)
+                    torch.cuda.synchronize()
+                    cyc = stats["cycles"].double()
+                    rec["wait_share"] = float((cyc[:, 0] / cyc[:, 1]).mean())
+                    recur = sum(v for k, v in ks.items() if kernel in k)
+                    rec["recur_ms"] = recur
+                    rec["gather_bytes"] = ((T - 1) * -(-B // rows) * n * rows
+                                           * H * 2)
+                    rec["gather_gb_per_s"] = (
+                        rec["gather_bytes"] / recur / 1e6 if recur else None)
+                print(json.dumps(rec), flush=True)
+                out.write(json.dumps(rec) + "\n")
+            del want
+            real = R._build.library
+            for name, lib in libs.items():
+                R._build.library = lambda lib=lib: lib
+                rec = dict(card=card, cell=cell, dtype="bfloat16",
+                           variant=name,
+                           form="fused_fwd" if fused else "fwd",
+                           shape=[B, T, H], group=pick_n, rows=pick_rows)
+                try:
+                    ks = kernels_ms(torch, lambda: run(pick_n, pick_rows))
+                    rec.update(
+                        ms=mean_ms(torch, lambda: run(pick_n, pick_rows),
+                                   reps),
+                        recur_ms=sum(v for k, v in ks.items()
+                                     if kernel in k))
+                except RuntimeError as exc:
+                    # A variant whose stages are past the card's shared
+                    # memory at the picked group.
+                    rec["refused"] = str(exc)
+                finally:
+                    R._build.library = real
+                print(json.dumps(rec), flush=True)
+                out.write(json.dumps(rec) + "\n")
+            torch.cuda.empty_cache()
+    del hin, wx, wh, b, m, xw
     torch.cuda.empty_cache()
 
 

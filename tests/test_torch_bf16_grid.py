@@ -3,8 +3,8 @@ recomputed by one bf16 GEMM, the carry's product spread over a cooperative
 grid that holds W_h in bf16) on the CPU.
 
 * The route: bf16 backwards at 512 < Hp <= 1520 take ``"grid"``, past it
-  the CUDA cores; the bf16 forwards past 512 stay on the CUDA cores and
-  float32 is as before.
+  the CUDA cores; the bf16 forwards take the same route and float32 is as
+  before.
 * The picker (``ops/rnn.py _grid_size``, ``_grid_rows`` with the dtype)
   and the shared-memory mirror (``_grid_smem``) against the source's
   constants and count, and against a hand count at an H100's 232,448
@@ -77,11 +77,11 @@ def one_thread():
 def test_bf16_backward_route_past_512(H, want):
     """bf16 backwards at 512 < Hp <= 1520 run on the grid (H 513 and 520
     at Hp 528, zero-padded), the CUDA cores past it; the bf16 forwards
-    past 512 stay on the CUDA cores; float32 as before."""
+    take the same route (the grid forward, ``csrc/rnn_fwd_grid.cu``, to
+    1520); float32 as before."""
     f32 = torch.float32
     assert R._mma_route(BF, H, "bwd") == want
-    assert R._mma_route(BF, H) == ("cluster" if want == "cluster"
-                                   else "simt")
+    assert R._mma_route(BF, H) == want
     Hp = R._padded_width(H)
     assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 384 else "grid"
                                            if Hp <= 1024 else "simt")

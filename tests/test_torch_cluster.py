@@ -90,11 +90,13 @@ def test_cluster_size_is_the_fewest_ctas_that_fit(cell, H):
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_a_width_past_the_kernel_routes_to_the_cuda_cores(cell):
-    """Hp 528 is past ``kMaxWidth``: the bf16 forward's route is the CUDA
-    cores, and the picker raises naming the width; a card whose shared
-    memory holds no cluster's share raises too."""
-    assert R._mma_route(torch.bfloat16, 528) == "simt"
-    assert R._mma_route(torch.bfloat16, 520) == "simt"  # Hp 528
+    """Hp 528 is past ``kMaxWidth``: the bf16 forward's route is the grid
+    (``csrc/rnn_fwd_grid.cu``) up to Hp 1520 and the CUDA cores past it (H
+    1530), and the cluster picker raises naming the width; a card whose
+    shared memory holds no cluster's share raises too."""
+    assert R._mma_route(torch.bfloat16, 528) == "grid"
+    assert R._mma_route(torch.bfloat16, 520) == "grid"  # Hp 528
+    assert R._mma_route(torch.bfloat16, 1530) == "simt"  # Hp 1536
     assert R._mma_route(torch.bfloat16, 512) == "cluster"
     with pytest.raises(ValueError, match="hidden=528"):
         R._cluster_size(cell, 528, H100_SMEM)

@@ -75,14 +75,15 @@ def one_thread():
 
 
 @pytest.mark.parametrize("H", [8, 120, 128, 129, 144, 200, 256, 320, 500,
-                               512, 513, 528, 1024])
+                               512, 513, 528, 1024, 1530])
 def test_backward_route_table(H):
     """bf16 above 128 up to Hp 512 runs the backward on the cluster; bf16
     past 512 on the bf16 grid (``"grid"``, to Hp 1520); float32 above 128
     on the 3xTF32 kernels on a cluster up to Hp 384 (``"tf32"``) and on the
     grid past it, to Hp 1024 (``"grid"``); H <= 128 as before (bf16
     ``"mma"``, float32 ``"tf32"``). The bf16 forward's route is the
-    backward's up to 512 and the CUDA cores past it."""
+    backward's at every width: the cluster to 512, the grid to 1520 and
+    the CUDA cores past it (H 1530)."""
     Hp = R._padded_width(H)
     bf, f32 = torch.bfloat16, torch.float32
     if Hp <= 128:
@@ -91,10 +92,10 @@ def test_backward_route_table(H):
         want_bf = "cluster"
         want_f32 = "tf32" if Hp <= R.TF32_MAX_WIDTH else "grid"
     else:
-        want_bf = "grid"
+        want_bf = "grid" if Hp <= R.BF16_GRID_MAX_WIDTH else "simt"
         want_f32 = "grid" if Hp <= R.GRID_MAX_WIDTH else "simt"
     assert R._mma_route(bf, H, "bwd") == want_bf
-    assert R._mma_route(bf, H) == ("simt" if want_bf == "grid" else want_bf)
+    assert R._mma_route(bf, H) == want_bf
     assert R._mma_route(f32, H, "bwd") == want_f32
 
 

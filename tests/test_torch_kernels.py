@@ -830,9 +830,10 @@ HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
                   "grid": (torch.float32, 400),
                   "grid_bf16": (torch.bfloat16, 528)}
 #: The launch counters' tag of each hoisted route, forward and backward
-#: (float32 above 128 and bf16 past 512: the CUDA-core forward, the 3xTF32
-#: cluster or a grid backward).
-FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_"}
+#: (float32 above 128: the CUDA-core forward, the 3xTF32 cluster or the
+#: grid backward; bf16 past 512: the bf16 grids both ways).
+FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_",
+           "grid_bf16": "grid_bf16_"}
 BWD_TAG = dict(FWD_TAG, tf32_cluster="tf32_", grid="grid_",
                grid_bf16="grid_bf16_")
 
@@ -1227,19 +1228,26 @@ def test_widths_past_the_caps_keep_rnn_bwd(cuda, cell, hoisted):
     """float32 past the grid backward's 1024 (H 1040) and bf16 past the
     bf16 grid backward's 1520 (H 1530, Hp 1536) stay on ``csrc/rnn_bwd.cu``
     through the public backward, one counted call each, within the JAX
-    bounds of the plain version."""
+    bounds of the plain version: in float32 the plain version run on
+    float64 copies of the same inputs (the exact value; the float32 plain
+    version is itself 1.1e-5 of it, scaled, at H 1040), in bf16 as it
+    is."""
     for dtype, H in ((torch.float32, 1040), (torch.bfloat16, 1530)):
         hin, wx, b, wh, m, xw, h, c, dh = _bwd_inputs(cell, 21, 4, H, H,
                                                       dtype, cuda, hoisted)
+        ref = ((lambda t: t) if dtype == torch.bfloat16 else
+               (lambda t: None if t is None else t.double()))
         _build.reset_launch_counts()
         if hoisted:
             got = rnn_scan_bwd(cell, xw, wh, m, h, c, dh)
-            want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
+            counts = _build.launch_counts()
+            want = rnn_scan_bwd_reference(cell, *map(ref, (xw, wh)), m,
+                                          *map(ref, (h, c, dh)))
         else:
             got = rnn_scan_fused_bwd(cell, hin, wx, b, wh, m, h, c, dh)
-            want = rnn_scan_fused_bwd_reference(cell, hin, wx, b, wh, m, h,
-                                                c, dh)
-        counts = _build.launch_counts()
+            counts = _build.launch_counts()
+            want = rnn_scan_fused_bwd_reference(
+                cell, *map(ref, (hin, wx, b, wh)), m, *map(ref, (h, c, dh)))
         core = _tf32_names(cell, hoisted)[1]
         assert counts[core] == 1 and sum(counts.values()) == 1, counts
         for g, w in zip(got, want):
@@ -1529,10 +1537,10 @@ def test_bf16_grid_bwd_launch_refused_raises(cuda, cell, H, hoisted):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_bf16_grid_bwd_through_autograd(cuda, cell):
-    """``_FusedScan`` in bf16 at H 528: the forward on the CUDA cores
-    (``rnn_fused_fwd.cu``), the backward on the bf16 grid, one launch each;
-    the gradients against autograd of the plain version on the CPU at the
-    bf16 bound."""
+    """``_FusedScan`` in bf16 at H 528: the forward on the bf16 grid
+    (``rnn_fwd_grid.cu``), whose f32 xw scratch the backward on the bf16
+    grid takes, one launch each; the gradients against autograd of the
+    plain version on the CPU at the bf16 bound."""
     B, T, H = 37, 5, 528
     hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 53, torch.bfloat16,
                                          "cpu")
@@ -1545,11 +1553,165 @@ def test_bf16_grid_bwd_through_autograd(cuda, cell):
         out.float().mul(dh.float().to(dev)).sum().backward()
         grads.append([t.grad for t in leaves])
     counts = _build.launch_counts()
-    assert counts[f"rnn_fused_fwd_{cell}"] == 1, counts
+    assert counts[f"rnn_fused_fwd_grid_bf16_{cell}"] == 1, counts
     assert counts[f"rnn_fused_bwd_grid_bf16_{cell}"] == 1, counts
     assert sum(counts.values()) == 2, counts
     for g_card, g_cpu in zip(grads[1], grads[0]):
         _scaled_close(g_card, g_cpu, torch.bfloat16)
+
+
+#: The bf16 widths past 512 the grid forward is held at: 528 (17 CTAs a
+#: group), 530 zero-padded to 544, 1024 and its widest, 1520 (one group of
+#: 95 CTAs of 128 rows).
+FWD_GRID_WIDTHS = (528, 530, 1024, 1520)
+
+
+def _fwd_grid(cell, hoisted, xin, wx, b, wh, m, **kw):
+    """The grid forward on ``xin`` (hin, or xw hoisted) at any H,
+    zero-padded to Hp as the public forwards pad it, c_all saved."""
+    form = "fwd" if hoisted else "fused_fwd"
+    ops = (xin, wh, m) if hoisted else (xin, wx, b, wh, m)
+    return R.padded_launch(R._tensor_core_launcher("grid", form), form)(
+        cell, *ops, 1.0, True, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", FWD_GRID_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fwd_grid_matches_plain(cuda, cell, H, hoisted):
+    """Rows 3 and 1 in bf16 past 512 on ``csrc/rnn_fwd_grid.cu`` (W_h's
+    columns held in bf16 across a cooperative grid), through the public
+    forward, against the plain version within atol and rtol 0.05: one
+    counted launch and nothing else, h_all and c_all in bf16, an
+    all-invalid row exactly zero, a second call bitwise equal; and the
+    same bits from a larger group, 128 rows a work item where the kernel
+    takes them, and one group. B 150 is several work items a group."""
+    B, T = 150, 4
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, B, T, H, H + 7,
+                                        torch.bfloat16, cuda)
+    m[0] = False
+    xw32 = hin.float() @ wx.float() + b.float()
+    xw = xw32.to(torch.bfloat16)
+    if hoisted:
+        run = lambda: R._scan_states_any(cell, xw, wh, m, 1.0, True)  # noqa
+        want = rnn_scan_states(cell, xw, wh, m, 1.0, True)
+        args = (xw, None, None, wh, m)
+    else:
+        run = lambda: R._fused_states(cell, hin, wx, b, wh, m, 1.0,  # noqa
+                                      True)
+        want = rnn_scan_states(cell, xw32, wh, m, 1.0, True)
+        args = (hin, wx, b, wh, m)
+    name = f"rnn_{'' if hoisted else 'fused_'}fwd_grid_bf16_{cell}"
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got = run()
+    counts = _build.launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1, counts
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == torch.bfloat16 and g.shape == (B, T, H)
+        assert torch.isfinite(g.float()).all()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   **TOL[torch.bfloat16])
+        assert not g[0].float().any()
+    for a, z in zip(got, run()):
+        assert (a is None and z is None) or torch.equal(a, z)
+    Hp = R._padded_width(H)
+    props = torch.cuda.get_device_properties(cuda)
+    limit = props.shared_memory_per_block_optin
+    n = R._fwd_grid_size(cell, Hp, limit, props.multi_processor_count)
+    pairs = [dict(group=n, rows=64, groups=1)]
+    for more, rows in ((n + 3, 64), (n, 128), (Hp // 8, 64)):
+        if (more <= props.multi_processor_count
+                and R._grid_takes(Hp, more, rows, torch.bfloat16)
+                and R._fwd_grid_smem(cell, Hp, more, rows) <= limit):
+            pairs.append(dict(group=more, rows=rows))
+    for kw in pairs:
+        for a, z in zip(got, _fwd_grid(cell, hoisted, *args, **kw)):
+            assert (a is None and z is None) or torch.equal(a, z), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fwd_grid_seed_grid_bitwise_equals_single_seed_launches(cuda, cell,
+                                                                hoisted):
+    """The seed rules (``_fwd_vmap`` :920, ``_make_scan._fwd_vmap`` :504)
+    on the grid forward at H 528: S 3 seeds with m shared in one counted
+    launch, each seed's h_all and c_all bitwise its one-seed launch's."""
+    S, B, T, H = 3, 70, 4, 528
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, B, T, H, 23, torch.bfloat16,
+                                        cuda, S=S)
+    m1 = m[:1].contiguous()
+    if hoisted:
+        xin = (hin.float() @ wx.float()[:, None]
+               + b.float()[:, None, None]).to(torch.bfloat16)
+        wx = b = None
+    else:
+        xin = hin
+    _build.reset_launch_counts()
+    got = _fwd_grid(cell, hoisted, xin, wx, b, wh, m1)
+    name = f"rnn_{'' if hoisted else 'fused_'}fwd_grid_bf16_{cell}"
+    assert _build.launch_counts()[name] == 1
+    for s in range(S):
+        one = _fwd_grid(cell, hoisted, xin[s], None if wx is None else wx[s],
+                        None if b is None else b[s], wh[s], m[0])
+        for g, o in zip(got, one):
+            assert (g is None and o is None) or torch.equal(g[s], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fwd_grid_launch_refused_raises(cuda, cell):
+    """No fallback: a grid of one group more than the card holds at once is
+    refused before any kernel runs (the xw GEMM included), naming the
+    width and the groups; a group the kernel does not take raises."""
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, 37, 3, 528, 5, torch.bfloat16,
+                                        cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    n = R._fwd_grid_size(cell, 528, props.shared_memory_per_block_optin,
+                         props.multi_processor_count)
+    ctas = R._fwd_grid_check(cell, True, 528, n, 64, cuda)
+    _build.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=f"hidden=528, {ctas // n + 1} "
+                                           f"groups of {n} CTAs"):
+        R._launch_fwd_grid(cell, True, hin, wx, b, wh, m, 1.0, True,
+                           group=n, rows=64, groups=ctas // n + 1)
+    with pytest.raises(ValueError, match="hidden=528 with a group of 2"):
+        R._launch_fwd_grid(cell, True, hin, wx, b, wh, m, 1.0, True,
+                           group=2, rows=64)
+    assert not any(_build.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fwd_grid_hands_its_xw_to_the_backward(cuda, cell):
+    """The fused grid forward's f32 xw scratch (two kernels: the GEMM, the
+    recurrence) handed to the fused bf16 grid backward: five kernels in
+    place of six, and every gradient bitwise that of the backward that
+    forms its own xw (both xw GEMMs are the same call)."""
+    B, T, H = 150, 4, 528
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 61, torch.bfloat16,
+                                         cuda)
+    fwd = {}
+    with torch.no_grad():
+        h, c, xw = R._launch_fwd_grid(cell, True, hin, wx, b, wh, m, 1.0,
+                                      True, keep_xw=True, stats=fwd)
+    assert fwd["kernels"] == 2 and xw.dtype == torch.float32
+    own, given = {}, {}
+    want = R._launch_bwd_grid(cell, True, hin, wx, b, wh, m, h, c, dh, 1.0,
+                              stats=own)
+    _build.reset_launch_counts()
+    got = R._launch_bwd_grid(cell, True, hin, wx, b, wh, m, h, c, dh, 1.0,
+                             xw=xw, stats=given)
+    assert _build.launch_counts()[f"rnn_fused_bwd_grid_bf16_{cell}"] == 1
+    assert (own["kernels"], given["kernels"]) == (6, 5)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

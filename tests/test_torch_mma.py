@@ -207,11 +207,11 @@ def test_every_block_size_matches_plain(cuda, cell, rows):
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_kernel(cuda):
     """Widths the tensor cores do not take (float32 above 128, bf16 past
-    the cluster forward's 512: every narrower one is padded onto them)
-    keep the CUDA-core forward in both dtypes; float32 at a tensor-core
-    width (H 64) takes the 3xTF32 forward instead."""
+    the grid forward's 1520, H 1530: every narrower one is padded onto
+    them) keep the CUDA-core forward in both dtypes; float32 at a
+    tensor-core width (H 64) takes the 3xTF32 forward instead."""
     _build.reset_launch_counts()
-    for dtype, H in ((torch.float32, 136), (torch.bfloat16, 528)):
+    for dtype, H in ((torch.float32, 136), (torch.bfloat16, 1530)):
         (hin, wx, b, wh), m = _inputs("lstm", 5, 3, H, H, cuda)
         with torch.no_grad():
             R.rnn_scan_fused("lstm", *(t.to(dtype) for t in (hin, wx, b, wh)),

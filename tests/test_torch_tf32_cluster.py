@@ -86,14 +86,14 @@ def test_float32_backward_route(H):
     """float32 backwards above 128 run on the 3xTF32 kernels up to Hp 384
     and past it on the grid kernel (``csrc/rnn_bwd_tf32_grid.cu``, to Hp
     1024); the float32 forward stays on the CUDA cores and bf16 as its
-    route table says (the cluster to 512, the bf16 grid backward past
-    it)."""
+    route table says (the cluster to 512, the bf16 grids, forward and
+    backward, past it)."""
     Hp = R._padded_width(H)
     f32, bf = torch.float32, torch.bfloat16
     assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 384 else "grid")
     assert R._mma_route(f32, H) == "simt"
     small = Hp <= R.CLUSTER_MAX_WIDTH
-    assert R._mma_route(bf, H) == ("cluster" if small else "simt")
+    assert R._mma_route(bf, H) == ("cluster" if small else "grid")
     assert R._mma_route(bf, H, "bwd") == ("cluster" if small else "grid")
 
 

@@ -75,13 +75,13 @@ def test_float32_backward_route_past_384(H, want):
     """float32 backwards at 384 < Hp <= 1024 run on the grid kernel (H 420
     at Hp 432, zero-padded), the 3xTF32 cluster up to 384, the CUDA cores
     past 1024; the float32 forwards stay on the CUDA cores; bf16 runs on
-    the cluster to 512 both ways and past it the forward on the CUDA
-    cores, the backward on the bf16 grid."""
+    the cluster to 512 both ways and past it on the bf16 grids, forward
+    and backward."""
     f32, bf = torch.float32, torch.bfloat16
     assert R._mma_route(f32, H, "bwd") == want
     assert R._mma_route(f32, H) == "simt"
     small = R._padded_width(H) <= R.CLUSTER_MAX_WIDTH
-    assert R._mma_route(bf, H) == ("cluster" if small else "simt")
+    assert R._mma_route(bf, H) == ("cluster" if small else "grid")
     assert R._mma_route(bf, H, "bwd") == ("cluster" if small else "grid")
 
 
