@@ -64,12 +64,12 @@ imports nothing of JAX. Phases, each fatal on failure:
    cells and both forms in float32 (the 3xTF32 forwards and backwards),
    and of the same four at hidden 120 (the 3xTF32 kernels, zero-padded)
    run the same way, and no CUDA-core kernel may launch in any; the
-   float32 four at hidden 160 must launch the CUDA-core forwards and
-   backwards (now the 3xTF32 cluster backwards), the float32
-   four at hidden 400 the grid backwards and the bf16 four at hidden 528
+   float32 four at hidden 160 and at hidden 400 must launch the float32
+   grid forwards (``rnn_fwd_tf32_grid.cu``) and the backwards the route
+   gives them (the grid backward at 400), and the bf16 four at hidden 528
    the bf16 grid forwards and backwards (``rnn_fwd_grid.cu``,
-   ``rnn_bwd_grid.cu``: one of each a step, the fused backward on the
-   forward's xw in five kernels, no CUDA-core kernel). The hoisted bf16
+   ``rnn_bwd_grid.cu``); on a grid backward one of each a step, the fused
+   backward on the forward's xw in five kernels. The hoisted bf16
    step and the fused float32 step are also
    timed with their backward as routed and sent to the CUDA-core kernel,
    the fused float32 step with its forward so, and the fused float32
@@ -292,7 +292,12 @@ imports nothing of JAX. Phases, each fatal on failure:
    recurrence's share, the all-gather's rate), the fused row 4 handed the
    forward's xw (five kernels, bitwise the row 4 that forms its own), rows
    3 and 1 at H 530 (Hp 544), 1024 and (row 3) 1520, and the c2 LSTM at
-   hidden 528 served, every score against the plain path;
+   hidden 528 served, every score against the plain path; rows 3 and 1 in
+   float32 at hidden 400 on the float32 grid forward in turns with
+   ``rnn_fused_fwd.cu`` beside cuDNN and the bound (h_all and c_all
+   within atol 1e-5 of the plain version), its seed grid, a float32 grid
+   past the card refused, the fused row 4 handed its xw (five kernels,
+   within the scaled 1e-5), and rows 3 and 1 at 1024 held and timed;
 29. print one ``{"kernels": [...]}`` line (launches: phases 4, 5, 8, 9,
    10, 11-15, 17-23, 26's sequential fits and 28's one-seed runs for the
    one-seed rows, 6, 7, 16, 19-21, 26's stacks, 27 and 28's ensembles for
@@ -328,15 +333,16 @@ GATES = {"lstm": 4, "gru": 3}
 TRAIN_STEPS_SHORT = 4  # steps of the hoisted and GRU training runs
 HOISTED_STEPS = 32     # timed steps of each backward in step_in_turns
 # The widths of the float32 rows beside the c2 step's 128: one off a
-# multiple of 16, which runs zero-padded on the 3xTF32 kernels, and one
-# above 128, where the forwards run on the CUDA cores and the backwards on
-# the 3xTF32 kernels on a cluster; and one past the 3xTF32 cluster's 384,
-# whose training runs are the grid backward's (rnn_bwd_tf32_grid.cu) main
-# path. A bf16 width past the cluster kernels' 512, whose training runs are
-# the bf16 grids' main path (rnn_fwd_grid.cu, rnn_bwd_grid.cu), and those
-# grids' widest.
+# multiple of 16, which runs zero-padded on the 3xTF32 kernels; one above
+# 128, where the forwards run on the float32 grid (rnn_fwd_tf32_grid.cu)
+# and the backwards on the 3xTF32 cluster (rnn_bwd_tf32.cu), whose
+# training runs and 3-seed ensemble are that cluster's main path; and one
+# past the cluster's widths, whose training runs are the float32 grids'
+# (rnn_fwd_tf32_grid.cu, rnn_bwd_tf32_grid.cu) main path. A bf16 width
+# past the cluster kernels' 512, whose training runs are the bf16 grids'
+# main path (rnn_fwd_grid.cu, rnn_bwd_grid.cu), and those grids' widest.
 PADDED_HIDDEN = 120
-CUDA_CORE_HIDDEN = 160
+F32_CLUSTER_HIDDEN = 160
 PAST_CAP_HIDDEN = 400
 CORE_BF16_HIDDEN = 528
 BF16_GRID_WIDEST = 1520
@@ -345,18 +351,18 @@ BF16_GRID_WIDEST = 1520
 SLEEP_CYCLES = 20_000_000
 
 # name → (source in the port, the TPU kernel it replaces). The CUDA-core
-# forwards run on the main paths in float32 at hidden 160 and 400; the
-# CUDA-core backwards (float32 past 1024, bf16 past 1520) on none since
-# the bf16 grid took 528: both are held and timed at 528 in bf16 (phase
-# 28, the bf16 grids' "[before]", suffixed records). Measured at hidden
-# 400 (forwards, float32) and 528 (backwards, bf16), B 2048, T 60 (the
-# kernels line keeps the largest shape). The 3xTF32 kernels
-# (``*_tf32_*``) are measured in float32 at the c2 train step, at hidden
-# 120, zero-padded to 128, and (the backwards, on a cluster) at hidden
-# 160-384 (phase 28), the float32 grid backwards (``*_grid_*``) at 400
-# (and 640: suffixed records), the bf16 grids (``*_grid_bf16_*``) at 528
-# (and rows 3 and 4 at 1520: suffixed); the bf16 ones at the c2 train step
-# and the serving dispatches.
+# kernels (float32 past 1024, bf16 past 1520) run on no main path since
+# the grids took every width to 1024 and 1520: they are held and timed as
+# the grids' "[before]" on the same inputs, the forwards in float32 at
+# hidden 160 and 400 (and at 528 in bf16: suffixed records), the
+# backwards at 528 in bf16. Measured at B 2048, T 60 (the kernels line
+# keeps the largest shape). The 3xTF32 kernels (``*_tf32_*``) are
+# measured in float32 at the c2 train step, at hidden 120, zero-padded to
+# 128, and (the backwards, on a cluster) at hidden 160-384 (phase 28), the
+# float32 grids (``*_grid_*``) at 400 (and 640 and 1024: suffixed
+# records), the bf16 grids (``*_grid_bf16_*``) at 528 (and rows 3 and 4 at
+# 1520: suffixed); the bf16 ones at the c2 train step and the serving
+# dispatches.
 SOURCES = {
     "rnn_fused_fwd_lstm": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:626"),
     "rnn_fused_fwd_gru": ("csrc/rnn_fused_fwd.cu", "pallas_rnn.py:652"),
@@ -404,6 +410,12 @@ SOURCES = {
                                "pallas_rnn.py:739"),
     "rnn_bwd_grid_lstm": ("csrc/rnn_bwd_tf32_grid.cu", "pallas_rnn.py:184"),
     "rnn_bwd_grid_gru": ("csrc/rnn_bwd_tf32_grid.cu", "pallas_rnn.py:243"),
+    "rnn_fused_fwd_grid_lstm": ("csrc/rnn_fwd_tf32_grid.cu",
+                                "pallas_rnn.py:626"),
+    "rnn_fused_fwd_grid_gru": ("csrc/rnn_fwd_tf32_grid.cu",
+                               "pallas_rnn.py:652"),
+    "rnn_fwd_grid_lstm": ("csrc/rnn_fwd_tf32_grid.cu", "pallas_rnn.py:135"),
+    "rnn_fwd_grid_gru": ("csrc/rnn_fwd_tf32_grid.cu", "pallas_rnn.py:158"),
     "rnn_fused_bwd_grid_bf16_lstm": ("csrc/rnn_bwd_grid.cu",
                                      "pallas_rnn.py:673"),
     "rnn_fused_bwd_grid_bf16_gru": ("csrc/rnn_bwd_grid.cu",
@@ -471,6 +483,9 @@ SEED_SOURCES = {
     "rnn_fwd_grid_bf16_lstm_seeds": (
         "rnn_fwd_grid_bf16_lstm", "csrc/rnn_fwd_grid.cu",
         "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
+    "rnn_fwd_grid_lstm_seeds": (
+        "rnn_fwd_grid_lstm", "csrc/rnn_fwd_tf32_grid.cu",
+        "pallas_rnn.py:135 (seed grid: _make_scan._fwd_vmap :504)"),
 }
 PLAIN_STEPS = 3      # steps of each model held against the plain path
 TIMED_STEPS = 4      # steps of each model timed
@@ -499,11 +514,11 @@ WF_FOLDS, WF_STEP, WF_VAL, WF_EPOCHS = 2, 12, 24, 1
 CUDA_CORE = ("rnn_fused_fwd_lstm", "rnn_fused_fwd_gru", "rnn_fused_bwd_lstm",
              "rnn_fused_bwd_gru", "rnn_fwd_lstm", "rnn_fwd_gru",
              "rnn_bwd_lstm", "rnn_bwd_gru")
-CUDA_CORE_BWD = tuple(k for k in CUDA_CORE if "_bwd_" in k)
 TF32 = tuple(f"rnn_{form}_tf32_{cell}" for form in ("fused_fwd", "fwd",
                                                     "fused_bwd", "bwd")
              for cell in ("lstm", "gru"))
-GRID = tuple(f"rnn_{form}_grid_{cell}" for form in ("fused_bwd", "bwd")
+GRID = tuple(f"rnn_{form}_grid_{cell}"
+             for form in ("fused_fwd", "fwd", "fused_bwd", "bwd")
              for cell in ("lstm", "gru"))
 
 
@@ -1284,8 +1299,9 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     rows of the batch at hidden :data:`PADDED_HIDDEN` (the first 120
     units: the 3xTF32 kernels zero-padded to 128, timed apart from their
     pads and beside the CUDA-core kernels on the same inputs), and rows 3
-    and 1 at :data:`CUDA_CORE_HIDDEN` (``rnn_fused_fwd.cu``, the forward's
-    route above 128; the backwards there are phase 28's), seeded weights.
+    and 1 at :data:`F32_CLUSTER_HIDDEN` (the float32 grid forward, timed
+    in turns with ``rnn_fused_fwd.cu``; the backwards there are phase
+    28's), seeded weights.
     Bounds at both f32 rates, of the unpadded work."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -1308,7 +1324,7 @@ def check_f32_lane(torch, kernels, cell: str, hin, wx, b, wh, mm, dh,
     f32_bwd_rows(torch, kernels, "c2 train step", cell, hin, wx, b, wh, mm,
                  h, c, dh, xw)
     del h, c, xw
-    for H2 in (PADDED_HIDDEN, CUDA_CORE_HIDDEN):
+    for H2 in (PADDED_HIDDEN, F32_CLUSTER_HIDDEN):
         G2 = GATES[cell] * H2
         sd = H2 ** -0.5
         wx2, wh2 = ((sd * torch.randn(H2, G2, generator=gen)).cuda()
@@ -1360,17 +1376,20 @@ def padded_times(torch, form: str, cell: str, ops, rest, route_call) -> dict:
 
 
 def f32_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
-                 xw) -> None:
+                 xw, before: bool = True, name_suffix: str = "") -> None:
     """Rows 3 and 1 in float32, saving c_all as training does, through the
     route at this H (counted, nothing else launched): at H <= 128 the
-    3xTF32 forward, timed in turns with ``rnn_fused_fwd.cu`` (its private
-    launcher) on the same inputs (3xTF32, CUDA cores, CUDA cores, 3xTF32:
-    ``ms`` and ``device_ms`` are the first reading, ``turns_ms`` all four)
-    and, at a padded width, with its pads apart (:func:`padded_times`);
-    above 128 ``rnn_fused_fwd.cu`` itself. Beside both bounds, the plain
-    version and, for row 3, the cuDNN yardstick. h_all and c_all within
-    atol 1e-5 of the plain version (the JAX f32 bound on the op's
-    output)."""
+    3xTF32 forward, above 128 the float32 grid forward
+    (``rnn_fwd_tf32_grid.cu``, with its group, rows, groups and barrier
+    waits); with ``before``, timed in turns with ``rnn_fused_fwd.cu`` (its
+    private launcher) on the same inputs (route, CUDA cores, CUDA cores,
+    route: ``ms`` and ``device_ms`` are the first reading, ``turns_ms`` all
+    four), the CUDA-core kernel held to the plain version too and, above
+    128, recorded under its own name (the table's "[before]"), and at a
+    padded width with its pads apart (:func:`padded_times`). Beside both
+    bounds, the plain version and, for row 3, the cuDNN yardstick. h_all
+    and c_all within atol 1e-5 of the plain version (the JAX f32 bound on
+    the op's output). ``name_suffix`` names the records (``@h1024``)."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -1379,9 +1398,11 @@ def f32_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     padded = R._padded_width(H) != H
     want = R.rnn_scan_states(cell, xw, wh, mm, 1.0, True)
     library = cudnn_yardstick(torch, cell, hin, wx, b, wh, F32_TOL, 0.0)
+    tag = {"tf32": "tf32_", "grid": "grid_"}[route]
     for kind, fused in (("fused_fwd", True), ("fwd", False)):
         form = "fused_" if fused else ""
-        name = f"rnn_{form}fwd_{'tf32_' if route == 'tf32' else ''}{cell}"
+        name = f"rnn_{form}fwd_{tag}{cell}"
+        core_name = f"rnn_{form}fwd_{cell}"
         ops = (hin, wx, b, wh, mm) if fused else (xw, wh, mm)
         if fused:
             runs = {"route": lambda: R._fused_states(
@@ -1393,7 +1414,7 @@ def f32_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                 cell, xw, wh, mm, 1.0, True)}
             plain_ms = time_ms(lambda: R.rnn_scan_states(
                 cell, xw, wh, mm, 1.0, True), reps=3, warmup=1)
-        if route == "tf32":
+        if before:
             runs["cuda_core"] = (lambda f=fused: R._launch_fwd(
                 cell, not f, ops[0], *((wx, b) if f else (None, None)),
                 wh, mm, 1.0, True))
@@ -1402,7 +1423,7 @@ def f32_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
             _build.reset_launch_counts()
             out = run()
             counts = _build.launch_counts()
-            launched = name if mode == "route" else f"rnn_{form}fwd_{cell}"
+            launched = name if mode == "route" else core_name
             if counts[launched] != 1 or sum(counts.values()) != 1:
                 fail(f"{launched} ({mode}) at {where}: launched {counts}")
             torch.cuda.synchronize()
@@ -1424,28 +1445,56 @@ def f32_fwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
         order = (("route", "cuda_core", "cuda_core", "route")
                  if "cuda_core" in runs else ("route",))
         for mode in order:
-            turns[mode].append(kernel_ms(runs[mode], reps=5, launches=2))
+            turns[mode].append(kernel_ms(runs[mode], reps=5 if before
+                                         else 2, launches=2))
+        bounds = f32_bounds(kind, cell, B, T, H, True)
         rec = dict(shape=[B, T, H], dtype="float32", save_c=True,
-                   plain_ms=plain_ms, **f32_bounds(kind, cell, B, T, H, True),
+                   plain_ms=plain_ms, **bounds,
                    **(library if fused else hoisted_yardstick(
                        torch, cell, xw, wh, F32_TOL, 0.0)),
                    tolerance=f"atol {F32_TOL}",
                    max_abs_err=max(errs["route"].values()),
                    max_abs_err_by_state=errs["route"], **turns["route"][0],
-                   host_ms=host_ms(runs["route"]))
+                   host_ms=host_ms(runs["route"], reps=5 if before else 2))
+        if route == "grid":
+            stats = {}
+            R._launch_fwd_grid(cell, fused, *((hin, wx, b) if fused else
+                                              (xw, None, None)), wh, mm,
+                               1.0, True, stats=stats)
+            torch.cuda.synchronize()
+            cyc = stats["cycles"].double().cpu()
+            rec.update(group=stats["group"], rows=stats["rows"],
+                       groups=stats["groups"],
+                       ctas_at_once=stats["ctas_at_once"],
+                       kernels_a_call=stats["kernels"],
+                       barrier_wait_share_mean=float(
+                           (cyc[:, 0] / cyc[:, 1]).mean()))
         if "cuda_core" in runs:
             rec.update(cuda_core_ms=turns["cuda_core"][0]["ms"],
                        cuda_core_device_ms=turns["cuda_core"][0]["device_ms"],
                        cuda_core_max_abs_err=max(errs["cuda_core"].values()),
                        turns_ms={m: [t["ms"] for t in v]
                                  for m, v in turns.items()})
+            if route == "grid":
+                report(kernels, core_name + name_suffix, where, dict(
+                    shape=[B, T, H], dtype="float32", save_c=True,
+                    max_abs_err=max(errs["cuda_core"].values()),
+                    rows_per_block=R._simt_rows(cell, kind, H, hin.device),
+                    **turns["cuda_core"][0], plain_ms=plain_ms, **bounds,
+                    **{k: v for k, v in rec.items()
+                       if k.startswith("library")}))
         if padded:
             rec.update(padded_times(torch, kind, cell, ops, (1.0, True),
                                     runs["route"]))
-        report(kernels, name, where, rec)
+        report(kernels, name + name_suffix, where, rec)
         log(f"{name} (float32) at {where}: {rec['ms']:.4f} ms (device "
             f"{rec['device_ms']:.4f}, host {rec['host_ms']:.4f}"
             + (f", pads {rec['pad_ms']:.4f}" if padded else "") + ")"
+            + (f", {rec['groups']} groups of {rec['group']} CTAs x "
+               f"{rec['rows']} rows ({rec['kernels_a_call']} kernels), "
+               f"barrier waits "
+               f"{100 * rec['barrier_wait_share_mean']:.1f}%"
+               if route == "grid" else "")
             + (f", rnn_fused_fwd.cu {rec['cuda_core_ms']:.4f} (device "
                f"{rec['cuda_core_device_ms']:.4f}), in turns "
                f"{rec['turns_ms']}" if "cuda_core_ms" in rec else "")
@@ -1555,10 +1604,10 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                  h, c, dh, xw, name_suffix: str = "",
                  plain_reps: int = 3) -> None:
     """Rows 4 and 2 in float32 through the public backwards, on the route's
-    kernels at this H (``rnn_bwd_tf32.cu`` up to Hp 384: at H <= 128 its
-    1- or 2-CTA form, zero-padded to the next multiple of 16 where H is
-    off one, above 128 W_h split over a cluster of 2-16 CTAs;
-    ``rnn_bwd_tf32_grid.cu`` past 384, to 1024): each launched once per
+    kernels at this H (``rnn_bwd_tf32.cu`` up to ``TF32_MAX_WIDTH``: at H
+    <= 128 its 1- or 2-CTA form, zero-padded to the next multiple of 16
+    where H is off one, above 128 W_h split over a cluster of 2-4 CTAs;
+    ``rnn_bwd_tf32_grid.cu`` past it, to 1024): each launched once per
     call (counted), twice for bitwise equal outputs, against its plain
     version at scaled atol 1e-5, timed beside both bounds, the plain
     version and the ``library_ms`` yardstick — at H <= 128 the
@@ -1570,8 +1619,7 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     on the grid route in turns with it (grid, CUDA cores, CUDA cores,
     grid: ``turns_ms``), and above 128 also recorded under its own name
     (the table's "[before]"); a cluster's size, rows and clusters at once
-    (the grid's group, rows, groups and CTAs at once) are kept, at Hp 384
-    the grid kernel is timed beside the cluster form for the record, and a
+    (the grid's group, rows, groups and CTAs at once) are kept, and a
     padded row's pads timed apart (:func:`padded_times`). Records carry
     ``name_suffix``."""
     from lfm_quant_tpu_torch.ops import _build
@@ -1678,24 +1726,6 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                 max_abs_err=core_err,
                 rows_per_block=R._simt_rows(cell, kind, H, dev), **cc,
                 **common))
-        if route == "tf32" and H == 384:
-            # For the record: the grid kernel at the cluster form's cap.
-            def grid(a=args[1:] if fused else (xw, None, None) + args[2:],
-                     f=fused):
-                return R._launch_bwd_grid(cell, f, *a, 1.0)
-            _build.reset_launch_counts()
-            got = grid()
-            if _build.launch_counts()[f"rnn_{'fused_' if fused else ''}"
-                                      f"bwd_grid_{cell}"] != 1:
-                fail(f"the grid backward at H 384: launched "
-                     f"{_build.launch_counts()}")
-            g_err = grads_close(f"the grid {kind} at {where}", got,
-                                plain(*args), torch.float32)
-            del got
-            gt = kernel_ms(grid, reps=3, launches=2)
-            rec.update(grid_ms=gt["ms"], grid_device_ms=gt["device_ms"],
-                       grid_max_abs_err=g_err,
-                       grid_shape=grid_shape(torch, cell, B, H, dev))
         if route == "tf32":
             cc = kernel_ms(core, reps=2 if wide else 5, launches=2)
             rec.update(cuda_core_ms=cc["ms"],
@@ -1726,8 +1756,6 @@ def f32_bwd_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                f"{rec['rows']} rows, {rec['ctas_at_once']} CTAs at once, "
                if "group" in rec else "")
             + (f"in turns {rec['turns_ms']}, " if "turns_ms" in rec else "")
-            + (f"the grid kernel {rec['grid_ms']:.4f} ms (device "
-               f"{rec['grid_device_ms']:.4f}), " if "grid_ms" in rec else "")
             + f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}"
             + (f", pads {rec['pad_ms']:.4f}" if "pad_ms" in rec else "")
             + "), rnn_bwd.cu "
@@ -2010,15 +2038,13 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
     # the GRU at c2's geometry, both cells and both forms in float32 (the
     # 3xTF32 forwards and backwards), the same at hidden 120 (the 3xTF32
     # kernels zero-padded to 128): no CUDA-core kernel in any; the float32
-    # four at hidden 160 (the CUDA-core forwards, the 3xTF32 backwards on
-    # a cluster: no CUDA-core backward) and at hidden 400 (past the 3xTF32
-    # cluster: the CUDA-core forwards and the grid backwards, no CUDA-core
-    # backward); the bf16 four at hidden 528 (past the cluster kernels:
+    # four at hidden 160 and at hidden 400 (the float32 grid forwards, the
+    # backwards of the route: the grid's fused form on the forward's xw,
+    # five kernels), the bf16 four at hidden 528 (past the cluster kernels:
     # the bf16 grid forwards and backwards, the fused backward on the
-    # forward's xw, five kernels; no CUDA-core kernel): a few steps each.
+    # forward's xw, five kernels): no CUDA-core kernel in any; a few steps
+    # each.
     h120 = dict(cfg.model.kwargs, hidden=PADDED_HIDDEN)
-    h160 = dict(cfg.model.kwargs, hidden=CUDA_CORE_HIDDEN)
-    h400 = dict(cfg.model.kwargs, hidden=PAST_CAP_HIDDEN)
     h528 = dict(cfg.model.kwargs, hidden=CORE_BF16_HIDDEN)
     # Past 512 in bf16 no kernel runs but the bf16 grids.
     not_core = TF32 + GRID + CUDA_CORE + tuple(
@@ -2065,40 +2091,16 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
                            kwargs=h120),
              ("rnn_fwd_tf32_gru", "rnn_bwd_tf32_gru", "window_gather"),
              CUDA_CORE),
-            ("c2 training (fused, float32, hidden 160)",
-             train_variant(cfg, bf16=False, kwargs=h160),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_tf32_lstm",
-              "window_gather"), CUDA_CORE_BWD),
-            ("c2 training (hoisted, float32, hidden 160)",
-             train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h160),
-             ("rnn_fwd_lstm", "rnn_bwd_tf32_lstm", "window_gather"),
-             CUDA_CORE_BWD),
-            ("GRU training (fused, float32, hidden 160)",
-             train_variant(cfg, kind="gru", bf16=False, kwargs=h160),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_tf32_gru",
-              "window_gather"), CUDA_CORE_BWD),
-            ("GRU training (hoisted, float32, hidden 160)",
-             train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
-                           kwargs=h160),
-             ("rnn_fwd_gru", "rnn_bwd_tf32_gru", "window_gather"),
-             CUDA_CORE_BWD),
-            ("c2 training (fused, float32, hidden 400)",
-             train_variant(cfg, bf16=False, kwargs=h400),
-             ("rnn_fused_fwd_lstm", "rnn_fused_bwd_grid_lstm",
-              "window_gather"), TF32 + CUDA_CORE_BWD),
-            ("c2 training (hoisted, float32, hidden 400)",
-             train_variant(cfg, scan_impl="pallas", bf16=False, kwargs=h400),
-             ("rnn_fwd_lstm", "rnn_bwd_grid_lstm", "window_gather"),
-             TF32 + CUDA_CORE_BWD),
-            ("GRU training (fused, float32, hidden 400)",
-             train_variant(cfg, kind="gru", bf16=False, kwargs=h400),
-             ("rnn_fused_fwd_gru", "rnn_fused_bwd_grid_gru",
-              "window_gather"), TF32 + CUDA_CORE_BWD),
-            ("GRU training (hoisted, float32, hidden 400)",
-             train_variant(cfg, kind="gru", scan_impl="pallas", bf16=False,
-                           kwargs=h400),
-             ("rnn_fwd_gru", "rnn_bwd_grid_gru", "window_gather"),
-             TF32 + CUDA_CORE_BWD),
+            *((f"{name} training ({form}, float32, hidden {hidden})",
+               train_variant(cfg, kind=cell, bf16=False,
+                             kwargs=dict(cfg.model.kwargs, hidden=hidden),
+                             **({} if form == "fused"
+                                else dict(scan_impl="pallas"))),
+               (*f32_route_names(cell, hidden, form == "fused"),
+                "window_gather"), CUDA_CORE)
+              for hidden in (F32_CLUSTER_HIDDEN, PAST_CAP_HIDDEN)
+              for name, cell in (("c2", "lstm"), ("GRU", "gru"))
+              for form in ("fused", "hoisted")),
             ("c2 training (fused, hidden 528)", train_variant(cfg, kwargs=h528),
              ("rnn_fused_fwd_grid_bf16_lstm", "rnn_fused_bwd_grid_bf16_lstm",
               "window_gather"), not_core),
@@ -2115,7 +2117,7 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
              ("rnn_fwd_grid_bf16_gru", "rnn_bwd_grid_bf16_gru",
               "window_gather"), not_core))
     for label, run_cfg, must, must_not in runs:
-        grid = "hidden 528" in label
+        grid = any("_grid_" in k and "_bwd_" in k for k in must)
         got, counts = counted(label, must, lambda: grid_kernels_seen(
             short_run, torch, run_cfg, splits, TRAIN_STEPS_SHORT), must_not)
         got, seen = got
@@ -2123,7 +2125,8 @@ def train_phase(torch, cfg, splits, totals: dict) -> None:
             totals[k] += n_launch
         if grid:
             # One grid forward and one grid backward a step; the fused
-            # backward takes the forward's xw (five kernels, not six).
+            # backward takes the forward's xw (five kernels, not six), in
+            # bf16 and in float32.
             want_k = 5 if "fused" in label else 4
             if (any(counts[k] != TRAIN_STEPS_SHORT for k in must)
                     or seen != [want_k] * TRAIN_STEPS_SHORT):
@@ -2188,6 +2191,20 @@ def grid_kernels_seen(fn, *args):
         return fn(*args), seen
     finally:
         R._launch_bwd_grid = real
+
+
+def f32_route_names(cell: str, H: int, fused: bool) -> tuple:
+    """The counters of the float32 forward and backward that the route
+    (``ops/rnn.py _mma_route``) takes at hidden ``H``, fused or
+    hoisted."""
+    import torch
+
+    from lfm_quant_tpu_torch.ops import rnn as R
+
+    tags = {"tf32": "tf32_", "grid": "grid_", "simt": ""}
+    form = "fused_" if fused else ""
+    return tuple(f"rnn_{form}{d}_{tags[R._mma_route(torch.float32, H, d)]}"
+                 f"{cell}" for d in ("fwd", "bwd"))
 
 
 def cuda_core_bwd(*a, xw=None):
@@ -6351,18 +6368,18 @@ def stacked_phase(torch, cfg2, panel, totals: dict, seed_launches: dict,
 
 WIDE_HIDDEN = 256         # phase 28's model: c2 at a width past the caps
 WIDE_WIDTHS = (512,)      # rows 1-4 held at this width too
-# Rows 4 and 2 in float32 above 128: the 3xTF32 cluster's widths (its
-# cluster sizes 4, 8, 16 in the LSTM; 2, 8, 16 in the GRU) and the grid's
-# past its cap (its groups of 17 and 40 CTAs in the LSTM; 13 and 27 in the
-# GRU); 384 and 640 have no main path (suffixed records). 320 and 1024
-# were cut for the time the grids' readings take.
+# Rows 4 and 2 in float32 above 128: the 3xTF32 cluster's width 160 (4
+# CTAs in the LSTM, 2 in the GRU) and the grid's past its cap at 176 (at
+# 256, 384, 400 and 640: groups of 17 and 40 CTAs in the LSTM at 400 and
+# 640; 13 and 27 in the GRU); 384 and 640 have no main path (suffixed
+# records). 320 and 1024 were cut for the time the grids' readings take.
 F32_WIDE_WIDTHS = (160, 256, 384, PAST_CAP_HIDDEN, 640)
+# The float32 grid forward's widest, rows 3 and 1 held and timed once (one
+# group of 128 CTAs; no "[before]").
+F32_FWD_WIDEST = 1024
 # The bf16 grid forward's widths past 528 held to the plain version: H 530
 # (zero-padded to 544), 1024 and the widest, 1520 (row 3 alone).
 FWD_GRID_WIDTHS = (530, 1024, 1520)
-# The float32 hoisted seed grids' main paths: the CUDA-core forward with
-# the 3xTF32 cluster backward, and past the cap both on the CUDA cores.
-GRID_F32_HIDDEN = 160
 WIDE_STEPS = 3            # steps of each wide run held to the plain path
 WIDE_REQUESTS = 16        # requests served from the wide universe
 GRID_SEEDS = 3            # the seed grids held at the c2 step and at H 256
@@ -7001,17 +7018,21 @@ def f32_wide_rows(torch, kernels, gen) -> None:
     """Phase 28's float32 rows 4 and 2 above 128 (B 2048, T 60, seeded
     weights at H^-1/2, both cells) at :data:`F32_WIDE_WIDTHS`, through
     :func:`f32_bwd_rows`: the 3xTF32 cluster (its size, rows and clusters
-    at once) up to 384 and the grid (its group, rows and groups) past it,
-    beside ``rnn_bwd.cu`` on the same inputs (also recorded under its own
-    name), the plain version, both bounds and cuDNN's f32 backward. At
-    hidden 256 the 3xTF32 cluster's seed grids (S 3, W_h shared; fused and
-    hoisted: one counted call, each seed bitwise its one-seed call); at
-    :data:`PAST_CAP_HIDDEN` rows 3 and 1 on ``rnn_fused_fwd.cu``
-    (:func:`f32_fwd_rows`), row 4's split by kernel and barrier wait
-    (:func:`grid_split`) and the grid's seed grids (:func:`grid_seeds`).
-    Then a cluster the card refuses (the LSTM's 384 on 8 CTAs) and a grid
-    it cannot hold at once (one group more than it takes), which must
-    raise."""
+    at once) up to ``TF32_MAX_WIDTH`` and the grid (its group, rows and
+    groups) past it, beside ``rnn_bwd.cu`` on the same inputs (also
+    recorded under its own name), the plain version, both bounds and
+    cuDNN's f32 backward. At hidden 256 the route's seed grids (S 3, W_h
+    shared; fused and hoisted: one counted call, each seed bitwise its
+    one-seed call); at
+    :data:`PAST_CAP_HIDDEN` rows 3 and 1 on the float32 grid forward in
+    turns with ``rnn_fused_fwd.cu`` (:func:`f32_fwd_rows`), row 4 handed
+    the forward's xw (:func:`xw_handover`), row 4's split by kernel and
+    barrier wait (:func:`grid_split`) and the grids' seed grids
+    (:func:`grid_seeds`, :func:`fwd_grid_seeds`); rows 3 and 1 at
+    :data:`F32_FWD_WIDEST` on the grid forward alone (held, timed once).
+    Then a cluster the card refuses (the LSTM's 176 on 2 CTAs) and grids
+    it cannot hold at once (one group more than it takes, backward and
+    forward), which must raise."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
@@ -7035,13 +7056,18 @@ def f32_wide_rows(torch, kernels, gen) -> None:
                          name_suffix=f"@h{H}" if H in (384, 640, 1024)
                          else "")
             if H == PAST_CAP_HIDDEN:
-                f32_fwd_rows(torch, kernels, where, cell, hin, wx, bb, wh, mm,
-                             xw)
+                with torch.no_grad():
+                    f32_fwd_rows(torch, kernels, where, cell, hin, wx, bb,
+                                 wh, mm, xw)
+                xw_handover(torch, kernels, where, cell, hin, wx, bb, wh, mm,
+                            dh)
                 grid_split(torch, kernels, where, cell, hin, wx, bb, wh, mm,
                            h, c, dh)
                 if cell == "lstm":
                     grid_seeds(torch, kernels, cell, hin, wx, bb, wh, mm, dh,
                                xw)
+                    fwd_grid_seeds(torch, kernels, cell, hin, wx, bb, wh, mm,
+                                   xw)
             if H == WIDE_HIDDEN and cell == "lstm":
                 S = GRID_SEEDS
                 stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
@@ -7055,14 +7081,14 @@ def f32_wide_rows(torch, kernels, gen) -> None:
                     sf = R._fused_states(cell, hin3, wx3, b3, wh[None], m3,
                                          1.0, True)
                 for name, run, single in (
-                        (f"rnn_bwd_tf32_{cell}",
+                        (f32_route_names(cell, H, False)[1],
                          lambda: R.rnn_scan_bwd(cell, xw3, wh[None], m3, *sx,
                                                 dh3),
                          lambda s: R.rnn_scan_bwd(
                              cell, xw3[s], wh, m3[s],
                              *(None if t is None else t[s] for t in sx),
                              dh3[s])),
-                        (f"rnn_fused_bwd_tf32_{cell}",
+                        (f32_route_names(cell, H, True)[1],
                          lambda: R.rnn_scan_fused_bwd(cell, hin3, wx3, b3,
                                                       wh[None], m3, *sf, dh3),
                          lambda s: R.rnn_scan_fused_bwd(
@@ -7079,25 +7105,25 @@ def f32_wide_rows(torch, kernels, gen) -> None:
                                    range(S))
                     del got
                 log(f"float32 seed grids at H {H} (S {S}, W_h shared): the "
-                    f"3xTF32 cluster backwards one call each, every seed "
+                    f"backwards of the route one call each, every seed "
                     f"bitwise its one-seed call")
                 del xw3, hin3, dh3, wx3, b3, m3, sx, sf
             del hin, wx, wh, bb, mm, dh, xw, h, c
             torch.cuda.empty_cache()
     # No fallback: a cluster the card cannot hold raises.
-    hin = torch.randn(16, 3, 384, **f32)
-    wx, wh = (384 ** -0.5 * torch.randn(384, 1536, **f32) for _ in range(2))
-    bb = torch.zeros(1536, device="cuda")
+    hin = torch.randn(16, 3, 176, **f32)
+    wx, wh = (176 ** -0.5 * torch.randn(176, 704, **f32) for _ in range(2))
+    bb = torch.zeros(704, device="cuda")
     mm = torch.ones(16, 3, dtype=torch.bool, device="cuda")
     h, c = R.rnn_scan_states("lstm", hin @ wx + bb, wh, mm, 1.0, True)
     _build.reset_launch_counts()
     try:
         R._launch_bwd_tf32("lstm", True, hin, wx, bb, wh, mm, h, c, h, 1.0,
-                           cluster=8, rows=16)
+                           cluster=2, rows=16)
     except ValueError as exc:
-        log(f"the LSTM at H 384 on 8 CTAs is refused: {exc}")
+        log(f"the LSTM at H 176 on 2 CTAs is refused: {exc}")
     else:
-        fail("the LSTM at H 384 ran on 8 CTAs, past the card's shared "
+        fail("the LSTM at H 176 ran on 2 CTAs, past the card's shared "
              "memory")
     if any(_build.launch_counts().values()):
         fail(f"a refused cluster launched {_build.launch_counts()}")
@@ -7122,8 +7148,40 @@ def f32_wide_rows(torch, kernels, gen) -> None:
              f"more than the card's {ctas} at once")
     if any(_build.launch_counts().values()):
         fail(f"a refused grid launched {_build.launch_counts()}")
+    # And the float32 grid forward: refused before any launch, its xw GEMM
+    # included.
+    props = torch.cuda.get_device_properties(hin.device)
+    n = R._fwd_grid_size("lstm", 400, props.shared_memory_per_block_optin,
+                         props.multi_processor_count)
+    ctas = R._fwd_grid_check("lstm", True, 400, n, 64, hin.device)
+    _build.reset_launch_counts()
+    try:
+        R._launch_fwd_grid("lstm", True, hin, wx, bb, wh, mm, 1.0, True,
+                           group=n, rows=64, groups=ctas // n + 1)
+    except RuntimeError as exc:
+        log(f"the float32 LSTM forward at H 400 on {ctas // n + 1} groups "
+            f"of {n} CTAs ({ctas} at once) is refused: {exc}")
+    else:
+        fail(f"the float32 LSTM forward at H 400 ran {ctas // n + 1} groups "
+             f"of {n} CTAs, more than the card's {ctas} at once")
+    if any(_build.launch_counts().values()):
+        fail(f"a refused grid forward launched {_build.launch_counts()}")
     del hin, wx, wh, bb, mm, h, c
     torch.cuda.empty_cache()
+    # The float32 grid forward at its widest: one group of 128 CTAs.
+    H = F32_FWD_WIDEST
+    for cell in ("lstm", "gru"):
+        G = GATES[cell] * H
+        hin = torch.randn(B, T, H, **f32)
+        wx, wh = (H ** -0.5 * torch.randn(H, G, **f32) for _ in range(2))
+        bb = 0.1 * torch.randn(G, **f32)
+        mm = torch.rand(B, T, **f32) < 0.75
+        with torch.no_grad():
+            f32_fwd_rows(torch, kernels, f"B {B}, T {T}, H {H}", cell, hin,
+                         wx, bb, wh, mm, hin @ wx + bb, before=False,
+                         name_suffix=f"@h{H}")
+        del hin, wx, wh, bb, mm
+        torch.cuda.empty_cache()
 
 
 def core_bf16_rows(torch, kernels, gen) -> None:
@@ -7270,9 +7328,10 @@ def fwd_grid_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     does: through the public forwards (``_fused_states``,
     ``_scan_states_any``), one counted launch each and nothing else, h_all
     and c_all within atol 0.05 + rtol 0.05 of the plain version, bitwise
-    repeatable and the same bits from a larger group, from 128 rows a work
-    item and from one group; timed beside the bound, the plain version,
-    cuDNN's forward and ``rnn_fused_fwd.cu`` on the same inputs in turns
+    repeatable and the same bits from a larger group, from one of about
+    half the CTAs (at 528 the fewest that fit: the backward's rule), from
+    128 rows a work item and from one group; timed beside the bound, the
+    plain version, cuDNN's forward and ``rnn_fused_fwd.cu`` on the same inputs in turns
     (grid, CUDA cores, CUDA cores, grid; ``rnn_fused_fwd.cu`` held to the
     plain version too and recorded as ``<name>@h<H>``: the table's
     "[before]"), with the group, rows and groups chosen, the barrier waits
@@ -7339,14 +7398,15 @@ def fwd_grid_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                    if p is not None):
             fail(f"{name} at {where}: two calls differ")
         del again
-        n = R._fwd_grid_size(cell, H, limit, sms)
-        rows = R._fwd_grid_rows(cell, H, n, B, 1, limit, sms)
+        n = R._fwd_grid_size(cell, H, limit, sms, bf)
+        rows = R._fwd_grid_rows(cell, H, n, limit, sms, bf)
         pairs = [] if widest else [dict(group=n, rows=64, groups=1)]
-        for more in ((n + 3, 2 * n - 1) if not widest else ()):
+        for other in ((n + 3, n // 2 + 1) if not widest else ()):
             for r in R.GRID_ROWS:
-                if (more <= sms and R._grid_takes(H, more, r, bf)
-                        and R._fwd_grid_smem(cell, H, more, r) <= limit):
-                    pairs.append(dict(group=more, rows=r))
+                if (other <= sms and R._grid_takes(H, other, r, bf)
+                        and R._fwd_grid_smem(cell, H, other, r, bf)
+                        <= limit):
+                    pairs.append(dict(group=other, rows=r))
         for kw in pairs:
             other = R._launch_fwd_grid(cell, fused, xin, xwx, xb, wh, mm,
                                        1.0, True, **kw)
@@ -7432,8 +7492,8 @@ def fwd_grid_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
         fwd_grid_seeds(torch, kernels, cell, hin, wx, b, wh, mm, xw)
     # A grid of one group more than the card holds: refused before any
     # launch, the xw GEMM included.
-    n = R._fwd_grid_size(cell, H, limit, sms)
-    ctas = R._fwd_grid_check(cell, True, H, n, 64, dev)
+    n = R._fwd_grid_size(cell, H, limit, sms, bf)
+    ctas = R._fwd_grid_check(cell, True, H, n, 64, dev, bf)
     _build.reset_launch_counts()
     try:
         R._launch_fwd_grid(cell, True, hin, wx, b, wh, mm, 1.0, True,
@@ -7450,15 +7510,20 @@ def fwd_grid_rows(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
 
 def xw_handover(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
                 dh) -> None:
-    """The fused row 4 on the bf16 grid handed the grid forward's f32 xw
-    scratch (as ``_FusedScan`` hands it over): five kernels, where the
-    row 4 that forms its own xw launches six, and every gradient bitwise
-    that row 4's (both xw GEMMs are one call of the same GEMM); both timed
-    in turns, each given a fresh copy of the scratch outside the timed
-    window, as ``rnn_fused_bwd_grid_bf16_<cell>_xw``."""
+    """The fused row 4 on the grid handed the grid forward's f32 xw
+    scratch (as ``_FusedScan`` hands it over), in ``hin``'s dtype: five
+    kernels, where the row 4 that forms its own xw launches six. bf16:
+    every gradient bitwise that row 4's (both xw GEMMs are one call of the
+    same GEMM); float32: every gradient within the scaled f32 bound of it
+    and of the plain version (the forward's xw is a CUDA-core f32 sum, the
+    backward's own a 3xTF32 GEMM). Both timed in turns, each given a fresh
+    copy of the scratch outside the timed window, and on the device alone,
+    as ``rnn_fused_bwd_grid_[bf16_]<cell>_xw``."""
     from lfm_quant_tpu_torch.ops import rnn as R
 
     B, T, H = hin.shape
+    bf = hin.dtype == torch.bfloat16
+    tag = "bf16_" if bf else ""
     with torch.no_grad():
         h, c, xw = R._launch_fwd_grid(cell, True, hin, wx, b, wh, mm, 1.0,
                                       True, keep_xw=True)
@@ -7469,12 +7534,23 @@ def xw_handover(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     got = R._launch_bwd_grid(cell, True, hin, wx, b, wh, mm, h, c, dh, 1.0,
                              xw=xw, stats=given)
     if (own["kernels"], given["kernels"]) != (6, 5):
-        fail(f"the fused bf16 grid backward at {where} launched "
+        fail(f"the fused {hin.dtype} grid backward at {where} launched "
              f"{own['kernels']} kernels on its own xw, {given['kernels']} "
              f"on the forward's, not 6 and 5")
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        fail(f"the fused bf16 grid backward at {where}: the forward's xw "
-             f"changes the bits")
+    if bf:
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"the fused bf16 grid backward at {where}: the forward's "
+                 f"xw changes the bits")
+        err = 0.0
+    else:
+        plain = R.rnn_scan_fused_bwd_reference(
+            cell, *(t.double() for t in (hin, wx, b, wh)), mm,
+            *(None if t is None else t.double() for t in (h, c, dh)))
+        err = max(grads_close(f"row 4 on the forward's xw at {where}", got,
+                              plain, torch.float32),
+                  grads_close(f"row 4 on the forward's xw against its own "
+                              f"at {where}", got, want, torch.float32))
+        del plain
     del got, want
 
     def timed(fn, setup, reps=3):
@@ -7499,15 +7575,22 @@ def xw_handover(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
     turns = dict(own=[timed(mine, refill)], given=[timed(handed, refill)])
     turns["given"].append(timed(handed, refill))
     turns["own"].append(timed(mine, refill))
-    rec = dict(shape=[B, T, H], dtype="bfloat16", bitwise_vs_own_xw=True,
+    # The device alone: the scratch's values set no kernel's work, so the
+    # calls queued back to back run on what the last one left.
+    rec = dict(shape=[B, T, H], dtype=str(hin.dtype).replace("torch.", ""),
+               bitwise_vs_own_xw=bf, max_scaled_err=err,
                kernels_given_xw=given["kernels"],
                kernels_own_xw=own["kernels"], turns_ms=turns,
                ms=statistics.median(turns["given"]),
-               own_xw_ms=statistics.median(turns["own"]))
-    report(kernels, f"rnn_fused_bwd_grid_bf16_{cell}_xw", where, rec)
-    log(f"row 4 on the bf16 grid at {where} handed the forward's xw: "
-        f"{given['kernels']} kernels (own xw: {own['kernels']}), bitwise "
-        f"the same; in turns {turns} ms")
+               device_ms=device_ms(handed, reps=3, launches=2),
+               own_xw_ms=statistics.median(turns["own"]),
+               own_xw_device_ms=device_ms(mine, reps=3, launches=2))
+    report(kernels, f"rnn_fused_bwd_grid_{tag}{cell}_xw", where, rec)
+    log(f"row 4 on the {hin.dtype} grid at {where} handed the forward's "
+        f"xw: {given['kernels']} kernels (own xw: {own['kernels']}), "
+        + ("bitwise the same" if bf else f"within {err:.3g} (scaled)")
+        + f"; in turns {turns} ms; device {rec['device_ms']:.4f} (own "
+        f"{rec['own_xw_device_ms']:.4f})")
     del h, c, xw, saved
     torch.cuda.empty_cache()
 
@@ -7515,16 +7598,19 @@ def xw_handover(torch, kernels, where: str, cell: str, hin, wx, b, wh, mm,
 def fwd_grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm,
                    xw) -> None:
     """The grid forward's seed grids (``_fwd_vmap`` :920,
-    ``_make_scan._fwd_vmap`` :504; S 3, W_h shared): rows 3 and 1 one
-    counted launch each, each seed bitwise its one-seed call; row 1 held
-    to the plain version per seed and timed beside its bound, three
-    one-seed calls and the plain version, as
-    ``rnn_fwd_grid_bf16_<cell>_seeds``."""
+    ``_make_scan._fwd_vmap`` :504; S 3, W_h shared) in ``hin``'s dtype:
+    rows 3 and 1 one counted launch each, each seed bitwise its one-seed
+    call; row 1 held to the plain version per seed and timed beside its
+    bound, three one-seed calls and the plain version, as
+    ``rnn_fwd_grid_[bf16_]<cell>_seeds``."""
     from lfm_quant_tpu_torch.ops import _build
     from lfm_quant_tpu_torch.ops import rnn as R
 
     S = GRID_SEEDS
     B, T, H = hin.shape
+    bf = hin.dtype == torch.bfloat16
+    tag, dname = ("bf16_", "bf16") if bf else ("", "float32")
+    atol, rtol = (BF16_TOL, BF16_TOL) if bf else (F32_TOL, 0.0)
     stack = (lambda t, f: torch.stack([t, f(t), t.flip(0)]))
     xw3, hin3 = (stack(t, lambda v: -v) for t in (xw, hin))
     wx3, b3 = stack(wx, lambda v: 0.9 * v), stack(b, lambda v: -v)
@@ -7532,12 +7618,12 @@ def fwd_grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm,
     err = 0.0
     with torch.no_grad():
         for name, run, single in (
-                (f"rnn_fwd_grid_bf16_{cell}",
+                (f"rnn_fwd_grid_{tag}{cell}",
                  lambda: R._scan_states_any(cell, xw3, wh[None], m3, 1.0,
                                             True),
                  lambda s: R._scan_states_any(cell, xw3[s], wh, m3[s], 1.0,
                                               True)),
-                (f"rnn_fused_fwd_grid_bf16_{cell}",
+                (f"rnn_fused_fwd_grid_{tag}{cell}",
                  lambda: R._fused_states(cell, hin3, wx3, b3, wh[None], m3,
                                          1.0, True),
                  lambda s: R._fused_states(cell, hin3[s], wx3[s], b3[s], wh,
@@ -7547,8 +7633,8 @@ def fwd_grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm,
             counts = _build.launch_counts()
             if counts[name] != 1 or sum(counts.values()) != 1:
                 fail(f"{name} seed grid at H {H}: launched {counts}")
-            seed_grid_held(torch, f"{name} seed grid (bf16, H {H}, W_h "
-                           f"shared)", got, single, range(S))
+            seed_grid_held(torch, f"{name} seed grid ({dname}, H {H}, "
+                           f"W_h shared)", got, single, range(S))
             if name.startswith("rnn_fwd_"):
                 for s in range(S):
                     want = R.rnn_scan_states(cell, xw3[s], wh, m3[s], 1.0,
@@ -7556,19 +7642,19 @@ def fwd_grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm,
                     for g, w in zip(got, want):
                         if w is None:
                             continue
-                        e, excess = worst_excess(g[s], w, BF16_TOL, BF16_TOL)
+                        e, excess = worst_excess(g[s], w, atol, rtol)
                         if excess > 0:
                             fail(f"{name} seed grid seed {s}: max err {e}")
                         err = max(err, e)
             del got
-        bound, by = rnn_bound("fwd", cell, B, T, H, 2, save_c=True,
-                              seeds=S)
+        bound, by = rnn_bound("fwd", cell, B, T, H, hin.element_size(),
+                              save_c=True, seeds=S)
         hoisted = (lambda: R._scan_states_any(cell, xw3, wh[None], m3, 1.0,
                                               True))
-        rec = dict(shape=[S, B, T, H], dtype="bfloat16", shared="W_h",
-                   bitwise_vs_single=True, seeds_checked=S,
-                   max_abs_err=err, tolerance=f"atol {BF16_TOL} + rtol "
-                   f"{BF16_TOL}", **kernel_ms(hoisted, reps=3, launches=1),
+        rec = dict(shape=[S, B, T, H], dtype=str(hin.dtype)[6:],
+                   shared="W_h", bitwise_vs_single=True, seeds_checked=S,
+                   max_abs_err=err, tolerance=f"atol {atol} + rtol {rtol}",
+                   **kernel_ms(hoisted, reps=3, launches=1),
                    single_seed_loop_ms=time_ms(lambda: [
                        R._scan_states_any(cell, xw3[s], wh, m3[s], 1.0, True)
                        for s in range(S)], reps=2, warmup=1),
@@ -7577,8 +7663,8 @@ def fwd_grid_seeds(torch, kernels, cell: str, hin, wx, b, wh, mm,
                        warmup=1),
                    bound_ms=bound, bound_by=by, library_ms=None,
                    library_note=NO_SEED_LIBRARY)
-    report(kernels, f"rnn_fwd_grid_bf16_{cell}_seeds", f"B {B}, T {T}, H {H}",
-           rec)
+    report(kernels, f"rnn_fwd_grid_{tag}{cell}_seeds",
+           f"B {B}, T {T}, H {H}", rec)
     log(f"grid forward seed grids at H {H} (S {S}, W_h shared): one launch "
         f"each, every seed bitwise its one-seed call; hoisted "
         f"{rec['ms']:.4f} ms against {S} one-seed calls' "
@@ -7872,10 +7958,11 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     """Phase 28: every hidden width the JAX kernels take, bf16 above 128
     on the tensor cores with W_h split across a cluster both ways
     (``rnn_fwd_cluster.cu``, ``rnn_bwd_cluster.cu``), the float32
-    backwards above 128 on the 3xTF32 tensor cores on a cluster
-    (``rnn_bwd_tf32.cu``) and past 384 on the grid
-    (``rnn_bwd_tf32_grid.cu``), and the seed grids of rows 1 and 2 off the
-    H <= 128 tensor cores.
+    forwards above 128 on the float32 grid (``rnn_fwd_tf32_grid.cu``),
+    the float32 backwards above 128 on the 3xTF32 tensor cores on a
+    cluster (``rnn_bwd_tf32.cu``) and on the grid
+    (``rnn_bwd_tf32_grid.cu``), as the route gives them, and the seed
+    grids of rows 1 and 2 off the H <= 128 tensor cores.
 
     (a) c2 at ``{"hidden": 256}`` (:data:`WIDE_HIDDEN`), LSTM and GRU,
     bf16: rows 1-4 at its train step (the layer-0 input of a real index
@@ -7884,8 +7971,8 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     from the seeded init, fused and hoisted, counted (the cluster forward
     and backward; no CUDA-core kernel, no H <= 128 tensor-core kernel),
     held to the plain path on the card, and the same four in float32
-    (the CUDA-core forwards, the 3xTF32 cluster backwards; no CUDA-core
-    backward); (b) the LSTM served from one
+    (the float32 grid forwards, the backwards of the route; no CUDA-core
+    kernel); (b) the LSTM served from one
     ``ScoringService`` universe (:func:`serve_wide`; counted likewise,
     every score held to the plain path), and at :data:`CORE_BF16_HIDDEN`
     (the bf16 grid forward); (c)
@@ -7899,9 +7986,9 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
     seed grids at hidden 256 (:func:`wide_seed_grid`) and, as the main
     paths of the hoisted forms' grids, 3-seed c2 ensembles with
     ``scan_impl="pallas"``: bf16 at hidden 256 (the cluster forward and
-    backward), float32 at hidden 128 (3xTF32), at :data:`GRID_F32_HIDDEN`
-    (the CUDA-core forward, the 3xTF32 cluster backward) and at
-    :data:`PAST_CAP_HIDDEN` (the CUDA-core forward, the grid backward),
+    backward), float32 at hidden 128 (3xTF32), at :data:`F32_CLUSTER_HIDDEN`
+    and at :data:`PAST_CAP_HIDDEN` (the float32 grid forward, the backward
+    of the route),
     and bf16 at :data:`CORE_BF16_HIDDEN` (the bf16 grid forward and
     backward), for
     :data:`GRID_STEPS` steps each, counted into ``seed_launches``, held to
@@ -7943,10 +8030,10 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                            f"B {B}, T {W}, H {WIDE_HIDDEN}")
         del hin, wx, bb, wh, mm, dh
         torch.cuda.empty_cache()
-        # The float32 runs: the CUDA-core forwards, the 3xTF32 cluster
-        # backwards; no CUDA-core backward, no bf16 or cluster kernel.
+        # The float32 runs: the float32 grid forwards, the backwards of
+        # the route; no CUDA-core kernel, no bf16 or cluster kernel.
         not_f32 = tuple(k for k in _build.LAUNCHES
-                        if "_mma_" in k or "_cluster_" in k) + CUDA_CORE_BWD
+                        if "_mma_" in k or "_cluster_" in k) + CUDA_CORE
         for form, run_cfg, must, never in (
                 ("fused, bf16", cfg, (f"rnn_fused_fwd_cluster_{cell}",
                                       f"rnn_fused_bwd_cluster_{cell}",
@@ -7955,11 +8042,11 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
                  (f"rnn_fwd_cluster_{cell}", f"rnn_bwd_cluster_{cell}",
                   "window_gather"), not_wide),
                 ("fused, float32", train_variant(cfg, bf16=False),
-                 (f"rnn_fused_fwd_{cell}", f"rnn_fused_bwd_tf32_{cell}",
+                 (*f32_route_names(cell, WIDE_HIDDEN, True),
                   "window_gather"), not_f32),
                 ("hoisted, float32",
                  train_variant(cfg, scan_impl="pallas", bf16=False),
-                 (f"rnn_fwd_{cell}", f"rnn_bwd_tf32_{cell}",
+                 (*f32_route_names(cell, WIDE_HIDDEN, False),
                   "window_gather"), not_f32)):
             label = f"c2 {cell} hidden {WIDE_HIDDEN} training ({form})"
             got, counts = counted(label, must, lambda: short_run(
@@ -8020,17 +8107,19 @@ def wide_phase(torch, cfg2, splits2, kernels, totals, seed_launches,
              train_variant(cfg2, scan_impl="pallas", bf16=False),
              ("rnn_fwd_tf32_lstm", "rnn_bwd_tf32_lstm", "window_gather")),
             (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, float32, hidden "
-             f"{GRID_F32_HIDDEN})",
+             f"{F32_CLUSTER_HIDDEN})",
              train_variant(cfg2, scan_impl="pallas", bf16=False,
                            kwargs=dict(cfg2.model.kwargs,
-                                       hidden=GRID_F32_HIDDEN)),
-             ("rnn_fwd_lstm", "rnn_bwd_tf32_lstm", "window_gather")),
+                                       hidden=F32_CLUSTER_HIDDEN)),
+             (*f32_route_names("lstm", F32_CLUSTER_HIDDEN, False),
+              "window_gather")),
             (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, float32, hidden "
              f"{PAST_CAP_HIDDEN})",
              train_variant(cfg2, scan_impl="pallas", bf16=False,
                            kwargs=dict(cfg2.model.kwargs,
                                        hidden=PAST_CAP_HIDDEN)),
-             ("rnn_fwd_lstm", "rnn_bwd_grid_lstm", "window_gather")),
+             (*f32_route_names("lstm", PAST_CAP_HIDDEN, False),
+              "window_gather")),
             (f"c2 {GRID_SEEDS}-seed ensemble (hoisted, hidden "
              f"{CORE_BF16_HIDDEN})",
              train_variant(cfg2, scan_impl="pallas", kwargs=dict(

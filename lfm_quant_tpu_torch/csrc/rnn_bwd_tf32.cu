@@ -1,10 +1,12 @@
 // Masked LSTM/GRU recurrence, fused and hoisted backward, in float32 on
 // Hopper's tensor cores: 3xTF32 products (mma.sync m16n8k8 .tf32, f32
 // accumulation), with W_h split across a thread-block cluster at H = 128
-// (2 CTAs) and above (2-16 CTAs).
+// (2 CTAs) and above (2 or 4 CTAs).
 //
-// Replaces, in float32 with 16 <= Hp <= 384 (Hp the width padded to a
-// multiple of 16; ops/rnn.py _mma_route "tf32"), the Pallas TPU kernels
+// Replaces, in float32 with 16 <= Hp <= 176 (Hp the width padded to a
+// multiple of 16; ops/rnn.py _mma_route "tf32"; past it the grid,
+// csrc/rnn_bwd_tf32_grid.cu, ran faster on an H100), the Pallas TPU
+// kernels
 // _lstm_fused_bwd_kernel (lfm_quant_tpu/ops/pallas_rnn.py:673) and
 // _gru_fused_bwd_kernel (:739), reached through _fused_bwd_call (:835), and
 // _lstm_bwd_kernel (:184) and _gru_bwd_kernel (:243), reached through
@@ -26,7 +28,7 @@
 // 1.44 ms at 67 TFLOP/s outside the tensor cores and 0.585 ms at the 3xTF32
 // rate (495 / 3 TFLOP/s), against 0.3 GB of inputs and outputs; the hoisted
 // form does 3 of the 6 (0.72 and 0.29 ms). Bound by operations either way,
-// and more so above 128 (at H 384: 5.3 ms fused at the 3xTF32 rate).
+// and more so above 128 (at H 176: 1.1 ms fused at the 3xTF32 rate).
 //
 // Design: the fused form is GEMM + the hoisted recurrence + GEMM.
 //
@@ -55,8 +57,8 @@
 //   permuted (lane c takes k = 2c, 2c + 1: one 64-bit load of h) so that
 //   one padding of W_h (4 floats) serves both products without bank
 //   conflicts.
-//   Above 128 (rnn_bwd_tf32_cluster_kernel, up to Hp 384): W_h, 16 Hp^2
-//   bytes for the LSTM (2.4 MB at 384), is split over a cluster of 2-16
+//   Above 128 (rnn_bwd_tf32_cluster_kernel, up to Hp 176): W_h, 16 Hp^2
+//   bytes for the LSTM (0.5 MB at 176), is split over a cluster of 2 or 4
 //   CTAs (ops/rnn.py _tf32_cluster: the fewest that fit) owning 16 or 32
 //   rows (RT 16-row tiles a warp). The Hp / 8 warps of units are dealt out
 //   as the bf16 cluster kernels deal them (ops/rnn.py _cluster_units): CTA
@@ -70,8 +72,7 @@
 //   [LR] f32 at the slot of its own rank; each owner adds its units' C
 //   partials in rank order, rank 0 first (bitwise repeatable). While the
 //   partials travel the CTA recomputes the next step's gates, which do not
-//   need the carry. One h tile (loaded during the carry's product) leaves
-//   room for the LSTM's share at Hp 384 on 16 CTAs of 16 rows (210 KB).
+//   need the carry. One h tile is loaded during the carry's product.
 // * Kernel 2, the weight gradients: a block owns one product (dW_x = hin^T
 //   d_xw with db = sum d_xw, or dW_h = h_{t-1}^T d_hw), 64 gate columns,
 //   128 output rows (a grid axis tiles H past 128) and a slice of rows;
@@ -82,9 +83,8 @@
 //   1 and 3 and blockIdx.z of kernels 0, 2 and 4; each shared operand has
 //   its own seed stride (0: shared), every per-seed offset is 64-bit, and a
 //   seed's outputs are bitwise those of a one-seed launch.
-// * Clusters go through cudaLaunchKernelEx (non-portable sizes allowed past
-//   8); a cluster the card cannot hold (cudaOccupancyMaxActiveClusters 0)
-//   is refused, never run another way.
+// * Clusters go through cudaLaunchKernelEx; a cluster the card cannot hold
+//   (cudaOccupancyMaxActiveClusters 0) is refused, never run another way.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -127,8 +127,8 @@ constexpr int kRowTiles = 2;  // 16-row tiles per CTA of kernel 1 at H <= 128
 // chunks a warp holds in registers per pass of the carry's product (4 beat
 // 2 by 2-12% at 32 rows and 8 lost to 4 by 11-58% at 16 rows:
 // scripts/torch_cluster_variants.py --direction bwd_tf32, chunk_regs_8).
-constexpr int kMaxWidth = 384;
-constexpr int kMaxCluster = 16;
+constexpr int kMaxWidth = 176;
+constexpr int kMaxCluster = 4;
 constexpr int kChunks = 4;
 
 // Kernel 1's threads per CTA at most above 128, by 16-row tiles: the
@@ -947,13 +947,8 @@ cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaFuncSetAttribute(
+  return cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (C > 8)
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
 }
 
 // Clusters of kernel 1 above 128 the card holds at once (0: none).
@@ -1066,12 +1061,12 @@ cudaError_t launch(bool fused, bool xw_ready, const float* xin, const float* wx,
 }
 
 // The shapes the kernels take: 16 <= H <= 128 with C 1 or 2 and 32 rows;
-// 128 < H <= kMaxWidth with C in {2, 4, 8, 16}, 16 or 32 rows and the
+// 128 < H <= kMaxWidth with C in {2, 4}, 16 or 32 rows and the
 // CTA's warps within the rows' thread limit; H % 16 == 0.
 bool supported(int H, int C, int rows) {
   if (H < 16 || H > kMaxWidth || H % 16 != 0) return false;
   if (H <= 128) return (C == 1 || C == 2) && rows == 16 * kRowTiles;
-  if (C != 2 && C != 4 && C != 8 && C != kMaxCluster) return false;
+  if (C != 2 && C != kMaxCluster) return false;
   if (rows != 16 && rows != 32) return false;
   return warps_per_cta(H, C) * 32 <= max_threads(rows / 16);
 }

@@ -4,7 +4,7 @@
 // carry's product spread over the whole card, W_h resident across a group
 // of up to 132 co-resident CTAs that meet at a barrier in device memory.
 //
-// Replaces, in float32 with 384 < Hp <= kMaxWidth (Hp the width padded to a
+// Replaces, in float32 with 176 < Hp <= kMaxWidth (Hp the width padded to a
 // multiple of 16; ops/rnn.py _mma_route "grid"), the Pallas TPU kernels
 // _lstm_fused_bwd_kernel (lfm_quant_tpu/ops/pallas_rnn.py:673) and
 // _gru_fused_bwd_kernel (:739), reached through _fused_bwd_call (:835), and
@@ -25,7 +25,8 @@
 // them, on PR 22's 3xTF32 GEMM (csrc/tf32_common.cuh); only the carry's is
 // left inside the sequential loop, and it is spread over every SM.
 //
-// * Kernel 0 (fused form, unless the forward's xw scratch is handed over):
+// * Kernel 0 (fused form, unless the float32 grid forward's xw scratch is
+//   handed over, csrc/rnn_fwd_tf32_grid.cu):
 //   xw = hin @ W_x + b into the f32 d_gates buffer dgx [S, B, T, G Hp].
 // * Kernel 1, the gates: h_all shifted one step (zero at t = 0) is every
 //   h_{t-1}, so the h side of every step's pre-activations is one GEMM,
@@ -123,7 +124,7 @@ inline size_t grid_smem_bytes(int G, int H, int n, int rows) {
 }
 
 // The shapes kernel 2 takes: 128 < H <= kMaxWidth, H % 16 == 0 (the route
-// gives it H > 384; at 384 and below it is timed beside the cluster form);
+// gives it H > 176; at 176 and below it is timed beside the cluster form);
 // rows 64 or 128; 1 <= n <= W with every CTA owning a chunk and at most
 // kMaxThreads threads.
 bool supported(int H, int n, int rows) {
@@ -391,9 +392,11 @@ cudaError_t grid_capacity(int* ctas, int H, int n, int rows) {
 // fused: kernel 0 (skipped when xw_ready, dgx holding xw already), the
 // gates, the recurrence, the weight gradients, their slices' sum, dhin;
 // hoisted: the gates (x side from xin), the recurrence, the weight
-// gradients and their sum.
+// gradients and their sum. *kernels (null: not counted) adds one a kernel
+// launched.
 template <int CELL>
-cudaError_t launch(bool fused, bool xw_ready, const float* xin, const float* wx,
+cudaError_t launch(bool fused, bool xw_ready, int* kernels,
+                   const float* xin, const float* wx,
                    const float* b, const float* wh, const uint8_t* m,
                    const float* h_all, const float* c_all, const float* dh,
                    float* dx, float* dgx, float* dhn, float* partial, int S,
@@ -413,15 +416,24 @@ cudaError_t launch(bool fused, bool xw_ready, const float* xin, const float* wx,
   cudaError_t err = lfm_grid::check_fits(rnn_bwd_tf32_grid_kernel<CELL>,
                                          groups, n, threads, smem);
   if (err != cudaSuccess) return err;
+  int launched = 0;
+  auto counted = [&](cudaError_t e, int n_kernels) {
+    if (e == cudaSuccess) launched += n_kernels;
+    if (kernels != nullptr) *kernels = launched;
+    return e;
+  };
   if (fused && !xw_ready) {
-    err = launch_gemm<false>(xin, wx, b, dgx, M, GH, H, seeds, s_xin, s_wx,
-                             s_b, s_gates, stream);
+    err = counted(launch_gemm<false>(xin, wx, b, dgx, M, GH, H, seeds, s_xin,
+                                     s_wx, s_b, s_gates, stream),
+                  1);
     if (err != cudaSuccess) return err;
   }
   const GatesArgs ga{fused ? nullptr : xin, dhn, Tn,
                      CELL == kLstm ? GH : 2 * H, fused ? 0 : s_xin, s_seq};
-  err = launch_gemm<false, true>(h_all, wh, nullptr, dgx, M, GH, H, seeds,
-                                 s_seq, s_wh, 0, s_gates, stream, ga);
+  err = counted(launch_gemm<false, true>(h_all, wh, nullptr, dgx, M, GH, H,
+                                         seeds, s_seq, s_wh, 0, s_gates,
+                                         stream, ga),
+                1);
   if (err != cudaSuccess) return err;
 
   float fb = forget_bias;
@@ -430,8 +442,9 @@ cudaError_t launch(bool fused, bool xw_ready, const float* xin, const float* wx,
                   (void*)&stats, (void*)&seeds, (void*)&B,    (void*)&Tn,
                   (void*)&H,     (void*)&n,    (void*)&rows,  (void*)&s_wh,
                   (void*)&s_m,   (void*)&fb};
-  err = lfm_grid::launch(rnn_bwd_tf32_grid_kernel<CELL>, groups, n, threads,
-                         smem, args, stream);
+  err = counted(lfm_grid::launch(rnn_bwd_tf32_grid_kernel<CELL>, groups, n,
+                                 threads, smem, args, stream),
+                1);
   if (err != cudaSuccess) return err;
 
   const size_t smem2 = wgrad_smem_bytes(H);
@@ -445,15 +458,16 @@ cudaError_t launch(bool fused, bool xw_ready, const float* xin, const float* wx,
   wgrad<<<dim3(tiles * (fused ? 2 : 1), S, seeds), kWgThreads, smem2,
           stream>>>(xin, h_all, dgx, dhn, M, Tn, H, (M + S - 1) / S, s_xin,
                     partial);
-  err = cudaGetLastError();
+  err = counted(cudaGetLastError(), 1);
   if (err != cudaSuccess) return err;
   const int total = fused ? 2 * H * GH + GH : H * GH;
   rnn_bwd_tf32_slices_kernel<<<dim3((total + 255) / 256, seeds), 256, 0,
                                stream>>>(partial, S, total, dw);
-  err = cudaGetLastError();
+  err = counted(cudaGetLastError(), 1);
   if (err != cudaSuccess || !fused) return err;
-  return launch_gemm<true>(dgx, wx, nullptr, dx, M, H, GH, seeds, s_gates,
-                           s_wx, 0, s_seq, stream);
+  return counted(launch_gemm<true>(dgx, wx, nullptr, dx, M, H, GH, seeds,
+                                   s_gates, s_wx, 0, s_seq, stream),
+                 1);
 }
 
 }  // namespace
@@ -490,22 +504,27 @@ extern "C" int lfm_rnn_bwd_grid_ctas(int cell, int H, int n, int rows) {
 // S, total], sync [groups] uint32 zeroed; stats (null, or [groups n][2]
 // int64: each CTA's cycles at the barriers and in all). n: CTAs a group,
 // rows: batch rows a work item, groups: the groups launched (at most what
-// the card holds: lfm_rnn_bwd_grid_ctas / n). All f32. Returns the first
-// CUDA error of its launches.
+// the card holds: lfm_rnn_bwd_grid_ctas / n). All f32. kernels (null, or
+// one host int): the kernels launched. Returns the first CUDA error of its
+// launches.
 extern "C" int lfm_rnn_bwd_tf32_grid(
     int cell, int fused, const void* xin, const void* wx, const void* b,
     const void* wh, const void* m, const void* h_all, const void* c_all,
     const void* dh, void* dx, void* dgx, void* dhn, void* partial, int S,
     void* dw, void* sync, void* stats, int seeds, int B, int Tn, int H, int n,
     int rows, int groups, long long s_xin, long long s_wx, long long s_b,
-    long long s_wh, long long s_m, float forget_bias, void* stream) {
+    long long s_wh, long long s_m, float forget_bias, void* kernels,
+    void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (seeds <= 0 || seeds > 65535 || B <= 0 || Tn <= 0 || S <= 0 ||
-      S > 65535 || groups <= 0 || !supported(H, n, rows))
+      S > 65535 || groups <= 0 || fused < 0 || fused > 2 ||
+      !supported(H, n, rows))
     return (int)cudaErrorInvalidValue;
+  int* nk = static_cast<int*>(kernels);
+  if (nk != nullptr) *nk = 0;
 #define LFM_GRID(CELLV)                                                     \
   return (int)launch<CELLV>(                                                \
-      fused != 0, fused == 2, static_cast<const float*>(xin),               \
+      fused != 0, fused == 2, nk, static_cast<const float*>(xin),           \
       static_cast<const float*>(wx), static_cast<const float*>(b),          \
       static_cast<const float*>(wh), static_cast<const uint8_t*>(m),        \
       static_cast<const float*>(h_all), static_cast<const float*>(c_all),   \

@@ -30,6 +30,9 @@
 // xw.
 //
 // Design: csrc/rnn_bwd_grid.cu's, with csrc/rnn_fwd_cluster.cu's numerics.
+// Kernel 1 is csrc/grid_fwd.cuh's template, shared with the float32 grid
+// forward (csrc/rnn_fwd_tf32_grid.cu); this source gives it its bf16
+// operands (Bf16Ops: the products, the cell's rounding, the stores).
 //
 // * Kernel 0 (fused form): xw = hin @ W_x + b into the caller's f32 scratch
 //   [S, B, T, G Hp], the bf16 GEMM of csrc/cluster_gemm.cuh, the same call
@@ -78,59 +81,29 @@
 #include <stdint.h>
 
 #include "cluster_gemm.cuh"
-#include "grid_common.cuh"
+#include "grid_fwd.cuh"
 #include "mma_common.cuh"
-#include "tf32_common.cuh"
 
 namespace {
 
-using lfm_grid::chunks_per_cta;
-using lfm_grid::group_barrier;
-using lfm_grid::group_pos;
-using lfm_grid::GroupPos;
 using lfm_grid::kUnits;
-using lfm_grid::threads_of;
-using lfm_mma::as_float2;
+using lfm_grid_fwd::grid_capacity;
+using lfm_grid_fwd::kTileLd;
 using lfm_mma::bf16x2_bits;
-using lfm_mma::cp_async16;
-using lfm_mma::cp_async_commit;
-using lfm_mma::cp_async_wait_all;
 using lfm_mma::ldmatrix_x2;
 using lfm_mma::ldmatrix_x4;
 using lfm_mma::mma_bf16;
-using lfm_mma::XwPair;
-using lfm_tf32::cp_async_wait;
 using lfm_tf32::kGru;
 using lfm_tf32::kLstm;
-using lfm_tf32::sigmoid;
 
 // The widest Hp, as the bf16 grid backward's (csrc/rnn_bwd_grid.cu): the
 // LSTM's W_h columns of two 8-unit chunks take 64 (Hp + 8) bf16, which
 // beside the stages fit an H100's 232,448 bytes up to Hp 1520 (a group of
 // 95 CTAs); past it a CTA would hold three chunks, W past 132 CTAs' two.
 constexpr int kMaxWidth = 1520;
-// h_{t-1} columns per stage of the product, and stages in shared memory
-// (one in flight while the other is multiplied).
-constexpr int kStageK = 64;
-constexpr int kStages = 2;
-constexpr int kMaxThreads = 512;
 
-// Kernel 1's shared memory, bf16: the W_h columns [G 8 NC][H + 8] and
-// kStages stages of the h tile [rows][kStageK + 8]. ops/rnn.py
-// _fwd_grid_smem mirrors it.
-inline size_t fwd_grid_smem_bytes(int G, int H, int n, int rows) {
-  return 2 * ((size_t)G * kUnits * chunks_per_cta(H, n) * (H + 8) +
-              (size_t)kStages * rows * (kStageK + 8));
-}
-
-// The shapes kernel 1 takes: 128 < H <= kMaxWidth, H % 16 == 0 (the route
-// gives it H > 512); rows 64 or 128; 1 <= n <= W with every CTA owning a
-// chunk and at most kMaxThreads threads.
 bool supported(int H, int n, int rows) {
-  if (H <= 128 || H > kMaxWidth || H % 16 != 0) return false;
-  if (rows != 64 && rows != 128) return false;
-  if (n < 1 || n > H / kUnits) return false;
-  return threads_of(H, n, rows) <= kMaxThreads;
+  return lfm_grid_fwd::takes(H, n, rows, kMaxWidth);
 }
 
 // Each quad's 8 units of a row, one bf16 pair a lane (v[half]), as one
@@ -154,263 +127,62 @@ __device__ __forceinline__ void store_quad(const uint32_t (&v)[2], int lane,
     *reinterpret_cast<uint4*>(dst) = c4 ? row16[1] : row16[0];
 }
 
-// Kernel 1. grid = groups * n CTAs of threads_of(H, n, rows) threads.
-// xw [., B, T, G H] (the gates' x side with the bias; f32 or bf16; seed
-// stride s_xw); wh [., H, G H] bf16 (s_wh, 0: shared); m uint8 [., B, T]
-// (s_m). Out: h_all, c_all (LSTM, may be null) [S, B, T, H] bf16; h_all is
-// also the exchange. sync: one zeroed counter a group; stats (null: none)
-// [grid][2]: each CTA's SM cycles waiting at the barriers and in all.
-template <int CELL, typename XW>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-rnn_fwd_grid_kernel(const XW* __restrict__ xw,
-                    const __nv_bfloat16* __restrict__ wh,
-                    const uint8_t* __restrict__ m, __nv_bfloat16* h_all,
-                    __nv_bfloat16* __restrict__ c_all, unsigned* sync,
-                    long long* stats, int seeds, int B, int Tn, int H, int n,
-                    int rows, long long s_xw, long long s_wh, long long s_m,
-                    float forget_bias) {
-  constexpr int G = CELL == kLstm ? 4 : 3;
-  constexpr int LA = kStageK + 8;  // h tile row stride
-  using XW2 = typename XwPair<XW>::type;
-  const int GH = G * H;
-  const int LW = H + 8;            // W_h column row stride
-  const int W = H / kUnits;
-  const int NC = blockDim.x / (32 * (rows / 16));
-  const GroupPos gp = group_pos(n, W);
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int c4 = lane & 3;
-  const int chunk = warp % NC;
-  const int rw = (warp / NC) * 16;       // the warp's first row
-  const int ra = rw + g;                 // the thread's rows ra, ra + 8
-  const bool active = chunk < gp.own;    // warp-uniform
-  const int u0 = (gp.w0 + chunk) * kUnits;  // its chunk's first unit
-  const int u = u0 + 2 * c4;                // its units u, u + 1
-  const int NS = (H + kStageK - 1) / kStageK;  // stages of the product
-  // ldmatrix row addresses: A rows 0-7 / 8-15 at k 0 / 8; a gate's W_h
-  // columns of the chunk's 8 units at k 0 / 8.
-  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int acol = (lane >> 4) * 8;
+// The bf16 operands of csrc/grid_fwd.cuh's kernel: bf16(h_{t-1}) times
+// W_h in bf16, one mma.sync m16n8k16 a gate and k-step of 16 into the f32
+// sums; the carries' updates as the compiler contracts them; h and c
+// stored in bf16, the LSTM's h carried as it was stored.
+struct Bf16Ops {
+  using T = __nv_bfloat16;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* a_s = wh_s + (size_t)G * NC * kUnits * LW;
-
-  const size_t M = (size_t)B * Tn;
-  const int nblk = (B + rows - 1) / rows;
-  const int items = seeds * nblk;
-  unsigned* ctr = sync + gp.group;
-  unsigned target = 0;
-  int loaded = -1;
-  const long long started = clock64();
-  long long waited = 0;  // thread 0's
-
-  for (int item = gp.group; item < items; item += gp.groups) {
-    const int seed = item / nblk;
-    const int r0 = (item - seed * nblk) * rows;
-    const int nr = min(rows, B - r0);
-    const int wseed = s_wh != 0 ? seed : 0;
-    if (wseed != loaded) {
-      // Every warp is done with the last seed's W_h; this seed's own
-      // columns, transposed: 8 units of one gate at one k a 16-byte load,
-      // consecutive threads on consecutive k.
-      __syncthreads();
-      const __nv_bfloat16* src =
-          wh + (size_t)wseed * s_wh + (size_t)gp.w0 * kUnits;
-      for (int i = tid; i < G * gp.own * H; i += nth) {
-        const int k = i % H;
-        const int qc = i / H;  // q * own + c
-        const int q = qc / gp.own;
-        const int c = qc - q * gp.own;
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            src + (size_t)k * GH + q * H + c * kUnits);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-        __nv_bfloat16* dst = wh_s + (size_t)(q * NC + c) * kUnits * LW + k;
+  template <int G>
+  static __device__ __forceinline__ void stage(float (&acc)[G][4],
+                                               const T* a_st, const T* w_s,
+                                               int rw, int lane, int chunk,
+                                               int NC, int LW, int j0,
+                                               int kn) {
+    // ldmatrix row addresses: A rows 0-7 / 8-15 at k 0 / 8; a gate's W_h
+    // columns of the chunk's 8 units at k 0 / 8.
+    const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int acol = (lane >> 4) * 8;
+    const T* ap = a_st + (rw + arow) * kTileLd + acol;
+    const T* bp = w_s + (size_t)(chunk * kUnits + (lane & 7)) * LW + j0 +
+                  ((lane >> 3) & 1) * 8;
+    for (int kk = 0; kk < kn; kk += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, ap + kk);
 #pragma unroll
-        for (int j = 0; j < kUnits; ++j) dst[(size_t)j * LW] = e[j];
+      for (int q = 0; q < G; ++q) {
+        uint32_t b2[2];
+        ldmatrix_x2(b2, bp + (size_t)q * NC * kUnits * LW + kk);
+        mma_bf16(acc[q], a, make_uint2(b2[0], b2[1]));
       }
-      loaded = wseed;
-    }
-    __nv_bfloat16* hs = h_all + (size_t)seed * M * H;
-    __nv_bfloat16* cs =
-        CELL == kLstm && c_all != nullptr ? c_all + (size_t)seed * M * H
-                                          : nullptr;
-    const XW* xs = xw + (size_t)seed * s_xw;
-    const uint8_t* ms = m + (size_t)seed * s_m;
-
-    // The step's x side at rows ra + 8 half, units u, u + 1 (LSTM i, f, g,
-    // o; GRU z, r, n) and its validity, read a step ahead.
-    XW2 xv[2][G];
-    bool keep[2];
-    auto load_x = [&](int t) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = ra + 8 * half;
-        const bool in = active && r < nr;
-        const size_t row = (size_t)(r0 + r) * Tn + t;
-        keep[half] = in && ms[row] != 0;
-#pragma unroll
-        for (int q = 0; q < G; ++q)
-          xv[half][q] =
-              in ? *reinterpret_cast<const XW2*>(xs + row * GH + q * H + u)
-                 : XwPair<XW>::zero();
-      }
-    };
-    // The h_{t-1} tile's stage s: rows past the item's and columns past H
-    // zero-filled.
-    auto load_stage = [&](int t, int s) {
-      __nv_bfloat16* dst = a_s + (s % kStages) * rows * LA;
-      const int j0 = s * kStageK;
-      constexpr int CK = kStageK / 8;
-      for (int i = tid; i < rows * CK; i += nth) {
-        const int r = i / CK;
-        const int kc = (i - r * CK) * 8;
-        const bool ok = r < nr && j0 + kc < H;
-        const __nv_bfloat16* src =
-            hs + ((size_t)(r0 + r) * Tn + t - 1) * H + j0 + kc;
-        cp_async16(dst + r * LA + kc, ok ? src : hs, ok ? 16 : 0);
-      }
-    };
-
-    // The f32 carries, [half * 2 + e] as the accumulators: c (LSTM) or h
-    // (GRU); the LSTM's h as it was stored (bf16), which a masked step
-    // holds.
-    float carry[4], hb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      carry[i] = 0.0f;
-      hb[i] = 0.0f;
-    }
-    load_x(0);
-    __syncthreads();  // this seed's W_h columns are in place
-
-    for (int t = 0; t < Tn; ++t) {
-      // The products: slot q the gate q's h side (GRU slot 2: n's).
-      float acc[G][4];
-#pragma unroll
-      for (int q = 0; q < G; ++q)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[q][i] = 0.0f;
-      if (t > 0) {
-#pragma unroll
-        for (int s = 0; s < kStages - 1; ++s) {
-          if (s < NS) load_stage(t, s);
-          cp_async_commit();
-        }
-        for (int s = 0; s < NS; ++s) {
-          cp_async_wait<kStages - 2>();
-          // Stage s is in place; every warp is done with stage s - 1's
-          // slot.
-          __syncthreads();
-          if (s + kStages - 1 < NS) load_stage(t, s + kStages - 1);
-          cp_async_commit();
-          if (!active) continue;
-          const int j0 = s * kStageK;
-          const __nv_bfloat16* ap =
-              a_s + (s % kStages) * rows * LA + (rw + arow) * LA + acol;
-          const __nv_bfloat16* bp =
-              wh_s + (size_t)(chunk * kUnits + (lane & 7)) * LW + j0 +
-              ((lane >> 3) & 1) * 8;
-          const int kn = min(kStageK, H - j0);
-          for (int kk = 0; kk < kn; kk += 16) {
-            uint32_t a[4];
-            ldmatrix_x4(a, ap + kk);
-#pragma unroll
-            for (int q = 0; q < G; ++q) {
-              uint32_t b2[2];
-              ldmatrix_x2(b2, bp + (size_t)q * NC * kUnits * LW + kk);
-              mma_bf16(acc[q], a, make_uint2(b2[0], b2[1]));
-            }
-          }
-        }
-      }
-
-      // The cell, in registers: xw + hw, then the mask.
-      uint32_t hv[2], cv[2];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float v[2], cc[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 2 * half + e;
-          float x[G];
-#pragma unroll
-          for (int q = 0; q < G; ++q) {
-            const float2 p = as_float2(xv[half][q]);
-            x[q] = e ? p.y : p.x;
-          }
-          if constexpr (CELL == kLstm) {
-            const float ig = sigmoid(x[0] + acc[0][i]);
-            const float fg = sigmoid((x[1] + acc[1][i]) + forget_bias);
-            const float gg = tanhf(x[2] + acc[2][i]);
-            const float og = sigmoid(x[3] + acc[3][i]);
-            const float c = fg * carry[i] + ig * gg;
-            const float h = og * tanhf(c);
-            if (keep[half]) {
-              carry[i] = c;
-              hb[i] = __bfloat162float(__float2bfloat16_rn(h));
-            }
-            v[e] = hb[i];
-            cc[e] = carry[i];
-          } else {
-            const float z = sigmoid(x[0] + acc[0][i]);
-            const float rg = sigmoid(x[1] + acc[1][i]);
-            const float nn = tanhf(x[2] + rg * acc[2][i]);
-            const float h = (1.0f - z) * nn + z * carry[i];
-            if (keep[half]) carry[i] = h;
-            v[e] = carry[i];
-            cc[e] = 0.0f;
-          }
-        }
-        hv[half] = bf16x2_bits(v[0], v[1]);
-        cv[half] = bf16x2_bits(cc[0], cc[1]);
-      }
-      if (t + 1 < Tn) load_x(t + 1);  // in flight under the barrier
-
-      if (active) {
-        // h_t (and c_t) of the thread's quad's 8 units: lane c4 = 0 row
-        // ra, lane 1 row ra + 8.
-        __nv_bfloat16* h0 = nullptr;
-        __nv_bfloat16* h1 = nullptr;
-        const size_t row0 = (size_t)(r0 + ra) * Tn + t;
-        if (ra < nr) h0 = hs + row0 * H + u0;
-        if (ra + 8 < nr) h1 = hs + (row0 + (size_t)8 * Tn) * H + u0;
-        store_quad(hv, lane, h0, h1);
-        if (cs != nullptr)
-          store_quad(cv, lane,
-                     h0 == nullptr ? nullptr : cs + row0 * H + u0,
-                     h1 == nullptr ? nullptr
-                                   : cs + (row0 + (size_t)8 * Tn) * H + u0);
-      }
-      // The group's barrier: h_t of every unit is in h_all for the next
-      // step's product (none after the item's last step: the next item's
-      // first step reads nothing).
-      if (t + 1 < Tn) group_barrier(ctr, target, n, waited);
     }
   }
-  cp_async_wait_all();
-  if (stats != nullptr && tid == 0) {
-    stats[2 * blockIdx.x] = waited;
-    stats[2 * blockIdx.x + 1] = clock64() - started;
+  static __device__ __forceinline__ float lstm_c(float fg, float c, float ig,
+                                                 float gg) {
+    return fg * c + ig * gg;
   }
-}
-
-template <int CELL, typename XW>
-size_t smem_of(int H, int n, int rows) {
-  return fwd_grid_smem_bytes(CELL == kLstm ? 4 : 3, H, n, rows);
-}
-
-// CTAs of kernel 1 the current card holds at once for this shape, with
-// the shared memory it needs set on the kernel.
-template <int CELL, typename XW>
-cudaError_t grid_capacity(int* ctas, int H, int n, int rows) {
-  return lfm_grid::capacity(rnn_fwd_grid_kernel<CELL, XW>, ctas,
-                            threads_of(H, n, rows),
-                            smem_of<CELL, XW>(H, n, rows));
-}
+  static __device__ __forceinline__ float gru_n(float x, float rg,
+                                                float hn) {
+    return x + rg * hn;
+  }
+  static __device__ __forceinline__ float gru_h(float z, float nn, float h) {
+    return (1.0f - z) * nn + z * h;
+  }
+  static __device__ __forceinline__ float stored(float h) {
+    return __bfloat162float(__float2bfloat16_rn(h));
+  }
+  // Each quad's 8 units of a row as one 16-byte store from the quad's
+  // first unit: lane c4 = 0 row ra, lane 1 row ra + 8.
+  static __device__ __forceinline__ void store(const float (&v)[4], int lane,
+                                               T* base, size_t at,
+                                               size_t down, bool in0,
+                                               bool in1) {
+    const uint32_t p[2] = {bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3])};
+    T* q = base + at - 2 * (lane & 3);
+    store_quad(p, lane, in0 ? q : nullptr, in1 ? q + down : nullptr);
+  }
+};
 
 // fused (XW float): the xw GEMM into the scratch, then the recurrence on
 // it; hoisted (XW bf16): the recurrence on the given xw. *kernels (null:
@@ -429,34 +201,16 @@ cudaError_t launch(int* kernels, const void* xin, const void* wx, const void* b,
   const int GH = G * H;
   const int M = B * Tn;
   const long long s_gates = (long long)M * GH;
-  const int threads = threads_of(H, n, rows);
-  const size_t smem = smem_of<CELL, XW>(H, n, rows);
-  auto kern = rnn_fwd_grid_kernel<CELL, XW>;
-  // A grid the card cannot hold at once is refused before any launch.
-  cudaError_t err = lfm_grid::check_fits(kern, groups, n, threads, smem);
-  if (err != cudaSuccess) return err;
-  const XW* xw;
-  long long s_xw;
-  if (FUSED) {
-    err = lfm_cluster::launch_gemm(xin, wx, b, xw_scratch, M, GH, H, seeds,
-                                   s_xin, s_wx, s_b, s_gates, stream);
-    if (err != cudaSuccess) return err;
-    if (kernels != nullptr) *kernels += 1;
-    xw = reinterpret_cast<const XW*>(xw_scratch);
-    s_xw = s_gates;
-  } else {
-    xw = static_cast<const XW*>(xin);
-    s_xw = s_xin;
-  }
-  float fb = forget_bias;
-  void* args[] = {(void*)&xw,    (void*)&wh,   (void*)&m,     (void*)&h_all,
-                  (void*)&c_all, (void*)&sync, (void*)&stats, (void*)&seeds,
-                  (void*)&B,     (void*)&Tn,   (void*)&H,     (void*)&n,
-                  (void*)&rows,  (void*)&s_xw, (void*)&s_wh,  (void*)&s_m,
-                  (void*)&fb};
-  err = lfm_grid::launch(kern, groups, n, threads, smem, args, stream);
-  if (err == cudaSuccess && kernels != nullptr) *kernels += 1;
-  return err;
+  auto gemm = [&]() {
+    return lfm_cluster::launch_gemm(xin, wx, b, xw_scratch, M, GH, H, seeds,
+                                    s_xin, s_wx, s_b, s_gates, stream);
+  };
+  const XW* xw = FUSED ? reinterpret_cast<const XW*>(xw_scratch)
+                       : static_cast<const XW*>(xin);
+  return lfm_grid_fwd::launch<CELL, Bf16Ops, XW>(
+      kernels, FUSED, gemm, xw, FUSED ? s_gates : s_xin, wh, m, h_all, c_all,
+      sync, stats, seeds, B, Tn, H, n, rows, groups, s_wh, s_m, forget_bias,
+      stream);
 }
 
 }  // namespace
@@ -465,7 +219,8 @@ cudaError_t launch(int* kernels, const void* xin, const void* wx, const void* b,
 // item, in bytes; -1 for a shape it does not take. cell: 0 = LSTM, 1 = GRU.
 extern "C" long long lfm_rnn_fwd_grid_smem(int cell, int H, int n, int rows) {
   if (!supported(H, n, rows) || (cell != kLstm && cell != kGru)) return -1;
-  return (long long)fwd_grid_smem_bytes(cell == kLstm ? 4 : 3, H, n, rows);
+  return (long long)lfm_grid_fwd::fwd_grid_smem_bytes<__nv_bfloat16>(
+      cell == kLstm ? 4 : 3, H, n, rows);
 }
 
 // CTAs of kernel 1 the current card holds at once for this shape (the
@@ -477,11 +232,14 @@ extern "C" int lfm_rnn_fwd_grid_ctas(int cell, int fused, int H, int n,
   int ctas = 0;
   cudaError_t err;
   if (cell == kLstm)
-    err = fused ? grid_capacity<kLstm, float>(&ctas, H, n, rows)
-                : grid_capacity<kLstm, __nv_bfloat16>(&ctas, H, n, rows);
+    err = fused
+              ? grid_capacity<kLstm, Bf16Ops, float>(&ctas, H, n, rows)
+              : grid_capacity<kLstm, Bf16Ops, __nv_bfloat16>(&ctas, H, n,
+                                                             rows);
   else
-    err = fused ? grid_capacity<kGru, float>(&ctas, H, n, rows)
-                : grid_capacity<kGru, __nv_bfloat16>(&ctas, H, n, rows);
+    err = fused ? grid_capacity<kGru, Bf16Ops, float>(&ctas, H, n, rows)
+                : grid_capacity<kGru, Bf16Ops, __nv_bfloat16>(&ctas, H, n,
+                                                              rows);
   return err == cudaSuccess ? ctas : -1;
 }
 

@@ -45,7 +45,9 @@
 //   training the backward takes it as its d_gates buffer), so the x-side
 //   product runs off the dependent chain. Blocks of 128 x 128 outputs,
 //   each thread 8 x 8 of them, k in stages of 16 through two shared-memory
-//   buffers (the next stage's loads held in registers over the products).
+//   buffers (the next stage's loads held in registers over the products):
+//   csrc/tf32_common.cuh's fwd_sgemm_kernel, shared with
+//   csrc/rnn_fwd_tf32_grid.cu.
 // * Kernel 1, the recurrence. A cluster of kCluster = 2 CTAs owns
 //   kRowTiles x 16 rows for all T steps, at every width: where all of W_h
 //   would fit one CTA (H <= 96 LSTM, <= 112 GRU), two CTAs of half the
@@ -91,6 +93,7 @@ using lfm_tf32::frag_a;
 using lfm_tf32::frag_b;
 using lfm_tf32::FragA;
 using lfm_tf32::FragB;
+using lfm_tf32::launch_sgemm;
 using lfm_tf32::mma3;
 using lfm_tf32::SeedStrides;
 using lfm_tf32::sigmoid;
@@ -105,125 +108,6 @@ constexpr bool kRoundLo = true;   // lo rounded to nearest (split_tf32)
 constexpr bool kXwLast = true;    // gates = xw_t + h side, summed apart
 // Kernel 1's threads per CTA at most: 128 / kCluster units, kUnits a warp.
 constexpr int kMaxThreads = 128 / kCluster * 32 / kUnits;
-
-// Kernel 0: output rows and columns per block, k per stage, threads.
-constexpr int kSgRows = 128;
-constexpr int kSgCols = 128;
-constexpr int kSgK = 16;
-constexpr int kSgThreads = 256;
-
-// Kernel 0, per seed (blockIdx.z): C[M, N] = A[M, K] @ W[K, N] + bias[N],
-// all row-major f32, K and N multiples of 4. Block (blockIdx.x, blockIdx.y)
-// makes the rows and columns [128 x, +128) x [128 y, +128); thread (ty, tx)
-// of 16 x 16 the rows 4 ty + {0..3, 64..67} and the columns 4 tx + {0..3,
-// 64..67}, each an FMA sum over k from zero, then + bias. A's stage is
-// stored transposed (As[k][row]), so both operands are read as float4.
-__global__ void __launch_bounds__(kSgThreads, 2)
-fwd_sgemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                 const float* __restrict__ bias, float* __restrict__ Cout,
-                 int M, int N, int K, long long sA, long long sW,
-                 long long sBias, long long sC) {
-  __shared__ __align__(16) float As[2][kSgK][kSgRows];
-  __shared__ __align__(16) float Ws[2][kSgK][kSgCols];
-  {
-    const size_t seed = blockIdx.z;
-    A += seed * sA;
-    W += seed * sW;
-    bias += seed * sBias;
-    Cout += seed * sC;
-  }
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.x * kSgRows;
-  const int n0 = blockIdx.y * kSgCols;
-  // A stage: 128 rows x 16 k, 4 float4 a row; a W stage: 16 k x 128
-  // columns, 32 float4 a row: two float4 of each per thread.
-  float4 ra[2], rw[2];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = tid + r * kSgThreads;
-      const int row = m0 + (i & 127), k = k0 + 4 * (i >> 7);
-      ra[r] = row < M && k < K
-                  ? *reinterpret_cast<const float4*>(A + (size_t)row * K + k)
-                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      const int kw = k0 + (i >> 5), col = n0 + 4 * (i & 31);
-      rw[r] = kw < K && col < N
-                  ? *reinterpret_cast<const float4*>(W + (size_t)kw * N + col)
-                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = tid + r * kSgThreads;
-      const int row = i & 127, k = 4 * (i >> 7);
-      As[buf][k][row] = ra[r].x;
-      As[buf][k + 1][row] = ra[r].y;
-      As[buf][k + 2][row] = ra[r].z;
-      As[buf][k + 3][row] = ra[r].w;
-      *reinterpret_cast<float4*>(&Ws[buf][i >> 5][4 * (i & 31)]) = rw[r];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  load(0);
-  store(0);
-  __syncthreads();
-  const int nk = (K + kSgK - 1) / kSgK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * kSgK);
-#pragma unroll
-    for (int k = 0; k < kSgK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][k][4 * ty + 64]);
-      const float4 w0 = *reinterpret_cast<const float4*>(&Ws[buf][k][4 * tx]);
-      const float4 w1 =
-          *reinterpret_cast<const float4*>(&Ws[buf][k][4 * tx + 64]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    // Every thread read buffer buf ^ 1 before the last barrier.
-    if (kt + 1 < nk) store(buf ^ 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + 4 * ty + (i & 3) + 64 * (i >> 2);
-    if (row >= M) continue;
-#pragma unroll
-    for (int jh = 0; jh < 2; ++jh) {
-      const int col = n0 + 4 * tx + 64 * jh;
-      if (col >= N) continue;
-      const float4 bv = *reinterpret_cast<const float4*>(bias + col);
-      *reinterpret_cast<float4*>(Cout + (size_t)row * N + col) =
-          make_float4(acc[i][4 * jh] + bv.x, acc[i][4 * jh + 1] + bv.y,
-                      acc[i][4 * jh + 2] + bv.z, acc[i][4 * jh + 3] + bv.w);
-    }
-  }
-}
-
-cudaError_t launch_sgemm(const float* A, const float* W, const float* bias,
-                         float* Cout, int M, int N, int K, int seeds,
-                         long long sA, long long sW, long long sBias,
-                         long long sC, cudaStream_t stream) {
-  fwd_sgemm_kernel<<<dim3((M + kSgRows - 1) / kSgRows,
-                          (N + kSgCols - 1) / kSgCols, seeds),
-                     kSgThreads, 0, stream>>>(A, W, bias, Cout, M, N, K, sA,
-                                              sW, sBias, sC);
-  return cudaGetLastError();
-}
 
 // Kernel 1's shared memory, f32: W_h's own columns [H, G H/2 + 4] and two
 // h tiles [rows, H + 8]. ops/rnn.py _tf32_smem(direction="fwd") mirrors it.

@@ -207,12 +207,13 @@ class RNNModel(nn.Module):
     def row_state_bytes(self, window: int) -> int:
         """Bytes of one window row's recurrence states in the compute
         dtype (the sweep's seed chunking), and, where the fused forward
-        runs on the bf16 cluster or grid kernels (Hp 144-1520), the f32 xw
-        scratch ``[W, G Hp]`` that forward allocates per row."""
+        keeps an f32 xw scratch ``[W, G Hp]`` per row (the float32 forwards
+        on the 3xTF32 and grid kernels, Hp <= 1024; the bf16 ones on the
+        cluster and grid kernels, Hp 144-1520), that scratch."""
         cd = self.dtype or torch.float32
         nbytes = window * self.hidden * (torch.finfo(cd).bits // 8)
-        if (self.scan_impl == "fused"
-                and _mma_route(cd, self.hidden) in ("cluster", "grid")):
+        if (self.scan_impl == "fused" and _mma_route(cd, self.hidden)
+                in ("tf32", "cluster", "grid")):
             nbytes += window * _GATES[self.cell] * _padded_width(
                 self.hidden) * 4
         return nbytes

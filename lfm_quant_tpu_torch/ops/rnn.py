@@ -3,8 +3,8 @@
 ``csrc/rnn_fwd_tf32.cu``, ``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd.cu``,
 ``csrc/rnn_fused_bwd_mma.cu``, ``csrc/rnn_bwd_tf32.cu``,
 ``csrc/rnn_bwd_tf32_grid.cu``, ``csrc/rnn_bwd_cluster.cu``,
-``csrc/rnn_bwd_grid.cu``, ``csrc/rnn_fwd_grid.cu``) and their plain
-versions.
+``csrc/rnn_bwd_grid.cu``, ``csrc/rnn_fwd_grid.cu``,
+``csrc/rnn_fwd_tf32_grid.cu``) and their plain versions.
 
 One rule, :func:`_mma_route`, picks the kernels of both forwards and both
 backwards from the direction, the dtype and H alone: at every H <= 128
@@ -19,8 +19,8 @@ cluster, up to H 512, both ways (``rnn_fwd_cluster.cu``: the fused form
 as a bf16 GEMM into an f32 xw scratch and the cluster recurrence;
 ``rnn_bwd_cluster.cu``: the reverse recurrence with a reduce-scatter of
 the carry's product, then the weight-gradient and dhin GEMMs). The
-float32 backwards above 128 run in 3xTF32 on a cluster of 2-16 CTAs up
-to Hp 384 (``rnn_bwd_tf32.cu``, which reduce-scatters the carry's
+float32 backwards above 128 run in 3xTF32 on a cluster of 2-4 CTAs up
+to Hp 176 (``rnn_bwd_tf32.cu``, which reduce-scatters the carry's
 product as the bf16 one does) and past it, up to Hp 1024, on the whole
 card (``rnn_bwd_tf32_grid.cu``: the gates recomputed by one GEMM, the
 carry's product over a cooperative grid that holds W_h), and so do the
@@ -28,9 +28,13 @@ bf16 backwards past 512, up to Hp 1520, with W_h held in bf16
 (``rnn_bwd_grid.cu``), and the bf16 forwards there (``rnn_fwd_grid.cu``:
 the fused form's xw by the same GEMM into an f32 scratch that the grid
 backward takes, the recurrence on a cooperative grid holding W_h's
-columns); the float32 forwards above 128, the bf16 forwards past 1520,
-the float32 backwards past 1024 and the bf16 backwards past 1520 run on
-the CUDA cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
+columns), and the float32 forwards above 128, up to Hp 1024
+(``rnn_fwd_tf32_grid.cu``: the fused form's xw by an f32 FMA GEMM on the
+CUDA cores into the scratch the float32 backwards take, the 3xTF32
+recurrence on a cooperative grid holding W_h's columns in f32); the
+float32 forwards past 1024, the bf16 forwards past 1520, the float32
+backwards past 1024 and the bf16 backwards past 1520 run on the CUDA
+cores (``rnn_fused_fwd.cu``, ``rnn_bwd.cu``).
 
 Port of ``lfm_quant_tpu/ops/pallas_rnn.py``, in its two forms:
 
@@ -583,10 +587,14 @@ def _padded_width(H: int) -> int:
 #: (``kMaxWidth`` in ``csrc/rnn_fwd_cluster.cu`` and
 #: ``csrc/rnn_bwd_cluster.cu``).
 CLUSTER_MAX_WIDTH = 512
-#: The widest padded width the float32 backward on the tensor cores takes
-#: (``kMaxWidth`` in ``csrc/rnn_bwd_tf32.cu``): past it the LSTM's f32 W_h
-#: (16 Hp^2 bytes) does not fit 16 CTAs' shared memory beside the tiles.
-TF32_MAX_WIDTH = 384
+#: The widest padded width the float32 backward on the 3xTF32 cluster
+#: takes (``kMaxWidth`` in ``csrc/rnn_bwd_tf32.cu``); past it the grid
+#: (``csrc/rnn_bwd_tf32_grid.cu``). Timed in turns on an H100 at B 2048, T
+#: 60 (``scripts/torch_cluster_variants.py --direction bwd_tf32_cross``),
+#: the grid ran rows 4 and 2 faster in both cells from Hp 192 to 384 (by
+#: 0.3-48%), the cluster faster at 144 in both and for the GRU at 160 and
+#: 176 (11-21%, where the LSTM's grid led by 5-10%).
+TF32_MAX_WIDTH = 176
 #: The widest padded width the float32 backward past it takes, W_h held by
 #: a group of co-resident CTAs across the card (``kMaxWidth`` in
 #: ``csrc/rnn_bwd_tf32_grid.cu``): the LSTM's W_h rows of one 8-unit chunk
@@ -619,9 +627,9 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     bwd       bfloat16 128 < Hp <= 512  ``rnn_bwd_cluster.cu``, fused and
                                         hoisted forms (``"cluster"``)
     bwd       float32  Hp <= 128        ``rnn_bwd_tf32.cu`` (``"tf32"``)
-    bwd       float32  128 < Hp <= 384  ``rnn_bwd_tf32.cu`` on a cluster
-                                        of 2-16 CTAs (``"tf32"``)
-    bwd       float32  384 < Hp <= 1024 ``rnn_bwd_tf32_grid.cu``, W_h on a
+    bwd       float32  128 < Hp <= 176  ``rnn_bwd_tf32.cu`` on a cluster
+                                        of 2-4 CTAs (``"tf32"``)
+    bwd       float32  176 < Hp <= 1024 ``rnn_bwd_tf32_grid.cu``, W_h on a
                                         group of co-resident CTAs
                                         (``"grid"``)
     bwd       bfloat16 512 < Hp <= 1520 ``rnn_bwd_grid.cu``, W_h in bf16 on
@@ -631,7 +639,11 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
                                         hoisted forms, W_h's columns in
                                         bf16 on a group of co-resident
                                         CTAs (``"grid"``)
-    fwd       float32  H > 128          ``rnn_fused_fwd.cu`` (``"simt"``)
+    fwd       float32  128 < Hp <= 1024 ``rnn_fwd_tf32_grid.cu``, fused and
+                                        hoisted forms, W_h's columns in
+                                        f32 (3xTF32) on a group of
+                                        co-resident CTAs (``"grid"``)
+    fwd       float32  Hp > 1024        ``rnn_fused_fwd.cu`` (``"simt"``)
     fwd       bfloat16 Hp > 1520        ``rnn_fused_fwd.cu`` (``"simt"``)
     bwd       float32  Hp > 1024        ``rnn_bwd.cu`` (``"simt"``)
     bwd       bfloat16 Hp > 1520        ``rnn_bwd.cu`` (``"simt"``)
@@ -644,38 +656,41 @@ def _mma_route(dtype: torch.dtype, H: int, direction: str = "fwd") -> str:
     (:func:`padded_launch`, exact). Above 128 bf16 splits W_h across a
     cluster of 2-16 CTAs both ways (the forward's size
     :func:`_cluster_size`, the backward's :func:`_cluster_bwd_size`), and
-    so does the float32 backward up to :data:`TF32_MAX_WIDTH`
-    (:func:`_tf32_cluster`), any H at Hp too; past it (W_h past 16 CTAs'
-    shared memory) the float32 backward recomputes the gates by one GEMM
+    the float32 backward across 2 or 4 up to :data:`TF32_MAX_WIDTH`
+    (:func:`_tf32_cluster`), any H at Hp too; past it (where the grid ran
+    faster) the float32 backward recomputes the gates by one GEMM
     and spreads the carry's product over a group of up to 132 co-resident
     CTAs holding W_h (:func:`_grid_size`, :func:`_grid_rows`) up to
     :data:`GRID_MAX_WIDTH`, and the bf16 backward past 512 does the same
     with W_h in bf16 up to :data:`BF16_GRID_MAX_WIDTH`, as does the bf16
     forward there (each CTA of a group holding its units' columns of W_h:
-    :func:`_fwd_grid_size`, :func:`_fwd_grid_rows`), so a width has one
-    route both ways. The CUDA-core kernels are the route of the float32
-    forward above 128, the bf16 forward past 1520, the float32 backward
-    past 1024 and the bf16 backward past 1520, not a fallback: a cluster or
-    grid launch the card refuses raises. bf16 runs on the
+    :func:`_fwd_grid_size`, :func:`_fwd_grid_rows`), so a bf16 width has
+    one route both ways; the float32 forward takes the grid at every width
+    above 128 up to :data:`GRID_MAX_WIDTH` (its columns of W_h in f32,
+    3xTF32), beside the 3xTF32 cluster backward up to
+    :data:`TF32_MAX_WIDTH`. The CUDA-core kernels are the route of the
+    float32 forward past 1024, the bf16 forward past 1520, the float32
+    backward past 1024 and the bf16 backward past 1520, not a fallback: a
+    cluster or grid launch the card refuses raises. bf16 runs on the
     bf16 tensor cores; float32 must hold
     the JAX f32 bound, so it splits every f32 operand of the recurrence
     into two TF32 terms (3xTF32), and the fused forward forms xw on the
     CUDA cores (unbiased f32 sums). The fused bf16 backward at H <= 128
-    reuses the forward's packing of W_x; the fused float32 backward and
-    the fused bf16 backward above 128 (cluster and grid) reuse the
-    forward's f32 xw scratch as their d_gates buffer."""
+    reuses the forward's packing of W_x; the fused float32 backwards (the
+    3xTF32 cluster and the grid) and the fused bf16 backward above 128
+    (cluster and grid) reuse the forward's f32 xw scratch as their d_gates
+    buffer."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction}")
     Hp = _padded_width(H)
     if Hp > 128:
         if dtype == torch.bfloat16 and Hp <= CLUSTER_MAX_WIDTH:
             return "cluster"
-        if dtype == torch.float32 and direction == "bwd":
-            if Hp <= TF32_MAX_WIDTH:
-                return "tf32"
-            if Hp <= GRID_MAX_WIDTH:
-                return "grid"
-        if dtype == torch.bfloat16 and Hp <= BF16_GRID_MAX_WIDTH:
+        if (dtype == torch.float32 and direction == "bwd"
+                and Hp <= TF32_MAX_WIDTH):
+            return "tf32"
+        if (dtype in (torch.float32, torch.bfloat16)
+                and Hp <= _grid_max_width(dtype)):
             return "grid"
         return "simt"
     if dtype == torch.bfloat16:
@@ -1115,9 +1130,9 @@ def _launch_scan_bwd_mma(cell: str, xw: torch.Tensor, wh: torch.Tensor,
 #: Rows per CTA of the 3xTF32 recurrences at H <= 128 (``16 *
 #: kRowTiles`` in ``csrc/rnn_bwd_tf32.cu`` and ``csrc/rnn_fwd_tf32.cu``)
 #: and the cluster sizes each direction is built for (the forward's:
-#: ``kCluster``; the backward's 1 and 2 at H <= 128, 2-16 above).
+#: ``kCluster``; the backward's 1 and 2 at H <= 128, 2 and 4 above).
 TF32_ROWS = 32
-TF32_CLUSTERS = {"bwd": (1, 2, 4, 8, 16), "fwd": (2,)}
+TF32_CLUSTERS = {"bwd": (1, 2, 4), "fwd": (2,)}
 #: Rows per cluster of the float32 backward above 128, and its threads per
 #: CTA at most by rows (``max_threads`` in ``csrc/rnn_bwd_tf32.cu``: the
 #: registers of the recompute's sums, xw_t, the carries and the carry
@@ -1132,9 +1147,10 @@ TF32_PARTIAL_BYTES = 1 << 27
 def _tf32_takes(H: int, C: int, rows: int) -> bool:
     """The shapes the float32 backward (``csrc/rnn_bwd_tf32.cu``, its
     ``supported``) takes: 16 <= H <= 128 with C 1 or 2 and
-    :data:`TF32_ROWS` rows; 128 < H <= :data:`TF32_MAX_WIDTH` with C of 2,
-    4, 8, 16, rows of :data:`TF32_CLUSTER_ROWS` and the CTA's warps
-    (:func:`_cluster_warps`) within the rows' thread limit; H % 16 == 0."""
+    :data:`TF32_ROWS` rows; 128 < H <= :data:`TF32_MAX_WIDTH` with C of 2
+    or 4, rows of :data:`TF32_CLUSTER_ROWS` and the CTA's warps
+    (:func:`_cluster_warps`) within the rows' thread limit; H % 16 ==
+    0."""
     if not (16 <= H <= TF32_MAX_WIDTH and H % 16 == 0):
         return False
     if H <= 128:
@@ -1178,9 +1194,8 @@ def _tf32_cluster(cell: str, H: int, limit: int,
     CTA by 1.3-1.6x at B 2048 where W_h fits one) whose share of W_h fits
     beside the tiles in ``limit`` bytes of shared memory per block (the
     backward above 128 at 16 rows, its least); raises where none does. On
-    an H100 the backward above 128 takes the LSTM 2 CTAs at Hp 144, 4 to
-    208, 8 to 272 and 16 to 384, the GRU 2 to 176, 4 to 224, 8 to 320 and
-    16 to 384."""
+    an H100 the backward above 128 takes the LSTM 2 CTAs at Hp 144 and 4
+    at 160 and 176, the GRU 2 at each of the three."""
     rows = 16 if direction == "bwd" and H > 128 else TF32_ROWS
     sizes = (TF32_CLUSTERS["fwd"] if direction == "fwd" else tuple(
         C for C in TF32_CLUSTERS["bwd"] if _tf32_takes(H, C, rows)))
@@ -1411,7 +1426,7 @@ def _launch_bwd_tf32(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 
 # ---------------------------------------------------------------------------
-# The backwards on the grid: float32 past Hp 384
+# The backwards on the grid: float32 past Hp 176
 # (csrc/rnn_bwd_tf32_grid.cu) and bfloat16 past Hp 512 (csrc/rnn_bwd_grid.cu)
 # ---------------------------------------------------------------------------
 
@@ -1431,7 +1446,8 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def _grid_max_width(dtype: torch.dtype) -> int:
-    """The widest padded width the grid backward of ``dtype`` takes."""
+    """The widest padded width the grid backward and forward of ``dtype``
+    take."""
     return (BF16_GRID_MAX_WIDTH if dtype == torch.bfloat16
             else GRID_MAX_WIDTH)
 
@@ -1445,12 +1461,13 @@ def _grid_chunks(Hp: int, n: int) -> int:
 
 def _grid_takes(Hp: int, n: int, rows: int,
                 dtype: torch.dtype = torch.float32) -> bool:
-    """The shapes the grid backward of ``dtype`` takes (its source's
-    ``supported``): 128 < Hp <= :func:`_grid_max_width`, Hp % 16 == 0 (the
-    route gives float32 Hp > :data:`TF32_MAX_WIDTH` and bf16 Hp >
-    :data:`CLUSTER_MAX_WIDTH`; below, it is timed beside the cluster
-    forms), rows of :data:`GRID_ROWS`, 1 <= n <= Hp / 8, and a warp per
-    (chunk, 16 rows) within :data:`GRID_MAX_THREADS`."""
+    """The shapes the grid backward and forward of ``dtype`` take (their
+    sources' ``supported``): 128 < Hp <= :func:`_grid_max_width`, Hp % 16
+    == 0 (the route gives the float32 backward Hp > :data:`TF32_MAX_WIDTH`,
+    the float32 forward Hp > 128 and bf16 Hp > :data:`CLUSTER_MAX_WIDTH`
+    both ways; below, it is timed beside the cluster forms), rows of
+    :data:`GRID_ROWS`, 1 <= n <= Hp / 8, and a warp per (chunk, 16 rows)
+    within :data:`GRID_MAX_THREADS`."""
     if not (128 < Hp <= _grid_max_width(dtype) and Hp % 16 == 0):
         return False
     if rows not in GRID_ROWS or not 1 <= n <= Hp // MMA_UNITS:
@@ -1558,25 +1575,24 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                      groups: Optional[int] = None,
                      stats: Optional[dict] = None):
     """One call of the backward on the grid, in ``xin``'s dtype: float32
-    past Hp 384 (``csrc/rnn_bwd_tf32_grid.cu``, 3xTF32; fused: six kernel
+    past Hp 176 (``csrc/rnn_bwd_tf32_grid.cu``, 3xTF32; fused: six kernel
     launches, or five given ``xw``; hoisted: four), bfloat16 past Hp 512
     (``csrc/rnn_bwd_grid.cu``; the same counts); counted once →
     fused: ``(dhin, dW_x, db, dW_h)``; hoisted (``xin`` is xw, ``wx`` and
     ``b`` None): ``(dxw, dW_h)``; the weight gradients in f32, dhin and dxw
     in the dtype. Seed-stacked operands (``xin`` 4-D, each operand of seed
     extent S or 1) run every seed in the same call and give each output
-    per seed; the states are per seed. Fused, ``xw`` is the forward's f32
-    xw scratch at this width (the 3xTF32 forward's in float32, the grid
-    forward's in bf16): the kernels skip their own xw GEMM and overwrite it
-    with d_xw. The group size and rows come from
+    per seed; the states are per seed. Fused, ``xw`` is the grid forward's
+    f32 xw scratch at this width: the kernels skip their own xw GEMM and
+    overwrite it with d_xw. The group size and rows come from
     :func:`_grid_size` and :func:`_grid_rows` (``group``, ``rows`` override
     them), the groups from the CTAs the card holds at once
     (:func:`_grid_check`; ``groups`` overrides it: more than the card
     holds is refused, never run another way). A ``stats`` dict gets the
     launch's shape and ``"cycles"``, ``[CTAs, 2]`` int64 on the card: each
     CTA's SM cycles waiting at the group's barriers and in all (read after
-    a synchronize); in bf16 also ``"kernels"``, the kernels the call
-    launched, as the source counts them."""
+    a synchronize), and ``"kernels"``, the kernels the call launched, as
+    the source counts them."""
     stacked = xin.dim() == 4
     if not stacked:
         xin, wh, m, h_all, dh = (t[None] for t in (xin, wh, m, h_all, dh))
@@ -1635,12 +1651,12 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                _stride(keep, S))
     # 0 hoisted, 1 fused, 2 fused on the forward's xw (its GEMM skipped).
     mode = 0 if not fused else 1 if xw is None else 2
+    kernels = ctypes.c_int(0)
     with torch.cuda.device(dev):
         if bf:
             # The exchange: per group, two buffers of d_hw's hi and lo.
             xch = torch.empty((max(groups, 1), 2, 2, rows, G), dtype=dtype,
                               device=dev)
-            kernels = ctypes.c_int(0)
             err = lib.lfm_rnn_bwd_grid_bf16(
                 _CELL_CODE[cell], mode, xin.data_ptr(), ptr(wx),
                 ptr(b), wh.data_ptr(), keep.data_ptr(), h_all.data_ptr(),
@@ -1649,8 +1665,6 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                 dw.data_ptr(), sync.data_ptr(), ptr(cycles), S, B, T, H, n,
                 rows, groups, *strides, float(forget_bias),
                 ctypes.byref(kernels), _build.stream_of(xin))
-            if stats is not None:
-                stats["kernels"] = kernels.value
         else:
             err = lib.lfm_rnn_bwd_tf32_grid(
                 _CELL_CODE[cell], mode,
@@ -1659,7 +1673,10 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                 dh.data_ptr(), ptr(dx), dgx.data_ptr(), ptr(dhn),
                 partial.data_ptr(), slices, dw.data_ptr(), sync.data_ptr(),
                 ptr(cycles), S, B, T, H, n, rows, groups, *strides,
-                float(forget_bias), _build.stream_of(xin))
+                float(forget_bias), ctypes.byref(kernels),
+                _build.stream_of(xin))
+    if stats is not None:
+        stats["kernels"] = kernels.value
     name = (f"rnn_{'fused_' if fused else ''}bwd_grid_"
             f"{'bf16_' if bf else ''}{cell}")
     _build.check(lib, err, f"{name} (hidden={H}, {groups} groups of {n} "
@@ -1675,73 +1692,111 @@ def _launch_bwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
 
 
 # ---------------------------------------------------------------------------
-# The bfloat16 forward past hidden 512 (csrc/rnn_fwd_grid.cu)
+# The forwards on the grid: float32 above hidden 128
+# (csrc/rnn_fwd_tf32_grid.cu) and bfloat16 past hidden 512
+# (csrc/rnn_fwd_grid.cu)
 # ---------------------------------------------------------------------------
 
+#: The bf16 grid forward's picker takes groups of CTAs of at most
+#: ``BF16_FWD_GRID_CHUNKS`` chunks where the card then holds at least
+#: ``BF16_FWD_GRID_GROUPS`` of them, else the fewest CTAs that fit, as
+#: the float32 one always does (``scripts/torch_cluster_variants.py
+#: --direction fwd_grid_bf16``, ``fwd_grid_tf32`` on an H100). bf16 at Hp
+#: 528: 33 CTAs of 2 chunks (4 groups) ran rows 3 and 1 in 12-19% less
+#: time than 17 of 4 (7 groups); at 1024 64 of 2 (2 groups) ran 15-60%
+#: slower than the fewest that fit, 43; 32. float32: the most chunks a
+#: CTA holds ran fastest or within 16% of the fastest pair at every width
+#: timed from 144 to 1024.
+BF16_FWD_GRID_CHUNKS = 2
+BF16_FWD_GRID_GROUPS = 4
 
-def _fwd_grid_smem(cell: str, Hp: int, n: int, rows: int) -> int:
+
+def _fwd_grid_smem(cell: str, Hp: int, n: int, rows: int,
+                   dtype: torch.dtype = torch.float32) -> int:
     """Shared memory (bytes) of a CTA of the grid forward's recurrence, as
-    ``fwd_grid_smem_bytes`` counts it in ``csrc/rnn_fwd_grid.cu``: the W_h
+    ``fwd_grid_smem_bytes`` counts it in the source of ``dtype``
+    (``csrc/rnn_fwd_tf32_grid.cu``, bf16 ``csrc/rnn_fwd_grid.cu``): the W_h
     columns of its units across the G gates, one row of Hp k-values each
     ([G 8 NC][Hp + 8], NC = :func:`_grid_chunks`), and
     :data:`GRID_STAGES` stages of the h tile [rows][:data:`GRID_STAGE_K` +
-    8], bf16."""
+    8], in the dtype (f32: 4 bytes, bf16: 2)."""
     NC = _grid_chunks(Hp, n)
-    return 2 * (_GATES[cell] * MMA_UNITS * NC * (Hp + 8)
-                + GRID_STAGES * rows * (GRID_STAGE_K + 8))
+    size = 2 if dtype == torch.bfloat16 else 4
+    return size * (_GATES[cell] * MMA_UNITS * NC * (Hp + 8)
+                   + GRID_STAGES * rows * (GRID_STAGE_K + 8))
 
 
-def _fwd_grid_size(cell: str, Hp: int, limit: int, sms: int) -> int:
-    """CTAs a group of the grid forward: the fewest, at most ``sms``, whose
-    columns of W_h fit beside the 64-row stages in ``limit`` bytes of
-    shared memory a CTA within the thread limit (the backward's rule,
-    :func:`_grid_size`, on the forward's count). Raises, naming the width,
-    where none does. On an H100: the LSTM and the GRU 17 at 528 and 544 (4
-    chunks, the thread limit), 20 at 640, the LSTM 43 at 1024 (3 chunks)
-    and the GRU 32, both 95 at 1520 (2 chunks)."""
-    for n in range(1, min(Hp // MMA_UNITS, sms) + 1):
-        if (_grid_takes(Hp, n, 64, torch.bfloat16)
-                and _fwd_grid_smem(cell, Hp, n, 64) <= limit):
-            return n
-    raise ValueError(
-        f"the bfloat16 {cell} forward on the grid does not take "
-        f"hidden={Hp}: no group of at most {sms} CTAs holds its W_h within "
-        f"{limit} bytes of shared memory a CTA, or the width is outside "
-        f"128 < Hp <= {BF16_GRID_MAX_WIDTH}")
+def _fwd_grid_size(cell: str, Hp: int, limit: int, sms: int,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """CTAs a group of the grid forward of ``dtype``: the fewest, at most
+    ``sms``, whose columns of W_h fit beside the 64-row stages in
+    ``limit`` bytes of shared memory within the thread limit (the shapes
+    of :func:`_grid_takes`: the forward and the backward of a dtype take
+    the same widths); in bf16 the fewest of at most
+    :data:`BF16_FWD_GRID_CHUNKS` chunks a CTA where the card holds
+    :data:`BF16_FWD_GRID_GROUPS` such groups. Raises, naming the width,
+    where none fits. On an H100, bf16: 33 at Hp 528 (2 chunks), 17 at 544
+    and 20 at 640 (4), 43; 32 at 1024 (3; 4) and 95 at 1520 (2); float32:
+    the LSTM 5 at 160, 17 at 400 (3 chunks), 40 at 640 and 128 at 1024,
+    the GRU 5, 13, 27 and 128."""
+    top = min(Hp // MMA_UNITS, sms)
+    fits = [n for n in range(1, top + 1)
+            if _grid_takes(Hp, n, 64, dtype)
+            and _fwd_grid_smem(cell, Hp, n, 64, dtype) <= limit]
+    if not fits:
+        raise ValueError(
+            f"the {_dtype_name(dtype)} {cell} forward on the grid does not "
+            f"take hidden={Hp}: no group of at most {sms} CTAs holds its "
+            f"W_h within {limit} bytes of shared memory a CTA, or the width "
+            f"is outside 128 < Hp <= {_grid_max_width(dtype)}")
+    if dtype == torch.bfloat16:
+        for n in fits:
+            if (_grid_chunks(Hp, n) <= BF16_FWD_GRID_CHUNKS
+                    and sms // n >= BF16_FWD_GRID_GROUPS):
+                return n
+    return fits[0]
 
 
-def _fwd_grid_rows(cell: str, Hp: int, n: int, B: int, S: int, limit: int,
-                   sms: int) -> int:
-    """Batch rows per work item of the grid forward: 128 where the kernel
-    takes them at this group size, they fit ``limit`` and the S ceil(B /
-    128) items still occupy every group the card holds, else 64 (the
-    backward's rule, :func:`_grid_rows`); a row's sums do not depend on
-    the count."""
-    if (_grid_takes(Hp, n, 128, torch.bfloat16)
-            and _fwd_grid_smem(cell, Hp, n, 128) <= limit
-            and S * -(-B // 128) >= sms // n):
+def _fwd_grid_rows(cell: str, Hp: int, n: int, limit: int, sms: int,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Batch rows per work item of the grid forward: 128 where the card
+    holds one group of ``n`` only (``sms // n`` < 2), the kernel takes
+    them at this group size and they fit ``limit``, else 64. Several
+    groups run more, shorter steps side by side (33 CTAs of 64 rows beat
+    128 by 6-13% at bf16 528); one group walks the items alone and gains
+    from fewer, fuller steps (128 rows beat 64 by 18-27% at bf16 1520 and
+    by 28-40% at float32 1024). A row's sums do not depend on the
+    count."""
+    if (sms // n < 2 and _grid_takes(Hp, n, 128, dtype)
+            and _fwd_grid_smem(cell, Hp, n, 128, dtype) <= limit):
         return 128
     return 64
 
 
 @functools.lru_cache(maxsize=None)
 def _fwd_grid_check(cell: str, fused: bool, H: int, n: int, rows: int,
-                    device: torch.device) -> int:
-    """Once per shape, form and card: ``csrc/rnn_fwd_grid.cu`` takes it and
-    counts the shared memory :func:`_fwd_grid_smem` counts, it fits the
+                    device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> int:
+    """Once per shape, form, dtype and card: the grid forward's source
+    (``csrc/rnn_fwd_tf32_grid.cu``, bf16 ``csrc/rnn_fwd_grid.cu``) takes it
+    and counts the shared memory :func:`_fwd_grid_smem` counts, it fits the
     card, and the card holds a whole group at once → the CTAs it holds at
     once. Raises, naming the width and the group, where not."""
     lib = _build.library()
     code = _CELL_CODE[cell]
-    smem = lib.lfm_rnn_fwd_grid_smem(code, H, n, rows)
+    bf = dtype == torch.bfloat16
+    src = "rnn_fwd_grid.cu" if bf else "rnn_fwd_tf32_grid.cu"
+    name = _dtype_name(dtype)
+    smem = (lib.lfm_rnn_fwd_grid_smem if bf
+            else lib.lfm_rnn_fwd_tf32_grid_smem)(code, H, n, rows)
     if smem < 0:
-        raise ValueError(f"the bfloat16 forward on the grid does not take "
+        raise ValueError(f"the {name} forward on the grid does not take "
                          f"hidden={H} with a group of {n} CTAs and {rows} "
                          f"rows")
-    if smem != _fwd_grid_smem(cell, H, n, rows):
+    if smem != _fwd_grid_smem(cell, H, n, rows, dtype):
         raise RuntimeError(
-            f"csrc/rnn_fwd_grid.cu counts {smem} bytes of shared memory, "
-            f"ops/rnn.py {_fwd_grid_smem(cell, H, n, rows)}")
+            f"csrc/{src} counts {smem} bytes of shared memory, ops/rnn.py "
+            f"{_fwd_grid_smem(cell, H, n, rows, dtype)}")
     limit = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
     if smem > limit:
@@ -1749,10 +1804,11 @@ def _fwd_grid_check(cell: str, fused: bool, H: int, n: int, rows: int,
                          f"bytes of shared memory per CTA, more than the "
                          f"card's {limit}")
     with torch.cuda.device(device):
-        ctas = lib.lfm_rnn_fwd_grid_ctas(code, int(fused), H, n, rows)
+        ctas = (lib.lfm_rnn_fwd_grid_ctas(code, int(fused), H, n, rows) if bf
+                else lib.lfm_rnn_fwd_tf32_grid_ctas(code, H, n, rows))
     if ctas < n:
         raise RuntimeError(
-            f"the card holds {ctas} CTAs of the bfloat16 {cell} forward at "
+            f"the card holds {ctas} CTAs of the {name} {cell} forward at "
             f"hidden={H} ({rows} rows, {smem} bytes of shared memory a CTA) "
             f"at once, fewer than a group of {n}")
     return ctas
@@ -1764,26 +1820,31 @@ def _launch_fwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
                      group: Optional[int] = None, rows: Optional[int] = None,
                      groups: Optional[int] = None,
                      stats: Optional[dict] = None):
-    """One call of the bfloat16 forward past hidden 512
-    (``csrc/rnn_fwd_grid.cu``; fused: the xw GEMM and the grid recurrence,
-    hoisted: the recurrence; counted once) → ``(h_all, c_all or None)``,
-    and fused with ``keep_xw`` also the f32 xw scratch ``[S, B, T, G H]``,
-    which the grid backward takes as its d_gates buffer (None hoisted).
-    Fused, ``xin`` is hin and ``wx``, ``b`` are used; hoisted, ``xin`` is
-    xw (``wx``, ``b`` None). Seed-stacked operands (``xin`` 4-D, each of
-    seed extent S or 1) run every seed in the same call → ``[S, B, T,
-    H]``. The group size and rows come from :func:`_fwd_grid_size` and
-    :func:`_fwd_grid_rows` (``group``, ``rows`` override them), the groups
-    from the CTAs the card holds at once (:func:`_fwd_grid_check`;
-    ``groups`` overrides it: more than the card holds is refused before
-    any launch, never run another way). A ``stats`` dict gets the launch's
-    shape, ``"kernels"`` (the kernels the call launched, as the source
-    counts them) and ``"cycles"``, ``[CTAs, 2]`` int64 on the card: each
-    CTA's SM cycles waiting at the group's barriers and in all (read after
-    a synchronize)."""
-    if xin.dtype != torch.bfloat16:
-        raise ValueError(f"the forward on the grid takes bfloat16, got "
-                         f"{xin.dtype}")
+    """One call of the forward on the grid, in ``xin``'s dtype: float32
+    above hidden 128 (``csrc/rnn_fwd_tf32_grid.cu``, 3xTF32; fused: the xw
+    GEMM on the CUDA cores and the grid recurrence), bfloat16 past 512
+    (``csrc/rnn_fwd_grid.cu``; fused: the bf16 xw GEMM and the grid
+    recurrence); hoisted: the recurrence; counted once → ``(h_all, c_all
+    or None)`` in the dtype, and fused with ``keep_xw`` also the f32 xw
+    scratch ``[S, B, T, G H]``, which the backward on the same route takes
+    as its d_gates buffer (None hoisted). Fused, ``xin`` is hin and ``wx``,
+    ``b`` are used; hoisted, ``xin`` is xw (``wx``, ``b`` None).
+    Seed-stacked operands (``xin`` 4-D, each of seed extent S or 1) run
+    every seed in the same call → ``[S, B, T, H]``. The group size and
+    rows come from :func:`_fwd_grid_size` and :func:`_fwd_grid_rows`
+    (``group``, ``rows`` override them), the groups from the CTAs the card
+    holds at once (:func:`_fwd_grid_check`; ``groups`` overrides it: more
+    than the card holds is refused before any launch, never run another
+    way). A ``stats`` dict gets the launch's shape, ``"kernels"`` (the
+    kernels the call launched, as the source counts them) and
+    ``"cycles"``, ``[CTAs, 2]`` int64 on the card: each CTA's SM cycles
+    waiting at the group's barriers and in all (read after a
+    synchronize)."""
+    dtype = xin.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the forward on the grid takes float32 or "
+                         f"bfloat16, got {dtype}")
+    bf = dtype == torch.bfloat16
     stacked = xin.dim() == 4
     if not stacked:
         xin, wh, m = xin[None], wh[None], m[None]
@@ -1796,10 +1857,10 @@ def _launch_fwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     props = torch.cuda.get_device_properties(dev)
     limit, sms = (props.shared_memory_per_block_optin,
                   props.multi_processor_count)
-    n = group or _fwd_grid_size(cell, H, limit, sms)
+    n = group or _fwd_grid_size(cell, H, limit, sms, dtype)
     if rows is None:
-        rows = _fwd_grid_rows(cell, H, n, B, S, limit, sms)
-    ctas = _fwd_grid_check(cell, fused, H, n, rows, dev)
+        rows = _fwd_grid_rows(cell, H, n, limit, sms, dtype)
+    ctas = _fwd_grid_check(cell, fused, H, n, rows, dev, dtype)
     if groups is None:
         groups = min(ctas // n, S * -(-B // rows))
     lib = _build.library()
@@ -1807,7 +1868,7 @@ def _launch_fwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     if fused:
         wx, b = _aligned16(wx), _aligned16(b)
     keep = _keep(m)
-    h = torch.empty((S, B, T, H), dtype=xin.dtype, device=dev)
+    h = torch.empty((S, B, T, H), dtype=dtype, device=dev)
     c = torch.empty_like(h) if save_c and cell == "lstm" else None
     xw = (torch.empty((S, B, T, _GATES[cell] * H), dtype=torch.float32,
                       device=dev) if fused else None)
@@ -1820,7 +1881,7 @@ def _launch_fwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
     ptr = (lambda t: None if t is None else t.data_ptr())
     kernels = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = lib.lfm_rnn_fwd_grid(
+        err = (lib.lfm_rnn_fwd_grid if bf else lib.lfm_rnn_fwd_tf32_grid)(
             _CELL_CODE[cell], int(fused), xin.data_ptr(), ptr(wx), ptr(b),
             wh.data_ptr(), keep.data_ptr(), h.data_ptr(), ptr(c), ptr(xw),
             sync.data_ptr(), ptr(cycles), S, B, T, H, n, rows, groups,
@@ -1830,7 +1891,8 @@ def _launch_fwd_grid(cell: str, fused: bool, xin: torch.Tensor, wx, b,
             _build.stream_of(xin))
     if stats is not None:
         stats["kernels"] = kernels.value
-    name = f"rnn_{'fused_' if fused else ''}fwd_grid_bf16_{cell}"
+    name = (f"rnn_{'fused_' if fused else ''}fwd_grid_"
+            f"{'bf16_' if bf else ''}{cell}")
     _build.check(lib, err, f"{name} (hidden={H}, {groups} groups of {n} "
                            f"CTAs, {rows} rows, {ctas} CTAs at once)")
     _build.count_launch(name)
@@ -2495,9 +2557,10 @@ class _FusedScan(torch.autograd.Function):
     call. On the 3xTF32, cluster and grid routes the forward's f32 xw
     scratch ``[S, B, T, G Hp]`` stays alive from the forward to the
     backward, which takes it as its d_gates buffer and skips its own xw
-    GEMM (the bf16 grid backward's fused form: five kernels, not six;
-    ``RNNModel.row_state_bytes`` counts the scratch); a second backward
-    recomputes it."""
+    GEMM (the grid backwards' fused form: five kernels, not six; the
+    float32 grid forward's scratch also goes to the 3xTF32 cluster
+    backward; ``RNNModel.row_state_bytes`` counts the scratch); a second
+    backward recomputes it."""
 
     @staticmethod
     def forward(ctx, cell, forget_bias, hin, wx, b, wh, m):

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """The bfloat16 forward and backward above hidden 128
 (``csrc/rnn_fwd_cluster.cu``, ``csrc/rnn_bwd_cluster.cu``, and past 512
-``csrc/rnn_bwd_grid.cu``) and the float32 backward above 128
-(``csrc/rnn_bwd_tf32.cu``, and past 384 ``csrc/rnn_bwd_tf32_grid.cu``) at
+``csrc/rnn_bwd_grid.cu``, ``csrc/rnn_fwd_grid.cu``) and the float32
+forward and backward above 128 (``csrc/rnn_fwd_tf32_grid.cu``;
+``csrc/rnn_bwd_tf32.cu``, and past 384 ``csrc/rnn_bwd_tf32_grid.cu``) at
 every cluster size and rows per cluster (group size and rows per work
 item) they take, on the card.
 
     python3 scripts/torch_cluster_variants.py [--widths 256 320 512]
         [--batch 2048] [--steps 60] [--reps 5]
         [--direction fwd|bwd|both|bwd_tf32|bwd_grid|bwd_grid_bf16|
-                     fwd_grid_bf16]
+                     fwd_grid_bf16|fwd_grid_tf32|bwd_tf32_cross]
         [--out FILE]
 
 For rows 3 (fused: the bf16 GEMM into the f32 xw scratch, then the
@@ -52,7 +53,7 @@ part costs. ``file:PATH`` builds another version of the source as it is
 
 ``--direction bwd_tf32`` does the backward's cases in float32 on the
 3xTF32 cluster form of ``csrc/rnn_bwd_tf32.cu`` (the pairs
-``_tf32_takes`` allows at C 2-16, the picked pair ``_tf32_cluster``,
+``_tf32_takes`` allows at C 2 and 4, the picked pair ``_tf32_cluster``,
 ``_tf32_rows``), with ``--diag`` variants of that source
 (:data:`TF32_DIAG`).
 
@@ -81,6 +82,23 @@ kernels by device ms, its barrier waits, the all-gather's bytes (every
 CTA of a group reads each valid row's h_{t-1}, H bf16, at every step but
 the first) and rate, and ``--diag`` variants of that source
 (:data:`FWD_GRID_DIAG`).
+
+``--direction fwd_grid_tf32`` does the same in float32 on the 3xTF32
+grid forward (``csrc/rnn_fwd_tf32_grid.cu``, :data:`FWD_TF32_GRID_DIAG`;
+the all-gather reads H f32 a row), and for the picked pair also holds
+h_all and c_all to the plain version (``max_abs_err``, against atol
+1e-5) and times ``rnn_fused_fwd.cu`` on the same inputs in turns (grid,
+CUDA cores, CUDA cores, grid: ``turns_ms``), the crossover the route's
+float32 forward is set by.
+
+``--direction bwd_tf32_cross`` times rows 4 and 2 in float32 on the
+3xTF32 cluster (``csrc/rnn_bwd_tf32.cu``, its picked pair) and on the
+grid (``csrc/rnn_bwd_tf32_grid.cu``, its picked pair) on the same inputs
+in turns (cluster, grid, grid, cluster), the crossover
+``ops/rnn.py TF32_MAX_WIDTH`` is set by; both held to the plain version
+(the largest error scaled by each gradient's largest magnitude). The
+cluster takes Hp 144 to 176 (its cap, the crossover: the grid ran faster
+at every width timed from 192 to 384).
 """
 
 from __future__ import annotations
@@ -287,8 +305,8 @@ BF16_GRID_DIAG = {
 #: 4 stages of 64 columns, 2 or 3 of 128.
 FWD_GRID_DIAG = {
     "base": [],
-    "diag_no_product": [("              mma_bf16(acc[q], a, make_uint2(b2[0], "
-                         "b2[1]));", "              (void)b2;")],
+    "diag_no_product": [("        mma_bf16(acc[q], a, make_uint2(b2[0], "
+                         "b2[1]));", "        (void)b2;")],
     "diag_no_gather": [("        cp_async16(dst + r * LA + kc, ok ? src : "
                         "hs, ok ? 16 : 0);",
                         "        (void)dst;\n        (void)src;")],
@@ -300,8 +318,46 @@ FWD_GRID_DIAG = {
     "stage_k128_3": BF16_GRID_DIAG["stage_k128_2"] + [
         ("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
 }
+_KSTEPS = ("#pragma unroll 4\n"
+           "    for (int kc = 0; kc < kn; kc += kRecurChainK) {")
+#: The float32 grid forward (``--direction fwd_grid_tf32``): the
+#: product's three mma a k-step removed; the all-gather's loads removed;
+#: the group's barrier reduced to the CTA's own; candidates: 3 stages of
+#: 64 columns, 2 of 32 (half the stage's shared memory); a stage's k-steps
+#: unrolled by 1, 2 or 8 in place of the kept 4 (the same operations in the
+#: same order; ``unroll4`` is the source as it is); each product's two
+#: small terms in an accumulator of their own (``split_terms``: two chains
+#: of mma a k-step, not one of three; other bits).
+FWD_TF32_GRID_DIAG = {
+    "base": [],
+    "diag_no_product": [("          mma3(cacc[q], a, b);",
+                         "          (void)b;")],
+    "diag_no_gather": FWD_GRID_DIAG["diag_no_gather"],
+    "diag_no_barrier": FWD_GRID_DIAG["diag_no_barrier"],
+    "stage_k64_3": BF16_GRID_DIAG["stage_k64_3"],
+    "stage_k32_2": GRID_DIAG["stage_k32_2"],
+    "unroll1": [(_KSTEPS, _KSTEPS.replace("unroll 4", "unroll 1"))],
+    "unroll2": [(_KSTEPS, _KSTEPS.replace("unroll 4", "unroll 2"))],
+    "unroll4": [],
+    "unroll8": [(_KSTEPS, _KSTEPS.replace("unroll 4", "unroll 8"))],
+    "split_terms": [
+        ("      float cacc[G][4];\n",
+         "      float cacc[G][4], small[G][4];\n"),
+        ("        for (int i = 0; i < 4; ++i) cacc[q][i] = 0.0f;\n",
+         "        for (int i = 0; i < 4; ++i) cacc[q][i] = small[q][i] "
+         "= 0.0f;\n"),
+        ("          mma3(cacc[q], a, b);",
+         "          lfm_tf32::mma_tf32(small[q], a.lo, b.hi[0], b.hi[1]);\n"
+         "          lfm_tf32::mma_tf32(small[q], a.hi, b.lo[0], b.lo[1]);\n"
+         "          lfm_tf32::mma_tf32(cacc[q], a.hi, b.hi[0], b.hi[1]);"),
+        ("        for (int i = 0; i < 4; ++i) acc[q][i] += cacc[q][i];",
+         "        for (int i = 0; i < 4; ++i)\n"
+         "          acc[q][i] += cacc[q][i] + small[q][i];")],
+}
 #: Per direction with variants: the source, its substitutions, the entry
 #: point and its ctypes signature, the recurrence kernel's name.
+#: Substitutions apply to the source or to a header of :data:`HEADERS`,
+#: wherever their text stands once.
 SOURCES = {
     "bwd": ("rnn_bwd_cluster.cu", BWD_DIAG, "lfm_rnn_bwd_cluster", 7,
             "rnn_bwd_cluster_kernel"),
@@ -313,7 +369,16 @@ SOURCES = {
                       "lfm_rnn_bwd_grid_bf16", 7, "rnn_bwd_grid_kernel"),
     "fwd_grid_bf16": ("rnn_fwd_grid.cu", FWD_GRID_DIAG, "lfm_rnn_fwd_grid",
                       7, "rnn_fwd_grid_kernel"),
+    "fwd_grid_tf32": ("rnn_fwd_tf32_grid.cu", FWD_TF32_GRID_DIAG,
+                      "lfm_rnn_fwd_tf32_grid", 7, "rnn_fwd_grid_kernel"),
 }
+#: The headers a direction's variants may change: both grid forwards'
+#: recurrence is ``csrc/grid_fwd.cuh``'s template.
+HEADERS = {"fwd_grid_bf16": ("grid_fwd.cuh",),
+           "fwd_grid_tf32": ("grid_fwd.cuh",)}
+#: The float32 forward's tolerance against the plain version (the JAX f32
+#: bound on the op's output).
+F32_TOL = 1e-5
 
 
 def main() -> int:
@@ -324,7 +389,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--direction", choices=("fwd", "bwd", "both",
                                             "bwd_tf32", "bwd_grid",
-                                            "bwd_grid_bf16", "fwd_grid_bf16"),
+                                            "bwd_grid_bf16", "fwd_grid_bf16",
+                                            "fwd_grid_tf32",
+                                            "bwd_tf32_cross"),
                     default="fwd")
     ap.add_argument("--diag", default="",
                     help="variants of the backward source, comma-separated")
@@ -343,7 +410,8 @@ def main() -> int:
 
     kind = (args.direction
             if args.direction in ("bwd_tf32", "bwd_grid", "bwd_grid_bf16",
-                                  "fwd_grid_bf16")
+                                  "fwd_grid_bf16", "fwd_grid_tf32",
+                                  "bwd_tf32_cross")
             else "bwd")
     diag = build_diag(args.diag.split(","), kind) if args.diag else {}
     card = subprocess.run(
@@ -374,10 +442,16 @@ def main() -> int:
                                bf if kind == "bwd_grid_bf16"
                                else torch.float32)
                     continue
-                if kind == "fwd_grid_bf16":
+                if kind in ("fwd_grid_bf16", "fwd_grid_tf32"):
                     fwd_grid_cases(torch, R, out, card, diag, cell, B, T, H,
                                    rnd, limit, sms, args.reps,
-                                   args.picked_only)
+                                   args.picked_only,
+                                   bf if kind == "fwd_grid_bf16"
+                                   else torch.float32)
+                    continue
+                if kind == "bwd_tf32_cross":
+                    bwd_cross_cases(torch, R, out, card, cell, B, T, H, rnd,
+                                    limit, sms, args.reps)
                     continue
                 hin = torch.randn(B, T, H, **rnd).to(bf)
                 wx = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
@@ -458,26 +532,35 @@ def build_diag(names, kind: str = "bwd") -> dict:
     source, table, entry, n_ints, _ = SOURCES[kind]
     out_dir = os.path.join(ROOT, "build", "cluster_variants")
     os.makedirs(out_dir, exist_ok=True)
-    src = open(os.path.join(CSRC, source)).read()
+    files = {f: open(os.path.join(CSRC, f)).read()
+             for f in (source,) + HEADERS.get(kind, ())}
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     procs = {}
     for name in names:
+        texts = dict(files)
         if name.startswith("file:"):
-            # Another version of the source, as it is.
-            text = open(name[5:]).read()
+            # Another version of the source, as it is (with the headers as
+            # they are).
+            texts[source] = open(name[5:]).read()
             name = os.path.basename(name[5:]).replace(".", "_")
         else:
-            text = src
             for part in name.split("+"):
                 for old, new in table[part]:
-                    if text.count(old) != 1:
+                    where = [f for f, t in texts.items() if old in t]
+                    if (len(where) != 1
+                            or texts[where[0]].count(old) != 1):
                         raise SystemExit(f"{part}: {old!r} is not in the "
-                                         f"source once")
-                    text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+                                         f"source and its headers once")
+                    texts[where[0]] = texts[where[0]].replace(old, new)
+        # The variant's files in a folder of their own: its source's quoted
+        # includes find the variant's headers before csrc's.
+        here = os.path.join(out_dir, name)
+        os.makedirs(here, exist_ok=True)
+        for f, text in texts.items():
+            with open(os.path.join(here, f), "w") as fh:
+                fh.write(text)
+        cu = os.path.join(here, source)
         procs[name] = subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-Xcompiler", "-fPIC", "-shared", f"-I{CSRC}", cu,
@@ -495,21 +578,23 @@ def build_diag(names, kind: str = "bwd") -> dict:
         fn = getattr(lib, entry)
         fn.argtypes = ([ci, ci] + [vp] * 12 + [ci, vp] + [ci] * n_ints
                        + [cll] * 5 + [cf, vp])
-        if kind == "fwd_grid_bf16":
+        if kind in ("fwd_grid_bf16", "fwd_grid_tf32"):
             fn.argtypes = ([ci, ci] + [vp] * 10 + [ci] * n_ints + [cll] * 5
                            + [cf, vp, vp])
-            lib.lfm_rnn_fwd_grid_ctas.argtypes = [ci] * 5
-            lib.lfm_rnn_fwd_grid_ctas.restype = ci
-            lib.lfm_rnn_fwd_grid_smem.argtypes = [ci] * 4
-            lib.lfm_rnn_fwd_grid_smem.restype = cll
+            tag = "fwd_grid" if kind == "fwd_grid_bf16" else "fwd_tf32_grid"
+            getattr(lib, f"lfm_rnn_{tag}_ctas").argtypes = (
+                [ci] * (5 if kind == "fwd_grid_bf16" else 4))
+            getattr(lib, f"lfm_rnn_{tag}_ctas").restype = ci
+            getattr(lib, f"lfm_rnn_{tag}_smem").argtypes = [ci] * 4
+            getattr(lib, f"lfm_rnn_{tag}_smem").restype = cll
         if kind in ("bwd_grid", "bwd_grid_bf16"):
-            # The scratch pointers sync and stats beside dw (bf16: and the
-            # exchange beside dhn, and the kernels' count beside the
-            # stream).
+            # The scratch pointers sync and stats beside dw, and the
+            # kernels' count beside the stream (bf16: and the exchange
+            # beside dhn).
             bf = kind == "bwd_grid_bf16"
             fn.argtypes = ([ci, ci] + [vp] * (13 if bf else 12) + [ci]
                            + [vp] * 3 + [ci] * n_ints + [cll] * 5
-                           + ([cf, vp, vp] if bf else [cf, vp]))
+                           + [cf, vp, vp])
             tag = "grid_bf16" if bf else "grid"
             getattr(lib, f"lfm_rnn_bwd_{tag}_ctas").argtypes = [ci] * 4
             getattr(lib, f"lfm_rnn_bwd_{tag}_ctas").restype = ci
@@ -733,31 +818,36 @@ def grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit, sms,
 
 
 def fwd_grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit,
-                   sms, reps, picked_only=False):
-    """Rows 3 and 1 on the bf16 grid forward at every (group, rows) pair
-    with a distinct chunk count a CTA, then each ``--diag`` variant at the
-    picked pair (the module docstring)."""
+                   sms, reps, picked_only=False, dtype=None):
+    """Rows 3 and 1 on the grid forward of ``dtype`` (bf16 or float32) at
+    every (group, rows) pair with a distinct chunk count a CTA, then each
+    ``--diag`` variant at the picked pair (the module docstring); in
+    float32 the picked pair also held to the plain version and timed in
+    turns with ``rnn_fused_fwd.cu``."""
     G = GATES[cell] * H
-    bf = torch.bfloat16
-    hin = torch.randn(B, T, H, **rnd).to(bf)
-    wx = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
-    wh = (H ** -0.5 * torch.randn(H, G, **rnd)).to(bf)
-    b = (0.1 * torch.randn(G, **rnd)).to(bf)
+    dtype = dtype or torch.bfloat16
+    bf = dtype == torch.bfloat16
+    dname = str(dtype).replace("torch.", "")
+    hin = torch.randn(B, T, H, **rnd).to(dtype)
+    wx = (H ** -0.5 * torch.randn(H, G, **rnd)).to(dtype)
+    wh = (H ** -0.5 * torch.randn(H, G, **rnd)).to(dtype)
+    b = (0.1 * torch.randn(G, **rnd)).to(dtype)
     m = torch.rand(B, T, **rnd) < 0.75
-    xw = (hin.float() @ wx.float() + b.float()).to(bf)
+    xw32 = hin.float() @ wx.float() + b.float()
+    xw = xw32.to(dtype)
     dev = hin.device
     W = H // 8
-    pick_n = R._fwd_grid_size(cell, H, limit, sms)
-    pick_rows = R._fwd_grid_rows(cell, H, pick_n, B, 1, limit, sms)
+    pick_n = R._fwd_grid_size(cell, H, limit, sms, dtype)
+    pick_rows = R._fwd_grid_rows(cell, H, pick_n, limit, sms, dtype)
     pairs = [(pick_n, pick_rows)]
     for nc in range(1, R._grid_chunks(H, 1) + 1):
         n = -(-W // nc)
         for rows in R.GRID_ROWS:
             if (n <= sms and (n, rows) not in pairs and not picked_only
-                    and R._grid_takes(H, n, rows, bf)
-                    and R._fwd_grid_smem(cell, H, n, rows) <= limit):
+                    and R._grid_takes(H, n, rows, dtype)
+                    and R._fwd_grid_smem(cell, H, n, rows, dtype) <= limit):
                 pairs.append((n, rows))
-    kernel = SOURCES["fwd_grid_bf16"][4]
+    kernel = SOURCES["fwd_grid_bf16" if bf else "fwd_grid_tf32"][4]
     with torch.no_grad():
         for fused in (True, False):
             ops = (hin, wx, b) if fused else (xw, None, None)
@@ -769,18 +859,18 @@ def fwd_grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit,
 
             want = run(pick_n, pick_rows)
             for n, rows in pairs:
-                ctas = R._fwd_grid_check(cell, fused, H, n, rows, dev)
+                ctas = R._fwd_grid_check(cell, fused, H, n, rows, dev, dtype)
                 got = run(n, rows)
                 same = all((g is None and w is None) or torch.equal(g, w)
                            for g, w in zip(got, want))
                 del got
                 picked = (n, rows) == (pick_n, pick_rows)
                 rec = dict(
-                    card=card, cell=cell, dtype="bfloat16",
+                    card=card, cell=cell, dtype=dname,
                     form="fused_fwd" if fused else "fwd", shape=[B, T, H],
                     group=n, rows=rows, chunks=R._grid_chunks(H, n),
                     groups=min(ctas // n, -(-B // rows)),
-                    smem=R._fwd_grid_smem(cell, H, n, rows),
+                    smem=R._fwd_grid_smem(cell, H, n, rows, dtype),
                     ctas_at_once=ctas,
                     ms=mean_ms(torch, lambda: run(n, rows), reps),
                     picked=picked, bitwise_as_picked=same)
@@ -795,20 +885,31 @@ def fwd_grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit,
                     recur = sum(v for k, v in ks.items() if kernel in k)
                     rec["recur_ms"] = recur
                     rec["gather_bytes"] = ((T - 1) * -(-B // rows) * n * rows
-                                           * H * 2)
+                                           * H * (2 if bf else 4))
                     rec["gather_gb_per_s"] = (
                         rec["gather_bytes"] / recur / 1e6 if recur else None)
+                    if not bf:
+                        rec.update(f32_against_plain(
+                            torch, R, cell, fused, ops, wh, m,
+                            xw32 if fused else xw, want, reps,
+                            lambda: run(n, rows)))
                 print(json.dumps(rec), flush=True)
                 out.write(json.dumps(rec) + "\n")
-            del want
             real = R._build.library
             for name, lib in libs.items():
                 R._build.library = lambda lib=lib: lib
-                rec = dict(card=card, cell=cell, dtype="bfloat16",
+                rec = dict(card=card, cell=cell, dtype=dname,
                            variant=name,
                            form="fused_fwd" if fused else "fwd",
                            shape=[B, T, H], group=pick_n, rows=pick_rows)
                 try:
+                    # The same bits as the source (an earlier version of
+                    # it, ``file:``, or a variant that keeps the order).
+                    got = run(pick_n, pick_rows)
+                    rec["bitwise_as_picked"] = all(
+                        (g is None and w is None) or torch.equal(g, w)
+                        for g, w in zip(got, want))
+                    del got
                     ks = kernels_ms(torch, lambda: run(pick_n, pick_rows))
                     rec.update(
                         ms=mean_ms(torch, lambda: run(pick_n, pick_rows),
@@ -823,8 +924,80 @@ def fwd_grid_cases(torch, R, out, card, libs, cell, B, T, H, rnd, limit,
                     R._build.library = real
                 print(json.dumps(rec), flush=True)
                 out.write(json.dumps(rec) + "\n")
+            del want
             torch.cuda.empty_cache()
-    del hin, wx, wh, b, m, xw
+    del hin, wx, wh, b, m, xw, xw32
+    torch.cuda.empty_cache()
+
+
+def f32_against_plain(torch, R, cell, fused, ops, wh, m, src, got, reps,
+                      grid) -> dict:
+    """The float32 grid forward's h_all and c_all (``got``) against the
+    plain version on ``src`` (the f32 xw), and the grid timed in turns with
+    ``rnn_fused_fwd.cu`` on the same operands."""
+    want = R.rnn_scan_states(cell, src, wh, m, 1.0, True)
+    err = {}
+    for state, g, w in zip("hc", got, want):
+        if w is not None:
+            err[state] = float((g - w).abs().max())
+    core = (lambda: R._launch_fwd(cell, not fused, *ops, wh, m, 1.0, True))
+    turns = dict(grid=[mean_ms(torch, grid, reps)],
+                 cuda_core=[mean_ms(torch, core, reps)])
+    turns["cuda_core"].append(mean_ms(torch, core, reps))
+    turns["grid"].append(mean_ms(torch, grid, reps))
+    return dict(max_abs_err=err, within_atol=max(err.values()) <= F32_TOL,
+                turns_ms=turns)
+
+
+def bwd_cross_cases(torch, R, out, card, cell, B, T, H, rnd, limit, sms,
+                    reps):
+    """Rows 4 and 2 in float32 on the 3xTF32 cluster and on the grid at
+    their picked pairs, on the same inputs, in turns (the module
+    docstring)."""
+    G = GATES[cell] * H
+    hin = torch.randn(B, T, H, **rnd)
+    wx = H ** -0.5 * torch.randn(H, G, **rnd)
+    wh = H ** -0.5 * torch.randn(H, G, **rnd)
+    b = 0.1 * torch.randn(G, **rnd)
+    m = torch.rand(B, T, **rnd) < 0.75
+    dh = 0.1 * torch.randn(B, T, H, **rnd)
+    xw = hin @ wx + b
+    h, c = R.rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    C = R._tf32_cluster(cell, H, limit)
+    crow = R._tf32_rows(cell, H, C, B, 1, limit, sms)
+    n = R._grid_size(cell, H, limit, sms)
+    grow = R._grid_rows(cell, H, n, B, 1, limit, sms)
+    for fused in (True, False):
+        ops = (hin, wx, b) if fused else (xw, None, None)
+        runs = dict(
+            cluster=lambda: R._launch_bwd_tf32(cell, fused, *ops, wh, m, h,
+                                               c, dh, 1.0, cluster=C,
+                                               rows=crow),
+            grid=lambda: R._launch_bwd_grid(cell, fused, *ops, wh, m, h, c,
+                                            dh, 1.0, group=n, rows=grow))
+        plain = (R.rnn_scan_fused_bwd_reference(cell, *ops, wh, m, h, c, dh)
+                 if fused else R.rnn_scan_bwd_reference(cell, xw, wh, m, h,
+                                                        c, dh))
+        err = {}
+        for mode, run in runs.items():
+            got = run()
+            err[mode] = max(float((g - p).abs().max())
+                            / (float(p.abs().max()) + 1e-12)
+                            for g, p in zip(got, plain))
+            del got
+        turns = {mode: [] for mode in runs}
+        for mode in ("cluster", "grid", "grid", "cluster"):
+            turns[mode].append(mean_ms(torch, runs[mode], reps))
+        rec = dict(card=card, cell=cell, dtype="float32",
+                   form="fused_bwd" if fused else "bwd", shape=[B, T, H],
+                   cluster=C, cluster_rows=crow, group=n, group_rows=grow,
+                   turns_ms=turns, scaled_err=err,
+                   faster=min(turns, key=lambda k: sum(turns[k])))
+        print(json.dumps(rec), flush=True)
+        out.write(json.dumps(rec) + "\n")
+        del plain
+        torch.cuda.empty_cache()
+    del hin, wx, wh, b, m, dh, xw, h, c
     torch.cuda.empty_cache()
 
 

@@ -83,8 +83,9 @@ def test_bf16_backward_route_past_512(H, want):
     assert R._mma_route(BF, H, "bwd") == want
     assert R._mma_route(BF, H) == want
     Hp = R._padded_width(H)
-    assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 384 else "grid"
-                                           if Hp <= 1024 else "simt")
+    assert R._mma_route(f32, H, "bwd") == (
+        "tf32" if Hp <= R.TF32_MAX_WIDTH else "grid" if Hp <= 1024
+        else "simt")
 
 
 def test_source_constants_agree():

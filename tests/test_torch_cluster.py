@@ -74,7 +74,7 @@ def test_cluster_size_is_the_fewest_ctas_that_fit(cell, H):
     Hp = R._padded_width(H)
     assert R._mma_route(torch.bfloat16, H) == "cluster"
     assert R._mma_route(torch.bfloat16, H, "bwd") == "cluster"
-    assert R._mma_route(torch.float32, H) == "simt"
+    assert R._mma_route(torch.float32, H) == "grid"
     C = R._cluster_size(cell, Hp, H100_SMEM)
     assert C == WANT_C[cell, H]
     assert R._cluster_takes(Hp, C, 16)
@@ -268,7 +268,8 @@ def test_products_at_the_lane_addresses(cell, H, C):
 def test_row_state_bytes_counts_the_cluster_scratch():
     """The seed chunking counts the fused cluster forward's f32 xw scratch
     [W, G Hp] per row: bf16 fused at hidden 200 (Hp 208), not hoisted, not
-    at hidden 128 or in float32."""
+    at hidden 128; in float32 at 200 the float32 grid forward's
+    (``tests/test_torch_tf32_fwd_grid.py``)."""
     W = 60
 
     def model(hidden, impl="fused", dtype=torch.bfloat16, cell="lstm"):
@@ -280,7 +281,8 @@ def test_row_state_bytes_counts_the_cluster_scratch():
         W * 200 * 2 + W * 3 * 208 * 4)
     assert model(200, "hoisted").row_state_bytes(W) == W * 200 * 2
     assert model(128).row_state_bytes(W) == W * 128 * 2
-    assert model(200, dtype=torch.float32).row_state_bytes(W) == W * 200 * 4
+    assert model(200, dtype=torch.float32).row_state_bytes(W) == (
+        W * 200 * 4 + W * 4 * 208 * 4)
 
 
 @pytest.mark.parametrize("cell,H", [("lstm", 320), ("gru", 320),

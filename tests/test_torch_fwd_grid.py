@@ -4,11 +4,13 @@ cooperative grid whose CTAs hold W_h's columns in bf16) on the CPU, and the
 plain backwards' float64 rule.
 
 * The route: bf16 forwards at 512 < Hp <= 1520 take ``"grid"``, as the
-  backwards do, past it the CUDA cores; float32 is as before.
+  backwards do, past it the CUDA cores; float32 forwards take the float32
+  grid to Hp 1024 (``tests/test_torch_tf32_fwd_grid.py``).
 * The picker (``ops/rnn.py _fwd_grid_size``, ``_fwd_grid_rows``) and the
   shared-memory mirror (``_fwd_grid_smem``) against the source's
   constants and count, and against a hand count at an H100's 232,448 bytes
-  and 132 SMs, from Hp 528 to the widest, 1520; the chunk dealing over a
+  and 132 SMs, from Hp 528 to the widest, 1520 (the fewest CTAs of at most
+  two chunks: the pair the card ran fastest); the chunk dealing over a
   group's CTAs and warps.
 * The plumbing: the fused forward on the grid route hands its f32 xw
   scratch back, and the fused backward passes it to the grid backward.
@@ -50,12 +52,13 @@ H100_SMS = 132
 BF = torch.bfloat16
 BF16 = dict(atol=0.05, rtol=0.05)
 WIDTHS = tuple(range(528, 1521, 16))
-#: (cell, Hp) → (CTAs a group, rows a work item) at B 2048, one seed, by
+#: (cell, Hp) → (CTAs a group, rows a work item) on an H100, by
 #: hand: the fewest CTAs whose W_h columns (2 G 8 NC (Hp + 8) bytes, NC =
 #: ceil(Hp / 8 / n)) fit beside the two 64-row stages (2 * 2 * 64 * 72
-#: bytes) within 512 threads (NC <= 4 at 64 rows), 128 rows where NC <= 2,
-#: they fit and 16 items fill the groups.
-WANT = {("lstm", 528): (17, 64), ("gru", 528): (17, 64),
+#: bytes) within 512 threads (NC <= 4 at 64 rows), but of NC <= 2 where
+#: the card holds 4 such groups (at 528 alone: 33 CTAs); 128 rows where
+#: that group is the card's only one and they fit.
+WANT = {("lstm", 528): (33, 64), ("gru", 528): (33, 64),
         ("lstm", 544): (17, 64), ("gru", 544): (17, 64),
         ("lstm", 640): (20, 64), ("gru", 640): (20, 64),
         ("lstm", 1024): (43, 64), ("gru", 1024): (32, 64),
@@ -84,34 +87,41 @@ def one_thread():
 def test_bf16_forward_route_past_512(H, want):
     """bf16 forwards at 512 < Hp <= 1520 run on the grid (H 513 at Hp 528
     and 530 at 544, zero-padded), the CUDA cores past it: the backward's
-    route, so a width has one route both ways; float32 forwards above 128
-    stay on the CUDA cores."""
+    route, so a width has one route both ways; float32 forwards there run
+    on the float32 grid up to Hp 1024 and on the CUDA cores past it."""
     assert R._mma_route(BF, H) == want
     assert R._mma_route(BF, H, "bwd") == want
-    assert R._mma_route(torch.float32, H) == "simt"
+    assert R._mma_route(torch.float32, H) == (
+        "grid" if R._padded_width(H) <= R.GRID_MAX_WIDTH else "simt")
 
 
 def test_source_constants_agree():
     """The wrapper's widest width, rows, threads, stages and units are the
-    source's and the shared grid header's, its count the source's
-    formula; the source takes the barrier and the launch from
-    ``grid_common.cuh`` and kernel 0 is the grid backward's own call of
-    ``cluster_gemm.cuh``'s GEMM (the same bits either way)."""
+    source's and the shared headers', its count the forward header's
+    formula in bf16; the recurrence is ``grid_fwd.cuh``'s kernel (the
+    source defines none, only its bf16 operands), which takes the barrier
+    and the launch from ``grid_common.cuh``; kernel 0 is the grid
+    backward's own call of ``cluster_gemm.cuh``'s GEMM (the same bits
+    either way)."""
     src = (CSRC / "rnn_fwd_grid.cu").read_text()
+    fwd = (CSRC / "grid_fwd.cuh").read_text()
     bwd = (CSRC / "rnn_bwd_grid.cu").read_text()
     common = (CSRC / "grid_common.cuh").read_text()
     assert f"constexpr int kMaxWidth = {R.BF16_GRID_MAX_WIDTH};" in src
-    assert f"constexpr int kStageK = {R.GRID_STAGE_K};" in src
-    assert f"constexpr int kStages = {R.GRID_STAGES};" in src
-    assert f"constexpr int kMaxThreads = {R.GRID_MAX_THREADS};" in src
+    assert f"constexpr int kStageK = {R.GRID_STAGE_K};" in fwd
+    assert f"constexpr int kStages = {R.GRID_STAGES};" in fwd
+    assert f"constexpr int kMaxThreads = {R.GRID_MAX_THREADS};" in fwd
     assert f"constexpr int kUnits = {R.MMA_UNITS};" in common
-    rows = re.search(r"if \(rows != (\d+) && rows != (\d+)\)", src)
+    rows = re.search(r"if \(rows != (\d+) && rows != (\d+)\)", fwd)
     assert rows and tuple(map(int, rows.groups())) == R.GRID_ROWS
-    assert ("  return 2 * ((size_t)G * kUnits * chunks_per_cta(H, n) * (H + "
-            "8) +\n              (size_t)kStages * rows * (kStageK + 8));"
-            in src)
-    assert "using lfm_grid::group_barrier;" in src
-    assert "lfm_grid::check_fits(kern, groups, n, threads, smem)" in src
+    assert ("  return sizeof(T) * ((size_t)G * kUnits * chunks_per_cta(H, n) "
+            "* (H + 8) +\n                      (size_t)kStages * rows * "
+            "(kStageK + 8));" in fwd)
+    assert "fwd_grid_smem_bytes<__nv_bfloat16>(" in src
+    assert "using lfm_grid::group_barrier;" in fwd
+    assert "lfm_grid::check_fits(kern, groups, n, threads, smem)" in fwd
+    assert '#include "grid_fwd.cuh"' in src and "__global__" not in src
+    assert "lfm_grid_fwd::launch<CELL, Bf16Ops, XW>(" in src
     flat = (lambda text: " ".join(text.split()))
     gemm = ("lfm_cluster::launch_gemm(xin, wx, b, {}, M, GH, H, seeds, "
             "s_xin, s_wx, s_b, s_gates, stream)")
@@ -119,35 +129,42 @@ def test_source_constants_agree():
     assert gemm.format("dgx") in flat(bwd)
     # One chain over k from zero a gate, then xw added (the plain order).
     assert "mma_bf16(acc[q], a, make_uint2(b2[0], b2[1]));" in src
-    assert "sigmoid(x[0] + acc[0][i])" in src
+    assert "sigmoid(x[0] + acc[0][i])" in fwd
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_group_picker_on_an_h100(cell):
     """Every (cell, Hp) from 528 to 1520: the group is the fewest CTAs (at
     most 132) whose bf16 columns of W_h fit 232,448 bytes beside the two
-    64-row stages within 512 threads; rows 128 only where they are taken,
-    fit and leave no group the card holds idle; the sizes of
-    :data:`WANT`."""
+    64-row stages within 512 threads, of at most two chunks
+    (``BF16_FWD_GRID_CHUNKS``) where the card holds four such groups
+    (``BF16_FWD_GRID_GROUPS``); rows 128 only where they are taken, fit
+    and that group is the card's only one; the sizes of :data:`WANT`."""
+    assert (R.BF16_FWD_GRID_CHUNKS, R.BF16_FWD_GRID_GROUPS) == (2, 4)
     for Hp in WIDTHS:
-        n = R._fwd_grid_size(cell, Hp, H100_SMEM, H100_SMS)
+        n = R._fwd_grid_size(cell, Hp, H100_SMEM, H100_SMS, BF)
         assert 1 <= n <= H100_SMS and R._grid_takes(Hp, n, 64, BF)
-        assert R._fwd_grid_smem(cell, Hp, n, 64) <= H100_SMEM
-        for fewer in range(1, n):
-            assert (not R._grid_takes(Hp, fewer, 64, BF)
-                    or R._fwd_grid_smem(cell, Hp, fewer, 64) > H100_SMEM)
-        rows = R._fwd_grid_rows(cell, Hp, n, 2048, 1, H100_SMEM, H100_SMS)
+        assert R._fwd_grid_smem(cell, Hp, n, 64, BF) <= H100_SMEM
+        fit = [k for k in range(1, min(Hp // 8, H100_SMS) + 1)
+               if R._grid_takes(Hp, k, 64, BF)
+               and R._fwd_grid_smem(cell, Hp, k, 64, BF) <= H100_SMEM]
+        few = [k for k in fit
+               if R._grid_chunks(Hp, k) <= 2 and H100_SMS // k >= 4]
+        assert n == (few or fit)[0]
+        rows = R._fwd_grid_rows(cell, Hp, n, H100_SMEM, H100_SMS, BF)
         assert R._grid_takes(Hp, n, rows, BF)
-        assert R._fwd_grid_smem(cell, Hp, n, rows) <= H100_SMEM
+        assert R._fwd_grid_smem(cell, Hp, n, rows, BF) <= H100_SMEM
         if rows == 128:
-            assert -(-2048 // 128) >= H100_SMS // n
+            assert H100_SMS // n < 2
         if (cell, Hp) in WANT:
             assert (n, rows) == WANT[cell, Hp], (cell, Hp, n, rows)
 
 
 @pytest.mark.parametrize("cell,Hp,n,rows,want", [
     ("lstm", 528, 17, 64, 155_648), ("gru", 528, 17, 64, 121_344),
+    ("lstm", 528, 33, 64, 87_040), ("gru", 528, 33, 64, 69_888),
     ("lstm", 1024, 43, 64, 216_576), ("gru", 1024, 32, 64, 216_576),
+    ("lstm", 1024, 64, 64, 150_528), ("gru", 1024, 64, 64, 117_504),
     ("lstm", 1520, 95, 128, 232_448), ("gru", 1520, 95, 128, 183_552)])
 def test_smem_count_by_hand(cell, Hp, n, rows, want):
     """The count, written out: the W_h columns of 8 ceil(Hp / 8 / n) units
@@ -156,16 +173,17 @@ def test_smem_count_by_hand(cell, Hp, n, rows, want):
     H100's limit to the byte. Past 1520 no group fits."""
     G = GATES[cell]
     NC = -(-(Hp // 8) // n)
-    assert R._fwd_grid_smem(cell, Hp, n, rows) == 2 * (
+    assert R._fwd_grid_smem(cell, Hp, n, rows, BF) == 2 * (
         G * 8 * NC * (Hp + 8) + 2 * rows * 72) == want
     with pytest.raises(ValueError, match="bfloat16 .* hidden=1536"):
-        R._fwd_grid_size(cell, 1536, H100_SMEM, H100_SMS)
+        R._fwd_grid_size(cell, 1536, H100_SMEM, H100_SMS, BF)
     with pytest.raises(ValueError, match="hidden=1520"):
-        R._fwd_grid_size(cell, 1520, 150_000, H100_SMS)
+        R._fwd_grid_size(cell, 1520, 150_000, H100_SMS, BF)
 
 
-@pytest.mark.parametrize("Hp,n,rows", [(528, 17, 64), (544, 17, 64),
-                                       (1024, 43, 64), (1520, 95, 128)])
+@pytest.mark.parametrize("Hp,n,rows", [(528, 17, 64), (528, 33, 64),
+                                       (544, 34, 64), (1024, 43, 64),
+                                       (1520, 95, 128)])
 def test_every_unit_and_row_is_owned_once(Hp, n, rows):
     """The chunk dealing of ``grid_common.cuh`` at the forward's shapes: CTA
     j owns chunks [j W / n, (j + 1) W / n) (NC or NC - 1, never none), warp
@@ -408,7 +426,8 @@ def test_product_bits_depend_on_neither_group_nor_rows(cell):
 def test_row_state_bytes_counts_the_grid_scratch():
     """The seed chunking counts the fused grid forward's f32 xw scratch
     [W, G Hp] per row, as it does the cluster's: bf16 fused at hidden 528
-    and 530 (Hp 544), not hoisted, not past 1520 or in float32."""
+    and 530 (Hp 544), not hoisted, not past 1520; in float32 at 528 the
+    float32 grid forward's (``tests/test_torch_tf32_fwd_grid.py``)."""
     W = 60
 
     def model(hidden, impl="fused", dtype=torch.bfloat16, cell="lstm"):
@@ -420,7 +439,8 @@ def test_row_state_bytes_counts_the_grid_scratch():
         W * 530 * 2 + W * 3 * 544 * 4)
     assert model(528, "hoisted").row_state_bytes(W) == W * 528 * 2
     assert model(1530).row_state_bytes(W) == W * 1530 * 2
-    assert model(528, dtype=torch.float32).row_state_bytes(W) == W * 528 * 4
+    assert model(528, dtype=torch.float32).row_state_bytes(W) == (
+        W * 528 * 4 + W * 4 * 528 * 4)
 
 
 # ---------------------------------------------------------------------------

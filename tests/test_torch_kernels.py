@@ -826,13 +826,15 @@ HOISTED_ROUTES = {"mma": (torch.bfloat16, 64), "tf32": (torch.float32, 64),
                   "simt": (torch.float32, 1040), "simt_bf16": (
                       torch.bfloat16, 1536),
                   "cluster": (torch.bfloat16, 256),
-                  "tf32_cluster": (torch.float32, 256),
+                  "tf32_cluster": (torch.float32, 160),
                   "grid": (torch.float32, 400),
                   "grid_bf16": (torch.bfloat16, 528)}
 #: The launch counters' tag of each hoisted route, forward and backward
-#: (float32 above 128: the CUDA-core forward, the 3xTF32 cluster or the
-#: grid backward; bf16 past 512: the bf16 grids both ways).
+#: (float32 above 128: the float32 grid forward, the 3xTF32 cluster or
+#: the grid backward; float32 past 1024 the CUDA cores; bf16 past 512: the
+#: bf16 grids both ways).
 FWD_TAG = {"mma": "mma_", "tf32": "tf32_", "cluster": "cluster_",
+           "tf32_cluster": "grid_", "grid": "grid_",
            "grid_bf16": "grid_bf16_"}
 BWD_TAG = dict(FWD_TAG, tf32_cluster="tf32_", grid="grid_",
                grid_bf16="grid_bf16_")
@@ -1071,7 +1073,7 @@ def test_tf32_fused_backward_takes_the_forward_xw(cuda, cell):
 #: The float32 widths above 128 the 3xTF32 cluster backward is held at:
 #: its cluster sizes 2 (LSTM 144, GRU 144 and 160), 4, 8 and 16, 16 and 32
 #: rows, 200 zero-padded to 208, and the cap, 384.
-TF32_WIDE = (144, 160, 200, 256, 320, 384)
+TF32_WIDE = (144, 160, 176)
 
 
 def _tf32_wide_args(cell, B, T, H, seed, device, hoisted, S=None):
@@ -1107,19 +1109,21 @@ def _tf32_wide(cell, hoisted, args, **kw):
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_tf32_cluster_bwd_matches_plain(cuda, cell, H, hoisted):
     """Rows 4 and 2 in float32 above 128 on ``csrc/rnn_bwd_tf32.cu`` (W_h
-    split across a cluster of 2-16 CTAs, the carry's product
-    reduce-scattered), through the public backward, against the plain
-    versions at the JAX f32 bound (gradients scaled, atol 1e-5): one
-    counted call, no CUDA-core backward, an all-invalid row's dhin/dxw
-    exactly zero, and a second call bitwise equal."""
+    split across a cluster of 2 or 4 CTAs, the carry's product
+    reduce-scattered), through the public backward at every width the
+    route gives it (to ``TF32_MAX_WIDTH``), against the plain versions at
+    the JAX f32 bound (gradients scaled, atol 1e-5): one counted call, no
+    CUDA-core backward, an all-invalid row's dhin/dxw exactly zero, and a
+    second call bitwise equal."""
     B, T = 37, 5
     args = _tf32_wide_args(cell, B, T, H, H + 3, cuda, hoisted)
+    assert R._mma_route(torch.float32, H, "bwd") == "tf32"
     if hoisted:
         xw, _, _, wh, m, h, c, dh = args
-        run = lambda: rnn_scan_bwd(cell, xw, wh, m, h, c, dh)  # noqa: E731
+        run = (lambda: rnn_scan_bwd(cell, xw, wh, m, h, c, dh))
         want = rnn_scan_bwd_reference(cell, xw, wh, m, h, c, dh)
     else:
-        run = lambda: rnn_scan_fused_bwd(cell, *args)  # noqa: E731
+        run = (lambda: rnn_scan_fused_bwd(cell, *args))
         want = rnn_scan_fused_bwd_reference(cell, *args)
     _build.reset_launch_counts()
     got = run()
@@ -1141,9 +1145,9 @@ def test_tf32_cluster_bwd_matches_plain(cuda, cell, H, hoisted):
 def test_tf32_cluster_bwd_seed_grid_bitwise_equals_single_seed_launches(
         cuda, cell, hoisted):
     """The seed rules (``_bwd_vmap`` :951, ``_make_scan._bwd_vmap`` :541)
-    on the float32 cluster backward at H 256: S 3 seeds with W_h shared in
+    on the float32 cluster backward at H 176: S 3 seeds with W_h shared in
     one counted call, each seed's outputs bitwise its one-seed call's."""
-    S, B, T, H = 3, 37, 5, 256
+    S, B, T, H = 3, 37, 5, 176
     args = _tf32_wide_args(cell, B, T, H, 29, cuda, hoisted, S=S)
     _build.reset_launch_counts()
     got = _tf32_wide(cell, hoisted, args)
@@ -1158,14 +1162,14 @@ def test_tf32_cluster_bwd_seed_grid_bitwise_equals_single_seed_launches(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hoisted", [False, True])
-@pytest.mark.parametrize("cell,H", [("lstm", 160), ("gru", 256)])
+@pytest.mark.parametrize("cell,H", [("lstm", 160), ("gru", 176)])
 def test_tf32_cluster_bwd_rows_do_not_change_bits(cuda, cell, H, hoisted):
     """A row's sums do not depend on the rows per cluster: 16 and 32 rows
-    (both fit at these widths) give the same bits."""
+    on 4 CTAs (both taken and fitting at these widths; the GRU's picked 2
+    CTAs take 16 rows alone) give the same bits."""
     B, T = 70, 4
     args = _tf32_wide_args(cell, B, T, H, 13, cuda, hoisted)
-    C = R._tf32_cluster(cell, H, torch.cuda.get_device_properties(
-        cuda).shared_memory_per_block_optin)
+    C = 4
     assert R._tf32_takes(H, C, 32)
     runs = [_tf32_wide(cell, hoisted, args, cluster=C, rows=rows)
             for rows in (16, 32)]
@@ -1177,12 +1181,12 @@ def test_tf32_cluster_bwd_rows_do_not_change_bits(cuda, cell, H, hoisted):
 @pytest.mark.parametrize("hoisted", [False, True])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_tf32_cluster_bwd_through_autograd(cuda, cell, hoisted):
-    """``_FusedScan`` and ``_Scan`` in float32 at H 256: the forward on the
-    CUDA cores (``rnn_fused_fwd.cu``, no xw scratch), the backward on the
-    3xTF32 cluster (the fused form forms its own xw), one launch each; the
-    output and gradients against autograd of the plain version on the
+    """``_FusedScan`` and ``_Scan`` in float32 at H 160: the forward on the
+    float32 grid (``rnn_fwd_tf32_grid.cu``), the backward on the 3xTF32
+    cluster (the fused form on the forward's xw scratch), one launch each;
+    the output and gradients against autograd of the plain version on the
     CPU."""
-    B, T, H = 37, 5, 256
+    B, T, H = 37, 5, 160
     hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 43, torch.float32,
                                          "cpu")
     xw = hin @ wx + b
@@ -1198,7 +1202,7 @@ def test_tf32_cluster_bwd_through_autograd(cuda, cell, hoisted):
         grads.append([t.grad for t in leaves])
     counts = _build.launch_counts()
     form = "" if hoisted else "fused_"
-    assert counts[f"rnn_{form}fwd_{cell}"] == 1, counts
+    assert counts[f"rnn_{form}fwd_grid_{cell}"] == 1, counts
     assert counts[f"rnn_{form}bwd_tf32_{cell}"] == 1, counts
     assert sum(counts.values()) == 2, counts
     np.testing.assert_allclose(outs[1].cpu().numpy(), outs[0].numpy(),
@@ -1211,14 +1215,14 @@ def test_tf32_cluster_bwd_through_autograd(cuda, cell, hoisted):
 @pytest.mark.cuda
 def test_tf32_cluster_bwd_launch_refused_raises(cuda):
     """No fallback: a cluster the float32 backward or the card cannot take
-    raises, naming the width and the cluster size (the LSTM at H 384 on 8
-    CTAs: its share is past the card's shared memory; on 2 CTAs: 24 warps
-    a CTA)."""
-    args = _tf32_wide_args("lstm", 5, 3, 384, 1, cuda, False)
-    with pytest.raises(ValueError, match="hidden=384 on a cluster of 8"):
-        _tf32_wide("lstm", False, args, cluster=8, rows=16)
-    with pytest.raises(ValueError, match="hidden=384 with a cluster of 2"):
+    raises, naming the width and the cluster size (the LSTM at H 176 on 2
+    CTAs: its share is past the card's shared memory; on 8 CTAs: no such
+    cluster size)."""
+    args = _tf32_wide_args("lstm", 5, 3, 176, 1, cuda, False)
+    with pytest.raises(ValueError, match="hidden=176 on a cluster of 2"):
         _tf32_wide("lstm", False, args, cluster=2, rows=16)
+    with pytest.raises(ValueError, match="hidden=176 with a cluster of 8"):
+        _tf32_wide("lstm", False, args, cluster=8, rows=16)
 
 
 @pytest.mark.cuda
@@ -1376,10 +1380,10 @@ def test_grid_fused_backward_takes_the_forward_xw(cuda, cell):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_grid_bwd_through_autograd(cuda, cell):
-    """``_FusedScan`` in float32 at H 400: the forward on the CUDA cores
-    (``rnn_fused_fwd.cu``, no xw scratch), the backward on the grid, one
-    launch each; the gradients against autograd of the plain version on
-    the CPU."""
+    """``_FusedScan`` in float32 at H 400: the forward on the float32 grid
+    (``rnn_fwd_tf32_grid.cu``), the backward on the grid on the forward's
+    xw scratch, one launch each; the gradients against autograd of the
+    plain version on the CPU."""
     B, T, H = 37, 5, 400
     hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 47, torch.float32,
                                          "cpu")
@@ -1392,7 +1396,7 @@ def test_grid_bwd_through_autograd(cuda, cell):
         out.mul(dh.to(dev)).sum().backward()
         grads.append([t.grad for t in leaves])
     counts = _build.launch_counts()
-    assert counts[f"rnn_fused_fwd_{cell}"] == 1, counts
+    assert counts[f"rnn_fused_fwd_grid_{cell}"] == 1, counts
     assert counts[f"rnn_fused_bwd_grid_{cell}"] == 1, counts
     assert sum(counts.values()) == 2, counts
     for g_card, g_cpu in zip(grads[1], grads[0]):
@@ -1623,12 +1627,13 @@ def test_fwd_grid_matches_plain(cuda, cell, H, hoisted):
     Hp = R._padded_width(H)
     props = torch.cuda.get_device_properties(cuda)
     limit = props.shared_memory_per_block_optin
-    n = R._fwd_grid_size(cell, Hp, limit, props.multi_processor_count)
+    bf = torch.bfloat16
+    n = R._fwd_grid_size(cell, Hp, limit, props.multi_processor_count, bf)
     pairs = [dict(group=n, rows=64, groups=1)]
     for more, rows in ((n + 3, 64), (n, 128), (Hp // 8, 64)):
         if (more <= props.multi_processor_count
-                and R._grid_takes(Hp, more, rows, torch.bfloat16)
-                and R._fwd_grid_smem(cell, Hp, more, rows) <= limit):
+                and R._grid_takes(Hp, more, rows, bf)
+                and R._fwd_grid_smem(cell, Hp, more, rows, bf) <= limit):
             pairs.append(dict(group=more, rows=rows))
     for kw in pairs:
         for a, z in zip(got, _fwd_grid(cell, hoisted, *args, **kw)):
@@ -1674,8 +1679,8 @@ def test_fwd_grid_launch_refused_raises(cuda, cell):
                                         cuda)
     props = torch.cuda.get_device_properties(cuda)
     n = R._fwd_grid_size(cell, 528, props.shared_memory_per_block_optin,
-                         props.multi_processor_count)
-    ctas = R._fwd_grid_check(cell, True, 528, n, 64, cuda)
+                         props.multi_processor_count, torch.bfloat16)
+    ctas = R._fwd_grid_check(cell, True, 528, n, 64, cuda, torch.bfloat16)
     _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match=f"hidden=528, {ctas // n + 1} "
                                            f"groups of {n} CTAs"):
@@ -1712,6 +1717,183 @@ def test_fwd_grid_hands_its_xw_to_the_backward(cuda, cell):
     assert (own["kernels"], given["kernels"]) == (6, 5)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+#: The float32 widths above 128 the grid forward is held at: 400 (the
+#: LSTM's 17 CTAs of 3 chunks), 402 zero-padded to 416, 640 and its
+#: widest, 1024 (one group of 128 CTAs of 128 rows).
+TF32_FWD_GRID_WIDTHS = (400, 402, 640, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("H", TF32_FWD_GRID_WIDTHS)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_fwd_grid_matches_plain(cuda, cell, H, hoisted):
+    """Rows 3 and 1 in float32 above 128 on ``csrc/rnn_fwd_tf32_grid.cu``
+    (W_h's columns held in f32 across a cooperative grid, 3xTF32
+    products), through the public forward, against the plain version
+    within atol 1e-5: one counted launch and nothing else, h_all and c_all
+    in f32, an all-invalid row exactly zero, a second call bitwise equal;
+    and the same bits from another group size, 128 rows a work item where
+    the kernel takes them, and one group. B 150 is several work items a
+    group."""
+    B, T = 150, 4
+    f32 = torch.float32
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, B, T, H, H + 11, f32, cuda)
+    m[0] = False
+    xw = hin @ wx + b
+    if hoisted:
+        run = lambda: R._scan_states_any(cell, xw, wh, m, 1.0, True)  # noqa
+        args = (xw, None, None, wh, m)
+    else:
+        run = lambda: R._fused_states(cell, hin, wx, b, wh, m, 1.0,  # noqa
+                                      True)
+        args = (hin, wx, b, wh, m)
+    want = rnn_scan_states(cell, xw, wh, m, 1.0, True)
+    name = f"rnn_{'' if hoisted else 'fused_'}fwd_grid_{cell}"
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got = run()
+    counts = _build.launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1, counts
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == f32 and g.shape == (B, T, H)
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **TOL[f32])
+        assert not g[0].any()
+    for a, z in zip(got, run()):
+        assert (a is None and z is None) or torch.equal(a, z)
+    Hp = R._padded_width(H)
+    props = torch.cuda.get_device_properties(cuda)
+    limit, sms = (props.shared_memory_per_block_optin,
+                  props.multi_processor_count)
+    n = R._fwd_grid_size(cell, Hp, limit, sms, f32)
+    pairs = [dict(group=n, rows=64, groups=1)]
+    for other, rows in ((n + 3, 64), (n, 128), (Hp // 8, 64),
+                        (Hp // 16, 128)):
+        if (other <= sms and R._grid_takes(Hp, other, rows, f32)
+                and R._fwd_grid_smem(cell, Hp, other, rows, f32) <= limit):
+            pairs.append(dict(group=other, rows=rows))
+    assert len(pairs) > 1
+    for kw in pairs:
+        for a, z in zip(got, _fwd_grid(cell, hoisted, *args, **kw)):
+            assert (a is None and z is None) or torch.equal(a, z), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_fwd_grid_seed_grid_bitwise_equals_single_seed_launches(
+        cuda, cell, hoisted):
+    """The seed rules (``_fwd_vmap`` :920, ``_make_scan._fwd_vmap`` :504)
+    on the float32 grid forward at H 400: S 3 seeds with m shared in one
+    counted launch, each seed's h_all and c_all bitwise its one-seed
+    launch's."""
+    S, B, T, H = 3, 70, 4, 400
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, B, T, H, 29, torch.float32,
+                                        cuda, S=S)
+    m1 = m[:1].contiguous()
+    if hoisted:
+        xin = hin @ wx[:, None] + b[:, None, None]
+        wx = b = None
+    else:
+        xin = hin
+    _build.reset_launch_counts()
+    got = _fwd_grid(cell, hoisted, xin, wx, b, wh, m1)
+    name = f"rnn_{'' if hoisted else 'fused_'}fwd_grid_{cell}"
+    assert _build.launch_counts()[name] == 1
+    for s in range(S):
+        one = _fwd_grid(cell, hoisted, xin[s], None if wx is None else wx[s],
+                        None if b is None else b[s], wh[s], m[0])
+        for g, o in zip(got, one):
+            assert (g is None and o is None) or torch.equal(g[s], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_fwd_grid_launch_refused_raises(cuda, cell):
+    """No fallback: a float32 grid of one group more than the card holds
+    at once is refused before any kernel runs (the xw GEMM included),
+    naming the width and the groups; a group the kernel does not take
+    raises."""
+    f32 = torch.float32
+    hin, wx, b, wh, m, _ = _wide_inputs(cell, 37, 3, 400, 5, f32, cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    n = R._fwd_grid_size(cell, 400, props.shared_memory_per_block_optin,
+                         props.multi_processor_count, f32)
+    ctas = R._fwd_grid_check(cell, True, 400, n, 64, cuda, f32)
+    _build.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=f"hidden=400, {ctas // n + 1} "
+                                           f"groups of {n} CTAs"):
+        R._launch_fwd_grid(cell, True, hin, wx, b, wh, m, 1.0, True,
+                           group=n, rows=64, groups=ctas // n + 1)
+    with pytest.raises(ValueError, match="float32 forward on the grid does "
+                                         "not take hidden=400 with a group "
+                                         "of 2"):
+        R._launch_fwd_grid(cell, True, hin, wx, b, wh, m, 1.0, True,
+                           group=2, rows=64)
+    assert not any(_build.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [400, 150])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_tf32_fwd_grid_hands_its_xw_to_the_backward(cuda, cell, H):
+    """The float32 grid forward's f32 xw scratch (two kernels: the CUDA-core
+    GEMM, the recurrence) handed to the fused float32 backward of its
+    width, as ``_FusedScan`` hands it over: the grid backward runs five
+    kernels in place of six; every gradient within the scaled f32 bound of
+    the plain version and of the backward that forms its own xw (a 3xTF32
+    GEMM, so not bitwise). Through autograd: one forward and one backward
+    launch, the gradients bitwise those of the backward handed the xw
+    directly."""
+    B, T = 150, 4
+    f32 = torch.float32
+    hin, wx, b, wh, m, dh = _wide_inputs(cell, B, T, H, 61, f32, cuda)
+    grid = R._mma_route(f32, H, "bwd") == "grid"
+    fwd = {}
+    with torch.no_grad():
+        h, c, xw = R._launch_fwd_grid(cell, True, *R._pad_operands(
+            "fused_fwd", cell, (hin, wx, b, wh, m)), 1.0, True,
+            keep_xw=True, stats=fwd)
+        h, c = (None if t is None else t[..., :H].contiguous()
+                for t in (h, c))
+    assert fwd["kernels"] == 2 and xw.dtype == f32
+    assert xw.shape == (B, T, GATES[cell] * R._padded_width(H))
+    saved = xw.clone()
+    own, given = {}, {}
+    kw = (lambda st: dict(stats=st)) if grid else (lambda st: {})
+    launch = (R._tensor_core_launcher("grid" if grid else "tf32",
+                                      "fused_bwd"))
+    want = R.padded_launch(launch, "fused_bwd")(
+        cell, hin, wx, b, wh, m, h, c, dh, 1.0, **kw(own))
+    _build.reset_launch_counts()
+    got = R.padded_launch(launch, "fused_bwd")(
+        cell, hin, wx, b, wh, m, h, c, dh, 1.0, xw=xw, **kw(given))
+    name = f"rnn_fused_bwd_{'grid' if grid else 'tf32'}_{cell}"
+    assert _build.launch_counts()[name] == 1
+    if grid:
+        assert (own["kernels"], given["kernels"]) == (6, 5)
+    plain = rnn_scan_fused_bwd_reference(
+        cell, *(t.double() for t in (hin, wx, b, wh)), m,
+        *(None if t is None else t.double() for t in (h, c, dh)))
+    for g, w, p in zip(got, want, plain):
+        _scaled_close(g, w, f32)
+        _scaled_close(g, p, f32)
+    xw.copy_(saved)
+    ops = [t.clone().requires_grad_() for t in (hin, wx, b, wh)]
+    _build.reset_launch_counts()
+    rnn_scan_fused(cell, *ops, m).backward(dh)
+    counts = _build.launch_counts()
+    assert counts[f"rnn_fused_fwd_grid_{cell}"] == 1
+    assert counts[name] == 1 and sum(counts.values()) == 2, counts
+    for g, s in zip((t.grad for t in ops), got):
+        assert torch.equal(g, s)
 
 
 @pytest.mark.cuda

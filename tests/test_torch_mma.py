@@ -206,12 +206,13 @@ def test_every_block_size_matches_plain(cuda, cell, rows):
 
 @pytest.mark.cuda
 def test_float32_and_odd_widths_keep_the_cuda_core_kernel(cuda):
-    """Widths the tensor cores do not take (float32 above 128, bf16 past
-    the grid forward's 1520, H 1530: every narrower one is padded onto
-    them) keep the CUDA-core forward in both dtypes; float32 at a
-    tensor-core width (H 64) takes the 3xTF32 forward instead."""
+    """Widths the tensor cores do not take (float32 past the float32 grid
+    forward's 1024, H 1040; bf16 past the grid forward's 1520, H 1530:
+    every narrower one is padded onto them) keep the CUDA-core forward in
+    both dtypes; float32 at a tensor-core width (H 64) takes the 3xTF32
+    forward instead."""
     _build.reset_launch_counts()
-    for dtype, H in ((torch.float32, 136), (torch.bfloat16, 1530)):
+    for dtype, H in ((torch.float32, 1040), (torch.bfloat16, 1530)):
         (hin, wx, b, wh), m = _inputs("lstm", 5, 3, H, H, cuda)
         with torch.no_grad():
             R.rnn_scan_fused("lstm", *(t.to(dtype) for t in (hin, wx, b, wh)),

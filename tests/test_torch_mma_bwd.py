@@ -48,7 +48,8 @@ def cuda():
     (torch.bfloat16, 528, "grid"),
     (torch.bfloat16, 1536, "simt"),
     (torch.float32, 144, "tf32"),
-    (torch.float32, 384, "tf32"),
+    (torch.float32, 176, "tf32"),
+    (torch.float32, 384, "grid"),
     (torch.float32, 400, "grid"),
     (torch.bfloat16, 8, "mma"),
 ])
@@ -59,7 +60,7 @@ def test_bwd_route_is_decided_by_dtype_and_width(dtype, H, route):
     of 16 (40, 8) is padded to the next. Above 128 bf16 runs on the
     cluster backward (``csrc/rnn_bwd_cluster.cu``) up to 512 and on the
     bf16 grid (``csrc/rnn_bwd_grid.cu``) past it, float32 on the 3xTF32 one
-    on a cluster up to 384 and on the grid (``csrc/rnn_bwd_tf32_grid.cu``)
+    on a cluster up to 176 and on the grid (``csrc/rnn_bwd_tf32_grid.cu``)
     past it; float32 past 1024 and bf16 past 1520 stay on the CUDA
     cores."""
     assert R._mma_route(dtype, H, "bwd") == route
@@ -85,7 +86,7 @@ def test_hoisted_bwd_route_is_decided_by_dtype_and_width(monkeypatch, cell,
     """``rnn_scan_bwd`` on the card picks its kernels by ``_mma_route``
     alone, before any launch: the hoisted mode of the bf16 tensor-core
     source, the 3xTF32 kernels in float32 (on a cluster above 128, up to
-    384; on the grid past it), the cluster backward in bf16 above 128 (on
+    176; on the grid past it), the cluster backward in bf16 above 128 (on
     the bf16 grid past 512), or the CUDA-core hoisted kernel
     (shape-only tensors on the meta device stand for the card's; the
     launchers are recorded, not run, and the tensor-core ones hand back

@@ -74,13 +74,14 @@ def test_route_table(direction, dtype, H):
     cores (a width off a multiple of 16, 8 and 120 here, zero-padded to
     the next: ``ops/rnn.py padded_launch``); there bf16 takes the bf16
     tensor cores both ways and float32 the 3xTF32 kernels both ways; H >
-    128 the CUDA cores, but for bf16, which runs on the tensor cores with
-    W_h split across a cluster both ways, and the float32 backward, which
-    runs on the 3xTF32 kernels on a cluster up to 384 and on the grid
+    128 bf16 runs on the tensor cores with W_h split across a cluster both
+    ways, the float32 forward on the 3xTF32 grid
+    (``csrc/rnn_fwd_tf32_grid.cu``) and the float32 backward on the 3xTF32
+    kernels on a cluster up to ``TF32_MAX_WIDTH`` and on the grid
     (``csrc/rnn_bwd_tf32_grid.cu``) past it."""
     tc = H <= 128
     if not tc:
-        want = "cluster" if dtype == torch.bfloat16 else "simt"
+        want = "cluster" if dtype == torch.bfloat16 else "grid"
         if dtype == torch.float32 and direction == "bwd":
             want = "tf32" if H <= R.TF32_MAX_WIDTH else "grid"
     elif dtype == torch.bfloat16:
@@ -547,8 +548,11 @@ def forward_rounds_lo():
 def gemm_model(a, w, b):
     """Kernel 0, the GEMM ``a @ w + b`` on the CUDA cores: an f32 FMA sum
     over k in order from zero (each product exact in float64, each sum
-    rounded to f32), then the bias."""
-    assert "fmaf(a[i], w[j], acc[i][j])" in FWD_SRC.read_text()
+    rounded to f32), then the bias (``tf32_common.cuh``'s
+    ``fwd_sgemm_kernel``, which the source launches)."""
+    assert "fmaf(a[i], w[j], acc[i][j])" in (
+        CSRC / "tf32_common.cuh").read_text()
+    assert "launch_sgemm(xin, wx, b," in FWD_SRC.read_text()
     acc = np.zeros((a.shape[0], w.shape[1]), np.float32)
     for k in range(a.shape[1]):
         acc = (acc + np.outer(a[:, k].astype(np.float64),
@@ -673,13 +677,15 @@ def test_forward_constants_match_the_sources():
     (``TF32_ROWS``); its recurrence's chains are no longer than the
     backward's (64 of k); its GEMM's stage divides every width it takes
     (H % 16 == 0); both sources take the shared code from the header, the
-    3xTF32 GEMM only the backward."""
+    3xTF32 GEMM only the backward, the forward's f32 FMA GEMM (its
+    constants in the header since the float32 grid forward shares it)
+    only the forward."""
     assert 16 * source_constant(FWD_SRC, "kRowTiles") == R.TF32_ROWS
     assert source_constant(FWD_SRC, "kUnits") == 8
     header = CSRC / "tf32_common.cuh"
     recur = source_constant(FWD_SRC, "kRecurChainK")
     assert recur % 8 == 0 and recur <= source_constant(header, "kChainK")
-    assert 16 % source_constant(FWD_SRC, "kSgK") == 0
+    assert 16 % source_constant(header, "kSgK") == 0
     for src in (SRC, FWD_SRC):
         text = src.read_text()
         assert '#include "tf32_common.cuh"' in text
@@ -687,6 +693,8 @@ def test_forward_constants_match_the_sources():
         assert "tf32_gemm_kernel" not in text
     assert "launch_gemm" in SRC.read_text()
     assert "launch_gemm" not in FWD_SRC.read_text()
+    assert "launch_sgemm" in FWD_SRC.read_text()
+    assert "launch_sgemm" not in SRC.read_text()
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])

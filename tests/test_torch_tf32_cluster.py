@@ -1,15 +1,18 @@
 """The float32 backward above hidden 128 on the 3xTF32 tensor cores
-(``csrc/rnn_bwd_tf32.cu``, W_h split across a cluster of 2-16 CTAs): its
+(``csrc/rnn_bwd_tf32.cu``, W_h split across a cluster of 2 or 4 CTAs): its
 route, cluster size and rows, shared memory, weight-gradient tiles and the
 reduce-scatter of the carry's product, on the CPU; and the plain versions
-it is held to on the card against the Pallas backwards at H 256 and 384.
+against the Pallas backwards at H 256 and 384 (the widths past the
+cluster's, where the grid backward is held to them on the card).
 
-* The route: float32 backwards at 128 < Hp <= 384 take ``"tf32"``, past
-  it the CUDA cores; the forwards and every bf16 route as before.
+* The route: float32 backwards at 128 < Hp <= ``TF32_MAX_WIDTH`` (176,
+  where the card's timings put the crossover, and the kernel's cap) take
+  ``"tf32"``, past it the grid; the forwards and every bf16 route as
+  their route table says.
 * The picker (``ops/rnn.py _tf32_cluster``, ``_tf32_rows``) and the
   shared-memory mirror (``_tf32_smem``) against the source's constants
-  and count, every (cell, Hp) from 144 to 384 fitting an H100's 232,448
-  bytes, Hp 400 refused; the weight gradients' row tiles and slices.
+  and count, every (cell, Hp) from 144 to 176 fitting an H100's 232,448
+  bytes, Hp 192 refused; the weight gradients' row tiles and slices.
 * The cluster kernel at its lane addresses, CTA by CTA (shared-memory
   images laid out as the source lays them out, integer operands so every
   sum is exact): the recompute over the CTA's share, the carry's product
@@ -20,8 +23,7 @@ it is held to on the card against the Pallas backwards at H 256 and 384.
 * The same reduce-scatter in 3xTF32 arithmetic (``split`` and ``mma_f32``
   of ``tests/test_torch_tf32.py``: per 8-step, chains of at most 64 of k
   per gate, f32 sums) on the d_hw of ``_scan_bwd_core``, held to the
-  carry's product at C 4, 8 and 16 (an uneven split: H 160 over 16 CTAs)
-  and at H 384.
+  carry's product at C 2 and 4 (an uneven split: H 176 over 4 CTAs).
 * Rows 4 and 2's plain versions in float32 against ``jax.vjp`` of the
   Pallas ``rnn_scan_fused`` and ``rnn_scan`` (interpret mode) at H 256
   and 384, B 4, T 3, an all-invalid row included: gradients scaled by the
@@ -56,14 +58,11 @@ SRC = (Path(__file__).resolve().parents[1] / "lfm_quant_tpu_torch" / "csrc"
        / "rnn_bwd_tf32.cu")
 H100_SMEM = 232_448  # shared memory a block can use on an H100
 H100_SMS = 132
-WIDTHS = tuple(range(144, 385, 16))
+WIDTHS = tuple(range(144, 177, 16))
 
 #: (cell, Hp) → the backward's cluster size on an H100.
-WANT_C = {("lstm", 144): 2, ("lstm", 160): 4, ("lstm", 208): 4,
-          ("lstm", 224): 8, ("lstm", 272): 8, ("lstm", 288): 16,
-          ("lstm", 384): 16, ("gru", 144): 2, ("gru", 176): 2,
-          ("gru", 192): 4, ("gru", 224): 4, ("gru", 240): 8,
-          ("gru", 320): 8, ("gru", 336): 16, ("gru", 384): 16}
+WANT_C = {("lstm", 144): 2, ("lstm", 160): 4, ("lstm", 176): 4,
+          ("gru", 144): 2, ("gru", 160): 2, ("gru", 176): 2}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -83,15 +82,17 @@ def one_thread():
 @pytest.mark.parametrize("H", [129, 136, 144, 200, 256, 320, 384, 385, 400,
                                512, 1024])
 def test_float32_backward_route(H):
-    """float32 backwards above 128 run on the 3xTF32 kernels up to Hp 384
-    and past it on the grid kernel (``csrc/rnn_bwd_tf32_grid.cu``, to Hp
-    1024); the float32 forward stays on the CUDA cores and bf16 as its
-    route table says (the cluster to 512, the bf16 grids, forward and
-    backward, past it)."""
+    """float32 backwards above 128 run on the 3xTF32 kernels up to Hp 176
+    (``TF32_MAX_WIDTH``: the grid ran rows 4 and 2 faster from 192 on) and
+    past it on the grid kernel (``csrc/rnn_bwd_tf32_grid.cu``, to Hp
+    1024); the float32 forward runs on the float32 grid
+    (``csrc/rnn_fwd_tf32_grid.cu``) and bf16 as its route table says (the
+    cluster to 512, the bf16 grids, forward and backward, past it)."""
     Hp = R._padded_width(H)
     f32, bf = torch.float32, torch.bfloat16
-    assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 384 else "grid")
-    assert R._mma_route(f32, H) == "simt"
+    assert R.TF32_MAX_WIDTH == 176
+    assert R._mma_route(f32, H, "bwd") == ("tf32" if Hp <= 176 else "grid")
+    assert R._mma_route(f32, H) == "grid"
     small = Hp <= R.CLUSTER_MAX_WIDTH
     assert R._mma_route(bf, H) == ("cluster" if small else "grid")
     assert R._mma_route(bf, H, "bwd") == ("cluster" if small else "grid")
@@ -100,7 +101,8 @@ def test_float32_backward_route(H):
 def test_source_constants_agree():
     """The wrapper's cap, cluster sizes, rows, thread limits, units, slice
     tiles and shared-memory count are the source's (the weight-gradient
-    kernel's tiles in the header it shares with the grid backward)."""
+    kernel's tiles in the header it shares with the grid backward); the
+    kernel's cap is the route's edge."""
     header = SRC.parent / "tf32_common.cuh"
     text = SRC.read_text() + header.read_text()
     assert f"constexpr int kMaxWidth = {R.TF32_MAX_WIDTH};" in text
@@ -112,8 +114,7 @@ def test_source_constants_agree():
     m = re.search(r"return rt == 1 \? (\d+) : (\d+);", text)
     assert m and tuple(map(int, m.groups())) == tuple(
         R.TF32_MAX_THREADS[r] for r in R.TF32_CLUSTER_ROWS)
-    sizes = re.search(r"if \(C != (\d+) && C != (\d+) && C != (\d+) && "
-                      r"C != kMaxCluster\)", text)
+    sizes = re.search(r"if \(C != (\d+) && C != kMaxCluster\)", text)
     assert sizes and tuple(map(int, sizes.groups())) == \
         R.TF32_CLUSTERS["bwd"][1:-1]
     assert "return kUnits * (warps_per_cta(H, C) | 1);" in text
@@ -127,7 +128,7 @@ def test_source_constants_agree():
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_every_width_fits_an_h100(cell):
-    """Every (cell, Hp) from 144 to 384: the picker's C is the fewest the
+    """Every (cell, Hp) from 144 to 176: the picker's C is the fewest the
     kernel takes whose count fits 232,448 bytes at 16 rows, rows 32 only
     where they are taken and fit too, and the count is the one written
     out below."""
@@ -149,44 +150,40 @@ def test_every_width_fits_an_h100(cell):
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_the_first_width_past_the_cap_is_refused(cell):
-    """Hp 400 is past ``kMaxWidth`` (the LSTM's f32 W_h does not fit 16
-    CTAs beside the tiles): the route is the grid kernel's, no cluster
-    shape is taken and the cluster picker raises naming the width; a card
-    whose shared memory holds no cluster's share at 384 raises too."""
-    assert R._mma_route(torch.float32, 400, "bwd") == "grid"
-    assert R._mma_route(torch.float32, 392, "bwd") == "grid"  # Hp 400
-    assert not any(R._tf32_takes(400, C, r) for C in R.TF32_CLUSTERS["bwd"]
+    """Hp 192 is past ``kMaxWidth`` (the grid backward ran faster there):
+    the route is the grid kernel's, no cluster shape is taken and the
+    cluster picker raises naming the width; a card whose shared memory
+    holds no cluster's share at 176 raises too."""
+    assert R._mma_route(torch.float32, 192, "bwd") == "grid"
+    assert R._mma_route(torch.float32, 184, "bwd") == "grid"  # Hp 192
+    assert not any(R._tf32_takes(192, C, r) for C in R.TF32_CLUSTERS["bwd"]
                    for r in R.TF32_CLUSTER_ROWS)
-    with pytest.raises(ValueError, match="hidden=400"):
-        R._tf32_cluster(cell, 400, H100_SMEM)
-    with pytest.raises(ValueError, match="hidden=384"):
-        R._tf32_cluster(cell, 384, 150_000)
-    # Even 16 CTAs of 16 rows leave the LSTM at 400 past the card.
-    if cell == "lstm":
-        NW = -(-400 // 8 // 16)
-        LW = 4 * 8 * NW + 4
-        assert 4 * (400 * LW + 16 * 408 + 16 * LW) > H100_SMEM
+    with pytest.raises(ValueError, match="hidden=192"):
+        R._tf32_cluster(cell, 192, H100_SMEM)
+    with pytest.raises(ValueError, match="hidden=176"):
+        R._tf32_cluster(cell, 176, 100_000)
 
 
 @pytest.mark.parametrize("cell,Hp,B,S,rows", [
     ("lstm", 160, 2048, 1, 32), ("lstm", 144, 2048, 1, 16),
-    ("lstm", 208, 2048, 1, 16), ("lstm", 320, 2048, 1, 32),
-    ("lstm", 320, 37, 1, 16), ("lstm", 384, 2048, 1, 16),
-    ("gru", 160, 2048, 1, 16), ("gru", 256, 2048, 3, 32),
-    ("gru", 256, 100, 1, 16), ("gru", 384, 2048, 1, 32),
+    ("lstm", 176, 2048, 1, 32), ("lstm", 160, 2048, 3, 32),
+    ("lstm", 176, 37, 1, 16), ("lstm", 160, 100, 1, 16),
+    ("gru", 160, 2048, 1, 16), ("gru", 176, 2048, 3, 16),
+    ("gru", 144, 100, 1, 16), ("gru", 176, 37, 1, 16),
     ("lstm", 128, 5, 1, 32),
 ])
 def test_rows_follow_the_fit_and_the_block_count(cell, Hp, B, S, rows):
     """32 rows above 128 where the kernel takes them (256 threads), they
-    fit, and the launch still gives half the SMs a CTA; else 16; at H <=
-    128 always :data:`TF32_ROWS`."""
+    fit, and the launch still gives half the SMs a CTA; else 16 (the
+    GRU's picked clusters of 2 are past 256 threads at every width); at H
+    <= 128 always :data:`TF32_ROWS`."""
     C = R._tf32_cluster(cell, Hp, H100_SMEM)
     assert R._tf32_rows(cell, Hp, C, B, S, H100_SMEM, H100_SMS) == rows
 
 
 @pytest.mark.parametrize("cell,Hp,C,rows", [
-    ("lstm", 160, 4, 32), ("lstm", 384, 16, 16), ("gru", 144, 2, 16),
-    ("gru", 320, 8, 16), ("lstm", 208, 4, 16), ("gru", 384, 16, 32),
+    ("lstm", 160, 4, 32), ("lstm", 176, 4, 16), ("gru", 144, 2, 16),
+    ("gru", 176, 2, 16), ("lstm", 144, 2, 16), ("gru", 176, 4, 32),
     ("lstm", 128, 2, 32), ("gru", 64, 1, 32)])
 def test_smem_count_by_hand(cell, Hp, C, rows):
     """The count, written out. Above 128: the share [Hp, G U + 4] with U =
@@ -205,8 +202,8 @@ def test_smem_count_by_hand(cell, Hp, C, rows):
                     + rows * (G * Hc + 4)
                     + (2 * rows * (Hc + 8) if C > 1 else 0))
     assert R._tf32_smem(cell, Hp, C, "bwd", rows) == want
-    # The widest: the LSTM at Hp 384 on 16 CTAs of 16 rows.
-    assert R._tf32_smem("lstm", 384, 16, "bwd", 16) == 209_664
+    # The widest: the LSTM at Hp 176 on 4 CTAs of 32 rows.
+    assert R._tf32_smem("lstm", 176, 4, "bwd", 32) == 215_296
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -244,7 +241,7 @@ def test_weight_gradient_slices_and_row_tiles(cell):
 
 @pytest.mark.parametrize("cell,H,C,RT", [("lstm", 160, 4, 2),
                                          ("gru", 144, 2, 1),
-                                         ("lstm", 160, 16, 1)])
+                                         ("lstm", 176, 4, 1)])
 def test_cluster_products_and_reduce_scatter_at_lane_addresses(cell, H, C,
                                                                RT):
     """Kernel 1 above 128 at its lane addresses, in each CTA j of a
@@ -254,8 +251,8 @@ def test_cluster_products_and_reduce_scatter_at_lane_addresses(cell, H, C,
     taking k0 + 2c, k0 + 2c + 1); the carry's partial over the own
     columns by output chunks c = w + NW i, each stored once into its
     owner's receive buffer at slot j; each owner's rank-ordered sum is
-    ``d_hw @ W_h^T``. Conflict-free fragment loads. (H 160 over 16 CTAs:
-    20 warps of units, 4 CTAs own two, 12 one.)"""
+    ``d_hw @ W_h^T``. Conflict-free fragment loads. (H 176 over 4 CTAs:
+    22 warps of units, 2 CTAs own six, 2 five.)"""
     G = GATES[cell]
     rng = np.random.default_rng(H + C + G)
     BB = 16 * RT
@@ -380,9 +377,9 @@ def _tf32_carry(d_hw, wh, cell, C):
     return out
 
 
-@pytest.mark.parametrize("cell,H,C", [("lstm", 160, 4), ("gru", 160, 16),
-                                      ("lstm", 160, 16), ("gru", 256, 8),
-                                      ("lstm", 384, 16), ("gru", 384, 4)])
+@pytest.mark.parametrize("cell,H,C", [("lstm", 160, 4), ("gru", 160, 2),
+                                      ("lstm", 176, 4), ("gru", 176, 4),
+                                      ("lstm", 144, 2), ("gru", 144, 2)])
 def test_reduce_scatter_in_3xtf32_holds_the_carry_product(cell, H, C):
     """The reduce-scatter in 3xTF32 on the d_hw of ``_scan_bwd_core``
     (float32, B 16, T 2, weights at H^-1/2) against the carry's f32

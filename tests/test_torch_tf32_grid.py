@@ -66,20 +66,24 @@ def one_thread():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("H,want", [(384, "tf32"), (385, "grid"),
+@pytest.mark.parametrize("H,want", [(176, "tf32"), (177, "grid"),
+                                    (192, "grid"), (384, "grid"),
+                                    (385, "grid"),
                                     (400, "grid"), (420, "grid"),
                                     (432, "grid"), (640, "grid"),
                                     (1024, "grid"), (1025, "simt"),
                                     (1040, "simt")])
 def test_float32_backward_route_past_384(H, want):
-    """float32 backwards at 384 < Hp <= 1024 run on the grid kernel (H 420
-    at Hp 432, zero-padded), the 3xTF32 cluster up to 384, the CUDA cores
-    past 1024; the float32 forwards stay on the CUDA cores; bf16 runs on
-    the cluster to 512 both ways and past it on the bf16 grids, forward
-    and backward."""
+    """float32 backwards at 176 < Hp <= 1024 run on the grid kernel (H 420
+    at Hp 432, zero-padded; from 192 to 384 too since the card timed it
+    faster than the 3xTF32 cluster there), the cluster up to 176, the
+    CUDA cores past 1024; the float32 forwards run on the float32 grid forward to
+    1024 (``csrc/rnn_fwd_tf32_grid.cu``) and on the CUDA cores past it;
+    bf16 runs on the cluster to 512 both ways and past it on the bf16
+    grids, forward and backward."""
     f32, bf = torch.float32, torch.bfloat16
     assert R._mma_route(f32, H, "bwd") == want
-    assert R._mma_route(f32, H) == "simt"
+    assert R._mma_route(f32, H) == ("simt" if want == "simt" else "grid")
     small = R._padded_width(H) <= R.CLUSTER_MAX_WIDTH
     assert R._mma_route(bf, H) == ("cluster" if small else "grid")
     assert R._mma_route(bf, H, "bwd") == ("cluster" if small else "grid")
